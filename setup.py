@@ -10,7 +10,9 @@ setup(
     name="mxnet_tpu",
     version="0.1.0",
     description="TPU-native deep learning framework with pre-Gluon MXNet capabilities",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    package_data={"mxnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.9",
     install_requires=["numpy", "jax"],
 )
