@@ -25,8 +25,9 @@ from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402,F401
 from .name import NameManager  # noqa: E402,F401
 from .executor import Executor, bind, simple_bind  # noqa: E402,F401
+from . import optimizer  # noqa: E402,F401
 from . import models, serving  # noqa: E402,F401
 from .convert import params_from_numpy  # noqa: E402,F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "symbol",
-           "ops", "models", "serving", "params_from_numpy"]
+           "ops", "optimizer", "models", "serving", "params_from_numpy"]

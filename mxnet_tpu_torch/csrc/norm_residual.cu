@@ -1,4 +1,4 @@
-// LayerNorm + affine forward over rows, one warp per row.
+// LayerNorm + affine over rows, forward and backward, one warp per row.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_norm_residual.py _fwd_kernel
 // (launched by _fwd_call): y = (x - mean) * rstd * gamma + beta over the last
@@ -12,6 +12,18 @@
 // cancellation), and writes y once. Loads and stores are coalesced: lane l
 // touches columns l, l + 32, ... Rows are independent, so any R works and the
 // grid is R / 4 blocks of four warps.
+//
+// Backward, mxt_layer_norm_bwd: replaces the TPU kernel _bwd_kernel
+// (launched by _bwd_call): dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂∘x̂)) with
+// dx̂ = dy∘γ, and per-block partial dγ = Σ dy∘x̂, dβ = Σ dy rows that the
+// caller sums with one torch reduction, as the TPU path sums its partials in
+// XLA. Also bound by bytes: it reads x and dy once and writes dx once, plus
+// R / 16 partial rows. A warp owns a row in registers, recomputes x̂ from the
+// saved mean and rstd, and takes the two row means as warp reductions. A
+// block owns 16 rows; each lane adds its columns' dγ, dβ terms over the rows
+// its warp takes, and the block adds its four warps' sums in shared memory in
+// a fixed order. There are no atomics, so the sums, and so the result, are
+// the same run to run.
 #include "common.cuh"
 
 namespace {
@@ -59,6 +71,80 @@ layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gam
   }
 }
 
+// Backward: rows_per_block rows per block of kBwdWarps warps, each warp a
+// row at a time, and one partial (dgamma, dbeta) row per block.
+constexpr int kBwdWarps = 4, kBwdRowsPerBlock = 16, kMaxD = 1024;
+
+template <int VPL>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ mean, const float* __restrict__ rstd,
+                      const float* __restrict__ dy, float* __restrict__ dx,
+                      float* __restrict__ dgamma_part, float* __restrict__ dbeta_part,
+                      int R, int D) {
+  __shared__ float red_g[kBwdWarps * kMaxD], red_b[kBwdWarps * kMaxD];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float g[VPL], dg[VPL], db[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    g[i] = c < D ? gamma[c] : 0.f;
+    dg[i] = db[i] = 0.f;
+  }
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBwdRowsPerBlock;
+  for (int rr = warp; rr < kBwdRowsPerBlock; rr += kBwdWarps) {
+    const long long row = row0 + rr;
+    if (row >= R) break;  // warp-uniform
+    const float mu = mean[row], rs = rstd[row];
+    const float* xr = x + row * D;
+    const float* dyr = dy + row * D;
+    float xh[VPL], dxh[VPL];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      xh[i] = dxh[i] = 0.f;
+      if (c < D) {
+        const float d = dyr[c];
+        xh[i] = (xr[c] - mu) * rs;
+        dxh[i] = d * g[i];
+        dg[i] += d * xh[i];
+        db[i] += d;
+        s1 += dxh[i];
+        s2 += dxh[i] * xh[i];
+      }
+    }
+    const float m1 = mxt::warp_sum(s1) / static_cast<float>(D);
+    const float m2 = mxt::warp_sum(s2) / static_cast<float>(D);
+    float* dxr = dx + row * D;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < D) dxr[c] = rs * (dxh[i] - m1 - xh[i] * m2);
+    }
+  }
+  // the block's partial row: its warps' sums added in a fixed order
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < D) {
+      red_g[warp * D + c] = dg[i];
+      red_b[warp * D + c] = db[i];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += kBwdWarps * 32) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) {
+      a += red_g[w * D + c];
+      b += red_b[w * D + c];
+    }
+    dgamma_part[static_cast<size_t>(blockIdx.x) * D + c] = a;
+    dbeta_part[static_cast<size_t>(blockIdx.x) * D + c] = b;
+  }
+}
+
 }  // namespace
 
 extern "C" int mxt_layer_norm_fwd(const float* x, const float* gamma, const float* beta,
@@ -76,6 +162,31 @@ extern "C" int mxt_layer_norm_fwd(const float* x, const float* gamma, const floa
     layer_norm_fwd_kernel<16><<<grid, block, 0, st>>>(x, gamma, beta, y, mean, rstd, R, D, eps);
   } else {
     layer_norm_fwd_kernel<32><<<grid, block, 0, st>>>(x, gamma, beta, y, mean, rstd, R, D, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mxt_layer_norm_bwd(const float* x, const float* gamma, const float* mean,
+                                  const float* rstd, const float* dy, float* dx,
+                                  float* dgamma_part, float* dbeta_part, int R, int D,
+                                  int rows_per_block, void* stream) {
+  if (R < 1 || D < 1 || D > kMaxD || rows_per_block != kBwdRowsPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((R + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
+  const dim3 block(kBwdWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 128) {
+    layer_norm_bwd_kernel<4><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
+                                                     dgamma_part, dbeta_part, R, D);
+  } else if (D <= 256) {
+    layer_norm_bwd_kernel<8><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
+                                                     dgamma_part, dbeta_part, R, D);
+  } else if (D <= 512) {
+    layer_norm_bwd_kernel<16><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
+                                                      dgamma_part, dbeta_part, R, D);
+  } else {
+    layer_norm_bwd_kernel<32><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
+                                                      dgamma_part, dbeta_part, R, D);
   }
   return static_cast<int>(cudaGetLastError());
 }

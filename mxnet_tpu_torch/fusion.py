@@ -9,6 +9,12 @@ on CUDA tensors and the kernel's plain version on CPU tensors. There is no
 conv+BN side, no autotuner and no environment switch: every matched site
 takes its lowering. Where the kernel does not take a site's shapes, a CPU
 site runs the ordinary unfused ops and a CUDA site raises.
+
+Training needs no switch here (the JAX ``_exec_pattern`` takes ``is_train``
+for its gate): the executor runs a training forward under autograd, a
+pattern's lowering records its kernel's autograd Function, and a ``Lazy``
+interior node that a consumer outside the pattern materialises runs ordinary
+torch ops, which carry their gradients like any other node.
 """
 from __future__ import annotations
 

@@ -1,2 +1,2 @@
-"""Model zoo of the port (the transformer LM of the serving slice)."""
+"""Model zoo of the port (the transformer LM, served and trained)."""
 from . import transformer  # noqa: F401

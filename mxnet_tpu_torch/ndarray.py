@@ -1,19 +1,24 @@
-"""NDArray: the tensor holder behind an executor's arguments and outputs.
+"""NDArray: the tensor holder behind an executor's arguments, gradients and
+outputs.
 
-Counterpart of the part of ``mxnet_tpu/ndarray.py`` that ``arg_dict`` and
-``outputs`` use: ``arr[:] = value`` (numpy, tensor or NDArray), ``asnumpy``,
-``shape``, ``dtype``, ``context``, and the internal get/set of the held
+Counterpart of the part of ``mxnet_tpu/ndarray.py`` that ``arg_dict``,
+``grad_dict``, ``outputs`` and the optimizer use: ``arr[:] = value`` (numpy,
+tensor or NDArray), ``asnumpy``, ``shape``, ``dtype``, ``context``,
+``zeros``, ``imperative_invoke``, and the internal get/set of the held
 tensor, ``_tensor``/``_set_tensor`` (the JAX package's ``_jax``/``_set_jax``).
 """
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 import torch
 
 from .base import MXNetError, numpy_dtype, torch_dtype
-from .context import Context
+from .context import Context, current_context
+from .ops.registry import get_op, parse_attrs
 
-__all__ = ["NDArray", "zeros"]
+__all__ = ["NDArray", "zeros", "imperative_invoke"]
 
 
 class NDArray:
@@ -30,6 +35,10 @@ class NDArray:
     @property
     def dtype(self) -> np.dtype:
         return numpy_dtype(self._t.dtype)
+
+    @property
+    def context(self) -> Context:
+        return self._ctx
 
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)), self._ctx)
@@ -60,6 +69,23 @@ class NDArray:
         self._t.copy_(value)
 
 
-def zeros(shape, ctx: Context, dtype="float32") -> NDArray:
-    return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype), device=ctx.torch_device), ctx)
+def zeros(shape, ctx: Context = None, dtype="float32") -> NDArray:
+    """Zeros on ``ctx`` (default ``current_context()``, the GPU)."""
+    ctx = ctx or current_context()
+    return NDArray(torch.zeros(tuple(shape), dtype=torch_dtype(dtype), device=ctx.torch_device),
+                   ctx)
 
+
+def imperative_invoke(op_name, inputs, attrs, out) -> List[NDArray]:
+    """Run a registered op eagerly on NDArrays, outside autograd, and write
+    each result into its ``out`` NDArray in place (reference:
+    MXImperativeInvoke). In place is what the port does where the JAX
+    package rebinds the arrays to new immutable buffers: the optimizer
+    updates a weight and its state where they lie. Returns ``out``."""
+    opdef = get_op(op_name)
+    targets = list(out) if isinstance(out, (list, tuple)) else [out]
+    with torch.no_grad():
+        outs, _ = opdef.apply(parse_attrs(opdef, attrs), [x._tensor() for x in inputs])
+        for t, o in zip(targets, outs):
+            t._tensor().copy_(o)
+    return targets

@@ -39,8 +39,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, BH, T, S, D, scale, causal, stream
     "mxt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, do, lse, delta, dq, BH, T, S, D, scale, causal, stream
+    "mxt_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, do, lse, delta, dk, dv, BH, T, S, D, scale, causal, stream
+    "mxt_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                    _P),
     # x, gamma, beta, y, mean, rstd, R, D, eps, stream
     "mxt_layer_norm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, gamma, mean, rstd, dy, dx, dgamma_part, dbeta_part, R, D, rows_per_block, stream
+    "mxt_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # a, w, bias (or NULL), c, M, N, K, act, stream
     "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

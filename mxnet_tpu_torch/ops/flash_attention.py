@@ -1,18 +1,27 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention, forward and backward: hand-written CUDA kernels and their
+plain versions.
 
-Replaces the TPU kernel ``mxnet_tpu/ops/pallas_attention.py`` ``_fwd_call``
-(:199) → ``_fwd_kernel`` (:81): O = softmax(Q·Kᵀ·scale)V over (B·H, T, D)
-with the online softmax over key tiles, the causal mask bottom-right
-aligned for S >= T, and the f32 row logsumexp beside O.
+Replaces the TPU kernels of ``mxnet_tpu/ops/pallas_attention.py``:
 
-The kernel is ``csrc/flash_attention.cu``. On an H100 the prefill's shape
-is bound by bytes (Q, K, V read once, O written once; the (T, S) scores stay
-on chip). The source's header says how the design keeps them there and how
-the TPU's sequential key axis became a loop inside one block.
+- ``_fwd_call`` (:199) → ``_fwd_kernel`` (:81): O = softmax(Q·Kᵀ·scale)V over
+  (B·H, T, D) with the online softmax over key tiles, the causal mask bottom-
+  right aligned for S >= T, and the f32 row logsumexp beside O;
+- ``_bwd_call`` (:237) → ``_dq_kernel`` (:118) and ``_dkv_kernel`` (:151):
+  dQ, dK, dV with P recomputed from the saved logsumexp and
+  δ = rowsum(dO∘O) computed outside the kernels (:245-247).
 
-``flash_attention`` is the dispatcher: a CPU tensor takes the plain PyTorch
-version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches.
+The kernels are ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``.
+On an H100 the forward at the prefill's shape is bound by bytes (Q, K, V read
+once, O written once; the (T, S) scores stay on chip), the two backward passes
+by operations. The sources' headers say how the designs keep the scores on
+chip and how the TPU's sequential grid axis became a loop inside one block.
+
+``flash_attention``, ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
+are the dispatchers, and ``flash_attention_bwd`` runs the two backward ones: a
+CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
+or raises. ``FlashAttention`` is the autograd Function over them (the JAX
+package's ``custom_vjp``). ``launches``, ``dq_launches`` and ``dkv_launches``
+count kernel launches.
 """
 from __future__ import annotations
 
@@ -23,36 +32,99 @@ import torch
 from ..base import MXNetError
 from . import cuda_build
 
-__all__ = ["flash_attention", "flash_attention_plain", "supported", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain", "FlashAttention",
+           "supported", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128
 _NEG = -1e30
 
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 
 def supported(q_shape, k_shape, causal):
-    """Whether the kernel takes (BH, T, D) queries over (BH, S, D) keys."""
+    """Whether the kernels take (BH, T, D) queries over (BH, S, D) keys."""
     _, T, D = q_shape
     S = k_shape[1]
     return 1 <= D <= MAX_HEAD_DIM and T >= 1 and S >= 1 and not (causal and S < T)
 
 
-def flash_attention_plain(q, k, v, causal=False, scale=0.0):
-    """The kernel's function in plain PyTorch: ``(O, lse)`` for (BH, T, D) inputs."""
-    T, D = q.shape[1], q.shape[2]
-    S = k.shape[1]
-    if scale <= 0:
-        scale = 1.0 / math.sqrt(D)
-    s = torch.matmul(q.to(torch.float32) * scale, k.to(torch.float32).transpose(1, 2))
+def _work_dtype(t):
+    """f32 for f32 and narrower inputs, f64 for f64 (the gradient checks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _scores(q, k, causal, scale):
+    """(Q·scale)·Kᵀ in the working type, masked scores at -1e30."""
+    T, S = q.shape[1], k.shape[1]
+    s = torch.matmul(q.to(_work_dtype(q)) * scale, k.to(_work_dtype(q)).transpose(1, 2))
     if causal:
         mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril(S - T)
         s = s.masked_fill(~mask, _NEG)
+    return s
+
+
+def flash_attention_plain(q, k, v, causal=False, scale=0.0):
+    """The forward kernel's function in plain PyTorch: ``(O, lse)`` for
+    (BH, T, D) inputs."""
+    if scale <= 0:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    s = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p, v.to(torch.float32)) / l
+    o = torch.matmul(p, v.to(s.dtype)) / l
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _recompute(q, k, v, lse, do, delta, causal, scale):
+    """P from the saved lse and dS = P∘(dO·Vᵀ − δ), as each backward kernel
+    recomputes them."""
+    wt = _work_dtype(q)
+    p = torch.exp(_scores(q, k, causal, scale) - lse.to(wt).unsqueeze(-1))
+    dp = torch.matmul(do.to(wt), v.to(wt).transpose(1, 2))
+    return p, p * (dp - delta.to(wt).unsqueeze(-1))
+
+
+def flash_attention_bwd_dq_plain(q, k, v, lse, do, delta, causal, scale):
+    """The dq kernel's function: dQ = scale·dS·K."""
+    _, ds = _recompute(q, k, v, lse, do, delta, causal, scale)
+    return (torch.matmul(ds, k.to(ds.dtype)) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, lse, do, delta, causal, scale):
+    """The dk/dv kernel's function: dK = dSᵀ·(Q·scale), dV = Pᵀ·dO."""
+    p, ds = _recompute(q, k, v, lse, do, delta, causal, scale)
+    dk = torch.matmul(ds.transpose(1, 2), q.to(ds.dtype) * scale)
+    dv = torch.matmul(p.transpose(1, 2), do.to(ds.dtype))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=0.0):
+    """The backward kernels' function in plain PyTorch: ``(dq, dk, dv)``.
+
+    P is recomputed from ``lse`` (BH, T) as ``_dq_kernel``/``_dkv_kernel``
+    do, once for each; δ = rowsum(dO∘O)."""
+    if scale <= 0:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    delta = (do.to(_work_dtype(q)) * o.to(_work_dtype(q))).sum(dim=-1)
+    dq = flash_attention_bwd_dq_plain(q, k, v, lse, do, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, lse, do, delta, causal, scale)
+    return dq, dk, dv
+
+
+def _check_shapes(what, q, k, v, causal):
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise MXNetError("%s: want q (BH, T, D) and k, v (BH, S, D), got %s, %s, %s"
+                         % (what, tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    if not supported(q.shape, k.shape, causal):
+        raise MXNetError("%s: shapes q %s, k %s (causal=%s) are not taken: "
+                         "D <= %d, and S >= T when causal"
+                         % (what, tuple(q.shape), tuple(k.shape), causal, MAX_HEAD_DIM))
 
 
 def flash_attention(q, k, v, causal=False, scale=0.0):
@@ -60,14 +132,7 @@ def flash_attention(q, k, v, causal=False, scale=0.0):
 
     Returns ``(O, lse)``: O is (BH, T, D), lse the (BH, T) f32 row logsumexp.
     ``scale <= 0`` means 1/sqrt(D)."""
-    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise MXNetError("flash_attention: want q (BH, T, D) and k, v (BH, S, D), "
-                         "got %s, %s, %s" % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    if not supported(q.shape, k.shape, causal):
-        raise MXNetError("flash_attention: shapes q %s, k %s (causal=%s) are not taken: "
-                         "D <= %d, and S >= T when causal"
-                         % (tuple(q.shape), tuple(k.shape), causal, MAX_HEAD_DIM))
+    _check_shapes("flash_attention", q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
     cuda_build.check_operands("flash_attention", q, k, v)
@@ -87,3 +152,80 @@ def flash_attention(q, k, v, causal=False, scale=0.0):
         launches += 1
     cuda_build.check(code, "flash_attention")
     return o, lse
+
+
+def flash_attention_bwd_dq(q, k, v, lse, do, delta, causal=False, scale=0.0):
+    """dQ from the saved lse (BH, T), the upstream dO and δ = rowsum(dO∘O)
+    (BH, T): the dq kernel on CUDA tensors, its plain version on the CPU."""
+    _check_shapes("flash_attention_bwd_dq", q, k, v, causal)
+    if scale <= 0:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, lse, do, delta, causal, scale)
+    cuda_build.check_operands("flash_attention_bwd_dq", q, k, v, lse, do, delta)
+    dq = torch.empty_like(q)
+    _launch_bwd("mxt_flash_attention_bwd_dq", (dq,), q, k, v, lse, do, delta, causal, scale)
+    global dq_launches
+    dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, do, delta, causal=False, scale=0.0):
+    """(dK, dV) from the same inputs as ``flash_attention_bwd_dq``: the dk/dv
+    kernel on CUDA tensors, its plain version on the CPU."""
+    _check_shapes("flash_attention_bwd_dkv", q, k, v, causal)
+    if scale <= 0:
+        scale = 1.0 / math.sqrt(q.shape[2])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, lse, do, delta, causal, scale)
+    cuda_build.check_operands("flash_attention_bwd_dkv", q, k, v, lse, do, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("mxt_flash_attention_bwd_dkv", (dk, dv), q, k, v, lse, do, delta, causal,
+                scale)
+    global dkv_launches
+    dkv_launches += 1
+    return dk, dv
+
+
+def _launch_bwd(entry, outs, q, k, v, lse, do, delta, causal, scale):
+    BH, T, D = q.shape
+    with torch.cuda.device(q.device):
+        code = getattr(cuda_build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(o.data_ptr() for o in outs), BH, T, k.shape[1], D,
+            float(scale), int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(code, entry)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=0.0):
+    """dQ, dK, dV of ``flash_attention`` from its O and lse and the upstream
+    dO: δ = rowsum(dO∘O) in one torch reduction, as the JAX package takes it
+    in XLA, then the dq kernel and the dk/dv kernel."""
+    _check_shapes("flash_attention_bwd", q, k, v, causal)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:2]:
+        raise MXNetError("flash_attention_bwd: want o, do %s and lse %s, got %s, %s, %s"
+                         % (tuple(q.shape), tuple(q.shape[:2]), tuple(o.shape),
+                            tuple(do.shape), tuple(lse.shape)))
+    delta = (do.to(_work_dtype(q)) * o.to(_work_dtype(q))).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """O = flash_attention(q, k, v) with the flash backward as its gradient:
+    saves (q, k, v, O, lse) as ``_flash_fwd`` (:307) does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None

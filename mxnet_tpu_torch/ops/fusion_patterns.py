@@ -1,4 +1,4 @@
-"""The fusion patterns of the serving slice.
+"""The fusion patterns of the transformer's serving and training paths.
 
 Counterpart of ``mxnet_tpu/ops/fusion_patterns.py`` for three patterns,
 whose matchers are unchanged:
@@ -14,8 +14,10 @@ Contract per pattern: ``match(node, ctx)`` roots a ``Match`` (root,
 interior nodes, meta) or returns None; interior nodes are single-output,
 stateless, unclaimed and not program outputs, and the executor elides
 them behind lazy markers. ``externals(meta, ins, resolve)`` recovers the
-subgraph's external inputs. ``build(meta, args)`` returns the one lowering,
-the kernel module's dispatcher wrapped to the site's layout. There is no
+subgraph's external inputs. ``build(meta, args)`` returns the one lowering:
+the kernel module's autograd Function wrapped to the site's layout, so a
+site is differentiable through the kernels' backward on CUDA and through
+their plain versions on the CPU. There is no
 autotuner: a matched site always takes its kernel on CUDA and the kernel's
 plain version on the CPU. Only a CPU site whose shapes the kernel does not
 take gets None from ``build`` and runs the unfused ops, as the JAX gate
@@ -121,8 +123,8 @@ class MatmulBiasAct(Pattern):
         act, flatten = meta["act"], meta["flatten"]
 
         def fused(x, w, b=None):
-            y = _mba.matmul_bias_act(x.reshape(m, k).contiguous(), w.contiguous(),
-                                     None if b is None else b.contiguous(), act)
+            y = _mba.MatmulBiasAct.apply(x.reshape(m, k).contiguous(), w.contiguous(),
+                                         None if b is None else b.contiguous(), act)
             return y if flatten else y.reshape(tuple(x.shape[:-1]) + (n,))
 
         return fused
@@ -155,10 +157,9 @@ class Attention(Pattern):
         scale = meta["scale"] if meta["scale"] > 0 else 1.0 / math.sqrt(D)
 
         def flash(q, k, v):
-            o, _ = _fa.flash_attention(q.reshape(B * H, T, D).contiguous(),
-                                       k.reshape(B * H, S, D).contiguous(),
-                                       v.reshape(B * H, S, D).contiguous(),
-                                       causal=causal, scale=scale)
+            o = _fa.FlashAttention.apply(q.reshape(B * H, T, D).contiguous(),
+                                         k.reshape(B * H, S, D).contiguous(),
+                                         v.reshape(B * H, S, D).contiguous(), causal, scale)
             return o.reshape(B, H, T, D)
 
         return flash
@@ -282,9 +283,9 @@ class NormResidual(Pattern):
         eps = meta["eps"]
 
         def layer_norm(x, gamma, beta):
-            y, _, _ = _nr.layer_norm_affine(x.reshape(-1, D).contiguous(),
-                                            gamma.reshape(D).contiguous(),
-                                            beta.reshape(D).contiguous(), eps)
+            y = _nr.LayerNormAffine.apply(x.reshape(-1, D).contiguous(),
+                                          gamma.reshape(D).contiguous(),
+                                          beta.reshape(D).contiguous(), eps)
             return y.reshape(x.shape)
 
         return layer_norm

@@ -13,6 +13,12 @@ prefill's ffn1 is bound by operations, the decode's (M = 8) by bytes.
 ``matmul_bias_act`` is the dispatcher: a CPU tensor takes the plain PyTorch
 version, a CUDA tensor launches the kernel or raises. ``launches`` counts
 kernel launches.
+
+``MatmulBiasAct`` is the autograd Function. Its backward is ``_mba_bwd``
+(:136) as the JAX package has it, which is no Pallas kernel: dpre comes from
+the activated output (relu: y > 0; sigmoid: y(1 − y); tanh: 1 − y²;
+softrelu: 1 − e^{−y}), then three products, da = dpre·W, dW = dpreᵀ·a and
+db = Σ dpre, which stay ``torch.matmul`` and a sum as JAX leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -22,10 +28,19 @@ from ..base import MXNetError
 from . import cuda_build
 from .nn import _ACTS
 
-__all__ = ["matmul_bias_act", "matmul_bias_act_plain", "ACTIVATIONS"]
+__all__ = ["matmul_bias_act", "matmul_bias_act_plain", "MatmulBiasAct", "ACTIVATIONS"]
 
 #: the kernel's activation codes, by position
 ACTIVATIONS = ("relu", "sigmoid", "tanh", "softrelu")
+
+#: each activation's derivative, from the ACTIVATED output y
+_DERIVATIVES = {
+    "relu": lambda y: (y > 0).to(y.dtype),
+    "sigmoid": lambda y: y * (1.0 - y),
+    "tanh": lambda y: 1.0 - y * y,
+    # y = log(1 + e^p)  =>  act'(p) = sigmoid(p) = 1 - e^{-y}
+    "softrelu": lambda y: 1.0 - torch.exp(-y),
+}
 
 launches = 0
 
@@ -66,3 +81,24 @@ def matmul_bias_act(a, w, b, act="relu"):
         launches += 1
     cuda_build.check(code, "matmul_bias_act")
     return c
+
+
+class MatmulBiasAct(torch.autograd.Function):
+    """y = matmul_bias_act(a, w, b, act); saves (a, w, y) and recovers the
+    pre-activation gradient from y, as ``_mba_fwd``/``_mba_bwd`` (:131-146) do."""
+
+    @staticmethod
+    def forward(ctx, a, w, b, act):
+        y = matmul_bias_act(a, w, b, act)
+        ctx.save_for_backward(a, w, y)
+        ctx.act, ctx.has_bias = act, b is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w, y = ctx.saved_tensors
+        dpre = dy * _DERIVATIVES[ctx.act](y)
+        da = torch.matmul(dpre, w)
+        dw = torch.matmul(dpre.t(), a)
+        db = dpre.sum(dim=0) if ctx.has_bias else None
+        return da, dw, db, None

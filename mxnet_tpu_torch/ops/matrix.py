@@ -97,5 +97,8 @@ def _swapaxis(attrs, data):
                               "sparse_grad": AttrSpec("bool", default=False)},
           input_names=("data", "weight"))
 def _embedding(attrs, data, weight):
-    """Lookup-table embedding; float ids are cast to long indices."""
+    """Lookup-table embedding; float ids are cast to long indices. Under
+    autograd the weight's gradient is the scatter-add of the rows' gradients
+    (indexing's backward); the ids get none, and the executor writes zeros
+    for them as the JAX package does for its float ids."""
     return weight[data.long()]

@@ -1,16 +1,23 @@
-"""LayerNorm + affine forward: a hand-written CUDA kernel and its plain version.
+"""LayerNorm + affine, forward and backward: hand-written CUDA kernels and
+their plain versions.
 
-Replaces the TPU kernel ``mxnet_tpu/ops/pallas_norm_residual.py``
-``_fwd_call`` (:117) → ``_fwd_kernel`` (:78): y = (x − mean)·rstd·γ + β over
-the rows of x (R, D), with the per-row mean and rstd beside y.
+Replaces the TPU kernels of ``mxnet_tpu/ops/pallas_norm_residual.py``:
 
-The kernel is ``csrc/norm_residual.cu``: one warp per row, the row held in
-registers, mean and variance taken in two passes over those registers. On
-an H100 it is bound by bytes (one read of x, one write of y).
+- ``_fwd_call`` (:117) → ``_fwd_kernel`` (:78): y = (x − mean)·rstd·γ + β
+  over the rows of x (R, D), with the per-row mean and rstd beside y;
+- ``_bwd_call`` (:144) → ``_bwd_kernel`` (:92): dx = rstd·(dx̂ − mean(dx̂) −
+  x̂·mean(dx̂∘x̂)) with dx̂ = dy∘γ, and per-row-block partial dγ, dβ that are
+  summed outside the kernel (:172).
 
-``layer_norm_affine`` is the dispatcher: a CPU tensor takes the plain
-PyTorch version, a CUDA tensor launches the kernel or raises. ``launches``
-counts kernel launches.
+Both kernels are in ``csrc/norm_residual.cu``: one warp per row, the row held
+in registers. On an H100 both are bound by bytes (forward: one read of x, one
+write of y; backward: one read of x and dy, one write of dx).
+
+``layer_norm_affine`` and ``layer_norm_affine_bwd`` are the dispatchers: a
+CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
+or raises. ``LayerNormAffine`` is the autograd Function over them (the JAX
+package's ``custom_vjp``). ``launches`` and ``bwd_launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -19,11 +26,16 @@ import torch
 from ..base import MXNetError
 from . import cuda_build
 
-__all__ = ["layer_norm_affine", "layer_norm_affine_plain", "supported", "MAX_DIM"]
+__all__ = ["layer_norm_affine", "layer_norm_affine_plain", "layer_norm_affine_bwd",
+           "layer_norm_affine_bwd_plain", "LayerNormAffine", "supported", "MAX_DIM"]
 
 MAX_DIM = 1024
+# rows of one block of the backward kernel, each block one partial dγ/dβ row
+# (kBwdRowsPerBlock in csrc/norm_residual.cu, which refuses any other value)
+BWD_ROWS_PER_BLOCK = 16
 
 launches = 0
+bwd_launches = 0
 
 
 def supported(shape):
@@ -69,3 +81,68 @@ def layer_norm_affine(x, gamma, beta, eps=1e-5):
         launches += 1
     cuda_build.check(code, "layer_norm_affine")
     return y, mean, rstd
+
+
+def layer_norm_affine_bwd_plain(x, gamma, mean, rstd, dy):
+    """The backward kernel's function in plain PyTorch: ``(dx, dgamma, dbeta)``
+    from the forward's saved mean and rstd (R,)."""
+    xhat = (x - mean.unsqueeze(-1)) * rstd.unsqueeze(-1)
+    dxhat = dy * gamma
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd.unsqueeze(-1) * (dxhat - m1 - xhat * m2)
+    return dx, (dy * xhat).sum(dim=0), dy.sum(dim=0)
+
+
+def layer_norm_affine_bwd(x, gamma, mean, rstd, dy):
+    """dx, dgamma, dbeta of ``layer_norm_affine`` over the rows of x (R, D).
+
+    On CUDA the kernel writes dx and one partial dγ/dβ row per block of
+    ``BWD_ROWS_PER_BLOCK`` rows; one torch sum over the partials finishes
+    them, as the JAX package sums its partials in XLA."""
+    if x.ndim != 2 or dy.shape != x.shape or gamma.shape != (x.shape[1],) \
+            or mean.shape != (x.shape[0],) or rstd.shape != (x.shape[0],):
+        raise MXNetError("layer_norm_affine_bwd: want x, dy (R, D), gamma (D,), mean and "
+                         "rstd (R,), got %s, %s, %s, %s, %s"
+                         % (tuple(x.shape), tuple(dy.shape), tuple(gamma.shape),
+                            tuple(mean.shape), tuple(rstd.shape)))
+    if not supported(x.shape):
+        raise MXNetError("layer_norm_affine_bwd: D = %d is not taken (1 <= D <= %d)"
+                         % (x.shape[1], MAX_DIM))
+    if x.device.type == "cpu":
+        return layer_norm_affine_bwd_plain(x, gamma, mean, rstd, dy)
+    cuda_build.check_operands("layer_norm_affine_bwd", x, gamma, mean, rstd, dy)
+    R, D = x.shape
+    dx = torch.empty_like(x)
+    if R == 0:
+        return dx, torch.zeros_like(gamma), torch.zeros_like(gamma)
+    nb = (R + BWD_ROWS_PER_BLOCK - 1) // BWD_ROWS_PER_BLOCK
+    dg_part = torch.empty((nb, D), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((nb, D), dtype=torch.float32, device=x.device)
+    lib = cuda_build.library()
+    global bwd_launches
+    with torch.cuda.device(x.device):
+        code = lib.mxt_layer_norm_bwd(
+            x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), R, D, BWD_ROWS_PER_BLOCK,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        bwd_launches += 1
+    cuda_build.check(code, "layer_norm_affine_bwd")
+    return dx, dg_part.sum(dim=0), db_part.sum(dim=0)
+
+
+class LayerNormAffine(torch.autograd.Function):
+    """y = layer_norm_affine(x, gamma, beta) with the LayerNorm backward as its
+    gradient: saves (x, gamma, mean, rstd), not y, as ``_ln_fwd`` (:181) does."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = layer_norm_affine(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_affine_bwd(x, gamma, mean, rstd, dy.contiguous())
+        return dx, dgamma, dbeta, None

@@ -3,8 +3,10 @@
 Counterpart of ``mxnet_tpu/ops/registry.py`` with the same ``OpDef``
 contract: every operator is a plain function ``fn(attrs, *inputs)`` over
 torch tensors, and ``OpDef.apply`` returns ``(outputs_list, new_aux_list)``.
-The serving slice registers no op with aux state, randomness or a train
-flag; the slots stay so later slices keep the contract.
+The transformer's serving and training paths register no op with aux
+state, randomness or a train flag; the slots stay so later slices keep the
+contract. Gradients come from torch autograd over the ops' functions, with
+an autograd Function where the JAX package has a ``custom_vjp``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Parameter-shape inference rules.
 
 Copied from ``mxnet_tpu/ops/shape_rules.py`` (backend-free), for the ops
-of the serving slice: forward shapes come from running each op on the
+of the transformer's graphs: forward shapes come from running each op on the
 ``meta`` device, but weight, bias and label shapes flow backward from the
 data shape, and these rules fill them in.
 """

@@ -235,15 +235,20 @@ class Symbol:
         return arg_shapes, out_shapes, arg_types, out_types
 
     # --------------------------------------------------------------- binding
-    def simple_bind(self, ctx=None, type_dict=None, **kwargs):
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None, **kwargs):
+        """Allocate every argument (and its gradient, where grad_req is not
+        null) from the given input shapes and bind; ``ctx=None`` is
+        ``current_context()``, the GPU."""
         from .executor import simple_bind as _sb
 
-        return _sb(self, ctx or current_context(), type_dict=type_dict, **kwargs)
+        return _sb(self, ctx or current_context(), grad_req=grad_req, type_dict=type_dict,
+                   **kwargs)
 
-    def bind(self, ctx, args):
+    def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None):
         from .executor import bind as _bind
 
-        return _bind(self, ctx, args)
+        return _bind(self, ctx, args, args_grad=args_grad, grad_req=grad_req,
+                     aux_states=aux_states)
 
     # ------------------------------------------------------------------ JSON
     def tojson(self) -> str:

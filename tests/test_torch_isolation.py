@@ -102,3 +102,12 @@ def test_entry_points_default_to_the_gpu_and_do_not_fall_back(monkeypatch):
         pt.params_from_numpy(params)
     # the CPU is taken only when asked for
     assert pt.params_from_numpy(params, ctx=pt.cpu())["embed_weight"].device.type == "cpu"
+    # a training bind with no ctx is a GPU bind too
+    net = pt.sym.FullyConnected(pt.sym.Variable("x"), num_hidden=3, name="fc")
+    with pytest.raises(pt.MXNetError, match="CUDA is not available"):
+        net.simple_bind(grad_req="write", x=(2, 4))
+    exe = net.simple_bind(ctx=pt.cpu(), grad_req="write", x=(2, 4))
+    exe.arg_dict["x"][:] = np.ones((2, 4), np.float32)
+    exe.forward_backward()
+    np.testing.assert_array_equal(exe.grad_dict["fc_weight"].asnumpy(),
+                                  np.full((3, 4), 2.0, np.float32))

@@ -68,6 +68,12 @@ CASES = [
      [_r(2, 2, 3, 8), _r(2, 2, 7, 8, seed=1), _r(2, 2, 7, 8, seed=2)]),
     ("_contrib_MultiHeadAttention", {"causal": "False", "scale": "0.3"},
      [_r(2, 2, 5, 8), _r(2, 2, 4, 8, seed=1), _r(2, 2, 4, 8, seed=2)]),
+    ("sgd_update", {"lr": "0.1", "wd": "0.01", "rescale_grad": "0.5"},
+     [_r(3, 4), _r(3, 4, seed=1)]),
+    ("sgd_mom_update", {"lr": "0.1", "momentum": "0.9", "wd": "0.01", "clip_gradient": "0.5"},
+     [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2)]),
+    ("adam_update", {"lr": "0.01", "wd": "0.01", "rescale_grad": "0.5", "clip_gradient": "1.0"},
+     [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2), _r(3, 4, seed=3, lo=0.1)]),
 ]
 
 
