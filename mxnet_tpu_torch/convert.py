@@ -1,7 +1,14 @@
 """Parameters from the JAX package (or any numpy source) into the port.
 
-The names are identical in both packages, and so is the FullyConnected
-weight layout (N, K), so conversion is a copy onto the target device.
+The names are identical in both packages, and so are the layouts: the
+FullyConnected weight (N, K), the Convolution weight OIHW, BatchNorm's gamma
+and beta and its aux states moving_mean and moving_var (C,). So conversion
+is a copy onto the target device, the same call for a JAX executor's
+arguments and for its aux states:
+
+    args = params_from_numpy(jax_exe.arg_dict, ctx)
+    aux = params_from_numpy(jax_exe.aux_dict, ctx)
+    port_exe.copy_params_from(args, aux)
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@
 Counterpart of ``mxnet_tpu/executor.py``: ``_GraphProgram`` (:36) holds the
 topological order and the fusion plan, ``interpret`` (:158) walks the graph
 over torch tensors, and ``Executor`` runs it with the reference's
-``grad_req`` semantics (write|add|null per argument). There is no jit:
+``grad_req`` semantics (write|add|null per argument) and aux states (the
+moving statistics of BatchNorm, :158-224): a training forward returns each
+op's new aux values, threaded back by variable name, and the executor writes
+them into its aux arrays in place. There is no jit:
 PyTorch runs each op as it is reached, and the fused sites launch their CUDA
 kernels. The JAX package takes gradients with ``jax.vjp`` over the traced
 graph; here a training forward runs under torch autograd, which records the
@@ -38,36 +41,51 @@ class _GraphProgram:
         # value must materialize as a program output
         self.fusion_plan = _fusion.plan(self.topo,
                                         output_ids={id(n) for n, _ in symbol._outputs})
-        self.pattern_sites = _fusion.plan_sites(self.fusion_plan)
+        self.pattern_sites, self.conv_bn_directives = _fusion.plan_sites(self.fusion_plan)
         self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
         self._arg_index = {n: i for i, n in enumerate(self.arg_names)}
+        self._aux_index = {n: i for i, n in enumerate(self.aux_names)}
         self.outputs = list(symbol._outputs)
         self.output_names = symbol.list_outputs()
 
-    def interpret(self, arg_vals):
-        """Run the graph on torch tensors; returns the output tuple."""
+    def interpret(self, arg_vals, aux_vals, is_train):
+        """Run the graph on torch tensors; returns ``(outputs, new_aux)``,
+        each op's new aux values in the place of the aux variables it reads."""
         vals = {}
+        new_aux = list(aux_vals)
         for node in self.topo:
             if node.is_variable:
-                vals[(id(node), 0)] = arg_vals[self._arg_index[node.name]]
+                if node.name in self._arg_index:
+                    vals[(id(node), 0)] = arg_vals[self._arg_index[node.name]]
+                else:
+                    vals[(id(node), 0)] = aux_vals[self._aux_index[node.name]]
                 continue
+            opdef = get_op(node.op)
+            n_aux = len(opdef.aux_names(node.parsed_attrs()))
             ins = [vals[(id(inp), oi)] for inp, oi in node.inputs]
+            ins, aux = ins[:len(ins) - n_aux], ins[len(ins) - n_aux:]
             directive = self.fusion_plan.get(id(node))
             if directive is not None:
-                outs = _fusion.execute(directive, node, ins)
+                outs, aux_out = _fusion.execute(directive, node, ins, aux, is_train)
             else:
-                outs, _ = get_op(node.op).apply(node.parsed_attrs(),
-                                                [_fusion.resolve(x) for x in ins])
+                outs, aux_out = opdef.apply(node.parsed_attrs(), [_fusion.resolve(x) for x in ins],
+                                            aux=aux, is_train=is_train)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
-        return tuple(_fusion.resolve(vals[(id(n), i)]) for n, i in self.outputs)
+            for (inp, _), new in zip(node.inputs[len(node.inputs) - n_aux:], aux_out):
+                if not inp.is_variable:
+                    raise MXNetError("aux input of %s must be a variable" % node.name)
+                new_aux[self._aux_index[inp.name]] = new
+        outputs = tuple(_fusion.resolve(vals[(id(n), i)]) for n, i in self.outputs)
+        return outputs, tuple(new_aux)
 
 
 class Executor:
     """A bound computation (reference: python/mxnet/executor.py)."""
 
     def __init__(self, symbol, ctx: Context, arg_arrays, grad_arrays=None, grad_req=None,
-                 program=None):
+                 aux_arrays=None, program=None):
         self._symbol = symbol
         self._ctx = ctx
         self._prog = program or _GraphProgram(symbol)
@@ -78,6 +96,8 @@ class Executor:
         self.arg_dict: Dict[str, NDArray] = dict(zip(self._prog.arg_names, self.arg_arrays))
         self.grad_dict: Dict[str, Optional[NDArray]] = dict(zip(self._prog.arg_names,
                                                                 self.grad_arrays))
+        self.aux_arrays: List[NDArray] = list(aux_arrays or [])
+        self.aux_dict: Dict[str, NDArray] = dict(zip(self._prog.aux_names, self.aux_arrays))
         self.outputs: List[NDArray] = []
         self.output_dict: Dict[str, NDArray] = {}
         # (leaf tensors, output tensors) of the last training forward: the
@@ -88,10 +108,13 @@ class Executor:
     def _needs_grad(self):
         return any(r != "null" for r in self._grad_req)
 
+    def _aux_tensors(self):
+        return tuple(a._tensor() for a in self.aux_arrays)
+
     def _run_train(self):
-        """Run the graph under autograd from the bound arguments: every
-        floating-point argument whose req is not null becomes a leaf that
-        requires grad. Returns (leaves, outputs)."""
+        """Run the training forward under autograd from the bound arguments:
+        every floating-point argument whose req is not null becomes a leaf
+        that requires grad. Returns ((leaves, outputs), new_aux)."""
         leaves = []
         for arr, req in zip(self.arg_arrays, self._grad_req):
             t = arr._tensor()
@@ -99,8 +122,17 @@ class Executor:
                 t = t.detach().requires_grad_(True)
             leaves.append(t)
         with torch.enable_grad():
-            outs = self._prog.interpret(tuple(leaves))
-        return leaves, outs
+            outs, new_aux = self._prog.interpret(tuple(leaves), self._aux_tensors(), True)
+        return (leaves, outs), new_aux
+
+    def _write_aux(self, new_aux):
+        """The training forward's new aux values into the aux arrays, in
+        place (the JAX package rebinds them, :309)."""
+        with torch.no_grad():
+            for arr, new in zip(self.aux_arrays, new_aux):
+                t = arr._tensor()
+                if new is not t:
+                    t.copy_(new)
 
     def _set_outputs(self, outs):
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
@@ -112,15 +144,22 @@ class Executor:
 
         With ``is_train=True`` and some grad_req not null the forward runs
         under autograd and keeps its graph for ``backward()``; otherwise it
-        runs under ``torch.no_grad()`` and keeps nothing."""
+        runs under ``torch.no_grad()`` and keeps nothing. A training forward
+        (``is_train=True``, gradients or not) writes the new moving stats
+        into the aux arrays."""
         # release the previous step's graph before building the next one, or
         # two sets of saved activations coexist on the device (JAX :357)
         self._graph = None
         if is_train and self._needs_grad():
-            self._graph = self._run_train()
-            return self._set_outputs(self._graph[1])
-        with torch.no_grad():
-            outs = self._prog.interpret(tuple(a._tensor() for a in self.arg_arrays))
+            self._graph, new_aux = self._run_train()
+            outs = self._graph[1]
+        else:
+            with torch.no_grad():
+                outs, new_aux = self._prog.interpret(
+                    tuple(a._tensor() for a in self.arg_arrays), self._aux_tensors(),
+                    bool(is_train))
+        if is_train:
+            self._write_aux(new_aux)
         return self._set_outputs(outs)
 
     def backward(self, out_grads=None):
@@ -129,7 +168,8 @@ class Executor:
         After ``forward(is_train=True)`` this consumes that forward's graph;
         without one (a second ``backward``, or none before) it runs the
         training forward again from the bound arguments first, as the JAX
-        package runs its fused forward+backward then. ``out_grads`` are the
+        package runs its fused forward+backward then, and discards that
+        forward's aux values as JAX does (:431). ``out_grads`` are the
         head gradients, one per output; without them each output's is ones
         (a loss head such as SoftmaxOutput ignores it)."""
         if out_grads is not None:
@@ -140,14 +180,27 @@ class Executor:
                                  % (len(self._prog.outputs), len(out_grads)))
         graph, self._graph = self._graph, None  # the graph is consumed here
         if graph is None:
-            graph = self._run_train()
+            graph, _ = self._run_train()
         self._apply_grads(self._grads(graph, out_grads))
 
     def forward_backward(self, out_grads=None, is_train=True):
-        """One training step's forward and backward; returns ``outputs``."""
+        """One training step's forward and backward; returns ``outputs``.
+        The aux arrays take the step's new values once (JAX :452)."""
         self.forward(is_train=is_train)
         self.backward(out_grads)
         return self.outputs
+
+    def copy_params_from(self, arg_params, aux_params=None, allow_extra_params=False):
+        """Copy {name: array} (NDArray, tensor or numpy) into the bound
+        arguments and aux states (JAX :457); a name the executor does not
+        have raises unless ``allow_extra_params``."""
+        for params, table, what in ((arg_params, self.arg_dict, "arguments"),
+                                    (aux_params, self.aux_dict, "aux states")):
+            for name, arr in (params or {}).items():
+                if name in table:
+                    table[name][:] = arr
+                elif not allow_extra_params:
+                    raise MXNetError("Found name %r not in executor %s" % (name, what))
 
     def _grads(self, graph, out_grads):
         """One gradient (or None) per argument."""
@@ -222,12 +275,11 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None):
 
     ``args`` and ``args_grad`` are dicts by name or lists in the order of
     ``symbol.list_arguments()``. Without ``args_grad`` nothing gets a
-    gradient; an argument ``args_grad`` leaves out gets req null. No op of
-    the port has aux state, so ``aux_states`` must be empty."""
+    gradient; an argument ``args_grad`` leaves out gets req null.
+    ``aux_states`` is a dict by name or a list in the order of
+    ``symbol.list_auxiliary_states()``, and must hold every aux state."""
     from .analysis.rewrite import rewrite_for_bind
 
-    if aux_states:
-        raise MXNetError("bind: no op of this port has aux states, got %d" % len(aux_states))
     names = symbol.list_arguments()
     args = _by_name(args, names, "args")
     reqs = dict(zip(names, _normalize_grad_req(grad_req, names)))
@@ -241,17 +293,33 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None):
     grad_arrays = [grads.get(n) for n in prog.arg_names]
     req_list = [reqs.get(n, "null") if g is not None else "null"
                 for n, g in zip(prog.arg_names, grad_arrays)]
+    # as mxnet_tpu/executor.py:631-643
+    if aux_states is None:
+        if prog.aux_names:
+            raise MXNetError("bind: missing aux states %s" % prog.aux_names)
+        aux_arrays = []
+    elif isinstance(aux_states, dict):
+        missing = [n for n in prog.aux_names if n not in aux_states]
+        if missing:
+            raise MXNetError("bind: missing aux states %s" % missing)
+        aux_arrays = [aux_states[n] for n in prog.aux_names]
+    else:
+        aux_arrays = list(aux_states)
+        if len(aux_arrays) != len(prog.aux_names):
+            raise MXNetError("bind: expected %d aux states, got %d"
+                             % (len(prog.aux_names), len(aux_arrays)))
     return Executor(symbol, ctx, [args[n] for n in prog.arg_names], grad_arrays, req_list,
-                    program=prog)
+                    aux_arrays, program=prog)
 
 
 def simple_bind(symbol, ctx, grad_req="write", type_dict=None, **kwargs):
     """Infer shapes and dtypes from the given input shapes, allocate every
-    argument, and a gradient array for each whose req is not null, as zeros
-    on ``ctx``, and bind."""
+    argument, a gradient array for each whose req is not null, and every
+    aux state, as zeros on ``ctx`` (JAX :689), and bind."""
     shape_hints = {k: tuple(v) for k, v in kwargs.items() if v is not None}
     type_hints = {k: np_dtype(v) for k, v in (type_dict or {}).items()}
-    arg_shapes, _, arg_types, _ = symbol._infer_impl(shape_hints, type_hints)
+    arg_shapes, _, aux_shapes, arg_types, _, aux_types = symbol._infer_impl(shape_hints,
+                                                                            type_hints)
     ctx = current_context() if ctx is None else ctx
     ctx = Context(ctx) if not isinstance(ctx, Context) else ctx
     names = symbol.list_arguments()
@@ -259,4 +327,6 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, **kwargs):
     arrays = {n: zeros(s, ctx=ctx, dtype=t) for n, s, t in zip(names, arg_shapes, arg_types)}
     grads = {n: zeros(s, ctx=ctx, dtype=t)
              for n, s, t, r in zip(names, arg_shapes, arg_types, reqs) if r != "null"}
-    return bind(symbol, ctx, arrays, args_grad=grads, grad_req=reqs)
+    aux = {n: zeros(s, ctx=ctx, dtype=t)
+           for n, s, t in zip(symbol.list_auxiliary_states(), aux_shapes, aux_types)}
+    return bind(symbol, ctx, arrays, args_grad=grads, grad_req=reqs, aux_states=aux)

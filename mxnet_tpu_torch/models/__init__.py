@@ -1,2 +1,3 @@
-"""Model zoo of the port (the transformer LM, served and trained)."""
-from . import transformer  # noqa: F401
+"""Model zoo of the port: the transformer LM and the pre-activation ResNet,
+each served and trained."""
+from . import resnet, transformer  # noqa: F401

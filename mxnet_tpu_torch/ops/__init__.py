@@ -1,13 +1,13 @@
 """Operator library of the port: the registry, the ops of the transformer's
-serving and training paths, the optimizer updates, and the hand-written CUDA
-kernels behind their dispatchers.
+and the ResNet's serving and training paths, the optimizer updates, and the
+hand-written CUDA kernels behind their dispatchers.
 
 Importing it registers the ops; it needs neither ``nvcc`` nor a GPU (the
 kernels build at their first launch).
 """
 from . import registry  # noqa: F401
 from . import elemwise, broadcast_reduce, matrix, nn, attention, optimizer_ops  # noqa: F401
-from . import flash_attention, norm_residual, matmul_bias_act  # noqa: F401
+from . import flash_attention, norm_residual, matmul_bias_act, conv_bn  # noqa: F401
 from .registry import get_op, list_ops  # noqa: F401
 
 #: kernel name -> (its module, the module's plain-integer launch counter)
@@ -18,6 +18,9 @@ KERNELS = {
     "norm_residual": (norm_residual, "launches"),
     "norm_residual_bwd": (norm_residual, "bwd_launches"),
     "matmul_bias_act": (matmul_bias_act, "launches"),
+    "conv_bn": (conv_bn, "launches"),
+    "conv_bn_infer": (conv_bn, "infer_launches"),
+    "conv_bn_bwd": (conv_bn, "bwd_launches"),
 }
 
 

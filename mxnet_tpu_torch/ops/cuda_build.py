@@ -50,6 +50,12 @@ _SIGNATURES = {
     "mxt_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # a, w, bias (or NULL), c, M, N, K, act, stream
     "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w, scale, shift, res, c, part, sums (the last five or NULL), B, K, H, W, N, taps,
+    # stride, relu, parts, stream
+    "mxt_conv_bn_fwd": (_P,) * 8 + (_I,) * 9 + (_P,),
+    # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dres, B, K, H, W, N,
+    # taps, stride, relu, parts, splits, stream
+    "mxt_conv_bn_bwd": (_P,) * 14 + (_I,) * 10 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
 """Shape manipulation and indexing ops.
 
 Counterpart of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with MXNet's shape
-codes, ``slice_axis``, ``SwapAxis``, ``expand_dims`` and ``Embedding``.
+codes, ``Flatten``, ``slice_axis``, ``SwapAxis``, ``expand_dims`` and
+``Embedding``.
 """
 from __future__ import annotations
 
@@ -65,6 +66,12 @@ def _reshape(attrs, data):
     else:
         tgt = _reshape_target(spec, tuple(data.shape))
     return torch.reshape(data, tgt)
+
+
+@register("Flatten", aliases=("flatten",))
+def _flatten(attrs, data):
+    """(B, ...) -> (B, prod(...)) (JAX mxnet_tpu/ops/matrix.py:122)."""
+    return torch.reshape(data, (data.shape[0], -1))
 
 
 @register("expand_dims", attrs={"axis": AttrSpec("int", required=True)})

@@ -1,13 +1,21 @@
 """Neural-network layer ops.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` for the transformer's paths:
-``FullyConnected`` (flatten and ``flatten=False``, weight in the (N, K)
-layout), ``Activation``, ``softmax`` and ``SoftmaxOutput``, the training
-symbol's head, whose backward is its own loss gradient (an autograd
-Function, the JAX package's ``custom_vjp``). A product outside any fused
-pattern stays ``torch.matmul``; the other ops differentiate through torch.
+Counterpart of ``mxnet_tpu/ops/nn.py`` for the transformer's and the
+ResNet's paths: ``FullyConnected`` (flatten and ``flatten=False``, weight in
+the (N, K) layout), ``Convolution`` (NCHW data, OIHW weight; stride, pad,
+dilate, num_group, bias), ``Pooling`` (max, avg and sum; ``global_pool``;
+the ``valid`` and ``full`` conventions; avg counts the padding, as the
+reference's pool does), ``BatchNorm`` (moving-stat aux state; a training
+forward through the hand-derived backward of JAX ``_bn_train_core``, an
+autograd Function), ``Activation``, ``softmax`` and ``SoftmaxOutput``, the
+training symbol's head, whose backward is its own loss gradient (an autograd
+Function, the JAX package's ``custom_vjp``). A product or convolution
+outside any fused site stays ``torch.matmul`` or ``F.conv2d``, as the JAX
+package leaves them to XLA; the other ops differentiate through torch.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +40,98 @@ def _fully_connected(attrs, data, weight, bias=None):
     if bias is not None:
         y = y + bias
     return y
+
+
+# --- Convolution (JAX mxnet_tpu/ops/nn.py:84) ---------------------------------
+def _conv_attrs():
+    return {
+        "kernel": AttrSpec("shape", required=True),
+        "stride": AttrSpec("shape", default=()),
+        "dilate": AttrSpec("shape", default=()),
+        "pad": AttrSpec("shape", default=()),
+        "num_filter": AttrSpec("int", required=True),
+        "num_group": AttrSpec("int", default=1),
+        "workspace": AttrSpec("int", default=1024),
+        "no_bias": AttrSpec("bool", default=False),
+        "cudnn_tune": AttrSpec("str", default=None),
+        "cudnn_off": AttrSpec("bool", default=False),
+        "layout": AttrSpec("str", default=None),
+        "target_shape": AttrSpec("shape", default=()),
+        "adj": AttrSpec("shape", default=()),
+    }
+
+
+def _spatial(attrs, key, nd, fill):
+    v = attrs.get(key) or ()
+    return tuple(v) if len(v) == nd else (fill,) * nd
+
+
+_CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", attrs=_conv_attrs(), input_names=_fc_names,
+          aliases=("Convolution_v1",))
+def _convolution(attrs, data, weight, bias=None):
+    """NC+spatial data, OI+spatial weight (the reference's layouts); the
+    bias is added after the product, as the JAX op adds it."""
+    nd = len(attrs["kernel"])
+    out = _CONV_FNS[nd](data, weight, None, _spatial(attrs, "stride", nd, 1),
+                        _spatial(attrs, "pad", nd, 0), _spatial(attrs, "dilate", nd, 1),
+                        attrs["num_group"])
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+# --- Pooling (JAX mxnet_tpu/ops/nn.py:140) -------------------------------------
+@register("Pooling", attrs={"kernel": AttrSpec("shape", required=True),
+                            "pool_type": AttrSpec("str", default="max"),
+                            "global_pool": AttrSpec("bool", default=False),
+                            "stride": AttrSpec("shape", default=()),
+                            "pad": AttrSpec("shape", default=()),
+                            "pooling_convention": AttrSpec("str", default="valid"),
+                            "cudnn_off": AttrSpec("bool", default=False)},
+          aliases=("Pooling_v1",))
+def _pooling(attrs, data):
+    """Max, avg or sum over windows. The padding is explicit, as the JAX
+    op's ``reduce_window`` pads: -inf for max, 0 for avg and sum, and for the
+    ``full`` convention the high edge is padded by JAX's own formula
+    (:165-172) rather than ``ceil_mode``'s. Avg divides by the window size
+    (count-include-pad)."""
+    nd = data.ndim - 2
+    if attrs["global_pool"]:
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
+    else:
+        kernel = tuple(attrs["kernel"])
+        stride, pad = _spatial(attrs, "stride", nd, 1), _spatial(attrs, "pad", nd, 0)
+    if attrs["pooling_convention"] == "full":
+        pads = []
+        for i in range(nd):
+            in_sz = data.shape[2 + i] + 2 * pad[i]
+            out_sz = -(-(in_sz - kernel[i]) // stride[i]) + 1
+            needed = (out_sz - 1) * stride[i] + kernel[i] - in_sz
+            pads.append((pad[i], pad[i] + max(needed, 0)))
+    else:
+        pads = [(p, p) for p in pad]
+    pt = attrs["pool_type"]
+    if pt not in ("max", "avg", "sum"):
+        raise MXNetError("unknown pool_type %r" % pt)
+    if nd == 1:  # as a 2-D pool over a unit row
+        out = _pooling_nd(data.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                          [(0, 0)] + pads, pt)
+        return out.squeeze(2)
+    return _pooling_nd(data, kernel, stride, pads, pt)
+
+
+def _pooling_nd(data, kernel, stride, pads, pool_type):
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]  # F.pad: last axis first
+    if any(flat):
+        data = F.pad(data, flat, value=-math.inf if pool_type == "max" else 0.0)
+    nd = data.ndim - 2
+    if pool_type == "max":
+        return (F.max_pool2d if nd == 2 else F.max_pool3d)(data, kernel, stride)
+    avg = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    return avg(data, kernel, stride, divisor_override=1 if pool_type == "sum" else None)
 
 
 _ACTS = {
@@ -114,3 +214,90 @@ class _SoftmaxOutput(torch.autograd.Function):
         prob, label = ctx.saved_tensors
         dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
         return _softmax_output_grad(prob, label, ctx.attrs), dlabel, None
+
+
+# --- BatchNorm (JAX mxnet_tpu/ops/nn.py:367) -----------------------------------
+def _bn_outputs(attrs):
+    return 3 if attrs.get("output_mean_var") else 1
+
+
+def _bn_axes(x):
+    return (0,) + tuple(range(2, x.ndim))
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """``(out, mean, var)`` of a training BatchNorm with the hand-derived
+    backward of JAX ``_bn_train_core`` (:291, backward :338-361): the biased
+    batch variance, every reduction in a float32 accumulator, dgamma 0 under
+    fix_gamma, and the cotangents of the mean and var outputs folded into dx
+    (``output_mean_var=True`` graphs differentiate through them)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, fix_gamma):
+        axes, b = _bn_axes(x), (1, -1) + (1,) * (x.ndim - 2)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        cnt = x.numel() // x.shape[1]
+        x32 = x.to(acc)
+        mean = x32.sum(dim=axes) / cnt
+        var = (x32 * x32).sum(dim=axes) / cnt - mean * mean
+        m, istd = mean.to(x.dtype), torch.rsqrt(var + eps).to(x.dtype)
+        xhat = (x - m.reshape(b)) * istd.reshape(b)
+        out = xhat + beta.reshape(b) if fix_gamma else xhat * gamma.reshape(b) + beta.reshape(b)
+        ctx.save_for_backward(x, gamma, m, istd)
+        ctx.fix_gamma = fix_gamma
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, ct_mean, ct_var):
+        x, gamma, m, istd = ctx.saved_tensors
+        axes, b = _bn_axes(x), (1, -1) + (1,) * (x.ndim - 2)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        cnt = x.numel() // x.shape[1]
+        dy = torch.zeros_like(x) if dy is None else dy
+        xhat = (x - m.reshape(b)) * istd.reshape(b)
+        dbeta32 = dy.to(acc).sum(dim=axes)
+        dgamma32 = (dy * xhat).to(acc).sum(dim=axes)
+        g_istd = (istd if ctx.fix_gamma else gamma * istd).to(x.dtype)
+        c1, c2 = (dbeta32 / cnt).to(x.dtype), (dgamma32 / cnt).to(x.dtype)
+        dx = g_istd.reshape(b) * (dy - c1.reshape(b) - xhat * c2.reshape(b))
+        if ct_mean is not None:
+            dx = dx + (ct_mean / cnt).to(x.dtype).reshape(b)
+        if ct_var is not None:
+            dx = dx + (2.0 * ct_var / cnt).to(x.dtype).reshape(b) * (x - m.reshape(b))
+        dgamma = torch.zeros_like(dgamma32) if ctx.fix_gamma else dgamma32
+        return dx, dgamma.to(gamma.dtype), dbeta32.to(gamma.dtype), None, None
+
+
+@register("BatchNorm", attrs={"eps": AttrSpec("float", default=1e-3),
+                              "momentum": AttrSpec("float", default=0.9),
+                              "fix_gamma": AttrSpec("bool", default=True),
+                              "use_global_stats": AttrSpec("bool", default=False),
+                              "output_mean_var": AttrSpec("bool", default=False)},
+          input_names=("data", "gamma", "beta"), aux_names=("moving_mean", "moving_var"),
+          num_outputs=_bn_outputs,
+          output_names=lambda a: ["output", "mean", "var"][: _bn_outputs(a)],
+          needs_train_flag=True)
+def _batch_norm(attrs, inputs, aux, is_train=False):
+    """Channel-axis-1 batch norm. A training forward (without
+    use_global_stats) normalises with the batch statistics and returns the
+    new moving stats, ``moving·momentum + batch·(1 − momentum)``, as the
+    op's new aux values; the executor writes them into the aux arrays. An
+    inference forward normalises with the moving stats."""
+    data, gamma, beta = inputs
+    moving_mean, moving_var = aux
+    eps, momentum = attrs["eps"], attrs["momentum"]
+    b = (1, -1) + (1,) * (data.ndim - 2)
+    if is_train and not attrs["use_global_stats"]:
+        out, mean, var = _BatchNormTrain.apply(data, gamma, beta, float(eps),
+                                               bool(attrs["fix_gamma"]))
+        new_mean = moving_mean * momentum + mean.detach() * (1 - momentum)
+        new_var = moving_var * momentum + var.detach() * (1 - momentum)
+        outs = (out, mean.to(data.dtype), var.to(data.dtype)) if attrs["output_mean_var"] \
+            else (out,)
+        return outs, (new_mean, new_var)
+    if attrs["fix_gamma"]:
+        gamma = torch.ones_like(gamma)  # a constant: no gradient reaches gamma
+    out = (data - moving_mean.reshape(b)) * torch.rsqrt(moving_var.reshape(b) + eps)
+    out = out * gamma.reshape(b) + beta.reshape(b)
+    outs = (out, moving_mean, moving_var) if attrs["output_mean_var"] else (out,)
+    return outs, (moving_mean, moving_var)

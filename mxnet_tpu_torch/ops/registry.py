@@ -3,10 +3,13 @@
 Counterpart of ``mxnet_tpu/ops/registry.py`` with the same ``OpDef``
 contract: every operator is a plain function ``fn(attrs, *inputs)`` over
 torch tensors, and ``OpDef.apply`` returns ``(outputs_list, new_aux_list)``.
-The transformer's serving and training paths register no op with aux
-state, randomness or a train flag; the slots stay so later slices keep the
-contract. Gradients come from torch autograd over the ops' functions, with
-an autograd Function where the JAX package has a ``custom_vjp``.
+An op with aux state (``BatchNorm``: its moving mean and variance) is
+``fn(attrs, inputs, aux, is_train=...)`` and returns its new aux values
+beside its outputs; ``needs_train_flag`` passes ``is_train``. No op of the
+port draws random numbers yet; the ``needs_rng`` slot stays so a later slice
+keeps the contract. Gradients come from torch autograd over the ops'
+functions, with an autograd Function where the JAX package has a
+``custom_vjp``.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Parameter-shape inference rules.
 
 Copied from ``mxnet_tpu/ops/shape_rules.py`` (backend-free), for the ops
-of the transformer's graphs: forward shapes come from running each op on the
-``meta`` device, but weight, bias and label shapes flow backward from the
-data shape, and these rules fill them in.
+of the transformer's and the ResNet's graphs: forward shapes come from
+running each op on the ``meta`` device, but weight, bias, label and aux-state
+shapes flow backward from the data shape, and these rules fill them in. Each
+rule gets the inputs' shapes ordered ``input_names + aux_names``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,31 @@ def _fc(attrs, shapes):
             shapes[1] = (nh, d)
         if len(shapes) > 2 and shapes[2] is None:
             shapes[2] = (nh,)
+    return shapes
+
+
+# copied from mxnet_tpu/ops/shape_rules.py (_conv, backend-free)
+@rule("Convolution")
+def _conv(attrs, shapes):
+    data = shapes[0]
+    if data is not None:
+        nf, g = attrs["num_filter"], attrs.get("num_group", 1)
+        if shapes[1] is None:
+            shapes[1] = (nf, data[1] // g) + tuple(attrs["kernel"])
+        if len(shapes) > 2 and shapes[2] is None:
+            shapes[2] = (nf,)
+    return shapes
+
+
+# copied from mxnet_tpu/ops/shape_rules.py (_bn, backend-free)
+@rule("BatchNorm")
+def _bn(attrs, shapes):
+    data = shapes[0]
+    if data is not None:
+        c = (data[1],)
+        for i in range(1, 5):  # gamma, beta, moving_mean, moving_var
+            if shapes[i] is None:
+                shapes[i] = c
     return shapes
 
 

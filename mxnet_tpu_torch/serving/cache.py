@@ -65,7 +65,7 @@ class PersistentExecutableCache:
                 types[n] = np_dtype(v.dtype)
         for n in shapes:
             types.setdefault(n, np_dtype("float32"))
-        arg_shapes, _, arg_types, _ = self._sym._infer_impl(shapes, types)
+        arg_shapes, _, _, arg_types, _, _ = self._sym._infer_impl(shapes, types)
         inputs = set(self.input_names)
         args = {}
         for n, s, t in zip(arg_names, arg_shapes, arg_types):

@@ -5,7 +5,9 @@ op registry, with the reference's ``*-symbol.json`` format, so the same
 constructor calls give the same JSON in both packages. Shape inference
 runs each op's torch function on the ``meta`` device (the JAX package uses
 ``jax.eval_shape``); parameter shapes that flow backward from the data
-come from ``ops/shape_rules.py``.
+come from ``ops/shape_rules.py``. A variable that feeds an op's aux slot
+(BatchNorm's moving mean and variance) is an auxiliary state, listed by
+``list_auxiliary_states`` and not by ``list_arguments``.
 """
 from __future__ import annotations
 
@@ -55,6 +57,13 @@ class _Node:
         if self.op is None:
             return 1
         return self.opdef().num_outputs(self.parsed_attrs())
+
+
+def _aux_positions(node: _Node) -> int:
+    """Number of trailing inputs of ``node`` that are aux states."""
+    if node.op is None:
+        return 0
+    return len(node.opdef().aux_names(node.parsed_attrs()))
 
 
 def _topo_order(head_nodes) -> List[_Node]:
@@ -121,9 +130,31 @@ class Symbol:
     def _topo(self) -> List[_Node]:
         return _topo_order(self._head_nodes())
 
+    def _classified_variables(self):
+        """Topo-ordered (args, auxs) variable node lists. A variable feeding an
+        aux slot of any consumer is an auxiliary state (copied from
+        mxnet_tpu/symbol.py :130)."""
+        topo = self._topo()
+        aux_vars = set()
+        for node in topo:
+            n_aux = _aux_positions(node)
+            if n_aux:
+                for inp, _ in node.inputs[len(node.inputs) - n_aux:]:
+                    if inp.is_variable:
+                        aux_vars.add(id(inp))
+        args, auxs = [], []
+        for node in topo:
+            if node.is_variable:
+                (auxs if id(node) in aux_vars else args).append(node)
+        return args, auxs
+
     def list_arguments(self) -> List[str]:
-        """Variable names in topological order (no op of this port has aux state)."""
-        return [n.name for n in self._topo() if n.is_variable]
+        """Argument names in topological order, aux states left out."""
+        return [n.name for n in self._classified_variables()[0]]
+
+    def list_auxiliary_states(self) -> List[str]:
+        """Aux state names (BatchNorm's moving stats) in topological order."""
+        return [n.name for n in self._classified_variables()[1]]
 
     def list_outputs(self) -> List[str]:
         out = []
@@ -162,16 +193,17 @@ class Symbol:
         """(arg_shapes, out_shapes, aux_shapes) from input shapes; (None, None,
         None) when the given shapes leave some argument undetermined."""
         try:
-            arg_s, out_s = self._infer_impl(
-                {k: tuple(v) for k, v in kwargs.items() if v is not None}, {})[:2]
+            return self._infer_impl(
+                {k: tuple(v) for k, v in kwargs.items() if v is not None}, {})[:3]
         except _IncompleteInference:
             return None, None, None
-        return arg_s, out_s, []
 
     def _infer_impl(self, shape_hints: dict, type_hints: dict):
-        """Shapes and dtypes of every argument and output:
-        ``(arg_shapes, out_shapes, arg_types, out_types)``."""
+        """Shapes and dtypes of every argument, output and aux state:
+        ``(arg_shapes, out_shapes, aux_shapes, arg_types, out_types,
+        aux_types)``."""
         topo = self._topo()
+        args, auxs = self._classified_variables()
         shape: Dict[Tuple[int, int], Optional[tuple]] = {}
         dtype: Dict[Tuple[int, int], np.dtype] = {}
         var_shape: Dict[str, Optional[tuple]] = {}
@@ -219,20 +251,22 @@ class Symbol:
                         dtype[(id(inp), 0)] = d
                 in_dtypes.append(d)
             outs = _eval_node_shape(node.op, _freeze(parsed), tuple(in_shapes),
-                                    tuple(d.name for d in in_dtypes))
+                                    tuple(d.name for d in in_dtypes), _aux_positions(node))
             for i, (sh, dt) in enumerate(outs[: node.num_outputs()]):
                 shape[(id(node), i)] = sh
                 dtype[(id(node), i)] = np.dtype(dt)
-        args = [n for n in topo if n.is_variable]
         arg_shapes = [var_shape.get(n.name) for n in args]
-        if any(s is None for s in arg_shapes):
+        aux_shapes = [var_shape.get(n.name) for n in auxs]
+        if any(s is None for s in arg_shapes + aux_shapes):
             raise _IncompleteInference("underdetermined shapes for arguments %s"
-                                       % [n.name for n, s in zip(args, arg_shapes) if s is None])
+                                       % [n.name for n in args + auxs
+                                          if var_shape.get(n.name) is None])
         arg_types = [var_dtype.get(n.name) or np.dtype(np.float32) for n in args]
+        aux_types = [var_dtype.get(n.name) or np.dtype(np.float32) for n in auxs]
         out_shapes = [shape[(id(n), i)] for n, i in self._outputs]
         out_types = [dtype.get((id(n), i), var_dtype.get(n.name)) or np.dtype(np.float32)
                      for n, i in self._outputs]
-        return arg_shapes, out_shapes, arg_types, out_types
+        return arg_shapes, out_shapes, aux_shapes, arg_types, out_types, aux_types
 
     # --------------------------------------------------------------- binding
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None, **kwargs):
@@ -280,11 +314,13 @@ def _parse_shape_attr(v):
 
 
 @functools.lru_cache(maxsize=16384)
-def _eval_node_shape(op_name, attrs_key, in_shapes, in_dtypes):
-    """Run one op on ``meta`` tensors: its output shapes and dtypes, no data."""
+def _eval_node_shape(op_name, attrs_key, in_shapes, in_dtypes, n_aux):
+    """Run one op on ``meta`` tensors: its output shapes and dtypes, no data.
+    The last ``n_aux`` inputs are its aux states."""
     ins = [torch.empty(s, dtype=torch_dtype(d), device="meta")
            for s, d in zip(in_shapes, in_dtypes)]
-    outs, _ = get_op(op_name).apply(dict(attrs_key), ins)
+    n_in = len(ins) - n_aux
+    outs, _ = get_op(op_name).apply(dict(attrs_key), ins[:n_in], aux=ins[n_in:])
     return tuple((tuple(int(x) for x in o.shape), numpy_dtype(o.dtype).name) for o in outs)
 
 

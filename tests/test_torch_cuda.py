@@ -13,6 +13,7 @@ import torch
 import mxnet_tpu_torch as pt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as ptf
+from mxnet_tpu_torch.ops import conv_bn as cb
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import matmul_bias_act as mba
 from mxnet_tpu_torch.ops import norm_residual as nr
@@ -138,7 +139,8 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"flash_attention": L, "flash_attention_dq": L,
                                    "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
-                                   "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L}
+                                   "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L,
+                                   "conv_bn": 0, "conv_bn_infer": 0, "conv_bn_bwd": 0}
     exes[1].forward_backward()
     for n in reqs:
         got, want = exes[0].grad_dict[n].asnumpy(), exes[1].grad_dict[n].asnumpy()
@@ -159,3 +161,76 @@ def test_training_site_the_kernels_do_not_take_raises(dev):
         fa.flash_attention_bwd_dq(*(_randn(dev, 2, 8, 160) for _ in range(3)),
                                   torch.zeros(2, 8, device=dev), _randn(dev, 2, 8, 160),
                                   torch.zeros(2, 8, device=dev), causal=True)
+
+
+def _conv_case(dev, B, K, H, W, N, kernel, stride, variant, seed=0):
+    x = _randn(dev, B, K, H, W, seed=seed)
+    w = _randn(dev, N, K, kernel, kernel, scale=1 / math.sqrt(K * kernel * kernel), seed=seed)
+    scale = shift = res = None
+    if variant != "bare":
+        scale = 0.5 + _randn(dev, K, seed=seed + 1).abs()
+        shift = _randn(dev, K, scale=0.5, seed=seed + 2)
+    Ho, Wo = cb.strided_dims(H, W, (stride, stride)) if kernel == 1 else (H, W)
+    if variant == "prologue_res":
+        res = _randn(dev, B, N, Ho, Wo, seed=seed + 3)
+    return x, w, scale, shift, res, (Ho, Wo)
+
+
+def _close(got, want, rtol):
+    """float32 on both sides, summed in other orders: within rtol of the
+    largest magnitude of the plain result."""
+    torch.testing.assert_close(got, want, rtol=0, atol=rtol * max(1.0, float(want.abs().max())))
+
+
+# (B, K, H, W, N, kernel, stride): ragged 3x3 (9 x 9 is two 8-pixel tiles a
+# side), a 64-channel 3x3, 1x1 stride 2 on an odd grid, N not a multiple of
+# the 64-channel tile, the smallest grid the gate takes (3 x 3), K of 1032
+CONV_SHAPES = [(2, 8, 9, 9, 16, 3, 1), (2, 64, 14, 14, 64, 3, 1), (2, 16, 9, 9, 24, 1, 2),
+               (3, 32, 7, 7, 72, 1, 1), (1, 8, 3, 3, 10, 1, 1), (2, 1032, 4, 4, 8, 1, 1)]
+
+
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", CONV_SHAPES)
+@pytest.mark.parametrize("variant", ["bare", "prologue", "prologue_res"])
+def test_conv_bn_kernels_match_plain(dev, B, K, H, W, N, kernel, stride, variant):
+    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, B, K, H, W, N, kernel, stride, variant)
+    st, relu = (stride, stride), variant != "bare"
+    before = (cb.launches, cb.infer_launches, cb.bwd_launches)
+    got = cb.conv_block(x, w, scale, shift, res, st, relu)
+    want = cb.conv_block_plain(x, w, scale, shift, res, st, relu)
+    # c: K·taps-long dot products; the sums: B·H'W'-long
+    for g, p, tol in zip(got, want, (1e-5, 1e-5, 1e-5)):
+        _close(g, p, tol)
+    _close(cb.conv_block_infer(x, w, scale, shift, st, relu),
+           cb.conv_block_infer_plain(x, w, scale, shift, st, relu), 1e-5)
+    dc = _randn(dev, B, N, Ho, Wo, seed=7)
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (x, w, scale, shift, got[0], dc, ds, dq, st, relu, res is not None)
+    gb, pb = cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*args)
+    assert (cb.launches, cb.infer_launches, cb.bwd_launches) == tuple(v + 1 for v in before)
+    # dx: N·taps-long sums; dw, dscale, dshift: B·H'W'-long; dres: elementwise
+    for g, p in zip(gb, pb):
+        assert (g is None) == (p is None)
+        if g is not None:
+            _close(g, p, 1e-5)
+
+
+def test_conv_bn_kernels_are_deterministic(dev):
+    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, 4, 64, 28, 28, 64, 3, 1, "prologue_res")
+    a = cb.conv_block(x, w, scale, shift, res, (1, 1), True)
+    b = cb.conv_block(x, w, scale, shift, res, (1, 1), True)
+    dc, ds, dq = _randn(dev, 4, 64, Ho, Wo), _randn(dev, 64), _randn(dev, 64)
+    ga = cb.conv_block_bwd(x, w, scale, shift, a[0], dc, ds, dq, (1, 1), True, True)
+    gb = cb.conv_block_bwd(x, w, scale, shift, a[0], dc, ds, dq, (1, 1), True, True)
+    for u, v in zip(a + ga, b + gb):
+        assert torch.equal(u, v)
+
+
+def test_conv_bn_refuses_what_it_does_not_take(dev):
+    x, w = _randn(dev, 2, 12, 8, 8), _randn(dev, 16, 12, 3, 3)
+    with pytest.raises(MXNetError, match="does not take"):
+        cb.conv_block(x, w, None, None)  # K = 12 is not a multiple of 8
+    x = _randn(dev, 2, 16, 8, 8)
+    with pytest.raises(MXNetError, match="does not take"):
+        cb.conv_block(x, _randn(dev, 16, 16, 3, 3), None, None, stride=(2, 2))
+    with pytest.raises(MXNetError, match="float32"):
+        cb.conv_block(x.double(), _randn(dev, 16, 16, 1, 1).double(), None, None)

@@ -82,7 +82,7 @@ def test_fusion_plan_sites_match_the_reference(which, expected, monkeypatch):
     jr = jrewrite_for_bind(js, shapes, types)[0]
     jsites = jfusion.plan_sites(jfusion.plan(jr._topo(), output_ids={id(n) for n, _ in jr._outputs}))[0]
     pr = rewrite_for_bind(ps)
-    psites = pfusion.plan_sites(pfusion.plan(pr._topo(), output_ids={id(n) for n, _ in pr._outputs}))
+    psites = pfusion.plan_sites(pfusion.plan(pr._topo(), output_ids={id(n) for n, _ in pr._outputs}))[0]
     names = ("attention", "matmul_bias_act", "norm_residual")
     assert {k: v for k, v in jsites.items() if k in names} == expected
     assert psites == expected
@@ -92,7 +92,7 @@ def test_layer_norm_needs_the_rewrite_to_match():
     """The zoo's LayerNorm is naive on purpose: before cse+canonicalize no
     norm_residual site roots; after, every one does."""
     _, ps, _ = _both("prefill")
-    raw = pfusion.plan_sites(pfusion.plan(ps._topo(), output_ids={id(n) for n, _ in ps._outputs}))
+    raw = pfusion.plan_sites(pfusion.plan(ps._topo(), output_ids={id(n) for n, _ in ps._outputs}))[0]
     assert raw.get("norm_residual", 0) == 0
     pr = rewrite_for_bind(ps)
     assert len(pr._topo()) < len(ps._topo())
@@ -114,7 +114,8 @@ def test_executor_forward_matches_unfused_ops():
     prog = pt.executor._GraphProgram(ps)  # the original graph, nothing matches
     assert not prog.pattern_sites.get("norm_residual")
     with torch.no_grad():
-        plain = prog.interpret(tuple(exe.arg_dict[n]._tensor() for n in prog.arg_names))
+        plain, _ = prog.interpret(tuple(exe.arg_dict[n]._tensor() for n in prog.arg_names), (),
+                                  False)
     for f, p in zip(fused, plain):
         np.testing.assert_allclose(f, p.numpy(), atol=1e-5, rtol=1e-5)
 

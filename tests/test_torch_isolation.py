@@ -68,7 +68,8 @@ def _run_blocked(blocked, body, env_extra=None):
 def test_package_imports_with_jax_and_the_jax_package_blocked():
     out = _run_blocked(FORBIDDEN, """
 import mxnet_tpu_torch, mxnet_tpu_torch.serving, mxnet_tpu_torch.models.transformer
-import mxnet_tpu_torch.analysis, mxnet_tpu_torch.convert
+import mxnet_tpu_torch.analysis, mxnet_tpu_torch.convert, mxnet_tpu_torch.models.resnet
+import mxnet_tpu_torch.ops.conv_bn, mxnet_tpu_torch.fusion
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("ok")
 """)
@@ -80,10 +81,12 @@ def test_ops_import_and_run_without_nvcc_or_triton():
 import shutil, torch
 assert shutil.which("nvcc") is None
 from mxnet_tpu_torch import ops
-from mxnet_tpu_torch.ops import norm_residual as nr
+from mxnet_tpu_torch.ops import conv_bn as cb, norm_residual as nr
 x = torch.randn(4, 16)
 y, _, _ = nr.layer_norm_affine(x, torch.ones(16), torch.zeros(16))
 assert y.shape == (4, 16) and ops.launch_counts()["norm_residual"] == 0
+c, s, q = cb.conv_block(torch.randn(2, 8, 4, 4), torch.randn(8, 8, 3, 3), None, None)
+assert c.shape == (2, 8, 4, 4) and ops.launch_counts()["conv_bn"] == 0
 print("ok")
 """, env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert out.strip().endswith("ok")

@@ -68,6 +68,18 @@ CASES = [
      [_r(2, 2, 3, 8), _r(2, 2, 7, 8, seed=1), _r(2, 2, 7, 8, seed=2)]),
     ("_contrib_MultiHeadAttention", {"causal": "False", "scale": "0.3"},
      [_r(2, 2, 5, 8), _r(2, 2, 4, 8, seed=1), _r(2, 2, 4, 8, seed=2)]),
+    ("Convolution", {"kernel": "(3, 3)", "num_filter": "4", "pad": "(1, 1)", "no_bias": "True"},
+     [_r(2, 3, 5, 5), _r(4, 3, 3, 3, seed=1)]),
+    ("Convolution", {"kernel": "(1, 1)", "num_filter": "4", "stride": "(2, 2)"},
+     [_r(2, 3, 5, 5), _r(4, 3, 1, 1, seed=1), _r(4, seed=2)]),
+    ("Pooling", {"kernel": "(3, 3)", "stride": "(2, 2)", "pad": "(1, 1)", "pool_type": "max"},
+     [_r(2, 3, 7, 6)]),
+    ("Pooling", {"kernel": "(7, 7)", "global_pool": "True", "pool_type": "avg"},
+     [_r(2, 3, 4, 5)]),
+    ("Flatten", {}, [_r(2, 3, 4)]),
+    # data, gamma, beta, then the aux states moving_mean, moving_var
+    ("BatchNorm", {"fix_gamma": "False", "eps": "2e-05", "momentum": "0.9"},
+     [_r(2, 3, 4, 4), _r(3, seed=1), _r(3, seed=2), _r(3, seed=3), _r(3, seed=4, lo=0.5)]),
     ("sgd_update", {"lr": "0.1", "wd": "0.01", "rescale_grad": "0.5"},
      [_r(3, 4), _r(3, 4, seed=1)]),
     ("sgd_mom_update", {"lr": "0.1", "momentum": "0.9", "wd": "0.01", "clip_gradient": "0.5"},
@@ -85,8 +97,11 @@ def _case_id(case):
 def test_op_matches_the_reference(op, attrs, inputs):
     jop, pop = jreg.get_op(op), preg.get_op(op)
     assert pop.name == jop.name  # same canonical name, so the same Symbol JSON
-    jout, _ = jop.apply(jreg.parse_attrs(jop, attrs), [jnp.asarray(x) for x in inputs])
-    pout, _ = pop.apply(preg.parse_attrs(pop, attrs), [torch.from_numpy(x) for x in inputs])
+    n_in = len(pop.input_names(preg.parse_attrs(pop, attrs)))  # the rest are aux states
+    jout, _ = jop.apply(jreg.parse_attrs(jop, attrs), [jnp.asarray(x) for x in inputs[:n_in]],
+                        aux=[jnp.asarray(x) for x in inputs[n_in:]])
+    pout, _ = pop.apply(preg.parse_attrs(pop, attrs), [torch.from_numpy(x) for x in inputs[:n_in]],
+                        aux=[torch.from_numpy(x) for x in inputs[n_in:]])
     assert len(pout) == len(jout)
     for p, j in zip(pout, jout):
         j = np.asarray(j)
