@@ -9,8 +9,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 
 1. Device and build: print the card's name and power limit, build the
    CUDA kernels from ``mxnet_tpu_torch/csrc``.
-2. Kernel checks: each kernel against its plain PyTorch version on the card,
-   at the serving and training paths' shapes and at ragged ones, with its
+2. Kernel checks: each kernel (and three kernels compiled at run time
+   through ``rtc``) against its plain PyTorch version on the card, at the
+   serving, training and deploy paths' shapes and at ragged ones, with its
    time, the plain version's, a PyTorch library call's, and the least time
    the card could take (one JSON line per kernel and shape).
 3. Serving: full-width Transformer-base greedy decode through
@@ -35,8 +36,18 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    steps whose conv_bn and conv_bn_bwd launches are the plan's 49 each a
    step, whose loss must fall and whose moving stats must change, with a
    profiler breakdown of one step. TF32 must be off in both ResNet phases.
-7. A ``{"kernels": [...]}`` line, then the card's name/power line, then the
-   last line ``{"ok": true, "device": {...}}``.
+7. Deploy: ResNet-50's symbol, weights and moving stats are written with
+   ``model.save_checkpoint``, read back as a string and bytes, and served by
+   ``Predictor`` on the default context; raw images are normalised on the
+   card by a CUDA kernel compiled at run time through ``rtc``; the
+   probabilities must agree with a direct ``bind``; ``reshape`` to batch 1
+   and back binds nothing the second time; a second predictor over the
+   symbol's internals taps the input of stage 1's 1x1 shortcut convolution,
+   and ``matmul_with_stats`` gives that convolution's output and its
+   per-channel statistics from the checkpoint's weight, held against
+   ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
+8. A ``{"kernels": [...]}`` line of ten kernels, then the card's name/power
+   line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -45,6 +56,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,6 +90,45 @@ RESNET_SITES = 49
 # CPU's float64 gradient as this many times the CPU's float32 one does (the
 # randomly initialised net is chaotic there, PERF.md §6, PR 3)
 RESNET_F64_FACTOR = 8.0
+
+# The deploy phase: ResNet-50 served by Predictor from a checkpoint on disk at
+# batch 32 and 1; raw images in U(0, 255) are normalised on the card with
+# ImageNet's per-channel mean and standard deviation by an rtc kernel.
+DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
+              std=(58.40, 57.12, 57.38), tap="stage1_unit1_relu1_output",
+              tap_weight="stage1_unit1_sc_weight")
+# matmul_with_stats: ResNet-50's 1x1 convolutions at batch 32 as (M, K, N)
+# matrices (stage 1's 64->256 and 256->64 at 56 x 56, stage 2's 512->128 at
+# 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
+MATMUL_STATS_SHAPES = [(100352, 64, 256, ""), (100352, 256, 64, "k256_"),
+                       (25088, 512, 128, "k512_"), (1568, 2048, 512, "k2048_"),
+                       (1000, 70, 200, None)]
+
+# The user kernels rtc compiles at run time. The parameters are the inputs'
+# device pointers in order, then the outputs'; sizes are written into the
+# source. Beside each stands its plain version, a torch expression.
+RTC_NORMALISE = r"""
+extern "C" __global__ void rtc_normalise(const float* x, const float* mean, const float* stdv,
+                                         float* y) {
+  const int HW = %(hw)d, C = %(c)d, n = %(n)d;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int ch = (i / HW) %% C;
+    y[i] = (x[i] - mean[ch]) / stdv[ch];
+  }
+}
+"""
+RTC_FMA = r"""
+extern "C" __global__ void rtc_fma(const float* a, const float* b, float* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < %(n)d) o[i] = a[i] + b[i] * 3.0f;
+}
+"""
+RTC_SPLIT = r"""
+extern "C" __global__ void rtc_split(const float* x, float* o1, float* o2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < %(n)d) { o1[i] = x[i] + 1.0f; o2[i] = x[i] - 1.0f; }
+}
+"""
 
 # Published peaks, dense, from NVIDIA's H100 data sheet: float32 outside the
 # tensor cores (the kernels' arithmetic, TF32 off) and HBM bandwidth.
@@ -114,6 +165,10 @@ KERNELS = {
                 "conv_bn_fwd"),
     "conv_bn_bwd": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu", "mxnet_tpu/ops/pallas_conv_bn.py:511",
                     "conv_bn_bwd"),
+    "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
+                     "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats"),
+    # the mechanism is rtc.py; the kernels it launches here are the strings above
+    "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:65", "rtc_"),
 }
 
 
@@ -152,16 +207,22 @@ def device_ms(fn, iters=30, key=None):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA") \
-                and (key is None or key in evt.key):
-            total_us += float(getattr(evt, "self_device_time_total",
-                                      getattr(evt, "self_cuda_time_total", 0.0)))
+    # now and then the profiler hands back a window without any device event
+    # (one window in some ten runs of this script): such a window is taken
+    # again, and the run fails when three in a row show nothing
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA") \
+                    and (key is None or key in evt.key):
+                total_us += float(getattr(evt, "self_device_time_total",
+                                          getattr(evt, "self_cuda_time_total", 0.0)))
+        if total_us > 0:
+            break
     check(total_us > 0, ("the profiler shows no device time", key))
     return total_us / 1e3 / iters
 
@@ -294,6 +355,7 @@ def check_kernels(peaks):
         log(rec)
     check_backward_kernels(randn, peaks, entries, worst)
     check_conv_kernels(randn, peaks, entries, worst)
+    check_deploy_kernels(randn, peaks, entries, worst)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
     return entries
@@ -514,6 +576,140 @@ def check_conv_kernels(randn, peaks, entries, worst):
                 entries["conv_bn"].update({prefix + k: v for k, v in fwd.items()})
                 entries["conv_bn_bwd"].update({prefix + k: v for k, v in bwd.items()})
         log(rec)
+
+
+def normalise_kernel(pt, shape):
+    """The rtc image-normalisation kernel for NCHW ``shape``, with a
+    grid-stride launch that fills the card."""
+    B, C, H, W = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pt.rtc.Rtc("rtc_normalise", RTC_NORMALISE % dict(hw=H * W, c=C, n=B * C * H * W),
+                      kernel_name="rtc_normalise", grid=(8 * sms,), block=(256,))
+
+
+def check_deploy_kernels(randn, peaks, entries, worst):
+    """Phase 2, the deploy path's kernels: matmul_with_stats against its
+    plain version at ResNet-50's 1x1 convolutions and a ragged shape, and
+    three kernels compiled at run time through rtc against their torch
+    expressions."""
+    import mxnet_tpu_torch as pt
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+
+    for M, K, N, prefix in MATMUL_STATS_SHAPES:
+        a, b = randn(M, K), randn(K, N, scale=1.0 / math.sqrt(K))
+        got, again = ms.matmul_with_stats(a, b), ms.matmul_with_stats(a, b)
+        want = ms.matmul_with_stats_plain(a, b)
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              ("matmul_stats: two runs differ", M, K, N))
+        errs = {n: rel_err(g, w) for n, g, w in zip(("c", "col_sum", "col_sumsq"), got, want)}
+        for n, e in errs.items():
+            check(math.isfinite(e) and e <= CONV_TOL["elementwise" if n == "c" else "sums"],
+                  ("matmul_stats", n, M, K, N, e))
+        abs_err = float((got[0] - want[0]).abs().max())
+        worst["matmul_stats"] = max(worst.get("matmul_stats", 0.0), abs_err)
+        rec = {"phase": "kernel", "name": "matmul_stats", "shape": [M, K, N], "rel_err": errs,
+               "max_abs_err": abs_err, "bitwise_repeatable": True}
+        if prefix is not None:
+            ms_ = device_ms(lambda: ms.matmul_with_stats(a, b), key=KERNELS["matmul_stats"][2])
+            plain_ms = device_ms(lambda: ms.matmul_with_stats_plain(a, b))
+
+            def library():
+                c = torch.mm(a, b)
+                return c, c.sum(dim=0), (c * c).sum(dim=0)
+
+            lib_ms = device_ms(library)
+            mm_ms = device_ms(lambda: torch.mm(a, b))
+            b_ms, b_by = bound(2.0 * M * K * N + 3.0 * M * N,
+                               4.0 * (M * K + K * N + M * N + 2 * N), peaks)
+            times = dict(ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms, mm_alone_ms=mm_ms)
+            rec.update(times)
+            if not prefix:
+                entries["matmul_stats"] = entry(
+                    "matmul_stats", library="torch.mm + c.sum(0) + (c*c).sum(0)",
+                    shape="a (%d,%d) b (%d,%d)" % (M, K, K, N), **times)
+            else:
+                entries["matmul_stats"].update({prefix + k: v for k, v in times.items()
+                                                if k != "bound_by"})
+        log(rec)
+
+    # ---- rtc: (a) per-channel normalisation at the deploy batch, (b) a + 3b,
+    # (c) one input and two outputs; each synchronised and checked after its push
+    gpu = pt.gpu(0)
+
+    def nd(t):
+        return pt.nd.NDArray(t, gpu)
+
+    shape = (DEPLOY["batch"],) + image_shape()
+    x = torch.rand(*shape, device="cuda") * 255.0
+    mean = torch.tensor(DEPLOY["mean"], device="cuda")
+    std = torch.tensor(DEPLOY["std"], device="cuda")
+    k = normalise_kernel(pt, shape)
+    t0 = time.perf_counter()
+    (y,) = k.push([nd(x), nd(mean), nd(std)], out_shapes=[shape])
+    torch.cuda.synchronize()
+    first_push_s = time.perf_counter() - t0
+    compiled = k.compiles  # 0 when build/torch_kernels/rtc/ already held the image
+    check(compiled <= 1 and k.launches == 1, ("rtc compiles/launches", compiled, k.launches))
+
+    def plain():
+        return (x - mean.view(1, -1, 1, 1)) / std.view(1, -1, 1, 1)
+
+    want = plain()
+    err = float((y._tensor() - want).abs().max())
+    # the kernel does the same two IEEE operations an element: equal up to rounding
+    check(math.isfinite(err) and err <= 1e-6 * float(want.abs().max()), ("rtc_normalise", err))
+    (y2,) = k.push([nd(x), nd(mean), nd(std)], out_shapes=[shape], grid_dims=(1024, 1, 1),
+                   block_dims=(128,))
+    torch.cuda.synchronize()
+    check(k.compiles == compiled and torch.equal(y2._tensor(), y._tensor()),
+          "rtc: a second geometry recompiled or changed the result")
+    args = [nd(x), nd(mean), nd(std)]
+    host_us = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        k.push(args, out_shapes=[shape])
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    ms_ = device_ms(lambda: k.push(args, out_shapes=[shape]), key="rtc_normalise")
+    plain_ms = device_ms(plain)
+    n = x.numel()
+    b_ms, b_by = bound(2.0 * n, 4.0 * (2 * n + 2 * len(DEPLOY["mean"])), peaks)
+    worst["rtc"] = err
+    entries["rtc"] = entry("rtc", ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=None, library="no single PyTorch call computes it",
+                           shape="rtc_normalise x %s" % (shape,), first_push_s=first_push_s,
+                           first_push_compiled=bool(compiled),
+                           push_host_us_p50=float(np.median(host_us)))
+    log({"phase": "kernel", "name": "rtc_normalise", "shape": list(shape), "max_abs_err": err,
+         "bitwise": bool(torch.equal(y._tensor(), want)), "kernel_ms": ms_, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "first_push_s": first_push_s,
+         "first_push_compiled": bool(compiled),
+         "push_host_us_p50": float(np.median(host_us)),
+         "push_host_us_p80": float(np.percentile(host_us, 80))})
+
+    a, b = randn(1000, 333), randn(1000, 333)
+    n = a.numel()
+    fma = pt.rtc.Rtc("rtc_fma", RTC_FMA % dict(n=n), kernel_name="rtc_fma")
+    (o,) = fma.push([nd(a), nd(b)], out_shapes=[a.shape], grid_dims=(-(-n // 256),),
+                    block_dims=(256,))
+    torch.cuda.synchronize()
+    want = a + b * 3.0
+    err_fma = float((o._tensor() - want).abs().max())
+    # the compiler may fuse the multiply into the add: one rounding fewer
+    check(err_fma <= 1e-6 * float(want.abs().max()), ("rtc_fma", err_fma))
+    split = pt.rtc.Rtc("rtc_split", RTC_SPLIT % dict(n=n), kernel_name="rtc_split",
+                       grid=(-(-n // 128),), block=(128,))
+    o1, o2 = split.push([nd(a)], out_shapes=[a.shape, (n,)])
+    torch.cuda.synchronize()
+    check(o2.shape == (n,) and o2.dtype == np.float32, ("rtc_split output", o2.shape, o2.dtype))
+    err_split = max(float((o1._tensor() - (a + 1.0)).abs().max()),
+                    float((o2._tensor() - (a - 1.0).reshape(-1)).abs().max()))
+    check(err_split == 0.0, ("rtc_split", err_split))
+    worst["rtc"] = max(worst["rtc"], err_fma, err_split)
+    for name, e in (("rtc_fma", err_fma), ("rtc_split", err_split)):
+        log({"phase": "kernel", "name": name, "shape": list(a.shape), "max_abs_err": e})
 
 
 def random_params():
@@ -1123,6 +1319,145 @@ def run_resnet_train(pt, net, args, aux):
     return launches
 
 
+def run_deploy(pt, net, args, aux):
+    """Phase 7: the deploy surface at ResNet-50's full width."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.predictor import Predictor, load_ndarray_file
+
+    check_tf32_off()
+    B, shape1 = DEPLOY["batch"], (1,) + image_shape()
+    shape = (B,) + image_shape()
+    out = {"phase": "deploy", "model": RESNET, "batch": B}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = tmp + "/resnet50"
+        t0 = time.perf_counter()
+        pt.model.save_checkpoint(prefix, DEPLOY["epoch"], net, args, aux)
+        out["save_checkpoint_s"] = time.perf_counter() - t0
+        with open(prefix + "-symbol.json") as f:
+            json_str = f.read()
+        with open("%s-%04d.params" % (prefix, DEPLOY["epoch"]), "rb") as f:
+            blob = f.read()
+        check(pt.model.find_last_checkpoint(prefix) == DEPLOY["epoch"], "find_last_checkpoint")
+    out["checkpoint_bytes"] = len(blob)
+    t0 = time.perf_counter()
+    loaded = load_ndarray_file(blob)  # onto the default context, the card
+    torch.cuda.synchronize()
+    out["load_params_s"] = time.perf_counter() - t0
+    check(set(loaded) == {"arg:" + n for n in args} | {"aux:" + n for n in aux},
+          "the checkpoint's names")
+    for tag, values in (("arg:", args), ("aux:", aux)):
+        for n, v in values.items():
+            arr = loaded[tag + n]
+            check(arr.context == pt.gpu(0) and np.array_equal(arr.asnumpy(), v),
+                  ("the .params file does not load back equal", n))
+
+    t0 = time.perf_counter()
+    pred = Predictor(json_str, blob, {"data": shape})
+    torch.cuda.synchronize()
+    out["predictor_create_s"] = time.perf_counter() - t0
+    check(pred.executables_bound == 1, "the predictor binds its first shape once")
+
+    rs = np.random.RandomState(SEED + 5)
+    raw = pt.nd.array(rs.uniform(0, 255, shape).astype(np.float32))
+    mean, std = pt.nd.array(np.array(DEPLOY["mean"], np.float32)), \
+        pt.nd.array(np.array(DEPLOY["std"], np.float32))
+    kernel = normalise_kernel(pt, shape)
+    kernel.push([raw, mean, std], out_shapes=[shape])  # loads the image (built in phase 2)
+    torch.cuda.synchronize()
+    tap = Predictor(pt.sym.load_json(json_str).get_internals()[DEPLOY["tap"]].tojson(), blob,
+                    {"data": shape})
+    w_sc = loaded["arg:" + DEPLOY["tap_weight"]]  # (256, 64, 1, 1)
+
+    # ---- the main path, with the counts set to 0 just before and read just after
+    ops.reset_launch_counts()
+    (x,) = kernel.push([raw, mean, std], out_shapes=[shape])
+    torch.cuda.synchronize()  # a fault inside the pushed kernel shows here
+    pred.forward(data=x)
+    probs = pred.get_output(0)
+    tap.forward(data=x)
+    feat = pt.nd.array(tap.get_output(0))  # (B, 64, 56, 56)
+    a = pt.nd.transpose(feat, axes=(0, 2, 3, 1)).reshape((-1, feat.shape[1]))
+    b = w_sc.reshape(w_sc.shape[:2]).T
+    c, col_sum, col_sumsq = ms.matmul_with_stats(a._tensor(), b._tensor())
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expected = {"rtc": 1, "conv_bn_infer": RESNET_SITES, "matmul_stats": 1}
+    check(launches == with_zeros(expected), ("deploy launch counts", launches))
+
+    # ---- what came out
+    check(probs.shape == (B, RESNET["num_classes"]) and np.isfinite(probs).all(),
+          ("deploy output", probs.shape))
+    check(np.allclose(probs.sum(axis=1), 1.0, atol=1e-4), "deploy probabilities")
+    xn = x.asnumpy()
+    want_x = (raw.asnumpy() - np.array(DEPLOY["mean"], np.float32).reshape(1, -1, 1, 1)) \
+        / np.array(DEPLOY["std"], np.float32).reshape(1, -1, 1, 1)
+    check(np.allclose(xn, want_x, rtol=1e-6, atol=1e-6), "rtc normalisation vs numpy")
+    exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, "null", xn, np.zeros((B,), np.float32))
+    direct = exe.forward(is_train=False)[0].asnumpy()
+    del exe
+    err = float(np.abs(probs - direct).max())
+    # the same kernels on the same inputs
+    check(np.allclose(probs, direct, rtol=1e-5, atol=1e-7)
+          and (probs.argmax(1) == direct.argmax(1)).all(), ("predictor vs a direct bind", err))
+    out.update(predictor_vs_bind_max_abs_err=err,
+               predictor_vs_bind_bitwise=bool(np.array_equal(probs, direct)))
+    # matmul_with_stats is the 1x1 shortcut convolution and its statistics
+    ft = feat._tensor()
+    conv = F.conv2d(ft, w_sc._tensor())
+    M = a.shape[0]
+    stats_err = {"c": rel_err(c, conv.permute(0, 2, 3, 1).reshape(M, -1)),
+                 "col_sum": rel_err(col_sum, conv.sum(dim=(0, 2, 3))),
+                 "col_sumsq": rel_err(col_sumsq, (conv * conv).sum(dim=(0, 2, 3)))}
+    for n, e in stats_err.items():
+        check(math.isfinite(e) and e <= CONV_TOL["elementwise" if n == "c" else "sums"],
+              ("deploy matmul_with_stats vs conv2d", n, e))
+    out.update(matmul_stats_shape=[M, a.shape[1], b.shape[1]], matmul_stats_vs_conv2d=stats_err)
+
+    # ---- reshape to batch 1 and back
+    pred.reshape({"data": shape1})
+    check(pred.executables_bound == 2, "reshape to a new shape binds once")
+    pred.forward(data=x[0:1])  # a view of the batch
+    one = pred.get_output(0)
+    # one image through the same kernels at another grid; cuBLAS may pick
+    # another algorithm for the classifier
+    check(np.allclose(one, probs[:1], rtol=1e-4, atol=1e-7), "batch 1 vs batch 32")
+    lat1 = []
+    for _ in range(DEPLOY["iters"]):
+        t0 = time.perf_counter()
+        pred.forward(data=x[0:1])
+        pred.get_output(0)
+        lat1.append((time.perf_counter() - t0) * 1e3)
+    pred.reshape({"data": shape})
+    check(pred.executables_bound == 2, "reshape back to a seen shape bound an executor")
+    ops.reset_launch_counts()
+    pred.forward(data=x)
+    again = pred.get_output(0)
+    check(ops.launch_counts() == with_zeros({"conv_bn_infer": RESNET_SITES}),
+          ("a forward's launch counts", ops.launch_counts()))
+    check(np.array_equal(again, probs), "the first probabilities do not repeat after reshape")
+    lat = []
+    for _ in range(DEPLOY["iters"]):
+        t0 = time.perf_counter()
+        pred.forward(data=x)
+        pred.get_output(0)
+        lat.append((time.perf_counter() - t0) * 1e3)
+
+    def call():
+        pred.forward(data=x)
+        pred.get_output(0)
+
+    log({"phase": "deploy_breakdown", "batch": B, **profile_window(call)})
+    for tag, samples, n in (("batch%d" % B, lat, B), ("batch1", lat1, 1)):
+        med = float(np.median(samples))
+        out[tag] = {"latency_ms_p50": med, "latency_ms_p80": float(np.percentile(samples, 80)),
+                    "latency_ms": samples, "images_per_s": n * 1e3 / med}
+    out.update(launches=launches, executables_bound=pred.executables_bound,
+               rtc_compiles=kernel.compiles, rtc_launches=kernel.launches)
+    log(out)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -1152,13 +1487,17 @@ def main():
     args, aux = resnet_values(net)
     resnet_serve_launches = run_resnet_serve(pt, net, args, aux)
     resnet_train_launches = run_resnet_train(pt, net, args, aux)
+    deploy_launches = run_deploy(pt, net, args, aux)
     for name_, e in entries.items():
-        if name_.startswith("conv_bn"):
+        if name_ in ("matmul_stats", "rtc"):
+            e.update(launches=deploy_launches[name_])  # the deploy phase's main path
+        elif name_.startswith("conv_bn"):
             # launches: the ResNet's timed training steps; the stats-free
             # variant's: one batch-32 inference forward
             e.update(launches=resnet_train_launches[name_])
             if name_ == "conv_bn":
-                e.update(infer_launches=resnet_serve_launches["conv_bn_infer"])
+                e.update(infer_launches=resnet_serve_launches["conv_bn_infer"],
+                         deploy_infer_launches=deploy_launches["conv_bn_infer"])
         else:
             # launches: the transformer's timed training steps, the path that
             # runs all six of its kernels

@@ -1,15 +1,17 @@
 """Base utilities: the framework error and dtype normalization.
 
-Counterpart of ``mxnet_tpu/base.py``: only ``MXNetError`` and the
-numpy-dtype helper the Symbol layer needs, plus the numpy <-> torch dtype
-table the port's tensors use.
+Counterpart of ``mxnet_tpu/base.py``: ``MXNetError``, the numpy-dtype
+helper the Symbol layer needs, the ``.params`` type flags
+(``dtype_code``/``dtype_from_code``), plus the numpy <-> torch dtype table
+the port's tensors use.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "np_dtype", "torch_dtype", "numpy_dtype"]
+__all__ = ["MXNetError", "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code",
+           "dtype_from_code"]
 
 
 class MXNetError(Exception):
@@ -51,3 +53,31 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     if dtype not in _TORCH_TO_NP:
         raise MXNetError("unsupported dtype %s" % dtype)
     return _TORCH_TO_NP[dtype]
+
+
+# copied from mxnet_tpu/base.py (_DTYPE_NP_TO_MX, dtype_code, dtype_from_code;
+# backend-free): the type flags of the reference's .params layout. Code 5
+# (bfloat16 there) has no numpy dtype here and is refused.
+_DTYPE_NP_TO_MX = {
+    np.dtype(np.float32): 0,
+    np.dtype(np.float64): 1,
+    np.dtype(np.float16): 2,
+    np.dtype(np.uint8): 3,
+    np.dtype(np.int32): 4,
+    np.dtype(np.int64): 6,
+    np.dtype(np.bool_): 7,
+}
+_DTYPE_MX_TO_NP = {v: k for k, v in _DTYPE_NP_TO_MX.items()}
+
+
+def dtype_code(dtype) -> int:
+    d = np_dtype(dtype)
+    if d not in _DTYPE_NP_TO_MX:
+        raise MXNetError("unsupported dtype %s" % d)
+    return _DTYPE_NP_TO_MX[d]
+
+
+def dtype_from_code(code: int) -> np.dtype:
+    if code not in _DTYPE_MX_TO_NP:
+        raise MXNetError("unsupported dtype code %d" % code)
+    return _DTYPE_MX_TO_NP[code]

@@ -9,6 +9,12 @@ arguments and for its aux states:
     args = params_from_numpy(jax_exe.arg_dict, ctx)
     aux = params_from_numpy(jax_exe.aux_dict, ctx)
     port_exe.copy_params_from(args, aux)
+
+A checkpoint the JAX package saved (``mx.model.save_checkpoint``, or
+``Module.save_checkpoint``) is in the reference's ``.params`` layout, which
+the port reads as it is:
+
+    args, aux = params_from_checkpoint("ckpt/resnet", 10, ctx)
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ import torch
 
 from .context import Context, current_context
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "params_from_checkpoint"]
 
 
 def params_from_numpy(arg_params, ctx: Context = None) -> Dict[str, torch.Tensor]:
@@ -31,3 +37,14 @@ def params_from_numpy(arg_params, ctx: Context = None) -> Dict[str, torch.Tensor
         host = np.ascontiguousarray(value.asnumpy() if hasattr(value, "asnumpy") else value)
         out[name] = torch.from_numpy(host).to(device)
     return out
+
+
+def params_from_checkpoint(prefix, epoch, ctx: Context = None):
+    """``(arg_params, aux_params)`` of the checkpoint ``<prefix>-<epoch:04d>.params``
+    (written by either package) as {name: tensor} dicts on ``ctx`` (default
+    ``gpu(0)``), as ``params_from_numpy`` returns them."""
+    from .model import load_checkpoint
+
+    _, arg_params, aux_params = load_checkpoint(prefix, epoch, ctx=ctx)
+    return ({n: a._tensor() for n, a in arg_params.items()},
+            {n: a._tensor() for n, a in aux_params.items()})

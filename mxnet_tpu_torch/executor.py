@@ -22,7 +22,7 @@ import torch
 
 from .base import MXNetError, np_dtype
 from .context import Context, current_context
-from .ndarray import NDArray, zeros
+from .ndarray import NDArray, _wrap, zeros
 from .ops.registry import get_op
 from . import fusion as _fusion
 
@@ -135,7 +135,7 @@ class Executor:
                     t.copy_(new)
 
     def _set_outputs(self, outs):
-        self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        self.outputs = [_wrap(o.detach(), self._ctx) for o in outs]
         self.output_dict = dict(zip(self._prog.output_names, self.outputs))
         return self.outputs
 

@@ -5,12 +5,16 @@ hand-written CUDA kernels behind their dispatchers.
 Importing it registers the ops; it needs neither ``nvcc`` nor a GPU (the
 kernels build at their first launch).
 """
+import importlib
+
 from . import registry  # noqa: F401
 from . import elemwise, broadcast_reduce, matrix, nn, attention, optimizer_ops  # noqa: F401
-from . import flash_attention, norm_residual, matmul_bias_act, conv_bn  # noqa: F401
+from . import flash_attention, norm_residual, matmul_bias_act, conv_bn, matmul_stats  # noqa: F401
 from .registry import get_op, list_ops  # noqa: F401
 
-#: kernel name -> (its module, the module's plain-integer launch counter)
+#: kernel name -> (its module, the module's plain-integer launch counter). rtc
+#: lives above this package (it returns NDArrays, which import the ops), so it
+#: is named here and imported when the counts are read.
 KERNELS = {
     "flash_attention": (flash_attention, "launches"),
     "flash_attention_dq": (flash_attention, "dq_launches"),
@@ -21,14 +25,21 @@ KERNELS = {
     "conv_bn": (conv_bn, "launches"),
     "conv_bn_infer": (conv_bn, "infer_launches"),
     "conv_bn_bwd": (conv_bn, "bwd_launches"),
+    "matmul_stats": (matmul_stats, "launches"),
+    "rtc": ("mxnet_tpu_torch.rtc", "launches"),
 }
 
 
+def _counters():
+    for name, (mod, counter) in KERNELS.items():
+        yield name, importlib.import_module(mod) if isinstance(mod, str) else mod, counter
+
+
 def reset_launch_counts():
-    for mod, counter in KERNELS.values():
+    for _, mod, counter in _counters():
         setattr(mod, counter, 0)
 
 
 def launch_counts():
     """{kernel name: launches since the last reset}."""
-    return {name: getattr(mod, counter) for name, (mod, counter) in KERNELS.items()}
+    return {name: getattr(mod, counter) for name, mod, counter in _counters()}

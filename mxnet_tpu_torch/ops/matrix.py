@@ -1,16 +1,40 @@
 """Shape manipulation and indexing ops.
 
-Counterpart of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with MXNet's shape
-codes, ``Flatten``, ``slice_axis``, ``SwapAxis``, ``expand_dims`` and
-``Embedding``.
+Counterpart of ``mxnet_tpu/ops/matrix.py``: ``dot``, ``transpose``,
+``Reshape`` with MXNet's shape codes, ``Flatten``, ``slice_axis``,
+``SwapAxis``, ``expand_dims``, ``Concat``, ``Embedding``, ``one_hot``, and
+the init ops the imperative NDArray creates arrays with (``_zeros``,
+``_ones``, ``_full``, ``_arange``). An init op has no input to take its
+device from: it allocates on torch's current default device, which
+``ndarray.imperative_invoke`` sets to the call's context.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from .registry import AttrSpec, register
+
+@register("dot", attrs={"transpose_a": AttrSpec("bool", default=False),
+                        "transpose_b": AttrSpec("bool", default=False)},
+          input_names=("lhs", "rhs"))
+def _dot(attrs, lhs, rhs):
+    """Matrix/tensor product (reference: matrix_op.cc dot): the last axis of
+    lhs against the first of rhs; 1-D by 1-D is the inner product."""
+    if attrs["transpose_a"]:
+        lhs = torch.movedim(lhs, 0, -1) if lhs.ndim > 2 else lhs.t()
+    if attrs["transpose_b"]:
+        rhs = torch.movedim(rhs, -1, 0) if rhs.ndim > 2 else rhs.t()
+    if lhs.ndim == 1 and rhs.ndim == 1:
+        return torch.dot(lhs, rhs)
+    return torch.tensordot(lhs, rhs, dims=([lhs.ndim - 1], [0]))
+
+
+@register("transpose", attrs={"axes": AttrSpec("shape", default=())})
+def _transpose(attrs, data):
+    axes = attrs["axes"] or tuple(reversed(range(data.ndim)))
+    return data.permute(*axes)
 
 
 # copied from mxnet_tpu/ops/matrix.py (_reshape_target, backend-free)
@@ -109,3 +133,68 @@ def _embedding(attrs, data, weight):
     (indexing's backward); the ids get none, and the executor writes zeros
     for them as the JAX package does for its float ids."""
     return weight[data.long()]
+
+
+def _n_args_names(attrs):
+    return ["arg%d" % i for i in range(int(attrs.get("num_args", 1)))]
+
+
+@register("Concat", attrs={"num_args": AttrSpec("int", required=True),
+                           "dim": AttrSpec("int", default=1)},
+          input_names=_n_args_names, aliases=("concat",))
+def _concat(attrs, *args):
+    """Concatenate along dim (reference: src/operator/concat.cc)."""
+    return torch.cat(args, dim=attrs["dim"])
+
+
+@register("one_hot", attrs={"depth": AttrSpec("int", required=True),
+                            "on_value": AttrSpec("float", default=1.0),
+                            "off_value": AttrSpec("float", default=0.0),
+                            "dtype": AttrSpec("dtype", default=np.float32)},
+          input_names=("indices",))
+def _one_hot(attrs, indices):
+    """Rows of ``off_value`` with ``on_value`` at each index; an index outside
+    [0, depth) gives a row of ``off_value`` only, as jax.nn.one_hot does."""
+    idx = indices.long().unsqueeze(-1)
+    hot = (idx == torch.arange(attrs["depth"], device=indices.device)).to(
+        torch_dtype(attrs["dtype"]))
+    return hot * (attrs["on_value"] - attrs["off_value"]) + attrs["off_value"]
+
+
+# --- init ops (reference: tensor/init_op.cc) ----------------------------------
+def _init_attrs(**extra):
+    return dict({"shape": AttrSpec("shape", default=()),
+                 "dtype": AttrSpec("dtype", default=np.float32)}, **extra)
+
+
+@register("_zeros", attrs=_init_attrs(), input_names=())
+def _zeros(attrs):
+    return torch.zeros(attrs["shape"], dtype=torch_dtype(attrs["dtype"]))
+
+
+@register("_ones", attrs=_init_attrs(), input_names=())
+def _ones(attrs):
+    return torch.ones(attrs["shape"], dtype=torch_dtype(attrs["dtype"]))
+
+
+@register("_full", attrs=_init_attrs(value=AttrSpec("float", default=0.0)), input_names=())
+def _full(attrs):
+    return torch.full(attrs["shape"], attrs["value"], dtype=torch_dtype(attrs["dtype"]))
+
+
+@register("_arange", attrs={"start": AttrSpec("float", default=0.0),
+                            "stop": AttrSpec("any", default=None),
+                            "step": AttrSpec("float", default=1.0),
+                            "repeat": AttrSpec("int", default=1),
+                            "dtype": AttrSpec("dtype", default=np.float32)},
+          input_names=())
+def _arange(attrs):
+    stop = attrs["stop"]
+    if stop in (None, "None"):  # one bound given: it is the stop, as jnp.arange(start, None)
+        start, stop = 0.0, attrs["start"]
+    else:
+        start, stop = attrs["start"], float(stop)
+    out = torch.arange(start, stop, attrs["step"], dtype=torch_dtype(attrs["dtype"]))
+    if attrs["repeat"] > 1:
+        out = torch.repeat_interleave(out, attrs["repeat"])
+    return out

@@ -11,6 +11,7 @@ come from ``ops/shape_rules.py``. A variable that feeds an op's aux slot
 """
 from __future__ import annotations
 
+import builtins
 import functools
 import json
 import sys
@@ -26,7 +27,7 @@ from .ops import registry as _registry
 from .ops.registry import get_op, parse_attrs
 from .ops.shape_rules import RULES as _SHAPE_RULES
 
-__all__ = ["Symbol", "Variable", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load_json", "load"]
 
 
 class _Node:
@@ -118,6 +119,24 @@ class Symbol:
 
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "Grouped")
+
+    def __getitem__(self, index):
+        """One output (or a slice of them) by position or by its name in
+        ``list_outputs()``."""
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("cannot find output %r in %s" % (index, names))
+            index = names.index(index)
+        # builtins: the module-level op functions shadow names like `slice`
+        if isinstance(index, builtins.slice):
+            return Symbol(self._outputs[index])
+        return Symbol([self._outputs[index]])
+
+    def get_internals(self) -> "Symbol":
+        """All intermediate outputs as a grouped symbol (reference:
+        symbol.py get_internals)."""
+        return Symbol([(node, i) for node in self._topo() for i in range(node.num_outputs())])
 
     def _head_nodes(self):
         seen, heads = set(), []
@@ -303,6 +322,10 @@ class Symbol:
                  "attrs": {"mxnet_version": ["int", 905]}}
         return json.dumps(graph, indent=2)
 
+    def save(self, fname: str):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
 
 def _parse_shape_attr(v):
     if isinstance(v, (tuple, list)):
@@ -408,6 +431,11 @@ def load_json(json_str: str) -> Symbol:
         built.append(_Node(None if op == "null" else get_op(op).name, nj["name"], attrs, inputs))
     heads = graph.get("heads") or [[len(built) - 1, 0, 0]]
     return Symbol([(built[h[0]], h[1]) for h in heads])
+
+
+def load(fname: str) -> Symbol:
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def _init_symbol_module():

@@ -7,6 +7,7 @@ card host without JAX it runs with the JAX suite's conftest left out:
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +17,7 @@ from mxnet_tpu_torch.models import transformer as ptf
 from mxnet_tpu_torch.ops import conv_bn as cb
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import matmul_bias_act as mba
+from mxnet_tpu_torch.ops import matmul_stats as ms
 from mxnet_tpu_torch.ops import norm_residual as nr
 
 pytestmark = pytest.mark.cuda
@@ -140,7 +142,8 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
     assert ops.launch_counts() == {"flash_attention": L, "flash_attention_dq": L,
                                    "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
                                    "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L,
-                                   "conv_bn": 0, "conv_bn_infer": 0, "conv_bn_bwd": 0}
+                                   "conv_bn": 0, "conv_bn_infer": 0, "conv_bn_bwd": 0,
+                                   "matmul_stats": 0, "rtc": 0}
     exes[1].forward_backward()
     for n in reqs:
         got, want = exes[0].grad_dict[n].asnumpy(), exes[1].grad_dict[n].asnumpy()
@@ -234,3 +237,131 @@ def test_conv_bn_refuses_what_it_does_not_take(dev):
         cb.conv_block(x, _randn(dev, 16, 16, 3, 3), None, None, stride=(2, 2))
     with pytest.raises(MXNetError, match="float32"):
         cb.conv_block(x.double(), _randn(dev, 16, 16, 1, 1).double(), None, None)
+
+
+# (M, K, N): one tile, ragged everywhere (scalar loads of A and B), K and N
+# multiples of 4 with ragged M (float4 loads), many M tiles, a single row
+@pytest.mark.parametrize("M,K,N", [(128, 16, 64), (1000, 70, 200), (300, 64, 132),
+                                   (5000, 32, 8), (1, 3, 1)])
+def test_matmul_stats_kernel_matches_plain(dev, M, K, N):
+    a, b = _randn(dev, M, K), _randn(dev, K, N, scale=1 / math.sqrt(K), seed=1)
+    before = ms.launches
+    got = ms.matmul_with_stats(a, b)
+    assert ms.launches == before + 1
+    want = ms.matmul_with_stats_plain(a, b)
+    # c: K-long dot products; the sums: M-long, in another order than torch.sum's
+    for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w, tol)
+
+
+def test_matmul_stats_kernel_is_deterministic_and_refuses_what_it_does_not_take(dev):
+    a, b = _randn(dev, 3000, 96), _randn(dev, 96, 200, seed=1)
+    for u, v in zip(ms.matmul_with_stats(a, b), ms.matmul_with_stats(a, b)):
+        assert torch.equal(u, v)
+    with pytest.raises(MXNetError, match="float32"):
+        ms.matmul_with_stats(a.bfloat16(), b.bfloat16())
+    with pytest.raises(MXNetError, match="contiguous"):
+        ms.matmul_with_stats(_randn(dev, 96, 3000).t(), b)
+    with pytest.raises(MXNetError, match="one CUDA device"):
+        ms.matmul_with_stats(a, b.cpu())
+
+
+# the three kernels of tests/test_deploy.py's rtc cases, in CUDA, beside a
+# per-channel image normalisation; sizes are written into the source
+_NORMALISE = r"""
+extern "C" __global__ void kernel(const float* x, const float* mean, const float* stdv,
+                                  float* y) {
+  const int HW = %(hw)d, C = %(c)d, n = %(n)d;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const int ch = (i / HW) %% C;
+    y[i] = (x[i] - mean[ch]) / stdv[ch];
+  }
+}
+"""
+_FMA = r"""
+extern "C" __global__ void fma3(const float* a, const float* b, float* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < %(n)d) o[i] = a[i] + b[i] * 3.0f;
+}
+"""
+_SPLIT = r"""
+extern "C" __global__ void kernel(const float* x, float* o1, float* o2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < %(n)d) { o1[i] = x[i] + 1.0f; o2[i] = x[i] - 1.0f; }
+}
+"""
+
+
+def _nd(dev, *shape, seed=0):
+    return pt.nd.NDArray(_randn(dev, *shape, seed=seed), pt.gpu(0))
+
+
+def test_rtc_normalise_kernel_two_geometries_and_no_recompile(dev):
+    x = _nd(dev, 2, 3, 5, 7)
+    mean, std = np.array([0.4, 0.5, 0.6], np.float32), np.array([0.2, 0.3, 0.4], np.float32)
+    k = pt.rtc.Rtc("normalise", _NORMALISE % dict(hw=35, c=3, n=210), grid=(2,), block=(64,))
+    (y,) = k.push([x, mean, std], out_shapes=[x.shape])  # numpy inputs go to x's context
+    torch.cuda.synchronize()
+    assert k.compiles <= 1 and k.launches == 1 and y.context == pt.gpu(0)
+    want = (x._tensor() - torch.tensor(mean, device=dev).view(1, 3, 1, 1)) \
+        / torch.tensor(std, device=dev).view(1, 3, 1, 1)
+    torch.testing.assert_close(y._tensor(), want, rtol=1e-6, atol=1e-6)
+    compiles = k.compiles
+    (y2,) = k.push([x, mean, std], out_shapes=[x.shape], grid_dims=(1, 1, 1), block_dims=32)
+    torch.cuda.synchronize()
+    assert k.compiles == compiles and k.launches == 2  # the second push compiles nothing
+    assert torch.equal(y2._tensor(), y._tensor())
+
+
+def test_rtc_two_inputs_and_more_outputs_than_inputs(dev):
+    a, b = _nd(dev, 4, 4), _nd(dev, 4, 4, seed=1)
+    k = pt.rtc.Rtc("fma", _FMA % dict(n=16), kernel_name="fma3")
+    (y,) = k.push([a, b], out_shapes=[(4, 4)], grid_dims=1, block_dims=16)
+    torch.testing.assert_close(y._tensor(), a._tensor() + b._tensor() * 3.0, rtol=1e-6, atol=1e-6)
+    k2 = pt.rtc.Rtc("split", _SPLIT % dict(n=16), grid=1, block=32)
+    y1, y2 = k2.push([a], out_shapes=[(4, 4), (16,)])
+    assert y1.shape == (4, 4) and y2.shape == (16,) and y2.dtype == np.float32
+    torch.testing.assert_close(y1._tensor(), a._tensor() + 1.0)
+    torch.testing.assert_close(y2._tensor(), a._tensor().reshape(16) - 1.0)
+    from mxnet_tpu_torch import ops
+    ops.reset_launch_counts()
+    k2.push([a], out_shapes=[(4, 4), (16,)])
+    assert ops.launch_counts()["rtc"] == 1
+
+
+def test_rtc_bad_source_raises_with_the_compilers_message(dev):
+    k = pt.rtc.Rtc("broken", 'extern "C" __global__ void kernel(float* y) { y[0] = nope; }',
+                   grid=1, block=1)
+    with pytest.raises(MXNetError, match="nope"):
+        k.push([], out_shapes=[(1,)])
+    k = pt.rtc.Rtc("too_wide", _SPLIT % dict(n=16), grid=1, block=2048)
+    with pytest.raises(MXNetError, match="cuLaunchKernel"):  # more threads than a block holds
+        k.push([_nd(dev, 16)], out_shapes=[(16,), (16,)])
+
+
+def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A BatchNorm model saved with model.save_checkpoint and served by
+    Predictor on the card (through the fused conv_bn kernel) and on the CPU."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.models import resnet
+
+    net = resnet.get_symbol(num_classes=10, num_layers=18, image_shape="3,32,32")
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(2, 3, 32, 32), softmax_label=(2,))
+    rs = np.random.RandomState(0)
+    args = {n: (rs.standard_normal(s) * (0.1 if len(s) > 1 else 1.0)).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes) if n not in ("data", "softmax_label")}
+    aux = {n: rs.uniform(0.5, 1.5, s).astype(np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    prefix = str(tmp_path / "r18")
+    pt.model.save_checkpoint(prefix, 3, net, args, aux)
+    json_str, blob = open(prefix + "-symbol.json").read(), open(prefix + "-0003.params", "rb").read()
+    x = rs.standard_normal((2, 3, 32, 32)).astype(np.float32)
+    outs = []
+    for ctx in (pt.gpu(0), pt.cpu()):
+        pred = pt.predictor.Predictor(json_str, blob, {"data": (2, 3, 32, 32)}, ctx=ctx)
+        ops.reset_launch_counts()
+        pred.forward(data=pt.nd.array(x, ctx=ctx))
+        outs.append(pred.get_output(0))
+        assert (ops.launch_counts()["conv_bn_infer"] > 0) == (ctx == pt.gpu(0))
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-6)

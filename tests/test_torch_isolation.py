@@ -70,6 +70,9 @@ def test_package_imports_with_jax_and_the_jax_package_blocked():
 import mxnet_tpu_torch, mxnet_tpu_torch.serving, mxnet_tpu_torch.models.transformer
 import mxnet_tpu_torch.analysis, mxnet_tpu_torch.convert, mxnet_tpu_torch.models.resnet
 import mxnet_tpu_torch.ops.conv_bn, mxnet_tpu_torch.fusion
+import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.model, mxnet_tpu_torch.predictor
+import mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops.matmul_stats
+assert mxnet_tpu_torch.nd is mxnet_tpu_torch.ndarray
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("ok")
 """)
@@ -87,6 +90,10 @@ y, _, _ = nr.layer_norm_affine(x, torch.ones(16), torch.zeros(16))
 assert y.shape == (4, 16) and ops.launch_counts()["norm_residual"] == 0
 c, s, q = cb.conv_block(torch.randn(2, 8, 4, 4), torch.randn(8, 8, 3, 3), None, None)
 assert c.shape == (2, 8, 4, 4) and ops.launch_counts()["conv_bn"] == 0
+from mxnet_tpu_torch.ops import matmul_stats as ms
+c, s, q = ms.matmul_with_stats(torch.randn(9, 5), torch.randn(5, 3))
+assert c.shape == (9, 3) and s.shape == q.shape == (3,)
+assert ops.launch_counts()["matmul_stats"] == 0 and ops.launch_counts()["rtc"] == 0
 print("ok")
 """, env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert out.strip().endswith("ok")

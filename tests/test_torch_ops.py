@@ -1,6 +1,9 @@
 """Every op the port registers, against the JAX package's op of the same name:
 attrs given as the strings a Symbol JSON carries, inputs made with numpy
-from a seed, outputs compared in float32."""
+from a seed, outputs compared in float32 (atol = rtol = 2e-6: elementwise
+float32 arithmetic and short sums on the CPU in both packages). The ops of
+the imperative NDArray also go through the generated ``nd.<op>`` functions
+of both packages."""
 import numpy as np
 import pytest
 import torch
@@ -88,6 +91,98 @@ CASES = [
      [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2), _r(3, 4, seed=3, lo=0.1)]),
 ]
 
+# the imperative NDArray's ops: ops/elemwise.py and ops/broadcast_reduce.py in
+# full, and the matrix and init ops ndarray.py names
+_N_GRAPH_CASES = len(CASES)
+
+
+def _q(*shape, seed=0):
+    """Values on a grid of quarters, so that equal pairs and halves occur."""
+    return np.round(_r(*shape, seed=seed) * 4) / 4
+
+
+def _unit(*shape, seed=0):
+    return np.tanh(_r(*shape, seed=seed)) * 0.9  # inside (-1, 1)
+
+
+_SAME_SHAPE = ["elemwise_div", "_grad_add", "_maximum", "_minimum", "_hypot", "_equal",
+               "_not_equal", "_greater", "_greater_equal", "_lesser", "_lesser_equal", "_mod"]
+CASES += [(op, {}, [_q(3, 4), _q(3, 4, seed=1) + (0.125 if op in ("elemwise_div", "_mod") else 0)])
+          for op in _SAME_SHAPE]
+CASES += [("_power", {}, [_r(3, 4, lo=0.1), _r(3, 4, seed=1)])]
+_BROADCAST = ["broadcast_div", "broadcast_mod", "broadcast_maximum", "broadcast_minimum",
+              "broadcast_hypot", "broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+              "broadcast_greater_equal", "broadcast_lesser", "broadcast_lesser_equal"]
+CASES += [(op, {}, [_q(2, 3, 4), _q(1, 3, 1, seed=1) + (0.125 if "d" == op[-1] or "div" in op
+                                                        else 0)]) for op in _BROADCAST]
+CASES += [("broadcast_power", {}, [_r(2, 3, 4, lo=0.1), _r(2, 1, 4, seed=1)])]
+# unary op -> its input
+_UNARY = {
+    "abs": _r(3, 4), "sign": _q(3, 4), "round": _q(3, 4) * 2, "rint": _q(3, 4) * 2,
+    "ceil": _r(3, 4) * 3, "floor": _r(3, 4) * 3, "fix": _r(3, 4) * 3, "trunc": _r(3, 4) * 3,
+    "sqrt": _r(3, 4, lo=0.1), "cbrt": _r(3, 4), "rcbrt": _r(3, 4, lo=0.1), "exp": _r(3, 4),
+    "log": _r(3, 4, lo=0.1), "log10": _r(3, 4, lo=0.1), "log2": _r(3, 4, lo=0.1),
+    "log1p": _r(3, 4, lo=0.0), "expm1": _r(3, 4), "sin": _r(3, 4), "cos": _r(3, 4),
+    "tan": _unit(3, 4), "arcsin": _unit(3, 4), "arccos": _unit(3, 4), "arctan": _r(3, 4),
+    "sinh": _r(3, 4), "cosh": _r(3, 4), "tanh": _r(3, 4), "arcsinh": _r(3, 4),
+    "arccosh": _r(3, 4, lo=1.1), "arctanh": _unit(3, 4), "degrees": _r(3, 4),
+    "radians": _r(3, 4) * 90, "negative": _r(3, 4), "reciprocal": _r(3, 4, lo=0.1),
+    "relu": _r(3, 4), "sigmoid": _r(3, 4), "softsign": _r(3, 4), "gamma": _r(3, 4, lo=0.5),
+    "gammaln": _r(3, 4, lo=0.5), "erf": _r(3, 4), "logical_not": _q(3, 4),
+    "_copy": _r(3, 4), "BlockGrad": _r(3, 4), "_CrossDeviceCopy": _r(3, 4),
+    "norm": _r(3, 4), "argmax_channel": _r(3, 5, 2),
+}
+CASES += [(op, {}, [x.astype(np.float32)]) for op, x in _UNARY.items()]
+# scalar op -> (scalar, input)
+_SCALARS = {
+    "_div_scalar": ("0.3", _r(3, 4)), "_rdiv_scalar": ("2.0", _r(3, 4, lo=0.1)),
+    "_power_scalar": ("2.5", _r(3, 4, lo=0.1)), "_rpower_scalar": ("1.5", _r(3, 4)),
+    "_maximum_scalar": ("0.25", _q(3, 4)), "_minimum_scalar": ("0.25", _q(3, 4)),
+    "_hypot_scalar": ("1.5", _r(3, 4)), "_mod_scalar": ("0.75", _q(3, 4) + 0.125),
+    "_rmod_scalar": ("2.5", _q(3, 4) + 0.125), "_equal_scalar": ("0.25", _q(3, 4)),
+    "_not_equal_scalar": ("0.25", _q(3, 4)), "_greater_scalar": ("0.25", _q(3, 4)),
+    "_greater_equal_scalar": ("0.25", _q(3, 4)), "_lesser_scalar": ("0.25", _q(3, 4)),
+    "_lesser_equal_scalar": ("0.25", _q(3, 4)),
+}
+CASES += [(op, {"scalar": s}, [x.astype(np.float32)]) for op, (s, x) in _SCALARS.items()]
+_NAN = _r(2, 3, 4)
+_NAN[0, 1, 2] = _NAN[1, 0, 0] = np.nan
+CASES += [
+    ("Cast", {"dtype": "int32"}, [_r(3, 4) * 5]),
+    ("Cast", {"dtype": "float16"}, [_r(3, 4)]),
+    ("clip", {"a_min": "-0.5", "a_max": "0.25"}, [_r(3, 4)]),
+    ("smooth_l1", {"scalar": "2.0"}, [_r(3, 4)]),
+    ("add_n", {"num_args": "3"}, [_r(3, 4, seed=s) for s in range(3)]),
+    ("broadcast_to", {"shape": "(2, 0, 4)"}, [_r(1, 3, 1)]),
+    ("broadcast_axis", {"axis": "(0, 2)", "size": "(2, 4)"}, [_r(1, 3, 1)]),
+    ("prod", {"axis": "(0, 2)"}, [_r(2, 3, 4)]),
+    ("prod", {}, [_r(2, 3)]),
+    ("nansum", {"axis": "(1, 2)", "keepdims": "True"}, [_NAN]),
+    ("nanprod", {"axis": "2"}, [_NAN]),
+    ("max", {"axis": "(0, 2)"}, [_r(2, 3, 4)]),
+    ("max", {}, [_r(2, 3, 4)]),
+    ("min", {"axis": "1", "keepdims": "True"}, [_r(2, 3, 4)]),
+    ("min", {"axis": "0", "exclude": "True"}, [_r(2, 3, 4)]),
+    ("argmin", {"axis": "1"}, [_r(3, 7)]),
+    ("argmin", {}, [_r(3, 7)]),
+    ("argmax", {}, [_r(3, 7)]),
+    ("dot", {}, [_r(3, 4), _r(4, 5, seed=1)]),
+    ("dot", {"transpose_a": "True", "transpose_b": "True"}, [_r(4, 3), _r(5, 4, seed=1)]),
+    ("dot", {}, [_r(4), _r(4, seed=1)]),
+    ("dot", {}, [_r(2, 3, 4), _r(4, 5, seed=1)]),
+    ("transpose", {}, [_r(2, 3, 4)]),
+    ("transpose", {"axes": "(1, 2, 0)"}, [_r(2, 3, 4)]),
+    ("Concat", {"num_args": "2", "dim": "1"}, [_r(2, 3), _r(2, 2, seed=1)]),
+    ("one_hot", {"depth": "5"}, [np.array([[0, 4], [7, 2]], np.float32)]),
+    ("one_hot", {"depth": "3", "on_value": "2.0", "off_value": "-1.0", "dtype": "int32"},
+     [np.array([1, 0, 2], np.float32)]),
+    ("_zeros", {"shape": "(2, 3)"}, []),
+    ("_ones", {"shape": "(2, 3)", "dtype": "int32"}, []),
+    ("_full", {"shape": "(4,)", "value": "2.5"}, []),
+    ("_arange", {"start": "1.0", "stop": "7.0", "step": "1.5", "repeat": "2"}, []),
+    ("_arange", {"start": "5.0"}, []),
+]
+
 
 def _case_id(case):
     return "%s-%s" % (case[0], "-".join("%s=%s" % kv for kv in case[1].items()) or "plain")
@@ -108,6 +203,23 @@ def test_op_matches_the_reference(op, attrs, inputs):
         assert tuple(p.shape) == j.shape
         assert p.numpy().dtype == j.dtype
         np.testing.assert_allclose(p.numpy(), j, atol=2e-6, rtol=2e-6)
+
+
+ND_CASES = CASES[_N_GRAPH_CASES:]
+
+
+@pytest.mark.parametrize("op,attrs,inputs", ND_CASES, ids=[_case_id(c) for c in ND_CASES])
+def test_nd_function_matches_the_reference(op, attrs, inputs):
+    """The generated ``nd.<op>`` function over NDArrays, against ``mx.nd.<op>``."""
+    import mxnet_tpu as mx
+    import mxnet_tpu_torch as pt
+
+    want = getattr(mx.nd, op)(*[mx.nd.array(x) for x in inputs], **attrs)
+    got = getattr(pt.nd, op)(*[pt.nd.array(x, ctx=pt.cpu()) for x in inputs], ctx=pt.cpu(),
+                             **attrs)
+    assert isinstance(got, pt.nd.NDArray) and got.context == pt.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), atol=2e-6, rtol=2e-6)
 
 
 def test_every_port_op_is_swept_and_named_as_in_the_reference():
