@@ -13,10 +13,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    through ``rtc``) against its plain PyTorch version on the card, at the
    serving, training and deploy paths' shapes and at ragged ones, with its
    time, the plain version's, a PyTorch library call's, and the least time
-   the card could take (one JSON line per kernel and shape).
+   the card could take (one JSON line per kernel and shape); matmul_bias_act's
+   two schedules timed against each other over M; the conv kernels and their
+   float32 plain versions against float64 at stage 4's 3x3.
 3. Serving: full-width Transformer-base greedy decode through
    ``KVCacheDecoder`` on the card, with the kernel launch counts of that run
-   checked against the path's expected counts, then the same tokens
+   checked against the path's expected counts (matmul_bias_act's small-M
+   schedule at each decode step, its tiles at the prefill), then the same tokens
    teacher-forced through the port on the card and on the CPU, whose logits
    must agree.
 4. Training: the same model bound for training (``simple_bind``,
@@ -46,8 +49,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    and ``matmul_with_stats`` gives that convolution's output and its
    per-channel statistics from the checkpoint's weight, held against
    ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
-8. A ``{"kernels": [...]}`` line of ten kernels, then the card's name/power
-   line, then the last line ``{"ok": true, "device": {...}}``.
+8. A ``{"kernels": [...]}`` line of ten kernels, then the card's
+   name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -131,8 +134,14 @@ extern "C" __global__ void rtc_split(const float* x, float* o1, float* o2) {
 """
 
 # Published peaks, dense, from NVIDIA's H100 data sheet: float32 outside the
-# tensor cores (the kernels' arithmetic, TF32 off) and HBM bandwidth.
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+# tensor cores, TF32 on the tensor cores (half the sheet's figure with
+# sparsity) and HBM bandwidth.
+PEAKS = {"PCIe": dict(f32=51e12, tf32=378e12, bytes=2.0e12),
+         "NVL": dict(f32=60e12, tf32=417.5e12, bytes=3.9e12),
+         "SXM": dict(f32=67e12, tf32=495e12, bytes=3.35e12)}
+# matmul_bias_act's small-M schedule against its tiles at the decode's K and
+# N, on both sides of the crossover (ops/matmul_bias_act.py SMALL_M_MAX)
+CROSSOVER_M = (8, 16, 32, 48, 64, 96, 128, 160, 192, 256)
 
 # kernel checks: the largest absolute difference of each kernel from its
 # plain version (f32, TF32 off; the two sum in other orders: K-long dot
@@ -160,7 +169,7 @@ KERNELS = {
     "norm_residual_bwd": ("mxnet_tpu_torch/csrc/norm_residual.cu",
                           "mxnet_tpu/ops/pallas_norm_residual.py:92", "layer_norm_bwd_kernel"),
     "matmul_bias_act": ("mxnet_tpu_torch/csrc/matmul_bias_act.cu",
-                        "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "matmul_bias_act_kernel"),
+                        "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "matmul_bias_act"),
     "conv_bn": ("mxnet_tpu_torch/csrc/conv_bn.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
                 "conv_bn_fwd"),
     "conv_bn_bwd": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu", "mxnet_tpu/ops/pallas_conv_bn.py:511",
@@ -227,9 +236,21 @@ def device_ms(fn, iters=30, key=None):
     return total_us / 1e3 / iters
 
 
-def bound(flops, nbytes, peaks):
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+def bound(flops, nbytes, peaks, products=False):
+    """The least time (ms) for ``flops`` operations on ``nbytes`` bytes, and
+    what bounds it. ``products``: the work is products that must keep f32
+    accuracy, so the operations count three times at the TF32 tensor-core
+    rate (3xTF32); otherwise at the f32 rate."""
+    t_ops = (3.0 * flops / peaks["tf32"] if products else flops / peaks["f32"]) * 1e3
+    t_bytes = nbytes / peaks["bytes"] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def product_bound(flops, nbytes, peaks):
+    """A product kernel's bound on the tensor cores and, as ``f32_bound_ms``,
+    its bound on the f32 CUDA cores (the figure earlier slices reported)."""
+    b_ms, b_by = bound(flops, nbytes, peaks, products=True)
+    return b_ms, b_by, bound(flops, nbytes, peaks)[0]
 
 
 def entry(name, **fields):
@@ -290,12 +311,12 @@ def check_kernels(peaks):
             q4, k4, v4 = (t.reshape(BH // H, H, -1, D) for t in (q, k, v))
             lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal))
-            b_ms, b_by = bound(4.0 * D * pairs * BH,
-                               4.0 * (2 * BH * T * D + 2 * BH * S * D + BH * T), peaks)
+            b_ms, b_by, f32_ms = product_bound(
+                4.0 * D * pairs * BH, 4.0 * (2 * BH * T * D + 2 * BH * S * D + BH * T), peaks)
             rec.update(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
+                       bound_by=b_by, f32_bound_ms=f32_ms)
             record("flash_attention", timed[i], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms,
+                   bound_by=b_by, f32_bound_ms=f32_ms, library_ms=lib_ms,
                    shape="prefill q,k,v (%d,%d,%d) causal" % (BH, T, D))
         log(rec)
 
@@ -345,20 +366,50 @@ def check_kernels(peaks):
             ms = device_ms(lambda: mba.matmul_bias_act(a, w, b, act))
             plain_ms = device_ms(lambda: mba.matmul_bias_act_plain(a, w, b, act))
             lib_ms = device_ms(lambda: torch.relu(torch.addmm(b, a, w.t())))
-            b_ms, b_by = bound(2.0 * Mr * N * K + 2.0 * Mr * N,
-                               4.0 * (Mr * K + N * K + N + Mr * N), peaks)
+            b_ms, b_by, f32_ms = product_bound(2.0 * Mr * N * K + 2.0 * Mr * N,
+                                               4.0 * (Mr * K + N * K + N + Mr * N), peaks)
+            sched = mba._schedule(Mr, N, K)
             rec.update(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
+                       bound_by=b_by, f32_bound_ms=f32_ms, schedule=sched)
             record("matmul_bias_act", timed[i], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms,
+                   bound_by=b_by, f32_bound_ms=f32_ms, library_ms=lib_ms, schedule=sched,
                    shape="prefill ffn1 a (%d,%d) w (%d,%d) relu" % (Mr, K, N, K))
         log(rec)
+    check_crossover(randn, M, FF)
     check_backward_kernels(randn, peaks, entries, worst)
     check_conv_kernels(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
     return entries
+
+
+def check_crossover(randn, K, N):
+    """matmul_bias_act's two schedules timed against each other at the
+    decode's K and N and a range of M: where the small-M schedule stops
+    winning is the crossover (SMALL_M_MAX)."""
+    from mxnet_tpu_torch.ops import matmul_bias_act as mba
+
+    w, b = randn(N, K, scale=1.0 / math.sqrt(K)), randn(N, scale=0.1)
+    rows = []
+    for M in CROSSOVER_M:
+        a = randn(M, K)
+        c = torch.empty(M, N, device=a.device)
+        want = mba.matmul_bias_act_plain(a, w, b, "relu")
+        row = {"M": M, "picked": mba._schedule(M, N, K)}
+        for sched in mba.SCHEDULES:
+            if sched == "small_m" and not mba._small_m_takes(M, K):
+                continue
+            mba._launch(a, w, b, "relu", c, sched)
+            torch.cuda.synchronize()
+            err = float((c - want).abs().max())
+            check(math.isfinite(err) and err <= TOL["matmul_bias_act"],
+                  ("matmul_bias_act crossover", M, sched, err))
+            row[sched + "_ms"] = device_ms(lambda: mba._launch(a, w, b, "relu", c, sched))
+        row["library_ms"] = device_ms(lambda: torch.relu(torch.addmm(b, a, w.t())))
+        rows.append(row)
+    log({"phase": "kernel", "name": "matmul_bias_act_crossover", "K": K, "N": N,
+         "small_m_max": mba.SMALL_M_MAX, "rows": rows})
 
 
 def causal_pairs(T, S, causal):
@@ -416,11 +467,12 @@ def check_backward_kernels(randn, peaks, entries, worst):
                      fa.flash_attention_bwd_dkv_plain, 8.0 * D * pairs, 8.0 * BH * S * D)):
                 ms = device_ms(lambda: fn(*args))
                 plain_ms = device_ms(lambda: plain(*args))
-                b_ms, b_by = bound(flops, reads + writes, peaks)
+                b_ms, b_by, f32_ms = product_bound(flops, reads + writes, peaks)
                 rec.update({name + "_ms": ms, name + "_plain_ms": plain_ms,
-                            name + "_bound_ms": b_ms})
+                            name + "_bound_ms": b_ms, name + "_f32_bound_ms": f32_ms})
                 entries[name] = entry(
                     name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    f32_bound_ms=f32_ms,
                     library_ms=lib_ms, library="SDPA backward (dq, dk and dv together)",
                     shape="train q,k,v,dO (%d,%d,%d) causal" % (BH, T, D))
             rec.update(library_ms=lib_ms, dq_plus_dkv_ms=entries["flash_attention_dq"]["ms"]
@@ -484,14 +536,21 @@ def conv_bytes(*tensors):
     return 4.0 * sum(t.numel() for t in tensors if t is not None)
 
 
+def read_of_x(x, kernel, stride):
+    """The part of x a conv must read: a strided 1x1 kernel reads only the
+    sampled positions x[:, :, ::s, ::s] (a view; only its size is used)."""
+    return x[:, :, ::stride, ::stride] if kernel == 1 else x
+
+
 def check_conv_kernels(randn, peaks, entries, worst):
     """Phase 2, the ResNet path's kernels: the fused conv+BN forward (with
     its statistics, and the stats-free inference variant) and backward,
     each against its plain version, at the path's shapes and ragged ones.
-    The first three shapes are the training step's (batch 32) and are
+    The first five shapes are the training step's (batch 32) and are
     timed: stage 1's 3x3 64->64 56x56 with a prologue, stage 1's 1x1 64->256
     with a prologue and the residual, stage 2's 1x1 stride-2 256->512
-    shortcut."""
+    shortcut, stage 3's 3x3 256->256 at 14x14 and stage 4's 1x1 512->2048
+    with the residual at 7x7 (the grids the forward's tiling was cut for)."""
     from mxnet_tpu_torch.ops import conv_bn as cb
 
     Bt = RESNET_TRAIN["batch"]
@@ -499,6 +558,8 @@ def check_conv_kernels(randn, peaks, entries, worst):
         (Bt, 64, 56, 56, 64, 3, 1, True, False, ""),
         (Bt, 64, 56, 56, 256, 1, 1, True, True, "res1x1_"),
         (Bt, 256, 56, 56, 512, 1, 2, True, False, "s2_"),
+        (Bt, 256, 14, 14, 256, 3, 1, True, False, "s3_3x3_"),
+        (Bt, 512, 7, 7, 2048, 1, 1, True, True, "s4_res1x1_"),
         (3, 16, 9, 9, 24, 3, 1, True, True, None),
         (2, 16, 9, 9, 40, 1, 2, True, False, None),
         (2, 8, 5, 7, 16, 1, 1, False, True, None),
@@ -544,7 +605,18 @@ def check_conv_kernels(randn, peaks, entries, worst):
             xn = cb._prologue(x, scale, shift, prologue)
             pad = (kernel - 1) // 2
             fwd_lib = device_ms(lambda: F.conv2d(xn, w, stride=st, padding=pad))
-            fb, fby = bound(flops, conv_bytes(x, w, scale, shift, r, c) + 8.0 * N, peaks)
+            xr = read_of_x(x, kernel, stride)
+            fb, fby, ff32 = product_bound(flops, conv_bytes(xr, w, scale, shift, r, c) + 8.0 * N,
+                                          peaks)
+            if stride > 1:
+                # the same product through the stride-1 kernel on the sampled
+                # input made contiguous: its 16-byte copies move only the
+                # elements the strided conv reads, the least any staging of x
+                # could move
+                xs = x[:, :, ::stride, ::stride].contiguous()
+                rec["presampled_ms"] = device_ms(
+                    lambda: cb.conv_block(xs, w, scale, shift, r, (1, 1), prologue),
+                    key=KERNELS["conv_bn"][2])
             bwd_ms = device_ms(lambda: cb.conv_block_bwd(*args), key=KERNELS["conv_bn_bwd"][2])
             bwd_call_ms = device_ms(lambda: cb.conv_block_bwd(*args))
             bwd_plain = device_ms(lambda: cb.conv_block_bwd_plain(*args))
@@ -552,19 +624,20 @@ def check_conv_kernels(randn, peaks, entries, worst):
             bwd_lib = device_ms(lambda: torch.ops.aten.convolution_backward(
                 dce, xn, w, None, list(st), [pad, pad], [1, 1], False, [0, 0], 1,
                 [True, True, False]))
-            bb, bby = bound(2.0 * flops, conv_bytes(x, w, scale, shift, c, dc, ds, dq, *gb),
-                            peaks)
+            bb, bby, bf32 = product_bound(
+                2.0 * flops, conv_bytes(xr, w, scale, shift, c, dc, ds, dq, *gb), peaks)
             rec.update(kernel_ms=fwd_ms, infer_ms=infer_ms, plain_ms=fwd_plain,
-                       library_ms=fwd_lib, bound_ms=fb, bound_by=fby, bwd_kernel_ms=bwd_ms,
-                       bwd_with_allocs_ms=bwd_call_ms, bwd_plain_ms=bwd_plain,
-                       bwd_library_ms=bwd_lib, bwd_bound_ms=bb, bwd_bound_by=bby)
+                       library_ms=fwd_lib, bound_ms=fb, bound_by=fby, f32_bound_ms=ff32,
+                       bwd_kernel_ms=bwd_ms, bwd_with_allocs_ms=bwd_call_ms,
+                       bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_lib, bwd_bound_ms=bb,
+                       bwd_bound_by=bby, bwd_f32_bound_ms=bf32)
             label = "x (%d,%d,%d,%d) w (%d,%d,%d,%d) stride %d%s%s" % (
                 B, K, H, W, N, K, kernel, kernel, stride, " prologue" if prologue else "",
                 " + res" if res else "")
             fwd = dict(ms=fwd_ms, infer_ms=infer_ms, plain_ms=fwd_plain, bound_ms=fb,
-                       bound_by=fby, library_ms=fwd_lib)
+                       bound_by=fby, f32_bound_ms=ff32, library_ms=fwd_lib)
             bwd = dict(ms=bwd_ms, with_allocs_ms=bwd_call_ms, plain_ms=bwd_plain, bound_ms=bb,
-                       bound_by=bby, library_ms=bwd_lib)
+                       bound_by=bby, f32_bound_ms=bf32, library_ms=bwd_lib)
             if not prefix:
                 entries["conv_bn"] = entry(
                     "conv_bn", library="F.conv2d of the normalised input (the product alone)",
@@ -576,6 +649,38 @@ def check_conv_kernels(randn, peaks, entries, worst):
                 entries["conv_bn"].update({prefix + k: v for k, v in fwd.items()})
                 entries["conv_bn_bwd"].update({prefix + k: v for k, v in bwd.items()})
         log(rec)
+    check_conv_f64(randn, cb)
+
+
+def check_conv_f64(randn, cb):
+    """Stage 4's 3x3 (512 -> 512 at 7 x 7, batch 32: N·taps = 4608-long dx
+    sums), with and without a prologue: the forward and backward kernels and
+    their float32 plain versions (cuDNN), each against the plain version in
+    float64 on the same inputs. Each kernel output must lie within the
+    CONV_TOL of the float64 result."""
+    B, K, H, W, N = RESNET_TRAIN["batch"], 512, 7, 7, 512
+    for prologue in (False, True):
+        x, w, scale, shift, _, _ = conv_case(randn, B, K, H, W, N, 3, 1, prologue, False)
+        st = (1, 1)
+        dc, ds, dq = randn(B, N, H, W), randn(N, scale=0.01), randn(N, scale=1e-3)
+        c = cb.conv_block(x, w, scale, shift, None, st, prologue)[0]
+        args = (x, w, scale, shift, c, dc, ds, dq, st, prologue, False)
+        f64 = [t.double() if isinstance(t, torch.Tensor) else t for t in args]
+        outs = {"kernel": (c, *cb.conv_block_bwd(*args)),
+                "plain_f32": (cb.conv_block_plain(x, w, scale, shift, None, st, prologue)[0],
+                              *cb.conv_block_bwd_plain(*args))}
+        exact = (cb.conv_block_plain(*f64[:4], None, st, prologue)[0],
+                 *cb.conv_block_bwd_plain(*f64))
+        names = ("c", "dx", "dw", "dscale", "dshift")
+        rec = {"phase": "kernel", "name": "conv_bn_f64", "shape": [B, K, H, W, N, 3, 1],
+               "prologue": prologue}
+        for who, got in outs.items():
+            rec[who] = {n: rel_err(g.double(), e) for n, g, e in zip(names, got, exact)
+                        if e is not None}
+        log(rec)
+        for n, e in rec["kernel"].items():
+            tol = CONV_TOL["elementwise" if n in ("c", "dx") else "sums"]
+            check(math.isfinite(e) and e <= tol, ("conv kernels against float64", n, prologue, e))
 
 
 def normalise_kernel(pt, shape):
@@ -620,10 +725,10 @@ def check_deploy_kernels(randn, peaks, entries, worst):
 
             lib_ms = device_ms(library)
             mm_ms = device_ms(lambda: torch.mm(a, b))
-            b_ms, b_by = bound(2.0 * M * K * N + 3.0 * M * N,
-                               4.0 * (M * K + K * N + M * N + 2 * N), peaks)
+            b_ms, b_by, f32_ms = product_bound(2.0 * M * K * N + 3.0 * M * N,
+                                               4.0 * (M * K + K * N + M * N + 2 * N), peaks)
             times = dict(ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms, mm_alone_ms=mm_ms)
+                         f32_bound_ms=f32_ms, library_ms=lib_ms, mm_alone_ms=mm_ms)
             rec.update(times)
             if not prefix:
                 entries["matmul_stats"] = entry(
@@ -807,12 +912,17 @@ def run_slice(pt):
     torch.cuda.synchronize()
     greedy_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    schedules = ops.schedule_counts()
 
     L, steps = MODEL["num_layers"], NEW_TOKENS - 1
     expected = {"flash_attention": L, "flash_attention_dq": 0, "flash_attention_dkv": 0,
                 "norm_residual": (2 * L + 1) * (1 + steps), "norm_residual_bwd": 0,
                 "matmul_bias_act": L * (1 + steps)}
     check(launches == with_zeros(expected), ("launch counts", launches, expected))
+    # the prefill's ffn1 (M = batch · prefill_len) on the tiles, each decode
+    # step's (M = batch) on the small-M schedule
+    expected_schedules = {"matmul_bias_act.small_m": L * steps, "matmul_bias_act.tiles": L}
+    check(schedules == expected_schedules, ("schedule counts", schedules, expected_schedules))
     check(tokens.shape == (SERVE["batch"], NEW_TOKENS), ("token shape", tokens.shape))
     check(((tokens >= 0) & (tokens < MODEL["vocab_size"])).all(), "token ids out of range")
     greedy_s = [greedy_s]
@@ -855,6 +965,7 @@ def run_slice(pt):
     step_p50 = float(np.percentile(step_ms, 50))
     log({"phase": "slice", "model": MODEL, "serve": SERVE, "prompt_len": PROMPT_LEN,
          "new_tokens": NEW_TOKENS, "launches": launches, "expected_launches": expected,
+         "schedule_launches": schedules,
          "warmup_s": warmup_s, "greedy_s": greedy_s, "greedy_after_loops_s": greedy_after_s,
          "prefill_ms_p50": float(np.median(prefill_ms)), "prefill_ms_max": max(prefill_ms),
          "prefill_samples": len(prefill_ms),
@@ -999,13 +1110,16 @@ def run_train(pt, params):
     launches = ops.launch_counts()
     check(launches == with_zeros({k: v * TRAIN["steps"] for k, v in expected.items()}),
           ("training launch counts", launches))
+    schedules = ops.schedule_counts()  # ffn1 at M = batch · seq_len: the tiles
+    check(schedules == {"matmul_bias_act.small_m": 0, "matmul_bias_act.tiles": L * TRAIN["steps"]},
+          ("training schedule counts", schedules))
     check(all(math.isfinite(x) for x in losses), ("non-finite loss", losses))
     check(losses[-1] < losses[0], ("the loss did not fall", losses))
     log({"phase": "train_breakdown", **profile_window(step)})
     p50 = float(np.percentile(step_ms, 50))
     log({"phase": "train", "model": MODEL, "train": TRAIN, "tokens_per_step": B * T,
-         "launches_per_step": expected, "launches": launches, "losses": losses,
-         "step_ms_p50": p50, "step_ms_p80": float(np.percentile(step_ms, 80)),
+         "launches_per_step": expected, "launches": launches, "schedule_launches": schedules,
+         "losses": losses, "step_ms_p50": p50, "step_ms_p80": float(np.percentile(step_ms, 80)),
          "step_ms": step_ms, "tokens_per_s": B * T * 1e3 / p50,
          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return launches
@@ -1095,11 +1209,10 @@ def run_resnet_serve(pt, net, args, aux):
         out["batch%d" % B] = {"launches": launches, "latency_ms_p50": med,
                               "latency_ms_p80": float(np.percentile(lat, 80)),
                               "latency_ms": lat, "images_per_s": B * 1e3 / med}
-        if B == max(RESNET_SERVE["batches"]):
-            torch.cuda.reset_peak_memory_stats()
-            log({"phase": "resnet_serve_breakdown", "batch": B,
-                 **profile_window(lambda: exe.forward(is_train=False)),
-                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        torch.cuda.reset_peak_memory_stats()
+        log({"phase": "resnet_serve_breakdown", "batch": B,
+             **profile_window(lambda: exe.forward(is_train=False)),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
         del exe
     Bc = RESNET_SERVE["check_batch"]
     probs = []
@@ -1472,7 +1585,8 @@ def main():
     name = torch.cuda.get_device_name(0)
     peaks = peaks_for(name)
     log({"phase": "device", "name": name, "nvidia_smi": smi, "torch": torch.__version__,
-         "cuda": torch.version.cuda, "peak_f32_flops": peaks[0], "peak_bytes_per_s": peaks[1]})
+         "cuda": torch.version.cuda, "peak_f32_flops": peaks["f32"],
+         "peak_tf32_flops": peaks["tf32"], "peak_bytes_per_s": peaks["bytes"]})
     t0 = time.perf_counter()
     lib_path = cuda_build.build_library()
     cuda_build.library()

@@ -1,8 +1,8 @@
-// Shared pieces of the fused conv + BatchNorm kernels (conv_bn.cu forward,
-// conv_bn_bwd.cu backward): the tiling, the implicit-GEMM step over one
-// staged chunk, and the fixed-order sum of per-block partial rows.
-//
-// A block owns a 64-channel by 64-position output tile of one image and
+// Shared pieces of the fused conv + BatchNorm kernels: the shape gate and
+// the fixed-order sum of per-block partial rows (conv_bn.cu forward and
+// conv_bn_bwd.cu backward), and the backward's tiling and f32 implicit-GEMM
+// step over one staged chunk (the forward tiles for the tensor cores in
+// conv_bn.cu). In the backward a block owns a 64-channel by 64-position output tile of one image and
 // 256 threads, each a 4 x 4 register micro-tile (4 channels by 4 positions).
 // For a 1x1 kernel the 64 positions run along the flattened output grid;
 // for a 3x3 kernel they are an 8 x 8 pixel tile, and the staged input chunk

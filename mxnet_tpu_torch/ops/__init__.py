@@ -29,6 +29,14 @@ KERNELS = {
     "rtc": ("mxnet_tpu_torch.rtc", "launches"),
 }
 
+#: per-schedule counters of a kernel with more than one schedule: name ->
+#: (module, counter). They count the same launches as ``KERNELS`` does, split
+#: by the schedule each took; ``schedule_counts`` reads them.
+SCHEDULE_COUNTERS = {
+    "matmul_bias_act.small_m": (matmul_bias_act, "small_m_launches"),
+    "matmul_bias_act.tiles": (matmul_bias_act, "tile_launches"),
+}
+
 
 def _counters():
     for name, (mod, counter) in KERNELS.items():
@@ -38,8 +46,15 @@ def _counters():
 def reset_launch_counts():
     for _, mod, counter in _counters():
         setattr(mod, counter, 0)
+    for mod, counter in SCHEDULE_COUNTERS.values():
+        setattr(mod, counter, 0)
 
 
 def launch_counts():
     """{kernel name: launches since the last reset}."""
     return {name: getattr(mod, counter) for name, mod, counter in _counters()}
+
+
+def schedule_counts():
+    """{kernel.schedule: launches since the last reset}."""
+    return {name: getattr(mod, counter) for name, (mod, counter) in SCHEDULE_COUNTERS.items()}

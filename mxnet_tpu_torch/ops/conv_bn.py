@@ -7,11 +7,25 @@ kernels:
 - ``_conv_block_fwd_impl`` (:301, call :373) → ``_kernel`` (:240):
   ``c = conv(relu(x·scale + shift), w) [+ res]`` with the per-channel f32
   Σc and Σc² of the result (the statistics epilogue, elided at inference,
-  :460-470). Its port is ``csrc/conv_bn.cu``.
+  :460-470). Its port is ``csrc/conv_bn.cu``: an implicit GEMM on the TF32
+  tensor cores with f32 accuracy (3xTF32 on ``mma.sync``,
+  ``csrc/tf32x3.cuh``), output channels by output positions, the
+  contraction streamed through a ``cp.async`` ring, the BatchNorm prologue
+  applied to the staged input before its split. A 1x1 kernel tiles the
+  flattened B·H'W' positions 128 at a time, so the 14 x 14 and 7 x 7 grids
+  of ResNet-50's late stages fill whole tiles; a 3x3 kernel an 8 x 8 pixel
+  tile with its border. Bound by operations at the 3x3 sites, by bytes at
+  most 1x1 ones (``PERF.md`` §6).
 - ``_conv_block_bwd_impl`` (:619, call :692) → ``_bwd_kernel`` (:511): the
   fused dgrad + wgrad with the statistics cotangents folded into the output
   cotangent (``dce = dc + ds + 2·c·dq``), the prologue's backward, dscale,
-  dshift and dres. Its port is ``csrc/conv_bn_bwd.cu``.
+  dshift and dres. Its port is ``csrc/conv_bn_bwd.cu``: f32 FMAs on the
+  CUDA cores over 64-position tiles of one image (``csrc/conv_bn.cuh``).
+
+Each block of the forward writes one row of per-channel partial Σc, Σc²
+(``_fwd_parts`` rows), the backward one row of partial dscale, dshift
+(``_position_tiles`` rows per image); a second pass adds the rows in a fixed
+order, so two runs give the same bits.
 
 The shape gate is the JAX package's ``_conv_geometry`` (copied below): a 1x1
 kernel with stride 1 or 2, or a 3x3 kernel with stride 1 (pad 1); K % 8 == 0;
@@ -44,9 +58,14 @@ __all__ = ["strided_dims", "supported", "conv_block", "conv_block_plain", "conv_
            "conv_block_infer_plain", "conv_block_bwd", "conv_block_bwd_plain", "ConvBlock",
            "flops"]
 
-# the kernels' tiling (csrc/conv_bn.cuh, which the C entry points check):
-# 64 output positions a block, as 8 x 8 pixels for a 3x3 kernel
+# the backward kernels' tiling (csrc/conv_bn.cuh, which the C entry point
+# checks): 64 output positions of one image a block, as 8 x 8 pixels for a
+# 3x3 kernel
 TILE_P, TILE_HW = 64, 8
+# the forward kernel's (csrc/conv_bn.cu): 128 positions of the flattened
+# B·H'W' axis a block for a 1x1 kernel, an 8 x 8 pixel tile of one image for
+# a 3x3 kernel; one partial-statistics row each
+FWD_TILE_P, FWD_TILE_HW = 128, 8
 # the wgrad kernel's reduction step, in output positions, and the blocks it
 # aims for (two on each of an H100's 132 SMs)
 WGRAD_STEP, WGRAD_TARGET_BLOCKS = 16, 264
@@ -108,11 +127,20 @@ def _geometry(what, x, w, stride):
 
 
 def _position_tiles(Ho, Wo, taps):
-    """Position tiles of one image: 64 positions in a row for 1x1, 8 x 8
-    pixels for 3x3 (the kernels' ``ptiles``)."""
+    """The backward's position tiles of one image: 64 positions in a row for
+    1x1, 8 x 8 pixels for 3x3 (``ptiles`` of ``csrc/conv_bn.cuh``)."""
     if taps == 1:
         return -(-Ho * Wo // TILE_P)
     return -(-Ho // TILE_HW) * -(-Wo // TILE_HW)
+
+
+def _fwd_parts(B, Ho, Wo, taps):
+    """The forward's position tiles, each writing one row of partial
+    statistics: the flattened B·H'W' positions in tiles of 128 for 1x1, 8 x 8
+    pixel tiles of each image for 3x3."""
+    if taps == 1:
+        return -(-B * Ho * Wo // FWD_TILE_P)
+    return B * -(-Ho // FWD_TILE_HW) * -(-Wo // FWD_TILE_HW)
 
 
 def _wgrad_splits(B, K, N, HWo, taps):
@@ -209,7 +237,7 @@ def _launch_fwd(what, x, w, scale, shift, res, stride, relu, stats):
     Ho, Wo = _out_dims(x, w, stride)
     cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, res) if t is not None])
     c = torch.empty((B, N, Ho, Wo), dtype=x.dtype, device=x.device)
-    parts = B * _position_tiles(Ho, Wo, taps)
+    parts = _fwd_parts(B, Ho, Wo, taps)
     part = torch.empty((parts, 2, N), dtype=torch.float32, device=x.device) if stats else None
     sums = torch.empty((2, N), dtype=torch.float32, device=x.device) if stats else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

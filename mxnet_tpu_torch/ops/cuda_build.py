@@ -61,8 +61,8 @@ _SIGNATURES = {
     "mxt_layer_norm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # x, gamma, mean, rstd, dy, dx, dgamma_part, dbeta_part, R, D, rows_per_block, stream
     "mxt_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # a, w, bias (or NULL), c, M, N, K, act, stream
-    "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # a, w, bias (or NULL), c, M, N, K, act, schedule, stream
+    "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, scale, shift, res, c, part, sums (the last five or NULL), B, K, H, W, N, taps,
     # stride, relu, parts, stream
     "mxt_conv_bn_fwd": (_P,) * 8 + (_I,) * 9 + (_P,),

@@ -64,6 +64,30 @@ def test_matmul_bias_act_kernel_matches_plain(dev, M, K, N, act):
                                    atol=1e-4, rtol=1e-5)
 
 
+# (M, K, N): decode, M around the small-M schedule's 32-row groups and around
+# the crossover, the prefill; K % 4 != 0 on both sides (4-byte copies), N not
+# a multiple of the tile
+@pytest.mark.parametrize("M,K,N", [(8, 512, 2048), (31, 512, 300), (32, 130, 64),
+                                   (33, 512, 2048), (mba.SMALL_M_MAX, 512, 2048),
+                                   (mba.SMALL_M_MAX + 1, 512, 2048), (1024, 512, 2048),
+                                   (5, 33, 70), (130, 65, 3), (64, 70, 129), (77, 200, 130)])
+def test_matmul_bias_act_schedules_match_plain(dev, M, K, N):
+    a, w, b = _randn(dev, M, K), _randn(dev, N, K, scale=1 / math.sqrt(K)), _randn(dev, N)
+    want = mba.matmul_bias_act_plain(a, w, b, "relu")
+    from mxnet_tpu_torch import ops
+    ops.reset_launch_counts()
+    got = mba.matmul_bias_act(a, w, b, "relu")
+    picked = mba._schedule(M, N, K)
+    assert ops.schedule_counts()["matmul_bias_act." + picked] == 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    # the schedule the dispatcher did not pick, where it takes the shape
+    for other in mba.SCHEDULES:
+        if other != picked and (other == "tiles" or mba._small_m_takes(M, K)):
+            c = torch.empty_like(want)
+            torch.testing.assert_close(mba._launch(a, w, b, "relu", c, other), want, atol=1e-4,
+                                       rtol=1e-5)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn(dev, 8, 16)
     with pytest.raises(MXNetError, match="contiguous"):
@@ -190,6 +214,12 @@ def _close(got, want, rtol):
 # the 64-channel tile, the smallest grid the gate takes (3 x 3), K of 1032
 CONV_SHAPES = [(2, 8, 9, 9, 16, 3, 1), (2, 64, 14, 14, 64, 3, 1), (2, 16, 9, 9, 24, 1, 2),
                (3, 32, 7, 7, 72, 1, 1), (1, 8, 3, 3, 10, 1, 1), (2, 1032, 4, 4, 8, 1, 1)]
+# the forward's tilings: 3x3 at 7 x 7 and 14 x 14 (one and four 8 x 8 tiles
+# an image), 1x1 at 14 x 14 (16-byte copies) and at 7 x 7 (4-byte copies,
+# 128-position tiles spanning images), stride 2 with odd H; K not a multiple
+# of the 32-channel chunk
+FWD_SHAPES = [(66, 16, 7, 7, 512, 3, 1), (33, 24, 14, 14, 256, 3, 1),
+              (22, 16, 14, 14, 1024, 1, 1), (65, 40, 7, 7, 1536, 1, 1), (3, 32, 13, 11, 48, 1, 2)]
 
 
 @pytest.mark.parametrize("B,K,H,W,N,kernel,stride", CONV_SHAPES)
@@ -217,15 +247,60 @@ def test_conv_bn_kernels_match_plain(dev, B, K, H, W, N, kernel, stride, variant
             _close(g, p, 1e-5)
 
 
-def test_conv_bn_kernels_are_deterministic(dev):
-    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, 4, 64, 28, 28, 64, 3, 1, "prologue_res")
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", FWD_SHAPES)
+@pytest.mark.parametrize("variant", ["bare", "prologue", "prologue_res"])
+def test_conv_bn_forward_tilings_match_plain(dev, B, K, H, W, N, kernel, stride, variant):
+    x, w, scale, shift, res, _ = _conv_case(dev, B, K, H, W, N, kernel, stride, variant)
+    st, relu = (stride, stride), variant != "bare"
+    before = (cb.launches, cb.infer_launches)
+    got = cb.conv_block(x, w, scale, shift, res, st, relu)
+    for g, p in zip(got, cb.conv_block_plain(x, w, scale, shift, res, st, relu)):
+        _close(g, p, 1e-5)
+    _close(cb.conv_block_infer(x, w, scale, shift, st, relu),
+           cb.conv_block_infer_plain(x, w, scale, shift, st, relu), 1e-5)
+    assert (cb.launches, cb.infer_launches) == (before[0] + 1, before[1] + 1)
+
+
+# 3x3 in 8 x 8 tiles; 1x1 at the forward's flattened tiling, where a tile
+# spans images (7 x 7), over 2 and 22 blocks of 64 channels
+@pytest.mark.parametrize("B,K,H,W,N,kernel", [(4, 64, 28, 28, 64, 3), (9, 64, 7, 7, 96, 1),
+                                              (64, 32, 7, 7, 1408, 1)])
+def test_conv_bn_kernels_are_deterministic(dev, B, K, H, W, N, kernel):
+    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, B, K, H, W, N, kernel, 1,
+                                                   "prologue_res")
     a = cb.conv_block(x, w, scale, shift, res, (1, 1), True)
     b = cb.conv_block(x, w, scale, shift, res, (1, 1), True)
-    dc, ds, dq = _randn(dev, 4, 64, Ho, Wo), _randn(dev, 64), _randn(dev, 64)
+    assert torch.equal(cb.conv_block_infer(x, w, scale, shift, (1, 1), True),
+                       cb.conv_block_infer(x, w, scale, shift, (1, 1), True))
+    dc, ds, dq = _randn(dev, B, N, Ho, Wo), _randn(dev, N), _randn(dev, N)
     ga = cb.conv_block_bwd(x, w, scale, shift, a[0], dc, ds, dq, (1, 1), True, True)
     gb = cb.conv_block_bwd(x, w, scale, shift, a[0], dc, ds, dq, (1, 1), True, True)
     for u, v in zip(a + ga, b + gb):
         assert torch.equal(u, v)
+
+
+# 3x3 sites whose long sums the plain float32 version (cuDNN) rounds
+# otherwise: stage 4's 3x3 of ResNet-50 at batch 32 (dx sums N·taps = 4608
+# terms), and the forward tilings' shapes (dw sums B·H'W' = 3234 to 12936
+# terms); the kernels against the plain version in float64 on the same inputs
+@pytest.mark.parametrize("B,K,H,W,N,variant", [(32, 512, 7, 7, 512, "bare"),
+                                               (32, 512, 7, 7, 512, "prologue"),
+                                               (66, 16, 7, 7, 512, "bare"),
+                                               (33, 24, 14, 14, 256, "bare"),
+                                               (264, 16, 7, 7, 128, "bare")])
+def test_conv_bn_kernels_match_float64(dev, B, K, H, W, N, variant):
+    x, w, scale, shift, _, (Ho, Wo) = _conv_case(dev, B, K, H, W, N, 3, 1, variant)
+    relu = variant != "bare"
+    c = cb.conv_block(x, w, scale, shift, None, (1, 1), relu)[0]
+    dc = _randn(dev, B, N, Ho, Wo, seed=7)
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (x, w, scale, shift, c, dc, ds, dq, (1, 1), relu, False)
+    f64 = [t.double() if isinstance(t, torch.Tensor) else t for t in args]
+    _close(c.double(), cb.conv_block_plain(*f64[:4], None, (1, 1), relu)[0], 1e-5)
+    for g, e in zip(cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*f64)):
+        assert (g is None) == (e is None)
+        if e is not None:
+            _close(g.double(), e, 1e-5)
 
 
 def test_conv_bn_refuses_what_it_does_not_take(dev):
@@ -237,6 +312,11 @@ def test_conv_bn_refuses_what_it_does_not_take(dev):
         cb.conv_block(x, _randn(dev, 16, 16, 3, 3), None, None, stride=(2, 2))
     with pytest.raises(MXNetError, match="float32"):
         cb.conv_block(x.double(), _randn(dev, 16, 16, 1, 1).double(), None, None)
+    # contiguous, but 4 bytes past an aligned address: the kernel's 16-byte
+    # copies do not take it
+    xm = _randn(dev, 1 + x.numel())[1:].view(x.shape)
+    with pytest.raises(MXNetError, match="misaligned"):
+        cb.conv_block(xm, _randn(dev, 16, 16, 1, 1), None, None)
 
 
 # (M, K, N): one tile, ragged everywhere (scalar loads of A and B), K and N

@@ -1,0 +1,206 @@
+"""The arithmetic of the port's tensor-core kernels, emulated in numpy on the
+CPU (``mxnet_tpu_torch/csrc/tf32x3.cuh``), and the Python side of their
+tilings.
+
+3xTF32 splits each f32 operand into two TF32 halves (rounded as
+``cvt.rna.tf32.f32`` rounds: 10 mantissa bits, to nearest, ties away from
+zero) and sums three of the four products. Held here against float64 products at the contraction
+lengths of the transformer's ffn1 (512) and ResNet-50's conv sites (576,
+2304, 4608), with the operand scales ``chip_smoke.py`` uses, the error stays
+within a tenth of the smoke's tolerances (``TOL["matmul_bias_act"]`` 1e-4
+absolute, ``CONV_TOL["elementwise"]`` 1e-5 of the largest output), and one
+TF32 product alone does not: that is why the kernels take three.
+"""
+import numpy as np
+import pytest
+
+from mxnet_tpu_torch.ops import conv_bn as cb
+from mxnet_tpu_torch.ops import matmul_bias_act as mba
+
+MATMUL_TOL, CONV_TOL = 1e-4, 1e-5  # chip_smoke.py TOL["matmul_bias_act"], CONV_TOL
+K_SITES = (512, 576, 2304, 4608)
+
+
+def tf32(x):
+    """cvt.rna.tf32.f32: keep 10 mantissa bits, round half away from zero."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    """tf32x3.cuh's split: hi = tf32(x), lo = tf32(x − hi)."""
+    hi = tf32(x)
+    return hi, tf32(np.asarray(x, np.float32) - hi)
+
+
+def dot3(a, b):
+    """Σ_k a[i,k]·b[k,j] as 3xTF32 forms it: hi·hi + hi·lo + lo·hi, each
+    product exact (float64 holds it), summed in float64."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    f = np.float64
+    return ah.astype(f) @ bh.astype(f) + ah.astype(f) @ bl.astype(f) + al.astype(f) @ bh.astype(f)
+
+
+def dot1(a, b):
+    """One TF32 product."""
+    return tf32(a).astype(np.float64) @ tf32(b).astype(np.float64)
+
+
+def matmul_operands(K, seed=0):
+    """The smoke's ffn1 operands: a ~ N(0, 1), w ~ N(0, 1/K), as (M, K), (K, N)."""
+    rs = np.random.RandomState(seed)
+    a = rs.standard_normal((32, K)).astype(np.float32)
+    w = (rs.standard_normal((K, 32)) / np.sqrt(K)).astype(np.float32)
+    return a, w
+
+
+def conv_operands(Kt, seed=0):
+    """The smoke's conv operands as an implicit GEMM's: w He-scaled (N, K·taps),
+    the prologue's output relu(x·scale + shift) (K·taps, positions)."""
+    rs = np.random.RandomState(seed)
+    w = (rs.standard_normal((32, Kt)) * np.sqrt(2.0 / Kt)).astype(np.float32)
+    x = rs.standard_normal((Kt, 48)).astype(np.float32)
+    scale = (0.5 + rs.rand(Kt, 1)).astype(np.float32)
+    shift = (0.1 * rs.standard_normal((Kt, 1))).astype(np.float32)
+    return w, np.maximum(x * scale + shift, np.float32(0))
+
+
+def test_tf32_rounds_to_ten_mantissa_bits_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    x = np.array([1 + 2.0 ** -11, 1 + 2.0 ** -11 + 2.0 ** -20, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                  3.0, 0.0], np.float32)
+    np.testing.assert_array_equal(tf32(x), [one + ulp, one + ulp, one, -(one + ulp), 3.0, 0.0])
+    assert (tf32(x).view(np.uint32) & 0x1FFF == 0).all()
+
+
+def test_split_halves_sum_back_within_two_to_minus_22():
+    x = np.random.RandomState(1).standard_normal(10000).astype(np.float32) * 100
+    hi, lo = split(x)
+    # x − hi is exact in f32, and lo keeps 11 of its significant bits
+    assert (np.float32(x) - hi == (x.astype(np.float64) - hi)).all()
+    err = np.abs(hi.astype(np.float64) + lo - x) / np.abs(x)
+    assert err.max() <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("K", K_SITES)
+def test_three_products_keep_the_matmul_tolerance(K):
+    a, w = matmul_operands(K)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    assert np.abs(dot3(a, w) - exact).max() <= MATMUL_TOL / 10
+
+
+@pytest.mark.parametrize("K", K_SITES)
+def test_three_products_keep_the_conv_tolerance(K):
+    w, xn = conv_operands(K)
+    exact = w.astype(np.float64) @ xn.astype(np.float64)
+    err = np.abs(dot3(w, xn) - exact).max() / np.abs(exact).max()
+    assert err <= CONV_TOL / 10
+
+
+@pytest.mark.parametrize("K", K_SITES)
+def test_one_tf32_product_misses_both_tolerances(K):
+    """Why three: one pass keeps 11 significant bits of each operand."""
+    a, w = matmul_operands(K)
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    assert np.abs(dot1(a, w) - exact).max() > MATMUL_TOL
+    wc, xn = conv_operands(K)
+    exact = wc.astype(np.float64) @ xn.astype(np.float64)
+    assert np.abs(dot1(wc, xn) - exact).max() / np.abs(exact).max() > CONV_TOL
+
+
+def _rz(v):
+    """float64 -> float32, rounded toward zero (the tensor cores' adder)."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _mma_sums(a, b, chain):
+    """Σ_k a·b through m16n8k8 steps of three TF32 products, each mma
+    rounding its exact sum toward zero, chained through ``chain`` steps into
+    one accumulator (None: all of K) that is then added to the sum rounding
+    to nearest. tf32x3.cuh's mma3 chains one step."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    f = np.float64
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    d = np.zeros_like(acc)
+    steps = a.shape[1] // 8
+    for i in range(steps):
+        s = slice(8 * i, 8 * i + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            d = _rz(d.astype(f) + x[:, s].astype(f) @ y[s].astype(f))
+        if chain is not None and ((i + 1) % chain == 0 or i + 1 == steps):
+            acc, d = (acc.astype(f) + d).astype(np.float32), np.zeros_like(acc)
+    return d if chain is None else acc
+
+
+def test_a_fresh_accumulator_a_step_keeps_sums_of_squares_unbiased():
+    """The card test's failing case at the first design (1x1, K = 1032, 32
+    positions, no prologue): chained through 387 truncating adds, the
+    outputs shrink toward zero and their sum of squares drifts by about
+    1e-5 of itself (1.3e-5 on the card); chained through 4 steps it is
+    smaller but still one-signed; a fresh accumulator a step, as the
+    kernels take, is the least of the three."""
+    rs = np.random.RandomState(3)
+    K = 1032
+    w = (rs.standard_normal((8, K)) / np.sqrt(K)).astype(np.float32)
+    x = rs.standard_normal((K, 32)).astype(np.float32)
+    exact = w.astype(np.float64) @ x.astype(np.float64)
+    ssq = (exact ** 2).sum(axis=1)
+    rel = {}
+    for chain in (None, 4, 1):
+        c = _mma_sums(w, x, chain).astype(np.float64)
+        rel[chain] = np.abs((c ** 2).sum(axis=1) - ssq).max() / ssq.max()
+    assert rel[None] > 4e-6 and rel[1] <= 1e-6 and rel[1] < rel[4] < rel[None]
+
+
+# ----------------------------------------------- the tilings, as Python sees them
+@pytest.mark.parametrize("M,N,K,want", [
+    (8, 2048, 512, "small_m"),       # decode ffn1
+    (1024, 2048, 512, "tiles"),      # prefill ffn1
+    (2048, 2048, 512, "tiles"),      # training ffn1
+    (5, 70, 33, "small_m"), (130, 3, 65, "small_m"), (77, 130, 200, "small_m"),
+    (32, 2048, 512, "small_m"), (33, 2048, 512, "small_m"),  # past one 32-row group
+    (mba.SMALL_M_MAX, 2048, 512, "small_m"),  # the crossover
+    (mba.SMALL_M_MAX + 1, 2048, 512, "tiles"),
+    (8, 2048, 4096, "tiles"),        # 8 rows of A would not fit in a block's 64 KiB
+    (64, 2048, 520, "tiles"),        # 32 rows would not
+    (2048, 2048, 100, "tiles"),
+])
+def test_schedule(M, N, K, want):
+    assert mba._schedule(M, N, K) == want
+
+
+def _tiles_restated(B, Ho, Wo, taps):
+    """The forward's position tiles, by walking every output position: 1x1
+    tiles hold 128 consecutive positions of the flattened (b, oy, ox) axis,
+    3x3 tiles an 8 x 8 pixel square of one image."""
+    tiles = set()
+    for b in range(B):
+        for oy in range(Ho):
+            for ox in range(Wo):
+                if taps == 1:
+                    tiles.add(((b * Ho + oy) * Wo + ox) // 128)
+                else:
+                    tiles.add((b, oy // 8, ox // 8))
+    return len(tiles)
+
+
+# ResNet-50's fused sites by stage at 224: 1x1 stride 1 at 56, 28, 14, 7;
+# the 1x1 stride-2 shortcuts into 28, 14, 7; the 3x3 at 56, 28, 14, 7
+@pytest.mark.parametrize("B", [1, 2, 32])
+@pytest.mark.parametrize("H,stride,taps", [(56, 1, 1), (28, 1, 1), (14, 1, 1), (7, 1, 1),
+                                           (56, 2, 1), (28, 2, 1), (14, 2, 1),
+                                           (56, 1, 9), (28, 1, 9), (14, 1, 9), (7, 1, 9)])
+def test_forward_partial_rows_follow_the_tiling(B, H, stride, taps):
+    Ho, Wo = cb.strided_dims(H, H, (stride, stride)) if taps == 1 else (H, H)
+    assert cb._fwd_parts(B, Ho, Wo, taps) == _tiles_restated(B, Ho, Wo, taps)
+
+
+def test_backward_partial_rows_keep_their_own_tiling():
+    # the backward's tiles stay 64 positions of one image: at stage 4's 7 x 7
+    # one tile an image, where the forward packs 2.6 images into a tile
+    assert cb._position_tiles(7, 7, 1) * 32 == 32
+    assert cb._fwd_parts(32, 7, 7, 1) == 13
