@@ -132,6 +132,45 @@ extern "C" __global__ void rtc_split(const float* x, float* o1, float* o2) {
   if (i < %(n)d) { o1[i] = x[i] + 1.0f; o2[i] = x[i] - 1.0f; }
 }
 """
+# the tensor cores' own rate through mma.sync (m16n8k8, TF32): a block's
+# warps each run CHAINS independent accumulators for ITERS rounds, with no
+# memory traffic; %(step)s is one accumulator's work a round, one product or
+# the kernels' 3xTF32 step (tf32x3.cuh mma3: three products), into a fresh
+# accumulator added to the running sum. Each chain has its own A and B
+# changes every round, so the compiler can neither merge chains nor hoist a
+# product out of the loop.
+RTC_MMA_RATE = r"""
+#define MMA(D, A) asm volatile( \
+    "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%%0, %%1, %%2, %%3}, " \
+    "{%%4, %%5, %%6, %%7}, {%%8, %%9}, {%%0, %%1, %%2, %%3};\n" \
+    : "+f"(D[0]), "+f"(D[1]), "+f"(D[2]), "+f"(D[3]) \
+    : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(b0), "r"(b1))
+extern "C" __global__ void rtc_mma_rate(const float* in, float* out) {
+  const int lane = threadIdx.x & 31;
+  unsigned a[%(chains)d][4];
+  for (int c = 0; c < %(chains)d; ++c)
+    for (int i = 0; i < 4; ++i)
+      a[c][i] = __float_as_uint(in[(lane + 8 * i + c) %% 64]) & 0xffffe000u;
+  const unsigned b = __float_as_uint(in[(lane + 5) %% 64]) & 0xffffe000u;
+  float acc[%(chains)d][4] = {};
+  for (int it = 0; it < %(iters)d; ++it) {
+    const unsigned b0 = b ^ ((it & 7u) << 13), b1 = b0 ^ 0x2000u;
+#pragma unroll
+    for (int c = 0; c < %(chains)d; ++c) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      %(step)s
+      for (int i = 0; i < 4; ++i) acc[c][i] += d[i];
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < %(chains)d; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+"""
+MMA_RATE_STEPS = {"tf32": (1, "MMA(d, a[c]);"),
+                  "mma3": (3, "MMA(d, a[c]); MMA(d, a[c]); MMA(d, a[c]);")}
+MMA_RATE = dict(chains=8, iters=4096, blocks_per_sm=2, threads=256)
 
 # Published peaks, dense, from NVIDIA's H100 data sheet: float32 outside the
 # tensor cores, TF32 on the tensor cores (half the sheet's figure with
@@ -155,6 +194,9 @@ TOL = {"flash_attention": 1e-5, "norm_residual": 1e-5, "matmul_bias_act": 1e-4,
 # dshift are B·H'W'-long f32 sums (up to 100 352 terms), taken in another
 # order than cuDNN's and torch.sum's
 CONV_TOL = {"elementwise": 1e-5, "sums": 1e-4}
+
+# the conv_bn_bwd call's kernels (csrc/conv_bn_bwd.cu), timed one by one
+BWD_PARTS = ("fold", "wflip", "dgrad", "wgrad", "partials_sum")
 
 # name -> (source, the TPU kernel it replaces, its symbol in the profiler)
 KERNELS = {
@@ -206,11 +248,9 @@ def peaks_for(name):
     return PEAKS["SXM"]
 
 
-def device_ms(fn, iters=30, key=None):
-    """Device time per call of everything ``fn`` runs on the card (or of the
-    events whose name holds ``key``), from the profiler's CUDA events. Fails
-    the run when the profiler shows none: every time this script reports is
-    that one measure."""
+def device_events(fn, iters=30):
+    """The profiler's device time per call of each kernel ``fn`` runs on the
+    card, {name: ms}. Fails the run when the profiler shows none."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -224,16 +264,42 @@ def device_ms(fn, iters=30, key=None):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        us = {}
         for evt in prof.key_averages():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA") \
-                    and (key is None or key in evt.key):
-                total_us += float(getattr(evt, "self_device_time_total",
-                                          getattr(evt, "self_cuda_time_total", 0.0)))
-        if total_us > 0:
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                us[evt.key] = us.get(evt.key, 0.0) + float(
+                    getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total",
+                                                                   0.0)))
+        if sum(us.values()) > 0:
             break
-    check(total_us > 0, ("the profiler shows no device time", key))
-    return total_us / 1e3 / iters
+    check(sum(us.values()) > 0, "the profiler shows no device time")
+    return {k: v / 1e3 / iters for k, v in us.items()}
+
+
+def device_ms(fn, iters=30, key=None):
+    """Device time per call of everything ``fn`` runs on the card (or of the
+    events whose name holds ``key``), from the profiler's CUDA events. Fails
+    the run when that is none: every time this script reports is that one
+    measure, but for ``event_ms``."""
+    ms = sum(v for k, v in device_events(fn, iters).items() if key is None or key in k)
+    check(ms > 0, ("the profiler shows no device time", key))
+    return ms
+
+
+def event_ms(fn, iters=30):
+    """Time per call of ``fn`` between two CUDA events around ``iters``
+    calls on the current stream, after a warm-up: the cross-check of the
+    profiler's time."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(flops, nbytes, peaks, products=False):
@@ -379,6 +445,7 @@ def check_kernels(peaks):
     check_backward_kernels(randn, peaks, entries, worst)
     check_conv_kernels(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
+    check_mma_rate(randn, peaks)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
     return entries
@@ -617,7 +684,15 @@ def check_conv_kernels(randn, peaks, entries, worst):
                 rec["presampled_ms"] = device_ms(
                     lambda: cb.conv_block(xs, w, scale, shift, r, (1, 1), prologue),
                     key=KERNELS["conv_bn"][2])
-            bwd_ms = device_ms(lambda: cb.conv_block_bwd(*args), key=KERNELS["conv_bn_bwd"][2])
+            per_kernel = device_events(lambda: cb.conv_block_bwd(*args))
+            bwd_ms = sum(v for k, v in per_kernel.items() if KERNELS["conv_bn_bwd"][2] in k)
+            check(bwd_ms > 0, ("the profiler shows no conv_bn_bwd kernel", prefix))
+            # the backward's kernels one by one, and the whole call between
+            # two CUDA events (with its allocations, as bwd_with_allocs_ms)
+            rec["bwd_kernels_ms"] = {part: sum(v for k, v in per_kernel.items()
+                                               if "conv_bn_bwd_" + part in k)
+                                     for part in BWD_PARTS}
+            bwd_event_ms = event_ms(lambda: cb.conv_block_bwd(*args))
             bwd_call_ms = device_ms(lambda: cb.conv_block_bwd(*args))
             bwd_plain = device_ms(lambda: cb.conv_block_bwd_plain(*args))
             dce = dc + ds.reshape(1, -1, 1, 1) + 2.0 * c * dq.reshape(1, -1, 1, 1)
@@ -629,6 +704,7 @@ def check_conv_kernels(randn, peaks, entries, worst):
             rec.update(kernel_ms=fwd_ms, infer_ms=infer_ms, plain_ms=fwd_plain,
                        library_ms=fwd_lib, bound_ms=fb, bound_by=fby, f32_bound_ms=ff32,
                        bwd_kernel_ms=bwd_ms, bwd_with_allocs_ms=bwd_call_ms,
+                       bwd_event_ms=bwd_event_ms,
                        bwd_plain_ms=bwd_plain, bwd_library_ms=bwd_lib, bwd_bound_ms=bb,
                        bwd_bound_by=bby, bwd_f32_bound_ms=bf32)
             label = "x (%d,%d,%d,%d) w (%d,%d,%d,%d) stride %d%s%s" % (
@@ -636,8 +712,9 @@ def check_conv_kernels(randn, peaks, entries, worst):
                 " + res" if res else "")
             fwd = dict(ms=fwd_ms, infer_ms=infer_ms, plain_ms=fwd_plain, bound_ms=fb,
                        bound_by=fby, f32_bound_ms=ff32, library_ms=fwd_lib)
-            bwd = dict(ms=bwd_ms, with_allocs_ms=bwd_call_ms, plain_ms=bwd_plain, bound_ms=bb,
-                       bound_by=bby, f32_bound_ms=bf32, library_ms=bwd_lib)
+            bwd = dict(ms=bwd_ms, with_allocs_ms=bwd_call_ms, event_ms=bwd_event_ms,
+                       plain_ms=bwd_plain, bound_ms=bb, bound_by=bby, f32_bound_ms=bf32,
+                       library_ms=bwd_lib)
             if not prefix:
                 entries["conv_bn"] = entry(
                     "conv_bn", library="F.conv2d of the normalised input (the product alone)",
@@ -653,34 +730,70 @@ def check_conv_kernels(randn, peaks, entries, worst):
 
 
 def check_conv_f64(randn, cb):
-    """Stage 4's 3x3 (512 -> 512 at 7 x 7, batch 32: N·taps = 4608-long dx
-    sums), with and without a prologue: the forward and backward kernels and
-    their float32 plain versions (cuDNN), each against the plain version in
-    float64 on the same inputs. Each kernel output must lie within the
-    CONV_TOL of the float64 result."""
-    B, K, H, W, N = RESNET_TRAIN["batch"], 512, 7, 7, 512
-    for prologue in (False, True):
-        x, w, scale, shift, _, _ = conv_case(randn, B, K, H, W, N, 3, 1, prologue, False)
-        st = (1, 1)
-        dc, ds, dq = randn(B, N, H, W), randn(N, scale=0.01), randn(N, scale=1e-3)
-        c = cb.conv_block(x, w, scale, shift, None, st, prologue)[0]
-        args = (x, w, scale, shift, c, dc, ds, dq, st, prologue, False)
-        f64 = [t.double() if isinstance(t, torch.Tensor) else t for t in args]
-        outs = {"kernel": (c, *cb.conv_block_bwd(*args)),
-                "plain_f32": (cb.conv_block_plain(x, w, scale, shift, None, st, prologue)[0],
-                              *cb.conv_block_bwd_plain(*args))}
-        exact = (cb.conv_block_plain(*f64[:4], None, st, prologue)[0],
-                 *cb.conv_block_bwd_plain(*f64))
-        names = ("c", "dx", "dw", "dscale", "dshift")
-        rec = {"phase": "kernel", "name": "conv_bn_f64", "shape": [B, K, H, W, N, 3, 1],
-               "prologue": prologue}
-        for who, got in outs.items():
-            rec[who] = {n: rel_err(g.double(), e) for n, g, e in zip(names, got, exact)
-                        if e is not None}
-        log(rec)
-        for n, e in rec["kernel"].items():
-            tol = CONV_TOL["elementwise" if n in ("c", "dx") else "sums"]
-            check(math.isfinite(e) and e <= tol, ("conv kernels against float64", n, prologue, e))
+    """Stage 4's 3x3 (512 -> 512 at 7 x 7: N·taps = 4608-long dx sums) and
+    stage 1's (64 -> 64 at 56 x 56: B·H'W' = 100 352-long dw sums, the
+    longest), at batch 32, with and without a prologue: the forward and
+    backward kernels and their float32 plain versions (cuDNN), each against
+    the same function in float64 on the same inputs (with the float32
+    prologue's ReLU decisions, conv_f64_pinned). Each kernel output must lie
+    within the CONV_TOL of the float64 result."""
+    B = RESNET_TRAIN["batch"]
+    for K, H, N in ((512, 7, 512), (64, 56, 64)):
+        for prologue in (False, True):
+            check_conv_f64_case(randn, cb, B, K, H, H, N, prologue)
+
+
+def check_conv_f64_case(randn, cb, B, K, H, W, N, prologue):
+    x, w, scale, shift, _, _ = conv_case(randn, B, K, H, W, N, 3, 1, prologue, False)
+    st = (1, 1)
+    dc, ds, dq = randn(B, N, H, W), randn(N, scale=0.01), randn(N, scale=1e-3)
+    c = cb.conv_block(x, w, scale, shift, None, st, prologue)[0]
+    args = (x, w, scale, shift, c, dc, ds, dq, st, prologue, False)
+    outs = {"kernel": (c, *cb.conv_block_bwd(*args)),
+            "plain_f32": (cb.conv_block_plain(x, w, scale, shift, None, st, prologue)[0],
+                          *cb.conv_block_bwd_plain(*args))}
+    exact, kinks = conv_f64_pinned(cb, *args[:8], st, prologue)
+    names = ("c", "dx", "dw", "dscale", "dshift")
+    rec = {"phase": "kernel", "name": "conv_bn_f64", "shape": [B, K, H, W, N, 3, 1],
+           "prologue": prologue, "relu_kinks_pinned": kinks}
+    for who, got in outs.items():
+        rec[who] = {n: rel_err(g.double(), e) for n, g, e in zip(names, got, exact)
+                    if e is not None}
+    log(rec)
+    for n, e in rec["kernel"].items():
+        tol = CONV_TOL["elementwise" if n in ("c", "dx") else "sums"]
+        check(math.isfinite(e) and e <= tol, ("conv kernels against float64", n, B, K, H, N,
+                                              prologue, e))
+
+
+def conv_f64_pinned(cb, x, w, scale, shift, c, dc, ds, dq, st, relu):
+    """The 3x3 conv's forward c and backward (dx, dw, dscale, dshift) in
+    float64 on these inputs, but for the ReLU's decisions, which are the
+    float32 prologue's as the kernels and the plain version take them: a
+    pre-activation within float32 rounding of 0 may fall on the other side
+    of the kink in float64 (at stage 1's 3x3, 6.4 million of them, about
+    one a run), and its dx then differs by a whole term. So the comparison
+    holds the products' long sums alone. Returns the outputs and the count
+    of decisions that float64 would have taken otherwise."""
+    f, b = torch.float64, (1, -1, 1, 1)
+    x64, w64 = x.to(f), w.to(f)
+    if scale is None:
+        xn, keep, kinks = x64, None, 0
+    else:
+        pre = x64 * scale.to(f).reshape(b) + shift.to(f).reshape(b)
+        keep = (cb._prologue(x, scale, shift, False) > 0).to(f) if relu else None
+        kinks = int(((pre > 0).to(f) != keep).sum()) if relu else 0
+        xn = pre * keep if relu else pre
+    out = F.conv2d(xn, w64, padding=1)
+    dce = dc.to(f) + ds.to(f).reshape(b) + 2.0 * c.to(f) * dq.to(f).reshape(b)
+    dxn = torch.nn.grad.conv2d_input(x.shape, w64, dce, stride=st, padding=1)
+    dw = torch.nn.grad.conv2d_weight(xn, w.shape, dce, stride=st, padding=1)
+    if scale is None:
+        return (out, dxn, dw, None, None), kinks
+    if relu:
+        dxn = dxn * keep
+    return (out, dxn * scale.to(f).reshape(b), dw, (dxn * x64).sum(dim=(0, 2, 3)),
+            dxn.sum(dim=(0, 2, 3))), kinks
 
 
 def normalise_kernel(pt, shape):
@@ -817,6 +930,31 @@ def check_deploy_kernels(randn, peaks, entries, worst):
         log({"phase": "kernel", "name": name, "shape": list(a.shape), "max_abs_err": e})
 
 
+def check_mma_rate(randn, peaks):
+    """The rate mma.sync reaches on this card with nothing else to do: one
+    TF32 product alone, and the kernels' 3xTF32 step (its rate counted in
+    f32 work, a third of the products'), against the published TF32 peak.
+    The ceiling for the product kernels' mma.sync core."""
+    import mxnet_tpu_torch as pt
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid, block = sms * MMA_RATE["blocks_per_sm"], MMA_RATE["threads"]
+    x = pt.nd.NDArray(randn(64, scale=1e-3), pt.gpu(0))
+    rec = {"phase": "kernel", "name": "mma_sync_rate", **MMA_RATE, "sms": sms}
+    for name, (per, step) in MMA_RATE_STEPS.items():
+        probe = pt.rtc.Rtc("rtc_mma_rate_" + name, RTC_MMA_RATE % dict(step=step, **MMA_RATE),
+                           kernel_name="rtc_mma_rate", grid=(grid,), block=(block,))
+        (out,) = probe.push([x], out_shapes=[(grid * block,)])
+        check(bool(torch.isfinite(out._tensor()).all()), ("mma_sync_rate output", name))
+        ms = device_ms(lambda: probe.push([x], out_shapes=[(grid * block,)]), iters=10,
+                       key="rtc_mma_rate")
+        mmas = grid * block / 32 * MMA_RATE["iters"] * MMA_RATE["chains"] * per
+        tflops = mmas * 2 * 16 * 8 * 8 / per / (ms * 1e-3) / 1e12
+        rec[name] = {"ms": ms, "tflops": tflops,
+                     "share_of_tf32_peak": tflops * per / (peaks["tf32"] / 1e12)}
+    log(rec)
+
+
 def random_params():
     """Random weights from the seed, named and shaped by the training symbol."""
     from mxnet_tpu_torch.models import transformer
@@ -832,7 +970,8 @@ def random_params():
 def profile_window(fn, per=1):
     """Host wall time of ``fn`` (ending in a synchronize) against the card's
     busy time in it (the profiler's device events), and the device time of
-    the port's kernels against the rest; per call, ``fn`` running ``per``."""
+    the port's kernels against the rest, in all and by kernel; per call,
+    ``fn`` running ``per``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -841,8 +980,8 @@ def profile_window(fn, per=1):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    port_symbols = tuple(sym for _, _, sym in KERNELS.values())
     busy, port, n_kernels, top = 0.0, 0.0, 0, {}
+    by_kernel = dict.fromkeys(KERNELS, 0.0)
     for evt in prof.key_averages():
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
@@ -850,13 +989,16 @@ def profile_window(fn, per=1):
                            getattr(evt, "self_cuda_time_total", 0.0)))
         busy += us
         n_kernels += int(evt.count)
-        if any(k in evt.key for k in port_symbols):
+        owner = [name for name, (_, _, sym) in KERNELS.items() if sym in evt.key]
+        if owner:
             port += us
+            by_kernel[owner[0]] += us
         top[evt.key[:60]] = top.get(evt.key[:60], 0.0) + us
     return {"wall_ms": wall_ms / per, "device_busy_ms": busy / 1e3 / per,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms if wall_ms else None,
             "port_kernels_ms": port / 1e3 / per,
             "port_kernels_share_of_busy": port / busy if busy else None,
+            "port_kernel_ms": {k: v / 1e3 / per for k, v in by_kernel.items() if v},
             "device_events_per_call": n_kernels / per,
             "top_device_ms": {k: v / 1e3 / per for k, v in
                               sorted(top.items(), key=lambda kv: -kv[1])[:8]}}

@@ -1,9 +1,11 @@
-// The shared core of the port's tensor-core kernels (matmul_bias_act.cu and
-// the conv + BatchNorm forward in conv_bn.cu): float32-accurate products on
-// the TF32 tensor cores ("3xTF32"), and cp.async copies for their rings.
+// The shared core of the port's tensor-core kernels: matmul_bias_act.cu, the
+// conv + BatchNorm forward (conv_bn.cu) and its backward's dgrad and wgrad
+// (conv_bn_bwd.cu), the forward and the dgrad through conv_bn.cuh's
+// tc_mainloop: float32-accurate products on the TF32 tensor cores
+// ("3xTF32"), and cp.async copies for their rings.
 //
 // What it replaces: the f32 FMAs on the CUDA cores of the first versions of
-// those two kernels (67 TFLOP/s on an H100 SXM). The port runs in float32
+// those kernels (67 TFLOP/s on an H100 SXM). The port runs in float32
 // with TF32 off, and one TF32 pass keeps only 11 significant bits of each
 // operand (about 1e-3 relative, beyond the kernels' tolerances; see
 // tests/test_torch_tf32x3.py). 3xTF32 splits each operand in two,
@@ -12,11 +14,12 @@
 // lo·lo term and lo's own rounding are about 2^-22 relative, so the result
 // is as accurate as an f32 dot product, at 495 / 3 = 165 TFLOP/s.
 //
-// Why mma.sync and not wgmma: both kernels transform every operand element
-// before the product, the hi/lo split of both operands and, in conv_bn, the
-// BatchNorm prologue relu(x·scale + shift) of the input. mma.sync takes its
-// operands from registers, so both transformations happen while a warp loads
-// its fragments from shared memory, with no second pass over the tile.
+// Why mma.sync and not wgmma: the kernels transform every operand element
+// before the product, the hi/lo split of both operands and, in conv_bn and
+// the backward's wgrad, the BatchNorm prologue relu(x·scale + shift) of the
+// input. mma.sync takes its operands from registers, so both transformations
+// happen while a warp loads its fragments from shared memory, with no second
+// pass over the tile.
 // wgmma reads B from shared memory and, for tf32, wants both operands
 // K-major; NCHW's x is position-major, so it would need a second,
 // transformed copy of every stage. wgmma, TMA and warp specialisation are

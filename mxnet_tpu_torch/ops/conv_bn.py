@@ -19,13 +19,21 @@ kernels:
 - ``_conv_block_bwd_impl`` (:619, call :692) → ``_bwd_kernel`` (:511): the
   fused dgrad + wgrad with the statistics cotangents folded into the output
   cotangent (``dce = dc + ds + 2·c·dq``), the prologue's backward, dscale,
-  dshift and dres. Its port is ``csrc/conv_bn_bwd.cu``: f32 FMAs on the
-  CUDA cores over 64-position tiles of one image (``csrc/conv_bn.cuh``).
+  dshift and dres. Its port is ``csrc/conv_bn_bwd.cu``, on the same 3xTF32
+  core: dce is folded once into one plane (dres where there is a residual),
+  w is transposed with its taps flipped, the dgrad runs the forward's
+  implicit GEMM and tiling over (w flipped, dce) with the prologue's backward
+  in its epilogue (and, at stride 2, the zeros of dx off the sampled
+  positions), and the wgrad contracts over B·H'W' split across blocks in
+  whole waves: 128 x 64 channels a block for 1x1, 64 x 32 channels and all
+  nine taps for 3x3, each stage one 8 x 8 (or 7 x 8) pixel tile of dce
+  staged once with the bordered tile of x.
 
-Each block of the forward writes one row of per-channel partial Σc, Σc²
-(``_fwd_parts`` rows), the backward one row of partial dscale, dshift
-(``_position_tiles`` rows per image); a second pass adds the rows in a fixed
-order, so two runs give the same bits.
+Each block of the forward and of the dgrad writes one row of per-channel
+partial sums (Σc and Σc², or dscale and dshift) per position tile
+(``_fwd_parts`` rows); each wgrad split a partial dw (``_wgrad_splits``
+rows). A second pass adds the rows in a fixed order, so two runs give the
+same bits.
 
 The shape gate is the JAX package's ``_conv_geometry`` (copied below): a 1x1
 kernel with stride 1 or 2, or a 3x3 kernel with stride 1 (pad 1); K % 8 == 0;
@@ -58,17 +66,18 @@ __all__ = ["strided_dims", "supported", "conv_block", "conv_block_plain", "conv_
            "conv_block_infer_plain", "conv_block_bwd", "conv_block_bwd_plain", "ConvBlock",
            "flops"]
 
-# the backward kernels' tiling (csrc/conv_bn.cuh, which the C entry point
-# checks): 64 output positions of one image a block, as 8 x 8 pixels for a
-# 3x3 kernel
-TILE_P, TILE_HW = 64, 8
-# the forward kernel's (csrc/conv_bn.cu): 128 positions of the flattened
-# B·H'W' axis a block for a 1x1 kernel, an 8 x 8 pixel tile of one image for
-# a 3x3 kernel; one partial-statistics row each
+# the tiling of the forward and the dgrad (csrc/conv_bn.cuh, which the C
+# entry point checks): 128 positions of the flattened B·H'W' axis a block for
+# a 1x1 kernel, an 8 x 8 pixel tile of one image for a 3x3 kernel; one
+# partial-statistics row each
 FWD_TILE_P, FWD_TILE_HW = 128, 8
-# the wgrad kernel's reduction step, in output positions, and the blocks it
-# aims for (two on each of an H100's 132 SMs)
-WGRAD_STEP, WGRAD_TARGET_BLOCKS = 16, 264
+# the wgrad's (csrc/conv_bn_bwd.cu): (output, input) channels a block, the
+# positions of a stage (1x1: 32 of the flattened axis; 3x3: one pixel tile,
+# _wgrad_tile_h rows by 8), the blocks an SM holds, and the fewest stages a split takes. The
+# splits fill whole waves of an H100's 132 SMs.
+WGRAD_TILE = {1: (128, 64), 9: (64, 32)}
+WGRAD_BLOCKS_PER_SM = {1: 2, 9: 1}
+WGRAD_STEP_P, WGRAD_MIN_STAGES, SMS = 32, 4, 132
 
 launches = 0
 infer_launches = 0
@@ -126,29 +135,40 @@ def _geometry(what, x, w, stride):
     return stride, geo
 
 
-def _position_tiles(Ho, Wo, taps):
-    """The backward's position tiles of one image: 64 positions in a row for
-    1x1, 8 x 8 pixels for 3x3 (``ptiles`` of ``csrc/conv_bn.cuh``)."""
-    if taps == 1:
-        return -(-Ho * Wo // TILE_P)
-    return -(-Ho // TILE_HW) * -(-Wo // TILE_HW)
-
-
 def _fwd_parts(B, Ho, Wo, taps):
-    """The forward's position tiles, each writing one row of partial
-    statistics: the flattened B·H'W' positions in tiles of 128 for 1x1, 8 x 8
-    pixel tiles of each image for 3x3."""
+    """The position tiles of the forward and of the dgrad, each writing one
+    row of partial sums (Σc, Σc² or dscale, dshift): the flattened B·H'W'
+    positions in tiles of 128 for 1x1, 8 x 8 pixel tiles of each image for
+    3x3 (``tc_parts`` of ``csrc/conv_bn.cuh``)."""
     if taps == 1:
         return -(-B * Ho * Wo // FWD_TILE_P)
     return B * -(-Ho // FWD_TILE_HW) * -(-Wo // FWD_TILE_HW)
 
 
-def _wgrad_splits(B, K, N, HWo, taps):
+def _wgrad_tile_h(Ho):
+    """The 3x3 wgrad's pixel-tile height: 8, or 7 where the output grid's
+    height is a multiple of 7 and not of 8 (28, 14 and 7 rows fill whole
+    tiles; ``wgrad3_tile_h`` of ``csrc/conv_bn_bwd.cu``)."""
+    return 7 if Ho % FWD_TILE_HW and Ho % 7 == 0 else FWD_TILE_HW
+
+
+def _wgrad_stages(B, Ho, Wo, taps):
+    """The wgrad's stages along its B·H'W' reduction: 32 flattened positions
+    each for 1x1, one pixel tile (``_wgrad_tile_h`` x 8) each for 3x3."""
+    if taps == 1:
+        return -(-B * Ho * Wo // WGRAD_STEP_P)
+    return B * -(-Ho // _wgrad_tile_h(Ho)) * -(-Wo // FWD_TILE_HW)
+
+
+def _wgrad_splits(B, K, N, Ho, Wo, taps):
     """Blocks the wgrad kernel splits its B·H'W' reduction over, each
-    writing a partial dw that a fixed-order second pass sums."""
-    tiles = -(-N // 64) * -(-K // 64) * taps
-    steps = B * -(-HWo // WGRAD_STEP)
-    return max(1, min(-(-WGRAD_TARGET_BLOCKS // tiles), steps // 4))
+    writing a partial dw that a fixed-order second pass sums: as many as fit
+    one wave of blocks on the card with the (n, k) tiles, with at least
+    ``WGRAD_MIN_STAGES`` stages a split."""
+    tn, tk = WGRAD_TILE[taps]
+    tiles = -(-N // tn) * -(-K // tk)
+    stages = _wgrad_stages(B, Ho, Wo, taps)
+    return max(1, min(SMS * WGRAD_BLOCKS_PER_SM[taps] // tiles, stages // WGRAD_MIN_STAGES))
 
 
 def _acc_dtype(t):
@@ -289,7 +309,7 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     None without a residual."""
     stride, geo = _geometry("conv_block_bwd", x, w, stride)
     _check_vectors("conv_block_bwd", x, w, scale, shift, None, stride)
-    B, K, N, HWo, taps = geo
+    B, K, N, _, taps = geo
     Ho, Wo = _out_dims(x, w, stride)
     if c.shape != (B, N, Ho, Wo) or dc.shape != c.shape or ds.shape != (N,) \
             or dq.shape != (N,):
@@ -302,28 +322,33 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc, ds, dq)
                                       if t is not None])
     H, W = x.shape[2:]
-    strided = stride != (1, 1)
-    dx = torch.zeros_like(x) if strided else torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)  # at stride 2 the kernel writes the zeros too
     dw = torch.empty_like(w)
-    parts = B * _position_tiles(Ho, Wo, taps)
-    splits = _wgrad_splits(B, K, N, HWo, taps)
-    dw_part = torch.empty((splits, N * K * taps), dtype=torch.float32, device=x.device)
+    parts = _fwd_parts(B, Ho, Wo, taps)
+    splits = _wgrad_splits(B, K, N, Ho, Wo, taps)
+    dw_part = torch.empty((splits, N * K * taps), **f32)
     pro = scale is not None
-    dss_part = torch.empty((parts, 2, K), dtype=torch.float32, device=x.device) if pro else None
-    dss = torch.empty((2, K), dtype=torch.float32, device=x.device) if pro else None
-    dres = torch.empty_like(c) if has_res else None
+    dss_part = torch.empty((parts, 2, K), **f32) if pro else None
+    dss = torch.empty((2, K), **f32) if pro else None
+    # the folded cotangent, written once and read by both products: the
+    # residual's gradient where there is one
+    dce = torch.empty_like(c)
+    wt = torch.empty(K * -(-N // 8) * 8 * taps, **f32)  # w transposed, taps flipped
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_build.library()
     with torch.cuda.device(x.device):
         code = lib.mxt_conv_bn_bwd(
             x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), c.data_ptr(), dc.data_ptr(),
             ds.data_ptr(), dq.data_ptr(), dx.data_ptr(), dw.data_ptr(), dw_part.data_ptr(),
-            ptr(dss), ptr(dss_part), ptr(dres), B, K, H, W, N, taps, stride[0],
-            int(bool(relu)), parts, splits, torch.cuda.current_stream(x.device).cuda_stream)
+            ptr(dss), ptr(dss_part), dce.data_ptr(), wt.data_ptr(), B, K, H, W, N, taps,
+            stride[0], int(bool(relu)), parts, splits,
+            torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(code, what)
     global bwd_launches
     bwd_launches += 1
-    return (dx, dw, None if dss is None else dss[0], None if dss is None else dss[1], dres)
+    return (dx, dw, None if dss is None else dss[0], None if dss is None else dss[1],
+            dce if has_res else None)
 
 
 class ConvBlock(torch.autograd.Function):

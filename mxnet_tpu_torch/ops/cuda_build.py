@@ -66,9 +66,9 @@ _SIGNATURES = {
     # x, w, scale, shift, res, c, part, sums (the last five or NULL), B, K, H, W, N, taps,
     # stride, relu, parts, stream
     "mxt_conv_bn_fwd": (_P,) * 8 + (_I,) * 9 + (_P,),
-    # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dres, B, K, H, W, N,
-    # taps, stride, relu, parts, splits, stream
-    "mxt_conv_bn_bwd": (_P,) * 14 + (_I,) * 10 + (_P,),
+    # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
+    # N, taps, stride, relu, parts, splits, stream
+    "mxt_conv_bn_bwd": (_P,) * 15 + (_I,) * 10 + (_P,),
     # a, b, c, part, sums, M, K, N, m_tiles, stream
     "mxt_matmul_stats_fwd": (_P,) * 5 + (_I,) * 4 + (_P,),
 }

@@ -303,6 +303,70 @@ def test_conv_bn_kernels_match_float64(dev, B, K, H, W, N, variant):
             _close(g.double(), e, 1e-5)
 
 
+# the backward's tiling edges: a 3x3 site whose input channels fill neither
+# the dgrad's 64-row tile nor the 3x3 wgrad's 32-channel tile (K = 40); a 1x1
+# at 7 x 7 whose 128-position dgrad tiles and 32-position wgrad stages span
+# images; a stride-2 1x1 with odd H and W, whose dx the kernel writes in
+# full, zeros off the sampled positions included
+BWD_EDGE_SHAPES = [(2, 40, 10, 10, 24, 3, 1), (5, 32, 7, 7, 96, 1, 1), (3, 16, 13, 11, 48, 1, 2)]
+
+
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", BWD_EDGE_SHAPES)
+@pytest.mark.parametrize("variant", ["bare", "prologue", "prologue_res"])
+def test_conv_bn_bwd_tiling_edges_match_plain(dev, B, K, H, W, N, kernel, stride, variant):
+    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, B, K, H, W, N, kernel, stride, variant)
+    st, relu = (stride, stride), variant != "bare"
+    c = cb.conv_block(x, w, scale, shift, res, st, relu)[0]
+    dc = _randn(dev, B, N, Ho, Wo, seed=7)
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (x, w, scale, shift, c, dc, ds, dq, st, relu, res is not None)
+    # NaNs in the block the allocator hands back for dx: any element the
+    # kernel leaves unwritten shows
+    poison = torch.full_like(x, float("nan"))
+    del poison
+    before = cb.bwd_launches
+    gb, pb = cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*args)
+    assert cb.bwd_launches == before + 1
+    for g, p in zip(gb, pb):
+        assert (g is None) == (p is None)
+        if g is not None:
+            _close(g, p, 1e-5)
+    if stride == 2:
+        off = torch.ones_like(gb[0], dtype=torch.bool)
+        off[:, :, ::2, ::2] = False
+        assert torch.equal(gb[0][off], torch.zeros_like(gb[0][off]))
+
+
+@pytest.mark.parametrize("variant", ["bare", "prologue"])
+def test_conv_bn_bwd_longest_dw_sum_matches_float64(dev, variant):
+    """Stage 1's 3x3 of ResNet-50 at batch 32: dw sums B·H'W' = 100 352
+    terms, the longest of the net, over the wgrad's splits; the backward
+    against the plain version in float64 on the same inputs."""
+    B, K, H, W, N = 32, 64, 56, 56, 64
+    x, w, scale, shift, _, _ = _conv_case(dev, B, K, H, W, N, 3, 1, variant)
+    relu = variant != "bare"
+    c = cb.conv_block(x, w, scale, shift, None, (1, 1), relu)[0]
+    dc = _randn(dev, B, N, H, W, seed=7)
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (x, w, scale, shift, c, dc, ds, dq, (1, 1), relu, False)
+    f64 = [t.double() if isinstance(t, torch.Tensor) else t for t in args]
+    for g, e in zip(cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*f64)):
+        assert (g is None) == (e is None)
+        if e is not None:
+            _close(g.double(), e, 1e-5)
+
+
+def test_conv_bn_bwd_refuses_a_misaligned_view(dev):
+    """The backward's 16-byte copies take what the forward's take: a view 4
+    bytes past an aligned address is refused, not copied."""
+    x, w = _randn(dev, 2, 16, 8, 8), _randn(dev, 16, 16, 1, 1)
+    c = cb.conv_block(x, w, None, None)[0]
+    dc, ds, dq = _randn(dev, *c.shape), torch.zeros(16, device=dev), torch.zeros(16, device=dev)
+    xm = _randn(dev, 1 + x.numel())[1:].view(x.shape)
+    with pytest.raises(MXNetError, match="misaligned"):
+        cb.conv_block_bwd(xm, w, None, None, c, dc, ds, dq)
+
+
 def test_conv_bn_refuses_what_it_does_not_take(dev):
     x, w = _randn(dev, 2, 12, 8, 8), _randn(dev, 16, 12, 3, 3)
     with pytest.raises(MXNetError, match="does not take"):

@@ -199,8 +199,144 @@ def test_forward_partial_rows_follow_the_tiling(B, H, stride, taps):
     assert cb._fwd_parts(B, Ho, Wo, taps) == _tiles_restated(B, Ho, Wo, taps)
 
 
+# ResNet-50's fused sites at 224 as (H, stride, taps, K, N): the input grid,
+# the kernel, input and output channels (the 3x3 stride-2 convs run unfused)
+RESNET_FUSED_SITES = [
+    (56, 1, 1, 64, 64), (56, 1, 9, 64, 64), (56, 1, 1, 64, 256), (56, 1, 1, 256, 64),
+    (56, 1, 1, 256, 128), (28, 1, 1, 128, 512), (56, 2, 1, 256, 512), (28, 1, 1, 512, 128),
+    (28, 1, 9, 128, 128), (28, 1, 1, 512, 256), (14, 1, 1, 256, 1024), (28, 2, 1, 512, 1024),
+    (14, 1, 1, 1024, 256), (14, 1, 9, 256, 256), (14, 1, 1, 1024, 512), (7, 1, 1, 512, 2048),
+    (14, 2, 1, 1024, 2048), (7, 1, 1, 2048, 512), (7, 1, 9, 512, 512)]
+
+
+def _out_grid(H, stride, taps):
+    return cb.strided_dims(H, H, (stride, stride)) if taps == 1 else (H, H)
+
+
 def test_backward_partial_rows_keep_their_own_tiling():
-    # the backward's tiles stay 64 positions of one image: at stage 4's 7 x 7
-    # one tile an image, where the forward packs 2.6 images into a tile
-    assert cb._position_tiles(7, 7, 1) * 32 == 32
+    """The dgrad runs the forward's main loop and tiling, so its dscale and
+    dshift partial rows are the forward's position tiles, restated by
+    walking every position, at every fused site of ResNet-50 at batch 1, 2
+    and 32: at stage 4's 7 x 7 a 1x1 tile packs 2.6 images."""
+    for B in (1, 2, 32):
+        for H, stride, taps, _, _ in RESNET_FUSED_SITES:
+            Ho, Wo = _out_grid(H, stride, taps)
+            assert cb._fwd_parts(B, Ho, Wo, taps) == _tiles_restated(B, Ho, Wo, taps)
     assert cb._fwd_parts(32, 7, 7, 1) == 13
+
+
+def _wgrad_stages_restated(B, Ho, Wo, taps):
+    """The wgrad's stage of each output position, by walking them all: 32
+    consecutive positions of the flattened (b, oy, ox) axis (1x1), a pixel
+    tile of one image 8 wide and 8 high, or 7 high where that fills the
+    grid's height and 8 does not (3x3), numbered in the kernel's order."""
+    b, oy, ox = np.meshgrid(np.arange(B), np.arange(Ho), np.arange(Wo), indexing="ij")
+    if taps == 1:
+        return ((b * Ho + oy) * Wo + ox).ravel() // 32
+    th = 7 if Ho % 8 and Ho % 7 == 0 else 8
+    tiles_x = -(-Wo // 8)
+    return ((b * -(-Ho // th) + oy // th) * tiles_x + ox // 8).ravel()
+
+
+@pytest.mark.parametrize("B", [1, 2, 32])
+@pytest.mark.parametrize("H,stride,taps,K,N", RESNET_FUSED_SITES)
+def test_wgrad_splits_cover_the_reduction_in_one_wave(B, H, stride, taps, K, N):
+    """Each wgrad block takes the stages [z·per, (z + 1)·per) of its split
+    (per = ceil(stages / splits)): every stage of the restated tiling falls
+    in exactly one split, a split takes at least WGRAD_MIN_STAGES stages
+    where there are that many, and the blocks fit one wave of the card."""
+    Ho, Wo = _out_grid(H, stride, taps)
+    stage = _wgrad_stages_restated(B, Ho, Wo, taps)
+    stages = int(stage.max()) + 1
+    assert stages == cb._wgrad_stages(B, Ho, Wo, taps) == len(np.unique(stage))
+    splits = cb._wgrad_splits(B, K, N, Ho, Wo, taps)
+    per = -(-stages // splits)
+    owner = stage // per
+    assert owner.max() < splits and len(np.unique(owner)) == -(-stages // per)
+    assert per >= min(cb.WGRAD_MIN_STAGES, stages)
+    tn, tk = cb.WGRAD_TILE[taps]
+    blocks = -(-N // tn) * -(-K // tk) * splits
+    assert splits == 1 or blocks <= cb.SMS * cb.WGRAD_BLOCKS_PER_SM[taps]
+
+
+def _split_sums(a, b, splits, stage, chain=False):
+    """dw = a·b over P positions as the wgrad kernel forms it. The P-long
+    contraction is cut into stages of ``stage`` positions, and those into
+    ``splits`` ranges of ceil(stages / splits), one a block. Within a range
+    each 8-deep step's three TF32 products go into a fresh truncating
+    accumulator that is added to the range's sum rounding to nearest (mma3);
+    with ``chain``, into one truncating accumulator for the whole range.
+    The ranges' partial sums are then added in sum_rows's fixed order
+    (conv_bn.cuh): lane l of L adds rows l, l + L, ..., then the L lanes in
+    order."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    f, M, N = np.float64, a.shape[0], b.shape[1]
+    steps = a.shape[1] // 8
+    per = -(-(a.shape[1] // stage) // splits) * stage // 8  # steps a range
+    prods = []
+    for x, y in ((al, bh), (ah, bl), (ah, bh)):
+        p = np.zeros((splits * per, M, N))
+        p[:steps] = x.astype(f).reshape(M, steps, 8).transpose(1, 0, 2) @ \
+            y.astype(f).reshape(steps, 8, N)
+        prods.append(p.reshape(splits, per, M, N))  # zero steps past the end add nothing
+    acc = np.zeros((splits, M, N), np.float32)
+    if chain:
+        for i in range(per):
+            for p in prods:
+                acc = _rz(acc.astype(f) + p[:, i])
+    else:
+        d = np.zeros(prods[0].shape, np.float32)
+        for p in prods:
+            d = _rz(d.astype(f) + p)
+        for i in range(per):
+            acc = acc + d[:, i]  # float32: rounded to nearest
+    L = 16 if splits >= 64 else (4 if splits >= 8 else 1)
+    out = np.zeros((M, N), np.float32)
+    for lane in range(L):
+        s = np.zeros((M, N), np.float32)
+        for r in range(lane, splits, L):
+            s = s + acc[r]
+        out = out + s
+    return out
+
+
+def wgrad_operands(P, ds, seed=0):
+    """The wgrad's operands over P positions for 8 output and 8 input
+    channels: dce = dc + ds + 2·c·dq as the smoke draws them (dc, c ~ N(0,
+    1), dq ~ 1e-3·N(0, 1)) and xn = relu(x·scale + shift), as (8, P) and
+    (P, 8)."""
+    rs = np.random.RandomState(seed)
+    dc, c, x = (rs.standard_normal((8, P)).astype(np.float32) for _ in range(3))
+    dq = (1e-3 * rs.standard_normal((8, 1))).astype(np.float32)
+    dce = (dc + np.float32(ds)) + (np.float32(2) * c) * dq
+    scale = (0.5 + rs.rand(8, 1)).astype(np.float32)
+    shift = (0.1 * rs.standard_normal((8, 1))).astype(np.float32)
+    return dce, np.ascontiguousarray(np.maximum(x * scale + shift, np.float32(0)).T)
+
+
+# the longest wgrad sums of ResNet-50 at batch 32, stage 1's 100 352
+# positions: the 3x3 (8 x 8 pixel stages) and the 1x1 64 -> 256 (32-position
+# stages), as (taps, K, N, stage)
+@pytest.mark.parametrize("taps,K,N,stage", [(9, 64, 64, 64), (1, 64, 256, 32)])
+def test_wgrad_long_sums_keep_the_conv_tolerance(taps, K, N, stage):
+    P = 32 * 56 * 56
+    splits = cb._wgrad_splits(32, K, N, 56, 56, taps)
+    dce, xn = wgrad_operands(P, ds=0.01)
+    exact = dce.astype(np.float64) @ xn.astype(np.float64)
+    err = np.abs(_split_sums(dce, xn, splits, stage) - exact).max() / np.abs(exact).max()
+    assert err <= CONV_TOL / 10
+
+
+def test_one_accumulator_chained_over_a_split_misses_the_conv_tolerance():
+    """Stage 1's 3x3 at batch 32 with a statistics cotangent that moves every
+    position of a channel alike (ds = 1, as a BatchNorm's dshift does): the
+    split's sums grow steadily, and one accumulator chained through a
+    split's 192 steps truncates them past CONV_TOL, where a fresh
+    accumulator a step stays within a tenth of it."""
+    P = 32 * 56 * 56
+    splits = cb._wgrad_splits(32, 64, 64, 56, 56, 9)
+    dce, xn = wgrad_operands(P, ds=1.0, seed=5)
+    exact = dce.astype(np.float64) @ xn.astype(np.float64)
+    rel = {chain: np.abs(_split_sums(dce, xn, splits, 64, chain) - exact).max()
+           / np.abs(exact).max() for chain in (False, True)}
+    assert rel[False] <= CONV_TOL / 10 < CONV_TOL < rel[True]

@@ -7,7 +7,8 @@ checkout of it.
 Imports ``mxnet_tpu_torch`` from ``DIR`` (default: this checkout), builds its
 kernels there, and prints one JSON line: the profiler's device time of a
 ResNet-50 forward at batch 32 and 1, of the conv kernels in a ResNet-50
-training step at batch 32, of a transformer prefill and of a decode step,
+training step at batch 32 (and of the backward's, conv_bn_bwd, among them),
+of a transformer prefill and of a decode step,
 the host-clock median latency of the ResNet-50 forwards, the prefill and the
 decode step, and the card's name and power limit. The models, shapes and
 helpers are ``chip_smoke.py``'s of this checkout. To compare two checkouts,
@@ -97,6 +98,7 @@ def card_times(smoke, pt):
     w = smoke.profile_window(exe.forward_backward)
     out["resnet_train_step_ms"] = w["device_busy_ms"]
     out["resnet_train_step_conv_ms"] = w["port_kernels_ms"]
+    out["resnet_train_step_conv_bn_bwd_ms"] = w["port_kernel_ms"].get("conv_bn_bwd", 0.0)
     return out
 
 
