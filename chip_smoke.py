@@ -289,17 +289,27 @@ def device_ms(fn, iters=30, key=None):
 def event_ms(fn, iters=30):
     """Time per call of ``fn`` between two CUDA events around ``iters``
     calls on the current stream, after a warm-up: the cross-check of the
-    profiler's time."""
+    profiler's time. The calls are queued behind a sleep on the card that
+    outlasts their queueing (checked, and the sleep made longer until it
+    does), so the window holds the card's time and none of the host's."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = 1 << 24
+    for _ in range(6):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_first = not start.query()  # the card still slept when the last call was queued
+        torch.cuda.synchronize()
+        if queued_first:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise RuntimeError("event_ms: the host did not queue %d calls within a sleep of %d cycles"
+                       % (iters, cycles // 4))
 
 
 def bound(flops, nbytes, peaks, products=False):
@@ -533,17 +543,27 @@ def check_backward_kernels(randn, peaks, entries, worst):
                     ("flash_attention_dkv", fa.flash_attention_bwd_dkv,
                      fa.flash_attention_bwd_dkv_plain, 8.0 * D * pairs, 8.0 * BH * S * D)):
                 ms = device_ms(lambda: fn(*args))
+                # the pass alone between two CUDA events: the profiler's cross-check
+                ev_ms = event_ms(lambda: fn(*args))
                 plain_ms = device_ms(lambda: plain(*args))
                 b_ms, b_by, f32_ms = product_bound(flops, reads + writes, peaks)
-                rec.update({name + "_ms": ms, name + "_plain_ms": plain_ms,
-                            name + "_bound_ms": b_ms, name + "_f32_bound_ms": f32_ms})
+                rec.update({name + "_ms": ms, name + "_event_ms": ev_ms,
+                            name + "_plain_ms": plain_ms, name + "_bound_ms": b_ms,
+                            name + "_f32_bound_ms": f32_ms})
                 entries[name] = entry(
-                    name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    f32_bound_ms=f32_ms,
+                    name, ms=ms, event_ms=ev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, f32_bound_ms=f32_ms,
                     library_ms=lib_ms, library="SDPA backward (dq, dk and dv together)",
                     shape="train q,k,v,dO (%d,%d,%d) causal" % (BH, T, D))
+            # the whole call (δ, dq, dk/dv) and its δ = rowsum(dO∘O) alone
+            # between two CUDA events
+            bwd_event_ms = event_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                                   causal=causal))
+            delta_event_ms = event_ms(lambda: (do * o).sum(dim=-1))
             rec.update(library_ms=lib_ms, dq_plus_dkv_ms=entries["flash_attention_dq"]["ms"]
-                       + entries["flash_attention_dkv"]["ms"])
+                       + entries["flash_attention_dkv"]["ms"], bwd_event_ms=bwd_event_ms,
+                       delta_event_ms=delta_event_ms)
+            entries["flash_attention_dq"]["bwd_event_ms"] = bwd_event_ms
         log(rec)
 
     # ---- LayerNorm backward: (R, D); the training step's rows, then ragged
@@ -1158,12 +1178,13 @@ def relu_decisions(record=None, pinned=None):
         mba.MatmulBiasAct.forward = orig
 
 
-def run_train(pt, params):
-    """Phase 4: training the full-width model on one fixed batch."""
-    from mxnet_tpu_torch import ops, optimizer
+def train_model(params):
+    """The training phase's symbol, its fixed batch of tokens (from the
+    seed) and a bind of it: ``(net, batch, bind)``, ``bind(ctx, rows)``
+    giving an executor on the batch's first ``rows`` sequences."""
     from mxnet_tpu_torch.models import transformer
 
-    B, T, L = TRAIN["batch"], TRAIN["seq_len"], MODEL["num_layers"]
+    B, T = TRAIN["batch"], TRAIN["seq_len"]
     net = transformer.get_symbol(seq_len=T, **MODEL)
     rs = np.random.RandomState(SEED + 2)
     tokens = rs.randint(0, MODEL["vocab_size"], (B, T + 1)).astype(np.float32)
@@ -1175,6 +1196,36 @@ def run_train(pt, params):
         for n, a in exe.arg_dict.items():
             a[:] = params[n] if n in params else batch[n][:rows]
         return exe
+
+    return net, batch, bind
+
+
+def train_step_fn(net, params, exe):
+    """One training step on ``exe``: forward_backward, the SGD-momentum
+    update of every parameter, a synchronize."""
+    from mxnet_tpu_torch import optimizer
+
+    names = [n for n in net.list_arguments() if n in params]
+    opt = optimizer.create("sgd", learning_rate=TRAIN["lr"], momentum=TRAIN["momentum"],
+                           wd=TRAIN["wd"], rescale_grad=1.0 / TRAIN["batch"],
+                           param_idx2name=dict(enumerate(names)))
+    updater = optimizer.get_updater(opt)
+
+    def step():
+        exe.forward_backward()
+        for i, n in enumerate(names):
+            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+        torch.cuda.synchronize()
+
+    return step
+
+
+def run_train(pt, params):
+    """Phase 4: training the full-width model on one fixed batch."""
+    from mxnet_tpu_torch import ops
+
+    B, T, L = TRAIN["batch"], TRAIN["seq_len"], MODEL["num_layers"]
+    net, batch, bind = train_model(params)
 
     def loss_of(exe, rows):
         """SoftmaxOutput's cross-entropy on the batch, from its probabilities."""
@@ -1220,18 +1271,7 @@ def run_train(pt, params):
     del small
 
     exe = bind(pt.gpu(0), B)
-    names = [n for n in net.list_arguments() if n in params]
-    opt = optimizer.create("sgd", learning_rate=TRAIN["lr"], momentum=TRAIN["momentum"],
-                           wd=TRAIN["wd"], rescale_grad=1.0 / B,
-                           param_idx2name=dict(enumerate(names)))
-    updater = optimizer.get_updater(opt)
-
-    def step():
-        exe.forward_backward()
-        for i, n in enumerate(names):
-            updater(i, exe.grad_dict[n], exe.arg_dict[n])
-        torch.cuda.synchronize()
-
+    step = train_step_fn(net, params, exe)
     losses = []
     for _ in range(TRAIN["warmup_steps"]):
         step()

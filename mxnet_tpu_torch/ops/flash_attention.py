@@ -12,9 +12,13 @@ Replaces the TPU kernels of ``mxnet_tpu/ops/pallas_attention.py``:
 
 The kernels are ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``.
 On an H100 the forward at the prefill's shape is bound by bytes (Q, K, V read
-once, O written once; the (T, S) scores stay on chip), the two backward passes
-by operations. The sources' headers say how the designs keep the scores on
-chip and how the TPU's sequential grid axis became a loop inside one block.
+once, O written once; the (T, S) scores stay on chip). The two backward passes
+run every product on the TF32 tensor cores with the 3xTF32 step, to f32
+accuracy (``csrc/tf32x3.cuh``, ``csrc/flash_tc.cuh``); at the training shape
+their bound is the bytes, by a little over the products. The sources' headers
+say how the designs keep the scores on chip and how the TPU's sequential grid
+axis became a loop inside one block. ``_bwd_tiles`` lists the rows each
+backward block owns and streams, and the kernels read that list.
 
 ``flash_attention``, ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
 are the dispatchers, and ``flash_attention_bwd`` runs the two backward ones: a
@@ -25,6 +29,8 @@ count kernel launches.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import math
 
 import torch
@@ -187,13 +193,53 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, causal=False, scale=0.0):
     return dk, dv
 
 
+#: a backward block's own rows (queries in dq, keys in dk/dv): the kernels'
+#: kRows, whose C entries refuse a table of any other length
+BWD_ROWS = 64
+#: the two passes' blocks in launch order, each (first own row, first row
+#: and end row of the other side it streams)
+BwdTiles = collections.namedtuple("BwdTiles", "dq dkv")
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_tiles(T, S, causal):
+    """Which rows each backward block owns and streams, for (BH, T, D)
+    queries over (BH, S, D) keys: a ``BwdTiles``, whose rows the kernels
+    read by ``blockIdx.y``.
+
+    A block streams exactly the rows its own rows see, so no tile of them is
+    wholly masked. dq: a block's last query sees every key up to its range's
+    end, and the query tiles with the most keys launch first. dk/dv: a
+    block's first key is seen by every query from its range's start on, and
+    the first key tiles have the most queries."""
+    offset = S - T
+    dq = []
+    for q0 in reversed(range(0, T, BWD_ROWS)):
+        last = min(q0 + BWD_ROWS, T) - 1
+        dq.append((q0, 0, min(S, last + offset + 1) if causal else S))
+    dkv = [(k0, max(0, k0 - offset) if causal else 0, T) for k0 in range(0, S, BWD_ROWS)]
+    return BwdTiles(tuple(dq), tuple(dkv))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_table(T, S, causal, device):
+    """``_bwd_tiles`` as two int32 tensors on ``device``, made once a shape."""
+    return BwdTiles(*(torch.tensor(p, dtype=torch.int32, device=device)
+                      for p in _bwd_tiles(T, S, causal)))
+
+
 def _launch_bwd(entry, outs, q, k, v, lse, do, delta, causal, scale):
+    """Launch one backward pass over ``_bwd_tiles``'s blocks."""
     BH, T, D = q.shape
+    S = k.shape[1]
+    table = _bwd_table(T, S, bool(causal), q.device)
+    blocks = table.dkv if entry.endswith("dkv") else table.dq
     with torch.cuda.device(q.device):
         code = getattr(cuda_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(o.data_ptr() for o in outs), BH, T, k.shape[1], D,
-            float(scale), int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+            delta.data_ptr(), *(o.data_ptr() for o in outs), blocks.data_ptr(),
+            blocks.shape[0], BH, T, S, D, float(scale), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(code, entry)
 
 

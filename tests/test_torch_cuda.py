@@ -115,18 +115,78 @@ def test_bound_site_the_kernel_does_not_take_raises(dev, which):
         exe.forward()
 
 
-@pytest.mark.parametrize("BH,T,S,D,causal", [(2, 1, 1, 8, True), (3, 33, 33, 64, True),
-                                             (2, 17, 95, 128, True), (2, 40, 9, 72, False),
-                                             (2, 64, 64, 64, True)])
-def test_flash_attention_bwd_kernels_match_plain(dev, BH, T, S, D, causal):
-    q, k, v, do = (_randn(dev, BH, n, D, seed=i) for i, n in enumerate((T, S, S, T)))
+def _shifted(x, offset):
+    """``x`` copied into a view ``offset`` floats into its storage (for
+    ``offset`` 1, a base that is not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + offset, device=x.device)
+    buf[offset:] = x.reshape(-1)
+    return buf[offset:].view(x.shape)
+
+
+def _bwd_inputs(dev, BH, T, S, D, causal, offset=0):
+    """q, k, v, dO (each ``_shifted`` by ``offset``) and the forward
+    kernel's O and lse."""
+    q, k, v, do = (_shifted(_randn(dev, BH, n, D, seed=i), offset)
+                   for i, n in enumerate((T, S, S, T)))
     o, lse = fa.flash_attention(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+def _bwd_case(dev, BH, T, S, D, causal, offset=0):
+    """Inputs of one backward pass (``_bwd_inputs``'s, with δ and the scale)."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, BH, T, S, D, causal, offset)
+    delta = (do * o).sum(dim=-1)
+    return (q, k, v, lse, do, delta, causal, 1.0 / math.sqrt(D))
+
+
+# the training step's shape (64, 256, 256, 64) causal, ragged tiles, head
+# widths that are not a multiple of 8 (36, 56, 100) and not of 4 (13, 4-byte
+# copies), both widths the kernels are built for (64 and 128) on ragged
+# causal and non-causal shapes, and bases 4 bytes past 16-byte alignment
+# (4-byte copies)
+@pytest.mark.parametrize("BH,T,S,D,causal,offset", [
+    (2, 1, 1, 8, True, 0), (3, 33, 33, 64, True, 0), (2, 17, 95, 128, True, 0),
+    (2, 40, 9, 72, False, 0), (2, 64, 64, 64, True, 0), (64, 256, 256, 64, True, 0),
+    (3, 70, 70, 36, True, 0), (2, 45, 77, 13, True, 0), (2, 29, 50, 13, False, 0),
+    (3, 75, 75, 56, True, 0), (3, 75, 41, 56, False, 0), (3, 75, 75, 56, True, 1),
+    (3, 75, 75, 100, True, 0), (3, 75, 41, 100, False, 0), (3, 75, 75, 100, True, 1)])
+def test_flash_attention_bwd_kernels_match_plain(dev, BH, T, S, D, causal, offset):
+    q, k, v, o, lse, do = _bwd_inputs(dev, BH, T, S, D, causal, offset)
     before = (fa.dq_launches, fa.dkv_launches)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-5)
+
+
+def test_flash_attention_bwd_kernels_match_float64(dev):
+    """The training shape against the plain version in float64 on the same
+    inputs (q, k, v, dO and the forward kernel's O and lse): dQ, dK and dV
+    within 1e-5, a tenth of the smoke's 1e-4. The kernels' products are
+    3xTF32 with a fresh accumulator a step, as accurate as f32 ones: the
+    numpy emulation of their arithmetic (test_torch_tf32x3.py) keeps them
+    within a tenth of 1e-4 of float64 at this shape, where one TF32 pass
+    misses 1e-4."""
+    BH, T, D = 64, 256, 64
+    q, k, v, do = (_randn(dev, BH, T, D, seed=i) for i in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(*(t.double() for t in (q, k, v, o, lse, do)),
+                                        causal=True)
+    for g, w in zip(got, want):
+        assert float((g.double() - w).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("BH,T,S,D,causal", [(64, 256, 256, 64, True), (3, 50, 131, 128, True),
+                                             (4, 33, 70, 13, False)])
+def test_flash_attention_bwd_kernels_are_deterministic(dev, BH, T, S, D, causal):
+    """Two passes, each owning its output, no atomics: the same bits twice."""
+    args = _bwd_case(dev, BH, T, S, D, causal)
+    first = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    second = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("R,D", [(1, 1), (3, 31), (65, 513), (9, 1024), (2048, 512)])

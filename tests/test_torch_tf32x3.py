@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from mxnet_tpu_torch.ops import conv_bn as cb
+from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import matmul_bias_act as mba
 
 MATMUL_TOL, CONV_TOL = 1e-4, 1e-5  # chip_smoke.py TOL["matmul_bias_act"], CONV_TOL
@@ -340,3 +341,121 @@ def test_one_accumulator_chained_over_a_split_misses_the_conv_tolerance():
     rel = {chain: np.abs(_split_sums(dce, xn, splits, 64, chain) - exact).max()
            / np.abs(exact).max() for chain in (False, True)}
     assert rel[False] <= CONV_TOL / 10 < CONV_TOL < rel[True]
+
+
+# ------------------------------------------ the flash backward (flash_attention_bwd.cu)
+FLASH_TOL = 1e-4  # chip_smoke.py TOL["flash_attention_dq"], TOL["flash_attention_dkv"]
+
+
+def _mma_steps(a, b, passes=3):
+    """Σ_k a[i,k]·b[k,j] as the flash backward forms it: each 8-deep step's
+    TF32 products (3xTF32's three, the small ones first, or one) go into a
+    fresh accumulator that rounds toward zero, which is added to the f32
+    running sum rounding to nearest (tf32x3.cuh mma3)."""
+    f = np.float64
+    if passes == 3:
+        (ah, al), (bh, bl) = split(a), split(b)
+        pairs = ((al, bh), (ah, bl), (ah, bh))
+    else:
+        pairs = ((tf32(a), tf32(b)),)
+    M, K = a.shape
+    steps = K // 8
+    d = np.zeros((steps, M, b.shape[1]), np.float32)
+    for x, y in pairs:
+        p = x.astype(f).reshape(M, steps, 8).transpose(1, 0, 2) @ y.astype(f).reshape(steps, 8, -1)
+        d = _rz(d.astype(f) + p)
+    acc = np.zeros((M, b.shape[1]), np.float32)
+    for i in range(steps):
+        acc = acc + d[i]
+    return acc
+
+
+def flash_operands(heads=3, T=256, D=64, seed=0):
+    """The smoke's training-shape draws (standard-normal q, k, v, dO) and the
+    forward's O and lse in f32, as the backward kernels receive them."""
+    rs = np.random.RandomState(seed)
+    q, k, v, do = (rs.standard_normal((heads, T, D)).astype(np.float32) for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+    mask = np.tril(np.ones((T, T), bool))
+    s = np.where(mask, q.astype(np.float64) @ k.astype(np.float64).transpose(0, 2, 1) * scale,
+                 -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    o = ((p / l) @ v.astype(np.float64)).astype(np.float32)
+    lse = (m + np.log(l))[..., 0].astype(np.float32)
+    return q, k, v, do, o, lse, mask, scale
+
+
+def flash_bwd_f64(q, k, v, do, o, lse, mask, scale):
+    """dQ, dK, dV in float64 from the same f32 inputs."""
+    q, k, v, do, o, lse = (x.astype(np.float64) for x in (q, k, v, do, o, lse))
+    p = np.where(mask, np.exp(q @ k.transpose(0, 2, 1) * scale - lse[..., None]), 0.0)
+    ds = p * (do @ v.transpose(0, 2, 1) - (do * o).sum(-1, keepdims=True))
+    return ds @ k * scale, ds.transpose(0, 2, 1) @ q * scale, p.transpose(0, 2, 1) @ do
+
+
+def flash_bwd_emulated(q, k, v, do, o, lse, mask, scale, passes=3):
+    """The kernels' arithmetic, head by head: S = Q·Kᵀ and dP = dO·Vᵀ, P =
+    2^(S·scale_log2 − lse_log2) where visible (flash_tc.cuh masked_exp: the
+    two factors rounded to f32, the argument one FMA), dS = P∘(dP − δ) in
+    f32, then dQ = scale·dS·K, dK = scale·dSᵀ·Q and dV = Pᵀ·dO, with P and dS
+    split like any other operand; δ = rowsum(dO∘O) in f32."""
+    f32 = np.float32
+    log2e = f32(1.4426950408889634)
+    out = [np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)]
+    for h in range(q.shape[0]):
+        delta = (do[h].astype(np.float64) * o[h]).sum(-1).astype(f32)
+        s = _mma_steps(q[h], np.ascontiguousarray(k[h].T), passes)
+        lse_log2 = lse[h] * log2e
+        arg = (s.astype(np.float64) * (f32(scale) * log2e) - lse_log2[:, None]).astype(f32)
+        p = np.where(mask, np.exp2(arg), f32(0))
+        dp = _mma_steps(do[h], np.ascontiguousarray(v[h].T), passes)
+        ds = p * (dp - delta[:, None])
+        out[0][h] = _mma_steps(ds, k[h], passes) * f32(scale)
+        out[1][h] = _mma_steps(np.ascontiguousarray(ds.T), q[h], passes) * f32(scale)
+        out[2][h] = _mma_steps(np.ascontiguousarray(p.T), do[h], passes)
+    return out
+
+
+def test_flash_backward_keeps_a_tenth_of_the_tolerance_on_three_products():
+    """At the training shape (T = S = 256, D = 64, causal) the emulated
+    kernels' dQ, dK and dV lie within a tenth of the smoke's 1e-4 of
+    float64; one TF32 pass for every product misses 1e-4."""
+    ops = flash_operands()
+    want = flash_bwd_f64(*ops)
+    err3 = [np.abs(g - w).max() for g, w in zip(flash_bwd_emulated(*ops), want)]
+    err1 = [np.abs(g - w).max() for g, w in zip(flash_bwd_emulated(*ops, passes=1), want)]
+    assert max(err3) <= FLASH_TOL / 10
+    assert min(err1) > FLASH_TOL
+
+
+# (T, S, causal): the card tests' and the smoke's flash backward shapes
+FLASH_SHAPES = [(1, 1, True), (33, 33, True), (17, 95, True), (40, 9, False), (64, 64, True),
+                (256, 256, True), (70, 70, True), (45, 77, True), (29, 50, False),
+                (75, 75, True), (75, 41, False), (77, 77, True), (50, 131, True),
+                (33, 70, False), (128, 128, True)]
+
+
+@pytest.mark.parametrize("T,S,causal", FLASH_SHAPES)
+def test_bwd_tiles_cover_every_visible_pair_once_and_no_masked_tile(T, S, causal):
+    """Each block's rows as ``_bwd_tiles`` lists them, the table the kernels
+    read: in each pass every visible (query, key) pair (bottom-right causal
+    mask) is visited exactly once, every streamed row is seen by one of the
+    block's own rows (so no tile of any height is wholly masked), and the
+    blocks with the most rows to stream launch first. The head width does
+    not enter the table: both widths' kernels own ``BWD_ROWS`` rows a
+    block."""
+    visible = np.tril(np.ones((T, S), bool), S - T) if causal else np.ones((T, S), bool)
+    tiles = fa._bwd_tiles(T, S, causal)
+    for blocks, vis in ((tiles.dq, visible), (tiles.dkv, visible.T)):
+        own, other = vis.shape
+        assert len(blocks) == -(-own // fa.BWD_ROWS)
+        n = np.zeros((own, other), np.int64)
+        for r0, lo, hi in blocks:
+            assert 0 <= r0 < own and r0 % fa.BWD_ROWS == 0 and 0 <= lo < hi <= other
+            n[r0:r0 + fa.BWD_ROWS, lo:hi] += 1
+            assert vis[r0:r0 + fa.BWD_ROWS, lo:hi].any(axis=0).all()
+        assert (n[vis] == 1).all() and n.max() <= 1
+        work = [hi - lo for _, lo, hi in blocks]
+        assert work == sorted(work, reverse=True)

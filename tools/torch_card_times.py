@@ -8,9 +8,11 @@ Imports ``mxnet_tpu_torch`` from ``DIR`` (default: this checkout), builds its
 kernels there, and prints one JSON line: the profiler's device time of a
 ResNet-50 forward at batch 32 and 1, of the conv kernels in a ResNet-50
 training step at batch 32 (and of the backward's, conv_bn_bwd, among them),
-of a transformer prefill and of a decode step,
-the host-clock median latency of the ResNet-50 forwards, the prefill and the
-decode step, and the card's name and power limit. The models, shapes and
+of a transformer prefill and of a decode step, of a transformer training
+step (and of its flash-attention backward kernels, dq and dk/dv, among
+them), the host-clock median latency of the ResNet-50 forwards, the prefill,
+the decode step and the transformer training step, and the card's name and
+power limit. The models, shapes and
 helpers are ``chip_smoke.py``'s of this checkout. To compare two checkouts,
 run it on them in turns (A, B, B, A) on the same card, one after another.
 Needs one CUDA card; exits 2 without one.
@@ -42,10 +44,12 @@ def median_ms(fn, iters=LATENCY_ITERS):
 
 def card_times(smoke, pt):
     """The card time (ms a call, from the profiler's device events over a
-    short window) and the host-clock median latency of the paths the two
+    short window) and the host-clock median latency of the paths the
     tensor-core kernels serve: a ResNet-50 forward at batch 32 and 1, the
-    conv kernels' share of a training step at batch 32, a transformer prefill
-    and a decode step. Uses the package's public entry points only."""
+    conv kernels' share of a training step at batch 32, a transformer
+    prefill, a decode step and a training step (batch 8 of 256 tokens, with
+    the flash backward's kernels apart). Uses the package's public entry
+    points only."""
     import torch
 
     from mxnet_tpu_torch.models import resnet
@@ -69,6 +73,18 @@ def card_times(smoke, pt):
     nxt = np.argmax(prefill(), axis=-1)
     out["decode_latency_ms_p50"] = median_ms(lambda: dec.greedy_step(nxt))
     del dec
+    params = smoke.random_params()
+    net, _, bind = smoke.train_model(params)
+    step = smoke.train_step_fn(net, params, bind(pt.gpu(0), smoke.TRAIN["batch"]))
+    for _ in range(smoke.TRAIN["warmup_steps"]):
+        step()
+    w = smoke.profile_window(step)
+    out["train_step_ms"] = w["device_busy_ms"]
+    out["train_step_port_kernels_ms"] = w["port_kernels_ms"]
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        out["train_step_%s_ms" % name] = w["port_kernel_ms"].get(name, 0.0)
+    out["train_step_latency_ms_p50"] = median_ms(step)
+    del step
     net = resnet.get_symbol(**smoke.RESNET)
     args, aux = smoke.resnet_values(net)
     images, labels = smoke.resnet_batch(smoke.RESNET_TRAIN["batch"])
