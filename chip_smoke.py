@@ -208,8 +208,9 @@ KERNELS = {
                             "mxnet_tpu/ops/pallas_attention.py:151", "flash_bwd_dkv_kernel"),
     "norm_residual": ("mxnet_tpu_torch/csrc/norm_residual.cu",
                       "mxnet_tpu/ops/pallas_norm_residual.py:78", "layer_norm_fwd_kernel"),
+    # both of its kernels: layer_norm_bwd_kernel and layer_norm_bwd_sums_kernel
     "norm_residual_bwd": ("mxnet_tpu_torch/csrc/norm_residual.cu",
-                          "mxnet_tpu/ops/pallas_norm_residual.py:92", "layer_norm_bwd_kernel"),
+                          "mxnet_tpu/ops/pallas_norm_residual.py:92", "layer_norm_bwd"),
     "matmul_bias_act": ("mxnet_tpu_torch/csrc/matmul_bias_act.cu",
                         "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "matmul_bias_act"),
     "conv_bn": ("mxnet_tpu_torch/csrc/conv_bn.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
@@ -363,7 +364,7 @@ def check_kernels(peaks):
                                   if k not in ("bound_by", "shape")})
 
     # ---- flash attention: (BH, T, S, D, causal); the prefill's, the training
-    # step's, then ragged
+    # step's (also between CUDA events), then ragged
     timed = {0: "", 1: "train_"}
     for i, (BH, T, S, D, causal) in enumerate([(B * H, P, P, dh, True),
                                                 (BT * H, T0, T0, dh, True),
@@ -389,10 +390,16 @@ def check_kernels(peaks):
                 q4, k4, v4, is_causal=causal))
             b_ms, b_by, f32_ms = product_bound(
                 4.0 * D * pairs * BH, 4.0 * (2 * BH * T * D + 2 * BH * S * D + BH * T), peaks)
-            rec.update(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by, f32_bound_ms=f32_ms)
-            record("flash_attention", timed[i], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, f32_bound_ms=f32_ms, library_ms=lib_ms,
+            # f32_work_tflops: the products' f32 work a second, against
+            # mma_sync_rate's ceiling
+            times = dict(plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         f32_bound_ms=f32_ms, f32_work_tflops=4.0 * D * pairs * BH / ms / 1e9)
+            rec.update(kernel_ms=ms, **times)
+            if timed[i] == "train_":
+                # the call alone between two CUDA events: the profiler's cross-check
+                times["event_ms"] = event_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+                rec["flash_attention_event_ms"] = times["event_ms"]
+            record("flash_attention", timed[i], ms=ms, **times,
                    shape="prefill q,k,v (%d,%d,%d) causal" % (BH, T, D))
         log(rec)
 
@@ -581,19 +588,21 @@ def check_backward_kernels(randn, peaks, entries, worst):
                "max_abs_err": err}
         if i == 0:
             fn = lambda: nr.layer_norm_affine_bwd(x, g, mean, rstd, dy)  # noqa: E731
-            ms = device_ms(fn, key=KERNELS["norm_residual_bwd"][2])
-            with_sums_ms = device_ms(fn)  # the kernel plus the two partial sums
+            ms = device_ms(fn)  # the whole call: the kernel and the partial rows' sums
+            kernel_only_ms = device_ms(fn, key="layer_norm_bwd_kernel")
             plain_ms = device_ms(lambda: nr.layer_norm_affine_bwd_plain(x, g, mean, rstd, dy))
             xr, gr, br = (t.detach().requires_grad_(True) for t in (x, g, bb))
             yr = F.layer_norm(xr, (D,), gr, br, 1e-5)
             lib_ms = device_ms(lambda: torch.autograd.grad(yr, (xr, gr, br), dy,
                                                            retain_graph=True))
-            nb = -(-R // nr.BWD_ROWS_PER_BLOCK)
-            b_ms, b_by = bound(10.0 * R * D, 4.0 * (3 * R * D + 2 * R + D + 2 * nb * D), peaks)
-            rec.update(kernel_ms=ms, with_partial_sums_ms=with_sums_ms, plain_ms=plain_ms,
+            # the function's bytes: x and dy read, dx written, mean, rstd and
+            # gamma read, dgamma and dbeta written (the partial rows are the
+            # design's, not the function's)
+            b_ms, b_by = bound(10.0 * R * D, 4.0 * (3 * R * D + 2 * R + 3 * D), peaks)
+            rec.update(kernel_ms=ms, kernel_only_ms=kernel_only_ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
             entries["norm_residual_bwd"] = entry(
-                "norm_residual_bwd", ms=ms, with_partial_sums_ms=with_sums_ms,
+                "norm_residual_bwd", ms=ms, kernel_only_ms=kernel_only_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                 shape="train x, dy (%d,%d)" % (R, D))
         log(rec)

@@ -152,7 +152,7 @@ conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // The statistics' second pass: (ssum, ssq) = Σ over the partial rows.
 __global__ void conv_bn_fwd_stats_sum(const float* __restrict__ part, float* __restrict__ out,
                                       int P, int C) {
-  sum_rows(part, out, P, C);
+  mxt::sum_rows(part, out, P, C);
 }
 
 template <int TAPS, bool VEC, bool PRO, bool STATS>
@@ -162,7 +162,7 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const float* x, const float* w,
   auto kernel = conv_bn_fwd_tc_kernel<TAPS, VEC, PRO, STATS>;
   constexpr int smem = Cfg<TAPS>::SMEM;
   static bool raised = false;
-  cudaError_t err = raise_smem(kernel, smem, &raised);
+  cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, res, c, part, g, relu);
   return cudaGetLastError();
@@ -221,7 +221,7 @@ extern "C" int mxt_conv_bn_fwd(const float* x, const float* w, const float* scal
   }
   if (err != cudaSuccess || !stats) return static_cast<int>(err);
   dim3 sgrid, sblock;
-  sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
+  mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
   conv_bn_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -356,43 +356,6 @@ __device__ __forceinline__ void tile_row_sums(float (&s)[Cfg<TAPS>::MT][2],
   }
 }
 
-// out[col] = Σ_{p < P} part[p · C + col] in a fixed order: lane l of a column
-// adds rows l, l + L, l + 2L, ..., then lane 0 adds the L lane sums in order.
-// No atomics, so two runs give the same bits. Block (256 / L, L).
-__device__ __forceinline__ void sum_rows(const float* __restrict__ part,
-                                         float* __restrict__ out, int P, int C) {
-  __shared__ float red[kThreads];
-  const int cols = blockDim.x, L = blockDim.y;
-  const int col = blockIdx.x * cols + threadIdx.x;
-  float s = 0.f;
-  if (col < C)
-    for (int p = threadIdx.y; p < P; p += L) s += part[static_cast<size_t>(p) * C + col];
-  red[threadIdx.y * cols + threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < C) {
-    float t = 0.f;
-    for (int l = 0; l < L; ++l) t += red[l * cols + threadIdx.x];
-    out[col] = t;
-  }
-}
-
-// The launch shape of sum_rows for P rows of C columns.
-inline void sum_rows_shape(int P, int C, dim3* grid, dim3* block) {
-  const int L = P >= 64 ? 16 : (P >= 8 ? 4 : 1);
-  *block = dim3(kThreads / L, L);
-  *grid = dim3(ceil_div(C, kThreads / L));
-}
-
-// The dynamic shared memory a kernel needs above 48 KB, raised once a process.
-template <typename Kernel>
-inline cudaError_t raise_smem(Kernel kernel, int bytes, bool* raised) {
-  if (*raised) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
-  if (err == cudaSuccess) *raised = true;
-  return err;
-}
-
 inline bool misaligned(const void* p, int a) { return reinterpret_cast<uintptr_t>(p) % a != 0; }
 
 }  // namespace convbn

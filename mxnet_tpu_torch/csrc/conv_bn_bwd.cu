@@ -511,7 +511,7 @@ conv_bn_bwd_wgrad3_kernel(const float* __restrict__ x, const float* __restrict__
 // The second pass: dw (splits rows) and (dscale, dshift) (parts rows).
 __global__ void conv_bn_bwd_partials_sum(const float* __restrict__ part,
                                          float* __restrict__ out, int P, int C) {
-  sum_rows(part, out, P, C);
+  mxt::sum_rows(part, out, P, C);
 }
 
 template <int TAPS, bool VEC, bool PRO>
@@ -520,7 +520,7 @@ cudaError_t dgrad(cudaStream_t st, const Geo& g, int np, const float* x, const f
                   float* part, bool relu) {
   auto kernel = conv_bn_bwd_dgrad_kernel<TAPS, VEC, PRO>;
   static bool raised = false;
-  cudaError_t err = raise_smem(kernel, Cfg<TAPS>::SMEM, &raised);
+  cudaError_t err = mxt::raise_smem(kernel, Cfg<TAPS>::SMEM, &raised);
   if (err != cudaSuccess) return err;
   const dim3 grid(tc_parts(g, TAPS) * ceil_div(g.K, kTileM));
   kernel<<<grid, kThreads, Cfg<TAPS>::SMEM, st>>>(x, wt, scale, shift, dce, dx, part, g, np,
@@ -532,7 +532,7 @@ template <typename Kernel>
 cudaError_t wgrad(Kernel kernel, bool* raised, int smem, dim3 grid, cudaStream_t st,
                   const Geo& g, int splits, const float* x, const float* scale,
                   const float* shift, const float* dce, float* dw_part, bool relu) {
-  cudaError_t err = raise_smem(kernel, smem, raised);
+  cudaError_t err = mxt::raise_smem(kernel, smem, raised);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, st>>>(x, scale, shift, dce, dw_part, g, relu, splits);
   return cudaGetLastError();
@@ -646,10 +646,10 @@ extern "C" int mxt_conv_bn_bwd(const float* x, const float* w, const float* scal
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid, block;
   const int C = N * K * taps;
-  sum_rows_shape(splits, C, &grid, &block);
+  mxt::sum_rows_shape(splits, C, &grid, &block);
   conv_bn_bwd_partials_sum<<<grid, block, 0, st>>>(dw_part, dw, splits, C);
   if (pro) {
-    sum_rows_shape(parts, 2 * K, &grid, &block);
+    mxt::sum_rows_shape(parts, 2 * K, &grid, &block);
     conv_bn_bwd_partials_sum<<<grid, block, 0, st>>>(dss_part, dss, parts, 2 * K);
   }
   return static_cast<int>(cudaGetLastError());

@@ -57,7 +57,7 @@
 // 32 rows; up to D = 64 two groups of warps take turns over the tiles, up
 // to D = 128 (twice the accumulators) one. Which rows a block owns and which
 // rows of the other side it streams (in launch order) is a table the caller
-// builds, ops/flash_attention.py _bwd_tiles, so the ranges the kernels run
+// builds, ops/flash_attention.py _tiles, so the ranges the kernels run
 // are the ones its tests check.
 #include "flash_tc.cuh"
 
@@ -68,7 +68,7 @@ using namespace mxt::flash;
 constexpr int kStages = 2;
 constexpr int kMaxD = 128;
 constexpr int kWarps = 4;          // a group's warps, 16 own rows each
-constexpr int kRows = 16 * kWarps;  // a block's own rows: ops/flash_attention.py _bwd_tiles
+constexpr int kRows = 16 * kWarps;  // a block's own rows: ops/flash_attention.py _tiles
 constexpr int kCols = 32;          // the rows of a streaming tile
 // Both kernels state one block an SM in their launch bounds (a second would
 // need 128 registers a thread, which spilled): ptxas then schedules for up
@@ -354,12 +354,8 @@ bool vec_rows(const Args& a) {
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int smem, bool* raised, int nblocks,
                    const Args& a, cudaStream_t st) {
-  if (!*raised) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    *raised = true;
-  }
+  const cudaError_t e = mxt::raise_smem(kernel, smem, raised);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(a.BH, nblocks), threads, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -394,7 +390,7 @@ int dispatch(const Args& a, int nblocks, void* stream) {
 
 }  // namespace
 
-// blocks, nblocks: each block's rows (ops/flash_attention.py _bwd_tiles),
+// blocks, nblocks: each block's rows (ops/flash_attention.py _tiles),
 // int32 on the card: dq's own rows are queries, its streamed rows keys.
 extern "C" int mxt_flash_attention_bwd_dq(const float* q, const float* k, const float* v,
                                           const float* dout, const float* lse,

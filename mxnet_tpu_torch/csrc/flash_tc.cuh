@@ -1,8 +1,10 @@
 // The pieces of the flash-attention kernels on the tensor cores (3xTF32 on
 // mma.sync, tf32x3.cuh): the staging of row tiles through cp.async, a warp's
-// score tile, the masked exp against a per-row offset (the logsumexp in the
-// backward), and the reuse of a score tile's accumulator as the A operand of
-// the next product. flash_attention_bwd.cu's two passes are built from them.
+// score tile, the masked exp against a per-row offset (the running max in
+// the forward, the logsumexp in the backward), and the reuse of a score
+// tile's accumulator as the A operand of the next product. The forward
+// (flash_attention.cu) and the backward's two passes (flash_attention_bwd.cu)
+// are built from them.
 //
 // The layout they share: every operand tile lies in shared memory row-major,
 // LD floats a row with LD = 8 mod 32, one row a query or key, its columns the
@@ -106,8 +108,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // m is not defined, and a masked score never reach the exponential.
 // scale_log2 = scale·log2(e) and m_log2(h, c) = m·log2(e), each rounded to
 // f32 once, make the argument one FMA and the exponential one exp2f: at the
-// training shape that keeps dQ, dK and dV within a tenth of the smoke's
-// tolerance of float64 (tests/test_torch_tf32x3.py emulates it). Element e
+// training shape that keeps O and the logsumexp within a tenth of 1e-5, and
+// dQ, dK and dV within a tenth of 1e-4, of float64 (tests/test_torch_tf32x3.py
+// emulates both). Element e
 // of n-tile ni is the tile's row r = g + 8·(e / 2) and column c = ni·8 +
 // col_row(2t + e % 2); m_log2(h, c) is the offset of row g + 8h at column c
 // (the row's logsumexp, times log2(e)).

@@ -172,26 +172,10 @@ matmul_stats_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// sums[c] = Σ_{p < P} part[p · C + c], c < C = 2N, in a fixed order: lane l of
-// a column adds rows l, l + 8, l + 16, ..., then lane 0 adds the 8 lane sums in
-// order. Block (32 columns, 8 lanes).
-constexpr int kSumCols = 32, kSumLanes = 8;
-
-__global__ void __launch_bounds__(kSumCols * kSumLanes)
-matmul_stats_sum_kernel(const float* __restrict__ part, float* __restrict__ sums, int P, int C) {
-  __shared__ float red[kSumLanes][kSumCols];
-  const int col = blockIdx.x * kSumCols + threadIdx.x;
-  float s = 0.f;
-  if (col < C)
-    for (int p = threadIdx.y; p < P; p += kSumLanes) s += part[static_cast<size_t>(p) * C + col];
-  red[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < C) {
-    float t = 0.f;
-#pragma unroll
-    for (int l = 0; l < kSumLanes; ++l) t += red[l][threadIdx.x];
-    sums[col] = t;
-  }
+// sums[c] = Σ_{p < P} part[p · C + c], c < C = 2N, in a fixed order (sum_rows).
+__global__ void matmul_stats_sum_kernel(const float* __restrict__ part, float* __restrict__ sums,
+                                        int P, int C) {
+  mxt::sum_rows(part, sums, P, C);
 }
 
 }  // namespace
@@ -212,7 +196,8 @@ extern "C" int mxt_matmul_stats_fwd(const float* a, const float* b, float* c, fl
   else matmul_stats_kernel<false, false><<<grid, kThreads, 0, st>>>(a, b, c, part, M, N, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  matmul_stats_sum_kernel<<<(2 * N + kSumCols - 1) / kSumCols, dim3(kSumCols, kSumLanes), 0, st>>>(
-      part, sums, m_tiles, 2 * N);
+  dim3 sgrid, sblock;
+  mxt::sum_rows_shape(m_tiles, 2 * N, &sgrid, &sblock);
+  matmul_stats_sum_kernel<<<sgrid, sblock, 0, st>>>(part, sums, m_tiles, 2 * N);
   return static_cast<int>(cudaGetLastError());
 }

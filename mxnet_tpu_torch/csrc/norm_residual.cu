@@ -15,15 +15,18 @@
 //
 // Backward, mxt_layer_norm_bwd: replaces the TPU kernel _bwd_kernel
 // (launched by _bwd_call): dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂∘x̂)) with
-// dx̂ = dy∘γ, and per-block partial dγ = Σ dy∘x̂, dβ = Σ dy rows that the
-// caller sums with one torch reduction, as the TPU path sums its partials in
-// XLA. Also bound by bytes: it reads x and dy once and writes dx once, plus
-// R / 16 partial rows. A warp owns a row in registers, recomputes x̂ from the
-// saved mean and rstd, and takes the two row means as warp reductions. A
-// block owns 16 rows; each lane adds its columns' dγ, dβ terms over the rows
-// its warp takes, and the block adds its four warps' sums in shared memory in
-// a fixed order. There are no atomics, so the sums, and so the result, are
-// the same run to run.
+// dx̂ = dy∘γ, and dγ = Σ dy∘x̂, dβ = Σ dy over the rows. Also bound by bytes:
+// it reads x and dy once and writes dx once. Two launches. The first,
+// layer_norm_bwd_kernel, writes dx and one partial [dγ | dβ] row a block (the
+// TPU kernel's per-block partials): a warp owns a row in registers,
+// recomputes x̂ from the saved mean and rstd, and takes the two row means as
+// warp reductions; a block owns 16 rows, each lane adds its columns' dγ, dβ
+// terms over the rows its warp takes, and the block adds its four warps'
+// sums in shared memory in a fixed order. The second, layer_norm_bwd_sums_kernel,
+// adds the R / 16 partial rows (which the TPU path sums in XLA) column by
+// column in a fixed order (common.cuh's sum_rows, as the other kernels'
+// partial rows). Nothing is atomic, so the sums, and so the result, are the
+// same run to run.
 #include "common.cuh"
 
 namespace {
@@ -72,7 +75,8 @@ layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gam
 }
 
 // Backward: rows_per_block rows per block of kBwdWarps warps, each warp a
-// row at a time, and one partial (dgamma, dbeta) row per block.
+// row at a time, and one partial row of 2·D per block: its dgamma, then its
+// dbeta.
 constexpr int kBwdWarps = 4, kBwdRowsPerBlock = 16, kMaxD = 1024;
 
 template <int VPL>
@@ -80,9 +84,9 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
 layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                       const float* __restrict__ mean, const float* __restrict__ rstd,
                       const float* __restrict__ dy, float* __restrict__ dx,
-                      float* __restrict__ dgamma_part, float* __restrict__ dbeta_part,
-                      int R, int D) {
-  __shared__ float red_g[kBwdWarps * kMaxD], red_b[kBwdWarps * kMaxD];
+                      float* __restrict__ part, int R, int D) {
+  // sized for the widest D this instance takes (32·VPL columns)
+  __shared__ float red_g[kBwdWarps * 32 * VPL], red_b[kBwdWarps * 32 * VPL];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float g[VPL], dg[VPL], db[VPL];
 #pragma unroll
@@ -140,9 +144,15 @@ layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gam
       a += red_g[w * D + c];
       b += red_b[w * D + c];
     }
-    dgamma_part[static_cast<size_t>(blockIdx.x) * D + c] = a;
-    dbeta_part[static_cast<size_t>(blockIdx.x) * D + c] = b;
+    part[static_cast<size_t>(2 * blockIdx.x) * D + c] = a;
+    part[static_cast<size_t>(2 * blockIdx.x + 1) * D + c] = b;
   }
+}
+
+// [dgamma | dbeta] = Σ over the P blocks' partial rows of 2·D (sum_rows).
+__global__ void layer_norm_bwd_sums_kernel(const float* __restrict__ part,
+                                           float* __restrict__ sums, int P, int C) {
+  mxt::sum_rows(part, sums, P, C);
 }
 
 }  // namespace
@@ -166,27 +176,30 @@ extern "C" int mxt_layer_norm_fwd(const float* x, const float* gamma, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// part: (ceil(R / 16), 2, D) scratch the caller allocated; sums: (2, D), row 0
+// dgamma and row 1 dbeta.
 extern "C" int mxt_layer_norm_bwd(const float* x, const float* gamma, const float* mean,
-                                  const float* rstd, const float* dy, float* dx,
-                                  float* dgamma_part, float* dbeta_part, int R, int D,
-                                  int rows_per_block, void* stream) {
+                                  const float* rstd, const float* dy, float* dx, float* part,
+                                  float* sums, int R, int D, int rows_per_block,
+                                  void* stream) {
   if (R < 1 || D < 1 || D > kMaxD || rows_per_block != kBwdRowsPerBlock)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((R + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
+  const int nb = (R + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
   const dim3 block(kBwdWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 128) {
-    layer_norm_bwd_kernel<4><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
-                                                     dgamma_part, dbeta_part, R, D);
+    layer_norm_bwd_kernel<4><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
   } else if (D <= 256) {
-    layer_norm_bwd_kernel<8><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
-                                                     dgamma_part, dbeta_part, R, D);
+    layer_norm_bwd_kernel<8><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
   } else if (D <= 512) {
-    layer_norm_bwd_kernel<16><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
-                                                      dgamma_part, dbeta_part, R, D);
+    layer_norm_bwd_kernel<16><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
   } else {
-    layer_norm_bwd_kernel<32><<<grid, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
-                                                      dgamma_part, dbeta_part, R, D);
+    layer_norm_bwd_kernel<32><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
   }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 sgrid, sblock;
+  mxt::sum_rows_shape(nb, 2 * D, &sgrid, &sblock);
+  layer_norm_bwd_sums_kernel<<<sgrid, sblock, 0, st>>>(part, sums, nb, 2 * D);
   return static_cast<int>(cudaGetLastError());
 }

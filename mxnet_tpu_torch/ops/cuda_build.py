@@ -50,16 +50,16 @@ RTC_FLAGS = _ARCH_FLAGS + ("-cubin",)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every entry returns a cudaError_t as int
 _SIGNATURES = {
-    # q, k, v, o, lse, BH, T, S, D, scale, causal, stream
-    "mxt_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, o, lse, blocks, nblocks, BH, T, S, D, scale, causal, stream
+    "mxt_flash_attention_fwd": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
     # q, k, v, do, lse, delta, dq, blocks, nblocks, BH, T, S, D, scale, causal, stream
     "mxt_flash_attention_bwd_dq": (_P,) * 8 + (_I,) * 5 + (_F, _I, _P),
     # q, k, v, do, lse, delta, dk, dv, blocks, nblocks, BH, T, S, D, scale, causal, stream
     "mxt_flash_attention_bwd_dkv": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
     # x, gamma, beta, y, mean, rstd, R, D, eps, stream
     "mxt_layer_norm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    # x, gamma, mean, rstd, dy, dx, dgamma_part, dbeta_part, R, D, rows_per_block, stream
-    "mxt_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, gamma, mean, rstd, dy, dx, part, sums (dgamma; dbeta), R, D, rows_per_block, stream
+    "mxt_layer_norm_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
     # a, w, bias (or NULL), c, M, N, K, act, schedule, stream
     "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, scale, shift, res, c, part, sums (the last five or NULL), B, K, H, W, N, taps,

@@ -11,14 +11,13 @@ Replaces the TPU kernels of ``mxnet_tpu/ops/pallas_attention.py``:
   δ = rowsum(dO∘O) computed outside the kernels (:245-247).
 
 The kernels are ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``.
-On an H100 the forward at the prefill's shape is bound by bytes (Q, K, V read
-once, O written once; the (T, S) scores stay on chip). The two backward passes
-run every product on the TF32 tensor cores with the 3xTF32 step, to f32
-accuracy (``csrc/tf32x3.cuh``, ``csrc/flash_tc.cuh``); at the training shape
-their bound is the bytes, by a little over the products. The sources' headers
-say how the designs keep the scores on chip and how the TPU's sequential grid
-axis became a loop inside one block. ``_bwd_tiles`` lists the rows each
-backward block owns and streams, and the kernels read that list.
+All three run every product on the TF32 tensor cores with the 3xTF32 step, to
+f32 accuracy (``csrc/tf32x3.cuh``, ``csrc/flash_tc.cuh``); at the training
+shape their bound is the bytes, by a little over the products. The sources'
+headers say how the designs keep the scores on chip and how the TPU's
+sequential grid axis became a loop inside one block. ``_tiles`` lists the rows
+each block owns and streams, and the kernels read that list: the forward and
+dq the blocks that own query rows, dk/dv those that own keys.
 
 ``flash_attention``, ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
 are the dispatchers, and ``flash_attention_bwd`` runs the two backward ones: a
@@ -148,13 +147,14 @@ def flash_attention(q, k, v, causal=False, scale=0.0):
         scale = 1.0 / math.sqrt(D)
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    blocks = _table(T, S, bool(causal), q.device).q
     lib = cuda_build.library()
     global launches
     with torch.cuda.device(q.device):
         code = lib.mxt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            BH, T, S, D, float(scale), int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            blocks.data_ptr(), blocks.shape[0], BH, T, S, D, float(scale),
+            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
         launches += 1
     cuda_build.check(code, "flash_attention")
     return o, lse
@@ -193,47 +193,48 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, causal=False, scale=0.0):
     return dk, dv
 
 
-#: a backward block's own rows (queries in dq, keys in dk/dv): the kernels'
-#: kRows, whose C entries refuse a table of any other length
-BWD_ROWS = 64
-#: the two passes' blocks in launch order, each (first own row, first row
-#: and end row of the other side it streams)
-BwdTiles = collections.namedtuple("BwdTiles", "dq dkv")
+#: a block's own rows (queries in the forward and dq, keys in dk/dv): the
+#: kernels' own rows, whose C entries refuse a table of any other length
+TILE_ROWS = 64
+#: the kernels' blocks in launch order, each (first own row, first row and
+#: end row of the other side it streams): ``q`` owns query rows and streams
+#: keys (the forward and dq), ``kv`` owns keys and streams queries (dk/dv)
+Tiles = collections.namedtuple("Tiles", "q kv")
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_tiles(T, S, causal):
-    """Which rows each backward block owns and streams, for (BH, T, D)
-    queries over (BH, S, D) keys: a ``BwdTiles``, whose rows the kernels
-    read by ``blockIdx.y``.
+def _tiles(T, S, causal):
+    """Which rows each block owns and streams, for (BH, T, D) queries over
+    (BH, S, D) keys: a ``Tiles``, whose rows the kernels read by
+    ``blockIdx.y``.
 
     A block streams exactly the rows its own rows see, so no tile of them is
-    wholly masked. dq: a block's last query sees every key up to its range's
-    end, and the query tiles with the most keys launch first. dk/dv: a
-    block's first key is seen by every query from its range's start on, and
-    the first key tiles have the most queries."""
+    wholly masked. ``q``: a block's last query sees every key up to its
+    range's end, and the query tiles with the most keys launch first.
+    ``kv``: a block's first key is seen by every query from its range's
+    start on, and the first key tiles have the most queries."""
     offset = S - T
-    dq = []
-    for q0 in reversed(range(0, T, BWD_ROWS)):
-        last = min(q0 + BWD_ROWS, T) - 1
-        dq.append((q0, 0, min(S, last + offset + 1) if causal else S))
-    dkv = [(k0, max(0, k0 - offset) if causal else 0, T) for k0 in range(0, S, BWD_ROWS)]
-    return BwdTiles(tuple(dq), tuple(dkv))
+    q = []
+    for q0 in reversed(range(0, T, TILE_ROWS)):
+        last = min(q0 + TILE_ROWS, T) - 1
+        q.append((q0, 0, min(S, last + offset + 1) if causal else S))
+    kv = [(k0, max(0, k0 - offset) if causal else 0, T) for k0 in range(0, S, TILE_ROWS)]
+    return Tiles(tuple(q), tuple(kv))
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_table(T, S, causal, device):
-    """``_bwd_tiles`` as two int32 tensors on ``device``, made once a shape."""
-    return BwdTiles(*(torch.tensor(p, dtype=torch.int32, device=device)
-                      for p in _bwd_tiles(T, S, causal)))
+def _table(T, S, causal, device):
+    """``_tiles`` as two int32 tensors on ``device``, made once a shape."""
+    return Tiles(*(torch.tensor(p, dtype=torch.int32, device=device)
+                   for p in _tiles(T, S, causal)))
 
 
 def _launch_bwd(entry, outs, q, k, v, lse, do, delta, causal, scale):
-    """Launch one backward pass over ``_bwd_tiles``'s blocks."""
+    """Launch one backward pass over ``_tiles``'s blocks."""
     BH, T, D = q.shape
     S = k.shape[1]
-    table = _bwd_table(T, S, bool(causal), q.device)
-    blocks = table.dkv if entry.endswith("dkv") else table.dq
+    table = _table(T, S, bool(causal), q.device)
+    blocks = table.kv if entry.endswith("dkv") else table.q
     with torch.cuda.device(q.device):
         code = getattr(cuda_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

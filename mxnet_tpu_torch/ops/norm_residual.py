@@ -11,7 +11,9 @@ Replaces the TPU kernels of ``mxnet_tpu/ops/pallas_norm_residual.py``:
 
 Both kernels are in ``csrc/norm_residual.cu``: one warp per row, the row held
 in registers. On an H100 both are bound by bytes (forward: one read of x, one
-write of y; backward: one read of x and dy, one write of dx).
+write of y; backward: one read of x and dy, one write of dx). The backward's
+C entry launches a second kernel that adds the per-block partial rows in a
+fixed order, where the TPU path sums them in XLA.
 
 ``layer_norm_affine`` and ``layer_norm_affine_bwd`` are the dispatchers: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
@@ -98,8 +100,8 @@ def layer_norm_affine_bwd(x, gamma, mean, rstd, dy):
     """dx, dgamma, dbeta of ``layer_norm_affine`` over the rows of x (R, D).
 
     On CUDA the kernel writes dx and one partial dγ/dβ row per block of
-    ``BWD_ROWS_PER_BLOCK`` rows; one torch sum over the partials finishes
-    them, as the JAX package sums its partials in XLA."""
+    ``BWD_ROWS_PER_BLOCK`` rows, and a second kernel of the same C entry adds
+    the rows in a fixed order (the JAX package sums its partials in XLA)."""
     if x.ndim != 2 or dy.shape != x.shape or gamma.shape != (x.shape[1],) \
             or mean.shape != (x.shape[0],) or rstd.shape != (x.shape[0],):
         raise MXNetError("layer_norm_affine_bwd: want x, dy (R, D), gamma (D,), mean and "
@@ -114,21 +116,22 @@ def layer_norm_affine_bwd(x, gamma, mean, rstd, dy):
     cuda_build.check_operands("layer_norm_affine_bwd", x, gamma, mean, rstd, dy)
     R, D = x.shape
     dx = torch.empty_like(x)
+    sums = torch.empty((2, D), dtype=torch.float32, device=x.device)  # dγ; dβ
     if R == 0:
-        return dx, torch.zeros_like(gamma), torch.zeros_like(gamma)
+        sums.zero_()
+        return dx, sums[0], sums[1]
     nb = (R + BWD_ROWS_PER_BLOCK - 1) // BWD_ROWS_PER_BLOCK
-    dg_part = torch.empty((nb, D), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((nb, D), dtype=torch.float32, device=x.device)
+    part = torch.empty((nb, 2, D), dtype=torch.float32, device=x.device)
     lib = cuda_build.library()
     global bwd_launches
     with torch.cuda.device(x.device):
         code = lib.mxt_layer_norm_bwd(
             x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), R, D, BWD_ROWS_PER_BLOCK,
+            dx.data_ptr(), part.data_ptr(), sums.data_ptr(), R, D, BWD_ROWS_PER_BLOCK,
             torch.cuda.current_stream(x.device).cuda_stream)
         bwd_launches += 1
     cuda_build.check(code, "layer_norm_affine_bwd")
-    return dx, dg_part.sum(dim=0), db_part.sum(dim=0)
+    return dx, sums[0], sums[1]
 
 
 class LayerNormAffine(torch.autograd.Function):

@@ -35,10 +35,18 @@ def _randn(dev, *shape, scale=1.0, seed=0):
     return torch.randn(*shape, generator=gen, device=dev) * scale
 
 
-@pytest.mark.parametrize("BH,T,S,D,causal", [(2, 1, 1, 8, True), (3, 33, 33, 64, True),
-                                             (2, 17, 95, 128, True), (2, 40, 9, 72, False)])
-def test_flash_attention_kernel_matches_plain(dev, BH, T, S, D, causal):
-    q, k, v = _randn(dev, BH, T, D), _randn(dev, BH, S, D), _randn(dev, BH, S, D)
+# ragged tiles, the prefill's (64, 128, 128, 64) and the training step's
+# (64, 256, 256, 64) causal shapes, head widths that are not a multiple of 8
+# (36) and not of 4 (13: 4-byte copies), both widths the kernel is built
+# for (64 and 128), and bases 4 bytes past 16-byte alignment (4-byte copies)
+@pytest.mark.parametrize("BH,T,S,D,causal,offset", [
+    (2, 1, 1, 8, True, 0), (3, 33, 33, 64, True, 0), (2, 17, 95, 128, True, 0),
+    (2, 40, 9, 72, False, 0), (64, 128, 128, 64, True, 0), (64, 256, 256, 64, True, 0),
+    (3, 70, 70, 36, True, 0), (2, 45, 77, 13, True, 0), (2, 29, 50, 13, False, 0),
+    (3, 75, 75, 56, True, 1), (3, 75, 41, 100, False, 1)])
+def test_flash_attention_kernel_matches_plain(dev, BH, T, S, D, causal, offset):
+    q, k, v = (_shifted(x, offset) for x in (_randn(dev, BH, T, D), _randn(dev, BH, S, D),
+                                              _randn(dev, BH, S, D)))
     before = fa.launches
     o, lse = fa.flash_attention(q, k, v, causal=causal)
     po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -176,6 +184,37 @@ def test_flash_attention_bwd_kernels_match_float64(dev):
                                         causal=True)
     for g, w in zip(got, want):
         assert float((g.double() - w).abs().max()) <= 1e-5
+
+
+def test_flash_attention_kernel_matches_float64(dev):
+    """The training shape against the plain version in float64 on the same
+    inputs: O and lse within 1e-6, a tenth of the smoke's 1e-5. The kernel's
+    products are 3xTF32 with a fresh accumulator a step, as accurate as f32
+    ones: the numpy emulation of its arithmetic (test_torch_tf32x3.py) keeps
+    them within a tenth of 1e-5 of float64 at this shape, where one TF32
+    pass misses 1e-5."""
+    BH, T, D = 64, 256, 64
+    q, k, v = (_randn(dev, BH, T, D, seed=i) for i in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(*(t.double() for t in (q, k, v)), causal=True)
+    for g, w in zip(got, want):
+        assert float((g.double() - w).abs().max()) <= 1e-6
+
+
+def test_flash_attention_and_layer_norm_bwd_kernels_are_deterministic(dev):
+    """No atomics: the flash forward at the training shape (its two groups'
+    states merged in a fixed order) and the LayerNorm backward at the
+    training rows (its partial rows added in a fixed order) give the same
+    bits twice."""
+    q, k, v = (_randn(dev, 64, 256, 64, seed=i) for i in range(3))
+    first, second = fa.flash_attention(q, k, v, causal=True), fa.flash_attention(q, k, v,
+                                                                                  causal=True)
+    x, dy, g = _randn(dev, 2048, 512), _randn(dev, 2048, 512, seed=1), _randn(dev, 512)
+    _, mean, rstd = nr.layer_norm_affine(x, g, _randn(dev, 512, seed=1))
+    first += nr.layer_norm_affine_bwd(x, g, mean, rstd, dy)
+    second += nr.layer_norm_affine_bwd(x, g, mean, rstd, dy)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("BH,T,S,D,causal", [(64, 256, 256, 64, True), (3, 50, 131, 128, True),

@@ -347,11 +347,12 @@ def test_one_accumulator_chained_over_a_split_misses_the_conv_tolerance():
 FLASH_TOL = 1e-4  # chip_smoke.py TOL["flash_attention_dq"], TOL["flash_attention_dkv"]
 
 
-def _mma_steps(a, b, passes=3):
-    """Σ_k a[i,k]·b[k,j] as the flash backward forms it: each 8-deep step's
+def _mma_steps(a, b, passes=3, acc=None):
+    """Σ_k a[i,k]·b[k,j] as the flash kernels form it: each 8-deep step's
     TF32 products (3xTF32's three, the small ones first, or one) go into a
     fresh accumulator that rounds toward zero, which is added to the f32
-    running sum rounding to nearest (tf32x3.cuh mma3)."""
+    running sum ``acc`` (zero by default) rounding to nearest (tf32x3.cuh
+    mma3)."""
     f = np.float64
     if passes == 3:
         (ah, al), (bh, bl) = split(a), split(b)
@@ -364,7 +365,7 @@ def _mma_steps(a, b, passes=3):
     for x, y in pairs:
         p = x.astype(f).reshape(M, steps, 8).transpose(1, 0, 2) @ y.astype(f).reshape(steps, 8, -1)
         d = _rz(d.astype(f) + p)
-    acc = np.zeros((M, b.shape[1]), np.float32)
+    acc = np.zeros((M, b.shape[1]), np.float32) if acc is None else acc
     for i in range(steps):
         acc = acc + d[i]
     return acc
@@ -430,7 +431,78 @@ def test_flash_backward_keeps_a_tenth_of_the_tolerance_on_three_products():
     assert min(err1) > FLASH_TOL
 
 
-# (T, S, causal): the card tests' and the smoke's flash backward shapes
+# ------------------------------------------------ the flash forward (flash_attention.cu)
+FLASH_FWD_TOL = 1e-5  # chip_smoke.py TOL["flash_attention"]
+FWD_COLS, FWD_GROUPS = 32, 2  # the kernel's key tile and groups of warps at D <= 64
+
+
+def flash_fwd_f64(q, k, v, mask, scale):
+    """O and the row logsumexp in float64 from the same f32 inputs."""
+    q, k, v = (x.astype(np.float64) for x in (q, k, v))
+    s = np.where(mask, q @ k.transpose(0, 2, 1) * scale, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(-1, keepdims=True)
+    return (p / l) @ v, (m + np.log(l))[..., 0]
+
+
+def flash_fwd_emulated(q, k, v, mask, scale, passes=3):
+    """The forward kernel's arithmetic, head by head. Key tiles of 32 taken
+    in turn by two groups (tile kt by group kt % 2), each group with its own
+    f32 state for every row: the max m of the raw scores S = Q·Kᵀ (3xTF32,
+    or one TF32 pass), ml = m·scale_log2 rounded to f32, the row sum l and
+    the O accumulator. Per tile: the new max over the visible scores, α =
+    2^(ml_old − ml_new), P = 2^(S·scale_log2 − ml) where visible (one FMA and
+    one exp2, flash_tc.cuh masked_exp), else exactly 0; l = l·α + ΣP; O =
+    O·α, then P·V added step by step, P split like any other operand and
+    each 8-deep step a fresh accumulator. At the end group 1's state is
+    rescaled onto group 0's common max and added, then O / max(l, 1e-30)
+    and lse = m·scale + log(l)."""
+    f32, f = np.float32, np.float64
+    sl2 = f32(scale) * f32(1.4426950408889634)
+    T, S = mask.shape
+    o = np.zeros(q.shape, f32)
+    lse = np.zeros(q.shape[:2], f32)
+    for h in range(q.shape[0]):
+        m = np.full((FWD_GROUPS, T), -1e30, f32)
+        ml = m * sl2
+        l = np.zeros((FWD_GROUPS, T), f32)
+        acc = np.zeros((FWD_GROUPS, T, q.shape[2]), f32)
+        for kt in range(-(-S // FWD_COLS)):
+            gr, cols = kt % FWD_GROUPS, slice(kt * FWD_COLS, (kt + 1) * FWD_COLS)
+            s = _mma_steps(q[h], np.ascontiguousarray(k[h, cols].T), passes)
+            vis = mask[:, cols]
+            mn = np.maximum(m[gr], np.where(vis, s, f32(-1e30)).max(-1))
+            mnl = mn * sl2
+            alpha = np.exp2(ml[gr] - mnl)
+            m[gr], ml[gr] = mn, mnl
+            arg = np.where(vis, s.astype(f) * sl2 - mnl[:, None], 0).astype(f32)
+            p = np.where(vis, np.exp2(arg), f32(0))
+            l[gr] = l[gr] * alpha + p.sum(-1, dtype=f32)
+            acc[gr] = _mma_steps(p, v[h, cols], passes, acc[gr] * alpha[:, None])
+        mn = np.maximum(m[0], m[1])
+        mnl = mn * sl2
+        a0, a1 = np.exp2(ml[0] - mnl), np.exp2(m[1] * sl2 - mnl)
+        ls = np.maximum(l[0] * a0 + l[1] * a1, f32(1e-30))
+        o[h] = (acc[0] * a0[:, None] + acc[1] * a1[:, None]) / ls[:, None]
+        lse[h] = (mn.astype(f) * f32(scale) + np.log(ls)).astype(f32)
+    return o, lse
+
+
+def test_flash_forward_keeps_a_tenth_of_the_tolerance_on_three_products():
+    """At the training shape (T = S = 256, D = 64, causal) the emulated
+    forward kernel's O and lse lie within a tenth of the smoke's 1e-5 of
+    float64; one TF32 pass for both products misses 1e-5."""
+    q, k, v, _, _, _, mask, scale = flash_operands()
+    want = flash_fwd_f64(q, k, v, mask, scale)
+    err3 = [np.abs(g - w).max() for g, w in zip(flash_fwd_emulated(q, k, v, mask, scale), want)]
+    err1 = [np.abs(g - w).max()
+            for g, w in zip(flash_fwd_emulated(q, k, v, mask, scale, passes=1), want)]
+    assert max(err3) <= FLASH_FWD_TOL / 10
+    assert min(err1) > FLASH_FWD_TOL
+
+
+# (T, S, causal): the card tests' and the smoke's flash shapes
 FLASH_SHAPES = [(1, 1, True), (33, 33, True), (17, 95, True), (40, 9, False), (64, 64, True),
                 (256, 256, True), (70, 70, True), (45, 77, True), (29, 50, False),
                 (75, 75, True), (75, 41, False), (77, 77, True), (50, 131, True),
@@ -439,23 +511,25 @@ FLASH_SHAPES = [(1, 1, True), (33, 33, True), (17, 95, True), (40, 9, False), (6
 
 @pytest.mark.parametrize("T,S,causal", FLASH_SHAPES)
 def test_bwd_tiles_cover_every_visible_pair_once_and_no_masked_tile(T, S, causal):
-    """Each block's rows as ``_bwd_tiles`` lists them, the table the kernels
-    read: in each pass every visible (query, key) pair (bottom-right causal
-    mask) is visited exactly once, every streamed row is seen by one of the
-    block's own rows (so no tile of any height is wholly masked), and the
-    blocks with the most rows to stream launch first. The head width does
-    not enter the table: both widths' kernels own ``BWD_ROWS`` rows a
-    block."""
+    """Each block's rows as ``_tiles`` lists them, the table the kernels
+    read: the forward and the backward's dq read its query-owning blocks
+    (``q``), dk/dv its key-owning ones (``kv``). In each every visible
+    (query, key) pair (bottom-right causal mask) is visited exactly once,
+    every streamed row is seen by one of the block's own rows (so no tile of
+    any height is wholly masked), and the blocks with the most rows to
+    stream launch first. The head width does not enter the table: every
+    kernel owns ``TILE_ROWS`` rows a block at both widths."""
     visible = np.tril(np.ones((T, S), bool), S - T) if causal else np.ones((T, S), bool)
-    tiles = fa._bwd_tiles(T, S, causal)
-    for blocks, vis in ((tiles.dq, visible), (tiles.dkv, visible.T)):
+    tiles = fa._tiles(T, S, causal)
+    R = fa.TILE_ROWS
+    for blocks, vis in ((tiles.q, visible), (tiles.kv, visible.T)):
         own, other = vis.shape
-        assert len(blocks) == -(-own // fa.BWD_ROWS)
+        assert len(blocks) == -(-own // R)
         n = np.zeros((own, other), np.int64)
         for r0, lo, hi in blocks:
-            assert 0 <= r0 < own and r0 % fa.BWD_ROWS == 0 and 0 <= lo < hi <= other
-            n[r0:r0 + fa.BWD_ROWS, lo:hi] += 1
-            assert vis[r0:r0 + fa.BWD_ROWS, lo:hi].any(axis=0).all()
+            assert 0 <= r0 < own and r0 % R == 0 and 0 <= lo < hi <= other
+            n[r0:r0 + R, lo:hi] += 1
+            assert vis[r0:r0 + R, lo:hi].any(axis=0).all()
         assert (n[vis] == 1).all() and n.max() <= 1
         work = [hi - lo for _, lo, hi in blocks]
         assert work == sorted(work, reverse=True)

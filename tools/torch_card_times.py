@@ -8,20 +8,25 @@ Imports ``mxnet_tpu_torch`` from ``DIR`` (default: this checkout), builds its
 kernels there, and prints one JSON line: the profiler's device time of a
 ResNet-50 forward at batch 32 and 1, of the conv kernels in a ResNet-50
 training step at batch 32 (and of the backward's, conv_bn_bwd, among them),
-of a transformer prefill and of a decode step, of a transformer training
-step (and of its flash-attention backward kernels, dq and dk/dv, among
-them), the host-clock median latency of the ResNet-50 forwards, the prefill,
-the decode step and the transformer training step, and the card's name and
-power limit. The models, shapes and
+of a transformer prefill (and of its flash-attention forward kernel) and of
+a decode step, of a transformer training step (and of its flash-attention
+forward and backward kernels, dq and dk/dv, and of its LayerNorm backward,
+among them, that backward's whole calls too), of a deploy request (a ResNet-50 ``Predictor`` made from a
+checkpoint's bytes, forward and ``get_output`` at batch 32, as the smoke's
+``deploy_breakdown`` times it), the host-clock median latency of the
+ResNet-50 forwards, the prefill, the decode step and the transformer training
+step, and the card's name and power limit. The models, shapes and
 helpers are ``chip_smoke.py``'s of this checkout. To compare two checkouts,
 run it on them in turns (A, B, B, A) on the same card, one after another.
 Needs one CUDA card; exits 2 without one.
 """
 import argparse
 import importlib.util
+import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,6 +45,36 @@ def median_ms(fn, iters=LATENCY_ITERS):
         fn()
         samples.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(samples))
+
+
+def layer_norm_bwd_call_ms(step):
+    """The LayerNorm backward's whole calls in one ``step`` on the card, ms,
+    and their count: each launch of its first kernel (``layer_norm_bwd_kernel``)
+    with what finishes its dγ and dβ right after it, from the profiler's
+    device events in the order they ran: the sums kernel of a checkout that
+    has one, else the torch reductions (``reduce_kernel``, two a call) that
+    a checkout without one runs there."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+    us, calls = 0.0, 0
+    for i, e in enumerate(kernels):
+        if "layer_norm_bwd_kernel" not in e.name:
+            continue
+        after = kernels[i + 1:i + 3]
+        if after and "layer_norm_bwd_sums" in after[0].name:
+            after = after[:1]
+        else:
+            after = list(itertools.takewhile(lambda f: "reduce_kernel" in f.name, after))
+        us += sum(f.time_range.elapsed_us() for f in [e] + after)
+        calls += 1
+    return us / 1e3, calls
 
 
 def card_times(smoke, pt):
@@ -64,6 +99,8 @@ def card_times(smoke, pt):
     for name in ("prefill", "decode"):
         out[name + "_ms"] = steps[name]["device_busy_ms"]
         out[name + "_port_kernels_ms"] = steps[name]["port_kernels_ms"]
+    out["prefill_flash_attention_ms"] = steps["prefill"]["port_kernel_ms"].get(
+        "flash_attention", 0.0)
 
     def prefill():
         dec.reset()
@@ -81,8 +118,15 @@ def card_times(smoke, pt):
     w = smoke.profile_window(step)
     out["train_step_ms"] = w["device_busy_ms"]
     out["train_step_port_kernels_ms"] = w["port_kernels_ms"]
-    for name in ("flash_attention_dq", "flash_attention_dkv"):
+    # a kernel's ms is that of the profiler's events that chip_smoke.KERNELS
+    # names for it: for the LayerNorm backward, the events named for it (a
+    # checkout that summed its partial rows with torch: its first kernel
+    # only), and its whole calls with the sums that follow each
+    for name in ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
+                 "norm_residual_bwd"):
         out["train_step_%s_ms" % name] = w["port_kernel_ms"].get(name, 0.0)
+    (out["train_step_norm_residual_bwd_call_ms"],
+     out["train_step_norm_residual_bwd_calls"]) = layer_norm_bwd_call_ms(step)
     out["train_step_latency_ms_p50"] = median_ms(step)
     del step
     net = resnet.get_symbol(**smoke.RESNET)
@@ -106,6 +150,24 @@ def card_times(smoke, pt):
         out["resnet_forward_b%d_conv_ms" % B] = w["port_kernels_ms"]
         out["resnet_forward_b%d_latency_ms_p50" % B] = median_ms(forward)
         del exe
+    from mxnet_tpu_torch.predictor import Predictor
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix, epoch = tmp + "/resnet50", smoke.DEPLOY["epoch"]
+        pt.model.save_checkpoint(prefix, epoch, net, args, aux)
+        json_str = Path(prefix + "-symbol.json").read_text()
+        blob = Path("%s-%04d.params" % (prefix, epoch)).read_bytes()
+    B = smoke.DEPLOY["batch"]
+    pred = Predictor(json_str, blob, {"data": (B,) + smoke.image_shape()})
+    x = pt.nd.array(images[:B])
+
+    def request():
+        pred.forward(data=x)
+        pred.get_output(0)
+
+    request()
+    out["deploy_request_ms"] = smoke.profile_window(request)["device_busy_ms"]
+    del pred
     B = smoke.RESNET_TRAIN["batch"]
     exe = smoke.resnet_bind(pt, net, pt.gpu(0), B, args, aux, {n: "write" for n in args},
                             images, labels)
