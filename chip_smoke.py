@@ -101,11 +101,11 @@ DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
               std=(58.40, 57.12, 57.38), tap="stage1_unit1_relu1_output",
               tap_weight="stage1_unit1_sc_weight")
 # matmul_with_stats: ResNet-50's 1x1 convolutions at batch 32 as (M, K, N)
-# matrices (stage 1's 64->256 and 256->64 at 56 x 56, stage 2's 512->128 at
-# 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
-MATMUL_STATS_SHAPES = [(100352, 64, 256, ""), (100352, 256, 64, "k256_"),
-                       (25088, 512, 128, "k512_"), (1568, 2048, 512, "k2048_"),
-                       (1000, 70, 200, None)]
+# matrices (stage 1's 64->256, 64->64 and 256->64 at 56 x 56, stage 2's
+# 512->128 at 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
+MATMUL_STATS_SHAPES = [(100352, 64, 256, ""), (100352, 64, 64, "n64_"),
+                       (100352, 256, 64, "k256_"), (25088, 512, 128, "k512_"),
+                       (1568, 2048, 512, "k2048_"), (1000, 70, 200, None)]
 
 # The user kernels rtc compiles at run time. The parameters are the inputs'
 # device pointers in order, then the outputs'; sizes are written into the
@@ -166,6 +166,18 @@ extern "C" __global__ void rtc_mma_rate(const float* in, float* out) {
 #pragma unroll
   for (int c = 0; c < %(chains)d; ++c) s += acc[c][0] + acc[c][1] + acc[c][2] + acc[c][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+"""
+# the launch floor under the LayerNorm kernel: an empty kernel, and one block
+# that copies n4 float4 (16 KB at the decode's 8 rows of 512)
+RTC_EMPTY = r"""
+extern "C" __global__ void rtc_empty(float* o) {}
+"""
+RTC_COPY = r"""
+extern "C" __global__ void rtc_copy(const float* x, float* y) {
+  const float4* s = reinterpret_cast<const float4*>(x);
+  float4* d = reinterpret_cast<float4*>(y);
+  for (int i = threadIdx.x; i < %(n4)d; i += blockDim.x) d[i] = s[i];
 }
 """
 MMA_RATE_STEPS = {"tf32": (1, "MMA(d, a[c]);"),
@@ -417,14 +429,17 @@ def check_kernels(peaks):
         rec = {"phase": "kernel", "name": "norm_residual", "shape": [R, D], "max_abs_err": err}
         if i in timed:
             ms = device_ms(lambda: nr.layer_norm_affine(x, g, bb))
+            ev_ms = event_ms(lambda: nr.layer_norm_affine(x, g, bb))
             plain_ms = device_ms(lambda: nr.layer_norm_affine_plain(x, g, bb))
             lib_ms = device_ms(lambda: F.layer_norm(x, (D,), g, bb, 1e-5))
             b_ms, b_by = bound(7.0 * R * D, 4.0 * (2 * R * D + 2 * D + 2 * R), peaks)
-            rec.update(kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
-            record("norm_residual", timed[i], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms, shape="prefill x (%d,%d)" % (R, D))
+            rec.update(kernel_ms=ms, event_ms=ev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, rows_per_warp=nr._rows_per_warp(R, D))
+            record("norm_residual", timed[i], ms=ms, event_ms=ev_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   shape="prefill x (%d,%d)" % (R, D))
         log(rec)
+    entries["norm_residual"]["launch_floor_ms"] = check_launch_floor(B, M)
 
     # ---- matmul + bias + act: (M, K, N, act, bias); prefill ffn1, decode ffn1,
     # training ffn1, ragged
@@ -846,19 +861,29 @@ def check_deploy_kernels(randn, peaks, entries, worst):
         a, b = randn(M, K), randn(K, N, scale=1.0 / math.sqrt(K))
         got, again = ms.matmul_with_stats(a, b), ms.matmul_with_stats(a, b)
         want = ms.matmul_with_stats_plain(a, b)
+        c64 = a.double() @ b.double()
         torch.cuda.synchronize()
         check(all(torch.equal(u, v) for u, v in zip(got, again)),
               ("matmul_stats: two runs differ", M, K, N))
-        errs = {n: rel_err(g, w) for n, g, w in zip(("c", "col_sum", "col_sumsq"), got, want)}
-        for n, e in errs.items():
-            check(math.isfinite(e) and e <= CONV_TOL["elementwise" if n == "c" else "sums"],
-                  ("matmul_stats", n, M, K, N, e))
+        names = ("c", "col_sum", "col_sumsq")
+        errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
+        # and against float64 on the same inputs
+        errs_f64 = {n: rel_err(g.double(), w) for n, g, w in
+                    zip(names, got, (c64, c64.sum(dim=0), (c64 * c64).sum(dim=0)))}
+        del c64
+        for n in names:
+            tol = CONV_TOL["elementwise" if n == "c" else "sums"]
+            check(math.isfinite(errs[n]) and errs[n] <= tol and errs_f64[n] <= tol,
+                  ("matmul_stats", n, M, K, N, errs[n], errs_f64[n]))
         abs_err = float((got[0] - want[0]).abs().max())
         worst["matmul_stats"] = max(worst.get("matmul_stats", 0.0), abs_err)
+        sched = ms._schedule(M, K, N)
         rec = {"phase": "kernel", "name": "matmul_stats", "shape": [M, K, N], "rel_err": errs,
-               "max_abs_err": abs_err, "bitwise_repeatable": True}
+               "rel_err_f64": errs_f64, "max_abs_err": abs_err, "bitwise_repeatable": True,
+               "schedule": sched._asdict()}
         if prefix is not None:
             ms_ = device_ms(lambda: ms.matmul_with_stats(a, b), key=KERNELS["matmul_stats"][2])
+            ev_ms = event_ms(lambda: ms.matmul_with_stats(a, b))
             plain_ms = device_ms(lambda: ms.matmul_with_stats_plain(a, b))
 
             def library():
@@ -869,9 +894,11 @@ def check_deploy_kernels(randn, peaks, entries, worst):
             mm_ms = device_ms(lambda: torch.mm(a, b))
             b_ms, b_by, f32_ms = product_bound(2.0 * M * K * N + 3.0 * M * N,
                                                4.0 * (M * K + K * N + M * N + 2 * N), peaks)
-            times = dict(ms=ms_, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         f32_bound_ms=f32_ms, library_ms=lib_ms, mm_alone_ms=mm_ms)
-            rec.update(times)
+            times = dict(ms=ms_, event_ms=ev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, f32_bound_ms=f32_ms, library_ms=lib_ms,
+                         mm_alone_ms=mm_ms, f32_work_tflops=2.0 * M * K * N / ms_ / 1e9,
+                         schedule=sched.layout)
+            rec.update(times, kernel_ms=ms_)
             if not prefix:
                 entries["matmul_stats"] = entry(
                     "matmul_stats", library="torch.mm + c.sum(0) + (c*c).sum(0)",
@@ -957,6 +984,36 @@ def check_deploy_kernels(randn, peaks, entries, worst):
     worst["rtc"] = max(worst["rtc"], err_fma, err_split)
     for name, e in (("rtc_fma", err_fma), ("rtc_split", err_split)):
         log({"phase": "kernel", "name": name, "shape": list(a.shape), "max_abs_err": e})
+
+
+def check_launch_floor(rows, D):
+    """The card's floor under a LayerNorm launch: the profiler's device time
+    (and the CUDA-event time) of an empty kernel on the decode LayerNorm's
+    grid, and of a one-block kernel that copies its 16 KB (``rows`` x
+    ``D`` f32), each compiled by rtc and launched on the current stream, as
+    the LayerNorm kernel is."""
+    import mxnet_tpu_torch as pt
+    from mxnet_tpu_torch.ops import norm_residual as nr
+
+    gpu = pt.gpu(0)
+    n = rows * D
+    x = pt.nd.NDArray(torch.randn(n, device="cuda"), gpu)
+    blocks = -(-rows // (nr.WARPS_PER_BLOCK * nr._rows_per_warp(rows, D)))
+    empty = pt.rtc.Rtc("rtc_empty", RTC_EMPTY, kernel_name="rtc_empty", grid=(blocks,),
+                       block=(32 * nr.WARPS_PER_BLOCK,))
+    copy = pt.rtc.Rtc("rtc_copy", RTC_COPY % dict(n4=n // 4), kernel_name="rtc_copy", grid=(1,),
+                      block=(32 * nr.WARPS_PER_BLOCK,))
+    empty.push([], out_shapes=[(1,)])
+    (y,) = copy.push([x], out_shapes=[(n,)])
+    torch.cuda.synchronize()
+    check(torch.equal(y._tensor(), x._tensor()), "rtc_copy")
+    floor = {"empty_ms": device_ms(lambda: empty.push([], out_shapes=[(1,)]), key="rtc_empty"),
+             "copy_ms": device_ms(lambda: copy.push([x], out_shapes=[(n,)]), key="rtc_copy"),
+             "empty_event_ms": event_ms(lambda: empty.push([], out_shapes=[(1,)])),
+             "copy_event_ms": event_ms(lambda: copy.push([x], out_shapes=[(n,)])),
+             "empty_grid": blocks, "copy_bytes": 4 * n}
+    log({"phase": "kernel", "name": "launch_floor_ms", **floor})
+    return floor
 
 
 def check_mma_rate(randn, peaks):

@@ -34,7 +34,7 @@
 // block takes most of the whole call's time. The design therefore shortens
 // and overlaps that chain:
 // - every product is a 3xTF32 mma.sync with a fresh accumulator a step,
-//   issued across the n-tiles (flash_tc.cuh mma3_tiles) so that no mma
+//   issued across the n-tiles (tf32x3.cuh mma3_tiles) so that no mma
 //   waits on the one before it; the tiles are straight-line code, with no
 //   branch between the products for the scheduler to stop at;
 // - P and dS never leave the registers (a score tile's accumulator is the

@@ -50,34 +50,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int r0,
   }
 }
 
-// acc[ni] += a · b[ni] for the N n-tiles of one 8-deep step, to f32
-// accuracy: tf32x3.cuh mma3's arithmetic (a fresh accumulator a step, the
-// two small products first, then one rounding to nearest into acc), issued
-// product by product across the n-tiles. mma3 issues each n-tile's three
-// mma.sync back to back, each waiting for the one before; here N
-// independent ones stand between two that depend on each other, which
-// hides the tensor cores' latency inside one warp (the kernels run two
-// warps a scheduler: a block's tiles are few).
-template <int N>
-__device__ __forceinline__ void mma3_tiles(float (&acc)[N][4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4],
-                                           const uint32_t (&b_hi)[N][2],
-                                           const uint32_t (&b_lo)[N][2]) {
-  float d[N][4];
-#pragma unroll
-  for (int n = 0; n < N; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], a_lo, b_hi[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], a_hi, b_lo[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n) mma(d[n], a_hi, b_hi[n]);
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] += d[n][i];
-}
-
 // One warp's score tile: acc[ni] = a · bᵀ over the DW columns for the 16
 // rows at a and the NT·8 rows of b (column c of n-tile ni is row ni·8 +
 // col_row(c)). No branch inside: the whole tile is one block of

@@ -77,6 +77,34 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&a_hi)[4],
   for (int i = 0; i < 4; ++i) acc[i] += d[i];
 }
 
+// acc[ni] += a · b[ni] for the N n-tiles of one 8-deep step, to f32
+// accuracy: mma3's arithmetic (a fresh accumulator a step, the
+// two small products first, then one rounding to nearest into acc), issued
+// product by product across the n-tiles. mma3 issues each n-tile's three
+// mma.sync back to back, each waiting for the one before; here N
+// independent ones stand between two that depend on each other, which
+// hides the tensor cores' latency inside one warp (the kernels run two
+// warps a scheduler).
+template <int N>
+__device__ __forceinline__ void mma3_tiles(float (&acc)[N][4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[N][2],
+                                           const uint32_t (&b_lo)[N][2]) {
+  float d[N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], a_lo, b_hi[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], a_hi, b_lo[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], a_hi, b_hi[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += d[n][i];
+}
+
 // The fragment layouts above number k = t and k = t + 4 for thread t. Any
 // one permutation of the 8 k of a step, used for both A and B, leaves the
 // product as it is; the kernels read k = t from column 2t and k = t + 4 from

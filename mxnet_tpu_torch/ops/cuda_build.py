@@ -56,8 +56,8 @@ _SIGNATURES = {
     "mxt_flash_attention_bwd_dq": (_P,) * 8 + (_I,) * 5 + (_F, _I, _P),
     # q, k, v, do, lse, delta, dk, dv, blocks, nblocks, BH, T, S, D, scale, causal, stream
     "mxt_flash_attention_bwd_dkv": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
-    # x, gamma, beta, y, mean, rstd, R, D, eps, stream
-    "mxt_layer_norm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # x, gamma, beta, y, mean, rstd, R, D, rows_per_warp, eps, stream
+    "mxt_layer_norm_fwd": (_P,) * 6 + (_I, _I, _I, _F, _P),
     # x, gamma, mean, rstd, dy, dx, part, sums (dgamma; dbeta), R, D, rows_per_block, stream
     "mxt_layer_norm_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
     # a, w, bias (or NULL), c, M, N, K, act, schedule, stream
@@ -68,8 +68,8 @@ _SIGNATURES = {
     # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
     # N, taps, stride, relu, parts, splits, stream
     "mxt_conv_bn_bwd": (_P,) * 15 + (_I,) * 10 + (_P,),
-    # a, b, c, part, sums, M, K, N, m_tiles, stream
-    "mxt_matmul_stats_fwd": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # a, b, c, part, sums, M, K, N, layout, groups, stream
+    "mxt_matmul_stats_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()

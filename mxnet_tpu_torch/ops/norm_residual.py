@@ -9,11 +9,13 @@ Replaces the TPU kernels of ``mxnet_tpu/ops/pallas_norm_residual.py``:
   x̂·mean(dx̂∘x̂)) with dx̂ = dy∘γ, and per-row-block partial dγ, dβ that are
   summed outside the kernel (:172).
 
-Both kernels are in ``csrc/norm_residual.cu``: one warp per row, the row held
-in registers. On an H100 both are bound by bytes (forward: one read of x, one
-write of y; backward: one read of x and dy, one write of dx). The backward's
-C entry launches a second kernel that adds the per-block partial rows in a
-fixed order, where the TPU path sums them in XLA.
+Both kernels are in ``csrc/norm_residual.cu``, the row held in registers. On
+an H100 both are bound by bytes (forward: one read of x, one write of y;
+backward: one read of x and dy, one write of dx). The forward loads and
+stores 16 bytes a lane (each lane 4 adjacent columns of each 128-column
+chunk) and takes one row a warp, or two where ``_rows_per_warp`` says so.
+The backward's C entry launches a second kernel that adds the per-block
+partial rows in a fixed order, where the TPU path sums them in XLA.
 
 ``layer_norm_affine`` and ``layer_norm_affine_bwd`` are the dispatchers: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
@@ -36,8 +38,22 @@ MAX_DIM = 1024
 # (kBwdRowsPerBlock in csrc/norm_residual.cu, which refuses any other value)
 BWD_ROWS_PER_BLOCK = 16
 
+#: warps of a forward block (kWarpsPerBlock in csrc/norm_residual.cu)
+WARPS_PER_BLOCK = 4
+#: the fewest rows for which the forward takes two rows a warp (at D <= 512):
+#: measured on an H100 at D = 512, one row a warp is faster up to 1024 rows,
+#: two from 2048 (``PERF.md`` §6)
+TWO_ROWS_MIN = 2048
+
 launches = 0
 bwd_launches = 0
+
+
+def _rows_per_warp(R, D):
+    """The forward's rows a warp: two from ``TWO_ROWS_MIN`` rows at D <= 512
+    (the training step's 2048), else one (the prefill's 1024, the decode's
+    8)."""
+    return 2 if R >= TWO_ROWS_MIN and D <= 512 else 1
 
 
 def supported(shape):
@@ -45,13 +61,23 @@ def supported(shape):
     return len(shape) == 2 and 1 <= shape[1] <= MAX_DIM
 
 
+def _compute_dtype(x):
+    """float32 for x of 32 bits or fewer, as the TPU kernels cast; float64 stays."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def layer_norm_affine_plain(x, gamma, beta, eps=1e-5):
-    """The kernel's function in plain PyTorch: ``(y, mean, rstd)``."""
-    mean = x.mean(dim=-1, keepdim=True)
-    cent = x - mean
+    """The kernel's function in plain PyTorch: ``(y, mean, rstd)``, computed
+    in float32 as ``_fwd_kernel`` (:78) does (float64 stays float64): y in
+    x's dtype, mean and rstd in the computing dtype."""
+    f = _compute_dtype(x)
+    xf = x.to(f)
+    mean = xf.mean(dim=-1, keepdim=True)
+    cent = xf - mean
     var = (cent * cent).mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    return (cent * rstd) * gamma + beta, mean.squeeze(-1), rstd.squeeze(-1)
+    y = (cent * rstd) * gamma.to(f) + beta.to(f)
+    return y.to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
 
 
 def layer_norm_affine(x, gamma, beta, eps=1e-5):
@@ -78,7 +104,7 @@ def layer_norm_affine(x, gamma, beta, eps=1e-5):
     with torch.cuda.device(x.device):
         code = lib.mxt_layer_norm_fwd(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), R, D, float(eps),
+            mean.data_ptr(), rstd.data_ptr(), R, D, _rows_per_warp(R, D), float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
         launches += 1
     cuda_build.check(code, "layer_norm_affine")
@@ -87,13 +113,18 @@ def layer_norm_affine(x, gamma, beta, eps=1e-5):
 
 def layer_norm_affine_bwd_plain(x, gamma, mean, rstd, dy):
     """The backward kernel's function in plain PyTorch: ``(dx, dgamma, dbeta)``
-    from the forward's saved mean and rstd (R,)."""
-    xhat = (x - mean.unsqueeze(-1)) * rstd.unsqueeze(-1)
-    dxhat = dy * gamma
+    from the forward's saved mean and rstd (R,), computed in float32 as
+    ``_bwd_kernel`` (:92) and ``_ln_bwd`` (:186) do (float64 stays float64):
+    dx in x's dtype, dgamma and dbeta in gamma's."""
+    f = _compute_dtype(x)
+    dyf, rstdf = dy.to(f), rstd.to(f).unsqueeze(-1)
+    xhat = (x.to(f) - mean.to(f).unsqueeze(-1)) * rstdf
+    dxhat = dyf * gamma.to(f)
     m1 = dxhat.mean(dim=-1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
-    dx = rstd.unsqueeze(-1) * (dxhat - m1 - xhat * m2)
-    return dx, (dy * xhat).sum(dim=0), dy.sum(dim=0)
+    dx = rstdf * (dxhat - m1 - xhat * m2)
+    return (dx.to(x.dtype), (dyf * xhat).sum(dim=0).to(gamma.dtype),
+            dyf.sum(dim=0).to(gamma.dtype))
 
 
 def layer_norm_affine_bwd(x, gamma, mean, rstd, dy):
@@ -136,7 +167,9 @@ def layer_norm_affine_bwd(x, gamma, mean, rstd, dy):
 
 class LayerNormAffine(torch.autograd.Function):
     """y = layer_norm_affine(x, gamma, beta) with the LayerNorm backward as its
-    gradient: saves (x, gamma, mean, rstd), not y, as ``_ln_fwd`` (:181) does."""
+    gradient: saves (x, gamma, mean, rstd), not y, as ``_ln_fwd`` (:181) does.
+    Both directions compute in float32; dx comes back in x's dtype, dgamma and
+    dbeta in gamma's, as ``_ln_bwd`` (:186-189) returns them."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):

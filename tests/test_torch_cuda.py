@@ -62,6 +62,24 @@ def test_layer_norm_kernel_matches_plain(dev, R, D):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+# the decode's, prefill's and training step's rows (one row a warp, then two),
+# a D that is no multiple of 4 (4-byte loads), and operands one float past
+# 16-byte alignment (x alone, then x, gamma and beta)
+@pytest.mark.parametrize("R,D,offset", [(8, 512, 0), (1024, 512, 0), (2048, 512, 0),
+                                        (37, 300, 0), (2049, 130, 0), (64, 512, 1),
+                                        (2048, 512, 1)])
+def test_layer_norm_forward_launch_shapes_match_plain(dev, R, D, offset):
+    x = _shifted(_randn(dev, R, D), offset)
+    g, b = _randn(dev, D, seed=1), _randn(dev, D, seed=2)
+    if R == 2048 and offset:
+        g, b = _shifted(g, offset), _shifted(b, offset)
+    before = nr.launches
+    got = nr.layer_norm_affine(x, g, b)
+    assert nr.launches == before + 1
+    for a, w in zip(got, nr.layer_norm_affine_plain(x, g, b)):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (8, 512, 2048), (65, 17, 129)])
 @pytest.mark.parametrize("act", mba.ACTIVATIONS)
 def test_matmul_bias_act_kernel_matches_plain(dev, M, K, N, act):
@@ -496,6 +514,26 @@ def test_matmul_stats_kernel_matches_plain(dev, M, K, N):
     for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
         assert g.dtype == torch.float32 and g.shape == w.shape
         _close(g, w, tol)
+
+
+# the deploy tap (short K: persistent blocks, B's slab resident) and stage
+# 4's 2048 -> 512 (long K: one tile a block); C's dot products and the
+# 100 352- and 1568-long column sums against float64 on the same inputs
+@pytest.mark.parametrize("M,K,N", [(100352, 64, 256), (1568, 2048, 512)])
+def test_matmul_stats_kernel_matches_float64(dev, M, K, N):
+    a, b = _randn(dev, M, K), _randn(dev, K, N, scale=1 / math.sqrt(K), seed=1)
+    c64 = a.double() @ b.double()
+    got = ms.matmul_with_stats(a, b)
+    for g, w, tol in zip(got, (c64, c64.sum(dim=0), (c64 * c64).sum(dim=0)), (1e-5, 1e-4, 1e-4)):
+        _close(g.double(), w, tol)
+
+
+@pytest.mark.parametrize("M,K,N", [(20000, 64, 256), (3000, 512, 200)], ids=["short_k", "long_k"])
+def test_matmul_stats_schedules_give_the_same_bits_twice(dev, M, K, N):
+    a, b = _randn(dev, M, K), _randn(dev, K, N, scale=1 / math.sqrt(K), seed=1)
+    assert ms._schedule(M, K, N).kind == ("short_k" if K <= ms.SHORT_K_MAX else "long_k")
+    for u, v in zip(ms.matmul_with_stats(a, b), ms.matmul_with_stats(a, b)):
+        assert torch.equal(u, v)
 
 
 def test_matmul_stats_kernel_is_deterministic_and_refuses_what_it_does_not_take(dev):

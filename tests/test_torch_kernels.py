@@ -62,6 +62,27 @@ def test_layer_norm_plain_matches_pallas(R):
     np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[:, 0], atol=2e-6, rtol=0)
 
 
+def test_layer_norm_plain_matches_pallas_in_bfloat16():
+    """x, gamma and beta in bfloat16: both compute in float32, y in bfloat16
+    within one ulp of its largest magnitude, mean and rstd in float32 at the
+    float32 bar above."""
+    rs = np.random.RandomState(3)
+    R, D = 64, 512
+    x = (5.0 + 3.0 * rs.randn(R, D)).astype(np.float32)
+    g = rs.uniform(0.5, 1.5, (D,)).astype(np.float32)
+    b = rs.uniform(-0.2, 0.2, (D,)).astype(np.float32)
+    jx, jg, jb = (jnp.asarray(v).astype(jnp.bfloat16) for v in (x, g, b))
+    jy, jmean, jrstd = pn._fwd_call(jx, jg, jb, 1e-5, pn.choose_block_rows((R, D), 2), True)
+    y, mean, rstd = nr.layer_norm_affine(*(torch.from_numpy(v).bfloat16() for v in (x, g, b)),
+                                         1e-5)
+    assert y.dtype == torch.bfloat16 and mean.dtype == rstd.dtype == torch.float32
+    jy = np.asarray(jy.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.max(np.abs(jy)))) - 7)
+    assert np.max(np.abs(y.float().numpy() - jy)) <= ulp
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean)[:, 0], atol=2e-6, rtol=0)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(jrstd)[:, 0], atol=2e-6, rtol=0)
+
+
 @pytest.mark.parametrize("act", ["relu", "sigmoid", "tanh", "softrelu"])
 @pytest.mark.parametrize("M", [128, 8], ids=["prefill_rows", "decode_rows"])
 def test_matmul_bias_act_plain_matches_pallas(act, M):
@@ -94,3 +115,14 @@ def test_kernel_shape_gates():
     with pytest.raises(MXNetError):
         fa.flash_attention(torch.zeros(2, 16, 8), torch.zeros(2, 8, 8), torch.zeros(2, 8, 8),
                            causal=True)
+
+
+@pytest.mark.parametrize("R,D,want", [(8, 512, 1), (1024, 512, 1), (2048, 512, 2), (4096, 512, 2),
+                                      (nr.TWO_ROWS_MIN - 1, 128, 1), (4096, 513, 1),
+                                      (4096, 1024, 1)], ids=str)
+def test_layer_norm_forward_rows_per_warp(R, D, want):
+    """One row a warp for the decode's and the prefill's rows, two from the
+    training step's 2048 (measured on an H100), one above D = 512 (the C
+    entry refuses two there)."""
+    assert nr._rows_per_warp(R, D) == want
+

@@ -17,6 +17,7 @@ import pytest
 from mxnet_tpu_torch.ops import conv_bn as cb
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import matmul_bias_act as mba
+from mxnet_tpu_torch.ops import matmul_stats as ms
 
 MATMUL_TOL, CONV_TOL = 1e-4, 1e-5  # chip_smoke.py TOL["matmul_bias_act"], CONV_TOL
 K_SITES = (512, 576, 2304, 4608)
@@ -533,3 +534,86 @@ def test_bwd_tiles_cover_every_visible_pair_once_and_no_masked_tile(T, S, causal
         assert (n[vis] == 1).all() and n.max() <= 1
         work = [hi - lo for _, lo, hi in blocks]
         assert work == sorted(work, reverse=True)
+
+
+# ------------------------------------------------------------ matmul_stats
+STATS_TOL = {"c": 1e-5, "sums": 1e-4}  # chip_smoke.py CONV_TOL, as matmul_stats is held
+
+
+def _f32_add(x, y):
+    return (np.asarray(x, np.float32).astype(np.float64) + y).astype(np.float32)
+
+
+def _matmul_stats_sums(c, layout, groups):
+    """Σc and Σc² over the rows of the f32 C (M, N) in csrc/matmul_stats.cu's
+    order: each thread adds its rows g and g + 8 of each m16 tile, tile by
+    tile along its block's M-tiles p, p + P, ... (c² by an FMA); the 8
+    values of g by shuffles over lane offsets 4, 8, 16; the warps along M in
+    order (one partial row a block); then common.cuh's sum_rows over the P
+    partial rows (lane l adds rows l, l + L, ..., lane 0 the L lane sums)."""
+    _, bm, _, _, wm_n, _ = ms.LAYOUTS[layout]
+    M, N = c.shape
+    mt = bm // wm_n // 16
+    m_tiles = -(-M // bm)
+    rows = np.zeros((groups, 2, N), np.float32)
+    for p in range(groups):
+        warp_rows = np.zeros((wm_n, 2, N), np.float32)
+        for wm in range(wm_n):
+            lanes = np.zeros((8, 2, N), np.float32)  # g = 0..7
+            for g in range(8):
+                s, q = np.zeros(N, np.float32), np.zeros(N, np.float32)
+                for tile in range(p, m_tiles, groups):
+                    for mi in range(mt):
+                        for h in range(2):
+                            r = tile * bm + wm * mt * 16 + mi * 16 + g + 8 * h
+                            v = c[r] if r < M else np.zeros(N, np.float32)
+                            s = _f32_add(s, v)
+                            q = _f32_add(q, v.astype(np.float64) ** 2)  # fmaf: one rounding
+                lanes[g] = s, q
+            for o in (1, 2, 4):  # lane offsets 4, 8, 16 flip bits 0, 1, 2 of g
+                lanes = np.stack([_f32_add(lanes[g], lanes[g ^ o]) for g in range(8)])
+            warp_rows[wm] = lanes[0]
+        acc = np.zeros((2, N), np.float32)
+        for wm in range(wm_n):
+            acc = _f32_add(acc, warp_rows[wm])
+        rows[p] = acc
+    L = 16 if groups >= 64 else (4 if groups >= 8 else 1)
+    lane_sums = np.zeros((L, 2, N), np.float32)
+    for lane in range(L):
+        for p in range(lane, groups, L):
+            lane_sums[lane] = _f32_add(lane_sums[lane], rows[p])
+    out = np.zeros((2, N), np.float32)
+    for lane in range(L):
+        out = _f32_add(out, lane_sums[lane])
+    return out[0], out[1]
+
+
+def _matmul_stats_errors(c, exact, layout, groups):
+    s, q = _matmul_stats_sums(c, layout, groups)
+    c64 = c.astype(np.float64)
+    return (np.abs(c64 - exact).max() / np.abs(exact).max(),
+            np.abs(s - exact.sum(0)).max() / np.abs(exact.sum(0)).max(),
+            np.abs(q - (exact ** 2).sum(0)).max() / ((exact ** 2).sum(0)).max())
+
+
+# small versions of the short-K deploy tap (100352, 64, 256) and of a long-K
+# 1x1 convolution (25088, 512, 128), at the smoke's operand scales
+@pytest.mark.parametrize("M,K,N", [(2048, 64, 64), (512, 512, 128)], ids=["short_k", "long_k"])
+def test_matmul_stats_keeps_a_tenth_of_its_tolerances_on_three_products(M, K, N):
+    rs = np.random.RandomState(7)
+    a = rs.standard_normal((M, K)).astype(np.float32)
+    b = (rs.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    sched = ms._schedule(M, K, N)
+    assert sched.kind == ("short_k" if K <= ms.SHORT_K_MAX else "long_k") and sched.n_slabs == 1
+    # tf32x3.cuh's step: a fresh accumulator every 8-deep step
+    c3 = _mma_sums(a, b, chain=1)
+    err_c, err_s, err_q = _matmul_stats_errors(c3, exact, sched.layout, sched.groups)
+    assert err_c <= STATS_TOL["c"] / 10
+    assert max(err_s, err_q) <= STATS_TOL["sums"] / 10
+    # one TF32 pass misses C's tolerance 30-fold; the sums average its
+    # rounding over M rows, and miss theirs by less (Σc here, Σc² at times)
+    c1 = dot1(a, b).astype(np.float32)
+    err_c, err_s, err_q = _matmul_stats_errors(c1, exact, sched.layout, sched.groups)
+    assert err_c > 10 * STATS_TOL["c"] and max(err_s, err_q) > STATS_TOL["sums"]
+

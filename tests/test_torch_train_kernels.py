@@ -75,6 +75,30 @@ def test_layer_norm_bwd_plain_matches_pallas(R):
         assert err / (np.max(np.abs(r)) + 1e-9) <= 1e-5, (name, err)
 
 
+def test_layer_norm_affine_function_matches_jax_vjp_in_bfloat16():
+    """The port's Function against the JAX package's custom_vjp, both in
+    bfloat16: float32 inside, dx in x's dtype, dgamma and dbeta in gamma's,
+    each within one bfloat16 ulp of its largest magnitude."""
+    rs = np.random.RandomState(16)
+    R, D = 64, 512
+    x = (5.0 + 3.0 * rs.randn(R, D)).astype(np.float32)
+    g = rs.uniform(0.5, 1.5, (D,)).astype(np.float32)
+    b = rs.uniform(-0.2, 0.2, (D,)).astype(np.float32)
+    dy = _f32(rs, R, D)
+    bf = jnp.bfloat16
+    jy, vjp = jax.vjp(lambda x, g, b: pn.layer_norm_affine(x, g, b, 1e-5, interpret=True),
+                      *(jnp.asarray(v).astype(bf) for v in (x, g, b)))
+    want = vjp(jnp.asarray(dy).astype(bf))
+    tx, tg, tb = (_t(v).bfloat16().requires_grad_(True) for v in (x, g, b))
+    y = nr.LayerNormAffine.apply(tx, tg, tb, 1e-5)
+    y.backward(_t(dy).bfloat16())
+    for got, ref in ((y.detach(), jy),) + tuple(zip((tx.grad, tg.grad, tb.grad), want)):
+        assert got.dtype == torch.bfloat16
+        ref = np.asarray(ref.astype(jnp.float32))
+        ulp = 2.0 ** (np.floor(np.log2(np.max(np.abs(ref)))) - 7)
+        assert np.max(np.abs(got.float().numpy() - ref)) <= ulp
+
+
 @pytest.mark.parametrize("act", mba.ACTIVATIONS)
 def test_matmul_bias_act_bwd_matches_jax_vjp(act):
     rs = np.random.RandomState(12)

@@ -5,15 +5,20 @@ checkout of it.
     python3 tools/torch_card_times.py [--repo DIR]
 
 Imports ``mxnet_tpu_torch`` from ``DIR`` (default: this checkout), builds its
-kernels there, and prints one JSON line: the profiler's device time of a
+kernels there, and prints one JSON line: the profiler's device time of its
+``matmul_with_stats`` at the smoke's timed shapes and of its LayerNorm
+forward at the decode's, prefill's and training step's rows, of a
 ResNet-50 forward at batch 32 and 1, of the conv kernels in a ResNet-50
 training step at batch 32 (and of the backward's, conv_bn_bwd, among them),
 of a transformer prefill (and of its flash-attention forward kernel) and of
 a decode step, of a transformer training step (and of its flash-attention
 forward and backward kernels, dq and dk/dv, and of its LayerNorm backward,
-among them, that backward's whole calls too), of a deploy request (a ResNet-50 ``Predictor`` made from a
-checkpoint's bytes, forward and ``get_output`` at batch 32, as the smoke's
-``deploy_breakdown`` times it), the host-clock median latency of the
+among them, that backward's whole calls too), the LayerNorm forward's share
+and launches in the prefill, the decode step and the training step, of a
+deploy request (a ResNet-50 ``Predictor`` made from a checkpoint's bytes,
+forward and ``get_output`` at batch 32, as the smoke's ``deploy_breakdown``
+times it) and of its ``matmul_with_stats`` on the tapped activation of stage
+1's shortcut, the host-clock median latency of the
 ResNet-50 forwards, the prefill, the decode step and the transformer training
 step, and the card's name and power limit. The models, shapes and
 helpers are ``chip_smoke.py``'s of this checkout. To compare two checkouts,
@@ -77,6 +82,38 @@ def layer_norm_bwd_call_ms(step):
     return us / 1e3, calls
 
 
+def kernel_times(smoke):
+    """The profiler's device time a call of the checkout's ``matmul_with_stats``
+    at the smoke's timed shapes and of its LayerNorm forward at the decode's,
+    prefill's and training step's rows, through their public wrappers (ms,
+    keyed by shape)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.ops import norm_residual as nr
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    out = {}
+    for M, K, N, prefix in smoke.MATMUL_STATS_SHAPES:
+        if prefix is None:
+            continue
+        a, b = randn(M, K), randn(K, N, scale=K ** -0.5)
+        out["matmul_stats_%d_%d_%d_ms" % (M, K, N)] = smoke.device_ms(
+            lambda: ms.matmul_with_stats(a, b), key=smoke.KERNELS["matmul_stats"][2])
+    D = smoke.MODEL["model_dim"]
+    for R in (smoke.SERVE["batch"], smoke.SERVE["batch"] * smoke.SERVE["prefill_len"],
+              smoke.TRAIN["batch"] * smoke.TRAIN["seq_len"]):
+        x, g, b = randn(R, D), 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+        out["layer_norm_fwd_%d_%d_ms" % (R, D)] = smoke.device_ms(
+            lambda: nr.layer_norm_affine(x, g, b), key=smoke.KERNELS["norm_residual"][2])
+    return out
+
+
 def card_times(smoke, pt):
     """The card time (ms a call, from the profiler's device events over a
     short window) and the host-clock median latency of the paths the
@@ -88,7 +125,15 @@ def card_times(smoke, pt):
     import torch
 
     from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+    from mxnet_tpu_torch.ops import norm_residual as nr
     from mxnet_tpu_torch.serving import KVCacheDecoder
+
+    def ln_launches(fn):
+        """The LayerNorm forward launches of one call of ``fn``."""
+        before = nr.launches
+        fn()
+        return nr.launches - before
 
     out = {}
     rs = np.random.RandomState(smoke.SEED + 1)
@@ -99,6 +144,7 @@ def card_times(smoke, pt):
     for name in ("prefill", "decode"):
         out[name + "_ms"] = steps[name]["device_busy_ms"]
         out[name + "_port_kernels_ms"] = steps[name]["port_kernels_ms"]
+        out[name + "_norm_residual_ms"] = steps[name]["port_kernel_ms"].get("norm_residual", 0.0)
     out["prefill_flash_attention_ms"] = steps["prefill"]["port_kernel_ms"].get(
         "flash_attention", 0.0)
 
@@ -107,8 +153,10 @@ def card_times(smoke, pt):
         return dec.prefill(prompt)  # logits on the host
 
     out["prefill_latency_ms_p50"] = median_ms(prefill)
+    out["prefill_norm_residual_launches"] = ln_launches(prefill)
     nxt = np.argmax(prefill(), axis=-1)
     out["decode_latency_ms_p50"] = median_ms(lambda: dec.greedy_step(nxt))
+    out["decode_norm_residual_launches"] = ln_launches(lambda: dec.greedy_step(nxt))
     del dec
     params = smoke.random_params()
     net, _, bind = smoke.train_model(params)
@@ -123,8 +171,9 @@ def card_times(smoke, pt):
     # checkout that summed its partial rows with torch: its first kernel
     # only), and its whole calls with the sums that follow each
     for name in ("flash_attention", "flash_attention_dq", "flash_attention_dkv",
-                 "norm_residual_bwd"):
+                 "norm_residual", "norm_residual_bwd"):
         out["train_step_%s_ms" % name] = w["port_kernel_ms"].get(name, 0.0)
+    out["train_step_norm_residual_launches"] = ln_launches(step)
     (out["train_step_norm_residual_bwd_call_ms"],
      out["train_step_norm_residual_bwd_calls"]) = layer_norm_bwd_call_ms(step)
     out["train_step_latency_ms_p50"] = median_ms(step)
@@ -168,6 +217,21 @@ def card_times(smoke, pt):
     request()
     out["deploy_request_ms"] = smoke.profile_window(request)["device_busy_ms"]
     del pred
+    # the request's matmul_with_stats: stage 1's 1x1 shortcut convolution on
+    # the tapped activation, as the smoke's deploy phase runs it
+    tap = Predictor(pt.sym.load_json(json_str).get_internals()[smoke.DEPLOY["tap"]].tojson(),
+                    blob, {"data": (B,) + smoke.image_shape()})
+    tap.forward(data=x)
+    feat = pt.nd.array(tap.get_output(0))
+    a = pt.nd.transpose(feat, axes=(0, 2, 3, 1)).reshape((-1, feat.shape[1]))._tensor()
+    w_sc = args[smoke.DEPLOY["tap_weight"]]
+    b = torch.from_numpy(np.ascontiguousarray(w_sc.reshape(w_sc.shape[:2]).T)).cuda()
+    del tap
+    ms.matmul_with_stats(a, b)
+    w = smoke.profile_window(lambda: ms.matmul_with_stats(a, b))
+    out["deploy_matmul_stats_ms"] = w["port_kernel_ms"].get("matmul_stats", 0.0)
+    out["deploy_matmul_stats_shape"] = [a.shape[0], a.shape[1], b.shape[1]]
+    del a, b, feat
     B = smoke.RESNET_TRAIN["batch"]
     exe = smoke.resnet_bind(pt, net, pt.gpu(0), B, args, aux, {n: "write" for n in args},
                             images, labels)
@@ -199,8 +263,8 @@ def main():
         raise RuntimeError("imported %s, not the one under %s" % (pt.__file__, repo))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"repo": str(repo), "nvidia_smi": smi, **card_times(smoke, pt)}),
-          flush=True)
+    print(json.dumps({"repo": str(repo), "nvidia_smi": smi, **kernel_times(smoke),
+                      **card_times(smoke, pt)}), flush=True)
     return 0
 
 
