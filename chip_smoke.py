@@ -22,6 +22,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    schedule at each decode step, its tiles at the prefill), then the same tokens
    teacher-forced through the port on the card and on the CPU, whose logits
    must agree.
+   3b. Megastep: the same decoder's greedy tokens at K = 8 tokens a
+   dispatch, each megastep one CUDA-graph replay, equal its single-step
+   tokens; launches (a replay's counted from its capture), host-clock
+   latency a token at K = 1 and K = 8, card time a megastep (profiler and
+   CUDA events), the device's idle share.
+   3c. Paged serving: ``PagedKVDecoder`` with eight lanes over one pool of
+   2048 slots, eight prompts sharing a 64-token prefix: greedy tokens
+   through ``step`` and through the graphed ``step_megastep`` equal;
+   teacher-forced logits on the card and the CPU agree; with the prefix
+   cache, cached admits give the cold admit's logits bitwise and the chunk
+   program's launches are the path's; ``SpeculativeDecoder`` (a one-layer
+   draft) gives the target's plain greedy tokens; nothing binds after
+   warmup; latencies and card time as in 3b.
 4. Training: the same model bound for training (``simple_bind``,
    ``forward_backward``, an SGD-momentum updater) on one fixed batch. One
    step at batch 2 gives the same loss and gradients on the card and on the
@@ -49,7 +62,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    and ``matmul_with_stats`` gives that convolution's output and its
    per-channel statistics from the checkpoint's weight, held against
    ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
-8. A ``{"kernels": [...]}`` line of ten kernels, then the card's
+8. A ``profiler`` line (how many timing windows were taken again after the
+   profiler's gap), a ``{"kernels": [...]}`` line of ten kernels, the card's
    name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -71,6 +85,15 @@ import torch.nn.functional as F
 MODEL = dict(vocab_size=32000, num_layers=6, num_heads=8, model_dim=512, ffn_dim=2048)
 SERVE = dict(batch=8, prefill_len=128, max_len=256, pos_len=256)
 PROMPT_LEN, NEW_TOKENS, SEED = 100, 64, 0
+# the paged decoder: eight lanes of 256 slots over one pool of 2048, pages of
+# 8 slots; its eight prompts of PROMPT_LEN tokens share their first
+# PREFIX_LEN, cached in chunks of PREFIX_CHUNK. Megasteps of MEGASTEP_K
+# tokens (one CUDA graph each); speculative rounds of SPEC_GAMMA draft
+# tokens from a draft of DRAFT_LAYERS layers; CPU_CHECK_STEPS paged steps
+# teacher-forced on the CPU too.
+PAGED = dict(lanes=8, max_len=256, page_size=8, prefill_len=128, pos_len=256)
+PREFIX_LEN, PREFIX_CHUNK, MEGASTEP_K = 64, 8, 8
+SPEC_GAMMA, DRAFT_LAYERS, CPU_CHECK_STEPS = 4, 1, 4
 # the training step this smoke drives: 8 sequences of 256 tokens (2048 a
 # step), SGD with momentum and rescale_grad = 1/batch as Module sets it
 TRAIN = dict(batch=8, seq_len=256, check_batch=2, warmup_steps=2, steps=10, lr=0.002,
@@ -261,32 +284,71 @@ def peaks_for(name):
     return PEAKS["SXM"]
 
 
+# The profiler drops the card's events for a spell of under 0.2 s about every
+# 10 s (tools/torch_profiler_windows.py): a window that overlaps the spell
+# holds none or only some of its kernels, and so does a window opened at once
+# after it. A window is taken again after this pause until it is whole.
+PROFILER_GAP_S = 0.3
+# timing windows opened / taken again; breakdown windows with fewer device
+# events than their twin (logged as the "profiler" phase)
+PROFILER_TALLY = {"timing_windows": 0, "timing_windows_retaken": 0,
+                  "breakdown_windows": 0, "breakdown_windows_short": 0}
+
+
+def profiler_window(fn, activities):
+    """Run ``fn`` in one profiler window: (the window's device events as
+    {name: [count, microseconds]}, its host wall ms, the wrappers' launches
+    in it)."""
+    from torch.profiler import profile
+
+    from mxnet_tpu_torch import ops
+
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    after = ops.launch_counts()
+    events = {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            e = events.setdefault(evt.key, [0, 0.0])
+            e[0] += int(evt.count)
+            e[1] += float(getattr(evt, "self_device_time_total",
+                                  getattr(evt, "self_cuda_time_total", 0.0)))
+    return events, wall_ms, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def calls(fn, n):
+    for _ in range(n):
+        fn()
+
+
 def device_events(fn, iters=30):
     """The profiler's device time per call of each kernel ``fn`` runs on the
-    card, {name: ms}. Fails the run when the profiler shows none."""
-    from torch.profiler import ProfilerActivity, profile
+    card, {name: ms}. A window is whole when each kernel ran a multiple of
+    ``iters`` times, or when it shows the same counts as the window before
+    it; the run fails when six windows in a row are not."""
+    from torch.profiler import ProfilerActivity
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    # now and then the profiler hands back a window without any device event
-    # (one window in some ten runs of this script): such a window is taken
-    # again, and the run fails when three in a row show nothing
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = {}
-        for evt in prof.key_averages():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-                us[evt.key] = us.get(evt.key, 0.0) + float(
-                    getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total",
-                                                                   0.0)))
-        if sum(us.values()) > 0:
+    counts, whole = None, False
+    for attempt in range(6):
+        if attempt:
+            time.sleep(PROFILER_GAP_S)
+        events, _, _ = profiler_window(lambda: calls(fn, iters), [ProfilerActivity.CUDA])
+        PROFILER_TALLY["timing_windows"] += 1
+        PROFILER_TALLY["timing_windows_retaken"] += bool(attempt)
+        last, counts = counts, {k: n for k, (n, _) in events.items()}
+        whole = bool(counts) and (all(n % iters == 0 for n in counts.values())
+                                  or counts == last)
+        if whole:
             break
-    check(sum(us.values()) > 0, "the profiler shows no device time")
-    return {k: v / 1e3 / iters for k, v in us.items()}
+    check(whole, ("the profiler shows no whole window of device events", counts))
+    return {k: us / 1e3 / iters for k, (_, us) in events.items()}
 
 
 def device_ms(fn, iters=30, key=None):
@@ -380,6 +442,7 @@ def check_kernels(peaks):
     timed = {0: "", 1: "train_"}
     for i, (BH, T, S, D, causal) in enumerate([(B * H, P, P, dh, True),
                                                 (BT * H, T0, T0, dh, True),
+                                                (H, P, P, dh, True),  # a paged admit's
                                                 (5, 77, 77, 40, True),
                                                 (3, 50, 131, 128, True),
                                                 (4, 33, 70, 96, False)]):
@@ -415,9 +478,11 @@ def check_kernels(peaks):
                    shape="prefill q,k,v (%d,%d,%d) causal" % (BH, T, D))
         log(rec)
 
-    # ---- LayerNorm + affine: (R, D); prefill rows, decode rows, training rows, ragged
+    # ---- LayerNorm + affine: (R, D); prefill rows, decode rows, training rows,
+    # a paged admit's and a verify chunk's rows, ragged
     timed = {0: "", 1: "decode_", 2: "train_"}
-    for i, (R, D) in enumerate([(B * P, M), (B, M), (BT * T0, M), (37, 300), (5, 1000)]):
+    for i, (R, D) in enumerate([(B * P, M), (B, M), (BT * T0, M), (P, M), (SPEC_GAMMA + 1, M),
+                                (37, 300), (5, 1000)]):
         x, g, bb = randn(R, D), 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
         y, mean, rstd = nr.layer_norm_affine(x, g, bb)
         py, pmean, prstd = nr.layer_norm_affine_plain(x, g, bb)
@@ -442,10 +507,11 @@ def check_kernels(peaks):
     entries["norm_residual"]["launch_floor_ms"] = check_launch_floor(B, M)
 
     # ---- matmul + bias + act: (M, K, N, act, bias); prefill ffn1, decode ffn1,
-    # training ffn1, ragged
+    # training ffn1, a paged admit's and a verify chunk's ffn1, ragged
     timed = {0: "", 1: "decode_", 2: "train_"}
     cases = [(B * P, M, FF, "relu", True), (B, M, FF, "relu", True),
-             (BT * T0, M, FF, "relu", True),
+             (BT * T0, M, FF, "relu", True), (P, M, FF, "relu", True),
+             (SPEC_GAMMA + 1, M, FF, "relu", True),
              (77, 200, 130, "sigmoid", True), (77, 200, 130, "tanh", False),
              (5, 33, 70, "softrelu", True), (130, 65, 3, "relu", True)]
     for i, (Mr, K, N, act, has_b) in enumerate(cases):
@@ -1053,39 +1119,47 @@ def random_params():
             if n not in ("data", "softmax_label")}
 
 
-def profile_window(fn, per=1):
+def profile_window(fn, per=1, setup=None):
     """Host wall time of ``fn`` (ending in a synchronize) against the card's
     busy time in it (the profiler's device events), and the device time of
     the port's kernels against the rest, in all and by kernel; per call,
-    ``fn`` running ``per``."""
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` running ``per``. ``port_kernel_launches``: the port's kernels the
+    trace shows by name, in the whole window; ``wrapper_launches``: the
+    wrappers' counts in it. ``fn`` runs in two windows, each after
+    ``setup``, ``PROFILER_GAP_S`` apart, so that at most one of them can meet
+    the profiler's gap; the one with more device events is kept."""
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    runs = []
+    for attempt in range(2):
+        if attempt:
+            time.sleep(PROFILER_GAP_S)
+        if setup is not None:
+            setup()
+        runs.append(profiler_window(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    totals = [sum(n for n, _ in events.values()) for events, _, _ in runs]
+    PROFILER_TALLY["breakdown_windows"] += 2
+    PROFILER_TALLY["breakdown_windows_short"] += totals[0] != totals[1]
+    events, wall_ms, wrapped = runs[1] if totals[1] >= totals[0] else runs[0]
     busy, port, n_kernels, top = 0.0, 0.0, 0, {}
-    by_kernel = dict.fromkeys(KERNELS, 0.0)
-    for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            continue
-        us = float(getattr(evt, "self_device_time_total",
-                           getattr(evt, "self_cuda_time_total", 0.0)))
+    by_kernel, launched = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0)
+    for key, (count, us) in events.items():
         busy += us
-        n_kernels += int(evt.count)
-        owner = [name for name, (_, _, sym) in KERNELS.items() if sym in evt.key]
+        n_kernels += count
+        owner = [name for name, (_, _, sym) in KERNELS.items() if sym in key]
         if owner:
             port += us
             by_kernel[owner[0]] += us
-        top[evt.key[:60]] = top.get(evt.key[:60], 0.0) + us
+            launched[owner[0]] += count
+        top[key[:60]] = top.get(key[:60], 0.0) + us
     return {"wall_ms": wall_ms / per, "device_busy_ms": busy / 1e3 / per,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms if wall_ms else None,
             "port_kernels_ms": port / 1e3 / per,
             "port_kernels_share_of_busy": port / busy if busy else None,
             "port_kernel_ms": {k: v / 1e3 / per for k, v in by_kernel.items() if v},
-            "device_events_per_call": n_kernels / per,
+            "port_kernel_launches": {k: v for k, v in launched.items() if v},
+            "wrapper_launches": wrapped, "device_events_per_call": n_kernels / per,
+            "device_events_per_window": totals,
             "top_device_ms": {k: v / 1e3 / per for k, v in
                               sorted(top.items(), key=lambda kv: -kv[1])[:8]}}
 
@@ -1104,11 +1178,11 @@ def breakdown(dec, prompt, steps=8):
         for _ in range(steps):
             n = dec.greedy_step(n)
 
-    out = {"prefill": profile_window(prefill)}
-    dec.reset()
-    dec.prefill(prompt)
-    out["decode"] = profile_window(decode, per=steps)
-    return out
+    def seed():
+        dec.reset()
+        dec.prefill(prompt)
+
+    return {"prefill": profile_window(prefill), "decode": profile_window(decode, steps, seed)}
 
 
 def teacher_forced_logits(dec, prompt, tokens):
@@ -1203,6 +1277,435 @@ def run_slice(pt):
          "decode_tokens_per_s": SERVE["batch"] * 1e3 / step_p50,
          "card_vs_cpu_max_abs_err": err, "cpu_argmax_token_agreement": agree,
          "cpu_reference_s": cpu_s})
+    return launches
+
+
+# ------------------------------------------------------------ paged serving
+def paged_prompts():
+    """Eight prompts of PROMPT_LEN tokens sharing their first PREFIX_LEN."""
+    rs = np.random.RandomState(SEED + 2)
+    prefix = rs.randint(1, MODEL["vocab_size"], PREFIX_LEN)
+    return [np.concatenate([prefix, rs.randint(1, MODEL["vocab_size"], PROMPT_LEN - PREFIX_LEN)])
+            for _ in range(PAGED["lanes"])]
+
+
+def step_launches(steps, layers=None, schedule="small_m"):
+    """A decode step's (or a chunk's) launches: 2L+1 LayerNorm forwards and
+    L ffn1 products (one rectangular dispatch of a few rows is one step)."""
+    layers = layers or MODEL["num_layers"]
+    return ({"norm_residual": (2 * layers + 1) * steps, "matmul_bias_act": layers * steps},
+            {"matmul_bias_act." + schedule: layers * steps})
+
+
+def add_launches(*parts):
+    counts, schedules = {}, {}
+    for c, s in parts:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in s.items():
+            schedules[k] = schedules.get(k, 0) + v
+    return counts, schedules
+
+
+def prefill_launches(n, layers=None, schedule="small_m"):
+    """n prefills: L flash forwards, 2L+1 LayerNorms, L ffn1 products each."""
+    layers = layers or MODEL["num_layers"]
+    c, s = step_launches(n, layers, schedule)
+    c["flash_attention"] = layers * n
+    return c, s
+
+
+def check_launches(what, expected):
+    """The launches since the last reset against ``expected`` (counts,
+    schedules); returns the counts."""
+    from mxnet_tpu_torch import ops
+
+    counts, schedules = expected
+    got, got_s = ops.launch_counts(), ops.schedule_counts()
+    want_s = {k: schedules.get(k, 0) for k in got_s}
+    check(got == with_zeros(counts), (what, "launch counts", got, counts))
+    check(got_s == want_s, (what, "schedule counts", got_s, want_s))
+    return got
+
+
+def binds(*decoders):
+    return sum(d._pf_cache.binds + d._dec_cache.binds for d in decoders)
+
+
+def latency_stats(ms, tokens_per_call, rows):
+    """Per-token latency (median, p80) from host-clock ms per call of
+    ``tokens_per_call`` tokens a row, and tokens/s over ``rows`` rows."""
+    per = np.asarray(ms) / tokens_per_call
+    return {"per_token_ms_p50": float(np.median(per)),
+            "per_token_ms_p80": float(np.percentile(per, 80)),
+            "call_ms_p50": float(np.median(ms)), "samples": len(ms),
+            "tokens_per_s": rows * tokens_per_call * 1e3 / float(np.median(ms))}
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profiled(what, fn, per, expected, setup):
+    """``profile_window`` of ``fn`` (each window after ``setup``), whose
+    launches of the port's kernels are held three ways: the wrappers' counts
+    (a graph's replays by its capture's), the kernels the trace shows by
+    name, and ``expected``."""
+    prof = profile_window(fn, per, setup)
+    counted = prof["wrapper_launches"]
+    want = {k: v for k, v in expected.items() if v}
+    check(counted == want and prof["port_kernel_launches"] == want,
+          (what, "launches counted / traced / expected", counted,
+           prof["port_kernel_launches"], want))
+    return prof
+
+
+def megastep_card_time(ms_prog, iters=10):
+    """One megastep's card time between CUDA events around ``iters``
+    back-to-back replays of its graph on its last inputs (a replay is one
+    launch, milliseconds of card work: the host is not in the window)."""
+    ms_prog._graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        ms_prog._graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def run_megastep(pt, params, smi):
+    """Phase 3b: the lockstep decoder's K-step megastep as one CUDA graph:
+    greedy tokens at K = MEGASTEP_K equal the single-step tokens, the
+    launches are the path's, host latency a token at K = 1 and K, card time
+    per megastep."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.serving import KVCacheDecoder
+
+    K, L, B = MEGASTEP_K, MODEL["num_layers"], SERVE["batch"]
+    rs = np.random.RandomState(SEED + 1)
+    prompt = rs.randint(1, MODEL["vocab_size"], (B, PROMPT_LEN))
+    dec = KVCacheDecoder(params, ctx=pt.gpu(0), **MODEL, **SERVE)
+    t0 = time.perf_counter()
+    dec.warmup()
+    dec.greedy(prompt, 1 + K, k=K)  # builds and captures the K-step graph
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    bound = binds(dec)
+    # one prefill and 63 steps either way: at K, 7 megasteps and a 7-step tail
+    expected = add_launches(prefill_launches(1, schedule="tiles"),
+                            step_launches(NEW_TOKENS - 1))
+    ops.reset_launch_counts()
+    single = dec.greedy(prompt, NEW_TOKENS, k=1)
+    torch.cuda.synchronize()
+    check_launches("megastep phase, K=1", expected)
+    ops.reset_launch_counts()
+    mega = dec.greedy(prompt, NEW_TOKENS, k=K)
+    torch.cuda.synchronize()
+    launches = check_launches("megastep phase, K=%d" % K, expected)
+    check((mega == single).all(), "graphed megastep tokens != single-step tokens")
+    ms_prog = dec._megasteps[(K, ("greedy", 1.0, 0))]
+    per_replay = step_launches(K)
+    check(ms_prog.replay_launches == (with_zeros(per_replay[0]), {
+        k: per_replay[1].get(k, 0) for k in ops.SCHEDULE_COUNTERS}),
+        ("launches a replay", ms_prog.replay_launches))
+    # host clock: each greedy step / megastep of three sequences
+    step_ms, mega_ms = [], []
+    for _ in range(3):
+        nxt = np.argmax(dec.prefill(prompt), axis=-1)
+        for _ in range(NEW_TOKENS - 1):
+            nxt, t = timed(lambda: dec.greedy_step(nxt))
+            step_ms.append(t)
+        nxt = np.argmax(dec.prefill(prompt), axis=-1)
+        for _ in range((NEW_TOKENS - 1) // K):
+            ids, t = timed(lambda: dec.decode_megastep(nxt, k=K))
+            nxt = ids[:, -1]
+            mega_ms.append(t)
+    check(binds(dec) == bound, "the megastep phase bound an executable after warmup")
+    nxt = np.argmax(dec.prefill(prompt), axis=-1)
+
+    def megasteps():
+        n = nxt
+        for _ in range(4):
+            n = dec.decode_megastep(n, k=K)[:, -1]
+
+    # the trace shows each replay's kernels: 4 replays launch 4 x the capture's
+    def seed():
+        dec.prefill(prompt)
+
+    prof_mega = profiled("megastep window", megasteps, 4,
+                         {k: 4 * v for k, v in ms_prog.replay_launches[0].items()}, seed)
+
+    def steps():
+        n = nxt
+        for _ in range(4 * K):
+            n = dec.greedy_step(n)
+
+    prof_steps = profiled("K=1 window", steps, 4 * K, step_launches(4 * K)[0], seed)
+    log({"phase": "megastep", "k": K, "nvidia_smi": smi, "warmup_and_capture_s": warm_s,
+         "launches": launches, "launches_per_replay": ms_prog.replay_launches[0],
+         "traced_launches_4_replays": prof_mega["port_kernel_launches"],
+         "tokens_equal_single_step": True,
+         "k1": latency_stats(step_ms, 1, B), "kK": latency_stats(mega_ms, K, B),
+         "card_ms_per_megastep": prof_mega["device_busy_ms"],
+         "card_ms_per_megastep_events": megastep_card_time(ms_prog),
+         "card_ms_per_step_k1": prof_steps["device_busy_ms"],
+         "device_idle_share_kK": prof_mega["device_idle_share"],
+         "device_idle_share_k1": prof_steps["device_idle_share"],
+         "profile_kK": prof_mega, "profile_k1": prof_steps})
+    return launches
+
+
+def paged_teacher_forced(dec, prompts, tokens, steps):
+    """Admit logits, then ``steps`` steps fed the given tokens: (lanes,
+    1 + steps, vocab)."""
+    sids, rows = [], []
+    for p in prompts:
+        sid, lg = dec.admit(p)
+        sids.append(sid)
+        rows.append([lg])
+    for t in range(steps):
+        out = dec.step({sid: int(tokens[i][t]) for i, sid in enumerate(sids)})
+        for i, sid in enumerate(sids):
+            rows[i].append(out[sid])
+    for sid in sids:
+        dec.retire(sid)
+    return np.asarray(rows)
+
+
+def prefix_teacher_forced(dec, prompts, tokens):
+    """A prefix-cache decoder's logits: the first prompt's cold chunked admit,
+    the second's admit on the prefix the first cached, and a verify chunk of
+    ``tokens`` after it: (2 + len(tokens), vocab)."""
+    s0, cold = dec.admit(prompts[0])
+    s1, cached = dec.admit(prompts[1])
+    rows = dec.verify_chunk(s1, tokens)
+    dec.retire(s0)
+    dec.retire(s1)
+    return np.concatenate([cold[None], cached[None], rows])
+
+
+def time_paged(dec, prompts, k, rounds=2):
+    """Host ms of each step (k = 1) or megastep of the eight lanes."""
+    out = []
+    for _ in range(rounds):
+        sids = {}
+        for p in prompts:
+            sid, lg = dec.admit(p)
+            sids[sid] = int(np.argmax(lg))
+        for _ in range((NEW_TOKENS - 1) // k):
+            if k == 1:
+                lg, t = timed(lambda: dec.step(sids))
+                sids = {s: int(np.argmax(v)) for s, v in lg.items()}
+            else:
+                ids, t = timed(lambda: dec.step_megastep(sids, k=k))
+                sids = {s: int(v[-1]) for s, v in ids.items()}
+            out.append(t)
+        for sid in list(sids):
+            dec.retire(sid)
+    return out
+
+
+def count_calls(obj, name, tally, key):
+    """Count the calls of ``obj.name`` in ``tally[key]``."""
+    fn = getattr(obj, name)
+    tally[key] = 0
+
+    def wrapped(*a, **kw):
+        tally[key] += 1
+        return fn(*a, **kw)
+
+    setattr(obj, name, wrapped)
+
+
+def run_paged(pt, params, smi):
+    """Phase 3c: the paged decoder on the card (eight lanes over one pool of
+    2048 slots): greedy tokens through ``step`` and through the graphed
+    ``step_megastep`` are equal; teacher-forced logits agree with the CPU's;
+    the prefix cache's cached admits give the cold admit's logits bitwise;
+    speculative greedy equals the target's plain greedy; no bind after
+    warmup; the launches are the path's."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.serving import PagedKVDecoder, SpeculativeDecoder
+
+    K, L = MEGASTEP_K, MODEL["num_layers"]
+    prompts = paged_prompts()
+    n = len(prompts)
+    pd = PagedKVDecoder(params, ctx=pt.gpu(0), **MODEL, **PAGED)
+    t0 = time.perf_counter()
+    pd.greedy(prompts[:1], 1 + K, k=K)  # binds, builds and captures
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    bound = binds(pd)
+    # eight batch-1 prefills (M = 128: the small-M schedule) and 63 steps
+    expected = add_launches(prefill_launches(n), step_launches(NEW_TOKENS - 1))
+    ops.reset_launch_counts()
+    single = pd.greedy(prompts, NEW_TOKENS, k=1)
+    torch.cuda.synchronize()
+    check_launches("paged K=1", expected)
+    ops.reset_launch_counts()
+    mega = pd.greedy(prompts, NEW_TOKENS, k=K)
+    torch.cuda.synchronize()
+    launches = check_launches("paged K=%d" % K, expected)
+    check(all((a == b).all() for a, b in zip(single, mega)),
+          "paged graphed megastep tokens != single-step tokens")
+    step_ms = time_paged(pd, prompts, 1)
+    mega_ms = time_paged(pd, prompts, K)
+    sids = {}
+    for p in prompts:
+        sid, lg = pd.admit(p)
+        sids[sid] = int(np.argmax(lg))
+
+    def megasteps():
+        cur = dict(sids)
+        for _ in range(4):
+            cur = {s: int(v[-1]) for s, v in pd.step_megastep(cur, k=K).items()}
+
+    ms_prog = pd._megasteps[(K, ("greedy", 1.0, 0))]
+    def back_to_the_prompts():
+        for sid in sids:
+            pd.rollback(sid, PROMPT_LEN)
+
+    prof_mega = profiled("paged megastep window", megasteps, 4,
+                         {k: 4 * v for k, v in ms_prog.replay_launches[0].items()},
+                         back_to_the_prompts)
+
+    def steps():
+        cur = dict(sids)
+        for _ in range(4 * K):
+            cur = {s: int(np.argmax(v)) for s, v in pd.step(cur).items()}
+
+    prof_steps = profiled("paged K=1 window", steps, 4 * K, step_launches(4 * K)[0],
+                          back_to_the_prompts)
+    for sid in list(sids):
+        pd.retire(sid)
+    mega_event_ms = megastep_card_time(ms_prog)
+
+    # teacher-forced logits, card against CPU, over a few steps
+    t0 = time.perf_counter()
+    gpu_tf = paged_teacher_forced(pd, prompts, single, CPU_CHECK_STEPS)
+    cpu_tf = paged_teacher_forced(PagedKVDecoder(params, ctx=pt.cpu(), **MODEL, **PAGED),
+                                  prompts, single, CPU_CHECK_STEPS)
+    cpu_s = time.perf_counter() - t0
+    tf_err = float(np.abs(gpu_tf - cpu_tf).max())
+    check(np.isfinite(gpu_tf).all(), "non-finite paged card logits")
+    check(np.allclose(gpu_tf, cpu_tf, atol=1e-3, rtol=1e-3), ("paged card vs CPU logits", tf_err))
+
+    # the prefix cache: chunked admits of C tokens
+    pc = PagedKVDecoder(params, ctx=pt.gpu(0), prefix_cache=True, prefix_chunk=PREFIX_CHUNK,
+                        **MODEL, **PAGED)
+    s0, cold = pc.admit(prompts[0])
+    pc.step_megastep({s0: int(np.argmax(cold))}, k=K)  # captures
+    pc.retire(s0)
+    pc_bound = binds(pc)
+    full = PROMPT_LEN // PREFIX_CHUNK
+    tail = int(PROMPT_LEN % PREFIX_CHUNK > 0)
+    shared = PREFIX_LEN // PREFIX_CHUNK
+    # prompt 0 is cached whole but for its tail; the others share the prefix
+    chunks = tail + (n - 1) * (full - shared + tail)
+    ops.reset_launch_counts()
+    admitted = [pc.admit(p) for p in prompts]
+    torch.cuda.synchronize()
+    check_launches("prefix-cache admits", step_launches(chunks))
+    check(np.array_equal(admitted[0][1], cold), "cached admit logits != cold admit logits")
+    stats = pc.stats()
+    # teacher-forced against the CPU: prompt 0's cold chunked admit, prompt
+    # 1's admit on the cached prefix, and one verify chunk after it
+    verify_toks = single[1][:SPEC_GAMMA + 1]
+    gpu_pc = np.concatenate([cold[None], admitted[1][1][None],
+                             pc.verify_chunk(admitted[1][0], verify_toks)])
+    t0 = time.perf_counter()
+    cpu_pc = prefix_teacher_forced(
+        PagedKVDecoder(params, ctx=pt.cpu(), prefix_cache=True, prefix_chunk=PREFIX_CHUNK,
+                       **MODEL, **PAGED), prompts[:2], verify_toks)
+    cpu_s += time.perf_counter() - t0
+    pc_err = float(np.abs(gpu_pc - cpu_pc).max())
+    check(np.isfinite(gpu_pc).all(), "non-finite prefix-cache card logits")
+    check(np.allclose(gpu_pc, cpu_pc, atol=1e-3, rtol=1e-3),
+          ("prefix-cache admit and verify chunk, card vs CPU logits", pc_err))
+    for sid, _ in admitted:
+        pc.retire(sid)
+    # every prompt is now cached but for its tail: one chunk an admit
+    expected_pc = add_launches(step_launches(n), step_launches(NEW_TOKENS - 1))
+    ops.reset_launch_counts()
+    pc_single = pc.greedy(prompts, NEW_TOKENS, k=1)
+    check_launches("prefix-cache K=1", expected_pc)
+    ops.reset_launch_counts()
+    pc_mega = pc.greedy(prompts, NEW_TOKENS, k=K)
+    check_launches("prefix-cache K=%d" % K, expected_pc)
+    check(all((a == b).all() for a, b in zip(pc_single, pc_mega)),
+          "prefix-cache megastep tokens != single-step tokens")
+    chunked_vs_prefill = float(np.mean([(a == b).mean() for a, b in zip(pc_single, single)]))
+    check(chunked_vs_prefill == 1.0,
+          ("chunked admits' greedy tokens != prefill admits'", chunked_vs_prefill))
+
+    # speculative decoding: a one-layer draft cut from the same checkpoint
+    spec = SpeculativeDecoder.build(params, draft_layers=DRAFT_LAYERS, gamma=SPEC_GAMMA,
+                                    ctx=pt.gpu(0), **MODEL, **PAGED).warmup()
+    want = spec.target.greedy(prompts[:1], NEW_TOKENS, k=1)[0]
+    spec_bound = binds(spec.target, spec.draft)
+    tally = {}
+    for key, obj, name in (("verify_chunk", spec.target, "verify_chunk"),
+                           ("target_step", spec.target, "step"),
+                           ("draft_megastep", spec.draft, "step_megastep"),
+                           ("draft_step", spec.draft, "step")):
+        count_calls(obj, name, tally, key)
+    ops.reset_launch_counts()
+    got, spec_ms = timed(lambda: spec.greedy(prompts[0], NEW_TOKENS))
+    torch.cuda.synchronize()
+    check((got == want).all(), "speculative tokens != the target's plain greedy")
+    D = DRAFT_LAYERS
+    expected_spec = add_launches(
+        prefill_launches(1), prefill_launches(1, layers=D),
+        step_launches(tally["verify_chunk"] + tally["target_step"]),
+        step_launches(tally["draft_megastep"] * SPEC_GAMMA + tally["draft_step"], layers=D))
+    spec_launches = check_launches("speculative", expected_spec)
+    # a draft equal to the target: rounds that accept all SPEC_GAMMA draft
+    # tokens, and the draft's catch-up step after them
+    full = SpeculativeDecoder.build(params, draft_layers=L, gamma=SPEC_GAMMA, ctx=pt.gpu(0),
+                                    **MODEL, **PAGED).warmup()
+    tally_full = {}
+    for key, obj, name in (("verify_chunk", full.target, "verify_chunk"),
+                           ("target_step", full.target, "step"),
+                           ("draft_megastep", full.draft, "step_megastep"),
+                           ("draft_step", full.draft, "step")):
+        count_calls(obj, name, tally_full, key)
+    ops.reset_launch_counts()
+    got_full, full_ms = timed(lambda: full.greedy(prompts[0], NEW_TOKENS))
+    torch.cuda.synchronize()
+    check((got_full == want).all(), "speculative tokens (full draft) != the target's plain greedy")
+    check(tally_full["draft_step"] > 0, ("no round accepted every draft token", tally_full))
+    check_launches("speculative, full draft", add_launches(
+        prefill_launches(2),
+        step_launches(tally_full["verify_chunk"] + tally_full["target_step"]
+                      + tally_full["draft_megastep"] * SPEC_GAMMA + tally_full["draft_step"])))
+    check(binds(pd) == bound and binds(pc) == pc_bound
+          and binds(spec.target, spec.draft) == spec_bound,
+          "the paged phase bound an executable after warmup")
+    log({"phase": "paged", "paged": PAGED, "k": K, "nvidia_smi": smi,
+         "warmup_and_capture_s": warm_s, "launches": launches,
+         "tokens_equal_single_step": True,
+         "k1": latency_stats(step_ms, 1, n), "kK": latency_stats(mega_ms, K, n),
+         "card_ms_per_megastep": prof_mega["device_busy_ms"],
+         "card_ms_per_megastep_events": mega_event_ms,
+         "card_ms_per_step_k1": prof_steps["device_busy_ms"],
+         "device_idle_share_kK": prof_mega["device_idle_share"],
+         "device_idle_share_k1": prof_steps["device_idle_share"],
+         "profile_kK": prof_mega, "profile_k1": prof_steps,
+         "card_vs_cpu_max_abs_err": tf_err, "cpu_check_steps": CPU_CHECK_STEPS,
+         "cpu_check_s": cpu_s,
+         "prefix": {"chunk": PREFIX_CHUNK, "chunk_dispatches": chunks, "stats": stats,
+                    "cached_equals_cold_bitwise": True,
+                    "admit_and_verify_card_vs_cpu_max_abs_err": pc_err,
+                    "token_agreement_with_prefill_admits": chunked_vs_prefill},
+         "speculative": {"gamma": SPEC_GAMMA, "draft_layers": D, "calls": tally,
+                         "greedy_ms": spec_ms, "launches": spec_launches,
+                         "tokens_equal_plain_greedy": True,
+                         "full_draft": {"draft_layers": L, "calls": tally_full,
+                                        "greedy_ms": full_ms}}})
     return launches
 
 
@@ -1842,7 +2345,10 @@ def main():
 
     entries = check_kernels(peaks)
     serve_launches = run_slice(pt)
-    train_launches = run_train(pt, random_params())
+    params = random_params()
+    megastep_launches = run_megastep(pt, params, smi)
+    paged_launches = run_paged(pt, params, smi)
+    train_launches = run_train(pt, params)
     from mxnet_tpu_torch.models import resnet
 
     net = resnet.get_symbol(**RESNET)
@@ -1863,7 +2369,10 @@ def main():
         else:
             # launches: the transformer's timed training steps, the path that
             # runs all six of its kernels
-            e.update(launches=train_launches[name_], serve_launches=serve_launches[name_])
+            e.update(launches=train_launches[name_], serve_launches=serve_launches[name_],
+                     megastep_launches=megastep_launches[name_],
+                     paged_launches=paged_launches[name_])
+    log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})
     print(smi)
     log({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,9 +29,9 @@ from . import optimizer  # noqa: E402,F401
 from . import models, serving  # noqa: E402,F401
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402,F401
-from . import model, predictor, rtc  # noqa: E402,F401
+from . import model, predictor, random, rtc  # noqa: E402,F401
 from .convert import params_from_checkpoint, params_from_numpy  # noqa: E402,F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "symbol",
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
-           "rtc", "params_from_numpy", "params_from_checkpoint"]
+           "random", "rtc", "params_from_numpy", "params_from_checkpoint"]

@@ -6,9 +6,9 @@ checkpoint of one package loads into the other and the Symbol JSON is
 identical. Pre-norm blocks: x + MHA(LN(x)), x + FFN(LN(x)).
 
 Ported here: ``get_symbol`` (training head, used to name the weights),
-``get_prefill_symbol`` and the per-lane ring variant of
-``get_decode_symbol``. The paged and shared-pool decode variants and the
-chunk graph come with the paged-decode slice.
+``get_prefill_symbol``, ``get_decode_symbol`` with its per-lane ring,
+per-stream and shared-pool variants, the chunk graph ``get_chunk_symbol``
+of the paged decoder, and ``draft_config`` for speculative decoding.
 """
 import numpy as np
 
@@ -110,21 +110,37 @@ def get_prefill_symbol(vocab_size=32000, num_layers=6, num_heads=8,
 
 def get_decode_symbol(vocab_size=32000, num_layers=6, num_heads=8,
                       model_dim=512, ffn_dim=2048, max_len=64, pos_len=None,
+                      per_stream_slots=False, global_slots=False,
                       token_out=True):
-    """Serving single-token decode graph over a ring KV buffer of
-    ``max_len`` slots per layer (the per-lane ring variant).
+    """Serving single-token decode graph over a KV buffer of ``max_len``
+    slots per layer.
 
     Inputs beyond the weights: ``data`` (B, 1) token ids, ``pos_idx`` (B, 1)
-    absolute positions, ``slot_onehot`` (max_len,) the ring slot this token
-    writes, ``kv_mask`` (max_len,) the additive score mask, and the ring
-    buffers ``kv_k_i``/``kv_v_i`` (B, H, max_len, dh). The KV write is
-    in-graph: ``kv' = kv·(1-oh) + kv_new·oh``.
+    absolute positions, ``slot_onehot`` the slot each token writes,
+    ``kv_mask`` the additive score mask (0 on slots holding context, the
+    current one included; a large negative elsewhere), and the buffers
+    ``kv_k_i``/``kv_v_i``. The KV write is in-graph:
+    ``kv' = kv·(1-oh) + kv_new·oh``; the updated buffers are outputs.
+
+    - the per-lane ring (default): ``slot_onehot`` and ``kv_mask`` are
+      (max_len,), the buffers (B, H, max_len, dh), every lane at one
+      position;
+    - ``per_stream_slots``: ``slot_onehot`` and ``kv_mask`` are (B,
+      max_len), one write slot, valid-slot set and position per lane; an
+      all-zero onehot row writes nothing, which is how idle lanes ride
+      along;
+    - ``global_slots`` (per-stream staging over ONE shared pool): the
+      buffers are (H, max_len, dh) with ``max_len`` the pool's slots; each
+      lane's write is summed into the pool (writers' slots are disjoint)
+      and each lane attends the whole pool under its own mask, so lanes
+      can read the same physical page.
 
     T=1 collapses attention to a masked weighted sum, so it is composed from
     broadcast primitives instead of the MultiHeadAttention op.
 
     Outputs: ``[logits (B, vocab), k'_0, v'_0, ...]`` plus, with
-    ``token_out``, a trailing on-device ``greedy_token`` (B,) argmax head."""
+    ``token_out``, a trailing on-device ``greedy_token`` (B,) argmax head;
+    the decoders detect the head by that name."""
     pos_len = pos_len or max_len
     dh = model_dim // num_heads
     scale = 1.0 / float(np.sqrt(dh))
@@ -132,9 +148,20 @@ def get_decode_symbol(vocab_size=32000, num_layers=6, num_heads=8,
     pos_idx = sym.Variable("pos_idx")
     oh = sym.Variable("slot_onehot")
     msk = sym.Variable("kv_mask")
-    oh4 = sym.Reshape(oh, shape=(1, 1, max_len, 1))
-    msk3 = sym.Reshape(msk, shape=(1, 1, max_len))
-    keep4 = 1.0 - oh4
+    if per_stream_slots or global_slots:
+        oh4 = sym.Reshape(oh, shape=(-1, 1, max_len, 1))
+        msk3 = sym.Reshape(msk, shape=(-1, 1, max_len))
+    else:
+        oh4 = sym.Reshape(oh, shape=(1, 1, max_len, 1))
+        msk3 = sym.Reshape(msk, shape=(1, 1, max_len))
+    if global_slots:
+        # the lanes' onehots summed over the batch axis (disjoint slots, so
+        # still 0/1) give the pool's keep mask
+        keep3 = 1.0 - sym.Reshape(sym.sum(oh, axis=0),
+                                  shape=(1, max_len, 1))
+        keep4 = None
+    else:
+        keep4 = 1.0 - oh4
     emb = sym.Embedding(data=data, input_dim=vocab_size,
                         output_dim=model_dim, name="embed")
     posrow = sym.Embedding(data=pos_idx, input_dim=pos_len,
@@ -149,17 +176,31 @@ def get_decode_symbol(vocab_size=32000, num_layers=6, num_heads=8,
         q, k_new, v_new = _split_fused(qkv, 3, 1, num_heads, dh)
         kv_k = sym.Variable("kv_k_%d" % i)
         kv_v = sym.Variable("kv_v_%d" % i)
-        k_upd = sym.broadcast_add(sym.broadcast_mul(kv_k, keep4),
-                                  sym.broadcast_mul(k_new, oh4),
-                                  name="%s_kupd" % name)
-        v_upd = sym.broadcast_add(sym.broadcast_mul(kv_v, keep4),
-                                  sym.broadcast_mul(v_new, oh4),
-                                  name="%s_vupd" % name)
-        kv_outs += [k_upd, v_upd]
-        scores = sym.sum(sym.broadcast_mul(q, k_upd), axis=3) * scale
+        if global_slots:
+            # each lane's (B,H,1,dh) new K/V into its onehot slot, summed
+            # over lanes: with writer-disjoint slots the sum is the scatter
+            wr_k = sym.sum(sym.broadcast_mul(k_new, oh4), axis=0)
+            wr_v = sym.sum(sym.broadcast_mul(v_new, oh4), axis=0)
+            k_upd = sym.broadcast_add(sym.broadcast_mul(kv_k, keep3),
+                                      wr_k, name="%s_kupd" % name)
+            v_upd = sym.broadcast_add(sym.broadcast_mul(kv_v, keep3),
+                                      wr_v, name="%s_vupd" % name)
+            kv_outs += [k_upd, v_upd]
+            k_att = sym.Reshape(k_upd, shape=(-1, num_heads, max_len, dh))
+            v_att = sym.Reshape(v_upd, shape=(-1, num_heads, max_len, dh))
+        else:
+            k_upd = sym.broadcast_add(sym.broadcast_mul(kv_k, keep4),
+                                      sym.broadcast_mul(k_new, oh4),
+                                      name="%s_kupd" % name)
+            v_upd = sym.broadcast_add(sym.broadcast_mul(kv_v, keep4),
+                                      sym.broadcast_mul(v_new, oh4),
+                                      name="%s_vupd" % name)
+            kv_outs += [k_upd, v_upd]
+            k_att, v_att = k_upd, v_upd
+        scores = sym.sum(sym.broadcast_mul(q, k_att), axis=3) * scale
         scores = sym.broadcast_add(scores, msk3)  # (B, H, S)
         p = sym.softmax(scores, axis=-1)
-        ctx = sym.sum(sym.broadcast_mul(sym.expand_dims(p, axis=3), v_upd),
+        ctx = sym.sum(sym.broadcast_mul(sym.expand_dims(p, axis=3), v_att),
                       axis=2)  # (B, H, dh)
         att = sym.Reshape(
             sym.SwapAxis(sym.Reshape(ctx, shape=(-1, num_heads, 1, dh)),
@@ -177,6 +218,98 @@ def get_decode_symbol(vocab_size=32000, num_layers=6, num_heads=8,
     if token_out:
         outs.append(sym.argmax(logits, axis=-1, name="greedy_token"))
     return sym.Group(outs)
+
+
+def get_chunk_symbol(vocab_size=32000, num_layers=6, num_heads=8,
+                     model_dim=512, ffn_dim=2048, chunk_len=8,
+                     total_slots=64, pos_len=64, token_out=True):
+    """Rectangular T-token chunk graph over the shared paged pool: ONE
+    lane's next ``chunk_len`` positions scored, and written where its
+    write rows say, in one dispatch. The paged decoder's chunked prefill
+    and the speculative verify pass are this graph at two T.
+
+    Inputs beyond the weights: ``data`` and ``pos_idx`` (1, T) (pad rows
+    0), ``write_onehot`` (T, total_slots) each row's write slot (an
+    all-zero row writes nothing: the pad rows, and the zero-write replay
+    of a fully cached prompt, ``kv·1 + Σ(new·0) = kv``), ``att_mask`` (T,
+    total_slots) each row's additive mask (the lane's earlier slots and
+    the chunk's slots up to row j; all T writes land before attention), and
+    the pool buffers ``kv_k_i``/``kv_v_i`` (H, total_slots, dh).
+
+    Outputs: ``[logits (T, vocab), k'_0, v'_0, ...]`` plus, with
+    ``token_out``, a trailing on-device ``chunk_token`` (T,) argmax head."""
+    T, S = int(chunk_len), int(total_slots)
+    dh = model_dim // num_heads
+    scale = 1.0 / float(np.sqrt(dh))
+    data = sym.Variable("data")
+    pos_idx = sym.Variable("pos_idx")
+    w_oh = sym.Variable("write_onehot")
+    msk = sym.Variable("att_mask")
+    w4 = sym.Reshape(w_oh, shape=(1, T, S, 1))
+    keep3 = 1.0 - sym.Reshape(sym.sum(w_oh, axis=0), shape=(1, S, 1))
+    msk3 = sym.Reshape(msk, shape=(1, T, S))
+    emb = sym.Embedding(data=data, input_dim=vocab_size,
+                        output_dim=model_dim, name="embed")
+    posrow = sym.Embedding(data=pos_idx, input_dim=pos_len,
+                           output_dim=model_dim, name="pos_embed")
+    x = emb + posrow  # (1, T, M)
+    kv_outs = []
+    for i in range(num_layers):
+        name = "layer%d" % i
+        ln = _layer_norm(x, "%s_ln1" % name, model_dim)
+        qkv = sym.FullyConnected(data=ln, num_hidden=3 * model_dim,
+                                 flatten=False, name="%s_qkv" % name)
+        q, k_new, v_new = _split_fused(qkv, 3, T, num_heads, dh)
+        kv_k = sym.Variable("kv_k_%d" % i)
+        kv_v = sym.Variable("kv_v_%d" % i)
+        # the T new rows into the pool: (H,T,1,dh)·(1,T,S,1) summed over
+        # the rows (writer-disjoint slots: the sum is the scatter)
+        k_rows = sym.Reshape(k_new, shape=(num_heads, T, 1, dh))
+        v_rows = sym.Reshape(v_new, shape=(num_heads, T, 1, dh))
+        wr_k = sym.sum(sym.broadcast_mul(k_rows, w4), axis=1)
+        wr_v = sym.sum(sym.broadcast_mul(v_rows, w4), axis=1)
+        k_upd = sym.broadcast_add(sym.broadcast_mul(kv_k, keep3), wr_k,
+                                  name="%s_kupd" % name)
+        v_upd = sym.broadcast_add(sym.broadcast_mul(kv_v, keep3), wr_v,
+                                  name="%s_vupd" % name)
+        kv_outs += [k_upd, v_upd]
+        q4 = sym.Reshape(q, shape=(num_heads, T, 1, dh))
+        k4 = sym.Reshape(k_upd, shape=(num_heads, 1, S, dh))
+        v4 = sym.Reshape(v_upd, shape=(num_heads, 1, S, dh))
+        scores = sym.sum(sym.broadcast_mul(q4, k4), axis=3) * scale
+        scores = sym.broadcast_add(scores, msk3)  # (H, T, S)
+        p = sym.softmax(scores, axis=-1)
+        ctx = sym.sum(sym.broadcast_mul(sym.expand_dims(p, axis=3), v4),
+                      axis=2)  # (H, T, dh)
+        att = sym.Reshape(
+            sym.SwapAxis(sym.Reshape(ctx, shape=(-1, num_heads, T, dh)),
+                         dim1=1, dim2=2),
+            shape=(-1, T, model_dim))
+        x = x + sym.FullyConnected(data=att, num_hidden=model_dim,
+                                   flatten=False, name="%s_proj" % name)
+        x = x + _ffn(_layer_norm(x, "%s_ln2" % name, model_dim), name,
+                     model_dim, ffn_dim)
+    x = _layer_norm(x, "final_ln", model_dim)
+    logits = sym.FullyConnected(
+        data=sym.Reshape(x, shape=(-1, model_dim)), num_hidden=vocab_size,
+        name="lm_head")
+    outs = [logits] + kv_outs
+    if token_out:
+        outs.append(sym.argmax(logits, axis=-1, name="chunk_token"))
+    return sym.Group(outs)
+
+
+def draft_config(cfg, num_layers=1):
+    """The speculative draft's config: the first ``num_layers`` blocks of a
+    target's. Weight names are positional, so the target's checkpoint feeds
+    the draft unchanged (the deeper layers' entries go unread)."""
+    k = int(num_layers)
+    if not 0 < k <= int(cfg.get("num_layers", k)):
+        raise ValueError("draft_config: draft num_layers %d not in (0, %d]"
+                         % (k, int(cfg.get("num_layers", k))))
+    out = dict(cfg)
+    out["num_layers"] = k
+    return out
 
 
 def get_symbol(vocab_size=32000, num_layers=6, num_heads=8, model_dim=512,

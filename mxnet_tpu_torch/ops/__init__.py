@@ -58,3 +58,15 @@ def launch_counts():
 def schedule_counts():
     """{kernel.schedule: launches since the last reset}."""
     return {name: getattr(mod, counter) for name, (mod, counter) in SCHEDULE_COUNTERS.items()}
+
+
+def add_launch_counts(counts, schedules=None):
+    """Add {kernel name: n} (and {kernel.schedule: n}) to the counters: the
+    launches of a CUDA-graph replay, which the wrappers counted once, when
+    the graph was captured (a negative n takes counts back)."""
+    for name, mod, counter in _counters():
+        if counts.get(name):
+            setattr(mod, counter, getattr(mod, counter) + counts[name])
+    for name, (mod, counter) in SCHEDULE_COUNTERS.items():
+        if (schedules or {}).get(name):
+            setattr(mod, counter, getattr(mod, counter) + schedules[name])

@@ -166,8 +166,9 @@ _SCALAR = {
 }
 for _n, (_f, _aliases) in _SCALAR.items():
     def _scalar(attrs, data, _f=_f):
-        # the scalar takes the tensor's dtype, as jnp.asarray(s, data.dtype) does
-        return _f(data, torch.tensor(attrs["scalar"], dtype=data.dtype, device=data.device))
+        # the scalar takes the tensor's dtype, as jnp.asarray(s, data.dtype) does;
+        # filled on the device (no host copy), so a CUDA graph can capture it
+        return _f(data, torch.full((), attrs["scalar"], dtype=data.dtype, device=data.device))
 
     register(_n, attrs={"scalar": AttrSpec("float", required=True)}, aliases=_aliases)(_scalar)
 

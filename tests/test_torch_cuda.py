@@ -646,3 +646,142 @@ def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
         outs.append(pred.get_output(0))
         assert (ops.launch_counts()["conv_bn_infer"] > 0) == (ctx == pt.gpu(0))
     np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-6)
+
+
+# ------------------------------------------------------------ megastep graphs
+_LM = dict(vocab_size=64, num_layers=2, num_heads=2, model_dim=32, ffn_dim=64)
+
+
+def _lm_params(seed=0, S=32):
+    net = ptf.get_symbol(seq_len=S, **_LM)
+    shapes = net.infer_shape(data=(1, S), softmax_label=(1, S))[0]
+    rs = np.random.RandomState(seed)
+    return {n: (rs.randn(*s) * 0.3).astype(np.float32)
+            for n, s in zip(net.list_arguments(), shapes) if n not in ("data", "softmax_label")}
+
+
+def _ring(params, B=4, **kw):
+    from mxnet_tpu_torch.serving import KVCacheDecoder
+
+    return KVCacheDecoder(params, ctx=pt.gpu(0), max_len=32, prefill_len=8, pos_len=32,
+                          batch=B, **_LM, **kw)
+
+
+def _paged(params):
+    from mxnet_tpu_torch.serving import PagedKVDecoder
+
+    return PagedKVDecoder(params, ctx=pt.gpu(0), max_len=32, page_size=4, lanes=4,
+                          prefill_len=8, pos_len=32, **_LM)
+
+
+def _prompt(B=4, L=6, seed=3):
+    return np.random.RandomState(seed).randint(1, _LM["vocab_size"], (B, L))
+
+
+def test_megastep_graph_matches_the_same_steps_run_eagerly(dev):
+    """One replay of the captured K-step graph gives the tokens and KV
+    buffers (bitwise) of the same K steps run eagerly on the card from the
+    same state; a replay adds K steps' launches to the counters."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.serving.kv_decode import _NEG
+
+    K, B = 4, 4
+    dec = _ring(_lm_params())
+    tok = np.argmax(dec.prefill(_prompt()), axis=-1)
+    dec.decode_megastep(tok, k=K)  # captures
+    prog = dec._megasteps[(K, ("greedy", 1.0, 0))]
+    assert prog._graph is not None
+    assert prog.replay_launches[0]["norm_residual"] == K * (2 * _LM["num_layers"] + 1)
+    assert prog.replay_launches[0]["matmul_bias_act"] == K * _LM["num_layers"]
+    tok = np.argmax(dec.prefill(_prompt()), axis=-1)
+    p, S = dec.position, dec.max_len
+    before = [dec._kv(n).clone() for n in prog.kv_names]
+    ops.reset_launch_counts()
+    graphed = dec.decode_megastep(tok, k=K)
+    assert ops.launch_counts() == prog.replay_launches[0]
+    after = [dec._kv(n).clone() for n in prog.kv_names]
+    for buf, v in zip((dec._kv(n) for n in prog.kv_names), before):
+        buf.copy_(v)
+    slots = np.tile((np.arange(p, p + K) % S).astype(np.int32), (B, 1))
+    base_mask = np.broadcast_to(np.where(np.arange(S) < p, np.float32(0), _NEG),
+                                (B, S)).astype(np.float32).copy()
+    inputs = (tok.astype(np.int32), np.full((B,), p, np.int32), slots, base_mask,
+              np.zeros((B,), bool), 0, -1)
+    weights, kvs = prog._bound_tensors(dec)
+    with torch.no_grad():
+        eager = prog._steps(weights, kvs, *prog._tensors(inputs, dev))
+    torch.testing.assert_close(torch.from_numpy(graphed.T), eager[0].cpu(), rtol=0, atol=0)
+    for a, b in zip(after, kvs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("decoder", ["ring", "paged"])
+def test_megastep_interleaved_with_single_steps_matches_single_steps(dev, decoder):
+    """Three single steps, a K=4 replay, two single steps: the tokens of
+    nine single steps, for the lockstep ring and the paged pool (its lanes
+    at different positions, crossing pages)."""
+    params = _lm_params()
+    if decoder == "ring":
+        def run(plan):
+            dec = _ring(params)
+            tok = np.argmax(dec.prefill(_prompt()), axis=-1)
+            out = []
+            for k in plan:
+                ids = dec.decode_megastep(tok, k=k) if k > 1 else dec.greedy_step(tok)[:, None]
+                out.append(ids)
+                tok = ids[:, -1]
+            return np.concatenate(out, axis=1)
+    else:
+        prompts = [_prompt(1, L, seed=L)[0] for L in (2, 5, 3)]
+
+        def run(plan):
+            dec = _paged(params)
+            cur = {}
+            for p_ in prompts:
+                sid, lg = dec.admit(p_)
+                cur[sid] = int(np.argmax(lg))
+            out = []
+            for k in plan:
+                if k > 1:
+                    ids = dec.step_megastep(cur, k=k)
+                else:
+                    ids = {s: np.array([int(np.argmax(v))]) for s, v in dec.step(cur).items()}
+                out.append(np.stack([ids[s] for s in sorted(ids)]))
+                cur = {s: int(v[-1]) for s, v in ids.items()}
+            return np.concatenate(out, axis=1)
+
+    np.testing.assert_array_equal(run([1, 1, 1, 4, 1, 1]), run([1] * 9))
+
+
+def test_megastep_topk_draws_are_the_same_for_any_partition_into_k(dev):
+    """Seeded top-k draws depend on (seed, position, lane) alone: one K=4
+    replay gives the tokens of two K=2 replays and of four K=1 replays."""
+    params = _lm_params()
+    kw = dict(sample="topk", temperature=0.8, top_k=5)
+    got = []
+    for plan in ([4], [2, 2], [1, 1, 1, 1]):
+        dec = _ring(params, sample_seed=11)
+        tok = np.argmax(dec.prefill(_prompt()), axis=-1)
+        out = []
+        for k in plan:
+            out.append(dec.decode_megastep(tok, k=k, **kw))
+            tok = out[-1][:, -1]
+        got.append(np.concatenate(out, axis=1))
+    np.testing.assert_array_equal(got[0], got[1])
+    np.testing.assert_array_equal(got[0], got[2])
+
+
+def test_megastep_refuses_a_drifted_signature_and_replaced_buffers(dev):
+    """After capture, other input shapes raise rather than capture again, and
+    so do weights or KV buffers that are not the captured tensors."""
+    dec = _ring(_lm_params())
+    tok = np.argmax(dec.prefill(_prompt()), axis=-1)
+    dec.decode_megastep(tok, k=2)
+    prog = dec._megasteps[(2, ("greedy", 1.0, 0))]
+    tok0, pos, slots, mask, done = prog._zero_inputs()
+    with pytest.raises(MXNetError, match="signature drifted"):
+        prog.run(dec, np.zeros((5,), np.int32), pos, slots, mask, done, -1)
+    arr = dec._dec_exe.arg_dict["kv_k_0"]
+    arr._set_tensor(arr._tensor().clone())
+    with pytest.raises(MXNetError, match="captured on"):
+        dec.decode_megastep(tok, k=2)

@@ -23,16 +23,32 @@ L = CFG["num_layers"]
 FORCED_INFER = "attention=pallas_flash,matmul_bias_act=pallas,norm_residual=pallas"
 
 
-def _decode_shapes(B=8, S=32):
-    shapes = {"data": (B, 1), "pos_idx": (B, 1), "slot_onehot": (S,), "kv_mask": (S,)}
+def _decode_shapes(B=8, S=32, per_stream=False, pool=False):
+    """The decode graph's input shapes: the per-lane ring, per-stream slot
+    rows over it, or per-stream rows over one shared pool of S slots."""
+    row = (B, S) if per_stream or pool else (S,)
+    shapes = {"data": (B, 1), "pos_idx": (B, 1), "slot_onehot": row, "kv_mask": row}
     for i in range(L):
-        shapes["kv_k_%d" % i] = shapes["kv_v_%d" % i] = (B, 2, S, 64)
+        shapes["kv_k_%d" % i] = shapes["kv_v_%d" % i] = (2, S, 64) if pool else (B, 2, S, 64)
+    return shapes
+
+
+def _chunk_shapes(T=4, S=64):
+    shapes = {"data": (1, T), "pos_idx": (1, T), "write_onehot": (T, S), "att_mask": (T, S)}
+    for i in range(L):
+        shapes["kv_k_%d" % i] = shapes["kv_v_%d" % i] = (2, S, 64)
     return shapes
 
 
 GRAPHS = {
     "prefill": ("get_prefill_symbol", dict(prefill_len=16, pos_len=32), {"data": (8, 16)}),
     "decode": ("get_decode_symbol", dict(max_len=32, pos_len=32), _decode_shapes()),
+    "decode_per_stream": ("get_decode_symbol", dict(max_len=32, pos_len=32, per_stream_slots=True),
+                          _decode_shapes(per_stream=True)),
+    "decode_global": ("get_decode_symbol", dict(max_len=64, pos_len=32, per_stream_slots=True,
+                                                global_slots=True),
+                      _decode_shapes(S=64, pool=True)),
+    "chunk": ("get_chunk_symbol", dict(chunk_len=4, total_slots=64, pos_len=32), _chunk_shapes()),
     "train": ("get_symbol", dict(seq_len=16), {"data": (8, 16), "softmax_label": (8, 16)}),
 }
 
@@ -72,6 +88,8 @@ def test_load_json_round_trips_the_reference_graph():
 @pytest.mark.parametrize("which,expected", [
     ("prefill", {"attention": L, "matmul_bias_act": L, "norm_residual": 2 * L + 1}),
     ("decode", {"matmul_bias_act": L, "norm_residual": 2 * L + 1}),
+    ("decode_global", {"matmul_bias_act": L, "norm_residual": 2 * L + 1}),
+    ("chunk", {"matmul_bias_act": L, "norm_residual": 2 * L + 1}),
 ])
 def test_fusion_plan_sites_match_the_reference(which, expected, monkeypatch):
     monkeypatch.setenv("MXNET_GRAPHREWRITE", "on")
