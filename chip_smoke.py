@@ -62,7 +62,21 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    and ``matmul_with_stats`` gives that convolution's output and its
    per-channel statistics from the checkpoint's weight, held against
    ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
-8. A ``profiler`` line (how many timing windows were taken again after the
+8. Engine: ``InferenceEngine`` serves ResNet-50 (buckets 1-32) to eight
+   client threads, three loads of 640 requests, each in a profiler window
+   of its own: each request equals its rows of the batch it rode in and
+   each batch a second run of it, bitwise; 49 conv_bn launches a batch; no
+   bind after warmup; throughput, client and engine latency and the card's
+   idle share of each load. The oversize refusal; the manifest replayed by
+   a fresh cache; a batch-32 dispatch against the bare forward. Then an injected dispatch
+   fault is retried (health degraded, then healthy), a burst with 1 ms
+   deadlines is shed, and new weights are reloaded under load (requests
+   before on the old weights, after on the new, each batch equal to a
+   fresh cache's). The Transformer-base prefill graph through the engine
+   (6 / 13 / 6 launches of the flash forward, LayerNorm and ffn1 a batch),
+   and a decoder's weights swapped under its captured megastep (a fresh
+   decoder's tokens, no new capture).
+9. A ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels, the card's
    name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -74,6 +88,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -123,6 +138,15 @@ RESNET_F64_FACTOR = 8.0
 DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
               std=(58.40, 57.12, 57.38), tap="stage1_unit1_relu1_output",
               tap_weight="stage1_unit1_sc_weight")
+# The engine phase: InferenceEngine over ResNet-50 (buckets up to 32, 5 ms
+# batching delay) under eight closed-loop clients of 80 requests of 1-4
+# images each (about 3 s of load), taken three times, each a profiler window
+# of its own; a dispatch fault, a shed burst and a reload under load (four
+# clients of 16 requests of 4 images); then the Transformer-base prefill
+# graph over buckets 1-8 of 128 tokens.
+ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=80,
+              load_seeds=(SEED + 20, SEED + 27, SEED + 28), reload_requests=16, rows=(1, 4),
+              health_window_s=0.5, prefill_buckets=(1, 2, 4, 8))
 # matmul_with_stats: ResNet-50's 1x1 convolutions at batch 32 as (M, K, N)
 # matrices (stage 1's 64->256, 64->64 and 256->64 at 56 x 56, stage 2's
 # 512->128 at 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
@@ -292,7 +316,8 @@ PROFILER_GAP_S = 0.3
 # timing windows opened / taken again; breakdown windows with fewer device
 # events than their twin (logged as the "profiler" phase)
 PROFILER_TALLY = {"timing_windows": 0, "timing_windows_retaken": 0,
-                  "breakdown_windows": 0, "breakdown_windows_short": 0}
+                  "breakdown_windows": 0, "breakdown_windows_short": 0,
+                  "load_windows": 0, "load_windows_short": 0}
 
 
 def profiler_window(fn, activities):
@@ -1107,13 +1132,13 @@ def check_mma_rate(randn, peaks):
     log(rec)
 
 
-def random_params():
+def random_params(seed=SEED):
     """Random weights from the seed, named and shaped by the training symbol."""
     from mxnet_tpu_torch.models import transformer
 
     net = transformer.get_symbol(seq_len=SERVE["pos_len"], **MODEL)
     arg_shapes = net.infer_shape(data=(1, SERVE["pos_len"]), softmax_label=(1, SERVE["pos_len"]))[0]
-    rs = np.random.RandomState(SEED)
+    rs = np.random.RandomState(seed)
     return {n: (rs.standard_normal(s) * 0.05).astype(np.float32)
             for n, s in zip(net.list_arguments(), arg_shapes)
             if n not in ("data", "softmax_label")}
@@ -1884,12 +1909,12 @@ def check_tf32_off():
            torch.backends.cuda.matmul.allow_tf32))
 
 
-def resnet_values(net):
+def resnet_values(net, seed=SEED + 3):
     """Random ResNet weights from the seed: He-scaled conv and fc weights,
     γ in U(0.5, 1.5), β in U(-0.1, 0.1), fc bias 0; moving means 0 and
     variances 1, as a fresh model has them."""
     arg_shapes, _, aux_shapes = net.infer_shape(data=(1,) + image_shape(), softmax_label=(1,))
-    rs = np.random.RandomState(SEED + 3)
+    rs = np.random.RandomState(seed)
     args = {}
     for n, s in zip(net.list_arguments(), arg_shapes):
         if n in ("data", "softmax_label"):
@@ -2322,6 +2347,398 @@ def run_deploy(pt, net, args, aux):
     return launches
 
 
+# ------------------------------------------------------------ engine phase
+class Recorder:
+    """Wraps a cache's ``run`` and ``swap_params``: every dispatched padded
+    batch with its outputs and the weight version it ran on."""
+
+    def __init__(self, cache):
+        self.cache, self.batches, self.version = cache, [], 0
+        self._run, self._swap = cache.run, cache.swap_params
+        cache.run, cache.swap_params = self.run, self.swap
+        self._index, self._indexed = {}, 0  # a row's leading bytes -> (batch, row)
+
+    def clear(self):
+        """Forget the recorded batches; the weight version stays."""
+        self.batches, self._index, self._indexed = [], {}, 0
+
+    def run(self, inputs):
+        outs = self._run(inputs)
+        self.batches.append((inputs, outs, self.version))
+        return outs
+
+    def swap(self, *args, **kwargs):
+        n = self._swap(*args, **kwargs)
+        self.version += 1
+        return n
+
+    def locate(self, name, rows):
+        """(batch index, row offset) of the first dispatched batch that holds
+        a request's rows (seeded random rows: their leading bytes find them)."""
+        for i in range(self._indexed, len(self.batches)):
+            for off, row in enumerate(self.batches[i][0][name]):
+                self._index.setdefault(row.reshape(-1)[:16].tobytes(), (i, off))
+        self._indexed = len(self.batches)
+        hit = self._index.get(rows[0].reshape(-1)[:16].tobytes())
+        check(hit is not None, "a request's rows are in no dispatched batch")
+        b, off = hit
+        check(np.array_equal(self.batches[b][0][name][off:off + rows.shape[0]], rows),
+              "a request's rows are not whole in its batch")
+        return b, off
+
+    def rerun_bitwise(self, first=0):
+        """Each recorded batch from ``first`` on run again through the cache:
+        the count of batches whose every output repeats its bits."""
+        same = 0
+        for inputs, outs, _ in self.batches[first:]:
+            again = self._run(inputs)
+            same += all(np.array_equal(a, b) for a, b in zip(outs, again))
+        return same
+
+
+def clients(eng, requests, timeout=120):
+    """One thread a list of requests, each submitted and waited for in turn
+    (closed loop). Returns {(thread, i): (outputs, submit start, submit end,
+    latency ms)}; an error in any client fails the run."""
+    got, errors = {}, []
+
+    def worker(t, reqs):
+        try:
+            for i, inputs in enumerate(reqs):
+                t0 = time.perf_counter()
+                fut = eng.submit(inputs)
+                t1 = time.perf_counter()
+                out = fut.result(timeout=timeout)
+                got[(t, i)] = (out, t0, t1, (time.perf_counter() - t0) * 1e3)
+        except Exception as exc:  # surfaced by the check below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=worker, args=(t, reqs)) for t, reqs in enumerate(requests)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, ("engine client errors", errors[:3]))
+    return got
+
+
+def image_requests(seed, threads, per, rows):
+    """Seeded requests of ``rows`` images each, uniform in [-1, 1)."""
+    rng = np.random.default_rng(seed)
+    return [[{"data": rng.random((int(rng.integers(rows[0], rows[1] + 1)),) + image_shape(),
+                                 dtype=np.float32) * 2 - 1}
+             for _ in range(per)] for _ in range(threads)]
+
+
+def check_rows(rec, requests, got, name="data"):
+    """Each request's outputs are its rows of the batch it rode in, bitwise
+    (sliced by the engine's row factors). Returns {request: batch index}."""
+    where = {}
+    for t, reqs in enumerate(requests):
+        for i, inputs in enumerate(reqs):
+            rows = inputs[name]
+            b, off = rec.locate(name, rows)
+            outs = rec.batches[b][1]
+            for o, want in zip(got[(t, i)][0], outs):
+                k = want.shape[0] // rec.batches[b][0][name].shape[0]
+                check(np.array_equal(o, want[off * k:(off + rows.shape[0]) * k]),
+                      ("request", t, i, "differs from its rows of the dispatched batch"))
+            where[(t, i)] = b
+    return where
+
+
+def timer_ms(tm, name):
+    t = tm.timer(name)
+    return {"count": t.count, "mean_ms": t.total_ms / t.count if t.count else None,
+            **{k + "_ms": v for k, v in t.quantiles_ms((0.5, 0.99)).items()}}
+
+
+def engine_load(tm, eng, rec, warm, requests, binds):
+    """One closed-loop load of ``requests`` in one profiler window of the
+    card's activity, after one request ``warm`` outside it (so that the
+    first host gap the engine times is not the pause before the load).
+    Gated: exactly 49 conv_bn launches a batch, no bind, each request its
+    rows of its batch and each batch a second run of it, bitwise. Returns
+    throughput, client and engine latency, batching, and the card's busy
+    time and idle share, all of this one run. The window is whole when its
+    trace holds every conv_bn launch of the wrappers' count (the profiler
+    drops its events for a spell now and then); a short window's idle share
+    is null, its trace's share of the launches given instead."""
+    from torch.profiler import ProfilerActivity
+
+    t0 = time.perf_counter()
+    eng.infer(warm)
+    rec.clear()
+    tm.reset()
+    got = {}
+    events, wall_ms, wrapped = profiler_window(lambda: got.update(clients(eng, requests)),
+                                               [ProfilerActivity.CUDA])
+    launches, n_batches = with_zeros(wrapped), len(rec.batches)
+    check(launches == with_zeros({"conv_bn_infer": RESNET_SITES * n_batches}),
+          ("engine launches", n_batches, launches))
+    check(rec.cache.binds == binds, ("binds after warmup", rec.cache.binds))
+    check_rows(rec, requests, got)
+    bitwise = rec.rerun_bitwise()
+    check(bitwise == n_batches, ("batches whose second run repeats its bits",
+                                 bitwise, n_batches))
+    busy = sum(us for _, us in events.values()) / 1e3
+    traced = sum(n for key, (n, _) in events.items() if KERNELS["conv_bn"][2] in key)
+    whole = traced == launches["conv_bn_infer"]
+    PROFILER_TALLY["load_windows"] += 1
+    PROFILER_TALLY["load_windows_short"] += not whole
+    top = sorted(events.items(), key=lambda kv: -kv[1][1])[:4]
+    lat = [v[3] for v in got.values()]
+    rows = sum(r["data"].shape[0] for reqs in requests for r in reqs)
+    by_bucket = {}
+    for inputs, _, _ in rec.batches:
+        b = inputs["data"].shape[0]
+        by_bucket[b] = by_bucket.get(b, 0) + 1
+    snap = tm.snapshot()
+    seconds = wall_ms / 1e3
+    return {
+        "requests": len(lat), "rows": rows, "seconds": seconds,
+        "requests_per_s": len(lat) / seconds, "images_per_s": rows / seconds,
+        "client_latency_ms_p50": float(np.percentile(lat, 50)),
+        "client_latency_ms_p99": float(np.percentile(lat, 99)),
+        "serving_request": timer_ms(tm, "serving.request"),
+        "serving_queue_wait": timer_ms(tm, "serving.queue_wait"),
+        "serving_dispatch": timer_ms(tm, "serving.dispatch"),
+        "dispatch_host_gap": timer_ms(tm, "dispatch.host_gap"),
+        "batches": n_batches, "batches_by_bucket": by_bucket,
+        "mean_occupancy": snap["serving.batch_items"] / snap["serving.batch_capacity"],
+        "padded_rows": snap["serving.padded_rows"], "launches": launches,
+        "batches_bitwise_on_rerun": bitwise,
+        "device_busy_ms": busy, "trace_whole": whole,
+        "traced_share_of_launches": traced / launches["conv_bn_infer"],
+        "device_idle_share": 1.0 - busy / wall_ms if whole else None,
+        "top_device_ms": {k[:60]: us / 1e3 for k, (_, us) in top},
+        "with_checks_s": time.perf_counter() - t0}
+
+
+def run_engine(pt, net, args, aux, params, smi):
+    """Phase 8: ``InferenceEngine`` on the card. A: ResNet-50 under eight
+    closed-loop clients in three profiled loads (``engine_load``), the
+    oversize refusal, the manifest replayed by a fresh cache, a batch-32
+    dispatch against the bare forward. B: retry under an
+    injected dispatch fault, shedding, and a hitless reload under load.
+    C: the Transformer-base prefill graph served by the engine, its
+    launches a batch, and a reload of a decoder's weights that lands in the
+    next megastep without a new capture."""
+    from mxnet_tpu_torch import faultinject as fi
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.serving import (InferenceEngine, KVCacheDecoder,
+                                         PersistentExecutableCache, ServeOverloadError)
+
+    check_tf32_off()
+    E = ENGINE
+    t_phase = time.perf_counter()
+    tm.set_mode("counters")
+    tm.reset()
+    out = {"phase": "engine", "card": smi, "model": RESNET, "buckets": E["buckets"],
+           "max_delay_ms": E["max_delay_ms"], "clients": E["clients"],
+           "requests_per_client": E["requests"], "rows": E["rows"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- A: ResNet-50 under concurrent load
+        cache = PersistentExecutableCache(net, args, aux, model_key="resnet50", cache_dir=tmp)
+        eng = InferenceEngine(cache, {"data": image_shape()}, buckets=E["buckets"],
+                              max_delay_ms=E["max_delay_ms"])
+        t0 = time.perf_counter()
+        eng.start()
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        warm_binds = cache.binds
+        check(warm_binds == len(E["buckets"]) and cache.sealed, ("warmup binds", warm_binds))
+        rec = Recorder(cache)
+        warm = image_requests(SEED + 19, 1, 1, E["rows"])[0][0]
+        out["load"] = []
+        for w, seed in enumerate(E["load_seeds"]):
+            if w:
+                time.sleep(PROFILER_GAP_S)
+            requests = image_requests(seed, E["clients"], E["requests"], E["rows"])
+            out["load"].append(engine_load(tm, eng, rec, warm, requests, warm_binds))
+        refusal = None
+        try:
+            eng.submit({"data": np.zeros((E["buckets"][-1] + 1,) + image_shape(), np.float32)})
+        except pt.MXNetError as exc:
+            refusal = str(exc)
+        check(refusal is not None and "exceed the largest bucket" in refusal,
+              ("oversize request", refusal))
+        # one batch-32 dispatch (host pad, copy in, forward, read back) and the
+        # bare forward of the same executor, on the card and on the host clock
+        b32 = {"data": np.random.RandomState(SEED + 22).uniform(
+            -1, 1, (E["buckets"][-1],) + image_shape()).astype(np.float32)}
+        exe = cache.executable({"data": b32["data"].shape})
+        bare = lambda: exe.forward(is_train=False)  # noqa: E731
+        host = {"dispatch": [], "bare_forward": []}
+        for _ in range(10):
+            _, ms = timed(lambda: rec._run(b32))
+            host["dispatch"].append(ms)
+            _, ms = timed(lambda: (bare(), torch.cuda.synchronize()))
+            host["bare_forward"].append(ms)
+        out["batch32"] = {"dispatch_card_ms": device_ms(lambda: rec._run(b32), iters=10),
+                          "bare_forward_card_ms": device_ms(bare, iters=10),
+                          "dispatch_host_ms_p50": float(np.median(host["dispatch"])),
+                          "bare_forward_host_ms_p50": float(np.median(host["bare_forward"]))}
+        eng.close()
+        check(eng.health()["state"] == "stopped", "engine A did not stop")
+        fresh = PersistentExecutableCache(net, args, aux, model_key="resnet50", cache_dir=tmp)
+        check(fresh.warmup(None) == len(E["buckets"]) and fresh.sealed
+              and sorted(fresh.keys()) == sorted(cache.keys()), "the manifest did not replay")
+        out["manifest"] = {"path": fresh._manifest_path()[len(tmp) + 1:],
+                           "buckets": len(fresh.keys())}
+        del fresh
+
+        # --- B: resilience on the card
+        eng = InferenceEngine(cache, {"data": image_shape()}, buckets=E["buckets"],
+                              max_delay_ms=E["max_delay_ms"], health_window_s=E["health_window_s"])
+        eng.start()
+        one = requests[0][1]
+        want = eng.infer(one)[0]
+        with fi.inject("serving.dispatch", "raise", prob=1.0, seed=SEED, times=1) as plan:
+            again = eng.infer(one, timeout=60)[0]
+        h = eng.health()
+        check(plan.fired == 1 and np.array_equal(again, want), "a retried batch differs")
+        check(h["state"] == "degraded" and h["recent_dispatch_errors"] == 1, ("health", h))
+        time.sleep(E["health_window_s"] + 0.1)
+        check(eng.health()["state"] == "healthy", "health did not recover")
+        out["retry"] = {"fired": plan.fired, "retries": tm.counters()["serving.dispatch_retries"],
+                        "health_after_fault": h["state"]}
+        four = {"data": np.repeat(one["data"][:1], 4, axis=0)}
+        shed = []
+        with fi.inject("serving.dispatch", "delay_ms", prob=1.0, seed=SEED, arg=100, times=1):
+            n0 = tm.counters()["serving.batches"]
+            futs = [eng.submit(four) for _ in range(40)]  # five full batches
+            t_end = time.time() + 30
+            while tm.counters()["serving.batches"] < n0 + 2 and time.time() < t_end:
+                time.sleep(0.001)
+            for _ in range(8):
+                try:
+                    eng.submit({"data": four["data"][:1]}, deadline_ms=1)
+                except ServeOverloadError as exc:
+                    shed.append(exc.retry_after_ms)
+            h = eng.health()
+            for f in futs:
+                f.result(60)
+        check(len(shed) == 8 and all(r >= 1 for r in shed), ("shed", shed))
+        check(h["state"] == "degraded" and h["recent_sheds"] == 8, ("health after shedding", h))
+        out["shed"] = {"shed": len(shed), "retry_after_ms": shed, "health": h["state"],
+                       "shed_rate": h["shed_rate"]}
+        new_args, new_aux = resnet_values(net, seed=SEED + 23)
+        load = image_requests(SEED + 24, E["clients"] // 2, E["reload_requests"], (4, 4))
+        first = len(rec.batches)
+        reload_at = {}
+
+        def reload_mid_load():
+            t_end = time.time() + 60
+            while len(rec.batches) - first < 2 and time.time() < t_end:
+                time.sleep(0.001)
+            reload_at["call"] = time.perf_counter()
+            fut = eng.reload(new_args, new_aux)
+            reload_at["returned"] = time.perf_counter()
+            check(fut.result(60) is True, "reload failed")
+            reload_at["resolved"] = time.perf_counter()
+
+        th = threading.Thread(target=reload_mid_load)
+        th.start()
+        got = clients(eng, load)
+        th.join()
+        check("resolved" in reload_at, "the reload did not resolve")
+        check(cache.binds == warm_binds, ("binds after the reload", cache.binds))
+        where = check_rows(rec, load, got)
+        ref = {0: PersistentExecutableCache(net, args, aux), 1: PersistentExecutableCache(
+            net, new_args, new_aux)}
+        old = new = 0
+        for key, b in where.items():
+            _, t_start, t_end, _ = got[key]
+            version = rec.batches[b][2]  # 0: the old weights, 1: the new
+            if t_end < reload_at["call"]:
+                check(version == 0, ("a request before the reload ran the new weights", key))
+                old += 1
+            elif t_start > reload_at["resolved"]:
+                check(version == 1, ("a request after the reload ran the old weights", key))
+                new += 1
+        check(old and new, ("requests before / after the reload", old, new))
+        versions = {}
+        for inputs, outs, v in rec.batches[first:]:
+            versions[v] = versions.get(v, 0) + 1
+            check(all(np.array_equal(a, b) for a, b in zip(outs, ref[v].run(inputs))),
+                  ("a batch differs from a fresh cache with its weights", v))
+        h = eng.health()
+        check(h["reloads"] == 1 and h["state"] in ("healthy", "degraded"), ("health", h))
+        eng.close()
+        out["reload"] = {"requests": len(got), "before": old, "after": new,
+                         "batches_by_version": versions, "binds": cache.binds,
+                         "reload_ms": (reload_at["resolved"] - reload_at["call"]) * 1e3,
+                         "health": h["state"], "reloads": h["reloads"]}
+        del ref, rec, cache, eng
+
+        # --- C: the Transformer-base prefill graph through the engine
+        from mxnet_tpu_torch.models import transformer
+
+        P = SERVE["prefill_len"]
+        sym = transformer.get_prefill_symbol(prefill_len=P, pos_len=SERVE["pos_len"], **MODEL)
+        cache = PersistentExecutableCache(sym, params, {}, model_key="transformer_prefill",
+                                          cache_dir=tmp)
+        eng = InferenceEngine(cache, {"data": (P,)}, buckets=E["prefill_buckets"],
+                              max_delay_ms=E["max_delay_ms"]).start()
+        check(eng._row_factors == [P] + [1] * (2 * MODEL["num_layers"]),
+              ("prefill row factors", eng._row_factors))
+        rec = Recorder(cache)
+        rs = np.random.RandomState(SEED + 25)
+        treqs = [[{"data": rs.randint(1, MODEL["vocab_size"], (int(rs.randint(1, 4)), P))
+                   .astype(np.float32)} for _ in range(3)] for _ in range(4)]
+        ops.reset_launch_counts()
+        got = clients(eng, treqs)
+        tl = ops.launch_counts()
+        nb = len(rec.batches)
+        L = MODEL["num_layers"]
+        check(tl == with_zeros({"flash_attention": L * nb, "norm_residual": (2 * L + 1) * nb,
+                                "matmul_bias_act": L * nb}), ("prefill engine launches", nb, tl))
+        check_rows(rec, treqs, got)
+        tbitwise = rec.rerun_bitwise()
+        check(tbitwise == nb, ("prefill batches bitwise on a second run", tbitwise, nb))
+        for (t, i), (outs, _, _, _) in got.items():
+            r = treqs[t][i]["data"].shape[0]
+            check(outs[0].shape == (r * P, MODEL["vocab_size"]) and np.isfinite(outs[0]).all(),
+                  ("prefill logits", outs[0].shape))
+        eng.close()
+        out["prefill"] = {"requests": len(got), "batches": nb, "launches": tl,
+                          "batches_bitwise_on_rerun": tbitwise,
+                          "launches_per_batch": {k: v // nb for k, v in tl.items() if v}}
+        del rec, cache, eng
+
+    # --- C': a decoder's weights reloaded under its captured megastep
+    K, B = MEGASTEP_K, SERVE["batch"]
+    prompt = np.random.RandomState(SEED + 1).randint(1, MODEL["vocab_size"], (B, PROMPT_LEN))
+    dec = KVCacheDecoder(params, ctx=pt.gpu(0), **MODEL, **SERVE)
+    dec.greedy(prompt, 1 + K, k=K)  # captures the K-step graph
+    progs = dict(dec._megasteps)
+    prog = next(iter(progs.values()))
+    graph = prog._graph
+    check(graph is not None, "no megastep graph was captured")
+    new_params = random_params(SEED + 26)
+    t0 = time.perf_counter()
+    n_pf, n_dec = dec._pf_cache.swap_params(new_params), dec._dec_cache.swap_params(new_params)
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    ops.reset_launch_counts()
+    tokens = dec.greedy(prompt, 1 + K, k=K)
+    check_launches("decoder reload", add_launches(prefill_launches(1, schedule="tiles"),
+                                                  step_launches(K)))
+    check(dict(dec._megasteps) == progs and prog._graph is graph, "the megastep was captured again")
+    fresh = KVCacheDecoder(new_params, ctx=pt.gpu(0), **MODEL, **SERVE)
+    want = fresh.greedy(prompt, 1 + K, k=K)
+    check(np.array_equal(tokens, want), "reloaded decoder's tokens differ from a fresh decoder's")
+    out["decoder_reload"] = {"k": K, "swapped": [n_pf, n_dec], "swap_ms": swap_ms,
+                             "graphs": len(dec._megasteps), "tokens_equal_fresh": True}
+    tm.set_mode(None)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return {"conv_bn_infer": sum(w["launches"]["conv_bn_infer"] for w in out["load"]),
+            **{k: v for k, v in out["prefill"]["launches"].items() if v}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -2356,6 +2773,7 @@ def main():
     resnet_serve_launches = run_resnet_serve(pt, net, args, aux)
     resnet_train_launches = run_resnet_train(pt, net, args, aux)
     deploy_launches = run_deploy(pt, net, args, aux)
+    engine_launches = run_engine(pt, net, args, aux, params, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_stats", "rtc"):
             e.update(launches=deploy_launches[name_])  # the deploy phase's main path
@@ -2365,13 +2783,15 @@ def main():
             e.update(launches=resnet_train_launches[name_])
             if name_ == "conv_bn":
                 e.update(infer_launches=resnet_serve_launches["conv_bn_infer"],
-                         deploy_infer_launches=deploy_launches["conv_bn_infer"])
+                         deploy_infer_launches=deploy_launches["conv_bn_infer"],
+                         engine_infer_launches=engine_launches["conv_bn_infer"])
         else:
             # launches: the transformer's timed training steps, the path that
             # runs all six of its kernels
             e.update(launches=train_launches[name_], serve_launches=serve_launches[name_],
                      megastep_launches=megastep_launches[name_],
-                     paged_launches=paged_launches[name_])
+                     paged_launches=paged_launches[name_],
+                     engine_launches=engine_launches.get(name_, 0))
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})
     print(smi)

@@ -26,6 +26,7 @@ from . import symbol as sym  # noqa: E402,F401
 from .name import NameManager  # noqa: E402,F401
 from .executor import Executor, bind, simple_bind  # noqa: E402,F401
 from . import optimizer  # noqa: E402,F401
+from . import telemetry, faultinject  # noqa: E402,F401
 from . import models, serving  # noqa: E402,F401
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402,F401
@@ -34,4 +35,5 @@ from .convert import params_from_checkpoint, params_from_numpy  # noqa: E402,F40
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "symbol",
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
-           "random", "rtc", "params_from_numpy", "params_from_checkpoint"]
+           "random", "rtc", "telemetry", "faultinject", "params_from_numpy",
+           "params_from_checkpoint"]

@@ -10,12 +10,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code",
+__all__ = ["MXNetError", "EvictedError", "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code",
            "dtype_from_code"]
 
 
 class MXNetError(Exception):
     """Error raised by the framework (reference: python/mxnet/base.py MXNetError)."""
+
+
+class EvictedError(MXNetError):
+    """This worker was evicted from an elastic job (copied from
+    mxnet_tpu/base.py): the surviving membership re-formed without it, so
+    the only safe move is to stop training and exit."""
 
 
 def np_dtype(dtype) -> np.dtype:

@@ -13,7 +13,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
 
 
 class Context:
@@ -60,6 +60,18 @@ class Context:
             raise MXNetError("%r: only %d CUDA device(s) present"
                              % (self, torch.cuda.device_count()))
         return torch.device("cuda", self.device_id)
+
+    def empty_cache(self):
+        """Release the caching allocator's unused blocks on this card
+        (``torch.cuda.empty_cache``); nothing on the CPU."""
+        if self.device_type == "gpu":
+            with torch.cuda.device(self.torch_device):
+                torch.cuda.empty_cache()
+
+
+def num_gpus():
+    """The CUDA devices present (``torch.cuda.device_count()``)."""
+    return torch.cuda.device_count()
 
 
 def cpu(device_id=0):

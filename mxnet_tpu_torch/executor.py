@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .base import MXNetError, np_dtype
@@ -103,6 +104,10 @@ class Executor:
         # (leaf tensors, output tensors) of the last training forward: the
         # autograd graph a later backward() consumes (JAX: _cached_vjp)
         self._graph = None
+        self._monitor_callback = None
+        # the caller's symbol, before the bind-time rewrite: what reshape()
+        # and bind(shared_exec=...) compare against
+        self._orig_symbol = symbol
 
     # ----------------------------------------------------------------- running
     def _needs_grad(self):
@@ -137,16 +142,25 @@ class Executor:
     def _set_outputs(self, outs):
         self.outputs = [_wrap(o.detach(), self._ctx) for o in outs]
         self.output_dict = dict(zip(self._prog.output_names, self.outputs))
+        if self._monitor_callback is not None:
+            for name, arr in self.output_dict.items():
+                self._monitor_callback(name, arr)
         return self.outputs
 
-    def forward(self, is_train=False):
+    def forward(self, is_train=False, **kwargs):
         """Run the graph on the bound arguments; returns ``outputs``.
+        Keyword arguments are copied into the bound arguments first
+        (``exe.forward(data=x)``; an unknown name raises).
 
         With ``is_train=True`` and some grad_req not null the forward runs
         under autograd and keeps its graph for ``backward()``; otherwise it
         runs under ``torch.no_grad()`` and keeps nothing. A training forward
         (``is_train=True``, gradients or not) writes the new moving stats
         into the aux arrays."""
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError("unknown argument %r" % k)
+            self.arg_dict[k][:] = v
         # release the previous step's graph before building the next one, or
         # two sets of saved activations coexist on the device (JAX :357)
         self._graph = None
@@ -201,6 +215,56 @@ class Executor:
                     table[name][:] = arr
                 elif not allow_extra_params:
                     raise MXNetError("Found name %r not in executor %s" % (name, what))
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """A new executor at new input shapes, sharing this one's program
+        (JAX :469). An argument whose shape is unchanged keeps its array;
+        ``partial_shaping`` keeps the old shape of whatever the new hints
+        leave undetermined; without ``allow_up_sizing`` no argument may
+        grow."""
+        if partial_shaping:
+            arg_shapes, _, aux_shapes = self._symbol.infer_shape_partial(**kwargs)
+        else:
+            arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+            if arg_shapes is None:
+                raise MXNetError(
+                    "reshape: insufficient shape info (pass partial_shaping=True to keep "
+                    "old shapes for undetermined arguments)")
+
+        def renew(arr, shape, name):
+            if shape is None:
+                if not partial_shaping:
+                    raise MXNetError("reshape: shape of %r undetermined" % name)
+                return arr, False
+            if tuple(arr.shape) == tuple(shape):
+                return arr, False
+            if int(np.prod(shape)) > arr.size and not allow_up_sizing:
+                raise MXNetError(
+                    "reshape: new shape %s of %r is larger than original %s; pass "
+                    "allow_up_sizing=True to permit reallocation" % (shape, name, arr.shape))
+            return zeros(shape, ctx=self._ctx, dtype=arr.dtype), True
+
+        new_args, new_grads = [], []
+        for name, arr, garr, shape in zip(self._prog.arg_names, self.arg_arrays,
+                                          self.grad_arrays, arg_shapes):
+            na, changed = renew(arr, shape, name)
+            new_args.append(na)
+            new_grads.append(zeros(na.shape, ctx=self._ctx, dtype=garr.dtype)
+                             if changed and garr is not None else garr)
+        new_aux = [renew(arr, shape, name)[0]
+                   for name, arr, shape in zip(self._prog.aux_names, self.aux_arrays, aux_shapes)]
+        exe = Executor(self._symbol, self._ctx, new_args, new_grads, self._grad_req, new_aux,
+                       program=self._prog)
+        exe._orig_symbol = self._orig_symbol
+        return exe
+
+    def set_monitor_callback(self, callback):
+        """``callback(name, NDArray)`` is called on every output after each
+        forward."""
+        self._monitor_callback = callback
+
+    def debug_str(self):
+        return self._symbol.debug_str()
 
     def _grads(self, graph, out_grads):
         """One gradient (or None) per argument."""
@@ -270,23 +334,41 @@ def _by_name(values, names, what):
     return dict(zip(names, values))
 
 
-def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None):
+def _check_group2ctx(ctx, group2ctx):
+    """The port places a graph on one device: every ``group2ctx`` entry
+    must name the bind's own context."""
+    others = sorted({str(c) for c in (group2ctx or {}).values() if Context(c) != ctx})
+    if others:
+        raise MXNetError("bind: group2ctx places groups on %s, but the port binds a graph on "
+                         "one device (%s)" % (others, ctx))
+
+
+def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None, shared_exec=None,
+         group2ctx=None):
     """Bind NDArrays to a symbol's arguments (reference: symbol.py bind).
 
     ``args`` and ``args_grad`` are dicts by name or lists in the order of
     ``symbol.list_arguments()``. Without ``args_grad`` nothing gets a
     gradient; an argument ``args_grad`` leaves out gets req null.
     ``aux_states`` is a dict by name or a list in the order of
-    ``symbol.list_auxiliary_states()``, and must hold every aux state."""
+    ``symbol.list_auxiliary_states()``, and must hold every aux state.
+    ``shared_exec``, an executor of the same symbol, lends its rewritten
+    graph and program (JAX :586). ``group2ctx`` may only name ``ctx``."""
     from .analysis.rewrite import rewrite_for_bind
 
     names = symbol.list_arguments()
     args = _by_name(args, names, "args")
     reqs = dict(zip(names, _normalize_grad_req(grad_req, names)))
     grads = {} if args_grad is None else _by_name(args_grad, names, "grad arrays")
-    symbol = rewrite_for_bind(symbol)
-    prog = _GraphProgram(symbol)
+    orig_symbol = symbol
     ctx = Context(ctx) if not isinstance(ctx, Context) else ctx
+    _check_group2ctx(ctx, group2ctx)
+    if shared_exec is not None and (shared_exec._orig_symbol is symbol
+                                    or shared_exec._symbol is symbol):
+        symbol, prog = shared_exec._symbol, shared_exec._prog
+    else:
+        symbol = rewrite_for_bind(symbol)
+        prog = _GraphProgram(symbol)
     missing = [n for n in prog.arg_names if n not in args]
     if missing:
         raise MXNetError("bind: missing arguments %s" % missing)
@@ -308,14 +390,21 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None):
         if len(aux_arrays) != len(prog.aux_names):
             raise MXNetError("bind: expected %d aux states, got %d"
                              % (len(prog.aux_names), len(aux_arrays)))
-    return Executor(symbol, ctx, [args[n] for n in prog.arg_names], grad_arrays, req_list,
-                    aux_arrays, program=prog)
+    exe = Executor(symbol, ctx, [args[n] for n in prog.arg_names], grad_arrays, req_list,
+                   aux_arrays, program=prog)
+    exe._orig_symbol = orig_symbol
+    return exe
 
 
-def simple_bind(symbol, ctx, grad_req="write", type_dict=None, **kwargs):
+def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
+                shared_exec=None, **kwargs):
     """Infer shapes and dtypes from the given input shapes, allocate every
     argument, a gradient array for each whose req is not null, and every
-    aux state, as zeros on ``ctx`` (JAX :689), and bind."""
+    aux state, as zeros on ``ctx`` (JAX :689), and bind. With
+    ``shared_exec`` a parameter (an argument whose shape is not given here)
+    of the same name, shape and dtype is taken from that executor instead of
+    allocated: the two share the parameter tensors (and its program, as
+    ``bind`` does). Inputs, gradient arrays and aux states stay their own."""
     shape_hints = {k: tuple(v) for k, v in kwargs.items() if v is not None}
     type_hints = {k: np_dtype(v) for k, v in (type_dict or {}).items()}
     arg_shapes, _, aux_shapes, arg_types, _, aux_types = symbol._infer_impl(shape_hints,
@@ -324,9 +413,19 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, **kwargs):
     ctx = Context(ctx) if not isinstance(ctx, Context) else ctx
     names = symbol.list_arguments()
     reqs = _normalize_grad_req(grad_req, names)
-    arrays = {n: zeros(s, ctx=ctx, dtype=t) for n, s, t in zip(names, arg_shapes, arg_types)}
+
+    def param(n, s, t):
+        old = None
+        if shared_exec is not None and n not in shape_hints:
+            old = shared_exec.arg_dict.get(n)
+        if old is not None and tuple(old.shape) == tuple(s) and np_dtype(old.dtype) == t:
+            return old
+        return zeros(s, ctx=ctx, dtype=t)
+
+    arrays = {n: param(n, s, t) for n, s, t in zip(names, arg_shapes, arg_types)}
     grads = {n: zeros(s, ctx=ctx, dtype=t)
              for n, s, t, r in zip(names, arg_shapes, arg_types, reqs) if r != "null"}
     aux = {n: zeros(s, ctx=ctx, dtype=t)
            for n, s, t in zip(symbol.list_auxiliary_states(), aux_shapes, aux_types)}
-    return bind(symbol, ctx, arrays, args_grad=grads, grad_req=reqs, aux_states=aux)
+    return bind(symbol, ctx, arrays, args_grad=grads, grad_req=reqs, aux_states=aux,
+                shared_exec=shared_exec, group2ctx=group2ctx)

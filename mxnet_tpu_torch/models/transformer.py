@@ -74,7 +74,7 @@ def _ffn(x, name, model_dim, ffn_dim):
 
 def get_prefill_symbol(vocab_size=32000, num_layers=6, num_heads=8,
                        model_dim=512, ffn_dim=2048, prefill_len=64,
-                       pos_len=None):
+                       pos_len=None, **kwargs):
     """Serving prefill graph: the decoder-only LM over a fixed
     ``prefill_len`` bucket, also exporting every layer's head-major K/V.
 
@@ -111,7 +111,7 @@ def get_prefill_symbol(vocab_size=32000, num_layers=6, num_heads=8,
 def get_decode_symbol(vocab_size=32000, num_layers=6, num_heads=8,
                       model_dim=512, ffn_dim=2048, max_len=64, pos_len=None,
                       per_stream_slots=False, global_slots=False,
-                      token_out=True):
+                      token_out=True, **kwargs):
     """Serving single-token decode graph over a KV buffer of ``max_len``
     slots per layer.
 
@@ -222,7 +222,7 @@ def get_decode_symbol(vocab_size=32000, num_layers=6, num_heads=8,
 
 def get_chunk_symbol(vocab_size=32000, num_layers=6, num_heads=8,
                      model_dim=512, ffn_dim=2048, chunk_len=8,
-                     total_slots=64, pos_len=64, token_out=True):
+                     total_slots=64, pos_len=64, token_out=True, **kwargs):
     """Rectangular T-token chunk graph over the shared paged pool: ONE
     lane's next ``chunk_len`` positions scored, and written where its
     write rows say, in one dispatch. The paged decoder's chunked prefill
@@ -313,9 +313,10 @@ def draft_config(cfg, num_layers=1):
 
 
 def get_symbol(vocab_size=32000, num_layers=6, num_heads=8, model_dim=512,
-               ffn_dim=2048, seq_len=64):
+               ffn_dim=2048, seq_len=64, **kwargs):
     """The training graph (softmax head over (B·T, vocab)); its arguments
-    name the weights every serving graph reads."""
+    name the weights every serving graph reads. Extra keywords are accepted
+    and ignored, as the reference's graph functions do."""
     data = sym.Variable("data")  # (B, T) int tokens
     label = sym.Variable("softmax_label")
     embed = sym.Embedding(data=data, input_dim=vocab_size,

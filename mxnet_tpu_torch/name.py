@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager"]
+__all__ = ["NameManager", "Prefix"]
 
 
 class NameManager:
@@ -47,3 +47,15 @@ class NameManager:
             NameManager._current.value = cur
         return cur
 
+
+
+class Prefix(NameManager):
+    """NameManager that prepends a fixed prefix to every name."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name

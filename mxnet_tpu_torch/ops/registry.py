@@ -19,7 +19,7 @@ import numpy as np
 
 from ..base import MXNetError, np_dtype
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "parse_attrs", "AttrSpec"]
+__all__ = ["OpDef", "register", "get_op", "has_op", "list_ops", "parse_attrs", "AttrSpec"]
 
 
 class AttrSpec:
@@ -143,6 +143,10 @@ def register(name, attrs=None, input_names=("data",), aux_names=(), num_outputs=
         return fn
 
     return _reg
+
+
+def has_op(name: str) -> bool:
+    return name in _REGISTRY
 
 
 def get_op(name: str) -> OpDef:

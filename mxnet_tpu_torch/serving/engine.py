@@ -1,0 +1,908 @@
+"""Continuous-batching inference engine and its resilience layer.
+
+Counterpart of ``mxnet_tpu/serving/engine.py`` ``InferenceEngine`` (:196),
+with the same knobs, errors, counters, spans and ordering. One batcher
+thread owns the card: requests land in a thread-safe FIFO queue, the
+batcher assembles them into the smallest shape bucket that covers the
+pending rows (admitting requests that arrive mid-assembly up to
+``MXNET_SERVE_MAX_DELAY_MS``), pads the batch to the bucket on the host,
+and runs the bucket's bound executor from the sealed
+``PersistentExecutableCache``: one host-to-card copy an input and one
+read-back a batch. Each request's rows are sliced back out and delivered
+through a ``ServeFuture``, so N concurrent callers cost ONE dispatch.
+
+Why buckets: a fixed ladder (1, 2, 4, 8, ...) bounds the executors, warmup
+binds every rung (and builds the CUDA kernels at their first launch), and
+the sealed cache turns "a request shape never warmed" into a structured
+error instead of a bind on the request path.
+
+Ordering: strict FIFO. A batch takes the queue head and every following
+request that still fits the largest bucket; a request is never overtaken
+by one submitted after it.
+
+Resilience, as the reference's:
+
+* **Deadlines**: ``submit(deadline_ms=)`` / ``MXNET_SERVE_DEADLINE_MS``. A
+  request whose deadline passes while QUEUED fails with
+  ``ServeDeadlineError`` and is never dispatched; an in-flight overrun
+  still delivers and counts into ``serving.deadline_overrun``.
+* **Load shedding** at ``submit()`` (``MXNET_SERVE_SHED``): a time-decayed
+  EWMA of observed queue waits estimates what a new request would wait;
+  over its deadline (or the absolute cap) it is shed at once with a
+  ``ServeOverloadError`` carrying ``retry_after_ms``.
+* **Dispatch retry**: a batch whose dispatch raises goes back to the queue
+  head (once per request, jittered backoff) before its requests fail.
+* **Hitless reload**: ``reload(arg_params)`` enqueues a weight-swap
+  barrier. Batches ahead of it finish on the old weights, everything
+  after runs the new ones. The swap ``copy_``s into the cache's shared
+  tensors under the cache lock, which a batch holds until its outputs are
+  on the host (the JAX package relies on immutable arrays instead): same
+  shapes, zero binds, and a captured CUDA graph sees the new weights.
+* **Health**: ``health()`` is a lock-cheap snapshot for probes;
+  ``degraded`` decays back to ``healthy`` once the fault window drains.
+* **Fault injection**: the ``serving.submit`` / ``serving.dispatch`` /
+  ``serving.batcher`` sites (``faultinject.py``).
+
+A failure that escapes the batcher loop latches the engine: every pending
+and later request fails with it. Nothing falls back or carries on quietly.
+"""
+from __future__ import annotations
+
+import math
+import os
+import random
+import threading
+import time
+import weakref
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from .. import telemetry as _tm
+from .. import faultinject as _fi
+from .cache import PersistentExecutableCache
+
+__all__ = ["InferenceEngine", "ServeFuture", "ServeDeadlineError",
+           "ServeOverloadError", "ServeClosedError"]
+
+
+def _env_float(name, default):
+    try:
+        return float(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return float(default)
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return int(default)
+
+
+class ServeDeadlineError(MXNetError):
+    """The request's deadline expired while it was still queued; it was
+    removed and never dispatched. ``queued_ms`` is how long it waited."""
+
+    def __init__(self, msg, queued_ms=None):
+        super().__init__(msg)
+        self.queued_ms = queued_ms
+
+    def __reduce__(self):  # pickle-safe across the fleet RPC boundary
+        return (type(self), (self.args[0] if self.args else "",
+                             self.queued_ms))
+
+
+class ServeOverloadError(MXNetError):
+    """Shed at admission: the engine's queue-wait estimate says this
+    request would miss its deadline (or the absolute shed cap). Carries
+    ``retry_after_ms`` — the client's backoff hint."""
+
+    def __init__(self, msg, retry_after_ms):
+        super().__init__(msg)
+        self.retry_after_ms = retry_after_ms
+
+    def __reduce__(self):  # pickle-safe across the fleet RPC boundary
+        return (type(self), (self.args[0] if self.args else "",
+                             self.retry_after_ms))
+
+
+class ServeClosedError(MXNetError):
+    """The engine shut down (or latched) before this queued request could
+    be dispatched."""
+
+
+class ServeFuture:
+    """Delivery slot for one request's outputs. ``done_at`` is the
+    ``time.perf_counter()`` stamp of delivery (None until done) — load
+    generators read it for per-request latency without a waiter thread."""
+
+    __slots__ = ("_event", "_result", "_error", "done_at", "_engine")
+
+    def __init__(self, engine=None):
+        self._event = threading.Event()
+        self._result = None
+        self._error = None
+        self.done_at = None
+        self._engine = weakref.ref(engine) if engine is not None else None
+
+    def done(self):
+        return self._event.is_set()
+
+    def set_result(self, result):
+        self._result = result
+        self.done_at = time.perf_counter()
+        self._event.set()
+
+    def set_error(self, exc):
+        self._error = exc
+        self.done_at = time.perf_counter()
+        self._event.set()
+
+    def result(self, timeout=None):
+        if not self._event.is_set() and self._engine is not None:
+            # a latched (batcher-dead) engine resolves every future it
+            # knows about, so an unresolved future here can only mean a
+            # delivery hole — raise the latch NOW rather than blocking a
+            # timeout-less caller forever
+            eng = self._engine()
+            fatal = eng._fatal if eng is not None else None
+            if fatal is not None and not self._event.is_set():
+                raise fatal
+        if not self._event.wait(timeout):
+            raise MXNetError("serving: request timed out after %ss"
+                             % timeout)
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class _Request:
+    __slots__ = ("inputs", "rows", "future", "t_enq", "deadline", "retries",
+                 "trace_id")
+
+    def __init__(self, inputs, rows, engine=None, deadline=None):
+        self.inputs = inputs
+        self.rows = rows
+        self.future = ServeFuture(engine)
+        self.t_enq = time.perf_counter()
+        self.deadline = deadline  # absolute perf_counter time, or None
+        self.retries = 0
+        # captured at submit time on the CALLER's thread (the batcher
+        # runs elsewhere): lets dispatch/queue-wait spans join the
+        # fleet-wide request trace (docs/OBSERVABILITY.md §Fleet)
+        self.trace_id = _tm.trace_context()
+
+
+class _ReloadRequest:
+    """Queue barrier carrying a weight swap: the batcher applies it in
+    FIFO position, so everything submitted before it runs old weights and
+    everything after runs new ones — the hitless-reload ordering."""
+
+    __slots__ = ("arg_params", "aux_params", "future", "t_enq")
+
+    def __init__(self, arg_params, aux_params, engine=None):
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.future = ServeFuture(engine)
+        self.t_enq = time.perf_counter()
+
+
+class InferenceEngine:
+    """Continuous batching over shape buckets on one model.
+
+    ``buckets`` are batch sizes (ascending after sort); ``item_shapes``
+    maps each model input to its PER-ITEM shape (no batch dim) — bucket
+    ``b`` binds input ``name`` at ``(b,) + item_shapes[name]``.
+
+    Resilience knobs (all optional; docs/RESILIENCE.md):
+
+    * ``deadline_ms`` — default per-request deadline
+      (``MXNET_SERVE_DEADLINE_MS``; 0/unset = none).
+    * ``shed`` — admission control (``MXNET_SERVE_SHED``): ``"0"`` off;
+      ``"1"`` (default) shed when the queue-wait estimate exceeds the
+      request's deadline; a number > 1 additionally sheds ANY request once
+      the estimate exceeds that many milliseconds.
+    * ``max_dispatch_retries`` — re-enqueues per request after a failed
+      dispatch before its future fails (default 1).
+    * ``health_window_s`` — how long a shed/dispatch-fault keeps
+      ``health()`` reporting ``degraded`` (default 5s).
+    """
+
+    # EWMA blend for observed queue waits, and its decay time constant:
+    # with no dispatches the wait estimate halves every ~tau*ln2 seconds,
+    # so a storm's estimate cannot shed traffic forever after the storm
+    _EWMA_ALPHA = 0.2
+    _EWMA_DECAY_TAU_S = 1.0
+
+    def __init__(self, cache: PersistentExecutableCache,
+                 item_shapes: Dict[str, Sequence[int]],
+                 buckets: Sequence[int] = (1, 2, 4, 8),
+                 max_delay_ms: Optional[float] = None,
+                 max_queue: Optional[int] = None,
+                 name: Optional[str] = None,
+                 deadline_ms: Optional[float] = None,
+                 shed: Optional[str] = None,
+                 max_dispatch_retries: int = 1,
+                 retry_backoff_ms: float = 2.0,
+                 health_window_s: float = 5.0):
+        if not buckets:
+            raise MXNetError("serving: need at least one bucket")
+        cache._ctx.torch_device  # a cache on a missing card raises here
+        self.cache = cache
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if self.buckets[0] < 1:
+            raise MXNetError("serving: buckets must be >= 1, got %s"
+                             % (buckets,))
+        self.item_shapes = {n: tuple(s) for n, s in item_shapes.items()}
+        unknown = set(self.item_shapes) - set(cache.input_names)
+        if unknown:
+            raise MXNetError(
+                "serving: item shapes name %s which are not model inputs %s"
+                % (sorted(unknown), cache.input_names))
+        # model inputs NOT in item_shapes (e.g. a SoftmaxOutput label) are
+        # left to simple_bind's shape inference and stay zero-filled
+        self.max_delay_s = (_env_float("MXNET_SERVE_MAX_DELAY_MS", 5.0)
+                            if max_delay_ms is None else float(max_delay_ms)
+                            ) / 1000.0
+        self.max_queue = (_env_int("MXNET_SERVE_MAX_QUEUE", 1024)
+                          if max_queue is None else int(max_queue))
+        dl = (_env_float("MXNET_SERVE_DEADLINE_MS", 0.0)
+              if deadline_ms is None else float(deadline_ms))
+        self.default_deadline_s = dl / 1000.0 if dl > 0 else None
+        self._shed_enabled, self._shed_cap_s = self._parse_shed(
+            os.environ.get("MXNET_SERVE_SHED", "1") if shed is None
+            else str(shed))
+        self.max_dispatch_retries = int(max_dispatch_retries)
+        self.retry_backoff_s = float(retry_backoff_ms) / 1000.0
+        self.health_window_s = float(health_window_s)
+        self.name = name or cache._model_key
+        self._queue = deque()
+        self._cond = _tm.named_condition("serving.engine")
+        self._stop = False
+        self._thread = None
+        self._started = False
+        self._fatal = None        # batcher-death latch; see _latch_failure
+        self._row_factors = None  # per-output rows-per-item; see start()
+        self._ewma_wait_s = None  # decayed estimate of queue wait
+        self._ewma_t = None       # last EWMA update stamp
+        self._recent_faults = deque(maxlen=512)  # (t, kind) in window
+        self._reloads = 0
+        self._shed_count = 0
+        self._submit_count = 0
+        self._health_seq = 0  # monotonic snapshot counter; see health()
+        self._last_return_t = None  # dispatch.host_gap interval start
+
+    @staticmethod
+    def _parse_shed(raw):
+        """``(enabled, absolute_cap_s_or_None)`` from a MXNET_SERVE_SHED
+        value: 0/off/false → disabled; 1/on/true → deadline-aware only;
+        a number > 1 → deadline-aware + absolute estimate cap in ms."""
+        raw = str(raw).strip().lower()
+        if raw in ("0", "off", "false", "no", ""):
+            return False, None
+        if raw in ("1", "on", "true", "yes"):
+            return True, None
+        try:
+            cap = float(raw)
+        except ValueError:
+            import logging
+
+            logging.getLogger("mxnet_tpu_torch.serving").warning(
+                "MXNET_SERVE_SHED=%r is not 0|1|<ms>; shedding stays on "
+                "without an absolute cap", raw)
+            return True, None
+        return True, (cap / 1000.0 if cap > 1 else None)
+
+    # ------------------------------------------------------------ lifecycle
+    def bucket_shapes(self):
+        return [{n: (b,) + s for n, s in self.item_shapes.items()}
+                for b in self.buckets]
+
+    def start(self, warmup=True):
+        """Bind and run every bucket executor once (sealing the cache) and
+        launch the batcher thread."""
+        if self._fatal is not None:
+            # mirror PrefetchingIter._shutdown: a latched engine stays
+            # failed — restarting a batcher over state a dead thread left
+            # mid-flight would race the executor
+            raise self._fatal
+        if self._started:
+            return self
+        if warmup:
+            self.cache.warmup(self.bucket_shapes())
+        self._row_factors = self._output_row_factors()
+        with self._cond:
+            self._stop = False
+        self._thread = threading.Thread(target=self._batcher_loop,
+                                        name="mxserve-batcher-%s" % self.name,
+                                        daemon=True)
+        self._started = True
+        self._thread.start()
+        return self
+
+    def _output_row_factors(self):
+        """Classify each model output as batch-major or not from STATIC
+        shape inference at two probe batch sizes: output i is batch-major
+        with k rows per item iff its leading dim is k*b for the same k at
+        both probes (a (B*T, V) flattened head has k=T). A constant
+        leading dim (time-major or aux outputs) fails the cross-probe
+        check and is replicated whole to every request — a single-size
+        divisibility test would mis-slice it whenever it happened to
+        divide. Probing is pure inference (no bind, no forward), so the second
+        probe need not be a real bucket — this disambiguates even a
+        one-bucket ladder."""
+        b0 = self.buckets[-1]
+        factors = None
+        for b in (b0, b0 + 1):
+            shapes = {n: (b,) + s for n, s in self.item_shapes.items()}
+            try:
+                outs = self.cache.output_shapes(shapes)
+            except Exception:
+                if factors is not None:
+                    break  # off-bucket probe unsupported: keep probe 1
+                raise
+            ks = [None if not s or s[0] % b else s[0] // b for s in outs]
+            factors = ks if factors is None else \
+                [k if k == k2 else None for k, k2 in zip(factors, ks)]
+        return factors
+
+    def close(self, timeout=30.0, drain=True):
+        """Stop the batcher. ``drain=True`` (default) answers every
+        accepted request first; ``drain=False`` fails
+        queued-but-undispatched requests immediately with a structured
+        ``ServeClosedError`` (graceful-vs-fast shutdown). If the batcher
+        is wedged past ``timeout`` the engine stays in the
+        stopped-but-not-joined state — submits keep raising, ``start()``
+        refuses to launch a second batcher beside the zombie (two threads
+        would race on the shared executor) — and whatever is still queued
+        is failed rather than left to time out."""
+        if not self._started:
+            return
+        pending = []
+        with self._cond:
+            self._stop = True
+            if not drain:
+                pending = [r for r in self._queue]
+                self._queue.clear()
+            self._cond.notify_all()
+        self._fail_shutdown(pending)
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            with self._cond:
+                stuck = [r for r in self._queue]
+                self._queue.clear()
+            self._fail_shutdown(stuck)
+            raise MXNetError(
+                "serving: batcher %r did not drain within %.1fs; engine "
+                "left stopped (not restartable) — a request is likely "
+                "wedged in dispatch; %d queued request(s) failed with a "
+                "shutdown error" % (self._thread.name, timeout, len(stuck)))
+        self._started = False
+
+    def _fail_shutdown(self, requests):
+        if not requests:
+            return
+        for r in requests:
+            if not r.future.done():
+                r.future.set_error(ServeClosedError(
+                    "serving: engine %r shut down before this request was "
+                    "dispatched" % self.name))
+        if _tm.enabled():
+            _tm.gauge("serving.queue_depth").set(0)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -------------------------------------------------------------- submit
+    def _validate(self, inputs):
+        arrs, rows = {}, None
+        for n, shape in self.item_shapes.items():
+            if n not in inputs:
+                raise MXNetError("serving: missing input %r" % n)
+            a = np.asarray(inputs[n])
+            if a.ndim == len(shape):  # single item: implicit batch of 1
+                a = a[None]
+            if tuple(a.shape[1:]) != shape:
+                raise MXNetError(
+                    "serving: input %r item shape %s does not match the "
+                    "engine's %s" % (n, tuple(a.shape[1:]), shape))
+            if rows is None:
+                rows = a.shape[0]
+            elif a.shape[0] != rows:
+                raise MXNetError(
+                    "serving: inconsistent batch rows across inputs "
+                    "(%d vs %d for %r)" % (rows, a.shape[0], n))
+            arrs[n] = a
+        if rows == 0:
+            raise MXNetError("serving: empty request")
+        if rows > self.buckets[-1]:
+            raise MXNetError(
+                "serving: request rows %d exceed the largest bucket %d "
+                "(oversize requests must be split by the caller)"
+                % (rows, self.buckets[-1]))
+        return arrs, rows
+
+    def _est_wait_s_locked(self, now):
+        """Time-decayed queue-wait estimate: the EWMA of observed waits,
+        halved every ~0.7s of dispatch silence, floored at zero when the
+        queue is empty and nothing is pending."""
+        if self._ewma_wait_s is None:
+            return None
+        est = self._ewma_wait_s * math.exp(
+            -(now - self._ewma_t) / self._EWMA_DECAY_TAU_S)
+        if not self._queue:
+            # an empty queue serves a new request within the batching
+            # delay — a stale storm estimate must not shed into idleness
+            est = min(est, self.max_delay_s)
+        return est
+
+    def submit(self, inputs, deadline_ms=None) -> ServeFuture:
+        """Enqueue one request ({input: array} or a bare array for
+        single-input models); returns a ``ServeFuture``. ``deadline_ms``
+        overrides the engine default: past it the request fails server-side
+        (``ServeDeadlineError`` if still queued — it is then never
+        dispatched) and admission may shed it immediately
+        (``ServeOverloadError``) when the wait estimate already exceeds
+        the budget."""
+        _fi.fire("serving.submit")
+        if not isinstance(inputs, dict):
+            names = list(self.item_shapes)
+            if len(names) != 1:
+                raise MXNetError(
+                    "serving: model has inputs %s; pass a dict" % names)
+            inputs = {names[0]: inputs}
+        try:
+            arrs, rows = self._validate(inputs)
+        except MXNetError:
+            # every shed request counts: oversize/malformed here, queue
+            # backpressure below — serving.rejected is the load-shedding
+            # dashboard row (docs/OBSERVABILITY.md)
+            if _tm.enabled():
+                _tm.counter("serving.rejected").inc()
+            raise
+        dl_s = (self.default_deadline_s if deadline_ms is None
+                else (float(deadline_ms) / 1000.0
+                      if float(deadline_ms) > 0 else None))
+        req = _Request(arrs, rows, engine=self,
+                       deadline=None if dl_s is None
+                       else time.perf_counter() + dl_s)
+        with self._cond:
+            if self._fatal is not None:
+                # without this latch every future after the batcher's death
+                # would hang forever — fail fast instead
+                raise self._fatal
+            if not self._started or self._stop:
+                raise MXNetError("serving: engine is not running "
+                                 "(call start(), or already closed)")
+            shed_err = None
+            if self._shed_enabled:
+                est = self._est_wait_s_locked(req.t_enq)
+                over_dl = (est is not None and dl_s is not None
+                           and est > dl_s)
+                over_cap = (est is not None and self._shed_cap_s is not None
+                            and est > self._shed_cap_s)
+                if over_dl or over_cap:
+                    retry_after = max(1, int(math.ceil(est * 1000.0)))
+                    shed_err = ServeOverloadError(
+                        "serving: shed at admission — estimated queue wait "
+                        "%.1fms exceeds %s; retry after ~%dms"
+                        % (est * 1000.0,
+                           ("the %.0fms deadline" % (dl_s * 1000.0))
+                           if over_dl else
+                           ("the %.0fms shed cap" % (self._shed_cap_s
+                                                     * 1000.0)),
+                           retry_after),
+                        retry_after_ms=retry_after)
+                    self._shed_count += 1
+                    self._record_fault_locked(req.t_enq, "shed")
+            if shed_err is not None:
+                pass  # raise outside the stats below
+            elif len(self._queue) >= self.max_queue:
+                shed_err = MXNetError(
+                    "serving: queue full (%d requests); backpressure"
+                    % len(self._queue))
+            if shed_err is not None:
+                if _tm.enabled():
+                    _tm.counter("serving.rejected").inc()
+                    if isinstance(shed_err, ServeOverloadError):
+                        _tm.counter("serving.shed").inc()
+                raise shed_err
+            self._submit_count += 1
+            self._queue.append(req)
+            depth = len(self._queue)
+            self._cond.notify_all()
+        if _tm.enabled():
+            _tm.counter("serving.requests").inc()
+            _tm.gauge("serving.queue_depth").set(depth)
+        return req.future
+
+    def infer(self, inputs, timeout=60.0):
+        """Blocking convenience: submit + wait; returns the output list."""
+        return self.submit(inputs).result(timeout=timeout)
+
+    # -------------------------------------------------------------- reload
+    def reload(self, arg_params, aux_params=None):
+        """Hitless weight hot-swap: enqueue a swap barrier and return its
+        ``ServeFuture`` (resolves True once the new weights are live).
+        Batches ahead of the barrier finish on the old weights; every
+        submission after it runs the new ones. Shapes/dtypes must match
+        the loaded model — the swap touches buffers only, never the
+        executors, so it causes ZERO binds and drops ZERO requests.
+        A failed swap (unknown key, shape mismatch) fails only the
+        returned future; serving continues on the old weights."""
+        req = _ReloadRequest(arg_params, aux_params, engine=self)
+        with self._cond:
+            if self._fatal is not None:
+                raise self._fatal
+            if not self._started or self._stop:
+                raise MXNetError("serving: engine is not running "
+                                 "(call start(), or already closed)")
+            # control-plane: a reload is admitted even at max_queue
+            self._queue.append(req)
+            self._cond.notify_all()
+        return req.future
+
+    # ------------------------------------------------------------- batcher
+    def _purge_expired_locked(self, now, expired):
+        """Remove queued requests whose deadline has passed (they are
+        FAILED, never dispatched). Called under ``self._cond``."""
+        kept = None
+        for i, r in enumerate(self._queue):
+            if isinstance(r, _Request) and r.deadline is not None \
+                    and now >= r.deadline:
+                if kept is None:
+                    kept = list(self._queue)[:i]
+                expired.append(r)
+            elif kept is not None:
+                kept.append(r)
+        if kept is not None:
+            self._queue = deque(kept)
+
+    def _fail_expired(self, expired):
+        if not expired:
+            return
+        now = time.perf_counter()
+        for r in expired:
+            queued_ms = (now - r.t_enq) * 1000.0
+            if r.retries:
+                # it DID reach the device before (failed dispatch, was
+                # re-queued) — the error must not claim otherwise, or a
+                # client doing safe-to-replay accounting is misled
+                msg = ("serving: deadline expired after %.1fms (a failed "
+                       "dispatch was retried %d time(s); the re-queued "
+                       "request was removed before re-dispatch)"
+                       % (queued_ms, r.retries))
+            else:
+                msg = ("serving: deadline expired after %.1fms in queue; "
+                       "the request was removed and never dispatched"
+                       % queued_ms)
+            r.future.set_error(ServeDeadlineError(msg, queued_ms=queued_ms))
+        if _tm.enabled():
+            _tm.counter("serving.deadline_expired").inc(len(expired))
+
+    def _gather(self):
+        """Take the queue head and every following request that still fits
+        the largest bucket, waiting out the batching deadline for
+        mid-flight arrivals. Expired requests are purged (failed, never
+        dispatched) along the way. Returns a non-empty request list, a
+        ``_ReloadRequest`` barrier, or None on shutdown with an empty
+        queue."""
+        max_rows = self.buckets[-1]
+        while True:
+            expired = []
+            batch = None
+            reload_req = None
+            stopping = False
+            with self._cond:
+                while True:
+                    self._purge_expired_locked(time.perf_counter(), expired)
+                    if self._queue or expired:
+                        # expired-with-empty-queue must exit too: their
+                        # futures are failed below, not after the next
+                        # arrival wakes the batcher
+                        break
+                    if self._stop:
+                        stopping = True
+                        break
+                    self._cond.wait(0.1)
+                if stopping or not self._queue:
+                    self._fail_expired(expired)
+                    if stopping:
+                        return None
+                    continue
+                head = self._queue[0]
+                if isinstance(head, _ReloadRequest):
+                    self._queue.popleft()
+                    reload_req = head
+                else:
+                    deadline = head.t_enq + self.max_delay_s
+                    while True:
+                        rows = 0
+                        full = False
+                        for r in self._queue:
+                            if isinstance(r, _ReloadRequest) \
+                                    or rows + r.rows > max_rows:
+                                full = True
+                                break
+                            rows += r.rows
+                        now = time.perf_counter()
+                        if full or rows >= max_rows or now >= deadline \
+                                or self._stop:
+                            break
+                        self._cond.wait(deadline - now)
+                    # final check: a request that expired while the batch
+                    # assembled must not ride into the dispatch
+                    self._purge_expired_locked(time.perf_counter(), expired)
+                    batch = []
+                    taken = 0
+                    while self._queue:
+                        r = self._queue[0]
+                        if isinstance(r, _ReloadRequest) \
+                                or taken + r.rows > max_rows:
+                            break
+                        batch.append(self._queue.popleft())
+                        taken += r.rows
+                depth = len(self._queue)
+            self._fail_expired(expired)
+            if _tm.enabled():
+                _tm.gauge("serving.queue_depth").set(depth)
+            if reload_req is not None:
+                return reload_req
+            if batch:
+                return batch
+            # every gathered request expired — go around again
+
+    def _note_wait_locked(self, wait_s, now):
+        prev = self._est_wait_s_locked(now)
+        self._ewma_wait_s = wait_s if prev is None else \
+            (1.0 - self._EWMA_ALPHA) * prev + self._EWMA_ALPHA * wait_s
+        self._ewma_t = now
+
+    def _record_fault_locked(self, now, kind):
+        self._recent_faults.append((now, kind))
+
+    def _recent_faults_snapshot(self, now):
+        cutoff = now - self.health_window_s
+        return [(t, k) for t, k in self._recent_faults if t >= cutoff]
+
+    def _dispatch(self, batch: List[_Request]):
+        _tm.note_dispatch()  # lock-witness seam: holds spanning this stall
+        rows = sum(r.rows for r in batch)
+        bucket = next(b for b in self.buckets if b >= rows)
+        padded = {}
+        for n, shape in self.item_shapes.items():
+            buf = np.zeros((bucket,) + shape,
+                           dtype=batch[0].inputs[n].dtype)
+            off = 0
+            for r in batch:
+                buf[off:off + r.rows] = r.inputs[n]
+                off += r.rows
+            padded[n] = buf
+        t0 = time.perf_counter()
+        with self._cond:
+            for r in batch:
+                self._note_wait_locked(t0 - r.t_enq, t0)
+        if _tm.enabled():
+            _tm.counter("serving.batches").inc()
+            _tm.counter("serving.batch_items").inc(rows)
+            _tm.counter("serving.batch_capacity").inc(bucket)
+            _tm.counter("serving.padded_rows").inc(bucket - rows)
+            _tm.gauge("serving.batch_occupancy").set(rows / float(bucket))
+            _tm.gauge("serving.ewma_queue_wait_ms").set(
+                round((self._ewma_wait_s or 0.0) * 1000.0, 3))
+            qw = _tm.timer("serving.queue_wait")
+            for r in batch:
+                qw.add(t0 - r.t_enq)
+                # per-request queue-wait span on the request's own trace
+                # (no-op unless tracing): the fleet timeline's
+                # replica-queue segment
+                _tm.record_span("serving.queue_wait", r.t_enq,
+                                t0 - r.t_enq, trace_id=r.trace_id)
+            # dispatch.host_gap: batching/padding/queue host time between
+            # the previous batch's return and this enqueue
+            if self._last_return_t is not None:
+                gap = time.perf_counter() - self._last_return_t
+                _tm.timer("dispatch.host_gap").add(gap)
+                _tm.timer("dispatch.host_gap.serving.dispatch").add(gap)
+        # a batch serves many requests, possibly many traces: one unique
+        # trace_id → install it as context (nested decoder spans inherit);
+        # a mixed batch stamps the id LIST on the dispatch span instead
+        tids = {r.trace_id for r in batch if r.trace_id is not None}
+        span_kw = dict(model=self.name, bucket=bucket, rows=rows,
+                       requests=len(batch))
+        batch_tid = None
+        if len(tids) == 1:
+            batch_tid = next(iter(tids))
+        elif tids:
+            span_kw["trace_ids"] = sorted(tids)
+        with _tm.trace_scope(batch_tid), \
+                _tm.span("serving.dispatch", **span_kw):
+            _fi.fire("serving.dispatch")
+            outs = self.cache.run(padded)
+        if _tm.enabled():
+            now = time.perf_counter()
+            self._last_return_t = now
+            _tm.timer("serving.dispatch").add(now - t0)
+        # slice each output back out by its statically classified
+        # rows-per-item factor (non-batch-major outputs replicate whole)
+        per_row = self._row_factors
+        off = 0
+        overruns = 0
+        req_timer = _tm.timer("serving.request") if _tm.enabled() else None
+        for r in batch:
+            res = []
+            for o, k in zip(outs, per_row):
+                res.append(o if k is None else o[off * k:(off + r.rows) * k])
+            r.future.set_result(res)
+            if req_timer is not None:
+                # submit → delivery: the engine-side view of the same
+                # latency clients measure, so serve_bench can cross-check
+                # histogram quantiles against client-side percentiles
+                req_timer.add(r.future.done_at - r.t_enq)
+            if r.deadline is not None and r.future.done_at > r.deadline:
+                overruns += 1  # delivered, but past its budget
+            off += r.rows
+        if overruns and _tm.enabled():
+            _tm.counter("serving.deadline_overrun").inc(overruns)
+
+    def _apply_reload(self, req: _ReloadRequest):
+        try:
+            with _tm.span("serving.reload", model=self.name):
+                self.cache.swap_params(req.arg_params, req.aux_params)
+        except Exception as exc:
+            req.future.set_error(exc)
+            return
+        self._reloads += 1
+        if _tm.enabled():
+            _tm.counter("serving.reloads").inc()
+        req.future.set_result(True)
+
+    def _retry_or_fail(self, batch, exc):
+        """A dispatch raised: re-enqueue the requests that still have
+        retry budget at the queue HEAD (original order — FIFO holds), fail
+        the rest. Jittered backoff before the retry keeps a hot failure
+        from spinning the batcher."""
+        now = time.perf_counter()
+        retryable, failed = [], []
+        for r in batch:
+            if r.future.done():
+                continue  # partially delivered before the fault
+            if r.retries < self.max_dispatch_retries:
+                r.retries += 1
+                retryable.append(r)
+            else:
+                failed.append(r)
+        with self._cond:
+            self._record_fault_locked(now, "dispatch_error")
+            if retryable:
+                self._queue.extendleft(reversed(retryable))
+                self._cond.notify_all()
+        for r in failed:
+            r.future.set_error(exc)
+        if _tm.enabled():
+            if retryable:
+                _tm.counter("serving.dispatch_retries").inc(len(retryable))
+            if failed:
+                _tm.counter("serving.dispatch_failures").inc(len(failed))
+        if retryable:
+            time.sleep(self.retry_backoff_s * (0.5 + random.random()))
+
+    def _latch_failure(self, exc):
+        """The batcher thread is dying: latch the failure so every pending
+        queued future fails NOW and every later ``submit()``/``start()``
+        raises promptly, instead of hanging forever on a thread that will
+        never drain the queue (the PrefetchingIter._shutdown latch
+        pattern)."""
+        err = MXNetError(
+            "serving: batcher thread of engine %r died: %r — engine "
+            "latched, pending and future requests fail; build a new "
+            "engine" % (self.name, exc))
+        err.__cause__ = exc
+        with self._cond:
+            self._fatal = err
+            pending = list(self._queue)
+            self._queue.clear()
+            self._stop = True
+            self._cond.notify_all()
+        for r in pending:
+            r.future.set_error(err)
+        if _tm.enabled():
+            _tm.counter("serving.batcher_deaths").inc()
+            _tm.gauge("serving.queue_depth").set(0)
+
+    def _batcher_loop(self):
+        batch = None
+        try:
+            dev = self.cache._ctx.torch_device
+            if dev.type == "cuda":
+                # this thread owns the card: its launches go to the cache's
+                torch.cuda.set_device(dev)
+            while True:
+                _fi.fire("serving.batcher")
+                batch = self._gather()
+                if batch is None:
+                    return
+                if isinstance(batch, _ReloadRequest):
+                    self._apply_reload(batch)
+                    continue
+                try:
+                    with _tm.span("serving.batch", model=self.name,
+                                  requests=len(batch)):
+                        self._dispatch(batch)
+                except Exception as exc:  # deliver/retry, don't kill the loop
+                    self._retry_or_fail(batch, exc)
+        except BaseException as exc:
+            # anything that escapes the loop kills the thread: a
+            # non-Exception from dispatch, a bug in _gather/slicing, OOM
+            for r in (batch if isinstance(batch, list) else
+                      [batch] if batch is not None else ()):
+                if not r.future.done():
+                    r.future.set_error(exc)
+            self._latch_failure(exc)
+            raise
+
+    # -------------------------------------------------------------- health
+    def health(self):
+        """Point-in-time snapshot for external probes (docs/RESILIENCE.md):
+
+        * ``state`` — ``healthy`` | ``degraded`` (a shed or dispatch fault
+          inside ``health_window_s``) | ``latched`` (batcher dead,
+          unrecoverable) | ``stopped``
+        * ``queue_depth``, ``batcher_alive``, ``ewma_queue_wait_ms``
+        * ``shed_rate`` — sheds / offered over the engine's lifetime, and
+          ``recent_sheds`` / ``recent_dispatch_errors`` over the window
+        * ``reloads`` — applied hot swaps
+        * ``seq`` / ``snapshot_ms`` — a per-engine monotonic snapshot
+          counter and the wall-clock stamp of THIS snapshot. A consumer
+          that caches snapshots (the fleet router does) can tell a fresh
+          report from a dead replica's last-good numbers: a repeated
+          ``seq`` or an old ``snapshot_ms`` means nobody is answering —
+          dispatching on those numbers would send traffic to a corpse.
+        """
+        now = time.perf_counter()
+        with self._cond:
+            fatal = self._fatal
+            running = self._started and not self._stop
+            depth = len(self._queue)
+            est = self._est_wait_s_locked(now)
+            recent = self._recent_faults_snapshot(now)
+            sheds, submits = self._shed_count, self._submit_count
+            reloads = self._reloads
+            self._health_seq += 1
+            seq = self._health_seq
+        alive = self._thread is not None and self._thread.is_alive()
+        if fatal is not None:
+            state = "latched"
+        elif not running:
+            state = "stopped"
+        elif recent:
+            state = "degraded"
+        else:
+            state = "healthy"
+        return {
+            "state": state,
+            "seq": seq,
+            "snapshot_ms": time.time() * 1000.0,
+            "queue_depth": depth,
+            "batcher_alive": alive,
+            "ewma_queue_wait_ms": None if est is None
+            else round(est * 1000.0, 3),
+            "shed_rate": round(sheds / (submits + sheds), 4)
+            if (submits + sheds) else 0.0,
+            "recent_sheds": sum(1 for _, k in recent if k == "shed"),
+            "recent_dispatch_errors": sum(1 for _, k in recent
+                                          if k == "dispatch_error"),
+            "reloads": reloads,
+            "deadline_ms": None if self.default_deadline_s is None
+            else self.default_deadline_s * 1000.0,
+            # fusion pattern surface of the warmed buckets (inference-mode
+            # gating is per pattern per shape; see docs/PERF.md §13)
+            "fusion": self.cache.fusion_sites(),
+        }

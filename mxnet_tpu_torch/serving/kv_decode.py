@@ -45,6 +45,7 @@ ops, which a CUDA graph captures.
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -52,6 +53,7 @@ import torch
 
 from .. import ops as _ops
 from .. import random as _random
+from .. import telemetry as _tm
 from ..base import MXNetError
 from .cache import PersistentExecutableCache
 
@@ -73,6 +75,26 @@ def decode_megastep_k(default=1):
     except ValueError:
         return int(default)
     return k if k >= 1 else int(default)
+
+
+def _gap_mark(dec, site):
+    """``dispatch.host_gap``: host time from the previous dispatch's return
+    (its read-back) to this dispatch, per call site and in aggregate (JAX
+    :71). Off, it costs one predicate: no clock read."""
+    if not _tm.enabled():
+        return
+    last = dec._last_return_t
+    if last is not None:
+        dt = time.perf_counter() - last
+        _tm.timer("dispatch.host_gap").add(dt)
+        _tm.timer("dispatch.host_gap." + site).add(dt)
+
+
+def _gap_return(dec):
+    """Stamp the return side of the ``dispatch.host_gap`` interval, right
+    after a dispatch's read-back."""
+    if _tm.enabled():
+        dec._last_return_t = time.perf_counter()
 
 
 # ------------------------------------------------------------------ megastep
@@ -275,9 +297,13 @@ class _DecodeMegastep:
         z = self._zero_inputs()
         weights, kvs = self._bound_tensors(dec)
         dev = kvs[0].device
-        if dev.type == "cuda":
-            self._capture(dec, weights, kvs, z, dev)
+        with _tm.span("serving.megastep_compile", k=self.k, rows=self.rows,
+                      sampler=self.sampler.mode):
+            if dev.type == "cuda":
+                self._capture(dec, weights, kvs, z, dev)
         self._sig = _sig_of(*z)
+        if _tm.enabled():
+            _tm.counter("executor.compile").inc()
 
     def _capture(self, dec, weights, kvs, z, dev):
         static = self._tensors(z + (_sampling_key(dec), -1), dev)
@@ -305,10 +331,14 @@ class _DecodeMegastep:
         Returns host ``(ids (K, B) int64, acts (K, B) bool)``."""
         sig = _sig_of(tok0, pos, slots, base_mask, done0)
         if self._sig is not None and sig != self._sig:
+            if _tm.enabled():
+                _tm.counter("executor.retrace").inc()
             raise MXNetError(
                 "decode megastep (K=%d): input signature drifted from the warmed shapes "
                 "(%r != %r); megastep programs are sealed like the executable cache"
                 % (self.k, sig, self._sig))
+        if _tm.enabled():
+            _tm.counter("executor.cache_hit").inc()
         inputs = (tok0, pos, slots, base_mask, done0, _sampling_key(dec), eos)
         weights, kvs = self._bound_tensors(dec)
         if self._graph is None:
@@ -381,18 +411,25 @@ class _ChunkProgram:
 
     def warm(self, dec):
         z = self._zero_inputs()
-        self._forward(dec, *z)
+        with _tm.span("serving.chunk_compile", t=self.t):
+            self._forward(dec, *z)
         self._sig = _sig_of(*z)
+        if _tm.enabled():
+            _tm.counter("executor.compile").inc()
 
     def run(self, dec, data, pos_idx, w_oh, mask):
         """One chunk dispatch. Returns device ``(logits (T, vocab), new_kvs)``;
         the caller copies the KV into the buffers when the chunk writes."""
         sig = _sig_of(data, pos_idx, w_oh, mask)
         if self._sig is not None and sig != self._sig:
+            if _tm.enabled():
+                _tm.counter("executor.retrace").inc()
             raise MXNetError(
                 "chunk program (T=%d): input signature drifted from the warmed shapes "
                 "(%r != %r); chunk programs are sealed like the executable cache"
                 % (self.t, sig, self._sig))
+        if _tm.enabled():
+            _tm.counter("executor.cache_hit").inc()
         return self._forward(dec, data, pos_idx, w_oh, mask)
 
 
@@ -409,13 +446,16 @@ class KVCacheDecoder:
     ``arg_params`` is the {name: array} dict of ``models/transformer.
     get_symbol`` (numpy arrays, tensors, or anything ``arr[:] =`` takes);
     the serving graphs share those names. ``ctx`` defaults to ``gpu(0)``.
-    The decoder computes in float32, the JAX serving default.
+    The decoder computes in float32, the JAX serving default: a ``dtype``
+    other than ``"float32"`` raises. ``cache_dir`` and ``model_key`` name
+    the two caches' manifests (``model_key`` + ``-prefill`` / ``-decode``).
     ``sample_seed`` fixes the megastep sampler's draws."""
 
     def __init__(self, arg_params: Dict[str, object], vocab_size,
                  num_layers=2, num_heads=2, model_dim=32, ffn_dim=64,
                  max_len=64, prefill_len: Optional[int] = None,
-                 pos_len: Optional[int] = None, batch=1, ctx=None, sample_seed=None):
+                 pos_len: Optional[int] = None, batch=1, ctx=None,
+                 dtype="float32", cache_dir=None, model_key=None, sample_seed=None):
         from ..models import transformer as _tf
 
         self.vocab_size = int(vocab_size)
@@ -434,16 +474,20 @@ class KVCacheDecoder:
         cfg = dict(vocab_size=self.vocab_size, num_layers=self.num_layers,
                    num_heads=self.num_heads, model_dim=self.model_dim,
                    ffn_dim=self.ffn_dim, pos_len=self.pos_len)
+        key = model_key or "transformer_decode"
         self._pf_cache = PersistentExecutableCache(
             _tf.get_prefill_symbol(prefill_len=self.prefill_len, **cfg),
-            arg_params, ctx=ctx)
+            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            model_key=key + "-prefill")
         self._dec_cache = PersistentExecutableCache(
             _tf.get_decode_symbol(max_len=self.max_len, **cfg),
-            arg_params, ctx=ctx)
+            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            model_key=key + "-decode")
         self._dec_exe = None
         self._pos = 0
         self._warm = False
         self._token_out = False
+        self._last_return_t = None  # dispatch.host_gap interval start
         self._megasteps = {}  # (K, sampler) -> _DecodeMegastep
         self._sample_seed = sample_seed
         self._sample_key = None
@@ -500,18 +544,22 @@ class KVCacheDecoder:
         P = self.prefill_len
         padded = np.zeros((B, P), np.float32)
         padded[:, :L] = tokens
-        pf = self._pf_cache.executable({"data": (B, P)})
-        pf.arg_dict["data"][:] = padded
-        pf.forward(is_train=False)
-        # only the last real position's logits cross to the host
-        logits = pf.outputs[0]._tensor().reshape(B, P, self.vocab_size)[:, L - 1, :]
-        logits = logits.cpu().numpy()
+        with _tm.span("serving.prefill", rows=B, prompt_len=L):
+            pf = self._pf_cache.executable({"data": (B, P)})
+            pf.arg_dict["data"][:] = padded
+            pf.forward(is_train=False)
+            # only the last real position's logits cross to the host
+            logits = pf.outputs[0]._tensor().reshape(B, P, self.vocab_size)[:, L - 1, :]
+            logits = logits.cpu().numpy()
         # seed ring slots 0..P-1 with the prefill's K/V, in place on the
         # device (slots >= L hold garbage, masked until written)
         for i in range(self.num_layers):
             self._kv("kv_k_%d" % i)[:, :, 0:P, :].copy_(pf.outputs[1 + 2 * i]._tensor())
             self._kv("kv_v_%d" % i)[:, :, 0:P, :].copy_(pf.outputs[2 + 2 * i]._tensor())
         self._pos = L
+        self._last_return_t = None  # a new sequence: no decode return before it
+        if _tm.enabled():
+            _tm.counter("serving.prefill_tokens").inc(B * L)
         return logits
 
     # --------------------------------------------------------------- decode
@@ -532,6 +580,7 @@ class KVCacheDecoder:
         exe.arg_dict["pos_idx"][:] = np.full((self.batch, 1), p, np.float32)
         exe.arg_dict["slot_onehot"][:] = oh
         exe.arg_dict["kv_mask"][:] = mask
+        _gap_mark(self, "serving.decode_step")
         return exe
 
     def _finish_step(self, exe):
@@ -542,12 +591,20 @@ class KVCacheDecoder:
             for j, name in ((1 + 2 * i, "kv_k_%d" % i), (2 + 2 * i, "kv_v_%d" % i)):
                 self._kv(name)[:, :, s:s + 1, :].copy_(exe.outputs[j]._tensor()[:, :, s:s + 1, :])
         self._pos += 1
+        if _tm.enabled():
+            _tm.counter("serving.decode_tokens").inc(self.batch)
+            _tm.gauge("decode.tokens_per_dispatch").set(self.batch)
 
     def decode_step(self, tokens):
         """One token per stream; returns (B, vocab) logits for the next position."""
         exe = self._stage_step(tokens)
-        exe.forward(is_train=False)
-        logits = exe.outputs[0].asnumpy()
+        t0 = time.perf_counter()
+        with _tm.span("serving.decode_step", rows=self.batch, pos=self._pos):
+            exe.forward(is_train=False)
+            logits = exe.outputs[0].asnumpy()
+        if _tm.enabled():
+            _tm.timer("serving.decode_step").add(time.perf_counter() - t0)
+        _gap_return(self)
         self._finish_step(exe)
         return logits
 
@@ -559,8 +616,13 @@ class KVCacheDecoder:
         if not self._token_out:
             return np.argmax(self.decode_step(tokens), axis=-1)
         exe = self._stage_step(tokens)
-        exe.forward(is_train=False)
-        nxt = exe.outputs[-1].asnumpy()
+        t0 = time.perf_counter()
+        with _tm.span("serving.decode_step", rows=self.batch, pos=self._pos, greedy=True):
+            exe.forward(is_train=False)
+            nxt = exe.outputs[-1].asnumpy()
+        if _tm.enabled():
+            _tm.timer("serving.decode_step").add(time.perf_counter() - t0)
+        _gap_return(self)
         self._finish_step(exe)
         return nxt.astype(np.int64)
 
@@ -593,8 +655,18 @@ class KVCacheDecoder:
             .astype(np.float32).copy()
         done0 = np.zeros((B,), bool)
         eos = -1 if eos_id is None else int(eos_id)
-        ids, _acts = ms.run(self, tok0, posv, slots, base_mask, done0, eos)
+        _gap_mark(self, "serving.decode_megastep")
+        t0 = time.perf_counter()
+        with _tm.span("serving.decode_megastep", rows=B, pos=p, k=k):
+            ids, acts = ms.run(self, tok0, posv, slots, base_mask, done0, eos)
+        if _tm.enabled():
+            _tm.timer("serving.decode_megastep").add(time.perf_counter() - t0)
+        _gap_return(self)
         self._pos = p + k
+        if _tm.enabled():
+            _tm.counter("serving.decode_tokens").inc(int(acts.sum()))
+            _tm.counter("serving.megasteps").inc()
+            _tm.gauge("decode.tokens_per_dispatch").set(ids.size)
         return ids.T.astype(np.int64)
 
     def greedy(self, prompt, n_tokens, k=None, eos_id=None):
@@ -736,7 +808,8 @@ class PagedKVDecoder:
                  max_len=64, page_size=8, lanes=4, page_budget=None,
                  prefill_len: Optional[int] = None,
                  pos_len: Optional[int] = None, prefix_cache=None,
-                 prefix_chunk=None, ctx=None, sample_seed=None):
+                 prefix_chunk=None, ctx=None, dtype="float32", cache_dir=None,
+                 model_key=None, sample_seed=None):
         from ..models import transformer as _tf
 
         self.vocab_size = int(vocab_size)
@@ -775,13 +848,16 @@ class PagedKVDecoder:
         cfg = dict(vocab_size=self.vocab_size, num_layers=self.num_layers,
                    num_heads=self.num_heads, model_dim=self.model_dim,
                    ffn_dim=self.ffn_dim, pos_len=self.pos_len)
+        key = model_key or "transformer_paged_global_decode"
         self._pf_cache = PersistentExecutableCache(
             _tf.get_prefill_symbol(prefill_len=self.prefill_len, **cfg),
-            arg_params, ctx=ctx)
+            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            model_key=key + "-prefill")
         self._dec_cache = PersistentExecutableCache(
             _tf.get_decode_symbol(max_len=self.total_slots, per_stream_slots=True,
                                   global_slots=True, **cfg),
-            arg_params, ctx=ctx)
+            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            model_key=key + "-decode")
         self._dec_exe = None
         self._lanes: Dict[int, _Lane] = {}   # lane index -> _Lane
         self._seq_lane: Dict[int, int] = {}  # seq_id -> lane index
@@ -789,6 +865,7 @@ class PagedKVDecoder:
         self._warm = False
         self._megasteps = {}        # (K, sampler) -> _DecodeMegastep
         self._chunks = {}           # T -> _ChunkProgram
+        self._last_return_t = None  # dispatch.host_gap interval start
         self._sample_seed = sample_seed
         self._sample_key = None
 
@@ -863,6 +940,8 @@ class PagedKVDecoder:
             ring[:, fresh * P:(fresh + 1) * P, :].copy_(ring[:, frame * P:(frame + 1) * P, :])
         self.pool.release([frame])
         lane.frames[page] = fresh
+        if _tm.enabled():
+            _tm.counter("serving.cow_copies").inc()
         return fresh
 
     def _phys_slot(self, lane: _Lane, pos):
@@ -930,35 +1009,41 @@ class PagedKVDecoder:
             if self._prefix is not None:
                 logits = self._admit_chunked(prompt, lane)
             else:
-                logits = self._admit_prefill(prompt, lane)
+                logits = self._admit_prefill(prompt, lane, idx)
         except BaseException:
             # the caller has no seq_id to retire: release the lane and its
             # frames, or each failed admit would leak them
             self._evict(idx)
             raise
         lane.pos = L
+        self._last_return_t = None  # an admit breaks the steady decode chain
+        if _tm.enabled():
+            _tm.counter("serving.paged_admits").inc()
+            _tm.counter("serving.prefill_tokens").inc(L)
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
         return seq_id, logits
 
-    def _admit_prefill(self, prompt, lane):
+    def _admit_prefill(self, prompt, lane, idx):
         """One batch-1 prefill dispatch, then the prompt's K/V scattered into
         the lane's physical slots on the device."""
         L = prompt.shape[1]
         phys = [self._phys_slot(lane, p) for p in range(L)]
         padded = np.zeros((1, self.prefill_len), np.float32)
         padded[:, :L] = prompt
-        pf = self._pf_cache.executable({"data": (1, self.prefill_len)})
-        pf.arg_dict["data"][:] = padded
-        pf.forward(is_train=False)
-        logits = pf.outputs[0]._tensor().reshape(
-            1, self.prefill_len, self.vocab_size)[0, L - 1, :].cpu().numpy()
-        phys_idx = None
-        for i in range(self.num_layers):
-            for tag, out in (("kv_k_%d" % i, pf.outputs[1 + 2 * i]),
-                             ("kv_v_%d" % i, pf.outputs[2 + 2 * i])):
-                ring = self._kv(tag)
-                if phys_idx is None:
-                    phys_idx = torch.as_tensor(phys, dtype=torch.int64).to(ring.device)
-                ring.index_copy_(1, phys_idx, out._tensor()[0, :, :L, :])
+        with _tm.span("serving.paged_admit", seq=lane.seq_id, prompt_len=L, lane=idx):
+            pf = self._pf_cache.executable({"data": (1, self.prefill_len)})
+            pf.arg_dict["data"][:] = padded
+            pf.forward(is_train=False)
+            logits = pf.outputs[0]._tensor().reshape(
+                1, self.prefill_len, self.vocab_size)[0, L - 1, :].cpu().numpy()
+            phys_idx = None
+            for i in range(self.num_layers):
+                for tag, out in (("kv_k_%d" % i, pf.outputs[1 + 2 * i]),
+                                 ("kv_v_%d" % i, pf.outputs[2 + 2 * i])):
+                    ring = self._kv(tag)
+                    if phys_idx is None:
+                        phys_idx = torch.as_tensor(phys, dtype=torch.int64).to(ring.device)
+                    ring.index_copy_(1, phys_idx, out._tensor()[0, :, :L, :])
         return logits
 
     def _chunk_for(self, t):
@@ -994,8 +1079,11 @@ class PagedKVDecoder:
                 w_oh[j, phys[j]] = 1.0
             mask[j, seen] = 0.0
             mask[j, phys[: j + 1]] = 0.0
-        logits, new_kvs = prog.run(self, data, pos_idx, w_oh, mask)
-        out = logits[:n].cpu().numpy()
+        _gap_mark(self, "serving.chunk_prefill")
+        with _tm.span("serving.chunk_prefill", t=T, rows=n, write=bool(write)):
+            logits, new_kvs = prog.run(self, data, pos_idx, w_oh, mask)
+            out = logits[:n].cpu().numpy()
+        _gap_return(self)
         if write:
             self._write_back(new_kvs)
         return out
@@ -1023,27 +1111,39 @@ class PagedKVDecoder:
         for f in frames:
             self.pool.incref(f)
         lane.frames = list(frames)
+        if _tm.enabled() and frames:
+            _tm.counter("serving.pages_shared").inc(len(frames))
         if matched:
             self._prefix_hits += 1
+            if _tm.enabled():
+                _tm.counter("serving.prefix_hits").inc(matched)
+                _tm.counter("serving.prefill_tokens_saved").inc(matched * C)
         else:
             self._prefix_misses += 1
+        if _tm.enabled():
+            _tm.counter("serving.prefix_misses").inc(n_full - matched)
         logits = None
-        for c in range(matched, n_full):
-            base = c * C
-            rows = self._run_chunk(lane, toks[base:base + C], base, write=True)
-            logits = rows[-1]
-            # whole chunks become cache entries as soon as they are
-            # computed; the index increfs the frames itself
-            self._prefix.insert(
-                hashes[c], lane.frames[base // self.page_size:(base + C) // self.page_size],
-                parent=hashes[c - 1] if c else None)
-        tail = L - n_full * C
-        if tail:
-            logits = self._run_chunk(lane, toks[L - tail:], L - tail, write=True)[-1]
-        elif logits is None:
-            # full match: zero-write replay of the last chunk
-            base = (n_full - 1) * C
-            logits = self._run_chunk(lane, toks[base:base + C], base, write=False)[-1]
+        with _tm.span("serving.paged_admit", seq=lane.seq_id, prompt_len=L,
+                      cached_tokens=matched * C):
+            for c in range(matched, n_full):
+                base = c * C
+                rows = self._run_chunk(lane, toks[base:base + C], base, write=True)
+                logits = rows[-1]
+                # whole chunks become cache entries as soon as they are
+                # computed; the index increfs the frames itself
+                self._prefix.insert(
+                    hashes[c], lane.frames[base // self.page_size:(base + C) // self.page_size],
+                    parent=hashes[c - 1] if c else None)
+            tail = L - n_full * C
+            if tail:
+                logits = self._run_chunk(lane, toks[L - tail:], L - tail, write=True)[-1]
+            elif logits is None:
+                # full match: zero-write replay of the last chunk
+                base = (n_full - 1) * C
+                logits = self._run_chunk(lane, toks[base:base + C], base, write=False)[-1]
+        if _tm.enabled():
+            tot = self._prefix_hits + self._prefix_misses
+            _tm.gauge("serving.prefix_hit_rate").set(self._prefix_hits / tot if tot else 0.0)
         return logits
 
     def _evict(self, idx):
@@ -1056,6 +1156,9 @@ class PagedKVDecoder:
         masked out for every other lane already; nothing is zeroed)."""
         idx, _ = self._lane_of(seq_id)
         self._evict(idx)
+        if _tm.enabled():
+            _tm.counter("serving.paged_retires").inc()
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
 
     @property
     def active(self):
@@ -1080,6 +1183,9 @@ class PagedKVDecoder:
             self.pool.incref(f)
         self._lanes[new_idx] = lane
         self._seq_lane[new_id] = new_idx
+        if _tm.enabled():
+            _tm.counter("serving.pages_shared").inc(len(lane.frames))
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
         return new_id
 
     def rollback(self, seq_id, pos):
@@ -1097,6 +1203,9 @@ class PagedKVDecoder:
         del lane.frames[keep:]
         self.pool.release(dropped)
         lane.pos = pos
+        if _tm.enabled():
+            _tm.counter("spec.rollbacks").inc()
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
 
     def verify_chunk(self, seq_id, tokens):
         """Score ``tokens`` (length T) at the sequence's next T positions in
@@ -1117,6 +1226,8 @@ class PagedKVDecoder:
                 "table (%d rows)" % (seq_id, lane.pos, lane.pos + t - 1, self.pos_len))
         rows = self._run_chunk(lane, toks, lane.pos, write=True, prog=self._chunk_for(t))
         lane.pos += t
+        if _tm.enabled():
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
         return rows
 
     # --------------------------------------------------------------- decode
@@ -1153,13 +1264,21 @@ class PagedKVDecoder:
         exe.arg_dict["pos_idx"][:] = pos_idx
         exe.arg_dict["slot_onehot"][:] = oh
         exe.arg_dict["kv_mask"][:] = mask
-        exe.forward(is_train=False)
-        logits = exe.outputs[0].asnumpy()
+        _gap_mark(self, "serving.paged_step")
+        with _tm.span("serving.decode_step", rows=len(stepped), paged=True):
+            exe.forward(is_train=False)
+            logits = exe.outputs[0].asnumpy()
+        _gap_return(self)
         self._write_back([exe.outputs[1 + j]._tensor() for j in range(2 * self.num_layers)])
         out = {}
         for seq_id, idx, lane in stepped:
             lane.pos += 1
             out[seq_id] = logits[idx]
+        if _tm.enabled():
+            _tm.counter("serving.decode_tokens").inc(len(stepped))
+            _tm.counter("serving.paged_steps").inc()
+            _tm.gauge("decode.tokens_per_dispatch").set(len(stepped))
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
         return out
 
     def step_megastep(self, tokens: Dict[int, object], k=None, eos_id=None,
@@ -1204,13 +1323,24 @@ class PagedKVDecoder:
             base_mask[idx, self._lane_slots(lane)] = 0.0
             done0[idx] = False
         eos = -1 if eos_id is None else int(eos_id)
-        ids, acts = ms.run(self, tok0, posv, slots, base_mask, done0, eos)
+        _gap_mark(self, "serving.paged_megastep")
+        with _tm.span("serving.decode_megastep", rows=len(stepped), paged=True, k=k):
+            ids, acts = ms.run(self, tok0, posv, slots, base_mask, done0, eos)
+        _gap_return(self)
         out = {}
+        written = 0
         for seq_id, idx, lane, _ in stepped:
             # active steps form a prefix (done latches): exactly the steps
             # whose KV write landed, and only those positions advance
-            lane.pos += int(acts[:, idx].sum())
+            n_w = int(acts[:, idx].sum())
+            lane.pos += n_w
+            written += n_w
             out[seq_id] = ids[:, idx].astype(np.int64)
+        if _tm.enabled():
+            _tm.counter("serving.decode_tokens").inc(written)
+            _tm.counter("serving.megasteps").inc()
+            _tm.gauge("decode.tokens_per_dispatch").set(k * len(stepped))
+            _tm.gauge("serving.paged_pages_in_use").set(self.pool.in_use)
         return out
 
     def greedy(self, prompts, n_tokens, k=None):

@@ -1,7 +1,7 @@
 """Cross-request KV prefix cache over the paged pool.
 
 Copied from ``mxnet_tpu/serving/prefix_cache.py`` (``PrefixCache`` :44),
-which is backend-free, without its telemetry calls.
+which is backend-free.
 
 A prompt is hashed in fixed C-token chunks with CHAINED digests (chunk i's
 hash folds in chunk i-1's, so a hash names the whole prefix up to and
@@ -22,6 +22,8 @@ import hashlib
 from collections import OrderedDict
 
 import numpy as np
+
+from .. import telemetry as _tm
 
 __all__ = ["PrefixCache"]
 
@@ -97,6 +99,8 @@ class PrefixCache:
             self._entries[parent].children += 1
         for f in e.frames:
             self.pool.incref(f)
+        if _tm.enabled():
+            _tm.gauge("serving.prefix_entries").set(len(self._entries))
 
     # ------------------------------------------------------------- eviction
     def evict_for(self, n):
@@ -116,6 +120,9 @@ class PrefixCache:
                 self._entries[e.parent].children -= 1
             self.pool.release(e.frames)
             self._evictions += 1
+            if _tm.enabled():
+                _tm.counter("serving.prefix_evictions").inc()
+                _tm.gauge("serving.prefix_entries").set(len(self._entries))
         return True
 
     def stats(self):

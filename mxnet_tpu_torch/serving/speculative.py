@@ -1,7 +1,7 @@
 """Speculative decoding over the paged pool.
 
 Counterpart of ``mxnet_tpu/serving/speculative.py`` (``SpeculativeDecoder``
-:66, the ``MXNET_SPEC_*`` helpers :46-63), without its telemetry counters.
+:66, the ``MXNET_SPEC_*`` helpers :46-63), with its ``spec.*`` counters.
 
 A small draft model (the target's first k blocks,
 ``models/transformer.draft_config``; weight names are positional, so the
@@ -31,6 +31,7 @@ import os
 
 import numpy as np
 
+from .. import telemetry as _tm
 from ..base import MXNetError
 from .kv_decode import PagedKVDecoder
 
@@ -76,15 +77,19 @@ class SpeculativeDecoder:
         self._pairs = {}  # target seq_id -> draft seq_id
 
     @classmethod
-    def build(cls, arg_params, vocab_size, num_layers=2, draft_layers=1, gamma=None, **kw):
+    def build(cls, arg_params, vocab_size, num_layers=2, draft_layers=1, gamma=None,
+              model_key=None, **kw):
         """Target and draft from ONE checkpoint: the draft is the same config
         cut to its first ``draft_layers`` blocks (the cache ignores the
-        checkpoint's extra entries at bind)."""
+        checkpoint's extra entries at bind). The draft's caches take the
+        target's ``model_key`` with ``-draft<k>`` added, as in JAX."""
         from ..models.transformer import draft_config
 
         cfg = dict(vocab_size=vocab_size, num_layers=num_layers, **kw)
-        target = PagedKVDecoder(arg_params, **cfg)
-        draft = PagedKVDecoder(arg_params, **draft_config(cfg, draft_layers))
+        target = PagedKVDecoder(arg_params, model_key=model_key, **cfg)
+        draft = PagedKVDecoder(
+            arg_params, model_key=(model_key or "transformer_paged_global_decode")
+            + "-draft%d" % draft_layers, **draft_config(cfg, draft_layers))
         return cls(target, draft, gamma=gamma)
 
     # ------------------------------------------------------------ lifecycle
@@ -172,6 +177,10 @@ class SpeculativeDecoder:
                     emitted = list(props) + [int(ids[g])]
                     # the draft never wrote props[-1]: one catch-up step
                     self.draft.step({d_id: int(props[-1])})
+                if _tm.enabled():
+                    _tm.counter("spec.proposed_tokens").inc(int(g))
+                    _tm.counter("spec.accepted_tokens").inc(n_acc)
+                    _tm.counter("spec.rounds").inc()
                 for tok in emitted:
                     if t >= n_tokens:
                         break

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .attribute import AttrScope
 from .base import MXNetError, np_dtype, numpy_dtype, torch_dtype
 from .context import current_context
 from .name import NameManager
@@ -27,7 +28,8 @@ from .ops import registry as _registry
 from .ops.registry import get_op, parse_attrs
 from .ops.shape_rules import RULES as _SHAPE_RULES
 
-__all__ = ["Symbol", "Variable", "Group", "load_json", "load"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json", "pow", "maximum",
+           "minimum"]
 
 
 class _Node:
@@ -120,6 +122,15 @@ class Symbol:
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "Grouped")
 
+    def __iter__(self):
+        return (Symbol([o]) for o in self._outputs)
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
     def __getitem__(self, index):
         """One output (or a slice of them) by position or by its name in
         ``list_outputs()``."""
@@ -175,6 +186,32 @@ class Symbol:
         """Aux state names (BatchNorm's moving stats) in topological order."""
         return [n.name for n in self._classified_variables()[1]]
 
+    def list_inputs(self) -> List[str]:
+        """Every variable, arguments and aux states, in topological order."""
+        return [n.name for n in self._topo() if n.is_variable]
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of the head nodes as one grouped symbol, or None."""
+        outs = []
+        for node in self._head_nodes():
+            outs.extend(node.inputs)
+        return Symbol(outs) if outs else None
+
+    # ------------------------------------------------------------------ attrs
+    def attr(self, key):
+        if len(self._outputs) != 1:
+            raise MXNetError("attr() requires a single-output symbol")
+        v = self._outputs[0][0].attrs.get(key)
+        return None if v is None else str(v)
+
+    def list_attr(self):
+        if len(self._outputs) != 1:
+            raise MXNetError("list_attr() requires a single-output symbol")
+        return {k: str(v) for k, v in self._outputs[0][0].attrs.items()}
+
+    def attr_dict(self):
+        return {n.name: {k: str(v) for k, v in n.attrs.items()} for n in self._topo() if n.attrs}
+
     def list_outputs(self) -> List[str]:
         out = []
         for node, idx in self._outputs:
@@ -207,20 +244,94 @@ class Symbol:
 
     __rmul__ = __mul__
 
+    def __truediv__(self, other):
+        return self._binary(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elemwise_div", "_rdiv_scalar", reverse=True)
+
+    __div__ = __truediv__
+    __rdiv__ = __rtruediv__
+
+    def __pow__(self, other):
+        if isinstance(other, Symbol):
+            return _create("_power", [self, other], {})
+        return _create("_power_scalar", [self], {"scalar": float(other)})
+
+    def __neg__(self):
+        return _create("negative", [self], {})
+
+    # comparisons build graph nodes, as in the reference; identity hashing
+    # keeps symbols usable as dict keys
+    def __eq__(self, other):
+        if isinstance(other, (Symbol, int, float)):
+            return self._binary(other, "_equal", "_equal_scalar")
+        return NotImplemented
+
+    def __ne__(self, other):
+        if isinstance(other, (Symbol, int, float)):
+            return self._binary(other, "_not_equal", "_not_equal_scalar")
+        return NotImplemented
+
+    def __gt__(self, other):
+        return self._binary(other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binary(other, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binary(other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binary(other, "_lesser_equal", "_lesser_equal_scalar")
+
+    __hash__ = object.__hash__
+
     # -------------------------------------------------------------- inference
-    def infer_shape(self, **kwargs):
-        """(arg_shapes, out_shapes, aux_shapes) from input shapes; (None, None,
-        None) when the given shapes leave some argument undetermined."""
+    def _resolve_kwargs_shapes(self, args, kwargs):
+        """Shape hints by name from positional shapes (in argument order)
+        and keywords."""
+        known = {}
+        for name, sh in zip(self.list_arguments(), args):
+            if sh is not None:
+                known[name] = tuple(sh)
+        for k, v in kwargs.items():
+            if v is not None:
+                known[k] = tuple(v)
+        return known
+
+    def infer_shape(self, *args, **kwargs):
+        """(arg_shapes, out_shapes, aux_shapes) from input shapes, given in
+        argument order or by name; (None, None, None) when they leave some
+        argument undetermined."""
         try:
-            return self._infer_impl(
-                {k: tuple(v) for k, v in kwargs.items() if v is not None}, {})[:3]
+            return self._infer_impl(self._resolve_kwargs_shapes(args, kwargs), {})[:3]
         except _IncompleteInference:
             return None, None, None
 
-    def _infer_impl(self, shape_hints: dict, type_hints: dict):
+    def infer_shape_partial(self, *args, **kwargs):
+        """As ``infer_shape``, with None for whatever stays undetermined."""
+        return self._infer_impl(self._resolve_kwargs_shapes(args, kwargs), {},
+                                partial=True)[:3]
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) from input dtypes, given in
+        argument order or by name; needs no shapes (JAX :317)."""
+        known = {}
+        for name, t in zip(self.list_arguments(), args):
+            if t is not None:
+                known[name] = np_dtype(t)
+        for k, v in kwargs.items():
+            if v is not None:
+                known[k] = np_dtype(v)
+        res = self._infer_impl({}, known, partial=True)
+        return res[3], res[4], res[5]
+
+    def _infer_impl(self, shape_hints: dict, type_hints: dict, partial: bool = False):
         """Shapes and dtypes of every argument, output and aux state:
         ``(arg_shapes, out_shapes, aux_shapes, arg_types, out_types,
-        aux_types)``."""
+        aux_types)``. With ``partial`` an undetermined shape is None and the
+        dtypes still propagate (JAX :333)."""
         topo = self._topo()
         args, auxs = self._classified_variables()
         shape: Dict[Tuple[int, int], Optional[tuple]] = {}
@@ -240,6 +351,8 @@ class Symbol:
         for node in topo:
             if node.is_variable:
                 shape[(id(node), 0)] = var_shape[node.name]
+                if var_dtype[node.name] is not None:
+                    dtype[(id(node), 0)] = var_dtype[node.name]
                 continue
             parsed = node.parsed_attrs()
             entries = [(id(n), i) for n, i in node.inputs]
@@ -255,6 +368,22 @@ class Symbol:
                             var_shape[inp.name] = new
                 in_shapes = [shape.get(e) for e in entries]
             if any(s is None for s in in_shapes):
+                if partial:
+                    # shapes unknown: still propagate dtypes by promotion
+                    # (the inputs take the promotion of the KNOWN input
+                    # dtypes, never a dtype-forcing op's output dtype)
+                    known_in = [d for d in (dtype.get(e) for e in entries) if d is not None]
+                    promo = np.dtype(np.result_type(*known_in)) if known_in else None
+                    for inp, _ in node.inputs:
+                        if inp.is_variable and var_dtype.get(inp.name) is None \
+                                and promo is not None:
+                            var_dtype[inp.name] = promo
+                            dtype[(id(inp), 0)] = promo
+                    dt = _fallback_dtype(parsed, known_in)
+                    for i in range(node.num_outputs()):
+                        shape[(id(node), i)] = None
+                        dtype[(id(node), i)] = dt
+                    continue
                 missing = [node.inputs[i][0].name for i, s in enumerate(in_shapes)
                            if s is None and node.inputs[i][0].is_variable]
                 raise _IncompleteInference("cannot infer shapes at node %r (op %s): "
@@ -276,32 +405,38 @@ class Symbol:
                 dtype[(id(node), i)] = np.dtype(dt)
         arg_shapes = [var_shape.get(n.name) for n in args]
         aux_shapes = [var_shape.get(n.name) for n in auxs]
-        if any(s is None for s in arg_shapes + aux_shapes):
+        if not partial and any(s is None for s in arg_shapes + aux_shapes):
             raise _IncompleteInference("underdetermined shapes for arguments %s"
                                        % [n.name for n in args + auxs
                                           if var_shape.get(n.name) is None])
         arg_types = [var_dtype.get(n.name) or np.dtype(np.float32) for n in args]
         aux_types = [var_dtype.get(n.name) or np.dtype(np.float32) for n in auxs]
-        out_shapes = [shape[(id(n), i)] for n, i in self._outputs]
+        out_shapes = [shape.get((id(n), i)) for n, i in self._outputs]
         out_types = [dtype.get((id(n), i), var_dtype.get(n.name)) or np.dtype(np.float32)
                      for n, i in self._outputs]
         return arg_shapes, out_shapes, aux_shapes, arg_types, out_types, aux_types
 
     # --------------------------------------------------------------- binding
-    def simple_bind(self, ctx=None, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None, group2ctx=None,
+                    **kwargs):
         """Allocate every argument (and its gradient, where grad_req is not
         null) from the given input shapes and bind; ``ctx=None`` is
         ``current_context()``, the GPU."""
         from .executor import simple_bind as _sb
 
         return _sb(self, ctx or current_context(), grad_req=grad_req, type_dict=type_dict,
-                   **kwargs)
+                   group2ctx=group2ctx, **kwargs)
 
-    def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None):
+    def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None,
+             group2ctx=None, shared_exec=None):
         from .executor import bind as _bind
 
         return _bind(self, ctx, args, args_grad=args_grad, grad_req=grad_req,
-                     aux_states=aux_states)
+                     aux_states=aux_states, shared_exec=shared_exec, group2ctx=group2ctx)
+
+    def eval(self, ctx=None, **kwargs):
+        """One-shot inference forward on NDArray keyword inputs."""
+        return self.bind(ctx or current_context(), kwargs).forward(is_train=False)
 
     # ------------------------------------------------------------------ JSON
     def tojson(self) -> str:
@@ -326,6 +461,30 @@ class Symbol:
         with open(fname, "w") as f:
             f.write(self.tojson())
 
+    def debug_str(self) -> str:
+        lines = []
+        for n in self._topo():
+            if n.is_variable:
+                lines.append("Variable:%s" % n.name)
+            else:
+                ins = ", ".join("%s[%d]" % (inp.name, oi) for inp, oi in n.inputs)
+                lines.append("Op:%s, Name=%s\nInputs:\n\t%s" % (n.op, n.name, ins))
+        return "\n".join(lines)
+
+
+def _fallback_dtype(parsed, known):
+    """The dtype of a node whose shapes are unknown (copied from
+    mxnet_tpu/symbol.py ``_fallback_dtype``): its declared ``dtype`` attr
+    (Cast, the creation ops) or the numpy promotion of its known inputs."""
+    if isinstance(parsed.get("dtype"), (np.dtype, type, str)):
+        try:
+            return np.dtype(np_dtype(parsed["dtype"]))
+        except TypeError:
+            pass
+    if not known:
+        return np.dtype(np.float32)
+    return np.dtype(np.result_type(*known))
+
 
 def _parse_shape_attr(v):
     if isinstance(v, (tuple, list)):
@@ -348,12 +507,34 @@ def _eval_node_shape(op_name, attrs_key, in_shapes, in_dtypes, n_aux):
 
 
 # ----------------------------------------------------------------- creation
-def Variable(name, shape=None) -> Symbol:
-    """Create a named variable placeholder (reference: symbol.py Variable)."""
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None, dtype=None, init=None,
+             **kwargs) -> Symbol:
+    """Create a named variable placeholder (reference: symbol.py Variable).
+    The optional settings go into its JSON attrs as the reference writes
+    them: ``__shape__``, ``__lr_mult__``, ``__wd_mult__``, ``__dtype__``,
+    ``__init__`` and any other ``__key__`` keyword."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    attr = {} if shape is None else {"__shape__": str(tuple(shape))}
+    attr = dict(AttrScope.current().get(attr) or {})
+    if shape is not None:
+        attr["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        attr["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attr["__wd_mult__"] = str(wd_mult)
+    if dtype is not None:
+        attr["__dtype__"] = np.dtype(np_dtype(dtype)).name
+    if init is not None:
+        attr["__init__"] = init if isinstance(init, str) else init.dumps()
+    for k, v in kwargs.items():
+        if k.startswith("__") and k.endswith("__"):
+            attr[k] = str(v)
+        else:
+            raise ValueError("Attribute name=%s is not supported." % k)
     return Symbol([(_Node(None, name, attr, []), 0)])
+
+
+var = Variable
 
 
 def Group(symbols) -> Symbol:
@@ -375,12 +556,15 @@ def _single_outputs(op_name, input_syms):
     return inputs
 
 
-def _create(op_name, input_syms, attrs, name=None) -> Symbol:
-    """Create an op node over single-output input symbols."""
+def _create(op_name, input_syms, attrs, name=None, attr=None) -> Symbol:
+    """Create an op node over single-output input symbols; the AttrScope's
+    attrs (and ``attr``) go onto the node, as in the reference."""
     opdef = get_op(op_name)
     parsed = parse_attrs(opdef, attrs)
     name = NameManager.current().get(name, opdef.name.lower().lstrip("_") or opdef.name.lower())
-    node = _Node(opdef.name, name, dict(attrs), _single_outputs(op_name, input_syms))
+    node_attrs = dict(attrs)
+    node_attrs.update(AttrScope.current().get(attr))
+    node = _Node(opdef.name, name, node_attrs, _single_outputs(op_name, input_syms))
     return Symbol([(node, i) for i in range(opdef.num_outputs(parsed))])
 
 
@@ -389,6 +573,7 @@ def _make_symbol_function(op_name):
 
     def creator(*args, **kwargs):
         name = kwargs.pop("name", None)
+        attr = kwargs.pop("attr", None)
         sym_kwargs, attrs = {}, {}
         for a in args:
             if not isinstance(a, Symbol):
@@ -411,7 +596,9 @@ def _make_symbol_function(op_name):
             filled[k] = v
         # omitted named inputs become new variables "<name>_<slot>" (reference behavior)
         input_syms = [filled[s] if s in filled else Variable("%s_%s" % (name, s)) for s in slots]
-        node = _Node(opdef.name, name, attrs, _single_outputs(op_name, input_syms))
+        node_attrs = dict(attrs)
+        node_attrs.update(AttrScope.current().get(attr))
+        node = _Node(opdef.name, name, node_attrs, _single_outputs(op_name, input_syms))
         return Symbol([(node, i) for i in range(opdef.num_outputs(parsed))])
 
     creator.__name__ = op_name
@@ -436,6 +623,36 @@ def load_json(json_str: str) -> Symbol:
 def load(fname: str) -> Symbol:
     with open(fname) as f:
         return load_json(f.read())
+
+
+def fromjson(json_str: str) -> Symbol:
+    return load_json(json_str)
+
+
+def pow(base, exp):
+    if isinstance(base, Symbol) and isinstance(exp, Symbol):
+        return _create("_power", [base, exp], {})
+    if isinstance(base, Symbol):
+        return base.__pow__(exp)
+    if isinstance(exp, Symbol):
+        return _create("_rpower_scalar", [exp], {"scalar": float(base)})
+    raise TypeError("pow: need at least one Symbol")
+
+
+def maximum(left, right):
+    if isinstance(left, Symbol) and isinstance(right, Symbol):
+        return _create("_maximum", [left, right], {})
+    if isinstance(left, Symbol):
+        return _create("_maximum_scalar", [left], {"scalar": float(right)})
+    return _create("_maximum_scalar", [right], {"scalar": float(left)})
+
+
+def minimum(left, right):
+    if isinstance(left, Symbol) and isinstance(right, Symbol):
+        return _create("_minimum", [left, right], {})
+    if isinstance(left, Symbol):
+        return _create("_minimum_scalar", [left], {"scalar": float(right)})
+    return _create("_minimum_scalar", [right], {"scalar": float(left)})
 
 
 def _init_symbol_module():

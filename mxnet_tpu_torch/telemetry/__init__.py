@@ -1,0 +1,63 @@
+# copied from mxnet_tpu/telemetry/__init__.py (backend-free)
+"""mxnet_tpu_torch.telemetry: low-overhead runtime observability.
+
+The framework-level counterpart of the reference engine profiler
+(src/engine/profiler.cc hand-stamped per-op start/end times and dumped
+chrome-trace JSON): a process-wide registry of named counters/gauges/timers
+with per-step snapshots, structured spans at the hot seams (engine push,
+executor compile-vs-cache-hit, fusion engage/fallback, kvstore push/pull,
+io batch fetch), and a chrome-trace exporter that records the directory
+of a ``torch.profiler`` capture taken alongside. Gated by ``MXNET_TELEMETRY=0|counters|trace``
+(docs/ENV_VARS.md); off is the default and costs one mode check per
+instrumented seam. Taxonomy and usage: docs/OBSERVABILITY.md.
+
+Fleet plane (docs/OBSERVABILITY.md §Fleet): every Timer streams into a
+log-bucketed mergeable :mod:`histogram` (p50/p95/p99 with fixed memory),
+spans inherit a per-request trace context that the fleet RPC layer
+propagates across processes, ``merge_traces`` aligns per-pid chrome
+dumps into one clock-corrected timeline, and :mod:`slo` evaluates
+declarative SLOs (``MXNET_SLO``) with multi-window burn rates.
+
+    MXNET_TELEMETRY=trace python train.py
+    python tools/mxtrace profile.json          # per-step table + top spans
+"""
+from __future__ import annotations
+
+from . import histogram, lockwitness, slo
+from .histogram import Histogram
+from .lockwitness import (named_condition, named_lock, named_rlock,
+                          note_dispatch, reset_witness, witness_report,
+                          witnessing)
+from .registry import (Counter, Gauge, StepStats, Timer, counter, counters,
+                       gauge, hist_buckets, mark_step, reset, snapshot,
+                       step_rows, timer)
+from .slo import SloMonitor, SloSpec
+from .spans import (MODE_COUNTERS, MODE_OFF, MODE_TRACE, NULL_SPAN,
+                    clear_events, current_override, drain_events,
+                    dropped_events, enabled, event, mode, record_span,
+                    set_mode, set_trace_context, span, trace_context,
+                    trace_scope, tracing)
+from .trace import (SCHEMA_VERSION, build_trace, export_chrome_trace,
+                    gap_summary, merge_traces, span_summary, summarize)
+
+__all__ = [
+    # registry
+    "Counter", "Gauge", "Timer", "StepStats",
+    "counter", "gauge", "timer", "counters", "snapshot", "hist_buckets",
+    "mark_step", "step_rows", "reset",
+    # histograms / SLO
+    "Histogram", "histogram", "slo", "SloSpec", "SloMonitor",
+    # spans / gating
+    "MODE_OFF", "MODE_COUNTERS", "MODE_TRACE", "NULL_SPAN",
+    "mode", "enabled", "tracing", "set_mode", "current_override",
+    "span", "event", "record_span", "drain_events", "clear_events",
+    "dropped_events",
+    # trace context (fleet request tracing)
+    "set_trace_context", "trace_context", "trace_scope",
+    # lock witness (MXNET_CONCLINT=witness; analysis/concurrency_lint GL805)
+    "lockwitness", "named_lock", "named_rlock", "named_condition",
+    "note_dispatch", "witnessing", "witness_report", "reset_witness",
+    # export
+    "SCHEMA_VERSION", "build_trace", "export_chrome_trace",
+    "gap_summary", "span_summary", "summarize", "merge_traces",
+]

@@ -1,0 +1,297 @@
+# copied from mxnet_tpu/telemetry/registry.py (backend-free)
+"""Process-wide instrument registry: counters, gauges, timers, StepStats.
+
+The reference engine's profiler kept per-op stat tables inside the engine
+(src/engine/profiler.cc); here the registry is the framework-wide single
+source of truth every layer reports into — executor compiles/cache hits,
+fusion engage decisions, kvstore bytes, io fetch latency — and every
+consumer reads out of (Speedometer, Monitor.toc, bench.py, mxtrace).
+
+Thread-safety: one process-wide lock guards instrument *creation*; each
+instrument carries its own lock for mutation, so concurrent engine workers
+incrementing different counters never contend on a global. All instruments
+are monotonically named — ``counter("engine.push")`` get-or-creates — and
+live for the process unless ``reset()`` is called (tests).
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+from . import histogram as _histmod
+
+__all__ = ["Counter", "Gauge", "Timer", "StepStats",
+           "counter", "gauge", "timer", "counters", "snapshot",
+           "hist_buckets", "mark_step", "step_rows", "reset"]
+
+
+def _hist_enabled():
+    """MXNET_TELEMETRY_HIST gate (default ON): each Timer carries a
+    fixed-memory log-bucketed histogram so hot-seam timers report
+    p50/p95/p99 (docs/OBSERVABILITY.md §Fleet). Read at instrument
+    creation — ``reset()`` (tests) picks up a flipped env."""
+    raw = os.environ.get("MXNET_TELEMETRY_HIST", "1").strip().lower()
+    return raw not in ("0", "off", "false")
+
+
+class Counter:
+    """Monotonic integer counter (exact under threads)."""
+
+    __slots__ = ("name", "_v", "_lock")
+
+    def __init__(self, name):
+        self.name = name
+        self._v = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n=1):
+        with self._lock:
+            self._v += n
+
+    @property
+    def value(self):
+        return self._v
+
+
+class Gauge:
+    """Last-written value (e.g. heartbeat age, dead-node count)."""
+
+    __slots__ = ("name", "_v", "_lock")
+
+    def __init__(self, name):
+        self.name = name
+        self._v = None
+        self._lock = threading.Lock()
+
+    def set(self, v):
+        with self._lock:
+            self._v = v
+
+    @property
+    def value(self):
+        return self._v
+
+
+class Timer:
+    """Accumulated duration + call count. ``add`` takes SECONDS (what
+    ``time.perf_counter`` deltas produce); readers get milliseconds.
+
+    Unless ``MXNET_TELEMETRY_HIST=0``, every Timer also streams samples
+    into a log-bucketed :class:`telemetry.histogram.Histogram` — one
+    bucket increment per ``add``, fixed memory — so quantile readers
+    (``quantiles_ms``, ``snapshot``, StepStats, mxtrace, fleet rollups)
+    see tail latency, not just the mean."""
+
+    __slots__ = ("name", "_total", "_count", "_lock", "hist")
+
+    def __init__(self, name):
+        self.name = name
+        self._total = 0.0
+        self._count = 0
+        self._lock = threading.Lock()
+        self.hist = _histmod.Histogram() if _hist_enabled() else None
+
+    def add(self, seconds):
+        with self._lock:
+            self._total += seconds
+            self._count += 1
+        if self.hist is not None:
+            self.hist.record(seconds)
+
+    @property
+    def total_ms(self):
+        return self._total * 1000.0
+
+    @property
+    def count(self):
+        return self._count
+
+    def quantiles_ms(self, ps=(0.5, 0.95, 0.99)):
+        """{"p50": ms, "p95": ms, "p99": ms} (bounded ~10% relative
+        error); {} when the histogram is disabled or empty."""
+        if self.hist is None:
+            return {}
+        return self.hist.quantiles_ms(ps)
+
+
+_lock = threading.Lock()
+_instruments = {}  # name -> instrument
+
+
+def _get(name, cls):
+    inst = _instruments.get(name)
+    if inst is None:
+        with _lock:
+            inst = _instruments.get(name)
+            if inst is None:
+                inst = cls(name)
+                _instruments[name] = inst
+    if not isinstance(inst, cls):
+        raise TypeError("instrument %r already exists as %s"
+                        % (name, type(inst).__name__))
+    return inst
+
+
+def counter(name) -> Counter:
+    return _get(name, Counter)
+
+
+def gauge(name) -> Gauge:
+    return _get(name, Gauge)
+
+
+def timer(name) -> Timer:
+    return _get(name, Timer)
+
+
+def _items():
+    """Stable view for iteration: another thread creating its first
+    instrument mid-iteration (a pump thread's lazy ``timer()``) must not
+    blow up a reader with 'dict changed size during iteration'."""
+    with _lock:
+        return sorted(_instruments.items())
+
+
+def counters():
+    """Flat name->value view of every counter (bench/tests convenience)."""
+    return {n: i.value for n, i in _items() if isinstance(i, Counter)}
+
+
+def snapshot():
+    """Point-in-time view of EVERY instrument, JSON-safe. Timers with a
+    live histogram additionally carry p50/p95/p99 milliseconds."""
+    out = {}
+    for name, inst in _items():
+        if isinstance(inst, Counter):
+            out[name] = inst.value
+        elif isinstance(inst, Gauge):
+            out[name] = inst.value
+        else:
+            row = {"total_ms": round(inst.total_ms, 3),
+                   "count": inst.count}
+            q = inst.quantiles_ms()
+            if q:
+                row.update({"p50_ms": round(q["p50"], 3),
+                            "p95_ms": round(q["p95"], 3),
+                            "p99_ms": round(q["p99"], 3)})
+            out[name] = row
+    return out
+
+
+def hist_buckets():
+    """Sparse histogram buckets per timer: {timer_name: {bucket: count}}.
+    The wire form replica health() snapshots delta-encode and the router
+    merges into fleet rollups (merge is element-wise add — associative)."""
+    out = {}
+    for name, inst in _items():
+        if isinstance(inst, Timer) and inst.hist is not None:
+            b = inst.hist.to_dict()["buckets"]
+            if b:
+                out[name] = b
+    return out
+
+
+class StepStats:
+    """Per-step counter/timer deltas, ring-buffered.
+
+    ``mark()`` closes the current step: it diffs every counter/timer against
+    the previous mark and appends one row ``{"step", "wall_ms",
+    "counters": {name: delta}, "timers": {name: {ms, count}}}``. Rows
+    are bounded (``maxlen``) so a long fit cannot grow host memory without
+    bound. The registry-global instance backs ``mark_step``/``step_rows``.
+    """
+
+    def __init__(self, maxlen=4096):
+        self._lock = threading.Lock()
+        self._maxlen = maxlen
+        self._rows = []
+        self._step = 0
+        self._last_t = None
+        self._last_counters = {}
+        self._last_timers = {}
+        self._last_hists = {}
+
+    def mark(self, wall_ms=None):
+        now = time.perf_counter()
+        with self._lock:
+            cur_c, cur_t, cur_h = {}, {}, {}
+            for name, inst in _items():
+                if isinstance(inst, Counter):
+                    cur_c[name] = inst.value
+                elif isinstance(inst, Timer):
+                    cur_t[name] = (inst.total_ms, inst.count)
+                    if inst.hist is not None:
+                        cur_h[name] = inst.hist.to_dict()["buckets"]
+            if wall_ms is None:
+                wall_ms = ((now - self._last_t) * 1000.0
+                           if self._last_t is not None else None)
+            dc = {n: v - self._last_counters.get(n, 0)
+                  for n, v in cur_c.items()
+                  if v - self._last_counters.get(n, 0)}
+            dt = {}
+            for n, (ms, cnt) in cur_t.items():
+                pms, pcnt = self._last_timers.get(n, (0.0, 0))
+                if cnt - pcnt:
+                    dt[n] = {"ms": round(ms - pms, 3), "count": cnt - pcnt}
+                    # this step's OWN latency distribution, not the
+                    # run-cumulative one: diff the buckets, read quantiles
+                    prev_b = self._last_hists.get(n, {})
+                    db = {k: v - prev_b.get(k, 0)
+                          for k, v in cur_h.get(n, {}).items()
+                          if v - prev_b.get(k, 0) > 0}
+                    if db:
+                        q = _histmod.quantiles_from_buckets(db)
+                        dt[n].update(
+                            {"p50_ms": round(q["p50"], 3),
+                             "p95_ms": round(q["p95"], 3),
+                             "p99_ms": round(q["p99"], 3)})
+            row = {"step": self._step,
+                   "wall_ms": None if wall_ms is None else round(wall_ms, 3),
+                   "counters": dc, "timers": dt}
+            self._rows.append(row)
+            if len(self._rows) > self._maxlen:
+                del self._rows[: len(self._rows) - self._maxlen]
+            self._step += 1
+            self._last_t = now
+            self._last_counters = cur_c
+            self._last_timers = cur_t
+            self._last_hists = cur_h
+            return row
+
+    def rows(self, last=None):
+        with self._lock:
+            rows = list(self._rows)
+        return rows if last is None else rows[-last:]
+
+    def clear(self):
+        with self._lock:
+            self._rows = []
+            self._step = 0
+            self._last_t = None
+            self._last_counters = {}
+            self._last_timers = {}
+            self._last_hists = {}
+
+
+_steps = StepStats()
+
+
+def mark_step(wall_ms=None):
+    """Close the current training step (Module.fit / SPMDTrainer call this
+    once per batch when telemetry is enabled)."""
+    return _steps.mark(wall_ms=wall_ms)
+
+
+def step_rows(last=None):
+    """The recorded per-step rows, oldest first (``last`` = only the most
+    recent N)."""
+    return _steps.rows(last=last)
+
+
+def reset():
+    """Drop every instrument and step row (tests / capture restart)."""
+    global _instruments
+    with _lock:
+        _instruments = {}
+    _steps.clear()

@@ -1,0 +1,274 @@
+# copied from mxnet_tpu/telemetry/spans.py (backend-free)
+"""Structured spans + the MXNET_TELEMETRY mode gate.
+
+Modes (``MXNET_TELEMETRY``):
+  * ``0`` (default) — off. The one contract that matters on the hot path:
+    ``span()`` returns a process-wide singleton no-op context manager, so a
+    disabled run allocates NO span objects and pays one env read per
+    instrumented seam (measured ~2-3us; seams fire at batch frequency, so
+    well under 1% of any training step). The env is deliberately re-read
+    every check so subprocesses and tests can flip the gate live.
+  * ``counters`` — the registry (counters/gauges/timers + StepStats) is
+    live, span events are NOT buffered.
+  * ``trace`` — counters plus span events into a bounded ring buffer, for
+    chrome-trace export (trace.py).
+
+``set_mode()`` overrides the env for the process (tests, profiler capture
+windows); ``None`` reverts to the env value. Span timestamps are
+``time.perf_counter`` anchored to a process epoch recorded next to
+``time.time`` so the exporter can place spans on the wall clock (the
+chrome-trace ``ts`` contract, microseconds).
+"""
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+
+__all__ = ["mode", "enabled", "tracing", "set_mode", "current_override",
+           "span", "event", "record_span", "drain_events", "clear_events",
+           "epoch", "dropped_events", "set_trace_context", "trace_context",
+           "trace_scope"]
+
+MODE_OFF, MODE_COUNTERS, MODE_TRACE = 0, 1, 2
+_MODE_NAMES = {"0": MODE_OFF, "": MODE_OFF, "off": MODE_OFF,
+               "false": MODE_OFF,
+               "counters": MODE_COUNTERS, "1": MODE_COUNTERS,
+               "true": MODE_COUNTERS, "on": MODE_COUNTERS,
+               "trace": MODE_TRACE}
+
+_override = None  # set_mode() value, wins over the env
+_warned_modes = set()
+_lock = threading.Lock()
+
+# perf_counter/wall-clock epoch pair: spans are stamped with perf_counter
+# (monotonic, ns resolution) and exported as wall-clock microseconds
+_EPOCH_PERF = time.perf_counter()
+_EPOCH_WALL = time.time()
+
+def _max_events():
+    """MXNET_TELEMETRY_MAX_EVENTS, defaulting on malformed values — a bad
+    knob must log, not kill `import mxnet_tpu_torch` (engine.py imports this
+    module unconditionally)."""
+    raw = os.environ.get("MXNET_TELEMETRY_MAX_EVENTS", "200000")
+    try:
+        return max(1, int(raw))
+    except ValueError:
+        import logging
+
+        logging.getLogger("mxnet_tpu_torch").warning(
+            "MXNET_TELEMETRY_MAX_EVENTS=%r is not an integer; using the "
+            "default 200000", raw)
+        return 200000
+
+
+_events = collections.deque(maxlen=_max_events())
+_dropped = [0]                # ring-buffer overflow count (satellite:
+_dropped_lock = threading.Lock()   # a truncated trace must say so)
+
+
+def _append_event(tup):
+    """Ring-buffer append that ACCOUNTS for truncation: once the deque is
+    full, every append evicts the oldest span — tick
+    ``telemetry.dropped_events`` so a truncated dump cannot masquerade as
+    a complete one (trace.py stamps the count into otherData, mxtrace
+    --check reports it)."""
+    if len(_events) == _events.maxlen:
+        with _dropped_lock:
+            _dropped[0] += 1
+        from . import registry
+
+        registry.counter("telemetry.dropped_events").inc()
+    _events.append(tup)
+
+
+def dropped_events():
+    """Spans evicted from the ring buffer since the last clear."""
+    return _dropped[0]
+
+
+# --------------------------------------------------------- trace context
+# The distributed-tracing propagation point: the fleet router mints a
+# trace_id per request, rpc.py ships it in the call frame, and RpcServer
+# installs it here (thread-local) around the handler — so every span the
+# handler's thread records inherits the id without any call-site plumbing.
+_trace_ctx = threading.local()
+
+
+def set_trace_context(trace_id):
+    """Install (or clear, with None) the current thread's trace id."""
+    _trace_ctx.tid = trace_id
+
+
+def trace_context():
+    """The current thread's trace id, or None."""
+    return getattr(_trace_ctx, "tid", None)
+
+
+class trace_scope:
+    """Context manager: install a trace id for the block, restoring the
+    previous one on exit (RpcServer handler wrap, engine dispatch)."""
+
+    __slots__ = ("_tid", "_prev")
+
+    def __init__(self, trace_id):
+        self._tid = trace_id
+
+    def __enter__(self):
+        self._prev = trace_context()
+        set_trace_context(self._tid)
+        return self
+
+    def __exit__(self, *exc):
+        set_trace_context(self._prev)
+        return False
+
+
+def _env_mode():
+    raw = os.environ.get("MXNET_TELEMETRY", "0").strip().lower()
+    m = _MODE_NAMES.get(raw)
+    if m is None:
+        if raw not in _warned_modes:
+            _warned_modes.add(raw)
+            import logging
+
+            logging.getLogger("mxnet_tpu_torch").warning(
+                "MXNET_TELEMETRY=%r is not a recognized mode "
+                "(0|counters|trace); telemetry stays OFF", raw)
+        return MODE_OFF
+    return m
+
+
+def mode() -> int:
+    """The active mode (MODE_OFF/MODE_COUNTERS/MODE_TRACE). Reads the env
+    on every call so tests and subprocesses can flip it; call sites on hot
+    paths guard with ``enabled()``/``tracing()`` once per operation, not
+    per element."""
+    return _override if _override is not None else _env_mode()
+
+
+def enabled() -> bool:
+    return mode() >= MODE_COUNTERS
+
+
+def tracing() -> bool:
+    return mode() >= MODE_TRACE
+
+
+def set_mode(m):
+    """Override the env gate: ``"0"``/``"counters"``/``"trace"`` (or the
+    int constants), ``None`` to fall back to MXNET_TELEMETRY."""
+    global _override
+    if m is None:
+        _override = None
+        return
+    if isinstance(m, str):
+        if m.strip().lower() not in _MODE_NAMES:
+            raise ValueError("unknown telemetry mode %r" % m)
+        m = _MODE_NAMES[m.strip().lower()]
+    if m not in (MODE_OFF, MODE_COUNTERS, MODE_TRACE):
+        raise ValueError("unknown telemetry mode %r" % m)
+    _override = m
+
+
+def current_override():
+    """The active ``set_mode`` override (int mode or None) — callers that
+    force a mode for a window (profiler capture) save and restore this."""
+    return _override
+
+
+def epoch():
+    """(perf_counter_epoch, wall_epoch) — the exporter's timebase."""
+    return _EPOCH_PERF, _EPOCH_WALL
+
+
+class _NullSpan:
+    """The disabled-path span: a single shared instance, every method a
+    no-op. ``span() is span()`` when telemetry is off (test-pinned)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "_t0")
+
+    def __init__(self, name, attrs):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def set(self, **attrs):
+        """Attach attributes discovered mid-span (e.g. compile vs hit)."""
+        self.attrs.update(attrs)
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = time.perf_counter()
+        if exc_type is not None:
+            self.attrs["error"] = exc_type.__name__
+        tid = trace_context()
+        if tid is not None and "trace_id" not in self.attrs:
+            self.attrs["trace_id"] = tid
+        _append_event((self.name, self._t0, t1 - self._t0,
+                       threading.get_ident(), self.attrs))
+        return False
+
+
+def span(name, **attrs):
+    """A context manager timing one named operation. Off → the shared
+    no-op singleton (zero allocation beyond the kwargs dict — hot seams
+    that cannot afford even that guard with ``tracing()`` first)."""
+    if mode() < MODE_TRACE:
+        return NULL_SPAN
+    return _Span(name, attrs)
+
+
+def event(name, **attrs):
+    """An instant (zero-duration) event."""
+    if mode() < MODE_TRACE:
+        return
+    tid = trace_context()
+    if tid is not None and "trace_id" not in attrs:
+        attrs["trace_id"] = tid
+    _append_event((name, time.perf_counter(), 0.0,
+                   threading.get_ident(), attrs))
+
+
+def record_span(name, t0_perf, dur_s, **attrs):
+    """Append a span whose interval was measured OUT of band — e.g. the
+    per-request replica queue-wait, whose start (enqueue) and end
+    (dispatch pull) are observed on different threads. No-op unless
+    tracing."""
+    if mode() < MODE_TRACE:
+        return
+    tid = trace_context()
+    if tid is not None and "trace_id" not in attrs:
+        attrs["trace_id"] = tid
+    _append_event((name, t0_perf, dur_s, threading.get_ident(), attrs))
+
+
+def drain_events():
+    """Snapshot-and-keep the recorded span tuples
+    ``(name, t0_perf, dur_s, thread_ident, attrs)`` oldest-first."""
+    return list(_events)
+
+
+def clear_events():
+    _events.clear()
+    with _dropped_lock:
+        _dropped[0] = 0

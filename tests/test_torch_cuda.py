@@ -785,3 +785,81 @@ def test_megastep_refuses_a_drifted_signature_and_replaced_buffers(dev):
     arr._set_tensor(arr._tensor().clone())
     with pytest.raises(MXNetError, match="captured on"):
         dec.decode_megastep(tok, k=2)
+
+
+# ------------------------------------------------------------ serving engine
+def test_engine_on_the_card_matches_direct_runs_and_binds_nothing_after_warmup(dev):
+    """InferenceEngine over a small conv+BN net on the card: concurrent
+    requests equal their rows of a direct ``cache.run`` of the same padded
+    batch, and no executor is bound after warmup."""
+    import threading
+
+    from mxnet_tpu_torch.serving import InferenceEngine, PersistentExecutableCache
+
+    S = pt.sym
+    x = S.Variable("data")
+    c = S.Convolution(x, num_filter=8, kernel=(3, 3), pad=(1, 1), no_bias=True, name="c0")
+    b = S.BatchNorm(c, fix_gamma=False, name="bn0")
+    net = S.FullyConnected(S.Flatten(S.Activation(b, act_type="relu")), num_hidden=5, name="fc")
+    rs = np.random.RandomState(0)
+    shapes, _, aux_shapes = net.infer_shape(data=(1, 3, 8, 8))
+    args = {n: (rs.randn(*s) * 0.3).astype(np.float32)
+            for n, s in zip(net.list_arguments(), shapes) if n != "data"}
+    aux = {n: (np.abs(rs.randn(*s)) + 0.5).astype(np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    cache = PersistentExecutableCache(net, args, aux, ctx=pt.gpu(0))
+    seen = []
+    run = cache.run
+
+    def recording_run(inputs):
+        outs = run(inputs)
+        seen.append((inputs["data"].copy(), outs[0]))
+        return outs
+
+    cache.run = recording_run
+    eng = InferenceEngine(cache, {"data": (3, 8, 8)}, buckets=(1, 2, 4, 8), max_delay_ms=2)
+    eng.start()
+    binds = cache.binds
+    got = {}
+
+    def client(i):
+        r = np.random.RandomState(10 + i)
+        for j in range(4):
+            xs = r.randn(1 + (i + j) % 3, 3, 8, 8).astype(np.float32)
+            got[(i, j)] = (xs, eng.infer({"data": xs}, timeout=60)[0])
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    eng.close()
+    assert cache.binds == binds and len(got) == 16
+    for xs, out in got.values():
+        hits = [(inp, o) for inp, o in seen
+                for k in range(inp.shape[0] - xs.shape[0] + 1)
+                if np.array_equal(inp[k:k + xs.shape[0]], xs)]
+        assert hits, "a request's rows are in no dispatched batch"
+        inp, o = hits[0]
+        k = next(k for k in range(inp.shape[0]) if np.array_equal(inp[k:k + xs.shape[0]], xs))
+        np.testing.assert_array_equal(out, o[k:k + xs.shape[0]])
+        np.testing.assert_allclose(out, run({"data": inp})[0][k:k + xs.shape[0]],
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_decoder_reload_lands_in_the_next_megastep_without_a_new_capture(dev):
+    """``swap_params`` on a decoder's caches writes into the captured
+    weight tensors: the next K=4 replay gives a fresh decoder's tokens for
+    the new weights, and no graph is captured again."""
+    old, new = _lm_params(0), _lm_params(5)
+    dec = _ring(old)
+    tok = np.argmax(dec.prefill(_prompt()), axis=-1)
+    dec.decode_megastep(tok, k=4)
+    prog = dec._megasteps[(4, ("greedy", 1.0, 0))]
+    graph = prog._graph
+    dec._pf_cache.swap_params(new)
+    dec._dec_cache.swap_params(new)
+    want = _ring(new).greedy(_prompt(), 9, k=4)
+    got = dec.greedy(_prompt(), 9, k=4)
+    np.testing.assert_array_equal(got, want)
+    assert dec._megasteps[(4, ("greedy", 1.0, 0))] is prog and prog._graph is graph

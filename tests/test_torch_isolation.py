@@ -72,6 +72,7 @@ import mxnet_tpu_torch.analysis, mxnet_tpu_torch.convert, mxnet_tpu_torch.models
 import mxnet_tpu_torch.ops.conv_bn, mxnet_tpu_torch.fusion
 import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.model, mxnet_tpu_torch.predictor
 import mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops.matmul_stats
+import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.faultinject, mxnet_tpu_torch.serving.engine
 assert mxnet_tpu_torch.nd is mxnet_tpu_torch.ndarray
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("ok")
@@ -116,6 +117,16 @@ def test_entry_points_default_to_the_gpu_and_do_not_fall_back(monkeypatch):
     net = pt.sym.FullyConnected(pt.sym.Variable("x"), num_hidden=3, name="fc")
     with pytest.raises(pt.MXNetError, match="CUDA is not available"):
         net.simple_bind(grad_req="write", x=(2, 4))
+    # so is a serving cache, and with it the engine; a CPU cache serves
+    from mxnet_tpu_torch.serving import InferenceEngine, PersistentExecutableCache
+
+    w = {"fc_weight": np.ones((3, 4), np.float32), "fc_bias": np.zeros(3, np.float32)}
+    with pytest.raises(pt.MXNetError, match="CUDA is not available"):
+        PersistentExecutableCache(net, w, {})
+    with InferenceEngine(PersistentExecutableCache(net, w, {}, ctx=pt.cpu()), {"x": (4,)},
+                         buckets=(1, 2)) as eng:
+        np.testing.assert_array_equal(eng.infer({"x": np.ones((2, 4), np.float32)})[0],
+                                      np.full((2, 3), 4.0, np.float32))
     exe = net.simple_bind(ctx=pt.cpu(), grad_req="write", x=(2, 4))
     exe.arg_dict["x"][:] = np.ones((2, 4), np.float32)
     exe.forward_backward()

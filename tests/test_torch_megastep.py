@@ -246,3 +246,29 @@ def test_random_seed_seeds_numpy_as_the_reference():
     want = np.random.rand(3)
     pt.random.seed(7)
     np.testing.assert_array_equal(np.random.rand(3), want)
+
+
+def test_swap_params_lands_in_the_next_megastep_as_in_jax():
+    """A hitless reload of the decoder's weights (``swap_params`` on its two
+    caches): the next greedy tokens, megasteps included, equal JAX's decoder
+    after the same swap and a fresh decoder built with the new weights; the
+    megastep programs are reused, and the weight tensors are the same
+    objects (a captured graph reads them by address)."""
+    new = _params(seed=1)
+    jdec, pdec = _jax(), _port()
+    jdec.greedy(PROMPT, 9, k=4)
+    pdec.greedy(PROMPT, 9, k=4)
+    programs = dict(pdec._megasteps)
+    before = {n: a._tensor() for n, a in pdec._dec_exe.arg_dict.items()}
+    for dec in (jdec, pdec):
+        assert dec._pf_cache.swap_params(new) == len(new)
+        assert dec._dec_cache.swap_params(new) == len(new)
+    want = jdec.greedy(PROMPT, 9, k=4)
+    got = pdec.greedy(PROMPT, 9, k=4)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, KVCacheDecoder(pt.params_from_numpy(new, ctx=pt.cpu()), ctx=pt.cpu(), **CFG,
+                            **SERVE).greedy(PROMPT, 9, k=4))
+    assert pdec._megasteps == programs
+    assert all(pdec._dec_exe.arg_dict[n]._tensor() is t for n, t in before.items())
+    assert pdec._pf_cache.binds == pdec._dec_cache.binds == 1
