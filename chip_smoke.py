@@ -76,15 +76,36 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    (6 / 13 / 6 launches of the flash forward, LayerNorm and ffn1 a batch),
    and a decoder's weights swapped under its captured megastep (a fresh
    decoder's tokens, no new capture).
-9. A ``profiler`` line (how many timing windows were taken again after the
-   profiler's gap), a ``{"kernels": [...]}`` line of ten kernels, the card's
+9. Module: ResNet-50 through ``Module.fit`` (an ``NDArrayIter`` of four
+   fixed batches of 32 on the card, two epochs, SGD-momentum with a
+   ``FactorScheduler``, metrics acc and top-5, a ``Speedometer``,
+   ``do_checkpoint``) against phase 6's manual executor + updater loop over
+   the same 8 batches from the same weights: parameters and moving stats
+   within 1e-6 of each array's largest magnitude (expected bitwise), 49
+   conv_bn and 49 conv_bn_bwd launches a step, 49 stats-free conv_bn a
+   ``score`` batch, the checkpoint reloaded by ``Module.load`` scores the
+   same bits; both steps timed in turns (host p50/p80), their card time by
+   the profiler within 5 % of each other, the shares of ``load_data_label``,
+   the executor, ``update`` and ``update_metric`` in a Module step, and
+   ``io.input_bound_pct``. Then the MNIST ``mlp`` and ``lenet`` through
+   ``MNISTIter`` over idx files the phase writes (synthetic digits), card
+   against the port's CPU run from the same Xavier weights (rtol 1e-4,
+   atol 1e-5), validation accuracy over 0.9, ``matmul_bias_act``'s launches
+   the plan's, and ``FeedForward.fit`` equal to ``Module.fit``.
+10. A ``profiler`` line (how many timing windows were taken again after the
+   profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
+   and 9 with the module phase's ``module_launches``), the card's
    name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
 import contextlib
 import json
+import logging
 import math
+import os
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -147,6 +168,23 @@ DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
 ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=80,
               load_seeds=(SEED + 20, SEED + 27, SEED + 28), reload_requests=16, rows=(1, 4),
               health_window_s=0.5, prefill_buckets=(1, 2, 4, 8))
+# The module phase: ResNet-50 through Module.fit from phase 6's weights on
+# four fixed batches of 32 for two epochs (8 steps), SGD-momentum with
+# RESNET_TRAIN's lr, momentum and wd and a FactorScheduler (lr halved every
+# 3 updates), against phase 6's manual executor + updater loop over the
+# same batches; then the MNIST mlp (784-128-64-10) and lenet (20 and 50
+# filters, 500 hidden) at their published widths through MNISTIter on
+# synthetic digits (example/image-classification/train_mnist.py's
+# _synthetic_mnist), cut from 60 000 training images to 6000 (and 1000 for
+# validation) for time, batch 100, two epochs, fc1's lr halved through
+# set_lr_mult; card against the port's CPU run.
+MODULE = dict(batches=4, epochs=2, factor_step=3, factor=0.5, top_k=5, timed_steps=10,
+              breakdown_steps=5, mnist_train=6000, mnist_val=1000, mnist_batch=100,
+              mnist_epochs=2, mnist_lr=0.05, mnist_momentum=0.9, fc1_lr_mult=0.5,
+              budget_s=60.0)
+# the MNIST nets' fused matmul_bias_act sites a forward: mlp's fc1+relu and
+# fc2+relu, lenet's fc1+tanh
+MNIST_SITES = {"mlp": 2, "lenet": 1}
 # matmul_with_stats: ResNet-50's 1x1 convolutions at batch 32 as (M, K, N)
 # matrices (stage 1's 64->256, 64->64 and 256->64 at 56 x 56, stage 2's
 # 512->128 at 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
@@ -2739,6 +2777,383 @@ def run_engine(pt, net, args, aux, params, smi):
             **{k: v for k, v in out["prefill"]["launches"].items() if v}}
 
 
+def module_data(n):
+    """n fixed images in U(-1, 1) and labels uniform over the classes."""
+    rs = np.random.RandomState(SEED + 5)
+    return (rs.uniform(-1, 1, (n,) + image_shape()).astype(np.float32),
+            rs.randint(0, RESNET["num_classes"], (n,)).astype(np.float32))
+
+
+def rel_diff(got, want):
+    """The largest difference over the largest magnitude of ``want``."""
+    return float(np.abs(got - want).max()) / (float(np.abs(want).max()) or 1.0)
+
+
+class LogLines(logging.Handler):
+    """Collects the messages the training loop and its callbacks log."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def collect_logs():
+    handler, root = LogLines(), logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield handler.lines
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def run_module(pt, net, args, aux, smi):
+    """Phase 9: the Module.fit trunk. (a) ResNet-50 through ``Module.fit``
+    against the manual executor + updater loop of phase 6; (b) the MNIST
+    mlp and lenet through ``MNISTIter`` and ``Module.fit``, card against
+    CPU, and ``FeedForward.fit`` against ``Module.fit``. Returns the launches
+    of the phase's card runs, by kernel."""
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    out = {"phase": "module", "nvidia_smi": smi}
+    # the unfused convs (conv0 and the stride-2 3x3s) on deterministic
+    # cuDNN algorithms, so that two runs of the same steps give the same bits
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = run_module_resnet(pt, net, args, aux, out)
+        for k, v in run_module_mnist(pt, out).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["seconds"] = time.perf_counter() - t_phase
+    out["budget_s"] = MODULE["budget_s"]
+    out["within_budget"] = out["seconds"] <= MODULE["budget_s"]
+    log(out)
+    return launches
+
+
+def run_module_resnet(pt, net, args, aux, out):
+    """Phase 9a: ResNet-50 trained through ``Module.fit`` (metrics acc and
+    top-5, a Speedometer, ``do_checkpoint`` each epoch) and by the manual
+    loop from the same weights over the same 8 batches: the parameters and
+    moving stats must agree within 1e-6 of each array's largest magnitude,
+    the launches be the plan's, the checkpoint reload to the same outputs;
+    then both steps timed in turns and by the profiler."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import telemetry as tm
+
+    B, nb, epochs = RESNET_TRAIN["batch"], MODULE["batches"], MODULE["epochs"]
+    steps = nb * epochs
+    images, labels = module_data(B * nb)
+    names = [n for n in net.list_arguments() if n in args]
+
+    def sched():
+        return pt.lr_scheduler.FactorScheduler(step=MODULE["factor_step"],
+                                               factor=MODULE["factor"])
+
+    opt_params = (("learning_rate", RESNET_TRAIN["lr"]), ("momentum", RESNET_TRAIN["momentum"]),
+                  ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+
+    # --- the manual loop (phase 6's step), over the same batches
+    exe = net.simple_bind(pt.gpu(0), grad_req={n: "write" for n in args},
+                          data=(B,) + image_shape(), softmax_label=(B,))
+    exe.copy_params_from(args, aux)
+    updater = pt.optimizer.get_updater(pt.optimizer.create(
+        "sgd", lr_scheduler=sched(), sym=net, param_idx2name=dict(enumerate(names)),
+        **dict(opt_params)))
+    dev = pt.gpu(0).torch_device
+    dev_images = torch.from_numpy(images).to(dev)
+    dev_labels = torch.from_numpy(labels).to(dev)
+
+    def manual_step(i):
+        exe.arg_dict["data"]._tensor().copy_(dev_images[i * B:(i + 1) * B])
+        exe.arg_dict["softmax_label"]._tensor().copy_(dev_labels[i * B:(i + 1) * B])
+        exe.forward_backward()
+        for k, n in enumerate(names):
+            updater(k, exe.grad_dict[n], exe.arg_dict[n])
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for step in range(steps):
+        manual_step(step % nb)
+    torch.cuda.synchronize()
+    manual_launches = ops.launch_counts()
+
+    # --- Module.fit over an NDArrayIter on the card
+    tmp = tempfile.mkdtemp(prefix="module_phase_")
+    prefix = os.path.join(tmp, "resnet50")
+    train = pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False)
+    check(train.data[0][1].context == pt.gpu(0), "NDArrayIter's data is not on the card")
+    mod = pt.mod.Module(net, context=pt.gpu(0))
+    metric = pt.metric.create(["acc", pt.metric.TopKAccuracy(top_k=MODULE["top_k"])])
+    saved_mode = tm.current_override()
+    tm.set_mode("counters")
+    tm.reset()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with collect_logs() as lines:
+        mod.fit(train, eval_metric=metric, optimizer="sgd",
+                optimizer_params=opt_params + (("lr_scheduler", sched()),),
+                arg_params=args, aux_params=aux,
+                batch_end_callback=pt.callback.Speedometer(B, frequent=nb // 2),
+                epoch_end_callback=pt.callback.do_checkpoint(prefix), num_epoch=epochs)
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = ops.launch_counts()
+    input_bound_pct = tm.snapshot().get("io.input_bound_pct")
+    tm.set_mode(saved_mode)
+    expected = {"conv_bn": RESNET_SITES * steps, "conv_bn_bwd": RESNET_SITES * steps}
+    check(fit_launches == with_zeros(expected), ("Module.fit launch counts", fit_launches))
+    check(manual_launches == fit_launches, ("manual loop launch counts", manual_launches))
+    speed_lines = [ln for ln in lines if "Speed:" in ln]
+    # a Speedometer line a metric, once an epoch (frequent = half the batches)
+    check(len(speed_lines) == epochs * len(metric.get_name_value()), ("Speedometer lines", lines))
+    check(os.path.exists("%s-%04d.params" % (prefix, epochs)), "no checkpoint of the last epoch")
+
+    # --- the two runs' parameters and moving stats
+    got_args, got_aux = mod.get_params()
+    diffs = {}
+    for n in names:
+        diffs[n] = rel_diff(got_args[n].asnumpy(), exe.arg_dict[n].asnumpy())
+    for n in exe.aux_dict:
+        diffs[n] = rel_diff(got_aux[n].asnumpy(), exe.aux_dict[n].asnumpy())
+    worst = max(diffs, key=diffs.get)
+    differing = sorted(n for n, d in diffs.items() if d > 0)
+    check(diffs[worst] <= 1e-6, ("Module.fit vs the manual loop", worst, diffs[worst]))
+    moved = max(rel_diff(got_args[n].asnumpy(), args[n]) for n in names)
+    check(moved > 0, "Module.fit did not change the weights")
+
+    # --- score, and the checkpoint reloaded
+    def score(m):
+        outs = []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = m.score(pt.io.NDArrayIter(images, labels, batch_size=B), "acc",
+                      batch_end_callback=lambda p: outs.append(m.get_outputs()[0].asnumpy()))
+        torch.cuda.synchronize()
+        return res[0][1], outs, ops.launch_counts()
+
+    acc, outs, score_launches = score(mod)
+    check(score_launches == with_zeros({"conv_bn_infer": RESNET_SITES * nb}),
+          ("score launch counts", score_launches))
+    loaded = pt.mod.Module.load(prefix, epochs, context=pt.gpu(0))
+    loaded.bind(data_shapes=train.provide_data, label_shapes=train.provide_label,
+                for_training=False)
+    acc2, outs2, _ = score(loaded)
+    check(acc2 == acc and len(outs2) == len(outs) == nb
+          and all(np.array_equal(a, b) for a, b in zip(outs, outs2)),
+          ("the reloaded checkpoint scores otherwise", acc, acc2))
+    del loaded
+
+    # --- both steps in turns: host clock, then the profiler's card time
+    train.reset()
+    batches = list(train)
+
+    def module_step(i):
+        b = batches[i]
+        mod.forward_backward(b)
+        mod.update()
+        mod.update_metric(metric, b.label)
+
+    host = {"module": [], "manual": []}
+    fns = {"module": module_step, "manual": manual_step}
+    for r in range(MODULE["timed_steps"]):
+        for kind in (("module", "manual") if r % 2 == 0 else ("manual", "module")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[kind](r % nb)
+            torch.cuda.synchronize()
+            host[kind].append((time.perf_counter() - t0) * 1e3)
+    card = {}
+    for kind in ("module", "manual", "module_again"):
+        step_i = iter(range(1000))
+        fn = fns[kind.split("_")[0]]
+        card[kind] = profile_window(lambda: fn(next(step_i) % nb))
+    module_ms = min(card["module"]["device_busy_ms"], card["module_again"]["device_busy_ms"])
+    manual_ms = card["manual"]["device_busy_ms"]
+    check(abs(module_ms - manual_ms) <= 0.05 * manual_ms,
+          ("Module step card time vs the manual step's", module_ms, manual_ms))
+    # the manual step on cuDNN's default algorithms, as phase 6 runs it: what
+    # the deterministic ones cost the four unfused convs
+    torch.backends.cudnn.deterministic = False
+    step_i = iter(range(1000))
+    card["manual_cudnn_default"] = profile_window(lambda: manual_step(next(step_i) % nb))
+    torch.backends.cudnn.deterministic = True
+
+    # --- where a Module step's host time goes
+    parts = {k: [] for k in ("load_data_label", "forward_backward", "update", "update_metric")}
+    group = mod._exec_group
+    for i in range(MODULE["breakdown_steps"]):
+        b = batches[i % nb]
+        marks = []
+        for fn in (lambda: group.load_data_label(b),
+                   lambda: [ex.forward_backward() for ex in group.execs],
+                   mod.update, lambda: mod.update_metric(metric, b.label)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter() - t0) * 1e3)
+        for k, v in zip(parts, marks):
+            parts[k].append(v)
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    total = sum(med.values())
+    out["resnet"] = {
+        "model": RESNET, "batch": B, "batches": nb, "epochs": epochs, "steps": steps,
+        "optimizer": dict(opt_params, lr_scheduler="FactorScheduler(step=%d, factor=%g)"
+                          % (MODULE["factor_step"], MODULE["factor"])),
+        "fit_s": fit_s, "fit_launches": {k: v for k, v in fit_launches.items() if v},
+        "score_launches": {k: v for k, v in score_launches.items() if v},
+        "module_vs_manual_worst": diffs[worst], "module_vs_manual_worst_array": worst,
+        "arrays_not_bitwise": differing, "arrays_compared": len(diffs),
+        "weights_moved_rel": moved, "train_metric": metric.get_name_value(),
+        "score_acc": acc, "reloaded_score_acc": acc2, "reloaded_outputs_bitwise": True,
+        "speedometer": speed_lines, "io_input_bound_pct": input_bound_pct,
+        "step_ms": {k: {"p50": float(np.percentile(v, 50)), "p80": float(np.percentile(v, 80)),
+                        "all": v} for k, v in host.items()},
+        "card": {k: {f: v[f] for f in ("device_busy_ms", "device_idle_share", "wall_ms",
+                                       "port_kernels_ms", "port_kernel_launches")}
+                 for k, v in card.items()},
+        "card_ms_module_over_manual": module_ms / manual_ms,
+        "breakdown_ms": med, "breakdown_share": {k: v / total for k, v in med.items()},
+    }
+    del exe, mod, dev_images, dev_labels, train, batches
+    shutil.rmtree(tmp)
+    return {"conv_bn": fit_launches["conv_bn"], "conv_bn_bwd": fit_launches["conv_bn_bwd"],
+            "conv_bn_infer": score_launches["conv_bn_infer"]}
+
+
+# copied from example/image-classification/train_mnist.py (_synthetic_mnist)
+def synthetic_mnist(n, num_classes, seed):
+    """Deterministic stand-in when the real idx files are absent: each class
+    is a distinct blocky template + noise, so models actually converge (the
+    templates are fixed across train/val; only the noise seed differs)."""
+    templates = np.random.RandomState(12345).rand(num_classes, 28, 28) > 0.7
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, num_classes, (n,)).astype(np.float32)
+    imgs = templates[labels.astype(int)].astype(np.float32) * 255
+    imgs += rs.normal(0, 32, imgs.shape)
+    return labels, np.clip(imgs, 0, 255).astype(np.uint8)
+
+
+def write_idx(path, arr):
+    """An unsigned-byte idx file (MNIST's layout: magic, dims, data)."""
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", (0x08 << 8) | arr.ndim))
+        f.write(struct.pack(">%dI" % arr.ndim, *arr.shape))
+        f.write(np.ascontiguousarray(arr, dtype=np.uint8).tobytes())
+
+
+def run_module_mnist(pt, out):
+    """Phase 9b: mlp and lenet through MNISTIter and Module.fit on the card
+    and on the CPU from the same Xavier weights drawn on the CPU generator:
+    final parameters within rtol 1e-4, atol 1e-5, validation accuracy over
+    0.9, matmul_bias_act's launches the plan's; FeedForward.fit of mlp
+    equal to Module.fit with the same arguments."""
+    from mxnet_tpu_torch import ops
+
+    tmp = tempfile.mkdtemp(prefix="module_mnist_")
+    files = {}
+    for split, n, seed in (("train", MODULE["mnist_train"], 0), ("val", MODULE["mnist_val"], 1)):
+        lbl, img = synthetic_mnist(n, 10, seed)
+        files[split] = (os.path.join(tmp, "%s-images-idx3-ubyte" % split),
+                        os.path.join(tmp, "%s-labels-idx1-ubyte" % split))
+        write_idx(files[split][0], img)
+        write_idx(files[split][1], lbl.astype(np.uint8))
+    Bm, epochs = MODULE["mnist_batch"], MODULE["mnist_epochs"]
+    steps = (MODULE["mnist_train"] // Bm) * epochs
+    val_batches = (MODULE["mnist_val"] // Bm) * epochs
+
+    def iters():
+        np.random.seed(SEED + 6)  # MNISTIter shuffles with numpy's global stream
+        return (pt.io.MNISTIter(*files["train"], batch_size=Bm, shuffle=True),
+                pt.io.MNISTIter(*files["val"], batch_size=Bm, shuffle=False))
+
+    def optimizer(net):
+        names = [n for n in net.list_arguments() if n not in ("data", "softmax_label")]
+        opt = pt.optimizer.create("sgd", learning_rate=MODULE["mnist_lr"],
+                                  momentum=MODULE["mnist_momentum"], rescale_grad=1.0 / Bm,
+                                  sym=net, param_idx2name=dict(enumerate(names)))
+        opt.set_lr_mult({"fc1_weight": MODULE["fc1_lr_mult"]})
+        return opt
+
+    def xavier():
+        return pt.init.Xavier(rnd_type="gaussian", factor_type="in", magnitude=2)
+
+    launches = {"matmul_bias_act": 0}
+    out["mnist"] = {"train_images": MODULE["mnist_train"], "val_images": MODULE["mnist_val"],
+                    "batch": Bm, "epochs": epochs}
+    for name in ("mlp", "lenet"):
+        net = getattr(pt.models, name).get_symbol(num_classes=10)
+        pt.random.seed(SEED + 7)
+        with pt.cpu():
+            shapes = net.infer_shape(data=(Bm, 1, 28, 28), softmax_label=(Bm,))[0]
+            params = {}
+            for n, shape in zip(net.list_arguments(), shapes):
+                if n not in ("data", "softmax_label"):
+                    params[n] = pt.nd.zeros(shape)
+                    xavier()(pt.init.InitDesc(n), params[n])
+        runs = []
+        for ctx in (pt.gpu(0), pt.cpu()):
+            with ctx:
+                train, val = iters()
+                mod = pt.mod.Module(net, context=ctx)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                mod.fit(train, eval_data=val, eval_metric="acc", optimizer=optimizer(net),
+                        arg_params=params, num_epoch=epochs)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                got = ops.launch_counts()
+                acc = mod.score(val, "acc")[0][1]
+                runs.append(({n: a.asnumpy() for n, a in mod.get_params()[0].items()},
+                             acc, got, seconds))
+        card, cpu = runs
+        expected = {"matmul_bias_act": MNIST_SITES[name] * (steps + val_batches)}
+        check(card[2] == with_zeros(expected), ("%s Module.fit launches" % name, card[2]))
+        check(cpu[2] == with_zeros({}), ("%s CPU launches" % name, cpu[2]))
+        check(card[1] > 0.9 and cpu[1] > 0.9, ("%s validation accuracy" % name, card[1], cpu[1]))
+        errs = {n: float(np.abs(card[0][n] - cpu[0][n]).max()) for n in card[0]}
+        bad = [n for n in card[0]
+               if not np.allclose(card[0][n], cpu[0][n], rtol=1e-4, atol=1e-5)]
+        check(not bad, ("%s card vs CPU parameters" % name, bad, errs))
+        launches["matmul_bias_act"] += card[2]["matmul_bias_act"]
+        out["mnist"][name] = {"val_acc_card": card[1], "val_acc_cpu": cpu[1],
+                              "steps": steps, "forward_only_batches": val_batches,
+                              "launches": {k: v for k, v in card[2].items() if v},
+                              "card_vs_cpu_max_abs_err": max(errs.values()),
+                              "fit_s_card": card[3], "fit_s_cpu": cpu[3]}
+
+        if name == "mlp":
+            # FeedForward.fit against Module.fit with the same arguments
+            with pt.gpu(0):
+                train, _ = iters()
+                ff = pt.model.FeedForward(net, ctx=pt.gpu(0), num_epoch=1,
+                                          optimizer=optimizer(net), initializer=xavier(),
+                                          arg_params=params, aux_params={})
+                ff.fit(train)
+                train, _ = iters()
+                mod = pt.mod.Module(net, context=pt.gpu(0))
+                mod.fit(train, optimizer=optimizer(net), initializer=xavier(), arg_params=params,
+                        aux_params={}, allow_missing=True, num_epoch=1)
+                want = mod.get_params()[0]
+                ff_diff = max(rel_diff(ff.arg_params[n].asnumpy(), want[n].asnumpy())
+                              for n in want)
+            check(ff_diff <= 1e-6, ("FeedForward.fit vs Module.fit", ff_diff))
+            out["mnist"]["feedforward_vs_module_worst"] = ff_diff
+    shutil.rmtree(tmp)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -2774,7 +3189,15 @@ def main():
     resnet_train_launches = run_resnet_train(pt, net, args, aux)
     deploy_launches = run_deploy(pt, net, args, aux)
     engine_launches = run_engine(pt, net, args, aux, params, smi)
+    module_launches = run_module(pt, net, args, aux, smi)
     for name_, e in entries.items():
+        if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
+            # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
+            # conv_bn_bwd; its score's stats-free conv_bn as
+            # module_infer_launches) and the MNIST nets' (matmul_bias_act)
+            e.update(module_launches=module_launches[name_])
+            if name_ == "conv_bn":
+                e.update(module_infer_launches=module_launches["conv_bn_infer"])
         if name_ in ("matmul_stats", "rtc"):
             e.update(launches=deploy_launches[name_])  # the deploy phase's main path
         elif name_.startswith("conv_bn"):

@@ -31,9 +31,17 @@ from . import models, serving  # noqa: E402,F401
 from . import ndarray  # noqa: E402
 from . import ndarray as nd  # noqa: E402,F401
 from . import model, predictor, random, rtc  # noqa: E402,F401
-from .convert import params_from_checkpoint, params_from_numpy  # noqa: E402,F401
+from . import io, initializer, lr_scheduler, metric, callback, monitor  # noqa: E402,F401
+from . import initializer as init  # noqa: E402,F401
+from . import checkpoint, kvstore_helper, device_info  # noqa: E402,F401
+from . import module  # noqa: E402,F401
+from . import module as mod  # noqa: E402,F401
+from .convert import (params_from_checkpoint, params_from_numpy,  # noqa: E402,F401
+                      updater_states_from_numpy)
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "symbol",
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
-           "random", "rtc", "telemetry", "faultinject", "params_from_numpy",
-           "params_from_checkpoint"]
+           "random", "rtc", "telemetry", "faultinject", "io", "initializer", "init",
+           "lr_scheduler", "metric", "callback", "monitor", "checkpoint", "kvstore_helper",
+           "device_info", "module", "mod", "params_from_numpy", "params_from_checkpoint",
+           "updater_states_from_numpy"]

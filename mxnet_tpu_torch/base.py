@@ -2,15 +2,19 @@
 
 Counterpart of ``mxnet_tpu/base.py``: ``MXNetError``, the numpy-dtype
 helper the Symbol layer needs, the ``.params`` type flags
-(``dtype_code``/``dtype_from_code``), plus the numpy <-> torch dtype table
-the port's tensors use.
+(``dtype_code``/``dtype_from_code``), ``anomaly_guard_mode``
+(``MXNET_ANOMALY_GUARD``), plus the numpy <-> torch dtype table the port's
+tensors use.
 """
 from __future__ import annotations
+
+import logging
+import os
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "EvictedError", "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code",
+__all__ = ["MXNetError", "EvictedError", "anomaly_guard_mode", "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code",
            "dtype_from_code"]
 
 
@@ -87,3 +91,28 @@ def dtype_from_code(code: int) -> np.dtype:
     if code not in _DTYPE_MX_TO_NP:
         raise MXNetError("unsupported dtype code %d" % code)
     return _DTYPE_MX_TO_NP[code]
+
+
+# copied from mxnet_tpu/base.py (anomaly_guard_mode; backend-free)
+_warned_anomaly_modes = set()
+
+
+def anomaly_guard_mode():
+    """MXNET_ANOMALY_GUARD: post-backward NaN/Inf gradient guard in the
+    training loop. Returns None (off, the default), ``"skip"`` (drop the
+    anomalous step: no weight/optimizer/aux update, count it, warn with the
+    first offending key) or ``"raise"`` (throw a structured MXNetError
+    naming the key; state is left un-updated either way, so a caught raise
+    can lower the lr and continue). Unrecognized values warn once and stay
+    off."""
+    raw = os.environ.get("MXNET_ANOMALY_GUARD", "0").strip().lower()
+    if raw in ("", "0", "off", "false", "none", "no"):
+        return None
+    if raw in ("skip", "raise"):
+        return raw
+    if raw not in _warned_anomaly_modes:
+        _warned_anomaly_modes.add(raw)
+        logging.getLogger("mxnet_tpu_torch").warning(
+            "MXNET_ANOMALY_GUARD=%r is not one of 0|skip|raise; the "
+            "anomaly guard stays OFF", raw)
+    return None

@@ -1,0 +1,209 @@
+# copied from mxnet_tpu/callback.py (backend-free but Speedometer._mfu, which reads
+# the card's name)
+"""Training callbacks.
+
+Counterpart of the reference's python/mxnet/callback.py (Speedometer :89,
+do_checkpoint :39, module_checkpoint :11, log_train_metric :70), over the
+port's ``model.save_checkpoint``, ``Module.save_checkpoint`` and
+``checkpoint.prefix_retention``.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import time
+
+__all__ = ["Speedometer", "do_checkpoint", "module_checkpoint", "log_train_metric", "ProgressBar"]
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False,
+                      keep=None):
+    """Epoch-end callback checkpointing a module (reference: callback.py:11).
+
+    ``keep`` (default: ``MXNET_CHECKPOINT_KEEP``, unlimited when unset)
+    retains only the last K epoch checkpoints so long elastic runs don't
+    grow disk without bound. Deletion is manifest-aware: the newest epoch
+    whose files are COMPLETE — including, for a sharded ``.states``
+    pointer, the whole shard set it references — is never deleted, and a
+    deleted sharded pointer takes its backing shard directory with it
+    (checkpoint.prefix_retention, docs/FAULT_TOLERANCE.md)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+            _apply_keep(prefix, keep)
+
+    return _callback
+
+
+def _apply_keep(prefix, keep):
+    from . import checkpoint as ckpt
+
+    if keep is None:
+        k = ckpt.checkpoint_keep()
+    else:
+        k = int(keep)
+        if k <= 0:
+            # same contract as MXNET_CHECKPOINT_KEEP: non-positive warns
+            # and disables (a negative k would slice epochs[:-k] wrong)
+            logging.warning("checkpoint keep=%r is not a positive int; "
+                            "retention disabled", keep)
+            k = None
+    if k:
+        ckpt.prefix_retention(prefix, k)
+
+
+def do_checkpoint(prefix, period=1, keep=None):
+    """Epoch-end callback saving symbol+params (reference: callback.py:39);
+    ``keep`` retains the last K epochs (see ``module_checkpoint``)."""
+    from .model import save_checkpoint
+
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+            _apply_keep(prefix, keep)
+
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch-end callback logging the training metric every ``period`` batches
+    (reference: callback.py:70)."""
+
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            name_value = param.eval_metric.get_name_value()
+            for name, value in name_value:
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f", param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+
+    return _callback
+
+
+class Speedometer:
+    """Log samples/sec every ``frequent`` batches (reference: callback.py:89) —
+    the throughput number the benchmarks track — plus step time, and MFU when
+    ``flops_per_sample`` is given and the card's dense bf16 peak is known
+    (device_info.py, by ``torch.cuda.get_device_name``).
+
+    When telemetry is enabled the window duration comes from the registry's
+    per-step rows (``Module.fit`` marks one per batch) — ONE wall-clock
+    source of truth shared with ``mxtrace``/``bench.py`` instead of a
+    second ``time.time()`` path that can disagree with the trace."""
+
+    def __init__(self, batch_size, frequent=50, flops_per_sample=None):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.flops_per_sample = flops_per_sample
+        self.init = False
+        self.tic = 0
+        self.last_count = 0
+        self._peak = None  # resolved lazily from the default device
+        self._tic_step = None  # newest telemetry step id when tic was set
+
+    @staticmethod
+    def _newest_step():
+        from . import telemetry
+
+        if not telemetry.enabled():
+            return None
+        rows = telemetry.step_rows(last=1)
+        return rows[-1]["step"] if rows else None
+
+    def _set_tic(self):
+        self.tic = time.time()
+        self._tic_step = self._newest_step()
+
+    def _window(self):
+        """``(seconds, batches)`` since the last report. Telemetry step rows
+        are used only when they are FRESH — marked after this window's tic
+        (a loop that never calls ``mark_step``, e.g. eval/score after a fit,
+        must not recycle the fit's stale rows as its own speed) — else the
+        local wall clock."""
+        from . import telemetry
+
+        if telemetry.enabled() and self._tic_step is not None:
+            rows = telemetry.step_rows(last=self.frequent + 1)
+            fresh = [r for r in rows if r["step"] > self._tic_step
+                     and r["wall_ms"] is not None]
+            newest = rows[-1]["step"] if rows else self._tic_step
+            delta = newest - self._tic_step
+            # contiguity: every step of the window is present and timed
+            if fresh and len(fresh) == delta and delta <= self.frequent:
+                return (max(sum(r["wall_ms"] for r in fresh) / 1000.0, 1e-9),
+                        delta)
+        return max(time.time() - self.tic, 1e-9), self.frequent
+
+    def _mfu(self, speed):
+        if not self.flops_per_sample:
+            return None
+        if self._peak is None:
+            import torch
+
+            from .device_info import bf16_peak_flops
+
+            # the card's dense bf16 peak, by its name; none without a card
+            self._peak = (bf16_peak_flops(torch.cuda.get_device_name(0)) or 0
+                          if torch.cuda.is_available() else 0)
+        return speed * self.flops_per_sample / self._peak if self._peak else None
+
+    def __call__(self, param):
+        count = param.nbatch
+        if self.last_count > count:
+            self.init = False
+        self.last_count = count
+
+        if self.init:
+            if count % self.frequent == 0:
+                dt, nbatches = self._window()
+                speed = nbatches * self.batch_size / dt
+                step_ms = 1000.0 * dt / nbatches
+                mfu = self._mfu(speed)
+                perf = "Speed: %.2f samples/sec\tStep: %.1f ms" % (speed, step_ms)
+                if mfu is not None:
+                    perf += "\tMFU: %.1f%%" % (100 * mfu)
+                if param.eval_metric is not None:
+                    name_value = param.eval_metric.get_name_value()
+                    param.eval_metric.reset()
+                    for name, value in name_value:
+                        logging.info("Epoch[%d] Batch [%d]\t%s\tTrain-%s=%f",
+                                     param.epoch, count, perf, name, value)
+                else:
+                    logging.info("Iter[%d] Batch [%d]\t%s",
+                                 param.epoch, count, perf)
+                self._set_tic()
+        else:
+            self.init = True
+            self._set_tic()
+
+
+class ProgressBar:
+    """Text progress bar per epoch (reference: callback.py ProgressBar)."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")
+
+
+class LogValidationMetricsCallback:
+    """Epoch-end eval callback: log every validation metric value
+    (reference: callback.py LogValidationMetricsCallback). Useful as
+    ``eval_end_callback`` when a Speedometer with ``auto_reset`` has
+    cleared the training metric mid-epoch."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name, value)

@@ -5,9 +5,12 @@ device, ``cpu(i)`` or ``gpu(i)``, and resolves to a ``torch.device``.
 ``gpu(i)`` is ``torch.device("cuda", i)`` and nothing else: on a host without
 CUDA, resolving it raises. It never moves to the CPU on its own. The default
 context is ``gpu(0)``, so an entry point runs on the card unless its caller
-passes ``ctx=cpu()``.
+passes ``ctx=cpu()`` or runs inside ``with cpu():``, which makes ``cpu()``
+the default context of its thread for the block, as in the reference.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -21,6 +24,7 @@ class Context:
 
     devtype2str = {1: "cpu", 2: "gpu"}
     devstr2type = {"cpu": 1, "gpu": 2}
+    _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id=0):
         if isinstance(device_type, Context):
@@ -31,6 +35,7 @@ class Context:
                 raise MXNetError("unknown device type %r" % (device_type,))
             self.device_typeid = Context.devstr2type[device_type]
             self.device_id = int(device_id)
+        self._old_ctx = None
 
     @property
     def device_type(self) -> str:
@@ -46,6 +51,14 @@ class Context:
 
     def __repr__(self):
         return "%s(%d)" % (self.device_type, self.device_id)
+
+    def __enter__(self):
+        self._old_ctx = getattr(Context._default_ctx, "value", None)
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._default_ctx.value = self._old_ctx
 
     @property
     def torch_device(self) -> torch.device:
@@ -84,5 +97,7 @@ def gpu(device_id=0):
 
 
 def current_context() -> Context:
-    """The default context of every entry point: ``gpu(0)``."""
-    return gpu(0)
+    """The default context of every entry point: the innermost ``with
+    Context`` block's of this thread, else ``gpu(0)``."""
+    ctx = getattr(Context._default_ctx, "value", None)
+    return gpu(0) if ctx is None else ctx

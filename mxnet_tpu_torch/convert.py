@@ -15,6 +15,14 @@ A checkpoint the JAX package saved (``mx.model.save_checkpoint``, or
 the port reads as it is:
 
     args, aux = params_from_checkpoint("ckpt/resnet", 10, ctx)
+
+A JAX ``Module``'s optimizer-state file pickles JAX arrays, which the port
+cannot unpickle; with the states taken out as numpy on the JAX side (one
+array, None, or a tuple of them per key), ``updater_states_from_numpy``
+makes the port's ``Updater.states``, so training resumes in the port:
+
+    mod.init_optimizer(...)
+    mod._updater.states = updater_states_from_numpy(jax_states_as_numpy, ctx)
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import torch
 
 from .context import Context, current_context
 
-__all__ = ["params_from_numpy", "params_from_checkpoint"]
+__all__ = ["params_from_numpy", "params_from_checkpoint", "updater_states_from_numpy"]
 
 
 def params_from_numpy(arg_params, ctx: Context = None) -> Dict[str, torch.Tensor]:
@@ -48,3 +56,23 @@ def params_from_checkpoint(prefix, epoch, ctx: Context = None):
     _, arg_params, aux_params = load_checkpoint(prefix, epoch, ctx=ctx)
     return ({n: a._tensor() for n, a in arg_params.items()},
             {n: a._tensor() for n, a in aux_params.items()})
+
+
+def updater_states_from_numpy(states, ctx: Context = None):
+    """{key: state} with each state a numpy array (or anything with
+    ``asnumpy()``), None, or a tuple of them → the same structure of
+    NDArrays on ``ctx`` (default ``gpu(0)``), each array's dtype kept."""
+    from .ndarray import NDArray
+
+    ctx = ctx or current_context()
+
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, (tuple, list)):
+            return tuple(one(x) for x in v)
+        # a copy the port owns (the caller's array may be read-only)
+        host = np.array(v.asnumpy() if hasattr(v, "asnumpy") else v, copy=True)
+        return NDArray(torch.from_numpy(host), ctx=ctx)
+
+    return {k: one(v) for k, v in states.items()}

@@ -10,8 +10,12 @@ either package saved loads in the other.
 The write here is synchronous and atomic (a temporary file, then
 ``os.replace``): when ``save_checkpoint`` returns the file is whole, and a
 crash mid-write leaves the previous epoch's file intact. The JAX package
-queues the write on its execution engine; that and ``FeedForward`` are not
-part of the port yet.
+queues the write on its execution engine (``model.py:59-124``); that waits
+for the port's ``engine.py``.
+
+``FeedForward`` (JAX :181-376; reference: model.py:387), the sklearn-style
+estimator, is a thin adapter over the port's ``Module``: ``fit``,
+``predict``, ``score``, ``save``, ``load`` and ``create``.
 """
 from __future__ import annotations
 
@@ -20,12 +24,16 @@ import logging
 import os
 import re
 
+import numpy as np
+
+from . import io as mxio
 from . import ndarray as nd
 from . import symbol as sym_mod
 from .base import MXNetError
 from .context import cpu
 
-__all__ = ["save_checkpoint", "load_checkpoint", "find_last_checkpoint", "resume_or_init"]
+__all__ = ["save_checkpoint", "load_checkpoint", "find_last_checkpoint", "resume_or_init",
+           "FeedForward"]
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
@@ -93,3 +101,205 @@ def load_checkpoint(prefix, epoch, ctx=None):
         if tp == "aux":
             aux_params[name] = v
     return symbol, arg_params, aux_params
+
+
+class FeedForward:
+    """sklearn-style training wrapper (reference: model.py:387 FeedForward).
+    Thin adapter over Module: the reference's _train_multi_device loop is the
+    Module fit path here. ``ctx`` defaults to ``current_context()``."""
+
+    def __init__(
+        self,
+        symbol,
+        ctx=None,
+        num_epoch=None,
+        epoch_size=None,
+        optimizer="sgd",
+        initializer=None,
+        numpy_batch_size=128,
+        arg_params=None,
+        aux_params=None,
+        allow_extra_params=False,
+        begin_epoch=0,
+        **kwargs,
+    ):
+        from .context import current_context
+        from .initializer import Uniform
+
+        self.symbol = symbol
+        self.ctx = ctx or [current_context()]
+        if not isinstance(self.ctx, list):
+            self.ctx = [self.ctx]
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.kwargs = kwargs.copy()
+        self.optimizer = optimizer
+        self.initializer = initializer or Uniform(0.01)
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self._pred_exec = None
+
+    def _init_iter(self, X, y, is_train):
+        if isinstance(X, (np.ndarray, nd.NDArray)):
+            if y is None:
+                if is_train:
+                    raise ValueError("y must be specified when X is numpy.ndarray")
+                y = np.zeros(X.shape[0] if hasattr(X, "shape") else len(X))
+            batch_size = min(self.numpy_batch_size, X.shape[0])
+            with self.ctx[0]:  # the iterator's arrays on the model's device
+                return mxio.NDArrayIter(X, y, batch_size=batch_size, shuffle=is_train,
+                                        last_batch_handle="roll_over" if is_train else "pad")
+        return X
+
+    def fit(
+        self,
+        X,
+        y=None,
+        eval_data=None,
+        eval_metric="acc",
+        epoch_end_callback=None,
+        batch_end_callback=None,
+        kvstore="local",
+        logger=None,
+        work_load_list=None,
+        monitor=None,
+        eval_end_callback=None,
+        eval_batch_end_callback=None,
+    ):
+        """(reference: model.py FeedForward.fit)"""
+        from .module import Module
+
+        data = self._init_iter(X, y, is_train=True)
+        if eval_data is not None and not hasattr(eval_data, "provide_data"):
+            eval_data = self._init_iter(eval_data[0], eval_data[1], is_train=False)
+
+        label_names = [n for n in self.symbol.list_arguments() if n.endswith("label")]
+        mod = Module(
+            self.symbol,
+            data_names=[d.name for d in data.provide_data],
+            label_names=label_names,
+            logger=logger or logging,
+            context=self.ctx,
+            work_load_list=work_load_list,
+        )
+        optimizer_params = dict(self.kwargs)
+        if "learning_rate" not in optimizer_params and "lr" in optimizer_params:
+            optimizer_params["learning_rate"] = optimizer_params.pop("lr")
+        mod.fit(
+            data,
+            eval_data=eval_data,
+            eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback,
+            kvstore=kvstore,
+            optimizer=self.optimizer,
+            optimizer_params=tuple(optimizer_params.items()),
+            initializer=self.initializer,
+            arg_params=self.arg_params,
+            aux_params=self.aux_params,
+            allow_missing=True,
+            begin_epoch=self.begin_epoch,
+            num_epoch=self.num_epoch,
+            monitor=monitor,
+            eval_end_callback=eval_end_callback,
+            eval_batch_end_callback=eval_batch_end_callback,
+        )
+        self.arg_params, self.aux_params = mod.get_params()
+        self._module = mod
+        return self
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        """(reference: model.py FeedForward.predict)"""
+        data = self._init_iter(X, None, is_train=False)
+        from .module import Module
+
+        label_names = [n for n in self.symbol.list_arguments() if n.endswith("label")]
+        mod = Module(
+            self.symbol,
+            data_names=[d.name for d in data.provide_data],
+            label_names=label_names,
+            context=self.ctx,
+        )
+        mod.bind(data.provide_data, data.provide_label or None, for_training=False)
+        mod.init_params(arg_params=self.arg_params, aux_params=self.aux_params, allow_missing=True)
+        outputs = mod.predict(data, num_batch=num_batch, always_output_list=True)
+        if len(outputs) == 1:
+            return outputs[0].asnumpy()
+        return [o.asnumpy() for o in outputs]
+
+    def score(self, X, eval_metric="acc", num_batch=None):
+        data = self._init_iter(X, None, is_train=False)
+        from .module import Module
+
+        label_names = [n for n in self.symbol.list_arguments() if n.endswith("label")]
+        mod = Module(self.symbol, data_names=[d.name for d in data.provide_data], label_names=label_names, context=self.ctx)
+        mod.bind(data.provide_data, data.provide_label, for_training=False)
+        mod.init_params(arg_params=self.arg_params, aux_params=self.aux_params, allow_missing=True)
+        res = mod.score(data, eval_metric, num_batch=num_batch)
+        return res[0][1]
+
+    def save(self, prefix, epoch=None):
+        """(reference: FeedForward.save)"""
+        if epoch is None:
+            epoch = self.num_epoch
+        assert epoch is not None
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params, self.aux_params)
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        """(reference: FeedForward.load); the parameters load onto ``ctx``
+        (its first context when a list), default ``current_context()``."""
+        first = ctx[0] if isinstance(ctx, list) else ctx
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch, ctx=first)
+        return FeedForward(
+            symbol, ctx=ctx, arg_params=arg_params, aux_params=aux_params, begin_epoch=epoch, **kwargs
+        )
+
+    @staticmethod
+    def create(
+        symbol,
+        X,
+        y=None,
+        ctx=None,
+        num_epoch=None,
+        epoch_size=None,
+        optimizer="sgd",
+        initializer=None,
+        eval_data=None,
+        eval_metric="acc",
+        epoch_end_callback=None,
+        batch_end_callback=None,
+        kvstore="local",
+        logger=None,
+        work_load_list=None,
+        eval_end_callback=None,
+        eval_batch_end_callback=None,
+        **kwargs,
+    ):
+        """(reference: FeedForward.create)"""
+        model = FeedForward(
+            symbol,
+            ctx=ctx,
+            num_epoch=num_epoch,
+            epoch_size=epoch_size,
+            optimizer=optimizer,
+            initializer=initializer,
+            **kwargs,
+        )
+        model.fit(
+            X,
+            y,
+            eval_data=eval_data,
+            eval_metric=eval_metric,
+            epoch_end_callback=epoch_end_callback,
+            batch_end_callback=batch_end_callback,
+            kvstore=kvstore,
+            logger=logger,
+            work_load_list=work_load_list,
+            eval_end_callback=eval_end_callback,
+            eval_batch_end_callback=eval_batch_end_callback,
+        )
+        return model

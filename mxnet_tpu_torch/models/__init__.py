@@ -1,3 +1,3 @@
 """Model zoo of the port: the transformer LM and the pre-activation ResNet,
-each served and trained."""
-from . import resnet, transformer  # noqa: F401
+each served and trained, and the MNIST nets ``mlp`` and ``lenet``."""
+from . import lenet, mlp, resnet, transformer  # noqa: F401

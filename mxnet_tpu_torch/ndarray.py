@@ -141,6 +141,11 @@ class NDArray:
 
     ctx = context
 
+    def __reduce__(self):
+        """Pickles (the optimizer's state file) hold the values and the
+        context; unpickling puts the values back on that context."""
+        return (_unpickle, (self.asnumpy(), self.context.device_typeid, self.context.device_id))
+
     def __repr__(self):
         return "<NDArray %s @%s>" % ("x".join(str(s) for s in self._shape), self.context)
 
@@ -371,6 +376,11 @@ class NDArray:
         return imperative_invoke("min", [self], {"axis": axis, "keepdims": keepdims})[0]
 
 
+def _unpickle(host, device_typeid, device_id) -> NDArray:
+    return NDArray(torch.from_numpy(host), ctx=Context(Context.devtype2str[device_typeid],
+                                                       device_id))
+
+
 def _wrap(tensor: torch.Tensor, ctx: Context) -> NDArray:
     """An NDArray over a tensor that already lies on ``ctx``: no check, no
     copy (an executor's outputs, an op's results)."""
@@ -395,13 +405,19 @@ def imperative_invoke(op_name, inputs, attrs, out=None, ctx=None, is_train=True,
     array in place and ``out`` is returned; without it the results are new
     arrays on ``ctx`` (default: the first input's context, else the ``ctx``
     attribute, else ``current_context()``), never aliases of an input. ``rng``
-    is a ``torch.Generator`` for an op that draws random numbers."""
+    is a ``torch.Generator`` for an op that draws random numbers; without
+    one such an op draws from ``ctx``'s device generator (``random.py``), on
+    that device."""
     opdef = get_op(op_name)
     attrs = parse_attrs(opdef, attrs)
     n_aux = len(opdef.aux_names(attrs))
     if ctx is None:
         ctx = inputs[0].context if inputs else (
             Context(attrs["ctx"]) if attrs.get("ctx") else current_context())
+    if opdef.needs_rng and rng is None:
+        from . import random as _random
+
+        rng = _random.generator(ctx.torch_device)
     tensors = [x._tensor() for x in inputs]
     n_in = len(tensors) - n_aux
     # an op without inputs allocates on torch's default device: make that ctx's

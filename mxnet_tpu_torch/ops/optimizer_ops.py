@@ -1,9 +1,10 @@
 """Optimizer update ops.
 
-Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (:17-75): ``sgd_update``,
-``sgd_mom_update`` and ``adam_update`` with ``_prep_grad``'s rescale and
-clip. They are plain torch elementwise expressions, as the JAX package's
-are XLA ones (no Pallas kernel): each returns the new weight and state, and
+Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (:17-125): ``sgd_update``,
+``sgd_mom_update``, ``adam_update``, ``rmsprop_update`` and
+``rmspropalex_update`` with ``_prep_grad``'s rescale and clip. They are
+plain torch elementwise expressions, as the JAX package's are XLA ones (no
+Pallas kernel): each returns the new weight and state, and
 ``ndarray.imperative_invoke`` writes them back into their arrays in place.
 """
 from __future__ import annotations
@@ -59,3 +60,40 @@ def _adam_update(attrs, weight, grad, mean, var):
     new_var = b2 * var + (1 - b2) * torch.square(g)
     w = weight - attrs["lr"] * new_mean / (torch.sqrt(new_var) + attrs["epsilon"])
     return w, new_mean, new_var
+
+
+@register("rmsprop_update",
+          attrs=_common({"gamma1": AttrSpec("float", default=0.95),
+                         "epsilon": AttrSpec("float", default=1e-8),
+                         "clip_weights": AttrSpec("float", default=-1.0)}),
+          input_names=("weight", "grad", "n"), num_outputs=2, output_names=("weight", "n"))
+def _rmsprop_update(attrs, weight, grad, n):
+    g = _prep_grad(grad, attrs) + attrs["wd"] * weight
+    g1 = attrs["gamma1"]
+    new_n = g1 * n + (1 - g1) * torch.square(g)
+    w = weight - attrs["lr"] * g / torch.sqrt(new_n + attrs["epsilon"])
+    cw = attrs["clip_weights"]
+    if cw is not None and cw > 0:
+        w = torch.clamp(w, -cw, cw)
+    return w, new_n
+
+
+@register("rmspropalex_update",
+          attrs=_common({"gamma1": AttrSpec("float", default=0.95),
+                         "gamma2": AttrSpec("float", default=0.9),
+                         "epsilon": AttrSpec("float", default=1e-8),
+                         "clip_weights": AttrSpec("float", default=-1.0)}),
+          input_names=("weight", "grad", "n", "g", "delta"), num_outputs=4,
+          output_names=("weight", "n", "g", "delta"))
+def _rmspropalex_update(attrs, weight, grad, n, g_state, delta):
+    g = _prep_grad(grad, attrs) + attrs["wd"] * weight
+    g1, g2 = attrs["gamma1"], attrs["gamma2"]
+    new_n = g1 * n + (1 - g1) * torch.square(g)
+    new_g = g1 * g_state + (1 - g1) * g
+    new_delta = g2 * delta - attrs["lr"] * g / torch.sqrt(new_n - torch.square(new_g)
+                                                          + attrs["epsilon"])
+    w = weight + new_delta
+    cw = attrs["clip_weights"]
+    if cw is not None and cw > 0:
+        w = torch.clamp(w, -cw, cw)
+    return w, new_n, new_g, new_delta

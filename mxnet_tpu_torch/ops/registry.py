@@ -5,9 +5,9 @@ contract: every operator is a plain function ``fn(attrs, *inputs)`` over
 torch tensors, and ``OpDef.apply`` returns ``(outputs_list, new_aux_list)``.
 An op with aux state (``BatchNorm``: its moving mean and variance) is
 ``fn(attrs, inputs, aux, is_train=...)`` and returns its new aux values
-beside its outputs; ``needs_train_flag`` passes ``is_train``. No op of the
-port draws random numbers yet; the ``needs_rng`` slot stays so a later slice
-keeps the contract. Gradients come from torch autograd over the ops'
+beside its outputs; ``needs_train_flag`` passes ``is_train``; ``needs_rng``
+passes a ``torch.Generator`` (the samplers of ``ops/sample.py``), where the
+JAX package passes a PRNG key. Gradients come from torch autograd over the ops'
 functions, with an autograd Function where the JAX package has a
 ``custom_vjp``.
 """

@@ -1,21 +1,45 @@
 """Optimizers.
 
 Counterpart of ``mxnet_tpu/optimizer.py`` for the dense update path
-(:126-347, :433-470, :583-625): ``Optimizer`` with the reference's registry,
-per-parameter lr/wd multipliers and per-key update counts; ``SGD`` (with
-momentum) and ``Adam`` (host-side bias-corrected lr); ``create``,
-``register``, ``Updater`` and ``get_updater``. Each update is one op of
-``ops/optimizer_ops.py`` run through ``ndarray.imperative_invoke``, which
-writes the new weight and state into their arrays in place. Learning-rate
-schedules and multipliers read from symbol attributes come with ``Module``.
+(:126-625): ``Optimizer`` with the reference's registry, learning-rate
+schedules (``lr_scheduler=``), per-parameter lr/wd multipliers (by name,
+by index, and from the symbol's ``__lr_mult__``/``__wd_mult__`` attributes,
+``sym=``) and per-key update counts; ``SGD`` (with momentum), ``NAG``,
+``ccSGD``, ``SGLD``, ``DCASGD``, ``Adam`` (host-side bias-corrected lr),
+``AdaGrad``, ``RMSProp`` (plain and centred), ``AdaDelta`` and ``Test``;
+``create``, ``register``, ``Updater`` (with ``get_states``/``set_states``,
+pickles of the port's NDArrays) and ``get_updater``.
+
+SGD, Adam and RMSProp run one op of ``ops/optimizer_ops.py`` through
+``ndarray.imperative_invoke``, which writes the new weight and state into
+their arrays in place; the others are NDArray arithmetic, as in the JAX
+package. SGLD's noise is drawn on the weight's device from that device's
+generator (``random.py``), so it is not JAX's bits. The flat multi-tensor
+update (``flat_update_spec``, ``flat_kernel``) serves the fused data-parallel
+step and comes with it (``ROADMAP.md`` section 1.4); the row-sparse lazy
+update comes with ``sparse/`` (section 1.3). Each raises until then.
 """
 from __future__ import annotations
 
 import math
+import pickle
 
-from .ndarray import imperative_invoke, zeros
+from . import ndarray as nd
+from .base import MXNetError
+from .ndarray import NDArray, imperative_invoke, zeros
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "get_updater", "Updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad", "RMSProp",
+           "AdaDelta", "Test", "create", "register", "get_updater", "Updater", "flat_kernel"]
+
+_FLAT = ("the flat multi-tensor update serves the fused data-parallel step, which the "
+         "port has not yet (ROADMAP.md section 1.4)")
+_ROW_SPARSE = ("row-sparse gradients and their lazy update come with sparse/, which the "
+               "port has not yet (ROADMAP.md section 1.3)")
+
+
+def flat_kernel(kind, hyper):
+    """The flat kernel of a ``flat_update_spec`` family: not in the port yet."""
+    raise MXNetError("flat_kernel(%r): %s" % (kind, _FLAT))
 
 
 class Optimizer:
@@ -36,11 +60,17 @@ class Optimizer:
         return Optimizer.opt_registry[name.lower()](**kwargs)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, begin_num_update=0):
+                 learning_rate=0.01, lr_scheduler=None, sym=None, begin_num_update=0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
+        self.lr_mult = {}
+        self.wd_mult = {}
         self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
         if param_idx2name is None:
@@ -48,6 +78,7 @@ class Optimizer:
         if not isinstance(param_idx2name, dict):
             raise TypeError("param_idx2name should be a dict of param indexes to names.")
         self.idx2name = param_idx2name.copy()
+        self.sym = sym
         self.set_lr_mult({})
         self.set_wd_mult({})
 
@@ -57,17 +88,38 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError()
 
+    def flat_update_spec(self):
+        raise MXNetError("%s.flat_update_spec: %s" % (type(self).__name__, _FLAT))
+
+    def create_state_row_sparse(self, index, weight):
+        raise MXNetError("%s: %s" % (type(self).__name__, _ROW_SPARSE))
+
+    def update_row_sparse(self, index, weight, grad, state):
+        raise MXNetError("%s: %s" % (type(self).__name__, _ROW_SPARSE))
+
     # ----------------------------------------------------------------- mults
+    def _sym_mults(self, key):
+        """{argument name: float} of the symbol's ``key`` attribute."""
+        if self.sym is None:
+            return {}
+        attr = self.sym.attr_dict()
+        return {name: float(attr[name][key]) for name in self.sym.list_arguments()
+                if name in attr and key in attr[name]}
+
     def set_lr_mult(self, args_lr_mult):
-        """Per-parameter lr multipliers, by name or index."""
-        self.lr_mult = dict(args_lr_mult)
+        """Per-parameter lr multipliers, by name or index; the symbol's
+        ``__lr_mult__`` attributes feed in first (JAX :256)."""
+        self.lr_mult = self._sym_mults("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
         """Per-parameter wd multipliers, by name or index; every parameter
         whose name does not end in ``_weight`` or ``_gamma`` (biases, betas:
-        the 1-D ones) gets wd 0, as in the reference."""
+        the 1-D ones) gets wd 0, as in the reference, then the symbol's
+        ``__wd_mult__`` attributes, then ``args_wd_mult`` (JAX :266)."""
         self.wd_mult = {n: 0.0 for n in self.idx2name.values()
                         if not (n.endswith("_weight") or n.endswith("_gamma"))}
+        self.wd_mult.update(self._sym_mults("__wd_mult__"))
         self.wd_mult.update(args_wd_mult)
 
     # ------------------------------------------------------------- schedules
@@ -75,9 +127,10 @@ class Optimizer:
         if index not in self._index_update_count:
             self._index_update_count[index] = self.begin_num_update
         self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index], self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler is not None else self.lr
         if index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:
@@ -98,9 +151,21 @@ class Optimizer:
             attrs["clip_gradient"] = self.clip_gradient
         return attrs
 
+    def _prep(self, grad):
+        """The rescaled, clipped gradient as a new array (the NDArray
+        optimizers' first step)."""
+        grad = grad * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = nd.clip(grad, a_min=-self.clip_gradient, a_max=self.clip_gradient)
+        return grad
+
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
+
+
+def _zeros_like(weight):
+    return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
 
 
 @register
@@ -114,7 +179,7 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
-        return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+        return _zeros_like(weight)
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -124,6 +189,72 @@ class SGD(Optimizer):
             imperative_invoke("sgd_mom_update", [weight, grad, state], attrs, out=[weight, state])
         else:
             imperative_invoke("sgd_update", [weight, grad], attrs, out=[weight])
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD (JAX :380)."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._prep(grad)
+        if state is not None:
+            mom = state
+            mom[:] = mom * self.momentum + grad + wd * weight
+            grad[:] = grad + self.momentum * mom
+            weight[:] = weight - lr * grad
+        else:
+            weight[:] = weight - lr * (grad + wd * weight)
+
+
+@register
+class ccSGD(SGD):
+    """Deprecated alias of SGD (JAX :445)."""
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics (JAX :416); the noise is drawn
+    on the weight's device from its generator."""
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._prep(grad)
+        noise = nd.random_normal(loc=0.0, scale=math.sqrt(lr), shape=weight.shape,
+                                 ctx=weight.context)
+        weight[:] = weight - lr / 2 * (grad + wd * weight) + noise
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated async SGD (JAX :325)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (_zeros_like(weight), weight.copy())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._prep(grad)
+        mom, previous_weight = state
+        step = grad + wd * weight + self.lamda * grad * grad * (weight - previous_weight)
+        if mom is not None:
+            mom[:] = mom * self.momentum
+            mom[:] = mom - lr * step
+        else:
+            mom = -lr * step
+        previous_weight[:] = weight
+        weight[:] = weight + mom
 
 
 @register
@@ -138,8 +269,7 @@ class Adam(Optimizer):
         self.epsilon = epsilon
 
     def create_state(self, index, weight):
-        return (zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),  # mean
-                zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))  # var
+        return (_zeros_like(weight), _zeros_like(weight))  # mean, var
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -153,6 +283,96 @@ class Adam(Optimizer):
                           out=[weight, mean, var])
 
 
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (JAX :499)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._prep(grad)
+        history = state
+        history[:] = history + grad * grad
+        weight[:] = weight - lr * (grad / nd.sqrt(history + self.float_stable_eps) + wd * weight)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; ``centered=True`` is Alex Graves' variant (JAX :536), on the
+    rmsprop_update / rmspropalex_update ops."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9, epsilon=1e-8,
+                 centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros_like(weight), _zeros_like(weight), _zeros_like(weight))  # n, g, delta
+        return (_zeros_like(weight),)  # n
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        attrs = self._common_attrs(self._get_lr(index), self._get_wd(index))
+        attrs.update(gamma1=self.gamma1, epsilon=self.epsilon)
+        if self.clip_weights is not None:
+            attrs["clip_weights"] = self.clip_weights
+        if not self.centered:
+            (n,) = state
+            imperative_invoke("rmsprop_update", [weight, grad, n], attrs, out=[weight, n])
+        else:
+            n, g, delta = state
+            attrs["gamma2"] = self.gamma2
+            imperative_invoke("rmspropalex_update", [weight, grad, n, g, delta], attrs,
+                              out=[weight, n, g, delta])
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (JAX :605)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))  # accumulated g, accumulated delta
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        grad = self._prep(grad)
+        acc_g, acc_delta = state
+        acc_g[:] = self.rho * acc_g + (1.0 - self.rho) * grad * grad
+        current_delta = nd.sqrt(acc_delta + self.epsilon) / nd.sqrt(acc_g + self.epsilon) * grad
+        acc_delta[:] = self.rho * acc_delta + (1.0 - self.rho) * current_delta * current_delta
+        weight[:] = weight - current_delta - wd * weight
+
+
+@register
+class Test(Optimizer):
+    """Trivial optimizer for tests (JAX :653)."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        weight[:] = weight + grad * self.rescale_grad
+        state[:] = weight
+
+
 class Updater:
     """Applies an optimizer per key with lazily created state."""
 
@@ -161,9 +381,22 @@ class Updater:
         self.states = {}
 
     def __call__(self, index, grad, weight):
+        if not isinstance(grad, NDArray):
+            raise MXNetError("Updater: a %s gradient for key %r: %s"
+                             % (type(grad).__name__, index, _ROW_SPARSE))
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def set_states(self, states):
+        """Take the states ``get_states`` pickled (or a states dict); the
+        arrays come back on the contexts they were saved from."""
+        self.states = pickle.loads(states) if isinstance(states, bytes) else states
+
+    def get_states(self):
+        """The states as a pickle of the port's NDArrays (their values and
+        contexts)."""
+        return pickle.dumps(self.states)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -245,12 +245,12 @@ def test_f4_graph_functions_registry_name_and_base_match_the_reference():
 #: (module, name) pairs whose signatures differ on purpose or wait for a
 #: queued item: the loaders' trailing ``ctx=`` and ``Rtc(block=)`` (CUDA
 #: side), the rewrite passes' arguments and NDArray's ``writable``
-#: (ROADMAP section 5), the optimizer's ``lr_scheduler``/``sym`` (1.2), and
-#: fusion's internal marker, whose fields follow the port's kernels
+#: (ROADMAP section 5), and fusion's internal marker, whose fields follow
+#: the port's kernels
 SIGNATURE_EXCEPTIONS = {
     ("analysis.rewrite", "rewrite"), ("analysis.rewrite", "rewrite_for_bind"),
     ("fusion", "PendingConv"), ("model", "load_checkpoint"), ("model", "resume_or_init"),
-    ("ndarray", "NDArray"), ("ndarray", "load"), ("optimizer", "Optimizer"),
+    ("ndarray", "NDArray"), ("ndarray", "load"),
     ("predictor", "load_ndarray_file"), ("rtc", "Rtc"),
 }
 

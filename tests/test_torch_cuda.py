@@ -863,3 +863,67 @@ def test_decoder_reload_lands_in_the_next_megastep_without_a_new_capture(dev):
     got = dec.greedy(_prompt(), 9, k=4)
     np.testing.assert_array_equal(got, want)
     assert dec._megasteps[(4, ("greedy", 1.0, 0))] is prog and prog._graph is graph
+
+
+# ------------------------------------------------------------ Module.fit trunk
+@pytest.mark.parametrize("op", ["random_uniform", "random_normal"])
+def test_random_ops_draw_on_the_card(dev, op):
+    """A draw on gpu(0) runs on the card from its generator: the same seed,
+    the same draws; the moments are the distribution's."""
+    pt.random.seed(7)
+    a = getattr(pt.nd, op)(shape=(100000,), ctx=pt.gpu(0))
+    assert a._tensor().is_cuda and pt.random.generator(dev).device == dev
+    pt.random.seed(7)
+    b = getattr(pt.nd, op)(shape=(100000,), ctx=pt.gpu(0))
+    np.testing.assert_array_equal(a.asnumpy(), b.asnumpy())
+    x = a.asnumpy().astype(np.float64)
+    mean, std = (0.5, 1 / math.sqrt(12)) if op == "random_uniform" else (0.0, 1.0)
+    assert abs(x.mean() - mean) < 5 * std / math.sqrt(x.size)
+    assert abs(x.std() - std) < 5 * std / math.sqrt(2 * x.size)
+
+
+@pytest.mark.parametrize("on_card", [False, True])
+def test_device_prefetch_iter_on_the_card_gives_the_unwrapped_bits(dev, on_card):
+    """Host batches through the pinned staging buffer, card batches copied on
+    the side stream: each batch the unwrapped iterator's, bitwise, on gpu(0)."""
+    rs = np.random.RandomState(0)
+    x, y = rs.randn(50, 3, 8, 8).astype("f"), rs.randint(0, 10, 50).astype("f")
+    with (pt.gpu(0) if on_card else pt.cpu()):
+        plain = [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
+                 for b in pt.io.NDArrayIter(x, y, batch_size=8)]
+        it = pt.io.DevicePrefetchIter(pt.io.NDArrayIter(x, y, batch_size=8), device=pt.gpu(0))
+    for _ in range(2):
+        got = []
+        for b in it:
+            assert b.data[0].context == pt.gpu(0) and b.data[0]._tensor().is_cuda
+            got.append((b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad))
+        it.reset()
+        assert len(got) == len(plain) == 7
+        for (gd, gl, gp), (wd, wl, wp) in zip(got, plain):
+            np.testing.assert_array_equal(gd, wd)
+            np.testing.assert_array_equal(gl, wl)
+            assert gp == wp
+
+
+def test_module_fit_through_device_prefetch_gives_the_same_bits(dev, monkeypatch):
+    """``MXNET_IO_DEVICE_PREFETCH=1``: ``Module.fit`` on gpu(0) over a host
+    iterator, wrapped in a DevicePrefetchIter, trains to the same bits as
+    without it."""
+    rs = np.random.RandomState(3)
+    x, y = rs.randn(64, 20).astype("f"), rs.randint(0, 5, 64).astype("f")
+    w = {"fc_weight": rs.randn(5, 20).astype("f") * 0.1, "fc_bias": np.zeros(5, "f")}
+
+    def fit():
+        net = pt.sym.SoftmaxOutput(pt.sym.FullyConnected(pt.sym.Variable("data"), num_hidden=5,
+                                                         name="fc"), name="softmax")
+        with pt.cpu():
+            train = pt.io.NDArrayIter(x, y, batch_size=16)
+        mod = pt.mod.Module(net, context=pt.gpu(0))
+        mod.fit(train, optimizer="sgd", optimizer_params=(("learning_rate", 0.1),
+                                                          ("momentum", 0.9)),
+                arg_params=w, num_epoch=3)
+        return mod.get_params()[0]["fc_weight"].asnumpy()
+
+    plain = fit()
+    monkeypatch.setenv("MXNET_IO_DEVICE_PREFETCH", "1")
+    np.testing.assert_array_equal(fit(), plain)

@@ -73,6 +73,12 @@ import mxnet_tpu_torch.ops.conv_bn, mxnet_tpu_torch.fusion
 import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.model, mxnet_tpu_torch.predictor
 import mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops.matmul_stats
 import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.faultinject, mxnet_tpu_torch.serving.engine
+import mxnet_tpu_torch.module, mxnet_tpu_torch.io, mxnet_tpu_torch.initializer
+import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.metric, mxnet_tpu_torch.callback
+import mxnet_tpu_torch.monitor, mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.kvstore_helper
+import mxnet_tpu_torch.device_info, mxnet_tpu_torch.ops.sample
+import mxnet_tpu_torch.models.mlp, mxnet_tpu_torch.models.lenet
+assert mxnet_tpu_torch.mod is mxnet_tpu_torch.module and mxnet_tpu_torch.init.Xavier
 assert mxnet_tpu_torch.nd is mxnet_tpu_torch.ndarray
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("ok")
@@ -127,6 +133,14 @@ def test_entry_points_default_to_the_gpu_and_do_not_fall_back(monkeypatch):
                          buckets=(1, 2)) as eng:
         np.testing.assert_array_equal(eng.infer({"x": np.ones((2, 4), np.float32)})[0],
                                       np.full((2, 3), 4.0, np.float32))
+    # a Module and the iterators too; a with-block makes the CPU the default
+    with pytest.raises(pt.MXNetError, match="CUDA is not available"):
+        pt.io.NDArrayIter(np.ones((2, 4), np.float32), batch_size=2)
+    with pt.cpu():
+        assert pt.current_context() == pt.cpu()
+        assert pt.io.NDArrayIter(np.ones((2, 4), np.float32), batch_size=2).next() \
+            .data[0].context == pt.cpu()
+    assert pt.current_context() == pt.gpu(0)
     exe = net.simple_bind(ctx=pt.cpu(), grad_req="write", x=(2, 4))
     exe.arg_dict["x"][:] = np.ones((2, 4), np.float32)
     exe.forward_backward()

@@ -3,7 +3,10 @@ attrs given as the strings a Symbol JSON carries, inputs made with numpy
 from a seed, outputs compared in float32 (atol = rtol = 2e-6: elementwise
 float32 arithmetic and short sums on the CPU in both packages). The ops of
 the imperative NDArray also go through the generated ``nd.<op>`` functions
-of both packages."""
+of both packages. The samplers, whose bits are the port's own, are held to
+the reference's distributions instead."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -89,6 +92,18 @@ CASES = [
      [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2)]),
     ("adam_update", {"lr": "0.01", "wd": "0.01", "rescale_grad": "0.5", "clip_gradient": "1.0"},
      [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2), _r(3, 4, seed=3, lo=0.1)]),
+    ("rmsprop_update", {"lr": "0.01", "wd": "0.01", "gamma1": "0.9", "rescale_grad": "0.5",
+                        "clip_weights": "0.5"},
+     [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2, lo=0.1)]),
+    ("rmsprop_update", {"lr": "0.01", "clip_gradient": "0.25"},
+     [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2, lo=0.1)]),
+    ("rmspropalex_update", {"lr": "0.01", "wd": "0.01", "gamma1": "0.9", "gamma2": "0.8",
+                            "clip_gradient": "1.0"},
+     [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2, lo=2.0), _r(3, 4, seed=3) * 0.1,
+      _r(3, 4, seed=4)]),
+    ("rmspropalex_update", {"lr": "0.01", "clip_weights": "0.3"},
+     [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2, lo=2.0), _r(3, 4, seed=3) * 0.1,
+      _r(3, 4, seed=4)]),
 ]
 
 # the imperative NDArray's ops: ops/elemwise.py and ops/broadcast_reduce.py in
@@ -222,8 +237,52 @@ def test_nd_function_matches_the_reference(op, attrs, inputs):
     np.testing.assert_allclose(got.asnumpy(), want.asnumpy(), atol=2e-6, rtol=2e-6)
 
 
+# the samplers draw from the port's generators, not JAX's keys: each is held
+# to the reference's distribution by the mean and standard deviation of
+# 20 000 draws (within 5 standard errors of the exact moments) and by its
+# support, through the op and through ``nd.<op>`` under each alias
+RANDOM_CASES = [
+    ("random_uniform", {"low": "-2.0", "high": "3.0", "shape": "(100, 200)"},
+     (0.5, 5.0 / math.sqrt(12.0)), (-2.0, 3.0)),
+    ("_sample_uniform", {"shape": "(20000,)"}, (0.5, 1.0 / math.sqrt(12.0)), (0.0, 1.0)),
+    ("uniform", {"low": "1.0", "high": "1.5", "shape": "(4, 5000)"},
+     (1.25, 0.5 / math.sqrt(12.0)), (1.0, 1.5)),
+    ("random_normal", {"loc": "1.5", "scale": "0.25", "shape": "(100, 200)"}, (1.5, 0.25), None),
+    ("_sample_normal", {"shape": "(20000,)"}, (0.0, 1.0), None),
+    ("normal", {"loc": "-3.0", "scale": "2.0", "shape": "(20000,)"}, (-3.0, 2.0), None),
+]
+
+
+def _check_draws(x, moments, support):
+    mean, std = moments
+    n = x.size
+    assert abs(x.mean() - mean) < 5 * std / math.sqrt(n)
+    assert abs(x.std() - std) < 5 * std / math.sqrt(2 * n)
+    if support is not None:
+        assert x.min() >= support[0] and x.max() <= support[1]
+
+
+@pytest.mark.parametrize("op,attrs,moments,support", RANDOM_CASES,
+                         ids=[_case_id(c) for c in RANDOM_CASES])
+def test_random_op_draws_the_references_distribution(op, attrs, moments, support):
+    import mxnet_tpu as mx
+    import mxnet_tpu_torch as pt
+
+    jop, pop = jreg.get_op(op), preg.get_op(op)
+    assert pop.name == jop.name and pop.needs_rng and jop.needs_rng
+    jx = np.asarray(getattr(mx.nd, op)(**attrs).asnumpy())
+    pt.random.seed(11)
+    px = getattr(pt.nd, op)(ctx=pt.cpu(), **attrs)
+    assert px.context == pt.cpu() and px.shape == jx.shape and px.dtype == jx.dtype
+    for x in (jx, px.asnumpy()):
+        _check_draws(x.astype(np.float64), moments, support)
+    pt.random.seed(11)  # the same seed, the same draws
+    np.testing.assert_array_equal(getattr(pt.nd, op)(ctx=pt.cpu(), **attrs).asnumpy(),
+                                  px.asnumpy())
+
+
 def test_every_port_op_is_swept_and_named_as_in_the_reference():
-    swept = {preg.get_op(c[0]).name for c in CASES}
+    swept = {preg.get_op(c[0]).name for c in CASES + RANDOM_CASES}
     assert swept == set(preg.list_ops())
     for name, op in preg._REGISTRY.items():
         assert jreg.get_op(name).name == op.name, name
