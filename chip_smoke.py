@@ -92,9 +92,36 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    against the port's CPU run from the same Xavier weights (rtol 1e-4,
    atol 1e-5), validation accuracy over 0.9, ``matmul_bias_act``'s launches
    the plan's, and ``FeedForward.fit`` equal to ``Module.fit``.
-10. A ``profiler`` line (how many timing windows were taken again after the
+10. The zoo's image classifiers at their published widths. Inception-v3
+   (299 x 299): each distinct fused conv site shape at batch 32 against the
+   plain versions (forward, stats-free forward, backward), timed against
+   ``F.conv2d``, ``aten.convolution_backward`` and its bound; served at
+   batch 32 and 1 (50 stats-free conv_bn launches a forward, latency,
+   images/s, the card's idle share); card vs CPU at batch 2 (probabilities,
+   and a training step held as phase 6 holds ResNet-50's); ``Module.fit`` at
+   batch 32 over fixed batches (50 conv_bn and 50 conv_bn_bwd launches a
+   step, the loss falling, host p50/p80, card time, idle share, images/s).
+   Inception-BN (224 x 224) the same (its convs carry a bias: no fused site).
+   Kernel 6 at AlexNet's and VGG-16's classifier shapes; AlexNet and VGG-16
+   at batch 32: 2 kernel-6 launches a forward, card vs CPU at batch 2
+   (inference, and a training step with every Dropout's p at 0), two
+   training steps at p = 0.5 from the same seed bitwise equal, the kept
+   fraction within 4σ of 0.5, timed steps.
+11. MT: ``get_symbol_mt`` at its defaults trained at batch 32: card vs CPU at
+   batch 2 (the loss, every gradient, the encoder's nonzero), launches of
+   kernels 1-6 the plan's (18 flash, 32 LayerNorm, 12 ffn1 a step), the loss
+   falls, step time, card time and idle share. Phase 2 holds its
+   non-causal flash shape (256, 64, 64, 64) forward and backward.
+12. LSTM: (a) example/rnn/lstm_bucketing.py's network through
+   ``BucketingModule.fit`` for one epoch: its first 6 batches' parameters
+   equal the port's CPU run's, one bind a bucket, the perplexity falls,
+   tokens/s over real tokens, host p50 a batch, idle share; (b)
+   ``models/lstm.py`` on the fused RNN op: card vs CPU at batch 2, timed
+   steps and tokens/s, ``FusedRNNCell.unfuse()`` equal to the fused outputs.
+13. A ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
-   and 9 with the module phase's ``module_launches``), the card's
+   and 9 with the module phase's ``module_launches``, the zoo's
+   ``zoo_launches`` and the MT step's ``mt_launches``), the card's
    name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -185,6 +212,44 @@ MODULE = dict(batches=4, epochs=2, factor_step=3, factor=0.5, top_k=5, timed_ste
 # the MNIST nets' fused matmul_bias_act sites a forward: mlp's fc1+relu and
 # fc2+relu, lenet's fc1+tanh
 MNIST_SITES = {"mlp": 2, "lenet": 1}
+# Phase 10, the zoo's image classifiers at their published widths (f32, TF32
+# off, random weights from the seed, He-scaled as RESNET's): Inception-v3
+# (299 x 299, 1000 classes, 23 834 568 parameters; 50 fused conv sites of 23
+# distinct shapes at batch 32, each shape held against its plain version and
+# timed) and Inception-BN (224 x 224; its convolutions carry a bias, so the
+# planner fuses none, as the JAX planner does), each served at batch 32 and 1
+# and trained through Module.fit at batch 32 over ``fit_batches`` fixed
+# batches for ``fit_epochs`` epochs, SGD-momentum; AlexNet and VGG-16 at 224 x
+# 224 and batch 32: an inference forward and ``cls_steps`` training steps
+# with Dropout at p = 0.5. Not cut.
+ZOO = dict(batch=32, check_batch=2, serve_iters=10, lr=0.01, momentum=0.9, wd=1e-4, cls_steps=3,
+           conv_iters=5)
+INCEPTION = {"inception-v3": dict(image=(3, 299, 299), sites=50, fit_batches=2, fit_epochs=3,
+                                  check_shapes=True),
+             "inception-bn": dict(image=(3, 224, 224), sites=0, fit_batches=2, fit_epochs=2)}
+# AlexNet's fc1 + relu and fc2 + relu, VGG-16's fc6 + relu6 and fc7 + relu7:
+# kernel 6 twice a forward; its shapes there at batch 32, as (M, K, N):
+# AlexNet's fc1 at 224 x 224 (K = 256·5·5; 256·6·6 = 9216 at 227 x 227),
+# fc2 and VGG-16's fc7, VGG-16's fc6
+CLASSIFIERS = {"alexnet": (3, 224, 224), "vgg16": (3, 224, 224)}
+CLASSIFIER_FC_SITES = 2
+FC_SHAPES = [(32, 6400, 4096), (32, 9216, 4096), (32, 4096, 4096), (32, 25088, 4096)]
+# Phase 11: the MT Transformer at get_symbol_mt's defaults (6 + 6 layers, 8
+# heads, model 512, ffn 2048, vocab 32 000, 64 source and 64 target tokens),
+# trained at batch 32 (2048 target tokens a step) on one fixed batch. Not cut.
+MT = dict(vocab_size=32000, num_layers=6, num_heads=8, model_dim=512, ffn_dim=2048, src_len=64,
+          tgt_len=64, batch=32, check_batch=2, warmup_steps=2, steps=6, lr=0.002, momentum=0.9,
+          wd=1e-4)
+# Phase 12: (a) example/rnn/lstm_bucketing.py's network and settings (two
+# LSTMCells of 200, embed 200, buckets 10-60, batch 32, SGD lr 0.01, wd 1e-5,
+# Xavier(in, 2.34), Perplexity(0)) over its synthetic Zipf corpus at PTB's
+# 10 000 words and 2000 sentences, one epoch; its first ``check_batches``
+# batches card vs CPU. (b) models/lstm.py at its defaults on the fused RNN op.
+LSTM_BUCKETING = dict(num_hidden=200, num_embed=200, num_layers=2,
+                      buckets=(10, 20, 30, 40, 50, 60), batch=32, lr=0.01, wd=1e-5,
+                      sentences=2000, vocab=10000, check_batches=6)
+LSTM_FUSED = dict(num_classes=10000, num_embed=256, num_hidden=512, num_layers=2, seq_len=32,
+                  batch_size=32, steps=6, lr=0.01)
 # matmul_with_stats: ResNet-50's 1x1 convolutions at batch 32 as (M, K, N)
 # matrices (stage 1's 64->256, 64->64 and 256->64 at 56 x 56, stage 2's
 # 512->128 at 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
@@ -502,13 +567,16 @@ def check_kernels(peaks):
 
     # ---- flash attention: (BH, T, S, D, causal); the prefill's, the training
     # step's (also between CUDA events), then ragged
-    timed = {0: "", 1: "train_"}
+    timed = {0: "", 1: "train_", 6: "mt_"}
+    Lmt = MT["src_len"]
     for i, (BH, T, S, D, causal) in enumerate([(B * H, P, P, dh, True),
                                                 (BT * H, T0, T0, dh, True),
                                                 (H, P, P, dh, True),  # a paged admit's
                                                 (5, 77, 77, 40, True),
                                                 (3, 50, 131, 128, True),
-                                                (4, 33, 70, 96, False)]):
+                                                (4, 33, 70, 96, False),
+                                                # the MT step's encoder and cross
+                                                (MT["batch"] * H, Lmt, Lmt, dh, False)]):
         q, k, v = randn(BH, T, D), randn(BH, S, D), randn(BH, S, D)
         o, lse = fa.flash_attention(q, k, v, causal=causal)
         po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
@@ -655,11 +723,14 @@ def check_backward_kernels(randn, peaks, entries, worst):
     H, M = MODEL["num_heads"], MODEL["model_dim"]
     B, T0, dh = TRAIN["batch"], TRAIN["seq_len"], M // H
 
-    # ---- flash backward: (BH, T, S, D, causal)
+    # ---- flash backward: (BH, T, S, D, causal); the last, the MT step's
+    # non-causal encoder and cross-attention shape, is timed too
+    Lmt = MT["src_len"]
     for i, (BH, T, S, D, causal) in enumerate([(B * H, T0, T0, dh, True),
                                                 (5, 77, 77, 40, True),
                                                 (3, 50, 131, 128, True),
-                                                (4, 33, 70, 96, False)]):
+                                                (4, 33, 70, 96, False),
+                                                (MT["batch"] * H, Lmt, Lmt, dh, False)]):
         q, k, v, do = randn(BH, T, D), randn(BH, S, D), randn(BH, S, D), randn(BH, T, D)
         scale = 1.0 / math.sqrt(D)
         o, lse = fa.flash_attention(q, k, v, causal=causal)
@@ -678,13 +749,14 @@ def check_backward_kernels(randn, peaks, entries, worst):
         rec = {"phase": "kernel", "name": "flash_attention_bwd", "shape": [BH, T, S, D],
                "causal": causal, "max_abs_err_dq": err["flash_attention_dq"],
                "max_abs_err_dkv": err["flash_attention_dkv"]}
-        if i == 0:
+        if i in (0, 4):
+            prefix = "" if i == 0 else "mt_"
             pairs = causal_pairs(T, S, causal) * BH
             reads = 4.0 * (2 * BH * T * D + 2 * BH * S * D + 2 * BH * T)
-            q4, k4, v4 = (t.reshape(B, H, -1, D).detach().requires_grad_(True)
+            q4, k4, v4 = (t.reshape(BH // H, H, -1, D).detach().requires_grad_(True)
                           for t in (q, k, v))
             out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-            do4 = do.reshape(B, H, T, D)
+            do4 = do.reshape(BH // H, H, T, D)
             # one library call computes dq, dk and dv together: SDPA's backward
             lib_ms = device_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                            retain_graph=True))
@@ -701,11 +773,21 @@ def check_backward_kernels(randn, peaks, entries, worst):
                 rec.update({name + "_ms": ms, name + "_event_ms": ev_ms,
                             name + "_plain_ms": plain_ms, name + "_bound_ms": b_ms,
                             name + "_f32_bound_ms": f32_ms})
+                if prefix:
+                    entries[name].update({prefix + "ms": ms, prefix + "event_ms": ev_ms,
+                                          prefix + "plain_ms": plain_ms,
+                                          prefix + "bound_ms": b_ms, prefix + "library_ms": lib_ms,
+                                          prefix + "f32_bound_ms": f32_ms})
+                    continue
                 entries[name] = entry(
                     name, ms=ms, event_ms=ev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, f32_bound_ms=f32_ms,
                     library_ms=lib_ms, library="SDPA backward (dq, dk and dv together)",
                     shape="train q,k,v,dO (%d,%d,%d) causal" % (BH, T, D))
+            if prefix:
+                rec.update(library_ms=lib_ms)
+                log(rec)
+                continue
             # the whole call (δ, dq, dk/dv) and its δ = rowsum(dO∘O) alone
             # between two CUDA events
             bwd_event_ms = event_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
@@ -1772,6 +1854,11 @@ def run_paged(pt, params, smi):
     return launches
 
 
+# set while a matmul_bias_act site runs, so that relu_kinks leaves its ReLU
+# (the plain version's, on the CPU) to relu_decisions
+IN_FUSED_SITE = [False]
+
+
 @contextlib.contextmanager
 def relu_decisions(record=None, pinned=None):
     """Record the output of every matmul_bias_act site of a run (``record``),
@@ -1789,7 +1876,11 @@ def relu_decisions(record=None, pinned=None):
     flips, ys = [], iter(pinned or ())
 
     def forward(ctx, a, w, b, act):
-        y = orig(ctx, a, w, b, act)
+        IN_FUSED_SITE[0] = True  # the CPU's plain version applies the act through _ACTS
+        try:
+            y = orig(ctx, a, w, b, act)
+        finally:
+            IN_FUSED_SITE[0] = False
         if record is not None:
             record.append(y.detach().cpu())
         if pinned is not None:
@@ -1948,27 +2039,8 @@ def check_tf32_off():
 
 
 def resnet_values(net, seed=SEED + 3):
-    """Random ResNet weights from the seed: He-scaled conv and fc weights,
-    γ in U(0.5, 1.5), β in U(-0.1, 0.1), fc bias 0; moving means 0 and
-    variances 1, as a fresh model has them."""
-    arg_shapes, _, aux_shapes = net.infer_shape(data=(1,) + image_shape(), softmax_label=(1,))
-    rs = np.random.RandomState(seed)
-    args = {}
-    for n, s in zip(net.list_arguments(), arg_shapes):
-        if n in ("data", "softmax_label"):
-            continue
-        if n.endswith("_gamma"):
-            v = rs.uniform(0.5, 1.5, s)
-        elif n.endswith("_beta"):
-            v = rs.uniform(-0.1, 0.1, s)
-        elif n.endswith("_bias"):
-            v = np.zeros(s)
-        else:
-            v = rs.standard_normal(s) * math.sqrt(2.0 / np.prod(s[1:]))
-        args[n] = v.astype(np.float32)
-    aux = {n: (np.ones(s) if n.endswith("_var") else np.zeros(s)).astype(np.float32)
-           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
-    return args, aux
+    """Random ResNet weights from the seed (``zoo_values``)."""
+    return zoo_values(net, image_shape(), seed)
 
 
 def image_shape():
@@ -1976,16 +2048,15 @@ def image_shape():
 
 
 def resnet_batch(B):
-    """One fixed batch: images in U(-1, 1), labels uniform over the classes."""
-    rs = np.random.RandomState(SEED + 4)
-    return (rs.uniform(-1, 1, (B,) + image_shape()).astype(np.float32),
-            rs.randint(0, RESNET["num_classes"], (B,)).astype(np.float32))
+    """One fixed batch (``zoo_batch``)."""
+    return zoo_batch(B, image_shape(), RESNET["num_classes"], SEED + 4)
 
 
 def resnet_bind(pt, net, ctx, B, args, aux, grad_req, images, labels, dtype="float32"):
+    """A bind of ``net`` (any classifier over ``images``) at batch ``B``."""
     types = {n: dtype for n in net.list_arguments() + net.list_auxiliary_states()}
-    exe = net.simple_bind(ctx, grad_req=grad_req, type_dict=types, data=(B,) + image_shape(),
-                          softmax_label=(B,))
+    exe = net.simple_bind(ctx, grad_req=grad_req, type_dict=types,
+                          data=(B,) + tuple(images.shape[1:]), softmax_label=(B,))
     exe.copy_params_from(dict(args, data=images[:B], softmax_label=labels[:B]), aux)
     return exe
 
@@ -2040,6 +2111,112 @@ def run_resnet_serve(pt, net, args, aux):
                argmax_agree=bool((probs[0].argmax(1) == probs[1].argmax(1)).all()))
     log(out)
     return out["batch%d" % max(RESNET_SERVE["batches"])]["launches"]
+
+
+def cnn_train_check(pt, net, args, aux, images, labels, Bc, phase, fc_relus=False,
+                    distance="max"):
+    """One training step of a classifier at batch ``Bc`` from the same
+    weights on the card and on the CPU (phase 6's check, and phase 10's):
+    the loss, every gradient and the new moving stats. ``fc_relus``: the
+    net also has ReLUs inside fused ``matmul_bias_act`` sites, pinned too.
+    ``distance``: how far a gradient lies from the float64 one, "max" (the
+    largest element's difference over the largest magnitude: phase 6's) or
+    "fro" (the difference's norm over the gradient's). The CPU's float32
+    and float64 runs sum in the same orders, so their errors share a part
+    the card's do not; one element's difference is that noise at its most.
+    Phase 10 reads the norm (PERF.md §6)."""
+    reqs = {n: "write" for n in args}  # data and labels: null
+    fc_kinks = relu_decisions if fc_relus else _no_kinks
+
+    def loss_of(exe, rows):
+        prob = exe.outputs[0]._tensor()
+        lab = torch.as_tensor(labels[:rows].reshape(-1, 1), device=prob.device).long()
+        return float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
+
+    # one step at batch 2 from the same weights on the card, and on the CPU
+    # in float32 and in float64, the CPU runs pinned to the card's side at
+    # every ReLU kink they split. At batch 2 a randomly initialised ResNet
+    # (or Inception) is chaotic: a 1e-7 relative change of the images moves
+    # deep gradients by percents with every ReLU pinned (PERF.md §6). So a
+    # gradient passes within rtol 1e-3, atol 1e-3·max|grad| of the CPU's
+    # float32 one, or when it lies as close to the float64 gradient as
+    # RESNET_F64_FACTOR times the float32 CPU's own distance from it
+    card, fc_card = [], []
+    exe = resnet_bind(pt, net, pt.gpu(0), Bc, args, aux, reqs, images, labels)
+    with relu_kinks(record=card), fc_kinks(record=fc_card):
+        exe.forward_backward()
+    torch.cuda.synchronize()
+    got = ({n: exe.grad_dict[n].asnumpy() for n in args},
+           {n: exe.aux_dict[n].asnumpy() for n in aux}, loss_of(exe, Bc))
+    del exe
+
+    def cpu_step(dtype):
+        e = resnet_bind(pt, net, pt.cpu(), Bc, args, aux, reqs, images, labels, dtype)
+        with relu_kinks(compare=card, pin=True) as flips, fc_kinks(pinned=fc_card) as fc_flips:
+            e.forward_backward()
+        return ({n: e.grad_dict[n].asnumpy() for n in args},
+                {n: e.aux_dict[n].asnumpy() for n in aux}, loss_of(e, Bc)), flips + fc_flips
+
+    t0 = time.perf_counter()
+    want, flips = cpu_step("float32")
+    cpu_s = time.perf_counter() - t0
+    exact, flips64 = cpu_step("float64")
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
+
+    n_flips, flip_pre = sum(n for n, _ in flips), max([d for _, d in flips] or [0.0])
+    n_decisions = sum(int(d.numel()) for d in card) + sum(int(y.numel()) for y in fc_card)
+    strict = [n for n in args if np.allclose(got[0][n], want[0][n], rtol=1e-3,
+                                             atol=1e-3 * float(np.abs(want[0][n]).max()))]
+    def fro(a, b):
+        return float(np.linalg.norm(a - b)) / (float(np.linalg.norm(b)) or 1.0)
+
+    far = rel if distance == "max" else fro
+    card64 = {n: far(got[0][n], exact[0][n]) for n in args}
+    cpu64 = {n: far(want[0][n], exact[0][n]) for n in args}
+    ratio = {n: card64[n] / max(cpu64[n], 1e-30) for n in args}
+    # a gradient that is 0 in exact arithmetic (a conv bias a BatchNorm
+    # follows: the BN takes its mean out) is rounding on both sides; it must
+    # stay at that level on the card
+    gscale = max(float(np.abs(exact[0][n]).max()) for n in args)
+    null = {n for n in args if float(np.abs(exact[0][n]).max()) <= 1e-6 * gscale}
+    loose = [n for n in args if n not in strict and n not in null]
+    worst = max(loose, key=lambda n: ratio[n]) if loose else None
+    aux_rel = max([rel(got[1][n], want[1][n]) for n in aux] or [0.0])
+    log({"phase": phase, "batch": Bc, "distance": distance, "loss_card": got[2],
+         "loss_cpu": want[2],
+         "loss_cpu_f64": exact[2], "relu_kinks_pinned": n_flips, "relu_kink_max_abs_pre": flip_pre,
+         "relu_kinks_pinned_f64": sum(n for n, _ in flips64), "relu_decisions": n_decisions,
+         "grads": len(args), "grads_within_1e-3_of_cpu": len(strict),
+         "card_vs_cpu_worst": max(rel(got[0][n], want[0][n]) for n in args),
+         "card_vs_f64_worst": max(card64.values()), "cpu_vs_f64_worst": max(cpu64.values()),
+         "card_vs_f64_median": float(np.median(list(card64.values()))),
+         "cpu_vs_f64_median": float(np.median(list(cpu64.values()))),
+         "worst_ratio_grad": worst, "worst_ratio": ratio[worst] if worst else None,
+         "ratios_over_2": sorted(n for n in loose if ratio[n] > 2),
+         "null_grads": len(null),
+         "worst_aux_abs_err_over_max": aux_rel, "cpu_step_s": cpu_s})
+    check(abs(got[2] - want[2]) <= 1e-3 * max(1.0, abs(want[2])), ("card vs CPU loss", got[2],
+                                                                    want[2]))
+    # a split decision is a kink: within rounding of 0 on both sides, and rare
+    check(n_flips <= 1e-5 * n_decisions and flip_pre <= 1e-3,
+          ("ReLU decisions that differ beyond kinks", n_flips, flip_pre))
+    for n in null:
+        check(float(np.abs(got[0][n]).max()) <= 1e-4 * gscale, ("card vs CPU null grad", n))
+    for n in args:
+        check(np.isfinite(got[0][n]).all(), ("non-finite card gradient", n))
+        check(n in strict or n in null or card64[n] <= RESNET_F64_FACTOR * cpu64[n],
+              ("card vs CPU grad", n, card64[n], cpu64[n]))
+    check(aux_rel <= 1e-3, ("card vs CPU moving stats", aux_rel))
+    return {"loss_card": got[2], "loss_cpu": want[2], "relu_kinks_pinned": n_flips,
+            "grads_within_1e-3_of_cpu": len(strict), "grads": len(args),
+            "worst_ratio": ratio[worst] if worst else None}
+
+
+@contextlib.contextmanager
+def _no_kinks(record=None, pinned=None):
+    yield []
 
 
 @contextlib.contextmanager
@@ -2104,6 +2281,8 @@ def relu_kinks(record=None, compare=None, pin=False):
         return torch.relu(pinned(pre, masks[key]) if pin else pre)
 
     def relu(data):
+        if IN_FUSED_SITE[0]:  # a matmul_bias_act site's: relu_decisions pins it
+            return orig_relu(data)
         got = decide(data.detach()) if (record is not None or compare is not None) else None
         if pin and got is not None and got[1].any():
             data = data + (pinned(data.detach(), got) - data.detach())
@@ -2132,70 +2311,8 @@ def run_resnet_train(pt, net, args, aux):
         lab = torch.as_tensor(labels[:rows].reshape(-1, 1), device=prob.device).long()
         return float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
 
-    # one step at batch 2 from the same weights on the card, and on the CPU
-    # in float32 and in float64, the CPU runs pinned to the card's side at
-    # every ReLU kink they split. At batch 2 this randomly initialised
-    # ResNet is chaotic: a 1e-7 relative change of the images moves deep
-    # gradients by percents with every ReLU pinned (PERF.md §6, PR 3). So a
-    # gradient passes within rtol 1e-3, atol 1e-3·max|grad| of the CPU's
-    # float32 one, or when it lies as close to the float64 gradient as
-    # RESNET_F64_FACTOR times the float32 CPU's own distance from it
-    Bc = RESNET_TRAIN["check_batch"]
-    card = []
-    exe = resnet_bind(pt, net, pt.gpu(0), Bc, args, aux, reqs, images, labels)
-    with relu_kinks(record=card):
-        exe.forward_backward()
-    torch.cuda.synchronize()
-    got = ({n: exe.grad_dict[n].asnumpy() for n in args},
-           {n: exe.aux_dict[n].asnumpy() for n in aux}, loss_of(exe, Bc))
-    del exe
-
-    def cpu_step(dtype):
-        e = resnet_bind(pt, net, pt.cpu(), Bc, args, aux, reqs, images, labels, dtype)
-        with relu_kinks(compare=card, pin=True) as flips:
-            e.forward_backward()
-        return ({n: e.grad_dict[n].asnumpy() for n in args},
-                {n: e.aux_dict[n].asnumpy() for n in aux}, loss_of(e, Bc)), flips
-
-    t0 = time.perf_counter()
-    want, flips = cpu_step("float32")
-    cpu_s = time.perf_counter() - t0
-    exact, flips64 = cpu_step("float64")
-
-    def rel(a, b):
-        return float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
-
-    n_flips, flip_pre = sum(n for n, _ in flips), max(d for _, d in flips)
-    n_decisions = sum(int(d.numel()) for d in card)
-    strict = [n for n in args if np.allclose(got[0][n], want[0][n], rtol=1e-3,
-                                             atol=1e-3 * float(np.abs(want[0][n]).max()))]
-    card64 = {n: rel(got[0][n], exact[0][n]) for n in args}
-    cpu64 = {n: rel(want[0][n], exact[0][n]) for n in args}
-    ratio = {n: card64[n] / max(cpu64[n], 1e-30) for n in args}
-    loose = [n for n in args if n not in strict]
-    worst = max(loose, key=lambda n: ratio[n]) if loose else None
-    aux_rel = max(rel(got[1][n], want[1][n]) for n in aux)
-    log({"phase": "resnet_train_check", "batch": Bc, "loss_card": got[2], "loss_cpu": want[2],
-         "loss_cpu_f64": exact[2], "relu_kinks_pinned": n_flips, "relu_kink_max_abs_pre": flip_pre,
-         "relu_kinks_pinned_f64": sum(n for n, _ in flips64), "relu_decisions": n_decisions,
-         "grads": len(args), "grads_within_1e-3_of_cpu": len(strict),
-         "card_vs_cpu_worst": max(rel(got[0][n], want[0][n]) for n in args),
-         "card_vs_f64_worst": max(card64.values()), "cpu_vs_f64_worst": max(cpu64.values()),
-         "card_vs_f64_median": float(np.median(list(card64.values()))),
-         "cpu_vs_f64_median": float(np.median(list(cpu64.values()))),
-         "worst_ratio_grad": worst, "worst_ratio": ratio[worst] if worst else None,
-         "ratios_over_2": sorted(n for n in loose if ratio[n] > 2),
-         "worst_aux_abs_err_over_max": aux_rel, "cpu_step_s": cpu_s})
-    check(abs(got[2] - want[2]) <= 1e-3 * max(1.0, abs(want[2])), ("card vs CPU loss", got[2],
-                                                                    want[2]))
-    # a split decision is a kink: within rounding of 0 on both sides, and rare
-    check(n_flips <= 1e-5 * n_decisions and flip_pre <= 1e-3,
-          ("ReLU decisions that differ beyond kinks", n_flips, flip_pre))
-    for n in args:
-        check(np.isfinite(got[0][n]).all(), ("non-finite card gradient", n))
-        check(n in strict or card64[n] <= RESNET_F64_FACTOR * cpu64[n],
-              ("card vs CPU grad", n, card64[n], cpu64[n]))
-    check(aux_rel <= 1e-3, ("card vs CPU moving stats", aux_rel))
+    cnn_train_check(pt, net, args, aux, images, labels, RESNET_TRAIN["check_batch"],
+                    "resnet_train_check")
 
     exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, reqs, images, labels)
     names = [n for n in net.list_arguments() if n in args]
@@ -3154,6 +3271,864 @@ def run_module_mnist(pt, out):
     return launches
 
 
+# ------------------------------------------------------------- phases 10-12
+def zoo_values(net, data_shape, seed):
+    """Random weights of an image classifier from the seed: He-scaled conv
+    and fc weights, γ in U(0.5, 1.5), β in U(-0.1, 0.1), biases 0; moving
+    means 0 and variances 1, as a fresh model has them."""
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(1,) + tuple(data_shape),
+                                                softmax_label=(1,))
+    rs = np.random.RandomState(seed)
+    args = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("_gamma"):
+            v = rs.uniform(0.5, 1.5, s)
+        elif n.endswith("_beta"):
+            v = rs.uniform(-0.1, 0.1, s)
+        elif n.endswith("_bias"):
+            v = np.zeros(s)
+        else:
+            v = rs.standard_normal(s) * math.sqrt(2.0 / np.prod(s[1:]))
+        args[n] = v.astype(np.float32)
+    aux = {n: (np.ones(s) if n.endswith("_var") else np.zeros(s)).astype(np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def zoo_batch(B, image, classes, seed):
+    """One fixed batch: images in U(-1, 1), labels uniform over the classes."""
+    rs = np.random.RandomState(seed)
+    return (rs.uniform(-1, 1, (B,) + tuple(image)).astype(np.float32),
+            rs.randint(0, classes, (B,)).astype(np.float32))
+
+
+def fused_site_shapes(net, data_shape):
+    """The conv+BN plan's fused sites of ``net`` at ``data_shape``, as
+    {(K, H, W, N, kernel, stride, prologue): sites} with the sites the shape
+    gate takes, and the count of sites it declines."""
+    from collections import Counter
+
+    from mxnet_tpu_torch import fusion
+    from mxnet_tpu_torch import symbol as psymbol
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    topo = net._topo()
+    plan = fusion.plan(topo, output_ids={id(n) for n, _ in net._outputs})
+    arg_s, _, aux_s = net.infer_shape(data=tuple(data_shape), softmax_label=(data_shape[0],))
+    known = dict(zip(net.list_arguments(), arg_s))
+    known.update(zip(net.list_auxiliary_states(), aux_s))
+    shapes, sites, declined = {}, Counter(), 0
+    for node in topo:
+        if node.is_variable:
+            shapes[(id(node), 0)] = tuple(known[node.name])
+            continue
+        ins = tuple(shapes[(id(i), oi)] for i, oi in node.inputs)
+        res = psymbol._eval_node_shape(node.op, psymbol._freeze(node.parsed_attrs()), ins,
+                                       ("float32",) * len(ins), psymbol._aux_positions(node))
+        for k, (sh, _) in enumerate(res):
+            shapes[(id(node), k)] = sh
+        d = plan.get(id(node))
+        if d is None or d["kind"] != "conv":
+            continue
+        x, w = ins[0], ins[1]
+        if not cb.supported(x, w, d["stride"]):
+            declined += 1
+            continue
+        prologue = plan.get(id(node.inputs[0][0]), {}).get("kind") == "relu_fold"
+        sites[(x[1], x[2], x[3], w[0], w[2], d["stride"][0], prologue)] += 1
+    return sites, declined
+
+
+def check_zoo_conv_shapes(randn, peaks, shapes, B):
+    """Phase 10: each distinct fused conv site shape of a zoo net at batch
+    ``B``, forward (with statistics, and stats-free) and backward, against
+    the plain versions on the card; each timed between CUDA events against
+    ``F.conv2d`` of the normalised input and ``aten.convolution_backward``,
+    and against its bound. Returns the shapes' records."""
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    it = ZOO["conv_iters"]
+    recs = []
+    for (K, H, W, N, kernel, stride, prologue), sites in sorted(shapes.items()):
+        x, w, scale, shift, _, (Ho, Wo) = conv_case(randn, B, K, H, W, N, kernel, stride,
+                                                    prologue, False)
+        st = (stride, stride)
+        got = cb.conv_block(x, w, scale, shift, None, st, prologue)
+        want = cb.conv_block_plain(x, w, scale, shift, None, st, prologue)
+        infer = cb.conv_block_infer(x, w, scale, shift, st, prologue)
+        infer_want = cb.conv_block_infer_plain(x, w, scale, shift, st, prologue)
+        dc, ds, dq = randn(B, N, Ho, Wo), randn(N, scale=0.01), randn(N, scale=1e-3)
+        args = (x, w, scale, shift, want[0], dc, ds, dq, st, prologue, False)
+        gb, pb = cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = {"c": rel_err(got[0], want[0]), "c_infer": rel_err(infer, infer_want),
+                "ssum": rel_err(got[1], want[1]), "ssq": rel_err(got[2], want[2])}
+        for name, g, p in zip(("dx", "dw", "dscale", "dshift", "dres"), gb, pb):
+            check((g is None) == (p is None), ("conv_bn_bwd outputs", name))
+            if g is not None:
+                errs[name] = rel_err(g, p)
+        for name, e in errs.items():
+            tol = CONV_TOL["elementwise" if name in ("c", "c_infer", "dx") else "sums"]
+            check(math.isfinite(e) and e <= tol, ("zoo conv kernels", name, B, K, H, W, N,
+                                                  kernel, e))
+        flops = cb.flops(x.shape, w.shape, st)
+        xn = cb._prologue(x, scale, shift, prologue)
+        pad = (kernel - 1) // 2
+        dce = dc + ds.reshape(1, -1, 1, 1) + 2.0 * got[0] * dq.reshape(1, -1, 1, 1)
+        fb, fby, _ = product_bound(flops, conv_bytes(x, w, scale, shift, got[0]) + 8.0 * N, peaks)
+        bb, bby, _ = product_bound(2.0 * flops, conv_bytes(x, w, scale, shift, got[0], dc, ds,
+                                                           dq, *gb), peaks)
+        rec = {"phase": "kernel", "name": "conv_bn_zoo", "shape": [B, K, H, W, N, kernel, stride],
+               "prologue": prologue, "sites": sites, "rel_err": errs,
+               "event_ms": event_ms(lambda: cb.conv_block(x, w, scale, shift, None, st,
+                                                          prologue), it),
+               "infer_event_ms": event_ms(lambda: cb.conv_block_infer(x, w, scale, shift, st,
+                                                                      prologue), it),
+               "plain_event_ms": event_ms(lambda: cb.conv_block_plain(x, w, scale, shift, None,
+                                                                      st, prologue), it),
+               "library_event_ms": event_ms(lambda: F.conv2d(xn, w, stride=st, padding=pad), it),
+               "bound_ms": fb, "bound_by": fby,
+               "bwd_event_ms": event_ms(lambda: cb.conv_block_bwd(*args), it),
+               "bwd_plain_event_ms": event_ms(lambda: cb.conv_block_bwd_plain(*args), it),
+               "bwd_library_event_ms": event_ms(lambda: torch.ops.aten.convolution_backward(
+                   dce, xn, w, None, list(st), [pad, pad], [1, 1], False, [0, 0], 1,
+                   [True, True, False]), it),
+               "bwd_bound_ms": bb, "bwd_bound_by": bby}
+        rec["over_library"] = rec["event_ms"] / rec["library_event_ms"]
+        rec["bwd_over_library"] = rec["bwd_event_ms"] / rec["bwd_library_event_ms"]
+        log(rec)
+        recs.append(rec)
+        del x, w, got, want, infer, gb, pb, xn, dce, dc
+    return recs
+
+
+def fit_timed(mod, train, per_epoch, epochs, opt_params, arg_params, aux_params, metric):
+    """``Module.fit`` over ``train`` (``per_epoch`` batches an epoch) with a
+    synchronize at each batch's end: (host ms a step, the training metric at
+    the end of each epoch)."""
+    marks, epoch_metric = [time.perf_counter()], []
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if param.nbatch == per_epoch - 1:
+            epoch_metric.append(float(param.eval_metric.get()[1]))
+
+    mod.fit(train, eval_metric=metric, optimizer="sgd", optimizer_params=opt_params,
+            arg_params=arg_params, aux_params=aux_params, batch_end_callback=batch_end,
+            num_epoch=epochs)
+    return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])], epoch_metric
+
+
+def run_inception(pt, name, smi, randn, peaks):
+    """Phase 10a: an Inception net at its published widths: the kernel
+    shapes of its fused sites, serving at batch 32 and 1, card vs CPU at
+    batch 2 (inference, and a training step), and Module.fit at batch 32."""
+    from mxnet_tpu_torch import models, ops
+
+    cfg, B, Bc = INCEPTION[name], ZOO["batch"], ZOO["check_batch"]
+    t_phase = time.perf_counter()
+    net = models.get_symbol(name, num_classes=1000)
+    args, aux = zoo_values(net, cfg["image"], SEED + 30)
+    n_params = sum(int(v.size) for v in args.values())
+    shapes, declined = fused_site_shapes(net, (B,) + cfg["image"])
+    sites = sum(shapes.values())
+    check(sites == cfg["sites"] and declined == 0, ("%s fused sites" % name, sites, declined))
+    out = {"phase": "zoo_" + name.replace("-", "_"), "nvidia_smi": smi,
+           "image": cfg["image"], "params": n_params, "fused_sites": sites,
+           "distinct_site_shapes": len(shapes)}
+    if cfg.get("check_shapes"):
+        recs = check_zoo_conv_shapes(randn, peaks, shapes, B)
+        out["shapes_over_library"] = {"fwd_worst": max(r["over_library"] for r in recs),
+                                      "bwd_worst": max(r["bwd_over_library"] for r in recs),
+                                      "fwd_losing": sum(r["over_library"] > 1 for r in recs),
+                                      "bwd_losing": sum(r["bwd_over_library"] > 1 for r in recs)}
+    images, labels = zoo_batch(B * cfg["fit_batches"], cfg["image"], 1000, SEED + 31)
+
+    # --- serving at batch 32 and 1
+    for Bs in (B, 1):
+        exe = resnet_bind(pt, net, pt.gpu(0), Bs, args, aux, "null", images, labels)
+        for _ in range(2):
+            exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        prob = exe.forward(is_train=False)[0].asnumpy()
+        launches = ops.launch_counts()
+        check(launches == with_zeros({"conv_bn_infer": sites}),
+              ("%s inference launch counts" % name, Bs, launches))
+        check(prob.shape == (Bs, 1000) and np.isfinite(prob).all()
+              and np.allclose(prob.sum(axis=1), 1.0, atol=1e-4), ("%s probabilities" % name, Bs))
+        lat = []
+        for _ in range(ZOO["serve_iters"]):
+            t0 = time.perf_counter()
+            exe.forward(is_train=False)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(lat))
+        card = profile_window(lambda: exe.forward(is_train=False))
+        out["serve_batch%d" % Bs] = {
+            "launches": {k: v for k, v in launches.items() if v}, "latency_ms_p50": med,
+            "latency_ms_p80": float(np.percentile(lat, 80)), "images_per_s": Bs * 1e3 / med,
+            "device_busy_ms": card["device_busy_ms"],
+            "device_idle_share": card["device_idle_share"],
+            "port_kernels_ms": card["port_kernels_ms"]}
+        del exe
+    probs = [resnet_bind(pt, net, ctx, Bc, args, aux, "null", images, labels).forward(
+        is_train=False)[0].asnumpy() for ctx in (pt.gpu(0), pt.cpu())]
+    err = float(np.abs(probs[0] - probs[1]).max())
+    check(np.allclose(probs[0], probs[1], rtol=1e-3, atol=1e-6), ("%s card vs CPU probs" % name,
+                                                                  err))
+    out["serve_card_vs_cpu_max_abs_err"] = err
+
+    # --- one training step at batch 2, card vs CPU (phase 6's check)
+    out["train_check"] = cnn_train_check(pt, net, args, aux, images, labels, Bc,
+                                         "zoo_%s_train_check" % name.replace("-", "_"),
+                                         distance="fro")
+
+    # --- Module.fit at batch 32 over fixed batches
+    with pt.gpu(0):
+        train = pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False)
+    mod = pt.mod.Module(net, context=pt.gpu(0))
+    opt = (("learning_rate", ZOO["lr"]), ("momentum", ZOO["momentum"]), ("wd", ZOO["wd"]),
+           ("rescale_grad", 1.0 / B))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    steps = cfg["fit_batches"] * cfg["fit_epochs"]
+    t0 = time.perf_counter()
+    step_ms, ce = fit_timed(mod, train, cfg["fit_batches"], cfg["fit_epochs"], opt, args, aux,
+                            pt.metric.create("ce"))
+    fit_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches == with_zeros({"conv_bn": sites * steps, "conv_bn_bwd": sites * steps}),
+          ("%s Module.fit launch counts" % name, launches))
+    check(len(ce) == cfg["fit_epochs"] and all(math.isfinite(v) for v in ce) and ce[-1] < ce[0],
+          ("%s: the training loss did not fall" % name, ce))
+    moved = {n: float(np.abs(a.asnumpy() - aux[n]).max()) for n, a in mod.get_params()[1].items()}
+    check(all(v > 0 for v in moved.values()), ("%s moving stats unchanged" % name))
+    train.reset()
+    batch = next(iter(train))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+
+    card = profile_window(step)
+    timed = step_ms[1:]  # the first step binds nothing but warms the allocator
+    p50 = float(np.percentile(timed, 50))
+    out["fit"] = {"batch": B, "batches": cfg["fit_batches"], "epochs": cfg["fit_epochs"],
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "epoch_cross_entropy": ce, "step_ms_p50": p50,
+                  "step_ms_p80": float(np.percentile(timed, 80)), "step_ms": step_ms,
+                  "images_per_s": B * 1e3 / p50, "fit_s": fit_s,
+                  "device_busy_ms": card["device_busy_ms"],
+                  "device_idle_share": card["device_idle_share"],
+                  "port_kernel_ms": card["port_kernel_ms"],
+                  "port_kernel_launches": card["port_kernel_launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    del mod, train
+    return launches
+
+
+def run_classifier(pt, name, smi):
+    """Phase 10b: AlexNet or VGG-16 at 224 x 224: kernel 6 at the fc sites of
+    an inference forward at batch 32; card vs CPU at batch 2 (inference, and
+    a training step with every Dropout's p at 0); two training steps at p =
+    0.5 from the same seed give the same bits, the kept fraction within 4σ
+    of 0.5; timed training steps."""
+    from mxnet_tpu_torch import models, ops, optimizer
+
+    t_phase = time.perf_counter()
+    B, Bc, image, fc = ZOO["batch"], ZOO["check_batch"], CLASSIFIERS[name], CLASSIFIER_FC_SITES
+    net = models.get_symbol(name, num_classes=1000)
+    args, aux = zoo_values(net, image, SEED + 40)
+    images, labels = zoo_batch(B, image, 1000, SEED + 41)
+    out = {"phase": "zoo_" + name, "nvidia_smi": smi, "params": sum(int(v.size) for v in
+                                                                     args.values())}
+    exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, "null", images, labels)
+    exe.forward(is_train=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    prob = exe.forward(is_train=False)[0].asnumpy()
+    infer_launches = ops.launch_counts()
+    check(infer_launches == with_zeros({"matmul_bias_act": fc}),
+          ("%s inference launches" % name, infer_launches))
+    check(np.isfinite(prob).all() and np.allclose(prob.sum(1), 1.0, atol=1e-4),
+          ("%s probabilities" % name))
+    lat = []
+    for _ in range(ZOO["serve_iters"]):
+        t0 = time.perf_counter()
+        exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out["serve_batch32"] = {"latency_ms_p50": float(np.median(lat)),
+                            "images_per_s": B * 1e3 / float(np.median(lat))}
+    del exe
+    probs = [resnet_bind(pt, net, ctx, Bc, args, aux, "null", images, labels).forward(
+        is_train=False)[0].asnumpy() for ctx in (pt.gpu(0), pt.cpu())]
+    err = float(np.abs(probs[0] - probs[1]).max())
+    check(np.allclose(probs[0], probs[1], rtol=1e-3, atol=1e-6), ("%s card vs CPU" % name, err))
+    out["serve_card_vs_cpu_max_abs_err"] = err
+    graph = json.loads(net.tojson())
+    for node in graph["nodes"]:
+        if node["op"] == "Dropout":
+            node["attr"]["p"] = "0"
+    out["train_check_p0"] = cnn_train_check(pt, pt.sym.load_json(json.dumps(graph)), args, aux,
+                                            images, labels, Bc, "zoo_%s_train_check" % name,
+                                            fc_relus=True, distance="fro")
+
+    # --- training at p = 0.5: the same seed, the same bits
+    op = pt.ops.registry.get_op("Dropout")
+    orig, kept = op.fn, []
+
+    def recording(attrs, data, is_train=False, rng=None):
+        y = orig(attrs, data, is_train=is_train, rng=rng)
+        if is_train:
+            kept.append((int((y != 0).sum()), int((data != 0).sum())))
+        return y
+
+    reqs = {n: "write" for n in args}
+    names = [n for n in net.list_arguments() if n in args]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    op.fn = recording
+    try:
+        exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, reqs, images, labels)
+        runs = []
+        for _ in range(2):
+            pt.random.seed(SEED + 42)
+            exe.forward_backward()
+            runs.append(({n: exe.grad_dict[n].asnumpy() for n in names},
+                         exe.outputs[0].asnumpy()))
+        check(all(np.array_equal(runs[0][0][n], runs[1][0][n]) for n in names)
+              and np.array_equal(runs[0][1], runs[1][1]),
+              ("%s: two steps from the same seed differ" % name))
+        n_kept = sum(k for k, _ in kept[:2])
+        n_in = sum(n for _, n in kept[:2])
+        frac = n_kept / n_in
+        check(abs(frac - 0.5) <= 4 * math.sqrt(0.25 / n_in), ("%s kept fraction" % name, frac))
+        opt = optimizer.create("sgd", learning_rate=ZOO["lr"], momentum=ZOO["momentum"],
+                               wd=ZOO["wd"], rescale_grad=1.0 / B,
+                               param_idx2name=dict(enumerate(names)))
+        updater = optimizer.get_updater(opt)
+
+        def step():
+            exe.forward_backward()
+            for i, n in enumerate(names):
+                updater(i, exe.grad_dict[n], exe.arg_dict[n])
+            torch.cuda.synchronize()
+
+        step()
+        ops.reset_launch_counts()
+        step_ms = []
+        for _ in range(ZOO["cls_steps"]):
+            t0 = time.perf_counter()
+            step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = ops.launch_counts()
+        check(launches == with_zeros({"matmul_bias_act": fc * ZOO["cls_steps"]}),
+              ("%s training launches" % name, launches))
+        card = profile_window(step)
+    finally:
+        op.fn = orig
+        torch.backends.cudnn.deterministic = deterministic
+    p50 = float(np.median(step_ms))
+    out["train"] = {"dropout_kept_fraction": frac, "dropout_elements": n_in,
+                    "same_seed_bitwise": True, "step_ms_p50": p50, "step_ms": step_ms,
+                    "images_per_s": B * 1e3 / p50, "launches": {k: v for k, v in launches.items()
+                                                                 if v},
+                    "device_busy_ms": card["device_busy_ms"],
+                    "device_idle_share": card["device_idle_share"],
+                    "port_kernel_ms": card["port_kernel_ms"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    del exe
+    return {k: v + infer_launches[k] for k, v in launches.items()}
+
+
+def check_fc_kernels(randn, peaks, entries):
+    """Phase 10c: kernel 6 at AlexNet's and VGG-16's classifier shapes
+    (batch 32), against its plain version, ``addmm`` + relu and its bound,
+    each timed between CUDA events (as the zoo's conv shapes are: a
+    profiler window taken this late in the run came back empty six times
+    in a row in one run)."""
+    from mxnet_tpu_torch.ops import matmul_bias_act as mba
+
+    rows = []
+    for Mr, K, N in FC_SHAPES:
+        a, w, b = randn(Mr, K), randn(N, K, scale=1.0 / math.sqrt(K)), randn(N, scale=0.1)
+        c, pc = mba.matmul_bias_act(a, w, b, "relu"), mba.matmul_bias_act_plain(a, w, b, "relu")
+        torch.cuda.synchronize()
+        err = float((c - pc).abs().max())
+        check(math.isfinite(err) and err <= TOL["matmul_bias_act"], ("zoo fc", Mr, K, N, err))
+        ms = event_ms(lambda: mba.matmul_bias_act(a, w, b, "relu"), 10)
+        plain_ms = event_ms(lambda: mba.matmul_bias_act_plain(a, w, b, "relu"), 10)
+        lib_ms = event_ms(lambda: torch.relu(torch.addmm(b, a, w.t())), 10)
+        b_ms, b_by, f32_ms = product_bound(2.0 * Mr * N * K + 2.0 * Mr * N,
+                                           4.0 * (Mr * K + N * K + N + Mr * N), peaks)
+        rec = {"phase": "kernel", "name": "matmul_bias_act_zoo_fc", "shape": [Mr, K, N],
+               "max_abs_err": err, "event_ms": ms, "plain_event_ms": plain_ms,
+               "library_event_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "f32_bound_ms": f32_ms,
+               "schedule": mba._schedule(Mr, N, K), "over_library": ms / lib_ms}
+        log(rec)
+        rows.append(rec)
+        entries["matmul_bias_act"]["zoo_fc_%d_event_ms" % K] = ms
+        entries["matmul_bias_act"]["zoo_fc_%d_library_event_ms" % K] = lib_ms
+        entries["matmul_bias_act"]["zoo_fc_%d_bound_ms" % K] = b_ms
+    return rows
+
+
+def run_zoo_cnn(pt, smi, peaks, entries):
+    """Phase 10: the zoo's image classifiers. Returns their launches."""
+    dev = pt.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    check_tf32_off()
+    t_phase = time.perf_counter()
+    launches = {}
+    for name in INCEPTION:
+        for k, v in run_inception(pt, name, smi, randn, peaks).items():
+            launches["%s:%s" % (name, k)] = v
+    check_fc_kernels(randn, peaks, entries)
+    for name in CLASSIFIERS:
+        for k, v in run_classifier(pt, name, smi).items():
+            launches["%s:%s" % (name, k)] = v
+    check_tf32_off()
+    log({"phase": "zoo_cnn", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def mt_params(net, B, seed=SEED + 50):
+    """Random MT weights from the seed (as ``random_params``) and its fixed
+    batch of source, target and label tokens."""
+    L = MT["src_len"]
+    shapes = net.infer_shape(data=(1, L), dec_data=(1, MT["tgt_len"]),
+                             softmax_label=(1, MT["tgt_len"]))[0]
+    rs = np.random.RandomState(seed)
+    params = {n: (rs.standard_normal(s) * 0.05).astype(np.float32)
+              for n, s in zip(net.list_arguments(), shapes)
+              if n not in ("data", "dec_data", "softmax_label")}
+    V = MT["vocab_size"]
+    tgt = rs.randint(0, V, (B, MT["tgt_len"] + 1)).astype(np.float32)
+    batch = {"data": rs.randint(0, V, (B, L)).astype(np.float32), "dec_data": tgt[:, :-1],
+             "softmax_label": tgt[:, 1:]}
+    return params, batch
+
+
+def run_mt(pt, smi):
+    """Phase 11: the MT Transformer (``get_symbol_mt`` at its defaults)
+    trained at batch 32: card vs CPU at batch 2, launches of kernels 1-6
+    the plan's, the loss falls, step time, card time and idle share."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    cfg = {k: MT[k] for k in ("vocab_size", "num_layers", "num_heads", "model_dim", "ffn_dim",
+                              "src_len", "tgt_len")}
+    net = transformer.get_symbol_mt(**cfg)
+    B, Bc, L = MT["batch"], MT["check_batch"], MT["num_layers"]
+    params, batch = mt_params(net, B)
+    reqs = {n: "write" for n in params}
+
+    def bind(ctx, rows):
+        exe = net.simple_bind(ctx, grad_req=reqs, data=(rows, MT["src_len"]),
+                              dec_data=(rows, MT["tgt_len"]), softmax_label=(rows, MT["tgt_len"]))
+        for n, a in exe.arg_dict.items():
+            a[:] = params[n] if n in params else batch[n][:rows]
+        return exe
+
+    def loss_of(exe, rows):
+        prob = exe.outputs[0]._tensor()
+        lab = torch.as_tensor(batch["softmax_label"][:rows].reshape(-1, 1),
+                              device=prob.device).long()
+        return float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
+
+    # one step at batch 2 on the card and on the CPU, the CPU pinned to the
+    # card's side at every ffn ReLU kink the two split (phase 4's check)
+    small = [bind(ctx, Bc) for ctx in (pt.gpu(0), pt.cpu())]
+    card_ys = []
+    with relu_decisions(record=card_ys):
+        small[0].forward_backward()
+    torch.cuda.synchronize()
+    with relu_decisions(pinned=card_ys) as flips:
+        small[1].forward_backward()
+    n_flips, flip_dy = sum(n for n, _ in flips), max(d for _, d in flips)
+    check(n_flips <= 1e-5 * sum(y.numel() for y in card_ys) and flip_dy <= 1e-5,
+          ("MT ReLU decisions that differ beyond kinks", n_flips, flip_dy))
+    losses_small = [loss_of(e, Bc) for e in small]
+    check(abs(losses_small[0] - losses_small[1]) <= 1e-3 * max(1.0, abs(losses_small[1])),
+          ("MT card vs CPU loss", losses_small))
+    worst_name, worst_rel = None, 0.0
+    for n in params:
+        got, want = small[0].grad_dict[n].asnumpy(), small[1].grad_dict[n].asnumpy()
+        scale = float(np.abs(want).max())
+        check(np.isfinite(got).all(), ("non-finite MT card gradient", n))
+        check(np.allclose(got, want, rtol=1e-3, atol=1e-3 * scale), ("MT card vs CPU grad", n))
+        rel = float(np.abs(got - want).max()) / (scale or 1.0)
+        if rel >= worst_rel:
+            worst_name, worst_rel = n, rel
+    # the encoder learns through the cross-attention (tests/test_models.py:124)
+    for n in ("enc0_self_qkv_weight", "enc_embed_weight"):
+        check(float(np.abs(small[0].grad_dict[n].asnumpy()).sum()) > 0, ("MT encoder grad", n))
+    del small
+
+    exe = bind(pt.gpu(0), B)
+    names = [n for n in net.list_arguments() if n in params]
+    opt = pt.optimizer.create("sgd", learning_rate=MT["lr"], momentum=MT["momentum"],
+                              wd=MT["wd"], rescale_grad=1.0 / B,
+                              param_idx2name=dict(enumerate(names)))
+    updater = pt.optimizer.get_updater(opt)
+
+    def step():
+        exe.forward_backward()
+        for i, n in enumerate(names):
+            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+        torch.cuda.synchronize()
+
+    losses = []
+    for _ in range(MT["warmup_steps"]):
+        step()
+        losses.append(loss_of(exe, B))
+    # the plan's sites: 3L attention (L encoder non-causal, L decoder causal,
+    # L cross non-causal), 2L + 1 encoder and 3L + 1 decoder LayerNorms, L
+    # encoder and L decoder ffn1
+    expected = {"flash_attention": 3 * L, "flash_attention_dq": 3 * L,
+                "flash_attention_dkv": 3 * L, "norm_residual": 5 * L + 2,
+                "norm_residual_bwd": 5 * L + 2, "matmul_bias_act": 2 * L}
+    ops.reset_launch_counts()
+    step_ms = []
+    for _ in range(MT["steps"]):
+        t0 = time.perf_counter()
+        step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss_of(exe, B))
+    launches = ops.launch_counts()
+    check(launches == with_zeros({k: v * MT["steps"] for k, v in expected.items()}),
+          ("MT training launch counts", launches))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          ("the MT loss did not fall", losses))
+    card = profile_window(step)
+    p50 = float(np.percentile(step_ms, 50))
+    tokens = B * MT["tgt_len"]
+    log({"phase": "mt", "nvidia_smi": smi, "model": cfg, "batch": B,
+         "target_tokens_per_step": tokens, "launches_per_step": expected,
+         "launches": {k: v for k, v in launches.items() if v}, "losses": losses,
+         "check_batch": Bc, "loss_card": losses_small[0], "loss_cpu": losses_small[1],
+         "worst_grad": worst_name, "worst_grad_abs_err_over_max": worst_rel,
+         "relu_kinks_pinned": n_flips, "step_ms_p50": p50,
+         "step_ms_p80": float(np.percentile(step_ms, 80)), "step_ms": step_ms,
+         "target_tokens_per_s": tokens * 1e3 / p50, "device_busy_ms": card["device_busy_ms"],
+         "device_idle_share": card["device_idle_share"],
+         "port_kernels_ms": card["port_kernels_ms"], "port_kernel_ms": card["port_kernel_ms"],
+         "port_kernel_launches": card["port_kernel_launches"],
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "seconds": time.perf_counter() - t_phase})
+    del exe
+    return launches
+
+
+# copied from example/rnn/lstm_bucketing.py (_synthetic_corpus; BUCKETS passed in)
+def synthetic_corpus(n_sentences, vocab_size=500, seed=0, buckets=(10, 20, 30, 40, 50, 60)):
+    rs = np.random.RandomState(seed)
+    # Zipf-ish token frequencies, bucket-spread sentence lengths
+    probs = 1.0 / np.arange(2, vocab_size + 2)
+    probs /= probs.sum()
+    sentences = []
+    for _ in range(n_sentences):
+        length = int(rs.choice(list(buckets))) - rs.randint(0, 5)
+        toks = rs.choice(np.arange(2, vocab_size + 2), size=max(length, 3), p=probs)
+        sentences.append(toks.tolist())
+    return sentences, vocab_size + 2
+
+
+def bucketing_module(pt, vocab, ctx):
+    """``example/rnn/lstm_bucketing.py``'s network on ``ctx``: two LSTMCells
+    under SequentialRNNCell.unroll, an embedding, the softmax head."""
+    cfg = LSTM_BUCKETING
+    stack = pt.rnn.SequentialRNNCell()
+    for i in range(cfg["num_layers"]):
+        stack.add(pt.rnn.LSTMCell(num_hidden=cfg["num_hidden"], prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = pt.sym.Variable("data")
+        label = pt.sym.Variable("softmax_label")
+        embed = pt.sym.Embedding(data=data, input_dim=vocab, output_dim=cfg["num_embed"],
+                                 name="embed")
+        stack.reset()
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True,
+                                  begin_state=stack.begin_state(batch_size=cfg["batch"]))
+        pred = pt.sym.Reshape(outputs, shape=(-1, cfg["num_hidden"]))
+        pred = pt.sym.FullyConnected(data=pred, num_hidden=vocab, name="pred")
+        label = pt.sym.Reshape(label, shape=(-1,))
+        pred = pt.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+class FirstBatches:
+    """The first ``n`` batches of a bucketing iterator (a DataIter)."""
+
+    def __init__(self, it, n):
+        self.it, self.n, self.i = it, n, 0
+        self.batch_size = it.batch_size
+        self.provide_data, self.provide_label = it.provide_data, it.provide_label
+        self.default_bucket_key = it.default_bucket_key
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self.it.reset()
+        self.i = 0
+
+    def __next__(self):
+        if self.i == self.n:
+            raise StopIteration
+        self.i += 1
+        return self.it.next()
+
+    next = __next__
+
+
+def run_lstm(pt, smi):
+    """Phase 12: (a) the bucketed LSTM LM of example/rnn/lstm_bucketing.py
+    through BucketingModule.fit for one epoch on the card; its first batches
+    against the port's CPU run; tokens/s. (b) models/lstm.py on the fused
+    RNN op: card vs CPU, timed training steps, unfuse() on the card."""
+    from mxnet_tpu_torch import models
+
+    t_phase = time.perf_counter()
+    cfg = LSTM_BUCKETING
+    sentences, vocab = synthetic_corpus(cfg["sentences"], vocab_size=cfg["vocab"], seed=SEED,
+                                        buckets=cfg["buckets"])
+    out = {"phase": "lstm_bucketing", "nvidia_smi": smi, "vocab": vocab,
+           "sentences": len(sentences), **{k: v for k, v in cfg.items() if k != "buckets"},
+           "buckets": list(cfg["buckets"])}
+    binds = []
+    orig_bind = pt.mod.Module.bind
+
+    def counting_bind(self, *a, **k):
+        binds.append(self)
+        return orig_bind(self, *a, **k)
+
+    def fit(ctx, n_batches, params, record=None):
+        with ctx:
+            it = pt.rnn.BucketSentenceIter(sentences, cfg["batch"], buckets=list(cfg["buckets"]),
+                                           invalid_label=0)
+            data = FirstBatches(it, n_batches) if n_batches else it
+            mod = pt.mod.BucketingModule(sym_gen=bucketing_module(pt, vocab, ctx),
+                                         default_bucket_key=it.default_bucket_key, context=ctx)
+            metric = pt.metric.Perplexity(0)
+            mod.fit(data, eval_metric=metric, optimizer="sgd",
+                    optimizer_params={"learning_rate": cfg["lr"], "momentum": 0.0,
+                                      "wd": cfg["wd"]},
+                    arg_params=params, batch_end_callback=record, num_epoch=1)
+        return mod
+
+    # the weights: the example's Xavier, drawn once on the CPU and handed to
+    # both runs
+    pt.random.seed(SEED + 61)
+    with pt.cpu():
+        it = pt.rnn.BucketSentenceIter(sentences, cfg["batch"], buckets=list(cfg["buckets"]),
+                                       invalid_label=0)
+        init_mod = pt.mod.BucketingModule(sym_gen=bucketing_module(pt, vocab, pt.cpu()),
+                                          default_bucket_key=it.default_bucket_key,
+                                          context=pt.cpu())
+        init_mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        init_mod.init_params(initializer=pt.init.Xavier(factor_type="in", magnitude=2.34))
+        params = {n: a.asnumpy() for n, a in init_mod.get_params()[0].items()}
+    del init_mod
+    n_check = cfg["check_batches"]
+    runs = []
+    for ctx in (pt.gpu(0), pt.cpu()):
+        mod = fit(ctx, n_check, {n: pt.nd.array(v, ctx=ctx) for n, v in params.items()})
+        runs.append(({n: a.asnumpy() for n, a in mod.get_params()[0].items()},
+                     sorted(mod._buckets)))
+        del mod
+    card, cpu = runs
+    check(card[1] == cpu[1] and len(card[1]) >= 3, ("buckets of the first batches", card[1]))
+    errs = {n: float(np.abs(card[0][n] - cpu[0][n]).max()) for n in card[0]}
+    bad = [n for n in card[0] if not np.allclose(card[0][n], cpu[0][n], rtol=1e-4, atol=1e-5)]
+    check(not bad, ("bucketed LSTM card vs CPU parameters", bad, errs))
+    out.update(check_batches=n_check, check_buckets=card[1],
+               card_vs_cpu_max_abs_err=max(errs.values()))
+
+    # --- one epoch on the card
+    marks, ppl, tokens = [], [], [0]
+    real, seen_sum = {}, [0.0]
+
+    def record(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        # Perplexity sums a perplexity a batch: this batch's is the increase
+        ppl.append(float(param.eval_metric.sum_metric - seen_sum[0]))
+        seen_sum[0] = param.eval_metric.sum_metric
+
+    # the epoch's batches in the fit's order (the same seed and sentences),
+    # read on the host: real tokens (padding excluded) and buckets
+    with pt.cpu():
+        order = [(b.bucket_key, int((b.data[0].asnumpy() != 0).sum()))
+                 for b in pt.rnn.BucketSentenceIter(sentences, cfg["batch"],
+                                                    buckets=list(cfg["buckets"]),
+                                                    invalid_label=0)]
+    for key, n in order:
+        tokens[0] += n
+        real[key] = real.get(key, 0) + 1
+    pt.mod.Module.bind = counting_bind
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks.append(t0)
+        mod = fit(pt.gpu(0), 0, {n: pt.nd.array(v, ctx=pt.gpu(0)) for n, v in params.items()},
+                  record)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    finally:
+        pt.mod.Module.bind = orig_bind
+    n_batches = len(ppl)
+    check(n_batches == sum(real.values()), ("batches of the epoch", n_batches, real))
+    # one bind a bucket, at its first batch (the default bucket's, the first)
+    check(len(binds) == len(real), ("binds", len(binds), sorted(real)))
+    q = max(1, n_batches // 5)
+    first, last = float(np.mean(ppl[:q])), float(np.mean(ppl[-q:]))
+    check(all(math.isfinite(v) for v in ppl) and last < first,
+          ("the perplexity did not fall", first, last))
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    # host time a batch after each bucket's first (which binds)
+    seen, steady = set(), []
+    for ms, (key, _) in zip(step_ms, order):
+        if key in seen:
+            steady.append(ms)
+        seen.add(key)
+    with pt.gpu(0):
+        batch = next(iter(pt.rnn.BucketSentenceIter(sentences, cfg["batch"],
+                                                    buckets=list(cfg["buckets"]),
+                                                    invalid_label=0)))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+
+    card = profile_window(step)
+    out.update(batches=n_batches, batches_per_bucket=real, binds=len(binds),
+               real_tokens=tokens[0], epoch_s=epoch_s, tokens_per_s=tokens[0] / epoch_s,
+               batch_ms_p50=float(np.percentile(steady, 50)),
+               batch_ms_p80=float(np.percentile(steady, 80)),
+               perplexity_first_fifth=first, perplexity_last_fifth=last,
+               one_batch=dict(bucket=batch.bucket_key, device_busy_ms=card["device_busy_ms"],
+                              device_idle_share=card["device_idle_share"],
+                              wall_ms=card["wall_ms"],
+                              device_events=card["device_events_per_call"]),
+               seconds=time.perf_counter() - t_phase)
+    log(out)
+    t_phase = time.perf_counter()
+    del mod
+
+    # --- (b) models/lstm.py at its defaults on the fused RNN op
+    fc = LSTM_FUSED
+    Bc = 2
+    out = {"phase": "lstm_fused", "nvidia_smi": smi, **fc}
+    rs = np.random.RandomState(SEED + 62)
+
+    def lm(batch_size):
+        return models.lstm.get_symbol(batch_size=batch_size, **{k: v for k, v in fc.items()
+                                                                if k not in ("steps", "lr",
+                                                                             "batch_size")})
+
+    net = lm(fc["batch_size"])
+    shapes = dict(data=(fc["batch_size"], fc["seq_len"]),
+                  softmax_label=(fc["batch_size"], fc["seq_len"]))
+    arg_shapes = net.infer_shape(**shapes)[0]
+    params = {n: rs.uniform(-0.1, 0.1, s).astype(np.float32)
+              for n, s in zip(net.list_arguments(), arg_shapes) if n not in shapes}
+    tokens = rs.randint(0, fc["num_classes"], (fc["batch_size"], fc["seq_len"] + 1))
+    data = {"data": tokens[:, :-1].astype(np.float32),
+            "softmax_label": tokens[:, 1:].astype(np.float32)}
+    for n in ("lstm_init_h", "lstm_init_c"):
+        params[n] = np.zeros_like(params[n])
+    small = []
+    for ctx in (pt.gpu(0), pt.cpu()):
+        snet = lm(Bc)
+        exe = snet.simple_bind(ctx, grad_req={n: "write" for n in params if "init" not in n},
+                               data=(Bc, fc["seq_len"]), softmax_label=(Bc, fc["seq_len"]))
+        exe.copy_params_from({n: (v[:, :Bc] if "init" in n else v) for n, v in params.items()})
+        exe.copy_params_from({k: v[:Bc] for k, v in data.items()})
+        exe.forward_backward()
+        small.append((exe.outputs[0].asnumpy(), {n: exe.grad_dict[n].asnumpy()
+                                                 for n in params if "init" not in n}))
+    check(np.allclose(small[0][0], small[1][0], rtol=1e-4, atol=1e-6),
+          ("fused LSTM card vs CPU outputs", float(np.abs(small[0][0] - small[1][0]).max())))
+    for n, g in small[0][1].items():
+        w = small[1][1][n]
+        check(np.allclose(g, w, rtol=1e-3, atol=1e-3 * float(np.abs(w).max())),
+              ("fused LSTM card vs CPU grad", n))
+    exe = net.simple_bind(pt.gpu(0), grad_req={n: "write" for n in params if "init" not in n},
+                          **shapes)
+    exe.copy_params_from(params)
+    exe.copy_params_from(data)
+    names = [n for n in net.list_arguments() if n in params and "init" not in n]
+    updater = pt.optimizer.get_updater(pt.optimizer.create(
+        "sgd", learning_rate=fc["lr"], rescale_grad=1.0 / fc["batch_size"],
+        param_idx2name=dict(enumerate(names))))
+
+    def step():
+        exe.forward_backward()
+        for i, n in enumerate(names):
+            updater(i, exe.grad_dict[n], exe.arg_dict[n])
+        torch.cuda.synchronize()
+
+    step()
+    step_ms = []
+    for _ in range(fc["steps"]):
+        t0 = time.perf_counter()
+        step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    card = profile_window(step)
+    p50 = float(np.median(step_ms))
+    tok = fc["batch_size"] * fc["seq_len"]
+
+    # --- FusedRNNCell.unfuse() with unpack_weights: the fused outputs
+    cell = pt.rnn.FusedRNNCell(fc["num_hidden"], num_layers=fc["num_layers"], mode="lstm",
+                               prefix="f_")
+    fout, _ = cell.unroll(fc["seq_len"], inputs=pt.sym.Variable("data"), layout="NTC")
+    uouts, _ = cell.unfuse().unroll(fc["seq_len"], inputs=pt.sym.Variable("data"),
+                                    layout="NTC", merge_outputs=True)
+    x = rs.uniform(-1, 1, (fc["batch_size"], fc["seq_len"], fc["num_embed"])).astype(np.float32)
+    blob = params["lstm_parameters"]
+    zeros = np.zeros((fc["num_layers"], fc["batch_size"], fc["num_hidden"]), np.float32)
+    with pt.gpu(0):
+        fexe = fout.simple_bind(pt.gpu(0), grad_req="null", data=x.shape)
+        fexe.copy_params_from({"data": x, "f_parameters": blob, "f_begin_state_0": zeros,
+                               "f_begin_state_1": zeros})
+        fused = fexe.forward(is_train=False)[0].asnumpy()
+        weights = cell.unpack_weights({"f_parameters": pt.nd.array(blob)})
+        states = {n: zeros[0].shape for n in uouts.list_arguments() if "begin_state" in n}
+        uexe = uouts.simple_bind(pt.gpu(0), grad_req="null", data=x.shape, **states)
+        uargs = {"data": x}
+        uargs.update({k: v.asnumpy() for k, v in weights.items()})
+        uargs.update({n: zeros[0] for n in states})
+        uexe.copy_params_from(uargs)
+        unfused = uexe.forward(is_train=False)[0].asnumpy()
+    uerr = float(np.abs(fused - unfused).max())
+    check(np.allclose(unfused, fused, rtol=1e-4, atol=1e-5), ("unfuse() on the card", uerr))
+    out.update(card_vs_cpu_batch=Bc, step_ms_p50=p50, step_ms=step_ms, tokens_per_step=tok,
+               tokens_per_s=tok * 1e3 / p50, device_busy_ms=card["device_busy_ms"],
+               device_idle_share=card["device_idle_share"],
+               device_events_per_step=card["device_events_per_call"],
+               unfused_vs_fused_max_abs_err=uerr,
+               seconds=time.perf_counter() - t_phase)
+    log(out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -3190,6 +4165,10 @@ def main():
     deploy_launches = run_deploy(pt, net, args, aux)
     engine_launches = run_engine(pt, net, args, aux, params, smi)
     module_launches = run_module(pt, net, args, aux, smi)
+    del net, args, aux
+    zoo_launches = run_zoo_cnn(pt, smi, peaks, entries)
+    mt_launches = run_mt(pt, smi)
+    run_lstm(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -3215,6 +4194,14 @@ def main():
                      megastep_launches=megastep_launches[name_],
                      paged_launches=paged_launches[name_],
                      engine_launches=engine_launches.get(name_, 0))
+        # the zoo phases' card runs: Inception-v3's and Inception-BN's
+        # Module.fit, AlexNet's and VGG-16's training steps and forwards, and
+        # the MT step's timed steps
+        zoo = {k.split(":")[0]: v for k, v in zoo_launches.items() if k.endswith(":" + name_)}
+        if any(zoo.values()):
+            e.update(zoo_launches={k: v for k, v in zoo.items() if v})
+        if mt_launches.get(name_):
+            e.update(mt_launches=mt_launches[name_])
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})
     print(smi)

@@ -16,6 +16,7 @@ outputs. ``bind`` always runs the rewrite passes first
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -26,6 +27,7 @@ from .context import Context, current_context
 from .ndarray import NDArray, _wrap, zeros
 from .ops.registry import get_op
 from . import fusion as _fusion
+from . import random as _random
 
 __all__ = ["Executor", "bind", "simple_bind"]
 
@@ -50,11 +52,19 @@ class _GraphProgram:
         self.outputs = list(symbol._outputs)
         self.output_names = symbol.list_outputs()
 
-    def interpret(self, arg_vals, aux_vals, is_train):
+    def interpret(self, arg_vals, aux_vals, is_train, device=None):
         """Run the graph on torch tensors; returns ``(outputs, new_aux)``,
-        each op's new aux values in the place of the aux variables it reads."""
+        each op's new aux values in the place of the aux variables it reads.
+
+        ``device`` is the bind's: an op with no inputs (``_zeros``, a
+        sampler) allocates there, and every rng-consuming node (``Dropout``,
+        ``RNN``'s dropout, the samplers) draws from its generator,
+        ``random.generator(device)``, in topological order (JAX :202-210
+        folds one key a node out of the forward's key). A training forward
+        draws each mask once; its backward reuses it through autograd."""
         vals = {}
         new_aux = list(aux_vals)
+        rng = None
         for node in self.topo:
             if node.is_variable:
                 if node.name in self._arg_index:
@@ -70,8 +80,12 @@ class _GraphProgram:
             if directive is not None:
                 outs, aux_out = _fusion.execute(directive, node, ins, aux, is_train)
             else:
-                outs, aux_out = opdef.apply(node.parsed_attrs(), [_fusion.resolve(x) for x in ins],
-                                            aux=aux, is_train=is_train)
+                if opdef.needs_rng and device is not None and rng is None:
+                    rng = _random.generator(device)
+                with contextlib.nullcontext() if ins or device is None else torch.device(device):
+                    outs, aux_out = opdef.apply(node.parsed_attrs(),
+                                                [_fusion.resolve(x) for x in ins], aux=aux,
+                                                is_train=is_train, rng=rng)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
             for (inp, _), new in zip(node.inputs[len(node.inputs) - n_aux:], aux_out):
@@ -127,7 +141,8 @@ class Executor:
                 t = t.detach().requires_grad_(True)
             leaves.append(t)
         with torch.enable_grad():
-            outs, new_aux = self._prog.interpret(tuple(leaves), self._aux_tensors(), True)
+            outs, new_aux = self._prog.interpret(tuple(leaves), self._aux_tensors(), True,
+                                                 self._ctx.torch_device)
         return (leaves, outs), new_aux
 
     def _write_aux(self, new_aux):
@@ -171,7 +186,7 @@ class Executor:
             with torch.no_grad():
                 outs, new_aux = self._prog.interpret(
                     tuple(a._tensor() for a in self.arg_arrays), self._aux_tensors(),
-                    bool(is_train))
+                    bool(is_train), self._ctx.torch_device)
         if is_train:
             self._write_aux(new_aux)
         return self._set_outputs(outs)

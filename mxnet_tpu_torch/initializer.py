@@ -354,9 +354,23 @@ class FusedRNN(Initializer):
         self._bidirectional = bidirectional
         self._forget_bias = forget_bias
 
+    # copied from mxnet_tpu/initializer.py (FusedRNN._init_weight :354, backend-free)
     def _init_weight(self, desc, arr):
-        # JAX :354 unpacks the vector through rnn.rnn_cell.FusedRNNCell,
-        # which comes with the RNN op
-        raise MXNetError(
-            "FusedRNN initializer: the packed RNN weight needs rnn.rnn_cell.FusedRNNCell, "
-            "which the port has not yet (ROADMAP.md section 1.3, lstm)")
+        from .rnn.rnn_cell import FusedRNNCell
+
+        cell = FusedRNNCell(
+            self._num_hidden,
+            self._num_layers,
+            self._mode,
+            self._bidirectional,
+            forget_bias=self._forget_bias,
+            prefix="",
+        )
+        args = cell.unpack_weights({"parameters": arr.copy()})
+        for name in args:
+            desc_i = InitDesc(name, getattr(desc, "attrs", {}))
+            if self._mode == "lstm" and name.endswith("_f_bias"):
+                args[name][:] = self._forget_bias
+            elif self._init is not None:
+                self._init(desc_i, args[name])
+        arr[:] = cell.pack_weights(args)["parameters"]

@@ -6,7 +6,7 @@ checkpoint of one package loads into the other and the Symbol JSON is
 identical. Pre-norm blocks: x + MHA(LN(x)), x + FFN(LN(x)).
 
 Ported here: ``get_symbol`` (training head, used to name the weights),
-``get_prefill_symbol``, ``get_decode_symbol`` with its per-lane ring,
+the encoder-decoder MT model ``get_symbol_mt``, ``get_prefill_symbol``, ``get_decode_symbol`` with its per-lane ring,
 per-stream and shared-pool variants, the chunk graph ``get_chunk_symbol``
 of the paged decoder, and ``draft_config`` for speculative decoding.
 """
@@ -64,12 +64,100 @@ def _attention_block(x, name, num_heads, model_dim, seq_len, causal=True,
     return proj
 
 
+# copied from mxnet_tpu/models/transformer.py (:70-98, backend-free)
+def _split_heads(x, seq_len, num_heads, dh):
+    """(B, T, M) → (B, H, T, dh) for the fused attention op."""
+    x = sym.Reshape(x, shape=(-1, seq_len, num_heads, dh))
+    return sym.SwapAxis(x, dim1=1, dim2=2)
+
+
+def _merge_heads(att, seq_len, model_dim):
+    att = sym.SwapAxis(att, dim1=1, dim2=2)
+    return sym.Reshape(att, shape=(-1, seq_len, model_dim))
+
+
+def _cross_attention(q_in, kv_in, name, num_heads, model_dim, q_len, kv_len):
+    """Attention with separate query/key-value sources (the MT decoder's
+    encoder-attention). Only the q projection is separate; k and v share
+    one fused 2·M-wide projection of kv_in, as the self-attention block's
+    qkv does."""
+    dh = model_dim // num_heads
+    q = sym.FullyConnected(data=q_in, num_hidden=model_dim, flatten=False,
+                           name="%s_q" % name)
+    kv = sym.FullyConnected(data=kv_in, num_hidden=2 * model_dim,
+                            flatten=False, name="%s_kv" % name)
+    k, v = _split_fused(kv, 2, kv_len, num_heads, dh)
+    att = sym.MultiHeadAttention(
+        query=_split_heads(q, q_len, num_heads, dh),
+        key=k, value=v,
+        causal=False, name="%s_att" % name)
+    att = _merge_heads(att, q_len, model_dim)
+    return sym.FullyConnected(data=att, num_hidden=model_dim, flatten=False,
+                              name="%s_proj" % name)
+
+
 def _ffn(x, name, model_dim, ffn_dim):
     h = sym.FullyConnected(data=x, num_hidden=ffn_dim, flatten=False,
                            name="%s_ffn1" % name)
     h = sym.Activation(h, act_type="relu")
     return sym.FullyConnected(data=h, num_hidden=model_dim, flatten=False,
                               name="%s_ffn2" % name)
+
+
+# copied from mxnet_tpu/models/transformer.py (:109-162, backend-free)
+def _embed_with_pos(tokens, vocab_size, model_dim, seq_len, name):
+    embed = sym.Embedding(data=tokens, input_dim=vocab_size,
+                          output_dim=model_dim, name="%s_embed" % name)
+    pos = sym.Variable("%s_pos_weight" % name, shape=(seq_len, model_dim))
+    return sym.broadcast_add(
+        embed, sym.Reshape(pos, shape=(1, seq_len, model_dim)),
+        name="%s_pos_add" % name)
+
+
+def get_symbol_mt(vocab_size=32000, num_layers=6, num_heads=8, model_dim=512,
+                  ffn_dim=2048, src_len=64, tgt_len=64, **kwargs):
+    """Encoder-decoder Transformer-base for MT (BASELINE.md stretch config:
+    "Transformer-base MT"), the JAX package's ``get_symbol_mt`` node for
+    node: a pre-norm encoder of non-causal self-attention, a decoder of
+    causal self-attention and cross-attention on the encoder's memory.
+
+    Inputs: ``data`` (B, src_len) source tokens, ``dec_data`` (B, tgt_len)
+    shifted-right target tokens, ``softmax_label`` (B, tgt_len). Fixed
+    lengths (pad to bucket shapes; BucketingModule handles the rest) —
+    padding attends as ordinary tokens, the toy/bucketed regime this model
+    targets."""
+    src = sym.Variable("data")
+    tgt = sym.Variable("dec_data")
+    label = sym.Variable("softmax_label")
+
+    # ---- encoder: pre-norm self-attention stack, non-causal
+    x = _embed_with_pos(src, vocab_size, model_dim, src_len, "enc")
+    for i in range(num_layers):
+        n = "enc%d" % i
+        ln = _layer_norm(x, "%s_ln1" % n, model_dim)
+        x = x + _attention_block(ln, n + "_self", num_heads, model_dim,
+                                 src_len, causal=False)
+        x = x + _ffn(_layer_norm(x, "%s_ln2" % n, model_dim), n,
+                     model_dim, ffn_dim)
+    memory = _layer_norm(x, "enc_final_ln", model_dim)
+
+    # ---- decoder: causal self-attention + cross-attention on the memory
+    y = _embed_with_pos(tgt, vocab_size, model_dim, tgt_len, "dec")
+    for i in range(num_layers):
+        n = "dec%d" % i
+        ln = _layer_norm(y, "%s_ln1" % n, model_dim)
+        y = y + _attention_block(ln, n + "_self", num_heads, model_dim,
+                                 tgt_len, causal=True)
+        y = y + _cross_attention(_layer_norm(y, "%s_ln2" % n, model_dim),
+                                 memory, n + "_cross", num_heads, model_dim,
+                                 tgt_len, src_len)
+        y = y + _ffn(_layer_norm(y, "%s_ln3" % n, model_dim), n,
+                     model_dim, ffn_dim)
+    y = _layer_norm(y, "dec_final_ln", model_dim)
+    y = sym.Reshape(y, shape=(-1, model_dim))
+    logits = sym.FullyConnected(data=y, num_hidden=vocab_size, name="mt_head")
+    label_flat = sym.Reshape(label, shape=(-1,))
+    return sym.SoftmaxOutput(data=logits, label=label_flat, name="softmax")
 
 
 def get_prefill_symbol(vocab_size=32000, num_layers=6, num_heads=8,

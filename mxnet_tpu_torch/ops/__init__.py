@@ -1,6 +1,6 @@
 """Operator library of the port: the registry, the ops of the transformer's
 and the ResNet's serving and training paths, the optimizer updates, the
-uniform and normal samplers, and the
+uniform and normal samplers, Dropout, LRN and the fused RNN op, and the
 hand-written CUDA kernels behind their dispatchers.
 
 Importing it registers the ops; it needs neither ``nvcc`` nor a GPU (the
@@ -9,7 +9,7 @@ kernels build at their first launch).
 import importlib
 
 from . import registry  # noqa: F401
-from . import elemwise, broadcast_reduce, matrix, nn, attention, optimizer_ops, sample  # noqa: F401
+from . import elemwise, broadcast_reduce, matrix, nn, attention, optimizer_ops, sample, rnn  # noqa: F401
 from . import flash_attention, norm_residual, matmul_bias_act, conv_bn, matmul_stats  # noqa: F401
 from .registry import get_op, list_ops  # noqa: F401
 

@@ -2,11 +2,13 @@
 
 Counterpart of ``mxnet_tpu/ops/matrix.py``: ``dot``, ``transpose``,
 ``Reshape`` with MXNet's shape codes, ``Flatten``, ``slice_axis``,
-``SwapAxis``, ``expand_dims``, ``Concat``, ``Embedding``, ``one_hot``, and
-the init ops the imperative NDArray creates arrays with (``_zeros``,
-``_ones``, ``_full``, ``_arange``). An init op has no input to take its
-device from: it allocates on torch's current default device, which
-``ndarray.imperative_invoke`` sets to the call's context.
+``SwapAxis``, ``expand_dims``, ``Concat``, ``Embedding``, ``one_hot``, the
+ops the ``rnn/`` cells build with (``SliceChannel``, ``where``,
+``zeros_like``, ``ones_like``), and the init ops the imperative NDArray
+creates arrays with (``_zeros``, ``_ones``, ``_full``, ``_arange``). An init
+op has no input to take its device from: it allocates on torch's current
+default device, which ``ndarray.imperative_invoke`` and the executor set to
+the call's context.
 """
 from __future__ import annotations
 
@@ -159,6 +161,37 @@ def _one_hot(attrs, indices):
     hot = (idx == torch.arange(attrs["depth"], device=indices.device)).to(
         torch_dtype(attrs["dtype"]))
     return hot * (attrs["on_value"] - attrs["off_value"]) + attrs["off_value"]
+
+
+@register("SliceChannel", attrs={"num_outputs": AttrSpec("int", required=True),
+                                 "axis": AttrSpec("int", default=1),
+                                 "squeeze_axis": AttrSpec("bool", default=False)},
+          num_outputs=lambda attrs: int(attrs["num_outputs"]), aliases=("split",))
+def _slice_channel(attrs, data):
+    """Split into equal parts along axis (reference: src/operator/slice_channel.cc)."""
+    axis = attrs["axis"]
+    parts = torch.split(data, data.shape[axis] // attrs["num_outputs"], dim=axis)
+    if attrs["squeeze_axis"]:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+@register("where", input_names=("condition", "x", "y"))
+def _where(attrs, condition, x, y):
+    """Elementwise/row select (reference: control_flow_op.cc where)."""
+    if condition.ndim == 1 and x.ndim > 1:
+        condition = condition.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(condition != 0, x, y)
+
+
+@register("zeros_like")
+def _zeros_like(attrs, data):
+    return torch.zeros_like(data)
+
+
+@register("ones_like")
+def _ones_like(attrs, data):
+    return torch.ones_like(data)
 
 
 # --- init ops (reference: tensor/init_op.cc) ----------------------------------

@@ -301,3 +301,44 @@ def _batch_norm(attrs, inputs, aux, is_train=False):
     out = out * gamma.reshape(b) + beta.reshape(b)
     outs = (out, moving_mean, moving_var) if attrs["output_mean_var"] else (out,)
     return outs, (moving_mean, moving_var)
+
+
+# --- Dropout and LRN (JAX mxnet_tpu/ops/nn.py:241-255, :624-646) ---------------
+@register("Dropout", attrs={"p": AttrSpec("float", default=0.5)}, needs_rng=True,
+          needs_train_flag=True)
+def _dropout(attrs, data, is_train=False, rng=None):
+    """Inverted dropout (reference: dropout-inl.h); identity at inference.
+    A training forward draws its keep mask once from ``rng``, the generator
+    of the bind's device (``random.generator``), on that device; autograd
+    keeps the mask, so the backward reuses it: dx = dy·m/(1 − p)."""
+    p = attrs["p"]
+    if not is_train or p <= 0.0 or rng is None:
+        return data
+    return inverted_dropout(data, p, rng)
+
+
+def inverted_dropout(x, p, rng):
+    """``x·m/(1 − p)`` for a keep mask m drawn from ``rng`` on x's device
+    (the RNN op's dropout between layers too)."""
+    keep = 1.0 - p
+    mask = torch.empty(x.shape, dtype=torch.float32, device=x.device).bernoulli_(
+        keep, generator=rng).bool()
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@register("LRN", attrs={"alpha": AttrSpec("float", default=1e-4),
+                        "beta": AttrSpec("float", default=0.75),
+                        "knorm": AttrSpec("float", default=2.0),
+                        "nsize": AttrSpec("int", required=True)})
+def _lrn(attrs, data):
+    """Local response norm across channels (reference: lrn.cc): the sum of
+    squares over a window of ``nsize`` channels, zero-padded at the ends."""
+    n = attrs["nsize"]
+    half = n // 2
+    sq = F.pad(data * data, (0, 0) * (data.ndim - 2) + (half, half))
+    C = data.shape[1]
+    ssum = sq[:, 0:C]
+    for i in range(1, n):
+        ssum = ssum + sq[:, i:i + C]
+    norm = attrs["knorm"] + (attrs["alpha"] / n) * ssum
+    return data * torch.pow(norm, -attrs["beta"])

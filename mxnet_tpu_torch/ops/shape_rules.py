@@ -82,3 +82,23 @@ def _softmax_out(attrs, shapes):
         else:
             shapes[1] = (data[0],)
     return shapes
+
+
+# copied from mxnet_tpu/ops/shape_rules.py (_rnn_shapes, backend-free)
+@rule("RNN")
+def _rnn_shapes(attrs, shapes):
+    from .rnn import rnn_param_size
+
+    data = shapes[0]
+    if data is not None:
+        T, N, I = data
+        H, L = attrs["state_size"], attrs["num_layers"]
+        d = 2 if attrs.get("bidirectional") else 1
+        if shapes[1] is None:
+            shapes[1] = (rnn_param_size(L, I, H, attrs.get("bidirectional", False),
+                                        attrs["mode"]),)
+        if shapes[2] is None:
+            shapes[2] = (L * d, N, H)
+        if len(shapes) > 3 and shapes[3] is None:
+            shapes[3] = (L * d, N, H)
+    return shapes

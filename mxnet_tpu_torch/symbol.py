@@ -581,6 +581,8 @@ def _make_symbol_function(op_name):
                                 % op_name)
         for k, v in kwargs.items():
             (sym_kwargs if isinstance(v, Symbol) else attrs)[k] = v
+        if "num_args" in opdef.attr_specs and "num_args" not in attrs:
+            attrs["num_args"] = len(args) + len(sym_kwargs)  # as mxnet_tpu/symbol.py:624
         parsed = parse_attrs(opdef, attrs)
         slots = opdef.input_names(parsed) + opdef.aux_names(parsed)
         name = NameManager.current().get(name, opdef.name.lower().lstrip("_") or opdef.name.lower())

@@ -927,3 +927,78 @@ def test_module_fit_through_device_prefetch_gives_the_same_bits(dev, monkeypatch
     plain = fit()
     monkeypatch.setenv("MXNET_IO_DEVICE_PREFETCH", "1")
     np.testing.assert_array_equal(fit(), plain)
+
+
+# Inception's fused sites (batch 2): 1x1 to N = 48 and 80 (ragged against the
+# 64-channel tile), 32 at 35 x 35 (4-byte copies), 1x1 from K = 1280 and 2048
+# at 8 x 8 (one 128-position tile spans two images), 3x3 448 -> 384 at 8 x 8
+# with a prologue, the stem's 3x3 32 -> 64 at an odd grid
+INCEPTION_SHAPES = [(2, 192, 35, 35, 48, 1, 1, "bare"), (2, 64, 21, 21, 80, 1, 1, "bare"),
+                    (2, 192, 35, 35, 32, 1, 1, "bare"), (2, 1280, 8, 8, 320, 1, 1, "bare"),
+                    (2, 2048, 8, 8, 448, 1, 1, "bare"), (2, 448, 8, 8, 384, 3, 1, "prologue"),
+                    (2, 32, 19, 19, 64, 3, 1, "prologue")]
+
+
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride,variant", INCEPTION_SHAPES)
+def test_conv_bn_kernels_match_plain_at_inception_shapes(dev, B, K, H, W, N, kernel, stride,
+                                                         variant):
+    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, B, K, H, W, N, kernel, stride, variant)
+    st, relu = (stride, stride), variant != "bare"
+    got = cb.conv_block(x, w, scale, shift, res, st, relu)
+    for g, p in zip(got, cb.conv_block_plain(x, w, scale, shift, res, st, relu)):
+        _close(g, p, 1e-5)
+    _close(cb.conv_block_infer(x, w, scale, shift, st, relu),
+           cb.conv_block_infer_plain(x, w, scale, shift, st, relu), 1e-5)
+    dc = _randn(dev, B, N, Ho, Wo, seed=7)
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (x, w, scale, shift, got[0], dc, ds, dq, st, relu, False)
+    for g, p in zip(cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*args)):
+        assert (g is None) == (p is None)
+        if g is not None:
+            _close(g, p, 1e-5)
+
+
+def test_dropout_draws_its_mask_on_the_cards_generator(dev):
+    """A training Dropout on a card tensor draws on the card from the
+    card's generator: y = x·m/(1 − p), dx = dy·m/(1 − p), the kept share
+    within 4σ of 1 − p, the same seed the same mask."""
+    op = pt.ops.registry.get_op("Dropout")
+    attrs = pt.ops.registry.parse_attrs(op, {"p": "0.3"})
+    x = _randn(dev, 256, 512).abs() + 0.5
+    pt.random.seed(4)
+    xg = x.clone().requires_grad_(True)
+    y = op.apply(attrs, [xg], is_train=True, rng=pt.random.generator(dev))[0][0]
+    assert y.device == dev
+    m = y != 0
+    torch.testing.assert_close(y[m], x[m] / 0.7, rtol=1e-6, atol=0)
+    assert abs(float(m.float().mean()) - 0.7) <= 4 * math.sqrt(0.21 / m.numel())
+    (dx,) = torch.autograd.grad(y, xg, torch.ones_like(y))
+    torch.testing.assert_close(dx, m.float() / 0.7, rtol=1e-6, atol=0)
+    pt.random.seed(4)
+    y2 = op.apply(attrs, [x], is_train=True, rng=pt.random.generator(dev))[0][0]
+    assert torch.equal(y, y2.detach())
+    assert torch.equal(op.apply(attrs, [x], is_train=False)[0][0], x)
+
+
+@pytest.mark.parametrize("mode,bidir", [("lstm", False), ("gru", True), ("rnn_tanh", False)])
+def test_rnn_op_on_the_card_matches_the_cpu(dev, mode, bidir):
+    """The fused RNN op's outputs and gradients on the card against the CPU
+    (float32 both, TF32 off): the same loop over the same projections."""
+    op = pt.ops.registry.get_op("RNN")
+    attrs = pt.ops.registry.parse_attrs(op, {"mode": mode, "state_size": "32",
+                                             "num_layers": "2", "bidirectional": str(bidir),
+                                             "state_outputs": "True"})
+    d, n_in = (2 if bidir else 1), len(op.input_names(attrs))
+    rs = np.random.RandomState(0)
+    ins = [rs.uniform(-1, 1, (12, 4, 24)),
+           rs.uniform(-0.2, 0.2, (pt.ops.rnn.rnn_param_size(2, 24, 32, bidir, mode),))]
+    ins += [rs.uniform(-0.5, 0.5, (2 * d, 4, 32)) for _ in range(n_in - 2)]
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [torch.tensor(a, dtype=torch.float32, device=device, requires_grad=True)
+                  for a in ins]
+        outs = op.apply(attrs, leaves)[0]
+        grads = torch.autograd.grad([o.sum() for o in outs], leaves)
+        runs.append([t.detach().cpu() for t in list(outs) + list(grads)])
+    for g, c in zip(*runs):
+        _close(g, c, 1e-5)

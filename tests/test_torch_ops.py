@@ -28,6 +28,11 @@ def _ids(n, *shape):
     return np.random.RandomState(7).randint(0, n, shape).astype(np.float32)
 
 
+def _q(*shape, seed=0):
+    """Values on a grid of quarters, so that equal pairs and halves occur."""
+    return np.round(_r(*shape, seed=seed) * 4) / 4
+
+
 # (op, attrs as JSON strings, inputs)
 CASES = [
     ("elemwise_add", {}, [_r(3, 4), _r(3, 4, seed=1)]),
@@ -104,16 +109,34 @@ CASES = [
     ("rmspropalex_update", {"lr": "0.01", "clip_weights": "0.3"},
      [_r(3, 4), _r(3, 4, seed=1), _r(3, 4, seed=2, lo=2.0), _r(3, 4, seed=3) * 0.1,
       _r(3, 4, seed=4)]),
+    # an inference forward: Dropout is the identity (its training draws are
+    # held in tests/test_torch_zoo.py)
+    ("Dropout", {"p": "0.5"}, [_r(3, 4)]),
+    ("LRN", {"nsize": "3", "alpha": "0.001", "beta": "0.75", "knorm": "2"}, [_r(2, 5, 3, 4)]),
+    ("LRN", {"nsize": "5"}, [_r(2, 7, 3, 3) * 4]),
+    ("SliceChannel", {"num_outputs": "3"}, [_r(2, 6, 4)]),
+    ("SliceChannel", {"num_outputs": "4", "axis": "1", "squeeze_axis": "1"}, [_r(2, 4, 5)]),
+    ("where", {}, [_q(3, 4), _r(3, 4), _r(3, 4, seed=1)]),
+    ("where", {}, [_q(3), _r(3, 4), _r(3, 4, seed=1)]),
+    ("zeros_like", {}, [_r(3, 4)]),
+    ("ones_like", {}, [_r(3, 4)]),
+    # data (T, N, I), the packed parameters, state (and state_cell for lstm)
+    ("RNN", {"state_size": "4", "num_layers": "2", "mode": "lstm", "state_outputs": "True"},
+     [_r(3, 2, 5) * 0.5, _r(2 * 4 * 4 * (5 + 4) + 2 * 4 * 4 * 2 + 2 * 4 * 4 * 4, seed=1) * 0.3,
+      _r(2, 2, 4, seed=2) * 0.5, _r(2, 2, 4, seed=3) * 0.5]),
+    ("RNN", {"state_size": "4", "num_layers": "1", "mode": "gru", "bidirectional": "True"},
+     [_r(3, 2, 5) * 0.5, _r(2 * 3 * 4 * (5 + 4) + 2 * 2 * 3 * 4, seed=1) * 0.3,
+      _r(2, 2, 4, seed=2) * 0.5]),
+    ("RNN", {"state_size": "3", "num_layers": "1", "mode": "rnn_tanh", "state_outputs": "1"},
+     [_r(4, 2, 5) * 0.5, _r(3 * (5 + 3) + 2 * 3, seed=1) * 0.3, _r(1, 2, 3, seed=2) * 0.5]),
+    ("RNN", {"state_size": "3", "num_layers": "2", "mode": "rnn_relu"},
+     [_r(4, 2, 5) * 0.5, _r(3 * (5 + 3) + 3 * (3 + 3) + 2 * 2 * 3, seed=1) * 0.3,
+      _r(2, 2, 3, seed=2) * 0.5]),
 ]
 
 # the imperative NDArray's ops: ops/elemwise.py and ops/broadcast_reduce.py in
 # full, and the matrix and init ops ndarray.py names
 _N_GRAPH_CASES = len(CASES)
-
-
-def _q(*shape, seed=0):
-    """Values on a grid of quarters, so that equal pairs and halves occur."""
-    return np.round(_r(*shape, seed=seed) * 4) / 4
 
 
 def _unit(*shape, seed=0):

@@ -115,8 +115,15 @@ def test_initializer_registry_and_dumps_match_jax():
         assert pt.init.create(name, **kw).dumps() == mx.init.create(name, **kw).dumps()
     f = pt.init.FusedRNN(pt.init.Xavier(), 8, 1, "lstm")
     assert f.dumps() == mx.init.FusedRNN(mx.init.Xavier(), 8, 1, "lstm").dumps()
-    with pytest.raises(pt.MXNetError, match="section 1.3"):
-        f("lstm_weight", pt.nd.zeros((4,), ctx=pt.cpu()))
+    # the packed vector of a one-layer LSTM over 4 inputs, through the
+    # rnn/ package's unpack and pack: JAX's bits where the inner init draws
+    # nothing
+    n = pt.ops.rnn.rnn_param_size(1, 4, 8, False, "lstm")
+    got = pt.nd.zeros((n,), ctx=pt.cpu())
+    want = mx.nd.zeros((n,))
+    pt.init.FusedRNN(pt.init.Constant(0.5), 8, 1, "lstm")("lstm_weight", got)
+    mx.init.FusedRNN(mx.init.Constant(0.5), 8, 1, "lstm")("lstm_weight", want)
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
 
 
 # ------------------------------------------------------------------ metrics
