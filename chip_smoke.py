@@ -118,11 +118,29 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    tokens/s over real tokens, host p50 a batch, idle share; (b)
    ``models/lstm.py`` on the fused RNN op: card vs CPU at batch 2, timed
    steps and tokens/s, ``FusedRNNCell.unfuse()`` equal to the fused outputs.
-13. A ``profiler`` line (how many timing windows were taken again after the
+13. SSD: VGG16-SSD-300 (``vgg16-ssd-300-train`` and ``vgg16-ssd-300``) at its
+   published widths. The op sweep: every op of the vision, sequence, CTC,
+   Custom and sampler modules and the rest of the layer and matrix ops,
+   forward and backward on the card against the port's CPU run of the
+   same numpy inputs, the samplers held to their distributions. One
+   training step at batch 2 card vs CPU (the SSD loss, every gradient by
+   its distance from the CPU's float64 one; the CPU takes the card's side
+   at ReLU and max-pool kinks and the card's MultiBoxTarget outputs).
+   ``Module.fit`` at batch 8 over
+   ``SyntheticDetIter``'s fixed batches (the loss of the fixed targets must
+   fall; step p50/p80,
+   images/s, card time, idle share). MultiBoxTarget and MultiBoxDetection
+   on the trained model's predictions, card against CPU from the same
+   inputs: equal but for the counted near-ties. The deploy graph at batch 8
+   and 1 (latency, images/s, idle share, launches a request, detections an
+   image). None of the port's ten kernels launches on the SSD path.
+14. A ``smoke`` line (the run's seconds from the import of the port), a
+   ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
-   ``zoo_launches`` and the MT step's ``mt_launches``), the card's
-   name/power line, then the last line ``{"ok": true, "device": {...}}``.
+   ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
+   SSD phase's ``ssd_launches``, 0), the card's name/power line, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -250,6 +268,24 @@ LSTM_BUCKETING = dict(num_hidden=200, num_embed=200, num_layers=2,
                       sentences=2000, vocab=10000, check_batches=6)
 LSTM_FUSED = dict(num_classes=10000, num_embed=256, num_hidden=512, num_layers=2, seq_len=32,
                   batch_size=32, steps=6, lr=0.01)
+# Phase 13: VGG16-SSD-300 (BASELINE.json config 4) with example/ssd/train_ssd.py's
+# settings: 20 classes + background, 300 x 300, batch 8, SGD momentum 0.9,
+# wd 5e-4, Xavier, metric.Loss, over SyntheticDetIter's random rectangles (up
+# to 4 a image); cut to 2 fixed batches for 4 epochs. The script's lr 0.01
+# diverges from Xavier weights within 5 steps, and so does 0.004
+# (tools/torch_ssd_lr.py, PERF.md §4), so the phase trains at 0.001. The
+# deploy graph keeps the 400 best boxes for NMS (get_symbol's nms_topk).
+SSD = dict(num_classes=20, image=(3, 300, 300), batch=8, check_batch=2, fit_batches=2,
+           fit_epochs=4, lr=0.001, momentum=0.9, wd=5e-4, max_objects=4, serve_iters=10,
+           nms_topk=400)
+# the MultiBox card-vs-CPU check's near-ties: a mined negative whose
+# background probability lies within mining_rel (relative) of the image's
+# cut-off; a box pair whose IoU lies within nms_iou of the NMS threshold
+SSD_TIE = dict(mining_rel=1e-6, nms_iou=1e-5)
+# the op sweep, card vs CPU: forward outputs (float32 elementwise ops and
+# short sums; log, exp and division round apart by an ulp) and gradients
+SSD_OP_TOL = dict(rtol=1e-5, atol=1e-5)
+SSD_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 # matmul_with_stats: ResNet-50's 1x1 convolutions at batch 32 as (M, K, N)
 # matrices (stage 1's 64->256, 64->64 and 256->64 at 56 x 56, stage 2's
 # 512->128 at 28 x 28, stage 4's 2048->512 at 7 x 7), then a ragged one
@@ -2285,7 +2321,9 @@ def relu_kinks(record=None, compare=None, pin=False):
             return orig_relu(data)
         got = decide(data.detach()) if (record is not None or compare is not None) else None
         if pin and got is not None and got[1].any():
-            data = data + (pinned(data.detach(), got) - data.detach())
+            # the pinned value exactly, with data's gradient: x - x is 0 in
+            # floating point, where x + (pinned - x) may round to 0 instead
+            data = torch.where(got[1], (data - data.detach()) + pinned(data.detach(), got), data)
         return orig_relu(data)
 
     cb.ConvBlock.apply, cb._prologue, pnn._ACTS["relu"] = conv_block, prologue, relu
@@ -4129,11 +4167,706 @@ def run_lstm(pt, smi):
     log(out)
 
 
+# ----------------------------------------------------------------- phase 13
+def _u(rs, *shape, lo=-1.0, hi=1.0):
+    return rs.uniform(lo, hi, shape).astype(np.float32)
+
+
+def _ids(rs, n, *shape):
+    return rs.randint(0, n, shape).astype(np.float32)
+
+
+def ssd_op_cases():
+    """(op, attrs, numpy inputs, has a backward) for every op of the rest of
+    the library but the samplers (held to their distributions instead), at
+    small shapes, inputs drawn from one seed."""
+    rs = np.random.RandomState(SEED + 60)
+    anchors = np.concatenate([
+        np.stack(np.meshgrid(np.arange(4) / 4, np.arange(4) / 4, indexing="xy"), -1).reshape(-1, 2),
+        np.stack(np.meshgrid(np.arange(4) / 4, np.arange(4) / 4, indexing="xy"), -1).reshape(-1, 2)
+        + np.array([0.3, 0.35])], axis=1).astype(np.float32)[None]  # (1, 16, 4)
+    label = -np.ones((2, 3, 5), np.float32)
+    label[0, :2] = [[1, 0.1, 0.1, 0.45, 0.4], [2, 0.5, 0.4, 0.9, 0.95]]
+    label[1, 0] = [0, 0.2, 0.55, 0.6, 0.9]
+    probs = np.exp(_u(rs, 2, 4, 16) * 3)
+    probs = (probs / probs.sum(axis=1, keepdims=True)).astype(np.float32)
+    rois = np.array([[0, 1, 2, 9, 13], [1, 0, 0, 15, 15], [0, 6, 3, 7, 4]], np.float32)
+    mining = {"negative_mining_ratio": "3", "negative_mining_thresh": "0.5",
+              "minimum_negative_samples": "1"}
+    return [
+        ("Deconvolution", {"kernel": "(3, 3)", "num_filter": "4", "stride": "(2, 2)",
+                           "pad": "(1, 1)", "adj": "(1, 1)"},
+         [_u(rs, 2, 3, 5, 5), _u(rs, 3, 4, 3, 3), _u(rs, 4)], True),
+        ("Deconvolution", {"kernel": "(2, 2)", "num_filter": "6", "num_group": "2",
+                           "no_bias": "True"}, [_u(rs, 2, 4, 3, 4), _u(rs, 4, 3, 2, 2)], True),
+        ("LeakyReLU", {"act_type": "leaky", "slope": "0.1"}, [_u(rs, 3, 4)], True),
+        ("LeakyReLU", {"act_type": "elu"}, [_u(rs, 3, 4)], True),
+        ("LeakyReLU", {"act_type": "prelu"}, [_u(rs, 2, 3, 4), _u(rs, 3)], True),
+        ("LeakyReLU", {"act_type": "rrelu"}, [_u(rs, 3, 4)], True),
+        ("log_softmax", {"axis": "1"}, [_u(rs, 2, 5, 3)], True),
+        ("SoftmaxActivation", {}, [_u(rs, 2, 3, 4)], True),
+        ("SoftmaxActivation", {"mode": "channel"}, [_u(rs, 2, 21, 64)], True),
+        ("LinearRegressionOutput", {"grad_scale": "0.5"}, [_u(rs, 4, 3), _u(rs, 4, 3)], True),
+        ("LogisticRegressionOutput", {}, [_u(rs, 4, 3), _ids(rs, 2, 4, 3)], True),
+        ("MAERegressionOutput", {}, [_u(rs, 4, 3), _u(rs, 4, 3)], True),
+        ("MakeLoss", {"grad_scale": "0.25", "normalization": "batch"}, [_u(rs, 4, 3)], True),
+        ("SVMOutput", {"margin": "0.5"}, [_u(rs, 4, 5), _ids(rs, 5, 4)], True),
+        ("SVMOutput", {"use_linear": "True"}, [_u(rs, 4, 5), _ids(rs, 5, 4)], True),
+        ("IdentityAttachKLSparseReg", {"penalty": "0.01"},
+         [_u(rs, 3, 4), np.array([0.2], np.float32)], True),
+        ("InstanceNorm", {"eps": "1e-05"}, [_u(rs, 2, 3, 4, 5), _u(rs, 3), _u(rs, 3)], True),
+        ("L2Normalization", {}, [_u(rs, 2, 3, 4)], True),
+        ("L2Normalization", {"mode": "channel"}, [_u(rs, 2, 512, 38, 38)], True),
+        ("L2Normalization", {"mode": "spatial"}, [_u(rs, 2, 3, 4, 2)], True),
+        ("UpSampling", {"scale": "2"}, [_u(rs, 2, 3, 3, 4)], True),
+        ("UpSampling", {"scale": "3", "num_args": "2"}, [_u(rs, 1, 2, 2, 3), _u(rs, 1, 3, 2, 3)],
+         True),
+        ("UpSampling", {"scale": "2", "sample_type": "bilinear"}, [_u(rs, 2, 3, 3, 4)], True),
+        ("ROIPooling", {"pooled_size": "(2, 3)", "spatial_scale": "0.5"},
+         [_u(rs, 2, 3, 8, 8), rois], True),
+        ("BilinearSampler", {}, [_u(rs, 2, 3, 5, 6), _u(rs, 2, 2, 4, 5) * 1.1], True),
+        ("GridGenerator", {"transform_type": "affine", "target_shape": "(3, 4)"}, [_u(rs, 2, 6)],
+         True),
+        ("GridGenerator", {"transform_type": "warp"}, [_u(rs, 2, 2, 3, 4)], True),
+        ("SpatialTransformer", {"target_shape": "(5, 4)"},
+         [_u(rs, 2, 3, 6, 6), np.array([[0.9, 0.1, 0.05, -0.1, 1.1, 0.0],
+                                        [1.1, 0.03, -0.13, 0.07, 0.83, 0.11]], np.float32)], True),
+        ("Crop", {"offset": "(1, 2)", "h_w": "(3, 3)"}, [_u(rs, 2, 3, 6, 6)], True),
+        ("Crop", {"num_args": "2", "center_crop": "True"}, [_u(rs, 2, 3, 6, 7), _u(rs, 1, 1, 3, 5)],
+         True),
+        ("MultiBoxPrior", {"sizes": "[0.1, 0.141]", "ratios": "[1, 2, 0.5]"},
+         [_u(rs, 1, 3, 38, 38)], True),
+        ("MultiBoxPrior", {"sizes": "(0.5, 0.8)", "ratios": "(1, 3)", "clip": "True",
+                           "steps": "(0.2, 0.25)", "offsets": "(0.4, 0.6)"},
+         [_u(rs, 1, 3, 5, 4)], True),
+        ("MultiBoxTarget", {}, [anchors, label, _u(rs, 2, 4, 16)], True),
+        ("MultiBoxTarget", mining, [anchors, label, _u(rs, 2, 4, 16) * 3], True),
+        ("MultiBoxDetection", {}, [probs, _u(rs, 2, 64) * 0.5, anchors], True),
+        ("MultiBoxDetection", {"nms_threshold": "0.3", "threshold": "0.2", "nms_topk": "5"},
+         [probs, _u(rs, 2, 64) * 0.5, anchors], True),
+        ("Proposal", {"rpn_post_nms_top_n": "8", "rpn_pre_nms_top_n": "40", "rpn_min_size": "4"},
+         [_u(rs, 2, 24, 4, 4, lo=0.0), _u(rs, 2, 48, 4, 4) * 0.1,
+          np.array([[64, 64, 1.0], [60, 50, 0.5]], np.float32)], True),
+        ("fft", {}, [_u(rs, 2, 8)], True),
+        ("ifft", {}, [_u(rs, 2, 3, 16)], True),
+        ("count_sketch", {"out_dim": "4"},
+         [_u(rs, 3, 6), np.array([0, 3, 1, 0, 3, 2], np.float32),
+          np.array([1, -1, 1, 1, -1, -1], np.float32)], True),
+        ("Correlation", {"max_displacement": "1", "pad_size": "1"},
+         [_u(rs, 2, 3, 4, 5), _u(rs, 2, 3, 4, 5)], True),
+        ("Correlation", {"max_displacement": "2", "stride2": "2", "is_multiply": "False"},
+         [_u(rs, 1, 2, 5, 5), _u(rs, 1, 2, 5, 5)], True),
+        ("batch_dot", {"transpose_b": "True"}, [_u(rs, 2, 3, 4), _u(rs, 2, 5, 4)], True),
+        ("slice", {"begin": "(1, 0, 2)", "end": "(2, 3, 4)"}, [_u(rs, 3, 4, 5)], True),
+        ("repeat", {"repeats": "2", "axis": "1"}, [_u(rs, 2, 3)], True),
+        ("tile", {"reps": "(2, 1, 3)"}, [_u(rs, 2, 3)], True),
+        ("reverse", {"axis": "(0, 2)"}, [_u(rs, 2, 3, 4)], True),
+        ("take", {"axis": "1", "mode": "wrap"}, [_u(rs, 2, 5, 3), np.array([1, -1, 7], np.float32)],
+         True),
+        ("batch_take", {}, [_u(rs, 4, 5), np.array([0, 4, 2, 2], np.float32)], True),
+        ("pick", {"axis": "0", "keepdims": "True"}, [_u(rs, 3, 5, 2), _ids(rs, 3, 5, 2)], True),
+        ("topk", {"k": "3", "ret_typ": "both"}, [np.round(_u(rs, 4, 6) * 4) / 4], True),
+        ("topk", {"k": "2", "ret_typ": "mask", "axis": "1"}, [np.round(_u(rs, 3, 5, 2) * 4) / 4],
+         False),
+        ("sort", {"axis": "0", "is_ascend": "False"}, [np.round(_u(rs, 4, 6) * 4) / 4], True),
+        ("argsort", {}, [np.round(_u(rs, 4, 6) * 4) / 4], False),
+        ("Pad", {"mode": "constant", "pad_width": "(0, 0, 0, 0, 1, 2, 2, 1)",
+                 "constant_value": "1.5"}, [_u(rs, 2, 3, 4, 5)], True),
+        ("Pad", {"mode": "edge", "pad_width": "(0, 0, 0, 0, 2, 1, 0, 3)"}, [_u(rs, 2, 3, 4, 5)],
+         True),
+        ("Pad", {"mode": "reflect", "pad_width": "(0, 0, 0, 0, 1, 2, 2, 1)"},
+         [_u(rs, 2, 3, 4, 5)], True),
+        ("SequenceLast", {"use_sequence_length": "True"},
+         [_u(rs, 4, 3, 2), np.array([1, 4, 2], np.float32)], True),
+        ("SequenceMask", {"use_sequence_length": "True", "value": "-1.0"},
+         [_u(rs, 4, 3, 2), np.array([1, 4, 0], np.float32)], True),
+        ("SequenceReverse", {"use_sequence_length": "True"},
+         [_u(rs, 4, 3, 2), np.array([1, 4, 2], np.float32)], True),
+        ("WarpCTC", {"input_length": "6", "label_length": "4"},
+         [_u(rs, 24, 6), np.array([[1, 0, 2, 0], [3, 3, 0, 0], [1, 2, 3, 4], [5, 5, 5, 5]],
+                                  np.float32)], True),
+        ("Custom", {"op_type": "smoke_scaled_tanh", "factor": "2.0"}, [_u(rs, 3, 4)], True),
+    ]
+
+
+def register_smoke_custom_op(pt):
+    """tanh(x)·factor with its hand-written backward, as a user's Custom op."""
+
+    @pt.operator.register("smoke_scaled_tanh")
+    class Prop(pt.operator.CustomOpProp):
+        def __init__(self, factor="1.5"):
+            super().__init__(need_top_grad=True)
+            self.factor = float(factor)
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            factor = self.factor
+
+            class Op(pt.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], np.tanh(in_data[0].asnumpy()) * factor)
+
+                def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+                    y = out_data[0].asnumpy() / factor
+                    self.assign(in_grad[0], req[0], out_grad[0].asnumpy() * factor * (1 - y * y))
+
+            return Op()
+
+
+def run_op_sweep(pt):
+    """Every case of ``ssd_op_cases`` forward (and backward) on the card
+    against the port's CPU run of the same numpy inputs; the samplers'
+    card draws held to their distributions."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    register_smoke_custom_op(pt)
+    dev = pt.gpu(0).torch_device
+    rs = np.random.RandomState(SEED + 61)
+    worst_fwd, worst_bwd, n_grads, ops_seen = 0.0, 0.0, 0, set()
+    for op, attrs, inputs, has_grad in ssd_op_cases():
+        opdef = reg.get_op(op)
+        ops_seen.add(opdef.name)
+        pa = reg.parse_attrs(opdef, attrs)
+        n_in = len(opdef.input_names(pa))
+        runs, cots = [], None
+        for d in (torch.device("cpu"), dev):
+            xs = [torch.from_numpy(x).to(d) for x in inputs]
+            leaves = [x.requires_grad_(True) if has_grad else x for x in xs[:n_in]]
+            with torch.enable_grad():
+                outs, _ = opdef.apply(pa, leaves, aux=xs[n_in:])
+            if cots is None:
+                cots = [rs.standard_normal(tuple(o.shape)).astype(np.float32) for o in outs]
+            grads = []
+            heads = [(o, torch.from_numpy(c).to(d)) for o, c in zip(outs, cots)
+                     if o.requires_grad]
+            if has_grad and heads:
+                grads = torch.autograd.grad([o for o, _ in heads], leaves,
+                                            [c for _, c in heads], allow_unused=True)
+            runs.append(([o.detach().cpu().numpy() for o in outs],
+                         [None if g is None else g.cpu().numpy() for g in grads]))
+        (cpu_outs, cpu_grads), (card_outs, card_grads) = runs
+        for got, want in zip(card_outs, cpu_outs):
+            check(got.shape == want.shape and got.dtype == want.dtype, ("sweep shape", op, attrs))
+            check(np.allclose(got, want, **SSD_OP_TOL, equal_nan=True),
+                  ("sweep forward card vs CPU", op, attrs, float(np.abs(got - want).max())))
+            worst_fwd = max(worst_fwd, float(np.abs(got - want).max()) if got.size else 0.0)
+        for got, want in zip(card_grads, cpu_grads):
+            check((got is None) == (want is None), ("sweep gradient presence", op, attrs))
+            if got is None:
+                continue
+            n_grads += 1
+            check(np.allclose(got, want, **SSD_GRAD_TOL),
+                  ("sweep backward card vs CPU", op, attrs, float(np.abs(got - want).max())))
+            worst_bwd = max(worst_bwd, float(np.abs(got - want).max()))
+    draws = check_card_samplers(pt)
+    ops_seen |= set(draws)
+    return {"ops": len(ops_seen), "cases": len(ssd_op_cases()), "gradients": n_grads,
+            "forward_worst_abs": worst_fwd, "backward_worst_abs": worst_bwd, "samplers": draws}
+
+
+# sampler -> (attrs or parameter rows, moments (mean, std, kurtosis) of each row)
+CARD_SAMPLERS = {
+    "random_gamma": ({"alpha": "2.0", "beta": "1.5"}, (3.0, 1.5 * math.sqrt(2.0), 6.0)),
+    "random_exponential": ({"lam": "2.0"}, (0.5, 0.5, 9.0)),
+    "random_poisson": ({"lam": "3.0"}, (3.0, math.sqrt(3.0), 3.0 + 1.0 / 3.0)),
+    "random_negative_binomial": ({"k": "3", "p": "0.4"}, (4.5, math.sqrt(11.25),
+                                                           5.0 + 0.16 / 1.8)),
+    "random_generalized_negative_binomial": ({"mu": "2.0", "alpha": "0.5"}, (2.0, 2.0, 6.25)),
+    "sample_uniform": ([[0.0, -2.0], [1.0, 3.0]],
+                       lambda lo, hi: ((lo + hi) / 2, (hi - lo) / math.sqrt(12.0), 1.8)),
+    "sample_normal": ([[0.0, 1.5], [1.0, 0.25]], lambda mu, s: (mu, s, 3.0)),
+    "sample_gamma": ([[2.0, 0.5], [1.5, 2.0]], lambda a, b: (a * b, math.sqrt(a) * b, 3 + 6 / a)),
+    "sample_exponential": ([[2.0, 0.5]], lambda lam: (1 / lam, 1 / lam, 9.0)),
+    "sample_poisson": ([[3.0, 0.5]], lambda lam: (lam, math.sqrt(lam), 3 + 1 / lam)),
+    "sample_negative_binomial": ([[3.0, 5.0], [0.4, 0.7]], lambda k, p: (
+        k * (1 - p) / p, math.sqrt(k * (1 - p)) / p, 3 + 6 / k + p * p / (k * (1 - p)))),
+    "sample_generalized_negative_binomial": ([[2.0, 1.0], [0.5, 0.25]], lambda mu, a: (
+        mu, math.sqrt(mu + a * mu * mu),
+        3 + 6 * a + (1 / (1 + a * mu)) ** 2 / ((1 / a) * (a * mu / (1 + a * mu))))),
+}
+
+
+def check_card_samplers(pt, n=20000):
+    """Each sampler's draws on the card within 5 standard errors of its
+    mean and std (the std's from its kurtosis); the same seed, the same
+    draws."""
+    ctx = pt.gpu(0)
+    out = {}
+    for op, (spec, moments) in CARD_SAMPLERS.items():
+        fn = getattr(pt.nd, op)
+        if isinstance(spec, dict):
+            draw = lambda: fn(ctx=ctx, shape=(n,), **spec)  # noqa: E731
+            rows = [moments]
+        else:
+            params = [pt.nd.array(np.array(p, np.float32), ctx=ctx) for p in spec]
+            draw = lambda: fn(*params, shape=(n,))  # noqa: E731
+            rows = [moments(*[p[i] for p in spec]) for i in range(len(spec[0]))]
+        pt.random.seed(SEED + 62)
+        x = draw()
+        check(x.context == ctx, ("sampler context", op))
+        xs = x.asnumpy().astype(np.float64).reshape(len(rows), n)
+        for row, (mean, std, kurt) in zip(xs, rows):
+            check(abs(row.mean() - mean) < 5 * std / math.sqrt(n)
+                  and abs(row.std() - std) < 5 * std * math.sqrt((kurt - 1) / (4 * n)),
+                  ("card sampler moments", op, row.mean(), row.std(), mean, std))
+        pt.random.seed(SEED + 62)
+        check(np.array_equal(draw().asnumpy(), x.asnumpy()), ("card sampler reseed", op))
+        out[op] = [float(r.mean()) for r in xs]
+    return out
+
+
+def ssd_fixed_loss(outs):
+    """The part of the SSD loss whose targets do not move as the net trains:
+    the cross-entropy of the matched anchors at their classes and the
+    smooth-L1 location loss (the mined negatives change with the net)."""
+    prob, loc, target = (o._tensor() if hasattr(o, "_tensor") else o for o in outs)
+    pos = target > 0
+    picked = prob.gather(1, target.clamp(min=0).long()[:, None])[:, 0]
+    return float(-(torch.log(picked.clamp_min(1e-30)) * pos).sum() / prob.shape[0]
+                 + loc.sum() / prob.shape[0])
+
+
+def check_target_ties(card, run, prob_bg, what, atol=1e-6):
+    """A run's MultiBoxTarget outputs (``run``) held to the card's
+    (``card``), each (loc_target, loc_mask, cls_target) on the CPU: the
+    location masks and the positives equal, the location targets within
+    rtol 1e-5 and ``atol``, and every class target that differs a near-tie:
+    a mined negative (0) on one side and ignored (-1) on the other, whose
+    background probability (``prob_bg``, (B, N), the run's) lies within
+    SSD_TIE["mining_rel"] (relative) of the image's cut-off. Returns the
+    count of near-tie rows."""
+    lt, lm, ct = (o.double() for o in card)
+    lt_r, lm_r, ct_r = (o.double() for o in run)
+    check(torch.equal(lm, lm_r), (what, "location masks"))
+    pos = ct_r > 0
+    check(torch.equal(ct[pos], ct_r[pos]), (what, "positives"))
+    check(torch.allclose(lt, lt_r, rtol=1e-5, atol=atol), (what, "location targets"))
+    ties = 0
+    for b in range(ct.shape[0]):
+        diff = torch.nonzero(ct[b] != ct_r[b]).flatten()
+        if not len(diff):
+            continue
+        cut = float(prob_bg[b][ct_r[b] == 0].max())
+        for j in diff.tolist():
+            check({float(ct[b, j]), float(ct_r[b, j])} == {0.0, -1.0}
+                  and abs(float(prob_bg[b, j]) - cut) <= SSD_TIE["mining_rel"] * cut,
+                  (what, "beyond a near-tie", b, j))
+            ties += 1
+    return ties
+
+
+@contextlib.contextmanager
+def pinned_targets(record=None, pinned=None):
+    """Record the card's MultiBoxTarget outputs (``record``), or hold a
+    run's own to recorded ones (``check_target_ties``; the location targets
+    within 1e-5 of the largest, as a float64 run's lie up to 1e-6 of it
+    from float32's) and replace them with the recorded ones (``pinned``);
+    yields the count of near-tie rows as a one-element list."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    opdef = reg.get_op("_contrib_MultiBoxTarget")
+    orig, ties, refs = opdef.fn, [0], iter(pinned or ())
+
+    def fn(attrs, anchor, label, cls_pred):
+        outs = orig(attrs, anchor, label, cls_pred)
+        if record is not None:
+            record.append(tuple(o.cpu() for o in outs))
+        if pinned is None:
+            return outs
+        want = next(refs)
+        prob_bg = torch.softmax(cls_pred.detach().cpu().double(), dim=1)[:, 0]
+        ties[0] += check_target_ties(want, [o.cpu() for o in outs], prob_bg,
+                                     "SSD step MultiBoxTarget card vs CPU",
+                                     atol=1e-5 * float(want[0].abs().max()))
+        return tuple(w.to(device=o.device, dtype=o.dtype) for w, o in zip(want, outs))
+
+    opdef.fn = fn
+    try:
+        yield ties
+    finally:
+        opdef.fn = orig
+
+
+@contextlib.contextmanager
+def pool_kinks(record=None, compare=None, pin=False):
+    """Record each max-pool's choices (the index of the element it took in
+    every window, ``record``), or compare a run's with recorded ones
+    (``compare``) and, with ``pin``, take the recorded element where they
+    differ. The port's own pooling computes every output; a max_pool2d
+    with ``return_indices`` on the same padded input reads which element
+    each window took. Two elements of a window within rounding of each
+    other are a kink of the max, as a pre-activation near 0 is of a ReLU:
+    the card and the CPU may take different ones, and the backward routes
+    the window's whole gradient to the element taken. Yields the list of
+    (windows that differed, the largest gap between the two elements over
+    the input's largest magnitude) per max-pool, in the order the forward
+    reaches them."""
+    import torch.nn.functional as tF
+    from mxnet_tpu_torch.ops import nn as pnn
+
+    orig, refs, flips = pnn._pooling_nd, iter(compare or ()), []
+
+    def pooling(data, kernel, stride, pads, pool_type):
+        out = orig(data, kernel, stride, pads, pool_type)
+        if pool_type != "max" or data.ndim != 4:
+            return out
+        flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+        x = tF.pad(data, flat, value=-math.inf) if any(flat) else data
+        idx = tF.max_pool2d(x.detach(), kernel, stride, return_indices=True)[1]
+        if record is not None:
+            record.append(idx.cpu())
+        if compare is None:
+            return out
+        want = next(refs).to(idx.device)
+        flip = want != idx
+        taken = x.flatten(2).gather(2, want.flatten(2)).view_as(out)
+        gap = float((taken - out).detach().abs()[flip].max() / x.detach().abs().max()) \
+            if bool(flip.any()) else 0.0
+        flips.append((int(flip.sum()), gap))
+        return torch.where(flip, taken, out) if pin else out
+
+    pnn._pooling_nd = pooling
+    try:
+        yield flips
+    finally:
+        pnn._pooling_nd = orig
+
+
+def ssd_bind(pt, net, ctx, args, images, labels, grad_req, dtype="float32"):
+    arrays = {k: pt.nd.array(v, ctx=ctx, dtype=dtype) for k, v in args.items()}
+    arrays["data"] = pt.nd.array(images, ctx=ctx, dtype=dtype)
+    if labels is not None:
+        arrays["label"] = pt.nd.array(labels, ctx=ctx, dtype=dtype)
+    grads = {n: pt.nd.zeros(arrays[n].shape, ctx=ctx, dtype=dtype)
+             for n, r in grad_req.items() if r != "null"} if isinstance(grad_req, dict) else None
+    return pt.executor.bind(net, ctx, arrays, args_grad=grads,
+                            grad_req=grad_req if grads else "null")
+
+
+def ssd_train_check(pt, net, args, images, labels):
+    """One SSD-300 training step at batch 2 from the same weights on the
+    card and on the CPU in float32 and float64 (phase 10's check): the SSD
+    loss, and every gradient by its norm distance from the float64 one.
+    The CPU runs take the card's side at every ReLU and max-pool kink and
+    the card's MultiBoxTarget outputs (constants), and count where their own
+    differed: their own targets must equal the card's but at near-ties."""
+    from mxnet_tpu_torch.models import vgg16_ssd as ssd
+
+    reqs = {n: "write" for n in args}
+    card, pools, targets = [], [], []
+    exe = ssd_bind(pt, net, pt.gpu(0), args, images, labels, reqs)
+    with relu_kinks(record=card), pool_kinks(record=pools), pinned_targets(record=targets):
+        exe.forward_backward()
+    torch.cuda.synchronize()
+    got = ({n: exe.grad_dict[n].asnumpy() for n in args}, ssd.ssd_objective(exe.outputs))
+    del exe
+
+    def cpu_step(dtype):
+        e = ssd_bind(pt, net, pt.cpu(), args, images, labels, reqs, dtype)
+        with relu_kinks(compare=card, pin=True) as flips, \
+                pool_kinks(compare=pools, pin=True) as pool_flips, \
+                pinned_targets(pinned=targets) as d:
+            e.forward_backward()
+        return ({n: e.grad_dict[n].asnumpy() for n in args}, ssd.ssd_objective(e.outputs)), flips, \
+            pool_flips, d[0]
+
+    t0 = time.perf_counter()
+    want, flips, pool_flips, target_diffs = cpu_step("float32")
+    cpu_s = time.perf_counter() - t0
+    exact, _, pool_flips64, target_diffs64 = cpu_step("float64")
+
+    def fro(a, b):
+        return float(np.linalg.norm(a - b)) / (float(np.linalg.norm(b)) or 1.0)
+
+    strict = [n for n in args if np.allclose(got[0][n], want[0][n], rtol=1e-3,
+                                             atol=1e-3 * float(np.abs(want[0][n]).max()))]
+    card64 = {n: fro(got[0][n], exact[0][n]) for n in args}
+    cpu64 = {n: fro(want[0][n], exact[0][n]) for n in args}
+    ratio = {n: card64[n] / max(cpu64[n], 1e-30) for n in args}
+    n_flips = sum(n for n, _ in flips)
+    n_decisions = sum(int(d.numel()) for d in card)
+    n_pool_flips, pool_gap = sum(n for n, _ in pool_flips), max([g for _, g in pool_flips] or [0])
+    n_windows = sum(int(i.numel()) for i in pools)
+    loose = [n for n in args if n not in strict]
+    worst = max(loose, key=lambda n: ratio[n]) if loose else None
+    out = {"batch": len(images), "loss_card": got[1], "loss_cpu": want[1], "loss_cpu_f64": exact[1],
+           "relu_kinks_pinned": n_flips, "relu_decisions": n_decisions,
+           "pool_kinks_pinned": n_pool_flips, "pool_kink_max_gap": pool_gap,
+           "pool_kinks_pinned_f64": sum(n for n, _ in pool_flips64), "pool_windows": n_windows,
+           "target_rows_pinned": target_diffs, "target_rows_pinned_f64": target_diffs64,
+           "grads": len(args), "grads_within_1e-3_of_cpu": len(strict),
+           "card_vs_f64_worst": max(card64.values()), "cpu_vs_f64_worst": max(cpu64.values()),
+           "card_vs_f64_median": float(np.median(list(card64.values()))),
+           "worst_ratio_grad": worst, "worst_ratio": ratio[worst] if worst else None,
+           "over_2": {n: [card64[n], cpu64[n]] for n in loose if ratio[n] > 2},
+           "cpu_step_s": cpu_s}
+    check(abs(got[1] - want[1]) <= 1e-3 * max(1.0, abs(want[1])), ("SSD card vs CPU loss", out))
+    check(n_flips <= 1e-5 * n_decisions, ("SSD ReLU decisions that differ beyond kinks", out))
+    check(n_pool_flips <= 1e-5 * n_windows and pool_gap <= 1e-5,
+          ("SSD max-pool choices that differ beyond kinks", out))
+    for n in args:
+        check(np.isfinite(got[0][n]).all(), ("non-finite SSD card gradient", n))
+        check(n in strict or card64[n] <= RESNET_F64_FACTOR * cpu64[n],
+              ("SSD card vs CPU grad", n, card64[n], cpu64[n]))
+    return out
+
+
+def check_multibox_card_vs_cpu(pt, cls_preds, loc_preds, anchors, labels):
+    """MultiBoxTarget (the training symbol's settings) and MultiBoxDetection
+    (the deploy symbol's) on the card and on the CPU from the same inputs,
+    the card's, copied. Targets and kept boxes must agree but at near-ties:
+    a mined negative whose background probability lies within
+    SSD_TIE["mining_rel"] (relative) of the image's cut-off, or a box whose
+    IoU with an earlier box (in the NMS order) lies within SSD_TIE["nms_iou"]
+    of the threshold, and the boxes that such a box's flip suppressed or
+    freed in turn. Returns the counts."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    def run(op, attrs, inputs):
+        opdef = reg.get_op(op)
+        pa = reg.parse_attrs(opdef, attrs)
+        return [[o.cpu() for o in opdef.apply(pa, [x.to(d) for x in inputs])[0]]
+                for d in (cls_preds.device, torch.device("cpu"))]
+
+    tattrs = {"overlap_threshold": "0.5", "ignore_label": "-1", "negative_mining_ratio": "3",
+              "negative_mining_thresh": "0.5", "variances": "(0.1, 0.1, 0.2, 0.2)"}
+    (lt, lm, ct), (lt_c, lm_c, ct_c) = run("_contrib_MultiBoxTarget", tattrs,
+                                           [anchors, labels, cls_preds])
+    prob_bg = torch.softmax(cls_preds.cpu(), dim=1)[:, 0]
+    mined_ties = check_target_ties((lt, lm, ct), (lt_c, lm_c, ct_c), prob_bg,
+                                   "MultiBoxTarget card vs CPU")
+
+    probs = torch.softmax(cls_preds, dim=1)
+    dattrs = {"nms_threshold": "0.5", "nms_topk": str(SSD["nms_topk"]),
+              "variances": "(0.1, 0.1, 0.2, 0.2)"}
+    (det,), (det_c,) = run("_contrib_MultiBoxDetection", dattrs, [probs, loc_preds, anchors])
+    check(torch.equal(det[..., 1], det_c[..., 1]), ("MultiBoxDetection scores",))
+    check(torch.allclose(det[..., 2:], det_c[..., 2:], rtol=1e-5, atol=1e-6),
+          ("MultiBoxDetection boxes",))
+    from mxnet_tpu_torch.ops.vision import _corner_iou
+    from mxnet_tpu_torch.ops.matrix import sort_key
+
+    nms_ties = cascade = 0
+    N, topk = det.shape[1], min(SSD["nms_topk"], det.shape[1])
+    for b in range(det.shape[0]):
+        differ = det[b, :, 0] != det_c[b, :, 0]
+        if not bool(differ.any()):
+            continue
+        score = torch.where(det_c[b, :, 1] > 0.01, det_c[b, :, 1], torch.tensor(-1.0))
+        order = torch.argsort(sort_key(-score), stable=True)
+        rank = torch.empty(N, dtype=torch.long)
+        rank[order] = torch.arange(N)
+        flipped = set()
+        for j in sorted(torch.nonzero(differ).flatten().tolist(), key=lambda j: int(rank[j])):
+            earlier = order[:min(int(rank[j]), topk)]
+            iou = _corner_iou(det_c[b, j:j + 1, 2:], det_c[b, earlier, 2:])[0]
+            kept = (det[b, earlier, 0] >= 0) | (det_c[b, earlier, 0] >= 0)
+            if bool(((iou - 0.5).abs() <= SSD_TIE["nms_iou"])[kept].any()):
+                nms_ties += 1
+            elif any(bool(iou[k] > 0.5 - SSD_TIE["nms_iou"]) for k, i in enumerate(earlier.tolist())
+                     if i in flipped):
+                cascade += 1
+            else:
+                check(False, ("MultiBoxDetection card vs CPU beyond a near-tie", b, j))
+            flipped.add(j)
+    return {"target_rows": int(ct.numel()), "positives": int((ct_c > 0).sum()),
+            "mined_negatives": int((ct_c == 0).sum()), "mined_near_ties": mined_ties,
+            "kept": int((det_c[..., 0] >= 0).sum()), "nms_near_ties": nms_ties,
+            "nms_near_tie_cascade": cascade}
+
+
+def time_detection(pt, deploy, params, images):
+    """The deploy graph's MultiBoxDetection node alone on the card, on its
+    inputs from the deploy forward: host ms a call (p50 of SSD["serve_iters"],
+    each ending in a synchronize) and the profiler's window of one call."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    internals = deploy.get_internals()
+    heads = pt.sym.Group([internals[k] for k in ("cls_prob_output", "loc_preds_output",
+                                                 "anchors_output")])
+    exe = ssd_bind(pt, heads, pt.gpu(0), {k: v for k, v in params.items()
+                                          if k in heads.list_arguments()}, images, None, "null")
+    ins = [o._tensor() for o in exe.forward(is_train=False)]
+    opdef = reg.get_op("_contrib_MultiBoxDetection")
+    node = [n for n in deploy._topo() if n.op == opdef.name][0]
+    attrs = node.parsed_attrs()
+
+    def call():
+        opdef.apply(attrs, ins)
+        torch.cuda.synchronize()
+
+    call()
+    ms = []
+    for _ in range(SSD["serve_iters"]):
+        t0 = time.perf_counter()
+        call()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), profile_window(call)
+
+
+def run_ssd(pt, smi):
+    """Phase 13: VGG16-SSD-300 (BASELINE config 4) at its published widths.
+    The op sweep; one training step at batch 2 card vs CPU; Module.fit at
+    batch 8 over SyntheticDetIter's fixed batches (the loss must fall);
+    MultiBoxTarget and MultiBoxDetection card vs CPU on the trained model's
+    predictions; the deploy graph at batch 8 and 1. None of the port's ten
+    kernels runs on this path (every SSD conv has a bias: no fused site)."""
+    from mxnet_tpu_torch import models, ops
+    from mxnet_tpu_torch.models import vgg16_ssd as ssd
+
+    check_tf32_off()
+    t_phase = time.perf_counter()
+    out = {"phase": "ssd", "nvidia_smi": smi}
+    t0 = time.perf_counter()
+    out["op_sweep"] = run_op_sweep(pt)
+    out["op_sweep"]["seconds"] = time.perf_counter() - t0
+    B, Bc, image = SSD["batch"], SSD["check_batch"], SSD["image"]
+    net = models.get_symbol("vgg16-ssd-300-train", num_classes=SSD["num_classes"])
+    deploy = models.get_symbol("vgg16-ssd-300", num_classes=SSD["num_classes"],
+                               nms_topk=SSD["nms_topk"])
+    with pt.gpu(0):
+        train = ssd.SyntheticDetIter(B, image, SSD["num_classes"], SSD["fit_batches"],
+                                     max_objects=SSD["max_objects"], seed=SEED + 63)
+    images, labels = train.batches[0]
+
+    # --- one training step at batch 2, card vs CPU, from Xavier weights
+    arg_shapes, _, _ = net.infer_shape(data=(Bc,) + tuple(image), label=(Bc, 4, 5))
+    pt.random.seed(SEED + 64)
+    init = pt.init.Xavier()
+    attrs = net.attr_dict()
+    args = {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "label"):
+            continue
+        arr = pt.nd.zeros(s, ctx=pt.cpu())
+        init(pt.initializer.InitDesc(n, attrs.get(n)), arr)
+        args[n] = arr.asnumpy()
+    t0 = time.perf_counter()
+    out["train_check"] = ssd_train_check(pt, net, args, images[:Bc], labels[:Bc])
+    out["train_check"]["seconds"] = time.perf_counter() - t0
+
+    # --- Module.fit at batch 8 over the fixed batches, from Xavier weights
+    mod = pt.mod.Module(net, data_names=("data",), label_names=("label",), context=pt.gpu(0))
+    mod.bind(train.provide_data, train.provide_label)
+    pt.random.seed(SEED + 65)
+    mod.init_params(pt.init.Xavier())
+
+    def fixed_losses():
+        train.reset()
+        vals = []
+        for b in train:
+            mod.forward(b, is_train=False)
+            vals.append(ssd_fixed_loss(mod.get_outputs()))
+        return vals
+
+    before = fixed_losses()
+    train.reset()
+    objective, marks = [], [time.perf_counter()]
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        objective.append(ssd.ssd_objective(mod.get_outputs()))
+
+    loss_metric = pt.metric.Loss()
+    opt = (("learning_rate", SSD["lr"]), ("momentum", SSD["momentum"]), ("wd", SSD["wd"]))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=loss_metric, optimizer="sgd", optimizer_params=opt,
+            batch_end_callback=batch_end, num_epoch=SSD["fit_epochs"])
+    fit_s = time.perf_counter() - t0
+    fit_launches = ops.launch_counts()
+    check(fit_launches == with_zeros({}), ("SSD Module.fit launches of the port's kernels",
+                                           fit_launches))
+    per = SSD["fit_batches"]
+    after = fixed_losses()
+    check(len(objective) == per * SSD["fit_epochs"] and all(map(math.isfinite, objective))
+          and sum(after) < sum(before), ("SSD: the training loss did not fall", objective,
+                                         before, after))
+    train.reset()
+    batch = next(iter(train))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+
+    card = profile_window(step)
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    timed = step_ms[1:]  # the first step binds and warms the allocator
+    p50 = float(np.percentile(timed, 50))
+    out["fit"] = {"batch": B, "batches": per, "epochs": SSD["fit_epochs"],
+                  "objective": objective, "metric_loss": float(loss_metric.get()[1]),
+                  "fixed_loss_before": before, "fixed_loss_after": after,
+                  "step_ms_p50": p50, "step_ms_p80": float(np.percentile(timed, 80)),
+                  "step_ms": step_ms, "images_per_s": B * 1e3 / p50, "fit_s": fit_s,
+                  "device_busy_ms": card["device_busy_ms"],
+                  "device_idle_share": card["device_idle_share"],
+                  "device_events_per_step": card["device_events_per_call"],
+                  "port_kernel_launches": {k: v for k, v in fit_launches.items() if v},
+                  "top_device_ms": card["top_device_ms"]}
+    arg_params, _ = mod.get_params()
+    trained = {k: v.asnumpy() for k, v in arg_params.items()}
+    del mod
+
+    # --- MultiBoxTarget / MultiBoxDetection, card vs CPU on the same inputs
+    internals = net.get_internals()
+    heads = pt.sym.Group([internals[k] for k in ("cls_preds_output", "loc_preds_output",
+                                                 "anchors_output")])
+    exe = ssd_bind(pt, heads, pt.gpu(0), {k: v for k, v in trained.items()
+                                          if k in heads.list_arguments()}, images, None, "null")
+    cls_preds, loc_preds, anchors = (o._tensor() for o in exe.forward(is_train=False))
+    del exe
+    out["multibox"] = check_multibox_card_vs_cpu(
+        pt, cls_preds, loc_preds, anchors, torch.as_tensor(labels, device=cls_preds.device))
+
+    # --- the deploy graph at batch 8 and 1 with the trained weights
+    for Bs in (B, 1):
+        exe = ssd_bind(pt, deploy, pt.gpu(0), trained, images[:Bs], None, "null")
+        for _ in range(2):
+            exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        det = exe.forward(is_train=False)[0].asnumpy()
+        launches = ops.launch_counts()
+        check(launches == with_zeros({}), ("SSD deploy launches of the port's kernels", launches))
+        check(det.shape == (Bs, 8732, 6) and np.isfinite(det).all(), ("SSD detections", Bs))
+        kept = (det[..., 0] >= 0).sum(axis=1)
+        check(bool((kept > 0).all()), ("SSD detections above the threshold", kept))
+        lat = []
+        for _ in range(SSD["serve_iters"]):
+            t0 = time.perf_counter()
+            exe.forward(is_train=False)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(lat))
+        card = profile_window(lambda: exe.forward(is_train=False))
+        det_ms, det_card = time_detection(pt, deploy, trained, images[:Bs])
+        out["deploy_batch%d" % Bs] = {
+            "latency_ms_p50": med, "latency_ms_p80": float(np.percentile(lat, 80)),
+            "images_per_s": Bs * 1e3 / med, "device_busy_ms": card["device_busy_ms"],
+            "device_idle_share": card["device_idle_share"],
+            "device_launches_per_request": card["device_events_per_call"],
+            "detection_ms_p50": det_ms, "detection_device_busy_ms": det_card["device_busy_ms"],
+            "detection_launches": det_card["device_events_per_call"],
+            "detection_share_of_latency": det_ms / med,
+            "detections_per_image": [int(k) for k in kept],
+            "top_device_ms": card["top_device_ms"]}
+        del exe
+    out["port_kernel_launches"] = {"fit": {k: v for k, v in fit_launches.items() if v},
+                                   "deploy": {k: v for k, v in launches.items() if v}}
+    check_tf32_off()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return fit_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
               file=sys.stderr)
         return 2
+    t_smoke = time.perf_counter()
     import mxnet_tpu_torch as pt
     from mxnet_tpu_torch.ops import cuda_build
 
@@ -4169,6 +4902,7 @@ def main():
     zoo_launches = run_zoo_cnn(pt, smi, peaks, entries)
     mt_launches = run_mt(pt, smi)
     run_lstm(pt, smi)
+    ssd_launches = run_ssd(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -4202,6 +4936,9 @@ def main():
             e.update(zoo_launches={k: v for k, v in zoo.items() if v})
         if mt_launches.get(name_):
             e.update(mt_launches=mt_launches[name_])
+        # the SSD phase's Module.fit: none of the kernels runs there
+        e.update(ssd_launches=ssd_launches[name_])
+    log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})
     print(smi)

@@ -37,6 +37,7 @@ from . import checkpoint, kvstore_helper, device_info  # noqa: E402,F401
 from . import module  # noqa: E402,F401
 from . import module as mod  # noqa: E402,F401
 from . import rnn  # noqa: E402,F401
+from . import operator, autograd, test_utils  # noqa: E402,F401
 from .convert import (params_from_checkpoint, params_from_numpy,  # noqa: E402,F401
                       updater_states_from_numpy)
 
@@ -44,5 +45,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "sym
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
            "random", "rtc", "telemetry", "faultinject", "io", "initializer", "init",
            "lr_scheduler", "metric", "callback", "monitor", "checkpoint", "kvstore_helper",
-           "device_info", "module", "mod", "rnn", "params_from_numpy", "params_from_checkpoint",
+           "device_info", "module", "mod", "rnn", "operator", "autograd", "test_utils",
+           "params_from_numpy", "params_from_checkpoint",
            "updater_states_from_numpy"]

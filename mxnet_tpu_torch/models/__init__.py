@@ -2,19 +2,19 @@
 configs, each the JAX package's (``mxnet_tpu/models/``) node for node.
 
 ``get_symbol(name, **kwargs)`` and ``_ZOO`` have the JAX package's names and
-aliases (``mxnet_tpu/models/__init__.py:15-49``). The SSD and recommender
-names need modules the port does not have yet: they raise, naming their
-ROADMAP item.
+aliases (``mxnet_tpu/models/__init__.py:15-49``). The recommender's names
+need ``sparse/`` and the sparse KVStore, which the port does not have yet:
+they raise, naming their ROADMAP item.
 """
 from ..base import MXNetError
 from . import (lenet, mlp, alexnet, vgg, resnet, inception_bn, inception_v3,  # noqa: F401
-               lstm, transformer)
+               lstm, transformer, vgg16_ssd)
 
 
 def _not_ported(name, what):
     def build(**kwargs):
         raise MXNetError("model %r needs %s, which the port does not have yet "
-                         "(ROADMAP.md §1.3)" % (name, what))
+                         "(ROADMAP.md §1.4)" % (name, what))
 
     return build
 
@@ -39,14 +39,12 @@ _ZOO = {
     "lstm": lstm.get_symbol,
     "transformer": transformer.get_symbol,
     "transformer_mt": transformer.get_symbol_mt,
-    "vgg16-ssd-300": _not_ported("vgg16-ssd-300", "models/vgg16_ssd.py and ops/vision.py "
-                                 "(L2Normalization, SoftmaxActivation, the MultiBox ops)"),
-    "vgg16-ssd-300-train": _not_ported("vgg16-ssd-300-train", "models/vgg16_ssd.py and "
-                                       "ops/vision.py (the MultiBox ops)"),
+    "vgg16-ssd-300": vgg16_ssd.get_symbol,
+    "vgg16-ssd-300-train": vgg16_ssd.get_symbol_train,
     "recommender": _not_ported("recommender", "models/recommender.py and sparse/ "
-                               "(SparseEmbedding, LogisticRegressionOutput)"),
+                               "(SparseEmbedding) and the sparse KVStore"),
     "dlrm": _not_ported("dlrm", "models/recommender.py and sparse/ "
-                        "(SparseEmbedding, LogisticRegressionOutput)"),
+                        "(SparseEmbedding) and the sparse KVStore"),
 }
 
 

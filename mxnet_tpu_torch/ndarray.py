@@ -418,13 +418,20 @@ def imperative_invoke(op_name, inputs, attrs, out=None, ctx=None, is_train=True,
         from . import random as _random
 
         rng = _random.generator(ctx.torch_device)
+    from . import autograd as _ag
+
     tensors = [x._tensor() for x in inputs]
     n_in = len(tensors) - n_aux
+    # under autograd.record() the op reads the recorded tensors and runs
+    # under grad mode; its results keep their graph in the autograd module
+    recording = _ag.is_recording()
+    ins = [_ag._recorded(x) for x in inputs[:n_in]] if recording else tensors[:n_in]
     # an op without inputs allocates on torch's default device: make that ctx's
     device = contextlib.nullcontext() if tensors else torch.device(ctx.torch_device)
-    with torch.no_grad(), device:
-        outs, new_aux = opdef.apply(attrs, tensors[:n_in], aux=tensors[n_in:],
+    with torch.enable_grad() if recording else torch.no_grad(), device:
+        outs, new_aux = opdef.apply(attrs, ins, aux=tensors[n_in:],
                                     is_train=bool(is_train), rng=rng)
+    with torch.no_grad():
         for t, new in zip(tensors[n_in:], new_aux):
             if new is not t:
                 t.copy_(new)
@@ -432,11 +439,14 @@ def imperative_invoke(op_name, inputs, attrs, out=None, ctx=None, is_train=True,
             targets = list(out) if isinstance(out, (list, tuple)) else [out]
             for t, o in zip(targets, outs):
                 t._tensor().copy_(o)
-            return targets
-        # a reshape, a transpose or the identity returns a torch view of its
-        # input; a new NDArray owns its memory, laid out densely
-        return [_wrap(o.clone(memory_format=torch.contiguous_format)
-                      if _shares_storage(o, tensors) else o, ctx) for o in outs]
+        else:
+            # a reshape, a transpose or the identity returns a torch view of
+            # its input; a new NDArray owns its memory, laid out densely
+            targets = [_wrap(o.detach().clone(memory_format=torch.contiguous_format)
+                             if _shares_storage(o, tensors) else o.detach(), ctx) for o in outs]
+    if recording:
+        _ag._record_outputs(targets, outs)
+    return targets
 
 
 def _make_op_function(op_name):

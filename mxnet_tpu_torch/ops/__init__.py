@@ -1,7 +1,8 @@
-"""Operator library of the port: the registry, the ops of the transformer's
-and the ResNet's serving and training paths, the optimizer updates, the
-uniform and normal samplers, Dropout, LRN and the fused RNN op, and the
-hand-written CUDA kernels behind their dispatchers.
+"""Operator library of the port: the registry, every op of the JAX package's
+library but ``SparseEmbedding`` and ``_graph_const`` (the layers, the
+shape, indexing and ordering ops, the optimizer updates, the samplers, the
+fused RNN op, the vision and detection ops, the sequence ops, CTC and
+``Custom``), and the hand-written CUDA kernels behind their dispatchers.
 
 Importing it registers the ops; it needs neither ``nvcc`` nor a GPU (the
 kernels build at their first launch).
@@ -10,6 +11,7 @@ import importlib
 
 from . import registry  # noqa: F401
 from . import elemwise, broadcast_reduce, matrix, nn, attention, optimizer_ops, sample, rnn  # noqa: F401
+from . import vision, sequence, ctc, custom  # noqa: F401
 from . import flash_attention, norm_residual, matmul_bias_act, conv_bn, matmul_stats  # noqa: F401
 from .registry import get_op, list_ops  # noqa: F401
 

@@ -4,8 +4,14 @@ Counterpart of ``mxnet_tpu/ops/matrix.py``: ``dot``, ``transpose``,
 ``Reshape`` with MXNet's shape codes, ``Flatten``, ``slice_axis``,
 ``SwapAxis``, ``expand_dims``, ``Concat``, ``Embedding``, ``one_hot``, the
 ops the ``rnn/`` cells build with (``SliceChannel``, ``where``,
-``zeros_like``, ``ones_like``), and the init ops the imperative NDArray
-creates arrays with (``_zeros``, ``_ones``, ``_full``, ``_arange``). An init
+``zeros_like``, ``ones_like``), the init ops the imperative NDArray
+creates arrays with (``_zeros``, ``_ones``, ``_full``, ``_arange``), and the
+rest of the JAX module: ``batch_dot``, ``slice``, ``repeat``, ``tile``,
+``reverse``, ``take``, ``batch_take``, ``pick``, the ordering ops ``topk``,
+``sort`` and ``argsort`` on stable sorts of ``sort_key`` (``jax.lax.top_k``
+and ``jnp.argsort`` keep tied elements in index order; ``top_k`` puts -0
+before +0;
+``torch.topk`` promises no order among ties), and ``Pad``. An init
 op has no input to take its device from: it allocates on torch's current
 default device, which ``ndarray.imperative_invoke`` and the executor set to
 the call's context.
@@ -17,6 +23,7 @@ import torch
 
 from ..base import MXNetError, torch_dtype
 from .registry import AttrSpec, register
+
 
 @register("dot", attrs={"transpose_a": AttrSpec("bool", default=False),
                         "transpose_b": AttrSpec("bool", default=False)},
@@ -231,3 +238,180 @@ def _arange(attrs):
     if attrs["repeat"] > 1:
         out = torch.repeat_interleave(out, attrs["repeat"])
     return out
+
+
+# --- The rest of JAX mxnet_tpu/ops/matrix.py ------------------------------------
+@register("batch_dot", attrs={"transpose_a": AttrSpec("bool", default=False),
+                              "transpose_b": AttrSpec("bool", default=False)},
+          input_names=("lhs", "rhs"))
+def _batch_dot(attrs, lhs, rhs):
+    """Batched matrix product (JAX :41)."""
+    if attrs["transpose_a"]:
+        lhs = lhs.transpose(-1, -2)
+    if attrs["transpose_b"]:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
+@register("slice", attrs={"begin": AttrSpec("shape", required=True),
+                          "end": AttrSpec("shape", required=True)},
+          aliases=("crop",))
+def _slice(attrs, data):
+    return data[tuple(slice(b, e) for b, e in zip(attrs["begin"], attrs["end"]))]
+
+
+def _axis_or_none(ax):
+    return None if ax in (None, "None") else int(ax)
+
+
+@register("repeat", attrs={"repeats": AttrSpec("int", required=True),
+                           "axis": AttrSpec("any", default=None)})
+def _repeat(attrs, data):
+    """Each element ``repeats`` times along axis (the flattened array without
+    one), as ``jnp.repeat``."""
+    return torch.repeat_interleave(data, attrs["repeats"], dim=_axis_or_none(attrs["axis"]))
+
+
+@register("tile", attrs={"reps": AttrSpec("shape", required=True)})
+def _tile(attrs, data):
+    return torch.tile(data, tuple(attrs["reps"]))
+
+
+@register("reverse", attrs={"axis": AttrSpec("shape", required=True)}, aliases=("flip",))
+def _reverse(attrs, data):
+    return torch.flip(data, dims=tuple(attrs["axis"]))
+
+
+@register("take", attrs={"axis": AttrSpec("int", default=0),
+                         "mode": AttrSpec("str", default="clip")},
+          input_names=("a", "indices"))
+def _take(attrs, a, indices):
+    """Slices of ``a`` along axis at the (truncated) indices, clipped into
+    range or, with ``mode="wrap"``, taken modulo the axis (JAX :268)."""
+    ax = attrs["axis"] % a.ndim
+    n = a.shape[ax]
+    idx = indices.long()
+    idx = torch.remainder(idx, n) if attrs["mode"] == "wrap" else idx.clamp(0, n - 1)
+    out = torch.index_select(a, ax, idx.reshape(-1))
+    return out.reshape(tuple(a.shape[:ax]) + tuple(indices.shape) + tuple(a.shape[ax + 1:]))
+
+
+@register("batch_take", input_names=("a", "indices"))
+def _batch_take(attrs, a, indices):
+    """out[i] = a[i, indices[i]] (JAX :281)."""
+    return a.gather(1, indices.long()[:, None])[:, 0]
+
+
+@register("pick", attrs={"axis": AttrSpec("int", default=1),
+                         "keepdims": AttrSpec("bool", default=False)},
+          input_names=("data", "index"))
+def _pick(attrs, data, index):
+    """data at ``index`` along axis, one element a position (JAX :310)."""
+    ax = attrs["axis"] % data.ndim
+    out = data.gather(ax, index.long().unsqueeze(ax))
+    return out if attrs["keepdims"] else out.squeeze(ax)
+
+
+def sort_key(x, signed_zeros=False):
+    """Integer sort keys of x in the order JAX compares floats: ``jnp.sort``
+    and ``jnp.argsort`` take -0 and +0 as equal and every NaN as one, last;
+    ``lax.top_k`` (``signed_zeros``) puts -0 before +0 (IEEE total order).
+    An integer tensor is its own key."""
+    if not x.is_floating_point():
+        return x
+    if not signed_zeros:
+        x = torch.where(torch.isnan(x), torch.full((), float("nan"), dtype=x.dtype,
+                                                   device=x.device), x + 0.0)
+    if x.dtype == torch.float64:
+        i = x.view(torch.int64)
+        return i ^ ((i >> 63) & 0x7FFFFFFFFFFFFFFF)
+    i = x.float().view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
+def _topk_attrs():
+    return {"axis": AttrSpec("any", default=-1), "k": AttrSpec("int", default=1),
+            "ret_typ": AttrSpec("str", default="indices"),
+            "is_ascend": AttrSpec("bool", default=False)}
+
+
+@register("topk", attrs=_topk_attrs(),
+          num_outputs=lambda a: 2 if a.get("ret_typ") == "both" else 1)
+def _topk(attrs, data):
+    """The k largest (``is_ascend``: smallest) along axis, ties in index
+    order as ``jax.lax.top_k`` gives them: a stable sort of ``sort_key``,
+    then the first k (JAX :329). Indices are float32; ``ret_typ``
+    value|indices|both|mask."""
+    ax = attrs["axis"]
+    ax = data.ndim - 1 if ax in (None, "None") else int(ax) % data.ndim
+    k = attrs["k"]
+    moved = torch.movedim(data, ax, -1)
+    key = sort_key(-moved if attrs["is_ascend"] else moved, signed_zeros=True)
+    raw_idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
+    top_vals = torch.movedim(moved.gather(-1, raw_idx), -1, ax)
+    top_idx = torch.movedim(raw_idx, -1, ax).to(torch.float32)
+    rt = attrs["ret_typ"]
+    if rt == "value":
+        return top_vals
+    if rt == "both":
+        return top_vals, top_idx
+    if rt == "mask":
+        mask = torch.zeros_like(moved).scatter_(-1, raw_idx, 1.0)
+        return torch.movedim(mask, -1, ax)
+    if rt != "indices":
+        raise MXNetError("topk: unsupported ret_typ %r" % rt)
+    return top_idx
+
+
+def _flat_axis(attrs, data):
+    ax = attrs["axis"]
+    if ax in (None, "None"):
+        return data.reshape(-1), 0
+    return data, int(ax)
+
+
+@register("sort", attrs={"axis": AttrSpec("any", default=-1),
+                         "is_ascend": AttrSpec("bool", default=True)})
+def _sort(attrs, data):
+    """Ascending along axis (the flattened array for None), reversed for
+    descending (JAX :356)."""
+    data, ax = _flat_axis(attrs, data)
+    out = data.gather(ax, torch.argsort(sort_key(data), dim=ax, stable=True))
+    return out if attrs["is_ascend"] else torch.flip(out, dims=(ax,))
+
+
+@register("argsort", attrs={"axis": AttrSpec("any", default=-1),
+                            "is_ascend": AttrSpec("bool", default=True)})
+def _argsort(attrs, data):
+    """The stable ascending order (JAX :365), reversed for descending (ties
+    then in reverse index order, as the JAX op flips), as float32."""
+    data, ax = _flat_axis(attrs, data)
+    out = torch.argsort(sort_key(data), dim=ax, stable=True)
+    if not attrs["is_ascend"]:
+        out = torch.flip(out, dims=(ax,))
+    return out.to(torch.float32)
+
+
+@register("Pad", attrs={"mode": AttrSpec("str", default="constant"),
+                        "pad_width": AttrSpec("shape", required=True),
+                        "constant_value": AttrSpec("float", default=0.0)},
+          aliases=("pad",))
+def _pad(attrs, data):
+    """N-d padding (JAX :459): ``pad_width`` holds (before, after) for every
+    axis; constant, edge or reflect (the numpy modes ``jnp.pad`` takes).
+    Edge and reflect pad at most the last three axes, as ``F.pad`` does."""
+    import torch.nn.functional as F
+
+    pw = attrs["pad_width"]
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(data.ndim)]
+    first = next((i for i, p in enumerate(pairs) if any(p)), data.ndim)
+    flat = [v for p in reversed(pairs[first:]) for v in p]  # F.pad: last axis first
+    mode = attrs["mode"]
+    if mode == "constant":
+        return F.pad(data, flat, mode="constant", value=attrs["constant_value"])
+    if data.ndim - first > 3:
+        raise MXNetError("Pad: mode %r pads at most the last three axes" % mode)
+    # the unpadded leading axes as one channel axis of a batch of one
+    x = data.reshape((1, -1) + tuple(data.shape[first:]))
+    out = F.pad(x, flat, mode="replicate" if mode == "edge" else "reflect")
+    return out.reshape(tuple(data.shape[:first]) + tuple(out.shape[2:]))

@@ -9,7 +9,11 @@ reference's pool does), ``BatchNorm`` (moving-stat aux state; a training
 forward through the hand-derived backward of JAX ``_bn_train_core``, an
 autograd Function), ``Activation``, ``softmax`` and ``SoftmaxOutput``, the
 training symbol's head, whose backward is its own loss gradient (an autograd
-Function, the JAX package's ``custom_vjp``). A product or convolution
+Function, the JAX package's ``custom_vjp``), Dropout, LRN, and the rest of
+the JAX module's layers: ``Deconvolution``, ``LeakyReLU``, ``log_softmax``,
+``SoftmaxActivation``, the regression outputs, ``MakeLoss``, ``SVMOutput``,
+``IdentityAttachKLSparseReg``, ``InstanceNorm``, ``L2Normalization`` and
+``UpSampling``. A product or convolution
 outside any fused site stays ``torch.matmul`` or ``F.conv2d``, as the JAX
 package leaves them to XLA; the other ops differentiate through torch.
 """
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -342,3 +347,237 @@ def _lrn(attrs, data):
         ssum = ssum + sq[:, i:i + C]
     norm = attrs["knorm"] + (attrs["alpha"] / n) * ssum
     return data * torch.pow(norm, -attrs["beta"])
+
+
+# --- The rest of the layer library (JAX mxnet_tpu/ops/nn.py) ---------------------
+_DECONV_FNS = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+@register("Deconvolution", attrs=_conv_attrs(), input_names=_fc_names)
+def _deconvolution(attrs, data, weight, bias=None):
+    """Transposed convolution (JAX :104). MXNet's weight layout (C_in,
+    num_filter/g, *kernel) is ``conv_transpose``'s; ``adj`` adds to the high
+    edge. ``target_shape`` is parsed and not read, as the JAX op reads it
+    not."""
+    nd = len(attrs["kernel"])
+    out = _DECONV_FNS[nd](data, weight, None, _spatial(attrs, "stride", nd, 1),
+                          _spatial(attrs, "pad", nd, 0), _spatial(attrs, "adj", nd, 0),
+                          attrs["num_group"])
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+def _lrelu_names(attrs):
+    return ["data", "gamma"] if attrs.get("act_type") == "prelu" else ["data"]
+
+
+@register("LeakyReLU", attrs={"act_type": AttrSpec("str", default="leaky"),
+                              "slope": AttrSpec("float", default=0.25),
+                              "lower_bound": AttrSpec("float", default=0.125),
+                              "upper_bound": AttrSpec("float", default=0.334)},
+          input_names=_lrelu_names, needs_rng=True, needs_train_flag=True)
+def _leaky_relu(attrs, data, gamma=None, is_train=False, rng=None):
+    """leaky|elu|prelu|rrelu (JAX :208). rrelu's slopes are drawn in a
+    training forward only, from ``rng`` (the bind device's generator) on
+    data's device, U(lower_bound, upper_bound) an element; at inference the
+    slope is their mean."""
+    t = attrs["act_type"]
+    if t == "leaky":
+        return torch.where(data >= 0, data, attrs["slope"] * data)
+    if t == "elu":
+        return torch.where(data >= 0, data, attrs["slope"] * torch.expm1(data))
+    if t == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) if data.ndim > 2 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if t == "rrelu":
+        if is_train and rng is not None:
+            slope = torch.empty(data.shape, dtype=data.dtype, device=data.device).uniform_(
+                attrs["lower_bound"], attrs["upper_bound"], generator=rng)
+        else:
+            slope = (attrs["lower_bound"] + attrs["upper_bound"]) / 2.0
+        return torch.where(data >= 0, data, slope * data)
+    raise MXNetError("unknown act_type %r" % t)
+
+
+@register("log_softmax", attrs={"axis": AttrSpec("int", default=-1)})
+def _log_softmax(attrs, data):
+    return F.log_softmax(data, dim=attrs["axis"])
+
+
+@register("SoftmaxActivation", attrs={"mode": AttrSpec("str", default="instance")})
+def _softmax_activation(attrs, data):
+    """instance: over each sample's trailing axes; channel: over axis 1
+    (JAX :273)."""
+    if attrs["mode"] == "channel":
+        return F.softmax(data, dim=1)
+    return F.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(data.shape)
+
+
+class _LossHead(torch.autograd.Function):
+    """A loss layer's head: ``forward`` gives ``fwd(data)``; ``backward``
+    ignores the incoming gradient and returns ``grad(out, label)`` for data
+    and zeros for the label (the JAX ops' ``custom_vjp``s)."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad):
+        out = fwd(data)
+        ctx.save_for_backward(out, data, label)
+        ctx.grad = grad
+        return out
+
+    @staticmethod
+    def backward(ctx, _head):
+        out, data, label = ctx.saved_tensors
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return ctx.grad(out, data, label).to(data.dtype), dlabel, None, None
+
+
+def _make_output_op(name, fwd, grad):
+    """The regression-output family (JAX :489): ``grad(out, label)`` times
+    grad_scale over the output's size per sample."""
+
+    def g(out, data, label, scale):
+        num_output = max(int(np.prod(out.shape[1:])), 1)
+        return grad(out, label.reshape(out.shape)) * (scale / num_output)
+
+    @register(name, attrs={"grad_scale": AttrSpec("float", default=1.0)},
+              input_names=("data", "label"))
+    def op(attrs, data, label):
+        scale = float(attrs["grad_scale"])
+        return _LossHead.apply(data, label, fwd, lambda o, d, y: g(o, d, y, scale))
+
+    op.__doc__ = "%s (reference: regression_output-inl.h)." % name
+    return op
+
+
+_make_output_op("LinearRegressionOutput", lambda x: x.view_as(x), lambda o, y: o - y)
+_make_output_op("LogisticRegressionOutput", torch.sigmoid, lambda o, y: o - y)
+_make_output_op("MAERegressionOutput", lambda x: x.view_as(x), lambda o, y: torch.sign(o - y))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; backward emits grad_scale / norm_div everywhere."""
+
+    @staticmethod
+    def forward(ctx, data, value):
+        ctx.value = value
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.value), None
+
+
+@register("MakeLoss", attrs={"grad_scale": AttrSpec("float", default=1.0),
+                             "valid_thresh": AttrSpec("float", default=0.0),
+                             "normalization": AttrSpec("str", default="null")})
+def _make_loss(attrs, data):
+    """Treat data as a loss: the backward emits grad_scale (JAX :546),
+    divided by the batch size under ``normalization="batch"``. As in the
+    JAX op, "valid" divides by nothing (ROADMAP.md §3)."""
+    norm_div = float(data.shape[0]) if attrs["normalization"] == "batch" else 1.0
+    return _MakeLoss.apply(data, float(attrs["grad_scale"]) / norm_div)
+
+
+def _svm_grad(margin, coef, use_linear):
+    def grad(out, data, label):
+        onehot = (label.long().unsqueeze(-1)
+                  == torch.arange(data.shape[-1], device=data.device)).to(data.dtype)
+        ty = 2.0 * onehot - 1.0  # +1 for the target class, -1 otherwise
+        viol = (margin - ty * data) > 0
+        if use_linear:
+            d = -ty * coef
+        else:
+            d = -2.0 * coef * (margin - ty * data) * ty
+        return torch.where(viol, d, torch.zeros((), dtype=data.dtype, device=data.device))
+
+    return grad
+
+
+@register("SVMOutput", attrs={"margin": AttrSpec("float", default=1.0),
+                              "regularization_coefficient": AttrSpec("float", default=1.0),
+                              "use_linear": AttrSpec("bool", default=False)},
+          input_names=("data", "label"))
+def _svm_output(attrs, data, label):
+    """Hinge-loss output layer (JAX :584): identity forward, the squared (or
+    linear) hinge gradient on backward."""
+    return _LossHead.apply(data, label, lambda x: x.view_as(x),
+                           _svm_grad(attrs["margin"], attrs["regularization_coefficient"],
+                                     bool(attrs["use_linear"])))
+
+
+@register("IdentityAttachKLSparseReg", attrs={"sparseness_target": AttrSpec("float", default=0.1),
+                                              "penalty": AttrSpec("float", default=0.001),
+                                              "momentum": AttrSpec("float", default=0.9)},
+          aux_names=("moving_avg",))
+def _identity_kl(attrs, inputs, aux):
+    """Identity forward whose gradient gains the KL sparseness penalty of
+    the mean activation (JAX :600); the aux moving average follows that
+    mean in every forward."""
+    (data,), (moving,) = inputs, aux
+    rho_hat = torch.sigmoid(data).mean()
+    new_moving = moving * attrs["momentum"] + rho_hat.detach() * (1 - attrs["momentum"])
+    rho = attrs["sparseness_target"]
+    penalty = attrs["penalty"] * (-rho / (rho_hat + 1e-8) + (1 - rho) / (1 - rho_hat + 1e-8))
+    out = data + penalty.detach() * (data - data.detach())
+    return (out,), (new_moving,)
+
+
+@register("InstanceNorm", attrs={"eps": AttrSpec("float", default=1e-3)},
+          input_names=("data", "gamma", "beta"))
+def _instance_norm(attrs, data, gamma, beta):
+    """Per-sample, per-channel normalisation over the spatial axes with the
+    biased variance (JAX :646)."""
+    axes = tuple(range(2, data.ndim))
+    mean = data.mean(dim=axes, keepdim=True)
+    var = data.var(dim=axes, keepdim=True, correction=0)
+    b = (1, -1) + (1,) * (data.ndim - 2)
+    out = (data - mean) * torch.rsqrt(var + attrs["eps"])
+    return out * gamma.reshape(b) + beta.reshape(b)
+
+
+@register("L2Normalization", attrs={"eps": AttrSpec("float", default=1e-10),
+                                    "mode": AttrSpec("str", default="instance")})
+def _l2_normalization(attrs, data):
+    """x / sqrt(Σx² + eps) over each instance, channel column or spatial
+    plane (JAX :661)."""
+    mode = attrs["mode"]
+    if mode == "instance":
+        axes = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        axes = (1,)
+    else:  # spatial
+        axes = tuple(range(2, data.ndim))
+    return data / torch.sqrt((data * data).sum(dim=axes, keepdim=True) + attrs["eps"])
+
+
+@register("UpSampling", attrs={"scale": AttrSpec("int", required=True),
+                               "num_filter": AttrSpec("int", default=0),
+                               "sample_type": AttrSpec("str", default="nearest"),
+                               "multi_input_mode": AttrSpec("str", default="concat"),
+                               "num_args": AttrSpec("int", default=1),
+                               "workspace": AttrSpec("int", default=512)},
+          input_names=lambda a: ["arg%d" % i for i in range(int(a.get("num_args", 1)))])
+def _upsampling(attrs, *args):
+    """Nearest or bilinear upsampling of every input by ``scale``, then
+    concatenated (or summed) over the channels (JAX :678). Bilinear resizes
+    each input with half-pixel centres, as ``jax.image.resize`` does; like
+    the JAX op it does not read a weight input as the reference's
+    deconvolution would (ROADMAP.md §3)."""
+    s = attrs["scale"]
+    outs = []
+    for data in args:
+        if attrs["sample_type"] == "nearest":
+            outs.append(data.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3))
+        else:
+            outs.append(F.interpolate(data, scale_factor=s, mode="bilinear",
+                                      align_corners=False))
+    if len(outs) == 1:
+        return outs[0]
+    if attrs["multi_input_mode"] == "sum":
+        total = outs[0]
+        for o in outs[1:]:
+            total = total + o
+        return total
+    return torch.cat(outs, dim=1)

@@ -26,7 +26,7 @@ class AttrSpec:
     """Declarative parameter field (reference: dmlc::Parameter / DMLC_DECLARE_FIELD)."""
 
     def __init__(self, typ, default=None, required=False, doc=""):
-        self.typ = typ  # 'int'|'float'|'bool'|'str'|'shape'|'dtype'|'any'
+        self.typ = typ  # 'int'|'float'|'bool'|'str'|'shape'|'ftuple'|'dtype'|'any'
         self.default = default
         self.required = required
         self.doc = doc
@@ -54,6 +54,15 @@ class AttrSpec:
             if isinstance(value, (int, np.integer)):
                 return (int(value),)
             return tuple(int(v) for v in value)
+        if t == "ftuple":
+            if isinstance(value, str):
+                s = value.strip().lstrip("([").rstrip(")]")
+                if not s:
+                    return ()
+                return tuple(float(x) for x in s.split(",") if x.strip())
+            if isinstance(value, (int, float, np.floating, np.integer)):
+                return (float(value),)
+            return tuple(float(v) for v in value)
         if t == "dtype":
             return np_dtype(value)
         return value

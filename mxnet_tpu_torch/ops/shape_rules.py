@@ -1,7 +1,8 @@
 """Parameter-shape inference rules.
 
 Copied from ``mxnet_tpu/ops/shape_rules.py`` (backend-free), for the ops
-of the transformer's and the ResNet's graphs: forward shapes come from
+of every op the port registers that has parameters or labels to infer
+(the JAX package's whole table): forward shapes come from
 running each op on the ``meta`` device, but weight, bias, label and aux-state
 shapes flow backward from the data shape, and these rules fill them in. Each
 rule gets the inputs' shapes ordered ``input_names + aux_names``.
@@ -64,6 +65,37 @@ def _bn(attrs, shapes):
     return shapes
 
 
+# copied from mxnet_tpu/ops/shape_rules.py (_deconv, backend-free)
+@rule("Deconvolution")
+def _deconv(attrs, shapes):
+    data = shapes[0]
+    if data is not None:
+        nf, g = attrs["num_filter"], attrs.get("num_group", 1)
+        if shapes[1] is None:
+            shapes[1] = (data[1], nf // g) + tuple(attrs["kernel"])
+        if len(shapes) > 2 and shapes[2] is None:
+            shapes[2] = (nf,)
+    return shapes
+
+
+@rule("InstanceNorm")
+def _in(attrs, shapes):
+    data = shapes[0]
+    if data is not None:
+        for i in (1, 2):
+            if shapes[i] is None:
+                shapes[i] = (data[1],)
+    return shapes
+
+
+@rule("LeakyReLU")
+def _lrelu(attrs, shapes):
+    data = shapes[0]
+    if data is not None and len(shapes) > 1 and shapes[1] is None:
+        shapes[1] = (data[1],)
+    return shapes
+
+
 @rule("Embedding")
 def _embedding(attrs, shapes):
     if shapes[1] is None:
@@ -101,4 +133,27 @@ def _rnn_shapes(attrs, shapes):
             shapes[2] = (L * d, N, H)
         if len(shapes) > 3 and shapes[3] is None:
             shapes[3] = (L * d, N, H)
+    return shapes
+
+
+def _label_like_data(attrs, shapes):
+    if shapes[0] is not None and shapes[1] is None:
+        shapes[1] = tuple(shapes[0])
+    return shapes
+
+
+for _n in ("LinearRegressionOutput", "LogisticRegressionOutput", "MAERegressionOutput"):
+    RULES[_n] = _label_like_data
+
+
+@rule("SVMOutput")
+def _svm_out(attrs, shapes):
+    data = shapes[0]
+    if data is not None and shapes[1] is None:
+        shapes[1] = (data[0],)
+    return shapes
+
+
+@rule("IdentityAttachKLSparseReg")
+def _klreg(attrs, shapes):
     return shapes

@@ -17,7 +17,7 @@ package. SGLD's noise is drawn on the weight's device from that device's
 generator (``random.py``), so it is not JAX's bits. The flat multi-tensor
 update (``flat_update_spec``, ``flat_kernel``) serves the fused data-parallel
 step and comes with it (``ROADMAP.md`` section 1.4); the row-sparse lazy
-update comes with ``sparse/`` (section 1.3). Each raises until then.
+update comes with ``sparse/`` (section 1.4). Each raises until then.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad", "RMSP
 _FLAT = ("the flat multi-tensor update serves the fused data-parallel step, which the "
          "port has not yet (ROADMAP.md section 1.4)")
 _ROW_SPARSE = ("row-sparse gradients and their lazy update come with sparse/, which the "
-               "port has not yet (ROADMAP.md section 1.3)")
+               "port has not yet (ROADMAP.md section 1.4)")
 
 
 def flat_kernel(kind, hyper):

@@ -1002,3 +1002,145 @@ def test_rnn_op_on_the_card_matches_the_cpu(dev, mode, bidir):
         runs.append([t.detach().cpu() for t in list(outs) + list(grads)])
     for g, c in zip(*runs):
         _close(g, c, 1e-5)
+
+
+# ------------------------------------------- the rest of the operator library
+def _card_vs_cpu(dev, op, attrs, inputs, grad=True, tol=dict(rtol=1e-5, atol=1e-5)):
+    """The op forward (and backward at a seeded cotangent) on the card and
+    on the CPU from the same numpy inputs."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    opdef = reg.get_op(op)
+    pa = reg.parse_attrs(opdef, attrs)
+    n_in = len(opdef.input_names(pa))
+    rs, cots, runs = np.random.RandomState(1), None, []
+    for d in (torch.device("cpu"), dev):
+        xs = [torch.from_numpy(x).to(d) for x in inputs]
+        leaves = [x.requires_grad_(grad) for x in xs[:n_in]]
+        with torch.enable_grad():
+            outs, _ = opdef.apply(pa, leaves, aux=xs[n_in:])
+        cots = cots or [rs.standard_normal(tuple(o.shape)).astype(np.float32) for o in outs]
+        heads = [(o, torch.from_numpy(c).to(d)) for o, c in zip(outs, cots) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in heads], leaves, [c for _, c in heads],
+                                    allow_unused=True) if heads else []
+        runs.append(([o.detach().cpu() for o in outs],
+                     [None if g is None else g.cpu() for g in grads]))
+    for got, want in zip(runs[1][0], runs[0][0]):
+        torch.testing.assert_close(got, want, **tol)
+    for got, want in zip(runs[1][1], runs[0][1]):
+        assert (got is None) == (want is None)
+        if got is not None:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _anchors(n):
+    rs = np.random.RandomState(n)
+    xy = rs.uniform(0, 0.8, (n, 2))
+    return np.concatenate([xy, xy + rs.uniform(0.05, 0.2, (n, 2))], 1).astype(np.float32)[None]
+
+
+@pytest.mark.parametrize("case", [
+    ("Deconvolution", {"kernel": "(3, 3)", "num_filter": "4", "stride": "(2, 2)", "pad": "(1, 1)",
+                       "adj": "(1, 1)"}, [(2, 3, 5, 5), (3, 4, 3, 3), (4,)]),
+    ("L2Normalization", {"mode": "channel"}, [(2, 512, 38, 38)]),
+    ("SoftmaxActivation", {"mode": "channel"}, [(8, 21, 8732)]),
+    ("ROIPooling", {"pooled_size": "(2, 3)", "spatial_scale": "1.0"}, None),
+    ("BilinearSampler", {}, [(2, 3, 5, 6), (2, 2, 4, 5)]),
+    ("UpSampling", {"scale": "2", "sample_type": "bilinear"}, [(2, 3, 3, 4)]),
+    ("WarpCTC", {"input_length": "6", "label_length": "2"}, None),
+    ("MultiBoxPrior", {"sizes": "[0.1, 0.141]", "ratios": "[1, 2, 0.5]"}, [(1, 3, 38, 38)]),
+], ids=lambda c: c[0])
+def test_new_ops_match_the_cpu_on_the_card(dev, case):
+    op, attrs, shapes = case
+    rs = np.random.RandomState(0)
+    if op == "ROIPooling":
+        inputs = [rs.randn(2, 3, 8, 8).astype(np.float32),
+                  np.array([[0, 1, 2, 6, 7], [1, 0, 0, 7, 7]], np.float32)]
+    elif op == "WarpCTC":
+        inputs = [rs.randn(12, 5).astype(np.float32), np.array([[1, 2], [3, 0]], np.float32)]
+    else:
+        inputs = [rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    _card_vs_cpu(dev, op, attrs, inputs)
+
+
+def test_multibox_ops_match_the_cpu_on_the_card_at_ssd_size(dev):
+    """8732 anchors, 8 images: the targets (mining included) and the
+    detections from the same inputs, decisions equal (random inputs at this
+    seed hold no near-tie)."""
+    rs = np.random.RandomState(3)
+    N, B = 8732, 8
+    anchors = _anchors(N)
+    label = -np.ones((B, 4, 5), np.float32)
+    for b in range(B):
+        for j in range(rs.randint(1, 5)):
+            x0, y0 = rs.uniform(0, 0.6, 2)
+            label[b, j] = [rs.randint(20), x0, y0, x0 + rs.uniform(0.2, 0.4),
+                           y0 + rs.uniform(0.2, 0.4)]
+    preds = rs.randn(B, 21, N).astype(np.float32)
+    mining = {"negative_mining_ratio": "3", "negative_mining_thresh": "0.5"}
+    _card_vs_cpu(dev, "MultiBoxTarget", mining, [anchors, label, preds], grad=False,
+                 tol=dict(rtol=1e-5, atol=1e-6))
+    probs = np.exp(preds) / np.exp(preds).sum(axis=1, keepdims=True)
+    _card_vs_cpu(dev, "MultiBoxDetection", {"nms_topk": "400"},
+                 [probs.astype(np.float32), rs.randn(B, 4 * N).astype(np.float32) * 0.1, anchors],
+                 grad=False, tol=dict(rtol=1e-5, atol=1e-6))
+
+
+def test_a_custom_node_under_graph_capture_raises(dev):
+    @pt.operator.register("card_capture_probe")
+    class Prop(pt.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class Op(pt.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], in_data[0].asnumpy())
+
+            return Op()
+
+    x = pt.nd.array(np.ones((2, 2), np.float32), ctx=pt.gpu(0))
+    pt.nd.Custom(x, op_type="card_capture_probe")  # outside a capture it runs
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(MXNetError, match="card_capture_probe"):
+        with torch.cuda.graph(graph):
+            pt.nd.Custom(x, op_type="card_capture_probe")
+
+
+def test_ssd_loss_tail_training_step_on_the_card_matches_the_cpu(dev):
+    """example/ssd's mini backbone (without BatchNorm) at 64 x 64, batch 2,
+    with the port's multibox_layer and ssd_losses: outputs and every
+    gradient card vs CPU (rtol 1e-3, atol 1e-3 of the largest magnitude)."""
+    from mxnet_tpu_torch.models.vgg16_ssd import multibox_layer, ssd_losses
+
+    sym = pt.sym
+    x = sym.Variable("data")
+    feats = []
+    for i, nf in enumerate((32, 64, 128)):
+        x = sym.Activation(sym.Convolution(x, num_filter=nf, kernel=(3, 3), pad=(1, 1),
+                                           name="conv%d" % i), act_type="relu")
+        x = sym.Pooling(x, kernel=(2, 2), stride=(2, 2), pool_type="max")
+        feats.append(x)
+    cls, loc, anc = multibox_layer(feats, 3, [(0.2, 0.3), (0.4, 0.5), (0.7, 0.9)],
+                                   [(1.0, 2.0, 0.5)] * 3)
+    net = ssd_losses(cls, loc, anc, sym.Variable("label"))
+    rs = np.random.RandomState(5)
+    label = -np.ones((2, 4, 5), np.float32)
+    label[:, 0] = [[1, 0.1, 0.1, 0.5, 0.6], [2, 0.3, 0.2, 0.9, 0.7]]
+    arg_shapes, _, _ = net.infer_shape(data=(2, 3, 64, 64), label=label.shape)
+    args = {n: (rs.standard_normal(s) * np.sqrt(2.0 / np.prod(s[1:]))).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes) if n not in ("data", "label")}
+    args["data"] = rs.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32)
+    args["label"] = label
+    runs = []
+    for ctx in (pt.cpu(), pt.gpu(0)):
+        arrays = {k: pt.nd.array(v, ctx=ctx) for k, v in args.items()}
+        grads = {k: pt.nd.zeros(v.shape, ctx=ctx) for k, v in args.items()
+                 if k not in ("data", "label")}
+        exe = pt.executor.bind(net, ctx, arrays, args_grad=grads)
+        exe.forward_backward()
+        runs.append(([o.asnumpy() for o in exe.outputs],
+                     {k: g.asnumpy() for k, g in grads.items()}))
+    np.testing.assert_array_equal(runs[1][0][2], runs[0][0][2])  # the class targets
+    for got, want in zip(runs[1][0][:2], runs[0][0][:2]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    for k, want in runs[0][1].items():
+        np.testing.assert_allclose(runs[1][1][k], want, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(want).max()), err_msg=k)

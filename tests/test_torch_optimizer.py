@@ -189,7 +189,7 @@ def test_flat_and_row_sparse_paths_raise_naming_their_sections():
         opt.flat_update_spec()
     with pytest.raises(pt.MXNetError, match="section 1.4"):
         pt.optimizer.flat_kernel("sgd", {})
-    with pytest.raises(pt.MXNetError, match="section 1.3"):
+    with pytest.raises(pt.MXNetError, match="section 1.4"):
         opt.update_row_sparse(0, None, None, None)
-    with pytest.raises(pt.MXNetError, match="section 1.3"):
+    with pytest.raises(pt.MXNetError, match="section 1.4"):
         pt.optimizer.get_updater(opt)(0, np.zeros(3, "f"), pt.nd.zeros((3,), ctx=pt.cpu()))

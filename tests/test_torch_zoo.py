@@ -48,7 +48,7 @@ torch.set_num_threads(1)
 
 OUT_TOL, GRAD_TOL, AUX_TOL = dict(rtol=1e-4, atol=1e-5), dict(rtol=2e-3, atol=2e-4), \
     dict(rtol=1e-4, atol=1e-5)
-NOT_PORTED = ("vgg16-ssd-300", "vgg16-ssd-300-train", "recommender", "dlrm")
+NOT_PORTED = ("recommender", "dlrm")
 PORTED = sorted(n for n in jmodels._ZOO if n not in NOT_PORTED)
 
 # the full-size input shapes of each name (its default constructor)
@@ -62,7 +62,9 @@ FULL = {"lenet": dict(data=(2, 1, 28, 28)), "mlp": dict(data=(2, 784)),
         "resnet-101": dict(data=(2, 3, 224, 224)), "resnet-152": dict(data=(2, 3, 224, 224)),
         "lstm": dict(data=(32, 32), softmax_label=(32, 32)),
         "transformer": dict(data=(2, 64), softmax_label=(2, 64)),
-        "transformer_mt": dict(data=(2, 64), dec_data=(2, 64), softmax_label=(2, 64))}
+        "transformer_mt": dict(data=(2, 64), dec_data=(2, 64), softmax_label=(2, 64)),
+        "vgg16-ssd-300": dict(data=(2, 3, 300, 300)),
+        "vgg16-ssd-300-train": dict(data=(2, 3, 300, 300), label=(2, 4, 5))}
 
 
 def _both(name, **kw):
@@ -93,7 +95,7 @@ def test_get_symbol_json_names_and_shapes_match_jax(name):
 
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_the_models_the_port_lacks_raise_naming_their_roadmap_item(name):
-    with pytest.raises(pt.MXNetError, match=r"ROADMAP.md §1.3"):
+    with pytest.raises(pt.MXNetError, match=r"ROADMAP.md §1.4"):
         pmodels.get_symbol(name)
 
 
