@@ -134,13 +134,29 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    inputs: equal but for the counted near-ties. The deploy graph at batch 8
    and 1 (latency, images/s, idle share, launches a request, detections an
    image). None of the port's ten kernels launches on the SSD path.
-14. A ``smoke`` line (the run's seconds from the import of the port), a
+14. KVStore: the recommender (``models/recommender.py`` at its defaults:
+   tables 65536 x 64 and 32768 x 64) at batch 512 through
+   ``Module.fit(kvstore='device')`` over ``[gpu(0), gpu(0)]``, one epoch of
+   SGD with momentum and one of Adam on a synthetic click task, its
+   embedding gradients through the sparse round and the lazy update: the
+   logistic loss falls, the tables' states are ``RowSparseState``, the
+   sparse counters tick, untouched rows keep their initial weights bit for
+   bit and hold no state, kernel 6 launches 4 times an executor a step;
+   three steps card vs CPU (rtol 1e-4, atol 1e-5); step time (CUDA events,
+   host clock), ``update()``'s host time, the idle share. Kernel 6 at the
+   four FC+relu shapes (256 and 512 rows; K = 193 its 4-byte route)
+   against its plain version, ``addmm`` + relu and its bound. The MNIST
+   ``mlp`` over one context at batch 40 and two at 20 + 20 agree; one NCCL
+   rank of ``dist_sync`` gives the bits of a ``local`` store, and its
+   process group is destroyed.
+15. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
-   SSD phase's ``ssd_launches``, 0), the card's name/power line, then the
-   last line ``{"ok": true, "device": {...}}``.
+   SSD phase's ``ssd_launches``, 0, and the KVStore phase's
+   ``recommender_launches``; row 6 with ``recommender_fc``), the card's
+   name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -4861,6 +4877,365 @@ def run_ssd(pt, smi):
     return fit_launches
 
 
+
+# Phase 14: the KVStore and the row-sparse round. The recommender at the
+# defaults of models/recommender.get_symbol (tables 65536 x 64 and 32768 x 64,
+# dense 16, bottom (128,), top (512, 256)) at the chip batch of 512 over two
+# contexts on the one card; kernel 6 at its four FC+relu sites' shapes, per
+# executor (256 rows) and on one context (512).
+KVSTORE = dict(batch=512, contexts=2, batches=8, lr_sgd=0.05, momentum=0.9, lr_adam=0.002,
+               check_steps=3, timed_steps=6, mlp_batch=40, mlp_steps=3, dist_steps=3,
+               seed=SEED + 71)
+REC_NAMES = ["dense", "item", "user"]  # NDArrayIter's order: a dict's sorted keys
+REC_FC = [("bot_fc0", 16, 128), ("bot_fc1", 128, 64), ("top_fc0", 193, 512),
+          ("top_fc1", 512, 256)]
+REC_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def click_data(n, seed):
+    """A synthetic click task from a numpy seed: ids over the full tables,
+    16 dense features, and a label that is a fixed function of (user, item,
+    dense), so the loss can fall."""
+    rs = np.random.RandomState(seed)
+    user = rs.randint(0, 65536, n)
+    item = rs.randint(0, 32768, n)
+    dense = rs.randn(n, 16).astype(np.float32)
+    v = np.random.RandomState(seed + 1).randn(16).astype(np.float32)
+    score = dense @ v + 0.5 * (user % 2 * 2 - 1) - 0.5 * (item % 3 == 0)
+    return {"user": user.astype(np.float32), "item": item.astype(np.float32),
+            "dense": dense, "label": (score > 0).astype(np.float32)}
+
+
+def rec_params(net, seed):
+    """Random weights from a numpy seed: the tables uniform in +-0.05, each
+    FullyConnected weight normal with variance 2 / fan-in, biases 0."""
+    rs = np.random.RandomState(seed)
+    B = KVSTORE["batch"]
+    arg_shapes, _, _ = net.infer_shape(user=(B,), item=(B,), dense=(B, 16), label=(B,))
+    out = {}
+    for name, shape in zip(net.list_arguments(), arg_shapes):
+        if name in REC_NAMES + ["label"]:
+            continue
+        if name.endswith("_embed_weight"):
+            out[name] = rs.uniform(-0.05, 0.05, shape).astype(np.float32)
+        elif name.endswith("_weight"):
+            out[name] = (rs.randn(*shape) * math.sqrt(2.0 / shape[1])).astype(np.float32)
+        else:
+            out[name] = np.zeros(shape, np.float32)
+    return out
+
+
+def rec_batches(pt, data, ctx):
+    """The data as DataBatches of 512 on ``ctx``."""
+    B = KVSTORE["batch"]
+    out = []
+    for i in range(len(data["label"]) // B):
+        sl = slice(i * B, (i + 1) * B)
+        out.append(pt.io.DataBatch(data=[pt.nd.array(data[n][sl], ctx=ctx) for n in REC_NAMES],
+                                   label=[pt.nd.array(data["label"][sl], ctx=ctx)], pad=0,
+                                   index=None))
+    return out
+
+
+def rec_module(pt, net, ctxs, params, kvstore, optimizer, opt_params):
+    B = KVSTORE["batch"]
+    mod = pt.mod.Module(net, data_names=REC_NAMES, label_names=["label"], context=ctxs)
+    mod.bind(data_shapes=[("dense", (B, 16)), ("item", (B,)), ("user", (B,))],
+             label_shapes=[("label", (B,))])
+    mod.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu()) for k, v in params.items()})
+    mod.init_optimizer(kvstore=kvstore, optimizer=optimizer, optimizer_params=opt_params)
+    return mod
+
+
+def logistic_loss(mod, batches):
+    """The mean logistic loss of ``mod``'s predictions over ``batches``."""
+    total = 0.0
+    for b in batches:
+        mod.forward(b, is_train=False)
+        p = np.clip(mod.get_outputs()[0].asnumpy().reshape(-1), 1e-7, 1 - 1e-7)
+        y = b.label[0].asnumpy()
+        total += float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+    return total / len(batches)
+
+
+def check_recommender_fc(randn, peaks, entries):
+    """Kernel 6 at the recommender's four FC+relu shapes, per executor (256
+    rows) and on one context (512): against its plain version, ``addmm`` +
+    relu and its bound, each timed between CUDA events. top_fc0's K = 193
+    takes the kernel's 4-byte-copy route (K % 4 != 0)."""
+    from mxnet_tpu_torch.ops import matmul_bias_act as mba
+
+    rows = []
+    for Mr in (KVSTORE["batch"] // KVSTORE["contexts"], KVSTORE["batch"]):
+        for site, K, N in REC_FC:
+            a, w, b = randn(Mr, K), randn(N, K, scale=1.0 / math.sqrt(K)), randn(N, scale=0.1)
+            c, pc = mba.matmul_bias_act(a, w, b, "relu"), mba.matmul_bias_act_plain(a, w, b,
+                                                                                  "relu")
+            torch.cuda.synchronize()
+            err = float((c - pc).abs().max())
+            check(math.isfinite(err) and err <= TOL["matmul_bias_act"],
+                  ("recommender fc", site, Mr, K, N, err))
+            ms = event_ms(lambda: mba.matmul_bias_act(a, w, b, "relu"), 30)
+            plain_ms = event_ms(lambda: mba.matmul_bias_act_plain(a, w, b, "relu"), 30)
+            lib_ms = event_ms(lambda: torch.relu(torch.addmm(b, a, w.t())), 30)
+            b_ms, b_by, f32_ms = product_bound(2.0 * Mr * N * K + 2.0 * Mr * N,
+                                               4.0 * (Mr * K + N * K + N + Mr * N), peaks)
+            rec = {"phase": "kernel", "name": "matmul_bias_act_recommender", "site": site,
+                   "shape": [Mr, K, N], "max_abs_err": err, "event_ms": ms,
+                   "plain_event_ms": plain_ms, "library_event_ms": lib_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "f32_bound_ms": f32_ms,
+                   "schedule": mba._schedule(Mr, N, K), "k_mod_4": K % 4}
+            log(rec)
+            rows.append(rec)
+    entries["matmul_bias_act"]["recommender_fc"] = [
+        {k: r[k] for k in ("site", "shape", "event_ms", "plain_event_ms", "library_event_ms",
+                           "bound_ms", "max_abs_err")} for r in rows]
+    return rows
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_kvstore(pt, smi, peaks, entries):
+    """Phase 14: the KVStore, the row-sparse round and several contexts.
+    The full-width recommender through ``Module.fit(kvstore='device')`` over
+    ``[gpu(0), gpu(0)]`` at batch 512 (one epoch of SGD with momentum, then
+    one of Adam), its embedding gradients through the sparse round and the
+    lazy update: the loss falls, the tables' states are ``RowSparseState``,
+    ``kvstore.sparse_rows_pushed`` ticks, untouched rows keep their initial
+    weights bit for bit and have no state, kernel 6 launches 4 times an
+    executor a step; three steps card vs CPU (rtol 1e-4, atol 1e-5); step
+    time, the device's idle share and ``update()``'s host time. The MNIST
+    ``mlp`` over one context at batch 40 and two at 20 + 20 agree. One NCCL
+    rank of ``dist_sync`` gives the bits of a ``local`` store. Returns the
+    recommender fit's launches."""
+    from mxnet_tpu_torch import models, ops, telemetry
+
+    check_tf32_off()
+    t_phase = time.perf_counter()
+    old_tm = os.environ.get("MXNET_TELEMETRY")
+    os.environ["MXNET_TELEMETRY"] = "counters"
+    out = {"phase": "kvstore", "nvidia_smi": smi}
+    dev = pt.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(KVSTORE["seed"])
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    out["fc_kernels"] = len(check_recommender_fc(randn, peaks, entries))
+
+    B, nb = KVSTORE["batch"], KVSTORE["batches"]
+    net = models.get_symbol("recommender")
+    params = rec_params(net, KVSTORE["seed"])
+    data = click_data(B * nb, KVSTORE["seed"] + 2)
+    card = [pt.gpu(0)] * KVSTORE["contexts"]
+    host = [pt.cpu(i) for i in range(KVSTORE["contexts"])]
+    batches = rec_batches(pt, data, pt.gpu(0))
+    sgd = (("learning_rate", KVSTORE["lr_sgd"]), ("momentum", KVSTORE["momentum"]))
+    adam = (("learning_rate", KVSTORE["lr_adam"]),)
+
+    # -- the main path: Module.fit through the store, two epochs
+    mod = rec_module(pt, net, card, params, "device", "sgd", sgd)
+    loss_first = logistic_loss(mod, batches[:1])
+    counters = ("kvstore.sparse_rows_pushed", "kvstore.push_calls", "embedding.rows_touched",
+                "embedding.host_syncs")
+    c0 = {k: telemetry.counter(k).value for k in counters}
+    with pt.gpu(0):
+        it = pt.io.NDArrayIter({n: data[n] for n in REC_NAMES}, {"label": data["label"]},
+                               batch_size=B)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore="device", optimizer="sgd", optimizer_params=sgd,
+            eval_metric="mse")
+    sgd_args, _ = mod.get_params()
+    mod2 = rec_module(pt, net, card, {k: v.asnumpy() for k, v in sgd_args.items()}, "device",
+                      "adam", adam)
+    it.reset()
+    mod2.fit(it, num_epoch=1, kvstore="device", optimizer="adam", optimizer_params=adam,
+             eval_metric="mse")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = 2 * nb
+    check(launches == with_zeros({"matmul_bias_act": 4 * KVSTORE["contexts"] * steps}),
+          ("recommender fit launches", launches))
+    loss_last = logistic_loss(mod2, batches)
+    check(math.isfinite(loss_last) and loss_last < loss_first,
+          ("recommender loss", loss_first, loss_last))
+    c1 = {k: telemetry.counter(k).value for k in counters}
+    check(c1["kvstore.sparse_rows_pushed"] > c0["kvstore.sparse_rows_pushed"],
+          "sparse_rows_pushed ticks")
+    final, _ = mod2.get_params()
+    untouched_rows = 0
+    for m in (mod, mod2):
+        kv = m._kvstore
+        check(kv is not None and kv.type == "device" and m._update_on_kvstore, "device store")
+        for idx, name in enumerate(m._param_names):
+            if not name.endswith("_embed_weight"):
+                continue
+            st = kv._updater.states[idx]
+            check(isinstance(st, pt.sparse.RowSparseState), (name, type(st).__name__))
+            ids = data["user" if name.startswith("user") else "item"].astype(np.int64)
+            untouched = np.setdiff1d(np.arange(params[name].shape[0]), ids)
+            check(not np.isin(st.indices, untouched).any(), (name, "state on untouched rows"))
+            w = final[name].asnumpy()
+            check(np.array_equal(w[untouched], params[name][untouched]),
+                  (name, "untouched rows changed"))
+            untouched_rows += untouched.size
+    out["fit"] = {"seconds": fit_s, "steps": steps, "batch": B, "contexts": len(card),
+                  "loss_first_batch": loss_first, "loss_after": loss_last,
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "counters": {k: c1[k] - c0[k] for k in counters},
+                  "untouched_rows_checked": untouched_rows,
+                  "state_rows": {mod2._param_names[i]: int(mod2._kvstore._updater.states[i].nnz)
+                                 for i in (0, 1)}}
+
+    # -- three steps, card vs CPU, from the same numpy weights and batches
+    def three_steps(ctxs, ctx):
+        m = rec_module(pt, net, ctxs, params, "device", "sgd", sgd)
+        for b in rec_batches(pt, {k: v[:B * KVSTORE["check_steps"]] for k, v in data.items()},
+                             ctx):
+            m.forward_backward(b)
+            m.update()
+        args, _ = m.get_params()
+        return {k: v.asnumpy() for k, v in args.items()}
+
+    got = three_steps(card, pt.gpu(0))
+    with pt.cpu():
+        want = three_steps(host, pt.cpu())
+    worst = 0.0
+    for k in want:
+        check(np.allclose(got[k], want[k], **REC_TOL), ("recommender card vs cpu", k))
+        worst = max(worst, float(np.abs(got[k] - want[k]).max()))
+    out["card_vs_cpu"] = {"steps": KVSTORE["check_steps"], "max_abs_diff": worst, **REC_TOL}
+
+    # -- step time, update()'s host time, idle share (the trained module)
+    step_ms, update_ms, host_ms = [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    syncs0 = telemetry.counter("embedding.host_syncs").value
+    for i in range(KVSTORE["timed_steps"]):
+        b = batches[i % nb]
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        start.record()
+        mod2.forward_backward(b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod2.update()
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t1) * 1e3)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t_step) * 1e3)
+        step_ms.append(start.elapsed_time(end))
+    syncs = (telemetry.counter("embedding.host_syncs").value - syncs0) / KVSTORE["timed_steps"]
+
+    def one_step():
+        mod2.forward_backward(batches[0])
+        mod2.update()
+
+    for _ in range(4):
+        prof = profile_window(one_step)
+        if prof["device_busy_ms"] > 0:
+            break
+        time.sleep(PROFILER_GAP_S)
+    check(prof["device_busy_ms"] > 0, "recommender step: the profiler shows no device time")
+    out["step"] = {"event_ms_p50": float(np.median(step_ms)), "event_ms": step_ms,
+                   "host_ms_p50": float(np.median(host_ms)),
+                   "update_host_ms_p50": float(np.median(update_ms)),
+                   "update_share_of_step": float(np.median(update_ms) / np.median(step_ms)),
+                   "from_dense_host_syncs_per_step": syncs,
+                   "samples_per_s": B * 1e3 / float(np.median(step_ms)),
+                   "wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+                   "device_idle_share": prof["device_idle_share"],
+                   "top_device_ms": prof["top_device_ms"]}
+    del mod, mod2
+
+    # -- several contexts: the MNIST mlp over [gpu(0)] at 40 and [gpu(0)] * 2
+    t0 = time.perf_counter()
+    mlp = models.get_symbol("mlp", num_classes=10)
+    Bm = KVSTORE["mlp_batch"]
+    rs = np.random.RandomState(KVSTORE["seed"] + 5)
+    x = rs.rand(Bm * KVSTORE["mlp_steps"], 784).astype(np.float32)
+    y = rs.randint(0, 10, Bm * KVSTORE["mlp_steps"]).astype(np.float32)
+    shapes, _, _ = mlp.infer_shape(data=(Bm, 784))
+    mlp_params = {n: (rs.randn(*s) * 0.05).astype(np.float32)
+                  for n, s in zip(mlp.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+    results, mlp_launches = [], []
+    for ctxs in ([pt.gpu(0)], [pt.gpu(0), pt.gpu(0)]):
+        m = pt.mod.Module(mlp, context=ctxs)
+        m.bind(data_shapes=[("data", (Bm, 784))], label_shapes=[("softmax_label", (Bm,))])
+        m.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu())
+                                  for k, v in mlp_params.items()})
+        m.init_optimizer(kvstore="device", optimizer="sgd",
+                         optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)))
+        if len(ctxs) == 2:
+            ptrs = {a._tensor().data_ptr() for a in m._exec_group.param_arrays[0]}
+            check(len(ptrs) == 2 and m._kvstore is not None, "two contexts, two tensors, a store")
+        ops.reset_launch_counts()
+        for i in range(KVSTORE["mlp_steps"]):
+            sl = slice(i * Bm, (i + 1) * Bm)
+            m.forward_backward(pt.io.DataBatch(data=[pt.nd.array(x[sl], ctx=pt.gpu(0))],
+                                               label=[pt.nd.array(y[sl], ctx=pt.gpu(0))],
+                                               pad=0, index=None))
+            m.update()
+        mlp_launches.append(ops.launch_counts()["matmul_bias_act"])
+        args, _ = m.get_params()
+        results.append({k: v.asnumpy() for k, v in args.items()})
+    mlp_worst = 0.0
+    for k in results[0]:
+        check(np.allclose(results[1][k], results[0][k], **REC_TOL), ("mlp contexts", k))
+        mlp_worst = max(mlp_worst, float(np.abs(results[1][k] - results[0][k]).max()))
+    check(mlp_launches == [2 * KVSTORE["mlp_steps"], 4 * KVSTORE["mlp_steps"]],
+          ("mlp launches", mlp_launches))
+    out["multi_context"] = {"max_abs_diff": mlp_worst, "launches": mlp_launches,
+                            "seconds": time.perf_counter() - t0, **REC_TOL}
+
+    # -- dist_sync on one NCCL rank: the bits of a local store
+    t0 = time.perf_counter()
+    env = {"MXNET_TPU_COORDINATOR": "127.0.0.1:%d" % free_port(),
+           "MXNET_TPU_NUM_WORKERS": "1", "MXNET_TPU_WORKER_ID": "0"}
+    os.environ.update(env)
+    try:
+        dist_args = []
+        for kv in ("dist_sync", pt.kv.create("local")):
+            m = rec_module(pt, net, [pt.gpu(0)], params, kv, "sgd", sgd)
+            for b in batches[:KVSTORE["dist_steps"]]:
+                m.forward_backward(b)
+                m.update()
+            args, _ = m.get_params()
+            dist_args.append({k: v.asnumpy() for k, v in args.items()})
+            if kv == "dist_sync":
+                check(m._kvstore.type == "dist_sync" and m._kvstore.num_workers == 1
+                      and pt.dist.is_initialized() and pt.dist.backend() == "nccl",
+                      "one NCCL rank")
+        for k in dist_args[1]:
+            check(np.array_equal(dist_args[0][k], dist_args[1][k]), ("dist_sync vs local", k))
+    finally:
+        pt.dist.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    check(not pt.dist.is_initialized(), "process group destroyed")
+    out["dist_sync"] = {"backend": "nccl", "world": 1, "steps": KVSTORE["dist_steps"],
+                        "bitwise_equal_to_local": True, "seconds": time.perf_counter() - t0}
+
+    if old_tm is None:
+        os.environ.pop("MXNET_TELEMETRY", None)
+    else:
+        os.environ["MXNET_TELEMETRY"] = old_tm
+    check_tf32_off()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -4903,6 +5278,7 @@ def main():
     mt_launches = run_mt(pt, smi)
     run_lstm(pt, smi)
     ssd_launches = run_ssd(pt, smi)
+    kvstore_launches = run_kvstore(pt, smi, peaks, entries)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -4938,6 +5314,8 @@ def main():
             e.update(mt_launches=mt_launches[name_])
         # the SSD phase's Module.fit: none of the kernels runs there
         e.update(ssd_launches=ssd_launches[name_])
+        # the KVStore phase's recommender Module.fit: kernel 6 only
+        e.update(recommender_launches=kvstore_launches[name_])
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

@@ -34,6 +34,8 @@ from . import model, predictor, random, rtc  # noqa: E402,F401
 from . import io, initializer, lr_scheduler, metric, callback, monitor  # noqa: E402,F401
 from . import initializer as init  # noqa: E402,F401
 from . import checkpoint, kvstore_helper, device_info  # noqa: E402,F401
+from . import kvstore, dist, sparse  # noqa: E402,F401
+from . import kvstore as kv  # noqa: E402,F401
 from . import module  # noqa: E402,F401
 from . import module as mod  # noqa: E402,F401
 from . import rnn  # noqa: E402,F401
@@ -45,6 +47,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "sym
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
            "random", "rtc", "telemetry", "faultinject", "io", "initializer", "init",
            "lr_scheduler", "metric", "callback", "monitor", "checkpoint", "kvstore_helper",
+           "kvstore", "kv", "dist", "sparse",
            "device_info", "module", "mod", "rnn", "operator", "autograd", "test_utils",
            "params_from_numpy", "params_from_checkpoint",
            "updater_states_from_numpy"]

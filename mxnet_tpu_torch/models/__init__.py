@@ -2,21 +2,10 @@
 configs, each the JAX package's (``mxnet_tpu/models/``) node for node.
 
 ``get_symbol(name, **kwargs)`` and ``_ZOO`` have the JAX package's names and
-aliases (``mxnet_tpu/models/__init__.py:15-49``). The recommender's names
-need ``sparse/`` and the sparse KVStore, which the port does not have yet:
-they raise, naming their ROADMAP item.
+aliases (``mxnet_tpu/models/__init__.py:15-49``).
 """
-from ..base import MXNetError
 from . import (lenet, mlp, alexnet, vgg, resnet, inception_bn, inception_v3,  # noqa: F401
-               lstm, transformer, vgg16_ssd)
-
-
-def _not_ported(name, what):
-    def build(**kwargs):
-        raise MXNetError("model %r needs %s, which the port does not have yet "
-                         "(ROADMAP.md §1.4)" % (name, what))
-
-    return build
+               lstm, transformer, vgg16_ssd, recommender)
 
 
 _ZOO = {
@@ -41,10 +30,8 @@ _ZOO = {
     "transformer_mt": transformer.get_symbol_mt,
     "vgg16-ssd-300": vgg16_ssd.get_symbol,
     "vgg16-ssd-300-train": vgg16_ssd.get_symbol_train,
-    "recommender": _not_ported("recommender", "models/recommender.py and sparse/ "
-                               "(SparseEmbedding) and the sparse KVStore"),
-    "dlrm": _not_ported("dlrm", "models/recommender.py and sparse/ "
-                        "(SparseEmbedding) and the sparse KVStore"),
+    "recommender": recommender.get_symbol,
+    "dlrm": recommender.get_symbol,
 }
 
 

@@ -2,9 +2,9 @@
 
 Counterpart of ``mxnet_tpu/module/`` (reference: python/mxnet/module/:
 BaseModule base_module.py:79, Module module.py:22, BucketingModule,
-SequentialModule, PythonModule, PythonLossModule) on one device.
-``ElasticFit`` and ``PipelineExecutorGroup`` come with data parallelism
-(``ROADMAP.md`` section 1.4).
+SequentialModule, PythonModule, PythonLossModule) on one context or
+several, with or without a KVStore. ``ElasticFit`` comes with the next item
+of data parallelism (``ROADMAP.md`` section 1.4b).
 """
 from .base_module import BaseModule, BatchEndParam
 from .module import Module

@@ -9,7 +9,8 @@ the ``io.input_bound_pct`` gauge (the share of an epoch's wall time spent
 waiting on the iterator). Under it each batch is the bound executor's
 forward and backward, whose fused sites launch the port's CUDA kernels.
 Elastic training (``fit(elastic=)``, JAX ``module/elastic.py``) comes with
-data parallelism and raises until then (``ROADMAP.md`` section 1.4).
+the next item of data parallelism and raises until then (``ROADMAP.md``
+section 1.4b).
 """
 from __future__ import annotations
 
@@ -211,14 +212,14 @@ class BaseModule:
     ):
         """Train over a data iterator (reference: base_module.py:368).
 
-        ``elastic`` (fault-tolerant training over a dist job) needs the
-        collectives of ``ROADMAP.md`` section 1.4; any value but None or
-        False raises."""
+        ``elastic`` (fault-tolerant training over a dist job) comes with
+        ``module/elastic.py`` (``ROADMAP.md`` section 1.4b); any value but
+        None or False raises."""
         assert num_epoch is not None, "please specify number of epochs"
         if elastic is not None and elastic is not False:
             raise MXNetError(
-                "fit(elastic=...): elastic training (module/elastic.py) comes with data "
-                "parallelism, which the port has not yet (ROADMAP.md section 1.4)")
+                "fit(elastic=...): elastic training comes with module/elastic.py, which "
+                "the port has not yet (ROADMAP.md section 1.4b)")
         from ..initializer import Uniform
 
         if initializer is None:

@@ -1,16 +1,20 @@
-"""DataParallelExecutorGroup: the Module's bound executor.
+"""DataParallelExecutorGroup: the Module's executors, one per context.
 
 Counterpart of ``mxnet_tpu/module/executor_group.py`` (:25-286; reference:
 python/mxnet/module/executor_group.py:77, decide_slices :207, bind_exec
-:270, forward :355, backward :481, update_metric :511). The port binds on
-one device: the group holds one executor, made by ``simple_bind`` (or, for
-a bucket, by ``bind`` over the default bucket's parameter, gradient and
-aux arrays). The per-device lists of ``param_arrays``, ``grad_arrays`` and
-``aux_arrays`` keep the reference's layout, so data parallelism
-(``ROADMAP.md`` section 1.4) adds only the store. ``load_data_label``
-copies each batch into the bound input arrays in place (``copy_``), with
-no rebinding; the executor's forward and backward run the fused sites'
-CUDA kernels. ``PipelineExecutorGroup`` (JAX :295) comes with section 1.4.
+:270, forward :355, backward :481, update_metric :511). The batch splits by
+``workload`` into one slice per context; each context gets its own
+executor, made by ``simple_bind`` (or, for a bucket, by ``bind`` over the
+default bucket's arrays on that context), so each holds its own parameter,
+gradient and aux tensors even where two contexts name one device (every
+``cpu(i)`` is the one CPU, and ``[gpu(0), gpu(0)]`` is one card twice).
+``param_arrays``, ``grad_arrays`` and ``aux_arrays`` are per-context lists
+in the reference's layout; the gradients are summed across contexts by the
+store (``kvstore_helper``). ``load_data_label`` copies each context's rows
+of the batch into its bound input arrays in place, with no rebinding; the
+executors' forward and backward run the fused sites' CUDA kernels.
+``PipelineExecutorGroup`` (JAX :295) comes with ``parallel/autoplan.py``
+(``ROADMAP.md`` section 1.4b) and raises.
 """
 from __future__ import annotations
 
@@ -22,10 +26,7 @@ from ..executor import bind, simple_bind
 from .. import ndarray as nd
 from ..ndarray import zeros
 
-__all__ = ["DataParallelExecutorGroup"]
-
-_ONE_DEVICE = ("the port binds a module on one device; data parallelism over several "
-               "comes with kvstore.py (ROADMAP.md section 1.4)")
+__all__ = ["DataParallelExecutorGroup", "PipelineExecutorGroup"]
 
 
 # copied from mxnet_tpu/module/executor_group.py (backend-free)
@@ -53,8 +54,6 @@ class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts: List[Context], workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad, shared_group=None, logger=None,
                  fixed_param_names=None, grad_req="write"):
-        if len(contexts) != 1:
-            raise MXNetError("DataParallelExecutorGroup over %s: %s" % (contexts, _ONE_DEVICE))
         self.symbol = symbol
         self.contexts = contexts
         self.workload = workload or [1] * len(contexts)
@@ -87,6 +86,10 @@ class DataParallelExecutorGroup:
             else:  # labels
                 self.grad_req[name] = "null"
 
+        # per-param comm priority for the dist KVStore's bucketed push/pull,
+        # from the symbol's topological order (JAX :103)
+        self.param_priorities = self._topo_priorities(symbol)
+
         self.execs = []
         self._bind_execs(shared_group)
 
@@ -98,6 +101,18 @@ class DataParallelExecutorGroup:
         self.label_arrays = [[e.arg_dict[name] for e in self.execs] for name in self.label_names]
         self.input_grad_arrays = ([[e.grad_dict[name] for e in self.execs]
                                    for name in self.data_names] if inputs_need_grad else [])
+
+    # copied from mxnet_tpu/module/executor_group.py (backend-free)
+    def _topo_priorities(self, symbol):
+        """{param index: priority} from the symbol DAG's topological order."""
+        try:
+            topo_vars = [n.name for n in symbol._topo() if n.is_variable]
+        except Exception:  # foreign symbol object: argument order
+            topo_vars = []
+        pos = {n: i for i, n in enumerate(topo_vars)}
+        ranked = sorted(range(len(self.param_names)),
+                        key=lambda i: pos.get(self.param_names[i], i))
+        return {idx: -rank for rank, idx in enumerate(ranked)}
 
     def _bind_execs(self, shared_group):
         name2shape = {}
@@ -142,9 +157,9 @@ class DataParallelExecutorGroup:
 
     # -------------------------------------------------------------- dataflow
     def _load_slices(self, arrays_per_name, batch_arrays):
-        """Copy each batch array into its bound array in place: ``copy_``,
-        across devices where the batch lies elsewhere (reference:
-        executor_group.py _load_data/_load_general)."""
+        """Copy each context's rows of each batch array into its bound array
+        in place: ``copy_``, across devices where the batch lies elsewhere
+        (reference: executor_group.py _load_data/_load_general)."""
         if batch_arrays is None or len(batch_arrays) == 0:
             # label-less predict batch: nothing to load
             return
@@ -153,8 +168,11 @@ class DataParallelExecutorGroup:
                 "batch supplies %d arrays but %d are bound — an iterator is "
                 "under-feeding the module's inputs" % (len(batch_arrays), len(arrays_per_name)))
         for src, dev_arrays in zip(batch_arrays, arrays_per_name):
-            for dst in dev_arrays:
-                dst[:] = src
+            if len(dev_arrays) == 1:
+                dev_arrays[0][:] = src
+                continue
+            for dst, slc in zip(dev_arrays, self.slices):
+                dst[:] = src[slc.start:slc.stop]
 
     def load_data_label(self, data_batch):
         self._load_slices(self.data_arrays, data_batch.data)
@@ -172,11 +190,15 @@ class DataParallelExecutorGroup:
     def backward(self, out_grads=None):
         """(reference: executor_group.py:481)"""
         assert self.for_training, "re-bind with for_training=True to run backward"
-        for ex in self.execs:
-            ex.backward(out_grads)
+        for i, ex in enumerate(self.execs):
+            if out_grads is None or len(self.execs) == 1:
+                ex.backward(out_grads)
+            else:
+                slc = self.slices[i]
+                ex.backward([g[slc.start:slc.stop] for g in out_grads])
 
     def forward_backward(self, data_batch):
-        """One training step's forward and backward on the bound executor."""
+        """One training step's forward and backward on every executor."""
         self.load_data_label(data_batch)
         for ex in self.execs:
             ex.forward_backward()
@@ -214,3 +236,15 @@ class DataParallelExecutorGroup:
     def install_monitor(self, mon):
         for ex in self.execs:
             mon.install(ex)
+
+
+class PipelineExecutorGroup:
+    """GPipe-style pipeline execution of one Symbol (JAX :295): comes with
+    ``parallel/autoplan.py``, which the port has not yet."""
+
+    def __init__(self, symbol, context, data_shapes, label_shapes=None, num_stages=2,
+                 microbatches=None, cut_entries=None, type_dict=None, for_training=True,
+                 logger=None):
+        raise MXNetError("PipelineExecutorGroup: pipeline parallelism comes with "
+                         "parallel/autoplan.py, which the port has not yet (ROADMAP.md "
+                         "section 1.4b)")

@@ -1,15 +1,19 @@
 """Module: symbol-backed training module.
 
 Counterpart of ``mxnet_tpu/module/module.py`` (reference:
-python/mxnet/module/module.py:22) on one context. The JAX package makes its
-fused SPMD step only over several devices, a ``dist`` store or
-``MXNET_MODULE_FUSED_STEP=1`` (``spmd_adapter.py:318-325``); on one device
-it runs the legacy path (``module.py:408-495``), and so does the port:
-``forward_backward`` runs the bound executor's forward and backward (the
-fused sites launch the port's CUDA kernels), and ``update`` runs the
-updater once per parameter on the bound arrays, in place. Several
-contexts, a store and ``MXNET_MODULE_FUSED_STEP=1`` need data parallelism
-(``ROADMAP.md`` section 1.4) and raise. The default context is
+python/mxnet/module/module.py:22) on its per-device path
+(``module.py:408-495``, the JAX package's ``fused_step=False``): binding
+makes a ``DataParallelExecutorGroup`` with one executor per context;
+``forward_backward`` runs each executor's forward and backward (the fused
+sites launch the port's CUDA kernels), and ``update`` either pushes the
+gradients through the store, which sums them across contexts and workers
+and runs the optimizer (``update_on_kvstore``), or reduces them through
+the store and runs the updater on each context's arrays in place. A
+parameter whose producer declares a row-sparse gradient
+(``SparseEmbedding``, ``Embedding(sparse_grad=True)``) takes the store's
+sparse round and lazy update. The one-graph fused step
+(``MXNET_MODULE_FUSED_STEP=1``, JAX ``spmd_adapter.py``) comes with the next
+item of ``ROADMAP.md`` section 1.4 and raises. The default context is
 ``current_context()``, the card.
 """
 from __future__ import annotations
@@ -30,7 +34,8 @@ from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
 
-_DATA_PARALLEL = "data parallelism, which the port has not yet (ROADMAP.md section 1.4)"
+_FUSED_STEP = ("the one-graph fused training step (module/spmd_adapter.py), which the "
+               "port has not yet (ROADMAP.md section 1.4b)")
 
 
 class Module(BaseModule):
@@ -45,10 +50,7 @@ class Module(BaseModule):
             context = current_context()
         if isinstance(context, Context):
             context = [context]
-        if len(context) != 1:
-            raise MXNetError("Module over %d contexts %s needs %s"
-                             % (len(context), list(context), _DATA_PARALLEL))
-        self._context = context
+        self._context = list(context)
         self._work_load_list = work_load_list
 
         self._symbol = symbol
@@ -238,20 +240,25 @@ class Module(BaseModule):
             self.logger.warning("optimizer already initialized, ignoring...")
             return
         if os.environ.get("MXNET_MODULE_FUSED_STEP", "") == "1" and self._fused_step_ok:
-            raise MXNetError("MXNET_MODULE_FUSED_STEP=1: the fused training step "
-                             "(module/spmd_adapter.py) comes with " + _DATA_PARALLEL)
+            raise MXNetError("MXNET_MODULE_FUSED_STEP=1: " + _FUSED_STEP)
 
         from ..kvstore_helper import create_kvstore
 
         kvstore_obj, update_on_kvstore = create_kvstore(kvstore, len(self._context),
                                                         self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        batch_size = self._exec_group.batch_size
+        if kvstore_obj and "dist" in kvstore_obj.type and "_sync" in kvstore_obj.type:
+            batch_size *= kvstore_obj.num_workers
+        rescale_grad = 1.0 / batch_size
 
         if isinstance(optimizer, str):
             idx2name = {}
-            for k in range(len(self._context)):
-                idx2name.update({i * len(self._context) + k: n
-                                 for i, n in enumerate(self._param_names)})
+            if update_on_kvstore:
+                idx2name.update(enumerate(self._param_names))
+            else:
+                for k in range(len(self._context)):
+                    idx2name.update({i * len(self._context) + k: n
+                                     for i, n in enumerate(self._param_names)})
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
                 optimizer_params["rescale_grad"] = rescale_grad
@@ -263,7 +270,18 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._kvstore = kvstore_obj
         self._update_on_kvstore = update_on_kvstore
-        self._updater = opt.get_updater(optimizer)
+        self._updater = None
+        if kvstore_obj:
+            # the initialized params go into the store; updates flow through it
+            from ..kvstore_helper import initialize_kvstore
+
+            initialize_kvstore(kvstore=kvstore_obj, param_arrays=self._exec_group.param_arrays,
+                               arg_params=self._arg_params, param_names=self._param_names,
+                               update_on_kvstore=update_on_kvstore)
+        if update_on_kvstore:
+            kvstore_obj.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
 
         if self._preload_opt_states is not None:
@@ -314,6 +332,14 @@ class Module(BaseModule):
         """(reference: module.py update → model.py _update_params)"""
         assert self.binded and self.params_initialized and self.optimizer_initialized
         guard = anomaly_guard_mode()
+        if guard is not None and self._kvstore is not None and "dist" in self._kvstore.type:
+            # a rank-LOCAL skip would desynchronize the gradient collective
+            if not getattr(self, "_warned_guard_dist", False):
+                self._warned_guard_dist = True
+                self.logger.warning(
+                    "MXNET_ANOMALY_GUARD is ignored with a dist kvstore: a rank-local "
+                    "skip would desync the collective.")
+            guard = None
         if guard is not None:
             bad = self._first_nonfinite_grad()
             if bad is not None:
@@ -338,11 +364,33 @@ class Module(BaseModule):
                     "so far)", bad, self._skipped_steps)
                 return
         self._params_dirty = True
-        from ..kvstore_helper import update_params
+        if self._update_on_kvstore:
+            from ..kvstore_helper import update_params_on_kvstore
 
-        update_params(self._exec_group.param_arrays, self._exec_group.grad_arrays,
-                      updater=self._updater, num_device=len(self._context),
-                      kvstore=self._kvstore)
+            update_params_on_kvstore(self._exec_group.param_arrays,
+                                     self._exec_group.grad_arrays, self._kvstore,
+                                     priorities=self._exec_group.param_priorities,
+                                     sparse_indices=self._sparse_grad_indices())
+        else:
+            from ..kvstore_helper import update_params
+
+            update_params(self._exec_group.param_arrays, self._exec_group.grad_arrays,
+                          updater=self._updater, num_device=len(self._context),
+                          kvstore=self._kvstore,
+                          priorities=self._exec_group.param_priorities)
+
+    def _sparse_grad_indices(self):
+        """Indices of the params whose producer declared a row-sparse
+        gradient (``sparse.sparse_param_names``), resolved once (JAX
+        :455-495)."""
+        sparse_idx = getattr(self, "_sparse_grad_idx", None)
+        if sparse_idx is None:
+            from ..sparse import sparse_param_names
+
+            names = set(sparse_param_names(self._symbol))
+            sparse_idx = frozenset(i for i, n in enumerate(self._param_names) if n in names)
+            self._sparse_grad_idx = sparse_idx
+        return sparse_idx
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -362,28 +410,40 @@ class Module(BaseModule):
     # ----------------------------------------------------------- persistence
     def save_optimizer_states(self, fname):
         """The updater's states as one pickle, written atomically (temp +
-        ``os.replace``)."""
+        ``os.replace``); through the store's when the store runs the
+        optimizer."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         from ..checkpoint import atomic_write_bytes
 
         atomic_write_bytes(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
-        """Inverse of ``save_optimizer_states``; the states go onto the
-        module's context whatever context they were saved from. A torn or
-        corrupt file raises a structured ``MXNetError`` naming ``fname``."""
+        """Inverse of ``save_optimizer_states``; a file the JAX package wrote
+        loads too (``convert.load_states``). The states of key
+        ``index * num_device + k`` go onto context k, whatever context they
+        were saved from. A torn or corrupt file raises a structured
+        ``MXNetError`` naming ``fname``."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
+        from ..convert import load_states, states_on_context
+
         with open(fname, "rb") as f:
-            states = f.read()
+            blob = f.read()
         try:
-            self._updater.set_states(states)
+            states = load_states(blob)
         except Exception as e:
             raise MXNetError(
                 "optimizer-state file %r is torn or not a state pickle "
                 "(%s: %s) — likely a crash mid-save; delete it and resume "
                 "from the previous checkpoint" % (fname, type(e).__name__, e)) from e
-        ctx = self._context[0]
-        self._updater.states = {k: _on_context(v, ctx) for k, v in self._updater.states.items()}
+        n = len(self._context)
+        self._updater.states = {k: states_on_context(v, self._context[k % n])
+                                for k, v in states.items()}
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """(reference: module.py save_checkpoint)"""
@@ -413,9 +473,3 @@ class Module(BaseModule):
             mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
-
-def _on_context(state, ctx):
-    """An updater state (an NDArray, None, or a tuple of them) on ``ctx``."""
-    if isinstance(state, (tuple, list)):
-        return type(state)(_on_context(s, ctx) for s in state)
-    return state.as_in_context(ctx) if state is not None else None

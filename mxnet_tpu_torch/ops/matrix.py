@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ops/matrix.py``: ``dot``, ``transpose``,
 ``Reshape`` with MXNet's shape codes, ``Flatten``, ``slice_axis``,
-``SwapAxis``, ``expand_dims``, ``Concat``, ``Embedding``, ``one_hot``, the
+``SwapAxis``, ``expand_dims``, ``Concat``, ``Embedding``, ``SparseEmbedding``,
+``one_hot``, the
 ops the ``rnn/`` cells build with (``SliceChannel``, ``where``,
 ``zeros_like``, ``ones_like``), the init ops the imperative NDArray
 creates arrays with (``_zeros``, ``_ones``, ``_full``, ``_arange``), and the
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
 from .registry import AttrSpec, register
@@ -142,6 +144,19 @@ def _embedding(attrs, data, weight):
     (indexing's backward); the ids get none, and the executor writes zeros
     for them as the JAX package does for its float ids."""
     return weight[data.long()]
+
+
+@register("SparseEmbedding", attrs={"input_dim": AttrSpec("int", required=True),
+                                    "output_dim": AttrSpec("int", required=True),
+                                    "dtype": AttrSpec("dtype", default=np.float32)},
+          input_names=("data", "weight"), aliases=("row_sparse_embedding",))
+def _sparse_embedding(attrs, data, weight):
+    """Embedding whose weight gradient is row-sparse by contract (JAX
+    ``ops/matrix.py:245``): the same gather, by ``F.embedding``, whose
+    backward sums each row's gradients in a sorted order (the same bits on
+    every run, unlike a scatter-add by atomics). The KVStore glue routes
+    the weight through the sparse round (``sparse.sparse_param_names``)."""
+    return F.embedding(data.long(), weight)
 
 
 def _n_args_names(attrs):

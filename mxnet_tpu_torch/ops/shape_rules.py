@@ -97,6 +97,7 @@ def _lrelu(attrs, shapes):
 
 
 @rule("Embedding")
+@rule("SparseEmbedding")
 def _embedding(attrs, shapes):
     if shapes[1] is None:
         shapes[1] = (attrs["input_dim"], attrs["output_dim"])

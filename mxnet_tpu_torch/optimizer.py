@@ -14,32 +14,79 @@ SGD, Adam and RMSProp run one op of ``ops/optimizer_ops.py`` through
 ``ndarray.imperative_invoke``, which writes the new weight and state into
 their arrays in place; the others are NDArray arithmetic, as in the JAX
 package. SGLD's noise is drawn on the weight's device from that device's
-generator (``random.py``), so it is not JAX's bits. The flat multi-tensor
-update (``flat_update_spec``, ``flat_kernel``) serves the fused data-parallel
-step and comes with it (``ROADMAP.md`` section 1.4); the row-sparse lazy
-update comes with ``sparse/`` (section 1.4). Each raises until then.
+generator (``random.py``), so it is not JAX's bits.
+
+The FLAT kernels (``FLAT_KERNELS``, ``flat_kernel``; JAX :64-110) are the
+same expressions as the fused ops, on flat tensors with ``lr``/``wd`` as
+scalars or per-element vectors. Two consumers share them: the KVStore
+bucket engine's sharded update (``kvstore_bucket.py``) and the row-sparse
+LAZY update (``update_row_sparse``): only the rows a row-sparse gradient
+names pass through the kernel; every other row keeps its weight and its
+optimizer state bit for bit (a ``sparse.RowSparseState`` holds no row it
+never updated), and the per-key update count still ticks once a round.
 """
 from __future__ import annotations
 
+import logging
 import math
 import pickle
 
+import torch
+
 from . import ndarray as nd
-from .base import MXNetError
-from .ndarray import NDArray, imperative_invoke, zeros
+from .ndarray import imperative_invoke, zeros
 
 __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad", "RMSProp",
-           "AdaDelta", "Test", "create", "register", "get_updater", "Updater", "flat_kernel"]
+           "AdaDelta", "Test", "create", "register", "get_updater", "Updater", "flat_kernel",
+           "FLAT_KERNELS"]
 
-_FLAT = ("the flat multi-tensor update serves the fused data-parallel step, which the "
-         "port has not yet (ROADMAP.md section 1.4)")
-_ROW_SPARSE = ("row-sparse gradients and their lazy update come with sparse/, which the "
-               "port has not yet (ROADMAP.md section 1.4)")
+
+# ------------------------------------------------------------------ flat
+# Each mirrors the fused op of ops/optimizer_ops.py expression for
+# expression. ``lr``/``wd`` arrive as Python floats or per-element tensors;
+# ``hyper`` holds constants.
+
+def _flat_sgd(hyper):
+    rg, clip = hyper["rescale_grad"], hyper["clip_gradient"]
+    mu = hyper["momentum"]
+
+    def fn(w, g, states, lr, wd):
+        g = g * rg
+        if clip and clip > 0:
+            g = torch.clamp(g, -clip, clip)
+        if mu:
+            (mom,) = states
+            new_mom = mu * mom - lr * (g + wd * w)
+            return w + new_mom, (new_mom,)
+        return w - lr * (g + wd * w), ()
+
+    return fn
+
+
+def _flat_adam(hyper):
+    rg, clip = hyper["rescale_grad"], hyper["clip_gradient"]
+    b1, b2, eps = hyper["beta1"], hyper["beta2"], hyper["epsilon"]
+
+    def fn(w, g, states, lr, wd):
+        g = g * rg
+        if clip and clip > 0:
+            g = torch.clamp(g, -clip, clip)
+        g = g + wd * w
+        mean, var = states
+        new_mean = b1 * mean + (1 - b1) * g
+        new_var = b2 * var + (1 - b2) * torch.square(g)
+        w = w - lr * new_mean / (torch.sqrt(new_var) + eps)
+        return w, (new_mean, new_var)
+
+    return fn
+
+
+FLAT_KERNELS = {"sgd": _flat_sgd, "adam": _flat_adam}
 
 
 def flat_kernel(kind, hyper):
-    """The flat kernel of a ``flat_update_spec`` family: not in the port yet."""
-    raise MXNetError("flat_kernel(%r): %s" % (kind, _FLAT))
+    """The flat kernel of a ``flat_update_spec`` family."""
+    return FLAT_KERNELS[kind](hyper)
 
 
 class Optimizer:
@@ -89,13 +136,59 @@ class Optimizer:
         raise NotImplementedError()
 
     def flat_update_spec(self):
-        raise MXNetError("%s.flat_update_spec: %s" % (type(self).__name__, _FLAT))
+        """``(kind, hyper, n_states)`` of the flat kernel whose math equals
+        this optimizer's fused op, or ``None`` where there is none (JAX
+        :182). The bucket engine's sharded update and the row-sparse lazy
+        update both run it."""
+        return None
 
     def create_state_row_sparse(self, index, weight):
-        raise MXNetError("%s: %s" % (type(self).__name__, _ROW_SPARSE))
+        """State for a row-sparse-gradient parameter: a lazily grown
+        ``sparse.RowSparseState`` with one row slot per flat-kernel state.
+        Optimizers without a flat lowering take the dense state (their
+        row-sparse updates densify, with a one-time warning)."""
+        spec = self.flat_update_spec()
+        if spec is None:
+            if not getattr(self, "_warned_no_lazy", False):
+                self._warned_no_lazy = True
+                logging.getLogger("mxnet_tpu_torch.sparse").warning(
+                    "optimizer %s has no flat_update_spec(): row-sparse "
+                    "gradients densify and the update is NOT lazy (untouched "
+                    "rows see a zero-gradient step)", type(self).__name__)
+            return self.create_state(index, weight)
+        from .sparse import RowSparseState
+
+        return RowSparseState(weight.shape, weight.dtype, spec[2])
 
     def update_row_sparse(self, index, weight, grad, state):
-        raise MXNetError("%s: %s" % (type(self).__name__, _ROW_SPARSE))
+        """Lazy row update (JAX :216): the flat kernel runs on exactly
+        ``grad``'s rows of ``weight`` and ``state``; every other row, weight
+        AND optimizer state, is untouched. The per-key update count ticks
+        once a call, so lr schedules equal the dense path's."""
+        from .sparse import RowSparseNDArray, RowSparseState
+
+        assert isinstance(grad, RowSparseNDArray), type(grad)
+        spec = self.flat_update_spec()
+        if spec is None or not isinstance(state, RowSparseState):
+            # no flat lowering (or a dense state): densify
+            self.update(index, weight, grad.to_dense(), state)
+            return
+        kind, hyper, _ = spec
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if kind == "adam":
+            t = self._index_update_count[index]
+            lr *= math.sqrt(1.0 - hyper["beta2"] ** t) / (1.0 - hyper["beta1"] ** t)
+        rows = grad.host_indices()
+        if not rows.size:
+            return
+        w = weight._tensor()
+        pos = torch.from_numpy(rows).to(w.device)
+        g_rows = grad.values._tensor().to(device=w.device, dtype=w.dtype)
+        s_rows = tuple(torch.from_numpy(s).to(w.device) for s in state.gather(rows))
+        w_new, s_new = FLAT_KERNELS[kind](hyper)(w[pos], g_rows, s_rows, lr, wd)
+        w[pos] = w_new
+        state.scatter(rows, [s.cpu().numpy() for s in s_new])
 
     # ----------------------------------------------------------------- mults
     def _sym_mults(self, key):
@@ -190,10 +283,19 @@ class SGD(Optimizer):
         else:
             imperative_invoke("sgd_update", [weight, grad], attrs, out=[weight])
 
+    def flat_update_spec(self):
+        """Flat lowering of sgd_update / sgd_mom_update."""
+        return ("sgd", {"momentum": self.momentum, "rescale_grad": self.rescale_grad,
+                        "clip_gradient": self.clip_gradient or 0.0},
+                1 if self.momentum != 0.0 else 0)
+
 
 @register
 class NAG(SGD):
     """Nesterov accelerated SGD (JAX :380)."""
+
+    def flat_update_spec(self):
+        return None  # Nesterov math differs from the flat sgd kernel
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
@@ -281,6 +383,13 @@ class Adam(Optimizer):
         attrs.update(beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon)
         imperative_invoke("adam_update", [weight, grad, mean, var], attrs,
                           out=[weight, mean, var])
+
+    def flat_update_spec(self):
+        """Flat lowering of adam_update; the bias-corrected lr is folded on
+        the host, as ``update`` does."""
+        return ("adam", {"beta1": self.beta1, "beta2": self.beta2, "epsilon": self.epsilon,
+                         "rescale_grad": self.rescale_grad,
+                         "clip_gradient": self.clip_gradient or 0.0}, 2)
 
 
 @register
@@ -381,9 +490,19 @@ class Updater:
         self.states = {}
 
     def __call__(self, index, grad, weight):
-        if not isinstance(grad, NDArray):
-            raise MXNetError("Updater: a %s gradient for key %r: %s"
-                             % (type(grad).__name__, index, _ROW_SPARSE))
+        from .sparse import RowSparseNDArray, RowSparseState, from_dense
+
+        if isinstance(grad, RowSparseNDArray):
+            if index not in self.states:
+                self.states[index] = self.optimizer.create_state_row_sparse(index, weight)
+            self.optimizer.update_row_sparse(index, weight, grad, self.states[index])
+            return
+        if isinstance(self.states.get(index), RowSparseState):
+            # a key that trained row-sparse now sees a DENSE gradient: its
+            # non-zero rows are its touched set (JAX :596)
+            self.optimizer.update_row_sparse(index, weight, from_dense(grad),
+                                             self.states[index])
+            return
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
         self.optimizer.update(index, weight, grad, self.states[index])

@@ -1144,3 +1144,63 @@ def test_ssd_loss_tail_training_step_on_the_card_matches_the_cpu(dev):
     for k, want in runs[0][1].items():
         np.testing.assert_allclose(runs[1][1][k], want, rtol=1e-3,
                                    atol=1e-3 * float(np.abs(want).max()), err_msg=k)
+
+
+# the recommender's four FC+relu sites (ROADMAP.md section 1.4a), per executor
+# of 256 rows and on one context of 512; top_fc0's K = 193 takes the
+# kernel's 4-byte-copy route
+@pytest.mark.parametrize("M", [256, 512])
+@pytest.mark.parametrize("K,N", [(16, 128), (128, 64), (193, 512), (512, 256)])
+def test_matmul_bias_act_at_the_recommender_shapes(dev, M, K, N):
+    a, w = _randn(dev, M, K), _randn(dev, N, K, scale=1.0 / math.sqrt(K), seed=1)
+    b = _randn(dev, N, scale=0.1, seed=2)
+    got, want = mba.matmul_bias_act(a, w, b, "relu"), mba.matmul_bias_act_plain(a, w, b, "relu")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_sparse_embedding_gradient_is_the_same_bits_twice_on_the_card(dev):
+    """The table gradient that from_dense scans: F.embedding's backward,
+    sorted, so two runs give the same bits."""
+    rs = np.random.RandomState(0)
+    ids = torch.tensor(rs.randint(0, 1000, 4096), device=dev, dtype=torch.float32)
+    og = _randn(dev, 4096, 64)
+    fn = pt.ops.registry.get_op("SparseEmbedding").fn
+    grads = []
+    for _ in range(2):
+        w = torch.zeros(1000, 64, device=dev, requires_grad=True)
+        fn({"input_dim": 1000, "output_dim": 64}, ids, w).backward(og)
+        grads.append(w.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    rsp = pt.sparse.from_dense(pt.nd.NDArray(grads[0], ctx=pt.gpu(0)))
+    assert np.array_equal(rsp.host_indices(), np.unique(ids.cpu().numpy().astype(np.int64)))
+
+
+def test_two_contexts_on_one_card_match_one_context(dev):
+    """The MNIST mlp over [gpu(0)] at batch 40 and [gpu(0), gpu(0)] at
+    20 + 20 with a device store: three steps agree within rtol 1e-4,
+    atol 1e-5, and the two contexts hold tensors of their own."""
+    net = pt.models.get_symbol("mlp", num_classes=10)
+    rs = np.random.RandomState(1)
+    x = rs.rand(120, 784).astype(np.float32)
+    y = rs.randint(0, 10, 120).astype(np.float32)
+    shapes, _, _ = net.infer_shape(data=(40, 784))
+    params = {n: (rs.randn(*s) * 0.05).astype(np.float32)
+              for n, s in zip(net.list_arguments(), shapes) if n not in ("data", "softmax_label")}
+    results = []
+    for ctxs in ([pt.gpu(0)], [pt.gpu(0), pt.gpu(0)]):
+        mod = pt.mod.Module(net, context=ctxs)
+        mod.bind(data_shapes=[("data", (40, 784))], label_shapes=[("softmax_label", (40,))])
+        mod.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu()) for k, v in params.items()})
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)))
+        assert len({a._tensor().data_ptr() for a in mod._exec_group.param_arrays[0]}) == len(ctxs)
+        for i in range(3):
+            sl = slice(40 * i, 40 * i + 40)
+            mod.forward_backward(pt.io.DataBatch(data=[pt.nd.array(x[sl], ctx=pt.gpu(0))],
+                                                 label=[pt.nd.array(y[sl], ctx=pt.gpu(0))],
+                                                 pad=0, index=None))
+            mod.update()
+        args, _ = mod.get_params()
+        results.append({k: v.asnumpy() for k, v in args.items()})
+    for k in results[0]:
+        np.testing.assert_allclose(results[1][k], results[0][k], rtol=1e-4, atol=1e-5)

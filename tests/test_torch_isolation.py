@@ -76,6 +76,9 @@ import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.faultinject, mxnet_tpu_torch.s
 import mxnet_tpu_torch.module, mxnet_tpu_torch.io, mxnet_tpu_torch.initializer
 import mxnet_tpu_torch.lr_scheduler, mxnet_tpu_torch.metric, mxnet_tpu_torch.callback
 import mxnet_tpu_torch.monitor, mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.kvstore_helper
+import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.kvstore_bucket, mxnet_tpu_torch.dist
+import mxnet_tpu_torch.sparse, mxnet_tpu_torch.sparse.kvstore_sparse
+import mxnet_tpu_torch.models.recommender
 import mxnet_tpu_torch.device_info, mxnet_tpu_torch.ops.sample
 import mxnet_tpu_torch.models.mlp, mxnet_tpu_torch.models.lenet
 assert mxnet_tpu_torch.mod is mxnet_tpu_torch.module and mxnet_tpu_torch.init.Xavier

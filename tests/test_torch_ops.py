@@ -68,6 +68,7 @@ CASES = [
     ("slice_axis", {"axis": "0", "begin": "1", "end": "None"}, [_r(4, 3)]),
     ("SwapAxis", {"dim1": "1", "dim2": "2"}, [_r(2, 3, 4)]),
     ("Embedding", {"input_dim": "10", "output_dim": "4"}, [_ids(10, 2, 3), _r(10, 4)]),
+    ("SparseEmbedding", {"input_dim": "10", "output_dim": "4"}, [_ids(10, 2, 3), _r(10, 4)]),
     ("FullyConnected", {"num_hidden": "6"}, [_r(2, 3, 4), _r(6, 12, seed=1), _r(6, seed=2)]),
     ("FullyConnected", {"num_hidden": "6", "flatten": "False"},
      [_r(2, 3, 4), _r(6, 4, seed=1), _r(6, seed=2)]),
@@ -432,7 +433,8 @@ GRAD_OPS = {"Deconvolution", "LeakyReLU", "log_softmax", "SoftmaxActivation",
             "_contrib_MultiBoxDetection", "_contrib_Proposal", "_contrib_fft", "_contrib_ifft",
             "_contrib_count_sketch", "Correlation", "batch_dot", "slice", "repeat", "tile",
             "reverse", "take", "batch_take", "pick", "topk", "sort", "argsort", "Pad",
-            "SequenceLast", "SequenceMask", "SequenceReverse", "WarpCTC", "Custom"}
+            "SequenceLast", "SequenceMask", "SequenceReverse", "WarpCTC", "Custom",
+            "SparseEmbedding"}
 GRAD_CASES = [c for c in CASES if preg.get_op(c[0]).name in GRAD_OPS]
 
 
@@ -608,10 +610,9 @@ def test_every_port_op_is_swept_and_named_as_in_the_reference():
         assert sorted(pop.attr_specs) == sorted(jop.attr_specs), name
 
 
-# the two ops of the JAX library the port leaves to later items, each with
-# the ROADMAP item it waits for
-LATER = {"SparseEmbedding": "ROADMAP.md §1.4: sparse/ and the sparse KVStore",
-         "_graph_const": "ROADMAP.md §1.5: analysis/rewrite.py's ConstFoldPass"}
+# the op of the JAX library the port leaves to a later item, with the
+# ROADMAP item it waits for
+LATER = {"_graph_const": "ROADMAP.md §1.5: analysis/rewrite.py's ConstFoldPass"}
 
 
 def test_the_port_lacks_only_the_ops_of_later_roadmap_items():

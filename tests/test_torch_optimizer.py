@@ -184,12 +184,32 @@ def test_updater_states_round_trip_through_a_pickle(name):
 
 
 def test_flat_and_row_sparse_paths_raise_naming_their_sections():
-    opt = pt.optimizer.create("sgd", learning_rate=0.1)
-    with pytest.raises(pt.MXNetError, match="section 1.4"):
-        opt.flat_update_spec()
-    with pytest.raises(pt.MXNetError, match="section 1.4"):
-        pt.optimizer.flat_kernel("sgd", {})
-    with pytest.raises(pt.MXNetError, match="section 1.4"):
-        opt.update_row_sparse(0, None, None, None)
-    with pytest.raises(pt.MXNetError, match="section 1.4"):
-        pt.optimizer.get_updater(opt)(0, np.zeros(3, "f"), pt.nd.zeros((3,), ctx=pt.cpu()))
+    """These paths raised, naming ROADMAP.md section 1.4, until its first
+    half landed; now each gives the JAX package's result: the flat specs,
+    the flat kernels, the lazy row update (rtol 1e-5, atol 1e-6; untouched
+    rows bitwise) and the updater's row-sparse state."""
+    for name, kw in (("sgd", {"momentum": 0.9}), ("sgd", {}), ("adam", {}), ("nag", {}),
+                     ("rmsprop", {})):
+        assert pt.optimizer.create(name, learning_rate=0.1, **kw).flat_update_spec() == \
+            mx.optimizer.create(name, learning_rate=0.1, **kw).flat_update_spec()
+    assert callable(pt.optimizer.flat_kernel("sgd", {"momentum": 0.0, "rescale_grad": 1.0,
+                                                     "clip_gradient": 0.0}))
+    rs = np.random.RandomState(3)
+    w0 = rs.rand(*SHAPE).astype("f")
+    rows, vals = np.array([1, 4]), rs.rand(2, SHAPE[1]).astype("f")
+    got = {}
+    for pkg in (mx, pt):
+        ctx = {"ctx": pkg.cpu()} if pkg is pt else {}
+        opt = pkg.optimizer.create("adam", learning_rate=0.1, wd=0.01)
+        upd = pkg.optimizer.get_updater(opt)
+        w = pkg.nd.array(w0, **ctx)
+        for _ in range(2):
+            upd(0, pkg.sparse.row_sparse_array((pkg.nd.array(vals, **ctx), rows), SHAPE), w)
+        st = upd.states[0]
+        assert type(st).__name__ == "RowSparseState" and st.indices.tolist() == [1, 4]
+        got[pkg.__name__] = (w.asnumpy(), st.rows)
+    (wj, sj), (wp, sp) = got["mxnet_tpu"], got["mxnet_tpu_torch"]
+    np.testing.assert_allclose(wp, wj, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(wp[[0, 2, 3, 5]], w0[[0, 2, 3, 5]])
+    for a, b in zip(sp, sj):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
