@@ -147,15 +147,34 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    four FC+relu shapes (256 and 512 rows; K = 193 its 4-byte route)
    against its plain version, ``addmm`` + relu and its bound. The MNIST
    ``mlp`` over one context at batch 40 and two at 20 + 20 agree; one NCCL
-   rank of ``dist_sync`` gives the bits of a ``local`` store, and its
-   process group is destroyed.
-15. A ``smoke`` line (the run's seconds from the import of the port), a
+   rank of ``dist_sync`` (on the per-device path, ``MXNET_MODULE_FUSED_STEP=0``)
+   gives the bits of a ``local`` store, and its process group is destroyed.
+15. Fused step (``module/spmd_adapter.py`` over ``parallel.SPMDTrainer``):
+   forward, backward and the update as one CUDA graph a step. ResNet-50
+   through ``Module.fit`` on ``[gpu(0)]`` with ``MXNET_MODULE_FUSED_STEP=1``
+   at phase 9's settings: a captured step holds 49 conv_bn and 49
+   conv_bn_bwd launches, counted at each replay and seen by the profiler
+   as in the eager step; the loss falls; after 3 steps the fused step's
+   parameters and moving stats equal the per-device path's; a batch-2
+   fused step on the card equals the CPU's; fused and per-device steps
+   timed in turns (host p50/p80, CUDA events, idle share, ``update()``'s
+   share). ``MXNET_TRAIN_MEGASTEP_N=4``: bitwise the N = 1 weights after 8
+   steps, 2 dispatches against 8, per-step latency. A ``FactorScheduler``
+   freezes the weights inside the graph; under ``MXNET_ANOMALY_GUARD=skip``
+   a NaN batch leaves weights, moving stats and optimizer state bitwise
+   unchanged. The recommender with Adam on one context: kernel 6 four times
+   in its graph, three steps card vs CPU, fused against per-device times.
+   The bucketed LSTM LM over two buckets: one graph a bucket, one shared
+   state cell, real tokens/s. ``dist_sync`` on one NCCL rank: the fused
+   step, bitwise the local fused step's weights.
+16. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
-   ``recommender_launches``; row 6 with ``recommender_fc``), the card's
+   ``recommender_launches``; row 6 with ``recommender_fc``; rows 6, 8 and 9
+   with the fused-step phase's ``fused_launches``), the card's
    name/power line, then the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -2984,6 +3003,38 @@ def collect_logs():
         root.setLevel(level)
 
 
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables for a block (None removes one)."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def step_of(mod, batches, k=1):
+    """A call that trains ``mod`` ``k`` steps (forward_backward, update),
+    taking ``batches`` in turn from where the last call stopped."""
+    i = [0]
+
+    def fn():
+        for _ in range(k):
+            mod.forward_backward(batches[i[0] % len(batches)])
+            mod.update()
+            i[0] += 1
+    return fn
+
+
 def run_module(pt, net, args, aux, smi):
     """Phase 9: the Module.fit trunk. (a) ResNet-50 through ``Module.fit``
     against the manual executor + updater loop of phase 6; (b) the MNIST
@@ -4084,6 +4135,7 @@ def run_lstm(pt, smi):
                               device_events=card["device_events_per_call"]),
                seconds=time.perf_counter() - t_phase)
     log(out)
+    bucketing_tokens_per_s = out["tokens_per_s"]
     t_phase = time.perf_counter()
     del mod
 
@@ -4181,6 +4233,7 @@ def run_lstm(pt, smi):
                unfused_vs_fused_max_abs_err=uerr,
                seconds=time.perf_counter() - t_phase)
     log(out)
+    return bucketing_tokens_per_s
 
 
 # ----------------------------------------------------------------- phase 13
@@ -5107,7 +5160,9 @@ def run_kvstore(pt, smi, peaks, entries):
         return {k: v.asnumpy() for k, v in args.items()}
 
     got = three_steps(card, pt.gpu(0))
-    with pt.cpu():
+    # the CPU's distinct contexts would engage the fused step: the
+    # per-device path there too, as on the card's duplicate contexts
+    with pt.cpu(), env_vars(MXNET_MODULE_FUSED_STEP="0"):
         want = three_steps(host, pt.cpu())
     worst = 0.0
     for k in want:
@@ -5202,26 +5257,26 @@ def run_kvstore(pt, smi, peaks, entries):
     t0 = time.perf_counter()
     env = {"MXNET_TPU_COORDINATOR": "127.0.0.1:%d" % free_port(),
            "MXNET_TPU_NUM_WORKERS": "1", "MXNET_TPU_WORKER_ID": "0"}
-    os.environ.update(env)
-    try:
-        dist_args = []
-        for kv in ("dist_sync", pt.kv.create("local")):
-            m = rec_module(pt, net, [pt.gpu(0)], params, kv, "sgd", sgd)
-            for b in batches[:KVSTORE["dist_steps"]]:
-                m.forward_backward(b)
-                m.update()
-            args, _ = m.get_params()
-            dist_args.append({k: v.asnumpy() for k, v in args.items()})
-            if kv == "dist_sync":
-                check(m._kvstore.type == "dist_sync" and m._kvstore.num_workers == 1
-                      and pt.dist.is_initialized() and pt.dist.backend() == "nccl",
-                      "one NCCL rank")
-        for k in dist_args[1]:
-            check(np.array_equal(dist_args[0][k], dist_args[1][k]), ("dist_sync vs local", k))
-    finally:
-        pt.dist.shutdown()
-        for k in env:
-            os.environ.pop(k, None)
+    # the per-device path (a dist store would engage the fused step, which
+    # phase 15 drives)
+    with env_vars(**env, MXNET_MODULE_FUSED_STEP="0"):
+        try:
+            dist_args = []
+            for kv in ("dist_sync", pt.kv.create("local")):
+                m = rec_module(pt, net, [pt.gpu(0)], params, kv, "sgd", sgd)
+                for b in batches[:KVSTORE["dist_steps"]]:
+                    m.forward_backward(b)
+                    m.update()
+                args, _ = m.get_params()
+                dist_args.append({k: v.asnumpy() for k, v in args.items()})
+                if kv == "dist_sync":
+                    check(m._kvstore.type == "dist_sync" and m._kvstore.num_workers == 1
+                          and pt.dist.is_initialized() and pt.dist.backend() == "nccl",
+                          "one NCCL rank")
+            for k in dist_args[1]:
+                check(np.array_equal(dist_args[0][k], dist_args[1][k]), ("dist_sync vs local", k))
+        finally:
+            pt.dist.shutdown()
     check(not pt.dist.is_initialized(), "process group destroyed")
     out["dist_sync"] = {"backend": "nccl", "world": 1, "steps": KVSTORE["dist_steps"],
                         "bitwise_equal_to_local": True, "seconds": time.perf_counter() - t0}
@@ -5233,6 +5288,493 @@ def run_kvstore(pt, smi, peaks, entries):
     check_tf32_off()
     out["seconds"] = time.perf_counter() - t_phase
     log(out)
+    return launches
+
+
+# Phase 15: the fused training step (module/spmd_adapter.py over
+# parallel.SPMDTrainer): ResNet-50 at phase 9's settings (batch 32, its 4
+# fixed batches, SGD-momentum) through Module.fit on [gpu(0)] with
+# MXNET_MODULE_FUSED_STEP=1, each step one CUDA graph; MXNET_TRAIN_MEGASTEP_N=4;
+# the scheduler and the anomaly guard inside the graph (momentum 0, so that a
+# frozen lr freezes the weights); the recommender at phase 14's settings on
+# one context with Adam; the bucketed LSTM LM of phase 12 over two of its
+# buckets; dist_sync on one NCCL rank. ``timed_steps`` steps of each kind are
+# timed in turns; ``check_batch`` is the card-vs-CPU ResNet step's batch.
+FUSED = dict(check_steps=3, timed_steps=8, check_batch=2, megastep_n=4, guard_steps=4,
+             rec_steps=3, rec_timed_steps=8, lstm_buckets=(30, 60), lstm_batches=8,
+             mlp_steps=3, budget_s=60.0)
+# the ResNet step's parameters and moving stats, fused against the per-device
+# path on the card (the same kernels, summed in the same order: expected
+# equal; the flat update runs the per-key op's expression), as phase 9 holds
+# Module.fit against the manual loop
+FUSED_TOL = dict(vs_per_device=1e-6)
+
+
+def fused_resnet_module(pt, net, args, aux, ctx, B, opt_params, fused=True, megastep_n=None):
+    """ResNet-50 bound at batch ``B`` on ``ctx`` from the same weights, its
+    optimizer set up with the fused step (MXNET_MODULE_FUSED_STEP=1) or on
+    the per-device path."""
+    mod = pt.mod.Module(net, context=ctx)
+    mod.bind(data_shapes=[("data", (B,) + image_shape())], label_shapes=[("softmax_label", (B,))])
+    mod.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu()) for k, v in args.items()},
+                    aux_params={k: pt.nd.array(v, ctx=pt.cpu()) for k, v in aux.items()})
+    with env_vars(MXNET_MODULE_FUSED_STEP="1" if fused else None,
+                  MXNET_TRAIN_MEGASTEP_N=None if megastep_n is None else str(megastep_n)):
+        mod.init_optimizer(optimizer="sgd", optimizer_params=opt_params)
+    check((mod._spmd is not None) == fused, ("fused step active", fused))
+    return mod
+
+
+def module_arrays(mod):
+    args, aux = mod.get_params()
+    return ({k: v.asnumpy() for k, v in args.items()}, {k: v.asnumpy() for k, v in aux.items()})
+
+
+def worst_rel(got, want):
+    """(the array, its largest difference over its largest magnitude, the
+    largest absolute difference) over two {name: array} dicts."""
+    rels = {k: rel_diff(got[k], want[k]) for k in want}
+    k = max(rels, key=rels.get)
+    return k, rels[k], max(float(np.abs(got[n] - want[n]).max()) for n in want)
+
+
+def timed_turns(fns, rounds):
+    """Host ms of each of ``fns`` (each ending in a synchronize), called in
+    turns, the order flipping each round."""
+    host = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(rounds):
+        for kind in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[kind]()
+            torch.cuda.synchronize()
+            host[kind].append((time.perf_counter() - t0) * 1e3)
+    return {k: {"p50": float(np.percentile(v, 50)), "p80": float(np.percentile(v, 80)),
+                "all": v} for k, v in host.items()}
+
+
+def one_graph(mod):
+    """The fused step's one captured program (a CUDA graph)."""
+    graphs = list(mod._spmd.trainer._graphs.values())
+    check(len(graphs) == 1, ("captured programs", len(graphs)))
+    return graphs[0]
+
+
+def run_fused_step(pt, smi, lstm_tokens_per_s):
+    """Phase 15: the fused training step, forward, backward and the update
+    as one CUDA graph. Returns its launches by kernel (ResNet-50's
+    Module.fit, the recommender's and the LSTM's fused steps)."""
+    from mxnet_tpu_torch import models, ops, telemetry
+    from mxnet_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # conv0 and the stride-2 3x3s: the same bits
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    B, nb = RESNET_TRAIN["batch"], MODULE["batches"]
+    images, labels = module_data(B * nb)
+    opt_params = (("learning_rate", RESNET_TRAIN["lr"]), ("momentum", RESNET_TRAIN["momentum"]),
+                  ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+    with pt.gpu(0):
+        train = pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False)
+    batches = list(train)
+    train.reset()
+    launches = {}
+
+    # --- 1. ResNet-50 through Module.fit, one CUDA graph a step
+    t0 = time.perf_counter()
+    fit_mod = pt.mod.Module(net, context=pt.gpu(0))
+    losses = []
+
+    def record_loss(param):
+        prob = param.locals["self"].get_outputs()[0]._tensor()
+        lab = param.locals["data_batch"].label[0]._tensor().long().reshape(-1, 1)
+        losses.append(float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean()))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with env_vars(MXNET_MODULE_FUSED_STEP="1"):
+        fit_mod.fit(train, eval_metric="acc", optimizer="sgd", optimizer_params=opt_params,
+                    arg_params=args, aux_params=aux, batch_end_callback=record_loss,
+                    num_epoch=MODULE["epochs"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = ops.launch_counts()
+    steps = nb * MODULE["epochs"]
+    check(fit_mod._spmd is not None, "Module.fit: the fused step is not active")
+    graph = one_graph(fit_mod)
+    per_replay = {k: v for k, v in graph.replay_launches[0].items() if v}
+    check(per_replay == {"conv_bn": RESNET_SITES, "conv_bn_bwd": RESNET_SITES},
+          ("a captured ResNet step's launches", per_replay))
+    check(graph.replays == steps - 1, ("replays", graph.replays, steps))
+    check(fit_launches == with_zeros({"conv_bn": RESNET_SITES * steps,
+                                      "conv_bn_bwd": RESNET_SITES * steps}),
+          ("fused Module.fit launch counts", fit_launches))
+    first, last = float(np.mean(losses[:nb])), float(np.mean(losses[-nb:]))
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses) and last < first,
+          ("the fused fit's loss did not fall", losses))
+    launches["resnet"] = {k: fit_launches[k] for k in ("conv_bn", "conv_bn_bwd")}
+
+    # the profiler over one replayed step: its port kernels by name
+
+    fused_step = step_of(fit_mod, batches)
+    for _ in range(4):
+        ops.reset_launch_counts()
+        prof = profile_window(fused_step)
+        if prof["device_busy_ms"] > 0:
+            break
+        time.sleep(PROFILER_GAP_S)
+    check(prof["wrapper_launches"] == {"conv_bn": RESNET_SITES, "conv_bn_bwd": RESNET_SITES},
+          ("a replayed step's counted launches", prof["wrapper_launches"]))
+    out = {"phase": "fused_step", "part": "resnet_fit", "nvidia_smi": smi,
+           "model": RESNET, "batch": B, "steps": steps, "fit_s": fit_s,
+           "captured_launches_per_step": per_replay, "replays": graph.replays,
+           "fit_launches": {k: v for k, v in fit_launches.items() if v},
+           "loss_first_epoch": first, "loss_last_epoch": last,
+           "profiler_replay_launches": prof["port_kernel_launches"],
+           "replay_window": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                   "device_idle_share", "port_kernels_ms",
+                                                   "device_events_per_call")}}
+
+    # after 3 steps: fused against the per-device path on the card
+    ref = fused_resnet_module(pt, net, args, aux, pt.gpu(0), B, opt_params, fused=False)
+    fused = fused_resnet_module(pt, net, args, aux, pt.gpu(0), B, opt_params)
+    for mod in (ref, fused):
+        for i in range(FUSED["check_steps"]):
+            mod.forward_backward(batches[i])
+            mod.update()
+    (ra, rx), (fa, fx) = module_arrays(ref), module_arrays(fused)
+    name, rel, absd = worst_rel({**fa, **fx}, {**ra, **rx})
+    check(rel <= FUSED_TOL["vs_per_device"], ("fused vs per-device", name, rel, absd))
+    out.update(vs_per_device={"steps": FUSED["check_steps"], "worst_array": name,
+                              "max_rel": rel, "max_abs": absd,
+                              "tol_rel": FUSED_TOL["vs_per_device"]})
+
+    # the batch-2 fused step's gradients (the step body the graph captures,
+    # run eagerly), card against CPU, held as phase 6 holds the per-device
+    # step's: within rtol 1e-3, atol 1e-3·max|grad| of the CPU's float32
+    # gradient, or as close to the float64 one as RESNET_F64_FACTOR times
+    # the CPU's own, the CPU pinned to the card's side at every ReLU kink
+    Bc = FUSED["check_batch"]
+
+    def fused_grads(ctx, dtype, kinks):
+        mesh = pt.parallel.make_mesh((1,), ("data",), [ctx])
+        tr = pt.parallel.SPMDTrainer(net, mesh, optimizer="sgd", optimizer_params={
+            "learning_rate": RESNET_TRAIN["lr"], "momentum": RESNET_TRAIN["momentum"],
+            "rescale_grad": 1.0 / Bc})
+        tr.set_params({k: v.astype(dtype) for k, v in args.items()},
+                      {k: v.astype(dtype) for k, v in aux.items()})
+        placed = tr._place_batch({"data": images[:Bc].astype(dtype)},
+                                 {"softmax_label": labels[:Bc].astype(dtype)})
+        tr._build()
+        with kinks as flips:
+            outs, _ = tr._one_step(placed, tr._lr_tensor(RESNET_TRAIN["lr"]))
+        prob = outs[0].double()
+        loss = float(-torch.log(prob.gather(1, placed["softmax_label"].long().reshape(-1, 1))
+                                .clamp_min(1e-30)).mean())
+        grads = {n: g.double().cpu().numpy()
+                 for n, g in tr._state.flats["grads_by_name"].items()}
+        new_aux = {n: a.double().cpu().numpy() for n, a in tr.aux.items()}
+        return grads, new_aux, loss, flips
+
+    card_kinks = []
+    got = fused_grads(pt.gpu(0), np.float32, relu_kinks(record=card_kinks))
+    want = fused_grads(pt.cpu(), np.float32, relu_kinks(compare=card_kinks, pin=True))
+    exact = fused_grads(pt.cpu(), np.float64, relu_kinks(compare=card_kinks, pin=True))
+    strict = [n for n in got[0] if np.allclose(got[0][n], want[0][n], rtol=1e-3,
+                                               atol=1e-3 * float(np.abs(want[0][n]).max()))]
+    card64 = {n: rel_diff(got[0][n], exact[0][n]) for n in got[0]}
+    cpu64 = {n: rel_diff(want[0][n], exact[0][n]) for n in got[0]}
+    gscale = max(float(np.abs(g).max()) for g in exact[0].values())
+    null = {n for n in got[0] if float(np.abs(exact[0][n]).max()) <= 1e-6 * gscale}
+    loose = [n for n in got[0] if n not in strict and n not in null]
+    bad = [n for n in loose if card64[n] > RESNET_F64_FACTOR * cpu64[n]]
+    aux_rel = max(rel_diff(got[1][n], want[1][n]) for n in got[1])
+    check(abs(got[2] - want[2]) <= 1e-3 * max(1.0, abs(want[2])),
+          ("fused batch-2 loss card vs CPU", got[2], want[2]))
+    check(not bad and aux_rel <= 1e-3, ("fused batch-2 grads card vs CPU", bad[:5], aux_rel))
+    n_flips = sum(n for n, _ in want[3])
+    out.update(card_vs_cpu={"batch": Bc, "loss_card": got[2], "loss_cpu": want[2],
+                            "grads": len(got[0]), "grads_within_1e-3_of_cpu": len(strict),
+                            "null_grads": len(null), "relu_kinks_pinned": n_flips,
+                            "worst_ratio": max([card64[n] / max(cpu64[n], 1e-30)
+                                                for n in loose] or [0.0]),
+                            "card_vs_cpu_worst": max(rel_diff(got[0][n], want[0][n])
+                                                     for n in got[0]),
+                            "moving_stats_worst": aux_rel, "f64_factor": RESNET_F64_FACTOR})
+
+    # the fused step against the per-device one, in turns: host, card, idle
+    host = timed_turns({"fused": step_of(fused, batches), "per_device": step_of(ref, batches)},
+                       FUSED["timed_steps"])
+    # CUDA events over 10 queued replays (the per-device step reads back on
+    # the host, so its card time is the profiler's busy time below)
+    card = {"fused": event_ms(step_of(fused, batches), 10)}
+    windows = {}
+    for kind, fn in (("fused", step_of(fused, batches)), ("per_device", step_of(ref, batches))):
+        for _ in range(4):
+            w = profile_window(fn)
+            if w["device_busy_ms"] > 0:
+                break
+            time.sleep(PROFILER_GAP_S)
+        windows[kind] = {k: w[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                           "device_events_per_call", "port_kernel_launches")}
+    # the profiler sees every kernel of the eager per-device step in a replay
+    check(prof["port_kernel_launches"] == windows["per_device"]["port_kernel_launches"]
+          and prof["port_kernel_launches"].get("conv_bn", 0) >= RESNET_SITES
+          and prof["port_kernel_launches"].get("conv_bn_bwd", 0) >= RESNET_SITES,
+          ("a replay's kernels in the profiler", prof["port_kernel_launches"],
+           windows["per_device"]["port_kernel_launches"]))
+    # update()'s share of a step's host time on each path
+    shares = {}
+    for kind, mod in (("fused", fused), ("per_device", ref)):
+        fb, up = [], []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(batches[i % nb])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mod.update()
+            torch.cuda.synchronize()
+            fb.append(t1 - t0)
+            up.append(time.perf_counter() - t1)
+        shares[kind] = float(np.median(up) / (np.median(fb) + np.median(up)))
+    out.update(step_ms=host, card_event_ms=card, windows=windows, update_share=shares)
+    log(out)
+    del fit_mod, ref
+
+    # --- 2. MXNET_TRAIN_MEGASTEP_N=4 against N=1: bitwise after 8 steps
+    n4 = fused_resnet_module(pt, net, args, aux, pt.gpu(0), B, opt_params,
+                             megastep_n=FUSED["megastep_n"])
+    n1 = fused_resnet_module(pt, net, args, aux, pt.gpu(0), B, opt_params)
+    saved_mode = telemetry.current_override()
+    telemetry.set_mode("counters")
+    dispatches = {}
+    for kind, mod in (("n1", n1), ("n4", n4)):
+        c0 = telemetry.counter("trainer.dispatches").value
+        for i in range(2 * FUSED["megastep_n"]):
+            mod.forward_backward(batches[i % nb])
+            mod.update()
+        mod.flush_pending_steps()
+        dispatches[kind] = telemetry.counter("trainer.dispatches").value - c0
+    telemetry.set_mode(saved_mode)
+    (a1, x1), (a4, x4) = module_arrays(n1), module_arrays(n4)
+    differ = sorted(k for k in {**a1, **x1} if not np.array_equal({**a1, **x1}[k],
+                                                                   {**a4, **x4}[k]))
+    check(not differ, ("N=4 vs N=1 not bitwise", differ[:5]))
+    check(dispatches == {"n1": 8, "n4": 2}, ("dispatches", dispatches))
+    check(one_graph(n4).replays == 1, "the N=4 graph replayed once")
+
+    mhost = timed_turns({"n4": step_of(n4, batches, FUSED["megastep_n"]),
+                         "n1": step_of(n1, batches, FUSED["megastep_n"])},
+                        FUSED["timed_steps"] // 2)
+    per_step = {k: v["p50"] / FUSED["megastep_n"] for k, v in mhost.items()}
+    log({"phase": "fused_step", "part": "megastep", "n": FUSED["megastep_n"],
+         "steps": 2 * FUSED["megastep_n"], "bitwise_equal": True, "dispatches": dispatches,
+         "step_ms_p50_per_step": per_step, "dispatch_ms": mhost})
+    del n4, n1
+
+    # --- 3. the scheduler and the guard inside the graph (momentum 0)
+    with env_vars(MXNET_ANOMALY_GUARD="skip"):
+        sched = pt.lr_scheduler.FactorScheduler(step=1, factor=1e-8)
+        gm = fused_resnet_module(pt, net, args, aux, pt.gpu(0), B,
+                                 (("learning_rate", RESNET_TRAIN["lr"]), ("momentum", 0.0),
+                                  ("rescale_grad", 1.0 / B), ("lr_scheduler", sched)))
+        gm.forward_backward(batches[0])
+        gm.update()
+        after1 = module_arrays(gm)[0]
+        for i in range(1, FUSED["guard_steps"]):
+            gm.forward_backward(batches[i % nb])
+            gm.update()
+        after_n, aux_n = module_arrays(gm)
+        frozen = max(float(np.abs(after_n[k] - after1[k]).max()) for k in after1)
+        check(frozen <= 1e-6, ("the scheduler's lr did not reach the graph", frozen))
+        moved = max(rel_diff(after1[k], args[k]) for k in after1)
+        check(moved > 0, "step 1 did not move the weights")
+        tr = gm._spmd.trainer
+        t_before = int(tr.opt_state["t"])
+        nan_images = images[:B].copy()
+        nan_images[0, 0, 0, 0] = np.nan
+        gm.forward_backward(pt.io.DataBatch(data=[pt.nd.array(nan_images, ctx=pt.gpu(0))],
+                                            label=[pt.nd.array(labels[:B], ctx=pt.gpu(0))]))
+        gm.update()
+        after_nan, aux_nan = module_arrays(gm)
+        check(gm.skipped_steps == 1, ("skipped steps", gm.skipped_steps))
+        check(all(np.array_equal(after_nan[k], after_n[k]) for k in after_n)
+              and all(np.array_equal(aux_nan[k], aux_n[k]) for k in aux_n)
+              and int(tr.opt_state["t"]) == t_before,
+              "a NaN batch changed the params, the moving stats or the optimizer state")
+        check(one_graph(gm).replays == FUSED["guard_steps"], "the NaN step replayed the graph")
+    log({"phase": "fused_step", "part": "schedule_and_guard", "max_change_after_step_1": frozen,
+         "skipped_steps": gm.skipped_steps, "nan_step_bitwise_unchanged": True,
+         "replays": one_graph(gm).replays})
+    del gm
+
+    # --- 4. the recommender on one context, Adam, kernel 6 inside the graph
+    rnet = models.get_symbol("recommender")
+    R = KVSTORE["batch"]
+    rparams = rec_params(rnet, KVSTORE["seed"])
+    rdata = click_data(R * KVSTORE["batches"], KVSTORE["seed"] + 2)
+    rbatches = rec_batches(pt, rdata, pt.gpu(0))
+    adam = (("learning_rate", KVSTORE["lr_adam"]),)
+
+    def rec(ctxs, fused):
+        with env_vars(MXNET_MODULE_FUSED_STEP="1" if fused else None):
+            m = rec_module(pt, rnet, ctxs, rparams, "device", "adam", adam)
+        check((m._spmd is not None) == fused, ("recommender fused", fused))
+        return m
+
+    rf = rec([pt.gpu(0)], True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b in rbatches[:FUSED["rec_steps"]]:
+        rf.forward_backward(b)
+        rf.update()
+    torch.cuda.synchronize()
+    rec_launches = ops.launch_counts()
+    rgraph = one_graph(rf)
+    check({k: v for k, v in rgraph.replay_launches[0].items() if v} == {"matmul_bias_act": 4},
+          ("the recommender graph's launches", rgraph.replay_launches[0]))
+    check(rec_launches == with_zeros({"matmul_bias_act": 4 * FUSED["rec_steps"]}),
+          ("recommender fused launches", rec_launches))
+    launches["recommender"] = {"matmul_bias_act": rec_launches["matmul_bias_act"]}
+    card_w = {k: v.asnumpy() for k, v in rf.get_params()[0].items()}
+    with pt.cpu():
+        rc = rec([pt.cpu()], True)
+        for b in rec_batches(pt, {k: v[:R * FUSED["rec_steps"]] for k, v in rdata.items()},
+                             pt.cpu()):
+            rc.forward_backward(b)
+            rc.update()
+        cpu_w = {k: v.asnumpy() for k, v in rc.get_params()[0].items()}
+    del rc
+    rworst = max(float(np.abs(card_w[k] - cpu_w[k]).max()) for k in cpu_w)
+    check(all(np.allclose(card_w[k], cpu_w[k], **REC_TOL) for k in cpu_w),
+          ("recommender fused card vs CPU", rworst))
+    rp = rec([pt.gpu(0)], False)
+
+    rhost = timed_turns({"fused": step_of(rf, rbatches), "per_device": step_of(rp, rbatches)},
+                        FUSED["rec_timed_steps"])
+    rcard = {"fused": event_ms(step_of(rf, rbatches), 10)}
+    rwin = {}
+    for kind, mod in (("fused", rf), ("per_device", rp)):
+        for _ in range(4):
+            w = profile_window(step_of(mod, rbatches))
+            if w["device_busy_ms"] > 0:
+                break
+            time.sleep(PROFILER_GAP_S)
+        rwin[kind] = {k: w[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share")}
+    log({"phase": "fused_step", "part": "recommender", "batch": R, "optimizer": "adam",
+         "captured_launches_per_step": {"matmul_bias_act": 4}, "card_vs_cpu_max_abs": rworst,
+         **REC_TOL, "step_ms": rhost, "card_event_ms": rcard, "windows": rwin})
+    del rf, rp
+
+    # --- 5. the bucketed LSTM LM over two buckets: one graph a bucket, one cell
+    cfg = LSTM_BUCKETING
+    sentences, vocab = synthetic_corpus(cfg["sentences"], vocab_size=cfg["vocab"], seed=SEED,
+                                        buckets=cfg["buckets"])
+    buckets = list(FUSED["lstm_buckets"])
+    with pt.gpu(0):
+        it = pt.rnn.BucketSentenceIter(sentences, cfg["batch"], buckets=buckets, invalid_label=0)
+        lbatches = [next(it) for _ in range(FUSED["lstm_batches"])]
+        check(len({b.bucket_key for b in lbatches}) == 2, "both buckets in the batches")
+        lm = pt.mod.BucketingModule(sym_gen=bucketing_module(pt, vocab, pt.gpu(0)),
+                                    default_bucket_key=it.default_bucket_key,
+                                    context=pt.gpu(0))
+        lm.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        pt.random.seed(SEED + 61)
+        lm.init_params(initializer=pt.init.Xavier(factor_type="in", magnitude=2.34))
+        with env_vars(MXNET_MODULE_FUSED_STEP="1"):
+            lm.init_optimizer(optimizer="sgd", optimizer_params={
+                "learning_rate": cfg["lr"], "momentum": 0.0, "wd": cfg["wd"]})
+    tokens, marks = 0, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for b in lbatches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.forward_backward(b)
+        lm.update()
+        torch.cuda.synchronize()
+        marks.append((b.bucket_key, time.perf_counter() - t0, int((b.data[0].asnumpy() != 0)
+                                                                  .sum())))
+    mods = list(lm._buckets.values())
+    check(len(mods) == 2 and all(m._spmd is not None for m in mods), "a fused step a bucket")
+    check(all(len(m._spmd.trainer._graphs) == 1 for m in mods), "one graph a bucket")
+    ptrs = [{k: v.data_ptr() for k, v in m._spmd.trainer.params.items()} for m in mods]
+    check(len({id(m._spmd.trainer._state) for m in mods}) == 1 and ptrs[0] == ptrs[1],
+          "one shared state cell")
+    small = min(buckets)
+    before = {k: v.asnumpy() for k, v in lm.get_params()[0].items()}
+    sb = next(b for b in lbatches if b.bucket_key == small)
+    lm.forward_backward(sb)
+    lm.update()
+    after = {k: v.asnumpy() for k, v in lm.get_params()[0].items()}
+    check(any(np.abs(after[k] - before[k]).max() > 0 for k in before),
+          "a step through the small bucket did not move the params")
+    seen, steady = set(), []
+    for key, s, n in marks:
+        if key in seen:
+            steady.append((s, n))
+        seen.add(key)
+    tps = sum(n for _, n in steady) / sum(s for s, _ in steady)
+    log({"phase": "fused_step", "part": "lstm_bucketing", "buckets": buckets,
+         "batches": len(lbatches), "graphs_per_bucket": 1, "shared_state_cell": True,
+         "replays": sorted(next(iter(m._spmd.trainer._graphs.values())).replays
+                           for m in mods),
+         "real_tokens_per_s_after_capture": tps,
+         "phase12_per_device_tokens_per_s": lstm_tokens_per_s,
+         "launches": {k: v for k, v in ops.launch_counts().items() if v}})
+    del lm, mods
+
+    # --- 6. dist_sync on one NCCL rank: the fused step, the bits of the local one
+    mlp = models.get_symbol("mlp", num_classes=10)
+    rs = np.random.RandomState(KVSTORE["seed"] + 5)
+    Bm = KVSTORE["mlp_batch"]
+    x = rs.rand(Bm * FUSED["mlp_steps"], 784).astype(np.float32)
+    y = rs.randint(0, 10, Bm * FUSED["mlp_steps"]).astype(np.float32)
+    shapes, _, _ = mlp.infer_shape(data=(Bm, 784))
+    mlp_params = {n: (rs.randn(*s) * 0.05).astype(np.float32)
+                  for n, s in zip(mlp.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+    env = {"MXNET_TPU_COORDINATOR": "127.0.0.1:%d" % free_port(),
+           "MXNET_TPU_NUM_WORKERS": "1", "MXNET_TPU_WORKER_ID": "0"}
+    results = []
+    try:
+        for kv in ("dist_sync", "local"):
+            with env_vars(**(env if kv == "dist_sync" else {}),
+                          MXNET_MODULE_FUSED_STEP=None if kv == "dist_sync" else "1"):
+                m = pt.mod.Module(mlp, context=pt.gpu(0))
+                m.bind(data_shapes=[("data", (Bm, 784))],
+                       label_shapes=[("softmax_label", (Bm,))])
+                m.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu())
+                                          for k, v in mlp_params.items()})
+                m.init_optimizer(kvstore=kv, optimizer="sgd",
+                                 optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)))
+            check(m._spmd is not None, ("the fused step under", kv))
+            if kv == "dist_sync":
+                check(m._kvstore.type == "dist_sync" and pt.dist.backend() == "nccl",
+                      "one NCCL rank")
+            for i in range(FUSED["mlp_steps"]):
+                sl = slice(i * Bm, (i + 1) * Bm)
+                m.forward_backward(pt.io.DataBatch(data=[pt.nd.array(x[sl], ctx=pt.gpu(0))],
+                                                   label=[pt.nd.array(y[sl], ctx=pt.gpu(0))]))
+                m.update()
+            results.append({k: v.asnumpy() for k, v in m.get_params()[0].items()})
+            del m
+    finally:
+        pt.dist.shutdown()
+    check(not pt.dist.is_initialized(), "process group destroyed")
+    check(all(np.array_equal(results[0][k], results[1][k]) for k in results[1]),
+          "dist_sync fused vs local fused")
+    torch.backends.cudnn.deterministic = deterministic
+    check_tf32_off()
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "fused_step", "part": "dist_sync", "backend": "nccl", "world": 1,
+         "steps": FUSED["mlp_steps"], "bitwise_equal_to_local_fused": True,
+         "phase_seconds": seconds, "budget_s": FUSED["budget_s"]})
     return launches
 
 
@@ -5276,9 +5818,10 @@ def main():
     del net, args, aux
     zoo_launches = run_zoo_cnn(pt, smi, peaks, entries)
     mt_launches = run_mt(pt, smi)
-    run_lstm(pt, smi)
+    lstm_tokens_per_s = run_lstm(pt, smi)
     ssd_launches = run_ssd(pt, smi)
     kvstore_launches = run_kvstore(pt, smi, peaks, entries)
+    fused_launches = run_fused_step(pt, smi, lstm_tokens_per_s)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -5316,6 +5859,11 @@ def main():
         e.update(ssd_launches=ssd_launches[name_])
         # the KVStore phase's recommender Module.fit: kernel 6 only
         e.update(recommender_launches=kvstore_launches[name_])
+        # the fused-step phase's card runs, each step one CUDA graph:
+        # ResNet-50's Module.fit (kernels 8, 9) and the recommender's (6)
+        fused = {k: v[name_] for k, v in fused_launches.items() if v.get(name_)}
+        if fused:
+            e.update(fused_launches=fused)
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

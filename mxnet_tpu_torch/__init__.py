@@ -19,7 +19,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .base import MXNetError  # noqa: E402
-from .context import Context, cpu, gpu, current_context  # noqa: E402
+from .context import Context, cpu, gpu, current_context, num_gpus  # noqa: E402,F401
+from .attribute import AttrScope  # noqa: E402
 from . import ops  # noqa: E402,F401
 from . import symbol  # noqa: E402
 from . import symbol as sym  # noqa: E402,F401
@@ -38,16 +39,17 @@ from . import kvstore, dist, sparse  # noqa: E402,F401
 from . import kvstore as kv  # noqa: E402,F401
 from . import module  # noqa: E402,F401
 from . import module as mod  # noqa: E402,F401
+from . import parallel  # noqa: E402,F401
 from . import rnn  # noqa: E402,F401
 from . import operator, autograd, test_utils  # noqa: E402,F401
 from .convert import (params_from_checkpoint, params_from_numpy,  # noqa: E402,F401
                       updater_states_from_numpy)
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "sym", "symbol",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "AttrScope", "sym", "symbol",
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
            "random", "rtc", "telemetry", "faultinject", "io", "initializer", "init",
            "lr_scheduler", "metric", "callback", "monitor", "checkpoint", "kvstore_helper",
            "kvstore", "kv", "dist", "sparse",
-           "device_info", "module", "mod", "rnn", "operator", "autograd", "test_utils",
+           "device_info", "module", "mod", "parallel", "rnn", "operator", "autograd", "test_utils",
            "params_from_numpy", "params_from_checkpoint",
            "updater_states_from_numpy"]

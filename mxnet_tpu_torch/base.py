@@ -14,8 +14,8 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "EvictedError", "anomaly_guard_mode", "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code",
-           "dtype_from_code"]
+__all__ = ["MXNetError", "EvictedError", "string_types", "numeric_types", "anomaly_guard_mode",
+           "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code", "dtype_from_code"]
 
 
 class MXNetError(Exception):
@@ -26,6 +26,11 @@ class EvictedError(MXNetError):
     """This worker was evicted from an elastic job (copied from
     mxnet_tpu/base.py): the surviving membership re-formed without it, so
     the only safe move is to stop training and exit."""
+
+
+# copied from mxnet_tpu/base.py (the reference's type tuples)
+string_types = (str,)
+numeric_types = (float, int, np.generic)
 
 
 def np_dtype(dtype) -> np.dtype:

@@ -5,11 +5,15 @@ device, ``cpu(i)`` or ``gpu(i)``, and resolves to a ``torch.device``.
 ``gpu(i)`` is ``torch.device("cuda", i)`` and nothing else: on a host without
 CUDA, resolving it raises. It never moves to the CPU on its own. The default
 context is ``gpu(0)``, so an entry point runs on the card unless its caller
-passes ``ctx=cpu()`` or runs inside ``with cpu():``, which makes ``cpu()``
-the default context of its thread for the block, as in the reference.
+passes ``ctx=cpu()``, runs inside ``with cpu():``, which makes ``cpu()``
+the default context of its thread for the block, as in the reference, or
+names another default in ``MXNET_DEFAULT_CONTEXT`` (``cpu``, ``cpu:1``,
+``gpu:0``; ``tools/launch.py --cpu-devices`` sets ``cpu``), as the
+reference reads it (JAX ``context.py:125-135``).
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
@@ -98,6 +102,14 @@ def gpu(device_id=0):
 
 def current_context() -> Context:
     """The default context of every entry point: the innermost ``with
-    Context`` block's of this thread, else ``gpu(0)``."""
+    Context`` block's of this thread, else ``MXNET_DEFAULT_CONTEXT``'s
+    (``name[:index]``), else ``gpu(0)``. A ``gpu`` default on a host
+    without CUDA raises where it is resolved, as any ``gpu(i)`` does."""
     ctx = getattr(Context._default_ctx, "value", None)
-    return gpu(0) if ctx is None else ctx
+    if ctx is not None:
+        return ctx
+    forced = os.environ.get("MXNET_DEFAULT_CONTEXT", "")
+    if forced:
+        name, _, idx = forced.partition(":")
+        return Context(name, int(idx or 0))
+    return gpu(0)

@@ -31,6 +31,15 @@ records and the arrays inside them as numpy, and gives the port's objects
 read through it, so a file either package wrote loads into the port).
 ``updater_states_to_numpy`` is the way back: the states as numpy, for the
 JAX package to wrap.
+
+The fused step (``parallel.SPMDTrainer``) keeps its optimizer state as the
+JAX package's does: ``{"t", "mom"}`` (SGD, NAG) or ``{"t", "m", "v"}``
+(Adam), each state a {name: array} dict. A JAX trainer's state, taken out
+with ``jax.device_get``, goes into the port with ``opt_state_from_numpy``
+(or straight into ``trainer.opt_state``) and comes back with
+``opt_state_to_numpy``; both packages' fused ``Module.save_optimizer_states``
+write that numpy tree as a pickle, which ``load_fused_states`` reads, so a
+``.states`` file of either package's fused step loads into the other's.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ import torch
 from .context import Context, current_context
 
 __all__ = ["params_from_numpy", "params_from_checkpoint", "updater_states_from_numpy",
-           "updater_states_to_numpy", "load_states"]
+           "updater_states_to_numpy", "load_states", "opt_state_from_numpy",
+           "opt_state_to_numpy", "load_fused_states"]
 
 
 def params_from_numpy(arg_params, ctx: Context = None) -> Dict[str, torch.Tensor]:
@@ -107,6 +117,38 @@ def updater_states_to_numpy(states):
         return v.asnumpy()
 
     return {k: one(v) for k, v in states.items()}
+
+
+def opt_state_from_numpy(state, ctx: Context = None):
+    """A fused-step optimizer state as numpy (``{"t": int32 scalar, <state>:
+    {name: array}}``, a JAX ``SPMDTrainer.opt_state`` after
+    ``jax.device_get``) → the same tree of tensors on ``ctx`` (default
+    ``gpu(0)``)."""
+    device = (ctx or current_context()).torch_device
+
+    def one(v):
+        if isinstance(v, dict):
+            return {k: one(x) for k, x in v.items()}
+        return torch.from_numpy(np.array(v, copy=True)).to(device)
+
+    return one(state)
+
+
+def opt_state_to_numpy(state):
+    """A fused-step optimizer state (tensors) → the numpy tree the JAX
+    package's trainer holds after ``jax.device_get``."""
+    if isinstance(state, dict):
+        return {k: opt_state_to_numpy(v) for k, v in state.items()}
+    return state.detach().cpu().numpy().copy()
+
+
+def load_fused_states(blob: bytes):
+    """The numpy tree of a fused step's ``.states`` pickle, written by
+    either package (read without JAX)."""
+    state = _StateUnpickler(io.BytesIO(blob)).load()
+    if not isinstance(state, dict) or "t" not in state:
+        raise ValueError("not a fused-step optimizer state (no counter 't')")
+    return state
 
 
 class _ForeignChunk:

@@ -5,10 +5,11 @@ Counterpart of the bootstrap and heartbeat half of ``mxnet_tpu/dist.py``
 ``MXNET_TPU_COORDINATOR`` (host:port of worker 0), ``MXNET_TPU_NUM_WORKERS``
 and ``MXNET_TPU_WORKER_ID``; ``init()`` reads them and joins the job with
 ``torch.distributed.init_process_group`` over a ``TCPStore`` that worker 0
-hosts at the coordinator address: NCCL where the process computes on the
-card, gloo where it computes on the CPU (``MXNET_DEFAULT_CONTEXT=cpu``, as
-``tools/launch.py --cpu-devices`` sets, or no CUDA). ``rank``/``num_workers``
-then back the dist KVStore's.
+hosts at the coordinator address: the backend follows the default
+context's device type alone (``context.current_context()``): gloo for
+``cpu`` (``MXNET_DEFAULT_CONTEXT=cpu``, as ``tools/launch.py
+--cpu-devices`` sets), NCCL for ``gpu``, which raises on a host without
+CUDA. ``rank``/``num_workers`` then back the dist KVStore's.
 
 The file heartbeat is the JAX package's: each worker touches
 ``$MXNET_TPU_HEARTBEAT_DIR/worker-<rank>`` on a timer, and
@@ -22,8 +23,6 @@ from __future__ import annotations
 import datetime
 import logging
 import os
-
-import torch
 
 from .base import MXNetError
 
@@ -72,8 +71,14 @@ def elastic_enabled() -> bool:
 
 
 def _default_backend() -> str:
-    if os.environ.get("MXNET_DEFAULT_CONTEXT", "") == "cpu" or not torch.cuda.is_available():
+    """gloo for a ``cpu`` default context, NCCL for a ``gpu`` one; a ``gpu``
+    default on a host without CUDA raises (no CPU fallback)."""
+    from .context import current_context
+
+    ctx = current_context()
+    if ctx.device_type == "cpu":
         return "gloo"
+    ctx.torch_device  # raises without CUDA
     return "nccl"
 
 

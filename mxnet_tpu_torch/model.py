@@ -16,6 +16,11 @@ for the port's ``engine.py``.
 ``FeedForward`` (JAX :181-376; reference: model.py:387), the sklearn-style
 estimator, is a thin adapter over the port's ``Module``: ``fit``,
 ``predict``, ``score``, ``save``, ``load`` and ``create``.
+
+``_create_kvstore``, ``_initialize_kvstore``, ``_update_params_on_kvstore``
+and ``_update_params`` are the reference's names for ``kvstore_helper``'s
+functions (JAX :29-43; reference: model.py:40-116), kept here because
+training loops import them from ``model``.
 """
 from __future__ import annotations
 
@@ -33,7 +38,15 @@ from .base import MXNetError
 from .context import cpu
 
 __all__ = ["save_checkpoint", "load_checkpoint", "find_last_checkpoint", "resume_or_init",
-           "FeedForward"]
+           "FeedForward", "_create_kvstore", "_initialize_kvstore",
+           "_update_params_on_kvstore", "_update_params"]
+
+from .kvstore_helper import (  # noqa: E402
+    create_kvstore as _create_kvstore,
+    initialize_kvstore as _initialize_kvstore,
+    update_params_on_kvstore as _update_params_on_kvstore,
+    update_params as _update_params,
+)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

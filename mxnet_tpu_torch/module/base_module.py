@@ -4,10 +4,12 @@
 Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
 python/mxnet/module/base_module.py:79). The training loop (fit :368) is
 intact: bind → init_params → init_optimizer → per-batch
-forward_backward/update/update_metric with epoch and batch callbacks, and
-the ``io.input_bound_pct`` gauge (the share of an epoch's wall time spent
-waiting on the iterator). Under it each batch is the bound executor's
-forward and backward, whose fused sites launch the port's CUDA kernels.
+forward_backward/update/update_metric with epoch and batch callbacks, the
+training megastep's flush and metric drain at each epoch's end
+(``flush_pending_steps``), and the ``io.input_bound_pct`` gauge (the share
+of an epoch's wall time spent waiting on the iterator). Under it each batch
+is the fused step (``spmd_adapter.py``) or the bound executors' forward and
+backward, whose fused sites launch the port's CUDA kernels.
 Elastic training (``fit(elastic=)``, JAX ``module/elastic.py``) comes with
 the next item of data parallelism and raises until then (``ROADMAP.md``
 section 1.4b).
@@ -294,6 +296,13 @@ class BaseModule:
                     batch_end_params = BatchEndParam(epoch=epoch, nbatch=nbatch, eval_metric=eval_metric, locals=locals())
                     for callback in _as_list(batch_end_callback):
                         callback(batch_end_params)
+
+            # training megastep (MXNET_TRAIN_MEGASTEP_N>1): dispatch the
+            # partial final buffer and drain its metric rows before the
+            # epoch metric is logged or validation runs
+            flush_pending = getattr(self, "flush_pending_steps", None)
+            if flush_pending is not None:
+                flush_pending(eval_metric)
 
             # input-bound fraction of this epoch's wall time
             # (io.input_bound_pct): visible without a trace, warned once per

@@ -6,7 +6,10 @@ python/mxnet/module/bucketing_module.py:18). Each bucket's Module binds with
 ``shared_module`` set to the default bucket's, so every bucket's executor
 holds the default bucket's parameter, gradient and aux tensors (the
 executor group binds over them, ``bind(shared_exec=)``): an update through
-any bucket updates all.
+any bucket updates all. Over the fused step each bucket's Module derives
+its own adapter (``spmd_adapter.derive``): one step (on the card one CUDA
+graph) a bucket shape, every bucket's trainer sharing the default bucket's
+state cell and graph memory pool.
 """
 from __future__ import annotations
 

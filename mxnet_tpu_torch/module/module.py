@@ -1,25 +1,31 @@
 """Module: symbol-backed training module.
 
 Counterpart of ``mxnet_tpu/module/module.py`` (reference:
-python/mxnet/module/module.py:22) on its per-device path
-(``module.py:408-495``, the JAX package's ``fused_step=False``): binding
-makes a ``DataParallelExecutorGroup`` with one executor per context;
-``forward_backward`` runs each executor's forward and backward (the fused
-sites launch the port's CUDA kernels), and ``update`` either pushes the
-gradients through the store, which sums them across contexts and workers
-and runs the optimizer (``update_on_kvstore``), or reduces them through
-the store and runs the updater on each context's arrays in place. A
-parameter whose producer declares a row-sparse gradient
-(``SparseEmbedding``, ``Embedding(sparse_grad=True)``) takes the store's
-sparse round and lazy update. The one-graph fused step
-(``MXNET_MODULE_FUSED_STEP=1``, JAX ``spmd_adapter.py``) comes with the next
-item of ``ROADMAP.md`` section 1.4 and raises. The default context is
-``current_context()``, the card.
+python/mxnet/module/module.py:22). Binding makes a
+``DataParallelExecutorGroup`` with one executor per context. Two execution
+strategies, as in the JAX package:
+
+* the fused step (``spmd_adapter.py``), engaged by ``init_optimizer``
+  whenever the Module has several distinct contexts, a ``dist*`` sync
+  store, or ``MXNET_MODULE_FUSED_STEP=1`` (``fused_step=False`` or
+  ``MXNET_MODULE_FUSED_STEP=0`` opts out): ``forward_backward`` runs
+  forward, backward, the gradient sum and the update as one step, on the
+  card one CUDA graph, and ``update`` only checks that it ran;
+* the per-device path (``module.py:408-495``): ``forward_backward`` runs
+  each executor's forward and backward (the fused sites launch the port's
+  CUDA kernels), and ``update`` either pushes the gradients through the
+  store, which sums them across contexts and workers and runs the
+  optimizer (``update_on_kvstore``), or reduces them through the store and
+  runs the updater on each context's arrays in place. A parameter whose
+  producer declares a row-sparse gradient (``SparseEmbedding``,
+  ``Embedding(sparse_grad=True)``) takes the store's sparse round and lazy
+  update there; the fused step's gradients are dense, as JAX's are.
+
+The default context is ``current_context()``.
 """
 from __future__ import annotations
 
 import logging
-import os
 
 import numpy as np
 
@@ -34,9 +40,6 @@ from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
 
-_FUSED_STEP = ("the one-graph fused training step (module/spmd_adapter.py), which the "
-               "port has not yet (ROADMAP.md section 1.4b)")
-
 
 class Module(BaseModule):
     """(reference: module.py:22)"""
@@ -45,7 +48,9 @@ class Module(BaseModule):
                  logger=logging, context=None, work_load_list=None, fixed_param_names=None,
                  fused_step=True):
         super().__init__(logger=logger)
+        # fused_step=False keeps the per-device + kvstore execution
         self._fused_step_ok = bool(fused_step)
+        self._spmd = None
         if context is None:
             context = current_context()
         if isinstance(context, Context):
@@ -70,6 +75,7 @@ class Module(BaseModule):
         self._arg_params = None
         self._aux_params = None
         self._params_dirty = False
+        self._exec_version = None  # the fused step's params version the executors hold
 
         self._optimizer = None
         self._kvstore = None
@@ -77,7 +83,7 @@ class Module(BaseModule):
         self._updater = None
         self._exec_group = None
         self._preload_opt_states = None
-        self._skipped_steps = 0  # anomaly-guard skips
+        self._skipped_steps = 0  # anomaly-guard skips on the per-device path
 
     # ------------------------------------------------------------ properties
     @property
@@ -120,7 +126,12 @@ class Module(BaseModule):
         return (self._arg_params, self._aux_params)
 
     def _sync_params_from_devices(self):
-        self._exec_group.get_params(self._arg_params, self._aux_params)
+        if self._spmd is not None:
+            # the trainer's tensors are the params: the executors only
+            # hold them as of their last refresh
+            self._spmd.export_params(self._arg_params, self._aux_params)
+        else:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
         self._params_dirty = False
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
@@ -162,6 +173,11 @@ class Module(BaseModule):
         self.params_initialized = True
         self._params_dirty = False
         self._exec_group.set_params(self._arg_params, self._aux_params)
+        if self._spmd is not None:
+            # params (re)loaded after the fused step was set up: the trainer
+            # copies them into its tensors
+            self._spmd.adopt_params(self._arg_params, self._aux_params)
+            self._exec_version = self._spmd.params_version
 
     def set_params(self, arg_params, aux_params, allow_missing=False, force_init=True):
         if not allow_missing:
@@ -173,6 +189,8 @@ class Module(BaseModule):
         self._exec_group.set_params(arg_params, aux_params)
         self._params_dirty = True
         self.params_initialized = True
+        if self._spmd is not None:
+            self._spmd.adopt_params(arg_params or {}, aux_params or {})
 
     # --------------------------------------------------------------- binding
     def bind(self, data_shapes, label_shapes=None, for_training=True, inputs_need_grad=False,
@@ -239,9 +257,6 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if os.environ.get("MXNET_MODULE_FUSED_STEP", "") == "1" and self._fused_step_ok:
-            raise MXNetError("MXNET_MODULE_FUSED_STEP=1: " + _FUSED_STEP)
-
         from ..kvstore_helper import create_kvstore
 
         kvstore_obj, update_on_kvstore = create_kvstore(kvstore, len(self._context),
@@ -271,6 +286,24 @@ class Module(BaseModule):
         self._kvstore = kvstore_obj
         self._update_on_kvstore = update_on_kvstore
         self._updater = None
+
+        # several distinct contexts (or a dist sync store): forward, backward
+        # and the update as one fused step, on the card one CUDA graph
+        from . import spmd_adapter
+
+        self._spmd = spmd_adapter.try_create(self, kvstore_obj)
+        if self._spmd is not None:
+            self.logger.info(
+                "Module: fused SPMD step active over %d device(s)%s",
+                self._spmd.trainer.mesh.size,
+                " (multi-process)" if self._spmd.trainer._spans_processes else "")
+            self._update_on_kvstore = False
+            self.optimizer_initialized = True
+            if self._preload_opt_states is not None:
+                self.load_optimizer_states(self._preload_opt_states)
+                self._preload_opt_states = None
+            return
+
         if kvstore_obj:
             # the initialized params go into the store; updates flow through it
             from ..kvstore_helper import initialize_kvstore
@@ -296,11 +329,39 @@ class Module(BaseModule):
         self._kvstore = shared_module._kvstore
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
+        if shared_module._spmd is not None:
+            # bucketing over the fused step: this bucket gets its own step
+            # for its shapes, sharing the donor's state cell
+            from . import spmd_adapter
+
+            self._spmd = spmd_adapter.derive(self, shared_module._spmd)
+            if self._spmd is None:
+                raise MXNetError(
+                    "bucket module cannot share the fused SPMD step (see "
+                    "warning above); rebuild the BucketingModule with "
+                    "fused_step=False or set MXNET_MODULE_FUSED_STEP=0")
+            self._update_on_kvstore = False
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------- train step
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        if self._spmd is not None:
+            # batches still buffered for a training megastep land before a
+            # plain forward reads the params
+            self._spmd.flush()
+            version = self._spmd.params_version
+            if version != self._exec_version:
+                # the fused step (through this module or a bucket sharing its
+                # state) wrote the trainer's tensors: refresh the executors
+                self._sync_params_from_devices()
+                self._exec_group.set_params(self._arg_params, self._aux_params)
+                self._exec_version = version
+            # this forward's outputs now own get_outputs/update_metric; the
+            # undrained train metric pairs must not leak into a validation
+            # metric (fit() drains them via flush_pending_steps first)
+            self._spmd._outputs = None
+            self._spmd._metric_pairs = []
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -308,14 +369,22 @@ class Module(BaseModule):
         self._exec_group.backward(out_grads=out_grads)
 
     def forward_backward(self, data_batch):
-        """One training step's forward and backward on the bound executor."""
+        """One training step's forward and backward on the bound executor;
+        with the fused step, forward, backward and the update as one step."""
         assert self.binded and self.params_initialized
+        if self._spmd is not None:
+            self._params_dirty = True
+            self._spmd.step(data_batch)
+            return
         self._exec_group.forward_backward(data_batch)
 
     @property
     def skipped_steps(self):
         """Steps dropped by the NaN/Inf anomaly guard
-        (``MXNET_ANOMALY_GUARD=skip``)."""
+        (``MXNET_ANOMALY_GUARD=skip``): the fused step's on its trainer,
+        the per-device path's here."""
+        if self._spmd is not None:
+            return self._spmd.trainer.skipped_steps
         return self._skipped_steps
 
     def _first_nonfinite_grad(self):
@@ -331,6 +400,16 @@ class Module(BaseModule):
     def update(self):
         """(reference: module.py update → model.py _update_params)"""
         assert self.binded and self.params_initialized and self.optimizer_initialized
+        if self._spmd is not None:
+            if not self._spmd.consume_pending_step():
+                # a manual forward()/backward() ran through the exec group:
+                # the fused step never fired, so returning would train nothing
+                raise MXNetError(
+                    "update() without forward_backward() in fused-SPMD mode: "
+                    "use forward_backward(), or build the Module with "
+                    "fused_step=False (or MXNET_MODULE_FUSED_STEP=0) for the "
+                    "manual forward/backward/update loop")
+            return  # the optimizer already ran inside the fused step
         guard = anomaly_guard_mode()
         if guard is not None and self._kvstore is not None and "dist" in self._kvstore.type:
             # a rank-LOCAL skip would desynchronize the gradient collective
@@ -394,6 +473,9 @@ class Module(BaseModule):
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
+        if self._spmd is not None and self._spmd._outputs is not None:
+            outs = self._spmd.get_outputs()
+            return outs if merge_multi_context else [[o] for o in outs]
         return self._exec_group.get_outputs(merge_multi_context=merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
@@ -401,10 +483,29 @@ class Module(BaseModule):
         return self._exec_group.get_input_grads(merge_multi_context=merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
+        if self._spmd is not None and self._spmd.update_metric(eval_metric, labels):
+            return
         self._exec_group.update_metric(eval_metric, labels)
+
+    def flush_pending_steps(self, eval_metric=None):
+        """Dispatch batches still buffered for a training megastep
+        (``MXNET_TRAIN_MEGASTEP_N`` > 1) and, when ``eval_metric`` is given,
+        drain their metric rows. fit() calls this at each epoch tail so a
+        partial final buffer still trains and still scores."""
+        if self._spmd is None or self._spmd._megastep_n <= 1:
+            return
+        self._spmd.flush()
+        if eval_metric is not None:
+            self._spmd.drain_metric(eval_metric)
 
     def install_monitor(self, mon):
         assert self.binded
+        self._monitor_installed = True
+        if self._spmd is not None:
+            self.logger.warning(
+                "Monitor stats are not collected by the fused SPMD step; "
+                "build the Module with fused_step=False to monitor per-op "
+                "outputs")
         self._exec_group.install_monitor(mon)
 
     # ----------------------------------------------------------- persistence
@@ -413,12 +514,14 @@ class Module(BaseModule):
         ``os.replace``); through the store's when the store runs the
         optimizer."""
         assert self.optimizer_initialized
-        if self._update_on_kvstore:
-            self._kvstore.save_optimizer_states(fname)
-            return
         from ..checkpoint import atomic_write_bytes
 
-        atomic_write_bytes(fname, self._updater.get_states())
+        if self._spmd is not None:
+            atomic_write_bytes(fname, self._spmd.get_states())
+        elif self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+        else:
+            atomic_write_bytes(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """Inverse of ``save_optimizer_states``; a file the JAX package wrote
@@ -427,13 +530,22 @@ class Module(BaseModule):
         were saved from. A torn or corrupt file raises a structured
         ``MXNetError`` naming ``fname``."""
         assert self.optimizer_initialized
-        if self._update_on_kvstore:
+        if self._update_on_kvstore and self._spmd is None:
             self._kvstore.load_optimizer_states(fname)
             return
         from ..convert import load_states, states_on_context
 
         with open(fname, "rb") as f:
             blob = f.read()
+        if self._spmd is not None:
+            try:
+                self._spmd.set_states(blob)
+            except Exception as e:
+                raise MXNetError(
+                    "optimizer-state file %r is torn or not a fused-step state pickle "
+                    "(%s: %s) — likely a crash mid-save; delete it and resume "
+                    "from the previous checkpoint" % (fname, type(e).__name__, e)) from e
+            return
         try:
             states = load_states(blob)
         except Exception as e:

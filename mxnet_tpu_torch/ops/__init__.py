@@ -13,7 +13,9 @@ from . import registry  # noqa: F401
 from . import elemwise, broadcast_reduce, matrix, nn, attention, optimizer_ops, sample, rnn  # noqa: F401
 from . import vision, sequence, ctc, custom  # noqa: F401
 from . import flash_attention, norm_residual, matmul_bias_act, conv_bn, matmul_stats  # noqa: F401
-from .registry import get_op, list_ops  # noqa: F401
+from .registry import AttrSpec, OpDef, get_op, has_op, list_ops, parse_attrs, register  # noqa: F401
+
+__all__ = ["AttrSpec", "OpDef", "get_op", "has_op", "list_ops", "parse_attrs", "register"]
 
 #: kernel name -> (its module, the module's plain-integer launch counter). rtc
 #: lives above this package (it returns NDArrays, which import the ops), so it

@@ -81,7 +81,30 @@ def _flat_adam(hyper):
     return fn
 
 
-FLAT_KERNELS = {"sgd": _flat_sgd, "adam": _flat_adam}
+def _flat_nag(hyper):
+    """Nesterov momentum as the fused SPMD step writes it (JAX
+    ``parallel/optim.py:69-79``): m = mu·m − lr·g', w + mu·m − lr·g' with
+    g' the prepped gradient plus wd·w. The ``NAG`` class's per-key update
+    has the reference's other form, so its ``flat_update_spec`` stays None
+    and only ``parallel/optim.py`` reads this kernel."""
+    rg, clip = hyper["rescale_grad"], hyper["clip_gradient"]
+    mu = hyper["momentum"]
+
+    def fn(w, g, states, lr, wd):
+        g = g * rg
+        if clip and clip > 0:
+            g = torch.clamp(g, -clip, clip)
+        g = g + wd * w
+        if mu:
+            (mom,) = states
+            new_mom = mu * mom - lr * g
+            return w + mu * new_mom - lr * g, (new_mom,)
+        return w - lr * g, ()
+
+    return fn
+
+
+FLAT_KERNELS = {"sgd": _flat_sgd, "nag": _flat_nag, "adam": _flat_adam}
 
 
 def flat_kernel(kind, hyper):

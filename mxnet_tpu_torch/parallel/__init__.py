@@ -1,0 +1,26 @@
+"""The fused training step's parallel core.
+
+Counterpart of ``mxnet_tpu/parallel/`` (``mesh.py``, ``sharding.py``,
+``optim.py``, ``trainer.py``): forward, backward, the gradient sum over the
+mesh and the optimizer update as one step over flat buffers, on the card
+one CUDA graph a batch shape (``trainer.py``). ``module/spmd_adapter.py``
+puts ``Module.fit`` on it. The planner (``autoplan.py``: ``plan_parallel``,
+``ParallelPlan``, ``PlanError``) and ring attention come with ROADMAP.md
+section 1.4b step 4 and section 1.8.
+"""
+from .mesh import make_mesh, local_mesh, MeshSpec, parse_mesh_spec
+from .sharding import ShardingRules, param_pspec, shardable_dims
+from .optim import make_functional_optimizer
+from .trainer import SPMDTrainer
+
+__all__ = [
+    "make_mesh",
+    "local_mesh",
+    "MeshSpec",
+    "parse_mesh_spec",
+    "ShardingRules",
+    "param_pspec",
+    "shardable_dims",
+    "make_functional_optimizer",
+    "SPMDTrainer",
+]

@@ -289,3 +289,133 @@ def test_every_shared_public_callable_has_the_references_signature():
     assert gaps == SIGNATURE_EXCEPTIONS, (
         "new gaps: %s; closed exceptions to remove: %s"
         % (sorted(gaps - SIGNATURE_EXCEPTIONS), sorted(SIGNATURE_EXCEPTIONS - gaps)))
+
+
+# ---------------------------------------------------------------- F5
+@pytest.mark.parametrize("value", ["cpu", "cpu:1"])
+def test_f5_default_context_follows_the_environment(value):
+    """``MXNET_DEFAULT_CONTEXT`` names the default context in both packages
+    (JAX ``context.py:125-135``), read in a fresh process each; under
+    ``cpu`` the port's process group backend is gloo."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import {pkg} as m; c = m.current_context(); print(c.device_type, c.device_id)"
+            "{extra}")
+    extra = {"mxnet_tpu": "",
+             "mxnet_tpu_torch": "; from mxnet_tpu_torch import dist; print(dist._default_backend())"}
+    got = {}
+    for pkg in ("mxnet_tpu", "mxnet_tpu_torch"):
+        env = dict(os.environ, MXNET_DEFAULT_CONTEXT=value, JAX_PLATFORMS="cpu")
+        out = subprocess.run([sys.executable, "-c", code.format(pkg=pkg, extra=extra[pkg])],
+                             env=env, capture_output=True, text=True, timeout=300,
+                             cwd=str(Path(__file__).resolve().parents[1]), check=True)
+        got[pkg] = out.stdout.split()
+    name, _, idx = value.partition(":")
+    assert got["mxnet_tpu"] == [name, idx or "0"]
+    assert got["mxnet_tpu_torch"] == [name, idx or "0", "gloo"]
+
+
+def test_f5_a_with_block_wins_and_a_gpu_default_does_not_fall_back(monkeypatch):
+    monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "cpu:2")
+    assert pt.current_context() == pt.cpu(2)
+    with pt.cpu(5):
+        assert pt.current_context() == pt.cpu(5)
+    assert pt.current_context() == pt.cpu(2)
+    monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "gpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pt.current_context() == pt.gpu(0)
+    from mxnet_tpu_torch import dist
+
+    with pytest.raises(pt.MXNetError, match="CUDA is not available"):
+        dist._default_backend()
+
+
+# ---------------------------------------------------------------- F6
+_STEP2 = "ROADMAP.md section 1.4b step 2 (checkpoint.Checkpointer)"
+_STEP3 = "ROADMAP.md section 1.4b step 3 (module/elastic.py)"
+_STEP4 = "ROADMAP.md section 1.4b step 4 (the planner, the analysis passes)"
+_TOOLING = "ROADMAP.md section 1.5 (tooling: fusion, profiler and lint families)"
+_FLEET = "ROADMAP.md section 1, item 6 (the serving fleet)"
+_NO_TPU = "the port targets no TPU"
+
+#: (module, name) of the reference's ``__all__`` that the port lacks, each
+#: with the queued item it waits on or the reason it never comes
+ALL_EXCEPTIONS = {
+    ("", "tpu"): _NO_TPU,
+    ("context", "tpu"): _NO_TPU,
+    ("context", "num_tpus"): _NO_TPU,
+    ("parallel", "ParallelPlan"): _STEP4,
+    ("parallel", "PlanError"): _STEP4,
+    ("parallel", "plan_parallel"): _STEP4,
+    ("parallel.mesh", "shard_map_compat"): "JAX's shard_map; the port runs a mesh's shards "
+                                           "as one program (parallel/trainer.py)",
+    ("module", "ElasticFit"): _STEP3,
+    ("module", "PipelineExecutorGroup"): _STEP4,
+    ("serving", "fleet"): _FLEET,
+    **{("checkpoint", n): _STEP2 for n in (
+        "Checkpointer", "checkpoint_dir", "latest_complete", "load_manifest",
+        "read_flat_buckets", "read_local_shard", "read_extra", "per_key_states", "step_dir",
+        "list_steps", "read_shard_set", "read_sparse_tables", "sparse_shard_arrays",
+        "sparse_manifest_section", "apply_retention", "read_sharded_pointer")},
+    **{("analysis", n): _STEP4 for n in (
+        "CODES", "Diagnostic", "Report", "Severity", "describe_code", "GraphContext",
+        "graph_pass", "list_passes", "run_graph_passes")},
+    **{("analysis", n): _TOOLING for n in (
+        "RecordingEngine", "ScheduleTrace", "analyze_trace", "lint", "lint_bind",
+        "graphlint_mode", "verify_rewrite", "graphrewrite_mode", "RewritePass",
+        "RewriteResult", "rewrite_pass_names", "pattern_site_counts", "lint_dispatch_paths",
+        "lint_dispatch_source", "lint_dispatch_gaps", "dispatch_gap_pct")},
+    **{("analysis.rewrite", n): _TOOLING for n in (
+        "verify_rewrite", "graphrewrite_mode", "RewritePass", "RewriteResult",
+        "rewrite_pass_names", "pattern_site_counts")},
+    **{("fusion", n): _TOOLING for n in (
+        "gate", "gate_explain", "bwd_mode", "infer_default", "quant_mode", "enabled_patterns",
+        "gate_pattern_explain", "conv_schedule", "losers_note", "attention_trains_flash")},
+    **{("ops.fusion_patterns", n): _TOOLING for n in ("sig_of", "tuner_build")},
+}
+
+
+def _all_gaps():
+    """(module, name) of every name in a reference module's ``__all__``
+    (the top level's too) that the port's module of the same name lacks."""
+    gaps = set()
+    rels = [""] + [info.name[len("mxnet_tpu_torch."):]
+                   for info in pkgutil.walk_packages(pt.__path__, "mxnet_tpu_torch.")]
+    for rel in rels:
+        port_mod = importlib.import_module("mxnet_tpu_torch" + ("." + rel if rel else ""))
+        try:
+            ref_mod = importlib.import_module("mxnet_tpu" + ("." + rel if rel else ""))
+        except ImportError:
+            continue
+        for name in getattr(ref_mod, "__all__", ()):
+            if not hasattr(port_mod, name):
+                gaps.add((rel, name))
+    return gaps
+
+
+def test_f6_every_shared_modules_all_names_exist_in_the_port():
+    gaps = _all_gaps()
+    want = set(ALL_EXCEPTIONS)
+    assert gaps == want, ("new gaps: %s; closed exceptions to remove: %s"
+                          % (sorted(gaps - want), sorted(want - gaps)))
+
+
+def test_f6_the_names_the_port_lacked_are_the_references():
+    assert pt.AttrScope is pt.attribute.AttrScope
+    with pt.AttrScope(ctx_group="dev1"):
+        a = pt.sym.Variable("a")
+    with mx.AttrScope(ctx_group="dev1"):
+        b = mx.sym.Variable("a")
+    assert a.tojson() == b.tojson()
+    for name in ("_create_kvstore", "_initialize_kvstore", "_update_params_on_kvstore",
+                 "_update_params"):
+        assert getattr(pt.model, name) is getattr(pt.kvstore_helper, name[1:])
+        _same_signature(getattr(mx.model, name), getattr(pt.model, name))
+    for name in ("AttrSpec", "OpDef", "has_op", "parse_attrs", "register", "get_op",
+                 "list_ops"):
+        assert getattr(pt.ops, name) is getattr(pt.ops.registry, name)
+    assert pt.base.string_types == mx.base.string_types
+    assert pt.base.numeric_types == mx.base.numeric_types

@@ -611,7 +611,10 @@ def test_rtc_two_inputs_and_more_outputs_than_inputs(dev):
     assert ops.launch_counts()["rtc"] == 1
 
 
-def test_rtc_bad_source_raises_with_the_compilers_message(dev):
+def test_rtc_bad_source_raises_with_the_compilers_message(dev, monkeypatch):
+    # no input: the push runs on the default context, the card when no
+    # variable names another (tests/conftest.py sets one for JAX)
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     k = pt.rtc.Rtc("broken", 'extern "C" __global__ void kernel(float* y) { y[0] = nope; }',
                    grid=1, block=1)
     with pytest.raises(MXNetError, match="nope"):
@@ -1204,3 +1207,166 @@ def test_two_contexts_on_one_card_match_one_context(dev):
         results.append({k: v.asnumpy() for k, v in args.items()})
     for k in results[0]:
         np.testing.assert_allclose(results[1][k], results[0][k], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------ the fused step's CUDA graph
+def _mlp_trainer(dev_ctx, seed=5, opt="sgd", **opt_params):
+    mesh = pt.parallel.make_mesh((1,), ("data",), [dev_ctx])
+    net = pt.models.get_symbol("mlp", num_classes=10)
+    tr = pt.parallel.SPMDTrainer(net, mesh, optimizer=opt,
+                                 optimizer_params=opt_params or {"learning_rate": 0.1,
+                                                                 "momentum": 0.9,
+                                                                 "rescale_grad": 1.0 / 32})
+    tr.init_params({"data": (32, 784)}, {"softmax_label": (32,)}, seed=seed)
+    return tr
+
+
+def _mlp_batches(n, seed=2):
+    rs = np.random.RandomState(seed)
+    return [({"data": rs.rand(32, 784).astype(np.float32)},
+             {"softmax_label": rs.randint(0, 10, 32).astype(np.float32)}) for _ in range(n)]
+
+
+def test_fused_step_is_one_cuda_graph_and_matches_the_cpu(dev):
+    """The first step runs eagerly and captures the graph; the next four
+    replay it, with kernel 6's launches counted at each replay. The card's
+    params after 5 steps equal the CPU trainer's (rtol 1e-4, atol 1e-5)."""
+    from mxnet_tpu_torch import ops
+
+    card, cpu = _mlp_trainer(pt.gpu(0)), _mlp_trainer(pt.cpu())
+    cpu.set_params(card.get_params()[0])
+    batches = _mlp_batches(5)
+    ops.reset_launch_counts()
+    card.step(*batches[0])
+    torch.cuda.synchronize()
+    first = ops.launch_counts()["matmul_bias_act"]
+    assert first == 2 and len(card._graphs) == 1
+    (graph,) = card._graphs.values()
+    assert graph.replay_launches[0]["matmul_bias_act"] == 2
+    for d, lab in batches[1:]:
+        card.step(d, lab)
+    torch.cuda.synchronize()
+    assert graph.replays == 4
+    assert ops.launch_counts()["matmul_bias_act"] == first + 4 * 2
+    for d, lab in batches:
+        cpu.step(d, lab)
+    want = cpu.get_params()[0]
+    for k, v in card.get_params()[0].items():
+        np.testing.assert_allclose(v, want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+    # a replaced state tensor is refused, not silently ignored
+    card._state.aux["x"] = torch.zeros(1, device=dev)
+    with pytest.raises(MXNetError, match="captured on"):
+        card.step(*batches[0])
+
+
+def _mlp_reference64(params, batches, opt, opt_params):
+    """The ``mlp`` trained in float64 by torch autograd on the CPU, with
+    the fused step's update (``optimizer.FLAT_KERNELS``' formulas: SGD
+    with momentum, Adam with its bias-corrected lr)."""
+    p = opt_params
+    w = {k: torch.tensor(v, dtype=torch.float64, requires_grad=True) for k, v in params.items()}
+    states = {k: [torch.zeros_like(v), torch.zeros_like(v)] for k, v in w.items()}
+    for t, (d, lab) in enumerate(batches, 1):
+        h = torch.tensor(d["data"], dtype=torch.float64)
+        for i in (1, 2, 3):
+            h = h @ w["fc%d_weight" % i].T + w["fc%d_bias" % i]
+            h = torch.relu(h) if i < 3 else h
+        loss = torch.nn.functional.cross_entropy(
+            h, torch.tensor(lab["softmax_label"]).long(), reduction="sum")
+        grads = torch.autograd.grad(loss, list(w.values()))
+        with torch.no_grad():
+            for (k, v), g in zip(w.items(), grads):
+                g = g * p["rescale_grad"] + p.get("wd", 0.0) * v
+                m, s = states[k]
+                if opt == "adam":
+                    m.mul_(0.9).add_(0.1 * g)
+                    s.mul_(0.999).add_(0.001 * g * g)
+                    lr = p["learning_rate"] * np.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)
+                    v -= lr * m / (torch.sqrt(s) + 1e-8)
+                else:
+                    m.mul_(p["momentum"]).sub_(p["learning_rate"] * g)
+                    v += m
+    return {k: v.detach().numpy() for k, v in w.items()}
+
+
+# how much farther from float64 than the CPU's float32 params the card's
+# may lie where the two miss rtol 1e-4, atol 1e-5 of each other. Adam
+# divides by sqrt(v), so a gradient near zero (a sum that cancels) turns a
+# float32 rounding difference into an update of up to lr: the CPU's own
+# params miss float64 at that tolerance in a few elements, and so do the
+# CPU's with the batch rows summed in another order. The factor is the one
+# chip_smoke.py holds a chaotic gradient to (RESNET_F64_FACTOR)
+F64_FACTOR = 8.0
+
+
+@pytest.mark.parametrize("opt,opt_params", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4, "rescale_grad": 1.0 / 32}),
+    ("adam", {"learning_rate": 0.01, "rescale_grad": 1.0 / 32})])
+@pytest.mark.parametrize("seed", [3, 7, 11, 19])
+def test_fused_step_matches_the_cpu_over_seeds_and_optimizers(dev, seed, opt, opt_params):
+    """Eight card steps (one eager, seven replays) against the CPU trainer
+    from the same weights and batches, for each seed and optimizer: each
+    param within rtol 1e-4, atol 1e-5 of the CPU's (the test above's
+    tolerance), or, where it is not, no farther from a float64 run than
+    F64_FACTOR times the CPU's own distance."""
+    card = _mlp_trainer(pt.gpu(0), seed=seed, opt=opt, **opt_params)
+    cpu = _mlp_trainer(pt.cpu(), seed=seed, opt=opt, **opt_params)
+    init = card.get_params()[0]
+    cpu.set_params(init)
+    batches = _mlp_batches(8, seed=seed + 1)
+    for d, lab in batches:
+        card.step(d, lab)
+        cpu.step(d, lab)
+    (graph,) = card._graphs.values()
+    assert graph.replays == 7
+    got, want = card.get_params()[0], cpu.get_params()[0]
+    ref = _mlp_reference64(init, batches, opt, opt_params)
+    for k in want:
+        if np.allclose(got[k], want[k], rtol=1e-4, atol=1e-5):
+            continue
+        card64, cpu64 = np.abs(got[k] - ref[k]).max(), np.abs(want[k] - ref[k]).max()
+        assert card64 <= F64_FACTOR * cpu64, (k, card64, cpu64)
+
+
+def test_fused_step_schedule_moves_inside_the_graph(dev, monkeypatch):
+    """lr is a device tensor read inside the graph: a FactorScheduler that
+    drops it by 1e-8 after step 1 freezes the params on the card as on the
+    CPU (atol 1e-6)."""
+    sched = pt.lr_scheduler.FactorScheduler(step=1, factor=1e-8)
+    net = pt.models.get_symbol("mlp", num_classes=10)
+    monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "1")
+    mod = pt.mod.Module(net, context=pt.gpu(0))
+    mod.bind(data_shapes=[("data", (32, 784))], label_shapes=[("softmax_label", (32,))])
+    mod.init_params(initializer=pt.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=(
+        ("learning_rate", 0.5), ("momentum", 0.0), ("lr_scheduler", sched)))
+    monkeypatch.delenv("MXNET_MODULE_FUSED_STEP")
+    assert mod._spmd is not None
+    batches = [pt.io.DataBatch(data=[pt.nd.array(d["data"], ctx=pt.gpu(0))],
+                               label=[pt.nd.array(lab["softmax_label"], ctx=pt.gpu(0))])
+               for d, lab in _mlp_batches(4, seed=3)]
+    mod.forward_backward(batches[0])
+    mod.update()
+    after_1 = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    for b in batches[1:]:
+        mod.forward_backward(b)
+        mod.update()
+    assert next(iter(mod._spmd.trainer._graphs.values())).replays == 3
+    for k, v in mod.get_params()[0].items():
+        np.testing.assert_allclose(v.asnumpy(), after_1[k], rtol=0, atol=1e-6)
+
+
+def test_step_many_n4_is_bitwise_eight_single_steps_on_the_card(dev):
+    batches = _mlp_batches(8)
+    lrs = [0.1 - 0.01 * i for i in range(8)]
+    one, four = _mlp_trainer(pt.gpu(0)), _mlp_trainer(pt.gpu(0))
+    for (d, lab), lr in zip(batches, lrs):
+        one.step(d, lab, lr=lr)
+    for i in (0, 4):
+        four.step_many([d for d, _ in batches[i:i + 4]], [lab for _, lab in batches[i:i + 4]],
+                       lrs=lrs[i:i + 4])
+    (graph,) = [g for key, g in four._graphs.items() if key[0] == 4]
+    assert graph.replays == 1 and len(four._graphs) == 1
+    want = one.get_params()[0]
+    for k, v in four.get_params()[0].items():
+        assert np.array_equal(v, want[k]), k

@@ -269,6 +269,8 @@ def test_resume_or_init_matches_the_reference(tmp_path):
 
 def test_deploy_entry_points_default_to_the_gpu(tmp_path, monkeypatch):
     prefix, json_str, blob, _, _, shape = _jax_checkpoint(tmp_path, "mlp")
+    # the default no variable names (tests/conftest.py sets one for JAX)
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: Predictor(json_str, blob, {"data": shape}),
                  lambda: load_ndarray_file(blob),

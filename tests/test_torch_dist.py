@@ -10,9 +10,12 @@ launch has a timeout of its own, well under a minute of work.
 * ``dist_sync`` training of the MNIST ``mlp`` (784-128-64-10), each rank on
   its half of every batch of 32, three SGD-momentum steps: both ranks end
   with the same bits, and those equal the JAX package's single-process
-  ``Module`` over ``[cpu(0), cpu(1)]`` on the whole batches (rtol 1e-4,
-  atol 1e-5).
-* The same through the bucketed engine with ``MXNET_KVSTORE_UPDATE=sharded``
+  ``Module`` over ``[cpu(0), cpu(1)]`` (its fused step) on the whole
+  batches (rtol 1e-4, atol 1e-5). Through the fused step (a ``dist*`` sync
+  store engages it, as in JAX: each rank's gradients are summed over the
+  ranks inside the step) and, with ``MXNET_MODULE_FUSED_STEP=0``, through
+  the per-device path and the store.
+* The per-device path through the bucketed engine with ``MXNET_KVSTORE_UPDATE=sharded``
   (reduce-scatter, the flat update on each rank's half, all-gather; same
   tolerance) and with ``MXNET_KVSTORE_COMM_DTYPE=bf16`` (gradients on the
   wire in bf16: within rtol 1e-2, atol 1e-3 of JAX's float32 run), plus a
@@ -24,6 +27,8 @@ launch has a timeout of its own, well under a minute of work.
   ``kvstore.bytes.sparse`` by the padded wire formula) and untouched rows
   bit for bit rank 0's initial table (rank 1 started from another table:
   ``init`` adopts rank 0's).
+* The fused step refuses BatchNorm across ranks, naming ROADMAP.md section
+  1.4b step 4.
 """
 import os
 import subprocess
@@ -73,6 +78,9 @@ if mode == "mlp":
         kv = mod._kvstore
         assert kv.num_workers == 2 and kv.rank == rank
         out = {"w_" + k: v.asnumpy() for k, v in args.items()}
+        out["fused"] = np.array(mod._spmd is not None)
+        if mod._spmd is not None:
+            out["processes"] = np.array(mod._spmd.trainer.mesh.process_count)
         engine = kv._bucket_engine
         out["engine_mode"] = np.array(engine.mode if engine is not None else "none")
         out.update({"c_" + k: np.array(v) for k, v in counters(
@@ -87,6 +95,22 @@ if mode == "mlp":
             out["probe"] = got.asnumpy()
             out["probe_wire"] = np.array(probe._bucket_engine.plan.buckets[0].comm_dtype)
     np.savez(os.path.join(tmp, "out%d.npz" % rank), **out)
+
+elif mode == "bn":
+    with ctx:
+        data = pt.sym.Variable("data")
+        net = pt.sym.FullyConnected(data, num_hidden=8, name="fc")
+        net = pt.sym.BatchNorm(net, name="bn")
+        net = pt.sym.SoftmaxOutput(net, name="softmax")
+        mod = pt.mod.Module(net, context=ctx)
+        mod.bind(data_shapes=[("data", (4, 6))], label_shapes=[("softmax_label", (4,))])
+        mod.init_params()
+        try:
+            mod.init_optimizer(kvstore="dist_sync", optimizer="sgd")
+            raised = ""
+        except pt.MXNetError as e:
+            raised = str(e)
+    np.savez(os.path.join(tmp, "out%d.npz" % rank), raised=np.array(raised))
 
 elif mode == "sparse":
     case = np.load(os.path.join(tmp, "case.npz"))
@@ -156,7 +180,9 @@ def _jax_reference(x, y, params):
                                          ("replicated", "bf16")])
 def test_dist_sync_mlp_matches_jax_single_process(tmp_path, update, wire):
     x, y, params = _mlp_case(tmp_path)
-    env = {"MXNET_KVSTORE_UPDATE": update}
+    # the per-device path and the store's engine (a dist store engages the
+    # fused step unless asked not to)
+    env = {"MXNET_KVSTORE_UPDATE": update, "MXNET_MODULE_FUSED_STEP": "0"}
     if wire == "bf16":
         env["MXNET_KVSTORE_COMM_DTYPE"] = "bf16"
     outs = _launch(tmp_path, "mlp", env)
@@ -166,6 +192,7 @@ def test_dist_sync_mlp_matches_jax_single_process(tmp_path, update, wire):
         np.testing.assert_array_equal(outs[0]["w_" + k], outs[1]["w_" + k], err_msg=k)
         np.testing.assert_allclose(outs[0]["w_" + k], want, err_msg=k, **tol)
     for o in outs:
+        assert not bool(o["fused"])
         # the bucket engine ran: one plan, async flushes, the JAX byte formulas
         assert str(o["engine_mode"]) == update
         assert int(o["c_kvstore.bucket_flushes"]) > 0
@@ -181,6 +208,30 @@ def test_dist_sync_mlp_matches_jax_single_process(tmp_path, update, wire):
         for o in outs:
             assert str(o["probe_wire"]) == "bfloat16"
             np.testing.assert_array_equal(o["probe"], np.full(8, want, np.float32))
+
+
+def test_dist_sync_fused_step_matches_jax_single_process(tmp_path):
+    """Two gloo ranks, each feeding half the rows, through the fused step:
+    the gradients are summed over the ranks inside the step, both ranks end
+    with the same bits, equal to the JAX package's single-process fused
+    Module over [cpu(0), cpu(1)] (rtol 1e-4, atol 1e-5); the store's
+    engine never runs."""
+    x, y, params = _mlp_case(tmp_path)
+    outs = _launch(tmp_path, "mlp")
+    ref = _jax_reference(x, y, params)
+    for k, want in ref.items():
+        np.testing.assert_array_equal(outs[0]["w_" + k], outs[1]["w_" + k], err_msg=k)
+        np.testing.assert_allclose(outs[0]["w_" + k], want, rtol=RTOL, atol=ATOL, err_msg=k)
+    for o in outs:
+        assert bool(o["fused"]) and int(o["processes"]) == 2
+        assert str(o["engine_mode"]) == "none" or int(o["c_kvstore.bucket_flushes"]) == 0
+
+
+def test_dist_fused_step_refuses_batchnorm_across_ranks(tmp_path):
+    outs = _launch(tmp_path, "bn")
+    for o in outs:
+        assert "BatchNorm across 2 processes" in str(o["raised"])
+        assert "1.4b step 4" in str(o["raised"])
 
 
 def test_dist_sparse_round_unions_rows_and_updates_lazily(tmp_path):

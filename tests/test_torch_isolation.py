@@ -110,6 +110,8 @@ print("ok")
 
 
 def test_entry_points_default_to_the_gpu_and_do_not_fall_back(monkeypatch):
+    # the default no variable names (tests/conftest.py sets one for JAX)
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert pt.current_context() == pt.gpu(0)
     with pytest.raises(pt.MXNetError, match="CUDA is not available"):

@@ -18,6 +18,7 @@ against the JAX package's.
   port's file goes back to the JAX store, every state equal.
 """
 import importlib
+import os
 import pickle
 import threading
 import time
@@ -170,6 +171,40 @@ def test_multi_context_optimizer_states_match_jax_key_for_key():
     assert sorted(states[0]) == sorted(states[1]) == list(range(8))
     for k in states[0]:
         np.testing.assert_allclose(states[1][k], states[0][k], rtol=1e-4, atol=1e-5)
+
+
+def test_multi_context_fused_step_matches_jax():
+    """The same two steps over the distinct contexts [cpu(0), cpu(1)] in
+    both packages, fused step on (the default there): the weights and the
+    momentum within rtol 2e-4, atol 2e-5 (the fused step's tolerance,
+    ``tests/test_module_spmd.py``)."""
+    x, y = _synthetic_classification(n=40, seed=5)
+    rs = np.random.RandomState(2)
+    params = {"fc1_weight": rs.randn(64, 20).astype("f") * 0.1,
+              "fc1_bias": np.zeros(64, "f"),
+              "fc2_weight": rs.randn(5, 64).astype("f") * 0.1,
+              "fc2_bias": np.zeros(5, "f")}
+    got = []
+    for mx in (mxnet_tpu, pt):
+        with (pt.cpu() if mx is pt else _Null()):
+            mod = mx.mod.Module(mlp_symbol(mx), context=[mx.cpu(0), mx.cpu(1)])
+            mod.bind(data_shapes=[("data", (40, 20))], label_shapes=[("softmax_label", (40,))])
+            mod.init_params(arg_params={k: mx.nd.array(v) for k, v in params.items()})
+            mod.init_optimizer(kvstore="local", optimizer="sgd",
+                               optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)))
+            assert mod._spmd is not None
+            batch = mx.io.DataBatch(data=[mx.nd.array(x)], label=[mx.nd.array(y)], pad=0,
+                                    index=None)
+            for _ in range(2):
+                mod.forward_backward(batch)
+                mod.update()
+            mom = mod._spmd.trainer.opt_state["mom"]
+            got.append(({k: v.asnumpy() for k, v in mod.get_params()[0].items()},
+                        {k: np.asarray(v) if mx is mxnet_tpu else v.numpy()
+                         for k, v in mom.items()}))
+    for (j, p) in zip(*got):
+        for k in j:
+            np.testing.assert_allclose(p[k], j[k], rtol=2e-4, atol=2e-5, err_msg=k)
 
 
 class _Null:
@@ -649,7 +684,7 @@ def test_sharded_and_elastic_store_features_raise_naming_the_next_item():
 
 
 # ---------------------------------------------- FeedForward, heartbeat, convert
-def test_feedforward_over_two_contexts_and_a_store_matches_jax():
+def test_feedforward_over_two_contexts_and_a_store_matches_jax(monkeypatch):
     """``FeedForward`` over ``[cpu(0), cpu(1)]`` with a local KVStore object
     (the store runs the optimizer) trains to the JAX package's one-context
     ``FeedForward`` within rtol 1e-4, atol 1e-5, from the same numpy
@@ -659,8 +694,11 @@ def test_feedforward_over_two_contexts_and_a_store_matches_jax():
     params = {"fc1_weight": rs.randn(64, 20).astype("f") * 0.1, "fc1_bias": np.zeros(64, "f"),
               "fc2_weight": rs.randn(5, 64).astype("f") * 0.1, "fc2_bias": np.zeros(5, "f")}
     got = {}
+    # the per-device path: the port's distinct contexts would otherwise
+    # engage the fused step (JAX's one context takes the per-device path)
+    monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "0")
     for mx in (mxnet_tpu, pt):
-        with (pt.cpu() if mx is pt else _Null()):
+        with pt.cpu() if mx is pt else _Null():
             it = mx.io.NDArrayIter(x, y, batch_size=20)
             ctx = [mx.cpu(0), mx.cpu(1)] if mx is pt else [mx.cpu(0)]
             ff = mx.model.FeedForward(mlp_symbol(mx), ctx=ctx, num_epoch=2, optimizer="sgd",
@@ -675,6 +713,28 @@ def test_feedforward_over_two_contexts_and_a_store_matches_jax():
         np.testing.assert_allclose(got["mxnet_tpu_torch"][k], want, rtol=1e-4, atol=1e-5,
                                    err_msg=k)
 
+
+
+def test_feedforward_over_two_contexts_fused_matches_jax():
+    """``FeedForward`` over ``[cpu(0), cpu(1)]`` in both packages, which
+    both run the fused step there: the weights within rtol 2e-4, atol 2e-5."""
+    x, y = _synthetic_classification(n=60, seed=9)
+    rs = np.random.RandomState(4)
+    params = {"fc1_weight": rs.randn(64, 20).astype("f") * 0.1, "fc1_bias": np.zeros(64, "f"),
+              "fc2_weight": rs.randn(5, 64).astype("f") * 0.1, "fc2_bias": np.zeros(5, "f")}
+    got = {}
+    for mx in (mxnet_tpu, pt):
+        with (pt.cpu() if mx is pt else _Null()):
+            it = mx.io.NDArrayIter(x, y, batch_size=20)
+            ff = mx.model.FeedForward(mlp_symbol(mx), ctx=[mx.cpu(0), mx.cpu(1)], num_epoch=2,
+                                      optimizer="sgd", learning_rate=0.1, momentum=0.9,
+                                      arg_params={k: mx.nd.array(v) for k, v in params.items()})
+            ff.fit(it, kvstore="local")
+            assert ff._module._spmd is not None
+            got[mx.__name__] = {k: v.asnumpy() for k, v in ff.arg_params.items()}
+    for k, want in got["mxnet_tpu"].items():
+        np.testing.assert_allclose(got["mxnet_tpu_torch"][k], want, rtol=2e-4, atol=2e-5,
+                                   err_msg=k)
 
 def test_heartbeat_scan_matches_jax(tmp_path, monkeypatch):
     """``dist.num_dead_nodes`` and ``dead_members`` over the launcher's

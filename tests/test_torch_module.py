@@ -16,7 +16,6 @@ and PythonLossModule against JAX, and a JAX checkpoint resumed in the port.
 """
 import contextlib
 import math
-import os
 
 import numpy as np
 import pytest
@@ -238,10 +237,12 @@ def test_metrics(mx):
 
 
 # ------------------------------------------------------------- waits for 1.4b
-def test_elastic_fit_and_the_fused_step_raise_naming_section_1_4b():
-    """What still raises of data parallelism: elastic fit and the one-graph
-    fused step (ROADMAP.md section 1.4b). Several contexts and a store run
-    (``tests/test_torch_kvstore.py`` holds them against the JAX package)."""
+def test_elastic_fit_and_the_fused_step_raise_naming_section_1_4b(monkeypatch):
+    """What still raises of data parallelism: elastic fit (ROADMAP.md
+    section 1.4b step 3). The fused step no longer raises: under
+    ``MXNET_MODULE_FUSED_STEP=1`` one context engages it
+    (``tests/test_torch_spmd.py`` holds it against the JAX package's); its
+    planner raises, naming section 1.4b step 4."""
     net = mlp_symbol(pt)
     mod = pt.mod.Module(net, context=pt.cpu())
     mod.bind(data_shapes=[("data", (10, 20))], label_shapes=[("softmax_label", (10,))])
@@ -250,17 +251,22 @@ def test_elastic_fit_and_the_fused_step_raise_naming_section_1_4b():
         train = pt.io.NDArrayIter(np.zeros((10, 20), "f"), np.zeros(10, "f"), batch_size=10)
     with pytest.raises(pt.MXNetError, match="section 1.4b"):
         mod.fit(train, num_epoch=1, elastic=True)
-    os.environ["MXNET_MODULE_FUSED_STEP"] = "1"
-    try:
-        with pytest.raises(pt.MXNetError, match="section 1.4b"):
-            mod.init_optimizer()
-    finally:
-        del os.environ["MXNET_MODULE_FUSED_STEP"]
-    mod.init_optimizer(kvstore="local")  # one device, a local store: the updater
+    monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "1")
+    monkeypatch.setenv("MXNET_AUTOPLAN", "1")
+    with pytest.raises(pt.MXNetError, match="section 1.4b step 4"):
+        mod.init_optimizer()
+    monkeypatch.delenv("MXNET_AUTOPLAN")
+    mod.init_optimizer(force_init=True)
+    assert mod._spmd is not None and mod._updater is None
+    monkeypatch.delenv("MXNET_MODULE_FUSED_STEP")
+    mod.init_optimizer(kvstore="local", force_init=True)  # one device: the updater
+    assert mod._spmd is None
     assert mod._kvstore is None and mod._updater is not None
 
 
 def test_module_defaults_to_the_gpu(monkeypatch):
+    # the default no variable names (tests/conftest.py sets one for JAX)
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mod = pt.mod.Module(mlp_symbol(pt))
     assert mod._context == [pt.gpu(0)]

@@ -174,6 +174,8 @@ def test_copy_copyto_as_in_context():
 
 
 def test_ndarray_defaults_to_the_gpu(monkeypatch):
+    # the default no variable names (tests/conftest.py sets one for JAX)
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: pt.nd.zeros((2,)), lambda: pt.nd.array([1.0]), lambda: pt.nd.arange(3),
                  lambda: pt.nd.NDArray(np.ones(2, np.float32))):

@@ -87,6 +87,8 @@ def test_cpu_inputs_raise_and_nothing_is_compiled_or_launched():
 
 
 def test_numpy_only_inputs_go_to_the_default_context_the_gpu(monkeypatch):
+    # the default no variable names (tests/conftest.py sets one for JAX)
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(pt.MXNetError, match="CUDA is not available"):
         rtc.Rtc("k", SRC, grid=1, block=32).push([np.ones(8, np.float32)], out_shapes=[(8,)])

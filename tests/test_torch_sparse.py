@@ -11,7 +11,6 @@ and batch, gives the same weights and the same sparse optimizer states in
 both packages (rtol 1e-5, atol 1e-6), over one context and over two.
 """
 import importlib
-import os
 
 import numpy as np
 import pytest
@@ -351,18 +350,21 @@ SMALL = dict(num_users=300, num_items=200, embed_dim=16, dense_dim=16,
              bottom_hidden=(32,), top_hidden=(64, 32))
 
 
-def _recommender_fit(mx, contexts, params, batch, optimizer, optimizer_params):
+def _recommender_fit(mx, contexts, params, batch, optimizer, optimizer_params, fused_step=None):
     names = ["user", "item", "dense"]
     net = mx.models.get_symbol("recommender", **SMALL)
     it = mx.io.NDArrayIter({n: batch[n] for n in names}, {"label": batch["label"]},
                            batch_size=64)
-    mod = mx.mod.Module(net, data_names=names, label_names=["label"], context=contexts)
+    mod = mx.mod.Module(net, data_names=names, label_names=["label"], context=contexts,
+                        **({} if fused_step is None else {"fused_step": fused_step}))
     kv = mx.kv.create("local")
     mod.fit(it, num_epoch=1, kvstore=kv, optimizer=optimizer,
             optimizer_params=optimizer_params,
             arg_params={k: mx.nd.array(v) for k, v in params.items()})
     args, _ = mod.get_params()
-    return {k: v.asnumpy() for k, v in args.items()}, kv._updater.states, mod
+    # the fused step keeps its state on its trainer, not the store's updater
+    states = kv._updater.states if kv._updater is not None else None
+    return {k: v.asnumpy() for k, v in args.items()}, states, mod
 
 
 def _recommender_case(seed=0):
@@ -392,20 +394,14 @@ def test_recommender_fit_step_matches_jax(n_ctx, optimizer, optimizer_params):
     distinct devices (``RowSparseNDArray.__add__`` scatters a cpu(1) array
     into a cpu(0) one). The port runs over cpu(0), cpu(1)."""
     params, batch = _recommender_case()
-    old = os.environ.get("MXNET_MODULE_FUSED_STEP")
-    os.environ["MXNET_MODULE_FUSED_STEP"] = "0"
-    try:
-        jw, jst, jmod = _recommender_fit(mxnet_tpu, [mxnet_tpu.cpu(0)] * n_ctx, params, batch,
-                                         optimizer, optimizer_params)
-    finally:
-        if old is None:
-            os.environ.pop("MXNET_MODULE_FUSED_STEP")
-        else:
-            os.environ["MXNET_MODULE_FUSED_STEP"] = old
+    # the per-device path in both packages (distinct contexts would engage
+    # the port's fused step, held against JAX's below)
+    jw, jst, jmod = _recommender_fit(mxnet_tpu, [mxnet_tpu.cpu(0)] * n_ctx, params, batch,
+                                     optimizer, optimizer_params, fused_step=False)
     with pt.cpu():
-        pw, pst, pmod = _recommender_fit(pt, [pt.cpu(i) for i in range(n_ctx)], params, batch,
-                                         optimizer, optimizer_params)
-    assert jmod._spmd is None
+        pw, pst, pmod = _recommender_fit(pt, [pt.cpu(i) for i in range(n_ctx)], params,
+                                         batch, optimizer, optimizer_params, fused_step=False)
+    assert jmod._spmd is None and pmod._spmd is None
     for k in jw:
         np.testing.assert_allclose(pw[k], jw[k], rtol=RTOL, atol=ATOL, err_msg=k)
     sparse_keys = {i for i, n in enumerate(pmod._param_names) if n.endswith("_embed_weight")}
@@ -429,3 +425,84 @@ def test_recommender_fit_step_matches_jax(n_ctx, optimizer, optimizer_params):
                 assert a is None
             else:
                 np.testing.assert_allclose(a.asnumpy(), b.asnumpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("optimizer,optimizer_params", [
+    ("sgd", (("learning_rate", 0.1), ("momentum", 0.9))),
+    ("adam", (("learning_rate", 0.01),))])
+def test_recommender_fused_step_matches_jax(optimizer, optimizer_params):
+    """The port's fused step over the distinct contexts [cpu(0), cpu(1)]
+    (dense embedding gradients, as JAX's fused step takes them) held
+    against the JAX package's per-device step over cpu(0): JAX's own fused
+    step raises on the recommender (a reference fault, ROADMAP.md section
+    3), and the two paths agree on one step from a zero optimizer state
+    with wd 0, where the lazy row update equals the dense one (an
+    untouched row has a zero gradient and zero state). Weights within
+    rtol 2e-4, atol 2e-5, the fused step's tolerance."""
+    params, batch = _recommender_case()
+    jw, _, jmod = _recommender_fit(mxnet_tpu, [mxnet_tpu.cpu(0)], params, batch, optimizer,
+                                   optimizer_params, fused_step=False)
+    with pt.cpu():
+        pw, _, pmod = _recommender_fit(pt, [pt.cpu(0), pt.cpu(1)], params, batch, optimizer,
+                                       optimizer_params)
+    assert jmod._spmd is None and pmod._spmd is not None
+    assert int(pmod._spmd.trainer.opt_state["t"]) == 1
+    for k in jw:
+        np.testing.assert_allclose(pw[k], jw[k], rtol=2e-4, atol=2e-5, err_msg=k)
+
+
+def _recommender_steps(mx, contexts, params, batches, optimizer, optimizer_params,
+                       fused_step=None):
+    """Module.forward_backward/update over ``batches`` through a local
+    KVStore object (the store PR 15's lazy row-sparse update runs on), each
+    batch a DataBatch whose arrays follow ``data_names`` (the order JAX's
+    fused adapter takes them in); returns the weights as numpy and the
+    module."""
+    names = ["user", "item", "dense"]
+    net = mx.models.get_symbol("recommender", **SMALL)
+    mod = mx.mod.Module(net, data_names=names, label_names=["label"], context=contexts,
+                        **({} if fused_step is None else {"fused_step": fused_step}))
+    mod.bind(data_shapes=[(n, batches[0][n].shape) for n in names],
+             label_shapes=[("label", batches[0]["label"].shape)])
+    mod.init_params(arg_params={k: mx.nd.array(v) for k, v in params.items()})
+    mod.init_optimizer(kvstore=mx.kv.create("local"), optimizer=optimizer,
+                       optimizer_params=optimizer_params)
+    for b in batches:
+        mod.forward_backward(mx.io.DataBatch(data=[mx.nd.array(b[n]) for n in names],
+                                             label=[mx.nd.array(b["label"])]))
+        mod.update()
+    args, _ = mod.get_params()
+    return {k: v.asnumpy() for k, v in args.items()}, mod
+
+
+@pytest.mark.parametrize("optimizer,optimizer_params", [
+    ("sgd", (("learning_rate", 0.1), ("momentum", 0.9), ("wd", 1e-4))),
+    ("adam", (("learning_rate", 0.01),))])
+def test_recommender_fused_steps_match_jax_fused_step(optimizer, optimizer_params):
+    """Four fused recommender steps over [cpu(0), cpu(1)] in both packages,
+    each batch's arrays in ``data_names`` order: weights within rtol 2e-4,
+    atol 2e-5. The fused step's embedding gradients are dense, as JAX's
+    are, so it updates every row where the per-device path's lazy
+    row-sparse update touches only a batch's rows: a row an earlier batch
+    touched and the last did not still moves at the last step under
+    momentum or Adam, and the two paths part there."""
+    params = _recommender_case()[0]
+    batches = [_recommender_case(seed)[1] for seed in range(1, 5)]
+    jw, jmod = _recommender_steps(mxnet_tpu, [mxnet_tpu.cpu(0), mxnet_tpu.cpu(1)], params,
+                                  batches, optimizer, optimizer_params)
+    with pt.cpu():
+        pw, pmod = _recommender_steps(pt, [pt.cpu(0), pt.cpu(1)], params, batches, optimizer,
+                                      optimizer_params)
+        lw, lmod = _recommender_steps(pt, [pt.cpu(0), pt.cpu(1)], params, batches, optimizer,
+                                      optimizer_params, fused_step=False)
+    assert jmod._spmd is not None and pmod._spmd is not None and lmod._spmd is None
+    assert int(pmod._spmd.trainer.opt_state["t"]) == len(batches)
+    for k in jw:
+        np.testing.assert_allclose(pw[k], jw[k], rtol=2e-4, atol=2e-5, err_msg=k)
+    for name, key in (("user_embed_weight", "user"), ("item_embed_weight", "item")):
+        seen = [set(b[key].astype(int)) for b in batches]
+        untouched = np.array(sorted(set(range(params[name].shape[0])).difference(*seen)))
+        earlier = np.array(sorted(set().union(*seen[:-1]) - seen[-1]))
+        assert len(untouched) and len(earlier)
+        np.testing.assert_array_equal(lw[name][untouched], params[name][untouched])
+        assert np.abs(pw[name][earlier] - lw[name][earlier]).max() > 1e-6, name
