@@ -167,23 +167,46 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    The bucketed LSTM LM over two buckets: one graph a bucket, one shared
    state cell, real tokens/s. ``dist_sync`` on one NCCL rank: the fused
    step, bitwise the local fused step's weights.
-16. A ``smoke`` line (the run's seconds from the import of the port), a
+16. Checkpoint (``checkpoint.Checkpointer``, ``module/elastic.py``):
+   ResNet-50 at phase 9's settings through the fused step with
+   ``fit(elastic={"checkpoint_dir": d, "checkpoint_period": 4})``: saves
+   at rounds 4 and 8 (``states.bin`` in each), ``checkpoint.inflight`` > 0
+   after a step while a save is written, 49 + 49 launches a step; a second
+   module resumes from the round-4 set and finishes, its weights, moving
+   stats and momentum within 1e-6 of each array's largest magnitude of the
+   uninterrupted run's (bitwise expected; the largest difference printed).
+   A step with and without a save timed in turns (host p50/p80, each
+   ending in a synchronize of the compute stream), supersedes, one save's
+   submit-to-landed seconds and bytes, both kinds' idle shares. The MNIST
+   ``mlp`` on one NCCL rank of ``dist_sync`` with
+   ``MXNET_KVSTORE_UPDATE=sharded``: ``Checkpointer.save_sharded`` every 2
+   steps, every shard's digest checked, a fresh module's
+   ``load_sharded_checkpoint`` continues to the uninterrupted run's bits
+   (kernel 6 on the path). The recommender over ``[gpu(0)] * 2`` with
+   ``kvstore='device'``: its sparse tables saved with ``save_sharded`` and
+   loaded by a fresh store: weights, state rows, the touched set and update
+   counts bitwise. The checkpoints live in a temporary directory the phase
+   removes.
+17. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
    ``recommender_launches``; row 6 with ``recommender_fc``; rows 6, 8 and 9
-   with the fused-step phase's ``fused_launches``), the card's
-   name/power line, then the last line ``{"ok": true, "device": {...}}``.
+   with the fused-step phase's ``fused_launches`` and the checkpoint
+   phase's ``checkpoint_launches``), the card's name/power line, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
 import contextlib
+import hashlib
 import json
 import logging
 import math
 import os
+import pickle
 import shutil
 import struct
 import subprocess
@@ -494,10 +517,11 @@ PROFILER_TALLY = {"timing_windows": 0, "timing_windows_retaken": 0,
                   "load_windows": 0, "load_windows_short": 0}
 
 
-def profiler_window(fn, activities):
-    """Run ``fn`` in one profiler window: (the window's device events as
-    {name: [count, microseconds]}, its host wall ms, the wrappers' launches
-    in it)."""
+def profiler_window(fn, activities, sync=None):
+    """Run ``fn`` in one profiler window, ended by ``sync`` (by default a
+    synchronize of the device): (the window's device events as {name:
+    [count, microseconds]}, its host wall ms, the wrappers' launches in
+    it)."""
     from torch.profiler import profile
 
     from mxnet_tpu_torch import ops
@@ -507,7 +531,7 @@ def profiler_window(fn, activities):
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        (sync or torch.cuda.synchronize)()
         wall_ms = (time.perf_counter() - t0) * 1e3
     after = ops.launch_counts()
     events = {}
@@ -1335,11 +1359,13 @@ def random_params(seed=SEED):
             if n not in ("data", "softmax_label")}
 
 
-def profile_window(fn, per=1, setup=None):
-    """Host wall time of ``fn`` (ending in a synchronize) against the card's
-    busy time in it (the profiler's device events), and the device time of
-    the port's kernels against the rest, in all and by kernel; per call,
-    ``fn`` running ``per``. ``port_kernel_launches``: the port's kernels the
+def profile_window(fn, per=1, setup=None, sync=None):
+    """Host wall time of ``fn`` (ending in ``sync``, by default a
+    synchronize of the device) against the card's busy time in it (the
+    profiler's device events), and the device time of the port's kernels
+    against the rest, in all and by kernel; per call, ``fn`` running
+    ``per``. ``copy_to_host_ms``: the busy time's copies to the host
+    (``Memcpy DtoH``). ``port_kernel_launches``: the port's kernels the
     trace shows by name, in the whole window; ``wrapper_launches``: the
     wrappers' counts in it. ``fn`` runs in two windows, each after
     ``setup``, ``PROFILER_GAP_S`` apart, so that at most one of them can meet
@@ -1352,15 +1378,17 @@ def profile_window(fn, per=1, setup=None):
             time.sleep(PROFILER_GAP_S)
         if setup is not None:
             setup()
-        runs.append(profiler_window(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        runs.append(profiler_window(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                    sync=sync))
     totals = [sum(n for n, _ in events.values()) for events, _, _ in runs]
     PROFILER_TALLY["breakdown_windows"] += 2
     PROFILER_TALLY["breakdown_windows_short"] += totals[0] != totals[1]
     events, wall_ms, wrapped = runs[1] if totals[1] >= totals[0] else runs[0]
-    busy, port, n_kernels, top = 0.0, 0.0, 0, {}
+    busy, port, copy, n_kernels, top = 0.0, 0.0, 0.0, 0, {}
     by_kernel, launched = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0)
     for key, (count, us) in events.items():
         busy += us
+        copy += us if "DtoH" in key else 0.0
         n_kernels += count
         owner = [name for name, (_, _, sym) in KERNELS.items() if sym in key]
         if owner:
@@ -1370,7 +1398,7 @@ def profile_window(fn, per=1, setup=None):
         top[key[:60]] = top.get(key[:60], 0.0) + us
     return {"wall_ms": wall_ms / per, "device_busy_ms": busy / 1e3 / per,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms if wall_ms else None,
-            "port_kernels_ms": port / 1e3 / per,
+            "copy_to_host_ms": copy / 1e3 / per, "port_kernels_ms": port / 1e3 / per,
             "port_kernels_share_of_busy": port / busy if busy else None,
             "port_kernel_ms": {k: v / 1e3 / per for k, v in by_kernel.items() if v},
             "port_kernel_launches": {k: v for k, v in launched.items() if v},
@@ -5338,17 +5366,19 @@ def worst_rel(got, want):
     return k, rels[k], max(float(np.abs(got[n] - want[n]).max()) for n in want)
 
 
-def timed_turns(fns, rounds):
-    """Host ms of each of ``fns`` (each ending in a synchronize), called in
-    turns, the order flipping each round."""
+def timed_turns(fns, rounds, sync=None):
+    """Host ms of each of ``fns`` (each ending in ``sync``, by default a
+    synchronize of the device), called in turns, the order flipping each
+    round."""
+    sync = sync or torch.cuda.synchronize
     host = {k: [] for k in fns}
     names = list(fns)
     for r in range(rounds):
         for kind in (names if r % 2 == 0 else names[::-1]):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             fns[kind]()
-            torch.cuda.synchronize()
+            sync()
             host[kind].append((time.perf_counter() - t0) * 1e3)
     return {k: {"p50": float(np.percentile(v, 50)), "p80": float(np.percentile(v, 80)),
                 "all": v} for k, v in host.items()}
@@ -5778,6 +5808,409 @@ def run_fused_step(pt, smi, lstm_tokens_per_s):
     return launches
 
 
+# Phase 16: fault-tolerant training (checkpoint.Checkpointer, module/elastic.py).
+# ResNet-50 at phase 9's settings through the fused step with
+# fit(elastic=...), a checkpoint every 4 rounds, resumed from its first one by
+# a second module; the MNIST mlp on one NCCL rank of dist_sync with the
+# sharded update, saved every 2 steps and resumed by a fresh module; the
+# recommender at phase 14's settings over [gpu(0)] * 2, its sparse tables
+# saved and resumed. Checkpoints go to a temporary directory the phase
+# removes. A save's cost: ``save_rounds`` rounds, each a run of
+# ``save_run`` + 1 steps without a save and one that starts with a save, in
+# turns, the writer idle before each run.
+CKPT = dict(period=4, save_rounds=6, save_run=24, mlp_steps=6, mlp_period=2, mlp_batch=40,
+            rec_steps=3, tol_rel=1e-6)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def fused_state(mod):
+    """The fused step's weights, aux values and optimizer state as numpy."""
+    args, aux = module_arrays(mod)
+    return args, aux, pickle.loads(mod._spmd.get_states())
+
+
+def run_checkpoint(pt, smi):
+    """Phase 16: the checkpoint and fault-tolerant training. Returns the
+    launches of its three card runs by kernel (the ResNet-50 fits, the
+    sharded mlp's steps, the recommender's)."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch import models, ops, telemetry
+    from mxnet_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # conv0 and the stride-2 3x3s: the same bits
+    saved_mode = telemetry.current_override()
+    telemetry.set_mode("counters")
+    root = tempfile.mkdtemp(prefix="mxnet-ckpt-")
+    launches = {}
+    try:
+        # --- 1. ResNet-50 through the fused step, checkpointed and resumed
+        net = resnet.get_symbol(**RESNET)
+        args, aux = resnet_values(net)
+        B, nb, epochs = RESNET_TRAIN["batch"], MODULE["batches"], MODULE["epochs"]
+        steps = nb * epochs
+        images, labels = module_data(B * nb)
+        opt_params = (("learning_rate", RESNET_TRAIN["lr"]),
+                      ("momentum", RESNET_TRAIN["momentum"]),
+                      ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+        with pt.gpu(0):
+            train = pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False)
+        inflight_seen = []
+
+        def at_batch_end(param):
+            # the writer's gauge after the step returned: > 0 while a save
+            # made before it is still being written
+            inflight_seen.append(telemetry.gauge("checkpoint.inflight").value or 0)
+
+        def fit(directory, resume):
+            mod = pt.mod.Module(net, context=pt.gpu(0))
+            train.reset()
+            with env_vars(MXNET_MODULE_FUSED_STEP="1"):
+                ctl = mod.fit(train, eval_metric="acc", optimizer="sgd",
+                              optimizer_params=opt_params, arg_params=args, aux_params=aux,
+                              batch_end_callback=at_batch_end, num_epoch=epochs,
+                              elastic={"checkpoint_dir": directory,
+                                       "checkpoint_period": CKPT["period"], "resume": resume})
+            torch.cuda.synchronize()
+            check(mod._spmd is not None and not ctl.evicted and ctl._round == steps,
+                  ("elastic fit", mod._spmd is not None, ctl.evicted, ctl._round))
+            return mod, ctl
+
+        dir_a = os.path.join(root, "resnet")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        mod_a, _ = fit(dir_a, False)
+        fit_s = time.perf_counter() - t0
+        fit_launches = ops.launch_counts()
+        check(fit_launches == with_zeros({"conv_bn": RESNET_SITES * steps,
+                                          "conv_bn_bwd": RESNET_SITES * steps}),
+              ("elastic fit launch counts", fit_launches))
+        saved_steps = ckpt.list_steps(dir_a)
+        check(saved_steps == list(range(CKPT["period"], steps + 1, CKPT["period"])),
+              ("checkpoint steps", saved_steps))
+        step, manifest = ckpt.latest_complete(dir_a)
+        check(step == steps and manifest["kind"] == "replicated"
+              and "states.bin" in os.listdir(ckpt.step_dir(dir_a, step)),
+              ("the newest complete step and its states.bin", step, manifest["files"]))
+        check(max(inflight_seen) > 0, ("checkpoint.inflight never above 0 after a step",
+                                       inflight_seen))
+        # the second module resumes from the FIRST checkpoint and finishes
+        dir_b = os.path.join(root, "resnet-resume")
+        first = saved_steps[0]
+        shutil.copytree(ckpt.step_dir(dir_a, first), ckpt.step_dir(dir_b, first))
+        ops.reset_launch_counts()
+        mod_b, _ = fit(dir_b, True)
+        resume_launches = ops.launch_counts()
+        rest = steps - first
+        check(resume_launches == with_zeros({"conv_bn": RESNET_SITES * rest,
+                                             "conv_bn_bwd": RESNET_SITES * rest}),
+              ("resumed fit launch counts", resume_launches))
+        launches["resnet"] = {k: fit_launches[k] + resume_launches[k]
+                              for k in ("conv_bn", "conv_bn_bwd")}
+        sa, sb = fused_state(mod_a), fused_state(mod_b)
+        want = {**sa[0], **{"aux:" + k: v for k, v in sa[1].items()},
+                **{"mom:" + k: v for k, v in sa[2]["mom"].items()}}
+        got = {**sb[0], **{"aux:" + k: v for k, v in sb[1].items()},
+               **{"mom:" + k: v for k, v in sb[2]["mom"].items()}}
+        name, rel, absd = worst_rel(got, want)
+        bitwise = all(np.array_equal(got[k], want[k]) for k in want)
+        check(rel <= CKPT["tol_rel"] and int(sb[2]["t"]) == int(sa[2]["t"]) == steps,
+              ("resumed vs uninterrupted", name, rel, absd, int(sb[2]["t"])))
+        out = {"phase": "checkpoint", "part": "resnet_fused", "nvidia_smi": smi,
+               "model": RESNET, "batch": B, "steps": steps, "period": CKPT["period"],
+               "fit_s": fit_s, "saved_steps": saved_steps, "resumed_from": first,
+               "fit_launches": {k: v for k, v in fit_launches.items() if v},
+               "resume_launches": {k: v for k, v in resume_launches.items() if v},
+               "arrays_compared": len(want), "worst_array": name, "max_rel": rel,
+               "max_abs": absd, "bitwise": bitwise, "tol_rel": CKPT["tol_rel"],
+               "inflight_after_steps": inflight_seen,
+               "save_files": sorted(os.listdir(ckpt.step_dir(dir_a, step))),
+               "save_bytes": dir_bytes(ckpt.step_dir(dir_a, step))}
+        del mod_b
+
+        # a save's cost, on the trained module: runs of save_run + 1 steps,
+        # one without a save and one whose first step ends in the elastic
+        # loop's own save (a freeze, then the writer thread), in turns. The
+        # writer is idle before each run, so the runs without a save never
+        # share the host with it; each step ends in a synchronize of the
+        # compute stream only (the writer copies to the host on its own)
+        batches = list(train)
+        ctl = pt.mod.ElasticFit(mod_a, checkpoint_dir=os.path.join(root, "timed"),
+                                checkpoint_period=0)
+        saver = ctl._ensure_writer()
+        one = step_of(mod_a, batches)
+        sync = torch.cuda.current_stream().synchronize
+
+        def with_save():
+            one()
+            ctl._round += 1
+            ctl._save_checkpoint(0, ctl._round)
+
+        def writing():
+            with saver._cv:
+                return saver._active is not None or saver._queued is not None
+
+        def timed(fn):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            return (time.perf_counter() - t0) * 1e3
+
+        K = CKPT["save_run"]
+        runs = {"no_save": [], "save": []}
+        while_writing, after_landed, to_land = [], [], []
+        drops0 = telemetry.counter("checkpoint.drops").value
+        for r in range(CKPT["save_rounds"]):
+            for kind in (("no_save", "save") if r % 2 == 0 else ("save", "no_save")):
+                saver.wait()
+                if kind == "no_save":
+                    runs[kind].append([timed(one) for _ in range(K + 1)])
+                    continue
+                ms, landed = [timed(with_save)], None
+                for i in range(K):
+                    busy = writing()
+                    ms.append(timed(one))
+                    (while_writing if busy else after_landed).append(ms[-1])
+                    if landed is None and not writing():
+                        landed = i + 1
+                runs[kind].append(ms)
+                to_land.append(landed)
+        saver.wait()
+        supersedes = telemetry.counter("checkpoint.drops").value - drops0
+
+        def pct(v):
+            return {"p50": float(np.percentile(v, 50)), "p80": float(np.percentile(v, 80)),
+                    "n": len(v)} if v else None
+
+        no_save = [m for run in runs["no_save"] for m in run]
+        # what a save adds to a run: the run with the save less the run
+        # without it, round by round
+        added = [sum(a) - sum(b) for a, b in zip(runs["save"], runs["no_save"])]
+        host = {"step": {**pct(no_save), "all": no_save},
+                "step_with_save": {**pct([run[0] for run in runs["save"]]),
+                                   "all": [run[0] for run in runs["save"]]},
+                "steps_while_writing": {**(pct(while_writing) or {}), "all": while_writing},
+                "steps_after_landed": {**(pct(after_landed) or {}), "all": after_landed},
+                "run_ms": {k: [sum(run) for run in v] for k, v in runs.items()},
+                "save_adds_to_run_ms": added,
+                "save_adds_to_run_ms_p50": float(np.percentile(added, 50)),
+                "steps_to_land": to_land}
+        # one save alone: submit to landed, and what it wrote
+        w = ckpt.Checkpointer(os.path.join(root, "alone"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weights, states = mod_a._spmd.freeze()
+        job = w.save_replicated(1, weights, states_bytes=states)
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        job.done.wait()
+        landed_s = time.perf_counter() - t0
+        w.close()
+        written = dir_bytes(ckpt.step_dir(os.path.join(root, "alone"), 1))
+
+        # idle shares over a run with and without its save, the writer idle
+        # before each; the run with a save waits for the save to land, and
+        # the device synchronize that ends each window takes the writer's
+        # copies to the host in
+        def save_run():
+            with_save()
+            for _ in range(K):
+                one()
+            saver.wait()
+
+        windows = {"no_save": profile_window(step_of(mod_a, batches, K + 1), per=K + 1,
+                                             setup=saver.wait),
+                   "save": profile_window(save_run, per=K + 1, setup=saver.wait)}
+        saver.close()
+        out.update(step_ms=host, supersedes=supersedes, save_submit_ms=submit_ms,
+                   save_submit_to_landed_s=landed_s, save_bytes_alone=written,
+                   windows=windows)
+        log(out)
+        del mod_a, ctl, weights, states
+
+        # --- 2. the sharded set: the mlp on one NCCL rank of dist_sync
+        mlp = models.get_symbol("mlp", num_classes=10)
+        Bm, n_mlp = CKPT["mlp_batch"], CKPT["mlp_steps"]
+        rs = np.random.RandomState(KVSTORE["seed"] + 9)
+        x = rs.rand(Bm * n_mlp, 784).astype(np.float32)
+        y = rs.randint(0, 10, Bm * n_mlp).astype(np.float32)
+        shapes, _, _ = mlp.infer_shape(data=(Bm, 784))
+        mlp_params = {n: (rs.randn(*s) * 0.05).astype(np.float32)
+                      for n, s in zip(mlp.list_arguments(), shapes)
+                      if n not in ("data", "softmax_label")}
+        mlp_batches = [pt.io.DataBatch(
+            data=[pt.nd.array(x[i * Bm:(i + 1) * Bm], ctx=pt.gpu(0))],
+            label=[pt.nd.array(y[i * Bm:(i + 1) * Bm], ctx=pt.gpu(0))]) for i in range(n_mlp)]
+        env = {"MXNET_TPU_COORDINATOR": "127.0.0.1:%d" % free_port(),
+               "MXNET_TPU_NUM_WORKERS": "1", "MXNET_TPU_WORKER_ID": "0",
+               "MXNET_MODULE_FUSED_STEP": "0", "MXNET_KVSTORE_UPDATE": "sharded"}
+        dir_s = os.path.join(root, "sharded")
+
+        def mlp_module():
+            m = pt.mod.Module(mlp, context=pt.gpu(0))
+            m.bind(data_shapes=[("data", (Bm, 784))], label_shapes=[("softmax_label", (Bm,))])
+            m.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu())
+                                      for k, v in mlp_params.items()})
+            m.init_optimizer(kvstore="dist_sync", optimizer="sgd",
+                             optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)))
+            return m
+
+        with env_vars(**env):
+            try:
+                m = mlp_module()
+                kv = m._kvstore
+                check(kv.type == "dist_sync" and kv.num_workers == 1
+                      and pt.dist.backend() == "nccl" and m._spmd is None,
+                      "one NCCL rank, the per-device path")
+                writer = ckpt.Checkpointer(dir_s)
+                ops.reset_launch_counts()
+                for i, b in enumerate(mlp_batches):
+                    m.forward_backward(b)
+                    m.update()
+                    if (i + 1) % CKPT["mlp_period"] == 0 and i + 1 < n_mlp:
+                        check(kv._bucket_engine.mode == "sharded", "the sharded update")
+                        writer.save_sharded(kv, i + 1, meta={"nbatch": i})
+                writer.close()
+                straight_launches = ops.launch_counts()
+                want = {k: v.asnumpy() for k, v in m.get_params()[0].items()}
+                del m
+                got_step, manifest = ckpt.latest_complete(dir_s)
+                check(got_step == n_mlp - CKPT["mlp_period"] and manifest["kind"] == "sharded"
+                      and manifest["world"] == 1, ("the newest sharded step", got_step))
+                # the set reread with the port's readers, each shard's digest
+                digests = []
+                for r in range(manifest["world"]):
+                    base = os.path.join(ckpt.step_dir(dir_s, got_step),
+                                        "shard-%05d-of-%05d" % (r, manifest["world"]))
+                    with open(base + ".json") as f:
+                        side = json.load(f)
+                    with open(base + ".npz", "rb") as f:
+                        data = f.read()
+                    digests.append(hashlib.sha256(data).hexdigest() == side["digest"]
+                                   and len(data) == side["nbytes"])
+                check(all(digests), ("shard digests", digests))
+                shards = ckpt.read_shard_set(dir_s, got_step, manifest)
+                flats = ckpt.read_flat_buckets(dir_s, got_step, manifest, shards=shards)
+                per_key = ckpt.per_key_states(manifest, flats)
+                m2 = mlp_module()
+                loaded_step, weights = m2._kvstore.load_sharded_checkpoint(dir_s)
+                names = m2._param_names
+                m2.set_params({names[k]: pt.nd.array(w, ctx=pt.gpu(0))
+                               for k, w in weights.items()}, {}, allow_missing=True)
+                ops.reset_launch_counts()
+                for b in mlp_batches[got_step:]:
+                    m2.forward_backward(b)
+                    m2.update()
+                resumed_launches = ops.launch_counts()
+                got = {k: v.asnumpy() for k, v in m2.get_params()[0].items()}
+                bitwise = all(np.array_equal(got[k], want[k]) for k in want)
+                check(loaded_step == got_step and bitwise,
+                      ("sharded resume vs uninterrupted", loaded_step,
+                       max(float(np.abs(got[k] - want[k]).max()) for k in want)))
+                check(straight_launches == with_zeros({"matmul_bias_act": 2 * n_mlp})
+                      and resumed_launches == with_zeros(
+                          {"matmul_bias_act": 2 * (n_mlp - got_step)}),
+                      ("sharded mlp launches", straight_launches, resumed_launches))
+                del m2
+                # the same steps through the per-key Updater, the path the
+                # JAX package takes for one process: the one-rank engine's
+                # weights against it
+                with env_vars(MXNET_KVSTORE_UPDATE="replicated"):
+                    m3 = mlp_module()
+                    for b in mlp_batches:
+                        m3.forward_backward(b)
+                        m3.update()
+                check(m3._kvstore._bucket_engine is None, "the per-key Updater")
+                per_key_w = {k: v.asnumpy() for k, v in m3.get_params()[0].items()}
+                vs_name, vs_rel, vs_abs = worst_rel(want, per_key_w)
+                check(vs_rel <= CKPT["tol_rel"],
+                      ("sharded vs per-key Updater", vs_name, vs_rel, vs_abs))
+                del m3
+            finally:
+                pt.dist.shutdown()
+        check(not pt.dist.is_initialized(), "process group destroyed")
+        launches["sharded_mlp"] = {"matmul_bias_act": straight_launches["matmul_bias_act"]
+                                   + resumed_launches["matmul_bias_act"]}
+        log({"phase": "checkpoint", "part": "sharded_mlp", "backend": "nccl", "world": 1,
+             "steps": n_mlp, "saved_steps": ckpt.list_steps(dir_s), "resumed_from": got_step,
+             "buckets": len(manifest["plan"]["buckets"]), "state_keys": len(per_key),
+             "shard_digests_ok": len(digests), "bitwise": bitwise,
+             "vs_per_key": {"worst_array": vs_name, "max_rel": vs_rel, "max_abs": vs_abs,
+                            "bitwise": all(np.array_equal(want[k], per_key_w[k])
+                                           for k in want)},
+             "launches": launches["sharded_mlp"],
+             "shard_bytes": dir_bytes(ckpt.step_dir(dir_s, got_step))})
+
+        # --- 3. the recommender's sparse tables, saved and resumed
+        rnet = models.get_symbol("recommender")
+        R = KVSTORE["batch"]
+        rparams = rec_params(rnet, KVSTORE["seed"])
+        rdata = click_data(R * CKPT["rec_steps"], KVSTORE["seed"] + 2)
+        rbatches = rec_batches(pt, rdata, pt.gpu(0))
+        sgd = (("learning_rate", KVSTORE["lr_sgd"]), ("momentum", KVSTORE["momentum"]))
+        card = [pt.gpu(0)] * KVSTORE["contexts"]
+        with env_vars(MXNET_MODULE_FUSED_STEP="0"):
+            rm = rec_module(pt, rnet, card, rparams, "device", "sgd", sgd)
+        check(rm._spmd is None and rm._kvstore is not None, "the per-device path and a store")
+        ops.reset_launch_counts()
+        for b in rbatches:
+            rm.forward_backward(b)
+            rm.update()
+        rec_launches = ops.launch_counts()
+        check(rec_launches == with_zeros(
+            {"matmul_bias_act": 4 * KVSTORE["contexts"] * CKPT["rec_steps"]}),
+            ("recommender launches", rec_launches))
+        launches["recommender"] = {"matmul_bias_act": rec_launches["matmul_bias_act"]}
+        kv = rm._kvstore
+        dir_r = os.path.join(root, "sparse")
+        t0 = time.perf_counter()
+        writer = ckpt.Checkpointer(dir_r)
+        writer.save_sharded(kv, CKPT["rec_steps"], block=True)
+        writer.close()
+        save_s = time.perf_counter() - t0
+        manifest = ckpt.load_manifest(dir_r, CKPT["rec_steps"])
+        check(len(manifest["sparse"]) == 2 and manifest["plan"]["buckets"] == [],
+              ("the sparse section", manifest["sparse"]))
+        with env_vars(MXNET_MODULE_FUSED_STEP="0"):
+            rm2 = rec_module(pt, rnet, card, rec_params(rnet, KVSTORE["seed"] + 1), "device",
+                             "sgd", sgd)
+        kv2 = rm2._kvstore
+        loaded_step, weights = kv2.load_sharded_checkpoint(dir_r)
+        rows = {}
+        for row in manifest["sparse"]:
+            key = row["key"]
+            st1, st2 = kv._updater.states[key], kv2._updater.states[key]
+            same = (np.array_equal(kv._store[key].asnumpy(), kv2._store[key].asnumpy())
+                    and np.array_equal(st1.indices, st2.indices)
+                    and all(np.array_equal(a, b) for a, b in zip(st1.rows, st2.rows)))
+            check(isinstance(st2, pt.sparse.RowSparseState) and same,
+                  ("sparse table round trip", key))
+            rows[rm._param_names[key]] = int(st2.nnz)
+        counts = {k: v for k, v in kv._optimizer._index_update_count.items()}
+        check(loaded_step == CKPT["rec_steps"]
+              and kv2._optimizer._index_update_count == counts,
+              ("update counts", kv2._optimizer._index_update_count, counts))
+        log({"phase": "checkpoint", "part": "recommender_sparse", "batch": R,
+             "contexts": len(card), "steps": CKPT["rec_steps"], "state_rows": rows,
+             "bitwise": True, "save_s": save_s,
+             "save_bytes": dir_bytes(ckpt.step_dir(dir_r, CKPT["rec_steps"])),
+             "launches": launches["recommender"]})
+        del rm, rm2, kv, kv2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        telemetry.set_mode(saved_mode)
+        torch.backends.cudnn.deterministic = deterministic
+    check(not os.path.exists(root), "the checkpoint directory was removed")
+    check_tf32_off()
+    log({"phase": "checkpoint", "part": "done", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -5822,6 +6255,7 @@ def main():
     ssd_launches = run_ssd(pt, smi)
     kvstore_launches = run_kvstore(pt, smi, peaks, entries)
     fused_launches = run_fused_step(pt, smi, lstm_tokens_per_s)
+    checkpoint_launches = run_checkpoint(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -5864,6 +6298,11 @@ def main():
         fused = {k: v[name_] for k, v in fused_launches.items() if v.get(name_)}
         if fused:
             e.update(fused_launches=fused)
+        # the checkpoint phase's card runs: ResNet-50's elastic fits (8, 9),
+        # the sharded mlp's and the recommender's steps (6)
+        saved = {k: v[name_] for k, v in checkpoint_launches.items() if v.get(name_)}
+        if saved:
+            e.update(checkpoint_launches=saved)
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

@@ -18,12 +18,14 @@ Types:
     ``dist_async`` runs as ``dist_sync``, with a warning.
 
 Row-sparse values (``sparse.RowSparseNDArray``) take the sparse round
-(``sparse/kvstore_sparse.py``). Optimizer states save and load as one
-replicated pickle; the sharded checkpoint set and elastic re-forming come
-with the next item of ``ROADMAP.md`` section 1.4 and raise.
+(``sparse/kvstore_sparse.py``). Optimizer states save as one replicated
+pickle, or, under ``MXNET_KVSTORE_UPDATE=sharded``, as a pointer file to a
+``checkpoint.Checkpointer`` shard set. ``reform`` and ``elastic_state``
+carry the elastic re-form (``module/elastic.py``).
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 from typing import Dict, List, Optional
@@ -37,10 +39,6 @@ from . import telemetry as _tm
 from .ndarray import NDArray
 
 __all__ = ["KVStore", "create"]
-
-_NEXT = ("comes with the sharded Checkpointer and module/elastic.py (ROADMAP.md "
-         "section 1.4b)")
-
 
 def _nbytes(arrs) -> int:
     """Byte count of one value list (telemetry only)."""
@@ -93,7 +91,15 @@ class KVStore:
     def get_num_dead_node(self, node_id=0, timeout=None):
         """Dead-worker count. A job without elastic membership is gang
         scheduled: a dead peer ends the job, so while this process runs the
-        count is 0 (JAX :368)."""
+        count is 0. Under ``MXNET_ELASTIC=1`` membership is tracked by the
+        heartbeat files and the scan is authoritative; ``timeout`` defaults
+        to ``MXNET_ELASTIC_DEAD_TIMEOUT`` (JAX :368)."""
+        from . import dist
+
+        if "dist" in self._type and dist.elastic_enabled():
+            if timeout is None:
+                return dist.num_dead_nodes(timeout=dist.dead_timeout_seconds())
+            return dist.num_dead_nodes(timeout=timeout)
         return 0
 
     # ------------------------------------------------------------------- api
@@ -209,14 +215,20 @@ class KVStore:
 
     def _engine(self):
         """The bucket engine of a dist store with more than one worker
-        (``MXNET_KVSTORE_BUCKET=0`` keeps the unbucketed collective)."""
+        (``MXNET_KVSTORE_BUCKET=0`` keeps the unbucketed collective). One
+        worker runs it too when ``MXNET_KVSTORE_UPDATE=sharded`` asks for
+        the flat sharded update, whose state the sharded checkpoint saves;
+        the JAX package's store builds no engine for one process
+        (``mxnet_tpu/kvstore.py:254``), so there the knob does nothing."""
         if self._bucket_engine is not None:
             return self._bucket_engine
         if "dist" not in self._type:
             return None
         if os.environ.get("MXNET_KVSTORE_BUCKET", "1").lower() in ("0", "off", "false"):
             return None
-        if self.num_workers == 1:
+        from .kvstore_bucket import update_mode
+
+        if self.num_workers == 1 and update_mode() != "sharded":
             return None
         from .kvstore_bucket import BucketEngine
 
@@ -309,32 +321,52 @@ class KVStore:
                 _Collective.get().barrier()
 
     def save_optimizer_states(self, fname):
-        """The per-key Updater states as one pickle, written atomically;
-        ``RowSparseState`` pickles as plain numpy. A sharded engine's flat
-        shards checkpoint with the sharded Checkpointer, which the port has
-        not yet."""
+        """Persist optimizer state. Replicated/local: the per-key Updater
+        states as one pickle, written atomically (``RowSparseState`` pickles
+        as plain numpy). Sharded (MXNET_KVSTORE_UPDATE=sharded): each worker
+        writes its 1/W flat shard to ``<fname>.sharded/step-<N>/`` plus a
+        digest-guarded manifest, and ``fname`` itself becomes a small
+        pointer file that ``load_optimizer_states`` resolves (JAX :393)."""
         assert self._updater is not None, "Cannot save states for distributed training"
         from . import checkpoint as ckpt
 
         eng = self._bucket_engine
+        # only the flat-sharded engine takes the pointer-file path; a
+        # replicated/local store, sparse keys or not, keeps the pickle
         if eng is not None and eng._sharded_state:
-            raise MXNetError("save_optimizer_states under MXNET_KVSTORE_UPDATE=sharded: "
-                             "the sharded state set " + _NEXT)
+            eng.finalize_all()
+            opt = self._optimizer
+            step = int(opt.num_update) if opt is not None else 0
+            # a writer for this save only: fname is epoch-numbered under
+            # module_checkpoint, so a cached one would never be reused
+            writer = ckpt.Checkpointer(fname + ".sharded")
+            try:
+                writer.save_sharded(self, step, block=True)
+            finally:
+                writer.close()
+            ckpt.atomic_write_bytes(fname, json.dumps(
+                {"format": "mxtpu-sharded-states", "dir": fname + ".sharded",
+                 "step": step}).encode())
+            return
         ckpt.atomic_write_bytes(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
-        """Inverse of ``save_optimizer_states``; also reads a state file the
-        JAX package's store wrote (``convert.load_states``). Each state goes
-        onto its key's stored value's context. A torn or corrupt file
-        raises a structured MXNetError naming the path."""
+        """Inverse of ``save_optimizer_states``; also reads a state file or a
+        sharded set the JAX package's store wrote. A pickle's states go onto
+        each key's stored value's context. A sharded pointer loads through
+        ``checkpoint``: shard-direct when the live plan and world match the
+        manifest (bit parity), else re-flattened into per-key states. A torn
+        or corrupt file raises a structured MXNetError naming the path."""
         assert self._updater is not None, "Cannot load states for distributed training"
-        from .convert import load_states
+        from . import checkpoint as ckpt
+        from .convert import load_states, states_on_context
 
+        pointer = ckpt.read_sharded_pointer(fname)
+        if pointer is not None:
+            self._load_sharded_states(fname, pointer)
+            return
         with open(fname, "rb") as fin:
             blob = fin.read()
-        if blob[:1] == b"{":
-            raise MXNetError("%r is a pointer to a sharded optimizer-state set, which %s"
-                             % (fname, _NEXT))
         try:
             states = load_states(blob)
         except Exception as e:
@@ -342,34 +374,209 @@ class KVStore:
                 "optimizer-state file %r is torn or not a state pickle "
                 "(%s: %s) — likely a crash mid-save; delete it and resume "
                 "from the previous checkpoint" % (fname, type(e).__name__, e)) from e
-        from .convert import states_on_context
-
         self._updater.states = {
             k: states_on_context(v, self._store[k].context if k in self._store else None)
             for k, v in states.items()}
         if self._bucket_engine is not None:
             self._bucket_engine.reseed_updater_states()
 
-    # ------------------------------------------------------------- later items
-    @property
-    def elastic_state(self) -> str:
-        raise MXNetError("KVStore.elastic_state: the elastic state machine " + _NEXT)
-
-    def reform(self):
-        raise MXNetError("KVStore.reform: re-forming over survivors " + _NEXT)
-
-    def load_sharded_checkpoint(self, root, step=None):
-        raise MXNetError("KVStore.load_sharded_checkpoint: the sharded checkpoint " + _NEXT)
-
     def _load_sharded_states(self, fname, pointer):
-        raise MXNetError("KVStore._load_sharded_states: " + _NEXT)
+        from . import checkpoint as ckpt
+
+        root, step = pointer["dir"], pointer["step"]
+        manifest = ckpt.load_manifest(root, step)
+        if manifest is None:
+            raise MXNetError(
+                "sharded optimizer-state pointer %r names step %s in %r but "
+                "no readable manifest exists there — the checkpoint set is "
+                "torn or was deleted" % (fname, step, root))
+        self._check_flat_spec(manifest, fname)
+        self._seed_states_from_manifest(root, step, manifest)
+
+    def _check_flat_spec(self, manifest, path):
+        """The live optimizer must lower to the same flat kernel family as
+        the one that wrote the checkpoint."""
+        opt = self._optimizer
+        if opt is None:
+            return
+        kind, _, n_states = opt.flat_update_spec() or (None, None, None)
+        want = manifest["optimizer"]
+        if kind is not None and (want["kind"] != kind or want["n_states"] != n_states):
+            raise MXNetError(
+                "sharded optimizer states at %r were saved by a %r "
+                "optimizer (%d state slots); the live optimizer %s "
+                "lowers to %r (%d slots) — states are not portable "
+                "across optimizer kinds"
+                % (path, want["kind"], want["n_states"], type(opt).__name__, kind, n_states))
+
+    def _on_context(self, key, arr):
+        """A host array as an NDArray on ``key``'s stored value's context."""
+        ctx = self._store[key].context if key in self._store else None
+        if ctx is None:
+            from .context import current_context
+
+            ctx = current_context()
+        return NDArray(torch.from_numpy(np.array(arr, copy=True)).to(ctx.torch_device), ctx=ctx)
 
     def _seed_states_from_manifest(self, root, step, manifest, flats=None,
                                    sparse_tables=None):
-        raise MXNetError("KVStore._seed_states_from_manifest: " + _NEXT)
+        """Seed optimizer state from a sharded checkpoint step: shard-direct
+        when the live plan and world match (momentum bit parity), else
+        re-flatten every worker's shard into per-key Updater states. Update
+        counts restore from the manifest either way (JAX :496)."""
+        from . import checkpoint as ckpt
+
+        eng = self._bucket_engine
+        same_world = manifest["world"] == self.num_workers
+        if (eng is not None and eng.plan is not None and same_world
+                and eng.mode == "sharded" and eng.plan.hash == manifest.get("plan_hash")):
+            # shard-direct: this worker's own shard seeds its flat slices
+            n_states = manifest["optimizer"]["n_states"]
+            if flats is not None:
+                # every shard was read and verified already: slice ours out
+                world = int(manifest["world"])
+                shards = {}
+                for b in manifest["plan"]["buckets"]:
+                    idx = int(b["index"])
+                    sliced = []
+                    for s in flats[idx]["states"]:
+                        n = s.shape[0] // world
+                        sliced.append(s[self.rank * n:(self.rank + 1) * n])
+                    shards[idx] = sliced
+            else:
+                local = ckpt.read_local_shard(root, step, manifest, self.rank)
+                shards = {int(b["index"]): [local["b%d.s%d" % (int(b["index"]), i)]
+                                            for i in range(n_states)]
+                          for b in manifest["plan"]["buckets"]}
+            eng.preload_flat_shards(shards)
+        else:
+            if flats is None:
+                flats = ckpt.read_flat_buckets(root, step, manifest)
+            for key, tup in ckpt.per_key_states(manifest, flats).items():
+                nds = tuple(self._on_context(key, a) for a in tup)
+                self._updater.states[key] = nds[0] if len(nds) == 1 else nds if nds else None
+            if eng is not None:
+                eng.reseed_updater_states()
+        self._seed_sparse_states(root, step, manifest, tables=sparse_tables)
+        opt = self._optimizer
+        if opt is not None:
+            for key, count in manifest.get("update_counts", ()):
+                opt._index_update_count[key] = int(count)
+            opt.num_update = max(opt.num_update, int(manifest.get("num_update", 0)))
 
     def _seed_sparse_states(self, root, step, manifest, tables=None):
-        raise MXNetError("KVStore._seed_sparse_states: " + _NEXT)
+        """Seed row-sparse optimizer states from the manifest's sparse
+        section, re-assembled by concatenation: any reader world resumes
+        bit-identically from any writer world."""
+        from . import checkpoint as ckpt
+
+        if not manifest.get("sparse"):
+            return
+        from .sparse import RowSparseState
+
+        if tables is None:
+            tables = ckpt.read_sparse_tables(root, step, manifest)
+        for row in manifest["sparse"]:
+            key = row["key"]
+            t = tables[key]
+            st = RowSparseState(tuple(row["shape"]), row["dtype"], int(row["n_states"]))
+            st.indices = t["indices"]
+            st.rows = [np.asarray(s, st.dtype) for s in t["states"]]
+            self._updater.states[key] = st
+
+    # ---------------------------------------------------------------- elastic
+    #
+    # The pause/re-form/resume state machine:
+    #
+    #     running --(pause decision agreed)--> paused
+    #     paused  --(dist.reform succeeded)--> reforming
+    #     reforming --(weights/state reseeded)--> resuming
+    #     resuming --(first post-re-form round)--> running
+    #
+    # Driven by module.elastic.ElasticFit (JAX :591-643).
+
+    _ELASTIC_STATES = ("running", "paused", "reforming", "resuming")
+
+    @property
+    def elastic_state(self) -> str:
+        """Where this store is in the elastic state machine; ``running``
+        outside a recovery window (and always, for non-elastic jobs)."""
+        return getattr(self, "_elastic_state", "running")
+
+    def _set_elastic_state(self, state):
+        assert state in self._ELASTIC_STATES, state
+        self._elastic_state = state
+        if _tm.enabled():
+            _tm.event("kvstore.elastic_state", state=state)
+            _tm.gauge("kvstore.elastic_paused").set(0 if state == "running" else 1)
+
+    def _reseed(self, key, value):
+        """Overwrite one stored weight (the recovery path: ``init`` refuses
+        duplicates, but a re-formed worker reseeding from a checkpoint must
+        replace)."""
+        if key not in self._store:
+            raise MXNetError("cannot reseed key %s before init" % key)
+        self._store[key] = value.copy()
+
+    def reform(self):
+        """Re-form this store over the CURRENT (post-recovery) process set:
+        drop the collective of the old process group and re-plan the bucket
+        engine for the new worker count. The caller (``dist.reform`` via the
+        elastic controller) has already re-formed the process group; store
+        values and optimizer state are reseeded afterwards."""
+        if "dist" not in self._type:
+            return
+        self._set_elastic_state("reforming")
+        _Collective._cache = None  # the old group's collective must not survive
+        if self._bucket_engine is not None:
+            self._bucket_engine.reform()
+        # survivors must re-prove push-stream agreement over the new world
+        self.rearm_verify()
+
+    def load_sharded_checkpoint(self, root, step=None):
+        """Seed stored WEIGHTS and optimizer state from a sharded checkpoint
+        set under ``root``: the recovery path after an elastic re-form, and
+        the cold start of a job relaunched at another world size.
+        ``step=None`` takes the newest COMPLETE step. Weight keys must be
+        inited already. Returns ``(step, weights)``, ``weights`` mapping key
+        -> host numpy array for the caller to adopt into its executors.
+
+        Raises a structured ``MXNetError`` when no complete checkpoint
+        exists, the manifest is for another optimizer family, or the shard
+        set fails its digest check."""
+        from . import checkpoint as ckpt
+
+        if step is None:
+            got = ckpt.latest_complete(root)
+            if got is None:
+                raise MXNetError(
+                    "no COMPLETE sharded checkpoint under %r — nothing to "
+                    "recover from (a torn/in-flight step does not count)" % (root,))
+            step, manifest = got
+        else:
+            manifest = ckpt.load_manifest(root, step)
+            if manifest is None:
+                raise MXNetError("checkpoint step %s under %r has no readable manifest"
+                                 % (step, root))
+        if manifest.get("kind") != "sharded":
+            raise MXNetError("checkpoint step %s under %r is %r, not a sharded set"
+                             % (step, root, manifest.get("kind")))
+        self._check_flat_spec(manifest, root)
+        with _tm.span("checkpoint.load", step=step, world=manifest.get("world")):
+            # ONE disk + sha256 pass over the shard set; the flats, sparse
+            # tables and the state seeding below all slice from it
+            shards = ckpt.read_shard_set(root, step, manifest)
+            flats = ckpt.read_flat_buckets(root, step, manifest, shards=shards)
+            weights = ckpt.per_key_states(manifest, flats, weights=True)
+            sparse_tables = ckpt.read_sparse_tables(root, step, manifest, shards=shards)
+            for key, t in sparse_tables.items():
+                weights[key] = t["w"]
+            for key, w in weights.items():
+                if key in self._store:
+                    self._store[key] = self._on_context(key, w)
+            self._seed_states_from_manifest(root, step, manifest, flats=flats,
+                                            sparse_tables=sparse_tables)
+        return step, weights
 
 
 class _Pending:

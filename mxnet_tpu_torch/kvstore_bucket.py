@@ -202,6 +202,15 @@ class BucketPlan:
         return {"hash": self.hash, "bucket_cap": self.bucket_cap, "n_workers": self.n_workers,
                 "buckets": [b.describe() for b in self.buckets]}
 
+    def describe_portable(self):
+        """JSON-round-trippable describe() (tuples -> lists): the slot map a
+        checkpoint manifest records so any-world loaders can re-flatten the
+        shard set (``checkpoint.per_key_states``)."""
+        d = self.describe()
+        for b in d["buckets"]:
+            b["slots"] = [[s[0], s[1], s[2], list(s[3])] + list(s[4:]) for s in b["slots"]]
+        return d
+
 
 class _BucketState:
     """Runtime state of one bucket: its preallocated flat buffer and the
@@ -213,12 +222,14 @@ class _BucketState:
                                device=device)
         self.slots = set()            # (key, part) written this round
         self.result = None            # ("replicated"|"sharded", _Pending)
+        self.segments = None          # the sharded round's (lr, wd) segments
         self.t_dispatch = None
         self.partial = False
 
     def reset(self):
         self.slots.clear()
         self.result = None
+        self.segments = None
         self.t_dispatch = None
         self.partial = False
 
@@ -237,6 +248,8 @@ class BucketEngine:
         self._sharded_state: Dict[int, dict] = {}
         self._mode = update_mode()
         self._mode_reason = None
+        self._plan_records = None     # committed plan's records (for reform)
+        self._preloaded_shards = {}   # bucket idx -> [np local state shards]
         self._pending_parts: Dict = {}
         self._ticked = set()
         self._round_seq: List = []
@@ -369,14 +382,88 @@ class BucketEngine:
             self._finalize(st)
         self._close_round()
 
+    # ---------------------------------------------------------- resume/reform
+    def preload_flat_shards(self, shards):
+        """Seed the NEXT flat-state build from checkpoint shards: ``shards``
+        maps bucket index -> [np local 1/W state slices] (this worker's).
+        The live sharded state is dropped so the next flush rebuilds from
+        the preload (the same-W shard-direct resume: the exact bytes the
+        checkpoint captured go straight back)."""
+        self._preloaded_shards = dict(shards)
+        self._sharded_state.clear()
+        # a load clears a capability veto: the caller proved the
+        # optimizer/world alignment by matching the manifest
+        if self._mode_reason and "partial push round" not in self._mode_reason:
+            self._mode_reason = None
+
     def reseed_updater_states(self):
         """Drop the flat sharded state so the next flush seeds from the
-        per-key Updater states (after a state load)."""
+        per-key Updater states (the re-flattened resume; also after a state
+        load mid-run)."""
+        self._preloaded_shards.clear()
         self._sharded_state.clear()
+
+    def drain_inflight(self):
+        """Wait out every dispatched collective before the process group it
+        runs on is torn down (an elastic re-form after a crash). A handle
+        whose peer died raises the transport's error when waited on: that
+        is the failure being recovered from, so it is logged and the
+        bucket's round dropped."""
+        for st in self._states.values():
+            if st.result is not None:
+                try:
+                    st.result[1].wait()
+                except RuntimeError as e:
+                    log.warning("KVStore: bucket %d's collective failed before the re-form "
+                                "(%s); its round is dropped", st.spec.index, e)
+            st.reset()
+        self._pending_parts = {}
+
+    def reform(self, records=None):
+        """Rebuild this engine for the CURRENT world (after an elastic
+        re-form changed the process set): drop every collective handle,
+        buffer and in-flight bucket, then re-plan the committed key
+        sequence for the new worker count. The plan-digest allgather
+        re-verifies agreement and the first-N round checks re-arm."""
+        records = records if records is not None else self._plan_records
+        self._collective = None     # _Collective.get() re-keys on the group
+        self._states = {}
+        self._sharded_state = {}
+        self._preloaded_shards = {}
+        self._pending_parts = {}
+        self._ticked = set()
+        self._round_seq = []
+        self._round_t0 = None
+        self._round_flushes = []
+        self.rearm_verify()
+        self._mode = update_mode()
+        self._mode_reason = None
+        self.plan = None
+        self._recording = []
+        if records is not None:
+            self._plan_records = list(records)
+            coll = self._coll()
+            self.plan = BucketPlan.build(records, coll.n_workers)
+            self._states = {b.index: _BucketState(b, coll.device) for b in self.plan.buckets}
+            log.info("KVStore bucket plan re-formed: %d keys -> %d bucket(s) over %d "
+                     "worker(s), hash %s", len(records), len(self.plan.buckets),
+                     coll.n_workers, self.plan.hash[:12])
+            self._verify_across_workers("plan:" + self.plan.hash)
+
+    def export_per_key_states(self):
+        """Per-key optimizer states from the live flat shards, on the host:
+        the pause-time snapshot elastic recovery seeds from (a collective:
+        the full current membership must take part, i.e. a DRAINING
+        departure, not a crash). In-flight buckets finalize first. ``{}``
+        when the engine holds no flat state."""
+        self.finalize_all()
+        _, states = self._gather_per_key_states()
+        return {k: [t.cpu().numpy() for t in v] for k, v in states.items()}
 
     # ------------------------------------------------------------------ plan
     def _commit_plan(self):
         records = [(k, tuple(m.shape), str(m.dtype), p) for k, m, p in self._recording]
+        self._plan_records = records
         coll = self._coll()
         self.plan = BucketPlan.build(records, coll.n_workers)
         self._states = {b.index: _BucketState(b, coll.device) for b in self.plan.buckets}
@@ -418,6 +505,9 @@ class BucketEngine:
             if mode == "sharded":
                 if spec.index not in self._sharded_state:
                     self._build_sharded(spec)
+                # the update counts tick at dispatch, in push order, as in
+                # the JAX package (its manifests list them in this order)
+                st.segments = self._lr_wd_segments(spec)
                 st.result = ("sharded", coll.reduce_scatter(st.buf, acc_dtype=acc,
                                                             async_op=True))
                 if _tm.enabled():
@@ -492,7 +582,7 @@ class BucketEngine:
         self._round_flushes.append((st.t_dispatch, t_fin))
         spec = st.spec
         if kind == "sharded":
-            w_full = self._apply_sharded(spec, pend.wait())
+            w_full = self._apply_sharded(st, pend.wait())
             for s in spec.slots:
                 self._deliver(s, w_full[s.offset:s.offset + s.size], is_weight=True)
         else:
@@ -576,7 +666,8 @@ class BucketEngine:
     # --------------------------------------------------------------- sharded
     def _build_sharded(self, spec):
         """The bucket's persistent flat weight (replicated) and this worker's
-        1/W optimizer-state shards, seeded from the per-key Updater states
+        1/W optimizer-state shards, seeded in this order from a preloaded
+        checkpoint shard (the same-W resume), the per-key Updater states
         where present, else zeros."""
         coll = self._coll()
         opt = self._kv._optimizer
@@ -584,8 +675,18 @@ class BucketEngine:
         acc = _tdtype(spec.dtype)
         shard = spec.total // coll.n_workers
         lo = coll.rank * shard
+        preloaded = self._preloaded_shards.pop(spec.index, None)
         states = []
         for i in range(n_states):
+            if preloaded is not None:
+                loc = np.asarray(preloaded[i]).reshape(-1)
+                if loc.shape[0] != shard:
+                    raise MXNetError(
+                        "preloaded checkpoint shard for bucket %d has %d elements, expected "
+                        "%d — plan/world mismatch" % (spec.index, loc.shape[0], shard))
+                states.append(torch.from_numpy(np.array(loc, copy=True)).to(
+                    device=coll.device, dtype=acc))
+                continue
             host = torch.zeros((spec.total,), dtype=acc, device=coll.device)
             for s in spec.slots:
                 loaded = self._kv._updater.states.get(s.key)
@@ -597,17 +698,25 @@ class BucketEngine:
                 flat = part._tensor().reshape(-1)
                 host[s.offset:s.offset + s.size] = flat[s.src_off:s.src_off + s.size]
             states.append(host[lo:lo + shard].clone())
-        w_full = torch.zeros((spec.total,), dtype=acc, device=coll.device)
+        self._sharded_state[spec.index] = {"w_full": self._weights_from_store(spec),
+                                           "states": tuple(states),
+                                           "idx": None, "idx_ordinals": None}
+
+    def _weights_from_store(self, spec):
+        """The bucket's persistent flat weight buffer, assembled from the
+        current store values."""
+        coll = self._coll()
+        w_full = torch.zeros((spec.total,), dtype=_tdtype(spec.dtype), device=coll.device)
         for s in spec.slots:
             flat = self._kv._store[s.key]._tensor().reshape(-1)
             w_full[s.offset:s.offset + s.size] = flat[s.src_off:s.src_off + s.size]
-        self._sharded_state[spec.index] = {"w_full": w_full, "states": tuple(states),
-                                           "idx": None, "idx_ordinals": None}
+        return w_full
 
     def _lr_wd_segments(self, spec):
         """Per-unique-(lr, wd) segment values for this flush, gathered to
         per-element vectors through the bucket's static index map. The
-        per-key update counts tick here, once a key a round."""
+        per-key update counts tick here, once a key a round, at the
+        bucket's dispatch."""
         opt = self._kv._optimizer
         kind, hyper, _ = opt.flat_update_spec()
         per_key = []
@@ -646,14 +755,16 @@ class BucketEngine:
         shard = spec.total // coll.n_workers
         return torch.from_numpy(idx[coll.rank * shard:(coll.rank + 1) * shard]).to(coll.device)
 
-    def _apply_sharded(self, spec, g_shard):
-        """The flat update on this worker's shard, then the all-gather of the
-        new weights; returns the bucket's full flat weight."""
+    def _apply_sharded(self, st, g_shard):
+        """The flat update on this worker's shard, with the (lr, wd)
+        segments of the round's dispatch, then the all-gather of the new
+        weights; returns the bucket's full flat weight."""
         coll = self._coll()
+        spec = st.spec
         sstate = self._sharded_state[spec.index]
         opt = self._kv._optimizer
         kind, hyper, _ = opt.flat_update_spec()
-        lr_seg, wd_seg = self._lr_wd_segments(spec)
+        lr_seg, wd_seg = st.segments
         idx = sstate["idx"]
         shard = spec.total // coll.n_workers
         lo = coll.rank * shard

@@ -1,4 +1,4 @@
-# copied from mxnet_tpu/module/base_module.py (backend-free; fit(elastic=) raises)
+# copied from mxnet_tpu/module/base_module.py (backend-free)
 """BaseModule: the fit/score/predict contract.
 
 Counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
@@ -10,9 +10,7 @@ training megastep's flush and metric drain at each epoch's end
 of an epoch's wall time spent waiting on the iterator). Under it each batch
 is the fused step (``spmd_adapter.py``) or the bound executors' forward and
 backward, whose fused sites launch the port's CUDA kernels.
-Elastic training (``fit(elastic=)``, JAX ``module/elastic.py``) comes with
-the next item of data parallelism and raises until then (``ROADMAP.md``
-section 1.4b).
+``fit(elastic=...)`` routes to ``module/elastic.py``'s ``ElasticFit``.
 """
 from __future__ import annotations
 
@@ -214,14 +212,36 @@ class BaseModule:
     ):
         """Train over a data iterator (reference: base_module.py:368).
 
-        ``elastic`` (fault-tolerant training over a dist job) comes with
-        ``module/elastic.py`` (``ROADMAP.md`` section 1.4b); any value but
-        None or False raises."""
+        ``elastic`` opts into fault-tolerant training: ``True`` or a dict of
+        ``ElasticFit`` knobs (``checkpoint_dir``, ``checkpoint_period``,
+        ``reseed``, ...). The loop then checkpoints asynchronously off the
+        step path and — on an elastic dist job (``MXNET_ELASTIC=1``) —
+        survives worker death by pausing, re-forming the process group over
+        the survivors and resuming. Returns the ``ElasticFit`` controller
+        (check ``.evicted`` on it) instead of None."""
         assert num_epoch is not None, "please specify number of epochs"
+        # explicit None/False test: elastic={} is a valid all-defaults knob
+        # set and must not fall through to the classic loop
         if elastic is not None and elastic is not False:
-            raise MXNetError(
-                "fit(elastic=...): elastic training comes with module/elastic.py, which "
-                "the port has not yet (ROADMAP.md section 1.4b)")
+            if monitor is not None:
+                raise MXNetError(
+                    "fit(elastic=) does not support monitor= — per-op "
+                    "monitoring and collective re-forms don't mix")
+            from .elastic import ElasticFit
+
+            knobs = dict(elastic) if isinstance(elastic, dict) else {}
+            return ElasticFit(self, **knobs).fit(
+                train_data, eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=optimizer, optimizer_params=optimizer_params,
+                eval_end_callback=eval_end_callback,
+                eval_batch_end_callback=eval_batch_end_callback,
+                initializer=initializer, arg_params=arg_params,
+                aux_params=aux_params, allow_missing=allow_missing,
+                force_rebind=force_rebind, force_init=force_init,
+                begin_epoch=begin_epoch, num_epoch=num_epoch,
+                validation_metric=validation_metric)
         from ..initializer import Uniform
 
         if initializer is None:

@@ -14,7 +14,7 @@ store (``kvstore_helper``). ``load_data_label`` copies each context's rows
 of the batch into its bound input arrays in place, with no rebinding; the
 executors' forward and backward run the fused sites' CUDA kernels.
 ``PipelineExecutorGroup`` (JAX :295) comes with ``parallel/autoplan.py``
-(``ROADMAP.md`` section 1.4b) and raises.
+(``ROADMAP.md`` section 1.4b step 4) and raises.
 """
 from __future__ import annotations
 
@@ -247,4 +247,4 @@ class PipelineExecutorGroup:
                  logger=None):
         raise MXNetError("PipelineExecutorGroup: pipeline parallelism comes with "
                          "parallel/autoplan.py, which the port has not yet (ROADMAP.md "
-                         "section 1.4b)")
+                         "section 1.4b step 4)")

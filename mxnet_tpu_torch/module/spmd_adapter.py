@@ -237,6 +237,38 @@ class SPMDStepAdapter:
         self.flush()  # buffered megastep batches must land before snapshot
         return pickle.dumps(opt_state_to_numpy(self.trainer.opt_state))
 
+    def freeze(self):
+        """The weights, aux values and optimizer state as the last dispatched
+        step left them, copied now (``checkpoint.Frozen``: one clone a flat
+        buffer, ordered on the stream after the step, so a later replay
+        cannot reach them). Returns ``(weights, states)``: ``weights`` maps
+        ``"arg:<name>"``/``"aux:<name>"`` to frozen values, and ``states()``
+        makes the ``get_states`` pickle from the frozen state, on whichever
+        thread writes it."""
+        from ..checkpoint import Frozen, FrozenView
+
+        self.flush()
+        tr = self.trainer
+        st = tr._state
+        weights, frozen = {}, {"t": Frozen(st.opt_state["t"])}
+        for key in ("params",) + tuple(tr._fo.state_names):
+            views = weights if key == "params" else frozen.setdefault(key, {})
+            for dt, names in st.flats["groups"].items():
+                flat, off = Frozen(st.flats[key][dt]), 0
+                for n in names:
+                    p = st.params[n]
+                    views[("arg:" + n) if key == "params" else n] = FrozenView(
+                        flat, off, p.numel(), p.shape)
+                    off += p.numel()
+        for n, a in st.aux.items():
+            weights["aux:" + n] = Frozen(a)
+
+        def states():
+            return pickle.dumps({k: v.numpy() if k == "t" else {n: x.numpy() for n, x in v.items()}
+                                 for k, v in frozen.items()})
+
+        return weights, states
+
     def set_states(self, blob):
         """Copy a ``get_states`` pickle (either package's) into the
         trainer's state tensors."""

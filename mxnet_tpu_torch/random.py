@@ -52,6 +52,23 @@ def seed(seed_state: int):
     np.random.seed(int(seed_state) & 0x7FFFFFFF)
 
 
+def refresh_backend():
+    """Check every device's generator after an elastic re-form (JAX :44,
+    which re-materializes its key on the new backend). A torch generator
+    belongs to its device, not to a process group, so a re-form leaves it
+    valid and reads nothing of the old group: its state carries over, and a
+    CUDA graph that registered it keeps replaying it. A generator whose
+    state can no longer be read (a failed card poisoned its context) is
+    dropped, as JAX drops an unreadable key: the next draw makes a fresh
+    one, and a graph captured on the dropped one refuses to replay
+    (``parallel/trainer.py``)."""
+    for device, gen in list(_GENS.items()):
+        try:
+            gen.get_state()
+        except RuntimeError:
+            del _GENS[device]
+
+
 def uniform(low=0.0, high=1.0, shape=(1,), ctx=None, dtype=np.float32, out=None):
     """Samples of U(low, high) on ``ctx`` (default ``current_context()``)."""
     from .ndarray import imperative_invoke

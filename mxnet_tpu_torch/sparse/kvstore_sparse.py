@@ -41,7 +41,8 @@ from . import RowSparseNDArray, dense_fallback_pct, from_dense, sparse_enabled
 __all__ = ["SparseEngine"]
 
 
-# copied from mxnet_tpu/sparse/kvstore_sparse.py (backend-free)
+# copied from mxnet_tpu/sparse/kvstore_sparse.py (_next_pow2, and sparse_states
+# below; backend-free)
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
@@ -170,3 +171,20 @@ class SparseEngine:
             t = stored._tensor()
             t[torch.from_numpy(rows).to(t.device)] = \
                 reduced.values._tensor().to(device=t.device, dtype=t.dtype)
+
+    # ------------------------------------------------------------- checkpoint
+    def sparse_states(self):
+        """``{key: (shape, dtype, RowSparseState)}`` for every registered
+        sparse key whose Updater state is row-sparse: the checkpoint
+        writer's view (``checkpoint.sparse_shard_arrays``)."""
+        from . import RowSparseState
+
+        upd = self._kv._updater
+        out = {}
+        if upd is None:
+            return out
+        for key, (shape, dtype) in self._keys.items():
+            st = upd.states.get(key)
+            if isinstance(st, RowSparseState):
+                out[key] = (shape, dtype, st)
+        return out

@@ -334,8 +334,6 @@ def test_f5_a_with_block_wins_and_a_gpu_default_does_not_fall_back(monkeypatch):
 
 
 # ---------------------------------------------------------------- F6
-_STEP2 = "ROADMAP.md section 1.4b step 2 (checkpoint.Checkpointer)"
-_STEP3 = "ROADMAP.md section 1.4b step 3 (module/elastic.py)"
 _STEP4 = "ROADMAP.md section 1.4b step 4 (the planner, the analysis passes)"
 _TOOLING = "ROADMAP.md section 1.5 (tooling: fusion, profiler and lint families)"
 _FLEET = "ROADMAP.md section 1, item 6 (the serving fleet)"
@@ -352,14 +350,8 @@ ALL_EXCEPTIONS = {
     ("parallel", "plan_parallel"): _STEP4,
     ("parallel.mesh", "shard_map_compat"): "JAX's shard_map; the port runs a mesh's shards "
                                            "as one program (parallel/trainer.py)",
-    ("module", "ElasticFit"): _STEP3,
     ("module", "PipelineExecutorGroup"): _STEP4,
     ("serving", "fleet"): _FLEET,
-    **{("checkpoint", n): _STEP2 for n in (
-        "Checkpointer", "checkpoint_dir", "latest_complete", "load_manifest",
-        "read_flat_buckets", "read_local_shard", "read_extra", "per_key_states", "step_dir",
-        "list_steps", "read_shard_set", "read_sparse_tables", "sparse_shard_arrays",
-        "sparse_manifest_section", "apply_retention", "read_sharded_pointer")},
     **{("analysis", n): _STEP4 for n in (
         "CODES", "Diagnostic", "Report", "Severity", "describe_code", "GraphContext",
         "graph_pass", "list_passes", "run_graph_passes")},

@@ -1370,3 +1370,145 @@ def test_step_many_n4_is_bitwise_eight_single_steps_on_the_card(dev):
     want = one.get_params()[0]
     for k, v in four.get_params()[0].items():
         assert np.array_equal(v, want[k]), k
+
+
+# ----------------------------------------------- checkpoints off the step path
+def test_a_save_frozen_between_replays_writes_its_steps_bytes(dev, tmp_path, monkeypatch):
+    """The fused ResNet step replays its CUDA graph over the same state
+    tensors. A save frozen after step 2 and held behind a busy writer while
+    three more replays run still writes step 2's weights, moving stats and
+    momentum: the freeze is a clone ordered on the stream after the step."""
+    import pickle
+    import threading
+
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch.models import resnet
+
+    monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "1")
+    net = resnet.get_symbol(num_classes=10, num_layers=18, image_shape="3,32,32")
+    rs = np.random.RandomState(4)
+    x = rs.uniform(-1, 1, (5 * 8, 3, 32, 32)).astype(np.float32)
+    y = rs.randint(0, 10, 5 * 8).astype(np.float32)
+    mod = pt.mod.Module(net, context=pt.gpu(0))
+    mod.bind(data_shapes=[("data", (8, 3, 32, 32))], label_shapes=[("softmax_label", (8,))])
+    pt.random.seed(5)
+    mod.init_params(initializer=pt.init.Xavier(magnitude=2.0))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=(("learning_rate", 0.05),
+                                                          ("momentum", 0.9), ("wd", 1e-4)))
+    batches = [pt.io.DataBatch(data=[pt.nd.array(x[i * 8:(i + 1) * 8], ctx=pt.gpu(0))],
+                               label=[pt.nd.array(y[i * 8:(i + 1) * 8], ctx=pt.gpu(0))])
+               for i in range(5)]
+    for b in batches[:2]:
+        mod.forward_backward(b)
+        mod.update()
+    (graph,) = mod._spmd.trainer._graphs.values()
+    args, aux = (({k: v.asnumpy().copy() for k, v in d.items()}) for d in mod.get_params())
+    states = pickle.loads(mod._spmd.get_states())
+    writer = ckpt.Checkpointer(str(tmp_path))
+    gate = threading.Event()
+    writer._submit(gate.wait, step=0, block=False)
+    weights, frozen_states = mod._spmd.freeze()
+    writer.save_replicated(2, weights, states_bytes=frozen_states)
+    replays = graph.replays
+    for b in batches[2:]:
+        mod.forward_backward(b)
+        mod.update()
+    torch.cuda.synchronize()
+    assert graph.replays == replays + 3
+    moved = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    assert any(not np.array_equal(moved[k], args[k]) for k in args)
+    gate.set()
+    writer.close()
+    d = ckpt.step_dir(str(tmp_path), 2)
+    blob = ckpt._load_npz_checked(d + "/weights.npz")
+    for k, v in args.items():
+        assert np.array_equal(blob["arg:" + k], v), k
+    for k, v in aux.items():
+        assert np.array_equal(blob["aux:" + k], v), k
+    with open(d + "/states.bin", "rb") as f:
+        written = pickle.load(f)
+    assert int(written["t"]) == int(states["t"]) == 2
+    for k, v in states["mom"].items():
+        assert np.array_equal(written["mom"][k], v), k
+
+
+def test_sharded_save_and_resume_on_one_nccl_rank(dev, tmp_path, monkeypatch):
+    """The MNIST mlp on one NCCL rank of dist_sync with the sharded update:
+    the flat shards live on the card, ``save_sharded`` every 2 steps, and a
+    fresh module seeded by ``load_sharded_checkpoint`` continues to the
+    uninterrupted run's bits, kernel 6 launching on both. The uninterrupted
+    run ends on the weights of the same steps through the per-key Updater
+    (``MXNET_KVSTORE_UPDATE=replicated``, the path the JAX package takes for
+    one process) within rtol 1e-5, atol 1e-6."""
+    import socket
+
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch import ops
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in {"MXNET_TPU_COORDINATOR": "127.0.0.1:%d" % port, "MXNET_TPU_NUM_WORKERS": "1",
+                 "MXNET_TPU_WORKER_ID": "0", "MXNET_MODULE_FUSED_STEP": "0",
+                 "MXNET_KVSTORE_UPDATE": "sharded", "MXNET_DEFAULT_CONTEXT": "gpu"}.items():
+        monkeypatch.setenv(k, v)
+    net = pt.models.get_symbol("mlp", num_classes=10)
+    rs = np.random.RandomState(6)
+    x = rs.rand(6 * 40, 784).astype(np.float32)
+    y = rs.randint(0, 10, 6 * 40).astype(np.float32)
+    shapes, _, _ = net.infer_shape(data=(40, 784))
+    params = {n: (rs.randn(*s) * 0.05).astype(np.float32)
+              for n, s in zip(net.list_arguments(), shapes) if n not in ("data", "softmax_label")}
+    batches = [pt.io.DataBatch(data=[pt.nd.array(x[i * 40:(i + 1) * 40], ctx=pt.gpu(0))],
+                               label=[pt.nd.array(y[i * 40:(i + 1) * 40], ctx=pt.gpu(0))])
+               for i in range(6)]
+
+    def module():
+        m = pt.mod.Module(net, context=pt.gpu(0))
+        m.bind(data_shapes=[("data", (40, 784))], label_shapes=[("softmax_label", (40,))])
+        m.init_params(arg_params={k: pt.nd.array(v, ctx=pt.cpu()) for k, v in params.items()})
+        m.init_optimizer(kvstore="dist_sync", optimizer="sgd",
+                         optimizer_params=(("learning_rate", 0.1), ("momentum", 0.9)))
+        return m
+
+    try:
+        m = module()
+        kv = m._kvstore
+        assert pt.dist.backend() == "nccl" and kv.num_workers == 1
+        writer = ckpt.Checkpointer(str(tmp_path))
+        ops.reset_launch_counts()
+        for i, b in enumerate(batches):
+            m.forward_backward(b)
+            m.update()
+            if (i + 1) % 2 == 0 and i + 1 < 6:
+                assert kv._bucket_engine.mode == "sharded"
+                writer.save_sharded(kv, i + 1)
+        writer.close()
+        assert ops.launch_counts()["matmul_bias_act"] == 2 * 6
+        want = {k: v.asnumpy() for k, v in m.get_params()[0].items()}
+        step, manifest = ckpt.latest_complete(str(tmp_path))
+        assert step == 4 and manifest["kind"] == "sharded"
+        m2 = module()
+        loaded, weights = m2._kvstore.load_sharded_checkpoint(str(tmp_path))
+        names = m2._param_names
+        m2.set_params({names[k]: pt.nd.array(v, ctx=pt.gpu(0)) for k, v in weights.items()}, {},
+                      allow_missing=True)
+        ops.reset_launch_counts()
+        for b in batches[4:]:
+            m2.forward_backward(b)
+            m2.update()
+        assert ops.launch_counts()["matmul_bias_act"] == 2 * 2
+        got = {k: v.asnumpy() for k, v in m2.get_params()[0].items()}
+        monkeypatch.setenv("MXNET_KVSTORE_UPDATE", "replicated")
+        m3 = module()
+        for b in batches:
+            m3.forward_backward(b)
+            m3.update()
+        assert m3._kvstore._bucket_engine is None
+        per_key = {k: v.asnumpy() for k, v in m3.get_params()[0].items()}
+    finally:
+        pt.dist.shutdown()
+    assert loaded == 4
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+        np.testing.assert_allclose(want[k], per_key[k], rtol=1e-5, atol=1e-6, err_msg=k)

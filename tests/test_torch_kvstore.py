@@ -11,8 +11,7 @@ against the JAX package's.
   ``_group_kv``, the bucket plan, the env knobs, the flat kernels against
   the fused per-key ops (atol 1e-6), the digest windows (the world size
   faked to 2), the topological priorities and the prefetching iterator.
-  ``reform`` re-arms the JAX package's digest window; the port's raises,
-  naming the next ROADMAP item.
+  ``reform`` re-arms the digest window in both packages.
 * Optimizer states across packages: a state file the JAX store wrote,
   ``RowSparseState`` included, loads into the port's store, and the
   port's file goes back to the JAX store, every state equal.
@@ -528,19 +527,18 @@ def test_kvstore_rearm_propagates_to_engine(mx):
 
 
 def test_reform_rearms_digest_window_or_raises_naming_the_next_item(mx, monkeypatch):
+    """After an elastic reform the survivors must re-prove push-stream
+    agreement: reform() re-opens the digest window in both packages (the
+    port's raised until ROADMAP.md section 1.4b step 3 landed)."""
     kv_cls = _mod(mx, "kvstore").KVStore
     kv = kv_cls.__new__(kv_cls)
     kv._type = "dist_sync"
     kv._verify_rounds_done = 7
     kv._verify_check_rounds = 3
     kv._bucket_engine = None
-    if mx is mxnet_tpu:
-        monkeypatch.setattr(kv_cls, "_set_elastic_state", lambda self, state: None)
-        kv.reform()
-        assert kv._verify_rounds_done == 0
-    else:
-        with pytest.raises(pt.MXNetError, match="section 1.4b"):
-            kv.reform()
+    monkeypatch.setattr(kv_cls, "_set_elastic_state", lambda self, state: None)
+    kv.reform()
+    assert kv._verify_rounds_done == 0
 
 
 # ---------------------------------------------------------- topo priorities
@@ -667,17 +665,26 @@ def test_optimizer_states_cross_packages(tmp_path):
     assert type(blob["emb"]).__module__ == "mxnet_tpu.sparse"
 
 
-def test_sharded_and_elastic_store_features_raise_naming_the_next_item():
-    kv = pt.kv.KVStore("local")
-    for call in (lambda: kv.elastic_state, kv.reform,
-                 lambda: kv.load_sharded_checkpoint("/nonexistent"),
-                 lambda: kv._load_sharded_states("f", {}),
-                 lambda: kv._seed_states_from_manifest("r", 0, {}),
-                 lambda: kv._seed_sparse_states("r", 0, {})):
-        with pytest.raises(pt.MXNetError, match="section 1.4b"):
-            call()
-    for name in ("members", "generation", "orig_rank", "coordination_client", "poll_pause"):
-        with pytest.raises(pt.MXNetError, match="section 1.4b"):
+def test_sharded_and_elastic_store_features_raise_naming_the_next_item(tmp_path):
+    """The sharded checkpoint and the elastic state machine landed with
+    ROADMAP.md section 1.4b steps 2-3: a local store runs them (its reform
+    is a no-op, a load of a missing set raises the reference's structured
+    error, the elastic calls outside an elastic job raise as in the
+    reference); what still raises names section 1.4b step 4."""
+    kv = pt.kv.create("local")
+    kv.set_optimizer(pt.optimizer.SGD(learning_rate=0.1))
+    assert kv.elastic_state == "running"
+    kv.reform()
+    assert kv.elastic_state == "running"
+    with pytest.raises(pt.MXNetError, match="no COMPLETE sharded checkpoint"):
+        kv.load_sharded_checkpoint(str(tmp_path / "nonexistent"))
+    with pytest.raises(pt.MXNetError, match="no readable manifest"):
+        kv._load_sharded_states("f", {"dir": str(tmp_path), "step": 3})
+    kv._seed_sparse_states(str(tmp_path), 0, {})  # no sparse section: nothing to seed
+    assert pt.dist.members() is None and pt.dist.generation() == 0
+    assert pt.dist.orig_rank() is None
+    for name in ("coordination_client", "poll_pause"):
+        with pytest.raises(pt.MXNetError, match="elastic job"):
             getattr(pt.dist, name)()
     with pytest.raises(pt.MXNetError, match="section 1.4b"):
         pt.mod.executor_group.PipelineExecutorGroup(None, None, [])

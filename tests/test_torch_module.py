@@ -3,8 +3,10 @@
 Every case of the reference's own ``tests/test_module.py`` runs here on BOTH
 packages (fixture ``mx``, the port inside ``with cpu():``), but the three
 that need ``kvstore.py`` or several contexts, which run in
-``tests/test_torch_kvstore.py``; elastic fit and the fused step still
-raise, naming ROADMAP.md section 1.4b (checked below). Then parity: the MNIST ``mlp`` and ``lenet`` at their published
+``tests/test_torch_kvstore.py``; elastic fit runs (``ElasticFit``, held
+against the JAX package in ``tests/test_torch_checkpoint.py``) and the
+fused step's planner raises, naming ROADMAP.md section 1.4b step 4
+(checked below). Then parity: the MNIST ``mlp`` and ``lenet`` at their published
 widths trained through ``Module.fit`` from the same numpy parameters on
 the same shuffled batches in both packages (SGD with momentum and wd, a
 FactorScheduler, an lr multiplier through ``set_lr_mult`` and one through a
@@ -238,19 +240,24 @@ def test_metrics(mx):
 
 # ------------------------------------------------------------- waits for 1.4b
 def test_elastic_fit_and_the_fused_step_raise_naming_section_1_4b(monkeypatch):
-    """What still raises of data parallelism: elastic fit (ROADMAP.md
-    section 1.4b step 3). The fused step no longer raises: under
-    ``MXNET_MODULE_FUSED_STEP=1`` one context engages it
-    (``tests/test_torch_spmd.py`` holds it against the JAX package's); its
-    planner raises, naming section 1.4b step 4."""
+    """What still raises of data parallelism. Elastic fit no longer does
+    (ROADMAP.md section 1.4b step 3 landed): it returns its ``ElasticFit``
+    controller, and refuses ``monitor=`` as the JAX package does. The
+    fused step does not either: under ``MXNET_MODULE_FUSED_STEP=1`` one
+    context engages it (``tests/test_torch_spmd.py`` holds it against the
+    JAX package's); its planner raises, naming section 1.4b step 4."""
     net = mlp_symbol(pt)
     mod = pt.mod.Module(net, context=pt.cpu())
     mod.bind(data_shapes=[("data", (10, 20))], label_shapes=[("softmax_label", (10,))])
     mod.init_params()
     with pt.cpu():
         train = pt.io.NDArrayIter(np.zeros((10, 20), "f"), np.zeros(10, "f"), batch_size=10)
-    with pytest.raises(pt.MXNetError, match="section 1.4b"):
-        mod.fit(train, num_epoch=1, elastic=True)
+    monkeypatch.delenv("MXNET_CHECKPOINT_DIR", raising=False)
+    fit_mod = pt.mod.Module(net, context=pt.cpu())
+    ctl = fit_mod.fit(train, num_epoch=1, elastic=True)
+    assert isinstance(ctl, pt.mod.ElasticFit) and ctl._round == 1 and not ctl.evicted
+    with pytest.raises(pt.MXNetError, match="monitor="):
+        fit_mod.fit(train, num_epoch=1, elastic={}, monitor=pt.monitor.Monitor(1))
     monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "1")
     monkeypatch.setenv("MXNET_AUTOPLAN", "1")
     with pytest.raises(pt.MXNetError, match="section 1.4b step 4"):
