@@ -187,15 +187,34 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    loaded by a fresh store: weights, state rows, the touched set and update
    counts bitwise. The checkpoints live in a temporary directory the phase
    removes.
-17. A ``smoke`` line (the run's seconds from the import of the port), a
+17. Planner (``analysis/``, ``parallel/autoplan.py``,
+   ``module.PipelineExecutorGroup``, ``fusion._conv_block_sharded``):
+   ResNet-50 bound at batch 32 for training under ``MXNET_GRAPHLINT=error``
+   lints clean, its memory plan's predicted peak printed beside the card's
+   measured one (and the MNIST ``mlp``'s prediction within the reference's
+   2x of its live buffers); ResNet-50's fused ``Module.fit`` at phase 9's
+   settings under ``MXNET_AUTOPLAN=1`` (the plan's ``summary()``, 49 + 49
+   launches a captured step) is bitwise the unplanned fit; ResNet-50 through
+   ``PipelineExecutorGroup`` (two stages, four microbatches of 8,
+   SGD-momentum, 8 steps): launches exact in each phase (``conv_bn`` a site
+   a microbatch in the forward phase and again in the recompute,
+   ``conv_bn_bwd`` once), the loss falls, a batch-4 step (two microbatches)
+   card vs CPU by phase 6's rule, host p50/p80 a step, CUDA-event spans,
+   the profiler's idle share and the peak memory against the per-device
+   step's; the MNIST ``mlp`` pipeline equals its full-batch step (atol
+   1e-5) with its kernel-6 launches counted; ``_conv_block_sharded`` at
+   stage 1's 3x3 shape on one NCCL rank: outputs, statistics and gradients
+   bitwise ``ConvBlock``'s, the process group destroyed after.
+18. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
    ``recommender_launches``; row 6 with ``recommender_fc``; rows 6, 8 and 9
-   with the fused-step phase's ``fused_launches`` and the checkpoint
-   phase's ``checkpoint_launches``), the card's name/power line, then the
+   with the fused-step phase's ``fused_launches``, the checkpoint
+   phase's ``checkpoint_launches`` and the planner phase's
+   ``planner_launches``), the card's name/power line, then the
    last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.
@@ -6211,6 +6230,392 @@ def run_checkpoint(pt, smi):
     return launches
 
 
+# Phase 17: the graph lint, the planner and the pipeline (``analysis/``,
+# ``parallel/autoplan.py``, ``module.PipelineExecutorGroup``) and BatchNorm
+# across processes (``fusion._conv_block_sharded``), at phase 9's ResNet-50:
+# its four fixed batches of 32, two epochs, SGD with momentum.
+PLANNER = dict(stages=2, microbatches=4, check_batch=4, check_microbatches=2, mlp_batch=64,
+               mlp_cut="relu1", timed_steps=24, budget_s=60.0)
+
+
+def nbytes_of(arrays):
+    return sum(int(np.prod(a.shape)) * np.dtype(a.dtype).itemsize for a in arrays
+               if a is not None)
+
+
+def step_peak(step):
+    """(bytes allocated before ``step``, the peak while it ran): the caching
+    allocator's counters around one call, synchronized."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return base, torch.cuda.max_memory_allocated()
+
+
+def pipeline_group(pt, net, data_shape, ctx, B, mu, args, aux, dtype="float32", cuts=None):
+    """``PipelineExecutorGroup`` over ``net`` (inputs ``data`` of
+    ``data_shape`` a row, ``softmax_label``) at batch ``B`` in ``mu``
+    microbatches on ``ctx``, in ``dtype``, from the given weights."""
+    from mxnet_tpu_torch.module import PipelineExecutorGroup
+
+    types = {n: dtype for n in net.list_arguments() + net.list_auxiliary_states()}
+    types.update({"__pipe%d__" % i: dtype for i in range(PLANNER["stages"] - 1)})
+    pg = PipelineExecutorGroup(net, ctx, [("data", (B,) + tuple(data_shape))],
+                               [("softmax_label", (B,))], num_stages=PLANNER["stages"],
+                               microbatches=mu, cut_entries=cuts, type_dict=types)
+    pg.set_params({k: v.astype(dtype) for k, v in args.items()},
+                  {k: v.astype(dtype) for k, v in aux.items()})
+    return pg
+
+
+def data_batch(pt, x, y, ctx):
+    return pt.io.DataBatch(data=[pt.nd.array(x, ctx=ctx)], label=[pt.nd.array(y, ctx=ctx)])
+
+
+def pipeline_loss(pg, labels):
+    prob = pg.get_outputs()[0]._tensor()
+    lab = torch.as_tensor(labels.reshape(-1, 1), device=prob.device).long()
+    return float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
+
+
+def pipeline_sites(pg, kind):
+    """The planned sites of the stages' programs: conv+BN sites (``conv``)
+    or a pattern's (by name)."""
+    if kind == "conv":
+        return sum(sum(1 for d in ex._prog.fusion_plan.values() if d["kind"] == "conv")
+                   for ex in pg.execs)
+    return sum(ex._prog.pattern_sites.get(kind, 0) for ex in pg.execs)
+
+
+def pipeline_train_check(pt, net, args, aux, images, labels):
+    """A pipelined step at batch ``check_batch`` (``check_microbatches``
+    microbatches) from the same weights on the card and on the CPU, in
+    float32 and float64, by phase 6's rule: each gradient within rtol 1e-3,
+    atol 1e-3·max|grad| of the CPU's float32 one, or at most
+    RESNET_F64_FACTOR times as far from the float64 one as the CPU's; the
+    CPU pinned to the card's side at every ReLU kink (both phases of the
+    schedule reach the ReLUs in the same order on either device)."""
+    Bc, mu = PLANNER["check_batch"], PLANNER["check_microbatches"]
+
+    def run(ctx, dtype, kinks):
+        pg = pipeline_group(pt, net, image_shape(), ctx, Bc, mu, args, aux, dtype)
+        b = data_batch(pt, images[:Bc].astype(dtype), labels[:Bc].astype(dtype), ctx)
+        with kinks as flips:
+            pg.forward_backward(b)
+        grads = {n: g.asnumpy().astype(np.float64)
+                 for n, g in zip(pg.param_names, pg.grad_arrays)}
+        p_args, p_aux = {}, {}
+        pg.get_params(p_args, p_aux)
+        return (grads, {n: v.asnumpy().astype(np.float64) for n, v in p_aux.items()},
+                pipeline_loss(pg, labels[:Bc])), flips
+
+    card = []
+    got, _ = run(pt.gpu(0), np.float32, relu_kinks(record=card))
+    torch.cuda.synchronize()
+    want, flips = run(pt.cpu(), np.float32, relu_kinks(compare=card, pin=True))
+    exact, _ = run(pt.cpu(), np.float64, relu_kinks(compare=card, pin=True))
+    names = list(got[0])
+    strict = [n for n in names if np.allclose(got[0][n], want[0][n], rtol=1e-3,
+                                              atol=1e-3 * float(np.abs(want[0][n]).max()))]
+    card64 = {n: rel_diff(got[0][n], exact[0][n]) for n in names}
+    cpu64 = {n: rel_diff(want[0][n], exact[0][n]) for n in names}
+    gscale = max(float(np.abs(exact[0][n]).max()) for n in names)
+    null = {n for n in names if float(np.abs(exact[0][n]).max()) <= 1e-6 * gscale}
+    loose = [n for n in names if n not in strict and n not in null]
+    bad = [n for n in loose if card64[n] > RESNET_F64_FACTOR * cpu64[n]]
+    aux_rel = max(rel_diff(got[1][n], want[1][n]) for n in got[1])
+    check(abs(got[2] - want[2]) <= 1e-3 * max(1.0, abs(want[2])),
+          ("pipelined batch-4 loss card vs CPU", got[2], want[2]))
+    check(all(np.isfinite(g).all() for g in got[0].values()), "non-finite pipelined gradient")
+    check(not bad and aux_rel <= 1e-3, ("pipelined batch-4 grads card vs CPU", bad[:5], aux_rel))
+    return {"batch": Bc, "microbatches": mu, "loss_card": got[2], "loss_cpu": want[2],
+            "grads": len(names), "grads_within_1e-3_of_cpu": len(strict),
+            "null_grads": len(null), "relu_kinks_pinned": sum(n for n, _ in flips),
+            "worst_ratio": max([card64[n] / max(cpu64[n], 1e-30) for n in loose] or [0.0]),
+            "moving_stats_worst": aux_rel, "f64_factor": RESNET_F64_FACTOR}
+
+
+def run_planner(pt, smi):
+    """Phase 17: the graph lint at bind, the planner on the fused step, the
+    GPipe pipeline (ResNet-50 and the MNIST ``mlp``) and the sharded conv+BN
+    statistics on one NCCL rank. Returns its launches by kernel."""
+    import torch.distributed as tdist
+
+    from mxnet_tpu_torch import analysis, fusion, models, ops, telemetry
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import conv_bn as cb
+    from mxnet_tpu_torch.parallel import autoplan
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # conv0 and the stride-2 3x3s: the same bits
+    saved_mode = telemetry.current_override()
+    telemetry.set_mode("counters")
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    B, nb = RESNET_TRAIN["batch"], MODULE["batches"]
+    steps = nb * MODULE["epochs"]
+    images, labels = module_data(B * nb)
+    shapes = {"data": (B,) + image_shape(), "softmax_label": (B,)}
+    launches = {}
+
+    # --- 1. the graph lint at bind: ResNet-50 at batch 32 for training
+    telemetry.reset()
+    with env_vars(MXNET_GRAPHLINT="error"):
+        exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, {n: "write" for n in args},
+                          images, labels)
+    predicted = telemetry.gauge("memlint.predicted_peak_bytes").value
+    report = analysis.lint(net, shapes=shapes, target="resnet-50")
+    check(not report.errors and predicted == report.memory_plan["per_device"]["peak"],
+          ("ResNet-50 lint at bind", report.codes(), predicted))
+    base, peak = step_peak(exe.forward_backward)
+    live = nbytes_of(exe.arg_arrays + exe.grad_arrays + exe.aux_arrays + exe.outputs)
+    plan = report.memory_plan
+    out = {"phase": "planner", "part": "lint", "nvidia_smi": smi, "batch": B,
+           "codes": report.codes(), "predicted_peak_bytes": int(predicted),
+           "predicted": plan["per_device"], "predicted_peak_node": plan["peak_node"],
+           "predicted_peak_phase": plan["peak_phase"],
+           "measured_peak_bytes": int(peak), "allocated_before_step_bytes": int(base),
+           "measured_step_bytes": int(peak - base), "live_buffers_bytes": int(live),
+           "predicted_over_measured_peak": predicted / peak}
+    del exe
+    # the reference's own bound (tests/test_graphlint.py): the MNIST mlp's
+    # prediction within 2x of the buffers a bound step holds
+    mlp = models.get_symbol("mlp", num_classes=10)
+    mshapes = {"data": (32, 784), "softmax_label": (32,)}
+    mpred = analysis.lint(mlp, shapes=mshapes).memory_plan["per_device"]["peak"]
+    mexe = mlp.simple_bind(pt.gpu(0), **mshapes)
+    mexe.forward_backward()
+    mlive = nbytes_of(mexe.arg_arrays + mexe.grad_arrays + mexe.aux_arrays + mexe.outputs)
+    check(mlive / 2 <= mpred <= 2 * mlive, ("mlp predicted vs live", mpred, mlive))
+    out.update(mlp_predicted_bytes=int(mpred), mlp_live_buffers_bytes=int(mlive))
+    del mexe
+    log(out)
+
+    # --- 2. the planner on the fused step: Module.fit under MXNET_AUTOPLAN=1
+    opt_params = (("learning_rate", RESNET_TRAIN["lr"]), ("momentum", RESNET_TRAIN["momentum"]),
+                  ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+    plan = autoplan.plan_parallel(net, shapes, devices=1)
+    check(plan.feasible and plan.mesh == {"data": 1, "model": 1}
+          and plan.pipeline_stages == 1, ("ResNet-50's one-card plan", plan.summary()))
+
+    def fused_fit(planned):
+        with pt.gpu(0):
+            train = pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False)
+        mod = pt.mod.Module(net, context=pt.gpu(0))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with env_vars(MXNET_MODULE_FUSED_STEP="1", MXNET_AUTOPLAN="1" if planned else None,
+                      MXNET_GRAPHLINT="warn" if planned else None):
+            mod.fit(train, eval_metric="acc", optimizer="sgd", optimizer_params=opt_params,
+                    arg_params=args, aux_params=aux, num_epoch=MODULE["epochs"])
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        check(mod._spmd is not None, ("the fused step", planned))
+        graph = one_graph(mod)
+        per_replay = {k: v for k, v in graph.replay_launches[0].items() if v}
+        check(per_replay == {"conv_bn": RESNET_SITES, "conv_bn_bwd": RESNET_SITES},
+              ("a captured step's launches", planned, per_replay))
+        check(got == with_zeros({"conv_bn": RESNET_SITES * steps,
+                                 "conv_bn_bwd": RESNET_SITES * steps}),
+              ("fused Module.fit launches", planned, got))
+        return mod, got
+
+    t0 = time.perf_counter()
+    planned, fit_launches = fused_fit(True)
+    planned_s = time.perf_counter() - t0
+    check(dict(planned._spmd.trainer.mesh.shape) == plan.mesh, "the planned mesh")
+    fit_gauge = telemetry.gauge("memlint.predicted_peak_bytes").value
+    plain, _ = fused_fit(False)
+    (pa, px), (qa, qx) = module_arrays(planned), module_arrays(plain)
+    same = all(np.array_equal(pa[k], qa[k]) for k in qa) and \
+        all(np.array_equal(px[k], qx[k]) for k in qx)
+    check(same, "the planned fused fit is not bitwise the unplanned one")
+    launches["autoplan_fit"] = {k: fit_launches[k] for k in ("conv_bn", "conv_bn_bwd")}
+    log({"phase": "planner", "part": "autoplan_fit", "nvidia_smi": smi, "batch": B,
+         "steps": steps, "plan": plan.summary(), "plan_mesh": plan.mesh,
+         "fit_s": planned_s, "fit_launches": launches["autoplan_fit"],
+         "spmd_lint_predicted_peak_bytes": fit_gauge,
+         "bitwise_equal_to_unplanned_fused_fit": same})
+    del planned, plain
+
+    # --- 3. the pipeline: ResNet-50 at batch 32, two stages, four microbatches
+    mu = PLANNER["microbatches"]
+    pg = pipeline_group(pt, net, image_shape(), pt.gpu(0), B, mu, args, aux)
+    sites = pipeline_sites(pg, "conv")
+    check(sites == RESNET_SITES, ("the stages' conv+BN sites", sites))
+    batches = [data_batch(pt, images[i * B:(i + 1) * B], labels[i * B:(i + 1) * B], pt.gpu(0))
+               for i in range(nb)]
+    updater = pt.optimizer.get_updater(pt.optimizer.create(
+        "sgd", learning_rate=RESNET_TRAIN["lr"], momentum=RESNET_TRAIN["momentum"],
+        wd=RESNET_TRAIN["wd"], rescale_grad=1.0 / B))
+
+    def update():
+        for i, (w, g) in enumerate(zip(pg.param_arrays, pg.grad_arrays)):
+            updater(i, g, w)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pg.forward(batches[0])
+    torch.cuda.synchronize()
+    fwd = ops.launch_counts()
+    ops.reset_launch_counts()
+    pg.backward()
+    torch.cuda.synchronize()
+    bwd = ops.launch_counts()
+    update()
+    check(fwd == with_zeros({"conv_bn": sites * mu}), ("pipeline forward phase", fwd))
+    check(bwd == with_zeros({"conv_bn": sites * mu, "conv_bn_bwd": sites * mu}),
+          ("pipeline backward phase (recompute)", bwd))
+    losses = [pipeline_loss(pg, labels[:B])]
+    ops.reset_launch_counts()
+    for s in range(1, steps):
+        b = s % nb
+        pg.forward_backward(batches[b])
+        update()
+        losses.append(pipeline_loss(pg, labels[b * B:(b + 1) * B]))
+    torch.cuda.synchronize()
+    run_launches = ops.launch_counts()
+    check(run_launches == with_zeros({"conv_bn": 2 * sites * mu * (steps - 1),
+                                      "conv_bn_bwd": sites * mu * (steps - 1)}),
+          ("pipelined steps' launches", run_launches))
+    first, last = float(np.mean(losses[:nb])), float(np.mean(losses[-nb:]))
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          ("the pipelined loss did not fall", losses))
+    launches["pipeline"] = {k: fwd[k] + bwd[k] + run_launches[k]
+                            for k in ("conv_bn", "conv_bn_bwd")}
+
+    i = [0]
+
+    def pipe_step():
+        pg.forward_backward(batches[i[0] % nb])
+        update()
+        i[0] += 1
+
+    host = timed_turns({"pipeline": pipe_step}, PLANNER["timed_steps"])["pipeline"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spans = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start.record()
+        pipe_step()
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    for _ in range(4):
+        w = profile_window(pipe_step)
+        if w["device_busy_ms"] > 0:
+            break
+        time.sleep(PROFILER_GAP_S)
+    pipe_mem = step_peak(pipe_step)
+    cut = pg.cut_entries
+    del pg
+    ref = resnet_bind(pt, net, pt.gpu(0), B, args, aux, {n: "write" for n in args},
+                      images, labels)
+    plain_mem = step_peak(ref.forward_backward)
+    del ref
+    check_out = pipeline_train_check(pt, net, args, aux, images, labels)
+    log({"phase": "planner", "part": "pipeline", "nvidia_smi": smi, "model": RESNET,
+         "batch": B, "stages": PLANNER["stages"], "microbatches": mu, "cut": cut,
+         "sites": sites, "forward_phase_launches": {k: v for k, v in fwd.items() if v},
+         "backward_phase_launches": {k: v for k, v in bwd.items() if v},
+         "steps": steps, "loss_first_epoch": first, "loss_last_epoch": last,
+         "step_ms": host, "step_ms_samples": len(host["all"]), "card_event_span_ms": spans,
+         "window": {k: w[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                      "port_kernels_ms", "port_kernel_launches",
+                                      "device_events_per_call")},
+         "peak_bytes": {"pipeline": pipe_mem[1], "per_device_step": plain_mem[1]},
+         "step_bytes": {"pipeline": pipe_mem[1] - pipe_mem[0],
+                        "per_device_step": plain_mem[1] - plain_mem[0]},
+         "card_vs_cpu": check_out})
+
+    # --- 4. the mlp pipeline against its full-batch step on the card
+    Bm = PLANNER["mlp_batch"]
+    rs = np.random.RandomState(SEED + 60)
+    mshapes, _, _ = mlp.infer_shape(data=(Bm, 784))
+    margs = {n: (rs.randn(*s) * 0.05).astype(np.float32)
+             for n, s in zip(mlp.list_arguments(), mshapes) if n not in ("data", "softmax_label")}
+    mx_ = rs.rand(Bm, 784).astype(np.float32)
+    my = rs.randint(0, 10, Bm).astype(np.float32)
+    full = resnet_bind(pt, mlp, pt.gpu(0), Bm, margs, {}, {n: "write" for n in margs},
+                       mx_, my)
+    full.forward_backward()
+    want = {n: full.grad_dict[n].asnumpy() for n in margs}
+    want_out = full.outputs[0].asnumpy()
+    del full
+    mpg = pipeline_group(pt, mlp, (784,), pt.gpu(0), Bm, mu, margs, {},
+                         cuts=[PLANNER["mlp_cut"]])
+    msites = pipeline_sites(mpg, "matmul_bias_act")
+    check(msites == MNIST_SITES["mlp"], ("the mlp stages' matmul_bias_act sites", msites))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    mpg.forward_backward(data_batch(pt, mx_, my, pt.gpu(0)))
+    torch.cuda.synchronize()
+    mlaunch = ops.launch_counts()
+    check(mlaunch == with_zeros({"matmul_bias_act": 2 * msites * mu}),
+          ("the mlp pipeline's launches", mlaunch))
+    gerr = max(float(np.abs(mpg._owner(n).grad_dict[n].asnumpy() - want[n]).max())
+               for n in margs)
+    oerr = float(np.abs(mpg.get_outputs()[0].asnumpy() - want_out).max())
+    check(gerr <= 1e-5 and oerr <= 1e-5, ("mlp pipeline vs full batch", gerr, oerr))
+    launches["mlp_pipeline"] = {"matmul_bias_act": mlaunch["matmul_bias_act"]}
+    del mpg
+    log({"phase": "planner", "part": "mlp_pipeline", "batch": Bm, "microbatches": mu,
+         "cut": PLANNER["mlp_cut"], "sites": msites, "launches": launches["mlp_pipeline"],
+         "max_abs_grad_err": gerr, "max_abs_out_err": oerr, "atol": 1e-5})
+
+    # --- 5. the sharded statistics on one NCCL rank, bitwise the kernel's
+    env = {"MXNET_TPU_COORDINATOR": "127.0.0.1:%d" % free_port(),
+           "MXNET_TPU_NUM_WORKERS": "1", "MXNET_TPU_WORKER_ID": "0"}
+    dev = pt.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x, w = randn(B, 64, 56, 56), randn(64, 64, 3, 3) * 0.05
+    scale, shift = randn(64).abs() + 0.5, randn(64) * 0.1
+    cots = [randn(B, 64, 56, 56), randn(64), randn(64)]
+    try:
+        with env_vars(**env):
+            pt.dist.init()
+        check(pt.dist.is_initialized() and pt.dist.backend() == "nccl", "one NCCL rank")
+        mesh = pt.parallel.mesh.Mesh(np.array([pt.gpu(0)], dtype=object), ("data",), 1,
+                                     tdist.group.WORLD)
+        results = []
+        for sharded in (True, False):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, scale, shift)]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            if sharded:
+                outs = fusion._conv_block_sharded(mesh, *leaves, None, (1, 1), True)
+            else:
+                outs = cb.ConvBlock.apply(*leaves, None, (1, 1), True)
+            grads = torch.autograd.grad(outs, leaves, grad_outputs=cots)
+            torch.cuda.synchronize()
+            results.append(([o.detach() for o in outs], grads, ops.launch_counts()))
+    finally:
+        pt.dist.shutdown()
+    check(not pt.dist.is_initialized(), "process group destroyed")
+    (so, sg, sl), (po, pg_, pl) = results
+    bitwise = all(torch.equal(a, b) for a, b in zip(so + list(sg), po + list(pg_)))
+    check(bitwise, "the sharded statistics are not bitwise the kernel's")
+    check(sl == pl == with_zeros({"conv_bn": 1, "conv_bn_bwd": 1}), ("sharded launches", sl))
+    launches["sharded_stats"] = {"conv_bn": sl["conv_bn"], "conv_bn_bwd": sl["conv_bn_bwd"]}
+    torch.backends.cudnn.deterministic = deterministic
+    telemetry.set_mode(saved_mode)
+    check_tf32_off()
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "planner", "part": "sharded_stats", "backend": "nccl", "world": 1,
+         "x": list(x.shape), "w": list(w.shape), "bitwise_equal_to_conv_block": bitwise,
+         "launches": launches["sharded_stats"], "phase_seconds": seconds,
+         "budget_s": PLANNER["budget_s"]})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -6256,6 +6661,7 @@ def main():
     kvstore_launches = run_kvstore(pt, smi, peaks, entries)
     fused_launches = run_fused_step(pt, smi, lstm_tokens_per_s)
     checkpoint_launches = run_checkpoint(pt, smi)
+    planner_launches = run_planner(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -6303,6 +6709,12 @@ def main():
         saved = {k: v[name_] for k, v in checkpoint_launches.items() if v.get(name_)}
         if saved:
             e.update(checkpoint_launches=saved)
+        # the planner phase's card runs: ResNet-50's planned fused fit (8, 9),
+        # its pipeline (8, 9), the mlp's pipeline (6) and the sharded
+        # statistics on one NCCL rank (8, 9)
+        planned = {k: v[name_] for k, v in planner_launches.items() if v.get(name_)}
+        if planned:
+            e.update(planner_launches=planned)
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

@@ -40,6 +40,7 @@ from . import kvstore as kv  # noqa: E402,F401
 from . import module  # noqa: E402,F401
 from . import module as mod  # noqa: E402,F401
 from . import parallel  # noqa: E402,F401
+from . import analysis  # noqa: E402,F401
 from . import rnn  # noqa: E402,F401
 from . import operator, autograd, test_utils  # noqa: E402,F401
 from .convert import (params_from_checkpoint, params_from_numpy,  # noqa: E402,F401
@@ -50,6 +51,6 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "AttrScope"
            "random", "rtc", "telemetry", "faultinject", "io", "initializer", "init",
            "lr_scheduler", "metric", "callback", "monitor", "checkpoint", "kvstore_helper",
            "kvstore", "kv", "dist", "sparse",
-           "device_info", "module", "mod", "parallel", "rnn", "operator", "autograd", "test_utils",
+           "device_info", "module", "mod", "parallel", "analysis", "rnn", "operator", "autograd", "test_utils",
            "params_from_numpy", "params_from_checkpoint",
            "updater_states_from_numpy"]

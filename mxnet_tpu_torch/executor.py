@@ -12,7 +12,8 @@ kernels. The JAX package takes gradients with ``jax.vjp`` over the traced
 graph; here a training forward runs under torch autograd, which records the
 same graph as it runs, and ``backward`` takes ``torch.autograd.grad`` of the
 outputs. ``bind`` always runs the rewrite passes first
-(``analysis/rewrite.py``), so the fusion matchers see the canonical graph.
+(``analysis/rewrite.py``), so the fusion matchers see the canonical graph,
+and under ``MXNET_GRAPHLINT`` lints the graph it binds (``analysis/``).
 """
 from __future__ import annotations
 
@@ -321,6 +322,25 @@ class Executor:
 
 
 # -------------------------------------------------------------------- binding
+def _lint_at_bind(symbol, arg_arrays, arg_names, aux_arrays, aux_names, train=True):
+    """``MXNET_GRAPHLINT=warn|error`` (JAX :538-558): run the graph passes
+    with the concrete bind shapes and dtypes; ``warn`` logs the findings,
+    ``error`` raises ``MXNetError`` with the report. ``train`` steers the
+    GL5xx memory plan: a bind without gradients plans forward-only
+    liveness, a training bind adds gradients and optimizer state."""
+    from .analysis import graphlint_mode, lint_bind
+
+    mode = graphlint_mode()
+    if mode is None:
+        return
+    shapes = {n: tuple(a.shape) for n, a in zip(arg_names, arg_arrays) if a is not None}
+    types = {n: np.dtype(np_dtype(a.dtype)) for n, a in zip(arg_names, arg_arrays)
+             if a is not None}
+    shapes.update({n: tuple(a.shape) for n, a in zip(aux_names, aux_arrays)})
+    types.update({n: np.dtype(np_dtype(a.dtype)) for n, a in zip(aux_names, aux_arrays)})
+    lint_bind(symbol, shapes, types, mode, target="bind", train=train)
+
+
 def _normalize_grad_req(grad_req, arg_names):
     """One req per argument from a str, a list or a {name: req} dict (names
     a dict leaves out get null), as ``mxnet_tpu/executor.py:526``."""
@@ -405,8 +425,12 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None, s
         if len(aux_arrays) != len(prog.aux_names):
             raise MXNetError("bind: expected %d aux states, got %d"
                              % (len(prog.aux_names), len(aux_arrays)))
-    exe = Executor(symbol, ctx, [args[n] for n in prog.arg_names], grad_arrays, req_list,
-                   aux_arrays, program=prog)
+    arg_arrays = [args[n] for n in prog.arg_names]
+    # the graph that is bound (the rewritten one), as the JAX package lints
+    # what it binds (:645)
+    _lint_at_bind(symbol, arg_arrays, prog.arg_names, aux_arrays, prog.aux_names,
+                  train=any(r != "null" for r in req_list))
+    exe = Executor(symbol, ctx, arg_arrays, grad_arrays, req_list, aux_arrays, program=prog)
     exe._orig_symbol = orig_symbol
     return exe
 
@@ -422,8 +446,23 @@ def simple_bind(symbol, ctx, grad_req="write", type_dict=None, group2ctx=None,
     ``bind`` does). Inputs, gradient arrays and aux states stay their own."""
     shape_hints = {k: tuple(v) for k, v in kwargs.items() if v is not None}
     type_hints = {k: np_dtype(v) for k, v in (type_dict or {}).items()}
-    arg_shapes, _, aux_shapes, arg_types, _, aux_types = symbol._infer_impl(shape_hints,
-                                                                            type_hints)
+    try:
+        res = symbol._infer_impl(shape_hints, type_hints)
+    except Exception as e:
+        from .analysis import graphlint_mode
+
+        if graphlint_mode() is not None:
+            # diagnose the failure with the graph passes (JAX :660-678):
+            # per-node findings with provenance instead of a traceback
+            from .analysis import lint
+
+            report = lint(symbol, shapes=shape_hints, types=type_hints,
+                          strict_shapes=True, target="simple_bind")
+            if report.errors:
+                raise MXNetError("simple_bind failed: %s\ngraphlint diagnosis:\n%s"
+                                 % (e, report.format(min_severity="warning")))
+        raise
+    arg_shapes, _, aux_shapes, arg_types, _, aux_types = res
     ctx = current_context() if ctx is None else ctx
     ctx = Context(ctx) if not isinstance(ctx, Context) else ctx
     names = symbol.list_arguments()

@@ -23,8 +23,13 @@ reject reasons below plus that shape gate, decided from shapes alone and the
 same on the CPU and the card; a declined site runs ``F.conv2d`` on the
 materialised input, as the JAX package runs ``_xla_conv`` there. That is the
 JAX package's own unfused lowering, never a reaction to a kernel failing.
-There is no ``MXNET_FUSED_CONV_BN`` switch, no measured-win table or tuner,
-no mesh (``shard_map``) path and no quantized serving (``MXNET_SERVE_QUANT``).
+There is no ``MXNET_FUSED_CONV_BN`` switch, no measured-win table or tuner
+and no quantized serving (``MXNET_SERVE_QUANT``). In a fused step whose mesh
+spans processes (one rank a process on the data axis) a site runs the kernel
+on the rank's own rows and ``all_reduce``s its (Σc, Σc²) over the mesh's
+group (``_conv_block_sharded``, JAX :1101-1160), and an unfused BatchNorm
+sums its statistics the same way, so every BatchNorm sees the global
+batch's moments, as the reference's ``psum`` gives.
 The BatchNorm arithmetic (mean and variance from the sums, scale and shift,
 the moving-stat updates) is plain torch, so autograd carries gamma's and
 beta's gradients through ``scale``/``shift`` into the kernel's prologue
@@ -55,7 +60,8 @@ from .ops.fusion_patterns import get_patterns
 from .ops.registry import get_op
 
 __all__ = ["Deferred", "WithStats", "PendingConv", "Lazy", "resolve", "plan", "plan_sites",
-           "execute", "conv_reject_reason", "bn_reject_reason", "CONV_BN_KINDS"]
+           "execute", "conv_reject_reason", "bn_reject_reason", "CONV_BN_KINDS",
+           "attention_trains_flash"]
 
 #: directive kinds owned by the conv+BN side of the planner
 CONV_BN_KINDS = frozenset({"conv", "bn", "relu_fold", "resadd"})
@@ -102,6 +108,10 @@ class PendingConv:
         self.scale, self.shift, self.relu, self.stride = scale, shift, relu, stride
 
     def run(self, res):
+        mesh = _cross_process_mesh()
+        if mesh is not None:
+            return _conv_block_sharded(mesh, self.x, self.w, self.scale, self.shift, res,
+                                       self.stride, self.relu)
         return _cb.ConvBlock.apply(self.x, self.w, self.scale, self.shift, res, self.stride,
                                    self.relu)
 
@@ -158,6 +168,73 @@ class _Normalize(torch.autograd.Function):
         dx = dout * scale32.to(dout.dtype).reshape(b)
         dout32 = dout.to(acc)
         return dx, (dout32 * x.to(acc)).sum(dim=axes), dout32.sum(dim=axes)
+
+
+# ------------------------------------------------------- across processes
+def _cross_process_mesh():
+    """The mesh of the fused step being run when it spans processes, else
+    None (JAX ``_mesh_kind`` :1104). Such a mesh is one data axis, one rank
+    a process (``parallel/mesh.py``); within one process a step runs the
+    global batch at once, so its statistics are global already."""
+    from .parallel.mesh import current_trace_mesh
+
+    mesh = current_trace_mesh()
+    if mesh is None or mesh.process_count <= 1:
+        return None
+    return mesh
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Per-rank sums to their sum over the mesh's group. The sum feeds every
+    rank's downstream, so its cotangent is the sum of the ranks'
+    cotangents: the backward ``all_reduce``s them too (the transpose of the
+    reference's ``psum`` over a replicated result)."""
+
+    @staticmethod
+    def forward(ctx, group, *sums):
+        import torch.distributed as tdist
+
+        ctx.group = group
+        outs = tuple(s.clone() for s in sums)
+        for o in outs:
+            tdist.all_reduce(o, group=group)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        import torch.distributed as tdist
+
+        cts = tuple(c.clone() for c in cts)
+        for c in cts:
+            tdist.all_reduce(c, group=ctx.group)
+        return (None,) + cts
+
+
+def _global_moments(x, mesh, sums=None):
+    """The per-channel (axis 1) mean and variance of the batch ``x`` is a
+    rank's rows of, from Σx and Σx²: ``sums``, a kernel's (summed over the
+    mesh already), or taken here in float32 or wider and summed over the
+    processes of ``mesh`` (None: one process). The count is the global
+    batch's: every rank feeds as many rows."""
+    if sums is None:
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        axes = (0,) + tuple(range(2, x.ndim))
+        sums = x32.sum(dim=axes), (x32 * x32).sum(dim=axes)
+        if mesh is not None:
+            sums = _AllReduceSum.apply(mesh.group, *sums)
+    cnt = x.numel() // x.shape[1] * (1 if mesh is None else mesh.process_count)
+    mean = sums[0] / cnt
+    return mean, sums[1] / cnt - mean * mean
+
+
+def _conv_block_sharded(mesh, x, w, scale, shift, res, stride, relu):
+    """The kernel on this rank's rows (``x`` and ``res`` are the rank's
+    rows), then the per-rank statistics summed over the mesh, so the
+    downstream BatchNorm sees GLOBAL-batch moments (JAX :1123-1158, where
+    ``shard_map`` runs the kernel per data shard and ``psum``s Σc, Σc²)."""
+    c, ssum, ssq = _cb.ConvBlock.apply(x, w, scale, shift, res, stride, relu)
+    ssum, ssq = _AllReduceSum.apply(mesh.group, ssum, ssq)
+    return c, ssum, ssq
 
 
 # ----------------------------------------------------------------------- plan
@@ -352,6 +429,23 @@ def plan_sites(directives):
     return sites, conv_bn
 
 
+def attention_trains_flash(q_shape, k_shape, dtype, causal, scale=-1.0):
+    """Whether TRAINING through an attention site with these (B, H, T, D)
+    query and (B, H, S, D) key shapes engages the flash kernels, whose
+    backward recomputes the softmax and never stashes the (B, H, T, S)
+    probabilities (JAX :959, the memory plan's score-stash elision). The
+    port has no pattern switch and no tuner: a site trains flash exactly
+    where ``ops/flash_attention.supported`` takes its shapes."""
+    try:
+        from .ops import flash_attention as _fa
+
+        B, H, T, D = (int(s) for s in q_shape)
+        S = int(k_shape[2])
+        return bool(_fa.supported((B * H, T, D), (B * H, S, D), bool(causal)))
+    except Exception:  # a planner refinement must never sink an analysis
+        return False
+
+
 # -------------------------------------------------------------------- execute
 def _exec_pattern(directive, node, ins):
     """Run one pattern-rooted node through its lowering, or, on the CPU only,
@@ -409,15 +503,10 @@ def _exec_bn(directive, node, ins, aux, is_train):
         return (out,), (moving_mean, moving_var)
 
     if isinstance(data_v, WithStats):
-        x, ssum, ssq = data_v.c, data_v.ssum, data_v.ssq
+        x, sums = data_v.c, (data_v.ssum, data_v.ssq)  # global sums already
     else:
-        x = resolve(data_v)
-        x32 = x.to(torch.promote_types(x.dtype, f32))
-        axes = (0,) + tuple(range(2, x.ndim))
-        ssum, ssq = x32.sum(dim=axes), (x32 * x32).sum(dim=axes)
-    cnt = x.numel() // x.shape[1]
-    mean = ssum / cnt
-    var = ssq / cnt - mean * mean
+        x, sums = resolve(data_v), None
+    mean, var = _global_moments(x, _cross_process_mesh(), sums)
     istd = torch.rsqrt(var + eps)
     scale32 = istd if fix_gamma else gamma.to(f32) * istd
     shift32 = beta.to(f32) - mean * scale32
@@ -446,7 +535,9 @@ def _conv_unfused(v, w, stride):
 def _exec_conv(directive, ins):
     """A planned conv in a training forward (JAX :1173-1238): the fused
     kernel where the shape gate takes it, as a ``PendingConv`` when the
-    site is deferred into a residual add, else with its statistics."""
+    site is deferred into a residual add, else with its statistics, summed
+    over the processes of a mesh that spans them (the gate reads the
+    rank's own rows, as JAX's reads the shard's)."""
     v, w = ins[0], resolve(ins[1])
     stride = directive["stride"]
     x, scale, shift, relu = _conv_input(v)
@@ -454,6 +545,9 @@ def _exec_conv(directive, ins):
         return _conv_unfused(v, w, stride)
     if directive["defer"]:
         return PendingConv(x, w, scale, shift, relu, stride)
+    mesh = _cross_process_mesh()
+    if mesh is not None:
+        return WithStats(*_conv_block_sharded(mesh, x, w, scale, shift, None, stride, relu))
     return WithStats(*_cb.ConvBlock.apply(x, w, scale, shift, None, stride, relu))
 
 

@@ -13,10 +13,14 @@ JAX :305-396, ``derive`` :461-502). Duplicates are judged by ``Context``
 equality, so ``[gpu(0), gpu(0)]`` and ``[cpu(0), cpu(0)]`` stay on the
 per-device path, as JAX's duplicate-device check keeps them. Contexts that
 name several physical devices in one process also stay there: the port's
-fused step runs one device a process. ``MXNET_AUTOPLAN=1`` and
-``MXNET_GRAPHLINT`` raise: the planner and the bind-time lint come with
-ROADMAP.md section 1.4b step 4. Bucketing rides the fused step through
-``derive``: each bucket's trainer shares the donor's state cell.
+fused step runs one device a process. ``MXNET_AUTOPLAN=1`` asks the
+planner (``parallel/autoplan.py``) for the mesh and the per-parameter specs
+of a one-process job (``_autoplan_mesh``, JAX :367-456); a failed or
+infeasible plan, a plan with pipeline stages and a multi-process job log
+and keep the all-data mesh, as the JAX package's rule that autoplan never
+takes down a job says. ``MXNET_GRAPHLINT`` lints the bound graph against
+the real mesh and rules (``_lint_plan``). Bucketing rides the fused step
+through ``derive``: each bucket's trainer shares the donor's state cell.
 """
 from __future__ import annotations
 
@@ -24,12 +28,11 @@ import logging
 import os
 import pickle
 
+import numpy as np
+
 from ..base import MXNetError
 
 __all__ = ["SPMDStepAdapter", "train_megastep_n"]
-
-_STEP4 = ("%s: the auto-parallel planner and the bind-time graph lint come with "
-          "ROADMAP.md section 1.4b step 4, which the port has not yet")
 
 
 # copied from mxnet_tpu/module/spmd_adapter.py (backend-free)
@@ -100,12 +103,33 @@ class SPMDStepAdapter:
             self.adopt_params(module._arg_params, module._aux_params)
         self._lint_plan(module)
 
+    @staticmethod
+    def _bind_hints(module):
+        """The module's bound input shapes and dtypes (JAX :330-348)."""
+        shapes, types = {}, {}
+        for desc in list(module._data_shapes or []) + list(module._label_shapes or []):
+            name, shape = desc[0], desc[1]
+            shapes[name] = tuple(shape)
+            dt = getattr(desc, "dtype", None)
+            if dt is not None:
+                types[name] = np.dtype(dt)
+        return shapes, types
+
     def _lint_plan(self, module):
-        """``MXNET_GRAPHLINT`` on the fused-step bind path raises (JAX lints
-        the plan against the real mesh here)."""
-        raw = os.environ.get("MXNET_GRAPHLINT", "0").strip().lower()
-        if raw not in ("", "0", "false", "off"):
-            raise MXNetError(_STEP4 % ("MXNET_GRAPHLINT=%s" % raw))
+        """``MXNET_GRAPHLINT`` on the fused-step bind path (JAX :123-137).
+        Unlike the one-device ``executor.bind`` lint, this one hands the
+        passes the REAL mesh and sharding rules, so the GL4xx sharding-plan
+        lint and the per-device GL5xx memory plan judge the plan the
+        trainer runs. The graph linted is the one the trainer binds (the
+        rewritten symbol)."""
+        from ..analysis import graphlint_mode, lint_bind
+
+        mode = graphlint_mode()
+        if mode is None:
+            return
+        shapes, types = self._bind_hints(module)
+        lint_bind(self.trainer._prog.symbol, shapes, types, mode, target="spmd_bind",
+                  mesh=self.trainer.mesh, rules=self.trainer.rules, train=True)
 
     @property
     def params_version(self):
@@ -332,9 +356,8 @@ def try_create(module, kvstore_obj):
         return None
     init, apply, lr_of_step = fn
 
-    if os.environ.get("MXNET_AUTOPLAN", "").strip() == "1":
-        raise MXNetError(_STEP4 % "MXNET_AUTOPLAN=1")
     from .. import dist as _dist
+    from ..parallel.autoplan import autoplan_enabled
     from ..parallel.mesh import _process_mesh, make_mesh
 
     devices = list(module._context)
@@ -344,15 +367,79 @@ def try_create(module, kvstore_obj):
     if len(physical) > 1:
         return rejected("the contexts name %d physical devices; the fused step runs "
                         "one device a process" % len(physical))
-    if module._exec_group.batch_size % len(module._context):
-        return rejected(
-            "batch size %d does not split evenly over %d devices"
-            % (module._exec_group.batch_size, len(module._context)))
-    if dist and _dist.is_initialized() and _dist.num_workers() > 1:
-        mesh = _process_mesh(devices[0])  # global mesh: one context a process
+    mesh, rules = None, None
+    if autoplan_enabled():
+        # MXNET_AUTOPLAN=1: the planner picks the mesh shape and the
+        # per-param specs. It runs BEFORE the batch-divisibility guard: a
+        # model-parallel plan (dp < devices) serves batches the all-data
+        # mesh cannot split (JAX :405-414)
+        mesh, rules = _autoplan_mesh(module, devices)
+    if mesh is None:
+        if module._exec_group.batch_size % len(module._context):
+            return rejected(
+                "batch size %d does not split evenly over %d devices"
+                % (module._exec_group.batch_size, len(module._context)))
+        if dist and _dist.is_initialized() and _dist.num_workers() > 1:
+            mesh = _process_mesh(devices[0])  # global mesh: one context a process
+        else:
+            mesh = make_mesh((len(devices),), ("data",), devices)
     else:
-        mesh = make_mesh((len(devices),), ("data",), devices)
-    return SPMDStepAdapter(module, mesh, (init, apply), lr_of_step)
+        # the planned mesh (one process only) splits the batch over its
+        # data axis alone, so only dp must divide the batch
+        dp = dict(mesh.shape).get("data", 1)
+        if module._exec_group.batch_size % dp:
+            return rejected(
+                "batch size %d does not split evenly over the planned "
+                "data axis (dp=%d)" % (module._exec_group.batch_size, dp))
+    return SPMDStepAdapter(module, mesh, (init, apply), lr_of_step, rules=rules)
+
+
+def _autoplan_mesh(module, devices):
+    """Ask the planner for this module's mesh and sharding rules (JAX
+    :421-456). Returns (None, None), with a logged reason, on ANY failure or
+    infeasibility: autoplan never takes down a job that runs on the
+    default all-data mesh."""
+    from .. import dist as _dist
+    from ..parallel import autoplan
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharding import ShardingRules
+
+    if _dist.is_initialized() and _dist.num_workers() > 1:
+        # as the JAX package: the module's bind shapes are per-process
+        # LOCAL batches while the mesh covers every process, so the
+        # planner would price peaks and reshards at 1/P of reality, and a
+        # tp-heavy winner with dp < P would glue different local rows into
+        # one "replicated" batch
+        logging.warning(
+            "MXNET_AUTOPLAN=1: multi-process (dist) jobs are not planned "
+            "yet — using the default all-data mesh")
+        return None, None
+    shapes, types = SPMDStepAdapter._bind_hints(module)
+    try:
+        plan = autoplan.plan_parallel(module._symbol, shapes, types=types,
+                                      devices=len(devices))
+    except Exception as exc:
+        # PlanError or anything the analysis passes throw on an exotic
+        # graph: autoplan NEVER takes down a job that runs on the default mesh
+        logging.warning("MXNET_AUTOPLAN=1: planner failed (%s: %s) — using "
+                        "the default all-data mesh", type(exc).__name__, exc)
+        return None, None
+    if not plan.feasible:
+        logging.warning("MXNET_AUTOPLAN=1: no feasible plan (%s) — using "
+                        "the default all-data mesh", plan.reason)
+        return None, None
+    if plan.pipeline_stages > 1:
+        logging.warning(
+            "MXNET_AUTOPLAN=1: the winning plan needs %d pipeline stages "
+            "and the fused SPMD step cannot pipeline — train through "
+            "module.PipelineExecutorGroup instead. Falling back to the "
+            "default mesh.", plan.pipeline_stages)
+        return None, None
+    logging.info("MXNET_AUTOPLAN=1: %s", plan.summary())
+    mesh = make_mesh(dict(plan.mesh), devices=devices)
+    rules = ShardingRules(mesh, data_axis="data", model_axis="model",
+                          param_rule=plan.param_rule())
+    return mesh, rules
 
 
 def derive(module, shared_adapter):

@@ -1,0 +1,237 @@
+# copied from mxnet_tpu/ops/infer_meta.py (backend-free; the backward rules are
+# the port's ops/shape_rules.py)
+"""Per-op shape/dtype inference metadata.
+
+One registry both the executor-side inference (``symbol._infer_impl`` via
+``shape_rules.RULES``) and the static-analysis passes share, so lint rules
+are never re-derived per pass. The reference kept the same facts scattered
+across per-op ``FInferShape``/``FInferType`` lambdas and dmlc parameter
+structs; here they are declarative:
+
+  * ``input_ranks``  — slot name -> required rank (int) or (min, max) range;
+                       the lint pass turns violations into ``GL006`` with the
+                       provenance chain instead of a ``jax.eval_shape`` crash.
+  * ``dtype_policy`` — how the op treats input dtypes:
+                       ``"promote"`` numpy-promotes its inputs (mixed input
+                       dtypes silently widen — lint warns ``GL004``),
+                       ``"forced"`` output dtype comes from a ``dtype`` attr
+                       (Cast, creation ops), ``"first"`` follows the first
+                       input, ``"bool"`` emits comparison results.
+  * ``param_slots``  — input slots holding *learned parameters* (their shapes
+                       flow backward via ``shape_rules``); everything else is
+                       data-like, which is what the retrace guard (``GL203``)
+                       uses to name the inputs that drive compile-cache
+                       cardinality.
+  * ``shard_rule``   — how the op propagates PartitionSpecs, as a category
+                       the sharding-plan lint (``analysis/shard_lint.py``)
+                       interprets: ``"elementwise"`` (per-dim spec merge,
+                       shape-preserving ops), ``"conv"`` (batch dim from
+                       data, channel dim from weight dim 0, spatial dims
+                       replicated), ``"fc"``/``"dot"`` (contraction: out
+                       dims from data dim 0 and weight/rhs out dim),
+                       ``"embedding"``/``"row_sparse_embedding"`` (lookup
+                       tables; the sparse variant's weight gradient is
+                       row-sparse by contract, docs/SPARSE.md),
+                       ``"flatten"``, ``"reshape"``,
+                       ``"transpose"``, ``"concat"``, ``"reduce"``,
+                       ``"softmax"`` (needs its softmax'd dim whole). The
+                       default ``"batch0"`` keeps the first input's batch-
+                       dim sharding when the output's dim 0 has the same
+                       extent and replicates everything else.
+
+``backward_shape_rule(op)`` re-exports ``shape_rules.RULES`` so callers need
+only this module.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+from .shape_rules import RULES as _BACKWARD_RULES
+
+__all__ = ["OpMeta", "register_meta", "get_meta", "backward_shape_rule",
+           "rank_range"]
+
+
+def rank_range(v) -> Optional[Tuple[int, int]]:
+    """Normalize a rank constraint to an inclusive (min, max) pair."""
+    if v is None:
+        return None
+    if isinstance(v, int):
+        return (v, v)
+    lo, hi = v
+    return (lo, 10 ** 9 if hi is None else hi)
+
+
+SHARD_RULES = ("batch0", "elementwise", "conv", "fc", "dot", "batch_dot",
+               "embedding", "row_sparse_embedding", "flatten", "reshape",
+               "transpose", "concat", "reduce", "softmax")
+
+# categories whose slot-1 parameter is an embedding TABLE (vocab, dim): the
+# sharding lint prices a vocab-sharded table as output-psum traffic (the
+# table itself never moves), and GL405's fix hint names the table-specific
+# param_pspec instead of the generic rank-2 advice.
+EMBEDDING_RULES = ("embedding", "row_sparse_embedding")
+
+
+class OpMeta:
+    __slots__ = ("name", "input_ranks", "dtype_policy", "param_slots",
+                 "shard_rule", "bf16_slots")
+
+    def __init__(self, name: str, input_ranks=None, dtype_policy: str = "promote",
+                 param_slots: Tuple[str, ...] = (), shard_rule: str = "batch0",
+                 bf16_slots: Tuple[str, ...] = ()):
+        self.name = name
+        self.input_ranks: Dict[str, Tuple[int, int]] = {
+            slot: rank_range(r) for slot, r in (input_ranks or {}).items()
+        }
+        self.dtype_policy = dtype_policy
+        self.param_slots = tuple(param_slots)
+        if shard_rule not in SHARD_RULES:
+            raise ValueError("unknown shard_rule %r for op %r (have: %s)"
+                             % (shard_rule, name, SHARD_RULES))
+        self.shard_rule = shard_rule
+        # input slots the bf16-legalization rewrite pass may cast to
+        # bfloat16 (analysis/rewrite.py): the MXU-bound operands of ops
+        # whose f32 accumulate makes reduced-precision inputs safe. Empty =
+        # the op is never legalized. Every listed slot is cast together
+        # (a bf16 data against an f32 bias would just promote back).
+        self.bf16_slots = tuple(bf16_slots)
+
+
+_META: Dict[str, OpMeta] = {}
+
+_DEFAULT = OpMeta("<default>")
+
+
+def register_meta(name, input_ranks=None, dtype_policy="promote",
+                  param_slots=(), aliases=(), shard_rule="batch0",
+                  bf16_slots=()):
+    meta = OpMeta(name, input_ranks=input_ranks, dtype_policy=dtype_policy,
+                  param_slots=param_slots, shard_rule=shard_rule,
+                  bf16_slots=bf16_slots)
+    for n in (name,) + tuple(aliases):
+        _META[n] = meta
+    return meta
+
+
+def get_meta(op_name: str) -> OpMeta:
+    """Metadata for an op; unregistered ops get a permissive default
+    (no rank constraints, promote dtype policy, no param slots)."""
+    return _META.get(op_name, _DEFAULT)
+
+
+def backward_shape_rule(op_name: str):
+    """The backward-flowing parameter-shape rule for an op, or None —
+    the same table ``symbol._infer_impl`` consumes (shape_rules.RULES)."""
+    return _BACKWARD_RULES.get(op_name)
+
+
+# ---------------------------------------------------------------------------
+# Seed metadata for the bundled operator set. Rank facts mirror what each
+# op's JAX implementation requires (NCHW layouts per SURVEY §2.3); param
+# slots mirror shape_rules.py — the two stay adjacent on purpose.
+# ---------------------------------------------------------------------------
+register_meta("Convolution",
+              input_ranks={"data": 4, "weight": 4, "bias": 1},
+              param_slots=("weight", "bias"), shard_rule="conv",
+              bf16_slots=("data", "weight", "bias"))
+register_meta("Deconvolution",
+              input_ranks={"data": 4, "weight": 4, "bias": 1},
+              param_slots=("weight", "bias"), shard_rule="conv",
+              bf16_slots=("data", "weight", "bias"))
+register_meta("FullyConnected",
+              input_ranks={"data": (1, None), "weight": 2, "bias": 1},
+              param_slots=("weight", "bias"), shard_rule="fc",
+              bf16_slots=("data", "weight", "bias"))
+register_meta("BatchNorm",
+              input_ranks={"data": (2, 5), "gamma": 1, "beta": 1,
+                           "moving_mean": 1, "moving_var": 1},
+              param_slots=("gamma", "beta"), shard_rule="elementwise")
+register_meta("InstanceNorm",
+              input_ranks={"data": (3, 5), "gamma": 1, "beta": 1},
+              param_slots=("gamma", "beta"), shard_rule="elementwise")
+register_meta("L2Normalization", input_ranks={"data": (2, None)},
+              shard_rule="elementwise")
+register_meta("LRN", input_ranks={"data": 4}, shard_rule="elementwise")
+register_meta("Pooling", input_ranks={"data": 4}, shard_rule="conv")
+register_meta("Activation", dtype_policy="first", shard_rule="elementwise")
+register_meta("LeakyReLU", param_slots=("gamma",), shard_rule="elementwise")
+register_meta("Dropout", dtype_policy="first", shard_rule="elementwise")
+register_meta("Flatten", input_ranks={"data": (1, None)}, dtype_policy="first",
+              shard_rule="flatten")
+register_meta("Reshape", dtype_policy="first", shard_rule="reshape")
+register_meta("transpose", dtype_policy="first", shard_rule="transpose")
+register_meta("SwapAxis", dtype_policy="first")
+register_meta("expand_dims", dtype_policy="first")
+register_meta("Cast", dtype_policy="forced", shard_rule="elementwise")
+register_meta("Embedding",
+              input_ranks={"weight": 2},
+              dtype_policy="first",
+              param_slots=("weight",), shard_rule="embedding")
+# the sparse-grad variant (docs/SPARSE.md): same lookup semantics, but the
+# weight's gradient is row-sparse by contract — its own shard-rule category
+# so the plan lint/autoplan can price a vocab-sharded table (the lookup
+# psums only the OUTPUT; the backward scatters only touched rows)
+register_meta("SparseEmbedding",
+              input_ranks={"weight": 2},
+              dtype_policy="first",
+              param_slots=("weight",), shard_rule="row_sparse_embedding",
+              aliases=("row_sparse_embedding",))
+register_meta("RNN",
+              input_ranks={"data": 3, "parameters": 1,
+                           "state": 3, "state_cell": 3},
+              param_slots=("parameters",))
+register_meta("SoftmaxOutput", dtype_policy="first", shard_rule="softmax")
+register_meta("SoftmaxActivation", dtype_policy="first", shard_rule="softmax")
+register_meta("softmax", dtype_policy="first", shard_rule="softmax",
+              aliases=("log_softmax",))
+register_meta("LinearRegressionOutput", dtype_policy="first",
+              shard_rule="elementwise")
+register_meta("LogisticRegressionOutput", dtype_policy="first",
+              shard_rule="elementwise")
+register_meta("MAERegressionOutput", dtype_policy="first",
+              shard_rule="elementwise")
+register_meta("SVMOutput", dtype_policy="first")
+register_meta("MakeLoss", dtype_policy="first", shard_rule="elementwise")
+register_meta("BlockGrad", dtype_policy="first", shard_rule="elementwise")
+register_meta("Concat", dtype_policy="promote", shard_rule="concat")
+register_meta("batch_dot", input_ranks={"lhs": 3, "rhs": 3},
+              shard_rule="batch_dot", bf16_slots=("lhs", "rhs"))
+register_meta("dot", input_ranks={"lhs": (1, 2), "rhs": (1, 2)},
+              shard_rule="dot", bf16_slots=("lhs", "rhs"))
+
+# elementwise binaries/unaries preserve every input dim, so they preserve
+# the full PartitionSpec, not just the batch dim (the "batch0" default);
+# the broadcast_* family rides the same rule — its propagation aligns
+# trailing dims and lets broadcast (extent-1) dims contribute nothing
+for _ew in ("elemwise_add", "elemwise_sub", "elemwise_mul", "elemwise_div",
+            "_grad_add", "_power", "_maximum", "_minimum", "_hypot", "_mod",
+            "relu", "sigmoid", "tanh", "exp", "log", "sqrt", "square",
+            "abs", "negative", "_copy", "clip", "add_n",
+            "broadcast_add", "broadcast_sub", "broadcast_mul",
+            "broadcast_div", "broadcast_mod", "broadcast_power",
+            "broadcast_maximum", "broadcast_minimum", "broadcast_hypot",
+            "broadcast_equal", "broadcast_not_equal", "broadcast_greater",
+            "broadcast_greater_equal", "broadcast_lesser",
+            "broadcast_lesser_equal", "broadcast_to", "broadcast_axis"):
+    register_meta(_ew, shard_rule="elementwise")
+# the executor resolves aliases to canonical names only at apply time; the
+# lint sees whatever name the Symbol recorded, so register the common ones
+for _alias in ("_add", "_plus", "_Plus", "_sub", "_minus", "_Minus",
+               "_mul", "_Mul", "_div", "_Div", "ElementWiseSum", "_sum"):
+    register_meta(_alias, shard_rule="elementwise")
+for _sc in ("_plus_scalar", "_minus_scalar", "_rminus_scalar", "_mul_scalar",
+            "_div_scalar", "_rdiv_scalar", "_power_scalar", "_rpower_scalar",
+            "_maximum_scalar", "_minimum_scalar", "smooth_l1"):
+    register_meta(_sc, dtype_policy="first", shard_rule="elementwise")
+
+# whole-or-axis reductions: output dims follow the surviving input dims
+for _red in ("sum", "sum_axis", "mean", "prod", "nansum", "nanprod",
+             "max", "max_axis", "min", "min_axis", "norm"):
+    register_meta(_red, shard_rule="reduce")
+
+for _cmp in ("_equal", "_not_equal", "_greater", "_greater_equal",
+             "_lesser", "_lesser_equal"):
+    register_meta(_cmp, dtype_policy="bool", shard_rule="elementwise")
+    register_meta(_cmp + "_scalar", dtype_policy="bool",
+                  shard_rule="elementwise")

@@ -273,6 +273,21 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx, dgamma.to(gamma.dtype), dbeta32.to(gamma.dtype), None, None
 
 
+def _batch_norm_across(mesh, x, gamma, beta, eps, fix_gamma):
+    """A training BatchNorm in a fused step whose mesh spans processes:
+    the moments are the global batch's (``fusion._global_moments``: the
+    per-rank sums of x and x² summed over the mesh, the backward summing
+    their cotangents), as the JAX package's reductions over a sharded
+    batch give. Autograd derives the backward through the float32 sums."""
+    from ..fusion import _global_moments
+
+    b = (1, -1) + (1,) * (x.ndim - 2)
+    mean, var = _global_moments(x, mesh)
+    xhat = (x - mean.to(x.dtype).reshape(b)) * torch.rsqrt(var + eps).to(x.dtype).reshape(b)
+    out = xhat + beta.reshape(b) if fix_gamma else xhat * gamma.reshape(b) + beta.reshape(b)
+    return out, mean, var
+
+
 @register("BatchNorm", attrs={"eps": AttrSpec("float", default=1e-3),
                               "momentum": AttrSpec("float", default=0.9),
                               "fix_gamma": AttrSpec("bool", default=True),
@@ -293,8 +308,15 @@ def _batch_norm(attrs, inputs, aux, is_train=False):
     eps, momentum = attrs["eps"], attrs["momentum"]
     b = (1, -1) + (1,) * (data.ndim - 2)
     if is_train and not attrs["use_global_stats"]:
-        out, mean, var = _BatchNormTrain.apply(data, gamma, beta, float(eps),
-                                               bool(attrs["fix_gamma"]))
+        from ..fusion import _cross_process_mesh
+
+        mesh = _cross_process_mesh()
+        if mesh is not None:
+            out, mean, var = _batch_norm_across(mesh, data, gamma, beta, float(eps),
+                                                bool(attrs["fix_gamma"]))
+        else:
+            out, mean, var = _BatchNormTrain.apply(data, gamma, beta, float(eps),
+                                                   bool(attrs["fix_gamma"]))
         new_mean = moving_mean * momentum + mean.detach() * (1 - momentum)
         new_var = moving_var * momentum + var.detach() * (1 - momentum)
         outs = (out, mean.to(data.dtype), var.to(data.dtype)) if attrs["output_mean_var"] \

@@ -1,0 +1,984 @@
+"""Cost-model-driven auto-parallel planner: search dp × tp × pp.
+
+Counterpart of ``mxnet_tpu/parallel/autoplan.py``, copied but for its two
+``jax.sharding.PartitionSpec`` sites: a spec here is the plain tuple of
+``parallel/sharding.py`` (``()`` replicated). The search, the cost model
+and the JSON are the reference's, so the same symbol, shapes, devices and
+budget give a byte-identical ``to_json()``.
+
+The analysis stack already *predicts* the two quantities that decide a
+distributed plan — GL402 emits bytes-moved per implicit reshard edge
+(``analysis/shard_lint.py``) and GL5xx predicts peak HBM per device under
+any PartitionSpec assignment (``analysis/memory_plan.py``) — but until now
+a human picked the mesh and the specs by hand, and a model over budget was
+just a GL501 error. This module closes the loop, the same move the fusion tuner made
+(TVM's cost-model-driven search replacing hand tuning, PAPERS.md):
+
+* ``plan_parallel(symbol, shapes, devices=8, ...)`` enumerates mesh
+  factorizations ``data=dp, model=tp`` of the device count and per-param
+  PartitionSpec assignments, scores every candidate with the predicted
+  comm bytes per device per step, and returns the cheapest plan whose
+  predicted peak HBM fits the budget.
+* When NO dp × tp assignment fits, the axis set gains **pipeline stages**:
+  the graph is cut at single-tensor boundaries into GPipe-style stages
+  (``module.executor_group.PipelineExecutorGroup`` executes the microbatch
+  schedule), and the planner sizes the stage count so each stage fits.
+* The winner is a JSON-serializable ``ParallelPlan`` carrying the mesh,
+  the per-param specs, the predicted bytes/peak, and every rejected
+  alternative with the reason — a plan you can diff, not a heuristic you
+  must trust. ``SPMDStepAdapter`` consumes it under ``MXNET_AUTOPLAN=1``;
+  ``graphlint --autoplan`` dumps it over the model zoo.
+
+Cost model (docs/PARALLEL_PLANNER.md):
+
+  comm_bytes = 2 * reshard_bytes            # GL402 fwd edges; bwd mirrors
+             + gradsync_bytes               # ring all-reduce of grads over
+                                            #   dp: 2*(dp-1)/dp * grad bytes
+                                            #   per device (the exact wire
+                                            #   accounting kvstore_bucket
+                                            #   counts into kvstore.bytes.*)
+             + pipeline_bytes               # 2 * µ * boundary bytes (fwd
+                                            #   activation + bwd cotangent)
+
+  peak_bytes = the GL5xx liveness prediction; pipeline stages additionally
+  hold (µ-1) extra boundary copies (the GPipe stash).
+
+The search is deterministic: same symbol + shapes + devices + budget ⇒ the
+same plan, bit for bit. Shape propagation (the expensive eval_shape
+walk) runs ONCE per graph; every candidate re-runs only the pure-Python
+sharding propagation and liveness walk over the cached shapes.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..base import MXNetError
+
+__all__ = ["ParallelPlan", "PlanError", "plan_parallel", "split_symbol",
+           "find_pipeline_cuts", "autoplan_enabled", "autoplan_budget_bytes",
+           "autoplan_microbatches"]
+
+# refinement breadth cap: per mesh, only this many largest shardable params
+# get their alternative specs tried (the rest keep the base assignment)
+_REFINE_CAP = 16
+
+# ops whose FLOPs dominate a step: cost = out_elems * contraction size
+# (weight elems / out features). Everything else is charged out_elems.
+_MXU_FLOP_OPS = frozenset({"Convolution", "Deconvolution", "FullyConnected",
+                           "dot", "batch_dot"})
+
+
+class PlanError(MXNetError):
+    """The planner cannot run at all (underdetermined shapes, bad input) —
+    distinct from an *infeasible* plan, which is a structured result."""
+
+
+# --------------------------------------------------------------------- env
+def autoplan_enabled() -> bool:
+    return os.environ.get("MXNET_AUTOPLAN", "").strip() == "1"
+
+
+def autoplan_budget_bytes() -> Optional[int]:
+    """Per-device peak-HBM budget for the planner: MXNET_AUTOPLAN_BUDGET_GB,
+    falling back to the memlint budget (the two gates should agree unless
+    told otherwise). Binary GiB, like every byte the report prints."""
+    for var in ("MXNET_AUTOPLAN_BUDGET_GB", "MXNET_MEMLINT_BUDGET_GB"):
+        raw = os.environ.get(var, "").strip()
+        if raw:
+            try:
+                return int(float(raw) * 2 ** 30)
+            except ValueError:
+                continue
+    return None
+
+
+def autoplan_microbatches(default: int = 4) -> int:
+    raw = os.environ.get("MXNET_PP_MICROBATCHES", "").strip()
+    if raw:
+        try:
+            n = int(raw)
+            if n >= 1:
+                return n
+        except ValueError:
+            pass
+    return default
+
+
+# ---------------------------------------------------------------- the plan
+class ParallelPlan:
+    """One planner verdict. JSON-serializable; ``param_specs`` maps each
+    parameter to its per-dim axis assignment (``None`` = replicated dim),
+    e.g. ``{"fc1_weight": ["model", None]}``."""
+
+    __slots__ = ("mesh", "devices", "param_specs", "pipeline_stages",
+                 "microbatches", "stage_cuts", "predicted", "budget_bytes",
+                 "feasible", "reason", "rejected", "naive", "stages")
+
+    def __init__(self, mesh, devices, param_specs=None, pipeline_stages=1,
+                 microbatches=1, stage_cuts=None, predicted=None,
+                 budget_bytes=None, feasible=True, reason=None,
+                 rejected=None, naive=None, stages=None):
+        self.mesh = dict(mesh)
+        self.devices = int(devices)
+        self.param_specs = dict(param_specs or {})
+        self.pipeline_stages = int(pipeline_stages)
+        self.microbatches = int(microbatches)
+        self.stage_cuts = list(stage_cuts or [])
+        self.predicted = dict(predicted or {})
+        self.budget_bytes = budget_bytes
+        self.feasible = bool(feasible)
+        self.reason = reason
+        self.rejected = list(rejected or [])
+        self.naive = naive
+        self.stages = list(stages or [])
+
+    def to_dict(self) -> dict:
+        return {
+            "mesh": dict(self.mesh),
+            "devices": self.devices,
+            "param_specs": {k: list(v) for k, v in
+                            sorted(self.param_specs.items())},
+            "pipeline_stages": self.pipeline_stages,
+            "microbatches": self.microbatches,
+            "stage_cuts": list(self.stage_cuts),
+            "predicted": dict(self.predicted),
+            "budget_bytes": self.budget_bytes,
+            "feasible": self.feasible,
+            "reason": self.reason,
+            "rejected": list(self.rejected),
+            "naive": self.naive,
+            "stages": list(self.stages),
+        }
+
+    def to_json(self, indent=2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ParallelPlan":
+        return cls(**{k: d.get(k) for k in
+                      ("mesh", "devices", "param_specs", "pipeline_stages",
+                       "microbatches", "stage_cuts", "predicted",
+                       "budget_bytes", "feasible", "reason", "rejected",
+                       "naive", "stages")})
+
+    def param_rule(self):
+        """A ``ShardingRules.param_rule`` callable applying this plan's
+        per-param specs (unknown names fall back to replicated — the plan
+        is authoritative about the graph it planned)."""
+        specs = self.param_specs
+
+        def rule(name, shape):
+            axes = specs.get(name)
+            if not axes or not any(axes):
+                return ()
+            padded = list(axes) + [None] * (len(shape) - len(axes))
+            return tuple(padded[: len(shape)])
+
+        return rule
+
+    def summary(self) -> str:
+        from ..analysis.shard_lint import fmt_bytes
+
+        p = self.predicted
+        mesh = ",".join("%s=%d" % kv for kv in self.mesh.items())
+        head = "mesh[%s]" % mesh
+        if self.pipeline_stages > 1:
+            head += " x pp=%d (u=%d microbatches)" % (self.pipeline_stages,
+                                                      self.microbatches)
+        if not self.feasible:
+            return "%s INFEASIBLE: %s" % (head, self.reason)
+        sharded = sum(1 for v in self.param_specs.values() if any(v))
+        return ("%s comm %s/step (reshard %s + gradsync %s + pipe %s), "
+                "peak %s/device%s, %d sharded param(s)"
+                % (head, fmt_bytes(p.get("comm_bytes", 0)),
+                   fmt_bytes(p.get("reshard_bytes", 0)),
+                   fmt_bytes(p.get("gradsync_bytes", 0)),
+                   fmt_bytes(p.get("pipeline_bytes", 0)),
+                   fmt_bytes(p.get("peak_bytes", 0)),
+                   " (budget %s)" % fmt_bytes(self.budget_bytes)
+                   if self.budget_bytes else "",
+                   sharded))
+
+    def __repr__(self):
+        return "<ParallelPlan %s>" % self.summary()
+
+
+# ------------------------------------------------------------ cost evaluator
+class _Graph:
+    """One symbol's shape-propagated analysis context, reusable across every
+    candidate evaluation: shape/dtype propagation (the eval_shape walk)
+    runs once here; ``evaluate`` then re-runs only the pure-Python sharding
+    propagation + memory liveness per candidate."""
+
+    def __init__(self, symbol, shapes, types=None, bwd="stash", train=True,
+                 label=""):
+        from ..analysis.manager import GraphContext
+        from ..analysis.shape_lint import shape_dtype_lint
+        from ..analysis.shard_lint import batch_like_vars, _itemsize
+
+        ctx = GraphContext(symbol, shape_hints=shapes, type_hints=types,
+                           strict_shapes=True, bwd_policy=bwd, train=train)
+        diags = shape_dtype_lint(ctx)
+        errors = [d for d in diags if d.severity == "error"]
+        if errors:
+            raise PlanError(
+                "cannot plan %s: shape/dtype propagation failed:\n%s"
+                % (label or "symbol",
+                   "\n".join(d.format() for d in errors[:4])))
+        self.ctx = ctx
+        self.label = label
+        self.data_like = {n.name for n in batch_like_vars(ctx)}
+        # trainable params (grads flow; aux BN stats carry no grad)
+        self.params: List[Tuple[str, tuple, int]] = []
+        for node in ctx.arg_nodes:
+            if node.name in self.data_like:
+                continue
+            shape = ctx.var_shape.get(node.name)
+            if shape is None:
+                raise PlanError("cannot plan %s: parameter %r has no shape"
+                                % (label or "symbol", node.name))
+            nbytes = int(np.prod(shape)) * _itemsize(
+                ctx.var_dtype.get(node.name))
+            self.params.append((node.name, tuple(shape), nbytes))
+        self.params.sort()
+        # candidate-invariant FLOPs proxy per entry (see evaluate): the
+        # per-candidate work is then only dividing by each output's shard
+        # factor — this walk must not re-run per candidate
+        self._entry_flops = []
+        self._flops_total = 0.0
+        for node in ctx.topo:
+            if node.is_variable:
+                continue
+            k = 1.0
+            if node.op in _MXU_FLOP_OPS and len(node.inputs) >= 2:
+                wnode, woi = node.inputs[1]
+                wsh = ctx.entry_shape.get((id(wnode), woi))
+                if wsh:
+                    k = float(np.prod(wsh)) / max(1, wsh[0])
+            for i in range(node.num_outputs()):
+                sh = ctx.entry_shape.get((id(node), i))
+                if sh is None:
+                    continue
+                fl = float(np.prod(sh)) * k
+                self._entry_flops.append(((id(node), i), fl))
+                self._flops_total += fl
+
+    def spec_options(self, tp: int) -> Dict[str, List[Optional[int]]]:
+        """Per-param candidate dims over the model axis: ``None`` (replicate)
+        plus every evenly-dividing dim of a large-enough rank-2 param, in
+        ``shardable_dims`` preference order. A param none of whose dims
+        divide gets [None] only — the GL401 replication fallback, by
+        construction."""
+        from .sharding import MIN_SHARD_ELEMS, shardable_dims
+
+        out = {}
+        for name, shape, nbytes in self.params:
+            opts: List[Optional[int]] = [None]
+            if tp > 1 and int(np.prod(shape)) >= MIN_SHARD_ELEMS:
+                opts += list(shardable_dims(shape, tp))
+            out[name] = opts
+        return out
+
+    def evaluate(self, mesh_axes: Dict[str, int],
+                 assignment: Dict[str, int]) -> dict:
+        """Score one (mesh, per-param-dim assignment) candidate. Returns a
+        dict with comm/peak components and the GL401-style fallbacks."""
+        from ..analysis.memory_plan import plan_memory
+        from ..analysis.shard_lint import (norm_spec, shard_plan_lint,
+                                           spec_factor)
+        from .mesh import MeshSpec
+        from .sharding import ShardingRules
+
+        ctx = self.ctx
+        mesh = MeshSpec(mesh_axes)
+
+        def rule(name, shape):
+            d = assignment.get(name)
+            if d is None:
+                return ()
+            spec = [None] * len(shape)
+            spec[d] = "model"
+            return tuple(spec)
+
+        ctx.mesh = mesh
+        ctx.rules = ShardingRules(mesh, data_axis="data", model_axis="model",
+                                  param_rule=rule)
+        ctx.entry_spec = {}
+        ctx.reshard_total_bytes = None
+        ctx.reshard_edges = []
+        ctx.memory_plan = None
+        shard_plan_lint(ctx)
+        plan = plan_memory(ctx)
+        if plan is None:
+            raise PlanError("cannot plan %s: shapes underdetermined"
+                            % (self.label or "symbol"))
+        reshard = int(ctx.reshard_total_bytes or 0)
+        dp = int(mesh_axes.get("data", 1))
+        # ---- compute-parallelism proxy: per-device FLOPs under the plan.
+        # Without this term a dp=1 all-replicated mesh scores zero comm by
+        # replicating ALL compute on every device — free by the comm metric,
+        # useless on the hardware. The per-entry FLOPs (out_elems *
+        # contraction size for MXU ops) are candidate-invariant and
+        # precomputed in __init__; here each entry only divides by its
+        # output's shard factor under this candidate's propagated specs.
+        flops_dev = 0.0
+        for entry, fl in self._entry_flops:
+            sp = ctx.entry_spec.get(entry)
+            f = spec_factor(sp, mesh) if sp else 1
+            flops_dev += fl / max(1, f)
+        # utilization bucket: log2 of the factor by which this plan's
+        # per-device compute exceeds a perfect devices-way split. Coarse on
+        # purpose — comm bytes decide among genuinely parallel plans; this
+        # term only kills plans that waste whole halvings of the fleet.
+        devices_total = int(np.prod(list(mesh_axes.values())))
+        util = 1.0
+        if self._flops_total > 0:
+            util = max(1.0, flops_dev / (self._flops_total / devices_total))
+        util_bucket = int(round(float(np.log2(util))))
+        gradsync = 0
+        for name, shape, nbytes in self.params:
+            spec = norm_spec(rule(name, shape), len(shape))
+            per_dev = nbytes // max(1, spec_factor(spec, mesh))
+            if dp > 1:
+                # ring all-reduce wire bytes per device — the exact formula
+                # kvstore_bucket counts into kvstore.bytes.* at flush
+                gradsync += int(2 * (dp - 1) * per_dev // dp)
+        return {
+            "mesh": dict(mesh_axes),
+            "assignment": dict(assignment),
+            "reshard_bytes": reshard,
+            "gradsync_bytes": gradsync,
+            "comm_bytes": 2 * reshard + gradsync,
+            "peak_bytes": int(plan["per_device"]["peak"]),
+            "util_bucket": util_bucket,
+            "memory_plan": plan,
+        }
+
+
+def _divisor_meshes(devices: int) -> List[Tuple[int, int]]:
+    """All (dp, tp) with dp*tp == devices, dp descending (pure data
+    parallelism first — the naive baseline leads the enumeration)."""
+    out = []
+    for tp in range(1, devices + 1):
+        if devices % tp == 0:
+            out.append((devices // tp, tp))
+    return out
+
+
+def _assignment_specs(graph: _Graph, assignment: Dict[str, int]):
+    """The JSON per-param spec view of an assignment."""
+    specs = {}
+    for name, shape, _ in graph.params:
+        axes = [None] * len(shape)
+        d = assignment.get(name)
+        if d is not None:
+            axes[d] = "model"
+        specs[name] = axes
+    return specs
+
+
+def _cand_key(cand, budget):
+    """Deterministic candidate order: feasible first, then the coarse
+    compute-utilization bucket (a plan that wastes whole halvings of the
+    fleet loses no matter its comm bill), then fewest predicted comm bytes,
+    then lowest peak, then the larger data axis (ties go to the more
+    conventional plan), then the mesh spelling."""
+    feasible = budget is None or cand["peak_bytes"] <= budget
+    return (not feasible, cand.get("util_bucket", 0), cand["comm_bytes"],
+            cand["peak_bytes"], -cand["mesh"].get("data", 1),
+            tuple(sorted(cand["mesh"].items())))
+
+
+def _search_dp_tp(graph: _Graph, devices: int, budget: Optional[int]):
+    """Phase 1: every dp×tp factorization × base spec policies, plus greedy
+    per-param refinement on each tp>1 mesh's best base candidate. Returns
+    (candidates sorted best-first, the naive all-dp candidate)."""
+    candidates = []
+    naive = None
+    for dp, tp in _divisor_meshes(devices):
+        mesh_axes = {"data": dp, "model": tp}
+        options = graph.spec_options(tp)
+        base = {"replicated": {}}
+        if tp > 1:
+            base["default"] = {n: o[1] for n, o in options.items()
+                               if len(o) > 1}
+            alt = {n: (o[2] if len(o) > 2 else o[1])
+                   for n, o in options.items() if len(o) > 1}
+            if alt != base["default"]:
+                base["alt"] = alt
+        best_here = None
+        for label in sorted(base):
+            cand = graph.evaluate(mesh_axes, base[label])
+            cand["policy"] = label
+            candidates.append(cand)
+            if naive is None and tp == 1 and dp == devices:
+                naive = cand
+            if best_here is None or _cand_key(cand, budget) < _cand_key(
+                    best_here, budget):
+                best_here = cand
+        if tp == 1:
+            continue
+        # greedy refinement: walk the largest shardable params (bounded by
+        # _REFINE_CAP), trying each alternative dim incl. replication, and
+        # keep any strict improvement — deterministic, no backtracking
+        refinable = sorted(
+            (n for n, o in options.items() if len(o) > 1),
+            key=lambda n: (-next(b for p, _, b in graph.params if p == n), n)
+        )[:_REFINE_CAP]
+        cur = dict(best_here["assignment"])
+        best = best_here
+        for name in refinable:
+            for opt in options[name]:
+                if cur.get(name) == opt:
+                    continue
+                trial = dict(cur)
+                if opt is None:
+                    trial.pop(name, None)
+                else:
+                    trial[name] = opt
+                cand = graph.evaluate(mesh_axes, trial)
+                cand["policy"] = "refined"
+                if _cand_key(cand, budget) < _cand_key(best, budget):
+                    candidates.append(best)
+                    best = cand
+                    cur = trial
+                else:
+                    candidates.append(cand)
+        if best is not best_here:
+            candidates.append(best)
+    # dedupe identical (mesh, assignment) keeping the best-scored instance
+    seen = {}
+    for cand in candidates:
+        key = (tuple(sorted(cand["mesh"].items())),
+               tuple(sorted(cand["assignment"].items())))
+        if key not in seen or _cand_key(cand, budget) < _cand_key(
+                seen[key], budget):
+            seen[key] = cand
+    ordered = sorted(seen.values(), key=lambda c: _cand_key(c, budget))
+    return ordered, naive
+
+
+# ----------------------------------------------------------- pipeline cuts
+def find_pipeline_cuts(symbol, shapes, types=None, ctx=None):
+    """Single-tensor graph boundaries eligible as pipeline-stage cuts.
+
+    A position between two ops qualifies when exactly ONE activation entry
+    crosses it (the boundary tensor GPipe ships between stages), no
+    parameter/aux variable is consumed on both sides (stage-local weights —
+    a param spanning stages would double-update), and the boundary is a
+    floating tensor (cotangents must flow back through it).
+
+    Returns a list of dicts sorted by topo position:
+      {"entry": label, "position": i, "bytes": per-batch boundary bytes,
+       "cum_param_bytes": trainable bytes at or before the cut}
+    """
+    from ..analysis.shard_lint import _itemsize, batch_like_vars
+
+    if ctx is None:
+        from ..analysis.manager import GraphContext
+        from ..analysis.shape_lint import shape_dtype_lint
+
+        ctx = GraphContext(symbol, shape_hints=shapes, type_hints=types,
+                           strict_shapes=True)
+        shape_dtype_lint(ctx)
+    ops = [n for n in ctx.topo if not n.is_variable]
+    if len(ops) < 2:
+        return []
+    data_like = {n.name for n in batch_like_vars(ctx)}
+    head_set = {(id(n), oi) for n, oi in ctx.symbol._outputs
+                if not n.is_variable}
+    last_use: Dict[Tuple[int, int], int] = {}
+    var_first: Dict[str, int] = {}
+    var_last: Dict[str, int] = {}
+    param_bytes_at: List[int] = []
+    seen_params = set()
+    cum = 0
+    for k, node in enumerate(ops):
+        for inp, oi in node.inputs:
+            if inp.is_variable:
+                var_first.setdefault(inp.name, k)
+                var_last[inp.name] = k
+                if inp.name not in data_like and inp.name not in seen_params:
+                    seen_params.add(inp.name)
+                    sh = ctx.var_shape.get(inp.name)
+                    if sh is not None:
+                        cum += int(np.prod(sh)) * _itemsize(
+                            ctx.var_dtype.get(inp.name))
+            else:
+                last_use[(id(inp), oi)] = k
+        param_bytes_at.append(cum)
+    # param/aux vars spanning position k (stage-local weights required):
+    # prefix-sum over each var's [first, last) consumer range — O(N + V)
+    span_delta = [0] * (len(ops) + 1)
+    for name in var_first:
+        if name in data_like:
+            continue
+        if var_first[name] < var_last[name]:
+            span_delta[var_first[name]] += 1
+            span_delta[var_last[name]] -= 1
+    spanning_at = []
+    acc = 0
+    for d in span_delta[:-1]:
+        acc += d
+        spanning_at.append(acc)
+
+    # incremental live set: after op k, live = entries produced at <= k
+    # still consumed later (or heads). One forward sweep, entries removed
+    # at their last use — O(N) total instead of rescanning ops per k.
+    dying_at = {}
+    for e, k in last_use.items():
+        if e not in head_set:
+            dying_at.setdefault(k, []).append(e)
+    entry_node = {}
+    live = {}
+    cuts = []
+    for k in range(len(ops) - 1):
+        node_k = ops[k]
+        for e in dying_at.get(k, ()):
+            live.pop(e, None)
+        for i in range(node_k.num_outputs()):
+            e = (id(node_k), i)
+            entry_node[e] = (node_k, i)
+            if last_use.get(e, -1) > k or e in head_set:
+                live[e] = True
+        if len(live) != 1:
+            continue
+        node, oi = entry_node[next(iter(live))]
+        if spanning_at[k]:
+            continue
+        sh = ctx.entry_shape.get((id(node), oi))
+        dt = ctx.entry_dtype.get((id(node), oi))
+        if sh is None or not sh:
+            continue
+        try:
+            if not np.issubdtype(np.dtype(dt), np.floating):
+                continue
+        except TypeError:
+            continue
+        label = node.name if node.num_outputs() == 1 else (
+            "%s[%d]" % (node.name, oi))
+        cuts.append({"entry": label, "position": k,
+                     "bytes": int(np.prod(sh)) * _itemsize(dt),
+                     "shape": tuple(sh), "dtype": np.dtype(dt).name,
+                     "cum_param_bytes": param_bytes_at[k]})
+    return cuts
+
+
+def choose_cuts(symbol, shapes, types=None, n_stages=2):
+    """Pick ``n_stages - 1`` cut entries for a pipeline split of ``symbol``
+    (balancing trainable bytes per stage, the planner's policy). Raises
+    ``PlanError`` when the graph offers no such partition."""
+    from ..analysis.manager import GraphContext
+    from ..analysis.shape_lint import shape_dtype_lint
+    from ..analysis.shard_lint import _itemsize, batch_like_vars
+
+    ctx = GraphContext(symbol, shape_hints=shapes, type_hints=types,
+                       strict_shapes=True)
+    shape_dtype_lint(ctx)
+    cuts = find_pipeline_cuts(symbol, shapes, types, ctx=ctx)
+    if len(cuts) < n_stages - 1:
+        raise PlanError(
+            "graph offers %d pipeline cut(s); %d stage(s) need %d"
+            % (len(cuts), n_stages, n_stages - 1))
+    data_like = {n.name for n in batch_like_vars(ctx)}
+    total = 0
+    for node in ctx.arg_nodes:
+        if node.name in data_like:
+            continue
+        sh = ctx.var_shape.get(node.name)
+        if sh is not None:
+            total += int(np.prod(sh)) * _itemsize(ctx.var_dtype.get(node.name))
+    chosen = _pick_cuts(cuts, n_stages, total)
+    if chosen is None:
+        raise PlanError("could not place %d distinct cuts" % (n_stages - 1))
+    return [c["entry"] for c in chosen]
+
+
+def _resolve_entry(symbol, label):
+    """Find the (node, out_index) an entry label names."""
+    name, oi = label, 0
+    if label.endswith("]") and "[" in label:
+        name, idx = label.rsplit("[", 1)
+        oi = int(idx[:-1])
+    for node in symbol._topo():
+        if node.name == name and not node.is_variable:
+            return node, oi
+    raise PlanError("cut entry %r not found in the symbol" % label)
+
+
+def split_symbol(symbol, cut_labels):
+    """Split ``symbol`` into pipeline stages at the named cut entries.
+
+    Returns ``(stage_symbols, boundary_names)``: stage k's graph rebuilds
+    the original nodes (fresh ``_Node`` objects — the input symbol is never
+    mutated), with stage k>0 consuming a new ``__pipe{k-1}__`` variable in
+    place of the previous stage's boundary entry. Stage k<last has exactly
+    one output: its boundary; the last stage keeps the original outputs.
+    """
+    from ..symbol import Symbol, _Node
+
+    cut_entries = [_resolve_entry(symbol, lbl) for lbl in cut_labels]
+    positions = {id(n): i for i, n in enumerate(symbol._topo())}
+    if [positions[id(n)] for n, _ in cut_entries] != sorted(
+            positions[id(n)] for n, _ in cut_entries):
+        raise PlanError("cut entries must be in topological order")
+
+    boundary_names = ["__pipe%d__" % i for i in range(len(cut_entries))]
+    stages = []
+    prev = None  # ((node, oi), boundary var name) of the upstream cut
+    for k in range(len(cut_entries) + 1):
+        stop = {}
+        if prev is not None:
+            (pn, poi), pname = prev
+            stop[(id(pn), poi)] = _Node(None, pname, {}, [])
+        memo = {}
+
+        def rebuild(root):
+            stack = [root]
+            while stack:
+                node = stack[-1]
+                if id(node) in memo and memo[id(node)] is not None:
+                    stack.pop()
+                    continue
+                pending = [inp for inp, oi in node.inputs
+                           if (id(inp), oi) not in stop
+                           and memo.get(id(inp)) is None]
+                if pending:
+                    stack.extend(pending)
+                    memo.setdefault(id(node), None)
+                    continue
+                stack.pop()
+                new = _Node(node.op, node.name, dict(node.attrs), [])
+                for inp, oi in node.inputs:
+                    if (id(inp), oi) in stop:
+                        new.inputs.append((stop[(id(inp), oi)], 0))
+                    else:
+                        new.inputs.append((memo[id(inp)], oi))
+                memo[id(node)] = new
+            return memo[id(root)]
+
+        if k < len(cut_entries):
+            node, oi = cut_entries[k]
+            heads = [(rebuild(node), oi)]
+            prev = (cut_entries[k], boundary_names[k])
+        else:
+            heads = []
+            for node, oi in symbol._outputs:
+                if (id(node), oi) in stop:
+                    heads.append((stop[(id(node), oi)], 0))
+                else:
+                    heads.append((rebuild(node), oi))
+        stages.append(Symbol(heads))
+    return stages, boundary_names
+
+
+def _pick_cuts(cuts, n_stages, total_param_bytes):
+    """Choose ``n_stages - 1`` cut positions balancing per-stage trainable
+    bytes: for each target quantile, the candidate whose cumulative param
+    bytes is nearest (earliest position breaks ties). Deterministic."""
+    chosen = []
+    used = set()
+    for j in range(1, n_stages):
+        target = total_param_bytes * j // n_stages
+        best = None
+        for c in cuts:
+            if c["position"] in used:
+                continue
+            d = abs(c["cum_param_bytes"] - target)
+            if best is None or (d, c["position"]) < (
+                    abs(best["cum_param_bytes"] - target), best["position"]):
+                best = c
+        if best is None:
+            return None
+        used.add(best["position"])
+        chosen.append(best)
+    chosen.sort(key=lambda c: c["position"])
+    if len({c["position"] for c in chosen}) != n_stages - 1:
+        return None
+    return chosen
+
+
+def _scale_batch(shape, mu):
+    if not shape or shape[0] % mu:
+        return None
+    return (shape[0] // mu,) + tuple(shape[1:])
+
+
+def _search_pipeline(graph: _Graph, symbol, shapes, types, devices, budget,
+                     bwd, microbatches, rejected):
+    """Phase 2: no dp×tp assignment fits — partition into pp stages so each
+    stage's predicted peak fits. Tries pp ascending (fewest stages first),
+    each with every dp×tp factorization of the remaining devices."""
+    ctx = graph.ctx
+    cuts = find_pipeline_cuts(symbol, shapes, types, ctx=ctx)
+    if not cuts:
+        return None, ("no single-tensor pipeline cut exists in this graph "
+                      "(every inter-op boundary carries more than one live "
+                      "tensor or a stage-spanning parameter)")
+    total_param_bytes = sum(b for _, _, b in graph.params)
+    batch = None
+    for name in sorted(graph.data_like):
+        sh = ctx.var_shape.get(name)
+        if sh:
+            batch = sh[0]
+            break
+    if batch is None:
+        return None, "no batch-carrying input to microbatch over"
+    mu = microbatches
+    while mu > 1 and batch % mu:
+        mu -= 1
+
+    reasons = []
+    pps = [pp for pp in range(2, devices + 1) if devices % pp == 0]
+    for pp in pps:
+        if pp - 1 > len(cuts):
+            reasons.append("pp=%d needs %d cuts, graph offers %d"
+                           % (pp, pp - 1, len(cuts)))
+            continue
+        chosen = _pick_cuts(cuts, pp, total_param_bytes)
+        if chosen is None:
+            reasons.append("pp=%d: could not place %d distinct cuts"
+                           % (pp, pp - 1))
+            continue
+        if any(c["shape"][0] % mu for c in chosen):
+            reasons.append("pp=%d: a boundary dim 0 does not divide into "
+                           "u=%d microbatches" % (pp, mu))
+            continue
+        labels = [c["entry"] for c in chosen]
+        try:
+            stage_syms, boundary_names = split_symbol(symbol, labels)
+        except PlanError as exc:
+            reasons.append("pp=%d: %s" % (pp, exc))
+            continue
+        # per-stage shape hints at MICROBATCH size: original data-like
+        # inputs scale dim 0; stage k>0 additionally binds its boundary var
+        stage_graphs = []
+        ok = True
+        for k, ssym in enumerate(stage_syms):
+            hints, thints = {}, {}
+            stage_inputs = set(ssym.list_inputs())
+            for name in sorted(graph.data_like & stage_inputs):
+                scaled = _scale_batch(ctx.var_shape.get(name), mu)
+                if scaled is None:
+                    ok = False
+                    break
+                hints[name] = scaled
+                dt = ctx.var_dtype.get(name)
+                if dt is not None:
+                    thints[name] = dt
+            if not ok:
+                break
+            if k > 0:
+                bname = boundary_names[k - 1]
+                scaled = _scale_batch(chosen[k - 1]["shape"], mu)
+                if scaled is None:
+                    ok = False
+                    break
+                hints[bname] = scaled
+                # a bf16 boundary priced as default-f32 would double the
+                # stage's activation/reshard bytes
+                thints[bname] = np.dtype(chosen[k - 1]["dtype"])
+            try:
+                stage_graphs.append(_Graph(ssym, hints, thints, bwd=bwd,
+                                           label="stage %d" % k))
+            except PlanError as exc:
+                reasons.append("pp=%d stage %d: %s" % (pp, k, exc))
+                ok = False
+                break
+        if not ok:
+            continue
+        rem = devices // pp
+        best = None
+        for dp, tp in _divisor_meshes(rem):
+            mesh_axes = {"data": dp, "model": tp}
+            stage_cands = []
+            for k, sg in enumerate(stage_graphs):
+                options = sg.spec_options(tp)
+                base = [{}]
+                if tp > 1:
+                    base.append({n: o[1] for n, o in options.items()
+                                 if len(o) > 1})
+                sbest = None
+                for asg in base:
+                    cand = sg.evaluate(mesh_axes, asg)
+                    # this stage's boundaries: in-edge (k>0) and out-edge
+                    # (k<last). stash = the GPipe (u-1) extra resident
+                    # copies per device; pipe = fwd activation + bwd
+                    # cotangent wire bytes per step (batch-sharded over dp)
+                    stash = pipe = 0
+                    for b in ([chosen[k - 1]] if k > 0 else []) + (
+                            [chosen[k]] if k < pp - 1 else []):
+                        stash += (mu - 1) * (b["bytes"] // mu) // max(1, dp)
+                        pipe += 2 * (b["bytes"] // max(1, dp))
+                    cand["peak_bytes"] += stash
+                    cand["pipeline_bytes"] = pipe
+                    cand["comm_bytes"] = (2 * cand["reshard_bytes"]
+                                          + cand["gradsync_bytes"] + pipe)
+                    if sbest is None or _cand_key(cand, budget) < _cand_key(
+                            sbest, budget):
+                        sbest = cand
+                stage_cands.append(sbest)
+            peak = max(c["peak_bytes"] for c in stage_cands)
+            comm = max(c["comm_bytes"] for c in stage_cands)
+            cand = {"mesh": mesh_axes, "pp": pp, "mu": mu,
+                    "cuts": labels, "stage_cands": stage_cands,
+                    "util_bucket": max(c.get("util_bucket", 0)
+                                       for c in stage_cands),
+                    "peak_bytes": peak, "comm_bytes": comm,
+                    "reshard_bytes": max(c["reshard_bytes"]
+                                         for c in stage_cands),
+                    "gradsync_bytes": max(c["gradsync_bytes"]
+                                          for c in stage_cands),
+                    "pipeline_bytes": max(c.get("pipeline_bytes", 0)
+                                          for c in stage_cands)}
+            feasible = budget is None or peak <= budget
+            if not feasible:
+                rejected.append({
+                    "mesh": dict(mesh_axes), "pipeline_stages": pp,
+                    "comm_bytes": comm, "peak_bytes": peak,
+                    "why": "max stage peak %d B exceeds budget %d B"
+                           % (peak, budget)})
+                continue
+            if best is None or _cand_key(cand, budget) < _cand_key(
+                    best, budget):
+                best = cand
+        if best is not None:
+            return best, None
+        reasons.append("pp=%d: no dp x tp layout of the remaining %d "
+                       "device(s) fits a stage under the budget" % (pp, rem))
+    return None, "; ".join(reasons) if reasons else \
+        "no pipeline partitioning fits the budget"
+
+
+# ----------------------------------------------------------------- planner
+def plan_parallel(symbol, shapes, types=None, devices=8, budget_bytes=None,
+                  budget_gb=None, bwd="stash", microbatches=None,
+                  label="") -> ParallelPlan:
+    """Search dp × tp × pp for the cheapest feasible plan.
+
+    ``shapes``/``types`` are the ``infer_shape`` hint dicts at the GLOBAL
+    batch size (the mesh splits it). ``budget_bytes``/``budget_gb`` arm the
+    peak-HBM constraint (default: ``MXNET_AUTOPLAN_BUDGET_GB``, falling
+    back to ``MXNET_MEMLINT_BUDGET_GB``; unset = unconstrained, the
+    cheapest-comm plan wins outright). Pipeline stages are only searched
+    when NO dp × tp assignment fits the budget.
+    """
+    if devices < 1:
+        raise PlanError("devices must be >= 1, got %r" % (devices,))
+    if budget_bytes is None:
+        budget_bytes = (int(budget_gb * 2 ** 30) if budget_gb is not None
+                        else autoplan_budget_bytes())
+    mu_req = (microbatches if microbatches is not None
+              else autoplan_microbatches())
+    graph = _Graph(symbol, shapes, types, bwd=bwd, label=label)
+    candidates, naive = _search_dp_tp(graph, devices, budget_bytes)
+    best = candidates[0]
+    naive_view = None
+    if naive is not None:
+        naive_view = {"mesh": dict(naive["mesh"]),
+                      "comm_bytes": naive["comm_bytes"],
+                      "peak_bytes": naive["peak_bytes"]}
+
+    def _reject_row(cand, why):
+        return {"mesh": dict(cand["mesh"]), "policy": cand.get("policy", ""),
+                "comm_bytes": cand["comm_bytes"],
+                "peak_bytes": cand["peak_bytes"], "why": why}
+
+    feasible = (budget_bytes is None
+                or best["peak_bytes"] <= budget_bytes)
+    rejected = []
+    seen_meshes = {tuple(sorted(best["mesh"].items()))}
+    for cand in candidates[1:]:
+        # one row per distinct mesh — candidates are best-first, so the
+        # first occurrence is that mesh's strongest showing; the losing
+        # refinement variants behind it add nothing a reader can act on
+        mkey = tuple(sorted(cand["mesh"].items()))
+        if mkey in seen_meshes:
+            continue
+        seen_meshes.add(mkey)
+        if budget_bytes is not None and cand["peak_bytes"] > budget_bytes:
+            why = ("peak %d B exceeds the %d B budget"
+                   % (cand["peak_bytes"], budget_bytes))
+        elif cand.get("util_bucket", 0) > best.get("util_bucket", 0):
+            why = ("wastes compute parallelism: ~2^%d x the winner's "
+                   "per-device FLOPs (replicated work)"
+                   % cand["util_bucket"])
+        elif cand["comm_bytes"] > best["comm_bytes"]:
+            why = ("predicted comm %d B > winner's %d B"
+                   % (cand["comm_bytes"], best["comm_bytes"]))
+        else:
+            why = ("tie-broken by (peak, data-axis size, mesh) against the "
+                   "winner")
+        rejected.append(_reject_row(cand, why))
+    rejected = rejected[:24]  # the tail repeats itself; keep the plan small
+
+    if feasible:
+        return ParallelPlan(
+            mesh=best["mesh"], devices=devices,
+            param_specs=_assignment_specs(graph, best["assignment"]),
+            predicted={"comm_bytes": best["comm_bytes"],
+                       "reshard_bytes": best["reshard_bytes"],
+                       "gradsync_bytes": best["gradsync_bytes"],
+                       "pipeline_bytes": 0,
+                       "peak_bytes": best["peak_bytes"]},
+            budget_bytes=budget_bytes, feasible=True,
+            rejected=rejected, naive=naive_view)
+
+    # every dp x tp assignment is over budget -> pipeline stages
+    pipe_rejected = list(rejected)
+    pipe, why = _search_pipeline(graph, symbol, shapes, types, devices,
+                                 budget_bytes, bwd, mu_req, pipe_rejected)
+    if pipe is not None:
+        specs = {}
+        stages = []
+        for k, sc in enumerate(pipe["stage_cands"]):
+            specs.update(_assignment_specs_for(sc))
+            stages.append({"stage": k,
+                           "comm_bytes": sc["comm_bytes"],
+                           "peak_bytes": sc["peak_bytes"],
+                           "param_specs": {n: list(v) for n, v in
+                                           _assignment_specs_for(sc).items()}})
+        return ParallelPlan(
+            mesh=pipe["mesh"], devices=devices, param_specs=specs,
+            pipeline_stages=pipe["pp"], microbatches=pipe["mu"],
+            stage_cuts=pipe["cuts"],
+            predicted={"comm_bytes": pipe["comm_bytes"],
+                       "reshard_bytes": pipe["reshard_bytes"],
+                       "gradsync_bytes": pipe["gradsync_bytes"],
+                       "pipeline_bytes": pipe["pipeline_bytes"],
+                       "peak_bytes": pipe["peak_bytes"]},
+            budget_bytes=budget_bytes, feasible=True,
+            rejected=pipe_rejected, naive=naive_view, stages=stages)
+
+    reason = ("no dp x tp assignment over %d device(s) fits the %d B "
+              "budget (best: mesh %s at %d B peak), and the pipeline "
+              "fallback found none either: %s"
+              % (devices, budget_bytes,
+                 ",".join("%s=%d" % kv for kv in best["mesh"].items()),
+                 best["peak_bytes"], why))
+    return ParallelPlan(
+        mesh=best["mesh"], devices=devices,
+        param_specs=_assignment_specs(graph, best["assignment"]),
+        predicted={"comm_bytes": best["comm_bytes"],
+                   "reshard_bytes": best["reshard_bytes"],
+                   "gradsync_bytes": best["gradsync_bytes"],
+                   "pipeline_bytes": 0,
+                   "peak_bytes": best["peak_bytes"]},
+        budget_bytes=budget_bytes, feasible=False, reason=reason,
+        rejected=pipe_rejected, naive=naive_view)
+
+
+def _assignment_specs_for(cand):
+    """Per-param spec view of a stage candidate (shapes travel with the
+    assignment only implicitly, so rebuild from the recorded dims)."""
+    specs = {}
+    for name, d in sorted(cand["assignment"].items()):
+        # dims beyond d replicate; rank is at least d+1
+        axes = [None] * (d + 1)
+        axes[d] = "model"
+        specs[name] = axes
+    return specs

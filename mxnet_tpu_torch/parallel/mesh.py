@@ -196,7 +196,8 @@ def _mesh(devices, sizes, axis_names, process_count):
         if tuple(axis_names)[0] != "data" or sizes[0] != n:
             raise MXNetError(
                 "a mesh across %d processes holds one data axis; a model axis across "
-                "processes comes with the planner (ROADMAP.md section 1.4b step 4)"
+                "processes is ROADMAP.md section 1.4c (the JAX package's planner plans "
+                "no multi-process job either)"
                 % process_count)
         import torch.distributed as tdist
 

@@ -15,7 +15,10 @@ over flat buffers:
   ``model`` axis changes no value (``parallel/mesh.py``);
 * across processes each rank runs its own rows, then ``all_reduce``s the
   flat gradients in buckets of ``MXNET_KVSTORE_BUCKET_MB`` inside the step,
-  and every rank applies the same update;
+  and every rank applies the same update; a BatchNorm's sums are summed
+  over the ranks inside the forward (``fusion._conv_block_sharded``,
+  ``fusion._global_moments``), and in ``remat``'s recompute, so its
+  moments are the global batch's;
 * on a CUDA device the step is one ``torch.cuda.CUDAGraph`` a batch shape:
   the first dispatch of a shape runs eagerly on a side stream (the warm-up:
   first-use library loads and ``cudaFuncSetAttribute`` happen there), then
@@ -124,15 +127,9 @@ class SPMDTrainer:
                              % (list(mesh.devices.flat), len(physical)))
         self._device = physical.pop()
         ops = [get_op(node.op) for node in self._prog.topo if not node.is_variable]
-        if mesh.process_count > 1:
-            if any(op is get_op("BatchNorm") for op in ops):
-                raise MXNetError(
-                    "BatchNorm across %d processes needs the sharded conv+BN statistics "
-                    "(JAX fusion._conv_block_sharded), which come with the planner "
-                    "(ROADMAP.md section 1.4b step 4)" % mesh.process_count)
-            if self.rules.model_parallel_size > 1:
-                raise MXNetError("a model axis across processes comes with the planner "
-                                 "(ROADMAP.md section 1.4b step 4)")
+        if mesh.process_count > 1 and self.rules.model_parallel_size > 1:
+            raise MXNetError("a model axis across processes is ROADMAP.md section 1.4c (the "
+                             "JAX package's planner plans no multi-process job either)")
         self._needs_rng = any(op.needs_rng for op in ops)
         if remat and self._needs_rng:
             raise MXNetError("remat with a random op: the recompute would draw other bits "
@@ -279,11 +276,18 @@ class SPMDTrainer:
 
     # ------------------------------------------------------------------ step
     def _fwd(self, args, aux):
-        """The training forward, under ``remat``'s checkpoint policy."""
-        prog, device = self._prog, self._device
+        """The training forward, under ``remat``'s checkpoint policy. The
+        mesh is entered inside ``run``, so the recompute that backward
+        makes (on autograd's thread, outside the caller's context) takes
+        the same path as the forward: a BatchNorm across processes sums
+        its statistics over the ranks in both."""
+        from .mesh import trace_mesh
+
+        prog, device, mesh = self._prog, self._device, self.mesh
 
         def run(*a):
-            return prog.interpret(a, aux, True, device)
+            with trace_mesh(mesh):
+                return prog.interpret(a, aux, True, device)
 
         if not self._remat:
             return run(*args)
@@ -312,8 +316,6 @@ class SPMDTrainer:
         outputs and (guard on) the per-key finite vector. ``inputs`` are
         tensors on the device, ``lr`` a 0-d device tensor. Nothing here
         reads the device back, so the step can be captured."""
-        from .mesh import trace_mesh
-
         st = self._state
         flats = st.flats
         input_set = set(self.input_names)
@@ -326,7 +328,7 @@ class SPMDTrainer:
             leaves[n] = p
             args.append(p)
         aux_old = tuple(st.aux[n] for n in self.aux_names)
-        with torch.enable_grad(), trace_mesh(self.mesh):
+        with torch.enable_grad():
             outs, new_aux = self._fwd(args, aux_old)
         # loss heads ignore the incoming cotangent, so ones is the identity
         # head gradient (JAX :248-250)

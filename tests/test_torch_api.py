@@ -334,7 +334,6 @@ def test_f5_a_with_block_wins_and_a_gpu_default_does_not_fall_back(monkeypatch):
 
 
 # ---------------------------------------------------------------- F6
-_STEP4 = "ROADMAP.md section 1.4b step 4 (the planner, the analysis passes)"
 _TOOLING = "ROADMAP.md section 1.5 (tooling: fusion, profiler and lint families)"
 _FLEET = "ROADMAP.md section 1, item 6 (the serving fleet)"
 _NO_TPU = "the port targets no TPU"
@@ -345,19 +344,11 @@ ALL_EXCEPTIONS = {
     ("", "tpu"): _NO_TPU,
     ("context", "tpu"): _NO_TPU,
     ("context", "num_tpus"): _NO_TPU,
-    ("parallel", "ParallelPlan"): _STEP4,
-    ("parallel", "PlanError"): _STEP4,
-    ("parallel", "plan_parallel"): _STEP4,
     ("parallel.mesh", "shard_map_compat"): "JAX's shard_map; the port runs a mesh's shards "
                                            "as one program (parallel/trainer.py)",
-    ("module", "PipelineExecutorGroup"): _STEP4,
     ("serving", "fleet"): _FLEET,
-    **{("analysis", n): _STEP4 for n in (
-        "CODES", "Diagnostic", "Report", "Severity", "describe_code", "GraphContext",
-        "graph_pass", "list_passes", "run_graph_passes")},
     **{("analysis", n): _TOOLING for n in (
-        "RecordingEngine", "ScheduleTrace", "analyze_trace", "lint", "lint_bind",
-        "graphlint_mode", "verify_rewrite", "graphrewrite_mode", "RewritePass",
+        "RecordingEngine", "ScheduleTrace", "analyze_trace", "verify_rewrite", "graphrewrite_mode", "RewritePass",
         "RewriteResult", "rewrite_pass_names", "pattern_site_counts", "lint_dispatch_paths",
         "lint_dispatch_source", "lint_dispatch_gaps", "dispatch_gap_pct")},
     **{("analysis.rewrite", n): _TOOLING for n in (
@@ -365,7 +356,7 @@ ALL_EXCEPTIONS = {
         "rewrite_pass_names", "pattern_site_counts")},
     **{("fusion", n): _TOOLING for n in (
         "gate", "gate_explain", "bwd_mode", "infer_default", "quant_mode", "enabled_patterns",
-        "gate_pattern_explain", "conv_schedule", "losers_note", "attention_trains_flash")},
+        "gate_pattern_explain", "conv_schedule", "losers_note")},
     **{("ops.fusion_patterns", n): _TOOLING for n in ("sig_of", "tuner_build")},
 }
 

@@ -1512,3 +1512,111 @@ def test_sharded_save_and_resume_on_one_nccl_rank(dev, tmp_path, monkeypatch):
     for k in want:
         assert np.array_equal(got[k], want[k]), k
         np.testing.assert_allclose(want[k], per_key[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+# ------------------------------------------------ the pipeline, the sharded stats
+def _narrow_resnet():
+    from mxnet_tpu_torch.models import resnet
+
+    with pt.name.NameManager():
+        body = resnet.residual_unit(pt.sym.Variable("data"), 32, (1, 1), False, "u1")
+        body = resnet.residual_unit(body, 32, (2, 2), False, "u2")
+        body = resnet.residual_unit(body, 32, (1, 1), True, "u3")
+        bn = pt.sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5, name="bn")
+        relu = pt.sym.Activation(data=bn, act_type="relu", name="relu")
+        pool = pt.sym.Pooling(data=relu, global_pool=True, kernel=(8, 8), pool_type="avg",
+                              name="pool")
+        fc = pt.sym.FullyConnected(data=pt.sym.Flatten(data=pool), num_hidden=10, name="fc")
+        return pt.sym.SoftmaxOutput(data=fc, name="softmax")
+
+
+def test_resnet_pipeline_on_the_card_matches_the_cpu(dev):
+    """A ResNet-shaped net (three bottlenecks from the zoo's
+    ``residual_unit``) through ``PipelineExecutorGroup`` (two stages, two
+    microbatches of 4) on the card and on the CPU from the same weights:
+    the conv+BN kernels launch once a site a microbatch in the forward
+    phase and again in the recompute, the backward kernel once; gradients
+    and moving stats agree with the CPU's (rtol 1e-3, atol 1e-3·max|g|)."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.module import PipelineExecutorGroup
+
+    net = _narrow_resnet()
+    B, mu, shape = 8, 2, (8, 16, 16, 16)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=shape)
+    rs = np.random.RandomState(0)
+    args = {n: (rs.uniform(0.5, 1.5, s) if n.endswith("_gamma") else rs.randn(*s) * 0.2
+                ).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes) if n not in ("data", "softmax_label")}
+    aux = {n: (rs.uniform(0.5, 1.5, s) if n.endswith("_var") else rs.uniform(-0.1, 0.1, s)
+               ).astype(np.float32) for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    x = rs.uniform(-1, 1, shape).astype(np.float32)
+    y = rs.randint(0, 10, B).astype(np.float32)
+    got = []
+    for ctx in (pt.gpu(0), pt.cpu()):
+        pg = PipelineExecutorGroup(net, ctx, [("data", shape)], [("softmax_label", (B,))],
+                                   num_stages=2, microbatches=mu)
+        pg.set_params(args, aux)
+        sites = sum(sum(1 for d in ex._prog.fusion_plan.values() if d["kind"] == "conv")
+                    for ex in pg.execs)
+        batch = pt.io.DataBatch(data=[pt.nd.array(x, ctx=ctx)], label=[pt.nd.array(y, ctx=ctx)])
+        ops.reset_launch_counts()
+        pg.forward_backward(batch)
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert sites == 10
+            assert counts["conv_bn"] == 2 * sites * mu and counts["conv_bn_bwd"] == sites * mu
+        a, x_ = {}, {}
+        pg.get_params(a, x_)
+        got.append(({n: pg._owner(n).grad_dict[n].asnumpy() for n in args},
+                    {n: v.asnumpy() for n, v in x_.items()}))
+    for n in args:
+        want = got[1][0][n]
+        torch.testing.assert_close(torch.from_numpy(got[0][0][n]), torch.from_numpy(want),
+                                   rtol=1e-3, atol=1e-3 * float(abs(want).max()))
+    for n in aux:
+        torch.testing.assert_close(torch.from_numpy(got[0][1][n]), torch.from_numpy(got[1][1][n]),
+                                   rtol=1e-3, atol=1e-5)
+
+
+def test_conv_block_sharded_on_one_nccl_rank_is_bitwise_conv_block(dev):
+    """``fusion._conv_block_sharded`` over a one-rank NCCL group: outputs,
+    statistics and every gradient bitwise those of ``ConvBlock`` (the
+    all_reduce of one rank copies), one forward and one backward launch
+    each; the group destroyed after."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from mxnet_tpu_torch import fusion, ops
+    from mxnet_tpu_torch.parallel.mesh import Mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    store = tdist.TCPStore("127.0.0.1", port, 1, is_master=True)
+    tdist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = Mesh(np.array([pt.gpu(0)], dtype=object), ("data",), 1, tdist.group.WORLD)
+        x, w = _randn(dev, 4, 64, 28, 28), _randn(dev, 64, 64, 3, 3, scale=0.05)
+        scale, shift = _randn(dev, 64).abs() + 0.5, _randn(dev, 64, scale=0.1, seed=1)
+        res = _randn(dev, 4, 64, 28, 28, seed=2)
+        cots = [_randn(dev, 4, 64, 28, 28, seed=3), _randn(dev, 64, seed=4),
+                _randn(dev, 64, seed=5)]
+        results = []
+        for sharded in (True, False):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, scale, shift, res)]
+            ops.reset_launch_counts()
+            if sharded:
+                outs = fusion._conv_block_sharded(mesh, *leaves, (1, 1), True)
+            else:
+                outs = cb.ConvBlock.apply(*leaves, (1, 1), True)
+            grads = torch.autograd.grad(outs, leaves, grad_outputs=cots)
+            torch.cuda.synchronize()
+            results.append(([o.detach() for o in outs] + list(grads), ops.launch_counts()))
+    finally:
+        tdist.destroy_process_group()
+    assert not tdist.is_initialized()
+    for a, b in zip(results[0][0], results[1][0]):
+        assert torch.equal(a, b)
+    assert results[0][1]["conv_bn"] == results[0][1]["conv_bn_bwd"] == 1

@@ -27,8 +27,10 @@ launch has a timeout of its own, well under a minute of work.
   ``kvstore.bytes.sparse`` by the padded wire formula) and untouched rows
   bit for bit rank 0's initial table (rank 1 started from another table:
   ``init`` adopts rank 0's).
-* The fused step refuses BatchNorm across ranks, naming ROADMAP.md section
-  1.4b step 4.
+* BatchNorm across ranks trains through the fused step (its statistics
+  summed over the ranks, ``tests/test_torch_sync_bn.py`` holds the values
+  against the JAX package's); what the fused step still refuses across
+  ranks is a model axis, naming ROADMAP.md section 1.4c.
 """
 import os
 import subprocess
@@ -110,7 +112,14 @@ elif mode == "bn":
             raised = ""
         except pt.MXNetError as e:
             raised = str(e)
-    np.savez(os.path.join(tmp, "out%d.npz" % rank), raised=np.array(raised))
+        fused = mod._spmd is not None
+        try:
+            pt.parallel.make_mesh({"data": 1, "model": 2})
+            model_raised = ""
+        except pt.MXNetError as e:
+            model_raised = str(e)
+    np.savez(os.path.join(tmp, "out%d.npz" % rank), raised=np.array(raised),
+             fused=np.array(fused), model_raised=np.array(model_raised))
 
 elif mode == "sparse":
     case = np.load(os.path.join(tmp, "case.npz"))
@@ -228,10 +237,14 @@ def test_dist_sync_fused_step_matches_jax_single_process(tmp_path):
 
 
 def test_dist_fused_step_refuses_batchnorm_across_ranks(tmp_path):
+    """BatchNorm across ranks no longer refuses: the fused step binds it
+    (ROADMAP.md section 1.4b step 4). The refusal left is a model axis
+    across the ranks, naming section 1.4c."""
     outs = _launch(tmp_path, "bn")
     for o in outs:
-        assert "BatchNorm across 2 processes" in str(o["raised"])
-        assert "1.4b step 4" in str(o["raised"])
+        assert str(o["raised"]) == "" and bool(o["fused"])
+        assert "a model axis across processes" in str(o["model_raised"])
+        assert "section 1.4c" in str(o["model_raised"])
 
 
 def test_dist_sparse_round_unions_rows_and_updates_lazily(tmp_path):

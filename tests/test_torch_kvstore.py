@@ -670,7 +670,8 @@ def test_sharded_and_elastic_store_features_raise_naming_the_next_item(tmp_path)
     ROADMAP.md section 1.4b steps 2-3: a local store runs them (its reform
     is a no-op, a load of a missing set raises the reference's structured
     error, the elastic calls outside an elastic job raise as in the
-    reference); what still raises names section 1.4b step 4."""
+    reference); what still raises, a model axis across processes, names
+    section 1.4c."""
     kv = pt.kv.create("local")
     kv.set_optimizer(pt.optimizer.SGD(learning_rate=0.1))
     assert kv.elastic_state == "running"
@@ -686,8 +687,8 @@ def test_sharded_and_elastic_store_features_raise_naming_the_next_item(tmp_path)
     for name in ("coordination_client", "poll_pause"):
         with pytest.raises(pt.MXNetError, match="elastic job"):
             getattr(pt.dist, name)()
-    with pytest.raises(pt.MXNetError, match="section 1.4b"):
-        pt.mod.executor_group.PipelineExecutorGroup(None, None, [])
+    with pytest.raises(pt.MXNetError, match="section 1.4c"):
+        pt.parallel.mesh._mesh([pt.cpu(0)] * 2, [1, 2], ("data", "model"), 2)
 
 
 # ---------------------------------------------- FeedForward, heartbeat, convert

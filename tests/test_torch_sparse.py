@@ -1,10 +1,11 @@
 """The port's row-sparse subsystem held against the JAX package's.
 
 Every case of the reference's own ``tests/test_sparse.py`` runs here on
-BOTH packages (fixture ``mx``, the port inside ``with cpu():``), but the
-four that need ``analysis/`` or ``parallel/`` (the shard-rule category, the
-GL405 hint, autoplan, the lint of the zoo entry), which wait for the next
-item of ROADMAP.md section 1.4. Then the recommender: ``get_symbol`` gives
+BOTH packages (fixture ``mx``, the port inside ``with cpu():``), the four
+that need ``analysis/`` or ``parallel/`` (the shard-rule category, the
+GL405 hint, autoplan, the lint of the zoo entry) included: the zoo entry's
+lint takes its shapes from the JAX package's ``graphlint`` CLI table, as
+the port has no CLI yet (ROADMAP.md section 1.5). Then the recommender: ``get_symbol`` gives
 the JAX builder's JSON under both names, and one ``Module.fit`` step at
 batch 64 through a ``local`` KVStore object, from the same numpy weights
 and batch, gives the same weights and the same sparse optimizer states in
@@ -250,6 +251,74 @@ def test_optimizer_without_flat_spec_densifies_with_warning(mx, caplog):
 def test_flat_kernels_shared_with_bucket_engine(mx):
     bucket = importlib.import_module(mx.__name__ + ".kvstore_bucket")
     assert bucket._FLAT_KERNELS is mx.optimizer.FLAT_KERNELS
+
+
+# ------------------------------------------------- shard rules / lint / plan
+def test_shard_rule_category_registered(mx):
+    im = importlib.import_module(mx.__name__ + ".ops.infer_meta")
+    assert "row_sparse_embedding" in im.SHARD_RULES
+    assert im.get_meta("SparseEmbedding").shard_rule == "row_sparse_embedding"
+    assert im.get_meta("SparseEmbedding").param_slots == ("weight",)
+    assert set(im.EMBEDDING_RULES) == {"embedding", "row_sparse_embedding"}
+
+
+def test_gl405_hint_names_embedding_table_pspec(mx):
+    """The GL405 fix hint for a replicated embedding table names the
+    table's param_pspec placement, not the generic rank-2 advice."""
+    analysis = importlib.import_module(mx.__name__ + ".analysis")
+    if mx is mxnet_tpu:
+        from jax.sharding import PartitionSpec as P
+
+        empty = P()
+    else:
+        empty = ()
+    mesh = mx.parallel.parse_mesh_spec("dp=2,model=2")
+    rules = mx.parallel.ShardingRules.infer_axes(mesh, param_rule=lambda name, shape: empty)
+    net = mx.sym.SparseEmbedding(data=mx.sym.Variable("ids"), input_dim=4096, output_dim=64,
+                                 name="table")
+    report = analysis.lint(net, shapes={"ids": (8,)}, types={"ids": "int32"}, mesh=mesh,
+                           rules=rules)
+    gl405 = [d for d in report.diagnostics if d.code == "GL405"]
+    assert gl405, report.codes()
+    hint = gl405[0].fix_hint
+    assert "embedding table" in hint and "param_pspec" in hint
+    assert "table_weight" in hint and "row-sparse" in hint
+
+
+def test_autoplan_recommender_shards_embedding_over_model_axis(mx):
+    """At 8 devices with a budget that replicated tables blow, the planner
+    lands a model-axis-sharded embedding spec and beats naive all-dp on
+    predicted comm."""
+    autoplan = importlib.import_module(mx.__name__ + ".parallel.autoplan")
+    net = mx.models.get_symbol("recommender")
+    shapes = {"user": (64,), "item": (64,), "dense": (64, 16), "label": (64,)}
+    plan = autoplan.plan_parallel(net, shapes, types={"user": "int32", "item": "int32"},
+                                  devices=8, budget_gb=0.0625, label="recommender")
+    assert plan.feasible and plan.mesh.get("model", 1) > 1
+    sharded = [n for n in ("user_embed_weight", "item_embed_weight")
+               if any(plan.param_specs.get(n, []))]
+    assert sharded, plan.param_specs
+    assert plan.predicted["comm_bytes"] < plan.naive["comm_bytes"]
+
+
+def test_autoplan_recommender_plan_is_the_references():
+    shapes = {"user": (64,), "item": (64,), "dense": (64, 16), "label": (64,)}
+    plans = [importlib.import_module(m.__name__ + ".parallel.autoplan").plan_parallel(
+        m.models.get_symbol("recommender"), shapes, types={"user": "int32", "item": "int32"},
+        devices=8, budget_gb=0.0625, label="recommender").to_json() for m in (mxnet_tpu, pt)]
+    assert plans[1] == plans[0]
+
+
+def test_recommender_in_zoo_and_lints_clean(mx):
+    from mxnet_tpu.analysis.cli import DEFAULT_SHAPES, DEFAULT_TYPES
+
+    analysis = importlib.import_module(mx.__name__ + ".analysis")
+    assert "recommender" in DEFAULT_SHAPES and "dlrm" in DEFAULT_SHAPES
+    net = mx.models.get_symbol("dlrm")
+    report = analysis.lint(net, shapes=DEFAULT_SHAPES["recommender"],
+                           types=DEFAULT_TYPES["recommender"])
+    errors = [d for d in report.diagnostics if d.severity == "error"]
+    assert not errors, [d.format() for d in errors]
 
 
 def test_sparse_param_names(mx):

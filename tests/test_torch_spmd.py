@@ -254,9 +254,19 @@ def test_update_without_forward_backward_raises():
 
 @pytest.mark.parametrize("var,value", [("MXNET_AUTOPLAN", "1"), ("MXNET_GRAPHLINT", "warn")])
 def test_planner_and_graphlint_raise_naming_step_4(monkeypatch, var, value):
+    """Neither raises any more (ROADMAP.md section 1.4b step 4 landed): under
+    ``MXNET_AUTOPLAN=1`` the fused fit takes the planner's mesh, under
+    ``MXNET_GRAPHLINT=warn`` its bind lints the real mesh, and either trains
+    the same weights as the fit without the variable."""
+    batches = _host_batches(1)
+    _, want = _fit(pt, _ctxs(pt, 2), batches)
     monkeypatch.setenv(var, value)
-    with pytest.raises(pt.MXNetError, match="1.4b step 4"):
-        _fit(pt, _ctxs(pt, 2), _host_batches(1))
+    mod, got = _fit(pt, _ctxs(pt, 2), batches)
+    assert mod._spmd is not None
+    if var == "MXNET_AUTOPLAN":
+        assert dict(mod._spmd.trainer.mesh.shape) == {"data": 2, "model": 1}
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_bf16_compute_raises_naming_section_2b():
