@@ -205,7 +205,32 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    1e-5) with its kernel-6 launches counted; ``_conv_block_sharded`` at
    stage 1's 3x3 shape on one NCCL rank: outputs, statistics and gradients
    bitwise ``ConvBlock``'s, the process group destroyed after.
-18. A ``smoke`` line (the run's seconds from the import of the port), a
+18. Native runtime (``engine``, ``recordio``, ``io_native``, ``image_native``,
+   ``image``, ``c_api``, ``predict_api``): the five host libraries built
+   from the checkout into ``build/torch_native/`` (path and seconds each;
+   the image pipeline where libjpeg's and libpng's headers are, else one
+   line naming what is missing); raw records through ``MXIndexedRecordIO``
+   and ``NativePrefetchReader``; 256 JPEG images of 256 x 256 packed with
+   ``recordio.pack_img`` and read by ``ImageRecordIter`` as
+   ``train_imagenet.py`` reads them (224 crops, mirrors, ImageNet means, 4
+   threads; the path that ran asserted: native exactly where the pipeline
+   built), its batches staged through two page-locked buffers; ResNet-50's
+   fused ``Module.fit`` from it for two epochs of 8 steps under
+   ``ThreadedEngine`` with ``do_checkpoint`` (49 + 49 launches a step, the
+   loss falling, ``load_checkpoint`` bitwise ``get_params()`` after
+   ``nd.waitall()``), one more epoch continued and resumed from the
+   checkpoint (``resume_or_init`` and the saved optimizer states) bitwise
+   equal; images/s, host p50/p80 a step, ``io.input_bound_pct``, the
+   profiler's idle share of iterator-fed and fixed-batch steps,
+   ``save_checkpoint``'s return against its write landing; native against
+   Python decode where both exist. LeNet trained through the C training
+   ABI at ``dev_type=2`` (20 steps, the loss falling, one kernel-6 launch a
+   step) and ResNet-50 served through the C predict ABI at ``dev_type=2``,
+   batch 1, from the fit's ``.params`` (49 stats-free conv_bn launches),
+   equal to the in-process ``Predictor``; both driven in this process
+   through ``ctypes``, and the predict program once more as an executable
+   with an embedded interpreter.
+19. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
@@ -213,9 +238,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
    ``recommender_launches``; row 6 with ``recommender_fc``; rows 6, 8 and 9
    with the fused-step phase's ``fused_launches``, the checkpoint
-   phase's ``checkpoint_launches`` and the planner phase's
-   ``planner_launches``), the card's name/power line, then the
-   last line ``{"ok": true, "device": {...}}``.
+   phase's ``checkpoint_launches``, the planner phase's
+   ``planner_launches`` and the native phase's ``native_launches``), the
+   card's name/power line, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2497,6 +2523,8 @@ def run_deploy(pt, net, args, aux):
         prefix = tmp + "/resnet50"
         t0 = time.perf_counter()
         pt.model.save_checkpoint(prefix, DEPLOY["epoch"], net, args, aux)
+        out["save_return_s"] = time.perf_counter() - t0
+        pt.nd.waitall()  # the write is queued on the engine
         out["save_checkpoint_s"] = time.perf_counter() - t0
         with open(prefix + "-symbol.json") as f:
             json_str = f.read()
@@ -3185,6 +3213,7 @@ def run_module_resnet(pt, net, args, aux, out):
     speed_lines = [ln for ln in lines if "Speed:" in ln]
     # a Speedometer line a metric, once an epoch (frequent = half the batches)
     check(len(speed_lines) == epochs * len(metric.get_name_value()), ("Speedometer lines", lines))
+    pt.nd.waitall()  # do_checkpoint's writes are queued on the engine
     check(os.path.exists("%s-%04d.params" % (prefix, epochs)), "no checkpoint of the last epoch")
 
     # --- the two runs' parameters and moving stats
@@ -6616,6 +6645,599 @@ def run_planner(pt, smi):
     return launches
 
 
+# Phase 18, the native runtime: ResNet-50 trained the way
+# example/image-classification/train_imagenet.py trains it. A RecordIO pack
+# of 256 images of 256 x 256 x 3 (a colour a class from a seeded table of
+# 1000, plus uniform noise of +-40, JPEG quality 95) read by ImageRecordIter
+# at (3, 224, 224), batch 32, shuffled, random crops and mirrors, the
+# ImageNet means, 4 decode threads (common/data.py's arguments), into
+# Module.fit on the fused step, SGD-momentum at RESNET_TRAIN's settings, 2
+# epochs of 8 steps, do_checkpoint each epoch under ThreadedEngine; then one
+# more epoch continued and resumed. LeNet through the C training ABI at
+# batch 32 for 20 steps, ResNet-50 through the C predict ABI at batch 1.
+NATIVE = dict(images=256, image_size=256, classes=1000, noise=40, batch=32, epochs=2,
+              threads=4, mean=(123.68, 116.779, 103.939), quality=95, c_train_steps=20,
+              c_train_batch=32, profile_steps=4, latency_saves=3, dev_type=2, budget_s=90.0)
+# tests/test_image_native.py:93-94: the native and Python decoders' JPEG
+# rounding on one unaugmented batch
+NATIVE_DECODE_TOL = dict(mean=0.02, max=0.2)
+NATIVE_PREDICT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+# LeNet trained through include/mxtpu/c_api.h (tests/test_c_api.py's
+# program as a function): the executor binds on the default context, every
+# array the program makes is on dev_type; the KVStore round trip and an
+# imperative add run there too. Returns 0, or the failing step's code.
+C_NATIVE_TRAIN = r"""
+#include <math.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include "mxtpu/c_api.h"
+
+static unsigned long rng_state = 12345;
+static float frand(void) {
+  rng_state ^= rng_state << 13; rng_state ^= rng_state >> 7; rng_state ^= rng_state << 17;
+  return (float)((double)(rng_state % 100000) / 100000.0 - 0.5);
+}
+
+static int fill(NDArrayHandle h, float scale) {
+  mx_uint ndim; const mx_uint* shp;
+  if (MXNDArrayGetShape(h, &ndim, &shp)) return -1;
+  size_t n = 1; for (mx_uint i = 0; i < ndim; ++i) n *= shp[i];
+  float* buf = (float*)malloc(n * sizeof(float));
+  for (size_t i = 0; i < n; ++i) buf[i] = frand() * scale;
+  int rc = MXNDArraySyncCopyFromCPU(h, buf, n);
+  free(buf);
+  return rc;
+}
+
+#define CHECK(x, code) do { if (x) { \
+  fprintf(stderr, "%s failed: %s\n", #x, MXGetLastError()); return code; } } while (0)
+
+int train_lenet(const char* json, int dev_type, int batch, int steps, float* losses) {
+  enum { NCLS = 10 };
+  const char* keys[] = {"data", "softmax_label"};
+  mx_uint indptr[] = {0, 4, 5};
+  mx_uint shapes[] = {(mx_uint)batch, 1, 28, 28, (mx_uint)batch};
+  ExecutorHandle ex = NULL;
+  CHECK(MXTrainExecutorCreate(json, 2, keys, indptr, shapes, &ex), 1);
+  mx_uint n_args; const char** names;
+  CHECK(MXExecutorListArguments(ex, &n_args, &names), 2);
+  float* label = (float*)malloc(batch * sizeof(float));
+  float* prob = (float*)malloc(batch * NCLS * sizeof(float));
+  for (int i = 0; i < batch; ++i) label[i] = (float)(i % NCLS);
+  for (mx_uint i = 0; i < n_args; ++i) {
+    NDArrayHandle a;
+    CHECK(MXExecutorGetArg(ex, names[i], &a), 3);
+    if (!strcmp(names[i], "softmax_label")) CHECK(MXNDArraySyncCopyFromCPU(a, label, batch), 4);
+    else CHECK(fill(a, strcmp(names[i], "data") ? 0.2f : 1.0f), 4);
+    MXNDArrayFree(a);
+  }
+  const char* okeys[] = {"lr"};
+  const char* ovals[] = {"0.01"};
+  for (int step = 0; step < steps; ++step) {
+    CHECK(MXExecutorForward(ex, 1), 5);
+    NDArrayHandle out;
+    CHECK(MXExecutorGetOutput(ex, 0, &out), 6);
+    CHECK(MXNDArraySyncCopyToCPU(out, prob, batch * NCLS), 7);
+    MXNDArrayFree(out);
+    float loss = 0.0f;
+    for (int i = 0; i < batch; ++i) loss += -logf(prob[i * NCLS + (int)label[i]] + 1e-9f);
+    losses[step] = loss / batch;
+    CHECK(MXExecutorBackward(ex, 0, NULL), 8);
+    for (mx_uint i = 0; i < n_args; ++i) {
+      NDArrayHandle w, g;
+      CHECK(MXExecutorGetArg(ex, names[i], &w), 9);
+      CHECK(MXExecutorGetGrad(ex, names[i], &g), 9);
+      if (g) {
+        NDArrayHandle ins[2] = {w, g};
+        NDArrayHandle* outs = &w;
+        int n_out = 1;
+        CHECK(MXImperativeInvokeByName("sgd_update", 2, ins, &n_out, &outs, 1, okeys, ovals), 10);
+        MXNDArrayFree(g);
+      }
+      MXNDArrayFree(w);
+    }
+  }
+  CHECK(MXNDArrayWaitAll(), 11);
+  /* arrays of the program's own on dev_type: an add and a KVStore round trip */
+  KVStoreHandle kv;
+  CHECK(MXKVStoreCreate("local", &kv), 12);
+  mx_uint vshape[] = {4};
+  NDArrayHandle v0, delta, got;
+  CHECK(MXNDArrayCreate(vshape, 1, dev_type, 0, 0, &v0), 13);
+  CHECK(MXNDArrayCreate(vshape, 1, dev_type, 0, 0, &delta), 13);
+  CHECK(MXNDArrayCreate(vshape, 1, dev_type, 0, 0, &got), 13);
+  float dbuf[4] = {1.0f, 2.0f, 3.0f, 4.0f}, gbuf[4];
+  CHECK(MXNDArraySyncCopyFromCPU(delta, dbuf, 4), 14);
+  NDArrayHandle pair[2] = {delta, delta};
+  NDArrayHandle* sum = NULL;
+  int n_sum = 0;
+  CHECK(MXImperativeInvokeByName("elemwise_add", 2, pair, &n_sum, &sum, 0, NULL, NULL), 15);
+  CHECK(n_sum != 1 || MXNDArraySyncCopyToCPU(sum[0], gbuf, 4), 15);
+  for (int i = 0; i < 4; ++i) if (gbuf[i] != 2.0f * dbuf[i]) return 16;
+  MXNDArrayFree(sum[0]);
+  int kv_keys[] = {3};
+  CHECK(MXKVStoreInit(kv, 1, kv_keys, &v0), 17);
+  CHECK(MXKVStorePush(kv, 1, kv_keys, &delta, 0), 17);
+  CHECK(MXKVStorePull(kv, 1, kv_keys, &got, 0), 17);
+  CHECK(MXNDArraySyncCopyToCPU(got, gbuf, 4), 18);
+  for (int i = 0; i < 4; ++i) if (fabsf(gbuf[i] - dbuf[i]) > 1e-6f) return 19;
+  MXNDArrayFree(v0); MXNDArrayFree(delta); MXNDArrayFree(got);
+  MXKVStoreFree(kv);
+  MXExecutorFree(ex);
+  free(label); free(prob);
+  return 0;
+}
+"""
+
+# ResNet-50 served through include/mxtpu/c_predict_api.h: create at
+# dev_type, one forward, the output copied out. Built as a library (the
+# smoke calls predict_once in its own process) and, with WITH_MAIN, as a
+# program that reads its inputs from files (an embedded interpreter).
+C_NATIVE_PREDICT = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include "mxtpu/c_predict_api.h"
+
+int predict_once(const char* json, const void* params, int param_size, int dev_type,
+                 const mx_uint* shape, const float* input, mx_uint n_in, float* out,
+                 mx_uint n_out) {
+  const char* keys[] = {"data"};
+  mx_uint indptr[] = {0, 4};
+  PredictorHandle h = NULL;
+  if (MXPredCreate(json, params, param_size, dev_type, 0, 1, keys, indptr, shape, &h)) {
+    fprintf(stderr, "create: %s\n", MXGetLastError()); return 1;
+  }
+  if (MXPredSetInput(h, "data", input, n_in)) {
+    fprintf(stderr, "set: %s\n", MXGetLastError()); return 2;
+  }
+  if (MXPredForward(h)) { fprintf(stderr, "forward: %s\n", MXGetLastError()); return 3; }
+  mx_uint* oshape; mx_uint ondim;
+  if (MXPredGetOutputShape(h, 0, &oshape, &ondim)) return 4;
+  mx_uint total = 1;
+  for (mx_uint i = 0; i < ondim; ++i) total *= oshape[i];
+  if (total != n_out || MXPredGetOutput(h, 0, out, n_out)) {
+    fprintf(stderr, "get: %s\n", MXGetLastError()); return 5;
+  }
+  return MXPredFree(h) ? 6 : 0;
+}
+
+#ifdef WITH_MAIN
+static void* slurp(const char* path, long* size) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return NULL;
+  fseek(f, 0, SEEK_END); *size = ftell(f); fseek(f, 0, SEEK_SET);
+  char* buf = (char*)malloc(*size + 1);
+  if (fread(buf, 1, *size, f) != (size_t)*size) return NULL;
+  buf[*size] = 0;
+  fclose(f);
+  return buf;
+}
+
+/* argv: symbol.json params input.bin out.bin n_out dev_type side */
+int main(int argc, char** argv) {
+  long js, ps, is;
+  char* json = (char*)slurp(argv[1], &js);
+  void* params = slurp(argv[2], &ps);
+  float* input = (float*)slurp(argv[3], &is);
+  if (!json || !params || !input) return 10;
+  mx_uint n_out = (mx_uint)atoi(argv[5]);
+  float* out = (float*)malloc(n_out * sizeof(float));
+  mx_uint side = (mx_uint)atoi(argv[7]);
+  mx_uint shape[] = {1, 3, side, side};
+  int rc = predict_once(json, params, (int)ps, atoi(argv[6]), shape, input,
+                        (mx_uint)(is / sizeof(float)), out, n_out);
+  if (rc) return rc;
+  FILE* f = fopen(argv[4], "wb");
+  fwrite(out, sizeof(float), n_out, f);
+  fclose(f);
+  return 0;
+}
+#endif
+"""
+
+
+def native_images(n, seed):
+    """``n`` images of NATIVE's size (HWC uint8, BGR as cv2 writes them) and
+    their labels: a colour a class plus uniform noise."""
+    rs = np.random.RandomState(seed)
+    colours = rs.randint(40, 216, (NATIVE["classes"], 1, 1, 3))
+    labels = rs.randint(0, NATIVE["classes"], n)
+    S = NATIVE["image_size"]
+    for i in range(n):
+        noise = rs.randint(-NATIVE["noise"], NATIVE["noise"] + 1, (S, S, 3))
+        yield np.clip(colours[labels[i]] + noise, 0, 255).astype(np.uint8), int(labels[i])
+
+
+def build_native_libraries():
+    """Every host library from the checkout into build/torch_native: path and
+    seconds each. The engine, io and the two C ABIs must build; the image
+    pipeline builds where libjpeg's and libpng's headers are (its missing
+    prerequisites are returned)."""
+    from mxnet_tpu_torch import _native_build as nb
+
+    built, missing = {}, nb.missing_prerequisites("image")
+    for name in nb.LIBS:
+        if name == "image" and missing:
+            continue
+        t0 = time.perf_counter()
+        path = nb.build(name, raise_errors=True)
+        built[name] = {"path": os.path.relpath(path), "seconds": time.perf_counter() - t0}
+    return built, missing
+
+
+def compile_c(src_text, workdir, name, lib, shared):
+    """gcc the phase's own C source against include/mxtpu and ``lib``."""
+    src = os.path.join(workdir, name + ".c")
+    with open(src, "w") as f:
+        f.write(src_text)
+    out = os.path.join(workdir, ("lib%s.so" % name) if shared else name)
+    flags = ["-shared", "-fPIC"] if shared else ["-DWITH_MAIN"]
+    subprocess.run(["gcc", *flags, src, "-I", "include", "-o", out, lib,
+                    "-Wl,-rpath," + os.path.dirname(os.path.abspath(lib)), "-lm"],
+                   check=True, capture_output=True, text=True)
+    return out
+
+
+def run_native(pt, smi):
+    """Phase 18: the native runtime. Returns its launches by kernel (the
+    .rec-fed ResNet-50 fits, the C training ABI's LeNet, the predict ABI's
+    ResNet-50)."""
+    import ctypes
+
+    from mxnet_tpu_torch import (c_api, engine, image, io_native, models, ops, predict_api,
+                                 recordio, telemetry)
+    from mxnet_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # conv0 and the stride-2 3x3s: the same bits
+    saved_mode = telemetry.current_override()
+    telemetry.set_mode("counters")
+    root = tempfile.mkdtemp(prefix="mxnet-native-")
+    launches = {}
+    try:
+        # --- 1. the host libraries, and what the image path can use
+        t0 = time.perf_counter()
+        built, missing = build_native_libraries()
+        codecs = {}
+        for mod in ("cv2", "PIL"):
+            try:
+                codecs[mod] = __import__(mod).__version__
+            except ImportError:
+                pass
+        log({"phase": "native", "part": "build", "libraries": built,
+             "image_pipeline_missing": missing, "codecs": codecs,
+             "seconds": time.perf_counter() - t0})
+        if missing:
+            log({"phase": "native", "part": "prerequisites",
+                 "missing": "the native image pipeline (src/image_native.cc) needs %s, which "
+                            "this host lacks; ImageRecordIter decodes through %s"
+                            % (" and ".join(missing), ", ".join(codecs) or "nothing")})
+        check(codecs, "no cv2 and no PIL: nothing can write or read the JPEG records")
+
+        # raw records through MXIndexedRecordIO and NativePrefetchReader
+        rs = np.random.RandomState(SEED + 80)
+        raw = [rs.bytes(int(rs.randint(1, 4096))) for _ in range(64)]
+        raw_rec = recordio.MXIndexedRecordIO(os.path.join(root, "raw.idx"),
+                                             os.path.join(root, "raw.rec"), "w")
+        for i, payload in enumerate(raw):
+            raw_rec.write_idx(i, recordio.pack((0, np.float32(i), i, 0), payload))
+        raw_rec.close()
+        got = [recordio.unpack(r)[1] for r in
+               io_native.NativePrefetchReader(os.path.join(root, "raw.rec"), 8)]
+        check(got == raw, "NativePrefetchReader did not return the raw records")
+
+        # --- 2. the .rec pack and the iterator
+        t0 = time.perf_counter()
+        rec_path, idx_path = os.path.join(root, "train.rec"), os.path.join(root, "train.idx")
+        rec = recordio.MXIndexedRecordIO(idx_path, rec_path, "w")
+        for i, (img, label) in enumerate(native_images(NATIVE["images"], SEED + 81)):
+            rec.write_idx(i, recordio.pack_img((0, float(label), i, 0), img,
+                                               quality=NATIVE["quality"]))
+        rec.close()
+        pack_s = time.perf_counter() - t0
+        B, epochs = NATIVE["batch"], NATIVE["epochs"]
+        steps_per_epoch = NATIVE["images"] // B
+        mr, mg, mb = NATIVE["mean"]
+        iter_args = dict(data_shape=image_shape(), batch_size=B, shuffle=True, rand_crop=True,
+                         rand_mirror=True, mean_r=mr, mean_g=mg, mean_b=mb,
+                         preprocess_threads=NATIVE["threads"], path_imgidx=idx_path)
+        with pt.gpu(0):
+            train = image.ImageRecordIter(rec_path, **iter_args)
+        check(train.native == (not missing),
+              ("the iterator's path", "native" if train.native else "python", missing))
+        path = "native" if train.native else "python"
+
+        # one unaugmented batch, native against the Python path
+        if train.native:
+            plain = dict(data_shape=image_shape(), batch_size=B, mean_r=mr, mean_g=mg,
+                         mean_b=mb, preprocess_threads=NATIVE["threads"],
+                         path_imgidx=idx_path)
+            with pt.gpu(0):
+                a = image.ImageRecordIter(rec_path, **plain).next().data[0].asnumpy()
+                with env_vars(MXNET_NATIVE_IMAGE_PIPELINE="0"):
+                    b = image.ImageRecordIter(rec_path, **plain).next().data[0].asnumpy()
+            diff = np.abs(a - b)
+            decode = {"mean_abs": float(diff.mean()), "max_abs": float(diff.max()),
+                      **NATIVE_DECODE_TOL}
+            check(decode["mean_abs"] < NATIVE_DECODE_TOL["mean"]
+                  and decode["max_abs"] < NATIVE_DECODE_TOL["max"],
+                  ("native vs Python decode", decode))
+        else:
+            decode = "not run: the native pipeline is not built on this host"
+
+        # --- 3. ResNet-50 through Module.fit from the iterator, epoch
+        # checkpoints through the engine
+        net = resnet.get_symbol(**RESNET)
+        args, aux = resnet_values(net)
+        opt_params = (("learning_rate", RESNET_TRAIN["lr"]),
+                      ("momentum", RESNET_TRAIN["momentum"]),
+                      ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+        prefix = os.path.join(root, "resnet")
+        engine.set_engine_type("ThreadedEngine")
+        check(engine.get().native, "the ThreadedEngine is not the native one")
+        losses, stamps = [], []
+
+        def at_batch_end(param):
+            prob = param.locals["self"].get_outputs()[0]._tensor()
+            lab = param.locals["data_batch"].label[0]._tensor().long().reshape(-1, 1)
+            losses.append(float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean()))
+            stamps.append(time.perf_counter())
+
+        def save_states(epoch, *_):
+            mod_a.save_optimizer_states("%s-%04d.states" % (prefix, epoch + 1))
+
+        mod_a = pt.mod.Module(net, context=pt.gpu(0))
+        telemetry.reset()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with env_vars(MXNET_MODULE_FUSED_STEP="1"):
+            mod_a.fit(train, eval_metric="acc", optimizer="sgd", optimizer_params=opt_params,
+                      arg_params=args, aux_params=aux, num_epoch=epochs,
+                      batch_end_callback=at_batch_end,
+                      epoch_end_callback=[pt.callback.do_checkpoint(prefix), save_states])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = ops.launch_counts()
+        input_bound = telemetry.gauge("io.input_bound_pct").value
+        steps = steps_per_epoch * epochs
+        check(mod_a._spmd is not None, "Module.fit: the fused step is not active")
+        check(fit_launches == with_zeros({"conv_bn": RESNET_SITES * steps,
+                                          "conv_bn_bwd": RESNET_SITES * steps}),
+              ("the .rec-fed fit's launch counts", fit_launches))
+        first = float(np.mean(losses[:steps_per_epoch]))
+        last = float(np.mean(losses[-steps_per_epoch:]))
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses) and last < first,
+              ("the .rec-fed fit's loss did not fall", losses))
+        launches["resnet_fit"] = {k: fit_launches[k] for k in ("conv_bn", "conv_bn_bwd")}
+        # the second epoch (the step captured): host time between batch ends,
+        # the first of them across the epoch boundary (its checkpoint, the
+        # optimizer states, the iterator's reset)
+        gaps = np.diff(stamps[steps_per_epoch - 1:]) * 1e3
+        epoch2_s = stamps[-1] - stamps[steps_per_epoch - 1]
+
+        # the engine-queued checkpoint: drained by waitall, bitwise the module
+        pt.nd.waitall()
+        check(pt.model.find_last_checkpoint(prefix) == epochs, "epoch checkpoints missing")
+        _, ck_args, ck_aux = pt.model.load_checkpoint(prefix, epochs, ctx=pt.cpu())
+        (fa, fx) = module_arrays(mod_a)
+        check(sorted(ck_args) == sorted(fa) and sorted(ck_aux) == sorted(fx)
+              and all(np.array_equal(ck_args[k].asnumpy(), fa[k]) for k in fa)
+              and all(np.array_equal(ck_aux[k].asnumpy(), fx[k]) for k in fx),
+              "load_checkpoint(prefix, 2) is not get_params() bitwise")
+
+        # --- 4. one more epoch: continued, and resumed from the checkpoint
+        cont_x, cont_y = [], []
+        train.reset()
+        for batch in train:
+            cont_x.append(batch.data[0].asnumpy())
+            cont_y.append(batch.label[0].asnumpy())
+        with pt.gpu(0):
+            cont = pt.io.NDArrayIter(np.concatenate(cont_x), np.concatenate(cont_y),
+                                     batch_size=B, shuffle=False)
+
+        def one_more(mod):
+            cont.reset()
+            ops.reset_launch_counts()
+            with env_vars(MXNET_MODULE_FUSED_STEP="1"):
+                mod.fit(cont, eval_metric="acc", optimizer="sgd", optimizer_params=opt_params,
+                        begin_epoch=epochs, num_epoch=epochs + 1)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            check(got == with_zeros({"conv_bn": RESNET_SITES * steps_per_epoch,
+                                     "conv_bn_bwd": RESNET_SITES * steps_per_epoch}),
+                  ("one more epoch's launch counts", got))
+            return {k: got[k] for k in ("conv_bn", "conv_bn_bwd")}
+
+        launches["resnet_continue"] = one_more(mod_a)
+        begin, r_args, r_aux = pt.model.resume_or_init(prefix, ctx=pt.cpu())
+        check(begin == epochs, ("resume_or_init's epoch", begin))
+        mod_b = pt.mod.Module(net, context=pt.gpu(0))
+        mod_b.bind(data_shapes=cont.provide_data, label_shapes=cont.provide_label)
+        mod_b.init_params(arg_params=r_args, aux_params=r_aux)
+        with env_vars(MXNET_MODULE_FUSED_STEP="1"):
+            mod_b.init_optimizer(optimizer="sgd", optimizer_params=opt_params)
+        mod_b.load_optimizer_states("%s-%04d.states" % (prefix, begin))
+        launches["resnet_resume"] = one_more(mod_b)
+        (ra, rx), (ca, cx) = module_arrays(mod_b), module_arrays(mod_a)
+        name, rel, absd = worst_rel({**ra, **rx}, {**ca, **cx})
+        bitwise = all(np.array_equal(ra[k], ca[k]) for k in ca) and \
+            all(np.array_equal(rx[k], cx[k]) for k in cx)
+        check(bitwise, ("resumed vs continued", name, rel, absd))
+
+        # the card's idle share: steps fed by the iterator, and by one fixed
+        # batch (phase 15's kind of window), on the trained module
+        train.reset()
+        fixed = next(iter(cont))
+
+        def fed(k=NATIVE["profile_steps"]):
+            for _ in range(k):
+                try:
+                    batch = train.next()
+                except StopIteration:
+                    train.reset()
+                    batch = train.next()
+                mod_a.forward_backward(batch)
+                mod_a.update()
+
+        def synthetic(k=NATIVE["profile_steps"]):
+            for _ in range(k):
+                mod_a.forward_backward(fixed)
+                mod_a.update()
+
+        windows = {}
+        for kind, fn in (("iterator", fed), ("fixed_batch", synthetic)):
+            prof = profile_window(fn, per=NATIVE["profile_steps"])
+            windows[kind] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                  "device_idle_share", "port_kernels_ms")}
+
+        # save_checkpoint's return against its write landing
+        latency = []
+        for i in range(NATIVE["latency_saves"]):
+            t0 = time.perf_counter()
+            pt.model.save_checkpoint(prefix + "-latency", i + 1, None, *mod_a.get_params())
+            returned = time.perf_counter()
+            pt.model.find_last_checkpoint(prefix + "-latency")
+            latency.append({"return_ms": (returned - t0) * 1e3,
+                            "landed_ms": (time.perf_counter() - t0) * 1e3})
+        out = {"phase": "native", "part": "resnet_rec_fit", "nvidia_smi": smi, "path": path,
+               "images": NATIVE["images"], "batch": B, "epochs": epochs, "steps": steps,
+               "pack_s": pack_s, "rec_bytes": os.path.getsize(rec_path), "fit_s": fit_s,
+               "fit_launches": {k: v for k, v in fit_launches.items() if v},
+               "loss_first_epoch": first, "loss_last_epoch": last,
+               "images_per_s_epoch2": B * steps_per_epoch / epoch2_s,
+               "images_per_s_within_epoch": 1e3 * B / float(np.median(gaps[1:])),
+               "host_step_ms": {"p50": float(np.percentile(gaps[1:], 50)),
+                                "p80": float(np.percentile(gaps[1:], 80)),
+                                "epoch_boundary": float(gaps[0]), "all": gaps.tolist()},
+               "input_bound_pct": input_bound, "profiler_windows": windows,
+               "decode_native_vs_python": decode, "checkpoint_bitwise": True,
+               "resumed_vs_continued": {"bitwise": bitwise, "worst_array": name,
+                                        "max_rel": rel, "max_abs": absd},
+               "save_checkpoint_latency": latency,
+               "engine": type(engine.get()).__name__}
+        log(out)
+        del mod_b, cont, train
+
+        # --- 5. the C training ABI: LeNet at dev_type=2
+        work = os.path.join(root, "c")
+        os.makedirs(work)
+        with open(os.path.join(work, "lenet-symbol.json"), "w") as f:
+            f.write(models.lenet.get_symbol(num_classes=10).tojson())
+        dev_type = NATIVE["dev_type"]
+        c_lib = c_api.build()
+        train_so = ctypes.CDLL(compile_c(C_NATIVE_TRAIN, work, "native_train", c_lib, True))
+        train_so.train_lenet.restype = ctypes.c_int
+        train_so.train_lenet.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
+        n_steps = NATIVE["c_train_steps"]
+        c_losses = (ctypes.c_float * n_steps)()
+        with open(os.path.join(work, "lenet-symbol.json"), "rb") as f:
+            lenet_json = f.read()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = train_so.train_lenet(lenet_json, dev_type, NATIVE["c_train_batch"], n_steps,
+                                  c_losses)
+        torch.cuda.synchronize()
+        c_train_s = time.perf_counter() - t0
+        c_launches = ops.launch_counts()
+        c_losses = [float(v) for v in c_losses]
+        check(rc == 0, ("the C training program failed", rc))
+        check(all(math.isfinite(v) for v in c_losses) and c_losses[-1] < c_losses[0],
+              ("the C training ABI's loss did not fall", c_losses))
+        check(c_launches == with_zeros({"matmul_bias_act": MNIST_SITES["lenet"] * n_steps}),
+              ("the C training ABI's launch counts", c_launches))
+        launches["c_train_abi"] = {"matmul_bias_act": c_launches["matmul_bias_act"]}
+
+        # --- 6. the C predict ABI: ResNet-50 from the fit's .params at batch 1
+        p_lib = predict_api.build()
+        pred_so = ctypes.CDLL(compile_c(C_NATIVE_PREDICT, work, "native_predict", p_lib, True))
+        pred_so.predict_once.restype = ctypes.c_int
+        P = ctypes.POINTER
+        pred_so.predict_once.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+                                         ctypes.c_int, P(ctypes.c_uint32), P(ctypes.c_float),
+                                         ctypes.c_uint32, P(ctypes.c_float), ctypes.c_uint32]
+        with open("%s-symbol.json" % prefix, "rb") as f:
+            sym_json = f.read()
+        params_path = "%s-%04d.params" % (prefix, epochs)
+        with open(params_path, "rb") as f:
+            params = f.read()
+        side = image_shape()[1]
+        o = (NATIVE["image_size"] - side) // 2
+        x = next(native_images(1, SEED + 82))[0][o:o + side, o:o + side, ::-1].transpose(2, 0, 1)
+        x = ((x - np.array(NATIVE["mean"], np.float32).reshape(3, 1, 1))[None]
+             .astype(np.float32).copy())
+        n_out = NATIVE["classes"]
+        got = np.zeros(n_out, np.float32)
+        shape = (ctypes.c_uint32 * 4)(*x.shape)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rc = pred_so.predict_once(sym_json, params, len(params), dev_type, shape,
+                                  x.ctypes.data_as(P(ctypes.c_float)), x.size,
+                                  got.ctypes.data_as(P(ctypes.c_float)), n_out)
+        torch.cuda.synchronize()
+        p_launches = ops.launch_counts()
+        check(rc == 0, ("the C predict program failed", rc))
+        # MXPredCreate binds and warms the executable with one forward
+        # (serving/cache.py), MXPredForward runs the second
+        check(p_launches == with_zeros({"conv_bn_infer": 2 * RESNET_SITES}),
+              ("the predict ABI's launch counts", p_launches))
+        launches["predict_abi"] = {"conv_bn_infer": p_launches["conv_bn_infer"]}
+        pred = pt.predictor.Predictor(sym_json.decode(), params, {"data": x.shape})
+        pred.forward(data=x)
+        want = pred.get_output(0).reshape(-1)
+        check(np.allclose(got, want, **NATIVE_PREDICT_TOL),
+              ("predict ABI vs Predictor", float(np.abs(got - want).max())))
+        # the same program as an executable: an embedded interpreter on the card
+        exe = compile_c(C_NATIVE_PREDICT, work, "native_predict_main", p_lib, False)
+        x.tofile(os.path.join(work, "input.bin"))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.abspath(".")] + [p for p in sys.path if p]))
+        env.pop("MXNET_DEFAULT_CONTEXT", None)
+        t0 = time.perf_counter()
+        r = subprocess.run([exe, "%s-symbol.json" % prefix, params_path,
+                            os.path.join(work, "input.bin"), os.path.join(work, "out.bin"),
+                            str(n_out), str(dev_type), str(side)], capture_output=True,
+                           text=True, env=env,
+                           timeout=300)
+        embedded_s = time.perf_counter() - t0
+        check(r.returncode == 0, ("the embedded predict program", r.returncode,
+                                  r.stderr[-800:]))
+        embedded = np.fromfile(os.path.join(work, "out.bin"), np.float32)
+        check(np.allclose(embedded, want, **NATIVE_PREDICT_TOL),
+              ("embedded predict vs Predictor", float(np.abs(embedded - want).max())))
+        log({"phase": "native", "part": "c_abis", "nvidia_smi": smi,
+             "c_train": {"dev_type": dev_type, "batch": NATIVE["c_train_batch"],
+                         "steps": n_steps,
+                         "loss_first": c_losses[0], "loss_last": c_losses[-1],
+                         "seconds": c_train_s,
+                         "launches": {k: v for k, v in c_launches.items() if v},
+                         "counted": "in the smoke's process (ctypes)"},
+             "predict": {"dev_type": dev_type, "batch": 1,
+                         "max_abs_vs_predictor": float(np.abs(got - want).max()),
+                         "launches": {k: v for k, v in p_launches.items() if v},
+                         "counted": "in the smoke's process (ctypes)",
+                         "embedded_process": {"max_abs_vs_predictor":
+                                              float(np.abs(embedded - want).max()),
+                                              "seconds": embedded_s}},
+             **NATIVE_PREDICT_TOL})
+    finally:
+        engine.set_engine_type(os.environ.get("MXNET_ENGINE_TYPE", "ThreadedEnginePerDevice"))
+        telemetry.set_mode(saved_mode)
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log({"phase": "native", "part": "summary", "seconds": seconds,
+         "budget_s": NATIVE["budget_s"], "within_budget": seconds <= NATIVE["budget_s"],
+         "launches": launches})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -6662,6 +7284,7 @@ def main():
     fused_launches = run_fused_step(pt, smi, lstm_tokens_per_s)
     checkpoint_launches = run_checkpoint(pt, smi)
     planner_launches = run_planner(pt, smi)
+    native_launches = run_native(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -6715,6 +7338,14 @@ def main():
         planned = {k: v[name_] for k, v in planner_launches.items() if v.get(name_)}
         if planned:
             e.update(planner_launches=planned)
+        # the native-runtime phase's card runs: the .rec-fed ResNet-50 fits
+        # (8, 9), the C training ABI's LeNet (6), the predict ABI's
+        # ResNet-50 (8, stats-free)
+        native = {k: v.get(name_ if k != "predict_abi" else name_ + "_infer")
+                  for k, v in native_launches.items()}
+        native = {k: v for k, v in native.items() if v}
+        if native:
+            e.update(native_launches=native)
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

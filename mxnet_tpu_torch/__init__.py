@@ -12,7 +12,13 @@ Entry points run on ``gpu(0)`` (CUDA) unless the caller passes
 The port computes in float32 throughout, as the JAX serving path does. So
 that a float32 product on the card is a float32 product, TF32 is switched
 off for both matmuls and cuDNN here, when the package is imported.
+
+The native runtime (``engine``, ``recordio``, ``io_native``,
+``image_native``, ``image``, the C ABIs ``c_api``/``predict_api``) builds
+its host libraries with ``g++`` into ``build/torch_native/`` on first use.
 """
+__version__ = "0.1.0"
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,6 +51,9 @@ from . import rnn  # noqa: E402,F401
 from . import operator, autograd, test_utils  # noqa: E402,F401
 from .convert import (params_from_checkpoint, params_from_numpy,  # noqa: E402,F401
                       updater_states_from_numpy)
+from . import engine, recordio, log, libinfo  # noqa: E402,F401
+from . import image  # noqa: E402,F401
+from . import image as img  # noqa: E402,F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "AttrScope", "sym", "symbol",
            "nd", "ndarray", "ops", "optimizer", "models", "serving", "model", "predictor",
@@ -53,4 +62,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "AttrScope"
            "kvstore", "kv", "dist", "sparse",
            "device_info", "module", "mod", "parallel", "analysis", "rnn", "operator", "autograd", "test_utils",
            "params_from_numpy", "params_from_checkpoint",
-           "updater_states_from_numpy"]
+           "updater_states_from_numpy", "engine", "recordio", "image", "img", "log", "libinfo"]

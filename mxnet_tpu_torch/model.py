@@ -7,11 +7,17 @@ reference's two artifacts, ``<prefix>-symbol.json`` and
 ``<prefix>-NNNN.params``, in the reference's binary layout, so a checkpoint
 either package saved loads in the other.
 
-The write here is synchronous and atomic (a temporary file, then
-``os.replace``): when ``save_checkpoint`` returns the file is whole, and a
-crash mid-write leaves the previous epoch's file intact. The JAX package
-queues the write on its execution engine (``model.py:59-124``); that waits
-for the port's ``engine.py``.
+``save_checkpoint`` copies the parameters to the host before it returns
+(the fused step's CUDA graph updates them in place at the next step), then
+pushes the disk write to the execution engine (``engine.py``) with a write
+variable on the prefix, as the JAX package does (``model.py:59-124``):
+under ``ThreadedEngine`` the write overlaps training, under
+``MXNET_ENGINE_TYPE=NaiveEngine`` it runs before the call returns. The
+write is atomic (a temporary file, then ``os.replace``), so a crash
+mid-write leaves the previous epoch's file intact. ``load_checkpoint``,
+``find_last_checkpoint`` (and so ``resume_or_init``) wait for the prefix's
+pending write and raise a failed earlier write's error; ``nd.waitall``
+drains every pending write.
 
 ``FeedForward`` (JAX :181-376; reference: model.py:387), the sklearn-style
 estimator, is a thin adapter over the port's ``Module``: ``fit``,
@@ -49,32 +55,88 @@ from .kvstore_helper import (  # noqa: E402
 )
 
 
+# per-prefix engine variables: successive epoch writes to one prefix are
+# serialized; readers (load/find_last_checkpoint) wait on the same var. Each
+# entry is (engine, var): vars do not survive set_engine_type, and a stale id
+# may alias a var the new engine issued, so the engine's identity decides
+# (the swap drained the old engine, so a stale entry is dropped)
+_ckpt_vars = {}
+# a failed write does not vanish: its error is raised at the next
+# save/load/find on the same prefix (and logged when it happens)
+_ckpt_errors = {}
+
+
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     """Write ``<prefix>-symbol.json`` (unless ``symbol`` is None) and
     ``<prefix>-<epoch:04d>.params`` holding ``arg:<name>`` and ``aux:<name>``
-    entries; the values are NDArrays or numpy arrays."""
+    entries; the values are NDArrays or numpy arrays.
+
+    The values are copied to the host now (the arrays may be updated in
+    place by the next step); the disk write is pushed through the execution
+    engine with a write variable on the prefix (the reference's
+    Engine::Push), so it overlaps training under ThreadedEngine."""
+    from . import engine
+    from .checkpoint import atomic_replace
+
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
     save_dict = {"arg:%s" % k: v for k, v in arg_params.items()}
     save_dict.update({"aux:%s" % k: v for k, v in aux_params.items()})
-    # numpy values take the host as their saved context, as the JAX package's
-    # host snapshot does
-    save_dict = {k: v if isinstance(v, nd.NDArray) else nd.array(v, ctx=cpu())
-                 for k, v in save_dict.items()}
+    # the host snapshot, on the CPU context, as the JAX package's
+    snap = {k: nd.array(v.asnumpy() if isinstance(v, nd.NDArray) else v, ctx=cpu())
+            for k, v in save_dict.items()}
+    for k, v in snap.items():
+        if v.ndim == 0:  # refused now, not by the queued write
+            raise MXNetError("cannot save 0-d NDArray %r in the .params format; reshape to "
+                             "(1,)" % k)
     param_name = "%s-%04d.params" % (prefix, epoch)
-    tmp = "%s.tmp.%d" % (param_name, os.getpid())
-    try:
-        nd.save(tmp, save_dict)
-        os.replace(tmp, param_name)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-    logging.info('Saved checkpoint to "%s"', param_name)
+    key = os.path.abspath(prefix)
+    _raise_pending_ckpt_error(key)
+    eng = engine.get()
+    entry = _ckpt_vars.get(key)
+    if entry is None or entry[0] is not eng:
+        _ckpt_vars[key] = (eng, eng.new_variable())
+    var = _ckpt_vars[key][1]
+
+    def write():
+        try:
+            with atomic_replace(param_name) as tmp:
+                nd.save(tmp, snap)
+            logging.info('Saved checkpoint to "%s"', param_name)
+        except Exception as exc:  # noqa: BLE001  (raised at the next save/load/find)
+            logging.error('checkpoint write to "%s" FAILED: %s', param_name, exc)
+            _ckpt_errors[key] = exc
+
+    eng.push(write, const_vars=(), mutable_vars=(var,))
+
+
+def _raise_pending_ckpt_error(key):
+    exc = _ckpt_errors.pop(key, None)
+    if exc is not None:
+        raise MXNetError("earlier async checkpoint write failed: %s" % exc) from exc
+
+
+def _wait_checkpoint_writes(prefix):
+    """Wait for ``prefix``'s pending checkpoint write and raise its error."""
+    from . import engine
+
+    key = os.path.abspath(prefix)
+    entry = _ckpt_vars.get(key)
+    if entry is not None:
+        eng, var = entry
+        if eng is engine.get():
+            eng.wait_for_var(var)
+        else:
+            # the engine was swapped since the push: set_engine_type drained
+            # the old one, so the write has landed
+            del _ckpt_vars[key]
+    _raise_pending_ckpt_error(key)
 
 
 def find_last_checkpoint(prefix):
-    """Latest saved epoch for ``prefix``, or None."""
+    """Latest saved epoch for ``prefix``, or None (after the prefix's
+    pending write has landed)."""
+    _wait_checkpoint_writes(prefix)
     best = None
     for path in glob.glob(glob.escape(prefix) + "-*.params"):
         m = re.search(r"-(\d{4,})\.params$", path)
@@ -98,7 +160,9 @@ def resume_or_init(prefix, ctx=None):
 def load_checkpoint(prefix, epoch, ctx=None):
     """(symbol, arg_params, aux_params) of a saved checkpoint, the params as
     NDArrays on ``ctx`` (default ``current_context()``, the GPU). A torn or
-    foreign params file raises an ``MXNetError`` that names the path."""
+    foreign params file raises an ``MXNetError`` that names the path. Waits
+    for the prefix's pending write first."""
+    _wait_checkpoint_writes(prefix)
     symbol = sym_mod.load("%s-symbol.json" % prefix)
     path = "%s-%04d.params" % (prefix, epoch)
     try:

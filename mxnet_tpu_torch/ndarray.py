@@ -1,12 +1,14 @@
 """NDArray: the imperative tensor API.
 
-Counterpart of ``mxnet_tpu/ndarray.py`` without its engine hooks: creation
-(``array``, ``empty``, ``zeros``, ``ones``, ``full``, ``arange``,
-``concatenate``, ``onehot_encode``), views, operators, ``imperative_invoke``,
-one module-level function per registered op, and ``save``/``load`` in the
+Counterpart of ``mxnet_tpu/ndarray.py``: creation (``array``, ``empty``,
+``zeros``, ``ones``, ``full``, ``arange``, ``concatenate``,
+``onehot_encode``), views, operators, ``imperative_invoke``, one
+module-level function per registered op, and ``save``/``load`` in the
 reference's ``.params`` layout. PyTorch runs each op as it is reached and
-returns before the card has finished, so ``waitall`` is
-``torch.cuda.synchronize``.
+returns before the card has finished, so ``waitall`` runs
+``torch.cuda.synchronize`` and then drains the host work queued on the
+execution engine (``engine.py``: checkpoint writes), as the JAX package's
+does.
 
 Views. ``reshape``, ``slice``, ``at`` and ``arr[i]``/``arr[a:b]`` share one
 ``_Chunk`` with their parent, as in the JAX package (reference: NDArray::Chunk,
@@ -545,10 +547,15 @@ def onehot_encode(indices, out):
 
 
 def waitall():
-    """Block until all pending work on the card is done (reference:
-    MXNDArrayWaitAll). CPU ops have finished when they return."""
-    if torch.cuda.is_available():
+    """Block until all pending work is done (reference: MXNDArrayWaitAll):
+    the card's (CPU ops have finished when they return), then the host work
+    queued on the execution engine, whose failures it raises."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    from . import engine
+
+    if engine._engine is not None:  # nothing was ever pushed without one
+        engine._engine.wait_for_all()
 
 
 # ---------------------------------------------------------------- serialization

@@ -245,9 +245,12 @@ def test_f4_graph_functions_registry_name_and_base_match_the_reference():
 #: (module, name) pairs whose signatures differ on purpose or wait for a
 #: queued item: the loaders' trailing ``ctx=`` and ``Rtc(block=)`` (CUDA
 #: side), the rewrite passes' arguments and NDArray's ``writable``
-#: (ROADMAP section 5), and fusion's internal marker, whose fields follow
-#: the port's kernels
+#: (ROADMAP section 5), fusion's internal marker, whose fields follow
+#: the port's kernels, the C ABI glue's ``zeros``, which takes the caller's
+#: ``dev_type``/``dev_id``, and ``_native_build.build_lib``'s ``deps`` and
+#: ``raise_errors`` (headers that rebuild, the compiler's message)
 SIGNATURE_EXCEPTIONS = {
+    ("_native_build", "build_lib"), ("c_api", "zeros"),
     ("analysis.rewrite", "rewrite"), ("analysis.rewrite", "rewrite_for_bind"),
     ("fusion", "PendingConv"), ("model", "load_checkpoint"), ("model", "resume_or_init"),
     ("ndarray", "NDArray"), ("ndarray", "load"),
@@ -335,7 +338,7 @@ def test_f5_a_with_block_wins_and_a_gpu_default_does_not_fall_back(monkeypatch):
 
 # ---------------------------------------------------------------- F6
 _TOOLING = "ROADMAP.md section 1.5 (tooling: fusion, profiler and lint families)"
-_FLEET = "ROADMAP.md section 1, item 6 (the serving fleet)"
+_FLEET = "ROADMAP.md section 1.6 (the serving fleet)"
 _NO_TPU = "the port targets no TPU"
 
 #: (module, name) of the reference's ``__all__`` that the port lacks, each
@@ -402,3 +405,42 @@ def test_f6_the_names_the_port_lacked_are_the_references():
         assert getattr(pt.ops, name) is getattr(pt.ops.registry, name)
     assert pt.base.string_types == mx.base.string_types
     assert pt.base.numeric_types == mx.base.numeric_types
+
+
+# ------------------------------------------------------------ module sweep
+_PALLAS = "the Pallas kernel file; its hand-written Hopper counterpart is %s"
+_UNUSED_TABLE = ("the Pallas conv+BN path's %s; the port's conv_bn kernels always engage "
+                 "and tile by their own schedule (ops/conv_bn.py), so it has no use")
+_RING = "ROADMAP.md section 1.8 (the rest: ring attention on P2P)"
+
+#: every module file of the reference that has no namesake in the port, with
+#: the port's name for it, the queued item it waits on, or why it never comes
+MODULE_EXCEPTIONS = {
+    "ops/pallas_attention.py": _PALLAS % "ops/flash_attention.py (csrc/flash_attention*.cu)",
+    "ops/pallas_norm_residual.py": _PALLAS % "ops/norm_residual.py (csrc/norm_residual.cu)",
+    "ops/pallas_matmul_bias_act.py": _PALLAS % "ops/matmul_bias_act.py (csrc/matmul_bias_act.cu)",
+    "ops/pallas_matmul_stats.py": _PALLAS % "ops/matmul_stats.py (csrc/matmul_stats.cu)",
+    "ops/pallas_conv_bn.py": _PALLAS % "ops/conv_bn.py (csrc/conv_bn.cu, csrc/conv_bn_bwd.cu)",
+    "ops/conv_bn_bytes.py": _UNUSED_TABLE % "analytic HBM byte model",
+    "ops/fused_conv_bn_table.py": _UNUSED_TABLE % "per-shape engage table",
+    **{f: _FLEET for f in ("serving/fleet/__init__.py", "serving/fleet/rpc.py",
+                           "serving/fleet/replica.py", "serving/fleet/supervisor.py",
+                           "serving/fleet/router.py", "telemetry/cli.py")},
+    **{f: _TOOLING for f in ("fusion_tune.py", "profiler.py", "visualization.py",
+                             "analysis/cli.py", "analysis/concurrency_lint.py",
+                             "analysis/dispatch_lint.py", "analysis/engine_race.py",
+                             "analysis/fusion_explain.py")},
+    "parallel/ring_attention.py": _RING,
+}
+
+
+def test_every_reference_module_has_a_namesake_in_the_port_or_is_named():
+    from pathlib import Path
+
+    ref, port = Path(mx.__file__).parent, Path(pt.__file__).parent
+    missing = {str(p.relative_to(ref)) for p in ref.rglob("*.py")
+               if not (port / p.relative_to(ref)).is_file()}
+    want = set(MODULE_EXCEPTIONS)
+    assert missing == want, ("modules without a namesake: %s; ported, to remove from "
+                             "MODULE_EXCEPTIONS: %s" % (sorted(missing - want),
+                                                        sorted(want - missing)))

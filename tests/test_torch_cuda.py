@@ -639,6 +639,7 @@ def test_predictor_on_the_card_matches_the_cpu(dev, tmp_path):
            for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
     prefix = str(tmp_path / "r18")
     pt.model.save_checkpoint(prefix, 3, net, args, aux)
+    pt.nd.waitall()  # the write is queued on the engine
     json_str, blob = open(prefix + "-symbol.json").read(), open(prefix + "-0003.params", "rb").read()
     x = rs.standard_normal((2, 3, 32, 32)).astype(np.float32)
     outs = []
@@ -1620,3 +1621,89 @@ def test_conv_block_sharded_on_one_nccl_rank_is_bitwise_conv_block(dev):
     for a, b in zip(results[0][0], results[1][0]):
         assert torch.equal(a, b)
     assert results[0][1]["conv_bn"] == results[0][1]["conv_bn_bwd"] == 1
+
+
+# ------------------------------------------------------------ native runtime
+def _image_pack(tmp_path, n=20, size=40):
+    from mxnet_tpu_torch import recordio
+
+    rs = np.random.RandomState(0)
+    rec = recordio.MXIndexedRecordIO(str(tmp_path / "p.idx"), str(tmp_path / "p.rec"), "w")
+    for i in range(n):
+        img = rs.randint(0, 255, (size, size, 3), np.uint8)
+        rec.write_idx(i, recordio.pack_img((0, float(i), i, 0), img))
+    rec.close()
+    return str(tmp_path / "p.rec"), str(tmp_path / "p.idx")
+
+
+def test_image_batches_reach_the_card_through_two_page_locked_buffers(dev, tmp_path):
+    """ImageRecordIter on the card writes each batch into one of two
+    page-locked buffers in turn and copies it without blocking: the batches
+    on the card equal the CPU iterator's (whichever decode path runs), and
+    a batch stays whole after its buffer was written again."""
+    from mxnet_tpu_torch import image
+
+    rec, idx = _image_pack(tmp_path)
+    kw = dict(data_shape=(3, 32, 32), batch_size=4, mean_r=120.0, mean_g=110.0,
+              mean_b=100.0, preprocess_threads=1, path_imgidx=idx)
+    with pt.gpu(0):
+        it = image.ImageRecordIter(rec, **kw)
+        card = [b for b in it]
+    with pt.cpu():
+        host = [b for b in image.ImageRecordIter(rec, **kw)]
+    staging = it._staging
+    assert staging is not None and staging._pinned
+    assert all(t.is_pinned() for bufs in staging._sets for t in bufs)
+    assert staging._sets[0][0].data_ptr() != staging._sets[1][0].data_ptr()
+    assert len(card) == len(host) == 5
+    for c, h in zip(card, host):
+        assert c.data[0].context == pt.gpu(0) and c.label[0].context == pt.gpu(0)
+        np.testing.assert_array_equal(c.data[0].asnumpy(), h.data[0].asnumpy())
+        np.testing.assert_array_equal(c.label[0].asnumpy(), h.label[0].asnumpy())
+
+
+def test_c_abis_at_dev_type_2_place_arrays_and_predictors_on_the_card(dev, tmp_path):
+    """Driven in this process through ctypes: ``MXNDArrayCreate`` at
+    dev_type 2 makes an array on the card, 1 on the CPU; ``MXPredCreate``
+    at dev_type 2 serves on the card, equal to the in-process Predictor."""
+    import ctypes
+
+    from mxnet_tpu_torch import c_api, predict_api
+
+    lib = ctypes.CDLL(c_api.build())
+    lib.MXNDArrayCreate.argtypes = [ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_void_p)]
+    lib.MXGetLastError.restype = ctypes.c_char_p
+    for dev_type, want in ((2, pt.gpu(0)), (1, pt.cpu())):
+        handle = ctypes.c_void_p()
+        assert lib.MXNDArrayCreate((ctypes.c_uint32 * 2)(2, 3), 2, dev_type, 0, 0,
+                                   ctypes.byref(handle)) == 0, lib.MXGetLastError()
+        arr = ctypes.cast(handle, ctypes.POINTER(ctypes.py_object))[0]  # the handle's array
+        assert arr.context == want and arr.shape == (2, 3)
+        assert lib.MXNDArrayFree(handle) == 0
+
+    rs = np.random.RandomState(0)
+    net = pt.sym.SoftmaxOutput(pt.sym.FullyConnected(pt.sym.Variable("data"), num_hidden=5,
+                                                     name="fc"), name="softmax")
+    pt.nd.save(str(tmp_path / "m.params"),
+               {"arg:fc_weight": pt.nd.array(rs.randn(5, 8).astype(np.float32), ctx=pt.cpu()),
+                "arg:fc_bias": pt.nd.array(rs.randn(5).astype(np.float32), ctx=pt.cpu())})
+    params = (tmp_path / "m.params").read_bytes()
+    x = rs.rand(4, 8).astype(np.float32)
+    plib = ctypes.CDLL(predict_api.build())
+    handle = ctypes.c_void_p()
+    keys = (ctypes.c_char_p * 1)(b"data")
+    assert plib.MXPredCreate(net.tojson().encode(), params, len(params), 2, 0, 1, keys,
+                             (ctypes.c_uint32 * 2)(0, 2), (ctypes.c_uint32 * 2)(4, 8),
+                             ctypes.byref(handle)) == 0
+    pred = ctypes.cast(handle, ctypes.POINTER(ctypes.py_object))[0]
+    assert pred._ctx == pt.gpu(0)
+    assert plib.MXPredSetInput(handle, b"data", x.ctypes.data_as(ctypes.c_void_p), x.size) == 0
+    assert plib.MXPredForward(handle) == 0
+    got = np.zeros((4, 5), np.float32)
+    assert plib.MXPredGetOutput(handle, 0, got.ctypes.data_as(ctypes.c_void_p), got.size) == 0
+    assert plib.MXPredFree(handle) == 0
+    want = pt.predictor.Predictor(net.tojson(), params, {"data": (4, 8)})
+    want.forward(data=x)
+    np.testing.assert_allclose(got, want.get_output(0), rtol=1e-5, atol=1e-6)

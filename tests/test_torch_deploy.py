@@ -231,6 +231,7 @@ def test_save_checkpoint_writes_what_the_reference_writes(tmp_path):
     net = pt.sym.load_json(json_str)
     # numpy values and NDArrays on cpu(): the same bytes as the JAX package's file
     pt.model.save_checkpoint(out, 7, net, args, {k: pt.nd.array(v, ctx=CPU) for k, v in aux.items()})
+    pt.nd.waitall()  # the write is queued on the engine, as the JAX package's
     assert open(out + "-0007.params", "rb").read() == blob
     assert open(out + "-symbol.json").read() == json_str
     assert not list(tmp_path.glob("port*.tmp.*"))  # the temporary file was renamed

@@ -9,7 +9,17 @@ close and the latch. Each package answers with its own error types and
 counters; the cases check that both give the same outputs (within rtol
 1e-5, atol 1e-6 of each other and of numpy), the same error classes by
 name and the same ``health()`` keys and states.
+
+The execution engine (``mxnet_tpu_torch/engine.py``) follows: the cases of
+the reference's ``tests/test_engine.py`` run on the port's three backends
+(``NaiveEngine``, the native ``ThreadedEngine`` over ``src/engine_native.cc``
+built into ``build/torch_native/``, and the Python pool), and the
+engine-queued ``model.save_checkpoint`` writes the bytes the JAX package's
+writes for the same parameters on ``cpu()``, drained by ``nd.waitall``.
 """
+import os
+import random
+import sys
 import threading
 import time
 
@@ -554,3 +564,203 @@ def test_serve_errors_pickle_with_their_fields(err):
         fields[name] = (type(e).__name__, str(back), getattr(back, "queued_ms", None),
                         getattr(back, "retry_after_ms", None))
     assert fields["jax"] == fields["torch"]
+
+
+# ------------------------------------------------------- execution engine
+from mxnet_tpu_torch import engine as peng  # noqa: E402
+
+
+@pytest.fixture(params=["native", "python", "naive"])
+def make_engine(request):
+    def factory():
+        if request.param == "naive":
+            return peng.NaiveEngine()
+        if request.param == "native":
+            e = peng.ThreadedEngine(num_workers=4)
+            assert e.native, "src/engine_native.cc did not build"
+            return e
+        return peng._PythonThreadedEngine(4)
+
+    return factory
+
+
+def test_native_engine_library_builds_into_the_ports_directory():
+    e = peng.ThreadedEngine(num_workers=2)
+    assert e.native and peng._lib._name.endswith("build/torch_native/libmxtpu_engine.so")
+
+
+def test_writers_serialize_in_push_order(make_engine):
+    e = make_engine()
+    v = e.new_variable()
+    log = []
+    for i in range(50):
+        e.push((lambda i=i: log.append(i)), const_vars=[], mutable_vars=[v])
+    e.wait_for_var(v)
+    assert log == list(range(50))
+
+
+def test_reader_sees_preceding_writes(make_engine):
+    e = make_engine()
+    v = e.new_variable()
+    state = {"n": 0}
+    observed = []
+
+    def writer():
+        time.sleep(0.001)
+        state["n"] += 1
+
+    for i in range(10):
+        e.push(writer, const_vars=[], mutable_vars=[v])
+        e.push((lambda i=i: observed.append((i, state["n"]))), const_vars=[v], mutable_vars=[])
+    e.wait_for_all()
+    assert observed == [(i, i + 1) for i in range(10)]
+
+
+def test_readers_run_concurrently(make_engine):
+    e = make_engine()
+    if isinstance(e, peng.NaiveEngine):
+        pytest.skip("the naive engine is serial by design")
+    v = e.new_variable()
+    barrier = threading.Barrier(3, timeout=10)
+    for _ in range(3):
+        e.push(barrier.wait, const_vars=[v], mutable_vars=[])  # deadlocks unless 3 overlap
+    e.wait_for_all()
+
+
+def test_disjoint_vars_run_independently(make_engine):
+    e = make_engine()
+    va, vb = e.new_variable(), e.new_variable()
+    log_a, log_b = [], []
+    for i in range(20):
+        e.push((lambda i=i: log_a.append(i)), mutable_vars=[va])
+        e.push((lambda i=i: log_b.append(i)), mutable_vars=[vb])
+    e.wait_for_all()
+    assert log_a == list(range(20)) and log_b == list(range(20))
+
+
+def test_random_workload_dependency_consistency(make_engine):
+    """A random DAG of 120 ops over 6 vars, the switch interval shortened:
+    each var's log is its writers in push order, and every op reads the
+    state its pushes promised."""
+    e = make_engine()
+    rng = random.Random(0)
+    vars_ = [e.new_variable() for _ in range(6)]
+    logs = {v: [] for v in vars_}
+    expected = {v: [] for v in vars_}
+    snapshots = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for op_id in range(120):
+            muts = rng.sample(vars_, rng.randint(0, 2))
+            consts = [v for v in rng.sample(vars_, rng.randint(0, 3)) if v not in muts]
+            want = {v: len(expected[v]) for v in consts}
+            for v in muts:
+                expected[v].append(op_id)
+
+            def fn(op_id=op_id, muts=tuple(muts), consts=tuple(consts), want=dict(want)):
+                snapshots.append((op_id, {v: len(logs[v]) for v in consts}, want))
+                for v in muts:
+                    logs[v].append(op_id)
+
+            e.push(fn, const_vars=consts, mutable_vars=muts)
+        e.wait_for_all()
+    finally:
+        sys.setswitchinterval(interval)
+    assert logs == expected
+    for op_id, snap, want in snapshots:
+        assert snap == want, "op %d read stale or future state" % op_id
+
+
+def test_wait_for_var_blocks_until_drained_and_unknown_vars_raise(make_engine):
+    e = make_engine()
+    v = e.new_variable()
+    done = []
+    e.push(lambda: (time.sleep(0.05), done.append(1)), mutable_vars=[v])
+    e.wait_for_var(v)
+    assert done == [1]
+    with pytest.raises(pt.MXNetError, match="unknown engine variable"):
+        e.wait_for_var(10 ** 9)
+
+
+@pytest.mark.parametrize("kind", ["native", "python"])
+def test_engine_error_surfaces_at_the_wait(kind):
+    e = peng.ThreadedEngine(num_workers=2) if kind == "native" else peng._PythonThreadedEngine(2)
+    v = e.new_variable()
+    e.push(lambda: 1 / 0, mutable_vars=[v])
+    with pytest.raises(pt.MXNetError, match="engine op failed"):
+        e.wait_for_all()
+
+
+def test_engine_type_selection_and_telemetry(monkeypatch):
+    monkeypatch.setenv("MXNET_ENGINE_TYPE", "NaiveEngine")
+    monkeypatch.setattr(peng, "_engine", None)
+    assert isinstance(peng.get(), peng.NaiveEngine)
+    e = peng.set_engine_type("ThreadedEnginePerDevice")
+    assert isinstance(e, peng.ThreadedEngine) and peng.get() is e
+    with pytest.raises(pt.MXNetError, match="unknown MXNET_ENGINE_TYPE"):
+        peng.set_engine_type("NoSuchEngine")
+    saved = pt_tm.current_override()
+    pt_tm.reset()
+    pt_tm.clear_events()
+    pt_tm.set_mode("trace")
+    try:
+        v = e.new_variable()
+        e.push(lambda: None, mutable_vars=[v])
+        e.wait_for_var(v)
+        e.wait_for_all()
+        names = {ev[0] for ev in pt_tm.drain_events()}
+        assert pt_tm.counter("engine.push").value == 1
+        assert {"engine.op", "engine.wait_for_var", "engine.wait_for_all"} <= names
+    finally:
+        pt_tm.set_mode(saved)
+        pt_tm.reset()
+        monkeypatch.setattr(peng, "_engine", None)
+
+
+@pytest.mark.parametrize("engine_type", ["ThreadedEngine", "NaiveEngine"])
+def test_checkpoint_rides_the_engine_and_matches_the_references_bytes(tmp_path, monkeypatch,
+                                                                      engine_type):
+    """``save_checkpoint`` queues its write on the engine: ``waitall``
+    drains it, ``find_last_checkpoint`` and ``load_checkpoint`` wait for
+    it, and the file is the JAX package's for the same parameters."""
+    monkeypatch.setattr(peng, "_engine", None)
+    monkeypatch.setenv("MXNET_ENGINE_TYPE", engine_type)
+    rs = np.random.RandomState(0)
+    args = {"fc_weight": rs.randn(3, 4).astype(np.float32),
+            "fc_bias": rs.randn(3).astype(np.float32)}
+    aux = {"bn_moving_mean": rs.randn(3).astype(np.float32)}
+    for pkg, name in ((mx, "jax"), (pt, "torch")):
+        net = pkg.sym.FullyConnected(pkg.sym.Variable("data"), num_hidden=3, name="fc")
+        for epoch in (1, 2):
+            pkg.model.save_checkpoint(
+                str(tmp_path / name), epoch, net,
+                {k: pkg.nd.array(v * epoch, ctx=pkg.cpu()) for k, v in args.items()},
+                {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in aux.items()})
+    # a write queued behind a slow op on the prefix's variable: waitall
+    # returns after it landed (the naive engine runs both on push)
+    gate = threading.Event()
+    threading.Timer(0.05, gate.set).start()
+    peng.get().push(gate.wait, mutable_vars=[pt.model._ckpt_vars[
+        os.path.abspath(str(tmp_path / "torch"))][1]])
+    pt.model.save_checkpoint(str(tmp_path / "torch"), 3, None,
+                             {k: pt.nd.array(v, ctx=pt.cpu()) for k, v in args.items()}, {})
+    pt.nd.waitall()
+    assert (tmp_path / "torch-0003.params").is_file()
+    assert pt.model.find_last_checkpoint(str(tmp_path / "torch")) == 3
+    for epoch in (1, 2):
+        want = (tmp_path / ("jax-%04d.params" % epoch)).read_bytes()
+        assert (tmp_path / ("torch-%04d.params" % epoch)).read_bytes() == want
+    _, got, got_aux = pt.model.load_checkpoint(str(tmp_path / "torch"), 2, ctx=pt.cpu())
+    np.testing.assert_array_equal(got["fc_weight"].asnumpy(), args["fc_weight"] * 2)
+    np.testing.assert_array_equal(got_aux["bn_moving_mean"].asnumpy(), aux["bn_moving_mean"])
+    monkeypatch.setattr(peng, "_engine", None)
+
+
+def test_a_failed_checkpoint_write_is_raised_at_the_next_call(tmp_path, monkeypatch):
+    monkeypatch.setattr(peng, "_engine", None)
+    prefix = str(tmp_path / "missing-dir" / "ck")
+    pt.model.save_checkpoint(prefix, 1, None, {"w": np.ones(2, np.float32)}, {})
+    with pytest.raises(pt.MXNetError, match="earlier async checkpoint write failed"):
+        pt.model.find_last_checkpoint(prefix)
+    monkeypatch.setattr(peng, "_engine", None)

@@ -204,6 +204,7 @@ def card_times(smoke, pt):
     with tempfile.TemporaryDirectory() as tmp:
         prefix, epoch = tmp + "/resnet50", smoke.DEPLOY["epoch"]
         pt.model.save_checkpoint(prefix, epoch, net, args, aux)
+        pt.nd.waitall()  # the write is queued on the engine
         json_str = Path(prefix + "-symbol.json").read_text()
         blob = Path("%s-%04d.params" % (prefix, epoch)).read_bytes()
     B = smoke.DEPLOY["batch"]
