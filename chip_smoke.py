@@ -230,7 +230,26 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    equal to the in-process ``Predictor``; both driven in this process
    through ``ctypes``, and the predict program once more as an executable
    with an embedded interpreter.
-19. A ``smoke`` line (the run's seconds from the import of the port), a
+19. The serving fleet (``serving/fleet/``): ResNet-50 (phase 5's seed)
+   behind the port's ``Router`` over the engine phase's buckets. An
+   in-process cache gives the reference outputs of eight payloads of 8
+   images (the plain conv_bn version on the card differs from them, so the
+   bitwise checks see which ran); one ``ReplicaApp`` in this process gives
+   them bitwise through a Router, with 49 stats-free conv_bn launches a
+   dispatch; ``Fleet(spec, n_replicas=2)`` spawns two replica processes on
+   the card from a ``save_params_npz`` file (seconds to ready each, the
+   kernel library loaded, not built again, each process's card memory),
+   which give the same bits through the Router and each over its own
+   ``RpcClient``; the same closed-loop load through the single replica and
+   the fleet (images/s, host p50/p99); a chaos load with replica 0
+   SIGKILLed at a third and ``Fleet.rollout`` to new weights at half: no
+   request lost, replica 0 restarted (seconds), the rollout applied or
+   recycled on both (seconds), and the payloads then give the swapped
+   reference's bits; the merged fleet trace passes the port's ``mxtrace``
+   check, holds a request chain across the router and a replica and prints
+   under ``--fleet``; after ``close`` no replica process remains, nor on
+   the card.
+20. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
@@ -239,7 +258,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``recommender_launches``; row 6 with ``recommender_fc``; rows 6, 8 and 9
    with the fused-step phase's ``fused_launches``, the checkpoint
    phase's ``checkpoint_launches``, the planner phase's
-   ``planner_launches`` and the native phase's ``native_launches``), the
+   ``planner_launches`` and the native phase's ``native_launches``; row 8
+   with the fleet phase's ``fleet_launches``), the
    card's name/power line, then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -247,6 +267,7 @@ Imports nothing of JAX or of the JAX package.
 """
 import contextlib
 import hashlib
+import io
 import json
 import logging
 import math
@@ -7238,6 +7259,351 @@ def run_native(pt, smi):
     return launches
 
 
+# Phase 19, the serving fleet: ResNet-50 (RESNET, the weights of phase 5's
+# seed) served over the engine phase's buckets and 5 ms batching delay behind
+# the port's Router: first one ReplicaApp in this process, then two replica
+# processes on the one card (each its own CUDA context; the card
+# time-slices them). Eight fixed payloads of 8 images (bucket 8: one request
+# a dispatch) are held bitwise to an in-process cache; the same closed-loop
+# load (ENGINE's 8 clients, 40 requests of 1-4 images each) runs through
+# both; then a chaos load (60 requests a client) during which replica 0 is
+# SIGKILLed once a third of its requests completed and a rollout to new
+# weights starts at half, as tools/serve_bench.py's fleet leg. serve_bench's
+# new = old x 1.02 + 0.01 sends the random ResNet-50's activations to inf
+# (its He-scaled conv weights are 0.02-0.06 across, so +0.01 moves each by
+# 15-50 %): the conv and fc weights take x 1.02, the BatchNorm gammas and
+# betas and the biases x 1.02 + 0.01.
+FLEET = dict(replicas=2, payloads=8, payload_rows=8, requests=40, chaos_requests=60,
+             kill_at=1 / 3, rollout_at=1 / 2, scale=1.02, shift=0.01, ready_timeout_s=300,
+             dispatch_wait_ms=120000, heartbeat_ms=300, drain_timeout_s=60,
+             reload_timeout_s=120)
+
+
+def compute_apps():
+    """(pid, used memory) of each process nvidia-smi sees on the card."""
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    apps = []
+    for line in res.stdout.splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps.append((int(pid), mem.strip()))
+    return apps
+
+
+def pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+class Resubmit:
+    """A Router whose admission sheds while no replica is eligible (one
+    restarting, the other draining for a rollout): ``submit`` tries again
+    after the shed's ``retry_after_ms``, counting the sheds."""
+
+    def __init__(self, router, shed_error):
+        self.router, self.shed_error, self.sheds = router, shed_error, []
+
+    def submit(self, inputs):
+        while True:
+            try:
+                return self.router.submit(inputs)
+            except self.shed_error as exc:
+                self.sheds.append(exc.retry_after_ms)
+                time.sleep(max(1, exc.retry_after_ms or 1) / 1e3)
+
+
+def fleet_clients(router, requests, shed_error):
+    """``clients`` through a Router, sheds submitted again. Returns
+    (results as ``clients``' are, sheds, wall seconds)."""
+    resubmit = Resubmit(router, shed_error)
+    t0 = time.perf_counter()
+    got = clients(resubmit, requests, timeout=300)
+    wall = time.perf_counter() - t0
+    for (t, i), (outs, _, _, _) in got.items():
+        rows = requests[t][i]["data"].shape[0]
+        check(outs[0].shape == (rows, RESNET["num_classes"]) and np.isfinite(outs[0]).all(),
+              ("fleet outputs", t, i, outs[0].shape))
+    return got, len(resubmit.sheds), wall
+
+
+def load_stats(got, requests, wall):
+    """Throughput and host latency of one closed-loop load."""
+    ms = [v[3] for v in got.values()]
+    images = sum(r["data"].shape[0] for reqs in requests for r in reqs)
+    return {"requests": len(got), "images": images, "seconds": wall,
+            "images_per_s": images / wall, "requests_per_s": len(got) / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def check_payloads(call, payloads, want, what):
+    for i, (p, w) in enumerate(zip(payloads, want)):
+        got = call(p)[0]
+        check(np.array_equal(got, w), (what, i, float(np.abs(got - w).max())))
+
+
+def run_fleet(pt, smi):
+    """Phase 19: the serving fleet. Returns the in-process replica's
+    launches by kernel."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import conv_bn as cb
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.serving import PersistentExecutableCache, ServeOverloadError
+    from mxnet_tpu_torch.serving.fleet import (Fleet, ReplicaApp, Router, RpcClient,
+                                               save_params_npz)
+    from mxnet_tpu_torch.telemetry import cli
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    Fc, E = FLEET, ENGINE
+    saved_mode = tm.current_override()
+    tm.set_mode("trace")  # trace ids minted by the router, spans in every process
+    out = {"phase": "fleet", "nvidia_smi": smi, "model": RESNET, "buckets": E["buckets"],
+           "replicas": Fc["replicas"], "clients": E["clients"], "rows": E["rows"],
+           "requests_per_client": Fc["requests"], "chaos_requests_per_client":
+           Fc["chaos_requests"]}
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    new_args = {n: (v * Fc["scale"] + (Fc["shift"] if n.endswith(("_gamma", "_beta", "_bias"))
+                                       else 0.0)).astype(np.float32) for n, v in args.items()}
+    rs = np.random.RandomState(SEED + 90)
+    payloads = [{"data": rs.uniform(-1, 1, (Fc["payload_rows"],) + image_shape())
+                 .astype(np.float32)} for _ in range(Fc["payloads"])]
+    load = image_requests(SEED + 91, E["clients"], Fc["requests"], E["rows"])
+    chaos = image_requests(SEED + 92, E["clients"], Fc["chaos_requests"], E["rows"])
+    root = tempfile.mkdtemp(prefix="mxnet-fleet-")
+    spawned = set()
+    try:
+        # --- 1. the reference: an in-process cache on the card
+        ref = PersistentExecutableCache(net, args, aux, ctx=pt.gpu(0))
+        want = [ref.run(p)[0] for p in payloads]
+        check(all(w.shape == (Fc["payload_rows"], RESNET["num_classes"])
+                  and np.isfinite(w).all() for w in want), "reference outputs")
+        kernel = cb.conv_block_infer
+        cb.conv_block_infer = cb.conv_block_infer_plain  # the plain version, on the card
+        try:
+            plain = ref.run(payloads[0])[0]
+        finally:
+            cb.conv_block_infer = kernel
+        # the random net's probabilities are nearly one-hot; the entries
+        # strictly between 0 and 1 carry the logits' bits
+        out["plain_vs_kernel"] = {
+            "max_abs_diff": float(np.abs(plain - want[0]).max()),
+            "entries_differing": int((plain != want[0]).sum()),
+            "entries_in_0_1": int(((want[0] > 0) & (want[0] < 1)).sum()),
+            "entries": int(want[0].size)}
+        check(out["plain_vs_kernel"]["entries_differing"] > 0,
+              "the plain version gives the kernel's bits: the bitwise checks cannot tell them")
+        check(np.array_equal(ref.run(payloads[0])[0], want[0]), "the reference repeats its bits")
+        params_path = os.path.join(root, "params.npz")
+        save_params_npz(params_path, args, aux)
+        spec = {"model": "resnet", "model_kwargs": dict(RESNET),
+                "item_shapes": {"data": list(image_shape())}, "buckets": list(E["buckets"]),
+                "params": params_path, "engine": {"max_delay_ms": E["max_delay_ms"]},
+                "telemetry": "trace", "heartbeat_ms": Fc["heartbeat_ms"]}
+        router_kw = dict(health_interval_ms=100, dispatch_wait_ms=Fc["dispatch_wait_ms"])
+
+        # --- 2. one replica in this process behind a Router
+        t0 = time.perf_counter()
+        app = ReplicaApp(dict(spec, replica_id="inproc")).start()
+        out["inproc_ready_s"] = time.perf_counter() - t0
+        cache, batches = app.engine.cache, []
+        run = cache.run
+        cache.run = lambda inputs: (batches.append(1), run(inputs))[1]
+        router = Router(lambda: {0: app.server.addr}, **router_kw).start()
+        try:
+            ops.reset_launch_counts()
+            check_payloads(lambda p: router.infer(p, timeout=120), payloads, want,
+                           "the in-process replica differs from the reference")
+            launches = with_zeros(ops.launch_counts())
+            check(len(batches) == len(payloads) and launches == with_zeros(
+                {"conv_bn_infer": RESNET_SITES * len(batches)}),
+                  ("in-process replica launches", len(batches), launches))
+            inproc_launches = launches["conv_bn_infer"]
+            out["inproc_launches"] = {"batches": len(batches), **{k: v for k, v in
+                                                                  launches.items() if v}}
+            del cache.run
+            got, sheds, wall = fleet_clients(router, load, ServeOverloadError)
+            out["single_replica_load"] = dict(load_stats(got, load, wall), sheds=sheds)
+        finally:
+            router.close()
+            app.close()
+        del app, cache, router, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        tm.clear_events()
+
+        # --- 3. two replica processes over the same npz
+        lib = cuda_build.build_library()
+        lib_state = (os.stat(lib).st_mtime_ns, sorted(os.listdir(lib.parent)))
+        apps_before = compute_apps()
+        free_before = torch.cuda.mem_get_info()[0]
+        fleet = Fleet(spec, n_replicas=Fc["replicas"], workdir=os.path.join(root, "fleet"),
+                      ready_timeout_s=Fc["ready_timeout_s"], router_kwargs=router_kw)
+        t0 = time.perf_counter()
+        fleet.start()
+        try:
+            out["fleet_start_s"] = time.perf_counter() - t0
+            sup, router = fleet.supervisor, fleet.router
+            out["ready_s"] = [h.ready_t - h.spawned_t for h in sup._handles]
+            pids = {rid: s["pid"] for rid, s in sup.states().items()}
+            spawned.update(pids.values())
+            check(lib_state == (os.stat(lib).st_mtime_ns, sorted(os.listdir(lib.parent))),
+                  "a replica built the kernel library again")
+            # nvidia-smi may list the processes of a container under one pid
+            # with the container's total: the free memory's fall is the
+            # replicas' together
+            apps = compute_apps()
+            free_fleet = torch.cuda.mem_get_info()[0]
+            out["card_memory"] = {"compute_apps": apps, "before_fleet": apps_before,
+                                  "free_mib_before": free_before / 2**20,
+                                  "free_mib_with_fleet": free_fleet / 2**20,
+                                  "replicas_mib": (free_before - free_fleet) / 2**20}
+            check_payloads(lambda p: router.infer(p, timeout=120), payloads, want,
+                           "the fleet differs from the reference")
+            for rid, addr in sorted(sup.addresses().items()):
+                cli_ = RpcClient(addr, timeout_s=120)
+                check_payloads(lambda p: cli_.call("infer", inputs=p), payloads, want,
+                               ("replica %d differs from the reference" % rid))
+                cli_.close()
+            got, sheds, wall = fleet_clients(router, load, ServeOverloadError)
+            out["fleet_load"] = dict(load_stats(got, load, wall), sheds=sheds)
+            # the same load through replica 0's process alone: the in-process
+            # replica shares this process's interpreter with the router and
+            # the clients, a replica process does not
+            one = Router(lambda: {0: sup.addresses()[0]}, **router_kw).start()
+            try:
+                got, sheds, wall = fleet_clients(one, load, ServeOverloadError)
+            finally:
+                one.close()
+            out["one_process_load"] = dict(load_stats(got, load, wall), sheds=sheds)
+            out["fleet_over_one_process_images_per_s"] = (
+                out["fleet_load"]["images_per_s"] / out["one_process_load"]["images_per_s"])
+            out["fleet_over_single_images_per_s"] = (out["fleet_load"]["images_per_s"]
+                                                     / out["single_replica_load"]["images_per_s"])
+
+            # --- 4. chaos: a SIGKILL and a rollout under load
+            total = sum(len(c) for c in chaos)
+            done0 = router.health()["counts"]["completed"]
+            plan = {}
+
+            def wait_done(frac):
+                t_end = time.perf_counter() + 300
+                while router.health()["counts"]["completed"] - done0 < frac * total:
+                    check(time.perf_counter() < t_end, ("chaos load stalled", frac))
+                    time.sleep(0.005)
+
+            def chaos_plan():
+                try:
+                    wait_done(Fc["kill_at"])
+                    plan["kill_t"] = time.perf_counter()
+                    plan["killed_pid"] = sup.kill_replica(0)
+                    wait_done(Fc["rollout_at"])
+                    t0 = time.perf_counter()
+                    plan["rollout"] = fleet.rollout(
+                        new_args, aux, drain_timeout_s=Fc["drain_timeout_s"],
+                        reload_timeout_s=Fc["reload_timeout_s"])
+                    plan["rollout_s"] = time.perf_counter() - t0
+                except Exception as exc:  # surfaced by the check below
+                    plan["error"] = repr(exc)
+
+            counts0 = dict(router.health()["counts"])
+            th = threading.Thread(target=chaos_plan)
+            th.start()
+            got, sheds, wall = fleet_clients(router, chaos, ServeOverloadError)
+            th.join(timeout=600)
+            check("error" not in plan and "rollout" in plan, ("chaos plan", plan))
+            counts = router.health()["counts"]
+            delta = {k: counts[k] - counts0[k] for k in counts}
+            check(delta["completed"] == delta["submitted"] == total and delta["failed"] == 0,
+                  ("requests lost under chaos", delta))
+            res = plan["rollout"]
+            check(set(res["applied"]) | set(res["recycled"]) == set(range(Fc["replicas"])),
+                  ("rollout", res))
+            spawned.add(plan["killed_pid"])
+            # the fleet back at full strength, replica 0 restarted
+            t_end = time.perf_counter() + Fc["ready_timeout_s"]
+            while True:
+                st = sup.states()
+                spawned.update(s["pid"] for s in st.values() if s["pid"])
+                if all(s["state"] == "ready" for s in st.values()) and \
+                        sum(d["fresh"] for d in router.health()["replicas"].values()) \
+                        == Fc["replicas"]:
+                    break
+                check(time.perf_counter() < t_end, ("the fleet did not recover", st))
+                time.sleep(0.05)
+            check(st[0]["restarts"] >= 1 and st[0]["pid"] != plan["killed_pid"],
+                  ("replica 0 was not restarted", st))
+            out["chaos"] = dict(load_stats(got, chaos, wall), sheds=sheds, counts=delta,
+                                rollout=res, rollout_s=plan["rollout_s"],
+                                restarts={rid: s["restarts"] for rid, s in st.items()},
+                                restart_s=sup._handles[0].ready_t - plan["kill_t"],
+                                restart_ready_s=(sup._handles[0].ready_t
+                                                 - sup._handles[0].spawned_t))
+            # the new weights everywhere: the reference after its own swap
+            ref.swap_params(new_args, aux)
+            want_new = [ref.run(p)[0] for p in payloads]
+            check(all(np.isfinite(w).all() for w in want_new)
+                  and not np.array_equal(want_new[0], want[0]), "the rolled-out weights' outputs")
+            check_payloads(lambda p: router.infer(p, timeout=120), payloads, want_new,
+                           "the fleet after the rollout differs from the swapped reference")
+            for rid, addr in sorted(sup.addresses().items()):
+                cli_ = RpcClient(addr, timeout_s=120)
+                check_payloads(lambda p: cli_.call("infer", inputs=p), payloads, want_new,
+                               ("replica %d after the rollout differs" % rid))
+                cli_.close()
+
+            # --- 5. the merged trace, read by the port's mxtrace
+            trace = fleet.collect_fleet_trace()
+            problems = cli.check(trace)
+            check(problems == [], ("fleet trace schema", problems))
+            labels = {int(pid): d["label"]
+                      for pid, d in trace["otherData"]["processes"].items()}
+            chains = cli.request_chains(trace, top=0)
+            spanning = [tid for tid, spans in chains.items()
+                        if {labels.get(s["pid"], "").split("-")[0] for s in spans}
+                        >= {"router", "replica"}]
+            check(spanning, ("no request chain spans the router and a replica", labels))
+            path = os.path.join(root, "fleet_trace.json")
+            with open(path, "w") as f:
+                json.dump(trace, f)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main([path, "--fleet"])
+            check(rc == 0, ("mxtrace --fleet", rc))
+            out["trace"] = {"events": len(trace["traceEvents"]), "processes": sorted(
+                labels.values()), "chains": len(chains), "chains_across_processes":
+                len(spanning), "dropped": trace["otherData"].get("dropped", 0),
+                "mxtrace_fleet": text.getvalue().splitlines()[:3]}
+        finally:
+            fleet.close()
+
+        # --- 6. nothing of the fleet remains
+        t_end = time.perf_counter() + 30
+        while True:
+            alive = sorted(p for p in spawned if pid_alive(p))
+            apps = compute_apps()
+            on_card = sorted(p for p, _ in apps if p in spawned)
+            if not alive and not on_card and len(apps) <= len(apps_before):
+                break
+            check(time.perf_counter() < t_end, ("replicas left after close", alive, on_card,
+                                                apps))
+            time.sleep(0.2)
+        out["teardown"] = {"replica_pids": sorted(spawned), "compute_apps_after": apps}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        tm.set_mode(saved_mode)
+        tm.clear_events()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return {"conv_bn_infer": inproc_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -7285,6 +7651,7 @@ def main():
     checkpoint_launches = run_checkpoint(pt, smi)
     planner_launches = run_planner(pt, smi)
     native_launches = run_native(pt, smi)
+    fleet_launches = run_fleet(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -7300,9 +7667,12 @@ def main():
             # variant's: one batch-32 inference forward
             e.update(launches=resnet_train_launches[name_])
             if name_ == "conv_bn":
+                # fleet_launches: the fleet phase's in-process replica, the
+                # stats-free variant's launches over its payloads
                 e.update(infer_launches=resnet_serve_launches["conv_bn_infer"],
                          deploy_infer_launches=deploy_launches["conv_bn_infer"],
-                         engine_infer_launches=engine_launches["conv_bn_infer"])
+                         engine_infer_launches=engine_launches["conv_bn_infer"],
+                         fleet_launches=fleet_launches["conv_bn_infer"])
         else:
             # launches: the transformer's timed training steps, the path that
             # runs all six of its kernels

@@ -75,7 +75,8 @@ KINDS = ("raise", "delay_ms", "hang", "torn_write")
 
 #: the reference's seams (site -> where it fires); informational — see
 #: docs/RESILIENCE.md for the per-site failure semantics. The port wires
-#: the three ``serving.*`` sites so far (``serving/engine.py``).
+#: the three ``serving.*`` sites (``serving/engine.py``) and the three
+#: ``fleet.*`` sites (``serving/fleet/router.py``, ``supervisor.py``).
 SITES = {
     "serving.submit": "InferenceEngine.submit entry (request admission)",
     "serving.dispatch": "InferenceEngine._dispatch, before the executable "

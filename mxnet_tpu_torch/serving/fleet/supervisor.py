@@ -1,0 +1,319 @@
+# copied from mxnet_tpu/serving/fleet/supervisor.py (backend-free); it spawns the port's replica
+"""ReplicaSupervisor: spawn / monitor / restart the replica tier
+(docs/SERVING.md §Fleet).
+
+One supervisor owns N replica worker processes (``replica.py``), each a
+single-engine failure domain. Detection follows the dist heartbeat
+idiom: every replica touches a per-replica heartbeat file on a timer, and
+the monitor loop classifies a replica dead when EITHER its process has
+exited OR its heartbeat mtime goes stale past ``MXNET_FLEET_DEAD_MS`` (a
+wedged process with a live PID is dead for serving purposes — it gets a
+SIGKILL and a restart). Restarts back off exponentially from
+``MXNET_FLEET_RESTART_BACKOFF_MS`` up to a cap, so a crash-looping
+replica cannot burn the host, and the backoff resets once a replica
+reaches READY (published its RPC address after warmup) — a flaky start
+is forgiven, a tight crash loop is not.
+
+The supervisor never touches request traffic: the Router reads
+``addresses()`` every health-poll tick and routes around anything not
+READY. ``fleet.replica_spawn`` is a fault-injection site
+(mxnet_tpu_torch/faultinject.py): an injected raise fails that spawn attempt
+and the backoff machinery retries it — deterministically testable
+restart logic.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+from ...base import MXNetError
+from ... import telemetry as _tm
+from ... import faultinject as _fi
+from ..engine import _env_float, _env_int
+
+__all__ = ["ReplicaSupervisor", "ReplicaHandle"]
+
+log = logging.getLogger("mxnet_tpu_torch.serving.fleet")
+
+
+class ReplicaHandle:
+    """Supervisor-side view of one replica slot. ``state`` is
+    ``starting`` (spawned, warming) | ``ready`` (address published) |
+    ``dead`` (waiting out restart backoff)."""
+
+    __slots__ = ("rid", "spec_path", "port_file", "hb_path", "proc",
+                 "addr", "state", "restarts", "backoff_exp",
+                 "next_spawn_t", "spawned_t", "ready_t")
+
+    def __init__(self, rid, spec_path, port_file, hb_path):
+        self.rid = rid
+        self.spec_path = spec_path
+        self.port_file = port_file
+        self.hb_path = hb_path
+        self.proc = None
+        self.addr = None
+        self.state = "dead"
+        self.restarts = 0      # lifetime restart count (telemetry)
+        self.backoff_exp = 0   # consecutive failures since last READY
+        self.next_spawn_t = 0.0
+        self.spawned_t = 0.0
+        self.ready_t = 0.0
+
+
+class ReplicaSupervisor:
+    """Spawn and babysit ``n_replicas`` replica processes from one model
+    spec (see ``replica.py`` for the spec schema; the supervisor fills in
+    the per-replica ``replica_id`` / ``heartbeat_path`` / ``port_file``).
+    """
+
+    def __init__(self, spec, n_replicas=None, workdir=None,
+                 restart_backoff_ms=None, restart_backoff_max_ms=None,
+                 dead_after_ms=None, spawn_timeout_s=180.0,
+                 poll_interval_s=0.2):
+        self.n_replicas = (_env_int("MXNET_FLEET_REPLICAS", 2)
+                           if n_replicas is None else int(n_replicas))
+        if self.n_replicas < 1:
+            raise MXNetError("fleet: need at least one replica")
+        self.base_spec = dict(spec)
+        self._own_workdir = workdir is None
+        self.workdir = workdir or tempfile.mkdtemp(prefix="mxtpu_fleet_")
+        os.makedirs(self.workdir, exist_ok=True)
+        self.restart_backoff_s = (
+            _env_float("MXNET_FLEET_RESTART_BACKOFF_MS", 200.0)
+            if restart_backoff_ms is None else float(restart_backoff_ms)
+        ) / 1000.0
+        self.restart_backoff_max_s = (
+            _env_float("MXNET_FLEET_RESTART_BACKOFF_MAX_MS", 5000.0)
+            if restart_backoff_max_ms is None
+            else float(restart_backoff_max_ms)) / 1000.0
+        self.dead_after_s = (
+            _env_float("MXNET_FLEET_DEAD_MS", 3000.0)
+            if dead_after_ms is None else float(dead_after_ms)) / 1000.0
+        self.spawn_timeout_s = float(spawn_timeout_s)
+        self.poll_interval_s = float(poll_interval_s)
+        self._handles = []
+        for rid in range(self.n_replicas):
+            h = ReplicaHandle(
+                rid,
+                os.path.join(self.workdir, "replica-%d.json" % rid),
+                os.path.join(self.workdir, "replica-%d.port" % rid),
+                os.path.join(self.workdir, "replica-%d.hb" % rid))
+            self._handles.append(h)
+        self._lock = _tm.named_lock("fleet.supervisor")
+        self._stop = threading.Event()
+        self._monitor = None
+        self._started = False
+
+    # ------------------------------------------------------------- spawning
+    def _write_spec(self, h: ReplicaHandle):
+        spec = dict(self.base_spec)
+        spec.update(replica_id=h.rid, heartbeat_path=h.hb_path,
+                    port_file=h.port_file)
+        tmp = h.spec_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(spec, f, indent=1)
+        os.replace(tmp, h.spec_path)
+
+    def _spawn_cmd(self, h: ReplicaHandle):
+        """The replica launch command — a seam tests override to spawn a
+        lightweight stand-in instead of a full torch-importing worker. The
+        child inherits the environment: with ``MXNET_DEFAULT_CONTEXT``
+        unset it binds ``gpu(0)``."""
+        return [sys.executable, "-c",
+                "import sys; from mxnet_tpu_torch.serving.fleet.replica "
+                "import main; sys.exit(main(sys.argv[1:]))", h.spec_path]
+
+    def _spawn_locked(self, h: ReplicaHandle):
+        for stale in (h.port_file, h.hb_path):
+            try:
+                os.unlink(stale)
+            except OSError:
+                pass
+        self._write_spec(h)
+        now = time.perf_counter()
+        try:
+            _fi.fire("fleet.replica_spawn")
+            # the child must import THIS mxnet_tpu_torch even when the parent
+            # found it via sys.path manipulation rather than an install
+            env = dict(os.environ)
+            pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.dirname(os.path.abspath(__file__)))))
+            env["PYTHONPATH"] = pkg_root + os.pathsep + \
+                env.get("PYTHONPATH", "")
+            h.proc = subprocess.Popen(self._spawn_cmd(h), env=env)
+        except Exception as exc:
+            # injected or organic spawn failure: back off and retry — the
+            # slot is not abandoned
+            h.proc = None
+            self._note_death_locked(h, "spawn failed: %s" % exc, now)
+            return
+        h.state = "starting"
+        h.addr = None
+        h.spawned_t = now
+        log.info("fleet: spawned replica %d (pid %s, attempt %d)",
+                 h.rid, h.proc.pid, h.backoff_exp + 1)
+
+    def _note_death_locked(self, h: ReplicaHandle, why, now):
+        delay = min(self.restart_backoff_s * (2 ** h.backoff_exp),
+                    self.restart_backoff_max_s)
+        h.backoff_exp += 1
+        h.restarts += 1
+        h.state = "dead"
+        h.addr = None
+        h.next_spawn_t = now + delay
+        log.warning("fleet: replica %d down (%s); restart in %.0fms",
+                    h.rid, why, delay * 1000.0)
+        if _tm.enabled():
+            _tm.counter("fleet.replica_deaths").inc()
+            _tm.counter("fleet.replica_restarts").inc()
+
+    # ------------------------------------------------------------ lifecycle
+    def start(self):
+        if self._started:
+            return self
+        with self._lock:
+            for h in self._handles:
+                self._spawn_locked(h)
+        self._stop.clear()
+        self._monitor = threading.Thread(target=self._monitor_loop,
+                                         name="fleet-supervisor",
+                                         daemon=True)
+        self._monitor.start()
+        self._started = True
+        return self
+
+    def _check_one_locked(self, h: ReplicaHandle, now):
+        if h.proc is None:
+            if h.state == "dead" and now >= h.next_spawn_t:
+                self._spawn_locked(h)
+            return
+        rc = h.proc.poll()
+        if rc is not None:
+            h.proc = None
+            self._note_death_locked(h, "exit rc=%s" % rc, now)
+            return
+        if h.addr is None:
+            if os.path.exists(h.port_file):
+                try:
+                    with open(h.port_file) as f:
+                        h.addr = f.read().strip()
+                except OSError:
+                    return
+                if h.addr:
+                    h.state = "ready"
+                    h.ready_t = now
+                    h.backoff_exp = 0  # clean start forgives past crashes
+                    log.info("fleet: replica %d ready at %s",
+                             h.rid, h.addr)
+            elif now - h.spawned_t > self.spawn_timeout_s:
+                self._kill_locked(h)
+                self._note_death_locked(h, "spawn timed out", now)
+            return
+        # ready: heartbeat staleness (wedged-but-alive) — the mtime is
+        # the liveness signal, exactly the dist heartbeat contract
+        try:
+            age = time.time() - os.stat(h.hb_path).st_mtime
+        except OSError:
+            age = now - h.ready_t
+        if age > self.dead_after_s:
+            self._kill_locked(h)
+            self._note_death_locked(
+                h, "heartbeat stale %.1fs" % age, now)
+
+    def _kill_locked(self, h: ReplicaHandle):
+        if h.proc is None:
+            return
+        try:
+            h.proc.kill()
+            h.proc.wait(timeout=5.0)
+        except (OSError, subprocess.TimeoutExpired):
+            pass
+        h.proc = None
+
+    def _monitor_loop(self):
+        while not self._stop.is_set():
+            now = time.perf_counter()
+            with self._lock:
+                for h in self._handles:
+                    self._check_one_locked(h, now)
+                ready = sum(1 for h in self._handles
+                            if h.state == "ready")
+            if _tm.enabled():
+                _tm.gauge("fleet.replicas_ready").set(ready)
+            self._stop.wait(self.poll_interval_s)
+
+    # -------------------------------------------------------------- queries
+    def addresses(self):
+        """{replica_id: "host:port"} of READY replicas — the router's
+        replica-provider view."""
+        with self._lock:
+            return {h.rid: h.addr for h in self._handles
+                    if h.state == "ready" and h.addr}
+
+    def states(self):
+        with self._lock:
+            return {h.rid: {"state": h.state, "addr": h.addr,
+                            "restarts": h.restarts,
+                            "pid": h.proc.pid if h.proc else None}
+                    for h in self._handles}
+
+    def wait_ready(self, n=None, timeout_s=240.0):
+        """Block until ``n`` (default: all) replicas are READY."""
+        need = self.n_replicas if n is None else int(n)
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            if len(self.addresses()) >= need:
+                return True
+            time.sleep(0.1)
+        raise MXNetError(
+            "fleet: only %d/%d replicas ready within %.0fs (states: %s)"
+            % (len(self.addresses()), need, timeout_s, self.states()))
+
+    def kill_replica(self, rid, sig=signal.SIGKILL):
+        """Chaos helper: kill one replica's process (the monitor notices
+        and restarts it with backoff). Returns the killed pid or None."""
+        with self._lock:
+            h = self._handles[rid]
+            if h.proc is None:
+                return None
+            pid = h.proc.pid
+            try:
+                os.kill(pid, sig)
+            except OSError:
+                return None
+            return pid
+
+    def stop(self, timeout_s=10.0):
+        self._stop.set()
+        if self._monitor is not None:
+            self._monitor.join(timeout=2.0)
+        with self._lock:
+            procs = [(h, h.proc) for h in self._handles
+                     if h.proc is not None]
+            for h, p in procs:
+                try:
+                    p.terminate()
+                except OSError:
+                    pass
+            deadline = time.perf_counter() + timeout_s
+            for h, p in procs:
+                try:
+                    p.wait(timeout=max(0.1,
+                                       deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    try:
+                        p.kill()
+                        p.wait(timeout=2.0)
+                    except (OSError, subprocess.TimeoutExpired):
+                        pass
+                h.proc = None
+                h.state = "dead"
+                h.addr = None
+        self._started = False

@@ -1,0 +1,464 @@
+# copied from mxnet_tpu/telemetry/cli.py (backend-free)
+"""mxtrace — inspect/validate a telemetry chrome-trace dump.
+
+    python -m mxnet_tpu_torch.telemetry.cli profile.json      # per-step table + top spans
+    python -m mxnet_tpu_torch.telemetry.cli profile.json --top 40
+    python -m mxnet_tpu_torch.telemetry.cli profile.json --check   # schema gate, exit 0/1
+    python -m mxnet_tpu_torch.telemetry.cli profile.json --json    # machine-readable summary
+    python -m mxnet_tpu_torch.telemetry.cli router.json r0.json r1.json --out fleet.json
+    python -m mxnet_tpu_torch.telemetry.cli fleet.json --fleet        # fleet rollups + SLO
+    python -m mxnet_tpu_torch.telemetry.cli fleet.json --fleet-trace  # request span chains
+
+The dump is what ``profiler.dump_profile()`` (or
+``telemetry.export_chrome_trace``) wrote: chrome-trace ``traceEvents`` plus
+an ``otherData`` block with the counter snapshot and per-step rows
+(docs/OBSERVABILITY.md). ``--check`` validates the schema every consumer
+of the dump relies on — the CI smoke gate after a telemetry-on fit.
+Both packages write and read one schema, and for the same dump this
+module prints the reference's text byte for byte (its labels included,
+``xla_trace_dir`` among them: the port records a ``torch.profiler``
+directory under that key).
+
+Fleet plane: multiple dump arguments are clock-aligned and merged into
+ONE timeline (``telemetry.merge_traces``; per-dump
+``otherData.clock_offset_s`` stamps — the router's RPC midpoint
+handshake — are honored). ``--fleet`` renders the router's ``fleet.*``
+rollups and SLO status; ``--fleet-trace`` reconstructs each request's
+cross-process span chain by shared ``trace_id``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from .trace import SCHEMA_VERSION, gap_summary, merge_traces, span_summary
+
+# per-step table columns: (header, counter name in the step row)
+_STEP_COLS = [
+    ("compile", "executor.compile"),
+    ("hit", "executor.cache_hit"),
+    ("retrace", "executor.retrace"),
+    ("fused", "fusion.fwd_engaged"),
+    ("fallbk", "fusion.fwd_fallback"),
+    ("kv_B", "kvstore.push_bytes"),
+    ("io", "io.batches"),
+    ("push", "engine.push"),
+]
+
+
+def load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def check(trace):
+    """Validate the dump schema. Returns a list of problems (empty = ok)."""
+    bad = []
+    if not isinstance(trace, dict):
+        return ["top level is %s, expected object" % type(trace).__name__]
+    events = trace.get("traceEvents")
+    if not isinstance(events, list):
+        return ["traceEvents missing or not a list"]
+    other = trace.get("otherData")
+    if not isinstance(other, dict):
+        bad.append("otherData missing or not an object")
+        other = {}
+    ver = other.get("mxnet_telemetry")
+    if ver != SCHEMA_VERSION:
+        bad.append("otherData.mxnet_telemetry is %r, expected %d"
+                   % (ver, SCHEMA_VERSION))
+    if not isinstance(other.get("counters", {}), dict):
+        bad.append("otherData.counters is not an object")
+    steps = other.get("steps", [])
+    if not isinstance(steps, list):
+        bad.append("otherData.steps is not a list")
+        steps = []
+    for i, row in enumerate(steps):
+        if not (isinstance(row, dict) and "step" in row
+                and isinstance(row.get("counters", None), dict)):
+            bad.append("steps[%d] malformed (need step + counters)" % i)
+            break
+    saw_process_meta = False
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict) or "ph" not in ev:
+            bad.append("traceEvents[%d] has no ph" % i)
+            break
+        if ev["ph"] == "M" and ev.get("name") == "process_name":
+            saw_process_meta = True
+        if ev["ph"] == "X":
+            if not isinstance(ev.get("name"), str):
+                bad.append("traceEvents[%d]: X event without a name" % i)
+                break
+            if not isinstance(ev.get("ts"), (int, float)) \
+                    or not isinstance(ev.get("dur"), (int, float)):
+                bad.append("traceEvents[%d] (%s): non-numeric ts/dur"
+                           % (i, ev["name"]))
+                break
+            if "pid" not in ev or "tid" not in ev:
+                bad.append("traceEvents[%d] (%s): missing pid/tid"
+                           % (i, ev["name"]))
+                break
+    if events and not saw_process_meta:
+        bad.append("no process_name metadata event")
+    return bad
+
+
+def _fmt_table(headers, rows):
+    widths = [max(len(h), *(len(r[i]) for r in rows)) if rows else len(h)
+              for i, h in enumerate(headers)]
+    out = ["  ".join(h.rjust(w) for h, w in zip(headers, widths))]
+    for r in rows:
+        out.append("  ".join(c.rjust(w) for c, w in zip(r, widths)))
+    return "\n".join(out)
+
+
+def step_table(trace):
+    steps = (trace.get("otherData") or {}).get("steps") or []
+    if not steps:
+        return "(no per-step rows — no step marks ran during the capture)"
+    headers = ["step", "wall_ms"] + [h for h, _ in _STEP_COLS]
+    rows = []
+    for row in steps:
+        c = row.get("counters", {})
+        wall = row.get("wall_ms")
+        rows.append([str(row.get("step", "?")),
+                     "-" if wall is None else "%.1f" % wall]
+                    + [str(c.get(key, 0)) for _, key in _STEP_COLS])
+    return _fmt_table(headers, rows)
+
+
+def spans_table(trace, top):
+    rows = span_summary(trace=trace, top=top)
+    if not rows:
+        return "(no spans recorded — was MXNET_TELEMETRY=trace set?)"
+    return _fmt_table(
+        ["span", "ms", "count", "p50", "p95", "p99"],
+        [[r["name"], "%.3f" % r["ms"], str(r["count"]),
+          "%.3f" % r.get("p50_ms", 0.0), "%.3f" % r.get("p95_ms", 0.0),
+          "%.3f" % r.get("p99_ms", 0.0)] for r in rows])
+
+
+def gaps_table(trace, top):
+    """Host-gap attribution: per span name, the host time between one
+    span's end and the next one's start on the same thread (negative
+    overlaps from threaded interleaving clamp to zero; the ``clamp``
+    column counts them). ``gap%%`` is gap/busy — the GL705 ratio.
+    Megastep dispatches (K tokens / N batches per launch) are tagged
+    ``[megastep]`` so their per-interval gap is read as amortized over
+    K, not compared 1:1 against single-step rows."""
+
+    def _label(name):
+        return name + " [megastep]" if "megastep" in name else name
+
+    rows = [r for r in gap_summary(trace=trace, top=top)
+            if r["intervals"] > 0]
+    if not rows:
+        return "(no repeated spans — gap attribution needs >= 2 spans " \
+               "of a name on one thread)"
+    return _fmt_table(
+        ["span", "gap_ms", "busy_ms", "gap%", "gap/iv", "max_gap",
+         "ivs", "clamp"],
+        [[_label(r["name"]), "%.3f" % r["gap_ms"], "%.3f" % r["busy_ms"],
+          ("%.0f%%" % (100.0 * r["gap_ms"] / r["busy_ms"])
+           if r["busy_ms"] > 0 else "-"),
+          "%.3f" % (r["gap_ms"] / r["intervals"]),
+          "%.3f" % r["max_gap_ms"], str(r["intervals"]),
+          str(r["clamped"])] for r in rows])
+
+
+def locks_table(trace, top=25):
+    """Lock-contention attribution from a ``MXNET_CONCLINT=witness`` run
+    (``otherData.lock_witness``, telemetry/lockwitness.py): top locks by
+    total hold time, with contention counts, waiter time, the >threshold
+    hold count, and the per-thread acquisition split. Witnessed hazards
+    (the GL805 feed) print below the table."""
+    w = (trace.get("otherData") or {}).get("lock_witness")
+    if not w:
+        return "(no lock_witness block — capture with MXNET_CONCLINT=" \
+               "witness to record lock orders and hold times)"
+    rows = sorted(w.get("locks") or [], key=lambda r: -r.get("hold_ms", 0))
+    out = []
+    if rows:
+        out.append(_fmt_table(
+            ["lock", "acqs", "cont", "wait_ms", "hold_ms", "max_hold",
+             "long", "threads"],
+            [[r["name"], str(r["acquisitions"]), str(r["contentions"]),
+              "%.3f" % r["wait_ms"], "%.3f" % r["hold_ms"],
+              "%.3f" % r["max_hold_ms"], str(r["long_holds"]),
+              ",".join("%s:%d" % kv
+                       for kv in sorted((r.get("threads") or {}).items()))]
+             for r in rows[:top]]))
+    else:
+        out.append("(witness enabled but no named lock was acquired)")
+    events = w.get("events") or []
+    inv = [e for e in events if e.get("kind") == "inversion"]
+    holds = [e for e in events if e.get("kind") == "long_hold"]
+    if inv or holds:
+        out.append("")
+        for e in inv:
+            out.append("  INVERSION %s -> %s on %s (reverse order seen "
+                       "%dx) [GL805]" % (e.get("first"), e.get("then"),
+                                         e.get("thread"),
+                                         e.get("prior_count", 1)))
+        for e in holds:
+            out.append("  LONG HOLD %s %.1fms on %s%s%s"
+                       % (e.get("lock"), e.get("hold_ms", 0.0),
+                          e.get("thread"),
+                          " across a dispatch seam"
+                          if e.get("dispatch_seam") else "",
+                          " [GL805]" if e.get("dispatch_seam") else ""))
+    if w.get("events_dropped"):
+        out.append("  (%d witness event(s) dropped — ring full)"
+                   % w["events_dropped"])
+    return "\n".join(out)
+
+
+def _event_trace_ids(ev):
+    """trace id(s) stamped on one X event (single or batch form)."""
+    args_ = ev.get("args") or {}
+    tid = args_.get("trace_id")
+    out = [tid] if tid is not None else []
+    ids = args_.get("trace_ids")
+    if isinstance(ids, list):
+        out.extend(ids)
+    return out
+
+
+def request_chains(trace, top=10):
+    """Per-request cross-process span chains, keyed by ``trace_id``:
+    ``{trace_id: [{"pid", "name", "ts", "dur_ms"}, ...]}`` sorted by
+    start time. The --fleet-trace view (router-queue → rpc →
+    replica-queue → dispatch → decode per request)."""
+    chains = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X":
+            continue
+        for tid in _event_trace_ids(ev):
+            chains.setdefault(tid, []).append(
+                {"pid": ev.get("pid"), "name": ev.get("name"),
+                 "ts": ev.get("ts", 0),
+                 "dur_ms": round(ev.get("dur", 0) / 1000.0, 3)})
+    for spans_ in chains.values():
+        spans_.sort(key=lambda s: s["ts"])
+    ranked = sorted(chains.items(), key=lambda kv: -len(kv[1]))
+    return dict(ranked[:top]) if top else dict(ranked)
+
+
+def _proc_labels(trace):
+    labels = {}
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") == "M" and ev.get("name") == "process_name":
+            labels[ev.get("pid")] = (ev.get("args") or {}).get("name",
+                                                               "?")
+    return labels
+
+
+def fleet_trace_table(trace, top=10):
+    chains = request_chains(trace, top=top)
+    if not chains:
+        return "(no trace_id-stamped spans — fleet tracing needs " \
+               "MXNET_TELEMETRY=trace on router AND replicas)"
+    labels = _proc_labels(trace)
+    out = []
+    for tid, spans_ in chains.items():
+        pids = sorted({s["pid"] for s in spans_})
+        t0 = spans_[0]["ts"]
+        out.append("request %s — %d span(s) across %d process(es)"
+                   % (tid, len(spans_), len(pids)))
+        out.append(_fmt_table(
+            ["t+ms", "dur_ms", "process", "span"],
+            [["%.3f" % ((s["ts"] - t0) / 1000.0), "%.3f" % s["dur_ms"],
+              str(labels.get(s["pid"], s["pid"])), s["name"]]
+             for s in spans_]))
+        out.append("")
+    return "\n".join(out).rstrip()
+
+
+def fleet_table(trace):
+    """Render otherData.fleet (Router.metrics() rollups stamped by
+    serve_bench / profiler) + merged per-process block + SLO status."""
+    other = trace.get("otherData") or {}
+    fleet = other.get("fleet")
+    out = []
+    if not fleet:
+        return "(no otherData.fleet block — write the dump from a " \
+               "fleet run: serve_bench --fleet --trace-out, or stamp " \
+               "Router.metrics() via export_chrome_trace(extra=...))"
+    top = [("qps", "%.1f"), ("requests", "%d"), ("errors", "%d"),
+           ("shed", "%d"), ("redispatches", "%d"),
+           ("tokens_per_dispatch", "%.1f"), ("replicas_fresh", "%d")]
+    line = []
+    for key, fmt in top:
+        if fleet.get(key) is not None:
+            line.append(("%s=" + fmt) % (key, fleet[key]))
+    out.append("fleet: " + "  ".join(line))
+    hists = fleet.get("latency_ms") or {}
+    if hists:
+        out.append("")
+        out.append(_fmt_table(
+            ["timer", "count", "p50", "p95", "p99"],
+            [[name, str(row.get("count", 0)),
+              "%.3f" % row.get("p50", 0.0), "%.3f" % row.get("p95", 0.0),
+              "%.3f" % row.get("p99", 0.0)]
+             for name, row in sorted(hists.items())]))
+    per = fleet.get("replicas") or {}
+    if per:
+        out.append("")
+        out.append(_fmt_table(
+            ["replica", "state", "qps", "requests", "clock_off_ms"],
+            [[str(rid), str(row.get("state", "?")),
+              "%.1f" % row.get("qps", 0.0), str(row.get("requests", 0)),
+              "%.3f" % row.get("clock_offset_ms", 0.0)]
+             for rid, row in sorted(per.items())]))
+    slo = fleet.get("slo")
+    if slo:
+        out.append("")
+        out.append("slo: ok=%s burn_rate=%.3f (threshold %.2f, windows "
+                   "%.0fs/%.0fs)" % (slo.get("ok"),
+                                     slo.get("burn_rate", 0.0),
+                                     slo.get("burn_threshold", 1.0),
+                                     slo.get("short_window_s", 0),
+                                     slo.get("window_s", 0)))
+        for key, row in sorted((slo.get("objectives") or {}).items()):
+            out.append("  %-10s threshold=%-8g burn=%-8.3f value=%s%s"
+                       % (key, row.get("threshold"),
+                          row.get("burn_rate", 0.0), row.get("value"),
+                          "  FIRING" if row.get("firing") else ""))
+        viol = fleet.get("violations") or []
+        if viol:
+            out.append("  %d violation event(s): %s" % (
+                len(viol), ", ".join(
+                    "%s:%s" % (v.get("kind"), v.get("objective"))
+                    for v in viol[-8:])))
+    return "\n".join(out)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="mxtrace", description="inspect/validate a mxnet_tpu telemetry "
+        "chrome-trace dump (docs/OBSERVABILITY.md)")
+    ap.add_argument("dump", nargs="+",
+                    help="chrome-trace JSON from profiler.dump_profile(); "
+                    "several dumps merge into one fleet timeline")
+    ap.add_argument("--top", type=int, default=25,
+                    help="span summary length (default 25)")
+    ap.add_argument("--check", action="store_true",
+                    help="validate the dump schema; exit 0 iff valid")
+    ap.add_argument("--json", action="store_true",
+                    help="print a machine-readable summary")
+    ap.add_argument("--fleet", action="store_true",
+                    help="render fleet.* rollups + SLO status "
+                    "(otherData.fleet)")
+    ap.add_argument("--fleet-trace", action="store_true",
+                    help="per-request cross-process span chains by "
+                    "trace_id")
+    ap.add_argument("--out", help="write the (merged) dump JSON here")
+    args = ap.parse_args(argv)
+
+    dumps = []
+    for path in args.dump:
+        try:
+            dumps.append(load(path))
+        except (OSError, ValueError) as exc:
+            print("mxtrace: cannot load %s: %s" % (path, exc),
+                  file=sys.stderr)
+            return 1
+    if len(dumps) == 1:
+        trace = dumps[0]
+    else:
+        offsets, labels = {}, {}
+        for d in dumps:
+            other = d.get("otherData") or {}
+            pid = other.get("pid")
+            if pid is not None:
+                if other.get("clock_offset_s") is not None:
+                    offsets[pid] = other["clock_offset_s"]
+                if other.get("label"):
+                    labels[pid] = other["label"]
+        trace = merge_traces(dumps, offsets_s=offsets, labels=labels)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(trace, f)
+
+    other = trace.get("otherData") or {}
+    dropped = other.get("dropped") or 0
+
+    if args.check:
+        problems = check(trace)
+        if problems:
+            for p in problems:
+                print("mxtrace: SCHEMA: %s" % p, file=sys.stderr)
+            return 1
+        n_x = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+        cats = sorted({e.get("cat") for e in trace["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat")})
+        print("mxtrace: OK — %d span(s), categories: %s, %d step row(s)"
+              % (n_x, ",".join(cats) or "(none)",
+                 len((trace.get("otherData") or {}).get("steps") or [])))
+        if dropped:
+            print("mxtrace: WARNING — %d span(s) dropped (ring-buffer "
+                  "overflow; the trace is TRUNCATED — raise "
+                  "MXNET_TELEMETRY_MAX_EVENTS)" % dropped)
+        return 0
+
+    if args.fleet or args.fleet_trace:
+        if args.fleet:
+            print("== fleet rollups ==")
+            print(fleet_table(trace))
+        if args.fleet_trace:
+            if args.fleet:
+                print()
+            print("== per-request fleet chains (top %d by span count) =="
+                  % min(args.top, 10))
+            print(fleet_trace_table(trace, top=min(args.top, 10)))
+        if dropped:
+            print()
+            print("WARNING: %d dropped span(s) — truncated trace"
+                  % dropped)
+        return 0
+
+    if args.json:
+        print(json.dumps({
+            "counters": other.get("counters", {}),
+            "num_steps": len(other.get("steps") or []),
+            "spans": span_summary(trace=trace, top=args.top),
+            "gaps": gap_summary(trace=trace, top=args.top),
+            "dropped": dropped,
+            "fleet": other.get("fleet"),
+            "locks": other.get("lock_witness"),
+            "xla_trace_dir": other.get("xla_trace_dir"),
+        }))
+        return 0
+
+    print("== per-step table ==")
+    print(step_table(trace))
+    print()
+    print("== top %d spans ==" % args.top)
+    print(spans_table(trace, args.top))
+    print()
+    print("== host-gap attribution (span end -> next same-name start) ==")
+    print(gaps_table(trace, args.top))
+    if other.get("lock_witness"):
+        print()
+        print("== lock witness (MXNET_CONCLINT=witness) ==")
+        print(locks_table(trace, args.top))
+    counters = other.get("counters") or {}
+    if counters:
+        print()
+        print("== final counters ==")
+        for name, v in sorted(counters.items()):
+            print("  %-40s %s" % (name, v))
+    if dropped:
+        print()
+        print("WARNING: %d span(s) dropped (ring-buffer overflow) — "
+              "this trace is TRUNCATED" % dropped)
+    if other.get("xla_trace_dir"):
+        print()
+        print("XLA trace dir: %s (TensorBoard/Perfetto)"
+              % other["xla_trace_dir"])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -337,8 +337,7 @@ def test_f5_a_with_block_wins_and_a_gpu_default_does_not_fall_back(monkeypatch):
 
 
 # ---------------------------------------------------------------- F6
-_TOOLING = "ROADMAP.md section 1.5 (tooling: fusion, profiler and lint families)"
-_FLEET = "ROADMAP.md section 1.6 (the serving fleet)"
+_TOOLING = "ROADMAP.md section 1.5 (tooling: fusion and lint families)"
 _NO_TPU = "the port targets no TPU"
 
 #: (module, name) of the reference's ``__all__`` that the port lacks, each
@@ -349,7 +348,6 @@ ALL_EXCEPTIONS = {
     ("context", "num_tpus"): _NO_TPU,
     ("parallel.mesh", "shard_map_compat"): "JAX's shard_map; the port runs a mesh's shards "
                                            "as one program (parallel/trainer.py)",
-    ("serving", "fleet"): _FLEET,
     **{("analysis", n): _TOOLING for n in (
         "RecordingEngine", "ScheduleTrace", "analyze_trace", "verify_rewrite", "graphrewrite_mode", "RewritePass",
         "RewriteResult", "rewrite_pass_names", "pattern_site_counts", "lint_dispatch_paths",
@@ -423,15 +421,57 @@ MODULE_EXCEPTIONS = {
     "ops/pallas_conv_bn.py": _PALLAS % "ops/conv_bn.py (csrc/conv_bn.cu, csrc/conv_bn_bwd.cu)",
     "ops/conv_bn_bytes.py": _UNUSED_TABLE % "analytic HBM byte model",
     "ops/fused_conv_bn_table.py": _UNUSED_TABLE % "per-shape engage table",
-    **{f: _FLEET for f in ("serving/fleet/__init__.py", "serving/fleet/rpc.py",
-                           "serving/fleet/replica.py", "serving/fleet/supervisor.py",
-                           "serving/fleet/router.py", "telemetry/cli.py")},
-    **{f: _TOOLING for f in ("fusion_tune.py", "profiler.py", "visualization.py",
+    **{f: _TOOLING for f in ("fusion_tune.py",
                              "analysis/cli.py", "analysis/concurrency_lint.py",
                              "analysis/dispatch_lint.py", "analysis/engine_race.py",
                              "analysis/fusion_explain.py")},
     "parallel/ring_attention.py": _RING,
 }
+
+
+#: the modules of the serving fleet and the observability tools, with the
+#: public callables each defines: the signature sweep above covers them
+FLEET_AND_TOOLING = {
+    "serving.fleet": ("Fleet",),
+    "serving.fleet.rpc": ("RpcServer", "RpcClient", "RpcError", "RpcConnectionError",
+                          "RpcRemoteError"),
+    "serving.fleet.replica": ("ReplicaApp", "build_model", "save_params_npz",
+                              "load_params_npz", "main"),
+    "serving.fleet.supervisor": ("ReplicaSupervisor", "ReplicaHandle"),
+    "serving.fleet.router": ("Router", "FleetRolloutError", "FleetDispatchError"),
+    "telemetry.cli": ("load", "check", "step_table", "spans_table", "gaps_table",
+                      "locks_table", "request_chains", "fleet_trace_table", "fleet_table",
+                      "main"),
+    "profiler": ("profiler_set_config", "profiler_set_state", "dump_profile", "trace_files",
+                 "summarize", "State"),
+    "visualization": ("print_summary", "plot_network"),
+}
+
+
+@pytest.mark.parametrize("rel", sorted(FLEET_AND_TOOLING))
+def test_fleet_and_tooling_callables_have_the_references_signatures(rel):
+    port_mod = importlib.import_module("mxnet_tpu_torch." + rel)
+    ref_mod = importlib.import_module("mxnet_tpu." + rel)
+    assert getattr(port_mod, "__all__", None) == getattr(ref_mod, "__all__", None)
+    public = sorted(n for n in dir(ref_mod) if not n.startswith("_")
+                    and callable(getattr(ref_mod, n))
+                    and getattr(getattr(ref_mod, n), "__module__", None) == ref_mod.__name__)
+    assert public == sorted(FLEET_AND_TOOLING[rel])
+    for name in public:
+        ref, port = getattr(ref_mod, name), getattr(port_mod, name)
+        assert port.__module__ == port_mod.__name__, name
+        pairs = [(ref, port)]
+        if inspect.isclass(ref):
+            assert [c.__name__ for c in port.__mro__] == [c.__name__ for c in ref.__mro__]
+            pairs += [(getattr(ref, m), getattr(port, m)) for m in dir(ref)
+                      if not m.startswith("_") and callable(getattr(ref, m))]
+        for a, b in pairs:
+            try:
+                want = _params_of(a)
+            except (TypeError, ValueError):
+                continue  # an exception class without a signature of its own
+            assert _params_of(b) == want, (name, b)
+    assert not {(rel, n) for n in public} & _signature_gaps()
 
 
 def test_every_reference_module_has_a_namesake_in_the_port_or_is_named():

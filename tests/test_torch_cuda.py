@@ -1707,3 +1707,62 @@ def test_c_abis_at_dev_type_2_place_arrays_and_predictors_on_the_card(dev, tmp_p
     want = pt.predictor.Predictor(net.tojson(), params, {"data": (4, 8)})
     want.forward(data=x)
     np.testing.assert_allclose(got, want.get_output(0), rtol=1e-5, atol=1e-6)
+
+
+def test_one_replica_fleet_of_resnet18_is_bitwise_the_in_process_cache(dev, tmp_path,
+                                                                        monkeypatch):
+    """A replica process binds ``gpu(0)`` by default, builds nothing the
+    parent built, and serves resnet-18 through the Router with the bits
+    of a cache in this process."""
+    from mxnet_tpu_torch.ops import cuda_build
+    from mxnet_tpu_torch.serving import PersistentExecutableCache
+    from mxnet_tpu_torch.serving.fleet import Fleet, save_params_npz
+
+    monkeypatch.delenv("MXNET_DEFAULT_CONTEXT", raising=False)
+    cuda_build.library()
+    kw = dict(num_layers=18, num_classes=10, image_shape="3,32,32")
+    net = pt.models.get_symbol("resnet", **kw)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(1, 3, 32, 32), softmax_label=(1,))
+    rs = np.random.RandomState(0)
+    args = {n: (rs.randn(*s) * (0.5 if n.endswith(("gamma", "beta")) else
+                                math.sqrt(2.0 / max(1, np.prod(s[1:]))))).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    aux = {n: (np.ones(s) if n.endswith("_var") else np.zeros(s)).astype(np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    path = tmp_path / "params.npz"
+    save_params_npz(str(path), args, aux)
+    x = rs.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)
+    want = PersistentExecutableCache(net, args, aux, ctx=pt.gpu(0)).run({"data": x})[0]
+    spec = {"model": "resnet", "model_kwargs": kw, "item_shapes": {"data": [3, 32, 32]},
+            "buckets": [1, 2, 4], "params": str(path)}
+    with Fleet(spec, n_replicas=1, workdir=str(tmp_path / "fleet"),
+               ready_timeout_s=300) as fl:
+        got = fl.router.infer({"data": x}, timeout=120)[0]
+        assert fl.supervisor.states()[0]["restarts"] == 0
+    assert got.shape == (4, 10) and np.array_equal(got, want)
+
+
+def test_profiler_summarizes_the_cards_kernels(dev, tmp_path):
+    """On the card the profiler's device rows are the kernels the window
+    launched: a conv_bn launch shows by its kernel's name."""
+    from mxnet_tpu_torch import profiler
+
+    x, w = _randn(dev, 2, 64, 14, 14), _randn(dev, 64, 64, 3, 3, scale=0.05)
+    scale, shift = _randn(dev, 64).abs() + 0.5, _randn(dev, 64, scale=0.1)
+    cb.conv_block_infer(x, w, scale, shift, relu=True)  # built and loaded before the window
+    torch.cuda.synchronize()
+    profiler.profiler_set_config(mode="all", filename=str(tmp_path / "p.json"))
+    profiler.profiler_set_state("run")
+    before = cb.infer_launches
+    for _ in range(3):
+        cb.conv_block_infer(x, w, scale, shift, relu=True)
+    torch.cuda.synchronize()
+    profiler.profiler_set_state("stop")
+    assert cb.infer_launches == before + 3
+    rows = profiler.summarize(top=100)
+    conv = [r for r in rows if "conv_bn" in r["name"]]
+    assert conv and sum(r["count"] for r in conv) >= 3, rows
+    assert all(r["ms"] >= 0 for r in rows)
+    path = profiler.dump_profile()
+    assert path and profiler.trace_files()[0] == path

@@ -81,6 +81,10 @@ import mxnet_tpu_torch.sparse, mxnet_tpu_torch.sparse.kvstore_sparse
 import mxnet_tpu_torch.models.recommender
 import mxnet_tpu_torch.device_info, mxnet_tpu_torch.ops.sample
 import mxnet_tpu_torch.models.mlp, mxnet_tpu_torch.models.lenet
+import mxnet_tpu_torch.serving.fleet, mxnet_tpu_torch.serving.fleet.rpc
+import mxnet_tpu_torch.serving.fleet.replica, mxnet_tpu_torch.serving.fleet.supervisor
+import mxnet_tpu_torch.serving.fleet.router, mxnet_tpu_torch.telemetry.cli
+import mxnet_tpu_torch.profiler, mxnet_tpu_torch.visualization
 assert mxnet_tpu_torch.mod is mxnet_tpu_torch.module and mxnet_tpu_torch.init.Xavier
 assert mxnet_tpu_torch.nd is mxnet_tpu_torch.ndarray
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
