@@ -249,7 +249,26 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    check, holds a request chain across the router and a replica and prints
    under ``--fleet``; after ``close`` no replica process remains, nor on
    the card.
-20. A ``smoke`` line (the run's seconds from the import of the port), a
+20. The bind-time control plane (``analysis/rewrite.py``, the fusion gates
+   of ``fusion.py``, ``fusion_tune.py``): the full-width transformer's
+   prefill and ResNet-50 bound under ``MXNET_GRAPHREWRITE=verify`` (the
+   bound graph op for op the port's CPU rewrite of the symbol, no
+   GL601/602/604, the prefill's logits against the default bind's, its 6 /
+   13 / 6 launches of kernels 1 / 4 / 6); a cold ``MXNET_FUSION_TUNE_DIR``
+   measuring every site key of one ResNet-50 step (batch 32, the fused
+   step) and one transformer training step (``fusion.tune`` = the keys; the
+   file ``<dir>/<card name>.json``, version 2, its digest, no record with
+   ``error``; the launches of kernels 8, 9 and 1-6 = the engaged sites,
+   the declined counted; each loss against the all-engaged step's); after
+   ``fusion_tune.reset()`` a rebind measures nothing (every read a cache
+   hit, the same verdicts, the same bits); ``MXNET_FUSED_CONV_BN=0`` (no
+   kernel 8 or 9 in a ResNet step), ``MXNET_FUSED_PATTERNS=0`` (no kernel 1,
+   4 or 6 in a prefill), ``MXNET_SERVE_QUANT=int8`` (49 stats-free kernel-8
+   launches a forward, card vs CPU at batch 2, one site against the plain
+   version); a ``bind`` line with every tune record (verdict, kernel and
+   library µs, schedule), the tune seconds and the tuned ResNet-50 step
+   against the all-engaged one in turns (host p50/p80, CUDA events).
+21. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
@@ -259,7 +278,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    with the fused-step phase's ``fused_launches``, the checkpoint
    phase's ``checkpoint_launches``, the planner phase's
    ``planner_launches`` and the native phase's ``native_launches``; row 8
-   with the fleet phase's ``fleet_launches``), the
+   with the fleet phase's ``fleet_launches``; rows 1-6, 8 and 9 with the
+   bind phase's ``bind_launches``), the
    card's name/power line, then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -273,6 +293,7 @@ import logging
 import math
 import os
 import pickle
+import re
 import shutil
 import struct
 import subprocess
@@ -2040,10 +2061,10 @@ def relu_decisions(record=None, pinned=None):
     orig = mba.MatmulBiasAct.forward
     flips, ys = [], iter(pinned or ())
 
-    def forward(ctx, a, w, b, act):
+    def forward(ctx, a, w, b, act, schedule=None):
         IN_FUSED_SITE[0] = True  # the CPU's plain version applies the act through _ACTS
         try:
-            y = orig(ctx, a, w, b, act)
+            y = orig(ctx, a, w, b, act, schedule)
         finally:
             IN_FUSED_SITE[0] = False
         if record is not None:
@@ -2425,13 +2446,13 @@ def relu_kinks(record=None, compare=None, pin=False):
         tiny = torch.full_like(pre, torch.finfo(pre.dtype).tiny)
         return torch.where(flip, torch.where(want, tiny, torch.zeros_like(pre)), pre)
 
-    def conv_block(x, w, scale, shift, res, stride, relu):
+    def conv_block(x, w, scale, shift, res, stride, relu, bwd="recompute"):
         if record is not None and scale is not None and relu:
             b = (1, -1, 1, 1)
             decide(x.detach() * scale.detach().reshape(b) + shift.detach().reshape(b))
         state["forward"] = True
         try:
-            return orig_apply(x, w, scale, shift, res, stride, relu)
+            return orig_apply(x, w, scale, shift, res, stride, relu, bwd)
         finally:
             state["forward"] = False
 
@@ -7604,6 +7625,399 @@ def run_fleet(pt, smi):
     return {"conv_bn_infer": inproc_launches}
 
 
+# The bind phase: the bind-time control plane (analysis/rewrite.py under
+# MXNET_GRAPHREWRITE, the fusion gates and fusion_tune's on-card cache). A
+# cold tune measures every site key of one ResNet-50 step (batch 32) and one
+# transformer training step, MXNET_FUSION_TUNE_ITERS=tune_iters runs a
+# round; the tuned and the all-engaged ResNet steps are timed in turns.
+BIND = dict(tune_iters=5, timed_steps=8, check_batch=2)
+# the loss of a step taken with tuned verdicts against the all-engaged step's
+# (different kernels or library calls at declined sites, f32 both): the
+# card-vs-CPU loss rule of phases 4, 9 and 15
+BIND_LOSS_TOL = 1e-3
+REWRITE_ERRORS = ("GL601", "GL602", "GL604")
+
+
+def resolved_plan(prog):
+    """The one resolved plan of a program (a bind at one shape)."""
+    plans = list(prog._resolved.values())
+    check(len(plans) == 1, ("resolved plans", len(plans)))
+    return plans[0]
+
+
+def site_verdicts(plan):
+    """The verdicts of a resolved plan, one row a site in plan order (a
+    conv site: engaged, backward policy, inference engage, key; a pattern
+    site: its training and inference lowerings, key), and the set of tune
+    keys its measured verdicts read."""
+    rows, keys = [], set()
+    for d in plan.values():
+        if d["kind"] == "conv" and "train" in d:
+            rows.append(("conv", d["train"][0], d["train"][1], d["infer"], d["key"]))
+            keys.update(k for k in (d["key"], d["infer_key"]) if k)
+        elif d["kind"] == "pattern" and "train" in d:
+            rows.append((d["pat"].name, d["train"], d["infer"], None, d["key"]))
+            if getattr(d["pat"], "tunable", True) and d["train_reason"] != \
+                    "pattern disabled (MXNET_FUSED_PATTERNS)":
+                keys.add(d["key"])
+    return rows, keys
+
+
+def expected_launches(rows):
+    """The launches one training step makes at these verdicts."""
+    want = {}
+
+    def add(k, n=1):
+        want[k] = want.get(k, 0) + n
+
+    for kind, train, bwd, _, _ in rows:
+        if kind == "conv" and train:
+            add("conv_bn")
+            if bwd == "recompute":
+                add("conv_bn_bwd")
+        elif kind == "attention" and train:
+            add("flash_attention"), add("flash_attention_dq"), add("flash_attention_dkv")
+        elif kind == "norm_residual" and train:
+            add("norm_residual"), add("norm_residual_bwd")
+        elif kind == "matmul_bias_act" and train:
+            add("matmul_bias_act")
+    return want
+
+
+def tune_rows(fusion_tune, path):
+    """key -> (verdict, kernel µs, library µs, schedule) of the cache file."""
+    check(os.path.basename(path) == re.sub(r"[^A-Za-z0-9._-]+", "_",
+                                           torch.cuda.get_device_name(0)) + ".json",
+          ("cache file name", path))
+    with open(path) as f:
+        payload = json.load(f)
+    check(payload["version"] == 2 and payload["device_kind"] == torch.cuda.get_device_name(0),
+          ("cache file stamp", payload["version"], payload["device_kind"]))
+    check(payload["digest"] == fusion_tune.entries_digest(payload["entries"]), "cache digest")
+    out = {}
+    for key, rec in sorted(payload["entries"].items()):
+        check("error" not in rec, ("a tune record holds an error", key, rec.get("error")))
+        check(not any("rejected" in r for r in rec["measured"].values()),
+              ("a tune record holds a parity rejection", key, rec["measured"]))
+        best = rec.get("lowering") or min(
+            (n for n, r in rec["measured"].items() if "fwd_us" in r),
+            key=lambda n: rec["measured"][n]["fwd_us"] + rec["measured"][n].get("bwd_us", 0))
+        row = rec["measured"][best]
+        out[key] = {"engage": rec["engage"], "engage_fwd": rec["engage_fwd"],
+                    "lowering": rec.get("lowering"), "schedule": rec.get("schedule"),
+                    "candidate": best, "kernel_us": row["fwd_us"] + row.get("bwd_us", 0.0),
+                    "library_us": rec["base_fwd_us"] + rec.get("base_bwd_us", 0.0),
+                    "rejected": {n: r["rejected"] for n, r in rec["measured"].items()
+                                 if "rejected" in r},
+                    "tune_s": rec["tune_s"]}
+    return out
+
+
+def bind_prefill(pt, params, prompt, env):
+    """A full-width serving decoder bound under ``env``: (the prefill's
+    logits, its launches, the prefill executor)."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.serving import KVCacheDecoder
+
+    with env_vars(**env):
+        dec = KVCacheDecoder(params, ctx=pt.gpu(0), **MODEL, **SERVE)
+        dec.warmup()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        logits = dec.prefill(prompt)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    pf = dec._pf_cache.executable({"data": (SERVE["batch"], SERVE["prefill_len"])})
+    return logits, launches, pf
+
+
+def rewrite_matches_cpu(pt, exe, grad_req):
+    """A bind's graph against the port's own CPU rewrite of the symbol it
+    was given, at its shapes: the same ops in order, and verify_rewrite
+    without GL601/602/604. Returns the rule table and node counts."""
+    from mxnet_tpu_torch import analysis
+
+    arrays = dict(exe.arg_dict, **exe.aux_dict)
+    shapes = {n: tuple(a.shape) for n, a in arrays.items()}
+    types = {n: np.dtype(a.dtype) for n, a in arrays.items()}
+    res = analysis.rewrite(exe._orig_symbol, shapes=shapes, types=types)
+    rep = analysis.verify_rewrite(res, grad_req=grad_req)
+    bad = [d.code for d in rep if d.code in REWRITE_ERRORS]
+    check(not bad, ("rewrite verifier errors", bad))
+    check([n.op for n in exe._symbol._topo()] == [n.op for n in res.symbol._topo()],
+          "the bound graph is not the CPU rewrite's")
+    return {"rules": res.rule_table(), "nodes_before": res.nodes_before,
+            "nodes_after": res.nodes_after, "codes": sorted(rep.codes())}
+
+
+def resnet_step_module(pt, net, args, aux, batch, opt_params, env, deterministic=False):
+    """ResNet-50 bound (the fused step) under ``env`` (its executors' sites
+    resolve, and under a cold tune directory measure, at the bind, under
+    the user's default cuDNN settings), then its first step taken (the
+    trainer's sites resolve there, before the capture), under
+    ``cudnn.deterministic`` when asked (the same bits in two runs of the
+    library convs): (module, its loss, the step's launches, the trainer's
+    resolved plan)."""
+    from mxnet_tpu_torch import ops
+
+    B = batch.data[0].shape[0]
+    with env_vars(**env):
+        mod = fused_resnet_module(pt, net, args, aux, pt.gpu(0), B, opt_params)
+        torch.cuda.synchronize()
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        ops.reset_launch_counts()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        torch.backends.cudnn.deterministic = saved
+    prob = mod.get_outputs()[0]._tensor()
+    lab = batch.label[0]._tensor().long().reshape(-1, 1)
+    loss = float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
+    return mod, loss, launches, resolved_plan(mod._spmd.trainer._prog)
+
+
+def transformer_step(pt, params, env):
+    """The full-width transformer bound for training under ``env`` and one
+    forward_backward: (executor, loss, launches, resolved plan)."""
+    from mxnet_tpu_torch import ops
+
+    net, batch, bind = train_model(params)
+    with env_vars(**env):
+        exe = bind(pt.gpu(0), TRAIN["batch"])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        exe.forward_backward()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    prob = exe.outputs[0]._tensor()
+    lab = torch.as_tensor(batch["softmax_label"].reshape(-1, 1), device=prob.device).long()
+    loss = float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
+    return exe, loss, launches, resolved_plan(exe._prog)
+
+
+def run_bind(pt, smi):
+    """Phase 20: the bind-time control plane on the card. The transformer's
+    prefill and ResNet-50 bound under MXNET_GRAPHREWRITE=verify (the CPU
+    rewrite's graph, no verifier error, the prefill's logits against the
+    default bind); a cold MXNET_FUSION_TUNE_DIR measuring every site key of
+    a ResNet-50 step and a transformer step (the cache file, launches equal
+    the engaged sites, the loss against the all-engaged step's); the warm
+    rebind measuring nothing; the switches (MXNET_FUSED_CONV_BN=0,
+    MXNET_FUSED_PATTERNS=0, MXNET_SERVE_QUANT=int8); the tuned ResNet step
+    against the all-engaged one in turns. Returns its launches by part."""
+    from mxnet_tpu_torch import fusion, fusion_tune, ops, telemetry
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    check(not torch.backends.cudnn.deterministic, "phase 20 tunes under cuDNN's defaults")
+    saved_mode = telemetry.current_override()
+    telemetry.set_mode("counters")
+    L = MODEL["num_layers"]
+    out = {"phase": "bind", "nvidia_smi": smi, "model": MODEL, "resnet": RESNET, "bind": BIND}
+    launches = {}
+    params = random_params()
+    rs = np.random.RandomState(SEED + 1)
+    prompt = rs.randint(1, MODEL["vocab_size"], (SERVE["batch"], PROMPT_LEN))
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    B = RESNET_TRAIN["batch"]
+    images, labels = module_data(B)
+    with pt.gpu(0):
+        [batch] = list(pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False))
+    opt_params = (("learning_rate", RESNET_TRAIN["lr"]), ("momentum", RESNET_TRAIN["momentum"]),
+                  ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+    off = dict(MXNET_GRAPHREWRITE=None, MXNET_FUSION_TUNE_DIR=None, MXNET_FUSED_CONV_BN=None,
+               MXNET_FUSED_PATTERNS=None, MXNET_SERVE_QUANT=None)
+
+    # --- 1. the rewrite under verify: the prefill and ResNet-50
+    base_logits, base_launches, _ = bind_prefill(pt, params, prompt, off)
+    check(base_launches == with_zeros({"flash_attention": L, "norm_residual": 2 * L + 1,
+                                       "matmul_bias_act": L}),
+          ("default prefill launches", base_launches))
+    launches["prefill"] = base_launches
+    logits, verify_launches, pf = bind_prefill(pt, params, prompt,
+                                               dict(off, MXNET_GRAPHREWRITE="verify"))
+    check(verify_launches == base_launches, ("prefill launches under verify", verify_launches))
+    prefill_diff = float(np.abs(logits - base_logits).max())
+    # bitwise where the rules keep the arithmetic; else the CPU test's 1e-6
+    check(np.isfinite(logits).all() and prefill_diff <= 1e-6,
+          ("prefill logits under verify", prefill_diff))
+    out["verify"] = {"prefill": dict(rewrite_matches_cpu(pt, pf, "null"),
+                                     bitwise=bool(prefill_diff == 0.0),
+                                     max_abs_diff=prefill_diff)}
+    del pf
+    with env_vars(**dict(off, MXNET_GRAPHREWRITE="verify")):
+        exe = net.simple_bind(pt.gpu(0), grad_req="write", data=(B,) + image_shape(),
+                              softmax_label=(B,))
+    out["verify"]["resnet"] = rewrite_matches_cpu(pt, exe, "write")
+    del exe
+
+    # --- 2. the cold tune: one ResNet-50 step and one transformer step
+    tune_dir = tempfile.mkdtemp(prefix="fusion_tune_")
+    tuned = dict(off, MXNET_FUSION_TUNE_DIR=tune_dir, MXNET_FUSION_TUNE_ITERS=str(BIND["tune_iters"]))
+    engaged_mod, engaged_loss, engaged_launches, engaged_plan = resnet_step_module(
+        pt, net, args, aux, batch, opt_params, off)
+    engaged_rows, _ = site_verdicts(engaged_plan)
+    check(engaged_launches == with_zeros({"conv_bn": RESNET_SITES, "conv_bn_bwd": RESNET_SITES}),
+          ("all-engaged ResNet step launches", engaged_launches))
+    fusion_tune.reset()
+    telemetry.reset()
+    t0 = time.perf_counter()
+    cold_mod, cold_loss, cold_launches, cold_plan = resnet_step_module(
+        pt, net, args, aux, batch, opt_params, tuned, deterministic=True)
+    resnet_tune_s = time.perf_counter() - t0
+    rows, keys = site_verdicts(cold_plan)
+    tunes, hits = (telemetry.counter("fusion.tune").value,
+                   telemetry.counter("fusion.tune_cache_hit").value)
+    check(tunes == len(keys), ("ResNet cold tune: measurements vs distinct keys", tunes, len(keys)))
+    want = expected_launches(rows)
+    check(cold_launches == with_zeros(want), ("tuned ResNet step launches", cold_launches, want))
+    declined = sum(1 for r in rows if r[0] == "conv" and not r[1])
+    check(abs(cold_loss - engaged_loss) <= BIND_LOSS_TOL * max(1.0, abs(engaged_loss)),
+          ("tuned vs all-engaged ResNet loss", cold_loss, engaged_loss))
+    launches["resnet_step"] = {k: v for k, v in cold_launches.items() if v}
+
+    telemetry.reset()
+    t0 = time.perf_counter()
+    with env_vars(**tuned):
+        tf_exe, tf_loss, tf_launches, tf_plan = transformer_step(pt, params, tuned)
+    tf_tune_s = time.perf_counter() - t0
+    tf_rows, tf_keys = site_verdicts(tf_plan)
+    tf_tunes = telemetry.counter("fusion.tune").value
+    check(tf_tunes == len(tf_keys), ("transformer cold tune", tf_tunes, len(tf_keys)))
+    tf_want = expected_launches(tf_rows)
+    check(tf_launches == with_zeros(tf_want), ("tuned transformer launches", tf_launches, tf_want))
+    _, all_loss, all_launches, _ = transformer_step(pt, params, off)
+    check(all_launches == with_zeros({"flash_attention": L, "flash_attention_dq": L,
+                                      "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
+                                      "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L}),
+          ("all-engaged transformer launches", all_launches))
+    check(abs(tf_loss - all_loss) <= BIND_LOSS_TOL * max(1.0, abs(all_loss)),
+          ("tuned vs all-engaged transformer loss", tf_loss, all_loss))
+    launches["transformer_step"] = {k: v for k, v in tf_launches.items() if v}
+    with env_vars(**tuned):
+        tune_path = fusion_tune.cache_path()
+    records = tune_rows(fusion_tune, tune_path)
+    check(set(records) == keys | tf_keys, ("cache file keys", len(records)))
+
+    # --- 3. warm: the in-process memo dropped, a rebind measures nothing
+    fusion_tune.reset()
+    telemetry.reset()
+    warm_mod, warm_loss, warm_launches, warm_plan = resnet_step_module(
+        pt, net, args, aux, batch, opt_params, tuned, deterministic=True)
+    with env_vars(**tuned):
+        warm_exe, warm_tf_loss, warm_tf_launches, warm_tf_plan = transformer_step(pt, params,
+                                                                                  tuned)
+    warm_tunes = telemetry.counter("fusion.tune").value
+    warm_hits = telemetry.counter("fusion.tune_cache_hit").value
+    check(warm_tunes == 0, ("warm rebind measured", warm_tunes))
+    # every verdict read of the executor group's and the fused trainer's
+    # resolutions is a hit: each prologue conv site twice (train, inference)
+    lookups = 2 * sum(1 for d in cold_plan.values() if d["kind"] == "conv" and d.get("key"))
+    tf_lookups = 2 * sum(1 for d in tf_plan.values() if d["kind"] == "pattern"
+                         and d.get("key") in tf_keys)
+    check(warm_hits == 2 * lookups + tf_lookups, ("warm cache hits", warm_hits, lookups,
+                                                  tf_lookups))
+    check(site_verdicts(warm_plan)[0] == rows and site_verdicts(warm_tf_plan)[0] == tf_rows,
+          "the warm engage map differs")
+    check(warm_loss == cold_loss and warm_tf_loss == tf_loss, ("warm bits", warm_loss, cold_loss,
+                                                               warm_tf_loss, tf_loss))
+    check(warm_launches == cold_launches and warm_tf_launches == tf_launches, "warm launches")
+    for name in warm_exe.grad_dict:
+        g = warm_exe.grad_dict[name]
+        if g is not None:
+            check(torch.equal(g._tensor(), tf_exe.grad_dict[name]._tensor()), ("warm grad", name))
+    del warm_exe, tf_exe, warm_mod, cold_mod
+
+    # --- 4. the tuned ResNet step against the all-engaged one, in turns,
+    # both bound and captured under cuDNN's defaults (the tuned one from the
+    # warm cache: it measures nothing)
+    telemetry.reset()
+    timed_mod = resnet_step_module(pt, net, args, aux, batch, opt_params, tuned)[0]
+    check(telemetry.counter("fusion.tune").value == 0, "the timed tuned bind measured")
+    batches = [batch]
+    turns = timed_turns({"tuned": step_of(timed_mod, batches),
+                         "all_engaged": step_of(engaged_mod, batches)}, BIND["timed_steps"])
+    card = {"tuned": event_ms(step_of(timed_mod, batches), 10),
+            "all_engaged": event_ms(step_of(engaged_mod, batches), 10)}
+    del timed_mod, engaged_mod
+    torch.cuda.empty_cache()
+
+    # --- 5. the switches
+    with env_vars(**dict(off, MXNET_FUSED_CONV_BN="0")):
+        exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, "write", images, labels)
+    ops.reset_launch_counts()
+    exe.forward_backward()
+    torch.cuda.synchronize()
+    conv_off = ops.launch_counts()
+    check(conv_off["conv_bn"] == conv_off["conv_bn_bwd"] == conv_off["conv_bn_infer"] == 0,
+          ("MXNET_FUSED_CONV_BN=0 launches", conv_off))
+    del exe
+    _, pat_off, _ = bind_prefill(pt, params, prompt, dict(off, MXNET_FUSED_PATTERNS="0"))
+    check(pat_off == with_zeros({}), ("MXNET_FUSED_PATTERNS=0 prefill launches", pat_off))
+    # int8: ResNet-50's inference forward through the stats-free kernel on
+    # per-channel int8 weights; one site held against its plain version,
+    # the batch-2 forward against the CPU's (phase 5's rule)
+    Bc = BIND["check_batch"]
+    probs, int8_launches = [], None
+    for ctx in (pt.gpu(0), pt.cpu()):
+        with env_vars(**dict(off, MXNET_SERVE_QUANT="int8")):
+            exe = resnet_bind(pt, net, ctx, Bc, args, aux, "null", images, labels)
+        ops.reset_launch_counts()
+        probs.append(exe.forward(is_train=False)[0].asnumpy())
+        int8_launches = int8_launches or ops.launch_counts()  # the card's
+    check(int8_launches == with_zeros({"conv_bn_infer": RESNET_SITES}),
+          ("int8 forward launches", int8_launches))
+    int8_card_cpu = float(np.abs(probs[0] - probs[1]).max())
+    check(np.allclose(probs[0], probs[1], rtol=1e-3, atol=1e-6),
+          ("int8 forward card vs CPU", int8_card_cpu))
+    launches["int8_forward"] = {k: v for k, v in int8_launches.items() if v}
+    # the first 3x3 weight of the net, on an input at its stage's grid
+    w_np = next(v for _, v in sorted(args.items())
+                if v.ndim == 4 and v.shape[2:] == (3, 3) and v.shape[1] % 8 == 0)
+    K, dev = w_np.shape[1], pt.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(B, K, 14, 14, device=dev, generator=gen)
+    w = fusion._quant_weight(torch.from_numpy(w_np).to(dev))
+    scale = torch.rand(K, device=dev, generator=gen) + 0.5
+    shift = torch.randn(K, device=dev, generator=gen) * 0.1
+    got = cb.conv_block_infer(x, w, scale, shift, (1, 1), True)
+    want = cb.conv_block_infer_plain(x, w, scale, shift, (1, 1), True)
+    int8_err = rel_err(got, want)
+    check(int8_err <= CONV_TOL["elementwise"], ("int8 site kernel vs plain", int8_err))
+
+    fusion_tune.reset()
+    telemetry.reset()
+    telemetry.set_mode(saved_mode)
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    out.update(
+        sites={"resnet": {"conv": sum(1 for r in rows if r[0] == "conv"), "declined": declined,
+                          "bwd_library": sum(1 for r in rows if r[0] == "conv" and r[1]
+                                             and r[2] == "xla"),
+                          "keys": len(keys)},
+               "transformer": {"sites": [r[:3] for r in tf_rows], "keys": len(tf_keys)}},
+        tune={"resnet_s": resnet_tune_s, "transformer_s": tf_tune_s, "measurements": tunes + tf_tunes,
+              "cold_cache_hits": hits, "iters": BIND["tune_iters"],
+              "file": "<tune dir>/" + os.path.basename(tune_path)},
+        records=records,
+        warm={"tunes": warm_tunes, "cache_hits": warm_hits},
+        loss={"resnet_tuned": cold_loss, "resnet_all_engaged": engaged_loss,
+              "transformer_tuned": tf_loss, "transformer_all_engaged": all_loss},
+        resnet_step={"host": {k: {"p50": v["p50"], "p80": v["p80"]} for k, v in turns.items()},
+                     "card_event_ms": card},
+        switches={"conv_bn_off": {k: v for k, v in conv_off.items() if v},
+                  "patterns_off_prefill": {k: v for k, v in pat_off.items() if v},
+                  "int8": {"launches": launches["int8_forward"], "site_rel_err": int8_err,
+                           "card_vs_cpu": int8_card_cpu}},
+        launches=launches, seconds=time.perf_counter() - t_phase)
+    log(out)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -7652,6 +8066,7 @@ def main():
     planner_launches = run_planner(pt, smi)
     native_launches = run_native(pt, smi)
     fleet_launches = run_fleet(pt, smi)
+    bind_launches = run_bind(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -7716,6 +8131,14 @@ def main():
         native = {k: v for k, v in native.items() if v}
         if native:
             e.update(native_launches=native)
+        # the bind phase's card runs: the tuned ResNet-50 step (8, 9), the
+        # tuned transformer step (1-6), the default prefill (1, 4, 6) and the
+        # int8 forward (8, stats-free)
+        bound = {k: v.get(name_ if k != "int8_forward" else name_ + "_infer")
+                 for k, v in bind_launches.items()}
+        bound = {k: v for k, v in bound.items() if v}
+        if bound:
+            e.update(bind_launches=bound)
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

@@ -13,8 +13,13 @@ port has:
   the fused step's bind (``module.spmd_adapter``, with the real mesh and
   rules) run the same passes; ``warn`` logs, ``error`` raises
   ``MXNetError`` with the formatted report.
-* ``rewrite``/``rewrite_for_bind`` — the Symbol→Symbol passes every bind
-  runs (``rewrite.py``).
+* ``rewrite(symbol, shapes=..., types=...)`` — the Symbol→Symbol
+  rewrite pipeline (``rewrite.py``): const fold, CSE, canonicalize, the
+  opt-in bf16 legalization and DCE, returning a ``RewriteResult`` that
+  ``verify_rewrite`` checks (GL6xx); ``pattern_site_counts`` counts the
+  fusion sites a symbol roots. ``MXNET_GRAPHREWRITE=on|verify`` runs it at
+  every bind (``rewrite_for_bind``); under ``0`` a bind runs the port's
+  always-on rules.
 
 The engine-schedule analysis, the fusion explainer, the dispatch and
 concurrency lints and the ``graphlint`` CLI are ROADMAP.md section 1.5.
@@ -27,12 +32,16 @@ import os
 from ..base import MXNetError
 from .diagnostics import CODES, Diagnostic, Report, Severity, describe_code
 from .manager import GraphContext, graph_pass, list_passes, run_graph_passes
-from .rewrite import rewrite, rewrite_for_bind  # noqa: F401
+from .rewrite import (RewritePass, RewriteResult, graphrewrite_mode,  # noqa: F401
+                      pattern_site_counts, rewrite, rewrite_for_bind,
+                      rewrite_pass_names, verify_rewrite)
 
 __all__ = [
     "CODES", "Diagnostic", "Report", "Severity", "describe_code",
     "GraphContext", "graph_pass", "list_passes", "run_graph_passes",
-    "lint", "lint_bind", "graphlint_mode", "rewrite",
+    "lint", "lint_bind", "graphlint_mode",
+    "rewrite", "verify_rewrite", "graphrewrite_mode", "RewritePass",
+    "RewriteResult", "rewrite_pass_names", "pattern_site_counts",
 ]
 
 _LOG = logging.getLogger("mxnet_tpu.graphlint")

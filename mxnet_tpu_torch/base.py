@@ -60,12 +60,19 @@ def torch_dtype(dtype) -> torch.dtype:
         return dtype
     d = np_dtype(dtype)
     if d not in _NP_TO_TORCH:
+        if d.name == "bfloat16":  # where numpy knows it (ml_dtypes loaded)
+            return torch.bfloat16
         raise MXNetError("unsupported dtype %s" % d)
     return _NP_TO_TORCH[d]
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
     if dtype not in _TORCH_TO_NP:
+        if dtype == torch.bfloat16:
+            try:  # numpy has a bfloat16 where ml_dtypes is loaded
+                return np.dtype("bfloat16")
+            except TypeError:
+                pass
         raise MXNetError("unsupported dtype %s" % dtype)
     return _TORCH_TO_NP[dtype]
 

@@ -11,9 +11,16 @@ PyTorch runs each op as it is reached, and the fused sites launch their CUDA
 kernels. The JAX package takes gradients with ``jax.vjp`` over the traced
 graph; here a training forward runs under torch autograd, which records the
 same graph as it runs, and ``backward`` takes ``torch.autograd.grad`` of the
-outputs. ``bind`` always runs the rewrite passes first
-(``analysis/rewrite.py``), so the fusion matchers see the canonical graph,
-and under ``MXNET_GRAPHLINT`` lints the graph it binds (``analysis/``).
+outputs. ``bind`` runs the rewrite passes first (``analysis/rewrite.py``:
+under ``MXNET_GRAPHREWRITE=on|verify`` the JAX pipeline with the bind's
+shapes and dtypes, JAX :560-583; under ``0`` the port's always-on rules),
+so the fusion matchers see the canonical graph, and under
+``MXNET_GRAPHLINT`` lints the graph it binds (``analysis/``). An executor
+resolves its fusion sites once, when it is made (``fusion.resolve_sites``
+at its arrays' shapes): bind, ``simple_bind`` and ``reshape`` decide every
+gate, a forward decides none. A folded constant (``_graph_const``) is
+uploaded to the bind's device once and never copied from the host in a
+forward.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from .base import MXNetError, np_dtype
 from .context import Context, current_context
 from .ndarray import NDArray, _wrap, zeros
+from .ops.fusion_patterns import _dtype_name
 from .ops.registry import get_op
 from . import fusion as _fusion
 from . import random as _random
@@ -52,8 +60,58 @@ class _GraphProgram:
         self._aux_index = {n: i for i, n in enumerate(self.aux_names)}
         self.outputs = list(symbol._outputs)
         self.output_names = symbol.list_outputs()
+        self._resolved = {}  # (device, shapes, dtypes) -> resolved plan
+        self._consts = {}    # (id(node), device) -> the uploaded _graph_const
 
-    def interpret(self, arg_vals, aux_vals, is_train, device=None):
+    def sites(self, shapes, types, device):
+        """The fusion plan as a bind at these argument and aux ``shapes`` /
+        ``types`` (name -> shape / dtype) on ``device`` runs it: every gate
+        decided once (``fusion.resolve_sites``), memoized by signature."""
+        if not self.fusion_plan:
+            return self.fusion_plan
+        device = torch.device(device)
+        key = (str(device), tuple(sorted((n, tuple(s)) for n, s in shapes.items())),
+               tuple(sorted((n, _dtype_name(t)) for n, t in types.items())))
+        got = self._resolved.get(key)
+        if got is None:
+            from .context import Context
+
+            ctx = Context("cpu") if device.type == "cpu" else Context("gpu", device.index or 0)
+            with ctx:  # the tune cache's scope is the bind's device
+                got = _fusion.resolve_sites(self.symbol, self.fusion_plan, shapes, types,
+                                            device)
+            self._resolved[key] = got
+        return got
+
+    def sites_of(self, arg_vals, aux_vals, device=None):
+        """``sites`` at the shapes and dtypes of these tensors."""
+        if not self.fusion_plan:
+            return self.fusion_plan
+        named = list(zip(self.arg_names, arg_vals)) + list(zip(self.aux_names, aux_vals))
+        if device is None:
+            device = next((t.device for _, t in named), torch.device("cpu"))
+        from .base import _TORCH_TO_NP
+
+        return self.sites({n: tuple(t.shape) for n, t in named},
+                          {n: _TORCH_TO_NP[t.dtype] for n, t in named if t.dtype in _TORCH_TO_NP},
+                          device)
+
+    def _const(self, node, device):
+        """A folded constant on ``device``, uploaded once (at bind)."""
+        key = (id(node), str(device))
+        t = self._consts.get(key)
+        if t is None:
+            outs, _ = node.opdef().apply(node.parsed_attrs(), [])
+            t = self._consts[key] = outs[0].to(device)
+        return t
+
+    def upload_consts(self, device):
+        """Upload every folded constant of the graph to ``device`` now."""
+        for node in self.topo:
+            if node.op == "_graph_const":
+                self._const(node, device)
+
+    def interpret(self, arg_vals, aux_vals, is_train, device, sites):
         """Run the graph on torch tensors; returns ``(outputs, new_aux)``,
         each op's new aux values in the place of the aux variables it reads.
 
@@ -62,7 +120,11 @@ class _GraphProgram:
         ``RNN``'s dropout, the samplers) draws from its generator,
         ``random.generator(device)``, in topological order (JAX :202-210
         folds one key a node out of the forward's key). A training forward
-        draws each mask once; its backward reuses it through autograd."""
+        draws each mask once; its backward reuses it through autograd.
+        ``sites`` is the plan its caller resolved once (``sites`` /
+        ``sites_of``: at bind, at a decode program's warm-up, when a trainer
+        first meets a shape); no gate is decided here."""
+        plan = sites
         vals = {}
         new_aux = list(aux_vals)
         rng = None
@@ -73,11 +135,16 @@ class _GraphProgram:
                 else:
                     vals[(id(node), 0)] = aux_vals[self._aux_index[node.name]]
                 continue
+            if node.op == "_graph_const":
+                dev = device if device is not None else (
+                    arg_vals[0].device if arg_vals else torch.device("cpu"))
+                vals[(id(node), 0)] = self._const(node, dev)
+                continue
             opdef = get_op(node.op)
             n_aux = len(opdef.aux_names(node.parsed_attrs()))
             ins = [vals[(id(inp), oi)] for inp, oi in node.inputs]
             ins, aux = ins[:len(ins) - n_aux], ins[len(ins) - n_aux:]
-            directive = self.fusion_plan.get(id(node))
+            directive = plan.get(id(node))
             if directive is not None:
                 outs, aux_out = _fusion.execute(directive, node, ins, aux, is_train)
             else:
@@ -123,6 +190,12 @@ class Executor:
         # the caller's symbol, before the bind-time rewrite: what reshape()
         # and bind(shared_exec=...) compare against
         self._orig_symbol = symbol
+        # every fusion gate decided now, at this executor's shapes, and the
+        # folded constants on its device
+        dev = ctx.torch_device
+        self._sites = self._prog.sites_of([a._tensor() for a in self.arg_arrays],
+                                          [a._tensor() for a in self.aux_arrays], dev)
+        self._prog.upload_consts(dev)
 
     # ----------------------------------------------------------------- running
     def _needs_grad(self):
@@ -143,7 +216,7 @@ class Executor:
             leaves.append(t)
         with torch.enable_grad():
             outs, new_aux = self._prog.interpret(tuple(leaves), self._aux_tensors(), True,
-                                                 self._ctx.torch_device)
+                                                 self._ctx.torch_device, self._sites)
         return (leaves, outs), new_aux
 
     def _write_aux(self, new_aux):
@@ -187,7 +260,7 @@ class Executor:
             with torch.no_grad():
                 outs, new_aux = self._prog.interpret(
                     tuple(a._tensor() for a in self.arg_arrays), self._aux_tensors(),
-                    bool(is_train), self._ctx.torch_device)
+                    bool(is_train), self._ctx.torch_device, self._sites)
         if is_train:
             self._write_aux(new_aux)
         return self._set_outputs(outs)
@@ -341,6 +414,27 @@ def _lint_at_bind(symbol, arg_arrays, arg_names, aux_arrays, aux_names, train=Tr
     lint_bind(symbol, shapes, types, mode, target="bind", train=train)
 
 
+def _rewrite_at_bind(symbol, args, grad_req, aux_states):
+    """The bind-time rewrite (JAX ``_rewrite_at_bind`` :560-583) with the
+    concrete bind shapes and dtypes: ``analysis.rewrite.rewrite_for_bind``
+    under ``MXNET_GRAPHREWRITE`` (the port's always-on rules under ``0``).
+    Any failure binds the original symbol; under ``verify`` GL601/602/604
+    raise."""
+    from .analysis.rewrite import rewrite_for_bind
+
+    shapes, types = {}, {}
+    named = dict(args)
+    if isinstance(aux_states, dict):
+        named.update(aux_states)
+    elif aux_states:
+        named.update(zip(symbol.list_auxiliary_states(), aux_states))
+    for n, a in named.items():
+        if a is not None:
+            shapes[n] = tuple(a.shape)
+            types[n] = np.dtype(np_dtype(a.dtype))
+    return rewrite_for_bind(symbol, shapes, types, grad_req=grad_req, target="bind")[0]
+
+
 def _normalize_grad_req(grad_req, arg_names):
     """One req per argument from a str, a list or a {name: req} dict (names
     a dict leaves out get null), as ``mxnet_tpu/executor.py:526``."""
@@ -389,8 +483,6 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None, s
     ``symbol.list_auxiliary_states()``, and must hold every aux state.
     ``shared_exec``, an executor of the same symbol, lends its rewritten
     graph and program (JAX :586). ``group2ctx`` may only name ``ctx``."""
-    from .analysis.rewrite import rewrite_for_bind
-
     names = symbol.list_arguments()
     args = _by_name(args, names, "args")
     reqs = dict(zip(names, _normalize_grad_req(grad_req, names)))
@@ -402,7 +494,7 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None, s
                                     or shared_exec._symbol is symbol):
         symbol, prog = shared_exec._symbol, shared_exec._prog
     else:
-        symbol = rewrite_for_bind(symbol)
+        symbol = _rewrite_at_bind(symbol, args, reqs, aux_states)
         prog = _GraphProgram(symbol)
     missing = [n for n in prog.arg_names if n not in args]
     if missing:

@@ -15,35 +15,48 @@ onto the fused kernels of ``ops/conv_bn.py``:
   add runs at the add (a ``PendingConv``), the other operand in its
   epilogue, and the sum's statistics feed the next BatchNorm.
 
-Every planned conv site takes the kernel where the shape gate
-(``ops/conv_bn._conv_geometry``) takes its shapes: ``ConvBlock`` (forward
-with statistics, fused backward) in a training forward, the stats-free
-``conv_block_infer`` in an inference forward. The gate is the structural
-reject reasons below plus that shape gate, decided from shapes alone and the
-same on the CPU and the card; a declined site runs ``F.conv2d`` on the
-materialised input, as the JAX package runs ``_xla_conv`` there. That is the
-JAX package's own unfused lowering, never a reaction to a kernel failing.
-There is no ``MXNET_FUSED_CONV_BN`` switch, no measured-win table or tuner
-and no quantized serving (``MXNET_SERVE_QUANT``). In a fused step whose mesh
-spans processes (one rank a process on the data axis) a site runs the kernel
-on the rank's own rows and ``all_reduce``s its (Σc, Σc²) over the mesh's
-group (``_conv_block_sharded``, JAX :1101-1160), and an unfused BatchNorm
-sums its statistics the same way, so every BatchNorm sees the global
-batch's moments, as the reference's ``psum`` gives.
-The BatchNorm arithmetic (mean and variance from the sums, scale and shift,
-the moving-stat updates) is plain torch, so autograd carries gamma's and
-beta's gradients through ``scale``/``shift`` into the kernel's prologue
-cotangents.
+Every planned conv site takes the kernel where its gate engages it:
+``ConvBlock`` (forward with statistics, fused backward) in a training
+forward, the stats-free ``conv_block_infer`` in an inference forward. A
+declined site runs ``F.conv2d`` on the materialised input, as the JAX
+package runs ``_xla_conv`` there. In a fused step whose mesh spans
+processes (one rank a process on the data axis) a site runs the kernel on
+the rank's own rows and ``all_reduce``s its (Σc, Σc²) over the mesh's group
+(``_conv_block_sharded``, JAX :1101-1160), and an unfused BatchNorm sums its
+statistics the same way, so every BatchNorm sees the global batch's
+moments, as the reference's ``psum`` gives. The BatchNorm arithmetic is
+plain torch, so autograd carries gamma's and beta's gradients through
+``scale``/``shift`` into the kernel's prologue cotangents.
 
 **Generic patterns** (``Lazy``/``resolve`` :131-168, ``plan`` :385,
-``_exec_pattern``/``execute`` :997-1048) over the three patterns of
+``_exec_pattern``/``execute`` :997-1048) over the four patterns of
 ``ops/fusion_patterns.py``. ``plan`` roots each match in a directive map and
-marks its interior nodes ``lazy``; at run time a rooted site runs its
-pattern's lowering, which is a kernel on CUDA tensors and the kernel's plain
-version on CPU tensors. There is no autotuner and no environment switch:
-every matched site takes its lowering. Where the kernel does not take a
-site's shapes, a CPU site runs the ordinary unfused ops and a CUDA site
-raises.
+marks its interior nodes ``lazy``.
+
+**The gates** (JAX :265-957, :1245): ``MXNET_FUSED_CONV_BN=0|1|auto``,
+``MXNET_FUSED_CONV_BN_BWD``, ``MXNET_FUSED_PATTERNS[_INFER]`` (the JAX
+grammar; a ``pallas*`` lowering name names the port's kernel),
+``MXNET_SERVE_QUANT`` and the measured verdicts of ``fusion_tune`` under
+``MXNET_FUSION_TUNE_DIR``. The JAX package decides each site once per
+trace; the port runs eagerly, so ``resolve_sites`` decides every site once
+at bind, at the bind's shapes, into a copy of its directive (``train``,
+``infer``, ``quant``, ``key``), and an executor, a fused step's shape or a
+decode program runs that map: no gate, lookup or measurement runs per
+forward or inside a CUDA-graph capture. A planned site whose input shapes
+do not infer at bind raises there.
+
+Departures (ROADMAP.md section 3): the port has no measured-win table, so
+with no tune verdict ``auto`` engages every site its shape gate admits (the
+JAX package engages none off the TPU); a tuned verdict may put a library
+call in a kernel's place only under an explicit ``MXNET_FUSION_TUNE_DIR``;
+a kernel that raises while measured re-raises (``fusion_tune``);
+``conv_schedule`` returns None (the kernels have no stripe override); the
+stash backward resolves to recompute until section 2b's stash kernel
+lands; ``MXNET_SERVE_QUANT=bf16`` raises (section 2b), and ``int8`` feeds
+the per-channel quantized weight in float32 to the stats-free kernel.
+Counters ``fusion.{fwd,infer}_{engaged,fallback}``,
+``fusion.bwd_{engaged,xla}`` and ``fusion.pattern_{engaged,fallback}.<name>``
+count the decisions where they are made (at bind for a resolved site).
 
 Training needs no switch here: the executor runs a training forward under
 autograd, a site's lowering records its kernel's autograd Function, and a
@@ -52,16 +65,26 @@ ops, which carry their gradients like any other node.
 """
 from __future__ import annotations
 
+import logging
+import os
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .base import MXNetError
 from .ops import conv_bn as _cb
-from .ops.fusion_patterns import get_patterns
+from .ops.fusion_patterns import _dtype_name, _port_name, get_patterns, pattern_names
 from .ops.registry import get_op
+from . import telemetry as _tm
 
 __all__ = ["Deferred", "WithStats", "PendingConv", "Lazy", "resolve", "plan", "plan_sites",
            "execute", "conv_reject_reason", "bn_reject_reason", "CONV_BN_KINDS",
-           "attention_trains_flash"]
+           "attention_trains_flash", "gate", "gate_explain", "bwd_mode", "infer_default",
+           "quant_mode", "enabled_patterns", "gate_pattern_explain", "conv_schedule",
+           "losers_note", "tuned_reject_note", "resolve_sites"]
+
+_LOG = logging.getLogger("mxnet_tpu")
 
 #: directive kinds owned by the conv+BN side of the planner
 CONV_BN_KINDS = frozenset({"conv", "bn", "relu_fold", "resadd"})
@@ -99,21 +122,23 @@ class WithStats:
 
 
 class PendingConv:
-    """A conv deferred to its consuming residual add."""
+    """A conv deferred to its consuming residual add; ``bwd`` is its
+    backward policy (``bwd_mode``)."""
 
-    __slots__ = ("x", "w", "scale", "shift", "relu", "stride")
+    __slots__ = ("x", "w", "scale", "shift", "relu", "stride", "bwd")
 
-    def __init__(self, x, w, scale, shift, relu, stride):
+    def __init__(self, x, w, scale, shift, relu, stride, bwd="recompute"):
         self.x, self.w = x, w
         self.scale, self.shift, self.relu, self.stride = scale, shift, relu, stride
+        self.bwd = bwd
 
     def run(self, res):
         mesh = _cross_process_mesh()
         if mesh is not None:
             return _conv_block_sharded(mesh, self.x, self.w, self.scale, self.shift, res,
-                                       self.stride, self.relu)
+                                       self.stride, self.relu, self.bwd)
         return _cb.ConvBlock.apply(self.x, self.w, self.scale, self.shift, res, self.stride,
-                                   self.relu)
+                                   self.relu, self.bwd)
 
 
 class Lazy:
@@ -227,12 +252,12 @@ def _global_moments(x, mesh, sums=None):
     return mean, sums[1] / cnt - mean * mean
 
 
-def _conv_block_sharded(mesh, x, w, scale, shift, res, stride, relu):
+def _conv_block_sharded(mesh, x, w, scale, shift, res, stride, relu, bwd="recompute"):
     """The kernel on this rank's rows (``x`` and ``res`` are the rank's
     rows), then the per-rank statistics summed over the mesh, so the
     downstream BatchNorm sees GLOBAL-batch moments (JAX :1123-1158, where
     ``shard_map`` runs the kernel per data shard and ``psum``s Σc, Σc²)."""
-    c, ssum, ssq = _cb.ConvBlock.apply(x, w, scale, shift, res, stride, relu)
+    c, ssum, ssq = _cb.ConvBlock.apply(x, w, scale, shift, res, stride, relu, bwd)
     ssum, ssq = _AllReduceSum.apply(mesh.group, ssum, ssq)
     return c, ssum, ssq
 
@@ -318,11 +343,13 @@ class _PlanCtx:
 def plan(topo, output_ids=()):
     """Build the fusion plan: id(node) -> directive dict. Structural only.
 
-    Two passes: the conv+BN rewrites, then each pattern, in priority order,
-    over the still-unclaimed nodes (a matched root gets a ``pattern``
-    directive, its interior nodes ``lazy`` markers). ``output_ids`` are the
-    nodes whose values are program outputs: they are never folded, deferred
-    or a pattern's interior, since their values must materialise."""
+    Two passes: the conv+BN rewrites (unless ``MXNET_FUSED_CONV_BN=0``),
+    then each enabled pattern (``enabled_patterns()``, the training or the
+    inference map), in priority order, over the still-unclaimed nodes (a
+    matched root gets a ``pattern`` directive, its interior nodes ``lazy``
+    markers). ``output_ids`` are the nodes whose values are program
+    outputs: they are never folded, deferred or a pattern's interior, since
+    their values must materialise."""
     output_ids = frozenset(output_ids)
     consumers = {}
     for node in topo:
@@ -330,9 +357,18 @@ def plan(topo, output_ids=()):
             consumers.setdefault(id(inp), []).append((node, oi))
     order = {id(n): i for i, n in enumerate(topo)}
     directives = {}
-    _plan_conv_bn(topo, output_ids, consumers, order, directives)
+    if os.environ.get("MXNET_FUSED_CONV_BN", "auto") != "0":
+        _plan_conv_bn(topo, output_ids, consumers, order, directives)
+    # a pattern is PLANNED when either the training or the inference map
+    # enables it; each execution's gate reads its own map
+    modes = enabled_patterns()
+    for name, mode in enabled_patterns(infer=True).items():
+        if modes.get(name, "0") == "0" and mode != "0":
+            modes[name] = mode
     ctx = _PlanCtx(consumers, output_ids, directives)
     for pat in get_patterns():
+        if modes.get(pat.name, "0") == "0":
+            continue
         for node in topo:
             if node.is_variable or id(node) in directives:
                 continue
@@ -429,31 +465,540 @@ def plan_sites(directives):
     return sites, conv_bn
 
 
+# ----------------------------------------------------------------- env maps
+def enabled_patterns(infer=False):
+    """Per-pattern mode map from ``MXNET_FUSED_PATTERNS``: name ->
+    ``"auto"`` (engage per the gate), ``"1"`` (force the first candidate),
+    ``"0"`` (off), or a LOWERING NAME (force that candidate where it
+    exists; prefix-matched, and a ``pallas*`` name names the port's
+    kernel). Grammar (JAX :265-299): ``auto``/``all`` (every pattern in
+    auto, the default), ``0``/``off``/``none``, or a comma list of names
+    with optional forces (``attention,matmul_bias_act=1``) — listed
+    patterns get their mode, unlisted ones are off. ``infer=True`` reads
+    ``MXNET_FUSED_PATTERNS_INFER`` when set (the grad-less executions'
+    map). Memoized on the raw env string; callers get a fresh copy."""
+    names = pattern_names()
+    env = os.environ.get("MXNET_FUSED_PATTERNS", "auto").strip().lower()
+    if infer:
+        env = os.environ.get("MXNET_FUSED_PATTERNS_INFER",
+                             env).strip().lower() or env
+    cached = _patterns_env_memo.get(env)
+    if cached is not None:
+        return dict(cached)
+    modes = _parse_patterns_env(env, names)
+    _patterns_env_memo[env] = modes
+    return dict(modes)
+
+
+# copied from mxnet_tpu/fusion.py (_parse_patterns_env :302; backend-free)
+def _parse_patterns_env(env, names):
+    if env in ("", "auto", "all", "1"):
+        return {n: "auto" for n in names}
+    if env in ("0", "off", "none"):
+        return {n: "0" for n in names}
+    modes = {n: "0" for n in names}
+    for item in env.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        if item in ("auto", "all"):
+            modes = {n: "auto" for n in names}
+            continue
+        name, _, val = item.partition("=")
+        if name in modes:
+            if val in ("0", "1"):
+                modes[name] = val
+            elif val in ("", "auto"):
+                modes[name] = "auto"
+            else:
+                # a forced lowering NAME; one matching no known lowering
+                # family warns once (it would silently unfuse every site)
+                modes[name] = val
+                if (val not in _warned_forced_vals
+                        and not val.startswith(_LOWERING_FAMILIES)):
+                    _warned_forced_vals.add(val)
+                    _LOG.warning(
+                        "MXNET_FUSED_PATTERNS treats %s=%r as a FORCED "
+                        "lowering name, and it matches no known lowering "
+                        "family %s: every site will run unfused (use "
+                        "auto/0/1 for the mode grammar)",
+                        name, val, list(_LOWERING_FAMILIES))
+        else:
+            global _warned_patterns_env
+            if not _warned_patterns_env:
+                _warned_patterns_env = True
+                _LOG.warning("MXNET_FUSED_PATTERNS names unknown pattern %r "
+                             "(known: %s)", name, ", ".join(names))
+    return modes
+
+
+_warned_patterns_env = False
+_warned_forced_vals = set()
+_patterns_env_memo = {}
+#: candidate-name families the patterns emit (forced-name validation): the
+#: JAX package's, and the port's kernels' ``cuda``
+_LOWERING_FAMILIES = ("pallas", "block_causal", "chunked_kv", "fused",
+                      "onepass", "xla", "cuda")
+
+
+# ------------------------------------------------------------- conv+BN gate
+def _conv_bn_key(kernel, stride, x_shape, w_shape, dtype, res):
+    return "conv_bn|k%ds%d%s|%s%s;%s" % (
+        kernel[0], stride[0], "pr" if res else "p",
+        _dtype_name(dtype), tuple(int(d) for d in x_shape),
+        tuple(int(d) for d in w_shape))
+
+
+def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
+    """One conv+BN site's fwd+bwd measurement: the library (``F.conv2d`` of
+    the normalised input, the residual, the two sums, and autograd's
+    backward) against ``ConvBlock`` under each backward policy the port
+    has: ``cuda:xla`` (kernel forward, library backward) and
+    ``cuda:recompute`` (both kernels)."""
+    from .context import current_context
+    from .fusion_tune import measure_candidates
+
+    rs = np.random.RandomState(0)
+    dev = current_context().torch_device
+    dt = np.dtype(_dtype_name(dtype))
+    K = x_shape[1]
+    host = [rs.randn(*x_shape).astype(dt), (rs.randn(*w_shape) * 0.1).astype(dt),
+            rs.uniform(0.5, 1.5, (K,)).astype(np.float32),
+            rs.uniform(-0.2, 0.2, (K,)).astype(np.float32)]
+    if res:
+        Ho, Wo = _cb.strided_dims(x_shape[2], x_shape[3], stride)
+        host.append((rs.randn(x_shape[0], w_shape[0], Ho, Wo) * 0.1).astype(dt))
+    args = tuple(torch.from_numpy(a).to(dev) for a in host)
+
+    def baseline(x, w, scale, shift, r=None):
+        return _cb.conv_block_plain(x, w, scale, shift, r, stride, True)
+
+    def fused(x, w, scale, shift, r=None, bwd="recompute"):
+        return _cb.ConvBlock.apply(x, w, scale, shift, r, stride, True, bwd)
+
+    cands = [("cuda:" + policy, lambda *a, _p=policy: fused(*a, bwd=_p))
+             for policy in ("xla", "recompute")]
+    return measure_candidates(baseline, cands, args, train=True)
+
+
+def _conv_bn_verdict(kernel, stride, x_shape, w_shape, dtype, res):
+    """The measured verdict for this conv+BN site — cache hit, measure on
+    miss (tuning enabled), else None."""
+    from . import fusion_tune as _tune
+
+    if _tune.cache_dir() is None:
+        return None
+    key = _conv_bn_key(kernel, stride, x_shape, w_shape, dtype, res)
+    return _tune.verdict(key, lambda: _conv_bn_measure(
+        kernel, stride, x_shape, w_shape, dtype, res))
+
+
+def _conv_bn_peek(kernel, stride, x_shape, w_shape, dtype, res):
+    """Cache-only read of the conv+BN verdict (never measures)."""
+    from . import fusion_tune as _tune
+
+    return _tune.peek(_conv_bn_key(kernel, stride, x_shape, w_shape, dtype, res))
+
+
+def conv_schedule(kernel, stride, x_shape, w_shape, dtype, res):
+    """The tuned forward stripe override for an engaged site (JAX :623):
+    always None, since the port's conv kernels tile by their own schedule
+    and take no override."""
+    return None
+
+
+def gate_explain(kernel, stride, x_shape, w_shape, dtype, prologue,
+                 res=False, train=True):
+    """The per-shape engage decision WITH the predicate that made it:
+    ``(engaged, reason)``, in the JAX package's predicate order (:636):
+    the env switch, the shape gate, the force, then the measured verdict.
+    ``train=False`` reads the forward-only verdict. With no verdict (no
+    tune directory, or none cached and tuning off) the port engages the
+    site: it has no measured-win table to decline by."""
+    env = os.environ.get("MXNET_FUSED_CONV_BN", "auto")
+    if env == "0":
+        return False, "MXNET_FUSED_CONV_BN=0 (fusion disabled)"
+    if not _cb.supported(x_shape, w_shape, stride):
+        return False, ("shape %sx%s is not taken by the kernels' shape gate "
+                       "(supported() declined)" % (tuple(x_shape), tuple(w_shape)))
+    if env == "1":
+        return True, "forced (MXNET_FUSED_CONV_BN=1)"
+    if not prologue:
+        return True, ("bare conv (no folded BN prologue): never measured; the port "
+                      "engages it where the shape gate admits it")
+    rec = _conv_bn_verdict(kernel, stride, x_shape, w_shape, dtype, res)
+    if rec is not None:
+        want = "engage" if train else "engage_fwd"
+        if rec.get(want):
+            times = _rec_best_times(rec)
+            return True, ("measured win (tuned: fused %.0fµs vs xla "
+                          "%.0fµs fwd+bwd%s)"
+                          % (times + (losers_note(rec, rec.get("lowering")),))
+                          if times else "measured win (tuned)")
+        return False, tuned_reject_note(rec)
+    return True, ("no tune verdict (the port's default: every site its shape gate "
+                  "admits engages)")
+
+
+def gate(kernel, stride, x_shape, w_shape, dtype, prologue, res=False,
+         train=True):
+    """Per-shape engage decision (``gate_explain`` without the reason),
+    counted into ``fusion.fwd_*`` (``train``) or ``fusion.infer_*``."""
+    engaged, _ = gate_explain(kernel, stride, x_shape, w_shape, dtype,
+                              prologue, res=res, train=train)
+    if _tm.enabled():
+        if train:
+            _tm.counter("fusion.fwd_engaged" if engaged
+                        else "fusion.fwd_fallback").inc()
+        else:
+            _tm.counter("fusion.infer_engaged" if engaged
+                        else "fusion.infer_fallback").inc()
+    return engaged
+
+
+def infer_default():
+    """Whether the conv+BN plan is active on inference executions (JAX
+    :707): off under ``MXNET_FUSED_CONV_BN=0``; otherwise on, since the
+    port's stats-free kernel engages at every admitted inference site by
+    default (the JAX package needs a matching table or a quantized
+    variant). It equals whether ``plan`` plans conv+BN at all, so the
+    executor needs no inference mask (JAX's executor masks by it)."""
+    return os.environ.get("MXNET_FUSED_CONV_BN", "auto") != "0"
+
+
+_warned_bwd_env = False
+_noted_stash = False
+
+
+def bwd_mode(kernel, stride, x_shape, w_shape, dtype, prologue, res=False):
+    """The backward policy of an engaged site, counted into
+    ``fusion.bwd_engaged`` / ``fusion.bwd_xla``: ``"recompute"`` (the
+    fused backward kernel) or ``"xla"`` (the library backward)."""
+    mode = _bwd_mode_impl(kernel, stride, x_shape, w_shape, dtype, prologue, res=res)
+    if _tm.enabled():
+        _tm.counter("fusion.bwd_xla" if mode == "xla"
+                    else "fusion.bwd_engaged").inc()
+    return mode
+
+
+def _bwd_mode_impl(kernel, stride, x_shape, w_shape, dtype, prologue, res=False):
+    """``MXNET_FUSED_CONV_BN_BWD`` (JAX :755): ``0|xla`` pins the library
+    backward, ``1``/``recompute`` the kernel; ``stash`` resolves to
+    recompute with a one-time note (ROADMAP.md section 2b's stash backward
+    is not ported). ``auto`` reads a tuned verdict's policy, else takes the
+    kernel (the port's default)."""
+    global _noted_stash
+    env = os.environ.get("MXNET_FUSED_CONV_BN_BWD", "auto")
+    if env in ("0", "xla"):
+        return "xla"
+    if env == "stash":
+        if not _noted_stash:
+            _noted_stash = True
+            _LOG.warning("MXNET_FUSED_CONV_BN_BWD=stash: the port's conv backward has "
+                         "the recompute policy only until ROADMAP.md section 2b's stash "
+                         "backward lands; running recompute")
+        env = "recompute"
+    if env == "1":
+        env = "recompute"
+    elif env not in ("auto", "recompute"):
+        global _warned_bwd_env
+        if not _warned_bwd_env:
+            _warned_bwd_env = True
+            _LOG.warning("MXNET_FUSED_CONV_BN_BWD=%r not recognized "
+                         "(0|xla|1|recompute|stash|auto); backward stays on the library "
+                         "lowering", env)
+        return "xla"
+    tiles = _cb.supported(x_shape, w_shape, stride)
+    if env == "recompute" or not prologue:
+        return "recompute" if tiles else "xla"
+    rec = _conv_bn_peek(kernel, stride, x_shape, w_shape, dtype, res)
+    if rec is not None and rec.get("engage"):
+        policy = (rec.get("lowering") or "").partition(":")[2].partition("@")[0]
+        return policy if policy == "recompute" and tiles else "xla"
+    return "recompute" if tiles else "xla"
+
+
+# ----------------------------------------------------- generic pattern gate
+def _tune_key(pat, meta, args):
+    from .ops.fusion_patterns import sig_of
+
+    return "%s|%s|%s" % (pat.name, pat.key_variant(meta), sig_of(args))
+
+
+# copied from mxnet_tpu/fusion.py (_rec_best_times :832; backend-free)
+def _rec_best_times(rec):
+    """(fused_us, baseline_us) fwd+bwd totals from a tune record — the
+    engaged lowering's when one won, else the best measured candidate's.
+    None when nothing timed."""
+    base = rec.get("base_fwd_us")
+    if base is None:
+        return None
+    base += rec.get("base_bwd_us") or 0.0
+    if rec.get("fused_fwd_us") is not None:
+        return (rec["fused_fwd_us"] + (rec.get("fused_bwd_us") or 0.0), base)
+    best = None
+    for row in (rec.get("measured") or {}).values():
+        if row.get("fwd_us") is None:
+            continue
+        t = row["fwd_us"] + (row.get("bwd_us") or 0.0)
+        best = t if best is None or t < best else best
+    return None if best is None else (best, base)
+
+
+# copied from mxnet_tpu/fusion.py (losers_note :851; backend-free)
+def losers_note(rec, winner):
+    """The measured-losers clause of a schedule-search win: up to three
+    runner-up candidates with their fwd(+bwd) totals, fastest first."""
+    rows = []
+    for name, row in (rec.get("measured") or {}).items():
+        if name == winner or row.get("fwd_us") is None:
+            continue
+        if "rejected" in row or "error" in row:
+            continue  # failed parity / failed to run: not beaten on TIME
+        rows.append((row["fwd_us"] + (row.get("bwd_us") or 0.0), name))
+    if not rows:
+        return ""
+    rows.sort()
+    note = ", ".join("%s %.0fµs" % (n, t) for t, n in rows[:3])
+    extra = "" if len(rows) <= 3 else " +%d more" % (len(rows) - 3)
+    return "; beat %s%s" % (note, extra)
+
+
+# copied from mxnet_tpu/fusion.py (tuned_reject_note :871; backend-free)
+def tuned_reject_note(rec):
+    """The measured-timings clause for a tuned-and-rejected site."""
+    if "error" in rec:
+        return "tuned and failed to measure (%s)" % rec["error"]
+    times = _rec_best_times(rec)
+    if times is None:
+        return "tuned and rejected (no candidate lowering could be timed)"
+    return ("tuned and rejected (best fused %.0fµs vs baseline %.0fµs "
+            "fwd+bwd)" % times)
+
+
+def gate_pattern_explain(pat, meta, args, train=True):
+    """The per-site engage decision for a generic pattern WITH its
+    predicate: ``(engaged, (lowering_name, fn) | None, reason)``.
+
+    Predicate order (JAX :883, but the mesh: the port runs a rank's rows
+    as one program, so a site engages under any mesh): env mode
+    (``MXNET_FUSED_PATTERNS``) → inference eligibility → candidate
+    lowerings exist → forced, else the measured verdict (``fusion_tune``);
+    with none, the port engages its kernel (its default)."""
+    from . import fusion_tune as _tune
+
+    mode = enabled_patterns(infer=not train).get(pat.name, "0")
+    if mode == "0":
+        return False, None, ("pattern disabled (MXNET_FUSED_PATTERNS%s)"
+                             % ("" if train else "[_INFER]"))
+    if not train and not pat.inference:
+        return False, None, "pattern does not engage on inference executions"
+    baseline, cands = pat.build(meta, args)
+    if not cands:
+        return False, None, ("no fused lowering for this site (shape does "
+                             "not tile / variant unsupported)")
+    if mode == "1":
+        return True, cands[0], "forced (MXNET_FUSED_PATTERNS)"
+    if mode != "auto":
+        want = _port_name(mode)
+        match = next((c for c in cands if c[0] in (mode, want)),
+                     next((c for c in cands if c[0].startswith(want)), None))
+        if match is not None:
+            return True, match, ("forced (MXNET_FUSED_PATTERNS %s=%s)"
+                                 % (pat.name, mode))
+        return False, None, ("forced lowering %r has no candidate at "
+                             "this site" % mode)
+    if not getattr(pat, "tunable", True):
+        return False, None, ("no lowering distinct from the baseline to "
+                             "measure (engage via MXNET_FUSED_PATTERNS="
+                             "%s=1)" % pat.name)
+    key = _tune_key(pat, meta, args)
+
+    def _measure():
+        # synthetic inputs of the site's shapes on its device, never a
+        # bind's live arrays
+        from .ops.fusion_patterns import tuner_build
+
+        dev = args[0].device
+        sargs = tuple(torch.from_numpy(a).to(dev) for a in _tune.synth_like(args))
+        with tuner_build():
+            sbase, scands = pat.build(meta, sargs)
+        return _tune.measure_candidates(sbase, scands, sargs, train=True)
+
+    rec = _tune.verdict(key, _measure)
+    if rec is None:
+        return True, cands[0], ("no tune verdict (the port's default: its kernel at "
+                                "every admitted site)")
+    want = "engage" if train else "engage_fwd"
+    low = rec.get("lowering") if train else (rec.get("lowering_fwd")
+                                             or rec.get("lowering"))
+    if rec.get(want) and low:
+        fn = dict(cands).get(low)
+        if fn is None:
+            return False, None, ("cached lowering %r is unavailable for "
+                                 "this site" % low)
+        times = _rec_best_times(rec)
+        reason = "measured win (%s)" % low if times is None else (
+            "measured win (%s: fused %.0fµs vs baseline %.0fµs fwd+bwd%s)"
+            % ((low,) + times + (losers_note(rec, low),)))
+        return True, (low, fn), reason
+    return False, None, tuned_reject_note(rec)
+
+
+def _count_pattern(pat, engaged):
+    if _tm.enabled():
+        _tm.counter("fusion.pattern_engaged.%s" % pat.name if engaged
+                    else "fusion.pattern_fallback.%s" % pat.name).inc()
+
+
+class _Arg:
+    """A value's shape, dtype and device: what the gates read of a site's
+    inputs when it is resolved at bind."""
+
+    __slots__ = ("shape", "dtype", "device")
+
+    def __init__(self, shape, dtype, device):
+        self.shape, self.dtype, self.device = shape, dtype, device
+
+
 def attention_trains_flash(q_shape, k_shape, dtype, causal, scale=-1.0):
     """Whether TRAINING through an attention site with these (B, H, T, D)
     query and (B, H, S, D) key shapes engages the flash kernels, whose
     backward recomputes the softmax and never stashes the (B, H, T, S)
-    probabilities (JAX :959, the memory plan's score-stash elision). The
-    port has no pattern switch and no tuner: a site trains flash exactly
-    where ``ops/flash_attention.supported`` takes its shapes."""
+    probabilities (JAX :959, the memory plan's score-stash elision): where
+    ``ops/flash_attention.supported`` takes the shapes and the pattern
+    mode, a forced name or a tuned verdict picks ``cuda_flash`` (the
+    port's first and only candidate, so ``1`` and ``auto`` with no verdict
+    pick it)."""
     try:
         from .ops import flash_attention as _fa
+        from . import fusion_tune as _tune
 
         B, H, T, D = (int(s) for s in q_shape)
         S = int(k_shape[2])
-        return bool(_fa.supported((B * H, T, D), (B * H, S, D), bool(causal)))
+        if not _fa.supported((B * H, T, D), (B * H, S, D), bool(causal)):
+            return False
+        mode = enabled_patterns().get("attention", "0")
+        if mode in ("0", "1"):
+            return mode == "1"
+        if mode != "auto":
+            return _port_name(mode).startswith("cuda_flash")
+        pat = next(p for p in get_patterns() if p.name == "attention")
+        meta = {"causal": bool(causal), "scale": float(scale)}
+        args = (_Arg(tuple(q_shape), dtype, None), _Arg(tuple(k_shape), dtype, None),
+                _Arg(tuple(k_shape), dtype, None))
+        rec = _tune.peek(_tune_key(pat, meta, args))
+        if rec is None:
+            return True
+        return bool(rec.get("engage") and str(rec.get("lowering") or "").startswith(
+            "cuda_flash"))
     except Exception:  # a planner refinement must never sink an analysis
         return False
 
 
+# ---------------------------------------------------------- bind resolution
+def _site_prologue(node, directives):
+    """Whether a planned conv's data input is a folded BatchNorm (a
+    ``Deferred`` with its scale and shift) in this plan."""
+    src = node.inputs[0][0]
+    d = directives.get(id(src))
+    return d is not None and (d["kind"] == "relu_fold"
+                              or (d["kind"] == "bn" and d["fold"]))
+
+
+def _resolve_conv(d, x, w, prologue):
+    kernel, stride, res = d["kernel"], d["stride"], d["defer"]
+    engaged = gate(kernel, stride, x.shape, w.shape, x.dtype, prologue, res=res)
+    bwd = bwd_mode(kernel, stride, x.shape, w.shape, x.dtype, prologue, res=res) \
+        if engaged else None
+    quant = quant_mode()
+    infer = None if quant == "bf16" else gate(kernel, stride, x.shape, w.shape, x.dtype,
+                                              prologue, res=False, train=False)
+    # the tune-cache keys the two verdicts read (a bare conv is never measured)
+    keys = [_conv_bn_key(kernel, stride, x.shape, w.shape, x.dtype, r) if prologue else None
+            for r in (res, False)]
+    return dict(d, train=(engaged, bwd), infer=infer, quant=quant, key=keys[0],
+                infer_key=keys[1])
+
+
+def _resolve_pattern(d, args):
+    pat, meta = d["pat"], d["meta"]
+    out = dict(d, key=_tune_key(pat, meta, args))
+    for mode, train in (("train", True), ("infer", False)):
+        engaged, chosen, reason = gate_pattern_explain(pat, meta, args, train=train)
+        _count_pattern(pat, engaged)
+        out[mode] = chosen[0] if engaged else None
+        out[mode + "_reason"] = reason
+    return out
+
+
+def _unresolved(node):
+    return MXNetError("fusion: the input shapes or dtypes of the planned site %s (%s) do "
+                      "not infer at bind, so its gates cannot be decided there"
+                      % (node.name, node.op))
+
+
+def resolve_sites(symbol, directives, shapes, types, device):
+    """The plan as this bind runs it: every conv and pattern directive
+    copied with its verdicts at the bind's ``shapes``/``types`` (name ->
+    shape / dtype of the arguments and aux states) on ``device``, each gate
+    decided now, once (a measurement, under ``MXNET_FUSION_TUNE_DIR``, too).
+    A site whose input shapes or dtypes do not infer raises ``MXNetError``.
+    Other directives are shared with ``directives``."""
+    if not any(d["kind"] in ("conv", "pattern") for d in directives.values()):
+        return directives
+    from .analysis.manager import GraphContext
+    from .analysis.shape_lint import propagate
+
+    ctx = GraphContext(symbol, shape_hints=shapes, type_hints=types, strict_shapes=False)
+    propagate(ctx)
+    out = dict(directives)
+
+    def arg(node, i):
+        sh = ctx.entry_shape.get((id(node), i))
+        return None if sh is None else _Arg(tuple(sh), ctx.entry_dtype.get((id(node), i)),
+                                            device)
+
+    def static(v):
+        return arg(v.node, 0) if isinstance(v, Lazy) else v
+
+    vals = {}
+    for node in ctx.topo:
+        d = directives.get(id(node))
+        ins = [vals.get((id(i), oi)) for i, oi in node.inputs]
+        if d is not None and d["kind"] == "lazy":
+            vals[(id(node), 0)] = Lazy(node, ins)
+            continue
+        if d is not None and d["kind"] == "conv":
+            x = static(ins[0]) if ins[0] is not None else None
+            if x is None or ins[1] is None or x.dtype is None:
+                raise _unresolved(node)
+            out[id(node)] = _resolve_conv(d, x, ins[1], _site_prologue(node, directives))
+        elif d is not None and d["kind"] == "pattern":
+            try:
+                args = d["pat"].externals(d["meta"], ins, static)
+            except (AttributeError, IndexError, TypeError):
+                args = None  # an input whose shape does not infer
+            if args is None or not all(a is not None and a.dtype is not None for a in args):
+                raise _unresolved(node)
+            out[id(node)] = _resolve_pattern(d, args)
+        for i in range(1 if node.is_variable else node.num_outputs()):
+            vals[(id(node), i)] = arg(node, i)
+    return out
+
+
 # -------------------------------------------------------------------- execute
-def _exec_pattern(directive, node, ins):
-    """Run one pattern-rooted node through its lowering, or, on the CPU only,
-    the unfused root op where the kernel does not take the site's shapes."""
+def _exec_pattern(directive, node, ins, is_train):
+    """Run one pattern-rooted node: the lowering its resolved directive
+    names, else the unfused root op over resolved inputs."""
     pat, meta = directive["pat"], directive["meta"]
-    args = pat.externals(meta, ins, resolve)
-    fn = pat.build(meta, args)
-    if fn is not None:
+    low = directive["train" if is_train else "infer"]
+    if low is not None:
+        args = pat.externals(meta, ins, resolve)
+        fn = dict(pat.build(meta, args)[1]).get(low)
+        if fn is None:
+            raise MXNetError("fusion: %s resolved %r at bind, which its inputs at run "
+                             "time do not offer" % (node.name, low))
         return (fn(*args),)
     outs, _ = get_op(node.op).apply(node.parsed_attrs(), [resolve(v) for v in ins])
     return tuple(outs)
@@ -477,7 +1022,7 @@ def execute(directive, node, ins, aux, is_train):
     if kind == "lazy":
         return (Lazy(node, ins),), ()
     if kind == "pattern":
-        return _exec_pattern(directive, node, ins), ()
+        return _exec_pattern(directive, node, ins, is_train), ()
     raise AssertionError(kind)
 
 
@@ -534,31 +1079,73 @@ def _conv_unfused(v, w, stride):
 
 def _exec_conv(directive, ins):
     """A planned conv in a training forward (JAX :1173-1238): the fused
-    kernel where the shape gate takes it, as a ``PendingConv`` when the
-    site is deferred into a residual add, else with its statistics, summed
-    over the processes of a mesh that spans them (the gate reads the
-    rank's own rows, as JAX's reads the shard's)."""
+    kernel where its gate engaged it, as a ``PendingConv`` when the site is
+    deferred into a residual add, else with its statistics, summed over
+    the processes of a mesh that spans them (the gate read the rank's own
+    rows, as JAX's reads the shard's)."""
     v, w = ins[0], resolve(ins[1])
     stride = directive["stride"]
     x, scale, shift, relu = _conv_input(v)
-    if not _cb.supported(x.shape, w.shape, stride):
+    engaged, bwd = directive["train"]
+    if not engaged:
         return _conv_unfused(v, w, stride)
     if directive["defer"]:
-        return PendingConv(x, w, scale, shift, relu, stride)
+        return PendingConv(x, w, scale, shift, relu, stride, bwd)
     mesh = _cross_process_mesh()
     if mesh is not None:
-        return WithStats(*_conv_block_sharded(mesh, x, w, scale, shift, None, stride, relu))
-    return WithStats(*_cb.ConvBlock.apply(x, w, scale, shift, None, stride, relu))
+        return WithStats(*_conv_block_sharded(mesh, x, w, scale, shift, None, stride, relu,
+                                              bwd))
+    return WithStats(*_cb.ConvBlock.apply(x, w, scale, shift, None, stride, relu, bwd))
+
+
+_warned_quant_env = False
+
+
+def quant_mode():
+    """The requested quantized-inference variant: ``off`` | ``bf16`` |
+    ``int8`` (``MXNET_SERVE_QUANT``, JAX :1245). Unrecognized values warn
+    once and stay off."""
+    env = os.environ.get("MXNET_SERVE_QUANT", "off").strip().lower()
+    if env in ("", "0", "off", "none", "fp32", "float32"):
+        return "off"
+    if env in ("bf16", "bfloat16"):
+        return "bf16"
+    if env == "int8":
+        return "int8"
+    global _warned_quant_env
+    if not _warned_quant_env:
+        _warned_quant_env = True
+        _LOG.warning("MXNET_SERVE_QUANT=%r not recognized (off|bf16|int8); "
+                     "quantized inference stays off", env)
+    return "off"
+
+
+def _quant_weight(w):
+    """``int8``: weight-only symmetric per-output-channel quantization (JAX
+    ``_quant_conv_inputs`` :1267) — w snaps to the 255-point grid of its
+    channel's scale and is dequantized, so the float32 kernel computes with
+    the int8 grid's values."""
+    w32 = w.to(torch.float32)
+    s = w32.abs().amax(dim=tuple(range(1, w.ndim)), keepdim=True) / 127.0
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    return (torch.clamp(torch.round(w32 / s), -127, 127) * s).to(w.dtype)
 
 
 def _exec_conv_infer(directive, ins):
     """A planned conv in an inference forward (JAX :1299-1344): the
-    stats-free kernel, the BN prologue folded with its moving stats. A
-    deferred site runs here too, and its add is a plain add."""
+    stats-free kernel, the BN prologue folded with its moving stats, the
+    weight quantized under ``MXNET_SERVE_QUANT=int8``. A deferred site runs
+    here too, and its add is a plain add."""
     v, w = ins[0], resolve(ins[1])
     stride = directive["stride"]
     x, scale, shift, relu = _conv_input(v)
-    if not _cb.supported(x.shape, w.shape, stride):
+    quant = directive["quant"]
+    if quant == "bf16":
+        raise MXNetError("MXNET_SERVE_QUANT=bf16: the port's conv kernels take float32; "
+                         "bf16 inputs come with the TF32/bf16 PR (ROADMAP.md section 2b)")
+    if quant == "int8":
+        w = _quant_weight(w)
+    if not directive["infer"]:
         return _conv_unfused(v, w, stride)
     return _cb.conv_block_infer(x, w, scale, shift, stride, relu)
 

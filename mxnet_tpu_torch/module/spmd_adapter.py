@@ -65,11 +65,10 @@ class SPMDStepAdapter:
         self._data_names = _names(module._data_shapes) or list(module._data_names)
         self._label_names = _names(module._label_shapes) or list(module._label_names)
         self._ctx = module._context[0]
-        # the trainer runs the bind-time rewrite itself, as executor.bind
-        # does (JAX gates it with MXNET_GRAPHREWRITE here); weight names are
-        # kept, so params, checkpoints and store keys are unaffected
+        # the bind-time rewrite with the module's shapes (JAX :56-57); weight
+        # names are kept, so params, checkpoints and store keys are unaffected
         self.trainer = SPMDTrainer(
-            module._symbol,
+            self._rewrite_symbol(module),
             mesh,
             data_names=tuple(self._data_names),
             label_names=tuple(self._label_names),
@@ -114,6 +113,17 @@ class SPMDStepAdapter:
             if dt is not None:
                 types[name] = np.dtype(dt)
         return shapes, types
+
+    def _rewrite_symbol(self, module):
+        """The rewrite hook of the fused-step bind path (JAX :110-120): the
+        trainer runs the REWRITTEN graph, with ``executor.bind``'s
+        verify/fallback semantics (and, under ``MXNET_GRAPHREWRITE=0``, the
+        port's always-on rules)."""
+        from ..analysis.rewrite import rewrite_for_bind
+
+        shapes, types = self._bind_hints(module)
+        return rewrite_for_bind(module._symbol, shapes, types, grad_req="write",
+                                target="spmd_bind")[0]
 
     def _lint_plan(self, module):
         """``MXNET_GRAPHLINT`` on the fused-step bind path (JAX :123-137).

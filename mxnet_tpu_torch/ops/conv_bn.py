@@ -352,16 +352,22 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
 
 
 class ConvBlock(torch.autograd.Function):
-    """``(c, ssum, ssq) = conv_block(x, w, scale, shift, res)`` with the
-    fused backward as its gradient (the recompute policy: saves x, w,
-    scale, shift and c, as JAX ``_conv_block_fwd`` :507 does). A cotangent
-    autograd leaves out (an unused statistic) is zero."""
+    """``(c, ssum, ssq) = conv_block(x, w, scale, shift, res)`` with its
+    gradient by ``bwd``: ``"recompute"`` (the default) the fused backward
+    kernel, which saves x, w, scale, shift and c, as JAX
+    ``_conv_block_fwd`` :507 does; ``"xla"`` the plain version's backward
+    (library products, JAX's ``bwd="xla"``), which the fusion gate picks
+    where a tuned verdict or ``MXNET_FUSED_CONV_BN_BWD`` asks for it. A
+    cotangent autograd leaves out (an unused statistic) is zero."""
 
     @staticmethod
-    def forward(ctx, x, w, scale, shift, res, stride, relu):
+    def forward(ctx, x, w, scale, shift, res, stride, relu, bwd="recompute"):
+        if bwd not in ("recompute", "xla"):
+            raise MXNetError("ConvBlock: bwd must be 'recompute' or 'xla', got %r" % (bwd,))
         c, ssum, ssq = conv_block(x, w, scale, shift, res, stride, relu)
         ctx.save_for_backward(x, w, scale, shift, c)
         ctx.stride, ctx.relu, ctx.has_res = tuple(stride), bool(relu), res is not None
+        ctx.bwd = bwd
         return c, ssum, ssq
 
     @staticmethod
@@ -371,9 +377,10 @@ class ConvBlock(torch.autograd.Function):
         dc = torch.zeros_like(c) if dc is None else dc.contiguous()
         ds = torch.zeros(N, dtype=acc, device=c.device) if ds is None else ds.contiguous()
         dq = torch.zeros(N, dtype=acc, device=c.device) if dq is None else dq.contiguous()
-        dx, dw, dscale, dshift, dres = conv_block_bwd(x, w, scale, shift, c, dc, ds, dq,
-                                                      ctx.stride, ctx.relu, ctx.has_res)
-        return dx, dw, dscale, dshift, dres, None, None
+        run = conv_block_bwd if ctx.bwd == "recompute" else conv_block_bwd_plain
+        dx, dw, dscale, dshift, dres = run(x, w, scale, shift, c, dc, ds, dq,
+                                           ctx.stride, ctx.relu, ctx.has_res)
+        return dx, dw, dscale, dshift, dres, None, None, None
 
 
 def flops(x_shape, w_shape, stride):

@@ -156,7 +156,8 @@ def check_operands(what, *tensors):
             raise MXNetError("%s: operands must share one CUDA device, got %s and %s"
                              % (what, dev, t.device))
         if t.dtype != torch.float32:
-            raise MXNetError("%s: the kernel takes float32, got %s" % (what, t.dtype))
+            raise MXNetError("%s: the kernel takes float32, got %s (other dtypes come with "
+                             "the TF32/bf16 PR, ROADMAP.md section 2b)" % (what, t.dtype))
         if not t.is_contiguous():
             raise MXNetError("%s: the kernel takes contiguous tensors" % what)
 

@@ -1,40 +1,57 @@
-"""The fusion patterns of the transformer's serving and training paths.
+"""Declarative pattern registry for the subgraph fusion engine.
 
-Counterpart of ``mxnet_tpu/ops/fusion_patterns.py`` for three patterns,
-whose matchers are unchanged:
+Counterpart of ``mxnet_tpu/ops/fusion_patterns.py``, its four patterns with
+their matchers unchanged:
 
 - ``attention``       — the MultiHeadAttention op, onto the flash-attention
   kernel (``ops/flash_attention.py``);
 - ``matmul_bias_act`` — FullyConnected(+bias) → Activation, onto the
   matmul + bias + activation kernel (``ops/matmul_bias_act.py``);
 - ``norm_residual``   — the LayerNorm composition the transformer zoo
-  emits, onto the LayerNorm kernel (``ops/norm_residual.py``).
+  emits, onto the LayerNorm kernel (``ops/norm_residual.py``);
+- ``elemwise_chain``  — runs of single-consumer unary elementwise ops, one
+  grouping unit with no lowering distinct from the chain (``tunable =
+  False``, as in the JAX package).
 
 Contract per pattern: ``match(node, ctx)`` roots a ``Match`` (root,
 interior nodes, meta) or returns None; interior nodes are single-output,
-stateless, unclaimed and not program outputs, and the executor elides
-them behind lazy markers. ``externals(meta, ins, resolve)`` recovers the
-subgraph's external inputs. ``build(meta, args)`` returns the one lowering:
-the kernel module's autograd Function wrapped to the site's layout, so a
-site is differentiable through the kernels' backward on CUDA and through
-their plain versions on the CPU. There is no
-autotuner: a matched site always takes its kernel on CUDA and the kernel's
-plain version on the CPU. Only a CPU site whose shapes the kernel does not
-take gets None from ``build`` and runs the unfused ops, as the JAX gate
-does off the TPU; a CUDA site goes to the dispatcher, which raises.
+stateless, unclaimed and not program outputs, and the executor elides them
+behind lazy markers. ``externals(meta, ins, resolve)`` recovers the
+subgraph's external inputs. ``build(meta, args)`` returns ``(baseline,
+[(name, fn), ...])`` as the JAX package's does: the baseline is the unfused
+composition in PyTorch (library calls on the card: the measurement
+reference), the candidates the port's kernel as its autograd Function,
+under its launcher's own schedule. A schedule variant is added only where
+a launcher already has a choice: ``matmul_bias_act``'s ``small_m`` and
+``tiles`` (``cuda@schedule=<name>``). On a CPU tensor a candidate runs the
+kernel's plain version, and a site whose shapes the kernel does not take
+has no candidate (the unfused ops run); a CUDA site always has the kernel,
+whose dispatcher raises where it does not take the shapes.
+
+The fusion gate (``fusion.gate_pattern_explain``) picks a candidate per
+site at bind: by ``MXNET_FUSED_PATTERNS``, by the measured verdict of
+``fusion_tune`` under ``MXNET_FUSION_TUNE_DIR``, and otherwise (the port's
+default) the kernel. A forced lowering name of the JAX package's
+``pallas*`` family names the port's kernel candidate (``_port_name``), so
+an environment written for the JAX package picks the same sites.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import numpy as np
+import torch
 
 from .registry import get_op
 from . import flash_attention as _fa
 from . import matmul_bias_act as _mba
 from . import norm_residual as _nr
+from .nn import _ACTS
 
-__all__ = ["Match", "Pattern", "get_patterns", "pattern_names"]
+__all__ = ["Match", "Pattern", "get_patterns", "pattern_names", "sig_of",
+           "tuner_build"]
 
 
 class Match:
@@ -46,6 +63,11 @@ class Match:
 
 class Pattern:
     name = None
+    inference = True  # may engage on grad-less (is_train=False) executions
+
+    def key_variant(self, meta):
+        """The meta component of the tune-cache key (shape-independent)."""
+        return ""
 
     def match(self, node, ctx):
         raise NotImplementedError
@@ -55,6 +77,73 @@ class Pattern:
 
     def build(self, meta, args):
         raise NotImplementedError
+
+    def reject_reason(self, node, ctx):
+        return None
+
+
+def _dtype_name(dt):
+    if isinstance(dt, torch.dtype):
+        return str(dt).rpartition(".")[2]
+    return np.dtype(dt).name
+
+
+def sig_of(args):
+    """Canonical shape/dtype signature of the external inputs — the tune
+    cache key's site component (JAX :83; a torch dtype prints as numpy's)."""
+    return ";".join("%s%s" % (_dtype_name(a.dtype), tuple(int(d) for d in a.shape))
+                    for a in args)
+
+
+def _sched_budget():
+    """How many schedule variants (beyond the default) a pattern may emit
+    per candidate family (``MXNET_FUSION_TUNE_SCHEDULES``)."""
+    from .. import fusion_tune
+
+    return fusion_tune.schedule_budget()
+
+
+_tuner_scope = threading.local()
+
+
+# copied from mxnet_tpu/ops/fusion_patterns.py (tuner_build; backend-free)
+@contextlib.contextmanager
+def tuner_build():
+    """Marks a ``build()`` call made to CONSTRUCT MEASUREMENT candidates
+    (the auto-mode tuner): inside it ``_forced_lowering_requested`` reads
+    False, so a force of one execution mode never steers a measurement."""
+    _tuner_scope.active = True
+    try:
+        yield
+    finally:
+        _tuner_scope.active = False
+
+
+def _port_name(name):
+    """The port's candidate name for a forced lowering name: the JAX
+    package's ``pallas*`` family names the port's kernel (``pallas_flash``
+    → ``cuda_flash``, ``pallas`` or ``pallas@bm=..`` → ``cuda``; the TPU
+    block schedules have no counterpart); any other name is kept."""
+    name = str(name)
+    if name.startswith("pallas"):
+        return "cuda" + name.partition("@")[0][len("pallas"):]
+    return name
+
+
+def _forced_lowering_requested(pattern_name, prefix):
+    """Whether MXNET_FUSED_PATTERNS[_INFER] forces a lowering whose name
+    (or its port name) starts with ``prefix`` for this pattern (JAX :125).
+    Inside ``tuner_build`` it reads False."""
+    if getattr(_tuner_scope, "active", False):
+        return False
+    from .. import fusion
+
+    for infer in (False, True):
+        m = fusion.enabled_patterns(infer=infer).get(pattern_name, "0")
+        if m not in ("0", "1", "auto") and (m.startswith(prefix)
+                                             or _port_name(m).startswith(prefix)):
+            return True
+    return False
 
 
 # ------------------------------------------- match helpers (as in mxnet_tpu)
@@ -78,10 +167,19 @@ def _interior_ok(ctx, node):
             and not op.aux_names(node.parsed_attrs()))
 
 
-def _unfused_on_cpu(x, taken):
-    """Whether a site whose shapes the kernel takes (``taken``) or not runs
-    the unfused ops instead: only on the CPU, never on CUDA."""
-    return not taken and x.device.type == "cpu"
+def _apply1(node, *ins):
+    """Run a single-output, stateless node on concrete values — the exact
+    unfused semantics (the op the interpreter would call)."""
+    outs, _ = get_op(node.op).apply(node.parsed_attrs(), list(ins),
+                                    aux=[], is_train=False, rng=None)
+    return outs[0]
+
+
+def _has_kernel(x, taken):
+    """Whether a site gets its kernel candidate: always on CUDA (whose
+    dispatcher raises where the kernel does not take the shapes), and on
+    the CPU where the kernel's plain version takes them."""
+    return taken or x.device.type != "cpu"
 
 
 # ------------------------------------------------------------ matmul_bias_act
@@ -90,11 +188,18 @@ class MatmulBiasAct(Pattern):
 
     name = "matmul_bias_act"
 
+    def key_variant(self, meta):
+        return "%s%s%s" % (meta["act"],
+                           "" if meta["flatten"] else ",noflat",
+                           ",nobias" if meta["no_bias"] else "")
+
+    _ACTS = _mba.ACTIVATIONS
+
     def match(self, node, ctx):
         if node.op != "Activation" or id(node) in ctx.claimed:
             return None
         act = node.parsed_attrs().get("act_type")
-        if act not in _mba.ACTIVATIONS:
+        if act not in self._ACTS:
             return None
         if not node.inputs or node.inputs[0][1] != 0:
             return None
@@ -108,33 +213,77 @@ class MatmulBiasAct(Pattern):
                                   "flatten": bool(a.get("flatten", True)),
                                   "no_bias": bool(a.get("no_bias", False))})
 
+    # copied from mxnet_tpu/ops/fusion_patterns.py (reject_reason; backend-free)
+    def reject_reason(self, node, ctx):
+        if node.op != "FullyConnected":
+            return None
+        cons = ctx.consumers.get(id(node), [])
+        acts = [c for c, oi in cons if oi == 0 and c.op == "Activation"
+                and c.parsed_attrs().get("act_type") in self._ACTS]
+        if not acts:
+            return None
+        if len(cons) != 1:
+            return ("its output has %d consumers; the activation epilogue "
+                    "needs the FullyConnected consumed exactly once"
+                    % len(cons))
+        if id(node) in ctx.output_ids:
+            return "its output is a program output and must materialize"
+        return None
+
     def externals(self, meta, ins, resolve):
         return tuple(resolve(v) for v in ins[0].ins)  # (x, w) or (x, w, b)
 
     def build(self, meta, args):
+        act, flatten = meta["act"], meta["flatten"]
+        act_fn = _ACTS[act]
+
+        def baseline(x, w, b=None):
+            if flatten:
+                y = torch.matmul(x.reshape(x.shape[0], -1) if x.ndim != 2 else x, w.t())
+            else:
+                y = torch.matmul(x, w.t())
+            if b is not None:
+                y = y + b
+            return act_fn(y)
+
         x, w = args[0], args[1]
-        if meta["flatten"]:
+        if flatten:
             m, k = int(x.shape[0]), int(np.prod(x.shape[1:]))
         else:
             m, k = int(np.prod(x.shape[:-1])), int(x.shape[-1])
         n = int(w.shape[0])
-        if _unfused_on_cpu(x, k == int(w.shape[1])):
-            return None
-        act, flatten = meta["act"], meta["flatten"]
+        cands = []
+        if k == int(w.shape[1]):
 
-        def fused(x, w, b=None):
-            y = _mba.MatmulBiasAct.apply(x.reshape(m, k).contiguous(), w.contiguous(),
-                                         None if b is None else b.contiguous(), act)
-            return y if flatten else y.reshape(tuple(x.shape[:-1]) + (n,))
+            def make(schedule):
+                def fused(x, w, b=None):
+                    y = _mba.MatmulBiasAct.apply(x.reshape(m, k).contiguous(), w.contiguous(),
+                                                 None if b is None else b.contiguous(), act,
+                                                 schedule)
+                    return y if flatten else y.reshape(tuple(x.shape[:-1]) + (n,))
 
-        return fused
+                return fused
+
+            default = _mba._schedule(m, n, k)
+            cands.append(("cuda", make(None)))
+            others = [s for s in _mba.SCHEDULES if s != default
+                      and (s != "small_m" or _mba._small_m_takes(m, k))]
+            cands.extend(("cuda@schedule=%s" % s, make(s)) for s in others[:_sched_budget()])
+        return baseline, cands
 
 
 # ------------------------------------------------------------------ attention
 class Attention(Pattern):
-    """The fused MultiHeadAttention op, onto the flash-attention kernel."""
+    """The fused MultiHeadAttention op, onto the flash-attention kernel
+    (forward and backward: training through the site never stashes the
+    (B, H, T, S) probabilities)."""
 
     name = "attention"
+
+    def key_variant(self, meta):
+        return ("causal" if meta["causal"] else "full") + (
+            ",s%g" % meta["scale"] if meta["scale"] > 0 else "")
+
     _OPS = ("_contrib_MultiHeadAttention", "MultiHeadAttention")
 
     def match(self, node, ctx):
@@ -144,6 +293,9 @@ class Attention(Pattern):
         return Match(node, [], {"causal": bool(a.get("causal")),
                                 "scale": float(a.get("scale", -1.0))})
 
+    def reject_reason(self, node, ctx):
+        return None  # every attention node roots a match
+
     def externals(self, meta, ins, resolve):
         return tuple(resolve(v) for v in ins)  # (q, k, v)
 
@@ -152,9 +304,17 @@ class Attention(Pattern):
         B, H, T, D = (int(s) for s in q.shape)
         S = int(k.shape[2])
         causal = meta["causal"]
-        if _unfused_on_cpu(q, _fa.supported((B * H, T, D), (B * H, S, D), causal)):
-            return None
         scale = meta["scale"] if meta["scale"] > 0 else 1.0 / math.sqrt(D)
+
+        def baseline(q, k, v):
+            # the dense composition: scores, the bottom-right causal mask,
+            # softmax, the weighted sum (in float32 or wider)
+            wide = torch.promote_types(q.dtype, torch.float32)
+            s = torch.matmul(q.to(wide), k.to(wide).transpose(-1, -2)) * scale
+            if causal:
+                mask = torch.ones((T, S), dtype=torch.bool, device=s.device).tril(S - T)
+                s = s.masked_fill(~mask, float("-inf"))
+            return torch.matmul(torch.softmax(s, dim=-1), v.to(wide)).to(q.dtype)
 
         def flash(q, k, v):
             o = _fa.FlashAttention.apply(q.reshape(B * H, T, D).contiguous(),
@@ -162,7 +322,8 @@ class Attention(Pattern):
                                          v.reshape(B * H, S, D).contiguous(), causal, scale)
             return o.reshape(B, H, T, D)
 
-        return flash
+        taken = _fa.supported((B * H, T, D), (B * H, S, D), causal)
+        return baseline, [("cuda_flash", flash)] if _has_kernel(q, taken) else []
 
 
 # -------------------------------------------------------------- norm_residual
@@ -183,6 +344,9 @@ class NormResidual(Pattern):
     rooted at the final broadcast_add."""
 
     name = "norm_residual"
+
+    def key_variant(self, meta):
+        return "eps%g" % meta["eps"]
 
     def _chain(self, node, ctx):
         """The matched interior chain and meta, or (None, reason)."""
@@ -276,11 +440,16 @@ class NormResidual(Pattern):
         return (x, gamma, beta)
 
     def build(self, meta, args):
+        eps = meta["eps"]
+
+        def baseline(x, gamma, beta):
+            mean = x.mean(dim=-1, keepdim=True)
+            cent = x - mean
+            var = (cent * cent).mean(dim=-1, keepdim=True)
+            return (cent * torch.rsqrt(var + eps)) * gamma + beta
+
         x = args[0]
         D = int(x.shape[-1])
-        if _unfused_on_cpu(x, _nr.supported((1, D))):
-            return None
-        eps = meta["eps"]
 
         def layer_norm(x, gamma, beta):
             y = _nr.LayerNormAffine.apply(x.reshape(-1, D).contiguous(),
@@ -288,14 +457,99 @@ class NormResidual(Pattern):
                                           beta.reshape(D).contiguous(), eps)
             return y.reshape(x.shape)
 
-        return layer_norm
+        taken = _nr.supported((1, D))
+        return baseline, [("cuda", layer_norm)] if _has_kernel(x, taken) else []
 
 
-_PATTERNS = (Attention(), MatmulBiasAct(), NormResidual())
+# ------------------------------------------------------------- elemwise_chain
+# copied from mxnet_tpu/ops/fusion_patterns.py (ElemwiseChain; backend-free)
+class ElemwiseChain(Pattern):
+    """Runs of ≥2 single-consumer unary elementwise ops, composed into one
+    lowering unit (one fusion decision instead of N).
+
+    ``tunable = False``: the composed lowering is the unfused chain itself,
+    so auto mode never measures it; ``=1`` force-engages."""
+
+    name = "elemwise_chain"
+    tunable = False
+
+    def key_variant(self, meta):
+        parts = []
+        for n in meta["nodes"]:
+            if n.op == "Activation":
+                parts.append(n.parsed_attrs().get("act_type"))
+            elif n.op.endswith("_scalar"):
+                parts.append("%s(%g)" % (n.op, n.parsed_attrs()["scalar"]))
+            else:
+                parts.append(n.op)
+        return "-".join(parts)
+
+    _UNARY = frozenset({
+        "abs", "square", "sqrt", "rsqrt", "exp", "log", "log1p", "expm1",
+        "negative", "reciprocal", "relu", "sigmoid", "tanh", "softsign",
+        "_plus_scalar", "_minus_scalar", "_mul_scalar", "_div_scalar",
+    })
+
+    def _link_ok(self, node):
+        if node.is_variable:
+            return False
+        if node.op == "Activation":
+            return node.parsed_attrs().get("act_type") in (
+                "relu", "sigmoid", "tanh", "softrelu")
+        return node.op in self._UNARY
+
+    def match(self, node, ctx):
+        if id(node) in ctx.claimed or node.is_variable:
+            return None
+        if not self._link_ok(node):
+            return None
+        # only root at the END of a chain: a sole whitelisted consumer
+        # would extend it, so let that consumer root instead
+        nxt = _sole_consumer(ctx, node)
+        if (nxt is not None and self._link_ok(nxt)
+                and id(nxt) not in ctx.claimed
+                and id(node) not in ctx.output_ids):
+            return None
+        chain = []
+        cur = node
+        while True:
+            if not cur.inputs or cur.inputs[0][1] != 0:
+                break
+            prev = cur.inputs[0][0]
+            if (not self._link_ok(prev) or not _interior_ok(ctx, prev)
+                    or _sole_consumer(ctx, prev) is not cur):
+                break
+            chain.append(prev)
+            cur = prev
+        if not chain:
+            return None
+        nodes = list(reversed(chain)) + [node]  # innermost-first, root last
+        return Match(node, chain, {"nodes": nodes})
+
+    def externals(self, meta, ins, resolve):
+        from .. import fusion
+
+        v = ins[0]
+        while isinstance(v, fusion.Lazy):
+            v = v.ins[0]
+        return (resolve(v),)
+
+    def build(self, meta, args):
+        nodes = meta["nodes"]  # innermost-first list incl. root last
+
+        def baseline(x):
+            for n in nodes:
+                x = _apply1(n, x)
+            return x
+
+        return baseline, [("fused", baseline)]
+
+
+_PATTERNS = (Attention(), MatmulBiasAct(), NormResidual(), ElemwiseChain())
 
 
 def get_patterns():
-    """All patterns, in matching-priority order (as in mxnet_tpu)."""
+    """All registered patterns, in matching-priority order."""
     return _PATTERNS
 
 

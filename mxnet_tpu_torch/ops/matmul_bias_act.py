@@ -93,8 +93,10 @@ def matmul_bias_act_plain(a, w, b, act="relu"):
     return _ACTS[act](p)
 
 
-def matmul_bias_act(a, w, b, act="relu"):
-    """``act(a @ w.T + b)`` for a (M, K), w (N, K) and b (N,) or None."""
+def matmul_bias_act(a, w, b, act="relu", schedule=None):
+    """``act(a @ w.T + b)`` for a (M, K), w (N, K) and b (N,) or None.
+    ``schedule`` names one of ``SCHEDULES`` (the fusion gate's measured
+    choice); None takes ``_schedule``'s."""
     if act not in ACTIVATIONS:
         raise MXNetError("matmul_bias_act: act must be one of %s, got %r" % (ACTIVATIONS, act))
     if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[1] \
@@ -102,6 +104,10 @@ def matmul_bias_act(a, w, b, act="relu"):
         raise MXNetError("matmul_bias_act: want a (M, K), w (N, K), b (N,), got %s, %s, %s"
                          % (tuple(a.shape), tuple(w.shape),
                             None if b is None else tuple(b.shape)))
+    if schedule is not None and (schedule not in SCHEDULES or (
+            schedule == "small_m" and not _small_m_takes(a.shape[0], a.shape[1]))):
+        raise MXNetError("matmul_bias_act: schedule %r does not take a %s"
+                         % (schedule, tuple(a.shape)))
     if a.device.type == "cpu":
         return matmul_bias_act_plain(a, w, b, act)
     operands = (a, w) if b is None else (a, w, b)
@@ -111,7 +117,7 @@ def matmul_bias_act(a, w, b, act="relu"):
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return c
-    return _launch(a, w, b, act, c, _schedule(M, N, K))
+    return _launch(a, w, b, act, c, schedule or _schedule(M, N, K))
 
 
 def _launch(a, w, b, act, c, schedule):
@@ -135,12 +141,13 @@ def _launch(a, w, b, act, c, schedule):
 
 
 class MatmulBiasAct(torch.autograd.Function):
-    """y = matmul_bias_act(a, w, b, act); saves (a, w, y) and recovers the
-    pre-activation gradient from y, as ``_mba_fwd``/``_mba_bwd`` (:131-146) do."""
+    """y = matmul_bias_act(a, w, b, act, schedule); saves (a, w, y) and
+    recovers the pre-activation gradient from y, as ``_mba_fwd``/``_mba_bwd``
+    (:131-146) do."""
 
     @staticmethod
-    def forward(ctx, a, w, b, act):
-        y = matmul_bias_act(a, w, b, act)
+    def forward(ctx, a, w, b, act, schedule=None):
+        y = matmul_bias_act(a, w, b, act, schedule)
         ctx.save_for_backward(a, w, y)
         ctx.act, ctx.has_bias = act, b is not None
         return y
@@ -152,4 +159,4 @@ class MatmulBiasAct(torch.autograd.Function):
         da = torch.matmul(dpre, w)
         dw = torch.matmul(dpre.t(), a)
         db = dpre.sum(dim=0) if ctx.has_bias else None
-        return da, dw, db, None
+        return da, dw, db, None, None

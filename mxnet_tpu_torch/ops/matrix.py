@@ -6,7 +6,8 @@ Counterpart of ``mxnet_tpu/ops/matrix.py``: ``dot``, ``transpose``,
 ``one_hot``, the
 ops the ``rnn/`` cells build with (``SliceChannel``, ``where``,
 ``zeros_like``, ``ones_like``), the init ops the imperative NDArray
-creates arrays with (``_zeros``, ``_ones``, ``_full``, ``_arange``), and the
+creates arrays with (``_zeros``, ``_ones``, ``_full``, ``_arange``), the
+graph rewrite's folded constant ``_graph_const``, and the
 rest of the JAX module: ``batch_dot``, ``slice``, ``repeat``, ``tile``,
 ``reverse``, ``take``, ``batch_take``, ``pick``, the ordering ops ``topk``,
 ``sort`` and ``argsort`` on stable sorts of ``sort_key`` (``jax.lax.top_k``
@@ -253,6 +254,24 @@ def _arange(attrs):
     if attrs["repeat"] > 1:
         out = torch.repeat_interleave(out, attrs["repeat"])
     return out
+
+
+@register("_graph_const",
+          attrs={
+              # the raw little-endian bytes of the folded value (hashable, so
+              # the node's attrs freeze into a cache key)
+              "data": AttrSpec("any", required=True),
+              "shape": AttrSpec("shape", default=()),
+              "dtype": AttrSpec("dtype", default=np.float32),
+          },
+          input_names=())
+def _graph_const(attrs):
+    """A constant the graph rewrite's constant folding materialised
+    (``analysis/rewrite.py``): the one-time evaluation of a subgraph whose
+    leaves were all init ops. Never written by frontends. Returns a CPU
+    tensor; the executor uploads it to the bind's device once."""
+    arr = np.frombuffer(attrs["data"], dtype=attrs["dtype"]).reshape(attrs["shape"])
+    return torch.from_numpy(arr.copy())
 
 
 # --- The rest of JAX mxnet_tpu/ops/matrix.py ------------------------------------

@@ -118,8 +118,11 @@ class SPMDTrainer:
         self.symbol = symbol
         self.mesh = mesh
         self.rules = rules or ShardingRules(mesh)
-        # the bind-time rewrite, as executor.bind runs it (weight names kept)
-        self._prog = _GraphProgram(rewrite_for_bind(symbol))
+        # the bind-time rewrite, as executor.bind runs it (weight names
+        # kept); a trainer knows no shapes until its first step, so the
+        # shape rules fire where SPMDStepAdapter rewrote with the module's
+        self._prog = _GraphProgram(rewrite_for_bind(symbol, None, None, grad_req="write",
+                                                    target="spmd_trainer")[0])
         self._remat = remat
         physical = {ctx.torch_device for ctx in mesh.devices.flat}
         if len(physical) != 1:
@@ -156,6 +159,7 @@ class SPMDTrainer:
 
         self._state = _TrainState()
         self._graphs = {}  # (steps, input signature) -> _CapturedSteps
+        self._sites = {}   # input signature -> the resolved fusion plan
         self._step_count = 0
         self._anomaly_mode = None
         self._built = False
@@ -275,19 +279,32 @@ class SPMDTrainer:
         st.mults = {dt: self._fo.mult_vectors(params, names) for dt, names in groups.items()}
 
     # ------------------------------------------------------------------ step
-    def _fwd(self, args, aux):
+    def _sites_for(self, inputs, args, aux):
+        """The fusion sites at this step's input shapes, resolved the first
+        time the trainer meets them (on the card that is the eager first
+        dispatch, before any capture) and kept: a later step of the same
+        shapes decides nothing."""
+        sig = tuple((n, tuple(inputs[n].shape), inputs[n].dtype) for n in self.input_names)
+        sites = self._sites.get(sig)
+        if sites is None:
+            sites = self._sites[sig] = self._prog.sites_of(args, aux, self._device)
+        return sites
+
+    def _fwd(self, args, aux, sites):
         """The training forward, under ``remat``'s checkpoint policy. The
         mesh is entered inside ``run``, so the recompute that backward
         makes (on autograd's thread, outside the caller's context) takes
         the same path as the forward: a BatchNorm across processes sums
-        its statistics over the ranks in both."""
+        its statistics over the ranks in both. ``sites`` is the resolved
+        fusion plan, decided outside the checkpointed function (a recompute
+        replays the same ops)."""
         from .mesh import trace_mesh
 
         prog, device, mesh = self._prog, self._device, self.mesh
 
         def run(*a):
             with trace_mesh(mesh):
-                return prog.interpret(a, aux, True, device)
+                return prog.interpret(a, aux, True, device, sites)
 
         if not self._remat:
             return run(*args)
@@ -328,8 +345,9 @@ class SPMDTrainer:
             leaves[n] = p
             args.append(p)
         aux_old = tuple(st.aux[n] for n in self.aux_names)
+        sites = self._sites_for(inputs, args, aux_old)
         with torch.enable_grad():
-            outs, new_aux = self._fwd(args, aux_old)
+            outs, new_aux = self._fwd(args, aux_old, sites)
         # loss heads ignore the incoming cotangent, so ones is the identity
         # head gradient (JAX :248-250)
         heads = [(o, torch.ones_like(o)) for o in outs if o.requires_grad]
@@ -578,7 +596,7 @@ class SPMDTrainer:
         aux = tuple(torch.empty_like(self.aux[n], device=meta) for n in self.aux_names)
         counter = FlopCounterMode(display=False)
         with counter, torch.enable_grad():
-            outs, _ = prog.interpret(tuple(args), aux, True, meta)
+            outs, _ = prog.interpret(tuple(args), aux, True, meta, {})
             heads = [o for o in outs if o.requires_grad]
             if heads and leaves:
                 torch.autograd.grad(heads, leaves, grad_outputs=[torch.ones_like(o) for o in heads],

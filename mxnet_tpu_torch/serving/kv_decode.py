@@ -186,7 +186,7 @@ def _program(symbol):
     from ..analysis.rewrite import rewrite_for_bind
     from ..executor import _GraphProgram
 
-    prog = _GraphProgram(rewrite_for_bind(symbol))
+    prog = _GraphProgram(rewrite_for_bind(symbol, None, None, target="serving")[0])
     if prog.aux_names:
         raise MXNetError("serving program: the graph must carry no aux state, got %r"
                          % (prog.aux_names,))
@@ -225,6 +225,7 @@ class _DecodeMegastep:
         step_inputs = {"data", "pos_idx", "slot_onehot", "kv_mask", *self.kv_names}
         self.weight_names = [n for n in self._prog.arg_names if n not in step_inputs]
         self._sig = None
+        self._sites = None     # the fusion plan, resolved at the first (warm-up) run
         self._graph = None     # the CUDA graph (a decoder on the card)
         self._static = None    # its input tensors, in _tensors' order
         self._out = None       # its (2, K, B) int64 output: ids, then activity
@@ -260,8 +261,10 @@ class _DecodeMegastep:
             args.update(data=tok.to(torch.float32)[:, None],
                         pos_idx=pos_t.to(torch.float32)[:, None], slot_onehot=oh, kv_mask=mask)
             args.update(zip(self.kv_names, kv))
-            outs, _ = self._prog.interpret(tuple(args[n] for n in self._prog.arg_names), (),
-                                           False)
+            vals = tuple(args[n] for n in self._prog.arg_names)
+            if self._sites is None:  # the first (warm-up) run, before any capture
+                self._sites = self._prog.sites_of(vals, (), dev)
+            outs, _ = self._prog.interpret(vals, (), False, None, self._sites)
             kv = outs[1:1 + L2]
             if self.sampler.mode == "greedy":
                 nxt = outs[-1].to(torch.int64)  # the on-device argmax head
@@ -393,6 +396,7 @@ class _ChunkProgram:
             total_slots=self._S, pos_len=dec.pos_len))
         self.kv_names = [n for i in range(L) for n in ("kv_k_%d" % i, "kv_v_%d" % i)]
         self._sig = None
+        self._sites = None  # the fusion plan, resolved at warm
 
     def _zero_inputs(self):
         T, S = self.t, self._S
@@ -405,8 +409,10 @@ class _ChunkProgram:
         feed = {"data": data, "pos_idx": pos_idx, "write_onehot": w_oh, "att_mask": mask}
         args = tuple(torch.from_numpy(feed[n]).to(dev) if n in feed else ex[n]._tensor()
                      for n in self._prog.arg_names)
+        if self._sites is None:  # resolved once, at warm
+            self._sites = self._prog.sites_of(args, (), dev)
         with torch.no_grad():
-            outs, _ = self._prog.interpret(args, (), False)
+            outs, _ = self._prog.interpret(args, (), False, None, self._sites)
         return outs[0], outs[1:1 + len(self.kv_names)]
 
     def warm(self, dec):

@@ -244,14 +244,13 @@ def test_f4_graph_functions_registry_name_and_base_match_the_reference():
 # -------------------------------------------------------- signature sweep
 #: (module, name) pairs whose signatures differ on purpose or wait for a
 #: queued item: the loaders' trailing ``ctx=`` and ``Rtc(block=)`` (CUDA
-#: side), the rewrite passes' arguments and NDArray's ``writable``
-#: (ROADMAP section 5), fusion's internal marker, whose fields follow
+#: side), NDArray's ``writable`` (ROADMAP.md section 1.8), fusion's
+#: internal marker, whose fields follow
 #: the port's kernels, the C ABI glue's ``zeros``, which takes the caller's
 #: ``dev_type``/``dev_id``, and ``_native_build.build_lib``'s ``deps`` and
 #: ``raise_errors`` (headers that rebuild, the compiler's message)
 SIGNATURE_EXCEPTIONS = {
     ("_native_build", "build_lib"), ("c_api", "zeros"),
-    ("analysis.rewrite", "rewrite"), ("analysis.rewrite", "rewrite_for_bind"),
     ("fusion", "PendingConv"), ("model", "load_checkpoint"), ("model", "resume_or_init"),
     ("ndarray", "NDArray"), ("ndarray", "load"),
     ("predictor", "load_ndarray_file"), ("rtc", "Rtc"),
@@ -349,16 +348,8 @@ ALL_EXCEPTIONS = {
     ("parallel.mesh", "shard_map_compat"): "JAX's shard_map; the port runs a mesh's shards "
                                            "as one program (parallel/trainer.py)",
     **{("analysis", n): _TOOLING for n in (
-        "RecordingEngine", "ScheduleTrace", "analyze_trace", "verify_rewrite", "graphrewrite_mode", "RewritePass",
-        "RewriteResult", "rewrite_pass_names", "pattern_site_counts", "lint_dispatch_paths",
+        "RecordingEngine", "ScheduleTrace", "analyze_trace", "lint_dispatch_paths",
         "lint_dispatch_source", "lint_dispatch_gaps", "dispatch_gap_pct")},
-    **{("analysis.rewrite", n): _TOOLING for n in (
-        "verify_rewrite", "graphrewrite_mode", "RewritePass", "RewriteResult",
-        "rewrite_pass_names", "pattern_site_counts")},
-    **{("fusion", n): _TOOLING for n in (
-        "gate", "gate_explain", "bwd_mode", "infer_default", "quant_mode", "enabled_patterns",
-        "gate_pattern_explain", "conv_schedule", "losers_note")},
-    **{("ops.fusion_patterns", n): _TOOLING for n in ("sig_of", "tuner_build")},
 }
 
 
@@ -421,8 +412,7 @@ MODULE_EXCEPTIONS = {
     "ops/pallas_conv_bn.py": _PALLAS % "ops/conv_bn.py (csrc/conv_bn.cu, csrc/conv_bn_bwd.cu)",
     "ops/conv_bn_bytes.py": _UNUSED_TABLE % "analytic HBM byte model",
     "ops/fused_conv_bn_table.py": _UNUSED_TABLE % "per-shape engage table",
-    **{f: _TOOLING for f in ("fusion_tune.py",
-                             "analysis/cli.py", "analysis/concurrency_lint.py",
+    **{f: _TOOLING for f in ("analysis/cli.py", "analysis/concurrency_lint.py",
                              "analysis/dispatch_lint.py", "analysis/engine_race.py",
                              "analysis/fusion_explain.py")},
     "parallel/ring_attention.py": _RING,

@@ -1766,3 +1766,39 @@ def test_profiler_summarizes_the_cards_kernels(dev, tmp_path):
     assert all(r["ms"] >= 0 for r in rows)
     path = profiler.dump_profile()
     assert path and profiler.trace_files()[0] == path
+
+
+def test_fusion_tune_reraises_a_failing_kernel(dev, tmp_path, monkeypatch):
+    """The tuner's departure: a candidate that raises on a CUDA tensor (here
+    the kernel's dispatcher refusing float64) re-raises out of
+    ``measure_candidates`` and ``verdict`` and caches nothing; so does a
+    candidate whose numbers leave the baseline (a parity rejection, which
+    the CPU caches as the JAX package does)."""
+    from mxnet_tpu_torch import fusion_tune
+
+    monkeypatch.setenv("MXNET_FUSION_TUNE_DIR", str(tmp_path))
+    fusion_tune.reset()
+    a, w = _randn(dev, 8, 32), _randn(dev, 16, 32)
+
+    def base(a, w):
+        return torch.relu(a @ w.t())
+
+    def failing(a, w):
+        return mba.matmul_bias_act(a.double(), w.double(), None, "relu")
+
+    with pt.gpu(0):
+        with pytest.raises(MXNetError, match="float32"):
+            fusion_tune.measure_candidates(base, [("cuda", failing)], (a, w), iters=1)
+        with pytest.raises(MXNetError, match="float32"):
+            fusion_tune.verdict("failing", lambda: fusion_tune.measure_candidates(
+                base, [("cuda", failing)], (a, w), iters=1))
+        assert fusion_tune.peek("failing") is None
+        with pytest.raises(MXNetError, match="'wrong' leaves its baseline"):
+            fusion_tune.measure_candidates(
+                base, [("wrong", lambda a, w: base(a, w) * 2)], (a, w), iters=1)
+        with pytest.raises(MXNetError, match="'parity'.*rel_err"):
+            fusion_tune.verdict("parity", lambda: fusion_tune.measure_candidates(
+                base, [("wrong", lambda a, w: base(a, w) * 2)], (a, w), iters=1))
+        fusion_tune.reset()
+        assert fusion_tune.peek("parity") is None
+    fusion_tune.reset()

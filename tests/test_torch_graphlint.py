@@ -12,15 +12,17 @@ Beside them, each report's ``(code, node, severity)`` list and its
 ``memory_plan`` dict equal the JAX package's, for every code's graphs and
 for the zoo's models over several meshes, budgets and policies. The JAX
 side runs its four passes by name (its other passes belong to ROADMAP.md
-section 1.5), with its pattern engine set to the port's three patterns and
-its attention forced onto the flash lowering (``MXNET_FUSED_PATTERNS``):
-the port's engine has no ``elemwise_chain`` pattern and trains every
-attention site it can through its flash kernels, and the memory plan's
-fusion and attention entries report each package's own engine.
+section 1.5), with both pattern engines set to three patterns and their
+attention forced onto the flash lowering (``MXNET_FUSED_PATTERNS``, which
+both packages read): the port trains every attention site it can through
+its flash kernels, and the memory plan's fusion and attention entries
+report each package's own engine. The rewrite verifier's GL6xx cases run
+the reference's deliberately broken passes over each package's
+``RewritePass`` (``REWRITE_CODE_CASES``).
 
 The cases of ``tests/test_graphlint.py`` that wait for section 1.5 (the
-engine analysis, the rewrite verifier, the dispatch and concurrency lints,
-the fusion explainer's GL3xx codes and the ``graphlint`` CLI) are named in
+engine analysis, the dispatch and concurrency lints, the fusion
+explainer's GL3xx codes and the ``graphlint`` CLI) are named in
 ``WAITS_FOR_1_5``; a completeness check holds that every reference case is
 mirrored here or listed there.
 """
@@ -40,13 +42,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PASSES = ["shape_lint", "retrace_guard", "shard_lint", "memory_plan"]
 JAX_PATTERNS = "attention=pallas_flash,matmul_bias_act,norm_residual"
 
-_S15 = "ROADMAP.md section 1.5 (tooling: the engine, rewrite, dispatch and concurrency lints, " \
+_S15 = "ROADMAP.md section 1.5 (tooling: the engine, dispatch and concurrency lints, " \
        "the fusion explainer and the graphlint CLI)"
 WAITS_FOR_1_5 = {name: _S15 for name in (
     "test_engine_code_triggers_on_broken_schedule", "test_engine_code_silent_on_clean_schedule",
     "test_gl105_runtime_shim_catches_broken_engine",
     "test_shipped_python_engine_passes_discipline_shim",
-    "test_rewrite_code_triggers_on_broken_rewrite", "test_rewrite_code_silent_on_clean_rewrite",
     "test_dispatch_code_triggers_on_broken_source", "test_dispatch_code_silent_on_clean_source",
     "test_dispatch_waived_site_reported_but_not_failing",
     "test_dispatch_family_waiver_covers_every_gl7xx_code", "test_gl705_needs_two_intervals",
@@ -607,6 +608,119 @@ def test_unknown_pass_subset_raises(mx):
     sym, _ = _build(mx, _gl001_clean)
     with pytest.raises(ValueError, match="unknown analysis pass"):
         mx.analysis.lint(sym, passes=["shapelint"])
+
+
+# ------------------------------------------------- rewrite verifier (GL6xx)
+def _rw_codes(m, sym, passes=None, grad_req=None, max_rounds=None, shapes=None, types=None):
+    res = m.analysis.rewrite(sym, shapes=shapes, types=types, passes=passes,
+                             max_rounds=max_rounds)
+    return set(m.analysis.verify_rewrite(res, grad_req=grad_req).codes())
+
+
+def _broken_passes(m):
+    """The reference's deliberately broken passes over ``m``'s RewritePass."""
+
+    class Once(m.analysis.RewritePass):
+        def __init__(self):
+            self._done = False
+
+        def run(self, g):
+            if self._done:
+                return 0
+            self._done = True
+            return self._fire(g)
+
+    class ShapeBreaking(Once):
+        name = "badshape"
+
+        def _fire(self, g):
+            node, oi = g.outputs[0]
+            new = g.new_node("sum", node.name + "_collapsed", {}, [(node, oi)])
+            g.outputs[0] = (new, 0)
+            g.note(self.name, "collapse", "replace", node=new.name, origins=[node.name])
+            g.invalidate()
+            return 1
+
+    class NoProvenance(Once):
+        name = "noprov"
+
+        def _fire(self, g):
+            node, oi = g.outputs[0]
+            new = g.new_node("_copy", node.name + "_id", {}, [(node, oi)])
+            g.outputs[0] = (new, 0)
+            g.invalidate()
+            return 1
+
+    class NeverConverges(m.analysis.RewritePass):
+        name = "pingpong"
+
+        def run(self, g):
+            return 1
+
+    class ArgDropping(Once):
+        name = "argdrop"
+
+        def _fire(self, g):
+            arr = np.zeros((2,), "float32")
+            lit = g.new_node("_graph_const", "lit", {"data": arr.tobytes(), "shape": (2,),
+                                                     "dtype": "float32"}, [])
+            g.outputs[0] = (lit, 0)
+            g.note(self.name, "drop", "replace", node=lit.name, origins=[g.topo()[0].name])
+            g.invalidate()
+            return 1
+
+    return {"shape": ShapeBreaking, "noprov": NoProvenance, "pingpong": NeverConverges,
+            "argdrop": ArgDropping}
+
+
+def _scalar_chain(m):
+    return m.sym.Variable("x") * 2.0, {"shapes": {"x": (2,)}}
+
+
+def _rw_case(m, code, broken):
+    bp = _broken_passes(m)
+    sym, kw = _scalar_chain(m)
+    if code == "GL601":
+        return _rw_codes(m, sym, passes=[bp["shape"]()], **kw) if broken \
+            else _rw_codes(m, sym, **kw)
+    if code == "GL602":
+        if broken:
+            return _rw_codes(m, sym, passes=[bp["noprov"]()], **kw)
+        d = m.sym.Variable("data")
+        return _rw_codes(m, m.sym.Activation(d * d, act_type="relu"), shapes={"data": (2, 3)})
+    if code == "GL603":
+        if broken:
+            return _rw_codes(m, sym, passes=[bp["pingpong"]()], max_rounds=2, **kw)
+        return _rw_codes(m, m.models.get_symbol("transformer", vocab_size=20, model_dim=16,
+                                                num_heads=2, num_layers=1, ffn_dim=16,
+                                                seq_len=4))
+    if code == "GL604":
+        return _rw_codes(m, sym, passes=[bp["argdrop"]()],
+                         grad_req="write" if broken else "null", **kw)
+    if broken:  # GL605: the summary fires whenever the pipeline changed anything
+        a, b = m.sym.Variable("a"), m.sym.Variable("b")
+        return _rw_codes(m, (a + b) * (a + b), shapes={"a": (2,), "b": (2,)})
+    return _rw_codes(m, m.models.get_symbol("mlp", num_classes=10), shapes={"data": (2, 784)})
+
+
+REWRITE_CODE_CASES = ("GL601", "GL602", "GL603", "GL604", "GL605")
+
+
+@pytest.mark.parametrize("code", REWRITE_CODE_CASES)
+def test_rewrite_code_triggers_on_broken_rewrite(mx, code):
+    assert code in _rw_case(mx, code, True)
+
+
+@pytest.mark.parametrize("code", REWRITE_CODE_CASES)
+def test_rewrite_code_silent_on_clean_rewrite(mx, code):
+    assert code not in _rw_case(mx, code, False)
+
+
+@pytest.mark.parametrize("code", REWRITE_CODE_CASES)
+def test_rewrite_codes_match_the_reference(code):
+    with pt.cpu():
+        port = [_rw_case(pt, code, b) for b in (True, False)]
+    assert port == [_rw_case(mxnet_tpu, code, b) for b in (True, False)]
 
 
 # ------------------------------------------------------------ sources

@@ -397,6 +397,8 @@ CASES += [
     ("_full", {"shape": "(4,)", "value": "2.5"}, []),
     ("_arange", {"start": "1.0", "stop": "7.0", "step": "1.5", "repeat": "2"}, []),
     ("_arange", {"start": "5.0"}, []),
+    ("_graph_const", {"data": np.arange(6, dtype=np.float32).tobytes(), "shape": "(2, 3)",
+                      "dtype": "float32"}, []),
 ]
 
 
@@ -610,9 +612,9 @@ def test_every_port_op_is_swept_and_named_as_in_the_reference():
         assert sorted(pop.attr_specs) == sorted(jop.attr_specs), name
 
 
-# the op of the JAX library the port leaves to a later item, with the
-# ROADMAP item it waits for
-LATER = {"_graph_const": "ROADMAP.md §1.5: analysis/rewrite.py's ConstFoldPass"}
+# the ops of the JAX library the port leaves to a later item, with the
+# ROADMAP item each waits for: none
+LATER = {}
 
 
 def test_the_port_lacks_only_the_ops_of_later_roadmap_items():

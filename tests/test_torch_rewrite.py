@@ -1,0 +1,550 @@
+"""The port's graph rewrite (``mxnet_tpu_torch/analysis/rewrite.py``) held
+against the JAX package's.
+
+Every case of the reference's ``tests/test_graph_rewrite.py`` runs on both
+packages (fixture ``mx``, the port inside ``with cpu():``) with the
+reference's own assertions, and beside them the two packages' rule tables,
+node counts, counts, ``pattern_site_counts`` and outputs are held equal, at
+the tolerance each reference case uses (``*_matches_the_reference``). The
+inputs are made by numpy from a seed and fed to both.
+
+The reference's ``[rdiv_sqrt]`` and ``[recip_sqrt]`` cases fail in the JAX
+package itself (ROADMAP.md section 3: its rsqrt is not bitwise its
+composition), so those two rules are held here on the port alone: its
+rewritten graph against its unrewritten one, forward bitwise and backward
+within the reference's 1e-6.
+
+Departure (ROADMAP.md section 3): under ``MXNET_GRAPHREWRITE=0`` every
+port bind still runs ``cse``, ``mul_self_to_square`` and ``dce``
+(``test_bind_rewrite_off_by_default`` holds the port to exactly those),
+and a failure of them raises (``test_always_on_rule_failure_raises_departure``).
+``test_cli_rewrite_dump_and_json`` waits for the ``graphlint`` CLI
+(``WAITS``).
+"""
+import ast
+import contextlib
+import importlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import mxnet_tpu
+import mxnet_tpu_torch as pt
+
+ROOT = Path(__file__).resolve().parents[1]
+#: the rewrite modules (``analysis.rewrite`` is also the name of the function)
+RW = importlib.import_module("mxnet_tpu_torch.analysis.rewrite")
+
+WAITS = {"test_cli_rewrite_dump_and_json":
+         "ROADMAP.md section 1.5b (the graphlint CLI and its --rewrite dump)"}
+
+
+@pytest.fixture(autouse=True)
+def _pin_rewrite_env(monkeypatch):
+    monkeypatch.delenv("MXNET_GRAPHREWRITE", raising=False)
+    monkeypatch.delenv("MXNET_GRAPHREWRITE_BF16", raising=False)
+
+
+@pytest.fixture(params=["jax", "port"])
+def mx(request):
+    if request.param == "jax":
+        yield mxnet_tpu
+    else:
+        with pt.cpu():
+            yield pt
+
+
+def _on(m):
+    return pt.cpu() if m is pt else contextlib.nullcontext()
+
+
+def _tiny_transformer(m):
+    return m.models.get_symbol("transformer", vocab_size=50, model_dim=32,
+                               num_heads=2, num_layers=1, ffn_dim=64,
+                               seq_len=8)
+
+
+_TF_SHAPES = {"data": (2, 8), "softmax_label": (2, 8)}
+_TF_TYPES = {"data": "int32"}
+
+
+def _fill(ex, seed=1):
+    rs = np.random.RandomState(seed)
+    for n, a in zip(ex._prog.arg_names, ex.arg_arrays):
+        if np.issubdtype(np.dtype(a.dtype), np.integer):
+            a[:] = rs.randint(0, 50, a.shape).astype(a.dtype)
+        elif "label" in n:
+            a[:] = rs.randint(0, 10, a.shape).astype(a.dtype)
+        else:
+            a[:] = rs.uniform(-0.1, 0.1, a.shape).astype(a.dtype)
+
+
+def _fwd_bwd(m, sym, shapes, types=None, seed=1, grad_req="write"):
+    with _on(m):
+        m.random.seed(7)
+        ex = sym.simple_bind(m.cpu(), type_dict=types, grad_req=grad_req, **shapes)
+        _fill(ex, seed)
+        ex.forward(is_train=True)
+        ex.backward()
+        grads = {n: (g.asnumpy() if g is not None else None)
+                 for n, g in zip(ex._prog.arg_names, ex.grad_arrays)}
+        return [o.asnumpy() for o in ex.outputs], grads
+
+
+def _both(build):
+    """``build(m)`` in each package: (jax result, port result)."""
+    with _on(pt):
+        port = build(pt)
+    return build(mxnet_tpu), port
+
+
+def _same_run(a, b):
+    """Two RewriteResults fired the same rules to the same graph size."""
+    assert a.rule_table() == b.rule_table()
+    assert (a.nodes_before, a.nodes_after) == (b.nodes_before, b.nodes_after)
+    assert a.counts == b.counts
+    assert (a.rounds, a.fixpoint) == (b.rounds, b.fixpoint)
+    assert a.symbol.list_arguments() == b.symbol.list_arguments()
+    # (output names carry each package's own auto-name counter)
+    assert len(a.symbol.list_outputs()) == len(b.symbol.list_outputs())
+    assert [n.op for n in a.symbol._topo()] == [n.op for n in b.symbol._topo()]
+
+
+def _close(a, b, atol, rtol=0.0):
+    for x, y in zip(a[0], b[0]):
+        np.testing.assert_allclose(x, y, atol=atol, rtol=rtol)
+    for k in a[1]:
+        if a[1][k] is not None:
+            np.testing.assert_allclose(a[1][k], b[1][k], atol=atol, rtol=rtol, err_msg=k)
+
+
+# --------------------------------------------------------------- const fold
+def _const_net(m):
+    x = m.sym.Variable("x")
+    scale = m.sym._ones(shape=(4,)) * 3.0
+    return m.sym.broadcast_mul(x, scale, name="out")
+
+
+def test_const_fold_evaluates_init_subgraph_once(mx):
+    net = _const_net(mx)
+    res = mx.analysis.rewrite(net, shapes={"x": (2, 4)})
+    assert res.counts["folded"] == 1
+    ops = [n.op for n in res.symbol._topo() if n.op]
+    assert "_graph_const" in ops and "_ones" not in ops
+    a, _ = _fwd_bwd(mx, net, {"x": (2, 4)})
+    b, _ = _fwd_bwd(mx, res.symbol, {"x": (2, 4)})
+    assert np.array_equal(a[0], b[0])
+
+
+def test_const_fold_matches_the_reference():
+    j, p = _both(lambda m: m.analysis.rewrite(_const_net(m), shapes={"x": (2, 4)}))
+    _same_run(j, p)
+    lit = {m: next(n for n in r.symbol._topo() if n.op == "_graph_const")
+           for m, r in (("jax", j), ("port", p))}
+    for key in ("data", "shape", "dtype"):
+        assert lit["jax"].attrs[key] == lit["port"].attrs[key]
+    assert np.array_equal(_fwd_bwd(mxnet_tpu, j.symbol, {"x": (2, 4)})[0][0],
+                          _fwd_bwd(pt, p.symbol, {"x": (2, 4)})[0][0])
+
+
+def test_const_fold_never_touches_variables_or_aux(mx):
+    x = mx.sym.Variable("x")
+    w = mx.sym.Variable("w", shape=(4,))
+    net = mx.sym.broadcast_mul(x, w * 2.0)
+    res = mx.analysis.rewrite(net, shapes={"x": (2, 4)})
+    assert res.counts["folded"] == 0
+    assert res.symbol.list_arguments() == net.list_arguments()
+
+
+def test_graph_const_is_uploaded_once_at_bind():
+    """A folded literal reaches the bind's device when the executor is
+    made, and a forward reads that tensor: nothing is copied from the host
+    inside a forward (or a CUDA-graph capture)."""
+    with pt.cpu():
+        sym = pt.analysis.rewrite(_const_net(pt), shapes={"x": (2, 4)}).symbol
+        ex = sym.simple_bind(pt.cpu(), x=(2, 4))
+        [lit] = [n for n in ex._prog.topo if n.op == "_graph_const"]
+        held = ex._prog._consts[(id(lit), "cpu")]
+        ex.forward()
+        ex.forward()
+        assert ex._prog._consts[(id(lit), "cpu")] is held
+        assert np.array_equal(held.numpy(), np.full((4,), 3.0, np.float32))
+
+
+# -------------------------------------------------------------------- cse
+def _cse_net(m):
+    a, b = m.sym.Variable("a"), m.sym.Variable("b")
+    return (a + b) * (a + b)
+
+
+def test_cse_merges_duplicate_subexpressions_bitwise(mx):
+    net = _cse_net(mx)
+    res = mx.analysis.rewrite(net, shapes={"a": (3,), "b": (3,)})
+    assert res.counts["merged"] == 1
+    o1, g1 = _fwd_bwd(mx, net, {"a": (3,), "b": (3,)})
+    o2, g2 = _fwd_bwd(mx, res.symbol, {"a": (3,), "b": (3,)})
+    assert np.array_equal(o1[0], o2[0])
+    for k in g1:
+        assert np.array_equal(g1[k], g2[k]), k
+
+
+def test_cse_matches_the_reference():
+    shapes = {"a": (3,), "b": (3,)}
+    j, p = _both(lambda m: m.analysis.rewrite(_cse_net(m), shapes=shapes))
+    _same_run(j, p)
+    _close(_fwd_bwd(mxnet_tpu, j.symbol, shapes), _fwd_bwd(pt, p.symbol, shapes), 0)
+
+
+def test_cse_never_merges_stateful_ops(mx):
+    x = mx.sym.Variable("x")
+    net = mx.sym.Dropout(x, p=0.5, name="d1") + mx.sym.Dropout(x, p=0.5, name="d2")
+    res = mx.analysis.rewrite(net, shapes={"x": (4, 4)})
+    assert res.counts["merged"] == 0
+    x2 = mx.sym.Variable("y")
+    bn = mx.sym.BatchNorm(x2, name="bn1") + mx.sym.BatchNorm(x2, name="bn2")
+    res2 = mx.analysis.rewrite(bn, shapes={"y": (4, 4)})
+    merged = [r for r in res2.records if r["action"] == "merge"
+              and "bn" in (r["node"] or "")]
+    assert not merged
+
+
+# ------------------------------------------------------------ canonicalize
+CANON = {
+    "square": (lambda m, x: x * x, "mul_self_to_square"),
+    "relu": (lambda m, x: m.sym.relu(x), "relu_to_activation"),
+    "rdiv_sqrt": (lambda m, x: 1.0 / m.sym.sqrt(x + 2.0), "rsqrt_compose"),
+    "recip_sqrt": (lambda m, x: m.sym.reciprocal(m.sym.sqrt(x + 2.0)), "rsqrt_compose"),
+    "mul_one": (lambda m, x: (x * 1.0) + 0.5, "identity_elide"),
+}
+#: the cases the JAX package fails itself (ROADMAP.md section 3): the port's alone
+JAX_FAILS = ("rdiv_sqrt", "recip_sqrt")
+
+
+@pytest.mark.parametrize("pkg,case", [(p, c) for c in CANON for p in ("jax", "port")
+                                      if not (p == "jax" and c in JAX_FAILS)])
+def test_canonicalize_rules_fire_and_stay_bitwise(pkg, case):
+    m = mxnet_tpu if pkg == "jax" else pt
+    build, rule = CANON[case]
+    with _on(m):
+        x = m.sym.Variable("x")
+        net = build(m, x)
+        res = m.analysis.rewrite(net, shapes={"x": (16,)})
+    assert "canonicalize." + rule in res.rule_table(), res.rule_table()
+    o1, g1 = _fwd_bwd(m, net, {"x": (16,)})
+    o2, g2 = _fwd_bwd(m, res.symbol, {"x": (16,)})
+    assert np.array_equal(o1[0], o2[0])  # forward: bitwise, every rule
+    if rule == "rsqrt_compose":
+        np.testing.assert_allclose(g1["x"], g2["x"], atol=1e-6, rtol=0)
+    else:
+        assert np.array_equal(g1["x"], g2["x"])
+
+
+@pytest.mark.parametrize("case", sorted(CANON))
+def test_canonicalize_rules_match_the_reference(case):
+    build, _ = CANON[case]
+    j, p = _both(lambda m: m.analysis.rewrite(build(m, m.sym.Variable("x")),
+                                              shapes={"x": (16,)}))
+    _same_run(j, p)
+    # the rewritten graphs' values: rsqrt and its composition round alike in
+    # each package only up to an ulp, so the reference's backward tolerance
+    _close(_fwd_bwd(mxnet_tpu, j.symbol, {"x": (16,)}), _fwd_bwd(pt, p.symbol, {"x": (16,)}),
+           atol=1e-6)
+
+
+def _axis_net(m):
+    x = m.sym.Variable("x")
+    return m.sym.broadcast_sub(x, m.sym.mean(x, axis=2, keepdims=True))
+
+
+def test_canonicalize_negative_axis_normalization(mx):
+    net = _axis_net(mx)
+    res = mx.analysis.rewrite(net, shapes={"x": (2, 3, 8)})
+    assert "canonicalize.negative_axis" in res.rule_table()
+    mean_node = [n for n in res.symbol._topo() if n.op == "mean"][0]
+    assert tuple(mean_node.parsed_attrs()["axis"]) == (-1,)
+    o1, _ = _fwd_bwd(mx, net, {"x": (2, 3, 8)})
+    o2, _ = _fwd_bwd(mx, res.symbol, {"x": (2, 3, 8)})
+    assert np.array_equal(o1[0], o2[0])
+
+
+def test_negative_axis_matches_the_reference():
+    j, p = _both(lambda m: m.analysis.rewrite(_axis_net(m), shapes={"x": (2, 3, 8)}))
+    _same_run(j, p)
+    mean = [next(n for n in r.symbol._topo() if n.op == "mean") for r in (j, p)]
+    assert mean[0].attrs["axis"] == mean[1].attrs["axis"]
+
+
+def test_canonicalize_keeps_output_identity_nodes(mx):
+    x = mx.sym.Variable("x")
+    net = x * 1.0
+    res = mx.analysis.rewrite(net, shapes={"x": (4,)})
+    assert res.symbol.list_outputs() == net.list_outputs()
+
+
+# ----------------------------------------------- transformer parity + sites
+def test_transformer_rewrite_parity_and_node_reduction(mx):
+    net = _tiny_transformer(mx)
+    res = mx.analysis.rewrite(net, shapes=_TF_SHAPES, types=_TF_TYPES)
+    assert res.counts["merged"] > 0 and res.counts["removed"] > 0
+    assert res.nodes_after < res.nodes_before
+    o1, g1 = _fwd_bwd(mx, net, _TF_SHAPES, _TF_TYPES)
+    o2, g2 = _fwd_bwd(mx, res.symbol, _TF_SHAPES, _TF_TYPES)
+    assert np.array_equal(o1[0], o2[0])  # forward: bitwise
+    for k in g1:
+        if g1[k] is None:
+            continue
+        np.testing.assert_allclose(g1[k], g2[k], atol=1e-6, rtol=0, err_msg=k)
+
+
+def test_transformer_rewrite_matches_the_reference():
+    """The same rules fire the same number of times in both packages, and
+    the rewritten transformers agree on every output and gradient (the
+    port's fused sites on the CPU run its kernels' plain versions)."""
+    j, p = _both(lambda m: m.analysis.rewrite(_tiny_transformer(m), shapes=_TF_SHAPES,
+                                              types=_TF_TYPES))
+    _same_run(j, p)
+    assert [r["rule"] for r in j.records] == [r["rule"] for r in p.records]
+    _close(_fwd_bwd(mxnet_tpu, j.symbol, _TF_SHAPES, _TF_TYPES),
+           _fwd_bwd(pt, p.symbol, _TF_SHAPES, _TF_TYPES), atol=1e-5, rtol=1e-4)
+
+
+def test_canonicalization_strictly_increases_norm_residual_sites(mx, monkeypatch):
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", "auto")
+    net = _tiny_transformer(mx)
+    before = mx.analysis.pattern_site_counts(net)
+    after = mx.analysis.pattern_site_counts(mx.analysis.rewrite(net).symbol)
+    assert after.get("norm_residual", 0) > before.get("norm_residual", 0)
+    assert after.get("norm_residual") == 3
+    assert after.get("attention") == before.get("attention")
+    assert after.get("matmul_bias_act") == before.get("matmul_bias_act")
+
+
+def test_pattern_site_counts_match_the_reference(monkeypatch):
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", "auto")
+    j, p = _both(lambda m: (m.analysis.pattern_site_counts(_tiny_transformer(m)),
+                            m.analysis.pattern_site_counts(
+                                m.analysis.rewrite(_tiny_transformer(m)).symbol)))
+    assert j == p
+
+
+def test_rewrite_idempotent_second_run_is_noop(mx):
+    net = _tiny_transformer(mx)
+    r1 = mx.analysis.rewrite(net, shapes=_TF_SHAPES, types=_TF_TYPES)
+    assert r1.changed
+    r2 = mx.analysis.rewrite(r1.symbol, shapes=_TF_SHAPES, types=_TF_TYPES)
+    assert r2.records == []
+    assert not r2.changed
+    assert r2.nodes_before == r2.nodes_after == r1.nodes_after
+    assert r2.rounds == 1 and r2.fixpoint
+
+
+# ------------------------------------------------------------------- bf16
+_MLP = {"data": (4, 784), "softmax_label": (4,)}
+
+
+def test_bf16_legalization_cast_sandwich(mx):
+    net = mx.models.get_symbol("mlp", num_classes=10)
+    res = mx.analysis.rewrite(net, shapes=_MLP, bf16=True)
+    assert res.counts["casts"] > 0
+    rep = mx.analysis.verify_rewrite(res, grad_req="write")
+    assert not rep.errors, rep.format()
+    casts = [n for n in res.symbol._topo() if n.op == "Cast"]
+    assert any(str(n.parsed_attrs()["dtype"]) == "bfloat16" for n in casts)
+    o1, _ = _fwd_bwd(mx, net, _MLP)
+    o2, _ = _fwd_bwd(mx, res.symbol, _MLP)
+    assert o1[0].dtype == o2[0].dtype == np.float32
+    np.testing.assert_allclose(o1[0], o2[0], atol=5e-2, rtol=0)
+    r2 = mx.analysis.rewrite(res.symbol, shapes=_MLP, bf16=True)
+    assert r2.counts["casts"] == 0
+
+
+def test_bf16_legalization_matches_the_reference():
+    j, p = _both(lambda m: m.analysis.rewrite(m.models.get_symbol("mlp", num_classes=10),
+                                              shapes=_MLP, bf16=True))
+    _same_run(j, p)
+    assert [r["node"] for r in j.records] == [r["node"] for r in p.records]
+    # both compute the same bf16-rounded products: one bf16 ulp of the logits
+    np.testing.assert_allclose(_fwd_bwd(mxnet_tpu, j.symbol, _MLP)[0][0],
+                               _fwd_bwd(pt, p.symbol, _MLP)[0][0], atol=5e-2, rtol=0)
+
+
+def test_bf16_off_by_default(mx):
+    net = mx.models.get_symbol("mlp", num_classes=10)
+    res = mx.analysis.rewrite(net, shapes={"data": (4, 784)})
+    assert res.counts["casts"] == 0
+
+
+# -------------------------------------------------------- bind integration
+def test_bind_rewrites_under_env_and_stays_bitwise(mx, monkeypatch):
+    net = _tiny_transformer(mx)
+    o1, _ = _fwd_bwd(mx, net, _TF_SHAPES, _TF_TYPES)
+    n_raw = len(net._topo())
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "on")
+    mx.random.seed(7)
+    ex = net.simple_bind(mx.cpu(), type_dict=_TF_TYPES, grad_req="write", **_TF_SHAPES)
+    assert len(ex._prog.topo) < n_raw
+    assert ex._orig_symbol is net
+    _fill(ex)
+    ex.forward(is_train=True)
+    assert np.array_equal(o1[0], ex.outputs[0].asnumpy())
+
+
+def test_bind_verify_mode_clean_zoo(mx, monkeypatch):
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "verify")
+    net = mx.models.get_symbol("mlp", num_classes=10)
+    ex = net.simple_bind(mx.cpu(), data=(4, 784), softmax_label=(4,))
+    assert ex.forward(is_train=False)[0].shape == (4, 10)
+
+
+def test_bind_verify_mode_binds_the_references_graph(monkeypatch):
+    """Under verify both packages bind the same rewritten transformer (node
+    for node) and raise on nothing."""
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "verify")
+
+    def bound(m):
+        ex = _tiny_transformer(m).simple_bind(m.cpu(), type_dict=_TF_TYPES, **_TF_SHAPES)
+        return [n.op for n in ex._prog.topo]
+
+    j, p = _both(bound)
+    assert j == p
+
+
+def test_bind_rewrite_off_by_default(mx, monkeypatch):
+    """Off by default in both; the port's bind still runs its always-on
+    rules (cse, mul_self_to_square, dce), exactly those."""
+    monkeypatch.delenv("MXNET_GRAPHREWRITE", raising=False)
+    assert mx.analysis.graphrewrite_mode() is None
+    net = _tiny_transformer(mx)
+    ex = net.simple_bind(mx.cpu(), type_dict=_TF_TYPES, grad_req="write", **_TF_SHAPES)
+    if mx is mxnet_tpu:
+        assert len(ex._prog.topo) == len(net._topo())
+        return
+    always = pt.analysis.rewrite(net, shapes=_TF_SHAPES, types=_TF_TYPES,
+                                 passes=RW._ALWAYS_ON)
+    assert set(always.rule_table()) == {"cse.merge", "canonicalize.mul_self_to_square",
+                                        "dce.unreachable"}
+    assert [n.name for n in ex._prog.topo] == [n.name for n in always.symbol._topo()]
+    assert ex._prog.pattern_sites.get("norm_residual") == 3
+
+
+def test_graphrewrite_mode_aliases_and_unknown(mx, monkeypatch, caplog):
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "1")
+    assert mx.analysis.graphrewrite_mode() == "on"
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "verify")
+    assert mx.analysis.graphrewrite_mode() == "verify"
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "bogus")
+    with caplog.at_level("WARNING", logger="mxnet_tpu.graphrewrite"):
+        assert mx.analysis.graphrewrite_mode() is None
+
+
+def test_rewrite_failure_binds_the_original(monkeypatch):
+    """A rewrite that raises falls back to the original symbol (a graph
+    fallback, counted), never sinking the bind."""
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "on")
+
+    def boom(*a, **k):
+        raise RuntimeError("broken pass")
+
+    monkeypatch.setattr(RW, "rewrite", boom)
+    with pt.cpu():
+        net = _tiny_transformer(pt)
+        sym, res = RW.rewrite_for_bind(net, _TF_SHAPES, _TF_TYPES)
+        assert sym is net and res is None
+
+
+def test_always_on_rule_failure_raises_departure(monkeypatch):
+    """Under ``MXNET_GRAPHREWRITE=0`` the port's always-on rules are what
+    its kernels engage by, so a failure of them raises instead of binding
+    the original graph (which would drop every ``norm_residual`` site)."""
+    monkeypatch.delenv("MXNET_GRAPHREWRITE", raising=False)
+
+    def boom(*a, **k):
+        raise RuntimeError("broken pass")
+
+    monkeypatch.setattr(RW, "rewrite", boom)
+    with pt.cpu():
+        net = _tiny_transformer(pt)
+        with pytest.raises(RuntimeError, match="broken pass"):
+            RW.rewrite_for_bind(net, _TF_SHAPES, _TF_TYPES)
+        with pytest.raises(RuntimeError, match="broken pass"):
+            net.simple_bind(pt.cpu(), type_dict=_TF_TYPES, **_TF_SHAPES)
+
+
+def test_spmd_adapter_binds_rewritten_symbol(mx, monkeypatch):
+    monkeypatch.setenv("MXNET_MODULE_FUSED_STEP", "1")
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "verify")
+    net = _tiny_transformer(mx)
+    rs = np.random.RandomState(0)
+    it = mx.io.NDArrayIter(rs.randint(0, 50, (8, 8)).astype("int32"),
+                           rs.randint(0, 50, (8, 8)).astype("float32"),
+                           batch_size=4)
+    mod = mx.mod.Module(net, context=mx.cpu(), label_names=("softmax_label",))
+    mod.fit(it, num_epoch=1, optimizer="sgd", eval_metric=mx.metric.Loss())
+    assert mod._spmd is not None, "fused SPMD step did not engage"
+    assert len(mod._spmd.trainer._prog.topo) < len(net._topo())
+
+
+def test_spmd_adapter_binds_the_references_graph(monkeypatch):
+    monkeypatch.setenv("MXNET_GRAPHREWRITE", "on")
+
+    def trainer_graph(m):
+        mod = m.mod.Module(_tiny_transformer(m), context=m.cpu(),
+                           label_names=("softmax_label",))
+        mod.bind(data_shapes=[("data", (4, 8))], label_shapes=[("softmax_label", (4, 8))])
+        adapter = importlib.import_module(m.__name__ + ".module.spmd_adapter").SPMDStepAdapter
+        return [n.op for n in adapter._rewrite_symbol(adapter, mod)._topo()]
+
+    j, p = _both(trainer_graph)
+    assert j == p
+
+
+# ------------------------------------------------------------ observability
+def test_rewrite_telemetry_counters(mx, monkeypatch):
+    monkeypatch.setenv("MXNET_TELEMETRY", "counters")
+    saved = mx.telemetry.current_override()
+    mx.telemetry.set_mode("counters")
+    mx.telemetry.reset()
+    try:
+        mx.analysis.rewrite(_tiny_transformer(mx), shapes=_TF_SHAPES, types=_TF_TYPES)
+        assert mx.telemetry.counter("rewrite.runs").value == 1
+        assert mx.telemetry.counter("rewrite.nodes_merged").value > 0
+        assert mx.telemetry.counter("rewrite.nodes_removed").value > 0
+    finally:
+        mx.telemetry.reset()
+        mx.telemetry.set_mode(saved)
+
+
+def test_program_caches_pattern_site_inventory(mx, monkeypatch):
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", "auto")
+    net = mx.analysis.rewrite(_tiny_transformer(mx)).symbol
+    prog = mx.executor._GraphProgram(net)
+    plan = prog._fusion_plan if mx is mxnet_tpu else prog.fusion_plan
+    sites, conv_bn = mx.fusion.plan_sites(plan)
+    assert prog.pattern_sites == sites
+    assert prog.pattern_sites.get("norm_residual") == 3
+    assert prog.conv_bn_directives == conv_bn
+
+
+# ------------------------------------------------------------ GL6xx verify
+def test_verify_reports_match_the_reference():
+    """``verify_rewrite``'s codes and GL605 summary agree on the transformer
+    and on a common subexpression."""
+    def report(m, net, shapes, types=None):
+        res = m.analysis.rewrite(net, shapes=shapes, types=types)
+        rep = m.analysis.verify_rewrite(res, grad_req="write")
+        summary = dict(rep.rewrite_summary)
+        summary.pop("pass_rows")
+        return sorted(rep.codes()), summary
+
+    for build, shapes, types in ((_tiny_transformer, _TF_SHAPES, _TF_TYPES),
+                                 (_cse_net, {"a": (2,), "b": (2,)}, None)):
+        j, p = _both(lambda m: report(m, build(m), shapes, types))
+        assert j == p
+
+
+def test_every_reference_case_is_mirrored_or_named():
+    ref = {n.name for n in ast.parse((ROOT / "tests" / "test_graph_rewrite.py").read_text()).body
+           if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")}
+    here = {n for n in globals() if n.startswith("test_")}
+    assert ref - here == set(WAITS)
