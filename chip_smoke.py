@@ -268,7 +268,33 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    version); a ``bind`` line with every tune record (verdict, kernel and
    library µs, schedule), the tune seconds and the tuned ResNet-50 step
    against the all-engaged one in turns (host p50/p80, CUDA events).
-21. A ``smoke`` line (the run's seconds from the import of the port), a
+21. The analysis lint families (``analysis/engine_race.py``,
+   ``fusion_explain.py``, ``dispatch_lint.py``, ``concurrency_lint.py``,
+   ``cli.py``) judged over card runs, one ``analysis`` line a part: (1)
+   ResNet-50's ``Module.fit`` at batch 32 (2 epochs of 3 batches,
+   ``do_checkpoint`` each epoch) with ``RecordingEngine(assert_discipline=
+   True)`` over the native engine as the process engine: no GL101-GL105, no
+   runtime violation, the reloaded checkpoint bitwise the module's
+   parameters (pushes, waits and call sites printed); (2) the lint of the
+   same net at the fit's shapes: its GL301 nodes the convs the fit's
+   resolved plan leaves off kernel 8, its GL302 nodes the BNs the plan does
+   not fold, kernels 8 and 9 launched convs - GL301 times a step; the
+   full-width transformer's training symbol with no GL303 and its planned
+   pattern sites ``pattern_site_counts``; (3) the full-width decoder's
+   greedy of 32 tokens at K = 1 and K = 8 under telemetry tracing (the same
+   tokens, the path's launches), its chrome trace judged by ``python -m
+   mxnet_tpu_torch.analysis.cli --dispatch --trace`` in a process of its
+   own: GL701 in both greedy loops, the CLI's gaps equal to the in-process
+   GL705, its exit code 1 exactly when an unwaived site or a GL705 is
+   present; each gap row with the CUDA-event time of the same calls; (4)
+   ``InferenceEngine`` over ResNet-50 to four closed-loop clients for 3 s
+   under ``MXNET_CONCLINT=witness`` (49 stats-free launches a batch), the
+   dump judged by ``--concurrency --witness``: the static sites waived, the
+   GL805 findings the in-process ``lint_lock_witness``'s and a bind's
+   ``concurrency_lint`` pass's, the top locks by hold time; (5) the CLI's
+   ``--all-models`` lint, a ResNet-50 rewrite dump and an 8-device plan,
+   each exit 0 and seconds, ``torch.cuda.memory_allocated()`` unchanged.
+22. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
@@ -279,13 +305,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    phase's ``checkpoint_launches``, the planner phase's
    ``planner_launches`` and the native phase's ``native_launches``; row 8
    with the fleet phase's ``fleet_launches``; rows 1-6, 8 and 9 with the
-   bind phase's ``bind_launches``), the
+   bind phase's ``bind_launches``; rows 1, 4, 6, 8 and 9 with the analysis
+   phase's ``analysis_launches``), the
    card's name/power line, then the last line ``{"ok": true, "device":
    {...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -8018,6 +8046,427 @@ def run_bind(pt, smi):
     return launches
 
 
+# Phase 21: the analysis lint families over the port's card paths. ResNet-50's
+# Module.fit at batch 32 (FIT_BATCHES a epoch, FIT_EPOCHS epochs, a checkpoint
+# each epoch) under the engine's recording shim; the full-width transformer's
+# greedy decode of DECODE_TOKENS at K = 1 and K = MEGASTEP_K under telemetry
+# tracing; InferenceEngine over ResNet-50 at SERVE_BUCKETS for about
+# SERVE_SECONDS under SERVE_CLIENTS closed-loop clients (requests of 1 to 4
+# images) under the lock witness.
+ANALYSIS = dict(fit_batches=3, fit_epochs=2, decode_tokens=32, serve_buckets=(1, 2, 4, 8),
+                serve_clients=4, serve_seconds=3.0, serve_rows=(1, 4), top_locks=5)
+
+
+@contextlib.contextmanager
+def recording_engine():
+    """The process engine wrapped in ``RecordingEngine(assert_discipline=
+    True)`` for the block, put back after it (the engine-queued checkpoint
+    compares engines by identity, so every save and every wait of the block
+    goes through the wrapper)."""
+    from mxnet_tpu_torch import analysis, engine
+
+    inner = engine.get()
+    rec = analysis.RecordingEngine(inner, assert_discipline=True)
+    with engine._engine_lock:
+        engine._engine = rec
+    try:
+        yield rec
+    finally:
+        rec.wait_for_all()
+        with engine._engine_lock:
+            engine._engine = inner
+
+
+def cli_json(*argv):
+    """``python -m mxnet_tpu_torch.analysis.cli <argv> --format json`` in a
+    process of its own from the checkout: (exit code, payload, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.analysis.cli", *argv,
+                           "--format", "json"], capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode in (0, 1), ("graphlint CLI failed", argv, proc.returncode,
+                                      proc.stderr[-2000:]))
+    return proc.returncode, json.loads(proc.stdout), time.perf_counter() - t0
+
+
+def timed_methods(obj, names):
+    """Wrap ``obj``'s methods ``names`` so that each call records a pair of
+    CUDA events on the current stream around it, inside a profiler range
+    ``analysis.<name>``; returns name -> list of pairs."""
+    pairs = {n: [] for n in names}
+    for n in names:
+        fn = getattr(obj, n)
+
+        def wrapped(*a, _fn=fn, _pairs=pairs[n], _range="analysis." + n, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.profiler.record_function(_range):
+                start.record()
+                out = _fn(*a, **kw)
+                end.record()
+            _pairs.append((start, end))
+            return out
+
+        setattr(obj, n, wrapped)
+    return pairs
+
+
+def card_busy_by_range(fn, ranges, launch_key, retakes=4):
+    """The card's time in each profiler range of ``ranges`` while ``fn``
+    runs (the profiler over the host and the card), ms: the kernels the
+    range's calls launched (``busy``: its host-side row's device time), the
+    card-side span of the range, from its first kernel's start to its last
+    one's end (``span``: the card-side annotation row's time), and every
+    kernel and copy of the window (``total``). A CUDA graph replay's kernels
+    are in ``total`` but not in the busy time of the range that replayed
+    it. The window is taken again after ``PROFILER_GAP_S`` until its trace
+    holds every launch of ``launch_key`` that the wrappers counted. Returns
+    (busy, span, total, whole)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch import ops
+
+    for attempt in range(retakes):
+        if attempt:
+            time.sleep(PROFILER_GAP_S)
+        torch.cuda.synchronize()
+        before = ops.launch_counts()[launch_key]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counted = ops.launch_counts()[launch_key] - before
+        rows = prof.key_averages()
+        traced = sum(int(e.count) for e in rows
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")
+                     and KERNELS[launch_key][2] in e.key)
+        on_card = [str(getattr(e, "device_type", "")).endswith("CUDA") for e in rows]
+        busy = {r: sum(float(getattr(e, "device_time_total", 0.0))
+                       for e, card in zip(rows, on_card) if e.key == r and not card) / 1e3
+                for r in ranges}
+        span = {r: sum(float(getattr(e, "device_time_total", 0.0))
+                       for e, card in zip(rows, on_card) if e.key == r and card) / 1e3
+                for r in ranges}
+        total = sum(float(getattr(e, "self_device_time_total", 0.0))
+                    for e, card in zip(rows, on_card) if card and e.key not in ranges) / 1e3
+        if traced == counted:
+            return busy, span, total, True
+    return busy, span, total, False
+
+
+def run_analysis(pt, smi):
+    """Phase 21: the analysis lint families judged over the port's card
+    paths. 1: the engine-race shim over a ResNet-50 Module.fit with
+    do_checkpoint (no GL101-GL105, the checkpoint bitwise). 2: the fusion
+    explainer against the same bind's resolved plan (GL301 = the convs off
+    kernel 8, GL302 = the BNs not folded, kernel 8/9 launches a step = convs
+    - GL301) and the transformer's pattern sites. 3: GL701 and GL705 over
+    traced full-width greedy decode, the CLI's gaps against the in-process
+    lint, with each span's CUDA-event time. 4: GL805 over InferenceEngine
+    under the lock witness, the CLI, the in-process lint and a bind's pass
+    equal. 5: the CLI's lint, rewrite and plan allocate nothing on the card.
+    Returns its launches by part."""
+    from mxnet_tpu_torch import analysis, engine, ops
+    from mxnet_tpu_torch import telemetry as tm
+    from mxnet_tpu_torch.analysis import cli as graphlint
+    from mxnet_tpu_torch.analysis.concurrency_lint import lint_lock_witness
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.serving import (InferenceEngine, KVCacheDecoder,
+                                         PersistentExecutableCache)
+
+    A = ANALYSIS
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    saved_mode = tm.current_override()
+    launches = {}
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    B, nb, epochs = RESNET_TRAIN["batch"], A["fit_batches"], A["fit_epochs"]
+    steps = nb * epochs
+
+    # --- 1. the engine: a ResNet-50 fit whose checkpoints ride the recording shim
+    t0 = time.perf_counter()
+    images, labels = module_data(B * nb)
+    train = pt.io.NDArrayIter(images, labels, batch_size=B, shuffle=False)
+    check(train.data[0][1].context == pt.gpu(0), "NDArrayIter's data is not on the card")
+    opt_params = (("learning_rate", RESNET_TRAIN["lr"]), ("momentum", RESNET_TRAIN["momentum"]),
+                  ("wd", RESNET_TRAIN["wd"]), ("rescale_grad", 1.0 / B))
+    tmp = tempfile.mkdtemp(prefix="analysis_phase_")
+    prefix = os.path.join(tmp, "resnet50")
+    mod = pt.mod.Module(net, context=pt.gpu(0))
+    inner_kind = type(engine.get()).__name__
+    with recording_engine() as rec:
+        check(getattr(rec.inner, "native", False), ("process engine", inner_kind))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        mod.fit(train, optimizer="sgd", optimizer_params=opt_params, arg_params=args,
+                aux_params=aux, epoch_end_callback=pt.callback.do_checkpoint(prefix),
+                num_epoch=epochs)
+        torch.cuda.synchronize()
+        fit_launches = ops.launch_counts()
+        pt.nd.waitall()
+        _, got_args, got_aux = pt.model.load_checkpoint(prefix, epochs, ctx=pt.cpu())
+    want_args, want_aux = mod.get_params()
+    for name, got, want in ([("arg", got_args, want_args), ("aux", got_aux, want_aux)]):
+        check(sorted(got) == sorted(want), ("checkpoint names", name))
+        for k in want:
+            check(np.array_equal(got[k].asnumpy(), want[k].asnumpy()),
+                  ("the checkpoint is not the module's parameters", name, k))
+    race = analysis.analyze_trace(rec.trace, target="resnet50-fit")
+    check(not rec.trace.violations, ("engine discipline violations", rec.trace.violations[:3]))
+    check(not [d for d in race if d.code.startswith("GL1")], ("GL1xx", race.format()))
+    check(len(rec.trace.pushes) == epochs, ("checkpoint pushes", len(rec.trace.pushes)))
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches["fit"] = {k: v for k, v in fit_launches.items() if v}
+    part1 = {"engine": inner_kind, "native": True, "pushes": len(rec.trace.pushes),
+             "waits": len(rec.trace.waits), "variables": len(rec.trace.created),
+             "call_sites": sorted({r.where.rsplit("/", 1)[-1] for r in rec.trace.pushes}
+                                  | {w[2].rsplit("/", 1)[-1] for w in rec.trace.waits}),
+             "codes": race.codes(), "violations": len(rec.trace.violations),
+             "steps": steps, "seconds": time.perf_counter() - t0}
+    log({"phase": "analysis", "part": "engine", **part1})
+
+    # --- 2. the fusion explainer against the fit's resolved plan
+    t0 = time.perf_counter()
+    report = analysis.lint(net, shapes={"data": (B,) + image_shape(), "softmax_label": (B,)},
+                           target="resnet-50")
+    check(not report.errors, ("ResNet-50 lint errors", report.format()))
+    [exe] = mod._exec_group.execs
+    plan = resolved_plan(exe._prog)
+    topo = exe._prog.topo
+    convs = [n for n in topo if n.op == "Convolution"]
+    off_kernel = {n.name for n in convs
+                  if plan.get(id(n), {}).get("kind") != "conv" or not plan[id(n)]["train"][0]}
+    unfolded = {n.name for n in topo if n.op == "BatchNorm"
+                and not (plan.get(id(n), {}).get("kind") == "bn" and plan[id(n)]["fold"])}
+    gl301 = {d.node for d in report.by_code("GL301")}
+    gl302 = {d.node for d in report.by_code("GL302")}
+    check(gl301 == off_kernel, ("GL301 vs the convs off kernel 8", sorted(gl301),
+                                sorted(off_kernel)))
+    check(gl302 == unfolded, ("GL302 vs the BNs not folded", sorted(gl302), sorted(unfolded)))
+    per_step = len(convs) - len(gl301)
+    check(per_step == RESNET_SITES and fit_launches == with_zeros(
+        {"conv_bn": per_step * steps, "conv_bn_bwd": per_step * steps}),
+        ("kernel 8/9 launches a step vs convs - GL301", fit_launches, len(convs), len(gl301)))
+    params = random_params()
+    tf_net, _, _ = train_model(params)
+    T = TRAIN["seq_len"]
+    tf_report = analysis.lint(tf_net, shapes={"data": (TRAIN["batch"], T),
+                                              "softmax_label": (TRAIN["batch"], T)},
+                              target="transformer")
+    planned = tf_report.memory_plan["fusion"]["pattern_sites"]
+    check(not tf_report.errors and not tf_report.by_code("GL303"),
+          ("transformer lint", tf_report.format()))
+    check(planned == analysis.pattern_site_counts(tf_net) and planned,
+          ("transformer pattern sites", planned))
+    part2 = {"convs": len(convs), "gl301": sorted(gl301), "gl302": len(gl302),
+             "bns": sum(1 for n in topo if n.op == "BatchNorm"),
+             "kernel8_per_step": fit_launches["conv_bn"] // steps,
+             "kernel9_per_step": fit_launches["conv_bn_bwd"] // steps,
+             "gl301_reasons": sorted({d.message.split(": ", 1)[1]
+                                      for d in report.by_code("GL301")}),
+             "resnet_codes": {c: len(report.by_code(c)) for c in sorted(set(report.codes()))},
+             "transformer_pattern_sites": planned,
+             "transformer_codes": {c: len(tf_report.by_code(c))
+                                   for c in sorted(set(tf_report.codes()))},
+             "seconds": time.perf_counter() - t0}
+    log({"phase": "analysis", "part": "fusion_explain", **part2})
+    del mod, exe, plan, topo, train
+
+    # --- 3. dispatch: traced greedy decode at K = 1 and K = MEGASTEP_K
+    t0 = time.perf_counter()
+    K, n = MEGASTEP_K, A["decode_tokens"]
+    rs = np.random.RandomState(SEED + 1)
+    prompt = rs.randint(1, MODEL["vocab_size"], (SERVE["batch"], PROMPT_LEN))
+    dec = KVCacheDecoder(params, ctx=pt.gpu(0), **MODEL, **SERVE)
+    dec.warmup()
+    dec.greedy(prompt, 1 + K, k=K)  # builds and captures the K-step graph
+    torch.cuda.synchronize()
+    bound = binds(dec)
+    sub = {"decoder_warmup": time.perf_counter() - t0}
+    spans = {"serving.prefill": "prefill", "serving.decode_step": "greedy_step",
+             "serving.decode_megastep": "decode_megastep"}
+    pairs = timed_methods(dec, list(spans.values()))
+    tm.set_mode("trace")
+    tm.reset()
+    tm.clear_events()
+    ops.reset_launch_counts()
+    single = dec.greedy(prompt, n, k=1)
+    mega = dec.greedy(prompt, n, k=K)
+    torch.cuda.synchronize()
+    decode_launches = ops.launch_counts()
+    dump = os.path.join(tempfile.mkdtemp(prefix="analysis_trace_"), "decode.json")
+    trace = tm.export_chrome_trace(dump)
+    tm.set_mode(saved_mode)
+    sub["traced_and_dumped"] = time.perf_counter() - t0 - sub["decoder_warmup"]
+    check((single == mega).all(), "the megastep's tokens differ from the single steps'")
+    check(binds(dec) == bound, "the traced decode bound an executable")
+    rounds = (n - 1) // K
+    want = add_launches(prefill_launches(2, schedule="tiles"),
+                        step_launches(n - 1), step_launches(n - 1))
+    check(decode_launches == with_zeros(want[0]), ("traced decode launches", decode_launches))
+    launches["decode"] = {k: v for k, v in decode_launches.items() if v}
+    with open(dump) as f:
+        rows = tm.gap_summary(trace=json.load(f), top=1000)
+    gaps = analysis.lint_dispatch_gaps(rows)
+    rc, payload, cli_s = cli_json("--dispatch", "--trace", dump)
+    check(payload["gaps"] == [d.to_dict() for d in gaps], ("CLI gaps vs in-process GL705",
+                                                          payload["gaps"], gaps))
+    greedy_sites = {s["function"] for s in payload["sites"] if s["code"] == "GL701"
+                    and s["file"] == "mxnet_tpu_torch/serving/kv_decode.py"}
+    check(greedy_sites >= {"KVCacheDecoder.greedy", "PagedKVDecoder.greedy"},
+          ("GL701 sites of the greedy loops", payload["sites"]))
+    unwaived = [s for s in payload["sites"] if not s["waived"]]
+    check(rc == (1 if unwaived or gaps else 0), ("dispatch CLI exit code", rc, len(unwaived),
+                                                 len(gaps)))
+    event_ms = {name: sum(a.elapsed_time(b) for a, b in pairs[m]) for name, m in spans.items()}
+    calls = {name: len(pairs[m]) for name, m in spans.items()}
+    want_calls = {"serving.prefill": 2, "serving.decode_step": (n - 1) + (n - 1 - rounds * K),
+                  "serving.decode_megastep": rounds}
+    check(calls == want_calls, ("decoder calls", calls, want_calls))
+    flagged = {d.node for d in gaps}
+    # the card's busy time in the same calls, from the same two runs taken
+    # again under the profiler (the traced run's host clock stays clean)
+    t1 = time.perf_counter()
+    busy, span, total, whole = card_busy_by_range(
+        lambda: (dec.greedy(prompt, n, k=1), dec.greedy(prompt, n, k=K)),
+        ["analysis." + m for m in spans.values()], "norm_residual")
+    sub["profiled_replay"] = time.perf_counter() - t1
+    # the megasteps' kernels are graph replays: theirs is what the other
+    # two kinds of call leave of the window's card time
+    busy["analysis.decode_megastep"] = total - busy["analysis.prefill"] \
+        - busy["analysis.greedy_step"]
+    gap_rows = []
+    for r in rows:
+        if r["name"] in spans:
+            check(r["count"] == calls[r["name"]], ("span count vs calls", r["name"], r["count"]))
+        gap_rows.append(dict(r, card_event_ms=event_ms.get(r["name"]),
+                             card_busy_ms=busy.get("analysis." + spans.get(r["name"], "")),
+                             card_span_ms=span.get("analysis." + spans.get(r["name"], "")),
+                             gl705=r["name"] in flagged))
+    part3 = {"tokens": n, "k": K, "gap_rows": gap_rows, "profiler_window_whole": whole,
+             "profiler_window_card_ms": total,
+             "gl705": sorted(flagged),
+             "pct": analysis.dispatch_gap_pct(), "cli_exit": rc, "cli_seconds": cli_s,
+             "sites": len(payload["sites"]), "unwaived_sites": len(unwaived),
+             "gl701_functions": sorted(greedy_sites), "seconds_by_step": sub,
+             "seconds": time.perf_counter() - t0}
+    log({"phase": "analysis", "part": "dispatch", **part3})
+    del dec, pairs, trace
+
+    # --- 4. concurrency: InferenceEngine under the lock witness
+    t0 = time.perf_counter()
+    with env_vars(MXNET_CONCLINT="witness"), tempfile.TemporaryDirectory() as tmp:
+        tm.reset_witness()
+        check(tm.witnessing(), "MXNET_CONCLINT=witness does not arm the witness")
+        tm.set_mode("counters")
+        tm.reset()
+        cache = PersistentExecutableCache(net, args, aux, model_key="resnet50", cache_dir=tmp)
+        eng = InferenceEngine(cache, {"data": image_shape()}, buckets=A["serve_buckets"],
+                              max_delay_ms=ENGINE["max_delay_ms"])
+        eng.start()
+        torch.cuda.synchronize()
+        rng = np.random.default_rng(SEED + 23)
+        pool = [rng.random((r,) + image_shape(), dtype=np.float32) * 2 - 1
+                for r in range(A["serve_rows"][0], A["serve_rows"][1] + 1)]
+        served, errors = [], []
+        n0 = tm.counters().get("serving.batches", 0)
+        ops.reset_launch_counts()
+        deadline = time.perf_counter() + A["serve_seconds"]
+
+        def client(i):
+            try:
+                j = i
+                while time.perf_counter() < deadline:
+                    x = pool[j % len(pool)]
+                    out = eng.submit({"data": x}).result(timeout=60)[0]
+                    check(out.shape == (x.shape[0], RESNET["num_classes"])
+                          and np.isfinite(out).all()
+                          and np.allclose(out.sum(axis=1), 1.0, atol=1e-4), "served rows")
+                    served.append(x.shape[0])
+                    j += 1
+            except Exception as exc:  # surfaced by the check below
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(A["serve_clients"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        serve_launches = ops.launch_counts()
+        batches = tm.counters()["serving.batches"] - n0
+        check(not errors, ("witnessed clients", errors[:3]))
+        eng.close()
+        check(serve_launches == with_zeros({"conv_bn_infer": RESNET_SITES * batches}),
+              ("witnessed serving launches", serve_launches, batches))
+        launches["serve"] = {k: v for k, v in serve_launches.items() if v}
+        dump = os.path.join(tmp, "witness.json")
+        tm.export_chrome_trace(dump)
+        witness = tm.witness_report()
+        gl805 = lint_lock_witness(witness)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:  # the CLI, in process
+            rc = graphlint.main(["--concurrency", "--witness", dump, "--format", "json"])
+        payload, cli_s = json.loads(printed.getvalue()), time.perf_counter() - t1
+        check(not [s for s in payload["sites"] if not s["waived"]],
+              ("unwaived concurrency sites", payload["sites"]))
+        check(payload["witness"] == [d.to_dict() for d in gl805],
+              ("CLI GL805 vs in-process", payload["witness"], [d.to_dict() for d in gl805]))
+        check(rc == (1 if gl805 else 0), ("concurrency CLI exit code", rc))
+        # a bind while witnessing: its concurrency_lint pass reports the same
+        with env_vars(MXNET_GRAPHLINT="warn"), collect_logs() as lines:
+            exe = net.simple_bind(pt.gpu(0), grad_req="null", data=(1,) + image_shape(),
+                                  softmax_label=(1,))
+        bind_gl805 = [ln for ln in lines if ln.startswith("GL805")]
+        check(sorted(bind_gl805) == sorted(d.format() for d in lint_lock_witness(
+            tm.witness_report())) == sorted(d.format() for d in gl805),
+            ("the bind's GL805 vs the witness's", bind_gl805))
+        del exe, eng, cache
+        tm.set_mode(saved_mode)
+    tm.reset_witness()
+    top = sorted(witness["locks"], key=lambda r: -r["hold_ms"])[:A["top_locks"]]
+    part4 = {"clients": A["serve_clients"], "requests": len(served), "rows": sum(served),
+             "batches": batches, "gl805": [d.to_dict() for d in gl805], "cli_exit": rc,
+             "cli_seconds": cli_s, "static_sites": len(payload["sites"]),
+             "waived_sites": sorted("%s:%d %s" % (s["file"], s["line"], s["code"])
+                                    for s in payload["sites"]),
+             "threshold_ms": witness["threshold_ms"],
+             "dispatch_epochs": witness["dispatch_epochs"], "events": len(witness["events"]),
+             "top_locks": [{k: r[k] for k in ("name", "acquisitions", "contentions", "hold_ms",
+                                              "max_hold_ms", "wait_ms", "long_holds")}
+                           for r in top],
+             "seconds": time.perf_counter() - t0}
+    log({"phase": "analysis", "part": "concurrency", **part4})
+
+    # --- 5. the CLI on the card machine allocates nothing on the card (the
+    # earlier parts' garbage collected first: its frees must not hide in the
+    # window)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cli_calls = {}
+    for label, argv in (("all_models", ["--all-models"]),
+                        ("rewrite", ["resnet-50", "--shape", "data=32,3,224,224", "--rewrite",
+                                     "--format", "json"]),
+                        ("autoplan", ["resnet-50", "--autoplan", "--mesh-devices", "8",
+                                      "--format", "json"])):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = graphlint.main(argv)
+        check(rc == 0, ("graphlint", label, rc))
+        cli_calls[label] = {"seconds": time.perf_counter() - t0,
+                            "output_bytes": len(out.getvalue())}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    check(allocated == 0 and peak == 0, ("the CLI allocated on the card", allocated, peak))
+    log({"phase": "analysis", "part": "cli", "calls": cli_calls, "allocated_bytes": allocated,
+         "peak_bytes_over_start": peak})
+    log({"phase": "analysis", "nvidia_smi": smi, "launches": launches,
+         "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -8067,6 +8516,7 @@ def main():
     native_launches = run_native(pt, smi)
     fleet_launches = run_fleet(pt, smi)
     bind_launches = run_bind(pt, smi)
+    analysis_launches = run_analysis(pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -8139,6 +8589,14 @@ def main():
         bound = {k: v for k, v in bound.items() if v}
         if bound:
             e.update(bind_launches=bound)
+        # the analysis phase's card runs: ResNet-50's fit under the engine
+        # shim (8, 9), the traced greedy decode (1, 4, 6) and the witnessed
+        # InferenceEngine (8, stats-free)
+        analysed = {k: v.get(name_ if k != "serve" else name_ + "_infer")
+                    for k, v in analysis_launches.items()}
+        analysed = {k: v for k, v in analysed.items() if v}
+        if analysed:
+            e.update(analysis_launches=analysed)
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

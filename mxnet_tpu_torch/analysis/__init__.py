@@ -1,11 +1,12 @@
-"""Static graph passes of the port: the graph lint and the bind-time rewrite.
+"""Static analysis of the port: the graph lint, the bind-time rewrite, the
+engine-race analysis and the dispatch and concurrency lints.
 
-Counterpart of ``mxnet_tpu/analysis/__init__.py`` (:27-125) for what the
-port has:
+Counterpart of ``mxnet_tpu/analysis/__init__.py`` (:27-125):
 
 * ``lint(symbol, shapes=..., types=...)`` — run the graph passes
-  (``shape_lint``, ``retrace_guard``, ``shard_lint``, ``memory_plan``) and
-  get a ``Report`` of ``Diagnostic``s with the reference's ``GLxxx`` codes.
+  (``shape_lint``, ``retrace_guard``, ``fusion_explain``, ``shard_lint``,
+  ``memory_plan``, ``dispatch_lint``, ``concurrency_lint``) and get a
+  ``Report`` of ``Diagnostic``s with the reference's ``GLxxx`` codes.
   ``mesh="dp=8,model=2"`` (and ``rules``/``budget_gb``/``bwd``) adds the
   GL4xx sharding-plan lint and the GL5xx per-device memory plan, whose
   table lands on ``Report.memory_plan``.
@@ -20,9 +21,17 @@ port has:
   fusion sites a symbol roots. ``MXNET_GRAPHREWRITE=on|verify`` runs it at
   every bind (``rewrite_for_bind``); under ``0`` a bind runs the port's
   always-on rules.
+* ``python -m mxnet_tpu_torch.analysis.cli`` — the ``graphlint`` CLI: lints
+  bundled models or a serialized Symbol JSON (``--all-models``), dumps
+  rewrites (``--rewrite``) and parallel plans (``--autoplan``), and runs the
+  source lints over Python files (``--dispatch [--trace dump.json]``,
+  ``--concurrency [--witness dump.json]``). It allocates nothing on the card.
 
-The engine-schedule analysis, the fusion explainer, the dispatch and
-concurrency lints and the ``graphlint`` CLI are ROADMAP.md section 1.5.
+Engine schedules are analyzed separately (they are runtime traces, not
+graphs): wrap any engine in ``RecordingEngine``, run the workload, then
+``analyze_trace(engine.trace)``. The measured lints read a run's telemetry:
+``lint_dispatch_gaps(telemetry.gap_summary(...))`` (GL705) and
+``concurrency_lint.lint_lock_witness(telemetry.witness_report())`` (GL805).
 """
 from __future__ import annotations
 
@@ -30,7 +39,16 @@ import logging
 import os
 
 from ..base import MXNetError
+# registration order IS run order: the passes register here, in the order of
+# the reference's manager (its own order follows whichever of its modules a
+# process imports first)
+from . import (shape_lint, retrace_guard, fusion_explain,  # noqa: F401
+               shard_lint, memory_plan, dispatch_lint,  # noqa: F401
+               concurrency_lint)  # noqa: F401
 from .diagnostics import CODES, Diagnostic, Report, Severity, describe_code
+from .dispatch_lint import (dispatch_gap_pct, lint_dispatch_gaps,
+                            lint_dispatch_paths, lint_dispatch_source)
+from .engine_race import RecordingEngine, ScheduleTrace, analyze_trace
 from .manager import GraphContext, graph_pass, list_passes, run_graph_passes
 from .rewrite import (RewritePass, RewriteResult, graphrewrite_mode,  # noqa: F401
                       pattern_site_counts, rewrite, rewrite_for_bind,
@@ -39,9 +57,12 @@ from .rewrite import (RewritePass, RewriteResult, graphrewrite_mode,  # noqa: F4
 __all__ = [
     "CODES", "Diagnostic", "Report", "Severity", "describe_code",
     "GraphContext", "graph_pass", "list_passes", "run_graph_passes",
+    "RecordingEngine", "ScheduleTrace", "analyze_trace",
     "lint", "lint_bind", "graphlint_mode",
     "rewrite", "verify_rewrite", "graphrewrite_mode", "RewritePass",
     "RewriteResult", "rewrite_pass_names", "pattern_site_counts",
+    "lint_dispatch_paths", "lint_dispatch_source", "lint_dispatch_gaps",
+    "dispatch_gap_pct",
 ]
 
 _LOG = logging.getLogger("mxnet_tpu.graphlint")

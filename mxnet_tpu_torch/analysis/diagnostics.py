@@ -14,7 +14,7 @@ chain (producer nodes with their inferred shapes/dtypes) so the user reads
 Codes are grouped by pass family:
   * ``GL0xx`` — shape/dtype propagation lint (``shape_lint.py``)
   * ``GL1xx`` — engine race analysis (``engine_race.py``)
-  * ``GL2xx`` — pjit retrace guard (``retrace_guard.py``)
+  * ``GL2xx`` — retrace guard (``retrace_guard.py``)
   * ``GL3xx`` — fusion eligibility explainer (``fusion_explain.py``)
   * ``GL4xx`` — sharding-plan lint (``shard_lint.py``)
   * ``GL5xx`` — static memory-liveness / peak-HBM planner (``memory_plan.py``)
@@ -122,8 +122,9 @@ CODES = {
               "host sync inside a dispatch loop: a device->host pull feeds "
               "the next iteration's dispatch"),
     "GL702": (Severity.INFO,
-              "scan-able per-iteration dispatch: N identical executable "
-              "calls with loop-carried state could be one lax.scan megastep"),
+              "foldable per-iteration dispatch: N identical executable "
+              "calls with loop-carried state could be one CUDA-graph "
+              "megastep"),
     "GL703": (Severity.WARNING,
               "host-side reduction of a device output where an on-device "
               "lowering exists (argmax/top-k/sampling)"),

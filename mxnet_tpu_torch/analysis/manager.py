@@ -1,11 +1,9 @@
 """Pass manager: walks a Symbol DAG once, shares the walk across passes.
 
-Counterpart of ``mxnet_tpu/analysis/manager.py``, copied (backend-free)
-but for the passes it loads: the port registers ``shape_lint``,
-``retrace_guard``, ``shard_lint`` and ``memory_plan``, in the reference's
-order. The lint families of ROADMAP.md section 1.5 (``fusion_explain``,
-``dispatch_lint``, ``concurrency_lint``) are not registered, so naming one
-in ``passes=`` raises as any unknown pass does.
+Copied from ``mxnet_tpu/analysis/manager.py`` (backend-free): the port
+registers the reference's seven passes in the reference's order,
+``shape_lint``, ``retrace_guard``, ``fusion_explain``, ``shard_lint``,
+``memory_plan``, ``dispatch_lint`` and ``concurrency_lint``.
 
 The reference's nnvm pass pipeline (``InferShape`` → ``InferType`` →
 ``PlanMemory`` → ``PlaceDevice``) keyed every pass off one immutable graph
@@ -16,7 +14,7 @@ registered pass so adding a new check never re-derives graph structure.
 Passes register with ``@graph_pass(name)`` and receive the context; they
 return (or yield) ``Diagnostic`` objects. ``run_graph_passes`` assembles the
 ``Report``. Engine-schedule analysis lives outside this manager (it consumes
-a recorded push trace, not a Symbol); the port has none yet.
+a recorded push trace, not a Symbol) — see ``engine_race.py``.
 """
 from __future__ import annotations
 
@@ -98,7 +96,7 @@ class GraphContext:
         for node in self.topo:
             for inp, oi in node.inputs:
                 self.consumers.setdefault(id(inp), []).append((node, oi))
-        # filled by shape_lint, read by the later passes
+        # filled by shape_lint, read by retrace_guard / fusion_explain
         self.entry_shape: Dict[Tuple[int, int], Optional[tuple]] = {}
         self.entry_dtype: Dict[Tuple[int, int], object] = {}
         self.var_shape: Dict[str, Optional[tuple]] = {}
@@ -185,7 +183,9 @@ def run_graph_passes(symbol, shape_hints=None, type_hints=None,
     flakier than the thing it lints.
     """
     # passes live in sibling modules registered at import time
-    from . import shape_lint, retrace_guard, shard_lint, memory_plan  # noqa: F401
+    from . import (shape_lint, retrace_guard, fusion_explain,  # noqa: F401
+                   shard_lint, memory_plan, dispatch_lint,  # noqa: F401
+                   concurrency_lint)  # noqa: F401
 
     ctx = GraphContext(symbol, shape_hints=shape_hints, type_hints=type_hints,
                        strict_shapes=strict_shapes, mesh=mesh, rules=rules,

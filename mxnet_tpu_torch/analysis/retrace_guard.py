@@ -3,7 +3,8 @@
 Copied from ``mxnet_tpu/analysis/retrace_guard.py`` (backend-free). The
 port runs eagerly, but the same three patterns cost it a captured CUDA
 graph, a bound program or a bucket's executor each, as they cost the JAX
-package an XLA compile; the codes and messages are the reference's.
+package an XLA compile; the codes are the reference's, and the messages
+name the port's cost (a bound program, a captured graph).
 
 The executor compiles one XLA program per (program, is_train, input
 shapes/dtypes) — ``jax.jit`` retraces whenever an abstract value changes
@@ -88,9 +89,9 @@ def retrace_guard(ctx: GraphContext):
         diags.append(Diagnostic(
             "GL201",
             "%d node(s) bake a python scalar into the graph (%s); every "
-            "distinct value is a distinct graph and hence a distinct XLA "
-            "compile — a per-step-varying scalar (lr, loss scale) forces one "
-            "compile per step"
+            "distinct value is a distinct graph and hence a distinct bound "
+            "program — a per-step-varying scalar (lr, loss scale) forces one "
+            "bind (and graph capture) per step"
             % (len(scalar_nodes),
                _cap("%s=%g" % (n.name, float(n.parsed_attrs()["scalar"]))
                     for n in scalar_nodes)),
@@ -133,8 +134,9 @@ def retrace_guard(ctx: GraphContext):
             "GL203",
             "inputs %s are shape-polymorphic: expected compile-cache "
             "cardinality is (distinct shape tuples of %s) x 2 for "
-            "is_train - each combination traces and compiles a fresh XLA "
-            "executable, and bound buffers are not donated across shapes"
+            "is_train - each combination binds a fresh program (and "
+            "captures a fresh CUDA graph), and bound buffers are not "
+            "shared across shapes"
             % (_cap(poly), _cap(poly)),
             node=poly[0],
             fix_hint="pad/bucket batches to a fixed set of shapes "

@@ -598,7 +598,7 @@ def shard_plan_lint(ctx: GraphContext):
         diags.append(Diagnostic(
             "GL404",
             "%s: dim %d extent %d does not divide its %d-way sharding — "
-            "XLA pads every shard to %d row(s) (%d padded row(s) in total "
+            "every shard is padded to %d row(s) (%d padded row(s) in total "
             "across the axis, dead compute+HBM)"
             % (ctx.node_label(node), d, sh[d], f, -(-sh[d] // f), pad),
             node=node.name,

@@ -349,6 +349,7 @@ class ElasticFit:
         if payload is not None and self._round >= int(payload["pause_at"]):
             # the payload is first-write-wins and pause_at carries a margin,
             # so every rank reads the SAME payload before that round
+            # graphlint: waive GL801 -- pause payload is rank-uniform (above)
             return self._execute_pause(payload, epoch, nbatch)
         return None
 

@@ -336,7 +336,6 @@ def test_f5_a_with_block_wins_and_a_gpu_default_does_not_fall_back(monkeypatch):
 
 
 # ---------------------------------------------------------------- F6
-_TOOLING = "ROADMAP.md section 1.5 (tooling: fusion and lint families)"
 _NO_TPU = "the port targets no TPU"
 
 #: (module, name) of the reference's ``__all__`` that the port lacks, each
@@ -347,9 +346,6 @@ ALL_EXCEPTIONS = {
     ("context", "num_tpus"): _NO_TPU,
     ("parallel.mesh", "shard_map_compat"): "JAX's shard_map; the port runs a mesh's shards "
                                            "as one program (parallel/trainer.py)",
-    **{("analysis", n): _TOOLING for n in (
-        "RecordingEngine", "ScheduleTrace", "analyze_trace", "lint_dispatch_paths",
-        "lint_dispatch_source", "lint_dispatch_gaps", "dispatch_gap_pct")},
 }
 
 
@@ -412,15 +408,13 @@ MODULE_EXCEPTIONS = {
     "ops/pallas_conv_bn.py": _PALLAS % "ops/conv_bn.py (csrc/conv_bn.cu, csrc/conv_bn_bwd.cu)",
     "ops/conv_bn_bytes.py": _UNUSED_TABLE % "analytic HBM byte model",
     "ops/fused_conv_bn_table.py": _UNUSED_TABLE % "per-shape engage table",
-    **{f: _TOOLING for f in ("analysis/cli.py", "analysis/concurrency_lint.py",
-                             "analysis/dispatch_lint.py", "analysis/engine_race.py",
-                             "analysis/fusion_explain.py")},
     "parallel/ring_attention.py": _RING,
 }
 
 
-#: the modules of the serving fleet and the observability tools, with the
-#: public callables each defines: the signature sweep above covers them
+#: the modules of the serving fleet, the observability tools and the
+#: analysis lints and CLI, with the public callables each defines: the
+#: signature sweep above covers them
 FLEET_AND_TOOLING = {
     "serving.fleet": ("Fleet",),
     "serving.fleet.rpc": ("RpcServer", "RpcClient", "RpcError", "RpcConnectionError",
@@ -435,6 +429,13 @@ FLEET_AND_TOOLING = {
     "profiler": ("profiler_set_config", "profiler_set_state", "dump_profile", "trace_files",
                  "summarize", "State"),
     "visualization": ("print_summary", "plot_network"),
+    "analysis.engine_race": ("PushRecord", "ScheduleTrace", "RecordingEngine", "analyze_trace"),
+    "analysis.fusion_explain": ("fusion_explain",),
+    "analysis.dispatch_lint": ("lint_dispatch_paths", "lint_dispatch_source",
+                               "lint_dispatch_gaps", "dispatch_gap_pct", "dispatch_lint_pass"),
+    "analysis.concurrency_lint": ("lint_concurrency_source", "lint_concurrency_paths",
+                                  "lint_lock_witness", "concurrency_lint_pass"),
+    "analysis.cli": ("main",),
 }
 
 

@@ -2,8 +2,8 @@
 pipeline (``module.PipelineExecutorGroup``) held against the JAX package's.
 
 The cases of the reference's ``tests/test_autoplan.py`` run on both
-packages (fixture ``mx``), but its two ``graphlint`` CLI cases, which wait
-for ``analysis/cli.py`` (ROADMAP.md section 1.5). Beside them:
+packages (fixture ``mx``), its two ``graphlint`` CLI cases through each
+package's ``analysis/cli.py`` (``WAIT_FOR_CLI`` is empty). Beside them:
 ``plan_parallel(...).to_json()`` is byte-equal to the JAX package's for
 ``mlp``, resnet-18, ResNet-50, the transformer LM and the recommender at
 1, 2, 4 and 8 devices, with no budget and with one that forces pipeline
@@ -34,7 +34,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_PATTERNS = "attention=pallas_flash,matmul_bias_act,norm_residual"
-WAIT_FOR_CLI = ("test_graphlint_autoplan_cli", "test_graphlint_autoplan_needs_devices")
+#: reference cases not mirrored here (none)
+WAIT_FOR_CLI = ()
 
 
 @pytest.fixture(params=["jax", "port"])
@@ -63,8 +64,6 @@ MLP_SHAPES = {"data": (32, 512)}
 
 
 def _lint(m, sym, **kw):
-    if m is mxnet_tpu:
-        kw.setdefault("passes", ["shape_lint", "retrace_guard", "shard_lint", "memory_plan"])
     return m.analysis.lint(sym, **kw)
 
 
@@ -463,6 +462,24 @@ def test_autoplan_never_takes_down_a_job(monkeypatch, caplog):
             mod.fit(it, num_epoch=1, optimizer="sgd")
     assert mod._spmd is not None and dict(mod._spmd.trainer.mesh.shape) == {"data": 2}
     assert any("MXNET_AUTOPLAN=1" in r.getMessage() for r in caplog.records)
+
+
+def _cli_main(m):
+    return importlib.import_module(m.__name__ + ".analysis.cli").main
+
+
+def test_graphlint_autoplan_cli(mx, capsys, monkeypatch):
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", JAX_PATTERNS)
+    rc = _cli_main(mx)(["mlp", "--autoplan", "--mesh-devices", "8", "--format", "json"])
+    payload = json.loads(capsys.readouterr().out)
+    assert rc == 0
+    plan = payload[0]["autoplan"]
+    assert plan["devices"] == 8 and plan["feasible"]
+    assert plan["naive"]["comm_bytes"] >= plan["predicted"]["comm_bytes"]
+
+
+def test_graphlint_autoplan_needs_devices(mx):
+    assert _cli_main(mx)(["mlp", "--autoplan"]) == 2
 
 
 def test_every_reference_case_is_mirrored_or_waits_for_the_cli():

@@ -1802,3 +1802,55 @@ def test_fusion_tune_reraises_a_failing_kernel(dev, tmp_path, monkeypatch):
         fusion_tune.reset()
         assert fusion_tune.peek("parity") is None
     fusion_tune.reset()
+
+
+def test_recording_engine_over_the_native_engine_judges_a_card_save(dev, tmp_path,
+                                                                    monkeypatch):
+    """``RecordingEngine(assert_discipline=True)`` over the native
+    ``ThreadedEngine`` as the process engine, while a small net trained on
+    ``gpu(0)`` saves its checkpoints through the engine: no GL101-GL105,
+    and the reload is bitwise the card's parameters."""
+    from mxnet_tpu_torch import analysis, engine
+
+    inner = engine.ThreadedEngine(num_workers=2)
+    assert inner.native, "src/engine_native.cc did not build"
+    rec = analysis.RecordingEngine(inner, assert_discipline=True)
+    monkeypatch.setattr(engine, "_engine", rec)
+    rs = np.random.RandomState(0)
+    x = rs.randn(64, 20).astype(np.float32)
+    y = rs.randint(0, 4, 64).astype(np.float32)
+    data = pt.sym.Variable("data")
+    net = pt.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = pt.sym.Activation(net, act_type="relu", name="relu1")
+    net = pt.sym.SoftmaxOutput(pt.sym.FullyConnected(net, num_hidden=4, name="fc2"),
+                               name="softmax")
+    prefix = str(tmp_path / "net")
+    with pt.gpu(0):
+        it = pt.io.NDArrayIter(x, y, batch_size=16)
+    mod = pt.mod.Module(net, context=pt.gpu(0))
+    mod.fit(it, num_epoch=2, optimizer="sgd", optimizer_params=(("learning_rate", 0.1),),
+            epoch_end_callback=pt.callback.do_checkpoint(prefix))
+    pt.nd.waitall()
+    args, _ = mod.get_params()
+    _, got, _ = pt.model.load_checkpoint(prefix, 2, ctx=pt.cpu())
+    monkeypatch.setattr(engine, "_engine", None)
+    for k, v in args.items():
+        assert np.array_equal(got[k].asnumpy(), v.asnumpy()), k
+    assert len(rec.trace.pushes) == 2 and not rec.trace.violations
+    assert analysis.analyze_trace(rec.trace).codes() == []
+
+
+def test_a_cli_lint_allocates_nothing_on_the_card(dev, capsys):
+    """``graphlint resnet-50`` (a lint, a rewrite dump, a plan) runs off the
+    card: ``torch.cuda.memory_allocated()`` is the same before and after."""
+    from mxnet_tpu_torch.analysis.cli import main
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert main(["resnet-50", "--shape", "data=32,3,224,224"]) == 0
+    assert main(["resnet-50", "--shape", "data=32,3,224,224", "--rewrite", "--format",
+                 "json"]) == 0
+    assert main(["resnet-50", "--autoplan", "--mesh-devices", "8", "--format", "json"]) == 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    capsys.readouterr()

@@ -16,6 +16,12 @@ the reference's ``tests/test_engine.py`` run on the port's three backends
 built into ``build/torch_native/``, and the Python pool), and the
 engine-queued ``model.save_checkpoint`` writes the bytes the JAX package's
 writes for the same parameters on ``cpu()``, drained by ``nd.waitall``.
+The engine-race analysis (``analysis/engine_race.py``) records the same
+scripted schedules over each of the three backends and over the JAX
+package's engines: ``analyze_trace`` gives the same codes at the same
+call sites (GL101-GL104), the runtime shim stays silent over every
+shipped backend (GL105), and a ``RecordingEngine`` installed as the process
+engine judges the engine-queued checkpoint writes.
 """
 import os
 import random
@@ -764,3 +770,94 @@ def test_a_failed_checkpoint_write_is_raised_at_the_next_call(tmp_path, monkeypa
     with pytest.raises(pt.MXNetError, match="earlier async checkpoint write failed"):
         pt.model.find_last_checkpoint(prefix)
     monkeypatch.setattr(peng, "_engine", None)
+
+
+# ------------------------------------------------- engine race (GL101-GL105)
+def _race_gl101(e):
+    v = e.new_variable()
+    e.push(lambda: None, const_vars=[v], mutable_vars=[v])
+
+
+def _race_gl102(e):
+    v = e.new_variable()
+    e.push(lambda: None, const_vars=[v])
+    e.wait_for_var(v)
+
+
+def _race_gl103(e):
+    v = e.new_variable()
+    e.push(lambda: None, mutable_vars=[v, v])
+
+
+def _race_gl104(e):
+    v = e.new_variable()
+    e.push(lambda: None, const_vars=[v])  # read before any write
+    e.push(lambda: None, mutable_vars=[v])
+
+
+def _race_clean(e):
+    vs = [e.new_variable() for _ in range(4)]
+    for i in range(40):
+        e.push(lambda: time.sleep(0.0005), mutable_vars=[vs[i % 4]])
+        e.push(lambda: None, const_vars=[vs[i % 4]], mutable_vars=[vs[(i + 1) % 4]])
+    e.wait_for_var(vs[0])
+
+
+RACE_SCRIPTS = {"GL101": _race_gl101, "GL102": _race_gl102, "GL103": _race_gl103,
+                "GL104": _race_gl104, "clean": _race_clean}
+
+
+def _race_engines(pkg):
+    eng = pkg.engine
+    return {"naive": eng.NaiveEngine, "native": lambda: eng.ThreadedEngine(num_workers=4),
+            "python": lambda: eng._PythonThreadedEngine(4)}
+
+
+@pytest.mark.parametrize("script", sorted(RACE_SCRIPTS))
+@pytest.mark.parametrize("kind", ["naive", "native", "python"])
+def test_engine_race_traces_equal_the_references(kind, script):
+    """The same script over a port backend and over the JAX package's
+    engine of the same kind: the same codes at the same call sites, and no
+    runtime violation (GL105) under the shim."""
+    rows = []
+    for pkg in (mx, pt):
+        e = pkg.analysis.RecordingEngine(_race_engines(pkg)[kind](), assert_discipline=True)
+        if pkg is pt and kind == "native":
+            assert e.inner.native, "src/engine_native.cc did not build"
+        RACE_SCRIPTS[script](e)
+        e.wait_for_all()
+        report = pkg.analysis.analyze_trace(e.trace)
+        assert not e.trace.violations and "GL105" not in report.codes()
+        rows.append(([(d.code, d.node) for d in report],
+                     [(r.seq, len(r.const_vars), len(r.mutable_vars), r.where)
+                      for r in e.trace.pushes], [w[2] for w in e.trace.waits]))
+    assert rows[1] == rows[0]
+    codes = {c for c, _ in rows[1][0]}
+    assert codes == set() if script == "clean" else script in codes
+
+
+@pytest.mark.parametrize("kind", ["naive", "native", "python"])
+def test_recording_engine_judges_the_engine_queued_checkpoint(tmp_path, monkeypatch, kind):
+    """A ``RecordingEngine`` with the shim as the process engine under
+    ``model.save_checkpoint``: every write rides it (one push a save, one
+    variable a prefix), ``nd.waitall`` drains it, no GL101-GL105, and the
+    file reads back bitwise."""
+    e = pt.analysis.RecordingEngine(_race_engines(pt)[kind](), assert_discipline=True)
+    monkeypatch.setattr(peng, "_engine", e)
+    rs = np.random.RandomState(1)
+    args = {"fc_weight": rs.randn(3, 4).astype(np.float32)}
+    net = pt.sym.FullyConnected(pt.sym.Variable("data"), num_hidden=3, no_bias=True,
+                                name="fc")
+    prefix = str(tmp_path / "ck")
+    for epoch in (1, 2, 3):
+        pt.model.save_checkpoint(prefix, epoch, net,
+                                 {k: pt.nd.array(v * epoch, ctx=pt.cpu())
+                                  for k, v in args.items()}, {})
+    pt.nd.waitall()
+    _, got, _ = pt.model.load_checkpoint(prefix, 3, ctx=pt.cpu())
+    monkeypatch.setattr(peng, "_engine", None)
+    np.testing.assert_array_equal(got["fc_weight"].asnumpy(), args["fc_weight"] * 3)
+    assert len(e.trace.pushes) == 3 and len({r.mutable_vars for r in e.trace.pushes}) == 1
+    assert all(r.where.startswith(pt.model.__file__) for r in e.trace.pushes)
+    assert not e.trace.violations
+    assert pt.analysis.analyze_trace(e.trace).codes() == []

@@ -23,8 +23,9 @@ every site. Beside the reference's cases: the ``MXNET_FUSED_PATTERNS``
 grammar, ``ElemwiseChain``'s matches and keys, the inference override,
 the gate reasons, word for word where the predicate is shared, and
 ``MXNET_SERVE_QUANT=int8`` (the weight grid bitwise, a conv+BN net's
-inference forward at the reference's tolerance). The GL303
-case waits for the fusion explainer (``WAITS``).
+inference forward at the reference's tolerance). The GL303 case runs the
+port's fusion explainer (``analysis/fusion_explain.py``) beside JAX's, and
+their findings are equal; ``WAITS`` is empty.
 """
 import ast
 import contextlib
@@ -43,8 +44,8 @@ import mxnet_tpu_torch.ops.fusion_patterns  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
-WAITS = {"test_gl303_reports_pattern_sites_and_near_misses":
-         "ROADMAP.md section 1.5b (analysis/fusion_explain.py, GL301-GL303)"}
+#: reference cases not mirrored here (none)
+WAITS = {}
 
 
 @pytest.fixture(autouse=True)
@@ -553,6 +554,28 @@ def test_int8_inference_matches_the_reference(monkeypatch):
     assert all(d["infer"] and d["quant"] == "int8" for d in sites)
     off, _ = _conv_bn_infer(pt, "off", monkeypatch)
     assert not np.allclose(got, off, **tol)
+
+
+def test_gl303_reports_pattern_sites_and_near_misses(monkeypatch):
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", "auto")
+    rows = []
+    for m in (mxnet_tpu, pt):
+        sym = m.sym
+        x = sym.Variable("data")
+        # near-miss: FullyConnected consumed twice -> not rooted
+        fc = sym.FullyConnected(x, num_hidden=8, name="fc_shared")
+        out = sym.Activation(fc, act_type="relu", name="relu_a") + fc
+        net = sym.SoftmaxOutput(sym.FullyConnected(sym.Flatten(out), num_hidden=4, name="head"),
+                                name="softmax")
+        rep = m.analysis.lint(net, shapes={"data": (4, 16)}, passes=["fusion_explain"])
+        gl303 = [d for d in rep if d.code == "GL303"]
+        assert any("consumers" in d.message for d in gl303), [d.message for d in gl303]
+        # a graph where the pattern cleanly roots reports NO GL303 noise
+        rep2 = m.analysis.lint(_mba_net()(m), shapes={"data": (8, 32)},
+                               passes=["fusion_explain"])
+        assert not [d for d in rep2 if d.code == "GL303"]
+        rows.append([(d.code, d.node, d.message) for d in list(rep) + list(rep2)])
+    assert rows[1] == rows[0]
 
 
 def test_every_reference_case_is_mirrored_or_named():

@@ -1,35 +1,43 @@
-"""The port's graph lint (``mxnet_tpu_torch/analysis/``: ``shape_lint``,
-``retrace_guard``, ``shard_lint``, ``memory_plan``) held against the JAX
-package's.
+"""The port's static analysis (``mxnet_tpu_torch/analysis/``: the seven
+graph passes, the engine-race analysis, the dispatch and concurrency lints
+and the ``graphlint`` CLI) held against the JAX package's.
 
-The cases of the reference's ``tests/test_graphlint.py`` for these four
-passes run on both packages (fixture ``mx``): every GL0xx, GL2xx, GL4xx and
-GL5xx code fires on its broken graph and stays silent on its clean one, the
+Every case of the reference's ``tests/test_graphlint.py`` runs on both
+packages (fixture ``mx``): every GL0xx-GL8xx code fires on its broken
+graph, schedule or source and stays silent on its clean one, the
 sharding-plan and memory-plan acceptance cases, the telemetry gauge, the
 budget variable, the fused step's bind feeding the real mesh, the
-``infer_meta`` registry, the bind-time modes and the unknown-pass refusal.
-Beside them, each report's ``(code, node, severity)`` list and its
-``memory_plan`` dict equal the JAX package's, for every code's graphs and
-for the zoo's models over several meshes, budgets and policies. The JAX
-side runs its four passes by name (its other passes belong to ROADMAP.md
-section 1.5), with both pattern engines set to three patterns and their
-attention forced onto the flash lowering (``MXNET_FUSED_PATTERNS``, which
-both packages read): the port trains every attention site it can through
-its flash kernels, and the memory plan's fusion and attention entries
-report each package's own engine. The rewrite verifier's GL6xx cases run
-the reference's deliberately broken passes over each package's
-``RewritePass`` (``REWRITE_CODE_CASES``).
+``infer_meta`` registry, the bind-time modes, the unknown-pass refusal, the
+engines' unknown-variable refusal, the repo scans (each package scans its
+own sources) and the CLI. Beside them, each report's ``(code, node,
+severity)`` list and its ``memory_plan`` dict equal the JAX package's, for
+every code's graphs and for the zoo's models over several meshes, budgets
+and policies, with all seven passes in both packages, both pattern engines
+set to three patterns and their attention forced onto the flash lowering
+(``MXNET_FUSED_PATTERNS``, which both packages read): the port trains every
+attention site it can through its flash kernels, and the memory plan's
+fusion and attention entries report each package's own engine. The CLI's
+``--format json`` payloads equal JAX's for the same argv. Messages are
+compared after ``_as_reference`` maps the port's own words (its conv+BN
+kernel, its bound programs and captured graphs) back to the reference's.
+The rewrite verifier's GL6xx cases run the reference's deliberately broken
+passes over each package's ``RewritePass`` (``REWRITE_CODE_CASES``). The
+port's own vocabulary (torch's pulls and collectives, the CUDA graph's
+``replay``, ``dist.orig_rank``) has a broken source per word
+(``PORT_PULLS``, ``PORT_COLLECTIVES``).
 
-The cases of ``tests/test_graphlint.py`` that wait for section 1.5 (the
-engine analysis, the dispatch and concurrency lints, the fusion
-explainer's GL3xx codes and the ``graphlint`` CLI) are named in
-``WAITS_FOR_1_5``; a completeness check holds that every reference case is
-mirrored here or listed there.
+``WAITS_FOR_1_5`` is empty: a completeness check holds that every
+reference case is mirrored here.
 """
 import ast
 import contextlib
 import importlib
+import json
 import logging
+import os
+import tempfile
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -39,33 +47,39 @@ import mxnet_tpu
 import mxnet_tpu_torch as pt
 
 ROOT = Path(__file__).resolve().parents[1]
-PASSES = ["shape_lint", "retrace_guard", "shard_lint", "memory_plan"]
+#: the order of the reference's manager (``run_graph_passes``' imports), in
+#: which the port registers its passes. The reference registers its own in
+#: whichever order a process first imports their modules (its
+#: ``analysis/__init__.py`` imports ``dispatch_lint``; a test file may import
+#: ``concurrency_lint``), so reports are compared pass by pass (``_rows``).
+PASSES = ["shape_lint", "retrace_guard", "fusion_explain", "shard_lint", "memory_plan",
+          "dispatch_lint", "concurrency_lint"]
 JAX_PATTERNS = "attention=pallas_flash,matmul_bias_act,norm_residual"
 
-_S15 = "ROADMAP.md section 1.5 (tooling: the engine, dispatch and concurrency lints, " \
-       "the fusion explainer and the graphlint CLI)"
-WAITS_FOR_1_5 = {name: _S15 for name in (
-    "test_engine_code_triggers_on_broken_schedule", "test_engine_code_silent_on_clean_schedule",
-    "test_gl105_runtime_shim_catches_broken_engine",
-    "test_shipped_python_engine_passes_discipline_shim",
-    "test_dispatch_code_triggers_on_broken_source", "test_dispatch_code_silent_on_clean_source",
-    "test_dispatch_waived_site_reported_but_not_failing",
-    "test_dispatch_family_waiver_covers_every_gl7xx_code", "test_gl705_needs_two_intervals",
-    "test_repo_dispatch_scan_flags_kv_decode_host_sync_sites",
-    "test_graph_gl703_fires_on_tokenless_decode_symbol_only",
-    "test_concurrency_code_triggers_on_broken_source",
-    "test_concurrency_code_silent_on_clean_source",
-    "test_concurrency_waived_site_reported_but_not_failing",
-    "test_concurrency_family_waiver_covers_every_gl8xx_code",
-    "test_gl801_except_handler_is_rank_varying", "test_gl801_provenance_names_the_divergent_read",
-    "test_repo_concurrency_scan_is_clean_or_waived", "test_wait_for_unknown_var_raises",
-    "test_cli_mesh_resnet50_reshard_and_peak_table", "test_cli_mesh_summary_table_and_json_plan",
-    "test_cli_bad_mesh_is_usage_error", "test_cli_single_model_clean", "test_cli_list_codes",
-    "test_cli_json_format_and_broken_symbol_file", "test_cli_unknown_target_is_usage_error",
-    "test_cli_default_shapes_are_case_insensitive", "test_cli_strict_fails_on_warnings",
-    "test_cli_all_models_sweep_exits_zero")}
-#: the fusion explainer's codes (GL301-GL303) come with section 1.5 too
-GL3XX_WAITS = ("GL301", "GL302", "GL303")
+#: reference cases of tests/test_graphlint.py not mirrored here (none)
+WAITS_FOR_1_5 = {}
+
+#: the port's words in a message, each with the reference's in its place
+PORT_WORDS = (
+    ("the hand-written conv+BN kernel", "the Pallas conv+BN path"),
+    ("has no fused variant", "has no Pallas variant"),
+    ("this conv runs on cuDNN (torch's convolution); see fusion.conv_reject_reason for the "
+     "supported shapes", "this conv runs on the ordinary XLA lowering; see docs/PERF.md §6 for "
+     "the supported shapes"),
+    ("a distinct bound program — a per-step-varying scalar (lr, loss scale) forces one bind "
+     "(and graph capture) per step", "a distinct XLA compile — a per-step-varying scalar (lr, "
+     "loss scale) forces one compile per step"),
+    ("binds a fresh program (and captures a fresh CUDA graph), and bound buffers are not "
+     "shared across shapes", "traces and compiles a fresh XLA executable, and bound buffers "
+     "are not donated across shapes"),
+    ("every shard is padded to", "XLA pads every shard to"),
+)
+
+
+def _as_reference(text):
+    for port, ref in PORT_WORDS:
+        text = text.replace(port, ref)
+    return text
 
 
 @pytest.fixture(params=["jax", "port"])
@@ -78,8 +92,6 @@ def _on(m):
 
 
 def _lint(m, sym, **kw):
-    if m is mxnet_tpu:
-        kw.setdefault("passes", PASSES)
     return m.analysis.lint(sym, **kw)
 
 
@@ -191,6 +203,42 @@ def _gl203_clean(m):
             {"shapes": {"data": (2, 8)}})
 
 
+def _fusable_chain(m, kernel=(3, 3), pad=(1, 1), no_bias=True, name="c"):
+    bn = m.sym.BatchNorm(data=m.sym.Variable("data"), fix_gamma=False, name=name + "_bn")
+    act = m.sym.Activation(data=bn, act_type="relu", name=name + "_relu")
+    return m.sym.Convolution(data=act, num_filter=8, kernel=kernel, pad=pad, no_bias=no_bias,
+                             name=name + "_conv")
+
+
+def _gl301_broken(m):
+    return _fusable_chain(m, no_bias=False, name="biased"), {}
+
+
+def _gl301_clean(m):
+    return _fusable_chain(m, name="fusable"), {}
+
+
+def _gl302_broken(m):
+    bn = m.sym.BatchNorm(data=m.sym.Variable("data"), fix_gamma=False, name="pool_bn")
+    return m.sym.Pooling(data=bn, kernel=(2, 2), pool_type="max", name="pool"), {}
+
+
+def _gl302_clean(m):
+    return _fusable_chain(m, name="folded"), {}
+
+
+def _gl303_broken(m):
+    fc = m.sym.FullyConnected(data=m.sym.Variable("data"), num_hidden=8, name="fc_shared")
+    relu = m.sym.Activation(data=fc, act_type="relu", name="relu")
+    return relu + fc, {"shapes": {"data": (4, 16)}}
+
+
+def _gl303_clean(m):
+    fc = m.sym.FullyConnected(data=m.sym.Variable("data"), num_hidden=8, name="fc")
+    return (m.sym.Activation(data=fc, act_type="relu", name="relu"),
+            {"shapes": {"data": (4, 16)}})
+
+
 def _gl401_broken(m):
     return (m.sym.FullyConnected(data=m.sym.Variable("data"), num_hidden=999, name="oddfc"),
             {"shapes": {"data": (4, 783)}, "mesh": "dp=2,model=2"})
@@ -277,6 +325,8 @@ GRAPH_CODE_CASES = {
     "GL005": (_gl005_broken, _gl005_clean), "GL006": (_gl006_broken, _gl006_clean),
     "GL201": (_gl201_broken, _gl201_clean), "GL202": (_gl202_broken, _gl202_clean),
     "GL203": (_gl203_broken, _gl203_clean),
+    "GL301": (_gl301_broken, _gl301_clean), "GL302": (_gl302_broken, _gl302_clean),
+    "GL303": (_gl303_broken, _gl303_clean),
     "GL401": (_gl401_broken, _gl401_clean), "GL402": (_gl402_broken, _gl402_clean),
     "GL403": (_gl403_broken, _gl403_clean), "GL404": (_gl404_broken, _gl404_clean),
     "GL405": (_gl405_broken, _gl405_clean),
@@ -302,7 +352,10 @@ def test_graph_code_silent_on_clean_graph(mx, code):
 
 
 def _rows(report):
-    return [(d.code, d.node, d.severity) for d in report]
+    """(code, node, severity) of each finding, in the manager's pass order
+    and each pass's own order."""
+    ds = sorted(enumerate(report), key=lambda p: (PASSES.index(p[1].pass_name), p[0]))
+    return [(d.code, d.node, d.severity) for _, d in ds]
 
 
 @pytest.fixture
@@ -322,11 +375,16 @@ def test_each_codes_report_equals_the_references(code, side, jax_patterns):
     assert port.memory_plan == ref.memory_plan
     assert port.reshard_total_bytes == ref.reshard_total_bytes
     # a GL001 quotes the backend's own exception after its prefix
-    assert [_message(d) for d in port] == [_message(d) for d in ref]
+    assert [_message(d) for d in _by_pass(port)] == [_message(d) for d in _by_pass(ref)]
+
+
+def _by_pass(report):
+    return [d for _, d in sorted(enumerate(report),
+                                 key=lambda p: (PASSES.index(p[1].pass_name), p[0]))]
 
 
 def _message(d):
-    return d.message.split(": ")[0] if d.code == "GL001" else d.message
+    return d.message.split(": ")[0] if d.code == "GL001" else _as_reference(d.message)
 
 
 ZOO = {
@@ -360,12 +418,14 @@ def test_zoo_reports_and_memory_plans_equal_the_references(model, kw, jax_patter
 
 
 def test_every_diagnostic_code_is_tested():
-    """Every code of the four passes has its trigger/clean pair here; the
-    GL3xx codes wait for the fusion explainer (section 1.5)."""
-    codes = {c for c in pt.analysis.CODES if c[:3] in ("GL0", "GL2", "GL4", "GL5")}
-    assert set(GRAPH_CODE_CASES) == codes
+    """Every code has its trigger/clean pair here: the graph codes, the
+    engine schedules, the rewrite verifier, the dispatch and concurrency
+    sources."""
+    covered = (set(GRAPH_CODE_CASES) | set(ENGINE_CODE_CASES) | {"GL105"}
+               | set(REWRITE_CODE_CASES) | set(DISPATCH_CODE_CASES)
+               | set(CONCURRENCY_CODE_CASES))
+    assert covered == set(pt.analysis.CODES)
     assert set(pt.analysis.CODES) == set(mxnet_tpu.analysis.CODES)
-    assert set(c for c in pt.analysis.CODES if c.startswith("GL3")) == set(GL3XX_WAITS)
 
 
 def test_every_reference_case_is_mirrored_or_waits_for_section_1_5():
@@ -375,11 +435,784 @@ def test_every_reference_case_is_mirrored_or_waits_for_section_1_5():
     assert ref - here == set(WAITS_FOR_1_5)
 
 
-def test_registered_passes_are_the_references_four_in_order():
+def test_registered_passes_are_the_references_in_order():
+    _lint(mxnet_tpu, _build(mxnet_tpu, _gl001_clean)[0])  # the manager's imports register
     assert pt.analysis.list_passes() == PASSES
-    for name in ("fusion_explain", "dispatch_lint", "concurrency_lint"):
-        with pytest.raises(ValueError, match="unknown analysis pass"):
-            pt.analysis.lint(_build(pt, _gl001_clean)[0], passes=[name])
+    assert sorted(mxnet_tpu.analysis.list_passes()) == sorted(PASSES)
+
+
+def test_port_messages_name_no_reference_backend():
+    """The port's code table and the messages and hints of every code's
+    broken graph name none of the reference's backend (its kernels, its
+    compiler, its loops, its chip)."""
+    words = ("Pallas", "XLA", "lax.scan", "TPU", "pjit", "jax")
+    texts = [desc for _, desc in pt.analysis.CODES.values()]
+    for code in sorted(GRAPH_CODE_CASES):
+        sym, kw = _build(pt, GRAPH_CODE_CASES[code][0])
+        texts += [t for d in _lint(pt, sym, **kw) for t in (d.message, d.fix_hint or "")]
+    for src in DISPATCH_SOURCES.values():
+        texts += [t for f in pt.analysis.dispatch_lint.lint_dispatch_source("<case>", text=src)
+                  for t in (f.message, f.fix_hint or "")]
+    texts += [t for d in pt.analysis.lint_dispatch_gaps(_gl705_rows(8.0), pct=0.25)
+              for t in (d.message, d.fix_hint or "")]
+    bad = [t for t in texts if any(w in t for w in words)]
+    assert not bad, bad
+
+
+# -------------------------------------------------- engine schedules (GL1xx)
+def _engine(m):
+    return importlib.import_module(m.__name__ + ".engine")
+
+
+def _trace_gl101_broken(e):
+    v = e.new_variable()
+    e.push(lambda: None, const_vars=[v], mutable_vars=[v])
+
+
+def _trace_gl102_broken(e):
+    v = e.new_variable()
+    e.push(lambda: None, const_vars=[v])
+    e.wait_for_var(v)
+
+
+def _trace_gl103_broken(e):
+    v = e.new_variable()
+    e.push(lambda: None, mutable_vars=[v, v])
+
+
+def _trace_gl104_broken(e):
+    v = e.new_variable()
+    e.push(lambda: None, const_vars=[v])  # read before any write
+    e.push(lambda: None, mutable_vars=[v])
+
+
+def _trace_clean(e):
+    v, w = e.new_variable(), e.new_variable()
+    e.push(lambda: None, mutable_vars=[v])
+    e.push(lambda: None, const_vars=[v], mutable_vars=[w])
+    e.push(lambda: None, const_vars=[v, w])
+    e.wait_for_var(w)
+
+
+ENGINE_CODE_CASES = {"GL101": _trace_gl101_broken, "GL102": _trace_gl102_broken,
+                     "GL103": _trace_gl103_broken, "GL104": _trace_gl104_broken}
+
+
+@pytest.mark.parametrize("code", sorted(ENGINE_CODE_CASES))
+def test_engine_code_triggers_on_broken_schedule(mx, code):
+    e = mx.analysis.RecordingEngine(_engine(mx).NaiveEngine())
+    ENGINE_CODE_CASES[code](e)
+    assert code in mx.analysis.analyze_trace(e.trace).codes()
+
+
+@pytest.mark.parametrize("code", sorted(ENGINE_CODE_CASES) + ["GL105"])
+def test_engine_code_silent_on_clean_schedule(mx, code):
+    e = mx.analysis.RecordingEngine(_engine(mx)._PythonThreadedEngine(2), assert_discipline=True)
+    _trace_clean(e)
+    e.wait_for_all()
+    assert code not in mx.analysis.analyze_trace(e.trace).codes()
+
+
+def _no_discipline_engine(m):
+    """Deliberately broken: every op on its own thread, the declared var
+    sets ignored — what the shim exists to catch."""
+
+    class NoDiscipline(_engine(m).Engine):
+        def __init__(self):
+            self._n, self._threads = 0, []
+
+        def new_variable(self):
+            self._n += 1
+            return self._n
+
+        def push(self, fn, const_vars=(), mutable_vars=()):
+            def quiet():
+                try:
+                    fn()
+                except Exception:
+                    pass  # the shim raises; the trace records it
+
+            t = threading.Thread(target=quiet)
+            t.start()
+            self._threads.append(t)
+
+        def wait_for_var(self, var):
+            self.wait_for_all()
+
+        def wait_for_all(self):
+            for t in self._threads:
+                t.join()
+
+    return NoDiscipline()
+
+
+def test_gl105_runtime_shim_catches_broken_engine(mx):
+    e = mx.analysis.RecordingEngine(_no_discipline_engine(mx), assert_discipline=True)
+    v = e.new_variable()
+    gate, started = threading.Event(), threading.Event()
+
+    def first():
+        started.set()
+        gate.wait(5)
+
+    e.push(first, mutable_vars=[v])
+    assert started.wait(5)
+    e.push(lambda: None, mutable_vars=[v])  # overlapping writer
+    time.sleep(0.05)
+    gate.set()
+    e.wait_for_all()
+    report = mx.analysis.analyze_trace(e.trace)
+    assert "GL105" in report.codes()
+    assert any("write-write" in d.message for d in report.by_code("GL105"))
+
+
+def test_shipped_python_engine_passes_discipline_shim(mx):
+    e = mx.analysis.RecordingEngine(_engine(mx)._PythonThreadedEngine(4), assert_discipline=True)
+    vars_ = [e.new_variable() for _ in range(4)]
+    for i in range(80):
+        e.push(lambda: time.sleep(0.0005), mutable_vars=[vars_[i % 4]])
+        e.push(lambda: None, const_vars=[vars_[i % 4]], mutable_vars=[vars_[(i + 1) % 4]])
+    e.wait_for_all()
+    assert not e.trace.violations
+    assert "GL105" not in mx.analysis.analyze_trace(e.trace).codes()
+
+
+@pytest.mark.parametrize("maker", ["naive", "threaded", "python"])
+def test_wait_for_unknown_var_raises(mx, maker):
+    eng = _engine(mx)
+    e = {"naive": eng.NaiveEngine, "threaded": lambda: eng.ThreadedEngine(num_workers=2),
+         "python": lambda: eng._PythonThreadedEngine(2)}[maker]()
+    with pytest.raises(mx.MXNetError, match="unknown engine variable"):
+        e.wait_for_var(987654321)
+    v = e.new_variable()
+    done = []
+    e.push(lambda: done.append(1), mutable_vars=[v])
+    e.wait_for_var(v)
+    assert done == [1]
+
+
+# ------------------------------------------------ dispatch discipline (GL7xx)
+DISPATCH_SOURCES = {
+    "GL701_broken": """
+def greedy(dec, tok, n):
+    for _ in range(n):
+        logits = dec.decode_step(tok)
+        tok = logits.asnumpy()
+    return tok
+""",
+    "GL701_clean": """
+def drain(dec, toks):
+    outs = []
+    for t in toks:
+        outs.append(dec.decode_step(t))
+    return outs[-1].asnumpy()
+""",
+    "GL702_broken": """
+def decode(dec, tok, n):
+    for _ in range(n):
+        tok = dec.decode_step(tok)
+    return tok
+""",
+    # the reference's fix: the loop state rides as the scan carry, one dispatch
+    "GL702_clean": """
+def decode(dec, tok, n):
+    def megastep(carry, _):
+        return dec.scan_body(carry), None
+    final, _ = lax.scan(megastep, tok, None, length=n)
+    return final
+""",
+    "GL703_broken": """
+def pick(dec, x):
+    logits = dec.decode_step(x)
+    return np.argmax(logits, axis=-1)
+""",
+    "GL703_clean": """
+def pick(dec, x):
+    ids = dec.greedy_step(x)
+    return ids
+""",
+    "GL703_waived": """
+def pick(dec, x):
+    logits = dec.decode_step(x)
+    return np.argmax(logits, axis=-1)  # graphlint: waive GL703 -- acknowledged
+""",
+    "GL704_broken": """
+def run2(a, b, x):
+    ya = a.forward(x)
+    out = ya.asnumpy()
+    yb = b.forward(x)
+    return out, yb.asnumpy()
+""",
+    "GL704_clean": """
+def run2(a, b, x):
+    ya = a.forward(x)
+    yb = b.forward(x)
+    return ya.asnumpy(), yb.asnumpy()
+""",
+}
+
+
+def _dispatch_lint(m):
+    return importlib.import_module(m.__name__ + ".analysis.dispatch_lint")
+
+
+def _dl_codes(m, src):
+    return {f.code for f in _dispatch_lint(m).lint_dispatch_source("<case>", text=src)}
+
+
+def _gl705_rows(gap_ms):
+    return [{"name": "serving.decode_step", "count": 10, "intervals": 9, "busy_ms": 10.0,
+             "gap_ms": gap_ms, "max_gap_ms": gap_ms / 2.0, "clamped": 0}]
+
+
+def _gl705_codes(m, gap_ms):
+    return {d.code for d in _dispatch_lint(m).lint_dispatch_gaps(_gl705_rows(gap_ms), pct=0.25)}
+
+
+DISPATCH_CODE_CASES = {
+    **{code: (lambda m, c=code: _dl_codes(m, DISPATCH_SOURCES[c + "_broken"]),
+              lambda m, c=code: _dl_codes(m, DISPATCH_SOURCES[c + "_clean"]))
+       for code in ("GL701", "GL702", "GL703", "GL704")},
+    # 8 ms host gap against 10 ms busy = 80% >> the 25% threshold; 1 ms = 10% is under
+    "GL705": (lambda m: _gl705_codes(m, 8.0), lambda m: _gl705_codes(m, 1.0)),
+}
+
+
+@pytest.mark.parametrize("code", sorted(DISPATCH_CODE_CASES))
+def test_dispatch_code_triggers_on_broken_source(mx, code):
+    assert code in DISPATCH_CODE_CASES[code][0](mx)
+
+
+@pytest.mark.parametrize("code", sorted(DISPATCH_CODE_CASES))
+def test_dispatch_code_silent_on_clean_source(mx, code):
+    assert code not in DISPATCH_CODE_CASES[code][1](mx)
+
+
+def test_dispatch_waived_site_reported_but_not_failing(mx):
+    dl = _dispatch_lint(mx)
+    f = next(f for f in dl.lint_dispatch_source("<case>", text=DISPATCH_SOURCES["GL703_waived"])
+             if f.code == "GL703")
+    assert f.waived
+    d = f.to_diagnostic()
+    assert d.severity == "info" and d.message.endswith("[waived]")
+    g = next(f for f in dl.lint_dispatch_source("<case>", text=DISPATCH_SOURCES["GL703_broken"])
+             if f.code == "GL703")
+    assert not g.waived and g.to_diagnostic().severity == "warning"
+
+
+def test_dispatch_family_waiver_covers_every_gl7xx_code(mx):
+    src = DISPATCH_SOURCES["GL701_broken"].replace(
+        "tok = logits.asnumpy()", "tok = logits.asnumpy()  # graphlint: waive GL7xx -- family")
+    findings = _dispatch_lint(mx).lint_dispatch_source("<case>", text=src)
+    assert {f.line for f in findings if f.waived}, [f.to_dict() for f in findings]
+
+
+def test_gl705_needs_two_intervals(mx):
+    rows = _gl705_rows(8.0)
+    rows[0]["intervals"] = 1
+    assert not _dispatch_lint(mx).lint_dispatch_gaps(rows, pct=0.25)
+
+
+def test_repo_dispatch_scan_flags_kv_decode_host_sync_sites(mx):
+    """Each package's default scan (its own serving layer) flags the
+    kv_decode host-sync sites: GL701 in both decoders' greedy loops, with
+    file:line provenance."""
+    report, sites = _dispatch_lint(mx).lint_dispatch_paths()
+    kv = [s for s in sites if s["file"] == mx.__name__ + "/serving/kv_decode.py"
+          and s["code"] == "GL701"]
+    assert len(kv) >= 2, sites
+    assert {s["function"] for s in kv} >= {"KVCacheDecoder.greedy", "PagedKVDecoder.greedy"}
+    assert all(s["line"] > 0 and s["provenance"] for s in kv)
+
+
+def test_graph_gl703_fires_on_tokenless_decode_symbol_only(mx):
+    cfg = dict(vocab_size=64, num_layers=2, num_heads=2, model_dim=32, ffn_dim=64)
+    B, S, H, dh = 2, 8, 2, 16
+    sh = {"data": (B, 1), "pos_idx": (B, 1), "slot_onehot": (S,), "kv_mask": (S,)}
+    for i in range(cfg["num_layers"]):
+        sh["kv_k_%d" % i] = (B, H, S, dh)
+        sh["kv_v_%d" % i] = (B, H, S, dh)
+    tf = mx.models.transformer
+    bare = tf.get_decode_symbol(max_len=S, pos_len=S, token_out=False, **cfg)
+    assert "GL703" in _codes(mx, bare, shapes=sh)
+    headed = tf.get_decode_symbol(max_len=S, pos_len=S, **cfg)
+    assert "GL703" not in _codes(mx, headed, shapes=sh)
+
+
+#: the port's pulls: each a broken loop of forward calls that fires GL701
+PORT_PULLS = {
+    "item": "y.item()", "cpu": "y.cpu()", "numpy": "y.numpy()",
+    "torch.cuda.synchronize": "torch.cuda.synchronize()",
+    "Event.synchronize": "done.synchronize()", "tolist": "y.tolist()",
+}
+
+
+@pytest.mark.parametrize("word", sorted(PORT_PULLS))
+def test_gl701_fires_on_each_port_pull_in_a_loop_of_forward_calls(word):
+    src = """
+import torch
+
+def loop(exe, x, n, done):
+    for _ in range(n):
+        y = exe.forward(x)
+        x = %s
+    return x
+""" % PORT_PULLS[word]
+    findings = pt.analysis.lint_dispatch_source("<case>", text=src)
+    assert [(f.code, f.line) for f in findings if f.code == "GL701"] == [("GL701", 7)], \
+        [f.to_dict() for f in findings]
+
+
+def test_gl701_fires_on_a_pull_inside_a_loop_of_graph_replays():
+    src = """
+def loop(graph, out, n):
+    for _ in range(n):
+        graph.replay()
+        tok = out.cpu()
+    return tok
+"""
+    assert "GL701" in _dl_codes(pt, src)
+
+
+def test_a_context_factory_is_not_a_pull():
+    """``pt.cpu()``/``cpu()`` make a context; only a value's ``.cpu()`` is a
+    copy to the host."""
+    src = """
+import mxnet_tpu_torch as pt
+from mxnet_tpu_torch import cpu
+
+def loop(exe, x, n):
+    for _ in range(n):
+        y = exe.forward(x, ctx=pt.cpu())
+        x = y + cpu(0).device_id
+    return x
+"""
+    assert "GL701" not in _dl_codes(pt, src)
+
+
+def test_gl704_fires_on_a_premature_cpu_copy():
+    broken = """
+def run2(a, b, x):
+    ya = a.forward(x)
+    out = ya.cpu()
+    yb = b.forward(x)
+    return out, yb.cpu()
+"""
+    clean = """
+def run2(a, b, x):
+    ya = a.forward(x)
+    yb = b.forward(x)
+    return ya.cpu(), yb.cpu()
+"""
+    assert "GL704" in _dl_codes(pt, broken)
+    assert "GL704" not in _dl_codes(pt, clean)
+
+
+# ------------------------------------------------------ concurrency (GL8xx)
+CONCURRENCY_SOURCES = {
+    "GL801_broken": """
+import jax
+
+def step(kv):
+    if jax.process_index() == 0:
+        kv.allreduce([1])
+""",
+    # guarding on world SIZE is rank-uniform: the correct idiom, not divergence
+    "GL801_clean": """
+import jax
+
+def step(kv):
+    if jax.process_count() > 1:
+        kv.allreduce([1])
+""",
+    "GL802_broken": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+        self._t = threading.Thread(target=self._loop)
+
+    def _loop(self):
+        self.count += 1
+
+    def bump(self):
+        with self._lock:
+            self.count += 1
+""",
+    "GL802_clean": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.count = 0
+        self._t = threading.Thread(target=self._loop)
+
+    def _loop(self):
+        with self._lock:
+            self.count += 1
+
+    def bump(self):
+        with self._lock:
+            self.count += 1
+""",
+    "GL803_broken": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._a = threading.Lock()
+        self._b = threading.Lock()
+
+    def one(self):
+        with self._a:
+            with self._b:
+                pass
+
+    def two(self):
+        with self._b:
+            with self._a:
+                pass
+""",
+    "GL803_clean": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._a = threading.Lock()
+        self._b = threading.Lock()
+
+    def one(self):
+        with self._a:
+            with self._b:
+                pass
+
+    def two(self):
+        with self._a:
+            with self._b:
+                pass
+""",
+    "GL804_broken": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._q = None
+
+    def drain(self):
+        with self._lock:
+            return self._q.get()
+""",
+    # cond.wait() on a condition backed by the held lock RELEASES it: exempt
+    "GL804_clean": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._q = None
+
+    def drain(self):
+        with self._lock:
+            self._cv.wait()
+        return self._q.get()
+""",
+    "GL804_waived": """
+import threading
+
+class Srv:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._q = None
+
+    def drain(self):
+        with self._lock:
+            return self._q.get()  # graphlint: waive GL804 -- bounded producer
+""",
+}
+
+
+def _concurrency_lint(m):
+    return importlib.import_module(m.__name__ + ".analysis.concurrency_lint")
+
+
+def _cl_codes(m, src):
+    return {f.code for f in _concurrency_lint(m).lint_concurrency_source("<case>", text=src)}
+
+
+def _gl805_codes(m, seam):
+    witness = {"enabled": True, "threshold_ms": 50.0,
+               "events": [{"kind": "long_hold", "lock": "serving.engine", "hold_ms": 80.0,
+                           "threshold_ms": 50.0, "thread": "T", "dispatch_seam": seam}]}
+    return {d.code for d in _concurrency_lint(m).lint_lock_witness(witness)}
+
+
+CONCURRENCY_CODE_CASES = {
+    **{code: (lambda m, c=code: _cl_codes(m, CONCURRENCY_SOURCES[c + "_broken"]),
+              lambda m, c=code: _cl_codes(m, CONCURRENCY_SOURCES[c + "_clean"]))
+       for code in ("GL801", "GL802", "GL803", "GL804")},
+    # a >threshold hold ACROSS a dispatch seam fires; with no seam it does not
+    "GL805": (lambda m: _gl805_codes(m, True), lambda m: _gl805_codes(m, False)),
+}
+
+
+@pytest.mark.parametrize("code", sorted(CONCURRENCY_CODE_CASES))
+def test_concurrency_code_triggers_on_broken_source(mx, code):
+    assert code in CONCURRENCY_CODE_CASES[code][0](mx)
+
+
+@pytest.mark.parametrize("code", sorted(CONCURRENCY_CODE_CASES))
+def test_concurrency_code_silent_on_clean_source(mx, code):
+    assert code not in CONCURRENCY_CODE_CASES[code][1](mx)
+
+
+def test_concurrency_waived_site_reported_but_not_failing(mx):
+    cl = _concurrency_lint(mx)
+    f = next(f for f in cl.lint_concurrency_source("<case>",
+                                                   text=CONCURRENCY_SOURCES["GL804_waived"])
+             if f.code == "GL804")
+    assert f.waived
+    d = f.to_diagnostic()
+    assert d.severity == "info" and d.message.endswith("[waived]")
+    g = next(f for f in cl.lint_concurrency_source("<case>",
+                                                   text=CONCURRENCY_SOURCES["GL804_broken"])
+             if f.code == "GL804")
+    assert not g.waived and g.to_diagnostic().severity == "warning"
+
+
+def test_concurrency_family_waiver_covers_every_gl8xx_code(mx):
+    src = CONCURRENCY_SOURCES["GL801_broken"].replace(
+        "kv.allreduce([1])", "kv.allreduce([1])  # graphlint: waive GL8xx -- family waiver")
+    findings = _concurrency_lint(mx).lint_concurrency_source("<case>", text=src)
+    assert {f.line for f in findings if f.waived}, [f.to_dict() for f in findings]
+
+
+def test_gl801_except_handler_is_rank_varying(mx):
+    src = """
+def step(kv):
+    try:
+        risky()
+    except Exception:
+        kv._barrier()
+"""
+    assert "GL801" in _cl_codes(mx, src)
+
+
+def test_gl801_provenance_names_the_divergent_read(mx):
+    f = next(f for f in _concurrency_lint(mx).lint_concurrency_source(
+        "<case>", text=CONCURRENCY_SOURCES["GL801_broken"]) if f.code == "GL801")
+    assert any("process_index" in p for p in f.provenance), f.provenance
+
+
+def test_repo_concurrency_scan_is_clean_or_waived(mx):
+    """Each package's default scan of its own threaded and distributed
+    sources: every finding fixed or waived, and the elastic pause path's
+    protocol-level GL801 visible as a waived site."""
+    report, sites = _concurrency_lint(mx).lint_concurrency_paths()
+    unwaived = [s for s in sites if not s["waived"]]
+    assert not unwaived, unwaived
+    assert any(s["code"] == "GL801" and s["file"] == mx.__name__ + "/module/elastic.py"
+               for s in sites), sites
+
+
+#: the port's collectives (torch.distributed's and its own wrappers')
+PORT_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_object", "all_gather_into_tensor",
+                    "broadcast", "broadcast_object_list", "reduce_scatter_tensor", "barrier",
+                    "monitored_barrier", "send", "recv", "allgather_host", "_all_reduce_grads")
+
+
+@pytest.mark.parametrize("name", PORT_COLLECTIVES)
+def test_gl801_fires_on_each_port_collective_under_a_rank_branch(name):
+    src = """
+import torch
+from mxnet_tpu_torch import dist
+
+def step(t):
+    if dist.rank() == 0:
+        torch.distributed.%s(t)
+""" % name
+    findings = pt.analysis.concurrency_lint.lint_concurrency_source("<case>", text=src)
+    assert [(f.code, f.line) for f in findings] == [("GL801", 7)], \
+        [f.to_dict() for f in findings]
+
+
+@pytest.mark.parametrize("guard", ["dist.rank() == 0", "dist.orig_rank() == 0",
+                                   "torch.distributed.get_rank() == 0"])
+def test_gl801_fires_on_all_reduce_under_each_rank_read(guard):
+    src = """
+import torch
+from mxnet_tpu_torch import dist
+
+def step(t):
+    if %s:
+        torch.distributed.all_reduce(t)
+""" % guard
+    assert "GL801" in _cl_codes(pt, src)
+
+
+def test_gl801_silent_on_all_reduce_under_the_world_size():
+    src = """
+import torch
+from mxnet_tpu_torch import dist
+
+def step(t):
+    if dist.num_workers() > 1:
+        torch.distributed.all_reduce(t)
+"""
+    assert "GL801" not in _cl_codes(pt, src)
+
+
+# ------------------------------------------------------------------ CLI
+def _cli(m):
+    return importlib.import_module(m.__name__ + ".analysis.cli")
+
+
+def test_cli_mesh_resnet50_reshard_and_peak_table(mx, capsys):
+    rc = _cli(mx).main(["resnet-50", "--shape", "data=32,3,224,224", "--mesh", "dp=8,model=2"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "implicit reshard" in out and "moved per device" in out
+    assert "predicted peak HBM per device" in out
+    assert "params" in out and "activations" in out
+
+
+def test_cli_mesh_summary_table_and_json_plan(mx, capsys):
+    main = _cli(mx).main
+    assert main(["mlp", "lenet", "--mesh", "dp=2"]) == 0
+    assert "peak-HBM summary" in capsys.readouterr().out
+    rc = main(["mlp", "--mesh", "dp=2", "--format", "json"])
+    payload = json.loads(capsys.readouterr().out)
+    assert rc == 0
+    plan = payload[0]["memory_plan"]
+    assert plan["mesh"] == {"dp": 2} and plan["per_device"]["peak"] > 0
+
+
+def test_cli_bad_mesh_is_usage_error(mx):
+    assert _cli(mx).main(["mlp", "--mesh", "dp8"]) == 2
+
+
+def test_cli_single_model_clean(mx):
+    assert _cli(mx).main(["mlp"]) == 0
+
+
+def test_cli_list_codes(mx, capsys):
+    assert _cli(mx).main(["--list-codes"]) == 0
+    out = capsys.readouterr().out
+    for code in mx.analysis.CODES:
+        assert code in out
+
+
+def test_cli_json_format_and_broken_symbol_file(mx, tmp_path, capsys):
+    sym, _ = _build(mx, _gl006_broken)
+    path = str(tmp_path / "broken-symbol.json")
+    sym.save(path)
+    rc = _cli(mx).main([path, "--shape", "data=2,3,8,8", "--format", "json"])
+    payload = json.loads(capsys.readouterr().out)
+    assert rc == 1
+    assert any(d["code"] == "GL006" for entry in payload for d in entry["diagnostics"])
+
+
+def test_cli_unknown_target_is_usage_error(mx):
+    assert _cli(mx).main(["no-such-model"]) == 2
+
+
+def test_cli_default_shapes_are_case_insensitive(mx, capsys):
+    assert _cli(mx).main(["MLP"]) == 0
+    assert "0 total finding(s)" in capsys.readouterr().out
+
+
+def test_cli_strict_fails_on_warnings(mx):
+    sym, _ = _build(mx, _gl202_broken)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "warn-symbol.json")
+        sym.save(path)
+        assert _cli(mx).main([path]) == 0
+        assert _cli(mx).main([path, "--strict"]) == 1
+
+
+def test_cli_all_models_sweep_exits_zero(mx):
+    assert _cli(mx).main(["--all-models"]) == 0
+
+
+def _payload(m, argv, capsys):
+    """The CLI's exit code and JSON payload; the zoo's auto-named nodes
+    counted from 0 (each package keeps its own name counter)."""
+    capsys.readouterr()
+    with m.name.NameManager():
+        rc = _cli(m).main(argv)
+    return rc, json.loads(capsys.readouterr().out)
+
+
+def _as_reference_json(obj):
+    """A port payload in the reference's words and paths."""
+    text = json.dumps(obj, sort_keys=True).replace("mxnet_tpu_torch/", "mxnet_tpu/")
+    for port, ref in PORT_WORDS:
+        text = text.replace(json.dumps(port)[1:-1], json.dumps(ref)[1:-1])
+    return json.loads(text)
+
+
+CLI_JSON_ARGV = {
+    "mlp": ["mlp", "--format", "json"],
+    "resnet18_mesh": ["resnet-18", "--shape", "data=8,3,32,32", "--mesh", "dp=4,model=2",
+                      "--budget-gb", "0.01", "--format", "json"],
+    "zoo_inference": ["lenet", "transformer", "recommender", "--inference", "--bwd",
+                      "recompute", "--format", "json"],
+    "passes": ["mlp", "lenet", "--passes", "shape_lint,fusion_explain", "--format", "json"],
+    "rewrite": ["transformer", "mlp", "--rewrite", "--format", "json"],
+    "autoplan": ["resnet-50", "--autoplan", "--mesh-devices", "8", "--format", "json"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLI_JSON_ARGV))
+def test_cli_json_payloads_equal_the_references(case, jax_patterns, capsys):
+    argv = CLI_JSON_ARGV[case]
+    rc_ref, ref = _payload(mxnet_tpu, argv, capsys)
+    rc_port, port = _payload(pt, argv, capsys)
+    assert rc_port == rc_ref
+    assert _as_reference_json(port) == json.loads(json.dumps(ref, sort_keys=True))
+
+
+@pytest.mark.parametrize("mode", ["--dispatch", "--concurrency"])
+def test_cli_source_lint_payloads_match_the_references(mode, capsys):
+    """The source lints scan each package's own tree: the same codes in the
+    same functions, waived alike, under the reference's paths."""
+    rows, rcs, paths = [], [], []
+    for m in (mxnet_tpu, pt):
+        rc, payload = _payload(m, [mode, "--format", "json"], capsys)
+        rcs.append(rc)
+        # the reference's dispatch scan also reads its benches; the port's
+        # tools loop over no dispatch (dispatch_lint.DEFAULT_SCAN_PATHS)
+        paths.append([p for p in payload["paths"] if p.startswith(m.__name__ + "/")])
+        rows.append(sorted((s["code"], s["file"].split("/", 1)[1], s["function"], s["waived"])
+                           for s in payload["sites"]
+                           if s["file"].startswith(m.__name__ + "/")))
+    assert rcs[1] == rcs[0] == 0
+    assert paths[1] == [p.replace("mxnet_tpu/", "mxnet_tpu_torch/", 1) for p in paths[0]]
+    assert rows[1] == rows[0]
+
+
+def test_cli_gl705_from_a_trace_dump(tmp_path, capsys):
+    """``--dispatch --trace`` prices a chrome-trace dump: the gaps equal
+    ``lint_dispatch_gaps(gap_summary(trace=dump))``, and a GL705 fails the
+    run (exit 1) where the static sites are all waived."""
+    from mxnet_tpu_torch.telemetry.trace import gap_summary
+
+    events = [{"name": "process_name", "ph": "M", "pid": 1, "tid": 1, "args": {"name": "x"}}]
+    for t in (0, 15000, 30000):  # 10 ms spans 5 ms apart: 10 ms of gap over 30 ms busy
+        events.append({"name": "serving.decode_step", "ph": "X", "pid": 1, "tid": 1, "ts": t,
+                       "dur": 10000})
+    dump = tmp_path / "trace.json"
+    dump.write_text(json.dumps({"traceEvents": events}))
+    rc, payload = _payload(pt, ["--dispatch", "--trace", str(dump), "--format", "json"], capsys)
+    want = pt.analysis.lint_dispatch_gaps(gap_summary(trace=json.loads(dump.read_text()),
+                                                      top=1000))
+    assert [d["code"] for d in payload["gaps"]] == ["GL705"] == [d.code for d in want]
+    assert payload["gaps"] == [d.to_dict() for d in want]
+    assert rc == 1
 
 
 # ------------------------------------------- GL4xx/GL5xx acceptance cases
@@ -525,7 +1358,7 @@ def test_spmd_adapter_lints_the_same_plan_in_both_packages(monkeypatch, caplog):
         lines.append(sorted(r.getMessage() for r in caplog.records
                             if r.name == "mxnet_tpu.graphlint"))
     assert peaks[0] == peaks[1] > 0
-    assert lines[0] == lines[1]
+    assert lines[0] == [_as_reference(line) for line in lines[1]]
 
 
 # ----------------------------------------------------------- infer_meta

@@ -18,8 +18,9 @@ Departure (ROADMAP.md section 3): under ``MXNET_GRAPHREWRITE=0`` every
 port bind still runs ``cse``, ``mul_self_to_square`` and ``dce``
 (``test_bind_rewrite_off_by_default`` holds the port to exactly those),
 and a failure of them raises (``test_always_on_rule_failure_raises_departure``).
-``test_cli_rewrite_dump_and_json`` waits for the ``graphlint`` CLI
-(``WAITS``).
+``test_cli_rewrite_dump_and_json`` runs each package's ``graphlint`` CLI
+(``analysis/cli.py``), and their ``--rewrite-json`` payloads are equal;
+``WAITS`` is empty.
 """
 import ast
 import contextlib
@@ -36,8 +37,8 @@ ROOT = Path(__file__).resolve().parents[1]
 #: the rewrite modules (``analysis.rewrite`` is also the name of the function)
 RW = importlib.import_module("mxnet_tpu_torch.analysis.rewrite")
 
-WAITS = {"test_cli_rewrite_dump_and_json":
-         "ROADMAP.md section 1.5b (the graphlint CLI and its --rewrite dump)"}
+#: reference cases not mirrored here (none)
+WAITS = {}
 
 
 @pytest.fixture(autouse=True)
@@ -541,6 +542,47 @@ def test_verify_reports_match_the_reference():
                                  (_cse_net, {"a": (2,), "b": (2,)}, None)):
         j, p = _both(lambda m: report(m, build(m), shapes, types))
         assert j == p
+
+
+def test_cli_rewrite_dump_and_json(mx, capsys, monkeypatch):
+    import json
+
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", "auto")
+    main = importlib.import_module(mx.__name__ + ".analysis.cli").main
+    rc = main(["transformer", "--rewrite"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "graphrewrite: transformer" in out
+    assert "cse.merge" in out and "mul_self_to_square" in out
+    assert "norm_residual 0 -> 13" in out
+    rc = main(["transformer", "--rewrite", "--rewrite-json"])
+    payload = json.loads(capsys.readouterr().out)
+    assert rc == 0
+    entry = payload[0]
+    assert entry["rewrite"]["nodes_after"] < entry["rewrite"]["nodes_before"]
+    assert entry["fusion_sites_after"]["norm_residual"] == 13
+    assert entry["records"], "provenance records missing from the dump"
+    assert not [d for d in entry["verify"]["diagnostics"]
+                if d["code"] in ("GL601", "GL602", "GL604")]
+
+
+def test_cli_rewrite_json_matches_the_reference(capsys, monkeypatch):
+    """The same ``--rewrite-json`` payload from both packages but the
+    auto-named nodes (each package counts its own names): node counts,
+    fired rules, fusion sites, verifier codes and the records' rules."""
+    import json
+
+    monkeypatch.setenv("MXNET_FUSED_PATTERNS", "auto")
+    got = []
+    for m in (mxnet_tpu, pt):
+        capsys.readouterr()
+        assert importlib.import_module(m.__name__ + ".analysis.cli").main(
+            ["transformer", "mlp", "--rewrite", "--rewrite-json"]) == 0
+        got.append([(e["rewrite"], e["fusion_sites_before"], e["fusion_sites_after"],
+                     sorted(d["code"] for d in e["verify"]["diagnostics"]),
+                     [r["rule"] for r in e["records"]])
+                    for e in json.loads(capsys.readouterr().out)])
+    assert got[1] == got[0]
 
 
 def test_every_reference_case_is_mirrored_or_named():

@@ -4,8 +4,8 @@ Every case of the reference's own ``tests/test_sparse.py`` runs here on
 BOTH packages (fixture ``mx``, the port inside ``with cpu():``), the four
 that need ``analysis/`` or ``parallel/`` (the shard-rule category, the
 GL405 hint, autoplan, the lint of the zoo entry) included: the zoo entry's
-lint takes its shapes from the JAX package's ``graphlint`` CLI table, as
-the port has no CLI yet (ROADMAP.md section 1.5). Then the recommender: ``get_symbol`` gives
+lint takes its shapes from each package's own ``graphlint`` CLI table
+(``analysis/cli.py``; the port's equals JAX's). Then the recommender: ``get_symbol`` gives
 the JAX builder's JSON under both names, and one ``Module.fit`` step at
 batch 64 through a ``local`` KVStore object, from the same numpy weights
 and batch, gives the same weights and the same sparse optimizer states in
@@ -310,8 +310,11 @@ def test_autoplan_recommender_plan_is_the_references():
 
 
 def test_recommender_in_zoo_and_lints_clean(mx):
-    from mxnet_tpu.analysis.cli import DEFAULT_SHAPES, DEFAULT_TYPES
+    cli = importlib.import_module(mx.__name__ + ".analysis.cli")
+    DEFAULT_SHAPES, DEFAULT_TYPES = cli.DEFAULT_SHAPES, cli.DEFAULT_TYPES
+    from mxnet_tpu.analysis import cli as ref_cli
 
+    assert (DEFAULT_SHAPES, DEFAULT_TYPES) == (ref_cli.DEFAULT_SHAPES, ref_cli.DEFAULT_TYPES)
     analysis = importlib.import_module(mx.__name__ + ".analysis")
     assert "recommender" in DEFAULT_SHAPES and "dlrm" in DEFAULT_SHAPES
     net = mx.models.get_symbol("dlrm")

@@ -3,7 +3,8 @@ package's: both are backend-free copies, so the same calls must give the
 same histograms, registry snapshots, chrome-trace schema, fault plans and
 lock-witness reports. The decoders' spans and counters (``serving.*``,
 ``spec.*``, ``dispatch.host_gap``) are held against the JAX decoders' on
-the same small transformer."""
+the same small transformer, and the host-gap attribution of a chrome trace
+(``gap_summary``) feeds the same GL705 in both packages."""
 import threading
 
 import numpy as np
@@ -244,3 +245,35 @@ def test_decoders_emit_the_references_counters_and_timers():
         assert port[3].get(name, 0) > 0, name
     assert ref[4] == port[4]
     assert "dispatch.host_gap" in port[4] and "serving.decode_megastep" in port[4]
+
+
+# ------------------------------------------------- host gaps and GL705
+def _gap_trace(spans_us, name="serving.decode_step", tid=1):
+    """Minimal chrome-trace dict: one thread, one span name."""
+    events = [{"ph": "M", "pid": 1, "name": "process_name", "args": {"name": "t"}}]
+    events += [{"ph": "X", "pid": 1, "tid": tid, "name": name, "cat": "serving", "ts": ts,
+                "dur": dur} for ts, dur in spans_us]
+    return {"traceEvents": events, "otherData": {}}
+
+
+def test_gap_rows_feed_the_same_gl705():
+    """The reference's GL705 over gap rows (``tests/test_telemetry.py``'s
+    gap-attribution case): the same trace gives the same ``gap_summary``
+    rows, and the same rows the same GL705, in both packages."""
+    from mxnet_tpu.analysis import dispatch_lint as mx_dl
+    from mxnet_tpu_torch.analysis import dispatch_lint as pt_dl
+
+    trace = _gap_trace([(0, 10000), (15000, 10000)])
+    rows = [tm.gap_summary(trace=trace) for tm, _ in BOTH]
+    assert rows[0] == rows[1]
+    assert rows[1][0]["name"] == "serving.decode_step"
+    assert rows[1][0]["gap_ms"] == pytest.approx(5.0)
+    row = [{"name": "serving.decode_step", "intervals": 9, "busy_ms": 10.0, "gap_ms": 9.0}]
+    diags = [dl.lint_dispatch_gaps(row, pct=0.5) for dl in (mx_dl, pt_dl)]
+    assert [d.code for d in diags[1]] == ["GL705"]
+    assert [(d.code, d.node, d.message) for d in diags[0]] == \
+        [(d.code, d.node, d.message) for d in diags[1]]
+    # one interval is not a pattern; the busy 20 ms against 5 ms of gap is under 50 %
+    assert pt_dl.lint_dispatch_gaps(rows[1], pct=0.5) == []
+    assert [d.code for d in pt_dl.lint_dispatch_gaps(rows[1], pct=0.2, min_intervals=1)] \
+        == ["GL705"]

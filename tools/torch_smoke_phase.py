@@ -2,11 +2,12 @@
 """Run one phase of ``chip_smoke.py`` alone on the card.
 
     python3 tools/torch_smoke_phase.py bind      # phase 20, the bind-time control plane
+    python3 tools/torch_smoke_phase.py analysis  # phase 21, the analysis lint families
 
 It builds the port's kernel library from the checkout, prints the card's
 name and power limit, then calls ``chip_smoke.run_<phase>(pt, smi)``: the
-phases that take nothing else (``bind``, ``fleet``, ``checkpoint``,
-``planner``, ``native``). The phase prints its JSON lines as in the whole
+phases that take nothing else (``analysis``, ``bind``, ``fleet``,
+``checkpoint``, ``planner``, ``native``). The phase prints its JSON lines as in the whole
 smoke; the script exits nonzero where a check fails.
 """
 import os
@@ -15,7 +16,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("bind", "fleet", "checkpoint", "planner", "native")
+PHASES = ("analysis", "bind", "fleet", "checkpoint", "planner", "native")
 
 
 def main(argv):
