@@ -281,7 +281,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    not fold, kernels 8 and 9 launched convs - GL301 times a step; the
    full-width transformer's training symbol with no GL303 and its planned
    pattern sites ``pattern_site_counts``; (3) the full-width decoder's
-   greedy of 32 tokens at K = 1 and K = 8 under telemetry tracing (the same
+   greedy of 16 tokens at K = 1 and K = 8 under telemetry tracing (the same
    tokens, the path's launches), its chrome trace judged by ``python -m
    mxnet_tpu_torch.analysis.cli --dispatch --trace`` in a process of its
    own: GL701 in both greedy loops, the CLI's gaps equal to the in-process
@@ -294,7 +294,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``concurrency_lint`` pass's, the top locks by hold time; (5) the CLI's
    ``--all-models`` lint, a ResNet-50 rewrite dump and an 8-device plan,
    each exit 0 and seconds, ``torch.cuda.memory_allocated()`` unchanged.
-22. A ``smoke`` line (the run's seconds from the import of the port), a
+22. Parallel layouts (``parallel/ring_attention.py``, ``ops/attention.py``'s
+   seq-axis dispatch, ``group2ctx`` placement): the full-width LM at
+   ``seq_len`` 1024, batch 4, through ``SPMDTrainer`` over a {data: 2,
+   seq: 4} mesh of eight logical ``gpu(0)`` with
+   ``ShardingRules(seq_axis="seq")`` and Adam (2 warm-up, 5 timed graph
+   replays): the ring at every attention site of the eager step and its
+   capture, no flash launch, kernels 4, 5 and 6 sites x steps; its first
+   loss and gradients against the same step under
+   ``MXNET_RING_ATTENTION=0`` (kernels 1-6), the captured step against an
+   eager one, host p50, card ms by CUDA events and the peak memory of
+   both. The induction-head copy task of
+   ``example/long-context/ring_attention_lm.py`` at its own config through
+   the ring, a step a replay: copy accuracy over 5x chance. The LSTM of
+   ``example/model-parallel-lstm/lstm_layer_split.py`` bound with
+   ``{"dev1": gpu(0), "dev2": cpu(0)}`` against ``gpu(0)`` alone (losses
+   and gradients within ``CTX_TOL``, each group's output on its device)
+   and with ``gpu(0)`` twice (nothing placed, bitwise).
+23. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
@@ -306,7 +323,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``planner_launches`` and the native phase's ``native_launches``; row 8
    with the fleet phase's ``fleet_launches``; rows 1-6, 8 and 9 with the
    bind phase's ``bind_launches``; rows 1, 4, 6, 8 and 9 with the analysis
-   phase's ``analysis_launches``), the
+   phase's ``analysis_launches``; rows 1-6 with the layouts phase's
+   ``layouts_launches``), the
    card's name/power line, then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -378,12 +396,12 @@ DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
               std=(58.40, 57.12, 57.38), tap="stage1_unit1_relu1_output",
               tap_weight="stage1_unit1_sc_weight")
 # The engine phase: InferenceEngine over ResNet-50 (buckets up to 32, 5 ms
-# batching delay) under eight closed-loop clients of 80 requests of 1-4
-# images each (about 3 s of load), taken three times, each a profiler window
-# of its own; a dispatch fault, a shed burst and a reload under load (four
-# clients of 16 requests of 4 images); then the Transformer-base prefill
-# graph over buckets 1-8 of 128 tokens.
-ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=80,
+# batching delay) under eight closed-loop clients of 40 requests of 1-4
+# images each (about 1.5 s of load), taken three times, each a profiler
+# window of its own; a dispatch fault, a shed burst and a reload under load
+# (four clients of 16 requests of 4 images); then the Transformer-base
+# prefill graph over buckets 1-8 of 128 tokens.
+ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=40,
               load_seeds=(SEED + 20, SEED + 27, SEED + 28), reload_requests=16, rows=(1, 4),
               health_window_s=0.5, prefill_buckets=(1, 2, 4, 8))
 # The module phase: ResNet-50 through Module.fit from phase 6's weights on
@@ -8053,7 +8071,7 @@ def run_bind(pt, smi):
 # tracing; InferenceEngine over ResNet-50 at SERVE_BUCKETS for about
 # SERVE_SECONDS under SERVE_CLIENTS closed-loop clients (requests of 1 to 4
 # images) under the lock witness.
-ANALYSIS = dict(fit_batches=3, fit_epochs=2, decode_tokens=32, serve_buckets=(1, 2, 4, 8),
+ANALYSIS = dict(fit_batches=3, fit_epochs=2, decode_tokens=16, serve_buckets=(1, 2, 4, 8),
                 serve_clients=4, serve_seconds=3.0, serve_rows=(1, 4), top_locks=5)
 
 
@@ -8324,11 +8342,13 @@ def run_analysis(pt, smi):
     check(calls == want_calls, ("decoder calls", calls, want_calls))
     flagged = {d.node for d in gaps}
     # the card's busy time in the same calls, from the same two runs taken
-    # again under the profiler (the traced run's host clock stays clean)
+    # again under the profiler (the traced run's host clock stays clean);
+    # a window that drops events is taken once more at most, and a second
+    # short one is logged as not whole
     t1 = time.perf_counter()
     busy, span, total, whole = card_busy_by_range(
         lambda: (dec.greedy(prompt, n, k=1), dec.greedy(prompt, n, k=K)),
-        ["analysis." + m for m in spans.values()], "norm_residual")
+        ["analysis." + m for m in spans.values()], "norm_residual", retakes=2)
     sub["profiled_replay"] = time.perf_counter() - t1
     # the megasteps' kernels are graph replays: theirs is what the other
     # two kinds of call leave of the window's card time
@@ -8467,6 +8487,400 @@ def run_analysis(pt, smi):
     return launches
 
 
+# Phase 22, the parallel layouts. The long-context LM: the smoke's MODEL at
+# seq_len 1024, batch 4, through SPMDTrainer over a {data: 2, seq: 4} mesh of
+# eight logical gpu(0) with ShardingRules(seq_axis="seq") and Adam, 2 warm-up
+# steps and 5 timed ones (graph replays); the same steps with
+# MXNET_RING_ATTENTION=0 (the flash kernels) beside it. The ring step's first
+# loss and gradients against the flash step's: the loss within
+# LAYOUT_TOL["loss"] of its size, each gradient within LAYOUT_TOL["grad"] of
+# the parameter's largest flash gradient (both f32 with TF32 off: the ring's
+# products are cuBLAS's, the flash kernels' 3xTF32); the captured step
+# against an eager one within LAYOUT_TOL["graph"] of each array's largest
+# magnitude (the same kernels: bitwise expected).
+LAYOUTS = dict(batch=4, seq_len=1024, mesh={"data": 2, "seq": 4}, lr=1e-4, warmup_steps=2,
+               steps=5)
+LAYOUT_TOL = dict(loss=1e-4, grad=1e-3, graph=1e-5)
+# example/long-context/ring_attention_lm.py's induction-head copy task at its
+# own config (dp 2 x sp 4 of logical gpu(0), Adam 3e-3), a step a graph
+# replay. The port's weights (torch-seeded) leave the loss plateau after
+# 150-200 steps on the CPU (the JAX example's after about 110), so it runs
+# 400 and judges the last batch as the example does.
+COPY_TASK = dict(vocab_size=32, num_layers=2, num_heads=4, model_dim=64, ffn_dim=128,
+                 seq_len=64, batch=8, mesh={"data": 2, "seq": 4}, lr=3e-3, steps=400)
+# example/model-parallel-lstm/lstm_layer_split.py at its defaults: two LSTM
+# layers, each in its own ctx group, and its training loop for a few SGD
+# steps. The gpu(0)/cpu(0) split against gpu(0) alone: each loss within
+# CTX_TOL["loss"] of its size, the first step's gradients within
+# CTX_TOL["grad"] of each parameter's largest (the CPU's f32 sums against
+# cuBLAS's).
+LSTM_SPLIT = dict(batch=16, seq_len=8, vocab=30, num_embed=24, num_hidden=32, lr=0.05,
+                  steps=4, seed=7)
+CTX_TOL = dict(loss=1e-5, grad=1e-4)
+
+
+def lm_batch(B, T, vocab, seed):
+    """A fixed batch of next-token pairs from a seed: (data, label)."""
+    rs = np.random.RandomState(seed)
+    tokens = rs.randint(0, vocab, (B, T + 1)).astype(np.float32)
+    return {"data": tokens[:, :-1]}, {"softmax_label": tokens[:, 1:]}
+
+
+def copy_batch(rs, batch, seq_len, vocab):
+    """The copy task's batch: two repetitions of a random half, and the
+    next-token targets (the second half is fully predictable)."""
+    half = rs.randint(2, vocab, (batch, seq_len // 2))
+    seq = np.concatenate([half, half], axis=1).astype("float32")
+    y = np.roll(seq, -1, axis=1)
+    y[:, -1] = 1
+    return seq, y
+
+
+def xent(prob, labels):
+    """SoftmaxOutput's cross-entropy from its probabilities."""
+    lab = torch.as_tensor(np.asarray(labels).reshape(-1, 1), device=prob.device).long()
+    return float(-torch.log(prob.gather(1, lab).clamp_min(1e-30)).mean())
+
+
+def seq_trainer(pt, net, mesh, lr):
+    """SPMDTrainer over ``mesh`` with Adam, the batch's tokens on 'seq'."""
+    return pt.parallel.SPMDTrainer(net, mesh, optimizer="adam",
+                                   optimizer_params={"learning_rate": lr},
+                                   rules=pt.parallel.ShardingRules(mesh, seq_axis="seq"))
+
+
+def rel_to_max(got, want):
+    """max |got - want| over max |want| (over 1 where want is all zero)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (scale or 1.0)
+
+
+def timed_steps(tr, data, label, n):
+    """``n`` steps: host ms (each ending in a synchronize) and card ms
+    between CUDA events around each step."""
+    host, card = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        tr.step(data, label)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        card.append(start.elapsed_time(end))
+    return {"host_ms_p50": float(np.percentile(host, 50)), "host_ms": host,
+            "card_ms_p50": float(np.percentile(card, 50)), "card_ms": card}
+
+
+def trainer_state(tr):
+    """A host copy of a trainer's parameters and optimizer state."""
+    st = tr.opt_state
+    return ({n: p.detach().cpu().numpy().copy() for n, p in tr.params.items()},
+            {"t": st["t"].cpu().numpy().copy(),
+             **{s: {k: v.cpu().numpy().copy() for k, v in st[s].items()}
+                for s in st if s != "t"}})
+
+
+def layouts_ring_lm(pt, smi):
+    """Part 1: the full-width LM through the ring and through flash. The
+    first step of each runs eagerly (``_one_step``, the step a trainer's
+    first dispatch runs before its capture), the flash one with the ring
+    one's ReLU decisions pinned at ffn1 (``relu_decisions``: where a
+    pre-activation lies within rounding of 0 the two sides may fall apart,
+    and a gradient jumps there); then each runs captured."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import attention as attn
+
+    L, B, T = MODEL["num_layers"], LAYOUTS["batch"], LAYOUTS["seq_len"]
+    n_ctx = int(np.prod(list(LAYOUTS["mesh"].values())))
+    mesh = pt.parallel.make_mesh(LAYOUTS["mesh"], devices=[pt.gpu(0)] * n_ctx)
+    net = transformer.get_symbol(seq_len=T, **MODEL)
+    data, label = lm_batch(B, T, MODEL["vocab_size"], SEED + 60)
+    per_step = {"norm_residual": 2 * L + 1, "norm_residual_bwd": 2 * L + 1,
+                "matmul_bias_act": L}
+    flash_step = dict(per_step, flash_attention=L, flash_attention_dq=L, flash_attention_dkv=L)
+    sub, launches = {}, {}
+
+    def eager_step(tr):
+        outs, _ = tr._one_step(tr._place_batch(data, label), tr._lr_tensor(LAYOUTS["lr"]))
+        torch.cuda.synchronize()
+        return outs
+
+    # the first step, eagerly: the ring's, its ReLU decisions recorded, then
+    # flash's from the same weights with them pinned
+    t0 = time.perf_counter()
+    ring = seq_trainer(pt, net, mesh, LAYOUTS["lr"])
+    ring.init_params({"data": (B, T)}, {"softmax_label": (B, T)}, seed=SEED)
+    start = ring.get_params()[0]
+    ops.reset_launch_counts()
+    before = attn.DISPATCH_COUNTS["ring"]
+    decisions = []
+    with relu_decisions(record=decisions):
+        outs = eager_step(ring)
+    check(attn.DISPATCH_COUNTS["ring"] - before == L,
+          ("ring dispatches of one step", attn.DISPATCH_COUNTS["ring"] - before, L))
+    check(ops.launch_counts() == with_zeros(per_step),
+          ("the ring step's launches", ops.launch_counts(), per_step))
+    ring_loss = xent(outs[0], label["softmax_label"])
+    ring_grads = {n: g.clone() for n, g in ring._state.flats["grads_by_name"].items()}
+    with env_vars(MXNET_RING_ATTENTION="0"):
+        flash = seq_trainer(pt, net, mesh, LAYOUTS["lr"])
+        flash.set_params(start)
+        before = attn.DISPATCH_COUNTS["ring"]
+        ops.reset_launch_counts()
+        with relu_decisions(pinned=decisions) as flips:
+            outs = eager_step(flash)
+        check(ops.launch_counts() == with_zeros(flash_step),
+              ("the flash step's launches", ops.launch_counts(), flash_step))
+        check(attn.DISPATCH_COUNTS["ring"] == before, "the ring dispatched under the kill switch")
+    flash_loss = xent(outs[0], label["softmax_label"])
+    errs = {}
+    for n, g in flash._state.flats["grads_by_name"].items():
+        check(bool(torch.isfinite(ring_grads[n]).all()), ("non-finite ring gradient", n))
+        errs[n] = rel_to_max(ring_grads[n], g)
+    worst_name = max(errs, key=errs.get)
+    loss_rel = abs(ring_loss - flash_loss) / abs(flash_loss)
+    kinks = {"flips": sum(n for n, _ in flips), "max_abs_dy": max(d for _, d in flips),
+             "relu_outputs": sum(y.numel() for y in decisions)}
+    log({"phase": "layouts", "part": "ring_vs_flash", "nvidia_smi": smi,
+         "tolerance": LAYOUT_TOL, "loss_ring": ring_loss, "loss_flash": flash_loss,
+         "loss_rel_diff": loss_rel, "worst_grad": worst_name,
+         "worst_grad_abs_err_over_max": errs[worst_name], "grad_abs_err_over_max": errs,
+         "relu_kinks_pinned": kinks})
+    check(loss_rel <= LAYOUT_TOL["loss"], ("ring vs flash loss", ring_loss, flash_loss))
+    check(errs[worst_name] <= LAYOUT_TOL["grad"], ("ring vs flash gradient", worst_name,
+                                                   errs[worst_name]))
+    del ring_grads, decisions, outs
+    sub["first_step"] = time.perf_counter() - t0
+
+    # the flash step captured: the next dispatch eager and captured, then
+    # replays, under MXNET_RING_ATTENTION=0 while it resolves and captures
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with env_vars(MXNET_RING_ATTENTION="0"):
+        for _ in range(LAYOUTS["warmup_steps"]):
+            flash.step(data, label)
+        ops.reset_launch_counts()
+        flash_times = timed_steps(flash, data, label, LAYOUTS["steps"])
+    launches["flash_lm"] = ops.launch_counts()
+    want = {k: v * LAYOUTS["steps"] for k, v in flash_step.items()}
+    check(launches["flash_lm"] == with_zeros(want),
+          ("the flash LM's timed launches", launches["flash_lm"], want))
+    flash_peak = torch.cuda.max_memory_allocated() - base
+    del flash
+    gc.collect()
+    sub["flash_captured"] = time.perf_counter() - t0
+
+    # the ring step captured; its first replay against the same step run
+    # eagerly from the same state
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = attn.DISPATCH_COUNTS["ring"]
+    ring.step(data, label)  # eager on a side stream, then captured
+    captured = attn.DISPATCH_COUNTS["ring"] - before
+    check(captured == 2 * L, ("ring dispatches of the eager step and its capture",
+                              captured, 2 * L))
+    params, opt = trainer_state(ring)
+    replay = [o.clone() for o in ring.step(data, label)]
+    replayed = {n: p.clone() for n, p in ring.params.items()}
+    ring.set_params(params)
+    ring.opt_state = opt
+    eager = eager_step(ring)
+    graph_vs_eager = max([rel_to_max(a, b) for a, b in zip(replay, eager)]
+                         + [rel_to_max(replayed[n], p) for n, p in ring.params.items()])
+    check(graph_vs_eager <= LAYOUT_TOL["graph"], ("captured vs eager step", graph_vs_eager))
+    del replay, replayed, eager, params, opt
+    for _ in range(LAYOUTS["warmup_steps"] - 2):
+        ring.step(data, label)
+    ops.reset_launch_counts()
+    before = attn.DISPATCH_COUNTS["ring"]
+    ring_times = timed_steps(ring, data, label, LAYOUTS["steps"])
+    launches["ring_lm"] = ops.launch_counts()
+    check(attn.DISPATCH_COUNTS["ring"] == before, "a replay ran the op's Python")
+    want = {k: v * LAYOUTS["steps"] for k, v in per_step.items()}
+    check(launches["ring_lm"] == with_zeros(want),
+          ("the ring LM's timed launches", launches["ring_lm"], want))
+    graphs = list(ring._graphs.values())
+    check(len(graphs) == 1
+          and graphs[0].replays == LAYOUTS["warmup_steps"] - 1 + LAYOUTS["steps"],
+          ("the ring step's graph and replays", [g.replays for g in graphs]))
+    ring_peak = torch.cuda.max_memory_allocated() - base
+    del ring, graphs
+    gc.collect()
+    sub["ring_captured"] = time.perf_counter() - t0
+    log({"phase": "layouts", "part": "ring_lm", "nvidia_smi": smi, "model": MODEL,
+         "layouts": LAYOUTS, "tokens_per_step": B * T, "ring_dispatches_captured": captured,
+         "launches_per_step": per_step, "flash_launches_per_step": flash_step,
+         "ring_launches": launches["ring_lm"], "flash_launches": launches["flash_lm"],
+         "graph_vs_eager_abs_err_over_max": graph_vs_eager, "ring": ring_times,
+         "flash": flash_times, "ring_peak_gb": ring_peak / 1e9,
+         "flash_peak_gb": flash_peak / 1e9, "seconds_by_step": sub})
+    return launches
+
+
+def layouts_copy_task(pt, smi):
+    """Part 2: the induction-head copy task through the ring."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import attention as attn
+
+    c = COPY_TASK
+    t0 = time.perf_counter()
+    n_ctx = int(np.prod(list(c["mesh"].values())))
+    mesh = pt.parallel.make_mesh(c["mesh"], devices=[pt.gpu(0)] * n_ctx)
+    net = transformer.get_symbol(vocab_size=c["vocab_size"], num_layers=c["num_layers"],
+                                 num_heads=c["num_heads"], model_dim=c["model_dim"],
+                                 ffn_dim=c["ffn_dim"], seq_len=c["seq_len"])
+    tr = seq_trainer(pt, net, mesh, c["lr"])
+    tr.init_params({"data": (c["batch"], c["seq_len"])},
+                   {"softmax_label": (c["batch"], c["seq_len"])}, seed=SEED)
+    rs = np.random.RandomState(SEED)
+    before = attn.DISPATCH_COUNTS["ring"]
+    ops.reset_launch_counts()
+    half = c["seq_len"] // 2
+    nll = []
+    for _ in range(c["steps"]):
+        x, y = copy_batch(rs, c["batch"], c["seq_len"], c["vocab_size"])
+        prob = tr.step({"data": x}, {"softmax_label": y})[0]
+        p = prob.reshape(c["batch"], c["seq_len"], -1)[:, half:-1].cpu().numpy()
+        tgt = y[:, half:-1].astype(int)  # the copy: demands attention across the shards
+        nll.append(float(-np.log(p[np.arange(c["batch"])[:, None],
+                                   np.arange(tgt.shape[1])[None, :], tgt] + 1e-9).mean()))
+    launches = ops.launch_counts()
+    acc = float((p.argmax(-1) == tgt).mean())
+    chance = 1.0 / c["vocab_size"]
+    L = c["num_layers"]
+    want = {"norm_residual": (2 * L + 1) * c["steps"],
+            "norm_residual_bwd": (2 * L + 1) * c["steps"], "matmul_bias_act": L * c["steps"]}
+    check(launches == with_zeros(want), ("the copy task's launches", launches, want))
+    check(attn.DISPATCH_COUNTS["ring"] - before == 2 * L, "the ring did not run the copy task")
+    graphs = list(tr._graphs.values())
+    check(len(graphs) == 1 and graphs[0].replays == c["steps"] - 1,
+          ("the copy task's replays", [g.replays for g in graphs]))
+    check(nll[-1] < 0.5 * nll[0], ("the copy task's loss did not halve", nll[0], nll[-1]))
+    check(acc > 5 * chance, ("copy accuracy", acc, chance))
+    log({"phase": "layouts", "part": "copy_task", "nvidia_smi": smi, "config": c,
+         "nll_first": nll[0],
+         "nll_last": nll[-1], "nll_every_50": nll[::50], "copy_accuracy": acc,
+         "chance": chance, "launches": launches, "seconds": time.perf_counter() - t0})
+    del tr, graphs
+    gc.collect()
+    return launches
+
+
+def lstm_split_symbol(pt):
+    """lstm_layer_split.py's symbol (two LSTM layers, each in its own ctx
+    group, the head in 'dev2'), grouped with a BlockGrad of layer 1's
+    output in 'dev1': the group's outputs lie on the groups' devices."""
+    c = LSTM_SPLIT
+    with pt.AttrScope(ctx_group="dev1"):
+        data = pt.sym.Variable("data")
+        embed = pt.sym.Embedding(data, input_dim=c["vocab"], output_dim=c["num_embed"],
+                                 name="embed")
+        c1 = pt.rnn.LSTMCell(c["num_hidden"], prefix="l1_")
+        l1, _ = c1.unroll(c["seq_len"], inputs=embed, layout="NTC",
+                          begin_state=c1.begin_state(batch_size=1), merge_outputs=True)
+        tap = pt.sym.BlockGrad(l1, name="l1_tap")
+    with pt.AttrScope(ctx_group="dev2"):
+        c2 = pt.rnn.LSTMCell(c["num_hidden"], prefix="l2_")
+        l2, _ = c2.unroll(c["seq_len"], inputs=l1, layout="NTC",
+                          begin_state=c2.begin_state(batch_size=1), merge_outputs=True)
+        pred = pt.sym.Reshape(l2, shape=(-1, c["num_hidden"]))
+        pred = pt.sym.FullyConnected(pred, num_hidden=c["vocab"], name="pred")
+        label = pt.sym.Reshape(pt.sym.Variable("softmax_label"), shape=(-1,))
+        net = pt.sym.SoftmaxOutput(pred, label=label, name="softmax")
+    return pt.sym.Group([tap, net])
+
+
+def lstm_split_train(pt, sym, group2ctx, x, y):
+    """lstm_layer_split.py's ``train`` loop over LSTM_SPLIT["steps"]
+    batches: (losses, the first step's gradients on the host, the final
+    parameters, the executor)."""
+    c = LSTM_SPLIT
+    B = c["batch"]
+    exe = sym.simple_bind(pt.gpu(0), grad_req="write", group2ctx=group2ctx,
+                          data=(B, c["seq_len"]), softmax_label=(B, c["seq_len"]))
+    rs = np.random.RandomState(3)
+    for name, arr in sorted(exe.arg_dict.items()):
+        if name not in ("data", "softmax_label"):
+            arr[:] = rs.uniform(-0.1, 0.1, arr.shape).astype("float32")
+    losses, first = [], None
+    for k in range(c["steps"]):
+        s = slice(k * B, (k + 1) * B)
+        exe.arg_dict["data"][:] = x[s]
+        exe.arg_dict["softmax_label"][:] = y[s]
+        out = exe.forward(is_train=True)[1].asnumpy()
+        flat = y[s].reshape(-1).astype(int)
+        losses.append(float(-np.log(out[np.arange(len(flat)), flat] + 1e-8).mean()))
+        exe.backward()
+        names = [n for n, g in exe.grad_dict.items()
+                 if g is not None and n not in ("data", "softmax_label")]
+        if first is None:
+            first = {n: exe.grad_dict[n]._tensor().cpu().clone() for n in names}
+        for n in names:
+            exe.arg_dict[n][:] = exe.arg_dict[n] - c["lr"] * exe.grad_dict[n]
+    torch.cuda.synchronize()
+    final = {n: a._tensor().cpu().clone() for n, a in exe.arg_dict.items()
+             if n not in ("data", "softmax_label")}
+    return losses, first, final, exe
+
+
+def layouts_ctx_groups(pt, smi):
+    """Part 3: the LSTM split over gpu(0) and cpu(0) against gpu(0) alone,
+    and over gpu(0) twice (nothing moves: bitwise the single bind)."""
+    c = LSTM_SPLIT
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(c["seed"])
+    x = rs.randint(1, c["vocab"], (c["batch"] * c["steps"], c["seq_len"])).astype("float32")
+    y = np.roll(x, -1, axis=1)  # the example's next-token task
+    sym = lstm_split_symbol(pt)
+    single = lstm_split_train(pt, sym, None, x, y)
+    split = lstm_split_train(pt, sym, {"dev1": pt.gpu(0), "dev2": pt.cpu(0)}, x, y)
+    same = lstm_split_train(pt, sym, {"dev1": pt.gpu(0), "dev2": pt.gpu(0)}, x, y)
+    exe = split[3]
+    devices = {str(d) for d in exe._prog.node_devices.values()}
+    check(devices == {"cuda:0", "cpu"}, ("the split's node devices", devices))
+    out_ctx = [str(o.context) for o in exe.outputs]
+    check(out_ctx == ["gpu(0)", "cpu(0)"] and exe.outputs[0]._tensor().is_cuda
+          and not exe.outputs[1]._tensor().is_cuda, ("the groups' outputs", out_ctx))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(split[0], single[0]))
+    check(loss_rel <= CTX_TOL["loss"], ("split vs single losses", split[0], single[0]))
+    grad_rel = max(rel_to_max(split[1][n], g) for n, g in single[1].items())
+    check(grad_rel <= CTX_TOL["grad"], ("split vs single gradients", grad_rel))
+    check(not same[3]._prog.node_devices, "a gpu(0)/gpu(0) bind placed nodes")
+    check(same[0] == single[0] and all(torch.equal(same[2][n], p)
+                                       for n, p in single[2].items()),
+          ("gpu(0)/gpu(0) vs the single bind", same[0], single[0]))
+    log({"phase": "layouts", "part": "ctx_groups", "nvidia_smi": smi, "config": c,
+         "tolerance": CTX_TOL,
+         "losses_single": single[0], "losses_split": split[0], "loss_rel_diff": loss_rel,
+         "first_grad_abs_err_over_max": grad_rel, "split_output_contexts": out_ctx,
+         "same_device_bitwise": True, "seconds": time.perf_counter() - t0})
+
+
+def run_layouts(pt, smi):
+    """Phase 22: sequence and layer parallelism on the card. 1: the
+    full-width LM over a {data, seq} mesh, the ring at every attention site
+    and no flash launch, against the flash step, the captured step against
+    an eager one. 2: the copy task through the ring. 3: the LSTM split
+    over gpu(0) and cpu(0) by ctx groups against gpu(0) alone. Returns the
+    launches by kernel of the ring LM's and the flash LM's timed steps and
+    of the copy task."""
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    launches = layouts_ring_lm(pt, smi)
+    launches["copy_task"] = layouts_copy_task(pt, smi)
+    layouts_ctx_groups(pt, smi)
+    log({"phase": "layouts", "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -8489,34 +8903,43 @@ def main():
     cuda_build.library()
     log({"phase": "build", "library": str(lib_path.name), "seconds": time.perf_counter() - t0})
 
-    entries = check_kernels(peaks)
-    serve_launches = run_slice(pt)
+    phase_s = {}  # each phase's seconds, the build's apart
+
+    def timed_phase(fn, *a):
+        t = time.perf_counter()
+        got = fn(*a)
+        phase_s[fn.__name__] = time.perf_counter() - t
+        return got
+
+    entries = timed_phase(check_kernels, peaks)
+    serve_launches = timed_phase(run_slice, pt)
     params = random_params()
-    megastep_launches = run_megastep(pt, params, smi)
-    paged_launches = run_paged(pt, params, smi)
-    train_launches = run_train(pt, params)
+    megastep_launches = timed_phase(run_megastep, pt, params, smi)
+    paged_launches = timed_phase(run_paged, pt, params, smi)
+    train_launches = timed_phase(run_train, pt, params)
     from mxnet_tpu_torch.models import resnet
 
     net = resnet.get_symbol(**RESNET)
     args, aux = resnet_values(net)
-    resnet_serve_launches = run_resnet_serve(pt, net, args, aux)
-    resnet_train_launches = run_resnet_train(pt, net, args, aux)
-    deploy_launches = run_deploy(pt, net, args, aux)
-    engine_launches = run_engine(pt, net, args, aux, params, smi)
-    module_launches = run_module(pt, net, args, aux, smi)
+    resnet_serve_launches = timed_phase(run_resnet_serve, pt, net, args, aux)
+    resnet_train_launches = timed_phase(run_resnet_train, pt, net, args, aux)
+    deploy_launches = timed_phase(run_deploy, pt, net, args, aux)
+    engine_launches = timed_phase(run_engine, pt, net, args, aux, params, smi)
+    module_launches = timed_phase(run_module, pt, net, args, aux, smi)
     del net, args, aux
-    zoo_launches = run_zoo_cnn(pt, smi, peaks, entries)
-    mt_launches = run_mt(pt, smi)
-    lstm_tokens_per_s = run_lstm(pt, smi)
-    ssd_launches = run_ssd(pt, smi)
-    kvstore_launches = run_kvstore(pt, smi, peaks, entries)
-    fused_launches = run_fused_step(pt, smi, lstm_tokens_per_s)
-    checkpoint_launches = run_checkpoint(pt, smi)
-    planner_launches = run_planner(pt, smi)
-    native_launches = run_native(pt, smi)
-    fleet_launches = run_fleet(pt, smi)
-    bind_launches = run_bind(pt, smi)
-    analysis_launches = run_analysis(pt, smi)
+    zoo_launches = timed_phase(run_zoo_cnn, pt, smi, peaks, entries)
+    mt_launches = timed_phase(run_mt, pt, smi)
+    lstm_tokens_per_s = timed_phase(run_lstm, pt, smi)
+    ssd_launches = timed_phase(run_ssd, pt, smi)
+    kvstore_launches = timed_phase(run_kvstore, pt, smi, peaks, entries)
+    fused_launches = timed_phase(run_fused_step, pt, smi, lstm_tokens_per_s)
+    checkpoint_launches = timed_phase(run_checkpoint, pt, smi)
+    planner_launches = timed_phase(run_planner, pt, smi)
+    native_launches = timed_phase(run_native, pt, smi)
+    fleet_launches = timed_phase(run_fleet, pt, smi)
+    bind_launches = timed_phase(run_bind, pt, smi)
+    analysis_launches = timed_phase(run_analysis, pt, smi)
+    layouts_launches = timed_phase(run_layouts, pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -8597,6 +9020,12 @@ def main():
         analysed = {k: v for k, v in analysed.items() if v}
         if analysed:
             e.update(analysis_launches=analysed)
+        # the layouts phase's card runs: the ring LM's timed steps and the
+        # copy task (4, 5, 6), the flash LM's timed steps (1-6)
+        laid = {k: v[name_] for k, v in layouts_launches.items() if v.get(name_)}
+        if laid:
+            e.update(layouts_launches=laid)
+    log({"phase": "phase_seconds", **phase_s})
     log({"phase": "smoke", "seconds": time.perf_counter() - t_smoke})
     log({"phase": "profiler", "gap_pause_s": PROFILER_GAP_S, **PROFILER_TALLY})
     log({"kernels": [entries[k] for k in KERNELS]})

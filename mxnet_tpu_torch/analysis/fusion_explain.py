@@ -20,7 +20,10 @@ a fusable Activation, a broadcast_add whose LayerNorm chain broke one link
 deep, ...) it quotes the pattern's ``reject_reason``; for every planned
 pattern root it reports the site inventory — the engage itself is a
 per-shape bind-time decision (the fusion_tune measured verdict, whose
-tuned-and-rejected reasons carry the measured fused-vs-baseline µs).
+tuned-and-rejected reasons carry the measured fused-vs-baseline µs). On a
+mesh with a ``seq`` axis > 1 every planned ``attention`` root that the
+op's ring dispatch takes (``ops.attention.ring_takes``) is reported with
+the gate's reason, which the reference's pass does not say.
 
 All findings are INFO severity: an unfused graph is slower, not wrong.
 """
@@ -140,8 +143,26 @@ def _explain_patterns(ctx: GraphContext, directives):
     modes = fusion.enabled_patterns()
     pctx = fusion._PlanCtx(
         ctx.consumers, {id(n) for n, _ in ctx.symbol._outputs}, directives)
+    from ..ops.attention import ring_takes
+
+    def ring_site(node):
+        # the gate's test at this site's shapes, where they infer
+        q, k = (ctx.entry_shape.get((id(n), oi)) for n, oi in node.inputs[:2])
+        return q is not None and k is not None and ring_takes(ctx.mesh, q, k) is not None
+
     for node in ctx.topo:
-        if node.is_variable or directives.get(id(node)) is not None:
+        d = directives.get(id(node))
+        if ctx.mesh is not None and d is not None and d["kind"] == "pattern" \
+                and d["pat"].name == "attention" and ring_site(node):
+            # the gate's own reason: on this mesh the op's ring dispatch
+            # runs the site, not the flash kernels
+            diags.append(Diagnostic(
+                "GL303",
+                "planned 'attention' site declined on this mesh: %s" % fusion.MESH_REASON,
+                node=node.name, op=node.op,
+                fix_hint="MXNET_RING_ATTENTION=0 keeps the flash kernels on a seq mesh",
+            ))
+        if node.is_variable or d is not None:
             continue
         for pat in get_patterns():
             if modes.get(pat.name, "0") == "0":

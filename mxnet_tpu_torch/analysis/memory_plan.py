@@ -155,10 +155,17 @@ def plan_memory(ctx: GraphContext):
             a = node.parsed_attrs()
             from .. import fusion as _fusion
 
-            # the predicate never raises: a refinement must not sink the plan
-            flash = _fusion.attention_trains_flash(
-                q_sh, k_sh, ctx.entry_dtype.get((id(node), 0))
-                or "float32", a.get("causal"), a.get("scale", -1.0))
+            from ..ops.attention import ring_takes
+
+            # the predicate never raises: a refinement must not sink the plan.
+            # At a site the mesh's ring takes (the gate declines flash there)
+            # the ring keeps each block's probabilities for the backward:
+            # (B, H, t, t) a step over n steps, what the dense charge below
+            # counts with T cut over the seq axis
+            flash = ring_takes(ctx.mesh, q_sh, k_sh) is None and \
+                _fusion.attention_trains_flash(
+                    q_sh, k_sh, ctx.entry_dtype.get((id(node), 0))
+                    or "float32", a.get("causal"), a.get("scale", -1.0))
             if flash:
                 attn_info["flash_elided_sites"] += 1
                 continue

@@ -33,6 +33,7 @@ import torch
 from .base import MXNetError, np_dtype
 from .context import Context, current_context
 from .ndarray import NDArray, _wrap, zeros
+from .ops.attention import ring_key as _ring_key
 from .ops.fusion_patterns import _dtype_name
 from .ops.registry import get_op
 from . import fusion as _fusion
@@ -44,15 +45,34 @@ GRAD_REQS = ("write", "add", "null")
 
 
 class _GraphProgram:
-    """The interpretation of a Symbol: its topo order and fusion plan."""
+    """The interpretation of a Symbol: its topo order, its placement by
+    context groups and its fusion plan.
 
-    def __init__(self, symbol):
+    ``group2ctx`` (group name -> Context) places every op node whose
+    ``__ctx_group__`` it names on that context's physical device, the
+    PlaceDevice analogue of JAX :82-97; every other op node runs on
+    ``device``, the bind's. Where every group lands on ``device``
+    (``cpu(0)`` and ``cpu(1)``, a repeated ``gpu(0)``) nothing moves and
+    the program is the unplaced one. Otherwise ``node_devices`` holds each
+    op node's device, ``interpret`` moves a value that crosses to another
+    device with a differentiable ``.to`` (so its gradient comes back across
+    the boundary, JAX :198), and the fusion plan treats a node whose value
+    crosses as a program output: it materializes, never folded into or
+    claimed by a pattern on the other side."""
+
+    def __init__(self, symbol, group2ctx=None, device=None):
         self.symbol = symbol
         self.topo = symbol._topo()
+        self.group2ctx = dict(group2ctx or {})
+        self.device = None if device is None else torch.device(device)
+        self.node_devices, self.node_ctxs = self._place()
         # graph-output node ids keep the planner from eliding a node whose
-        # value must materialize as a program output
-        self.fusion_plan = _fusion.plan(self.topo,
-                                        output_ids={id(n) for n, _ in symbol._outputs})
+        # value must materialize as a program output; so do a crossing's
+        crossing = {id(i) for node in self.topo if id(node) in self.node_devices
+                    for i, _ in node.inputs
+                    if self.node_devices.get(id(i), self.device) != self.node_devices[id(node)]}
+        self.fusion_plan = _fusion.plan(
+            self.topo, output_ids={id(n) for n, _ in symbol._outputs} | crossing)
         self.pattern_sites, self.conv_bn_directives = _fusion.plan_sites(self.fusion_plan)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -63,15 +83,43 @@ class _GraphProgram:
         self._resolved = {}  # (device, shapes, dtypes) -> resolved plan
         self._consts = {}    # (id(node), device) -> the uploaded _graph_const
 
+    def _place(self):
+        """(id(op node) -> torch.device, id(op node) -> Context) of a
+        placement that moves something, else ({}, {}). A context that is
+        not there (``gpu(0)`` without a card) raises here, at bind."""
+        if not self.group2ctx:
+            return {}, {}
+        ctxs = {g: c if isinstance(c, Context) else Context(c) for g, c in self.group2ctx.items()}
+        devs = {g: c.torch_device for g, c in ctxs.items()}
+        if all(d == self.device for d in devs.values()):
+            return {}, {}
+        node_devices, node_ctxs = {}, {}
+        for node in self.topo:
+            if node.is_variable:
+                continue
+            group = node.attrs.get("__ctx_group__")
+            if group in ctxs:
+                node_devices[id(node)], node_ctxs[id(node)] = devs[group], ctxs[group]
+            else:
+                node_devices[id(node)] = self.device
+        return node_devices, node_ctxs
+
+    def output_ctx(self, i, default):
+        """The context output ``i`` lies on: its group's, else ``default``."""
+        return self.node_ctxs.get(id(self.outputs[i][0]), default)
+
     def sites(self, shapes, types, device):
         """The fusion plan as a bind at these argument and aux ``shapes`` /
         ``types`` (name -> shape / dtype) on ``device`` runs it: every gate
-        decided once (``fusion.resolve_sites``), memoized by signature."""
+        decided once (``fusion.resolve_sites``), memoized by signature and
+        by the running step's mesh as the ring reads it
+        (``ops.attention.ring_key``: which attention sites it takes)."""
         if not self.fusion_plan:
             return self.fusion_plan
         device = torch.device(device)
         key = (str(device), tuple(sorted((n, tuple(s)) for n, s in shapes.items())),
-               tuple(sorted((n, _dtype_name(t)) for n, t in types.items())))
+               tuple(sorted((n, _dtype_name(t)) for n, t in types.items())),
+               _ring_key())
         got = self._resolved.get(key)
         if got is None:
             from .context import Context
@@ -106,10 +154,11 @@ class _GraphProgram:
         return t
 
     def upload_consts(self, device):
-        """Upload every folded constant of the graph to ``device`` now."""
+        """Upload every folded constant of the graph to ``device`` (or its
+        group's device) now."""
         for node in self.topo:
             if node.op == "_graph_const":
-                self._const(node, device)
+                self._const(node, self.node_devices.get(id(node), device))
 
     def interpret(self, arg_vals, aux_vals, is_train, device, sites):
         """Run the graph on torch tensors; returns ``(outputs, new_aux)``,
@@ -123,11 +172,13 @@ class _GraphProgram:
         draws each mask once; its backward reuses it through autograd.
         ``sites`` is the plan its caller resolved once (``sites`` /
         ``sites_of``: at bind, at a decode program's warm-up, when a trainer
-        first meets a shape); no gate is decided here."""
+        first meets a shape); no gate is decided here. A placed node
+        (``node_devices``) runs on its group's device: its inputs from
+        another device move there, it allocates and draws there."""
         plan = sites
         vals = {}
         new_aux = list(aux_vals)
-        rng = None
+        placed = self.node_devices
         for node in self.topo:
             if node.is_variable:
                 if node.name in self._arg_index:
@@ -136,21 +187,29 @@ class _GraphProgram:
                     vals[(id(node), 0)] = aux_vals[self._aux_index[node.name]]
                 continue
             if node.op == "_graph_const":
-                dev = device if device is not None else (
+                dev = placed.get(id(node)) or device or (
                     arg_vals[0].device if arg_vals else torch.device("cpu"))
                 vals[(id(node), 0)] = self._const(node, dev)
                 continue
             opdef = get_op(node.op)
             n_aux = len(opdef.aux_names(node.parsed_attrs()))
             ins = [vals[(id(inp), oi)] for inp, oi in node.inputs]
+            node_dev = device
+            if placed:
+                node_dev = placed[id(node)]
+                # a cross-device copy at a ctx-group boundary (JAX :198)
+                ins = [_fusion.resolve(x).to(node_dev)
+                       if placed.get(id(inp), self.device) != node_dev else x
+                       for x, (inp, _) in zip(ins, node.inputs)]
             ins, aux = ins[:len(ins) - n_aux], ins[len(ins) - n_aux:]
             directive = plan.get(id(node))
             if directive is not None:
                 outs, aux_out = _fusion.execute(directive, node, ins, aux, is_train)
             else:
-                if opdef.needs_rng and device is not None and rng is None:
-                    rng = _random.generator(device)
-                with contextlib.nullcontext() if ins or device is None else torch.device(device):
+                rng = _random.generator(node_dev) if opdef.needs_rng and node_dev is not None \
+                    else None
+                with contextlib.nullcontext() if ins or node_dev is None else \
+                        torch.device(node_dev):
                     outs, aux_out = opdef.apply(node.parsed_attrs(),
                                                 [_fusion.resolve(x) for x in ins], aux=aux,
                                                 is_train=is_train, rng=rng)
@@ -229,7 +288,9 @@ class Executor:
                     t.copy_(new)
 
     def _set_outputs(self, outs):
-        self.outputs = [_wrap(o.detach(), self._ctx) for o in outs]
+        # a placed output lies on its group's context
+        self.outputs = [_wrap(o.detach(), self._prog.output_ctx(i, self._ctx))
+                        for i, o in enumerate(outs)]
         self.output_dict = dict(zip(self._prog.output_names, self.outputs))
         if self._monitor_callback is not None:
             for name, arr in self.output_dict.items():
@@ -463,15 +524,6 @@ def _by_name(values, names, what):
     return dict(zip(names, values))
 
 
-def _check_group2ctx(ctx, group2ctx):
-    """The port places a graph on one device: every ``group2ctx`` entry
-    must name the bind's own context."""
-    others = sorted({str(c) for c in (group2ctx or {}).values() if Context(c) != ctx})
-    if others:
-        raise MXNetError("bind: group2ctx places groups on %s, but the port binds a graph on "
-                         "one device (%s)" % (others, ctx))
-
-
 def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None, shared_exec=None,
          group2ctx=None):
     """Bind NDArrays to a symbol's arguments (reference: symbol.py bind).
@@ -482,20 +534,34 @@ def bind(symbol, ctx, args, args_grad=None, grad_req="write", aux_states=None, s
     ``aux_states`` is a dict by name or a list in the order of
     ``symbol.list_auxiliary_states()``, and must hold every aux state.
     ``shared_exec``, an executor of the same symbol, lends its rewritten
-    graph and program (JAX :586). ``group2ctx`` may only name ``ctx``."""
+    graph and program (JAX :586) when it was bound with the same
+    ``group2ctx`` on the same device.
+
+    ``group2ctx`` (group name -> Context) places each node whose
+    ``__ctx_group__`` it names on that context's device, and copies values
+    across the boundaries (``_GraphProgram``). A group on the CPU runs the
+    plain versions of the kernels there (the dispatchers' rule for CPU
+    tensors), by the user's placement. An executor runs eagerly, so a bind
+    whose groups span the card and the CPU runs uncaptured: no CUDA graph
+    is made of it (the fused step, the port's captured path, takes no
+    ``group2ctx``). A group on ``gpu(i)`` without that card raises here."""
     names = symbol.list_arguments()
     args = _by_name(args, names, "args")
     reqs = dict(zip(names, _normalize_grad_req(grad_req, names)))
     grads = {} if args_grad is None else _by_name(args_grad, names, "grad arrays")
     orig_symbol = symbol
     ctx = Context(ctx) if not isinstance(ctx, Context) else ctx
-    _check_group2ctx(ctx, group2ctx)
+    prog = None
     if shared_exec is not None and (shared_exec._orig_symbol is symbol
                                     or shared_exec._symbol is symbol):
-        symbol, prog = shared_exec._symbol, shared_exec._prog
+        symbol = shared_exec._symbol
+        if (shared_exec._prog.group2ctx == dict(group2ctx or {})
+                and shared_exec._prog.device == ctx.torch_device):
+            prog = shared_exec._prog
     else:
         symbol = _rewrite_at_bind(symbol, args, reqs, aux_states)
-        prog = _GraphProgram(symbol)
+    if prog is None:
+        prog = _GraphProgram(symbol, group2ctx, ctx.torch_device)
     missing = [n for n in prog.arg_names if n not in args]
     if missing:
         raise MXNetError("bind: missing arguments %s" % missing)

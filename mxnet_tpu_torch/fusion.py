@@ -74,6 +74,7 @@ import torch.nn.functional as F
 
 from .base import MXNetError
 from .ops import conv_bn as _cb
+from .ops.attention import ring_takes
 from .ops.fusion_patterns import _dtype_name, _port_name, get_patterns, pattern_names
 from .ops.registry import get_op
 from . import telemetry as _tm
@@ -780,11 +781,15 @@ def gate_pattern_explain(pat, meta, args, train=True):
     """The per-site engage decision for a generic pattern WITH its
     predicate: ``(engaged, (lowering_name, fn) | None, reason)``.
 
-    Predicate order (JAX :883, but the mesh: the port runs a rank's rows
-    as one program, so a site engages under any mesh): env mode
-    (``MXNET_FUSED_PATTERNS``) → inference eligibility → candidate
-    lowerings exist → forced, else the measured verdict (``fusion_tune``);
-    with none, the port engages its kernel (its default)."""
+    Predicate order (JAX :883): env mode (``MXNET_FUSED_PATTERNS``) →
+    inference eligibility → the mesh → candidate lowerings exist → forced,
+    else the measured verdict (``fusion_tune``); with none, the port
+    engages its kernel (its default). The mesh declines only the
+    ``attention`` pattern, and only at a site the op's own ring dispatch
+    takes (``ops.attention.ring_takes``: a ``seq`` axis > 1,
+    ``MXNET_RING_ATTENTION`` on, self-attention whose T and batch divide
+    over the mesh); every other site engages under any mesh, since the
+    port runs a rank's rows as one program."""
     from . import fusion_tune as _tune
 
     mode = enabled_patterns(infer=not train).get(pat.name, "0")
@@ -793,6 +798,8 @@ def gate_pattern_explain(pat, meta, args, train=True):
                              % ("" if train else "[_INFER]"))
     if not train and not pat.inference:
         return False, None, "pattern does not engage on inference executions"
+    if pat.name == "attention" and ring_takes(None, args[0].shape, args[1].shape) is not None:
+        return False, None, MESH_REASON
     baseline, cands = pat.build(meta, args)
     if not cands:
         return False, None, ("no fused lowering for this site (shape does "
@@ -845,6 +852,12 @@ def gate_pattern_explain(pat, meta, args, train=True):
     return False, None, tuned_reject_note(rec)
 
 
+#: the gate's reason where the ring claims an attention site, in the words
+#: of JAX's mesh predicate (JAX :901-904)
+MESH_REASON = ("multi-device mesh: generic patterns engage single-device only (the op's "
+               "own SPMD dispatch applies)")
+
+
 def _count_pattern(pat, engaged):
     if _tm.enabled():
         _tm.counter("fusion.pattern_engaged.%s" % pat.name if engaged
@@ -869,7 +882,10 @@ def attention_trains_flash(q_shape, k_shape, dtype, causal, scale=-1.0):
     ``ops/flash_attention.supported`` takes the shapes and the pattern
     mode, a forced name or a tuned verdict picks ``cuda_flash`` (the
     port's first and only candidate, so ``1`` and ``auto`` with no verdict
-    pick it)."""
+    pick it). Never at a site the running step's ring takes
+    (``ops.attention.ring_takes``), as the gate decides."""
+    if ring_takes(None, q_shape, k_shape) is not None:
+        return False
     try:
         from .ops import flash_attention as _fa
         from . import fusion_tune as _tune

@@ -16,6 +16,9 @@ ndarray.h:374), and every read and write goes through the chunk's current
 tensor. ``_set_tensor`` on a whole array swaps that tensor without a copy
 (``KVCacheDecoder`` swaps its ring buffers so); a torch view of the old
 tensor would go stale then, a view held through the chunk follows its parent.
+``NDArray(..., writable=False)`` is read-only: every write through it (an
+assignment, ``out=``, an op's aux update, ``_set_tensor``) raises, and its
+views, reshapes and slices carry the flag (JAX :87-154).
 
 Ops run outside autograd and return new arrays; an op given ``out`` writes
 into it in place (the optimizer updates a weight and its state where they
@@ -76,9 +79,10 @@ class NDArray:
     ``data`` (a tensor is held as it is, not copied; ``ctx`` defaults to
     ``current_context()``, the GPU)."""
 
-    __slots__ = ("_chunk", "_begin", "_end", "_shape", "_whole")
+    __slots__ = ("_chunk", "_begin", "_end", "_shape", "_whole", "_writable")
 
-    def __init__(self, data=None, ctx=None, *, chunk=None, begin=None, end=None, shape=None):
+    def __init__(self, data=None, ctx=None, *, chunk=None, begin=None, end=None, shape=None,
+                 writable=True):
         if chunk is None:
             ctx = ctx or current_context()
             chunk = _Chunk(_to_tensor(data, ctx), ctx)
@@ -89,6 +93,9 @@ class NDArray:
         self._shape = tuple(int(d) for d in shape)
         # the whole chunk in its own shape (a swap keeps the shape), or a view
         self._whole = begin is None and self._shape == tuple(chunk.data.shape)
+        # a read-only array refuses every write through it (JAX :113-118);
+        # its views, reshapes and slices carry the flag
+        self._writable = writable
 
     # ------------------------------------------------------------------ core
     def _tensor(self) -> torch.Tensor:
@@ -105,10 +112,15 @@ class NDArray:
             d = d[self._begin:self._end]
         return d.view(self._shape)
 
+    def _check_writable(self):
+        if not self._writable:
+            raise MXNetError("trying to write to a read-only NDArray")
+
     def _set_tensor(self, tensor: torch.Tensor):
         """Take ``tensor`` as the new value; it must keep shape, dtype and
         device. A whole array swaps its chunk's tensor (no copy), and its
         views follow; a view copies into its part of the chunk."""
+        self._check_writable()
         cur = self._tensor()
         if tuple(tensor.shape) != self._shape or tensor.dtype != cur.dtype \
                 or tensor.device != cur.device:
@@ -142,6 +154,10 @@ class NDArray:
         return self._chunk.ctx
 
     ctx = context
+
+    @property
+    def writable(self):
+        return self._writable
 
     def __reduce__(self):
         """Pickles (the optimizer's state file) hold the values and the
@@ -179,7 +195,8 @@ class NDArray:
 
     # -------------------------------------------------------------- views
     def _view(self, begin, end, shape):
-        return NDArray(chunk=self._chunk, begin=begin, end=end, shape=shape)
+        return NDArray(chunk=self._chunk, begin=begin, end=end, shape=shape,
+                       writable=self._writable)
 
     def reshape(self, shape) -> "NDArray":
         if isinstance(shape, int):
@@ -235,6 +252,7 @@ class NDArray:
         return NDArray(self._tensor()[key].clone(), ctx=self.context)
 
     def __setitem__(self, key, value):
+        self._check_writable()
         target = self
         if isinstance(key, (int, np.integer)):
             target = self.at(key)
@@ -433,12 +451,16 @@ def imperative_invoke(op_name, inputs, attrs, out=None, ctx=None, is_train=True,
     with torch.enable_grad() if recording else torch.no_grad(), device:
         outs, new_aux = opdef.apply(attrs, ins, aux=tensors[n_in:],
                                     is_train=bool(is_train), rng=rng)
+    targets = None
+    if out is not None:
+        targets = list(out) if isinstance(out, (list, tuple)) else [out]
+    for arr in list(inputs[n_in:]) + (targets or []):
+        arr._check_writable()
     with torch.no_grad():
         for t, new in zip(tensors[n_in:], new_aux):
             if new is not t:
                 t.copy_(new)
-        if out is not None:
-            targets = list(out) if isinstance(out, (list, tuple)) else [out]
+        if targets is not None:
             for t, o in zip(targets, outs):
                 t._tensor().copy_(o)
         else:

@@ -6,8 +6,10 @@ mesh and the optimizer update as one step over flat buffers, on the card
 one CUDA graph a batch shape (``trainer.py``). ``module/spmd_adapter.py``
 puts ``Module.fit`` on it. ``autoplan.py`` searches dp × tp × pp plans
 over the graph-lint passes' cost model (``plan_parallel``, ``ParallelPlan``,
-``PlanError``); ``module.PipelineExecutorGroup`` runs a pipeline plan. Ring
-attention comes with ROADMAP.md section 1.8.
+``PlanError``); ``module.PipelineExecutorGroup`` runs a pipeline plan.
+``ring_attention.py`` runs the attention op over a ``seq`` axis (the op
+dispatches to it under a trainer's mesh); as in the JAX package it is not
+exported here.
 """
 from .mesh import make_mesh, local_mesh, MeshSpec, parse_mesh_spec
 from .sharding import ShardingRules, param_pspec, shardable_dims

@@ -11,7 +11,8 @@ distinct contexts on one device are distinct *logical* devices (the rule of
 ``module/executor_group.py``), so ``[cpu(i) for i in range(8)]`` is one
 CPU and ``[gpu(0)]`` one card. ``parallel/trainer.py`` runs the global batch
 there as one program, which computes the function JAX's sharded step does.
-Across processes each rank holds one context of the mesh's data axis.
+Across processes each rank holds one context of the mesh's data axis, or
+of its seq axis (ring attention across ranks, ``ring_attention.py``).
 
 ``trace_mesh``/``current_trace_mesh`` let a mesh-aware op find the mesh of
 the step being run, as in the JAX package.
@@ -193,11 +194,13 @@ def _mesh(devices, sizes, axis_names, process_count):
     dev_array[:] = devices
     group = None
     if process_count > 1:
-        if tuple(axis_names)[0] != "data" or sizes[0] != n:
+        # one axis over the ranks: the data axis (a rank's own rows), or a
+        # seq axis (a rank's own block of positions: parallel/ring_attention.py)
+        if tuple(axis_names)[0] not in ("data", "seq") or sizes[0] != n:
             raise MXNetError(
-                "a mesh across %d processes holds one data axis; a model axis across "
-                "processes is ROADMAP.md section 1.4c (the JAX package's planner plans "
-                "no multi-process job either)"
+                "a mesh across %d processes holds one data axis (or one seq axis); a model "
+                "axis across processes is ROADMAP.md section 1.4c (the JAX package's "
+                "planner plans no multi-process job either)"
                 % process_count)
         import torch.distributed as tdist
 

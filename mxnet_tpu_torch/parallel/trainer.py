@@ -133,6 +133,10 @@ class SPMDTrainer:
         if mesh.process_count > 1 and self.rules.model_parallel_size > 1:
             raise MXNetError("a model axis across processes is ROADMAP.md section 1.4c (the "
                              "JAX package's planner plans no multi-process job either)")
+        if mesh.process_count > 1 and mesh.shape.get("seq", 1) > 1:
+            raise MXNetError("a seq axis across processes in the fused step is ROADMAP.md "
+                             "section 1.4c (the JAX package's planner plans no multi-process "
+                             "job either); ring_attention itself runs across processes")
         self._needs_rng = any(op.needs_rng for op in ops)
         if remat and self._needs_rng:
             raise MXNetError("remat with a random op: the recompute would draw other bits "
@@ -158,7 +162,7 @@ class SPMDTrainer:
                              "make_functional_optimizer / functional_from_optimizer")
 
         self._state = _TrainState()
-        self._graphs = {}  # (steps, input signature) -> _CapturedSteps
+        self._graphs = {}  # (steps, ring state, input signature) -> _CapturedSteps
         self._sites = {}   # input signature -> the resolved fusion plan
         self._step_count = 0
         self._anomaly_mode = None
@@ -283,11 +287,19 @@ class SPMDTrainer:
         """The fusion sites at this step's input shapes, resolved the first
         time the trainer meets them (on the card that is the eager first
         dispatch, before any capture) and kept: a later step of the same
-        shapes decides nothing."""
-        sig = tuple((n, tuple(inputs[n].shape), inputs[n].dtype) for n in self.input_names)
+        shapes decides nothing. They are resolved under the trainer's mesh,
+        which the gates read (a ``seq`` axis leaves the attention sites the
+        ring takes to the op's ring dispatch), and kept by the ring's state
+        too, which ``MXNET_RING_ATTENTION`` may change between steps."""
+        from ..ops.attention import ring_key
+        from .mesh import trace_mesh
+
+        sig = tuple((n, tuple(inputs[n].shape), inputs[n].dtype) for n in self.input_names) \
+            + (ring_key(self.mesh),)
         sites = self._sites.get(sig)
         if sites is None:
-            sites = self._sites[sig] = self._prog.sites_of(args, aux, self._device)
+            with trace_mesh(self.mesh):
+                sites = self._sites[sig] = self._prog.sites_of(args, aux, self._device)
         return sites
 
     def _fwd(self, args, aux, sites):
@@ -418,12 +430,17 @@ class SPMDTrainer:
         graph with a host op), else through the captured graph of this
         signature, capturing it after an eager first dispatch. Returns
         (list of per-step outputs, stacked finite vectors or None)."""
+        from ..ops.attention import ring_key
+
         self._build()
         n = len(inputs_list)
         if self._device.type != "cuda" or self._host_op is not None:
             res = [self._one_step(inp, self._lr_tensor(lr)) for inp, lr in zip(inputs_list, lrs)]
             return self._collect(res)
-        key = (n,) + tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(inputs_list[0].items()))
+        # a graph is captured per ring state: a switch of MXNET_RING_ATTENTION
+        # takes an eager first dispatch (resolving its sites) before capture
+        key = (n, ring_key(self.mesh)) + tuple(
+            (k, tuple(v.shape), v.dtype) for k, v in sorted(inputs_list[0].items()))
         prog = self._graphs.get(key)
         if prog is not None:
             return prog.run(self, inputs_list, lrs)

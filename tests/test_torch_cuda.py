@@ -1854,3 +1854,155 @@ def test_a_cli_lint_allocates_nothing_on_the_card(dev, capsys):
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
     capsys.readouterr()
+
+
+def _placed_net():
+    with pt.AttrScope(ctx_group="dev1"):
+        fc1 = pt.sym.FullyConnected(pt.sym.Variable("data"), num_hidden=16, name="fc1")
+        act1 = pt.sym.Activation(fc1, act_type="relu", name="relu1")
+        tap = pt.sym.BlockGrad(act1, name="tap")
+    with pt.AttrScope(ctx_group="dev2"):
+        fc2 = pt.sym.FullyConnected(act1, num_hidden=4, name="fc2")
+        loss = pt.sym.LinearRegressionOutput(fc2, pt.sym.Variable("label"), name="loss")
+    return pt.sym.Group([tap, loss])
+
+
+def test_ctx_groups_on_the_card_and_the_cpu_match_the_card_alone(dev):
+    """``group2ctx={"dev1": gpu(0), "dev2": cpu(0)}``: each group's output
+    lies on its device, the gradients come back across the boundary, and
+    outputs and gradients equal the bind on the card alone (rtol 1e-5, atol
+    1e-6); ``gpu(0)`` twice places nothing and gives the same bits."""
+    net = _placed_net()
+    shapes = {"data": (8, 10), "label": (8, 4)}
+    rs = np.random.RandomState(0)
+    arrays = {n: rs.rand(*s).astype("float32")
+              for n, s in zip(net.list_arguments(), net.infer_shape(**shapes)[0])}
+    runs = {}
+    for name, g2c in (("card", None), ("split", {"dev1": pt.gpu(0), "dev2": pt.cpu(0)}),
+                      ("same", {"dev1": pt.gpu(0), "dev2": pt.gpu(0)})):
+        exe = net.simple_bind(pt.gpu(0), grad_req="write", group2ctx=g2c, **shapes)
+        for k, v in arrays.items():
+            exe.arg_dict[k][:] = v
+        exe.forward(is_train=True)
+        exe.backward()
+        runs[name] = (exe, [o.asnumpy() for o in exe.outputs],
+                      {k: g.asnumpy() for k, g in exe.grad_dict.items() if g is not None})
+    split = runs["split"][0]
+    assert [str(o.context) for o in split.outputs] == ["gpu(0)", "cpu(0)"]
+    assert split.outputs[0]._tensor().is_cuda and not split.outputs[1]._tensor().is_cuda
+    assert all(g._tensor().is_cuda for g in split.grad_dict.values() if g is not None)
+    for got, want in zip(runs["split"][1], runs["card"][1]):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    for k, want in runs["card"][2].items():
+        np.testing.assert_allclose(runs["split"][2][k], want, rtol=1e-5, atol=1e-6, err_msg=k)
+    assert not runs["same"][0]._prog.node_devices
+    for got, want in zip(runs["same"][1], runs["card"][1]):
+        assert np.array_equal(got, want)
+    for k, want in runs["card"][2].items():
+        assert np.array_equal(runs["same"][2][k], want), k
+
+
+def test_the_ring_runs_inside_the_captured_step(dev):
+    """A small transformer through ``SPMDTrainer`` over {data: 2, seq: 4}
+    of logical ``gpu(0)``: the ring dispatches in the eager first step and
+    in its capture, never in a replay, and no flash kernel launches; three
+    steps (one eager, two replays) give the outputs and parameters of the
+    same three steps run eagerly on the card (rtol 1e-5, atol 1e-6; the
+    same kernels), and the first step's outputs equal the CPU trainer's
+    (rtol 1e-4, atol 1e-5)."""
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = dict(vocab_size=32, num_layers=2, num_heads=4, model_dim=64, ffn_dim=128, seq_len=64)
+    rs = np.random.RandomState(1)
+    batches = []
+    for _ in range(3):
+        half = rs.randint(2, 32, (8, 32))
+        x = np.concatenate([half, half], axis=1).astype("float32")
+        batches.append(({"data": x}, {"softmax_label": np.roll(x, -1, axis=1)}))
+
+    def trainer(ctx):
+        mesh = pt.parallel.make_mesh({"data": 2, "seq": 4}, devices=[ctx] * 8)
+        tr = pt.parallel.SPMDTrainer(ptf.get_symbol(**cfg), mesh, optimizer="sgd",
+                                     optimizer_params={"learning_rate": 0.01, "momentum": 0.9},
+                                     rules=pt.parallel.ShardingRules(mesh, seq_axis="seq"))
+        tr.init_params({"data": (8, 64)}, {"softmax_label": (8, 64)}, seed=0)
+        return tr
+
+    captured = trainer(pt.gpu(0))
+    before = attn.DISPATCH_COUNTS["ring"]
+    reset_launch_counts()
+    graph_outs = [captured.step(d, l)[0].cpu().numpy() for d, l in batches]
+    assert attn.DISPATCH_COUNTS["ring"] - before == 2 * cfg["num_layers"]
+    counts = launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_dq"] == 0
+    assert counts["norm_residual"] == 3 * (2 * cfg["num_layers"] + 1)
+    assert [g.replays for g in captured._graphs.values()] == [2]
+    eager = trainer(pt.gpu(0))
+    eager_outs = []
+    for d, l in batches:
+        outs, _ = eager._one_step(eager._place_batch(d, l), eager._lr_tensor(0.01))
+        eager_outs.append(outs[0].cpu().numpy())
+    for a, b in zip(graph_outs, eager_outs):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    got = captured.get_params()[0]
+    for n, want in eager.get_params()[0].items():
+        np.testing.assert_allclose(got[n], want, rtol=1e-5, atol=1e-6, err_msg=n)
+    on_cpu = trainer(pt.cpu())
+    first = on_cpu.step(*batches[0])[0].numpy()
+    np.testing.assert_allclose(graph_outs[0], first, rtol=1e-4, atol=1e-5)
+
+
+def test_a_seq_mesh_step_keeps_flash_where_the_ring_does_not_take_the_site(dev, monkeypatch):
+    """On {data: 2, seq: 4} of logical ``gpu(0)``: a T of 66, which the seq
+    axis does not divide, leaves every site to the flash kernels, eager and
+    captured, and the op (ring or dense) never runs; and a step after
+    ``MXNET_RING_ATTENTION`` is switched off resolves its sites anew and
+    launches flash, never the op, while switching it on again replays the
+    ring's graph."""
+    from mxnet_tpu_torch.ops import attention as attn
+    from mxnet_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    opdef = pt.ops.registry.get_op("_contrib_MultiHeadAttention")
+    ring_fn = opdef.fn
+
+    def refuse(*a, **kw):
+        raise AssertionError("the attention op ran at a flash site")
+
+    def trainer(T, rules_seq):
+        mesh = pt.parallel.make_mesh({"data": 2, "seq": 4}, devices=[pt.gpu(0)] * 8)
+        cfg = dict(vocab_size=32, num_layers=2, num_heads=4, model_dim=64, ffn_dim=128, seq_len=T)
+        tr = pt.parallel.SPMDTrainer(
+            ptf.get_symbol(**cfg), mesh, optimizer="sgd", optimizer_params={"learning_rate": 0.01},
+            rules=pt.parallel.ShardingRules(mesh, seq_axis="seq" if rules_seq else None))
+        tr.init_params({"data": (8, T)}, {"softmax_label": (8, T)}, seed=0)
+        return tr
+
+    def batch(T, seed):
+        x = np.random.RandomState(seed).randint(2, 32, (8, T)).astype("float32")
+        return {"data": x}, {"softmax_label": np.roll(x, -1, axis=1)}
+
+    ragged = trainer(66, False)
+    before = attn.DISPATCH_COUNTS["ring"]
+    reset_launch_counts()
+    monkeypatch.setattr(opdef, "fn", refuse)
+    for s in range(3):
+        assert np.isfinite(ragged.step(*batch(66, s))[0].cpu().numpy()).all()
+    assert attn.DISPATCH_COUNTS["ring"] == before
+    assert launch_counts()["flash_attention"] == 3 * 2
+    assert [g.replays for g in ragged._graphs.values()] == [2]
+
+    monkeypatch.setattr(opdef, "fn", ring_fn)
+    tr = trainer(64, True)
+    tr.step(*batch(64, 0))  # eager, then captured: the op runs twice a site
+    assert attn.DISPATCH_COUNTS["ring"] - before == 2 * 2
+    monkeypatch.setenv("MXNET_RING_ATTENTION", "0")
+    monkeypatch.setattr(opdef, "fn", refuse)
+    reset_launch_counts()
+    tr.step(*batch(64, 1))
+    tr.step(*batch(64, 2))
+    assert launch_counts()["flash_attention"] == 2 * 2
+    monkeypatch.delenv("MXNET_RING_ATTENTION")
+    tr.step(*batch(64, 3))
+    assert attn.DISPATCH_COUNTS["ring"] - before == 2 * 2
+    assert sorted(g.replays for g in tr._graphs.values()) == [1, 1]
