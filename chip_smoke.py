@@ -63,7 +63,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    per-channel statistics from the checkpoint's weight, held against
    ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
 8. Engine: ``InferenceEngine`` serves ResNet-50 (buckets 1-32) to eight
-   client threads, three loads of 640 requests, each in a profiler window
+   client threads, three loads of 256 requests, each in a profiler window
    of its own: each request equals its rows of the batch it rode in and
    each batch a second run of it, bitwise; 49 conv_bn launches a batch; no
    bind after warmup; throughput, client and engine latency and the card's
@@ -396,12 +396,12 @@ DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
               std=(58.40, 57.12, 57.38), tap="stage1_unit1_relu1_output",
               tap_weight="stage1_unit1_sc_weight")
 # The engine phase: InferenceEngine over ResNet-50 (buckets up to 32, 5 ms
-# batching delay) under eight closed-loop clients of 40 requests of 1-4
-# images each (about 1.5 s of load), taken three times, each a profiler
+# batching delay) under eight closed-loop clients of 32 requests of 1-4
+# images each (about 1.2 s of load), taken three times, each a profiler
 # window of its own; a dispatch fault, a shed burst and a reload under load
 # (four clients of 16 requests of 4 images); then the Transformer-base
 # prefill graph over buckets 1-8 of 128 tokens.
-ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=40,
+ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=32,
               load_seeds=(SEED + 20, SEED + 27, SEED + 28), reload_requests=16, rows=(1, 4),
               health_window_s=0.5, prefill_buckets=(1, 2, 4, 8))
 # The module phase: ResNet-50 through Module.fit from phase 6's weights on
@@ -562,11 +562,11 @@ MMA_RATE_STEPS = {"tf32": (1, "MMA(d, a[c]);"),
 MMA_RATE = dict(chains=8, iters=4096, blocks_per_sm=2, threads=256)
 
 # Published peaks, dense, from NVIDIA's H100 data sheet: float32 outside the
-# tensor cores, TF32 on the tensor cores (half the sheet's figure with
-# sparsity) and HBM bandwidth.
-PEAKS = {"PCIe": dict(f32=51e12, tf32=378e12, bytes=2.0e12),
-         "NVL": dict(f32=60e12, tf32=417.5e12, bytes=3.9e12),
-         "SXM": dict(f32=67e12, tf32=495e12, bytes=3.35e12)}
+# tensor cores, TF32 and bf16 on the tensor cores (half the sheet's figures
+# with sparsity) and HBM bandwidth.
+PEAKS = {"PCIe": dict(f32=51e12, tf32=378e12, bf16=756e12, bytes=2.0e12),
+         "NVL": dict(f32=60e12, tf32=417.5e12, bf16=835e12, bytes=3.9e12),
+         "SXM": dict(f32=67e12, tf32=495e12, bf16=989e12, bytes=3.35e12)}
 # matmul_bias_act's small-M schedule against its tiles at the decode's K and
 # N, on both sides of the crossover (ops/matmul_bias_act.py SMALL_M_MAX)
 CROSSOVER_M = (8, 16, 32, 48, 64, 96, 128, 160, 192, 256)
@@ -604,6 +604,10 @@ KERNELS = {
                         "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "matmul_bias_act"),
     "conv_bn": ("mxnet_tpu_torch/csrc/conv_bn.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
                 "conv_bn_fwd"),
+    # the stats-free forward on bf16 operands (MXNET_SERVE_QUANT=bf16): the
+    # same TPU kernel's bf16 path, called by conv_block_infer (:460)
+    "conv_bn_infer_bf16": ("mxnet_tpu_torch/csrc/conv_bn.cu",
+                           "mxnet_tpu/ops/pallas_conv_bn.py:240", "conv_bn_infer_bf16"),
     "conv_bn_bwd": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu", "mxnet_tpu/ops/pallas_conv_bn.py:511",
                     "conv_bn_bwd"),
     "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
@@ -901,6 +905,7 @@ def check_kernels(peaks):
     check_crossover(randn, M, FF)
     check_backward_kernels(randn, peaks, entries, worst)
     check_conv_kernels(randn, peaks, entries, worst)
+    check_conv_bf16_kernels(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
     check_mma_rate(randn, peaks)
     for name, e in entries.items():
@@ -1210,6 +1215,63 @@ def check_conv_kernels(randn, peaks, entries, worst):
                 entries["conv_bn_bwd"].update({prefix + k: v for k, v in bwd.items()})
         log(rec)
     check_conv_f64(randn, cb)
+
+
+# the kernel table's five ResNet-50 shapes (B, K, H, W, N, kernel, stride),
+# the bf16 inference forward timed at them stats-free with the prologue; the
+# first is the kernels line's main-path shape (stage 1's 3x3), the others'
+# fields carry a prefix
+BF16_TIMED = [(32, 64, 56, 56, 64, 3, 1, ""), (32, 64, 56, 56, 256, 1, 1, "1x1_"),
+              (32, 256, 56, 56, 512, 1, 2, "s2_"), (32, 256, 14, 14, 256, 3, 1, "s3_3x3_"),
+              (32, 512, 7, 7, 2048, 1, 1, "s4_1x1_")]
+
+
+def check_conv_bf16_kernels(randn, peaks, entries, worst):
+    """Phase 2, the bf16 inference forward (MXNET_SERVE_QUANT=bf16's kernel)
+    at BF16_TIMED: against its plain version (within one bf16 ulp), timed by
+    the profiler and by CUDA events beside the float32 kernel's and
+    ``F.conv2d``'s on the bf16 normalised input (events), and its bound at
+    the bf16 rate with 2 bytes an element."""
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    b, b16 = (1, -1, 1, 1), torch.bfloat16
+    for B, K, H, W, N, kernel, stride, prefix in BF16_TIMED:
+        x, w, scale, shift, _, _ = conv_case(randn, B, K, H, W, N, kernel, stride, True, False)
+        st, pad = (stride, stride), (kernel - 1) // 2
+        run = lambda: cb.conv_block_infer(x, w, scale, shift, st, True,  # noqa: E731
+                                          compute="bfloat16")
+        c = run()
+        xb, wb = x.bfloat16(), w.bfloat16()
+        want = cb.conv_block_infer_plain(xb, wb, scale, shift, st, True).float()
+        cmp = cb.bf16_compare(c, want, x, w.shape, scale, shift, st, True)
+        check(cmp["beyond"] == 0, ("bf16 kernel vs plain", B, K, H, W, N, kernel, cmp))
+        worst["conv_bn_infer_bf16"] = max(worst.get("conv_bn_infer_bf16", 0.0),
+                                          cmp["max_abs_err"])
+        # F.conv2d's operand: the prologue in bf16, rounded as the plain version rounds it
+        xn = torch.relu(((xb.float() * scale.to(b16).float().reshape(b)).to(b16).float()
+                         + shift.to(b16).float().reshape(b)).to(b16))
+        flops = cb.flops(x.shape, w.shape, st)
+        nbytes = 2.0 * sum(t.numel() for t in (read_of_x(x, kernel, stride), w, scale, shift, c))
+        t_ops, t_bytes = flops / peaks["bf16"] * 1e3, nbytes / peaks["bytes"] * 1e3
+        fields = dict(ms=device_ms(run, key=KERNELS["conv_bn_infer_bf16"][2]),
+                      event_ms=event_ms(run),
+                      f32_kernel_event_ms=event_ms(
+                          lambda: cb.conv_block_infer(x, w, scale, shift, st, True)),
+                      library_ms=event_ms(lambda: F.conv2d(xn, wb, stride=st, padding=pad)),
+                      bound_ms=max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops > t_bytes else "bytes")
+        if not prefix:
+            fields["plain_ms"] = device_ms(
+                lambda: cb.conv_block_infer_plain(xb, wb, scale, shift, st, True))
+            entries["conv_bn_infer_bf16"] = entry(
+                "conv_bn_infer_bf16", library="F.conv2d of the bf16 normalised input",
+                shape="x (%d,%d,%d,%d) w (%d,%d,%d,%d) prologue, stats-free" % (
+                    B, K, H, W, N, K, kernel, kernel), **fields)
+        else:
+            entries["conv_bn_infer_bf16"].update({prefix + k: v for k, v in fields.items()})
+        log({"phase": "kernel", "name": "conv_bn_infer_bf16",
+             "shape": [B, K, H, W, N, kernel, stride], "vs_plain": cmp, **fields})
+        del x, w, c, xb, wb, xn, want
 
 
 def check_conv_f64(randn, cb):
@@ -2294,43 +2356,64 @@ def resnet_bind(pt, net, ctx, B, args, aux, grad_req, images, labels, dtype="flo
 
 
 def run_resnet_serve(pt, net, args, aux):
-    """Phase 5: ResNet-50 inference on the card at batch 32 and 1: launch
-    counts, latency and images/s, a breakdown; card vs CPU at batch 2."""
+    """Phase 5: ResNet-50 inference on the card at batch 32 and 1, in
+    float32 and under MXNET_SERVE_QUANT=bf16: launch counts, latency and
+    images/s, a breakdown (the card's busy ms a request, bf16 against
+    float32); card vs CPU at batch 2 (float32; phase 20 checks bf16's).
+    Returns the two batch-32 forwards' launches."""
     from mxnet_tpu_torch import ops
 
     check_tf32_off()
     images, labels = resnet_batch(max(RESNET_SERVE["batches"]))
     out = {"phase": "resnet_serve", "model": RESNET}
+    served = {}
     for B in RESNET_SERVE["batches"]:
-        exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, "null", images, labels)
-        for _ in range(3):
-            exe.forward(is_train=False)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        prob = exe.forward(is_train=False)[0]
-        torch.cuda.synchronize()
-        launches = ops.launch_counts()
-        check(launches == with_zeros({"conv_bn_infer": RESNET_SITES}),
-              ("inference launch counts", B, launches))
-        p = prob.asnumpy()
-        check(p.shape == (B, RESNET["num_classes"]) and np.isfinite(p).all(),
-              ("inference output", B, p.shape))
-        check(np.allclose(p.sum(axis=1), 1.0, atol=1e-4), ("probabilities", B))
-        lat = []
-        for _ in range(RESNET_SERVE["iters"]):
-            t0 = time.perf_counter()
-            exe.forward(is_train=False)
+        card = {}
+        for quant in ("off", "bf16"):
+            with env_vars(MXNET_SERVE_QUANT=None if quant == "off" else quant):
+                exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, "null", images, labels)
+            for _ in range(3):
+                exe.forward(is_train=False)
             torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        med = float(np.median(lat))
-        out["batch%d" % B] = {"launches": launches, "latency_ms_p50": med,
-                              "latency_ms_p80": float(np.percentile(lat, 80)),
-                              "latency_ms": lat, "images_per_s": B * 1e3 / med}
-        torch.cuda.reset_peak_memory_stats()
-        log({"phase": "resnet_serve_breakdown", "batch": B,
-             **profile_window(lambda: exe.forward(is_train=False)),
-             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-        del exe
+            ops.reset_launch_counts()
+            prob = exe.forward(is_train=False)[0]
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            if quant == "off":
+                check(launches == with_zeros({"conv_bn_infer": RESNET_SITES}),
+                      ("inference launch counts", B, launches))
+                declined = None
+            else:
+                declined = bf16_sites(exe, RESNET_SITES, launches, B)
+            p = prob.asnumpy()
+            check(p.shape == (B, RESNET["num_classes"]) and np.isfinite(p).all(),
+                  ("inference output", quant, B, p.shape))
+            check(np.allclose(p.sum(axis=1), 1.0, atol=1e-4), ("probabilities", quant, B))
+            lat = []
+            for _ in range(RESNET_SERVE["iters"]):
+                t0 = time.perf_counter()
+                exe.forward(is_train=False)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            med = float(np.median(lat))
+            row = {"launches": launches, "latency_ms_p50": med,
+                   "latency_ms_p80": float(np.percentile(lat, 80)),
+                   "latency_ms": lat, "images_per_s": B * 1e3 / med}
+            if quant == "off":
+                out["batch%d" % B] = row
+            else:
+                out["batch%d" % B]["bf16"] = dict(row, declined_sites=declined)
+            torch.cuda.reset_peak_memory_stats()
+            w = profile_window(lambda: exe.forward(is_train=False))
+            card[quant] = w["device_busy_ms"]
+            log({"phase": "resnet_serve_breakdown", "batch": B, "quant": quant, **w,
+                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+            if B == max(RESNET_SERVE["batches"]):
+                served = {k: served.get(k, 0) + v for k, v in launches.items()}
+            del exe
+        out["batch%d" % B]["card_ms"] = {"f32": card["off"], "bf16": card["bf16"],
+                                         "bf16_over_f32": card["bf16"] / card["off"]
+                                         if card["off"] else None}
     Bc = RESNET_SERVE["check_batch"]
     probs = []
     for ctx in (pt.gpu(0), pt.cpu()):
@@ -2342,7 +2425,7 @@ def run_resnet_serve(pt, net, args, aux):
     out.update(card_vs_cpu_max_abs_err=err, card_vs_cpu_batch=Bc,
                argmax_agree=bool((probs[0].argmax(1) == probs[1].argmax(1)).all()))
     log(out)
-    return out["batch%d" % max(RESNET_SERVE["batches"])]["launches"]
+    return served
 
 
 def cnn_train_check(pt, net, args, aux, images, labels, Bc, phase, fc_relus=False,
@@ -5954,7 +6037,7 @@ def run_fused_step(pt, smi, lstm_tokens_per_s):
 # removes. A save's cost: ``save_rounds`` rounds, each a run of
 # ``save_run`` + 1 steps without a save and one that starts with a save, in
 # turns, the writer idle before each run.
-CKPT = dict(period=4, save_rounds=6, save_run=24, mlp_steps=6, mlp_period=2, mlp_batch=40,
+CKPT = dict(period=4, save_rounds=4, save_run=24, mlp_steps=6, mlp_period=2, mlp_batch=40,
             rec_steps=3, tol_rel=1e-6)
 
 
@@ -6352,7 +6435,7 @@ def run_checkpoint(pt, smi):
 # across processes (``fusion._conv_block_sharded``), at phase 9's ResNet-50:
 # its four fixed batches of 32, two epochs, SGD with momentum.
 PLANNER = dict(stages=2, microbatches=4, check_batch=4, check_microbatches=2, mlp_batch=64,
-               mlp_cut="relu1", timed_steps=24, budget_s=60.0)
+               mlp_cut="relu1", timed_steps=8, budget_s=60.0)
 
 
 def nbytes_of(arrays):
@@ -7332,7 +7415,7 @@ def run_native(pt, smi):
 # processes on the one card (each its own CUDA context; the card
 # time-slices them). Eight fixed payloads of 8 images (bucket 8: one request
 # a dispatch) are held bitwise to an in-process cache; the same closed-loop
-# load (ENGINE's 8 clients, 40 requests of 1-4 images each) runs through
+# load (ENGINE's 8 clients, 24 requests of 1-4 images each) runs through
 # both; then a chaos load (60 requests a client) during which replica 0 is
 # SIGKILLed once a third of its requests completed and a rollout to new
 # weights starts at half, as tools/serve_bench.py's fleet leg. serve_bench's
@@ -7340,7 +7423,7 @@ def run_native(pt, smi):
 # (its He-scaled conv weights are 0.02-0.06 across, so +0.01 moves each by
 # 15-50 %): the conv and fc weights take x 1.02, the BatchNorm gammas and
 # betas and the biases x 1.02 + 0.01.
-FLEET = dict(replicas=2, payloads=8, payload_rows=8, requests=40, chaos_requests=60,
+FLEET = dict(replicas=2, payloads=8, payload_rows=8, requests=24, chaos_requests=60,
              kill_at=1 / 3, rollout_at=1 / 2, scale=1.02, shift=0.01, ready_timeout_s=300,
              dispatch_wait_ms=120000, heartbeat_ms=300, drain_timeout_s=60,
              reload_timeout_s=120)
@@ -7843,6 +7926,124 @@ def transformer_step(pt, params, env):
     return exe, loss, launches, resolved_plan(exe._prog)
 
 
+# Phase 20's bf16 serving check (MXNET_SERVE_QUANT=bf16, the kernel
+# conv_bn_infer_bf16): the batch of the per-shape sweep over every conv shape
+# the inference gate admits in ResNet-50 and Inception-v3, the batch of the
+# card-vs-CPU forward and its tolerance on ResNet-50's probabilities. The
+# tolerance: each
+# site's c is within one bf16 ulp of the CPU's plain version (a few elements a
+# site differ by that ulp, where the f32 sums of two orders fall on two sides
+# of a bf16 rounding boundary) and the 49 sites carry those differences on to
+# the probabilities; the JAX package holds its bf16 serving to 0.05 of the
+# float32 output.
+SERVE_BF16 = dict(sweep_batch=2, check_batch=2, card_vs_cpu_atol=1e-2, vs_f32_atol=0.05)
+
+
+def bf16_sites(exe, sites, launches, B):
+    """A bf16 serving bind's conv sites: every one resolved under
+    MXNET_SERVE_QUANT=bf16, ``sites`` of them engaged and launching the bf16
+    kernel once each in the forward that made ``launches``; returns the
+    names of the declined ones."""
+    names = {id(n): n.name for n in exe._prog.symbol._topo()}
+    convs = [(names[k], d) for k, d in exe._sites.items() if d["kind"] == "conv"]
+    check(all(d["quant"] == "bf16" for _, d in convs), "bf16 sites resolved at bf16")
+    engaged = sum(1 for _, d in convs if d["infer"])
+    check(engaged == sites and launches == with_zeros({"conv_bn_infer_bf16": engaged}),
+          ("bf16 forward launches", B, engaged, launches))
+    return sorted(n for n, d in convs if not d["infer"])
+
+
+def check_serve_bf16(pt, net, args, aux, images, labels, off):
+    """Phase 20's bf16 serving check: ResNet-50's batch-2 inference forward
+    under MXNET_SERVE_QUANT=bf16 (launches: the bf16 kernel once an engaged
+    site, the declined sites named) card vs CPU and against the float32 one
+    on the card, one site's kernel against its plain version, and the
+    kernel against its plain version at every conv shape the inference gate
+    admits in ResNet-50 and Inception-v3 (within one bf16 ulp outside the
+    ReLU kinks). Phase 5 serves it at batch 32 and 1 and phase 2 times the
+    kernel. Returns its launches."""
+    from mxnet_tpu_torch import models, ops
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    t_check = time.perf_counter()
+    dev = pt.gpu(0).torch_device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    quant = dict(off, MXNET_SERVE_QUANT="bf16")
+    out = {"phase": "serve_bf16", "cfg": SERVE_BF16}
+    launches = {}
+    # --- batch 2: card vs CPU under bf16, and bf16 against float32 on the card
+    Bc = SERVE_BF16["check_batch"]
+    probs = {}
+    for key, ctx, env in (("card", pt.gpu(0), quant), ("cpu", pt.cpu(), quant),
+                          ("card_f32", pt.gpu(0), off)):
+        with env_vars(**env):
+            exe = resnet_bind(pt, net, ctx, Bc, args, aux, "null", images, labels)
+        ops.reset_launch_counts()
+        probs[key] = exe.forward(is_train=False)[0].asnumpy()
+        if key == "card":
+            got = ops.launch_counts()
+            out["declined_sites"] = bf16_sites(exe, RESNET_SITES, got, Bc)
+            launches["bf16_forward_b%d" % Bc] = {k: v for k, v in got.items() if v}
+        del exe
+    card_cpu = float(np.abs(probs["card"] - probs["cpu"]).max())
+    vs_f32 = float(np.abs(probs["card"] - probs["card_f32"]).max())
+    check(card_cpu <= SERVE_BF16["card_vs_cpu_atol"], ("bf16 forward card vs CPU", card_cpu))
+    check(0 < vs_f32 <= SERVE_BF16["vs_f32_atol"], ("bf16 forward vs float32", vs_f32))
+    out.update(card_vs_cpu_max_abs_err=card_cpu, vs_f32_max_abs_err=vs_f32,
+               argmax_agree=bool((probs["card"].argmax(1) == probs["cpu"].argmax(1)).all()))
+
+    # --- one site: the first 3x3 weight of the net, on an input at its stage's grid
+    w_np = next(v for _, v in sorted(args.items())
+                if v.ndim == 4 and v.shape[2:] == (3, 3) and v.shape[1] % 8 == 0)
+    K = w_np.shape[1]
+    x, w = randn(RESNET_TRAIN["batch"], K, 56, 56), torch.from_numpy(w_np).to(dev)
+    scale, shift = torch.rand(K, device=dev, generator=gen) + 0.5, randn(K, scale=0.1)
+    got = cb.conv_block_infer(x, w, scale, shift, (1, 1), True, compute="bfloat16")
+    want = cb.conv_block_infer_plain(x.bfloat16(), w.bfloat16(), scale, shift, (1, 1),
+                                     True).float()
+    out["site"] = cb.bf16_compare(got, want, x, w.shape, scale, shift, (1, 1), True)
+    check(out["site"]["beyond"] == 0, ("bf16 site kernel vs plain", out["site"]))
+
+    # --- every admitted conv shape of ResNet-50 and Inception-v3
+    sweep = []
+    worst = {"beyond": 0, "beyond_at_kinks_too": 0, "one_ulp": 0, "kinks": 0, "elements": 0,
+             "max_abs_err": 0.0}
+    Bs = SERVE_BF16["sweep_batch"]
+    for name, data in (("resnet-50", (Bs,) + image_shape()),
+                       ("inception-v3", (Bs,) + INCEPTION["inception-v3"]["image"])):
+        sym = net if name == "resnet-50" else models.get_symbol(name, num_classes=1000)
+        shapes, declined = fused_site_shapes(sym, data)
+        check(declined == 0, ("%s: sites the shape gate declines" % name, declined))
+        for (K, H, W, N, kernel, stride, prologue), sites in sorted(shapes.items()):
+            x, w, scale, shift, _, _ = conv_case(randn, Bs, K, H, W, N, kernel, stride,
+                                                 prologue, False)
+            st = (stride, stride)
+            got = cb.conv_block_infer(x, w, scale, shift, st, prologue, compute="bfloat16")
+            # the bf16-operand route launches the same kernel on the widened operands
+            same = cb.conv_block_infer(x.bfloat16(), w.bfloat16(), scale, shift, st, prologue)
+            want = cb.conv_block_infer_plain(x.bfloat16(), w.bfloat16(), scale, shift, st,
+                                             prologue).float()
+            rec = cb.bf16_compare(got, want, x, w.shape, scale, shift, st, prologue)
+            check(rec["beyond"] == 0 and torch.equal(same.float(), got),
+                  ("bf16 kernel vs plain", name, K, H, W, N, kernel, stride, rec))
+            sweep.append([name, [K, H, W, N, kernel, stride, prologue], sites, rec["bitwise"],
+                          rec["one_ulp"], rec["kinks"], rec["beyond_at_kinks_too"]])
+            for k in ("beyond", "beyond_at_kinks_too", "one_ulp", "kinks"):
+                worst[k] += rec[k]
+            worst["elements"] += got.numel()
+            worst["max_abs_err"] = max(worst["max_abs_err"], rec["max_abs_err"])
+    out.update(sweep_shapes=len(sweep), sweep=sweep, sweep_total=worst)
+
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_check
+    log(out)
+    return launches
+
+
 def run_bind(pt, smi):
     """Phase 20: the bind-time control plane on the card. The transformer's
     prefill and ResNet-50 bound under MXNET_GRAPHREWRITE=verify (the CPU
@@ -7851,8 +8052,9 @@ def run_bind(pt, smi):
     a ResNet-50 step and a transformer step (the cache file, launches equal
     the engaged sites, the loss against the all-engaged step's); the warm
     rebind measuring nothing; the switches (MXNET_FUSED_CONV_BN=0,
-    MXNET_FUSED_PATTERNS=0, MXNET_SERVE_QUANT=int8); the tuned ResNet step
-    against the all-engaged one in turns. Returns its launches by part."""
+    MXNET_FUSED_PATTERNS=0, MXNET_SERVE_QUANT=int8 and =bf16, the last in
+    ``check_serve_bf16``); the tuned ResNet step against the all-engaged one
+    in turns. Returns its launches by part."""
     from mxnet_tpu_torch import fusion, fusion_tune, ops, telemetry
     from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.ops import conv_bn as cb
@@ -8035,6 +8237,9 @@ def run_bind(pt, smi):
     want = cb.conv_block_infer_plain(x, w, scale, shift, (1, 1), True)
     int8_err = rel_err(got, want)
     check(int8_err <= CONV_TOL["elementwise"], ("int8 site kernel vs plain", int8_err))
+    del x, w, got, want
+    # bf16: ResNet-50 served through the stats-free kernel's bf16 form
+    launches.update(check_serve_bf16(pt, net, args, aux, images, labels, off))
 
     fusion_tune.reset()
     telemetry.reset()
@@ -8950,6 +9155,9 @@ def main():
                 e.update(module_infer_launches=module_launches["conv_bn_infer"])
         if name_ in ("matmul_stats", "rtc"):
             e.update(launches=deploy_launches[name_])  # the deploy phase's main path
+        elif name_ == "conv_bn_infer_bf16":
+            # launches: phase 5's bf16 forward at batch 32 (MXNET_SERVE_QUANT=bf16)
+            e.update(launches=resnet_serve_launches[name_])
         elif name_.startswith("conv_bn"):
             # launches: the ResNet's timed training steps; the stats-free
             # variant's: one batch-32 inference forward
@@ -9005,8 +9213,9 @@ def main():
         if native:
             e.update(native_launches=native)
         # the bind phase's card runs: the tuned ResNet-50 step (8, 9), the
-        # tuned transformer step (1-6), the default prefill (1, 4, 6) and the
-        # int8 forward (8, stats-free)
+        # tuned transformer step (1-6), the default prefill (1, 4, 6), the
+        # int8 forward (8, stats-free) and the batch-2 bf16 forward (8's bf16
+        # form)
         bound = {k: v.get(name_ if k != "int8_forward" else name_ + "_infer")
                  for k, v in bind_launches.items()}
         bound = {k: v for k, v in bound.items() if v}

@@ -19,9 +19,13 @@ Passes (run to fixpoint, ``MXNET_GRAPHREWRITE_ROUNDS`` budget):
   ``Activation``, ``1/sqrt`` → ``rsqrt``, scalar-identity/_copy elision).
 * ``bf16``         — dtype legalization (opt-in,
   ``MXNET_GRAPHREWRITE_BF16=1``): cast-sandwiches the operands declared in
-  ``ops/infer_meta.py`` ``bf16_slots``. A graph pass only: the port's fused
-  kernels take float32, so a cast that reaches one raises on the card
-  (ROADMAP.md section 2b, the TF32/bf16 PR).
+  ``ops/infer_meta.py`` ``bf16_slots``. A graph pass only. A planned conv
+  then gets bfloat16 x and w with no BN prologue to fold (a Cast stands
+  between), and its inference forward runs the stats-free kernel's bf16
+  form, as the JAX package runs its kernel on those operands; a cast that
+  reaches a kernel still float32-only (the training conv kernels,
+  ``matmul_bias_act``, attention, LayerNorm) raises on the card naming
+  ROADMAP.md section 2b's bf16 queue.
 * ``dce``          — sweeps nodes the other passes orphaned.
 
 Every firing emits a provenance record ``{pass, rule, action, node,

@@ -1,0 +1,70 @@
+// bf16 products on the tensor cores, for the bf16 variant of the conv +
+// BatchNorm inference forward (conv_bn.cu's mxt_conv_bn_infer_bf16, through
+// conv_bn.cuh's tc_mainloop).
+//
+// What it computes is the TPU kernel's arithmetic on bf16 operands
+// (mxnet_tpu/ops/pallas_conv_bn.py _kernel :240-290, called by
+// conv_block_infer :460 with emit_stats=False): x and w are bf16; scale and
+// shift are cast to bf16 (:349-350); the prologue x·scale + shift is two bf16
+// operations, each rounded to bf16; the product takes an f32 accumulator
+// (a product of two bf16 values is exact in f32); c is rounded to bf16.
+// The kernel reads f32 operands and rounds them as it builds its fragments
+// (the serving path's activations and weights are f32, and JAX casts both to
+// bf16 before its kernel: the two casts are fused here), and it writes c as
+// the f32 of its bf16 value (JAX's cast back to the activation's dtype).
+//
+// One mma.sync m16n8k8 with bf16 operands takes the place of the 3xTF32
+// path's three m16n8k8 TF32 products and its two splits (tf32x3.cuh): the
+// fragment registers hold the same k positions (thread t: k = 2t, 2t + 1 in
+// one register, which the kernels map to the same shared-memory columns and
+// rows as the TF32 path's k = t, t + 4), so the staging, the ring and every
+// shared-memory read of the f32 kernel stay as they are.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+namespace mxt {
+namespace bf16 {
+
+// x rounded to the nearest bf16 (ties to even), as f32: the rounding of
+// torch's and XLA's casts to bfloat16.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Two f32 values as one register of two bf16, each rounded to the nearest
+// (ties to even): lo in the low half, the fragment's lower k.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a · b for one m16n8k8 tile of bf16 operands into f32. With g = lane /
+// 4 and t = lane % 4 a thread holds
+//   a[0] (g, k = 2t | 2t + 1), a[1] (g + 8, k = 2t | 2t + 1);
+//   b (k = 2t | 2t + 1, n = g);
+//   d[0] (g, 2t), d[1] (g, 2t + 1), d[2] (g + 8, 2t), d[3] (g + 8, 2t + 1).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// The prologue relu(x·scale + shift) on bf16 values held in f32: the product
+// rounded to bf16, then the sum rounded to bf16, as two bf16 operations
+// round (ops/conv_bn.py conv_block_infer_plain states why two). The f32
+// product of two bf16 values is exact, and so is the f32 sum of two unless
+// they are more than 2^16 apart, where both roundings give the larger one,
+// so each bf16 result is the correctly rounded one. A bf16 FMA, which rounds
+// once, would differ.
+__device__ __forceinline__ float prologue(float x, float sc, float sh, bool relu) {
+  const float v = round_bf16(__fadd_rn(round_bf16(__fmul_rn(x, sc)), sh));
+  return relu ? fmaxf(v, 0.f) : v;
+}
+
+}  // namespace bf16
+}  // namespace mxt

@@ -56,21 +56,33 @@
 //   blocks run in no order, so a second pass adds the rows in a fixed order,
 //   with no atomics, and two runs give the same bits.
 // The inference variant (part == NULL) drops the statistics entirely.
+//
+// The bf16 inference variant (mxt_conv_bn_infer_bf16, the stats-free kernel
+// on bf16 operands: pallas_conv_bn.py conv_block_infer :460 as
+// fusion.py:1313-1336 calls it under MXNET_SERVE_QUANT=bf16) is the same
+// kernel with BF16 set: the same tiles, ring and staging of f32 x and w,
+// the operands rounded to bf16 as the fragments are built, the prologue in
+// bf16 (bf16_mma.cuh), one bf16 m16n8k8 product a step instead of three
+// TF32 ones, and c rounded to bf16 and written as f32. Bound on an H100 at
+// ResNet-50's 3x3 sites by operations, 2·B·H'W'·N·K·9 FLOP at 989 TFLOP/s,
+// a third of the TF32 path's work at twice its rate; at the 1x1 sites by
+// bytes, which are the f32 kernel's (it reads f32 x and writes f32 c).
 #include "conv_bn.cuh"
 
 namespace {
 
 using namespace mxt::convbn;
 
-// Two blocks an SM (at most 128 registers a thread): at the 1x1 sites with
-// few input channels the kernel is bound by bytes, and one block an SM
-// leaves too few loads and stores in flight.
-template <int TAPS, bool VEC, bool PRO, bool STATS>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ scale, const float* __restrict__ shift,
-                      const float* __restrict__ res, float* __restrict__ c,
-                      float* __restrict__ part, Geo geo, bool relu) {
+// The kernels' body; BF16 is the bf16 inference variant (no statistics, no
+// residual).
+template <int TAPS, bool VEC, bool PRO, bool STATS, bool BF16>
+__device__ __forceinline__ void conv_bn_fwd_tc(const float* __restrict__ x,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ shift,
+                                               const float* __restrict__ res,
+                                               float* __restrict__ c, float* __restrict__ part,
+                                               const Geo& geo, bool relu) {
   using C = Cfg<TAPS>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -84,7 +96,7 @@ conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const TcArgs args{w, x, scale, shift, N, geo.K, geo.K, geo.B,
                     geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu};
   float acc[C::MT][C::NT][4] = {};
-  tc_mainloop<TAPS, VEC, PRO>(args, pt, n0, smem, acc);
+  tc_mainloop<TAPS, VEC, PRO, BF16>(args, pt, n0, smem, acc);
 
   // ---- epilogue: the thread's columns 2t, 2t + 1 of each n8 tile, each
   // with its own output offset at channel 0 (a 1x1 tile may start the next
@@ -115,6 +127,7 @@ conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int ni = 0; ni < C::NT; ++ni) {
         float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
+        if (BF16) v[0] = mxt::bf16::round_bf16(v[0]), v[1] = mxt::bf16::round_bf16(v[1]);
         if (pairs && in[ni][1]) {
           const size_t o = ob[ni][0] + nof;
           if (res != nullptr) {
@@ -147,6 +160,28 @@ conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
       part[(static_cast<size_t>(pt) * 2 + 1) * N + n0 + tid] = sq;
     }
   }
+}
+
+// Two blocks an SM (at most 128 registers a thread): at the 1x1 sites with
+// few input channels the kernel is bound by bytes, and one block an SM
+// leaves too few loads and stores in flight.
+template <int TAPS, bool VEC, bool PRO, bool STATS>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ scale, const float* __restrict__ shift,
+                      const float* __restrict__ res, float* __restrict__ c,
+                      float* __restrict__ part, Geo geo, bool relu) {
+  conv_bn_fwd_tc<TAPS, VEC, PRO, STATS, false>(x, w, scale, shift, res, c, part, geo, relu);
+}
+
+// The bf16 inference variant, under a name of its own in a profile.
+template <int TAPS, bool VEC, bool PRO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_infer_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ scale, const float* __restrict__ shift,
+                          float* __restrict__ c, Geo geo, bool relu) {
+  conv_bn_fwd_tc<TAPS, VEC, PRO, false, true>(x, w, scale, shift, nullptr, c, nullptr, geo,
+                                              relu);
 }
 
 // The statistics' second pass: (ssum, ssq) = Σ over the partial rows.
@@ -183,6 +218,27 @@ cudaError_t launch_pro_stats(bool pro, bool stats, dim3 grid, cudaStream_t st, c
                                                     g, relu)
                : launch<TAPS, VEC, false, false>(grid, st, x, w, scale, shift, res, c,
                                                      part, g, relu);
+}
+
+template <int TAPS, bool VEC, bool PRO>
+cudaError_t launch_bf16(dim3 grid, cudaStream_t st, const float* x, const float* w,
+                        const float* scale, const float* shift, float* c, const Geo& g,
+                        bool relu) {
+  auto kernel = conv_bn_infer_bf16_kernel<TAPS, VEC, PRO>;
+  constexpr int smem = Cfg<TAPS>::SMEM;
+  static bool raised = false;
+  cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, c, g, relu);
+  return cudaGetLastError();
+}
+
+template <int TAPS, bool VEC>
+cudaError_t launch_bf16_pro(bool pro, dim3 grid, cudaStream_t st, const float* x,
+                            const float* w, const float* scale, const float* shift, float* c,
+                            const Geo& g, bool relu) {
+  return pro ? launch_bf16<TAPS, VEC, true>(grid, st, x, w, scale, shift, c, g, relu)
+             : launch_bf16<TAPS, VEC, false>(grid, st, x, w, scale, shift, c, g, relu);
 }
 
 }  // namespace
@@ -224,4 +280,31 @@ extern "C" int mxt_conv_bn_fwd(const float* x, const float* w, const float* scal
   mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
   conv_bn_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stats-free forward on bf16 operands: x, w, scale, shift are f32 (or the
+// f32 of bf16 values) and are rounded to bf16 as the kernel reads them; c is
+// the f32 of the bf16 result. The geometry and alignment rules are
+// mxt_conv_bn_fwd's.
+extern "C" int mxt_conv_bn_infer_bf16(const float* x, const float* w, const float* scale,
+                                      const float* shift, float* c, int B, int K, int H, int W,
+                                      int N, int taps, int stride, int relu, void* stream) {
+  if (!valid_call(B, K, H, W, N, taps, stride) || (scale == nullptr) != (shift == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(x, 16) || misaligned(w, 16) || misaligned(c, 16) ||
+      (scale != nullptr && (misaligned(scale, 8) || misaligned(shift, 8))))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Geo g = make_geo(B, K, H, W, N, taps, stride);
+  const bool pro = scale != nullptr;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tc_parts(g, taps) * ceil_div(N, kTileM));
+  cudaError_t err;
+  if (taps == 1) {
+    err = stride == 1 && (H * W) % 4 == 0
+              ? launch_bf16_pro<1, true>(pro, grid, st, x, w, scale, shift, c, g, relu)
+              : launch_bf16_pro<1, false>(pro, grid, st, x, w, scale, shift, c, g, relu);
+  } else {
+    err = launch_bf16_pro<9, false>(pro, grid, st, x, w, scale, shift, c, g, relu);
+  }
+  return static_cast<int>(err);
 }

@@ -16,9 +16,12 @@
 // staged chunk and a border pixel outside the image is a 0: the pad-1
 // semantics of the TPU kernel's _shift_masks, pallas_conv_bn.py:216). The
 // contraction streams through a 4-stage cp.async ring in chunks of 32
-// channels (1x1) or 8 channels x 9 taps (3x3).
+// channels (1x1) or 8 channels x 9 taps (3x3). With BF16 (the forward's
+// inference variant, bf16_mma.cuh) the same tiles, ring and shared-memory
+// reads feed one bf16 m16n8k8 product a step instead of three TF32 ones.
 #pragma once
 
+#include "bf16_mma.cuh"
 #include "common.cuh"
 #include "tf32x3.cuh"
 
@@ -138,9 +141,95 @@ struct TcArgs {
   bool relu;
 };
 
+// One stage of tc_mainloop's products in bf16 (BF16): the TF32 path's
+// shared-memory reads, each pair of values rounded into one bf16x2 register
+// (A and X as JAX casts them; X through the bf16 prologue where there is
+// one), one m16n8k8 a step, into a fresh accumulator added to acc once.
+// as: A's stage at this warp's row g; bs: X's stage.
+template <int TAPS, bool PRO>
+__device__ __forceinline__ void bf16_stage(const TcArgs& g, const float* as, const float* bs,
+                                           int k0, int t, int wn, int gq,
+                                           float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
+  using C = Cfg<TAPS>;
+  float d[C::MT][C::NT][4];
+#pragma unroll
+  for (int mi = 0; mi < C::MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NT; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[mi][ni][i] = 0.f;
+  if (TAPS == 1) {
+#pragma unroll
+    for (int kk = 0; kk < C::BK; kk += 8) {
+      if (k0 + kk >= g.KC) break;  // KC % 8 == 0: an 8-deep step is all in or all out
+      // k = 2t and 2t + 1 of the step are channels kk + 2t and kk + 2t + 1:
+      // A's from one 8-byte load, X's from two rows
+      float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
+      if (PRO) {
+        sc = __ldg(reinterpret_cast<const float2*>(g.scale + k0 + kk + 2 * t));
+        sh = __ldg(reinterpret_cast<const float2*>(g.shift + k0 + kk + 2 * t));
+        sc = make_float2(bf16::round_bf16(sc.x), bf16::round_bf16(sc.y));
+        sh = make_float2(bf16::round_bf16(sh.x), bf16::round_bf16(sh.y));
+      }
+      uint32_t b[C::NT];
+#pragma unroll
+      for (int ni = 0; ni < C::NT; ++ni) {
+        const float* br = bs + (kk + 2 * t) * C::BS + wn * C::WN + ni * 8 + gq;
+        float v0 = br[0], v1 = br[C::BS];
+        if (PRO) {
+          v0 = bf16::prologue(bf16::round_bf16(v0), sc.x, sh.x, g.relu);
+          v1 = bf16::prologue(bf16::round_bf16(v1), sc.y, sh.y, g.relu);
+        }
+        b[ni] = bf16::pack(v0, v1);
+      }
+#pragma unroll
+      for (int mi = 0; mi < C::MT; ++mi) {
+        const float* ar = as + mi * 16 * C::AS + kk + 2 * t;
+        const float2 lo = *reinterpret_cast<const float2*>(ar);
+        const float2 hi = *reinterpret_cast<const float2*>(ar + 8 * C::AS);
+        const uint32_t a[2] = {bf16::pack(lo.x, lo.y), bf16::pack(hi.x, hi.y)};
+#pragma unroll
+        for (int ni = 0; ni < C::NT; ++ni) bf16::mma(d[mi][ni], a, b[ni]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      // k = 2t and 2t + 1 are the chunk's channels t and t + 4 (the TF32
+      // path's k = t and t + 4): the tap's halo pixel, normalised (or 0
+      // outside the image) in shared memory already
+      uint32_t b[C::NT];
+#pragma unroll
+      for (int ni = 0; ni < C::NT; ++ni) {
+        const float* br = bs + t * C::BS + (wn * C::NT + ni + dy) * kHaloW + gq + dx;
+        b[ni] = bf16::pack(br[0], br[4 * C::BS]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < C::MT; ++mi) {
+        const float* ar = as + mi * 16 * C::AS + t * 9 + tap;  // channel t + 4: 36 columns on
+        const uint32_t a[2] = {bf16::pack(ar[0], ar[36]),
+                               bf16::pack(ar[8 * C::AS], ar[8 * C::AS + 36])};
+#pragma unroll
+        for (int ni = 0; ni < C::NT; ++ni) bf16::mma(d[mi][ni], a, b[ni]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < C::MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < C::NT; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][ni][i] += d[mi][ni][i];
+}
+
 // Fills acc with the block's tile (position tile pt, rows m0 .. m0 + 63).
 // smem: Cfg<TAPS>::SMEM bytes of dynamic shared memory, free on return.
-template <int TAPS, bool VEC, bool PRO>
+// BF16: A, X, scale and shift are rounded to bf16 as the fragments are
+// built, the prologue is bf16_mma.cuh's, and each stage's products go into a
+// fresh f32 accumulator that is added to acc with one rounding to nearest
+// (the tensor cores truncate as they accumulate, tf32x3.cuh's mma3).
+template <int TAPS, bool VEC, bool PRO, bool BF16 = false>
 __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, float* smem,
                                             float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
   using C = Cfg<TAPS>;
@@ -242,8 +331,16 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, flo
       for (int i = 0; i < k3x3; ++i) {
         if (dst[i] < 0) continue;
         const int k = k0 + kls[i];
-        bs[dst[i]] = ok[i] ? prologue(bs[dst[i]], __ldg(g.scale + k), __ldg(g.shift + k), g.relu)
-                           : 0.f;
+        if (BF16) {
+          bs[dst[i]] = ok[i] ? bf16::prologue(bf16::round_bf16(bs[dst[i]]),
+                                              bf16::round_bf16(__ldg(g.scale + k)),
+                                              bf16::round_bf16(__ldg(g.shift + k)), g.relu)
+                             : 0.f;
+        } else {
+          bs[dst[i]] = ok[i] ? prologue(bs[dst[i]], __ldg(g.scale + k), __ldg(g.shift + k),
+                                        g.relu)
+                             : 0.f;
+        }
       }
     }
     __syncthreads();  // chunk kt ready for all; every warp is done with chunk kt - 1's stage
@@ -252,7 +349,9 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, flo
     cp_async_commit();
     const float* as = smem + (kt % kStages) * C::STAGE + (wm * C::WM + gq) * C::AS;
     const float* bs = smem + (kt % kStages) * C::STAGE + BM * C::AS;
-    if (TAPS == 1) {
+    if (BF16) {
+      bf16_stage<TAPS, PRO>(g, as, bs, k0, t, wn, gq, acc);
+    } else if (TAPS == 1) {
 #pragma unroll
       for (int kk = 0; kk < C::BK; kk += 8) {
         if (k0 + kk >= g.KC) break;  // KC % 8 == 0: an 8-deep step is all in or all out

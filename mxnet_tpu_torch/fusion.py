@@ -52,8 +52,11 @@ call in a kernel's place only under an explicit ``MXNET_FUSION_TUNE_DIR``;
 a kernel that raises while measured re-raises (``fusion_tune``);
 ``conv_schedule`` returns None (the kernels have no stripe override); the
 stash backward resolves to recompute until section 2b's stash kernel
-lands; ``MXNET_SERVE_QUANT=bf16`` raises (section 2b), and ``int8`` feeds
-the per-channel quantized weight in float32 to the stats-free kernel.
+lands. ``MXNET_SERVE_QUANT=bf16`` resolves the inference gate at bfloat16,
+as the JAX package gates the cast operands, and runs the stats-free
+kernel's bf16 form where it engages and the library's bfloat16 conv where
+it declines, c back in the activation's dtype; ``int8`` feeds the
+per-channel quantized weight in float32 to the stats-free kernel.
 Counters ``fusion.{fwd,infer}_{engaged,fallback}``,
 ``fusion.bwd_{engaged,xla}`` and ``fusion.pattern_{engaged,fallback}.<name>``
 count the decisions where they are made (at bind for a resolved site).
@@ -555,9 +558,13 @@ def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
     the normalised input, the residual, the two sums, and autograd's
     backward) against ``ConvBlock`` under each backward policy the port
     has: ``cuda:xla`` (kernel forward, library backward) and
-    ``cuda:recompute`` (both kernels)."""
+    ``cuda:recompute`` (both kernels). At bfloat16, the dtype of the
+    ``MXNET_SERVE_QUANT=bf16`` inference gate, ``_conv_bn_measure_bf16``."""
     from .context import current_context
     from .fusion_tune import measure_candidates
+
+    if _dtype_name(dtype) == "bfloat16":
+        return _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape)
 
     rs = np.random.RandomState(0)
     dev = current_context().torch_device
@@ -580,6 +587,32 @@ def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
     cands = [("cuda:" + policy, lambda *a, _p=policy: fused(*a, bwd=_p))
              for policy in ("xla", "recompute")]
     return measure_candidates(baseline, cands, args, train=True)
+
+
+def _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape):
+    """A bfloat16 site's forward-only measurement, the inference verdict
+    (``engage_fwd``) of ``MXNET_SERVE_QUANT=bf16``: the library's bfloat16
+    conv of the bfloat16 prologue (the declined site's lowering,
+    ``_conv_unfused_bf16``) against the stats-free kernel's bf16 form, on
+    float32 operands made from a seed (the serving path's). The port has no
+    bfloat16 training kernel, so ``engage`` stays False."""
+    from .context import current_context
+    from .fusion_tune import measure_candidates
+
+    rs = np.random.RandomState(0)
+    dev = current_context().torch_device
+    K = x_shape[1]
+    host = [rs.randn(*x_shape), rs.randn(*w_shape) * 0.1, rs.uniform(0.5, 1.5, (K,)),
+            rs.uniform(-0.2, 0.2, (K,))]
+    args = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in host)
+
+    def baseline(x, w, scale, shift):
+        return _conv_unfused_bf16(x, w, scale, shift, True, stride)
+
+    def fused(x, w, scale, shift):
+        return _cb.conv_block_infer(x, w, scale, shift, stride, True, compute="bfloat16")
+
+    return measure_candidates(baseline, [("cuda:bf16", fused)], args, train=False)
 
 
 def _conv_bn_verdict(kernel, stride, x_shape, w_shape, dtype, res):
@@ -922,17 +955,26 @@ def _site_prologue(node, directives):
                               or (d["kind"] == "bn" and d["fold"]))
 
 
-def _resolve_conv(d, x, w, prologue):
+def _resolve_conv(d, x, w, prologue, node):
     kernel, stride, res = d["kernel"], d["stride"], d["defer"]
     engaged = gate(kernel, stride, x.shape, w.shape, x.dtype, prologue, res=res)
     bwd = bwd_mode(kernel, stride, x.shape, w.shape, x.dtype, prologue, res=res) \
         if engaged else None
     quant = quant_mode()
-    infer = None if quant == "bf16" else gate(kernel, stride, x.shape, w.shape, x.dtype,
-                                              prologue, res=False, train=False)
+    # the inference gate sees the dtype the kernel computes in: bfloat16
+    # under MXNET_SERVE_QUANT=bf16, as JAX gates x_c.dtype (:1317)
+    idt = torch.bfloat16 if quant == "bf16" else x.dtype
+    infer = gate(kernel, stride, x.shape, w.shape, idt, prologue, res=False, train=False)
+    if _tm.tracing():
+        # JAX's _note_conv (:1161) for the inference decision, made at bind
+        reason = ("engaged (inference%s)" % ("" if quant == "off" else ", quant=" + quant)
+                  if infer else gate_explain(kernel, stride, x.shape, w.shape, idt, prologue,
+                                             res=False, train=False)[1])
+        _tm.event("fusion.conv", op=node.name, shape=tuple(x.shape), engaged=infer,
+                  reason=reason)
     # the tune-cache keys the two verdicts read (a bare conv is never measured)
-    keys = [_conv_bn_key(kernel, stride, x.shape, w.shape, x.dtype, r) if prologue else None
-            for r in (res, False)]
+    keys = [_conv_bn_key(kernel, stride, x.shape, w.shape, dt, r) if prologue else None
+            for dt, r in ((x.dtype, res), (idt, False))]
     return dict(d, train=(engaged, bwd), infer=infer, quant=quant, key=keys[0],
                 infer_key=keys[1])
 
@@ -989,7 +1031,8 @@ def resolve_sites(symbol, directives, shapes, types, device):
             x = static(ins[0]) if ins[0] is not None else None
             if x is None or ins[1] is None or x.dtype is None:
                 raise _unresolved(node)
-            out[id(node)] = _resolve_conv(d, x, ins[1], _site_prologue(node, directives))
+            out[id(node)] = _resolve_conv(d, x, ins[1], _site_prologue(node, directives),
+                                          node)
         elif d is not None and d["kind"] == "pattern":
             try:
                 args = d["pat"].externals(d["meta"], ins, static)
@@ -1147,23 +1190,45 @@ def _quant_weight(w):
     return (torch.clamp(torch.round(w32 / s), -127, 127) * s).to(w.dtype)
 
 
+def _conv_unfused_bf16(x, w, scale, shift, relu, stride):
+    """A site the inference gate declines under ``MXNET_SERVE_QUANT=bf16``:
+    the JAX package's fallback, ``_xla_conv`` on the bfloat16 casts of x and
+    w (:1339-1344): the prologue in bfloat16, the library's bfloat16
+    convolution, c back in x's dtype."""
+    bf16, b = torch.bfloat16, (1, -1, 1, 1)
+    xn = x.to(bf16)
+    if scale is not None:
+        xn = xn * scale.to(bf16).reshape(b) + shift.to(bf16).reshape(b)
+        if relu:
+            xn = torch.relu(xn)
+    return F.conv2d(xn, w.to(bf16), stride=stride, padding=(w.shape[2] - 1) // 2).to(x.dtype)
+
+
 def _exec_conv_infer(directive, ins):
     """A planned conv in an inference forward (JAX :1299-1344): the
     stats-free kernel, the BN prologue folded with its moving stats, the
-    weight quantized under ``MXNET_SERVE_QUANT=int8``. A deferred site runs
-    here too, and its add is a plain add."""
+    weight quantized under ``MXNET_SERVE_QUANT=int8``. Under
+    ``MXNET_SERVE_QUANT=bf16`` x and w compute in bfloat16 and c returns in
+    x's dtype (the kernel's bf16 form, or the library's bfloat16 conv where
+    the gate declined). The weight is read, and cast or quantized, at every
+    call, as in the JAX package: an update through the predict API is seen.
+    A site whose x and w differ in dtype (a bfloat16 input bound beside
+    float32 weights) computes in their promoted dtype, as the library ops
+    do. A deferred site runs here too, and its add is a plain add."""
     v, w = ins[0], resolve(ins[1])
     stride = directive["stride"]
     x, scale, shift, relu = _conv_input(v)
     quant = directive["quant"]
     if quant == "bf16":
-        raise MXNetError("MXNET_SERVE_QUANT=bf16: the port's conv kernels take float32; "
-                         "bf16 inputs come with the TF32/bf16 PR (ROADMAP.md section 2b)")
+        if not directive["infer"]:
+            return _conv_unfused_bf16(x, w, scale, shift, relu, stride)
+        return _cb.conv_block_infer(x, w, scale, shift, stride, relu, compute="bfloat16")
     if quant == "int8":
         w = _quant_weight(w)
     if not directive["infer"]:
         return _conv_unfused(v, w, stride)
-    return _cb.conv_block_infer(x, w, scale, shift, stride, relu)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return _cb.conv_block_infer(x.to(dt), w.to(dt), scale, shift, stride, relu)
 
 
 def _exec_resadd(directive, ins):

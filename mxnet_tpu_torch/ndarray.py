@@ -58,6 +58,23 @@ class _Chunk:
         self.ctx = ctx
 
 
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A tensor sharing a contiguous numpy array's data. A bfloat16 array
+    (numpy has the type where ``ml_dtypes`` is loaded) passes as its bits,
+    which ``torch.from_numpy`` does not take."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, bfloat16 through its bits (``numpy_dtype``
+    refuses it where numpy has no bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(numpy_dtype(torch.bfloat16))
+    return t.numpy()
+
+
 def _to_tensor(value, ctx: Context, dtype=None) -> torch.Tensor:
     """``value`` (NDArray, tensor, numpy, list or scalar) as a tensor on
     ``ctx``. Numpy and list input in float64 becomes float32, the framework's
@@ -69,7 +86,7 @@ def _to_tensor(value, ctx: Context, dtype=None) -> torch.Tensor:
         arr = np.asarray(value, dtype=None if dtype is None else np_dtype(dtype))
         if arr.dtype == np.float64 and dtype is None:
             arr = arr.astype(np.float32)
-        value = torch.from_numpy(np.ascontiguousarray(arr))
+        value = _from_numpy(np.ascontiguousarray(arr))
     value = value.detach().to(ctx.torch_device)
     return value if dtype is None else value.to(torch_dtype(dtype))
 
@@ -177,7 +194,7 @@ class NDArray:
         """A host copy (waits for the card)."""
         t = self._tensor().detach()
         # .cpu() of a tensor on the card is a new host tensor already
-        return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
+        return _to_numpy(t.cpu()) if t.is_cuda else _to_numpy(t).copy()
 
     def asscalar(self):
         if self.size != 1:
@@ -271,7 +288,9 @@ class NDArray:
         if isinstance(value, NDArray):
             value = value._tensor()
         if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(np.ascontiguousarray(value, dtype=target.dtype))
+            # a bfloat16 target takes float32, which copy_ rounds to nearest even
+            value = _from_numpy(np.ascontiguousarray(
+                value, dtype=np.float32 if dst.dtype == torch.bfloat16 else target.dtype))
         # copy_ broadcasts, converts dtype, and copies across devices
         dst.copy_(value.detach())
 
@@ -521,7 +540,7 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
         dtype = source_array.dtype if isinstance(source_array, np.ndarray) else np.float32
         if np.dtype(dtype) == np.float64:
             dtype = np.float32
-    return NDArray(torch.from_numpy(np.array(source_array, dtype=np_dtype(dtype))), ctx=ctx)
+    return NDArray(_from_numpy(np.array(source_array, dtype=np_dtype(dtype))), ctx=ctx)
 
 
 def _shape_tuple(shape):

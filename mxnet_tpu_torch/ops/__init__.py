@@ -29,6 +29,7 @@ KERNELS = {
     "matmul_bias_act": (matmul_bias_act, "launches"),
     "conv_bn": (conv_bn, "launches"),
     "conv_bn_infer": (conv_bn, "infer_launches"),
+    "conv_bn_infer_bf16": (conv_bn, "infer_bf16_launches"),
     "conv_bn_bwd": (conv_bn, "bwd_launches"),
     "matmul_stats": (matmul_stats, "launches"),
     "rtc": ("mxnet_tpu_torch.rtc", "launches"),

@@ -16,6 +16,15 @@ kernels:
   of ResNet-50's late stages fill whole tiles; a 3x3 kernel an 8 x 8 pixel
   tile with its border. Bound by operations at the 3x3 sites, by bytes at
   most 1x1 ones (``PERF.md`` §6).
+
+  Its stats-free form on bf16 operands (the TPU kernel computes in its
+  input's dtype, :321 and :349-350, and ``MXNET_SERVE_QUANT=bf16`` feeds it
+  bf16, JAX ``fusion.py`` :1313-1336) is the same CUDA kernel with its bf16
+  switch (``mxt_conv_bn_infer_bf16``, ``csrc/bf16_mma.cuh``): one bf16
+  ``mma.sync`` a step with an f32 accumulator instead of three TF32 ones,
+  the prologue in bf16, c rounded to bf16. It reads f32 x and w and rounds
+  them as it reads them, and writes c as the f32 of its bf16 value, so the
+  serving path's casts to and from bf16 cost no pass of their own.
 - ``_conv_block_bwd_impl`` (:619, call :692) → ``_bwd_kernel`` (:511): the
   fused dgrad + wgrad with the statistics cotangents folded into the output
   cotangent (``dce = dc + ds + 2·c·dq``), the prologue's backward, dscale,
@@ -52,7 +61,9 @@ and is not ported yet (``ROADMAP.md``).
 dispatchers: a CPU tensor takes the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. ``ConvBlock`` is the autograd Function over
 them (the JAX package's ``custom_vjp`` at :435). ``launches``,
-``infer_launches`` and ``bwd_launches`` count kernel launches.
+``infer_launches``, ``infer_bf16_launches`` and ``bwd_launches`` count kernel
+launches. Only the inference forward takes bf16; the training kernels take
+float32 (``cuda_build.LATER_DTYPES``).
 """
 from __future__ import annotations
 
@@ -64,7 +75,7 @@ from . import cuda_build
 
 __all__ = ["strided_dims", "supported", "conv_block", "conv_block_plain", "conv_block_infer",
            "conv_block_infer_plain", "conv_block_bwd", "conv_block_bwd_plain", "ConvBlock",
-           "flops"]
+           "flops", "bf16_ulps", "bf16_compare"]
 
 # the tiling of the forward and the dgrad (csrc/conv_bn.cuh, which the C
 # entry point checks): 128 positions of the flattened B·H'W' axis a block for
@@ -81,6 +92,7 @@ WGRAD_STEP_P, WGRAD_MIN_STAGES, SMS = 32, 4, 132
 
 launches = 0
 infer_launches = 0
+infer_bf16_launches = 0
 bwd_launches = 0
 
 
@@ -119,13 +131,16 @@ def _conv_geometry(x_shape, w_shape, stride, itemsize):
 
 
 def supported(x_shape, w_shape, stride=(1, 1)):
-    """Whether the kernels take this (float32) conv: the shape gate."""
+    """Whether the kernels take this conv: the shape gate, the same for the
+    float32 kernels and the bf16 inference forward (a GPU block stages a
+    chunk of K at a time, so the TPU's VMEM budget, which the dtype's
+    itemsize enters, has no counterpart)."""
     return _conv_geometry(tuple(x_shape), tuple(w_shape), tuple(stride), 4) is not None
 
 
 def _geometry(what, x, w, stride):
-    # the shape gate; a CUDA tensor must also be float32 (check_operands), a
-    # CPU one may be float64 (gradcheck)
+    # the shape gate; a CUDA tensor must also be float32 (bfloat16 for the
+    # inference forward: check_operands), a CPU one may be float64 (gradcheck)
     stride = tuple(int(s) for s in stride)
     geo = _conv_geometry(tuple(x.shape), tuple(w.shape), stride, 4)
     if geo is None:
@@ -190,8 +205,30 @@ def _pad(w):
 
 
 def conv_block_infer_plain(x, w, scale, shift, stride=(1, 1), relu=False):
-    """The stats-free forward in plain PyTorch: ``conv(prologue(x), w)``."""
-    return F.conv2d(_prologue(x, scale, shift, relu), w, stride=tuple(stride), padding=_pad(w))
+    """The stats-free forward in plain PyTorch: ``conv(prologue(x), w)``.
+
+    On bfloat16 x and w it computes what the JAX package's kernel computes on
+    them (``_kernel`` :256-286): scale and shift cast to bfloat16, the
+    prologue's product rounded to bfloat16 and then its sum (two roundings),
+    the convolution of the bfloat16 values with a float32 accumulator, and c
+    rounded to bfloat16. Two roundings, not one after the add: at seeded
+    1x1 and 3x3 sites the two-rounding prologue gives the JAX package's CPU
+    output bit for bit, where one rounding leaves about half the elements a
+    bfloat16 ulp or more away (``tests/test_torch_serve_bf16.py``). The
+    bf16 kernel rounds at the same points (``csrc/bf16_mma.cuh``)."""
+    if x.dtype != torch.bfloat16:
+        return F.conv2d(_prologue(x, scale, shift, relu), w, stride=tuple(stride),
+                        padding=_pad(w))
+    bf16, b = torch.bfloat16, (1, -1, 1, 1)
+    xn = x
+    if scale is not None:
+        xn = (x.float() * scale.to(bf16).float().reshape(b)).to(bf16)
+        xn = (xn.float() + shift.to(bf16).float().reshape(b)).to(bf16)
+        if relu:
+            xn = torch.relu(xn)
+    # each product of two bfloat16 values is exact in float32
+    c = F.conv2d(xn.float(), w.to(bf16).float(), stride=tuple(stride), padding=_pad(w))
+    return c.to(bf16)
 
 
 def conv_block_plain(x, w, scale, shift, res=None, stride=(1, 1), relu=False):
@@ -286,18 +323,57 @@ def conv_block(x, w, scale, shift, res=None, stride=(1, 1), relu=False):
     return c, sums[0], sums[1]
 
 
-def conv_block_infer(x, w, scale, shift, stride=(1, 1), relu=False):
+def conv_block_infer(x, w, scale, shift, stride=(1, 1), relu=False, compute=None):
     """The grad-less inference forward: the same fused prologue + conv with
     the statistics epilogue dropped (JAX ``conv_block_infer`` :460).
-    Returns c; not differentiable."""
-    stride, _ = _geometry("conv_block_infer", x, w, stride)
-    _check_vectors("conv_block_infer", x, w, scale, shift, None, stride)
+    Returns c; not differentiable.
+
+    It computes in x's dtype, as the JAX package's kernel does, and w must
+    have it too: float32 (the 3xTF32 kernel, ``infer_launches``) or bfloat16
+    (the bf16 kernel, ``infer_bf16_launches``; c in bfloat16).
+    ``compute="bfloat16"`` takes operands of any float dtype and returns
+    ``conv_block_infer(x.bfloat16(), w.bfloat16(), ...).to(x.dtype)``, as
+    the JAX package's ``MXNET_SERVE_QUANT=bf16`` path computes it (fusion.py
+    :1313-1336): on the card the bf16 kernel reads float32 operands as they
+    are and writes float32 c, so those casts cost nothing."""
+    what = "conv_block_infer"
+    stride, _ = _geometry(what, x, w, stride)
+    _check_vectors(what, x, w, scale, shift, None, stride)
+    if compute not in (None, "bfloat16"):
+        raise MXNetError("%s: compute must be None or 'bfloat16', got %r" % (what, compute))
+    bf16 = compute == "bfloat16" or x.dtype == torch.bfloat16
+    if compute is None and w.dtype != x.dtype:
+        raise MXNetError("%s: x is %s and w %s; the kernel computes in one dtype"
+                         % (what, x.dtype, w.dtype))
     if x.device.type == "cpu":
+        if bf16:
+            c = conv_block_infer_plain(x.to(torch.bfloat16), w.to(torch.bfloat16), scale,
+                                       shift, stride, relu)
+            return c.to(x.dtype)
         return conv_block_infer_plain(x, w, scale, shift, stride, relu)
-    global infer_launches
-    c, _ = _launch_fwd("conv_block_infer", x, w, scale, shift, None, stride, relu, False)
-    infer_launches += 1
-    return c
+    if not bf16:
+        global infer_launches
+        c, _ = _launch_fwd(what, x, w, scale, shift, None, stride, relu, False)
+        infer_launches += 1
+        return c
+    operands = [t for t in (x, w, scale, shift) if t is not None]
+    cuda_build.check_operands(what, *operands, dtypes=(torch.float32, torch.bfloat16))
+    # the kernel reads float32: a bfloat16 operand widens exactly
+    x32, w32, sc32, sh32 = (None if t is None else t.float() for t in (x, w, scale, shift))
+    B, K, H, W = x.shape
+    N, taps = w.shape[0], w.shape[2] * w.shape[3]
+    Ho, Wo = _out_dims(x, w, stride)
+    c = torch.empty((B, N, Ho, Wo), dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = cuda_build.library()
+    with torch.cuda.device(x.device):
+        code = lib.mxt_conv_bn_infer_bf16(
+            x32.data_ptr(), w32.data_ptr(), ptr(sc32), ptr(sh32), c.data_ptr(), B, K, H, W, N,
+            taps, stride[0], int(bool(relu)), torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(code, what)
+    global infer_bf16_launches
+    infer_bf16_launches += 1
+    return c.to(x.dtype)
 
 
 def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
@@ -381,6 +457,59 @@ class ConvBlock(torch.autograd.Function):
         dx, dw, dscale, dshift, dres = run(x, w, scale, shift, c, dc, ds, dq,
                                            ctx.stride, ctx.relu, ctx.has_res)
         return dx, dw, dscale, dshift, dres, None, None, None
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance in bfloat16 ulps of two tensors of bfloat16
+    values (held in any float dtype): the count of bfloat16 steps between
+    them, read off their bit patterns laid on one monotone integer line
+    (-0 and +0 the same point). 1 is a neighbour, whatever the binade."""
+    def line(t):
+        bits = t.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (line(a) - line(b)).abs()
+
+
+def _relu_kink_outputs(x, w_shape, scale, shift, stride):
+    """The outputs whose inputs hold a bfloat16 ReLU decision the rounding
+    of the prologue decides (``conv_block_infer_plain``): an element whose
+    pre-activation is above 0 under one of its two definitions (the product
+    and the sum each rounded to bfloat16, or one rounding after the add) and
+    not under the other. Returns ``(kinks, outputs)``, boolean masks of x's
+    shape and of the output's."""
+    bf16, b = torch.bfloat16, (1, -1, 1, 1)
+    xb = x.to(bf16).float()
+    sc, sh = scale.to(bf16).float().reshape(b), shift.to(bf16).float().reshape(b)
+    two = ((xb * sc).to(bf16).float() + sh).to(bf16).float()
+    one = (xb * sc + sh).to(bf16).float()
+    kinks = (two > 0) != (one > 0)
+    ones = torch.ones((1, 1) + tuple(w_shape[2:]), dtype=torch.float32, device=x.device)
+    hit = F.conv2d(kinks.any(dim=1, keepdim=True).float(), ones, stride=tuple(stride),
+                   padding=(w_shape[2] - 1) // 2)
+    return kinks, (hit > 0).expand(x.shape[0], w_shape[0], -1, -1)
+
+
+def bf16_compare(got, want, x, w_shape, scale, shift, stride=(1, 1), relu=False):
+    """A bf16 forward's c against another's (the kernel's against its plain
+    version's, the plain version's against the JAX package's) on the inputs
+    x, scale, shift: the share bitwise equal (``bitwise``), the elements one
+    bfloat16 ulp apart (``one_ulp``), those farther (``beyond``) outside the
+    outputs of the ReLU decisions the prologue's rounding decides and
+    outside 1e-6 of the largest |want|, the same count with those outputs
+    kept in (``beyond_at_kinks_too``), the input elements holding such
+    decisions (``kinks``) and the largest difference (``max_abs_err``)."""
+    got, want = got.float(), want.float()
+    ulps = bf16_ulps(got, want)
+    small = (got - want).abs() <= 1e-6 * want.abs().max()
+    skip, kinks = small, 0
+    if scale is not None and relu:
+        k_in, k_out = _relu_kink_outputs(x, w_shape, scale, shift, stride)
+        skip = small | k_out
+        kinks = int(k_in.sum())
+    return {"bitwise": float((got == want).float().mean()), "one_ulp": int((ulps == 1).sum()),
+            "beyond": int(((ulps > 1) & ~skip).sum()),
+            "beyond_at_kinks_too": int(((ulps > 1) & ~small).sum()), "kinks": kinks,
+            "max_abs_err": float((got - want).abs().max())}
 
 
 def flops(x_shape, w_shape, stride):

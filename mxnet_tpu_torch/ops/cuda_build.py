@@ -65,6 +65,8 @@ _SIGNATURES = {
     # x, w, scale, shift, res, c, part, sums (the last five or NULL), B, K, H, W, N, taps,
     # stride, relu, parts, stream
     "mxt_conv_bn_fwd": (_P,) * 8 + (_I,) * 9 + (_P,),
+    # x, w, scale, shift (or NULL), c, B, K, H, W, N, taps, stride, relu, stream
+    "mxt_conv_bn_infer_bf16": (_P,) * 5 + (_I,) * 8 + (_P,),
     # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
     # N, taps, stride, relu, parts, splits, stream
     "mxt_conv_bn_bwd": (_P,) * 15 + (_I,) * 10 + (_P,),
@@ -148,16 +150,25 @@ def library():
         return _lib
 
 
-def check_operands(what, *tensors):
-    """Raise unless every operand is a contiguous float32 tensor on one CUDA device."""
+#: where a kernel's refusal of a dtype it does not take points
+LATER_DTYPES = ("ROADMAP.md section 2b: bf16 for the port's other kernels comes with the "
+                "bf16 training step and the queue after it")
+
+
+def check_operands(what, *tensors, dtypes=(torch.float32,)):
+    """Raise unless every operand is a contiguous tensor of one of ``dtypes``
+    (the dtypes the kernel takes: float32, and bfloat16 for the conv+BN
+    inference forward) on one CUDA device. The dtypes are checked first."""
+    for t in tensors:
+        if t.dtype not in dtypes:
+            raise MXNetError("%s: the kernel takes %s, got %s (%s)"
+                             % (what, " or ".join(str(d).replace("torch.", "") for d in dtypes),
+                                t.dtype, LATER_DTYPES))
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise MXNetError("%s: operands must share one CUDA device, got %s and %s"
                              % (what, dev, t.device))
-        if t.dtype != torch.float32:
-            raise MXNetError("%s: the kernel takes float32, got %s (other dtypes come with "
-                             "the TF32/bf16 PR, ROADMAP.md section 2b)" % (what, t.dtype))
         if not t.is_contiguous():
             raise MXNetError("%s: the kernel takes contiguous tensors" % what)
 

@@ -54,8 +54,8 @@ from .sharding import ShardingRules
 
 __all__ = ["SPMDTrainer"]
 
-_BF16 = ("compute_dtype %r: the port's fused step computes in float32; bf16 and TF32 "
-         "come with the TF32/bf16 PR (ROADMAP.md section 2b)")
+_BF16 = ("compute_dtype %r: the port's fused step computes in float32; bf16 comes with "
+         "ROADMAP.md section 2b's bf16 training step")
 #: ops whose apply runs host Python: a graph holding one is not captured
 _HOST_OPS = ("Custom",)
 #: aten products the 'dots' remat policy keeps (JAX's dots_with_no_batch_dims_saveable)

@@ -88,13 +88,17 @@ class PersistentExecutableCache:
 
     ``arg_params``/``aux_params`` are {name: numpy array, tensor or NDArray};
     every symbol argument that is not a param is an INPUT whose shape the
-    bucket key carries, allocated as float32 like the serving graphs' inputs.
-    An aux state (BatchNorm's moving stats) the checkpoint lacks stays zero.
-    ``ctx`` defaults to ``gpu(0)`` and is resolved here, so a missing GPU
-    raises at construction. ``dtype`` is the compute dtype; the port computes
-    in float32 only (the TF32/bf16 decision is a later PR of ROADMAP §2b),
-    and any other raises. ``model_key`` names the on-disk manifest (default:
-    a digest of the symbol JSON and the dtype, the reference's digest);
+    bucket key carries, allocated in ``dtype``. An aux state (BatchNorm's
+    moving stats) the checkpoint lacks stays zero. ``ctx`` defaults to
+    ``gpu(0)`` and is resolved here, so a missing GPU raises at
+    construction. ``dtype`` is the inputs' dtype, as in the reference: under
+    ``"bfloat16"`` a request's inputs are rounded to bfloat16 where they
+    land, the params keep their own dtype, and each op computes in its
+    operands' promoted dtype (a planned conv too:
+    ``fusion._exec_conv_infer``); ``MXNET_SERVE_QUANT=bf16`` is the route
+    that computes the convolutions in bfloat16. Other dtypes raise (the
+    reference takes any; the port's kernels take these two). ``model_key`` names the
+    on-disk manifest (default: a digest of the symbol JSON and the dtype, the reference's digest);
     ``cache_dir`` is its root (default ``MXNET_SERVE_CACHE_DIR``; unset: no
     persistence). ``max_executables`` bounds an UNSEALED cache: past it the
     least recently used executor is dropped, so distinct shapes cannot grow
@@ -104,10 +108,9 @@ class PersistentExecutableCache:
     def __init__(self, symbol, arg_params=None, aux_params=None, ctx=None,
                  dtype="float32", model_key=None, cache_dir=None,
                  max_executables=None):
-        if str(dtype) != "float32":
-            raise MXNetError(
-                "serving: dtype %r is not supported yet; the port computes in float32 "
-                "until the TF32/bf16 PR (ROADMAP section 2b)" % (dtype,))
+        if str(dtype) not in ("float32", "bfloat16"):
+            raise MXNetError("serving: dtype %r is not supported; the port serves float32 "
+                             "and bfloat16 inputs" % (dtype,))
         self._sym = symbol
         self._ctx = ctx or current_context()
         self._ctx.torch_device  # raises now if the device is not there

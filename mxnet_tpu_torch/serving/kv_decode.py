@@ -63,6 +63,15 @@ _NEG = np.float32(-1e9)
 _M32 = 0xFFFFFFFF
 
 
+def _float32_only(dtype):
+    """The decoders compute in float32, the JAX serving default; the
+    transformer's bf16 kernels are queued in ROADMAP.md section 2b."""
+    if str(dtype) != "float32":
+        raise MXNetError("kv_decode: dtype %r is not supported; the decoders compute in "
+                         "float32 (the transformer's bf16 kernels are queued in ROADMAP.md "
+                         "section 2b)" % (dtype,))
+
+
 def decode_megastep_k(default=1):
     """Decode tokens per dispatch (``MXNET_DECODE_MEGASTEP_K``). K=1 is the
     single-step path; K>1 routes the greedy loops through the megastep. Junk
@@ -464,6 +473,7 @@ class KVCacheDecoder:
                  dtype="float32", cache_dir=None, model_key=None, sample_seed=None):
         from ..models import transformer as _tf
 
+        _float32_only(dtype)
         self.vocab_size = int(vocab_size)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
@@ -822,6 +832,7 @@ class PagedKVDecoder:
                  model_key=None, sample_seed=None):
         from ..models import transformer as _tf
 
+        _float32_only(dtype)
         self.vocab_size = int(vocab_size)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)

@@ -283,8 +283,8 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
     assert ops.launch_counts() == {"flash_attention": L, "flash_attention_dq": L,
                                    "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
                                    "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L,
-                                   "conv_bn": 0, "conv_bn_infer": 0, "conv_bn_bwd": 0,
-                                   "matmul_stats": 0, "rtc": 0}
+                                   "conv_bn": 0, "conv_bn_infer": 0, "conv_bn_infer_bf16": 0,
+                                   "conv_bn_bwd": 0, "matmul_stats": 0, "rtc": 0}
     exes[1].forward_backward()
     for n in reqs:
         got, want = exes[0].grad_dict[n].asnumpy(), exes[1].grad_dict[n].asnumpy()
@@ -324,6 +324,83 @@ def _close(got, want, rtol):
     """float32 on both sides, summed in other orders: within rtol of the
     largest magnitude of the plain result."""
     torch.testing.assert_close(got, want, rtol=0, atol=rtol * max(1.0, float(want.abs().max())))
+
+
+def _repo_module(name, rel):
+    """A module of the checkout by its path (chip_smoke.py, tools/...)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / rel
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_conv_bn_bf16_kernel_matches_plain_at_every_admitted_shape(dev):
+    """The bf16 inference forward (``compute="bfloat16"`` on float32
+    operands, and on bfloat16 ones) against its plain version at every conv
+    shape the inference gate admits in ResNet-50 and Inception-v3, batch 2,
+    with the prologue and its ReLU where the net has them: every element
+    within one bf16 ulp (neighbouring bf16 values) or within 1e-6 of the
+    largest magnitude, the ReLU decisions the prologue's rounding decides
+    counted and kept in (the kernel rounds its prologue as the plain version
+    does, so none of them moves an output here)."""
+    smoke = _repo_module("chip_smoke", "chip_smoke.py")
+    nets = [(pt.models.resnet.get_symbol(num_classes=1000, num_layers=50,
+                                         image_shape="3,224,224"), (2, 3, 224, 224)),
+            (pt.models.get_symbol("inception-v3", num_classes=1000), (2, 3, 299, 299))]
+    seen, before = 0, cb.infer_bf16_launches
+    for net, data in nets:
+        shapes, declined = smoke.fused_site_shapes(net, data)
+        assert shapes and declined == 0
+        for i, (K, H, W, N, kernel, stride, pro) in enumerate(sorted(shapes)):
+            x, w, scale, shift, _, _ = _conv_case(dev, 2, K, H, W, N, kernel, stride,
+                                                  "prologue" if pro else "bare", seed=i)
+            st = (stride, stride)
+            got = cb.conv_block_infer(x, w, scale, shift, st, pro, compute="bfloat16")
+            also = cb.conv_block_infer(x.bfloat16(), w.bfloat16(), scale, shift, st, pro)
+            want = cb.conv_block_infer_plain(x.bfloat16(), w.bfloat16(), scale, shift, st,
+                                             pro).float()
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and also.dtype == torch.bfloat16
+            assert torch.equal(also.float(), got)
+            cmp = cb.bf16_compare(got, want, x, w.shape, scale, shift, st, pro)
+            assert cmp["beyond"] == cmp["beyond_at_kinks_too"] == 0, (K, H, W, N, kernel, cmp)
+            seen += 1
+    assert cb.infer_bf16_launches - before == 2 * seen
+
+
+#: the float32 conv+BN forward kernel's digests (tools/torch_conv_digest.py)
+#: recorded on an H100 for the tree before the kernel gained its bf16 variant
+F32_DIGESTS = {"3x3": {"conv_block": "d4256519b038cdb5", "conv_block_infer": "bcde8ddc0fb2495d"},
+               "1x1": {"conv_block": "e9e1b197a86677a7", "conv_block_infer": "12c2cda19419fca6"}}
+
+
+def test_conv_bn_float32_kernel_keeps_its_bits(dev):
+    """The float32 instantiation of the templated forward gives the bits it
+    gave before the template gained its bf16 variant, at a seeded 3x3 and a
+    seeded 1x1 site."""
+    digest = _repo_module("torch_conv_digest", "tools/torch_conv_digest.py")
+    assert digest.digests(cb, dev) == F32_DIGESTS
+
+
+def test_bf16_reaches_only_the_inference_forward(dev):
+    """bf16 operands: the stats-free forward takes them; the training
+    kernels refuse them naming ROADMAP.md section 2b's bf16 training step,
+    and so does the fully connected layer's kernel when
+    ``MXNET_GRAPHREWRITE_BF16`` casts its operands."""
+    x, w, scale, shift, _, _ = _conv_case(dev, 2, 16, 8, 8, 16, 3, 1, "prologue")
+    xb, wb = x.bfloat16(), w.bfloat16()
+    assert cb.conv_block_infer(xb, wb, scale, shift, (1, 1), True).dtype == torch.bfloat16
+    with pytest.raises(MXNetError, match="bf16 training step"):
+        cb.conv_block(xb, wb, scale, shift)
+    with pytest.raises(MXNetError, match="bf16 training step"):
+        mba.matmul_bias_act(_randn(dev, 8, 16).bfloat16(), _randn(dev, 16, 16).bfloat16(),
+                            None, "relu")
+    with pytest.raises(MXNetError, match="computes in one dtype"):
+        cb.conv_block_infer(xb, w, scale, shift)
 
 
 # (B, K, H, W, N, kernel, stride): ragged 3x3 (9 x 9 is two 8-pixel tiles a

@@ -13,8 +13,8 @@ family forces the port's kernel (``pallas_flash`` → ``cuda_flash``); a
 name the port has no candidate for (``chunked_kv``, ``block_causal``)
 leaves the site unfused, as the JAX gate leaves a site whose forced
 lowering does not exist. The bfloat16 parameters run on the JAX package
-only: the port's kernels take float32 until the TF32/bf16 PR (ROADMAP.md
-section 2b), ``PORT_F32_ONLY``.
+only: the pattern kernels take float32 until ROADMAP.md section 2b's bf16
+queue reaches them, ``PORT_F32_ONLY``.
 
 ``test_auto_mode_without_cache_is_bit_identical`` is the port's departure
 (ROADMAP.md section 3): with no tune directory ``auto`` engages every site

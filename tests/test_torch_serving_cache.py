@@ -74,8 +74,9 @@ def test_digest_and_model_key_equal_the_references(which):
 
 def test_signature_matches_and_other_dtypes_are_refused():
     net = _mlp(pt.sym)
-    with pytest.raises(pt.MXNetError, match="TF32/bf16"):
-        PortCache(net, {}, {}, pt.cpu(), "bfloat16")
+    with pytest.raises(pt.MXNetError, match="float32 and bfloat16"):
+        PortCache(net, {}, {}, pt.cpu(), "float16")
+    assert PortCache(net, {}, {}, pt.cpu(), "bfloat16")._dtype == "bfloat16"
     c = PortCache(net, {}, {}, pt.cpu(), "float32", "k", None, 3)
     assert (c._dtype, c._model_key, c._cache_dir, c._max_exes) == ("float32", "k", None, 3)
 

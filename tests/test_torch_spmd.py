@@ -271,7 +271,7 @@ def test_planner_and_graphlint_raise_naming_step_4(monkeypatch, var, value):
 
 def test_bf16_compute_raises_naming_section_2b():
     mesh = pt.parallel.make_mesh((1,), ("data",), [pt.cpu()])
-    with pytest.raises(pt.MXNetError, match="TF32/bf16"):
+    with pytest.raises(pt.MXNetError, match="section 2b's bf16 training step"):
         pt.parallel.SPMDTrainer(_mlp(pt), mesh, compute_dtype="bfloat16")
 
 
