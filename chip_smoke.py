@@ -15,7 +15,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    time, the plain version's, a PyTorch library call's, and the least time
    the card could take (one JSON line per kernel and shape); matmul_bias_act's
    two schedules timed against each other over M; the conv kernels and their
-   float32 plain versions against float64 at stage 4's 3x3.
+   float32 plain versions against float64 at stage 4's 3x3; the bf16 forms
+   of the conv+BN training kernels (rows 8 and 9) at the table's five
+   ResNet-50 shapes and every site shape of ResNet-50 at batch 32, and of
+   matmul_bias_act (row 6) at the prefill's and the mlp's shapes, each
+   within one bf16 ulp of its plain version, timed beside the library's bf16
+   call and the float32 kernel.
 3. Serving: full-width Transformer-base greedy decode through
    ``KVCacheDecoder`` on the card, with the kernel launch counts of that run
    checked against the path's expected counts (matmul_bias_act's small-M
@@ -311,9 +316,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ``{"dev1": gpu(0), "dev2": cpu(0)}`` against ``gpu(0)`` alone (losses
    and gradients within ``CTX_TOL``, each group's output on its device)
    and with ``gpu(0)`` twice (nothing placed, bitwise).
-23. A ``smoke`` line (the run's seconds from the import of the port), a
+23. bf16 training (``SPMDTrainer(compute_dtype='bfloat16')``): ResNet-50 at
+   batch 32 on one fixed batch, each step one CUDA graph: 49 + 49 launches
+   of the bf16 conv+BN kernels a step and none of the float32 ones, the
+   loss falling, master weights and aux float32; host p50, card ms by CUDA
+   events, idle share and peak memory beside the float32 fused step's on
+   the same batch; the batch-2 first step card vs CPU (loss, every
+   gradient, the aux); the MNIST mlp's bf16 convergence task (accuracy >
+   0.9, two bf16 matmul_bias_act launches a step); one site's bf16
+   training verdict measured under a tune directory.
+24. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
-   profiler's gap), a ``{"kernels": [...]}`` line of ten kernels (rows 6, 8
+   profiler's gap), a ``{"kernels": [...]}`` line of ten kernels and the
+   bf16 forms of rows 6, 8 and 9 (their ``launches`` phase 23's; rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
@@ -610,6 +625,14 @@ KERNELS = {
                            "mxnet_tpu/ops/pallas_conv_bn.py:240", "conv_bn_infer_bf16"),
     "conv_bn_bwd": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu", "mxnet_tpu/ops/pallas_conv_bn.py:511",
                     "conv_bn_bwd"),
+    # the bf16 training forms (SPMDTrainer(compute_dtype='bfloat16')): the
+    # same TPU kernels on bf16 operands, the forward with its statistics
+    "conv_bn_bf16": ("mxnet_tpu_torch/csrc/conv_bn.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
+                     "conv_bn_train_bf16"),
+    "conv_bn_bwd_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu",
+                         "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_bf16_bwd"),
+    "matmul_bias_act_bf16": ("mxnet_tpu_torch/csrc/matmul_bias_act.cu",
+                             "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "mba_bf16"),
     "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
                      "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats"),
     # the mechanism is rtc.py; the kernels it launches here are the strings above
@@ -906,6 +929,8 @@ def check_kernels(peaks):
     check_backward_kernels(randn, peaks, entries, worst)
     check_conv_kernels(randn, peaks, entries, worst)
     check_conv_bf16_kernels(randn, peaks, entries, worst)
+    check_conv_bf16_train_kernels(randn, peaks, entries, worst)
+    check_mba_bf16_kernel(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
     check_mma_rate(randn, peaks)
     for name, e in entries.items():
@@ -1272,6 +1297,202 @@ def check_conv_bf16_kernels(randn, peaks, entries, worst):
         log({"phase": "kernel", "name": "conv_bn_infer_bf16",
              "shape": [B, K, H, W, N, kernel, stride], "vs_plain": cmp, **fields})
         del x, w, c, xb, wb, xn, want
+
+
+# the bf16 training forms of rows 8 and 9 (conv_bn_bf16, conv_bn_bwd_bf16):
+# the table's five ResNet-50 shapes at batch 32 (B, K, H, W, N, kernel,
+# stride, residual, prefix), each with the BatchNorm prologue and its ReLU,
+# the residual where the training step adds one; the first is the kernels
+# line's main-path shape
+BF16_TRAIN_TIMED = [(32, 64, 56, 56, 64, 3, 1, False, ""),
+                    (32, 64, 56, 56, 256, 1, 1, True, "res1x1_"),
+                    (32, 256, 56, 56, 512, 1, 2, False, "s2_"),
+                    (32, 256, 14, 14, 256, 3, 1, False, "s3_3x3_"),
+                    (32, 512, 7, 7, 2048, 1, 1, True, "s4_res1x1_")]
+# c, dx, dw and dres of a bf16 form against its plain version: bf16 values of
+# float32 sums taken in other orders, each rounded once, so neighbouring
+# bf16 values (one ulp), or, where a sum cancels, within CONV_TOL of the
+# largest magnitude (the float32 kernels' bounds: c and dx K·taps- and
+# N·taps-long sums, dw a B·H'W'-long one); Σc, Σc², dscale and dshift float32
+# sums within CONV_TOL["sums"]
+BF16_TRAIN_ULPS = 1
+
+
+def bf16_far(got, want, cancel=CONV_TOL["elementwise"]):
+    """Elements of two bf16 results more than BF16_TRAIN_ULPS apart and
+    farther than ``cancel`` of the largest |want|."""
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    g, w = got.float(), want.float()
+    near = (g - w).abs() <= cancel * float(w.abs().max())
+    return int(((cb.bf16_ulps(g, w) > BF16_TRAIN_ULPS) & ~near).sum())
+
+
+def conv_bf16_train_case(cb, x, w, scale, shift, r, st, relu, dc, ds, dq):
+    """The bf16 training forms against their plain versions on one site:
+    (the forward's outputs, the backward's args, a record of what moved)."""
+    got = cb.conv_block(x, w, scale, shift, r, st, relu)
+    want = cb.conv_block_plain(x, w, scale, shift, r, st, relu)
+    args = (x, w, scale, shift, got[0], dc, ds, dq, st, relu, r is not None)
+    gb, pb = cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*args)
+    torch.cuda.synchronize()
+    rec = {"far": {"c": bf16_far(got[0], want[0])}, "rel_err": {}, "max_abs_err": {}}
+    rec["rel_err"]["ssum"], rec["rel_err"]["ssq"] = rel_err(got[1], want[1]), rel_err(got[2],
+                                                                                         want[2])
+    rec["max_abs_err"]["c"] = float((got[0].float() - want[0].float()).abs().max())
+    for name, g, p in zip(("dx", "dw", "dscale", "dshift", "dres"), gb, pb):
+        check((g is None) == (p is None), ("conv_bn_bwd_bf16 outputs", name))
+        if g is None:
+            continue
+        if name in ("dscale", "dshift"):
+            rec["rel_err"][name] = rel_err(g, p)
+        else:
+            rec["far"][name] = bf16_far(g, p, CONV_TOL["sums" if name == "dw"
+                                                      else "elementwise"])
+            rec["max_abs_err"][name] = float((g.float() - p.float()).abs().max())
+    ok = (not any(rec["far"].values())
+          and all(math.isfinite(e) and e <= CONV_TOL["sums"] for e in rec["rel_err"].values()))
+    return got, args, rec, ok
+
+
+def check_conv_bf16_train_kernels(randn, peaks, entries, worst):
+    """Phase 2, the bf16 training forms of rows 8 (with the statistics) and 9
+    on bf16 operands (x, w, res, dc; scale and shift float32, as the
+    BatchNorm fold makes them) against their plain versions, at
+    BF16_TRAIN_TIMED and at every conv site shape the training gate admits in
+    ResNet-50 at batch 32: timed at BF16_TRAIN_TIMED by the profiler and by
+    CUDA events beside the plain versions and the library's bf16 calls
+    (``F.conv2d`` of the bf16 normalised input; ``aten.convolution_backward``
+    of the folded bf16 cotangent), with their bounds at the bf16 rate and 2
+    bytes an element."""
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    b16 = torch.bfloat16
+    Bt = RESNET_TRAIN["batch"]
+    sweep_shapes, declined = fused_site_shapes(resnet.get_symbol(**RESNET),
+                                               (Bt,) + image_shape())
+    check(declined == 0, ("ResNet-50: sites the shape gate declines", declined))
+    cases = BF16_TRAIN_TIMED + [(Bt, K, H, W, N, kernel, stride, False, None)
+                                for (K, H, W, N, kernel, stride, pro) in sorted(sweep_shapes)]
+    sweep = []
+    for B, K, H, W, N, kernel, stride, res, prefix in cases:
+        x, w, scale, shift, r, (Ho, Wo) = conv_case(randn, B, K, H, W, N, kernel, stride, True,
+                                                    res)
+        x, w, r = x.to(b16), w.to(b16), None if r is None else r.to(b16)
+        dc, ds, dq = randn(B, N, Ho, Wo).to(b16), randn(N, scale=0.01), randn(N, scale=1e-3)
+        st = (stride, stride)
+        got, args, rec, ok = conv_bf16_train_case(cb, x, w, scale, shift, r, st, True, dc, ds,
+                                                  dq)
+        check(ok, ("bf16 training kernels vs plain", B, K, H, W, N, kernel, stride, res, rec))
+        worst["conv_bn_bf16"] = max(worst.get("conv_bn_bf16", 0.0), rec["max_abs_err"]["c"])
+        worst["conv_bn_bwd_bf16"] = max(worst.get("conv_bn_bwd_bf16", 0.0),
+                                        rec["max_abs_err"]["dx"])
+        if prefix is None:
+            sweep.append([[K, H, W, N, kernel, stride], rec["far"], rec["max_abs_err"]])
+            del x, w, got, args
+            continue
+        c = got[0]
+        xn = torch.relu(((x.float() * scale.to(b16).float().reshape(1, -1, 1, 1)).to(b16).float()
+                         + shift.to(b16).float().reshape(1, -1, 1, 1)).to(b16))
+        pad = (kernel - 1) // 2
+        flops = cb.flops(x.shape, w.shape, st)
+        xr = read_of_x(x, kernel, stride)
+        fwd_bytes = 2.0 * sum(t.numel() for t in (xr, w, scale, shift, r, c) if t is not None) \
+            + 8.0 * N
+        # read x, w, scale, shift, c, dc; write dx, dw (and dres); the f32
+        # ds, dq in and dscale, dshift out
+        bwd_bytes = 2.0 * sum(t.numel() for t in (xr, w, scale, shift, c, dc, x, w)
+                              if t is not None) + 2.0 * (c.numel() if res else 0) + 8.0 * (N + K)
+        fwd = lambda: cb.conv_block(x, w, scale, shift, r, st, True)  # noqa: E731
+        bwd = lambda: cb.conv_block_bwd(*args)  # noqa: E731
+        dce = cb._fold_bf16(c, dc, ds, dq)
+        t_ops, t_bytes = flops / peaks["bf16"] * 1e3, fwd_bytes / peaks["bytes"] * 1e3
+        bt_ops, bt_bytes = 2.0 * flops / peaks["bf16"] * 1e3, bwd_bytes / peaks["bytes"] * 1e3
+        f = dict(ms=device_ms(fwd, key=KERNELS["conv_bn_bf16"][2]), event_ms=event_ms(fwd),
+                 library_ms=event_ms(lambda: F.conv2d(xn, w, stride=st, padding=pad)),
+                 bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes
+                 else "bytes")
+        bk = dict(ms=device_ms(bwd, key=KERNELS["conv_bn_bwd_bf16"][2]), event_ms=event_ms(bwd),
+                  library_ms=event_ms(lambda: torch.ops.aten.convolution_backward(
+                      dce, xn, w, None, list(st), [pad, pad], [1, 1], False, [0, 0], 1,
+                      [True, True, False])),
+                  bound_ms=max(bt_ops, bt_bytes),
+                  bound_by="operations" if bt_ops > bt_bytes else "bytes")
+        # the float32 kernels on the same values, in the same run
+        x32, w32 = x.float(), w.float()
+        r32 = None if r is None else r.float()
+        f["f32_kernel_ms"] = device_ms(lambda: cb.conv_block(x32, w32, scale, shift, r32, st,
+                                                             True), key=KERNELS["conv_bn"][2])
+        c32 = cb.conv_block(x32, w32, scale, shift, r32, st, True)[0]
+        a32 = (x32, w32, scale, shift, c32, dc.float(), ds, dq, st, True, res)
+        bk["f32_kernel_ms"] = device_ms(lambda: cb.conv_block_bwd(*a32),
+                                        key=KERNELS["conv_bn_bwd"][2])
+        if not prefix:
+            f["plain_ms"] = device_ms(lambda: cb.conv_block_plain(x, w, scale, shift, r, st,
+                                                                  True))
+            bk["plain_ms"] = device_ms(lambda: cb.conv_block_bwd_plain(*args))
+        label = "x (%d,%d,%d,%d) w (%d,%d,%d,%d) stride %d prologue%s, bf16" % (
+            B, K, H, W, N, K, kernel, kernel, stride, " + res" if res else "")
+        for name, fields, library in (
+                ("conv_bn_bf16", f, "F.conv2d of the bf16 normalised input (bf16)"),
+                ("conv_bn_bwd_bf16", bk, "aten.convolution_backward in bf16 (dgrad + wgrad)")):
+            if not prefix:
+                entries[name] = entry(name, library=library, shape=label, **fields)
+            else:
+                entries[name].update({prefix + k: v for k, v in fields.items()})
+        log({"phase": "kernel", "name": "conv_bn_bf16", "shape": [B, K, H, W, N, kernel, stride],
+             "res": res, "vs_plain": rec, "fwd": f, "bwd": bk})
+        del x, w, got, args, xn, dce, c32, a32, x32, w32
+    log({"phase": "kernel", "name": "conv_bn_bf16_sweep", "batch": Bt, "shapes": len(sweep),
+         "sweep": sweep})
+
+
+def check_mba_bf16_kernel(randn, peaks, entries, worst):
+    """Phase 2, row 6's bf16 form (matmul_bias_act_bf16) on bf16 a, w and b
+    against its plain version (within one bf16 ulp, or CONV_TOL's
+    elementwise bound) at the prefill's ffn1 (the tiles; the kernels line's shape)
+    and the MNIST mlp's two sites at batch 64 (the small-M schedule), timed
+    beside ``torch.addmm`` + relu in bf16 and the float32 kernel; the bound
+    at the bf16 rate and 2 bytes an element."""
+    from mxnet_tpu_torch.ops import matmul_bias_act as mba
+
+    b16 = torch.bfloat16
+    cases = [(SERVE["batch"] * SERVE["prefill_len"], MODEL["model_dim"], MODEL["ffn_dim"], ""),
+             (64, 784, 128, "mlp_fc1_"), (64, 128, 64, "mlp_fc2_")]
+    for M, K, N, prefix in cases:
+        a = randn(M, K).to(b16)
+        w = randn(N, K, scale=1.0 / math.sqrt(K)).to(b16)
+        b = randn(N, scale=0.1).to(b16)
+        y = mba.matmul_bias_act(a, w, b, "relu")
+        want = mba.matmul_bias_act_plain(a, w, b, "relu")
+        torch.cuda.synchronize()
+        far = bf16_far(y, want)
+        err = float((y.float() - want.float()).abs().max())
+        check(far == 0, ("matmul_bias_act_bf16 vs plain", M, K, N, far, err))
+        worst["matmul_bias_act_bf16"] = max(worst.get("matmul_bias_act_bf16", 0.0), err)
+        flops = 2.0 * M * N * K + 2.0 * M * N
+        t_ops = flops / peaks["bf16"] * 1e3
+        t_bytes = 2.0 * (M * K + N * K + N + M * N) / peaks["bytes"] * 1e3
+        a32, w32, b32 = a.float(), w.float(), b.float()
+        fields = dict(ms=device_ms(lambda: mba.matmul_bias_act(a, w, b, "relu"),
+                                   key=KERNELS["matmul_bias_act_bf16"][2]),
+                      event_ms=event_ms(lambda: mba.matmul_bias_act(a, w, b, "relu")),
+                      f32_kernel_ms=device_ms(lambda: mba.matmul_bias_act(a32, w32, b32, "relu"),
+                                              key=KERNELS["matmul_bias_act"][2]),
+                      library_ms=event_ms(lambda: torch.relu(torch.addmm(b, a, w.t()))),
+                      bound_ms=max(t_ops, t_bytes),
+                      bound_by="operations" if t_ops > t_bytes else "bytes",
+                      schedule=mba._schedule(M, N, K))
+        if not prefix:
+            fields["plain_ms"] = device_ms(lambda: mba.matmul_bias_act_plain(a, w, b, "relu"))
+            entries["matmul_bias_act_bf16"] = entry(
+                "matmul_bias_act_bf16", library="torch.addmm + relu in bf16",
+                shape="a (%d,%d) w (%d,%d) relu, bf16" % (M, K, N, K), **fields)
+        else:
+            entries["matmul_bias_act_bf16"].update({prefix + k: v for k, v in fields.items()})
+        log({"phase": "kernel", "name": "matmul_bias_act_bf16", "shape": [M, K, N],
+             "far": far, "max_abs_err": err, **fields})
 
 
 def check_conv_f64(randn, cb):
@@ -9086,6 +9307,232 @@ def run_layouts(pt, smi):
     return launches
 
 
+# Phase 23 (train_bf16): ResNet-50 at batch 32 trained in bf16 through
+# SPMDTrainer(compute_dtype='bfloat16'), one CUDA graph a step, from phase
+# 6's weights on one fixed batch (module_data), SGD-momentum with
+# RESNET_TRAIN's lr, momentum and wd, rescale_grad = 1/batch; beside the same
+# trainer in float32 on the same batch: host ms a step in turns, card ms by
+# CUDA events over queued replays, the profiler's idle share, and each
+# trainer's peak memory above what was allocated before it was made (its
+# state, its captured graph's pool, a step's working set). Then the batch-2 first step card vs CPU in bf16 (the
+# loss, every gradient, the aux), the MNIST mlp's bf16 convergence task of
+# tests/test_parallel.py (test_bf16_training_converges) on the card, and
+# the bf16 training verdict of one site measured under a tune directory.
+# The card-vs-CPU bounds: the randomly initialised ResNet-50 at batch 2 is
+# chaotic. bf16 values an ulp apart where the f32 sums run in other orders
+# carry on through 49 sites and 53 BatchNorms, and on the CPU alone moving
+# 1 % of the input's elements by one bf16 ulp moves the gradients by about
+# their own size (the ``cpu_perturbed`` row this phase logs). So the card's
+# step is held to the CPU's own spread, measured in the same run on that
+# perturbed input: the loss within 1e-2 of the
+# CPU's, and the gradients' relative L2 distances from the CPU's (‖g_card −
+# g_cpu‖ / ‖g_cpu‖), their median and their worst, and the aux's largest
+# relative difference, each within ``noise_factor`` times the perturbed CPU
+# step's.
+TRAIN_BF16 = dict(loss_steps=8, timed_steps=8, check_batch=2, loss_tol=1e-2,
+                  perturb_share=0.01, noise_factor=2.0, mlp_batch=64, mlp_steps=30,
+                  mlp_acc=0.9)
+
+
+def bf16_trainer(pt, net, ctx, B, args, aux, compute_dtype):
+    """An SPMDTrainer of ResNet-50 on ``ctx`` from ``args``/``aux`` (SGD
+    with RESNET_TRAIN's momentum and wd, rescale_grad = 1/B)."""
+    mesh = pt.parallel.make_mesh((1,), ("data",), [ctx])
+    tr = pt.parallel.SPMDTrainer(net, mesh, optimizer="sgd", optimizer_params={
+        "learning_rate": RESNET_TRAIN["lr"], "momentum": RESNET_TRAIN["momentum"],
+        "wd": RESNET_TRAIN["wd"], "rescale_grad": 1.0 / B}, compute_dtype=compute_dtype)
+    tr.set_params(args, aux)
+    return tr
+
+
+def bf16_loss(prob, labels):
+    """The cross-entropy of a step's probabilities against the labels the
+    step trained on: the labels cast to bfloat16 with the other inputs (as
+    the JAX package's step casts them; 1000-way labels above 256 round to
+    even ones, and 998 and 999 round to 1000, a row whose one-hot is empty
+    and which is left out)."""
+    lab = labels.to(torch.bfloat16).long()
+    keep = lab < prob.shape[1]
+    p = prob.float()[keep].gather(1, lab[keep].reshape(-1, 1))
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
+def run_train_bf16(pt, smi):
+    """Phase 23: ResNet-50 trained in bf16 by the fused step (TRAIN_BF16).
+    Returns its launches by kernel."""
+    from mxnet_tpu_torch import fusion, fusion_tune, models, ops
+    from mxnet_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    B = RESNET_TRAIN["batch"]
+    images, labels = module_data(B)
+    dev = torch.device("cuda", 0)
+    x, y = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    out = {"phase": "train_bf16", "nvidia_smi": smi, "model": RESNET, "batch": B,
+           "cfg": TRAIN_BF16}
+    launches = {}
+
+    def peak_mib(base):
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    # --- 1. the bf16 step: its launches, the loss falling
+    peak = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr16 = bf16_trainer(pt, net, pt.gpu(0), B, args, aux, "bfloat16")
+    ops.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_BF16["loss_steps"]):
+        losses.append(bf16_loss(tr16.step({"data": x}, {"softmax_label": y})[0], y))
+    peak["bf16"] = peak_mib(base)
+    counted = ops.launch_counts()
+    n = TRAIN_BF16["loss_steps"]
+    [graph] = list(tr16._graphs.values())
+    per_replay = {k: v for k, v in graph.replay_launches[0].items() if v}
+    check(per_replay == {"conv_bn_bf16": RESNET_SITES, "conv_bn_bwd_bf16": RESNET_SITES},
+          ("a captured bf16 ResNet step's launches", per_replay))
+    check(counted == with_zeros({"conv_bn_bf16": RESNET_SITES * n,
+                                 "conv_bn_bwd_bf16": RESNET_SITES * n}),
+          ("bf16 steps' launch counts", counted))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          ("the bf16 step's loss did not fall", losses))
+    params, new_aux = tr16.get_params()
+    check(all(v.dtype == np.float32 for v in list(params.values()) + list(new_aux.values())),
+          "bf16 step: master weights and aux stay float32")
+    launches["resnet"] = {k: v for k, v in counted.items() if v}
+    out.update(losses=losses, captured_launches_per_step=per_replay,
+               steps_launches=launches["resnet"])
+
+    # --- 2. against the float32 fused step on the same batch, in turns
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr32 = bf16_trainer(pt, net, pt.gpu(0), B, args, aux, None)
+    for _ in range(2):  # the float32 trainer's eager step and its capture
+        tr32.step({"data": x}, {"softmax_label": y})
+    peak["f32"] = peak_mib(base)
+    steps = {"bf16": lambda: tr16.step({"data": x}, {"softmax_label": y}),
+             "f32": lambda: tr32.step({"data": x}, {"softmax_label": y})}
+    host = timed_turns(steps, TRAIN_BF16["timed_steps"])
+    card, windows = {}, {}
+    for kind, fn in steps.items():
+        card[kind] = event_ms(fn, 10)
+        for _ in range(4):
+            w = profile_window(fn)
+            if w["device_busy_ms"] > 0:
+                break
+            time.sleep(PROFILER_GAP_S)
+        windows[kind] = {k: w[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                           "port_kernels_ms", "port_kernel_ms",
+                                           "device_events_per_call", "top_device_ms")}
+    check(windows["bf16"]["port_kernel_ms"].get("conv_bn_bf16", 0) > 0
+          and not windows["bf16"]["port_kernel_ms"].get("conv_bn"),
+          ("the bf16 step's kernels in the profiler", windows["bf16"]["port_kernel_ms"]))
+    out.update(step_ms=host, card_event_ms=card, windows=windows, peak_mib=peak,
+               card_ratio_bf16_over_f32=card["bf16"] / card["f32"])
+    del tr32, steps
+
+    # --- 3. the batch-2 first step, card vs CPU, in bf16, against the CPU's
+    # own spread on an input 1 % of whose elements moved by one bf16 ulp
+    Bc = TRAIN_BF16["check_batch"]
+    img = images[:Bc].copy()
+    flat = torch.from_numpy(img).to(torch.bfloat16).reshape(-1)
+    moved = flat.clone()
+    idx = torch.from_numpy(np.random.RandomState(SEED + 70).choice(
+        flat.numel(), int(flat.numel() * TRAIN_BF16["perturb_share"]), replace=False))
+    moved[idx] = (flat[idx].view(torch.int16) + 1).view(torch.bfloat16)
+    perturbed = moved.float().reshape(img.shape).numpy()
+
+    def first_step(ctx, data=img):
+        tr = bf16_trainer(pt, net, ctx, Bc, args, aux, "bfloat16")
+        placed = tr._place_batch({"data": data}, {"softmax_label": labels[:Bc]})
+        tr._build()
+        outs, _ = tr._one_step(placed, tr._lr_tensor(RESNET_TRAIN["lr"]))
+        loss = bf16_loss(outs[0], placed["softmax_label"])
+        grads = {k: g.double().cpu().numpy() for k, g in tr._state.flats["grads_by_name"].items()}
+        return loss, grads, {k: a.double().cpu().numpy() for k, a in tr.aux.items()}
+
+    ops.reset_launch_counts()
+    got = first_step(pt.gpu(0))
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == with_zeros({"conv_bn_bf16": RESNET_SITES,
+                                             "conv_bn_bwd_bf16": RESNET_SITES}),
+          ("the batch-2 bf16 step's launches", ops.launch_counts()))
+    want = first_step(pt.cpu())
+    noise = first_step(pt.cpu(), perturbed)
+
+    def spread(a):
+        """a step's distances from the CPU's: (loss, gradients' relative L2
+        by array, the aux's largest relative difference)."""
+        l2 = {k: float(np.linalg.norm(a[1][k] - want[1][k]) / (np.linalg.norm(want[1][k])
+                                                                 or 1.0)) for k in want[1]}
+        return abs(a[0] - want[0]), l2, max(rel_diff(a[2][k], want[2][k]) for k in want[2])
+
+    rows = {}
+    for name, a in (("card", got), ("cpu_perturbed", noise)):
+        dl, l2, aux_rel = spread(a)
+        worst_k = max(l2, key=l2.get)
+        rows[name] = {"loss": a[0], "loss_diff": dl, "grad_l2_median":
+                      float(np.median(list(l2.values()))), "grad_l2_worst": l2[worst_k],
+                      "grad_l2_worst_array": worst_k, "fc_weight_l2": l2.get("fc1_weight"),
+                      "aux_rel_worst": aux_rel}
+    card, floor = rows["card"], rows["cpu_perturbed"]
+    out.update(card_vs_cpu={"batch": Bc, "loss_cpu": want[0], "grads": len(want[1]), **rows})
+    f = TRAIN_BF16["noise_factor"]
+    check(card["loss_diff"] <= TRAIN_BF16["loss_tol"] * max(1.0, abs(want[0])),
+          ("bf16 batch-2 loss card vs CPU", card["loss"], want[0]))
+    check(all(card[k] <= f * floor[k] for k in ("grad_l2_median", "grad_l2_worst",
+                                                "aux_rel_worst")),
+          ("bf16 batch-2 step card vs CPU beyond the CPU's own spread", rows))
+    del tr16
+
+    # --- 4. the MNIST mlp's bf16 convergence task (tests/test_parallel.py)
+    mb = TRAIN_BF16["mlp_batch"]
+    mesh = pt.parallel.make_mesh((1,), ("data",), [pt.gpu(0)])
+    mtr = pt.parallel.SPMDTrainer(models.get_symbol("mlp", num_classes=2), mesh,
+                                  optimizer="adam", optimizer_params={"learning_rate": 1e-3},
+                                  compute_dtype="bfloat16")
+    mtr.init_params({"data": (mb, 784)}, {"softmax_label": (mb,)}, seed=1)
+    rs = np.random.RandomState(0)
+    wv = rs.randn(784).astype("float32")
+    xm = rs.randn(8 * mb, 784).astype("float32")
+    ym = (xm @ wv > 0).astype("float32")
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_BF16["mlp_steps"]):
+        k = rs.randint(0, 8) * mb
+        mtr.step({"data": xm[k:k + mb]}, {"softmax_label": ym[k:k + mb]})
+    prob = mtr.step({"data": xm[:mb]}, {"softmax_label": ym[:mb]})[0]
+    torch.cuda.synchronize()
+    acc = float((prob.float().argmax(1).cpu().numpy() == ym[:mb]).mean())
+    mlp_launches = ops.launch_counts()
+    steps_run = TRAIN_BF16["mlp_steps"] + 1
+    check(mlp_launches == with_zeros({"matmul_bias_act_bf16": 2 * steps_run}),
+          ("the bf16 mlp's launches", mlp_launches))
+    check(acc > TRAIN_BF16["mlp_acc"], ("bf16 mlp under-converged", acc))
+    launches["mlp"] = {k: v for k, v in mlp_launches.items() if v}
+    out.update(mlp={"steps": steps_run, "accuracy": acc, "launches": launches["mlp"]})
+
+    # --- 5. one site's bf16 training verdict under a tune directory
+    with tempfile.TemporaryDirectory() as tune_dir, env_vars(
+            MXNET_FUSION_TUNE_DIR=tune_dir, MXNET_FUSION_TUNE_ITERS=str(BIND["tune_iters"])):
+        fusion_tune.reset()
+        rec = fusion._conv_bn_measure((3, 3), (1, 1), (B, 64, 56, 56), (64, 64, 3, 3),
+                                      torch.bfloat16, False)
+        fusion_tune.reset()
+    out["tuned_site"] = {k: rec.get(k) for k in ("engage", "lowering", "engage_fwd",
+                                                 "lowering_fwd", "base_fwd_us", "base_bwd_us",
+                                                 "fused_fwd_us", "fused_bwd_us", "measured")}
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -9145,6 +9592,7 @@ def main():
     bind_launches = timed_phase(run_bind, pt, smi)
     analysis_launches = timed_phase(run_analysis, pt, smi)
     layouts_launches = timed_phase(run_layouts, pt, smi)
+    train_bf16_launches = timed_phase(run_train_bf16, pt, smi)
     for name_, e in entries.items():
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
@@ -9153,6 +9601,12 @@ def main():
             e.update(module_launches=module_launches[name_])
             if name_ == "conv_bn":
                 e.update(module_infer_launches=module_launches["conv_bn_infer"])
+        if name_ in ("conv_bn_bf16", "conv_bn_bwd_bf16", "matmul_bias_act_bf16"):
+            # launches: phase 23's bf16 ResNet-50 steps (rows 8, 9) and its
+            # bf16 mlp (row 6)
+            e.update(launches=train_bf16_launches["mlp" if name_.startswith("matmul")
+                                                  else "resnet"][name_])
+            continue
         if name_ in ("matmul_stats", "rtc"):
             e.update(launches=deploy_launches[name_])  # the deploy phase's main path
         elif name_ == "conv_bn_infer_bf16":

@@ -1,6 +1,8 @@
 // bf16 products on the tensor cores, for the bf16 variant of the conv +
 // BatchNorm inference forward (conv_bn.cu's mxt_conv_bn_infer_bf16, through
-// conv_bn.cuh's tc_mainloop).
+// conv_bn.cuh's tc_mainloop), and the loads and stores of bf16 storage for
+// the bf16 training forms (conv_bn.cu's mxt_conv_bn_fwd_bf16, conv_bn_bwd.cu's
+// mxt_conv_bn_bwd_bf16, matmul_bias_act.cu's mxt_matmul_bias_act_fwd_bf16).
 //
 // What it computes is the TPU kernel's arithmetic on bf16 operands
 // (mxnet_tpu/ops/pallas_conv_bn.py _kernel :240-290, called by
@@ -26,6 +28,59 @@
 #include <cuda_bf16.h>
 
 namespace mxt {
+
+// ---- storage: the kernels' operands are float or __nv_bfloat16 (T). A load
+// widens to f32, which is exact for a bf16 value; a store to bf16 rounds to
+// the nearest (ties to even), as torch's and XLA's casts do. The bf16 loads
+// take 2, 4 or 8 bytes: the caller keeps 2, 4 or 8 bf16 values aligned.
+__device__ __forceinline__ float bits_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bits_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
+  return bits_lo(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg2(const __nv_bfloat16* p) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(bits_lo(u), bits_hi(u));
+}
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(bits_lo(u.x), bits_hi(u.x), bits_lo(u.y), bits_hi(u.y));
+}
+
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <typename T>
+struct IsBf16 {
+  static constexpr bool value = false;
+};
+template <>
+struct IsBf16<__nv_bfloat16> {
+  static constexpr bool value = true;
+};
+
 namespace bf16 {
 
 // x rounded to the nearest bf16 (ties to even), as f32: the rounding of

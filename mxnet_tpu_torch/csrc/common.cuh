@@ -25,9 +25,11 @@ constexpr int kSumThreads = 256;
 // out[col] = Σ_{p < P} part[p · C + col] in a fixed order: lane l of a column
 // adds rows l, l + L, l + 2L, ..., then lane 0 adds the L lane sums in order.
 // No atomics, so two runs give the same bits. Block (256 / L, L), from
-// sum_rows_shape; each kernel that finishes its partial rows calls it.
+// sum_rows_shape; each kernel that finishes its partial rows calls it. OutT
+// float, or __nv_bfloat16 (the f32 sum rounded to the nearest).
+template <typename OutT>
 __device__ __forceinline__ void sum_rows(const float* __restrict__ part,
-                                         float* __restrict__ out, int P, int C) {
+                                         OutT* __restrict__ out, int P, int C) {
   __shared__ float red[kSumThreads];
   const int cols = blockDim.x, L = blockDim.y;
   const int col = blockIdx.x * cols + threadIdx.x;
@@ -39,7 +41,7 @@ __device__ __forceinline__ void sum_rows(const float* __restrict__ part,
   if (threadIdx.y == 0 && col < C) {
     float t = 0.f;
     for (int l = 0; l < L; ++l) t += red[l * cols + threadIdx.x];
-    out[col] = t;
+    out[col] = OutT(t);
   }
 }
 

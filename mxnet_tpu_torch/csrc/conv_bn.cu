@@ -67,22 +67,37 @@
 // ResNet-50's 3x3 sites by operations, 2·B·H'W'·N·K·9 FLOP at 989 TFLOP/s,
 // a third of the TF32 path's work at twice its rate; at the 1x1 sites by
 // bytes, which are the f32 kernel's (it reads f32 x and writes f32 c).
+//
+// The bf16 training forward (mxt_conv_bn_fwd_bf16: the TPU kernel with its
+// statistics on the bf16 operands of SPMDTrainer(compute_dtype='bfloat16'),
+// pallas_conv_bn.py:240-291) is the same kernel on bf16 storage: x, w,
+// scale, shift and res are read as bf16 and c is written as bf16, 2 bytes an
+// element. The rounding points are the TPU kernel's: the prologue in bf16
+// with two roundings, the products on the bf16 tensor cores into f32, the
+// residual added in f32, and the statistics taken from the f32 c before it
+// is rounded to bf16 (:284-291). The ring holds f32 as in the other forms
+// (conv_bn.cuh: the chunk's bf16 elements are loaded into registers and
+// stored widened), so every shared-memory read is the inference form's.
+// Bound on an H100 (989 TFLOP/s, 2 bytes an element) by bytes and
+// operations about equally at ResNet-50's stage-1 3x3, by operations at its
+// stage-3 3x3, by bytes at its 1x1 sites (PERF.md §6).
 #include "conv_bn.cuh"
 
 namespace {
 
+using namespace mxt;  // the storage loads and stores, bf16::
 using namespace mxt::convbn;
 
-// The kernels' body; BF16 is the bf16 inference variant (no statistics, no
-// residual).
-template <int TAPS, bool VEC, bool PRO, bool STATS, bool BF16>
-__device__ __forceinline__ void conv_bn_fwd_tc(const float* __restrict__ x,
-                                               const float* __restrict__ w,
-                                               const float* __restrict__ scale,
-                                               const float* __restrict__ shift,
-                                               const float* __restrict__ res,
-                                               float* __restrict__ c, float* __restrict__ part,
-                                               const Geo& geo, bool relu) {
+// The kernels' body; BF16 computes in bf16: on f32 storage (T = float) the
+// bf16 inference variant (no statistics, no residual), on bf16 storage the
+// bf16 training forward.
+template <int TAPS, bool VEC, bool PRO, bool STATS, bool BF16, typename T = float>
+__device__ __forceinline__ void conv_bn_fwd_tc(const T* __restrict__ x, const T* __restrict__ w,
+                                               const T* __restrict__ scale,
+                                               const T* __restrict__ shift,
+                                               const T* __restrict__ res, T* __restrict__ c,
+                                               float* __restrict__ part, const Geo& geo,
+                                               bool relu) {
   using C = Cfg<TAPS>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -93,10 +108,10 @@ __device__ __forceinline__ void conv_bn_fwd_tc(const float* __restrict__ x,
   const int cblocks = ceil_div(geo.N, C::BM);
   const int pt = blockIdx.x / cblocks, n0 = (blockIdx.x - pt * cblocks) * C::BM;
   const int N = geo.N, HWo = geo.Ho * geo.Wo;
-  const TcArgs args{w, x, scale, shift, N, geo.K, geo.K, geo.B,
-                    geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu};
+  const TcArgs<T> args{w, x, scale, shift, N, geo.K, geo.K, geo.B,
+                       geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu};
   float acc[C::MT][C::NT][4] = {};
-  tc_mainloop<TAPS, VEC, PRO, BF16>(args, pt, n0, smem, acc);
+  tc_mainloop<TAPS, VEC, PRO, BF16, T>(args, pt, n0, smem, acc);
 
   // ---- epilogue: the thread's columns 2t, 2t + 1 of each n8 tile, each
   // with its own output offset at channel 0 (a 1x1 tile may start the next
@@ -127,21 +142,24 @@ __device__ __forceinline__ void conv_bn_fwd_tc(const float* __restrict__ x,
 #pragma unroll
       for (int ni = 0; ni < C::NT; ++ni) {
         float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
-        if (BF16) v[0] = mxt::bf16::round_bf16(v[0]), v[1] = mxt::bf16::round_bf16(v[1]);
+        // the inference variant writes the f32 of the bf16 c; bf16 storage
+        // rounds as it stores, after the statistics took the f32 c
+        if (BF16 && !IsBf16<T>::value)
+          v[0] = mxt::bf16::round_bf16(v[0]), v[1] = mxt::bf16::round_bf16(v[1]);
         if (pairs && in[ni][1]) {
           const size_t o = ob[ni][0] + nof;
           if (res != nullptr) {
-            const float2 r = __ldg(reinterpret_cast<const float2*>(res + o));
+            const float2 r = ldg2(res + o);
             v[0] += r.x, v[1] += r.y;
           }
-          *reinterpret_cast<float2*>(c + o) = make_float2(v[0], v[1]);
+          st2(c + o, v[0], v[1]);
         } else {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             if (!in[ni][j]) continue;
             const size_t o = ob[ni][j] + nof;
-            if (res != nullptr) v[j] += __ldg(res + o);
-            c[o] = v[j];
+            if (res != nullptr) v[j] += ldg1(res + o);
+            st1(c + o, v[j]);
           }
         }
         if (STATS) {
@@ -180,13 +198,33 @@ __global__ void __launch_bounds__(kThreads, 2)
 conv_bn_infer_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
                           const float* __restrict__ scale, const float* __restrict__ shift,
                           float* __restrict__ c, Geo geo, bool relu) {
-  conv_bn_fwd_tc<TAPS, VEC, PRO, false, true>(x, w, scale, shift, nullptr, c, nullptr, geo,
-                                              relu);
+  conv_bn_fwd_tc<TAPS, VEC, PRO, false, true, float>(x, w, scale, shift, nullptr, c, nullptr,
+                                                     geo, relu);
+}
+
+// The bf16 training forward, under a name of its own in a profile: bf16
+// storage, the statistics from the f32 c.
+template <int TAPS, bool VEC, bool PRO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_train_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w,
+                          const __nv_bfloat16* __restrict__ scale,
+                          const __nv_bfloat16* __restrict__ shift,
+                          const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ c,
+                          float* __restrict__ part, Geo geo, bool relu) {
+  conv_bn_fwd_tc<TAPS, VEC, PRO, true, true, __nv_bfloat16>(x, w, scale, shift, res, c, part,
+                                                            geo, relu);
 }
 
 // The statistics' second pass: (ssum, ssq) = Σ over the partial rows.
 __global__ void conv_bn_fwd_stats_sum(const float* __restrict__ part, float* __restrict__ out,
                                       int P, int C) {
+  mxt::sum_rows(part, out, P, C);
+}
+
+// The same pass of the bf16 training forward, named after it.
+__global__ void conv_bn_train_bf16_stats_sum(const float* __restrict__ part,
+                                             float* __restrict__ out, int P, int C) {
   mxt::sum_rows(part, out, P, C);
 }
 
@@ -231,6 +269,31 @@ cudaError_t launch_bf16(dim3 grid, cudaStream_t st, const float* x, const float*
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, c, g, relu);
   return cudaGetLastError();
+}
+
+template <int TAPS, bool VEC, bool PRO>
+cudaError_t launch_train_bf16(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
+                              const __nv_bfloat16* w, const __nv_bfloat16* scale,
+                              const __nv_bfloat16* shift, const __nv_bfloat16* res,
+                              __nv_bfloat16* c, float* part, const Geo& g, bool relu) {
+  auto kernel = conv_bn_train_bf16_kernel<TAPS, VEC, PRO>;
+  constexpr int smem = Cfg<TAPS>::SMEM;
+  static bool raised = false;
+  cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, res, c, part, g, relu);
+  return cudaGetLastError();
+}
+
+template <int TAPS, bool VEC>
+cudaError_t launch_train_bf16_pro(bool pro, dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
+                                  const __nv_bfloat16* w, const __nv_bfloat16* scale,
+                                  const __nv_bfloat16* shift, const __nv_bfloat16* res,
+                                  __nv_bfloat16* c, float* part, const Geo& g, bool relu) {
+  return pro ? launch_train_bf16<TAPS, VEC, true>(grid, st, x, w, scale, shift, res, c, part, g,
+                                                  relu)
+             : launch_train_bf16<TAPS, VEC, false>(grid, st, x, w, scale, shift, res, c, part, g,
+                                                   relu);
 }
 
 template <int TAPS, bool VEC>
@@ -307,4 +370,43 @@ extern "C" int mxt_conv_bn_infer_bf16(const float* x, const float* w, const floa
     err = launch_bf16_pro<9, false>(pro, grid, st, x, w, scale, shift, c, g, relu);
   }
   return static_cast<int>(err);
+}
+
+// The bf16 training forward with its statistics: x, w, scale, shift, res and
+// c are bf16 (2 bytes an element); part (parts, 2, N) and sums (2, N) f32.
+// The geometry rules are mxt_conv_bn_fwd's; x, w, c, res must be 8-byte and
+// scale, shift 4-byte aligned, as every tensor PyTorch's allocator makes is.
+extern "C" int mxt_conv_bn_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                    const __nv_bfloat16* scale, const __nv_bfloat16* shift,
+                                    const __nv_bfloat16* res, __nv_bfloat16* c, float* part,
+                                    float* sums, int B, int K, int H, int W, int N, int taps,
+                                    int stride, int relu, int parts, void* stream) {
+  if (!valid_call(B, K, H, W, N, taps, stride) || (scale == nullptr) != (shift == nullptr) ||
+      part == nullptr || sums == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(x, 8) || misaligned(w, 8) || misaligned(c, 8) ||
+      (res != nullptr && misaligned(res, 8)) ||
+      (scale != nullptr && (misaligned(scale, 4) || misaligned(shift, 4))))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Geo g = make_geo(B, K, H, W, N, taps, stride);
+  const bool pro = scale != nullptr;
+  if (parts != tc_parts(g, taps)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(parts * ceil_div(N, kTileM));
+  cudaError_t err;
+  if (taps == 1) {
+    err = stride == 1 && (H * W) % 4 == 0
+              ? launch_train_bf16_pro<1, true>(pro, grid, st, x, w, scale, shift, res, c, part,
+                                               g, relu)
+              : launch_train_bf16_pro<1, false>(pro, grid, st, x, w, scale, shift, res, c, part,
+                                                g, relu);
+  } else {
+    err = launch_train_bf16_pro<9, false>(pro, grid, st, x, w, scale, shift, res, c, part, g,
+                                          relu);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 sgrid, sblock;
+  mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
+  conv_bn_train_bf16_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
+  return static_cast<int>(cudaGetLastError());
 }

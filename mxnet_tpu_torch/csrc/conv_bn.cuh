@@ -19,6 +19,12 @@
 // channels (1x1) or 8 channels x 9 taps (3x3). With BF16 (the forward's
 // inference variant, bf16_mma.cuh) the same tiles, ring and shared-memory
 // reads feed one bf16 m16n8k8 product a step instead of three TF32 ones.
+// With bf16 storage (T = __nv_bfloat16: the training forms' forward and
+// dgrad) the ring holds the same f32 values: each thread loads its chunk's
+// bf16 elements into registers, all of them first, and stores them widened
+// to f32 into the stage (cp.async copies whole 4-byte words, and the 3x3
+// halo and the strided 1x1 positions are single 2-byte elements), so every
+// shared-memory read and the bf16 fragments stay those of the f32 staging.
 #pragma once
 
 #include "bf16_mma.cuh"
@@ -127,15 +133,17 @@ __device__ __forceinline__ bool tile_col(const Geo& geo, int pt, int col, int* b
   return *oy < geo.Ho && *ox < geo.Wo;
 }
 
-// The operands of one implicit GEMM. X has C channels on the grid (H, W)
-// that the output grid (Ho, Wo) samples with stride; A has M rows of
-// a_row = KC·TAPS columns, where KC ≥ C is a multiple of 8 (columns of the
-// channels c ≥ C are zero in A and never read from X: they are zero-filled).
+// The operands of one implicit GEMM, stored as T (float or __nv_bfloat16).
+// X has C channels on the grid (H, W) that the output grid (Ho, Wo) samples
+// with stride; A has M rows of a_row = KC·TAPS columns, where KC ≥ C is a
+// multiple of 8 (columns of the channels c ≥ C are zero in A and never read
+// from X: they are zero-filled).
+template <typename T = float>
 struct TcArgs {
-  const float* a;
-  const float* x;
-  const float* scale;  // the prologue on X (PRO), else unused
-  const float* shift;
+  const T* a;
+  const T* x;
+  const T* scale;  // the prologue on X (PRO), else unused
+  const T* shift;
   int M, KC, C;
   int B, H, W, Ho, Wo, stride;
   bool relu;
@@ -146,8 +154,8 @@ struct TcArgs {
 // (A and X as JAX casts them; X through the bf16 prologue where there is
 // one), one m16n8k8 a step, into a fresh accumulator added to acc once.
 // as: A's stage at this warp's row g; bs: X's stage.
-template <int TAPS, bool PRO>
-__device__ __forceinline__ void bf16_stage(const TcArgs& g, const float* as, const float* bs,
+template <int TAPS, bool PRO, typename T>
+__device__ __forceinline__ void bf16_stage(const TcArgs<T>& g, const float* as, const float* bs,
                                            int k0, int t, int wn, int gq,
                                            float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
   using C = Cfg<TAPS>;
@@ -166,8 +174,8 @@ __device__ __forceinline__ void bf16_stage(const TcArgs& g, const float* as, con
       // A's from one 8-byte load, X's from two rows
       float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
       if (PRO) {
-        sc = __ldg(reinterpret_cast<const float2*>(g.scale + k0 + kk + 2 * t));
-        sh = __ldg(reinterpret_cast<const float2*>(g.shift + k0 + kk + 2 * t));
+        sc = ldg2(g.scale + k0 + kk + 2 * t);
+        sh = ldg2(g.shift + k0 + kk + 2 * t);
         sc = make_float2(bf16::round_bf16(sc.x), bf16::round_bf16(sc.y));
         sh = make_float2(bf16::round_bf16(sh.x), bf16::round_bf16(sh.y));
       }
@@ -229,10 +237,13 @@ __device__ __forceinline__ void bf16_stage(const TcArgs& g, const float* as, con
 // built, the prologue is bf16_mma.cuh's, and each stage's products go into a
 // fresh f32 accumulator that is added to acc with one rounding to nearest
 // (the tensor cores truncate as they accumulate, tf32x3.cuh's mma3).
-template <int TAPS, bool VEC, bool PRO, bool BF16 = false>
-__device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, float* smem,
+// T = __nv_bfloat16 (bf16 storage) takes BF16.
+template <int TAPS, bool VEC, bool PRO, bool BF16 = false, typename T = float>
+__device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, float* smem,
                                             float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
   using C = Cfg<TAPS>;
+  constexpr bool kB16 = IsBf16<T>::value;
+  static_assert(BF16 || !kB16, "bf16 storage computes in bf16");
   constexpr int BM = C::BM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, t = lane & 3;
@@ -284,32 +295,78 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, flo
   }
 
   // ---- one contraction chunk (channels k0 .. k0 + BK - 1) into stage s
+  constexpr int kRowChunks = C::KW / 4;  // 4-element copies along an A row
+  constexpr int kAChunks = (BM * kRowChunks + kThreads - 1) / kThreads;
   auto load = [&](int s, int k0) {
     float* as = smem + s * C::STAGE;
     float* bs = as + BM * C::AS;
-    constexpr int kRowChunks = C::KW / 4;
-    for (int ch = tid; ch < BM * kRowChunks; ch += kThreads) {
-      const int r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
-      const bool p = m0 + r < g.M && (TAPS != 1 || k0 + col < g.KC);
-      cp_async16(as + r * C::AS + col,
-                 p ? g.a + static_cast<size_t>(m0 + r) * a_row + k0 * TAPS + col : g.a, p);
-    }
-    if (TAPS == 1) {
+    if constexpr (kB16) {
+      // bf16 storage: every load of the chunk first, then the widened stores
+      float4 av[kAChunks];
 #pragma unroll
-      for (int i = 0; i < k1x1; ++i) {
-        const int kl = kl0 + i * kStepK;
-        const bool p = valid && k0 + kl < g.C;
-        const float* from = p ? g.x + off + static_cast<size_t>(k0 + kl) * HW : g.x;
-        if (VEC) cp_async16(bs + kl * C::BS + pos, from, p);
-        else cp_async4(bs + kl * C::BS + pos, from, p);
+      for (int i = 0; i < kAChunks; ++i) {
+        const int ch = tid + i * kThreads, r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
+        const bool p = ch < BM * kRowChunks && m0 + r < g.M && (TAPS != 1 || k0 + col < g.KC);
+        av[i] = p ? ldg4(g.a + static_cast<size_t>(m0 + r) * a_row + k0 * TAPS + col)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (TAPS == 1) {
+        float4 xv[k1x1];  // VEC: 4 positions; else one, in .x
+#pragma unroll
+        for (int i = 0; i < k1x1; ++i) {
+          const int kl = kl0 + i * kStepK;
+          const bool p = valid && k0 + kl < g.C;
+          const T* from = g.x + off + static_cast<size_t>(k0 + kl) * HW;
+          xv[i] = !p ? make_float4(0.f, 0.f, 0.f, 0.f)
+                     : (VEC ? ldg4(from) : make_float4(ldg1(from), 0.f, 0.f, 0.f));
+        }
+#pragma unroll
+        for (int i = 0; i < k1x1; ++i) {
+          float* to = bs + (kl0 + i * kStepK) * C::BS + pos;
+          if (VEC) *reinterpret_cast<float4*>(to) = xv[i];
+          else *to = xv[i].x;
+        }
+      } else {
+        const size_t koff = static_cast<size_t>(k0) * HW;
+        float xv[k3x3];
+#pragma unroll
+        for (int i = 0; i < k3x3; ++i) {
+          const bool p = dst[i] >= 0 && ok[i] && k0 + kls[i] < g.C;
+          xv[i] = p ? ldg1(g.x + src[i] + koff) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < k3x3; ++i)
+          if (dst[i] >= 0) bs[dst[i]] = xv[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kAChunks; ++i) {
+        const int ch = tid + i * kThreads, r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
+        if (ch < BM * kRowChunks) *reinterpret_cast<float4*>(as + r * C::AS + col) = av[i];
       }
     } else {
-      const size_t koff = static_cast<size_t>(k0) * HW;
+      for (int ch = tid; ch < BM * kRowChunks; ch += kThreads) {
+        const int r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
+        const bool p = m0 + r < g.M && (TAPS != 1 || k0 + col < g.KC);
+        cp_async16(as + r * C::AS + col,
+                   p ? g.a + static_cast<size_t>(m0 + r) * a_row + k0 * TAPS + col : g.a, p);
+      }
+      if (TAPS == 1) {
 #pragma unroll
-      for (int i = 0; i < k3x3; ++i) {
-        if (dst[i] < 0) continue;
-        const bool p = ok[i] && k0 + kls[i] < g.C;
-        cp_async4(bs + dst[i], p ? g.x + src[i] + koff : g.x, p);
+        for (int i = 0; i < k1x1; ++i) {
+          const int kl = kl0 + i * kStepK;
+          const bool p = valid && k0 + kl < g.C;
+          const T* from = p ? g.x + off + static_cast<size_t>(k0 + kl) * HW : g.x;
+          if (VEC) cp_async16(bs + kl * C::BS + pos, from, p);
+          else cp_async4(bs + kl * C::BS + pos, from, p);
+        }
+      } else {
+        const size_t koff = static_cast<size_t>(k0) * HW;
+#pragma unroll
+        for (int i = 0; i < k3x3; ++i) {
+          if (dst[i] < 0) continue;
+          const bool p = ok[i] && k0 + kls[i] < g.C;
+          cp_async4(bs + dst[i], p ? g.x + src[i] + koff : g.x, p);
+        }
       }
     }
   };
@@ -333,11 +390,11 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, flo
         const int k = k0 + kls[i];
         if (BF16) {
           bs[dst[i]] = ok[i] ? bf16::prologue(bf16::round_bf16(bs[dst[i]]),
-                                              bf16::round_bf16(__ldg(g.scale + k)),
-                                              bf16::round_bf16(__ldg(g.shift + k)), g.relu)
+                                              bf16::round_bf16(ldg1(g.scale + k)),
+                                              bf16::round_bf16(ldg1(g.shift + k)), g.relu)
                              : 0.f;
         } else {
-          bs[dst[i]] = ok[i] ? prologue(bs[dst[i]], __ldg(g.scale + k), __ldg(g.shift + k),
+          bs[dst[i]] = ok[i] ? prologue(bs[dst[i]], ldg1(g.scale + k), ldg1(g.shift + k),
                                         g.relu)
                              : 0.f;
         }
@@ -350,7 +407,7 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, flo
     const float* as = smem + (kt % kStages) * C::STAGE + (wm * C::WM + gq) * C::AS;
     const float* bs = smem + (kt % kStages) * C::STAGE + BM * C::AS;
     if (BF16) {
-      bf16_stage<TAPS, PRO>(g, as, bs, k0, t, wn, gq, acc);
+      bf16_stage<TAPS, PRO, T>(g, as, bs, k0, t, wn, gq, acc);
     } else if (TAPS == 1) {
 #pragma unroll
       for (int kk = 0; kk < C::BK; kk += 8) {
@@ -359,8 +416,8 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, flo
         // (tf32x3.cuh): A's from one 8-byte load, B's from two rows
         float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
         if (PRO) {
-          sc = __ldg(reinterpret_cast<const float2*>(g.scale + k0 + kk + 2 * t));
-          sh = __ldg(reinterpret_cast<const float2*>(g.shift + k0 + kk + 2 * t));
+          sc = ldg2(g.scale + k0 + kk + 2 * t);
+          sh = ldg2(g.shift + k0 + kk + 2 * t);
         }
         uint32_t b_hi[C::NT][2], b_lo[C::NT][2];
 #pragma unroll

@@ -108,17 +108,18 @@ class _GraphProgram:
         """The context output ``i`` lies on: its group's, else ``default``."""
         return self.node_ctxs.get(id(self.outputs[i][0]), default)
 
-    def sites(self, shapes, types, device):
+    def sites(self, shapes, types, device, compute=None):
         """The fusion plan as a bind at these argument and aux ``shapes`` /
         ``types`` (name -> shape / dtype) on ``device`` runs it: every gate
-        decided once (``fusion.resolve_sites``), memoized by signature and
-        by the running step's mesh as the ring reads it
-        (``ops.attention.ring_key``: which attention sites it takes)."""
+        decided once (``fusion.resolve_sites``; ``compute``, the dtype the
+        floating values compute in, there), memoized by signature and by the
+        running step's mesh as the ring reads it (``ops.attention.ring_key``:
+        which attention sites it takes)."""
         if not self.fusion_plan:
             return self.fusion_plan
         device = torch.device(device)
         key = (str(device), tuple(sorted((n, tuple(s)) for n, s in shapes.items())),
-               tuple(sorted((n, _dtype_name(t)) for n, t in types.items())),
+               tuple(sorted((n, _dtype_name(t)) for n, t in types.items())), str(compute),
                _ring_key())
         got = self._resolved.get(key)
         if got is None:
@@ -127,12 +128,13 @@ class _GraphProgram:
             ctx = Context("cpu") if device.type == "cpu" else Context("gpu", device.index or 0)
             with ctx:  # the tune cache's scope is the bind's device
                 got = _fusion.resolve_sites(self.symbol, self.fusion_plan, shapes, types,
-                                            device)
+                                            device, compute)
             self._resolved[key] = got
         return got
 
-    def sites_of(self, arg_vals, aux_vals, device=None):
-        """``sites`` at the shapes and dtypes of these tensors."""
+    def sites_of(self, arg_vals, aux_vals, device=None, compute=None):
+        """``sites`` at the shapes and dtypes of these tensors (``compute``:
+        ``sites``')."""
         if not self.fusion_plan:
             return self.fusion_plan
         named = list(zip(self.arg_names, arg_vals)) + list(zip(self.aux_names, aux_vals))
@@ -142,7 +144,7 @@ class _GraphProgram:
 
         return self.sites({n: tuple(t.shape) for n, t in named},
                           {n: _TORCH_TO_NP[t.dtype] for n, t in named if t.dtype in _TORCH_TO_NP},
-                          device)
+                          device, compute)
 
     def _const(self, node, device):
         """A folded constant on ``device``, uploaded once (at bind)."""

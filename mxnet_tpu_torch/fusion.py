@@ -559,12 +559,13 @@ def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
     backward) against ``ConvBlock`` under each backward policy the port
     has: ``cuda:xla`` (kernel forward, library backward) and
     ``cuda:recompute`` (both kernels). At bfloat16, the dtype of the
-    ``MXNET_SERVE_QUANT=bf16`` inference gate, ``_conv_bn_measure_bf16``."""
+    bf16 training step and of the ``MXNET_SERVE_QUANT=bf16`` inference
+    gate, ``_conv_bn_measure_bf16``."""
     from .context import current_context
     from .fusion_tune import measure_candidates
 
     if _dtype_name(dtype) == "bfloat16":
-        return _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape)
+        return _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape, res)
 
     rs = np.random.RandomState(0)
     dev = current_context().torch_device
@@ -589,13 +590,17 @@ def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
     return measure_candidates(baseline, cands, args, train=True)
 
 
-def _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape):
-    """A bfloat16 site's forward-only measurement, the inference verdict
-    (``engage_fwd``) of ``MXNET_SERVE_QUANT=bf16``: the library's bfloat16
-    conv of the bfloat16 prologue (the declined site's lowering,
-    ``_conv_unfused_bf16``) against the stats-free kernel's bf16 form, on
-    float32 operands made from a seed (the serving path's). The port has no
-    bfloat16 training kernel, so ``engage`` stays False."""
+def _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape, res):
+    """A bfloat16 site's two verdicts in one record. Training (``engage``,
+    ``lowering``: the bf16 training step's gate): fwd+bwd of what a
+    declined site runs in bfloat16 (the library's bfloat16 conv of the
+    folded BatchNorm's output, the residual, the two sums) against
+    ``ConvBlock`` on bfloat16 operands under each backward policy, as
+    ``_conv_bn_measure``. Inference (``engage_fwd``, ``lowering_fwd``:
+    ``MXNET_SERVE_QUANT=bf16``'s gate), forward only: the library's
+    bfloat16 conv of the bfloat16 prologue (``_conv_unfused_bf16``) against
+    the stats-free kernel's bf16 form, on float32 operands (the serving
+    path's). The operands are made from a seed."""
     from .context import current_context
     from .fusion_tune import measure_candidates
 
@@ -605,6 +610,7 @@ def _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape):
     host = [rs.randn(*x_shape), rs.randn(*w_shape) * 0.1, rs.uniform(0.5, 1.5, (K,)),
             rs.uniform(-0.2, 0.2, (K,))]
     args = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in host)
+    pad, bf16 = (w_shape[2] - 1) // 2, torch.bfloat16
 
     def baseline(x, w, scale, shift):
         return _conv_unfused_bf16(x, w, scale, shift, True, stride)
@@ -612,7 +618,32 @@ def _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape):
     def fused(x, w, scale, shift):
         return _cb.conv_block_infer(x, w, scale, shift, stride, True, compute="bfloat16")
 
-    return measure_candidates(baseline, [("cuda:bf16", fused)], args, train=False)
+    infer = measure_candidates(baseline, [("cuda:bf16", fused)], args, train=False)
+
+    train_args = (args[0].to(bf16), args[1].to(bf16)) + args[2:]
+    if res:
+        Ho, Wo = _cb.strided_dims(x_shape[2], x_shape[3], stride)
+        r = rs.randn(x_shape[0], w_shape[0], Ho, Wo) * 0.1
+        train_args += (torch.from_numpy(r.astype(np.float32)).to(dev).to(bf16),)
+
+    def train_baseline(x, w, scale, shift, r=None):
+        c = F.conv2d(torch.relu(_Normalize.apply(x, scale, shift)), w, stride=stride,
+                     padding=pad)
+        if r is not None:
+            c = c + r
+        c32 = c.float()
+        return c, c32.sum(dim=(0, 2, 3)), (c32 * c32).sum(dim=(0, 2, 3))
+
+    def fused_train(x, w, scale, shift, r=None, bwd="recompute"):
+        return _cb.ConvBlock.apply(x, w, scale, shift, r, stride, True, bwd)
+
+    cands = [("cuda:" + policy, lambda *a, _p=policy: fused_train(*a, bwd=_p))
+             for policy in ("xla", "recompute")]
+    rec = measure_candidates(train_baseline, cands, train_args, train=True)
+    rec["measured"].update(infer["measured"])
+    rec["engage_fwd"] = infer["engage_fwd"]
+    rec["lowering_fwd"] = infer.get("lowering_fwd")
+    return rec
 
 
 def _conv_bn_verdict(kernel, stride, x_shape, w_shape, dtype, res):
@@ -996,13 +1027,16 @@ def _unresolved(node):
                       % (node.name, node.op))
 
 
-def resolve_sites(symbol, directives, shapes, types, device):
+def resolve_sites(symbol, directives, shapes, types, device, compute=None):
     """The plan as this bind runs it: every conv and pattern directive
     copied with its verdicts at the bind's ``shapes``/``types`` (name ->
     shape / dtype of the arguments and aux states) on ``device``, each gate
     decided now, once (a measurement, under ``MXNET_FUSION_TUNE_DIR``, too).
-    A site whose input shapes or dtypes do not infer raises ``MXNetError``.
-    Other directives are shared with ``directives``."""
+    ``compute`` (a torch dtype, or None) is the dtype every floating value
+    computes in, whatever ``types`` says: the bf16 training step's, whose
+    casts the graph does not hold. A site whose input shapes or dtypes do
+    not infer raises ``MXNetError``. Other directives are shared with
+    ``directives``."""
     if not any(d["kind"] in ("conv", "pattern") for d in directives.values()):
         return directives
     from .analysis.manager import GraphContext
@@ -1014,8 +1048,10 @@ def resolve_sites(symbol, directives, shapes, types, device):
 
     def arg(node, i):
         sh = ctx.entry_shape.get((id(node), i))
-        return None if sh is None else _Arg(tuple(sh), ctx.entry_dtype.get((id(node), i)),
-                                            device)
+        dt = ctx.entry_dtype.get((id(node), i))
+        if compute is not None and dt is not None and np.issubdtype(dt, np.floating):
+            dt = compute
+        return None if sh is None else _Arg(tuple(sh), dt, device)
 
     def static(v):
         return arg(v.node, 0) if isinstance(v, Lazy) else v

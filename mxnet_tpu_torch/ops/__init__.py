@@ -27,10 +27,13 @@ KERNELS = {
     "norm_residual": (norm_residual, "launches"),
     "norm_residual_bwd": (norm_residual, "bwd_launches"),
     "matmul_bias_act": (matmul_bias_act, "launches"),
+    "matmul_bias_act_bf16": (matmul_bias_act, "bf16_launches"),
     "conv_bn": (conv_bn, "launches"),
     "conv_bn_infer": (conv_bn, "infer_launches"),
     "conv_bn_infer_bf16": (conv_bn, "infer_bf16_launches"),
+    "conv_bn_bf16": (conv_bn, "fwd_bf16_launches"),
     "conv_bn_bwd": (conv_bn, "bwd_launches"),
+    "conv_bn_bwd_bf16": (conv_bn, "bwd_bf16_launches"),
     "matmul_stats": (matmul_stats, "launches"),
     "rtc": ("mxnet_tpu_torch.rtc", "launches"),
 }

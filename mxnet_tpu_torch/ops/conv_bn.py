@@ -38,6 +38,20 @@ kernels:
   nine taps for 3x3, each stage one 8 x 8 (or 7 x 8) pixel tile of dce
   staged once with the bordered tile of x.
 
+Both training kernels have a bf16 form, for ``SPMDTrainer(compute_dtype=
+'bfloat16')`` (the TPU kernels compute in their input's dtype, and JAX's
+bf16 step feeds them bf16): ``mxt_conv_bn_fwd_bf16`` and
+``mxt_conv_bn_bwd_bf16``, the same kernels on bf16 storage (x, w, scale,
+shift, res, c and dc, dx, dw, dres 2 bytes an element; the statistics,
+dscale and dshift f32) with one bf16 ``mma.sync`` a step into an f32
+accumulator, at the TPU kernels' rounding points: the prologue in bf16 with
+two roundings, the residual added to the f32 c, Σc and Σc² from the f32 c
+before it is rounded (:284-291); dce folded in f32 and rounded once (dres
+and the products' operand, :556-564), the ReLU mask from the bf16 prologue,
+dx = da·scale rounded, dscale, dshift and dw summed in f32 and dw rounded
+(:715). scale and shift arrive in f32 from the BatchNorm fold and are cast
+to bf16, as JAX casts them (:349-350, :684-685).
+
 Each block of the forward and of the dgrad writes one row of per-channel
 partial sums (Σc and Σc², or dscale and dshift) per position tile
 (``_fwd_parts`` rows); each wgrad split a partial dw (``_wgrad_splits``
@@ -61,9 +75,10 @@ and is not ported yet (``ROADMAP.md``).
 dispatchers: a CPU tensor takes the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. ``ConvBlock`` is the autograd Function over
 them (the JAX package's ``custom_vjp`` at :435). ``launches``,
-``infer_launches``, ``infer_bf16_launches`` and ``bwd_launches`` count kernel
-launches. Only the inference forward takes bf16; the training kernels take
-float32 (``cuda_build.LATER_DTYPES``).
+``infer_launches``, ``infer_bf16_launches``, ``bwd_launches`` and the bf16
+training forms' ``fwd_bf16_launches`` and ``bwd_bf16_launches`` count kernel
+launches. A training dispatcher picks the form by x's dtype: float32 (all
+operands float32) or bfloat16 (x, w, res and c, dc bfloat16).
 """
 from __future__ import annotations
 
@@ -94,6 +109,8 @@ launches = 0
 infer_launches = 0
 infer_bf16_launches = 0
 bwd_launches = 0
+fwd_bf16_launches = 0
+bwd_bf16_launches = 0
 
 
 # copied from mxnet_tpu/ops/pallas_conv_bn.py (strided_dims, backend-free)
@@ -132,15 +149,15 @@ def _conv_geometry(x_shape, w_shape, stride, itemsize):
 
 def supported(x_shape, w_shape, stride=(1, 1)):
     """Whether the kernels take this conv: the shape gate, the same for the
-    float32 kernels and the bf16 inference forward (a GPU block stages a
-    chunk of K at a time, so the TPU's VMEM budget, which the dtype's
-    itemsize enters, has no counterpart)."""
+    float32 kernels and every bf16 form (a GPU block stages a chunk of K at
+    a time, so the TPU's VMEM budget, which the dtype's itemsize enters, has
+    no counterpart)."""
     return _conv_geometry(tuple(x_shape), tuple(w_shape), tuple(stride), 4) is not None
 
 
 def _geometry(what, x, w, stride):
-    # the shape gate; a CUDA tensor must also be float32 (bfloat16 for the
-    # inference forward: check_operands), a CPU one may be float64 (gradcheck)
+    # the shape gate; a CUDA tensor must also be float32 or bfloat16
+    # (check_operands), a CPU one may be float64 (gradcheck)
     stride = tuple(int(s) for s in stride)
     geo = _conv_geometry(tuple(x.shape), tuple(w.shape), stride, 4)
     if geo is None:
@@ -204,6 +221,27 @@ def _pad(w):
     return (w.shape[2] - 1) // 2
 
 
+def _prologue_bf16(x, scale, shift, relu):
+    """The bf16 kernels' prologue on bfloat16 x: scale and shift cast to
+    bfloat16, the product rounded to bfloat16 and then the sum
+    (``conv_block_infer_plain`` says why two roundings)."""
+    if scale is None:
+        return x
+    bf16, b = torch.bfloat16, (1, -1, 1, 1)
+    xn = (x.float() * scale.to(bf16).float().reshape(b)).to(bf16)
+    xn = (xn.float() + shift.to(bf16).float().reshape(b)).to(bf16)
+    return torch.relu(xn) if relu else xn
+
+
+def _conv_bf16_f32(x, w, scale, shift, stride, relu):
+    """The convolution of bfloat16 x and w as the bf16 kernels take it: the
+    prologue in bfloat16, the products of the bfloat16 values (each exact in
+    float32) summed in float32. Returns the float32 c, before its rounding."""
+    xn = _prologue_bf16(x, scale, shift, relu)
+    return F.conv2d(xn.float(), w.to(torch.bfloat16).float(), stride=tuple(stride),
+                    padding=_pad(w))
+
+
 def conv_block_infer_plain(x, w, scale, shift, stride=(1, 1), relu=False):
     """The stats-free forward in plain PyTorch: ``conv(prologue(x), w)``.
 
@@ -219,22 +257,23 @@ def conv_block_infer_plain(x, w, scale, shift, stride=(1, 1), relu=False):
     if x.dtype != torch.bfloat16:
         return F.conv2d(_prologue(x, scale, shift, relu), w, stride=tuple(stride),
                         padding=_pad(w))
-    bf16, b = torch.bfloat16, (1, -1, 1, 1)
-    xn = x
-    if scale is not None:
-        xn = (x.float() * scale.to(bf16).float().reshape(b)).to(bf16)
-        xn = (xn.float() + shift.to(bf16).float().reshape(b)).to(bf16)
-        if relu:
-            xn = torch.relu(xn)
-    # each product of two bfloat16 values is exact in float32
-    c = F.conv2d(xn.float(), w.to(bf16).float(), stride=tuple(stride), padding=_pad(w))
-    return c.to(bf16)
+    return _conv_bf16_f32(x, w, scale, shift, stride, relu).to(torch.bfloat16)
 
 
 def conv_block_plain(x, w, scale, shift, res=None, stride=(1, 1), relu=False):
     """The forward kernel's function in plain PyTorch (JAX ``_xla_conv``
     :408 plus ``_stats_of`` :430): ``(c, ssum, ssq)``, the sums over (B, H',
-    W') in float32."""
+    W') in float32.
+
+    On bfloat16 x and w it rounds where the TPU kernel does (``_kernel``
+    :256-291): the convolution and the residual added in float32, the sums
+    taken from that float32 c, then c rounded to bfloat16."""
+    if x.dtype == torch.bfloat16:
+        c32 = _conv_bf16_f32(x, w, scale, shift, stride, relu)
+        if res is not None:
+            c32 = c32 + res.float()
+        return (c32.to(torch.bfloat16), c32.sum(dim=(0, 2, 3)),
+                (c32 * c32).sum(dim=(0, 2, 3)))
     c = conv_block_infer_plain(x, w, scale, shift, stride, relu)
     if res is not None:
         c = c + res
@@ -248,7 +287,14 @@ def conv_block_bwd_plain(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=
     branch of JAX ``_conv_block_bwd`` :744-785): ``(dx, dw, dscale, dshift,
     dres)``, with dscale, dshift None without a prologue and dres None
     without a residual. For a 1x1 stride-2 conv dx is zero off the sampled
-    positions, and dscale, dshift sum over the sampled ones only."""
+    positions, and dscale, dshift sum over the sampled ones only.
+
+    On bfloat16 operands it rounds where the TPU kernel does
+    (``_bwd_kernel`` :511-620, ``_conv_block_bwd_impl`` :715), not where the
+    ``bwd="xla"`` branch does: ``_conv_block_bwd_bf16_plain``."""
+    if x.dtype == torch.bfloat16:
+        return _conv_block_bwd_bf16_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu,
+                                          has_res)
     stride, b = tuple(stride), (1, -1, 1, 1)
     acc = _acc_dtype(c)
     dce = (dc.to(acc) + ds.to(acc).reshape(b) + 2.0 * c.to(acc) * dq.to(acc).reshape(b)
@@ -265,6 +311,41 @@ def conv_block_bwd_plain(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=
     dscale = (dxn32 * x.to(acc)).sum(dim=(0, 2, 3))
     dshift = dxn32.sum(dim=(0, 2, 3))
     return dx, dw, dscale, dshift, dce if has_res else None
+
+
+def _fold_bf16(c, dc, ds, dq):
+    """dce = dc + ds + 2·c·dq in float32 as the JAX package's compiled fold
+    computes it, ``fma(2c, dq, dc + ds)`` (XLA contracts the product into the
+    add: one rounding, where two roundings leave some elements a bfloat16
+    ulp away once dce is rounded), then rounded to bfloat16. The product of
+    a bfloat16 and a float32 value is exact in float64, so the float64 sum
+    rounded to float32 is the fused one."""
+    b = (1, -1, 1, 1)
+    first = (dc.float() + ds.float().reshape(b)).double()
+    fused = first + 2.0 * c.double() * dq.double().reshape(b)
+    return fused.float().to(torch.bfloat16)
+
+
+def _conv_block_bwd_bf16_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu, has_res):
+    """The bf16 backward kernel's function: dce (``_fold_bf16``) rounded to
+    bfloat16 once (dres, and the products' operand); xn from the bfloat16
+    prologue, the ReLU mask from it; da and dw the float32 sums of exact
+    products; dx = da·scale rounded to bfloat16; dscale = Σ da·x and dshift =
+    Σ da in float32; dw rounded to bfloat16."""
+    stride, b, bf16 = tuple(stride), (1, -1, 1, 1), torch.bfloat16
+    dce = _fold_bf16(c, dc, ds, dq)
+    w32 = w.to(bf16).float()
+    da = torch.nn.grad.conv2d_input(x.shape, w32, dce.float(), stride=stride, padding=_pad(w))
+    xn = _prologue_bf16(x, scale, shift, relu)
+    dw = torch.nn.grad.conv2d_weight(xn.float(), w.shape, dce.float(), stride=stride,
+                                     padding=_pad(w)).to(bf16)
+    res = dce if has_res else None
+    if scale is None:
+        return da.to(bf16), dw, None, None, res
+    if relu:
+        da = da * (xn > 0).float()
+    dx = (da * scale.to(bf16).float().reshape(b)).to(bf16)
+    return (dx, dw, (da * x.float()).sum(dim=(0, 2, 3)), da.sum(dim=(0, 2, 3)), res)
 
 
 # --------------------------------------------------------------- dispatchers
@@ -288,22 +369,35 @@ def _out_dims(x, w, stride):
     return x.shape[2], x.shape[3]
 
 
+def _bf16_vectors(x, scale, shift):
+    """scale and shift as the bf16 kernels take them: cast to bfloat16 (the
+    TPU kernels' ``scale.astype(dt)``), when x is bfloat16."""
+    if x.dtype != torch.bfloat16 or scale is None:
+        return scale, shift
+    return scale.to(torch.bfloat16).contiguous(), shift.to(torch.bfloat16).contiguous()
+
+
 def _launch_fwd(what, x, w, scale, shift, res, stride, relu, stats):
+    """One forward launch: the float32 kernel (stats or not), or on bfloat16
+    x the bf16 training form (stats)."""
     B, K, H, W = x.shape
     N, taps = w.shape[0], w.shape[2] * w.shape[3]
     Ho, Wo = _out_dims(x, w, stride)
-    cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, res) if t is not None])
+    bf16 = x.dtype == torch.bfloat16
+    scale, shift = _bf16_vectors(x, scale, shift)
+    cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, res) if t is not None],
+                              dtypes=(torch.bfloat16,) if bf16 else (torch.float32,))
     c = torch.empty((B, N, Ho, Wo), dtype=x.dtype, device=x.device)
     parts = _fwd_parts(B, Ho, Wo, taps)
     part = torch.empty((parts, 2, N), dtype=torch.float32, device=x.device) if stats else None
     sums = torch.empty((2, N), dtype=torch.float32, device=x.device) if stats else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_build.library()
+    fn = lib.mxt_conv_bn_fwd_bf16 if bf16 else lib.mxt_conv_bn_fwd
     with torch.cuda.device(x.device):
-        code = lib.mxt_conv_bn_fwd(
-            x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), ptr(res), c.data_ptr(),
-            ptr(part), ptr(sums), B, K, H, W, N, taps, stride[0], int(bool(relu)), parts,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        code = fn(x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), ptr(res), c.data_ptr(),
+                  ptr(part), ptr(sums), B, K, H, W, N, taps, stride[0], int(bool(relu)), parts,
+                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(code, what)
     return c, sums
 
@@ -312,14 +406,19 @@ def conv_block(x, w, scale, shift, res=None, stride=(1, 1), relu=False):
     """Fused (prologue-normalised) conv (+ residual) with the statistics
     epilogue: ``(c, ssum, ssq)``, c (B, N, H', W') in x's dtype and the
     per-channel f32 sums over (B, H', W'). x (B, K, H, W), w (N, K, 1|3,
-    1|3) OIHW; scale, shift (K,) or None; res (B, N, H', W') or None."""
+    1|3) OIHW; scale, shift (K,) or None; res (B, N, H', W') or None.
+    On bfloat16 x (w and res bfloat16 too; scale and shift of any float
+    dtype, cast to bfloat16) the bf16 training form, ``fwd_bf16_launches``."""
     stride, _ = _geometry("conv_block", x, w, stride)
     _check_vectors("conv_block", x, w, scale, shift, res, stride)
     if x.device.type == "cpu":
         return conv_block_plain(x, w, scale, shift, res, stride, relu)
-    global launches
+    global launches, fwd_bf16_launches
     c, sums = _launch_fwd("conv_block", x, w, scale, shift, res, stride, relu, True)
-    launches += 1
+    if x.dtype == torch.bfloat16:
+        fwd_bf16_launches += 1
+    else:
+        launches += 1
     return c, sums[0], sums[1]
 
 
@@ -382,7 +481,9 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     the raw input x, the saved output c, its cotangent dc and the
     statistics cotangents ds, dq (N,) f32 (the recompute policy: xn is
     rederived from x). dscale, dshift are None without a prologue, dres
-    None without a residual."""
+    None without a residual. On bfloat16 x (w, c and dc bfloat16 too) the
+    bf16 form, ``bwd_bf16_launches``: dx, dw and dres bfloat16, dscale and
+    dshift float32."""
     stride, geo = _geometry("conv_block_bwd", x, w, stride)
     _check_vectors("conv_block_bwd", x, w, scale, shift, None, stride)
     B, K, N, _, taps = geo
@@ -395,8 +496,15 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     if x.device.type == "cpu":
         return conv_block_bwd_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu, has_res)
     what = "conv_block_bwd"
-    cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc, ds, dq)
-                                      if t is not None])
+    bf16 = x.dtype == torch.bfloat16
+    scale, shift = _bf16_vectors(x, scale, shift)
+    if bf16:
+        cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc)
+                                          if t is not None], dtypes=(torch.bfloat16,))
+        cuda_build.check_operands(what, ds, dq)  # the statistics' cotangents: float32
+    else:
+        cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc, ds, dq)
+                                          if t is not None])
     H, W = x.shape[2:]
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)  # at stride 2 the kernel writes the zeros too
@@ -410,19 +518,23 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     # the folded cotangent, written once and read by both products: the
     # residual's gradient where there is one
     dce = torch.empty_like(c)
-    wt = torch.empty(K * -(-N // 8) * 8 * taps, **f32)  # w transposed, taps flipped
+    # w transposed, taps flipped
+    wt = torch.empty(K * -(-N // 8) * 8 * taps, dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_build.library()
+    fn = lib.mxt_conv_bn_bwd_bf16 if bf16 else lib.mxt_conv_bn_bwd
     with torch.cuda.device(x.device):
-        code = lib.mxt_conv_bn_bwd(
-            x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), c.data_ptr(), dc.data_ptr(),
-            ds.data_ptr(), dq.data_ptr(), dx.data_ptr(), dw.data_ptr(), dw_part.data_ptr(),
-            ptr(dss), ptr(dss_part), dce.data_ptr(), wt.data_ptr(), B, K, H, W, N, taps,
-            stride[0], int(bool(relu)), parts, splits,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        code = fn(x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), c.data_ptr(),
+                  dc.data_ptr(), ds.data_ptr(), dq.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                  dw_part.data_ptr(), ptr(dss), ptr(dss_part), dce.data_ptr(), wt.data_ptr(),
+                  B, K, H, W, N, taps, stride[0], int(bool(relu)), parts, splits,
+                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(code, what)
-    global bwd_launches
-    bwd_launches += 1
+    global bwd_launches, bwd_bf16_launches
+    if bf16:
+        bwd_bf16_launches += 1
+    else:
+        bwd_launches += 1
     return (dx, dw, None if dss is None else dss[0], None if dss is None else dss[1],
             dce if has_res else None)
 

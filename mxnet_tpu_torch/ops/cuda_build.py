@@ -62,14 +62,20 @@ _SIGNATURES = {
     "mxt_layer_norm_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
     # a, w, bias (or NULL), c, M, N, K, act, schedule, stream
     "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same, all bf16
+    "mxt_matmul_bias_act_fwd_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, scale, shift, res, c, part, sums (the last five or NULL), B, K, H, W, N, taps,
     # stride, relu, parts, stream
     "mxt_conv_bn_fwd": (_P,) * 8 + (_I,) * 9 + (_P,),
+    # the same with x, w, scale, shift, res, c bf16 (part, sums f32, never NULL)
+    "mxt_conv_bn_fwd_bf16": (_P,) * 8 + (_I,) * 9 + (_P,),
     # x, w, scale, shift (or NULL), c, B, K, H, W, N, taps, stride, relu, stream
     "mxt_conv_bn_infer_bf16": (_P,) * 5 + (_I,) * 8 + (_P,),
     # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
     # N, taps, stride, relu, parts, splits, stream
     "mxt_conv_bn_bwd": (_P,) * 15 + (_I,) * 10 + (_P,),
+    # the same with ds, dq, dw_part, dss, dss_part f32 and the others bf16
+    "mxt_conv_bn_bwd_bf16": (_P,) * 15 + (_I,) * 10 + (_P,),
     # a, b, c, part, sums, M, K, N, layout, groups, stream
     "mxt_matmul_stats_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
@@ -151,14 +157,15 @@ def library():
 
 
 #: where a kernel's refusal of a dtype it does not take points
-LATER_DTYPES = ("ROADMAP.md section 2b: bf16 for the port's other kernels comes with the "
-                "bf16 training step and the queue after it")
+LATER_DTYPES = ("ROADMAP.md section 2b: bf16 for the transformer's kernels, flash attention "
+                "and LayerNorm, is item 2b, and matmul_stats' item 2c")
 
 
 def check_operands(what, *tensors, dtypes=(torch.float32,)):
     """Raise unless every operand is a contiguous tensor of one of ``dtypes``
-    (the dtypes the kernel takes: float32, and bfloat16 for the conv+BN
-    inference forward) on one CUDA device. The dtypes are checked first."""
+    (the dtypes the kernel takes: float32, or bfloat16 for the conv+BN and
+    matmul_bias_act kernels' bf16 forms) on one CUDA device. The dtypes are
+    checked first."""
     for t in tensors:
         if t.dtype not in dtypes:
             raise MXNetError("%s: the kernel takes %s, got %s (%s)"

@@ -23,16 +23,26 @@ N (``chip_smoke.py``'s ``matmul_bias_act_crossover`` line): the small-M
 schedule is faster at every M up to 192, the tiles at 256. Both schedules
 run the epilogue before their one store, and both take ragged M, N and K.
 
+The kernel has a bf16 form (``mxt_matmul_bias_act_fwd_bf16``), for bf16
+a, w and b (``SPMDTrainer(compute_dtype='bfloat16')``): both schedules on
+bf16 storage, the products accumulated in f32 (the tiles on the bf16 tensor
+cores), the bias widened and the activation applied in f32, y rounded to
+bf16 (the TPU kernel's ``_kernel`` :57-62 on bf16 operands).
+
 ``matmul_bias_act`` is the dispatcher: a CPU tensor takes the plain PyTorch
-version, a CUDA tensor launches the kernel or raises. ``launches`` counts
-kernel launches, ``small_m_launches`` and ``tile_launches`` those of each
-schedule.
+version, a CUDA tensor launches the kernel (its form by a's dtype) or
+raises. ``launches`` counts the float32 kernel's launches,
+``small_m_launches`` and ``tile_launches`` those of each schedule, and
+``bf16_launches`` the bf16 form's.
 
 ``MatmulBiasAct`` is the autograd Function. Its backward is ``_mba_bwd``
 (:136) as the JAX package has it, which is no Pallas kernel: dpre comes from
 the activated output (relu: y > 0; sigmoid: y(1 − y); tanh: 1 − y²;
-softrelu: 1 − e^{−y}), then three products, da = dpre·W, dW = dpreᵀ·a and
-db = Σ dpre, which stay ``torch.matmul`` and a sum as JAX leaves them to XLA.
+softrelu: 1 − e^{−y}) in float32, then three products, da = dpre·W, dW =
+dpreᵀ·a and db = Σ dpre, which stay ``torch.matmul`` and a sum as JAX
+leaves them to XLA. On bf16 operands they round as JAX's do: dpre rounded
+to bf16 for the products, which sum in float32 and round to bf16, and db
+summed from the float32 dpre.
 """
 from __future__ import annotations
 
@@ -69,6 +79,7 @@ SMALL_M_SMEM_BYTES = 64 * 1024
 launches = 0
 small_m_launches = 0
 tile_launches = 0
+bf16_launches = 0
 
 
 def _small_m_takes(M, K):
@@ -86,7 +97,15 @@ def _schedule(M, N, K):
 
 
 def matmul_bias_act_plain(a, w, b, act="relu"):
-    """The kernel's function in plain PyTorch."""
+    """The kernel's function in plain PyTorch. On bfloat16 operands: the
+    products of the bfloat16 values (exact in float32) summed in float32,
+    the bias added and the activation applied in float32, y rounded to
+    bfloat16."""
+    if a.dtype == torch.bfloat16:
+        p = torch.matmul(a.float(), w.float().t())
+        if b is not None:
+            p = p + b.float()
+        return _ACTS[act](p).to(torch.bfloat16)
     p = torch.matmul(a, w.t())
     if b is not None:
         p = p + b
@@ -111,7 +130,9 @@ def matmul_bias_act(a, w, b, act="relu", schedule=None):
     if a.device.type == "cpu":
         return matmul_bias_act_plain(a, w, b, act)
     operands = (a, w) if b is None else (a, w, b)
-    cuda_build.check_operands("matmul_bias_act", *operands)
+    cuda_build.check_operands("matmul_bias_act", *operands,
+                              dtypes=(torch.bfloat16,) if a.dtype == torch.bfloat16
+                              else (torch.float32,))
     M, K = a.shape
     N = w.shape[0]
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
@@ -125,17 +146,21 @@ def _launch(a, w, b, act, c, schedule):
     M, K = a.shape
     N = w.shape[0]
     lib = cuda_build.library()
-    global launches, small_m_launches, tile_launches
+    global launches, small_m_launches, tile_launches, bf16_launches
+    bf16 = a.dtype == torch.bfloat16
+    fn = lib.mxt_matmul_bias_act_fwd_bf16 if bf16 else lib.mxt_matmul_bias_act_fwd
     with torch.cuda.device(a.device):
-        code = lib.mxt_matmul_bias_act_fwd(
-            a.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            c.data_ptr(), M, N, K, ACTIVATIONS.index(act), SCHEDULES.index(schedule),
-            torch.cuda.current_stream(a.device).cuda_stream)
-        launches += 1
-        if schedule == "small_m":
-            small_m_launches += 1
+        code = fn(a.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+                  c.data_ptr(), M, N, K, ACTIVATIONS.index(act), SCHEDULES.index(schedule),
+                  torch.cuda.current_stream(a.device).cuda_stream)
+        if bf16:
+            bf16_launches += 1
         else:
-            tile_launches += 1
+            launches += 1
+            if schedule == "small_m":
+                small_m_launches += 1
+            else:
+                tile_launches += 1
     cuda_build.check(code, "matmul_bias_act")
     return c
 
@@ -150,13 +175,16 @@ class MatmulBiasAct(torch.autograd.Function):
         y = matmul_bias_act(a, w, b, act, schedule)
         ctx.save_for_backward(a, w, y)
         ctx.act, ctx.has_bias = act, b is not None
+        ctx.b_dtype = None if b is None else b.dtype
         return y
 
     @staticmethod
     def backward(ctx, dy):
         a, w, y = ctx.saved_tensors
-        dpre = dy * _DERIVATIVES[ctx.act](y)
-        da = torch.matmul(dpre, w)
-        dw = torch.matmul(dpre.t(), a)
-        db = dpre.sum(dim=0) if ctx.has_bias else None
+        acc = torch.promote_types(a.dtype, torch.float32)
+        dpre = dy.to(acc) * _DERIVATIVES[ctx.act](y.to(acc))
+        dpre_c = dpre.to(a.dtype).to(acc)
+        da = torch.matmul(dpre_c, w.to(acc)).to(a.dtype)
+        dw = torch.matmul(dpre_c.t(), a.to(acc)).to(w.dtype)
+        db = dpre.sum(dim=0).to(ctx.b_dtype) if ctx.has_bias else None
         return da, dw, db, None, None

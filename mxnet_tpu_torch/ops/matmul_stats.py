@@ -126,11 +126,11 @@ def matmul_with_stats(a, b):
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_with_stats_plain(a, b)
     (M, K), N = a.shape, b.shape[1]
+    cuda_build.check_operands("matmul_with_stats", a, b)  # a bf16 operand names its item
     if not supported(M, K, N, a.dtype):
         raise MXNetError("matmul_with_stats: the CUDA kernel takes float32 operands with "
                          "every extent in [1, 2^31), got %s (%d, %d) by (%d, %d)"
                          % (a.dtype, M, K, K, N))
-    cuda_build.check_operands("matmul_with_stats", a, b)
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise MXNetError("matmul_with_stats: the kernel takes operands aligned to 16 bytes")
     sched = _schedule(M, K, N)

@@ -102,7 +102,9 @@ def _pooling(attrs, data):
     op's ``reduce_window`` pads: -inf for max, 0 for avg and sum, and for the
     ``full`` convention the high edge is padded by JAX's own formula
     (:165-172) rather than ``ceil_mode``'s. Avg divides by the window size
-    (count-include-pad)."""
+    (count-include-pad). On bfloat16 data avg and sum add the window's
+    elements one at a time in bfloat16, each sum rounded, in the window's
+    row-major order, as the JAX op's bfloat16 ``reduce_window`` does."""
     nd = data.ndim - 2
     if attrs["global_pool"]:
         kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
@@ -135,8 +137,24 @@ def _pooling_nd(data, kernel, stride, pads, pool_type):
     nd = data.ndim - 2
     if pool_type == "max":
         return (F.max_pool2d if nd == 2 else F.max_pool3d)(data, kernel, stride)
+    if data.dtype == torch.bfloat16:
+        out = _sum_pool_bf16(data, kernel, stride)
+        return out if pool_type == "sum" else out / int(np.prod(kernel))
     avg = F.avg_pool2d if nd == 2 else F.avg_pool3d
     return avg(data, kernel, stride, divisor_override=1 if pool_type == "sum" else None)
+
+
+def _sum_pool_bf16(data, kernel, stride):
+    """The windows' sums of bfloat16 data (padded already), added one
+    element at a time in the window's row-major order, each sum rounded to
+    bfloat16: one strided slice of data an offset of the window."""
+    out_shape = [(data.shape[2 + i] - kernel[i]) // stride[i] + 1 for i in range(len(kernel))]
+    acc = None
+    for offset in np.ndindex(*kernel):
+        idx = (slice(None), slice(None)) + tuple(
+            slice(o, o + (n - 1) * st + 1, st) for o, n, st in zip(offset, out_shape, stride))
+        acc = data[idx] if acc is None else acc + data[idx]
+    return acc
 
 
 _ACTS = {
@@ -202,6 +220,14 @@ def _softmax_output_grad(prob, label, attrs):
     return grad * attrs["grad_scale"]
 
 
+def _softmax_bf16(data, axis):
+    """``jax.nn.softmax`` on bfloat16 data, op by op: x − max and its exp
+    each rounded to bfloat16, their sum taken in float32 and rounded (as
+    ``jnp.sum`` upcasts), the quotient rounded."""
+    u = torch.exp(data - data.amax(dim=axis, keepdim=True))
+    return u / u.float().sum(dim=axis, keepdim=True).to(data.dtype)
+
+
 class _SoftmaxOutput(torch.autograd.Function):
     """Class probabilities forward; backward returns the loss gradient and
     ignores the incoming head gradient. The label gets a zero gradient."""
@@ -209,7 +235,8 @@ class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, label, attrs):
         axis = 1 if (attrs["multi_output"] and data.ndim > 2) else -1
-        prob = F.softmax(data, dim=axis)
+        prob = (_softmax_bf16(data, axis) if data.dtype == torch.bfloat16
+                else F.softmax(data, dim=axis))
         ctx.save_for_backward(prob, label)
         ctx.attrs = attrs
         return prob

@@ -34,6 +34,14 @@ over flat buffers:
   ``Custom`` op (host Python) runs the step eagerly on the card, decided at
   bind from the node list and logged once; a capture that fails raises.
 
+``compute_dtype='bfloat16'`` (JAX :63-64, :224-245) casts every floating
+input and parameter to bfloat16 inside the step, as device ops the graph
+captures: the forward and backward compute in bfloat16 (the conv+BN sites
+on the bf16 forms of their kernels, the ``matmul_bias_act`` sites on its
+bf16 form), the gradients arrive in float32 through the casts, and the
+master weights, gradients and optimizer state stay float32. The aux states
+enter in float32, as JAX's do, and their updates are cast back to it.
+
 The anomaly guard (``MXNET_ANOMALY_GUARD``, JAX :283-306, :504-540) checks
 one finite bit a gradient inside the step and where-selects the old
 parameters, aux and optimizer state (its counter included) when any is
@@ -54,8 +62,25 @@ from .sharding import ShardingRules
 
 __all__ = ["SPMDTrainer"]
 
-_BF16 = ("compute_dtype %r: the port's fused step computes in float32; bf16 comes with "
-         "ROADMAP.md section 2b's bf16 training step")
+_COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def _compute_dtype(v):
+    """``compute_dtype`` as the step casts to: None (float32 as it is) or
+    torch.bfloat16. Any other dtype raises."""
+    if v is None:
+        return None
+    name = str(v).replace("torch.", "")
+    if name not in _COMPUTE_DTYPES:
+        try:
+            name = np.dtype(v).name
+        except TypeError:
+            pass
+    if name not in _COMPUTE_DTYPES:
+        raise MXNetError("compute_dtype %r: the fused step computes in float32, or in "
+                         "bfloat16 as the bf16 training step of ROADMAP.md section 2b does"
+                         % (v,))
+    return torch.bfloat16 if name == "bfloat16" else None
 #: ops whose apply runs host Python: a graph holding one is not captured
 _HOST_OPS = ("Custom",)
 #: aten products the 'dots' remat policy keeps (JAX's dots_with_no_batch_dims_saveable)
@@ -102,7 +127,9 @@ class SPMDTrainer:
     remat : recompute the forward during backward
         (``torch.utils.checkpoint``): True or 'nothing' keeps nothing,
         'dots' keeps the products' and convolutions' outputs.
-    compute_dtype : None or float32; any other raises (section 2b).
+    compute_dtype : None, 'float32' or 'bfloat16': cast inputs and params
+        to bfloat16 for compute, keep float32 master weights, gradients and
+        optimizer state. Any other dtype raises.
     """
 
     def __init__(self, symbol, mesh, data_names=("data",),
@@ -113,8 +140,7 @@ class SPMDTrainer:
         from ..executor import _GraphProgram
         from ..ops.registry import get_op
 
-        if compute_dtype is not None and np.dtype(compute_dtype) != np.float32:
-            raise MXNetError(_BF16 % (compute_dtype,))
+        self._compute_dtype = _compute_dtype(compute_dtype)
         self.symbol = symbol
         self.mesh = mesh
         self.rules = rules or ShardingRules(mesh)
@@ -299,7 +325,8 @@ class SPMDTrainer:
         sites = self._sites.get(sig)
         if sites is None:
             with trace_mesh(self.mesh):
-                sites = self._sites[sig] = self._prog.sites_of(args, aux, self._device)
+                sites = self._sites[sig] = self._prog.sites_of(args, aux, self._device,
+                                                               self._compute_dtype)
         return sites
 
     def _fwd(self, args, aux, sites):
@@ -348,14 +375,16 @@ class SPMDTrainer:
         st = self._state
         flats = st.flats
         input_set = set(self.input_names)
+        cdt = self._compute_dtype
         args, leaves = [], {}
         for n in self._prog.arg_names:
             if n in input_set:
-                args.append(inputs[n])
-                continue
-            p = st.params[n].detach().requires_grad_(True)
-            leaves[n] = p
-            args.append(p)
+                v = inputs[n]
+            else:
+                v = leaves[n] = st.params[n].detach().requires_grad_(True)
+            # JAX's assemble (:224-231): floating values compute in bfloat16;
+            # a parameter's gradient flows back through the cast in float32
+            args.append(v.to(cdt) if cdt is not None and v.is_floating_point() else v)
         aux_old = tuple(st.aux[n] for n in self.aux_names)
         sites = self._sites_for(inputs, args, aux_old)
         with torch.enable_grad():

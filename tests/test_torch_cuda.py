@@ -283,8 +283,9 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
     assert ops.launch_counts() == {"flash_attention": L, "flash_attention_dq": L,
                                    "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
                                    "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L,
-                                   "conv_bn": 0, "conv_bn_infer": 0, "conv_bn_infer_bf16": 0,
-                                   "conv_bn_bwd": 0, "matmul_stats": 0, "rtc": 0}
+                                   "matmul_bias_act_bf16": 0, "conv_bn": 0, "conv_bn_infer": 0,
+                                   "conv_bn_infer_bf16": 0, "conv_bn_bf16": 0, "conv_bn_bwd": 0,
+                                   "conv_bn_bwd_bf16": 0, "matmul_stats": 0, "rtc": 0}
     exes[1].forward_backward()
     for n in reqs:
         got, want = exes[0].grad_dict[n].asnumpy(), exes[1].grad_dict[n].asnumpy()
@@ -386,21 +387,34 @@ def test_conv_bn_float32_kernel_keeps_its_bits(dev):
     assert digest.digests(cb, dev) == F32_DIGESTS
 
 
-def test_bf16_reaches_only_the_inference_forward(dev):
-    """bf16 operands: the stats-free forward takes them; the training
-    kernels refuse them naming ROADMAP.md section 2b's bf16 training step,
-    and so does the fully connected layer's kernel when
-    ``MXNET_GRAPHREWRITE_BF16`` casts its operands."""
+def test_bf16_reaches_only_the_kernels_with_a_bf16_form(dev):
+    """bf16 operands: the conv+BN kernels and matmul_bias_act take them (their
+    bf16 forms); the transformer's kernels refuse them naming ROADMAP.md
+    section 2b's item 2b, matmul_stats naming item 2c; a bf16 x beside a
+    float32 w is refused by every conv+BN dispatcher, and nothing launches."""
     x, w, scale, shift, _, _ = _conv_case(dev, 2, 16, 8, 8, 16, 3, 1, "prologue")
     xb, wb = x.bfloat16(), w.bfloat16()
     assert cb.conv_block_infer(xb, wb, scale, shift, (1, 1), True).dtype == torch.bfloat16
-    with pytest.raises(MXNetError, match="bf16 training step"):
-        cb.conv_block(xb, wb, scale, shift)
-    with pytest.raises(MXNetError, match="bf16 training step"):
-        mba.matmul_bias_act(_randn(dev, 8, 16).bfloat16(), _randn(dev, 16, 16).bfloat16(),
-                            None, "relu")
+    assert cb.conv_block(xb, wb, scale, shift)[0].dtype == torch.bfloat16
+    assert mba.matmul_bias_act(_randn(dev, 8, 16).bfloat16(), _randn(dev, 16, 16).bfloat16(),
+                               None, "relu").dtype == torch.bfloat16
+    before = pt.ops.launch_counts()
+    q = _randn(dev, 2, 8, 64).bfloat16()
+    with pytest.raises(MXNetError, match="item 2b"):
+        fa.flash_attention(q, q, q, causal=True)
+    with pytest.raises(MXNetError, match="item 2b"):
+        nr.layer_norm_affine(_randn(dev, 4, 16).bfloat16(), _randn(dev, 16), _randn(dev, 16))
+    with pytest.raises(MXNetError, match="item 2c"):
+        ms.matmul_with_stats(_randn(dev, 64, 16).bfloat16(), _randn(dev, 16, 8).bfloat16())
     with pytest.raises(MXNetError, match="computes in one dtype"):
         cb.conv_block_infer(xb, w, scale, shift)
+    with pytest.raises(MXNetError, match="takes bfloat16, got torch.float32|takes bfloat16"):
+        cb.conv_block(xb, w, scale, shift)
+    c = cb.conv_block_plain(xb, wb, scale, shift, None, (1, 1), True)[0]
+    with pytest.raises(MXNetError, match="takes bfloat16"):
+        cb.conv_block_bwd(xb, w, scale, shift, c, c, torch.zeros(16, device=dev),
+                          torch.zeros(16, device=dev), (1, 1), True)
+    assert pt.ops.launch_counts() == before
 
 
 # (B, K, H, W, N, kernel, stride): ragged 3x3 (9 x 9 is two 8-pixel tiles a
@@ -453,6 +467,135 @@ def test_conv_bn_forward_tilings_match_plain(dev, B, K, H, W, N, kernel, stride,
     _close(cb.conv_block_infer(x, w, scale, shift, st, relu),
            cb.conv_block_infer_plain(x, w, scale, shift, st, relu), 1e-5)
     assert (cb.launches, cb.infer_launches) == (before[0] + 1, before[1] + 1)
+
+
+def _bf16_close(got, want, atol_rel):
+    """bf16 results of one function, the float32 sums taken in other orders:
+    every element within one bf16 ulp of the plain version's (neighbouring
+    bf16 values), or within ``atol_rel`` of its largest magnitude (a sum that
+    cancels)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    near = (g - w).abs() <= atol_rel * float(w.abs().max())
+    far = (cb.bf16_ulps(g, w) > 1) & ~near
+    assert int(far.sum()) == 0, (int(far.sum()), float((g - w).abs().max()))
+
+
+# CONV_SHAPES, the forward's tilings at the first three FWD_SHAPES, and three
+# ResNet-50 sites at batch 2 (stage 1's 3x3, its 1x1 with the residual's
+# width, the stride-2 shortcut)
+BF16_SHAPES = CONV_SHAPES + FWD_SHAPES[:3] + [(2, 64, 56, 56, 64, 3, 1),
+                                              (2, 64, 56, 56, 256, 1, 1),
+                                              (2, 256, 56, 56, 512, 1, 2)]
+
+
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", BF16_SHAPES)
+@pytest.mark.parametrize("variant", ["bare", "prologue", "prologue_res"])
+def test_conv_bn_bf16_training_kernels_match_plain(dev, B, K, H, W, N, kernel, stride, variant):
+    """The bf16 forms of the training forward (with the statistics) and of
+    the backward against their plain versions: c, dx, dw and dres within one
+    bf16 ulp or 1e-5 of the largest magnitude (the f32 sums in other
+    orders, then one rounding each); Σc, Σc², dscale and dshift float32
+    sums within 1e-5 of the largest; only the bf16 counters move."""
+    x, w, scale, shift, res, (Ho, Wo) = _conv_case(dev, B, K, H, W, N, kernel, stride, variant)
+    st, relu = (stride, stride), variant != "bare"
+    xb, wb = x.bfloat16(), w.bfloat16()
+    rb = None if res is None else res.bfloat16()
+    before = pt.ops.launch_counts()
+    got = cb.conv_block(xb, wb, scale, shift, rb, st, relu)
+    want = cb.conv_block_plain(xb, wb, scale, shift, rb, st, relu)
+    _bf16_close(got[0], want[0], 1e-5)
+    for g, p in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        _close(g, p, 1e-5)
+    dc = _randn(dev, B, N, Ho, Wo, seed=7).bfloat16()
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (xb, wb, scale, shift, got[0], dc, ds, dq, st, relu, res is not None)
+    gb, pb = cb.conv_block_bwd(*args), cb.conv_block_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for i, (g, p) in enumerate(zip(gb, pb)):
+        assert (g is None) == (p is None)
+        if g is None:
+            continue
+        if i in (2, 3):  # dscale, dshift
+            assert g.dtype == torch.float32
+            _close(g, p, 1e-5)
+        else:
+            _bf16_close(g, p, 1e-5)
+    after = pt.ops.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"conv_bn_bf16": 1, "conv_bn_bwd_bf16": 1}
+
+
+@pytest.mark.parametrize("M,N,K", [(8, 512, 512), (64, 128, 784), (64, 64, 128),
+                                   (1024, 2048, 512), (37, 100, 30), (300, 130, 70)])
+@pytest.mark.parametrize("act", mba.ACTIVATIONS)
+def test_matmul_bias_act_bf16_kernel_matches_plain(dev, M, N, K, act):
+    """The bf16 form under both schedules (where the small-M one takes the
+    shape) against its plain version: within one bf16 ulp or 1e-5 of the
+    largest magnitude; only ``matmul_bias_act_bf16`` counts."""
+    a = _randn(dev, M, K).bfloat16()
+    w = _randn(dev, N, K, scale=1 / math.sqrt(K), seed=1).bfloat16()
+    b = _randn(dev, N, seed=2).bfloat16()
+    want = mba.matmul_bias_act_plain(a, w, b, act)
+    schedules = [s for s in mba.SCHEDULES if s != "small_m" or mba._small_m_takes(M, K)]
+    before = pt.ops.launch_counts()
+    for schedule in schedules:
+        _bf16_close(mba.matmul_bias_act(a, w, b, act, schedule), want, 1e-5)
+    _bf16_close(mba.matmul_bias_act(a, w, None, act), mba.matmul_bias_act_plain(a, w, None, act),
+                1e-5)
+    after = pt.ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "matmul_bias_act_bf16": len(schedules) + 1}
+
+
+def _bf16_units(m):
+    """Two residual units of the package's ResNet on 16 channels (every conv
+    site planned and admitted), then the zoo's head."""
+    res, sym = m.models.resnet, m.sym
+    body = res.residual_unit(sym.Variable("data"), 32, (1, 1), False, "u1")
+    body = res.residual_unit(body, 32, (2, 2), False, "u2")
+    bn = sym.BatchNorm(data=body, fix_gamma=False, eps=2e-5, name="bn")
+    relu = sym.Activation(data=bn, act_type="relu", name="relu")
+    pool = sym.Pooling(data=relu, global_pool=True, kernel=(4, 4), pool_type="avg", name="pool")
+    fc = sym.FullyConnected(data=sym.Flatten(data=pool), num_hidden=10, name="fc")
+    return sym.SoftmaxOutput(data=fc, name="softmax")
+
+
+def test_spmd_trainer_bf16_step_on_the_card_matches_the_cpu(dev):
+    """One ``SPMDTrainer(compute_dtype='bfloat16')`` step of two residual
+    units on the card (a CUDA graph after the eager first dispatch) and on
+    the CPU (the plain versions): the outputs and every float32 gradient
+    within 2e-2 of each array's largest magnitude (bf16 values an ulp apart
+    where the f32 sums ran in other orders), the master weights and aux
+    float32, and every planned conv site on the bf16 kernels, none on the
+    float32 ones."""
+    rs = np.random.RandomState(0)
+    x = rs.rand(4, 16, 8, 8).astype(np.float32)
+    y = rs.randint(0, 10, 4).astype(np.float32)
+    got = {}
+    for ctx in (pt.gpu(0), pt.cpu()):
+        mesh = pt.parallel.make_mesh((1,), ("data",), [ctx])
+        tr = pt.parallel.SPMDTrainer(_bf16_units(pt), mesh, optimizer="sgd",
+                                     optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                                     compute_dtype="bfloat16")
+        tr.init_params({"data": x.shape}, {"softmax_label": y.shape}, seed=3)
+        pt.ops.reset_launch_counts()
+        for _ in range(2):
+            outs = tr.step({"data": x}, {"softmax_label": y})
+        torch.cuda.synchronize()
+        counts = pt.ops.launch_counts()
+        grads = {k: v.float().cpu() for k, v in tr._state.flats["grads_by_name"].items()}
+        params, aux = tr.get_params()
+        assert all(v.dtype == np.float32 for v in list(params.values()) + list(aux.values()))
+        got[ctx.device_type] = (outs[0].float().cpu(), grads, counts)
+    (o_card, g_card, n_card), (o_cpu, g_cpu, _) = got["gpu"], got["cpu"]
+    assert n_card["conv_bn_bf16"] == n_card["conv_bn_bwd_bf16"] > 0
+    assert n_card["conv_bn"] == n_card["conv_bn_bwd"] == 0
+    torch.testing.assert_close(o_card, o_cpu, rtol=0, atol=2e-2 * float(o_cpu.abs().max()))
+    for k, want in g_cpu.items():
+        torch.testing.assert_close(g_card[k], want, rtol=0,
+                                   atol=2e-2 * float(want.abs().max()) + 1e-12, msg=k)
 
 
 # 3x3 in 8 x 8 tiles; 1x1 at the forward's flattened tiling, where a tile

@@ -24,7 +24,9 @@
   reaches a float32-only kernel is refused naming ROADMAP.md section 2b),
   ``PersistentExecutableCache(dtype="bfloat16")`` and ``Predictor`` under
   ``MXNET_SERVE_QUANT=bf16``.
-- What stays float32: the training kernels and ``compute_dtype``.
+- What stays refused: a float16 ``compute_dtype`` and bfloat16 operands of
+  the kernels without a bf16 form (bf16 training itself is
+  ``tests/test_torch_train_bf16.py``'s).
 """
 import contextlib
 import os
@@ -270,16 +272,20 @@ def test_graphrewrite_bf16_casts_reach_the_bf16_form(monkeypatch):
 
 
 def test_graphrewrite_bf16_cast_into_a_float32_kernel_is_refused_naming_section_2b():
-    """A cast that reaches a kernel still float32-only (the fully connected
-    layer's ``matmul_bias_act``, the training kernels, the attention and
-    LayerNorm kernels) is refused before any launch; the conv+BN inference
-    forward takes bfloat16."""
+    """A cast that reaches a kernel still float32-only (the attention and
+    LayerNorm kernels, ROADMAP.md section 2b's item 2b, and matmul_stats,
+    item 2c) is refused before any launch; the conv+BN kernels and
+    ``matmul_bias_act`` take bfloat16 (their bf16 forms), so their check
+    goes on to the device."""
     t = torch.zeros(8, 8, dtype=torch.bfloat16)
-    for what in ("matmul_bias_act", "conv_block", "conv_block_bwd", "flash_attention",
-                 "layer_norm_affine", "matmul_with_stats"):
-        with pytest.raises(pt.MXNetError, match="section 2b: bf16 for the port's other kernels "
-                                                "comes with the bf16 training step"):
+    for what in ("flash_attention", "layer_norm_affine", "matmul_with_stats"):
+        with pytest.raises(pt.MXNetError, match="section 2b: bf16 for the transformer's kernels, "
+                                                "flash attention and LayerNorm, is item 2b, and "
+                                                "matmul_stats' item 2c"):
             cuda_build.check_operands(what, t)
+    for what in ("matmul_bias_act", "conv_block", "conv_block_bwd"):
+        with pytest.raises(pt.MXNetError, match="one CUDA device"):
+            cuda_build.check_operands(what, t, dtypes=(torch.bfloat16,))
     with pytest.raises(pt.MXNetError, match="one CUDA device"):
         cuda_build.check_operands("conv_block_infer", t, dtypes=(torch.float32, torch.bfloat16))
 
@@ -352,11 +358,16 @@ def _params_bytes(m, params):
 
 # ------------------------------------------------------ what stays float32
 def test_bf16_training_stays_refused_naming_the_bf16_training_step():
+    """What stays refused now that the bf16 training step trains
+    (``tests/test_torch_train_bf16.py``): a float16 ``compute_dtype``,
+    naming the bf16 training step; a bfloat16 operand where a kernel takes
+    float32 (the float32 form's check), naming section 2b's queue; a
+    bfloat16 x beside a float32 w in the inference forward."""
     mesh = pt.parallel.make_mesh((1,), ("data",), [pt.cpu()])
-    with pytest.raises(pt.MXNetError, match="section 2b's bf16 training step"):
-        pt.parallel.SPMDTrainer(_small_net(pt), mesh, compute_dtype="bfloat16")
+    with pytest.raises(pt.MXNetError, match="bf16 training step of ROADMAP.md section 2b"):
+        pt.parallel.SPMDTrainer(_small_net(pt), mesh, compute_dtype="float16")
     x = torch.zeros(2, 8, 8, 8, dtype=torch.bfloat16)
-    with pytest.raises(pt.MXNetError, match="bf16 training step"):
+    with pytest.raises(pt.MXNetError, match="section 2b: bf16 for the transformer's kernels"):
         cuda_build.check_operands("conv_block", x)
     with pytest.raises(pt.MXNetError, match="computes in one dtype"):
         cb.conv_block_infer(x, torch.zeros(8, 8, 1, 1), None, None)
@@ -364,10 +375,12 @@ def test_bf16_training_stays_refused_naming_the_bf16_training_step():
 
 def test_bf16_inference_verdict_is_keyed_by_bfloat16(tmp_path, monkeypatch):
     """Under ``MXNET_FUSION_TUNE_DIR`` the bf16 inference gate reads a
-    verdict keyed by the bfloat16 dtype, measured forward only between the
-    library's bfloat16 conv and the kernel's bf16 form; the float32 verdict
-    of the same site is its own entry, and a later float32 bind reads it
-    and measures nothing."""
+    verdict keyed by the bfloat16 dtype: its forward-only contest between
+    the library's bfloat16 conv and the stats-free kernel's bf16 form
+    (``cuda:bf16``), beside the bf16 training contest of the same site
+    (``cuda:xla``, ``cuda:recompute``, fwd+bwd) in the one bfloat16 entry;
+    the float32 verdict of the same site is its own entry, and a later
+    float32 bind reads it and measures nothing."""
     import json
 
     from mxnet_tpu_torch import fusion_tune
@@ -383,8 +396,9 @@ def test_bf16_inference_verdict_is_keyed_by_bfloat16(tmp_path, monkeypatch):
             path = fusion_tune.cache_path()
         entries = json.load(open(path))["entries"]
         bf16 = entries[site["infer_key"]]
-        assert set(bf16["measured"]) == {"cuda:bf16"} and not bf16["train"]
-        assert not bf16["engage"] and "cuda:xla" in entries[site["key"]]["measured"]
+        assert set(bf16["measured"]) == {"cuda:bf16", "cuda:xla", "cuda:recompute"}
+        assert bf16["train"] and "engage" in bf16 and "engage_fwd" in bf16
+        assert "cuda:xla" in entries[site["key"]]["measured"]
         fusion_tune.reset()
 
         def measured(*a, **kw):

@@ -270,9 +270,14 @@ def test_planner_and_graphlint_raise_naming_step_4(monkeypatch, var, value):
 
 
 def test_bf16_compute_raises_naming_section_2b():
+    """What still raises: a compute dtype other than float32 and bfloat16
+    (bfloat16 trains, ``tests/test_torch_train_bf16.py``)."""
     mesh = pt.parallel.make_mesh((1,), ("data",), [pt.cpu()])
-    with pytest.raises(pt.MXNetError, match="section 2b's bf16 training step"):
-        pt.parallel.SPMDTrainer(_mlp(pt), mesh, compute_dtype="bfloat16")
+    for dtype in ("float16", np.float16, torch.float16, "float64"):
+        with pytest.raises(pt.MXNetError, match="bf16 training step of ROADMAP.md section 2b"):
+            pt.parallel.SPMDTrainer(_mlp(pt), mesh, compute_dtype=dtype)
+    for dtype in ("bfloat16", torch.bfloat16, "float32", np.float32, None):
+        pt.parallel.SPMDTrainer(_mlp(pt), mesh, compute_dtype=dtype)
 
 
 # -------------------------------------------------------- checkpoints

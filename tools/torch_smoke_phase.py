@@ -4,11 +4,12 @@
     python3 tools/torch_smoke_phase.py bind      # phase 20, the bind-time control plane
     python3 tools/torch_smoke_phase.py analysis  # phase 21, the analysis lint families
     python3 tools/torch_smoke_phase.py layouts   # phase 22, ring attention and ctx groups
+    python3 tools/torch_smoke_phase.py train_bf16  # phase 23, the bf16 training step
 
 It builds the port's kernel library from the checkout, prints the card's
 name and power limit, then calls ``chip_smoke.run_<phase>(pt, smi)``: the
-phases that take nothing else (``layouts``, ``analysis``, ``bind``,
-``fleet``, ``checkpoint``, ``planner``, ``native``). The phase prints its JSON lines as in the whole
+phases that take nothing else (``train_bf16``, ``layouts``, ``analysis``,
+``bind``, ``fleet``, ``checkpoint``, ``planner``, ``native``). The phase prints its JSON lines as in the whole
 smoke; the script exits nonzero where a check fails.
 """
 import os
@@ -17,7 +18,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("layouts", "analysis", "bind", "fleet", "checkpoint", "planner", "native")
+PHASES = ("train_bf16", "layouts", "analysis", "bind", "fleet", "checkpoint", "planner",
+          "native")
 
 
 def main(argv):
