@@ -20,7 +20,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    ResNet-50 shapes and every site shape of ResNet-50 at batch 32, and of
    matmul_bias_act (row 6) at the prefill's and the mlp's shapes, each
    within one bf16 ulp of its plain version, timed beside the library's bf16
-   call and the float32 kernel.
+   call and the float32 kernel; the bf16 forms of the flash-attention and
+   LayerNorm forwards (rows 1 and 4) likewise at the LM's serving shapes.
 3. Serving: full-width Transformer-base greedy decode through
    ``KVCacheDecoder`` on the card, with the kernel launch counts of that run
    checked against the path's expected counts (matmul_bias_act's small-M
@@ -325,10 +326,26 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    gradient, the aux); the MNIST mlp's bf16 convergence task (accuracy >
    0.9, two bf16 matmul_bias_act launches a step); one site's bf16
    training verdict measured under a tune directory.
-24. A ``smoke`` line (the run's seconds from the import of the port), a
+24. bf16 LM serving (``KVCacheDecoder``/``PagedKVDecoder(dtype='bfloat16')``),
+   run right after 3c (at the end of the smoke its profiler window's
+   trace came back one launch short):
+   Transformer-base with its seeded weights rounded to bf16 on the card,
+   batch 8, 100-token prompts, 64 greedy tokens at K = 1 and K = 8, lockstep
+   and over eight paged lanes: a prefill launches the bf16 forms of rows 1,
+   4 and 6 6 / 13 / 6 times and a step 0 / 13 / 6, no float32 form; the
+   megastep's tokens equal the single steps'; teacher-forced logits on the
+   card and on the port's CPU path in bf16 agree within 4e-2; prefill host
+   p50 / p80, ms a token at K = 1 and K = 8, card ms a megastep (profiler
+   and CUDA events), idle share, KV buffers' and peak MiB, beside float32
+   decoders on the same weights. Phase 2 checks and times the bf16 forms of
+   rows 1 and 4.
+25. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels and the
-   bf16 forms of rows 6, 8 and 9 (their ``launches`` phase 23's; rows 6, 8
+   bf16 forms of rows 1 and 4 (their ``launches`` phase 24's, with its
+   paged lanes' ``paged_launches``) and of rows 6, 8 and 9 (their
+   ``launches`` phase 23's; row 6 with phase 24's ``serve_lm_launches`` and
+   ``paged_launches``; rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
@@ -633,6 +650,13 @@ KERNELS = {
                          "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_bf16_bwd"),
     "matmul_bias_act_bf16": ("mxnet_tpu_torch/csrc/matmul_bias_act.cu",
                              "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "mba_bf16"),
+    # the bf16 forms of the flash-attention and LayerNorm forwards
+    # (KVCacheDecoder(dtype='bfloat16')): the same TPU kernels on bf16 operands
+    "flash_attention_bf16": ("mxnet_tpu_torch/csrc/flash_attention.cu",
+                             "mxnet_tpu/ops/pallas_attention.py:81", "flash_fwd_bf16_kernel"),
+    "norm_residual_bf16": ("mxnet_tpu_torch/csrc/norm_residual.cu",
+                           "mxnet_tpu/ops/pallas_norm_residual.py:78",
+                           "layer_norm_fwd_bf16_kernel"),
     "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
                      "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats"),
     # the mechanism is rtc.py; the kernels it launches here are the strings above
@@ -931,6 +955,7 @@ def check_kernels(peaks):
     check_conv_bf16_kernels(randn, peaks, entries, worst)
     check_conv_bf16_train_kernels(randn, peaks, entries, worst)
     check_mba_bf16_kernel(randn, peaks, entries, worst)
+    check_lm_bf16_kernels(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
     check_mma_rate(randn, peaks)
     for name, e in entries.items():
@@ -1493,6 +1518,108 @@ def check_mba_bf16_kernel(randn, peaks, entries, worst):
             entries["matmul_bias_act_bf16"].update({prefix + k: v for k, v in fields.items()})
         log({"phase": "kernel", "name": "matmul_bias_act_bf16", "shape": [M, K, N],
              "far": far, "max_abs_err": err, **fields})
+
+
+def check_lm_bf16_kernels(randn, peaks, entries, worst):
+    """Phase 2, the bf16 forms of rows 1 and 4 (flash_attention_bf16,
+    norm_residual_bf16) on bf16 operands against their plain versions: O and
+    y within one bf16 ulp (or CONV_TOL's elementwise bound where a sum
+    cancels), lse, mean and rstd within TOL's f32 bounds. Timed at the
+    bf16 serving path's shapes (the prefill's, the kernels line's, and for
+    LayerNorm a decode step's) beside the float32 kernel on the same values
+    and the library's bf16 call (``scaled_dot_product_attention`` with
+    ``is_causal``; ``F.layer_norm``); the bound at 2 bytes an element and
+    the operations at the bf16 tensor-core rate (the products) or the f32
+    rate (LayerNorm's arithmetic)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import norm_residual as nr
+
+    b16 = torch.bfloat16
+    L, H = MODEL["num_layers"], MODEL["num_heads"]
+    B, P, M = SERVE["batch"], SERVE["prefill_len"], MODEL["model_dim"]
+    dh = M // H
+    # (BH, T, S, D, causal, prefix): the prefill's (the kernels line's), a
+    # paged admit's, ragged tiles, D = 128, rectangular
+    for BH, T, S, D, causal, prefix in [(B * H, P, P, dh, True, ""), (H, P, P, dh, True, None),
+                                        (5, 77, 77, 40, True, None),
+                                        (3, 50, 131, 128, True, None),
+                                        (4, 33, 70, 96, False, None)]:
+        q, k, v = (randn(BH, n, D).to(b16) for n in (T, S, S))
+        o, lse = fa.flash_attention(q, k, v, causal=causal)
+        po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        far = bf16_far(o, po)
+        lse_err = float((lse - plse).abs().max())
+        err = float((o.float() - po.float()).abs().max())
+        check(far == 0 and lse_err <= TOL["flash_attention"],
+              ("flash_attention_bf16 vs plain", BH, T, S, D, far, err, lse_err))
+        worst["flash_attention_bf16"] = max(worst.get("flash_attention_bf16", 0.0), err)
+        rec = {"phase": "kernel", "name": "flash_attention_bf16", "shape": [BH, T, S, D],
+               "causal": causal, "far": far, "max_abs_err": err, "lse_err": lse_err}
+        if prefix is not None:
+            pairs = causal_pairs(T, S, causal)
+            t_ops = 4.0 * D * pairs * BH / peaks["bf16"] * 1e3
+            t_bytes = (2.0 * (2 * BH * T * D + 2 * BH * S * D) + 4.0 * BH * T) \
+                / peaks["bytes"] * 1e3
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            q4, k4, v4 = (t.reshape(BH // H, H, -1, D) for t in (q, k, v))
+            fields = dict(
+                ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                             key=KERNELS["flash_attention_bf16"][2]),
+                event_ms=event_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
+                plain_ms=device_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal)),
+                f32_kernel_ms=device_ms(lambda: fa.flash_attention(q32, k32, v32, causal=causal),
+                                        key=KERNELS["flash_attention"][2]),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal)),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes
+                else "bytes")
+            rec.update(fields)
+            entries["flash_attention_bf16"] = entry(
+                "flash_attention_bf16", library="scaled_dot_product_attention in bf16",
+                shape="prefill q,k,v (%d,%d,%d) causal, bf16" % (BH, T, D), **fields)
+        log(rec)
+
+    # (R, D, prefix): the prefill's rows (the kernels line's), a decode step's,
+    # a paged admit's and a verify chunk's, ragged widths
+    for R, D, prefix in [(B * P, M, ""), (B, M, "decode_"), (P, M, None),
+                         (SPEC_GAMMA + 1, M, None), (37, 300, None), (5, 1000, None)]:
+        x = randn(R, D).to(b16)
+        g, bb = (1.0 + randn(D, scale=0.1)).to(b16), randn(D, scale=0.1).to(b16)
+        y, mean, rstd = nr.layer_norm_affine(x, g, bb)
+        py, pmean, prstd = nr.layer_norm_affine_plain(x, g, bb)
+        torch.cuda.synchronize()
+        far = bf16_far(y, py)
+        stat_err = max(float((mean - pmean).abs().max()), float((rstd - prstd).abs().max()))
+        err = float((y.float() - py.float()).abs().max())
+        check(far == 0 and stat_err <= TOL["norm_residual"],
+              ("norm_residual_bf16 vs plain", R, D, far, err, stat_err))
+        worst["norm_residual_bf16"] = max(worst.get("norm_residual_bf16", 0.0), err)
+        rec = {"phase": "kernel", "name": "norm_residual_bf16", "shape": [R, D], "far": far,
+               "max_abs_err": err, "stat_err": stat_err}
+        if prefix is not None:
+            t_ops = 7.0 * R * D / peaks["f32"] * 1e3
+            t_bytes = (2.0 * (2 * R * D + 2 * D) + 4.0 * 2 * R) / peaks["bytes"] * 1e3
+            x32, g32, b32 = x.float(), g.float(), bb.float()
+            fields = dict(
+                ms=device_ms(lambda: nr.layer_norm_affine(x, g, bb),
+                             key=KERNELS["norm_residual_bf16"][2]),
+                event_ms=event_ms(lambda: nr.layer_norm_affine(x, g, bb)),
+                plain_ms=device_ms(lambda: nr.layer_norm_affine_plain(x, g, bb)),
+                f32_kernel_ms=device_ms(lambda: nr.layer_norm_affine(x32, g32, b32),
+                                        key=KERNELS["norm_residual"][2]),
+                library_ms=device_ms(lambda: F.layer_norm(x, (D,), g, bb, 1e-5)),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes
+                else "bytes")
+            rec.update(fields)
+            if not prefix:
+                entries["norm_residual_bf16"] = entry(
+                    "norm_residual_bf16", library="F.layer_norm in bf16",
+                    shape="prefill x (%d,%d), bf16" % (R, D), **fields)
+            else:
+                entries["norm_residual_bf16"].update(
+                    {prefix + k: v for k, v in fields.items()})
+        log(rec)
 
 
 def check_conv_f64(randn, cb):
@@ -9533,6 +9660,227 @@ def run_train_bf16(pt, smi):
     return launches
 
 
+# Phase 24: Transformer-base (MODEL) served in bf16: its random weights from
+# the seed rounded to bf16 on the card (params_from_numpy(dtype='bfloat16')),
+# KVCacheDecoder(dtype='bfloat16') at SERVE's batch of 8 with prompts of
+# PROMPT_LEN tokens and NEW_TOKENS greedy tokens at K = 1 and K = MEGASTEP_K,
+# and PagedKVDecoder(dtype='bfloat16') over PAGED's eight lanes of 256 slots
+# (pool 2048), beside float32 decoders on the same weights. ``prefills``
+# host-timed prefills a decoder; ``cpu_steps`` teacher-forced steps held
+# against the port's CPU path in bf16 within ``tol`` (atol = rtol, the JAX
+# package's bf16 tolerance, tests/test_pallas_norm_residual.py:33).
+SERVE_LM_BF16 = dict(prefills=20, cpu_steps=4, tol=4e-2)
+
+
+def lm_bf16_launches(prefills, steps, layers=None):
+    """The bf16 forms' launches: L flash forwards, 2L + 1 LayerNorms and L
+    ffn1 products a prefill; 2L + 1 and L a decode step."""
+    L = layers or MODEL["num_layers"]
+    return {"flash_attention_bf16": L * prefills,
+            "norm_residual_bf16": (2 * L + 1) * (prefills + steps),
+            "matmul_bias_act_bf16": L * (prefills + steps)}
+
+
+def kv_mib(dec, names):
+    return sum(dec._kv(n).numel() * dec._kv(n).element_size() for n in names) / 2 ** 20
+
+
+def run_serve_lm_bf16(pt, smi):
+    """Phase 24: the LM served in bf16 (SERVE_LM_BF16), lockstep and paged, K =
+    1 and K = MEGASTEP_K, against float32 decoders on the same weights.
+    Returns the bf16 forms' launches of the main path's runs."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.serving import KVCacheDecoder, PagedKVDecoder
+
+    t_phase = time.perf_counter()
+    K, L, B = MEGASTEP_K, MODEL["num_layers"], SERVE["batch"]
+    cfg = SERVE_LM_BF16
+    host = random_params()
+    dev = pt.gpu(0)
+    weights = {"bf16": pt.params_from_numpy(host, ctx=dev, dtype="bfloat16"),
+               "f32": pt.params_from_numpy(host, ctx=dev)}
+    dtypes = {"bf16": "bfloat16", "f32": "float32"}
+    check(all(v.dtype == torch.bfloat16 for v in weights["bf16"].values()),
+          "bf16 weights rounded on the card")
+    rs = np.random.RandomState(SEED + 1)
+    prompt = rs.randint(1, MODEL["vocab_size"], (B, PROMPT_LEN))
+    kv_names = [n for i in range(L) for n in ("kv_k_%d" % i, "kv_v_%d" % i)]
+    out = {"phase": "serve_lm_bf16", "nvidia_smi": smi, "model": MODEL, "serve": SERVE,
+           "paged_cfg": PAGED, "k": K, "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS}
+    launches = {}
+
+    # --- 1. both lockstep decoders built and captured; their memory
+    decs, peak, kv = {}, {}, {}
+    for kind in ("bf16", "f32"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dec = KVCacheDecoder(weights[kind], ctx=dev, dtype=dtypes[kind], **MODEL, **SERVE)
+        dec.warmup()
+        dec.greedy(prompt, 1 + K, k=K)  # builds and captures the K-step graph
+        torch.cuda.synchronize()
+        peak[kind] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        kv[kind] = kv_mib(dec, kv_names)
+        decs[kind] = dec
+    dec = decs["bf16"]
+    check(dec._kv("kv_k_0").dtype == torch.bfloat16, "bf16 KV buffers")
+
+    # --- 2. the main path's launches: a prefill, a step, K = 1 and K
+    ops.reset_launch_counts()
+    dec.reset()
+    logits = dec.prefill(prompt)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == with_zeros(lm_bf16_launches(1, 0)),
+          ("a bf16 prefill's launches", ops.launch_counts()))
+    ops.reset_launch_counts()
+    dec.greedy_step(np.argmax(logits, axis=-1))
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == with_zeros(lm_bf16_launches(0, 1)),
+          ("a bf16 decode step's launches", ops.launch_counts()))
+    want = with_zeros(lm_bf16_launches(1, NEW_TOKENS - 1))
+    ops.reset_launch_counts()
+    single = dec.greedy(prompt, NEW_TOKENS, k=1)
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == want, ("bf16 greedy K=1 launches", ops.launch_counts()))
+    ops.reset_launch_counts()
+    mega = dec.greedy(prompt, NEW_TOKENS, k=K)
+    torch.cuda.synchronize()
+    counted = ops.launch_counts()
+    check(counted == want, ("bf16 greedy K=%d launches" % K, counted))
+    check((mega == single).all(), "bf16 megastep tokens != single-step tokens")
+    check(single.shape == (B, NEW_TOKENS) and ((single >= 0)
+                                                & (single < MODEL["vocab_size"])).all(),
+          "bf16 token ids")
+    ms16 = dec._megasteps[(K, ("greedy", 1.0, 0))]
+    check(ms16.replay_launches[0] == with_zeros(lm_bf16_launches(0, K)),
+          ("a bf16 replay's launches", ms16.replay_launches[0]))
+    launches["lockstep"] = {k: v for k, v in counted.items() if v}
+
+    # --- 3. what comes out: the card against the port's CPU path in bf16
+    # (teacher-forced with the card's tokens), and against float32
+    cpu = KVCacheDecoder(pt.params_from_numpy(host, ctx=pt.cpu(), dtype="bfloat16"),
+                         ctx=pt.cpu(), dtype="bfloat16", **MODEL, **SERVE)
+    n_tf = cfg["cpu_steps"] + 1
+    t0 = time.perf_counter()
+    cpu_logits = teacher_forced_logits(cpu, prompt, single[:, :n_tf])
+    cpu_s = time.perf_counter() - t0
+    card_logits = teacher_forced_logits(dec, prompt, single[:, :n_tf])
+    f32_logits = teacher_forced_logits(decs["f32"], prompt, single[:, :n_tf])
+    check(np.isfinite(card_logits).all(), "non-finite bf16 card logits")
+    tol = cfg["tol"]
+    cpu_err = float(np.abs(card_logits - cpu_logits).max())
+    check(np.allclose(card_logits, cpu_logits, atol=tol, rtol=tol),
+          ("bf16 card vs CPU logits", cpu_err))
+    out["correct"] = {
+        "teacher_forced_positions": n_tf, "card_vs_cpu_max_abs_err": cpu_err,
+        "card_vs_cpu_argmax_agreement": float((np.argmax(card_logits, -1)
+                                               == np.argmax(cpu_logits, -1)).mean()),
+        "bf16_vs_f32_max_abs_err": float(np.abs(card_logits - f32_logits).max()),
+        "bf16_vs_f32_argmax_agreement": float((np.argmax(card_logits, -1)
+                                               == np.argmax(f32_logits, -1)).mean()),
+        "logit_max_abs": float(np.abs(f32_logits).max()), "cpu_reference_s": cpu_s}
+    del cpu
+
+    # --- 4. bf16 against float32 on the same weights, in turns
+    prefill_ms = {k: [] for k in decs}
+    step_ms = {k: [] for k in decs}
+    mega_ms = {k: [] for k in decs}
+    for r in range(cfg["prefills"]):
+        for kind in (("bf16", "f32") if r % 2 == 0 else ("f32", "bf16")):
+            decs[kind].reset()
+            torch.cuda.synchronize()
+            _, t = timed(lambda: decs[kind].prefill(prompt))
+            prefill_ms[kind].append(t)
+    for r in range(2):
+        for kind in (("bf16", "f32") if r % 2 == 0 else ("f32", "bf16")):
+            d = decs[kind]
+            d.reset()
+            nxt = np.argmax(d.prefill(prompt), axis=-1)
+            for _ in range(NEW_TOKENS - 1):
+                nxt, t = timed(lambda: d.greedy_step(nxt))
+                step_ms[kind].append(t)
+            d.reset()
+            nxt = np.argmax(d.prefill(prompt), axis=-1)
+            for _ in range((NEW_TOKENS - 1) // K):
+                ids, t = timed(lambda: d.decode_megastep(nxt, k=K))
+                nxt = ids[:, -1]
+                mega_ms[kind].append(t)
+    windows = {}
+    for kind, d in decs.items():
+        prog = d._megasteps[(K, ("greedy", 1.0, 0))]
+        d.reset()
+        nxt = np.argmax(d.prefill(prompt), axis=-1)
+
+        def megasteps(d=d, nxt=nxt):
+            n = nxt
+            for _ in range(4):
+                n = d.decode_megastep(n, k=K)[:, -1]
+
+        def seed(d=d):
+            d.reset()
+            d.prefill(prompt)
+
+        prof = profiled("bf16 phase %s megastep window" % kind, megasteps, 4,
+                        {k: 4 * v for k, v in prog.replay_launches[0].items()}, seed)
+        windows[kind] = {"card_ms_per_megastep": prof["device_busy_ms"],
+                         "card_ms_per_megastep_events": megastep_card_time(prog),
+                         "device_idle_share_kK": prof["device_idle_share"],
+                         "port_kernel_ms": prof["port_kernel_ms"],
+                         "top_device_ms": prof["top_device_ms"]}
+    check(windows["bf16"]["port_kernel_ms"].get("norm_residual_bf16", 0) > 0
+          and not windows["bf16"]["port_kernel_ms"].get("norm_residual"),
+          ("the bf16 megastep's kernels in the profiler", windows["bf16"]["port_kernel_ms"]))
+    out["lockstep"] = {
+        kind: {"prefill_ms_p50": float(np.percentile(prefill_ms[kind], 50)),
+               "prefill_ms_p80": float(np.percentile(prefill_ms[kind], 80)),
+               "k1": latency_stats(step_ms[kind], 1, B),
+               "kK": latency_stats(mega_ms[kind], K, B),
+               "kv_mib": kv[kind], "peak_mib": peak[kind], **windows[kind]}
+        for kind in decs}
+    out["lockstep"]["launches"] = launches["lockstep"]
+    out["lockstep"]["launches_per_replay"] = {k: v for k, v in ms16.replay_launches[0].items()
+                                              if v}
+    del decs, dec
+
+    # --- 5. paged: eight lanes over one pool, K = 1 and K, bf16 and float32
+    prompts = paged_prompts()
+    n = len(prompts)
+    paged = {}
+    for kind in ("bf16", "f32"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pd = PagedKVDecoder(weights[kind], ctx=dev, dtype=dtypes[kind], **MODEL, **PAGED)
+        pd.greedy(prompts[:1], 1 + K, k=K)  # binds, builds and captures
+        torch.cuda.synchronize()
+        rec = {"peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+               "kv_mib": kv_mib(pd, kv_names)}
+        if kind == "bf16":
+            want = with_zeros(lm_bf16_launches(n, NEW_TOKENS - 1))
+            ops.reset_launch_counts()
+            one = pd.greedy(prompts, NEW_TOKENS, k=1)
+            torch.cuda.synchronize()
+            check(ops.launch_counts() == want, ("paged bf16 K=1 launches", ops.launch_counts()))
+            ops.reset_launch_counts()
+            many = pd.greedy(prompts, NEW_TOKENS, k=K)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            check(got == want, ("paged bf16 K=%d launches" % K, got))
+            check(all((a == b).all() for a, b in zip(one, many)),
+                  "paged bf16 megastep tokens != single-step tokens")
+            launches["paged"] = {k: v for k, v in got.items() if v}
+            rec["launches"] = launches["paged"]
+        rec["k1"] = latency_stats(time_paged(pd, prompts, 1, rounds=1), 1, n)
+        rec["kK"] = latency_stats(time_paged(pd, prompts, K, rounds=1), K, n)
+        paged[kind] = rec
+        del pd
+    out["paged"] = paged
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA card",
@@ -9568,6 +9916,11 @@ def main():
     params = random_params()
     megastep_launches = timed_phase(run_megastep, pt, params, smi)
     paged_launches = timed_phase(run_paged, pt, params, smi)
+    # phase 24 runs here, beside the other serving phases: its profiler
+    # windows hold the trace to the wrappers' counts, and at the end of the
+    # smoke (after the fleet phase) its megastep window's trace came back one
+    # launch short, alone or here it did not (PERF.md section 6, PR 26)
+    serve_lm_bf16_launches = timed_phase(run_serve_lm_bf16, pt, smi)
     train_launches = timed_phase(run_train, pt, params)
     from mxnet_tpu_torch.models import resnet
 
@@ -9594,6 +9947,15 @@ def main():
     layouts_launches = timed_phase(run_layouts, pt, smi)
     train_bf16_launches = timed_phase(run_train_bf16, pt, smi)
     for name_, e in entries.items():
+        if name_ in ("flash_attention_bf16", "norm_residual_bf16"):
+            # launches: phase 24's bf16 greedy decode at K = MEGASTEP_K (one
+            # prefill, 63 steps); paged_launches: its eight paged lanes
+            e.update(launches=serve_lm_bf16_launches["lockstep"][name_],
+                     paged_launches=serve_lm_bf16_launches["paged"][name_])
+            continue
+        if name_ == "matmul_bias_act_bf16":
+            e.update(serve_lm_launches=serve_lm_bf16_launches["lockstep"][name_],
+                     paged_launches=serve_lm_bf16_launches["paged"][name_])
         if name_ in ("matmul_bias_act", "conv_bn", "conv_bn_bwd"):
             # the module phase's card runs: ResNet-50's Module.fit (conv_bn,
             # conv_bn_bwd; its score's stats-free conv_bn as

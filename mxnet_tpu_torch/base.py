@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "EvictedError", "string_types", "numeric_types", "anomaly_guard_mode",
-           "np_dtype", "torch_dtype", "numpy_dtype", "dtype_code", "dtype_from_code"]
+           "np_dtype", "torch_dtype", "numpy_dtype", "inference_dtype", "dtype_code",
+           "dtype_from_code"]
 
 
 class MXNetError(Exception):
@@ -58,6 +59,8 @@ def torch_dtype(dtype) -> torch.dtype:
     """The torch dtype of a numpy/str/torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if str(dtype) == "bfloat16":  # the name, where numpy has no bfloat16
+        return torch.bfloat16
     d = np_dtype(dtype)
     if d not in _NP_TO_TORCH:
         if d.name == "bfloat16":  # where numpy knows it (ml_dtypes loaded)
@@ -75,6 +78,21 @@ def numpy_dtype(dtype: torch.dtype) -> np.dtype:
                 pass
         raise MXNetError("unsupported dtype %s" % dtype)
     return _TORCH_TO_NP[dtype]
+
+
+def inference_dtype(dtype) -> np.dtype:
+    """The numpy dtype that shape and type inference takes for ``dtype`` (a
+    torch, numpy or str dtype): its own, and for bfloat16 numpy's bfloat16
+    where ``ml_dtypes`` has given numpy one, else float32. Without
+    ``ml_dtypes`` numpy has no bfloat16; float32 stands in, since no shape
+    depends on it, and a bound tensor keeps its own dtype."""
+    if (dtype == torch.bfloat16 if isinstance(dtype, torch.dtype)
+            else str(getattr(dtype, "name", dtype)) == "bfloat16"):
+        try:
+            return np.dtype("bfloat16")
+        except TypeError:
+            return np.dtype(np.float32)
+    return np.dtype(np_dtype(dtype))
 
 
 # copied from mxnet_tpu/base.py (_DTYPE_NP_TO_MX, dtype_code, dtype_from_code;

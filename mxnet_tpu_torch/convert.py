@@ -50,6 +50,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .context import Context, current_context
 
 __all__ = ["params_from_numpy", "params_from_checkpoint", "updater_states_from_numpy",
@@ -57,14 +58,30 @@ __all__ = ["params_from_numpy", "params_from_checkpoint", "updater_states_from_n
            "opt_state_to_numpy", "load_fused_states"]
 
 
-def params_from_numpy(arg_params, ctx: Context = None) -> Dict[str, torch.Tensor]:
+def params_from_numpy(arg_params, ctx: Context = None, dtype=None) -> Dict[str, torch.Tensor]:
     """{name: array} (numpy, or anything with ``asnumpy()``) → {name: tensor}
-    on ``ctx`` (default ``gpu(0)``), with each array's dtype kept."""
+    on ``ctx`` (default ``gpu(0)``), with each array's dtype kept. A bfloat16
+    array (``ml_dtypes``' type, which the JAX package's bf16 checkpoints
+    hold) is taken by its bits, through ``uint16``, without importing
+    ``ml_dtypes``: the same bf16 values. ``dtype="bfloat16"`` rounds every
+    floating array to bfloat16 on the device, to nearest even, as the host's
+    cast would (numpy has no bfloat16 where ``ml_dtypes`` is missing)."""
+    if dtype is not None and str(dtype).replace("torch.", "") not in ("float32", "bfloat16"):
+        raise MXNetError("params_from_numpy: dtype must be float32 or bfloat16, got %r"
+                         % (dtype,))
+    want = None if dtype is None else getattr(torch, str(dtype).replace("torch.", ""))
     device = (ctx or current_context()).torch_device
     out = {}
     for name, value in arg_params.items():
         host = np.ascontiguousarray(value.asnumpy() if hasattr(value, "asnumpy") else value)
-        out[name] = torch.from_numpy(host).to(device)
+        if host.dtype.name == "bfloat16":
+            t = torch.from_numpy(host.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(host)
+        t = t.to(device)
+        if want is not None and t.is_floating_point():
+            t = t.to(want)
+        out[name] = t
     return out
 
 

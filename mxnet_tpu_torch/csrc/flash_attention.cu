@@ -1,5 +1,5 @@
-// Flash attention forward, f32: O = softmax(Q·Kᵀ·scale [+ causal mask])·V and
-// the row logsumexp, over (B·H, T, D) tensors.
+// Flash attention forward, f32 and bf16: O = softmax(Q·Kᵀ·scale [+ causal
+// mask])·V and the row logsumexp, over (B·H, T, D) tensors.
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_attention.py _fwd_kernel
 // (launched by _fwd_call). The TPU kernel walks its key tiles as the last,
@@ -53,6 +53,17 @@
 // accumulators). Of the layouts timed on the card in scratch builds (PERF.md
 // §6: one group, 32 own rows, 64-key tiles, two blocks an SM), none beat
 // this one by more than 4 % at the prefill's and the training step's shapes.
+//
+// The bf16 form (mxt_flash_attention_fwd_bf16, the same TPU kernel on bf16 q,
+// k, v: O in q's dtype, pallas_attention.py :223, lse f32) is the same kernel
+// over bf16 storage, for the bf16 serving path (KVCacheDecoder(dtype=
+// 'bfloat16')'s prefill). Q, K and V are widened into the same f32 tiles,
+// through registers (flash_tc.cuh's bf16 stage_rows: the loads are
+// synchronous, the ring's cp.async overlap is lost); the scores are one bf16
+// mma.sync a step with exact products; P stays f32 and P·V takes two TF32
+// products a step (V is exact in TF32); O = acc / l is rounded to bf16 once,
+// to nearest even. Its bound at the prefill's shape (BH = 64, T = S = 128,
+// D = 64, causal) is its bytes: 4.2 MB at 2 B an element, ~1.3 µs.
 #include "flash_tc.cuh"
 
 namespace {
@@ -82,9 +93,11 @@ struct Cfg {
   static_assert(GROUPS == 1 || kWarps * 32 * (4 + 4 * ND) <= kStages * STAGE, "merge space");
 };
 
+template <typename Elem>
 struct Args {
-  const float *q, *k, *v;
-  float *o, *lse;
+  const Elem *q, *k, *v;
+  Elem* o;
+  float* lse;
   // by blockIdx.y: the block's first query row, then its first and end key
   const int* blocks;
   int BH, T, S, D;
@@ -134,9 +147,12 @@ __device__ __forceinline__ void merge_groups(float (&m)[2], float (&ml)[2], floa
   }
 }
 
-template <int GROUPS, int DMAX, bool VEC>
-__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
-flash_fwd_kernel(const Args a) {
+// The kernels' body. Elem: the operands' storage, float or __nv_bfloat16 (the
+// bf16 form, whose pieces are flash_tc.cuh's bf16 ones; everything else is
+// shared).
+template <typename Elem, int GROUPS, int DMAX, bool VEC>
+__device__ __forceinline__ void flash_fwd(const Args<Elem>& a) {
+  constexpr bool kBf16 = mxt::IsBf16<Elem>::value;
   using C = Cfg<GROUPS, DMAX>;
   constexpr int BQ = C::BM, BK = C::BN, LD = C::LD, NT = C::NT, ND = C::ND;
   extern __shared__ __align__(16) float smem[];
@@ -196,7 +212,8 @@ flash_fwd_kernel(const Args a) {
     const float* vs = ks + BK * LD;
 
     float s[NT][4];
-    score_tile<NT, DMAX, LD>(Qs + (warp % kWarps) * 16 * LD, ks, s);
+    if constexpr (kBf16) score_tile_bf16<NT, DMAX, LD>(Qs + (warp % kWarps) * 16 * LD, ks, s);
+    else score_tile<NT, DMAX, LD>(Qs + (warp % kWarps) * 16 * LD, ks, s);
     const bool whole = row0 + 15 < T && k0 + BK <= S && (!causal || k0 + BK - 1 <= row0 + offset);
     auto visible = [&](int r, int c) {
       const int row = row0 + r, col = k0 + c;
@@ -240,7 +257,8 @@ flash_fwd_kernel(const Args a) {
     for (int j = 0; j < NT; ++j) {
       uint32_t a_hi[4], a_lo[4];
       acc_as_a(s[j], a_hi, a_lo);
-      accumulate_step<ND, LD>(a_hi, a_lo, vs + j * 8 * LD, acc);
+      if constexpr (kBf16) accumulate_step_exact_b<ND, LD>(a_hi, a_lo, vs + j * 8 * LD, acc);
+      else accumulate_step<ND, LD>(a_hi, a_lo, vs + j * 8 * LD, acc);
     }
   }
   cp_async_wait<0>();
@@ -258,8 +276,8 @@ flash_fwd_kernel(const Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + g + 8 * (e >> 1), col = ni * 8 + 2 * t + (e & 1);
-      if (row < T && col < D)
-        a.o[qbase + static_cast<size_t>(row) * D + col] = acc[ni][e] / l[e >> 1];
+      if (row < T && col < D)  // the bf16 form rounds O once, to nearest even
+        mxt::st1(a.o + qbase + static_cast<size_t>(row) * D + col, acc[ni][e] / l[e >> 1]);
     }
   if (t == 0) {
 #pragma unroll
@@ -270,19 +288,41 @@ flash_fwd_kernel(const Args a) {
   }
 }
 
+// The f32 kernel and the bf16 form, under names of their own (the profiler
+// attributes device time by name).
+template <int GROUPS, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
+flash_fwd_kernel(const Args<float> a) {
+  flash_fwd<float, GROUPS, DMAX, VEC>(a);
+}
+
+template <int GROUPS, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
+flash_fwd_bf16_kernel(const Args<__nv_bfloat16> a) {
+  flash_fwd<__nv_bfloat16, GROUPS, DMAX, VEC>(a);
+}
+
+template <typename Elem, int GROUPS, int DMAX, bool VEC>
+auto kernel_of() {
+  if constexpr (mxt::IsBf16<Elem>::value) return &flash_fwd_bf16_kernel<GROUPS, DMAX, VEC>;
+  else return &flash_fwd_kernel<GROUPS, DMAX, VEC>;
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // A launch over the table's nblocks blocks of kRows query rows; refuses a
 // table of any other length.
-template <int GROUPS, int DMAX>
-int run(const Args& a, int nblocks, cudaStream_t st) {
+template <typename Elem, int GROUPS, int DMAX>
+int run(const Args<Elem>& a, int nblocks, cudaStream_t st) {
   using C = Cfg<GROUPS, DMAX>;
   if (a.blocks == nullptr || nblocks != (a.T + kRows - 1) / kRows || nblocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte copies: every row of Q, K and V starts on 16 bytes
-  const bool vec = a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v);
-  void (*kernel)(const Args) =
-      vec ? &flash_fwd_kernel<GROUPS, DMAX, true> : &flash_fwd_kernel<GROUPS, DMAX, false>;
+  // 16-byte loads: every row of Q, K and V starts on 16 bytes (4 floats or
+  // 8 bf16 a load)
+  const bool vec = a.D % (16 / static_cast<int>(sizeof(Elem))) == 0 && aligned16(a.q) &&
+                   aligned16(a.k) && aligned16(a.v);
+  void (*kernel)(const Args<Elem>) = vec ? kernel_of<Elem, GROUPS, DMAX, true>()
+                                         : kernel_of<Elem, GROUPS, DMAX, false>();
   static bool raised[2] = {false, false};
   const cudaError_t e = mxt::raise_smem(kernel, C::SMEM, &raised[vec]);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -290,9 +330,18 @@ int run(const Args& a, int nblocks, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-bool shapes_taken(const Args& a) {
+template <typename Elem>
+bool shapes_taken(const Args<Elem>& a) {
   return a.BH >= 1 && a.T >= 1 && a.S >= 1 && a.D >= 1 && a.D <= kMaxD &&
          !(a.causal && a.S < a.T);
+}
+
+template <typename Elem>
+int launch(const Args<Elem>& a, int nblocks, void* stream) {
+  if (!shapes_taken(a)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.D <= 64) return run<Elem, 2, 64>(a, nblocks, st);
+  return run<Elem, 1, 128>(a, nblocks, st);
 }
 
 }  // namespace
@@ -303,9 +352,16 @@ extern "C" int mxt_flash_attention_fwd(const float* q, const float* k, const flo
                                        float* o, float* lse, const int* blocks, int nblocks,
                                        int BH, int T, int S, int D, float scale, int causal,
                                        void* stream) {
-  const Args a{q, k, v, o, lse, blocks, BH, T, S, D, scale, causal};
-  if (!shapes_taken(a)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return run<2, 64>(a, nblocks, st);
-  return run<1, 128>(a, nblocks, st);
+  return launch(Args<float>{q, k, v, o, lse, blocks, BH, T, S, D, scale, causal}, nblocks,
+                stream);
+}
+
+// The bf16 form: q, k, v and o bf16, lse f32; the same table and shapes.
+extern "C" int mxt_flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                            const __nv_bfloat16* v, __nv_bfloat16* o,
+                                            float* lse, const int* blocks, int nblocks, int BH,
+                                            int T, int S, int D, float scale, int causal,
+                                            void* stream) {
+  return launch(Args<__nv_bfloat16>{q, k, v, o, lse, blocks, BH, T, S, D, scale, causal},
+                nblocks, stream);
 }

@@ -4,7 +4,8 @@
 // the forward, the logsumexp in the backward), and the reuse of a score
 // tile's accumulator as the A operand of the next product. The forward
 // (flash_attention.cu) and the backward's two passes (flash_attention_bwd.cu)
-// are built from them.
+// are built from them, and the forward's bf16 form from the bf16 pieces at
+// the end.
 //
 // The layout they share: every operand tile lies in shared memory row-major,
 // LD floats a row with LD = 8 mod 32, one row a query or key, its columns the
@@ -21,6 +22,7 @@
 // 16, 24 and 16, 24, 0, 8.
 #pragma once
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace mxt {
@@ -141,6 +143,111 @@ __device__ __forceinline__ void accumulate_step(const uint32_t (&a_hi)[4],
     for (int n = 0; n < N; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n0 + n][i] = part[n][i];
+  }
+}
+
+// ---- bf16 operands: the forward's bf16 form (flash_attention.cu's
+// mxt_flash_attention_fwd_bf16). Q, K and V are bf16 in device memory and are
+// widened into the f32 shared-memory tiles above, so every layout note holds.
+// A bf16 value is exact in f32 and in TF32, which sets the products' cost:
+// - S = Q·Kᵀ: one bf16 mma.sync a step (bf16_mma.cuh), its products exact
+//   and summed in f32, where the f32 form takes three TF32 products;
+// - O += P·V: P stays f32, as the TPU kernel keeps it (pallas_attention.py
+//   :106-108 rounds nothing before the product), split into TF32 hi and lo
+//   as in the f32 form; V has no lo part, so a step takes two products for
+//   three, at the same f32 accuracy.
+
+// stage_rows for a bf16 matrix: its rows widened into the same f32 tiles
+// (zeros past n and D). The loads go through registers, since cp.async copies
+// words and cannot widen them: VEC loads 8 bf16 at once (D % 8 == 0 and a
+// 16-byte aligned base), else one. The stores are plain, so the caller's
+// __syncthreads, which the f32 form's cp.async ring has anyway, publishes them.
+template <int ROWS, int DW, int LD, int THREADS, bool VEC>
+__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* src, int r0, int n,
+                                           int D) {
+  constexpr int W = VEC ? 8 : 1, PER_ROW = DW / W;
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * W;
+    const bool p = r0 + r < n && c < D;
+    float* to = dst + r * LD + c;
+    if (VEC) {
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (p) {
+        const uint4 u =
+            __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c));
+        lo = make_float4(bits_lo(u.x), bits_hi(u.x), bits_lo(u.y), bits_hi(u.y));
+        hi = make_float4(bits_lo(u.z), bits_hi(u.z), bits_lo(u.w), bits_hi(u.w));
+      }
+      *reinterpret_cast<float4*>(to) = lo;
+      *reinterpret_cast<float4*>(to + 4) = hi;
+    } else {
+      *to = p ? ldg1(src + static_cast<size_t>(r0 + r) * D + c) : 0.f;
+    }
+  }
+}
+
+// score_tile on bf16 values held in f32 tiles: one bf16 mma.sync m16n8k8 a
+// step, whose register holds k = 2t and 2t + 1, read as columns 2t and 2t + 1
+// (score_tile's 8-byte loads: one permutation of a step's k for both operands
+// leaves the product as it is). Each step goes into a fresh accumulator added
+// to acc with one rounding, as mma3 does.
+template <int NT, int DW, int LD>
+__device__ __forceinline__ void score_tile_bf16(const float* a, const float* b,
+                                                float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni) acc[ni][0] = acc[ni][1] = acc[ni][2] = acc[ni][3] = 0.f;
+  const float* ar = a + g * LD + 2 * t;
+  const float* br = b + col_row(g) * LD + 2 * t;
+#pragma unroll
+  for (int kk = 0; kk < DW; kk += 8) {
+    const float2 a0 = *reinterpret_cast<const float2*>(ar + kk);
+    const float2 a1 = *reinterpret_cast<const float2*>(ar + 8 * LD + kk);
+    const uint32_t af[2] = {bf16::pack(a0.x, a0.y), bf16::pack(a1.x, a1.y)};
+    float d[NT][4];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      const float2 bv = *reinterpret_cast<const float2*>(br + ni * 8 * LD + kk);
+      d[ni][0] = d[ni][1] = d[ni][2] = d[ni][3] = 0.f;
+      bf16::mma(d[ni], af, bf16::pack(bv.x, bv.y));
+    }
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[ni][i] += d[ni][i];
+  }
+}
+
+// accumulate_step for a b whose values are exact in TF32 (bf16 values
+// widened): its lo part is zero, so a step is a_lo·b then a_hi·b into a fresh
+// accumulator, added to acc with one rounding (mma3's order without the
+// b_lo term).
+template <int ND, int LD>
+__device__ __forceinline__ void accumulate_step_exact_b(const uint32_t (&a_hi)[4],
+                                                        const uint32_t (&a_lo)[4],
+                                                        const float* b, float (&acc)[ND][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* b0 = b + t * LD + g;
+  const float* b1 = b + (4 + ((t + 2) & 3)) * LD + g;
+  constexpr int N = ND < 8 ? ND : 8;
+#pragma unroll
+  for (int n0 = 0; n0 < ND; n0 += N) {
+    uint32_t bf[N][2];
+    float d[N][4];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      bf[n][0] = __float_as_uint(b0[(n0 + n) * 8]);
+      bf[n][1] = __float_as_uint(b1[(n0 + n) * 8]);
+      d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(d[n], a_lo, bf[n]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma(d[n], a_hi, bf[n]);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n0 + n][i] += d[n][i];
   }
 }
 

@@ -20,6 +20,18 @@
 // ops/norm_residual.py _rows_per_warp): twice the loads in flight a warp and
 // gamma and beta loaded once for both; blocks of four warps.
 //
+// The bf16 form, mxt_layer_norm_fwd_bf16: the same TPU kernel on bf16 x,
+// gamma and beta (KVCacheDecoder(dtype='bfloat16')'s 2L + 1 LayerNorms a
+// prefill and a step). It is this kernel over bf16 storage: a lane loads its
+// 4 adjacent bf16 columns as 8 bytes and widens them (_fwd_kernel :79),
+// the statistics and the affine are f32 (:80-86), y is rounded to bf16 once,
+// to nearest even (:87), and mean and rstd stay f32. The affine is one FMA,
+// fma(x̂, γ, β) with x̂ = (x − mean)·rstd rounded, as XLA compiles JAX's
+// ``xhat * g + b`` (on f32 rows every y of the interpreted TPU kernel is the
+// FMA, and many differ from two roundings: tests/test_torch_serve_lm_bf16.py
+// test_the_pallas_layer_norm_affine_is_one_fma). Bound: bytes, half the f32
+// form's.
+//
 // Backward, mxt_layer_norm_bwd: replaces the TPU kernel _bwd_kernel
 // (launched by _bwd_call): dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂∘x̂)) with
 // dx̂ = dy∘γ, and dγ = Σ dy∘x̂, dβ = Σ dy over the rows. Also bound by bytes:
@@ -36,6 +48,7 @@
 // same run to run.
 #include <cstdint>
 
+#include "bf16_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -51,28 +64,31 @@ __device__ __forceinline__ void warp_sums(float (&v)[RPW]) {
     for (int r = 0; r < RPW; ++r) v[r] += __shfl_xor_sync(mxt::kFullMask, v[r], o);
 }
 
-// 4 adjacent values from p at column c (< D where taken), zeros past D
-template <bool VEC>
-__device__ __forceinline__ void load4(const float* __restrict__ p, int c, int D, bool live,
+// 4 adjacent values from p at column c (< D where taken), widened to f32,
+// zeros past D
+template <bool VEC, typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ p, int c, int D, bool live,
                                       float (&v)[4]) {
   if (VEC) {
-    const float4 q = live && c < D ? __ldg(reinterpret_cast<const float4*>(p + c))
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 q = live && c < D ? mxt::ldg4(p + c) : make_float4(0.f, 0.f, 0.f, 0.f);
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = live && c + j < D ? __ldg(p + c + j) : 0.f;
+    for (int j = 0; j < 4; ++j) v[j] = live && c + j < D ? mxt::ldg1(p + c + j) : 0.f;
   }
 }
 
 // CH: 128-column chunks a row (D <= 128·CH); RPW: rows a warp; VEC: D % 4
-// == 0 and x, gamma, beta, y 16-byte aligned.
-template <int CH, int RPW, bool VEC>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, float* __restrict__ y,
-                      float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                      int R, int D, float eps) {
+// == 0 and x, gamma, beta, y aligned to 4 elements (16 bytes of f32, 8 of
+// bf16). T: the storage of x, gamma, beta and y, float or __nv_bfloat16.
+template <typename T, int CH, int RPW, bool VEC>
+__device__ __forceinline__ void layer_norm_fwd_rows(const T* __restrict__ x,
+                                                    const T* __restrict__ gamma,
+                                                    const T* __restrict__ beta,
+                                                    T* __restrict__ y,
+                                                    float* __restrict__ mean_out,
+                                                    float* __restrict__ rstd_out, int R, int D,
+                                                    float eps) {
   const int lane = threadIdx.x & 31;
   const long long row0 =
       (static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5)) * RPW;
@@ -117,19 +133,24 @@ layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gam
     const long long row = row0 + r;
     if (row >= R) break;
     const float rs = 1.f / sqrtf(sq[r] / static_cast<float>(D) + eps);
-    float* yr = y + row * D;
+    T* yr = y + row * D;
 #pragma unroll
     for (int i = 0; i < CH; ++i) {
       const int c = 128 * i + 4 * lane;
       float o[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) o[j] = v[r][i][j] * rs * gv[i][j] + bv[i][j];
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (mxt::IsBf16<T>::value)
+          o[j] = __fmaf_rn(__fmul_rn(v[r][i][j], rs), gv[i][j], bv[i][j]);
+        else
+          o[j] = v[r][i][j] * rs * gv[i][j] + bv[i][j];
+      }
       if (VEC) {
-        if (c < D) *reinterpret_cast<float4*>(yr + c) = make_float4(o[0], o[1], o[2], o[3]);
+        if (c < D) mxt::st4(yr + c, make_float4(o[0], o[1], o[2], o[3]));
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (c + j < D) yr[c + j] = o[j];
+          if (c + j < D) mxt::st1(yr + c + j, o[j]);
       }
     }
     if (lane == 0) {
@@ -139,17 +160,79 @@ layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gam
   }
 }
 
-template <int CH, int RPW>
-void launch_fwd(const float* x, const float* gamma, const float* beta, float* y, float* mean,
-                float* rstd, int R, int D, float eps, bool vec, cudaStream_t st) {
+// The f32 kernel and the bf16 form, under names of their own (the profiler
+// attributes device time by name).
+template <int CH, int RPW, bool VEC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+layer_norm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, float* __restrict__ y,
+                      float* __restrict__ mean_out, float* __restrict__ rstd_out, int R, int D,
+                      float eps) {
+  layer_norm_fwd_rows<float, CH, RPW, VEC>(x, gamma, beta, y, mean_out, rstd_out, R, D, eps);
+}
+
+template <int CH, int RPW, bool VEC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+layer_norm_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ gamma,
+                           const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ y,
+                           float* __restrict__ mean_out, float* __restrict__ rstd_out, int R,
+                           int D, float eps) {
+  layer_norm_fwd_rows<__nv_bfloat16, CH, RPW, VEC>(x, gamma, beta, y, mean_out, rstd_out, R, D,
+                                                   eps);
+}
+
+template <int CH, int RPW, bool VEC>
+void launch_one(const float* x, const float* gamma, const float* beta, float* y, float* mean,
+                float* rstd, int R, int D, float eps, dim3 grid, dim3 block, cudaStream_t st) {
+  layer_norm_fwd_kernel<CH, RPW, VEC><<<grid, block, 0, st>>>(x, gamma, beta, y, mean, rstd, R,
+                                                              D, eps);
+}
+
+template <int CH, int RPW, bool VEC>
+void launch_one(const __nv_bfloat16* x, const __nv_bfloat16* gamma, const __nv_bfloat16* beta,
+                __nv_bfloat16* y, float* mean, float* rstd, int R, int D, float eps, dim3 grid,
+                dim3 block, cudaStream_t st) {
+  layer_norm_fwd_bf16_kernel<CH, RPW, VEC><<<grid, block, 0, st>>>(x, gamma, beta, y, mean,
+                                                                   rstd, R, D, eps);
+}
+
+template <int CH, int RPW, typename T>
+void launch_fwd(const T* x, const T* gamma, const T* beta, T* y, float* mean, float* rstd,
+                int R, int D, float eps, bool vec, cudaStream_t st) {
   const int rows_per_block = kWarpsPerBlock * RPW;
   const dim3 grid((R + rows_per_block - 1) / rows_per_block), block(kWarpsPerBlock * 32);
   if (vec)
-    layer_norm_fwd_kernel<CH, RPW, true><<<grid, block, 0, st>>>(x, gamma, beta, y, mean, rstd,
-                                                                 R, D, eps);
+    launch_one<CH, RPW, true>(x, gamma, beta, y, mean, rstd, R, D, eps, grid, block, st);
   else
-    layer_norm_fwd_kernel<CH, RPW, false><<<grid, block, 0, st>>>(x, gamma, beta, y, mean, rstd,
-                                                                  R, D, eps);
+    launch_one<CH, RPW, false>(x, gamma, beta, y, mean, rstd, R, D, eps, grid, block, st);
+}
+
+// The forward's launch for either storage: rows_per_warp 1, or 2 for
+// D <= 512 (ops/norm_residual.py _rows_per_warp).
+template <typename T>
+int layer_norm_fwd(const T* x, const T* gamma, const T* beta, T* y, float* mean, float* rstd,
+                   int R, int D, int rows_per_warp, float eps, void* stream) {
+  if (R < 1 || D < 1 || D > 1024 || rows_per_warp < 1 || rows_per_warp > (D <= 512 ? 2 : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 4 elements a load and a store: 16 bytes of f32, 8 of bf16
+  auto aligned = [](const T* p) { return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0; };
+  const bool vec = D % 4 == 0 && aligned(x) && aligned(gamma) && aligned(beta) && aligned(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool two = rows_per_warp == 2;
+  if (D <= 128) {
+    if (two) launch_fwd<1, 2>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+    else launch_fwd<1, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+  } else if (D <= 256) {
+    if (two) launch_fwd<2, 2>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+    else launch_fwd<2, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+  } else if (D <= 512) {
+    if (two) launch_fwd<4, 2>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+    else launch_fwd<4, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+  } else {
+    launch_fwd<8, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Backward: rows_per_block rows per block of kBwdWarps warps, each warp a
@@ -239,25 +322,15 @@ __global__ void layer_norm_bwd_sums_kernel(const float* __restrict__ part,
 extern "C" int mxt_layer_norm_fwd(const float* x, const float* gamma, const float* beta,
                                   float* y, float* mean, float* rstd, int R, int D,
                                   int rows_per_warp, float eps, void* stream) {
-  if (R < 1 || D < 1 || D > 1024 || rows_per_warp < 1 || rows_per_warp > (D <= 512 ? 2 : 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const bool vec = D % 4 == 0 && aligned(x) && aligned(gamma) && aligned(beta) && aligned(y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool two = rows_per_warp == 2;
-  if (D <= 128) {
-    if (two) launch_fwd<1, 2>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-    else launch_fwd<1, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-  } else if (D <= 256) {
-    if (two) launch_fwd<2, 2>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-    else launch_fwd<2, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-  } else if (D <= 512) {
-    if (two) launch_fwd<4, 2>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-    else launch_fwd<4, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-  } else {
-    launch_fwd<8, 1>(x, gamma, beta, y, mean, rstd, R, D, eps, vec, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return layer_norm_fwd(x, gamma, beta, y, mean, rstd, R, D, rows_per_warp, eps, stream);
+}
+
+// The bf16 form: x, gamma, beta and y bf16; mean and rstd f32.
+extern "C" int mxt_layer_norm_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gamma,
+                                       const __nv_bfloat16* beta, __nv_bfloat16* y,
+                                       float* mean, float* rstd, int R, int D, int rows_per_warp,
+                                       float eps, void* stream) {
+  return layer_norm_fwd(x, gamma, beta, y, mean, rstd, R, D, rows_per_warp, eps, stream);
 }
 
 // part: (ceil(R / 16), 2, D) scratch the caller allocated; sums: (2, D), row 0

@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .base import MXNetError, np_dtype
+from .base import MXNetError, inference_dtype, np_dtype
 from .context import Context, current_context
 from .ndarray import NDArray, _wrap, zeros
 from .ops.attention import ring_key as _ring_key
@@ -458,6 +458,12 @@ class Executor:
 
 
 # -------------------------------------------------------------------- binding
+def _infer_type(a):
+    """A bound array's dtype as the inference takes it (``inference_dtype``:
+    a bfloat16 array where numpy has no bfloat16 too)."""
+    return inference_dtype(a._tensor().dtype if hasattr(a, "_tensor") else a.dtype)
+
+
 def _lint_at_bind(symbol, arg_arrays, arg_names, aux_arrays, aux_names, train=True):
     """``MXNET_GRAPHLINT=warn|error`` (JAX :538-558): run the graph passes
     with the concrete bind shapes and dtypes; ``warn`` logs the findings,
@@ -470,10 +476,9 @@ def _lint_at_bind(symbol, arg_arrays, arg_names, aux_arrays, aux_names, train=Tr
     if mode is None:
         return
     shapes = {n: tuple(a.shape) for n, a in zip(arg_names, arg_arrays) if a is not None}
-    types = {n: np.dtype(np_dtype(a.dtype)) for n, a in zip(arg_names, arg_arrays)
-             if a is not None}
+    types = {n: _infer_type(a) for n, a in zip(arg_names, arg_arrays) if a is not None}
     shapes.update({n: tuple(a.shape) for n, a in zip(aux_names, aux_arrays)})
-    types.update({n: np.dtype(np_dtype(a.dtype)) for n, a in zip(aux_names, aux_arrays)})
+    types.update({n: _infer_type(a) for n, a in zip(aux_names, aux_arrays)})
     lint_bind(symbol, shapes, types, mode, target="bind", train=train)
 
 
@@ -494,7 +499,7 @@ def _rewrite_at_bind(symbol, args, grad_req, aux_states):
     for n, a in named.items():
         if a is not None:
             shapes[n] = tuple(a.shape)
-            types[n] = np.dtype(np_dtype(a.dtype))
+            types[n] = _infer_type(a)
     return rewrite_for_bind(symbol, shapes, types, grad_req=grad_req, target="bind")[0]
 
 

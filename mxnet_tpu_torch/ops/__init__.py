@@ -22,9 +22,11 @@ __all__ = ["AttrSpec", "OpDef", "get_op", "has_op", "list_ops", "parse_attrs", "
 #: is named here and imported when the counts are read.
 KERNELS = {
     "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bf16": (flash_attention, "bf16_launches"),
     "flash_attention_dq": (flash_attention, "dq_launches"),
     "flash_attention_dkv": (flash_attention, "dkv_launches"),
     "norm_residual": (norm_residual, "launches"),
+    "norm_residual_bf16": (norm_residual, "bf16_launches"),
     "norm_residual_bwd": (norm_residual, "bwd_launches"),
     "matmul_bias_act": (matmul_bias_act, "launches"),
     "matmul_bias_act_bf16": (matmul_bias_act, "bf16_launches"),

@@ -19,12 +19,20 @@ sequential grid axis became a loop inside one block. ``_tiles`` lists the rows
 each block owns and streams, and the kernels read that list: the forward and
 dq the blocks that own query rows, dk/dv those that own keys.
 
+The forward has a bf16 form (``mxt_flash_attention_fwd_bf16``), for bf16 q,
+k and v (``KVCacheDecoder(dtype='bfloat16')``'s prefill): what
+``_fwd_kernel`` (:81-114) computes on bf16 operands, the scores and P in
+f32, O = acc / l rounded once to bf16 (:113), lse f32 (:114). The backward
+kernels take f32 only: on bf16 they raise naming ROADMAP.md section 2b's
+item 2b, and the plain versions run only for CPU tensors.
+
 ``flash_attention``, ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
 are the dispatchers, and ``flash_attention_bwd`` runs the two backward ones: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
-or raises. ``FlashAttention`` is the autograd Function over them (the JAX
-package's ``custom_vjp``). ``launches``, ``dq_launches`` and ``dkv_launches``
-count kernel launches.
+(the forward's form by q's dtype) or raises. ``FlashAttention`` is the
+autograd Function over them (the JAX package's ``custom_vjp``).
+``launches``, ``bf16_launches``, ``dq_launches`` and ``dkv_launches`` count
+kernel launches (the f32 forward's, the bf16 forward's, the backward's).
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ MAX_HEAD_DIM = 128
 _NEG = -1e30
 
 launches = 0
+bf16_launches = 0
 dq_launches = 0
 dkv_launches = 0
 
@@ -74,7 +83,9 @@ def _scores(q, k, causal, scale):
 
 def flash_attention_plain(q, k, v, causal=False, scale=0.0):
     """The forward kernel's function in plain PyTorch: ``(O, lse)`` for
-    (BH, T, D) inputs."""
+    (BH, T, D) inputs. Narrower inputs (bf16) compute in f32, as
+    ``_fwd_kernel`` widens them (:93-95): O is rounded once to q's dtype,
+    lse stays f32."""
     if scale <= 0:
         scale = 1.0 / math.sqrt(q.shape[2])
     s = _scores(q, k, causal, scale)
@@ -140,7 +151,9 @@ def flash_attention(q, k, v, causal=False, scale=0.0):
     _check_shapes("flash_attention", q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
-    cuda_build.check_operands("flash_attention", q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    cuda_build.check_operands("flash_attention", q, k, v,
+                              dtypes=(torch.bfloat16,) if bf16 else (torch.float32,))
     BH, T, D = q.shape
     S = k.shape[1]
     if scale <= 0:
@@ -149,13 +162,16 @@ def flash_attention(q, k, v, causal=False, scale=0.0):
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     blocks = _table(T, S, bool(causal), q.device).q
     lib = cuda_build.library()
-    global launches
+    fn = lib.mxt_flash_attention_fwd_bf16 if bf16 else lib.mxt_flash_attention_fwd
+    global launches, bf16_launches
     with torch.cuda.device(q.device):
-        code = lib.mxt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            blocks.data_ptr(), blocks.shape[0], BH, T, S, D, float(scale),
-            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
-        launches += 1
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                  blocks.data_ptr(), blocks.shape[0], BH, T, S, D, float(scale),
+                  int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+        if bf16:
+            bf16_launches += 1
+        else:
+            launches += 1
     cuda_build.check(code, "flash_attention")
     return o, lse
 

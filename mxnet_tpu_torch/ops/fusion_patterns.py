@@ -175,6 +175,19 @@ def _apply1(node, *ins):
     return outs[0]
 
 
+def _one_dtype(*ts):
+    """The operands (None kept) in their promoted dtype: a site whose
+    operands mix float32 and bfloat16 (bfloat16 inputs over float32
+    weights) runs the float32 kernel on them widened, so that its output
+    has the unfused ops' dtype (the promoted one); the kernels take one
+    dtype, whose form (f32 or bf16) they launch."""
+    dt = None
+    for t in ts:
+        if t is not None:
+            dt = t.dtype if dt is None else torch.promote_types(dt, t.dtype)
+    return tuple(t if t is None or t.dtype == dt else t.to(dt) for t in ts)
+
+
 def _has_kernel(x, taken):
     """Whether a site gets its kernel candidate: always on CUDA (whose
     dispatcher raises where the kernel does not take the shapes), and on
@@ -257,6 +270,7 @@ class MatmulBiasAct(Pattern):
 
             def make(schedule):
                 def fused(x, w, b=None):
+                    x, w, b = _one_dtype(x, w, b)
                     y = _mba.MatmulBiasAct.apply(x.reshape(m, k).contiguous(), w.contiguous(),
                                                  None if b is None else b.contiguous(), act,
                                                  schedule)
@@ -317,6 +331,7 @@ class Attention(Pattern):
             return torch.matmul(torch.softmax(s, dim=-1), v.to(wide)).to(q.dtype)
 
         def flash(q, k, v):
+            q, k, v = _one_dtype(q, k, v)
             o = _fa.FlashAttention.apply(q.reshape(B * H, T, D).contiguous(),
                                          k.reshape(B * H, S, D).contiguous(),
                                          v.reshape(B * H, S, D).contiguous(), causal, scale)
@@ -452,6 +467,7 @@ class NormResidual(Pattern):
         D = int(x.shape[-1])
 
         def layer_norm(x, gamma, beta):
+            x, gamma, beta = _one_dtype(x, gamma, beta)
             y = _nr.LayerNormAffine.apply(x.reshape(-1, D).contiguous(),
                                           gamma.reshape(D).contiguous(),
                                           beta.reshape(D).contiguous(), eps)

@@ -180,6 +180,8 @@ def _softmax(attrs, data):
     t = attrs.get("temperature")
     if t not in (None, "None"):
         data = data / float(t)
+    if data.dtype == torch.bfloat16:  # the decode step's scores (JAX rounds op by op)
+        return _softmax_bf16(data, attrs["axis"])
     return F.softmax(data, dim=attrs["axis"])
 
 

@@ -17,11 +17,20 @@ chunk) and takes one row a warp, or two where ``_rows_per_warp`` says so.
 The backward's C entry launches a second kernel that adds the per-block
 partial rows in a fixed order, where the TPU path sums them in XLA.
 
+The forward has a bf16 form (``mxt_layer_norm_fwd_bf16``), for bf16 x,
+gamma and beta (``KVCacheDecoder(dtype='bfloat16')``): the rows widened,
+the statistics and the affine in f32, y rounded once to bf16 (``_fwd_kernel``
+:79-87), mean and rstd f32. The affine is one FMA, ``fma(x̂, γ, β)``, as XLA
+compiles the TPU kernel's ``xhat * g + b``; the plain version takes it in
+float64 and rounds it once. The backward takes f32 only: on bf16 it raises
+naming ROADMAP.md section 2b's item 2b.
+
 ``layer_norm_affine`` and ``layer_norm_affine_bwd`` are the dispatchers: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
-or raises. ``LayerNormAffine`` is the autograd Function over them (the JAX
-package's ``custom_vjp``). ``launches`` and ``bwd_launches`` count kernel
-launches.
+(the forward's form by x's dtype) or raises. ``LayerNormAffine`` is the
+autograd Function over them (the JAX package's ``custom_vjp``).
+``launches``, ``bf16_launches`` and ``bwd_launches`` count kernel launches
+(the f32 forward's, the bf16 forward's, the backward's).
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ WARPS_PER_BLOCK = 4
 TWO_ROWS_MIN = 2048
 
 launches = 0
+bf16_launches = 0
 bwd_launches = 0
 
 
@@ -69,14 +79,20 @@ def _compute_dtype(x):
 def layer_norm_affine_plain(x, gamma, beta, eps=1e-5):
     """The kernel's function in plain PyTorch: ``(y, mean, rstd)``, computed
     in float32 as ``_fwd_kernel`` (:78) does (float64 stays float64): y in
-    x's dtype, mean and rstd in the computing dtype."""
+    x's dtype, mean and rstd in the computing dtype. On bf16 x the affine
+    is one FMA, as the bf16 kernel and XLA take it: x̂·γ + β exact in
+    float64, rounded once to f32, then once to bf16."""
     f = _compute_dtype(x)
     xf = x.to(f)
     mean = xf.mean(dim=-1, keepdim=True)
     cent = xf - mean
     var = (cent * cent).mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt(var + eps)
-    y = (cent * rstd) * gamma.to(f) + beta.to(f)
+    if x.dtype == torch.bfloat16:
+        xhat = (cent * rstd).double()
+        y = (xhat * gamma.double() + beta.double()).to(f)
+    else:
+        y = (cent * rstd) * gamma.to(f) + beta.to(f)
     return y.to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
 
 
@@ -92,7 +108,9 @@ def layer_norm_affine(x, gamma, beta, eps=1e-5):
                          % (x.shape[1], MAX_DIM))
     if x.device.type == "cpu":
         return layer_norm_affine_plain(x, gamma, beta, eps)
-    cuda_build.check_operands("layer_norm_affine", x, gamma, beta)
+    bf16 = x.dtype == torch.bfloat16
+    cuda_build.check_operands("layer_norm_affine", x, gamma, beta,
+                              dtypes=(torch.bfloat16,) if bf16 else (torch.float32,))
     R, D = x.shape
     y = torch.empty_like(x)
     mean = torch.empty((R,), dtype=torch.float32, device=x.device)
@@ -100,13 +118,16 @@ def layer_norm_affine(x, gamma, beta, eps=1e-5):
     if R == 0:
         return y, mean, rstd
     lib = cuda_build.library()
-    global launches
+    fn = lib.mxt_layer_norm_fwd_bf16 if bf16 else lib.mxt_layer_norm_fwd
+    global launches, bf16_launches
     with torch.cuda.device(x.device):
-        code = lib.mxt_layer_norm_fwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), R, D, _rows_per_warp(R, D), float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        launches += 1
+        code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+                  mean.data_ptr(), rstd.data_ptr(), R, D, _rows_per_warp(R, D), float(eps),
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        if bf16:
+            bf16_launches += 1
+        else:
+            launches += 1
     cuda_build.check(code, "layer_norm_affine")
     return y, mean, rstd
 

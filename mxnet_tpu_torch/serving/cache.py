@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..base import MXNetError, np_dtype
+from ..base import MXNetError, inference_dtype, np_dtype, torch_dtype
 from ..context import current_context
 from .. import telemetry as _tm
 
@@ -64,6 +64,24 @@ def _device_kind():
     if not torch.cuda.is_available():
         return "cpu"
     return _sanitize(torch.cuda.get_device_name())
+
+
+def _torch_dtype_of(value):
+    """The torch dtype of a parameter value: a tensor's, an NDArray's
+    tensor's, a numpy array's (``ml_dtypes``' bfloat16 included)."""
+    if isinstance(value, torch.Tensor):
+        return value.dtype
+    if hasattr(value, "_tensor"):
+        return value._tensor().dtype
+    return torch_dtype(np.asarray(value).dtype)
+
+
+def _zeros(shape, ctx, dtype):
+    """An NDArray of zeros in a torch dtype (bfloat16 too, where numpy has
+    none) on ``ctx``."""
+    from ..ndarray import _wrap
+
+    return _wrap(torch.zeros(tuple(shape), dtype=dtype, device=ctx.torch_device), ctx)
 
 
 def _shape_key(input_shapes):
@@ -97,7 +115,12 @@ class PersistentExecutableCache:
     operands' promoted dtype (a planned conv too:
     ``fusion._exec_conv_infer``); ``MXNET_SERVE_QUANT=bf16`` is the route
     that computes the convolutions in bfloat16. Other dtypes raise (the
-    reference takes any; the port's kernels take these two). ``model_key`` names the
+    reference takes any; the port's kernels take these two). An input may
+    be bound in a dtype of its own (``_bind_inputs_as``: the LM decoders
+    bind their token ids and positions in float32 whatever ``dtype`` is).
+    Binding needs no numpy bfloat16: the inference takes
+    ``base.inference_dtype`` and the arrays are allocated in their torch
+    dtypes. ``model_key`` names the
     on-disk manifest (default: a digest of the symbol JSON and the dtype, the reference's digest);
     ``cache_dir`` is its root (default ``MXNET_SERVE_CACHE_DIR``; unset: no
     persistence). ``max_executables`` bounds an UNSEALED cache: past it the
@@ -115,6 +138,7 @@ class PersistentExecutableCache:
         self._ctx = ctx or current_context()
         self._ctx.torch_device  # raises now if the device is not there
         self._dtype = str(dtype)
+        self._input_dtypes: Dict[str, str] = {}  # inputs bound in another dtype
         self._arg_params = dict(arg_params or {})
         self._aux_params = dict(aux_params or {})
         # ONE set of parameter and aux arrays shared by every bucket executor
@@ -136,6 +160,21 @@ class PersistentExecutableCache:
         self._cache_dir = cache_dir if cache_dir is not None else serve_cache_dir()
         #: executors bound so far (a hit binds nothing)
         self.binds = 0
+
+    def _bind_inputs_as(self, dtypes):
+        """Bind the named inputs in their own dtypes ({name: "float32" or
+        "bfloat16"}) rather than the cache's; before the first bind. The
+        digest carries every input whose dtype differs."""
+        if self._exes:
+            raise MXNetError("serving: input dtypes are set before the first bind")
+        self._input_dtypes = {n: str(d) for n, d in dtypes.items()}
+        other = sorted((n, d) for n, d in self._input_dtypes.items() if d != self._dtype)
+        extra = "".join("|%s=%s" % nd for nd in other)
+        self._digest = hashlib.sha1((self._sym.tojson() + "|" + self._dtype + extra)
+                                    .encode()).hexdigest()[:16]
+
+    def _input_dtype(self, name):
+        return self._input_dtypes.get(name, self._dtype)
 
     @property
     def input_names(self) -> List[str]:
@@ -159,9 +198,9 @@ class PersistentExecutableCache:
         for n, v in self._arg_params.items():
             if n in arg_names:  # extra checkpoint entries are ignored
                 shapes.setdefault(n, tuple(v.shape))
-                types[n] = np_dtype(v.dtype)
+                types[n] = inference_dtype(v.dtype)
         for n in shapes:
-            types.setdefault(n, np_dtype(self._dtype))
+            types.setdefault(n, inference_dtype(self._input_dtype(n)))
         return self._sym._infer_impl(shapes, types)
 
     def output_shapes(self, input_shapes) -> List[tuple]:
@@ -177,11 +216,11 @@ class PersistentExecutableCache:
         args = {}
         for n, s, t in zip(self._sym.list_arguments(), arg_shapes, arg_types):
             if n in inputs:  # input slots are per bucket: their shape IS the key
-                args[n] = zeros(s, ctx=self._ctx, dtype=t)
+                args[n] = _zeros(s, self._ctx, torch_dtype(self._input_dtype(n)))
                 continue
             arr = self._shared_args.get(n)
             if arr is None:
-                arr = zeros(s, ctx=self._ctx, dtype=t)
+                arr = _zeros(s, self._ctx, _torch_dtype_of(self._arg_params[n]))
                 arr[:] = self._arg_params[n]
                 self._shared_args[n] = arr
             args[n] = arr
@@ -216,7 +255,7 @@ class PersistentExecutableCache:
                           shapes=str(dict(input_shapes))):
                 exe = self._bind(input_shapes)
                 exe.forward(is_train=False)
-                exe.outputs[0].asnumpy()  # wait for the warmup forward to finish
+                exe.outputs[0].wait_to_read()  # wait for the warmup forward to finish
             with self._sites_lock:
                 self._fusion_sites[key] = _plan_pattern_sites(exe)
             if _tm.enabled():

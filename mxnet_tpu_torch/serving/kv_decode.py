@@ -35,6 +35,15 @@ launches when the graph is captured, not when it replays: the capture's
 counts are taken back and added again at every replay
 (``ops.add_launch_counts``).
 
+**bfloat16.** ``dtype="bfloat16"`` binds the inputs, the KV buffers and the
+masks in bf16 as JAX's decoders do (:446, :882), with two deliberate
+departures (ROADMAP.md section 3): the token ids and positions are bound in
+float32 (JAX binds them in bf16, which rounds ids above 256; its own
+megastep feeds them as float32), and the bf16 megastep runs (JAX's raises
+when its f32 onehot promotes the carried KV), feeding its onehot and mask in
+bf16 and rounding each step's KV to the buffers' dtype, so K steps of one
+megastep give the tokens and the KV bits of K single steps.
+
 **Sampling.** JAX draws ``categorical(fold_in(fold_in(key, pos), lane))``
 (:217-223). Its bits cannot be matched; what is kept is that a draw depends
 only on (seed, absolute position, lane), so a seeded decode gives the same
@@ -55,6 +64,7 @@ from .. import ops as _ops
 from .. import random as _random
 from .. import telemetry as _tm
 from ..base import MXNetError
+from ..ndarray import _wrap as _nd_wrap
 from .cache import PersistentExecutableCache
 
 __all__ = ["KVCacheDecoder", "PagedKVDecoder", "PagedKVExhausted", "decode_megastep_k"]
@@ -63,13 +73,35 @@ _NEG = np.float32(-1e9)
 _M32 = 0xFFFFFFFF
 
 
-def _float32_only(dtype):
-    """The decoders compute in float32, the JAX serving default; the
-    transformer's bf16 kernels are queued in ROADMAP.md section 2b."""
-    if str(dtype) != "float32":
-        raise MXNetError("kv_decode: dtype %r is not supported; the decoders compute in "
-                         "float32 (the transformer's bf16 kernels are queued in ROADMAP.md "
-                         "section 2b)" % (dtype,))
+#: the inputs the decoders bind in float32 whatever their dtype: token ids and
+#: positions (bfloat16 holds integers exactly only up to 256)
+_ID_INPUTS = {"data": "float32", "pos_idx": "float32"}
+
+
+def _serving_dtype(dtype):
+    """The decoders' dtype by name: ``"float32"`` (the JAX serving default)
+    or ``"bfloat16"`` (a str, numpy or torch dtype); anything else raises."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:  # "bfloat16" where numpy has no bfloat16
+            name = str(dtype)
+    if name not in ("float32", "bfloat16"):
+        raise MXNetError("kv_decode: dtype %r is not supported; the decoders serve "
+                         "'float32' and 'bfloat16'" % (dtype,))
+    return name
+
+
+def _f32(x):
+    """A tensor or NDArray of bfloat16 values as float32, on its device, for
+    the host to read (numpy has no bfloat16 where ``ml_dtypes`` is missing;
+    every bfloat16 value is a float32 one); any other dtype as it is."""
+    t = x._tensor() if hasattr(x, "_tensor") else x
+    if t.dtype != torch.bfloat16:
+        return x
+    return t.float() if x is t else _nd_wrap(t.float(), x.context)
 
 
 def decode_megastep_k(default=1):
@@ -233,6 +265,7 @@ class _DecodeMegastep:
         self.kv_names = [n for i in range(L) for n in ("kv_k_%d" % i, "kv_v_%d" % i)]
         step_inputs = {"data", "pos_idx", "slot_onehot", "kv_mask", *self.kv_names}
         self.weight_names = [n for n in self._prog.arg_names if n not in step_inputs]
+        self._in_dtype = getattr(torch, dec.dtype)  # slot_onehot's and kv_mask's
         self._sig = None
         self._sites = None     # the fusion plan, resolved at the first (warm-up) run
         self._graph = None     # the CUDA graph (a decoder on the card)
@@ -258,6 +291,7 @@ class _DecodeMegastep:
         L2 = len(self.kv_names)
         tok, done, mask, kv = tok0, done0, base_mask, list(kvs)
         toks, acts = [], []
+        dt = self._in_dtype
         for t in range(self.k):
             act = ~done
             oh = (slots[:, t:t + 1] == slot_ids).to(torch.float32) \
@@ -267,14 +301,20 @@ class _DecodeMegastep:
             # idle lanes clamp into the position table; their onehot row is
             # all-zero, so what they compute is written nowhere
             pos_t = torch.clamp(pos + t, 0, self._pos_len - 1)
+            # the onehot and the mask in the decoder's dtype, as a single
+            # step binds them; ids and positions in float32 (_ID_INPUTS)
             args.update(data=tok.to(torch.float32)[:, None],
-                        pos_idx=pos_t.to(torch.float32)[:, None], slot_onehot=oh, kv_mask=mask)
+                        pos_idx=pos_t.to(torch.float32)[:, None], slot_onehot=oh.to(dt),
+                        kv_mask=mask.to(dt))
             args.update(zip(self.kv_names, kv))
             vals = tuple(args[n] for n in self._prog.arg_names)
             if self._sites is None:  # the first (warm-up) run, before any capture
                 self._sites = self._prog.sites_of(vals, (), dev)
             outs, _ = self._prog.interpret(vals, (), False, None, self._sites)
-            kv = outs[1:1 + L2]
+            # each step's KV rounded to the buffers' dtype, as a single step's
+            # copy back into them rounds it (a float32 K/V over bfloat16
+            # buffers: float32 weights served at dtype='bfloat16')
+            kv = [o.to(b.dtype) for o, b in zip(outs[1:1 + L2], kvs)]
             if self.sampler.mode == "greedy":
                 nxt = outs[-1].to(torch.int64)  # the on-device argmax head
             else:
@@ -404,6 +444,7 @@ class _ChunkProgram:
             model_dim=dec.model_dim, ffn_dim=dec.ffn_dim, chunk_len=self.t,
             total_slots=self._S, pos_len=dec.pos_len))
         self.kv_names = [n for i in range(L) for n in ("kv_k_%d" % i, "kv_v_%d" % i)]
+        self._in_dtype = getattr(torch, dec.dtype)  # write_onehot's and att_mask's
         self._sig = None
         self._sites = None  # the fusion plan, resolved at warm
 
@@ -415,9 +456,12 @@ class _ChunkProgram:
     def _forward(self, dec, data, pos_idx, w_oh, mask):
         ex = dec._dec_exe.arg_dict
         dev = ex[self.kv_names[0]]._tensor().device
-        feed = {"data": data, "pos_idx": pos_idx, "write_onehot": w_oh, "att_mask": mask}
-        args = tuple(torch.from_numpy(feed[n]).to(dev) if n in feed else ex[n]._tensor()
-                     for n in self._prog.arg_names)
+        # ids and positions in float32, the onehot and the mask in the
+        # decoder's dtype, as its decode step binds them
+        feed = {"data": (data, torch.float32), "pos_idx": (pos_idx, torch.float32),
+                "write_onehot": (w_oh, self._in_dtype), "att_mask": (mask, self._in_dtype)}
+        args = tuple(torch.from_numpy(feed[n][0]).to(dev, feed[n][1]) if n in feed
+                     else ex[n]._tensor() for n in self._prog.arg_names)
         if self._sites is None:  # resolved once, at warm
             self._sites = self._prog.sites_of(args, (), dev)
         with torch.no_grad():
@@ -461,8 +505,16 @@ class KVCacheDecoder:
     ``arg_params`` is the {name: array} dict of ``models/transformer.
     get_symbol`` (numpy arrays, tensors, or anything ``arr[:] =`` takes);
     the serving graphs share those names. ``ctx`` defaults to ``gpu(0)``.
-    The decoder computes in float32, the JAX serving default: a ``dtype``
-    other than ``"float32"`` raises. ``cache_dir`` and ``model_key`` name
+    ``dtype`` is ``"float32"`` (the JAX serving default) or ``"bfloat16"``:
+    the inputs, the KV buffers and the masks are bound in it, the params
+    keep their own dtype (bfloat16 params, as ``params_from_numpy(...,
+    dtype="bfloat16")`` makes them, compute in bf16 through the bf16 forms
+    of the flash, LayerNorm and matmul_bias_act kernels; float32 params
+    compute in float32 over bfloat16 KV buffers), and the token ids and
+    positions are bound in float32 whatever ``dtype`` is (``_ID_INPUTS``:
+    the reference binds them in ``dtype``, and bfloat16 rounds ids above
+    256). Logits come back as float32 numpy arrays holding the bf16 values.
+    Any other ``dtype`` raises. ``cache_dir`` and ``model_key`` name
     the two caches' manifests (``model_key`` + ``-prefill`` / ``-decode``).
     ``sample_seed`` fixes the megastep sampler's draws."""
 
@@ -473,7 +525,7 @@ class KVCacheDecoder:
                  dtype="float32", cache_dir=None, model_key=None, sample_seed=None):
         from ..models import transformer as _tf
 
-        _float32_only(dtype)
+        self.dtype = _serving_dtype(dtype)
         self.vocab_size = int(vocab_size)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
@@ -493,12 +545,14 @@ class KVCacheDecoder:
         key = model_key or "transformer_decode"
         self._pf_cache = PersistentExecutableCache(
             _tf.get_prefill_symbol(prefill_len=self.prefill_len, **cfg),
-            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            arg_params, {}, ctx=ctx, dtype=self.dtype, cache_dir=cache_dir,
             model_key=key + "-prefill")
         self._dec_cache = PersistentExecutableCache(
             _tf.get_decode_symbol(max_len=self.max_len, **cfg),
-            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            arg_params, {}, ctx=ctx, dtype=self.dtype, cache_dir=cache_dir,
             model_key=key + "-decode")
+        for cache in (self._pf_cache, self._dec_cache):
+            cache._bind_inputs_as(_ID_INPUTS)
         self._dec_exe = None
         self._pos = 0
         self._warm = False
@@ -566,7 +620,7 @@ class KVCacheDecoder:
             pf.forward(is_train=False)
             # only the last real position's logits cross to the host
             logits = pf.outputs[0]._tensor().reshape(B, P, self.vocab_size)[:, L - 1, :]
-            logits = logits.cpu().numpy()
+            logits = _f32(logits).cpu().numpy()
         # seed ring slots 0..P-1 with the prefill's K/V, in place on the
         # device (slots >= L hold garbage, masked until written)
         for i in range(self.num_layers):
@@ -617,7 +671,7 @@ class KVCacheDecoder:
         t0 = time.perf_counter()
         with _tm.span("serving.decode_step", rows=self.batch, pos=self._pos):
             exe.forward(is_train=False)
-            logits = exe.outputs[0].asnumpy()
+            logits = _f32(exe.outputs[0]).asnumpy()
         if _tm.enabled():
             _tm.timer("serving.decode_step").add(time.perf_counter() - t0)
         _gap_return(self)
@@ -821,7 +875,9 @@ class PagedKVDecoder:
     write into a page another holder still references copies it first
     (copy-on-write; ``fork`` shares every page this way). ``rollback``
     truncates a sequence by releasing whole pages, the speculative reject
-    primitive (``serving/speculative.py``)."""
+    primitive (``serving/speculative.py``). ``dtype`` is as
+    ``KVCacheDecoder``'s; the chunk program binds its onehot and mask in it
+    too."""
 
     def __init__(self, arg_params: Dict[str, object], vocab_size,
                  num_layers=2, num_heads=2, model_dim=32, ffn_dim=64,
@@ -832,7 +888,7 @@ class PagedKVDecoder:
                  model_key=None, sample_seed=None):
         from ..models import transformer as _tf
 
-        _float32_only(dtype)
+        self.dtype = _serving_dtype(dtype)
         self.vocab_size = int(vocab_size)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
@@ -872,13 +928,15 @@ class PagedKVDecoder:
         key = model_key or "transformer_paged_global_decode"
         self._pf_cache = PersistentExecutableCache(
             _tf.get_prefill_symbol(prefill_len=self.prefill_len, **cfg),
-            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            arg_params, {}, ctx=ctx, dtype=self.dtype, cache_dir=cache_dir,
             model_key=key + "-prefill")
         self._dec_cache = PersistentExecutableCache(
             _tf.get_decode_symbol(max_len=self.total_slots, per_stream_slots=True,
                                   global_slots=True, **cfg),
-            arg_params, {}, ctx=ctx, dtype=dtype, cache_dir=cache_dir,
+            arg_params, {}, ctx=ctx, dtype=self.dtype, cache_dir=cache_dir,
             model_key=key + "-decode")
+        for cache in (self._pf_cache, self._dec_cache):
+            cache._bind_inputs_as(_ID_INPUTS)
         self._dec_exe = None
         self._lanes: Dict[int, _Lane] = {}   # lane index -> _Lane
         self._seq_lane: Dict[int, int] = {}  # seq_id -> lane index
@@ -1055,8 +1113,8 @@ class PagedKVDecoder:
             pf = self._pf_cache.executable({"data": (1, self.prefill_len)})
             pf.arg_dict["data"][:] = padded
             pf.forward(is_train=False)
-            logits = pf.outputs[0]._tensor().reshape(
-                1, self.prefill_len, self.vocab_size)[0, L - 1, :].cpu().numpy()
+            logits = _f32(pf.outputs[0]._tensor().reshape(
+                1, self.prefill_len, self.vocab_size)[0, L - 1, :]).cpu().numpy()
             phys_idx = None
             for i in range(self.num_layers):
                 for tag, out in (("kv_k_%d" % i, pf.outputs[1 + 2 * i]),
@@ -1064,7 +1122,7 @@ class PagedKVDecoder:
                     ring = self._kv(tag)
                     if phys_idx is None:
                         phys_idx = torch.as_tensor(phys, dtype=torch.int64).to(ring.device)
-                    ring.index_copy_(1, phys_idx, out._tensor()[0, :, :L, :])
+                    ring.index_copy_(1, phys_idx, out._tensor()[0, :, :L, :].to(ring.dtype))
         return logits
 
     def _chunk_for(self, t):
@@ -1103,7 +1161,7 @@ class PagedKVDecoder:
         _gap_mark(self, "serving.chunk_prefill")
         with _tm.span("serving.chunk_prefill", t=T, rows=n, write=bool(write)):
             logits, new_kvs = prog.run(self, data, pos_idx, w_oh, mask)
-            out = logits[:n].cpu().numpy()
+            out = _f32(logits[:n]).cpu().numpy()
         _gap_return(self)
         if write:
             self._write_back(new_kvs)
@@ -1289,7 +1347,7 @@ class PagedKVDecoder:
         with _tm.span("serving.decode_step", rows=len(stepped), paged=True):
             exe.forward(is_train=False)
             # graphlint: waive GL701 -- single-step tail of the megastep loop; the K-amortized body is the CUDA-graph replay in step_megastep
-            logits = exe.outputs[0].asnumpy()
+            logits = _f32(exe.outputs[0]).asnumpy()
         _gap_return(self)
         self._write_back([exe.outputs[1 + j]._tensor() for j in range(2 * self.num_layers)])
         out = {}

@@ -73,8 +73,11 @@ def test_f1_the_serving_cache_and_the_decoders_take_the_references_arguments(tmp
                                          model_key="lm", **tcfg, **extra)
             keys.append((dec._pf_cache._model_key, dec._dec_cache._model_key))
         assert keys[0] == keys[1] == ("lm-prefill", "lm-decode")
-        with pytest.raises(pt.MXNetError, match="section 2b"):
-            getattr(ps, cls_name)(w, ctx=pt.cpu(), dtype="bfloat16", **tcfg, **extra)
+        # bfloat16 serves (tests/test_torch_serve_lm_bf16.py); other dtypes raise
+        assert getattr(ps, cls_name)(w, ctx=pt.cpu(), dtype="bfloat16", **tcfg,
+                                     **extra).dtype == "bfloat16"
+        with pytest.raises(pt.MXNetError, match="'float32' and 'bfloat16'"):
+            getattr(ps, cls_name)(w, ctx=pt.cpu(), dtype="float16", **tcfg, **extra)
     spec_keys = []
     for mod, ctx in ((js, mx.cpu()), (ps, pt.cpu())):
         spec = mod.SpeculativeDecoder.build(w, draft_layers=1, gamma=2, model_key="lm",

@@ -144,7 +144,7 @@ def test_bound_site_the_kernel_does_not_take_raises(dev, which):
 def _shifted(x, offset):
     """``x`` copied into a view ``offset`` floats into its storage (for
     ``offset`` 1, a base that is not 16-byte aligned)."""
-    buf = torch.empty(x.numel() + offset, device=x.device)
+    buf = torch.empty(x.numel() + offset, device=x.device, dtype=x.dtype)
     buf[offset:] = x.reshape(-1)
     return buf[offset:].view(x.shape)
 
@@ -283,6 +283,7 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
     assert ops.launch_counts() == {"flash_attention": L, "flash_attention_dq": L,
                                    "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
                                    "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L,
+                                   "flash_attention_bf16": 0, "norm_residual_bf16": 0,
                                    "matmul_bias_act_bf16": 0, "conv_bn": 0, "conv_bn_infer": 0,
                                    "conv_bn_infer_bf16": 0, "conv_bn_bf16": 0, "conv_bn_bwd": 0,
                                    "conv_bn_bwd_bf16": 0, "matmul_stats": 0, "rtc": 0}
@@ -388,22 +389,31 @@ def test_conv_bn_float32_kernel_keeps_its_bits(dev):
 
 
 def test_bf16_reaches_only_the_kernels_with_a_bf16_form(dev):
-    """bf16 operands: the conv+BN kernels and matmul_bias_act take them (their
-    bf16 forms); the transformer's kernels refuse them naming ROADMAP.md
-    section 2b's item 2b, matmul_stats naming item 2c; a bf16 x beside a
-    float32 w is refused by every conv+BN dispatcher, and nothing launches."""
+    """bf16 operands: the conv+BN kernels, matmul_bias_act and the flash and
+    LayerNorm forwards take them (their bf16 forms); the flash and LayerNorm
+    backward kernels refuse them naming ROADMAP.md section 2b's item 2b,
+    matmul_stats naming item 2c; a bf16 x beside a float32 w is refused by
+    every conv+BN dispatcher, a bf16 x beside a float32 gamma by the
+    LayerNorm forward, and nothing launches."""
     x, w, scale, shift, _, _ = _conv_case(dev, 2, 16, 8, 8, 16, 3, 1, "prologue")
     xb, wb = x.bfloat16(), w.bfloat16()
     assert cb.conv_block_infer(xb, wb, scale, shift, (1, 1), True).dtype == torch.bfloat16
     assert cb.conv_block(xb, wb, scale, shift)[0].dtype == torch.bfloat16
     assert mba.matmul_bias_act(_randn(dev, 8, 16).bfloat16(), _randn(dev, 16, 16).bfloat16(),
                                None, "relu").dtype == torch.bfloat16
-    before = pt.ops.launch_counts()
     q = _randn(dev, 2, 8, 64).bfloat16()
+    o, lse = fa.flash_attention(q, q, q, causal=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    xl, gl = _randn(dev, 4, 16).bfloat16(), _randn(dev, 16).bfloat16()
+    assert nr.layer_norm_affine(xl, gl, gl)[0].dtype == torch.bfloat16
+    before = pt.ops.launch_counts()
     with pytest.raises(MXNetError, match="item 2b"):
-        fa.flash_attention(q, q, q, causal=True)
+        fa.flash_attention_bwd(q, q, q, o, lse, q, causal=True)
     with pytest.raises(MXNetError, match="item 2b"):
-        nr.layer_norm_affine(_randn(dev, 4, 16).bfloat16(), _randn(dev, 16), _randn(dev, 16))
+        nr.layer_norm_affine_bwd(xl, gl, torch.zeros(4, device=dev), torch.ones(4, device=dev),
+                                 xl)
+    with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
+        nr.layer_norm_affine(xl, _randn(dev, 16), _randn(dev, 16))
     with pytest.raises(MXNetError, match="item 2c"):
         ms.matmul_with_stats(_randn(dev, 64, 16).bfloat16(), _randn(dev, 16, 8).bfloat16())
     with pytest.raises(MXNetError, match="computes in one dtype"):
@@ -547,6 +557,87 @@ def test_matmul_bias_act_bf16_kernel_matches_plain(dev, M, N, K, act):
     after = pt.ops.launch_counts()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
         "matmul_bias_act_bf16": len(schedules) + 1}
+
+
+# the prefill's (64, 128, 128, 64) and a paged admit's (8, 128, 128, 64)
+# causal shapes, ragged tiles (T not a multiple of the block's 64 rows), head
+# width 128, widths that are no multiple of 8 (36, 13: one bf16 a load),
+# rectangular T < S, and bases one element past 16-byte alignment
+@pytest.mark.parametrize("BH,T,S,D,causal,offset", [
+    (64, 128, 128, 64, True, 0), (8, 128, 128, 64, True, 0), (2, 1, 1, 8, True, 0),
+    (3, 33, 33, 64, True, 0), (2, 17, 95, 128, True, 0), (2, 40, 9, 72, False, 0),
+    (3, 70, 70, 36, True, 0), (2, 45, 77, 13, True, 0), (3, 75, 75, 56, True, 1),
+    (2, 100, 100, 128, True, 0)])
+def test_flash_attention_bf16_kernel_matches_plain(dev, BH, T, S, D, causal, offset):
+    """The forward's bf16 form against its plain version: O within one bf16
+    ulp (or 1e-5 of its largest magnitude), lse within 1e-5; only
+    ``flash_attention_bf16`` counts."""
+    q, k, v = (_shifted(x.bfloat16(), offset) for x in (
+        _randn(dev, BH, T, D), _randn(dev, BH, S, D, seed=1), _randn(dev, BH, S, D, seed=2)))
+    before = pt.ops.launch_counts()
+    o, lse = fa.flash_attention(q, k, v, causal=causal)
+    after = pt.ops.launch_counts()
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert {k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]} == {
+        "flash_attention_bf16": 1}
+    assert lse.dtype == torch.float32
+    _bf16_close(o, po, 1e-5)
+    torch.testing.assert_close(lse, plse, atol=1e-5, rtol=0)
+
+
+# the decode's 8 rows, the prefill's 1024, the training shape's 2048 (two rows
+# a warp), a paged admit's 128, widths that are no multiple of 4 (31: one
+# bf16 a load) and up to 1024, and operands one element past 8-byte alignment
+@pytest.mark.parametrize("R,D,offset", [(8, 512, 0), (1024, 512, 0), (2048, 512, 0),
+                                        (128, 512, 0), (3, 31, 0), (37, 300, 0),
+                                        (5, 1000, 0), (64, 512, 1), (2049, 130, 1)])
+def test_layer_norm_bf16_kernel_matches_plain(dev, R, D, offset):
+    """The forward's bf16 form against its plain version (the affine one
+    FMA on both sides): y within one bf16 ulp, mean and rstd within 1e-5;
+    only ``norm_residual_bf16`` counts."""
+    x = _shifted(_randn(dev, R, D).bfloat16(), offset)
+    g = _shifted((1.0 + _randn(dev, D, scale=0.1, seed=1)).bfloat16(), offset)
+    b = _shifted(_randn(dev, D, scale=0.1, seed=2).bfloat16(), offset)
+    before = pt.ops.launch_counts()
+    y, mean, rstd = nr.layer_norm_affine(x, g, b)
+    after = pt.ops.launch_counts()
+    py, pmean, prstd = nr.layer_norm_affine_plain(x, g, b)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "norm_residual_bf16": 1}
+    _bf16_close(y, py, 1e-5)
+    torch.testing.assert_close(mean, pmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, prstd, atol=1e-5, rtol=1e-5)
+
+
+def test_bf16_decode_runs_single_step_and_megastep_on_the_card(dev):
+    """A bf16 KVCacheDecoder on the card (bf16 params): greedy tokens at
+    K = 1 and K = 8 equal, the prefill through the bf16 forms of rows 1, 4
+    and 6 and a step through those of rows 4 and 6, no float32 form
+    launched, the KV buffers bf16; the logits' argmax is the tokens'."""
+    cfg = dict(vocab_size=200, num_layers=2, num_heads=2, model_dim=128, ffn_dim=256)
+    serve = dict(batch=8, prefill_len=16, max_len=32, pos_len=32)
+    net = ptf.get_symbol(seq_len=32, **cfg)
+    shapes = net.infer_shape(data=(1, 32), softmax_label=(1, 32))[0]
+    rs = np.random.RandomState(0)
+    params = pt.params_from_numpy(
+        {n: (rs.randn(*s) * 0.1).astype(np.float32) for n, s in zip(net.list_arguments(), shapes)
+         if n not in ("data", "softmax_label")}, ctx=pt.gpu(0), dtype="bfloat16")
+    dec = pt.serving.KVCacheDecoder(params, ctx=pt.gpu(0), dtype="bfloat16", **cfg, **serve)
+    prompt = rs.randint(1, cfg["vocab_size"], (8, 10))
+    dec.warmup()
+    pt.ops.reset_launch_counts()
+    single = dec.greedy(prompt, 17, k=1)
+    L = cfg["num_layers"]
+    assert {k: v for k, v in pt.ops.launch_counts().items() if v} == {
+        "flash_attention_bf16": L, "norm_residual_bf16": (2 * L + 1) * 17,
+        "matmul_bias_act_bf16": L * 17}
+    mega = dec.greedy(prompt, 17, k=8)
+    np.testing.assert_array_equal(mega, single)
+    assert dec._kv("kv_k_0").dtype == torch.bfloat16
+    dec.reset()
+    logits = dec.prefill(prompt)
+    assert logits.dtype == np.float32 and np.isfinite(logits).all()
+    np.testing.assert_array_equal(np.argmax(logits, -1), single[:, 0])
 
 
 def _bf16_units(m):

@@ -5,10 +5,11 @@
     python3 tools/torch_smoke_phase.py analysis  # phase 21, the analysis lint families
     python3 tools/torch_smoke_phase.py layouts   # phase 22, ring attention and ctx groups
     python3 tools/torch_smoke_phase.py train_bf16  # phase 23, the bf16 training step
+    python3 tools/torch_smoke_phase.py serve_lm_bf16  # phase 24, the LM served in bf16
 
 It builds the port's kernel library from the checkout, prints the card's
 name and power limit, then calls ``chip_smoke.run_<phase>(pt, smi)``: the
-phases that take nothing else (``train_bf16``, ``layouts``, ``analysis``,
+phases that take nothing else (``serve_lm_bf16``, ``train_bf16``, ``layouts``, ``analysis``,
 ``bind``, ``fleet``, ``checkpoint``, ``planner``, ``native``). The phase prints its JSON lines as in the whole
 smoke; the script exits nonzero where a check fails.
 """
@@ -18,7 +19,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("train_bf16", "layouts", "analysis", "bind", "fleet", "checkpoint", "planner",
+PHASES = ("serve_lm_bf16", "train_bf16", "layouts", "analysis", "bind", "fleet", "checkpoint", "planner",
           "native")
 
 
