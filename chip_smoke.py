@@ -21,7 +21,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    matmul_bias_act (row 6) at the prefill's and the mlp's shapes, each
    within one bf16 ulp of its plain version, timed beside the library's bf16
    call and the float32 kernel; the bf16 forms of the flash-attention and
-   LayerNorm forwards (rows 1 and 4) likewise at the LM's serving shapes.
+   LayerNorm forwards (rows 1 and 4) likewise at the LM's serving shapes,
+   and of their backwards (rows 2, 3 and 5: dq, dk, dv, dx, dgamma and
+   dbeta) at the LM's training shapes, ragged ones and D = 128.
 3. Serving: full-width Transformer-base greedy decode through
    ``KVCacheDecoder`` on the card, with the kernel launch counts of that run
    checked against the path's expected counts (matmul_bias_act's small-M
@@ -69,7 +71,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    per-channel statistics from the checkpoint's weight, held against
    ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
 8. Engine: ``InferenceEngine`` serves ResNet-50 (buckets 1-32) to eight
-   client threads, three loads of 256 requests, each in a profiler window
+   client threads, three loads of 128 requests, each in a profiler window
    of its own: each request equals its rows of the batch it rode in and
    each batch a second run of it, bitwise; 49 conv_bn launches a batch; no
    bind after warmup; throughput, client and engine latency and the card's
@@ -339,13 +341,27 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    and CUDA events), idle share, KV buffers' and peak MiB, beside float32
    decoders on the same weights. Phase 2 checks and times the bf16 forms of
    rows 1 and 4.
-25. A ``smoke`` line (the run's seconds from the import of the port), a
+25. bf16 LM training (``SPMDTrainer(compute_dtype='bfloat16')``), run right
+   after 23: Transformer-base at batch 8 x 256 from phase 4's seeded weights
+   on its fixed batch (ids and labels up to 31999, bound in float32), 2
+   warm-up steps and 10 steps each one CUDA-graph replay: a step launches
+   the bf16 forms of rows 1 / 2 / 3 / 4 / 5 / 6 6 / 6 / 6 / 13 / 13 / 6
+   times and no float32 form, the loss falls, master weights stay float32;
+   host p50 / p80, card ms by CUDA events, idle share and peak memory beside
+   the float32 fused step's on the same weights and batch; the batch-2 first
+   step on the card and the port's CPU path (loss, every gradient) within
+   twice the CPU's own spread, its step with 1 % of the embedding rows the
+   batch reads moved by one bf16 ulp. Phase 2 checks and times the bf16
+   forms of rows 2, 3 and 5.
+26. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels and the
-   bf16 forms of rows 1 and 4 (their ``launches`` phase 24's, with its
-   paged lanes' ``paged_launches``) and of rows 6, 8 and 9 (their
+   bf16 forms of rows 2, 3 and 5 (their ``launches`` phase 25's), of rows 1
+   and 4 (their ``launches`` phase 24's, with its paged lanes'
+   ``paged_launches`` and phase 25's ``train_lm_launches``) and of rows 6,
+   8 and 9 (their
    ``launches`` phase 23's; row 6 with phase 24's ``serve_lm_launches`` and
-   ``paged_launches``; rows 6, 8
+   ``paged_launches`` and phase 25's ``train_lm_launches``; rows 6, 8
    and 9 with the module phase's ``module_launches``, the zoo's
    ``zoo_launches`` and the MT step's ``mt_launches``; every row with the
    SSD phase's ``ssd_launches``, 0, and the KVStore phase's
@@ -433,7 +449,7 @@ DEPLOY = dict(batch=32, epoch=10, iters=20, mean=(123.68, 116.78, 103.94),
 # window of its own; a dispatch fault, a shed burst and a reload under load
 # (four clients of 16 requests of 4 images); then the Transformer-base
 # prefill graph over buckets 1-8 of 128 tokens.
-ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=32,
+ENGINE = dict(buckets=(1, 2, 4, 8, 16, 32), max_delay_ms=5, clients=8, requests=16,
               load_seeds=(SEED + 20, SEED + 27, SEED + 28), reload_requests=16, rows=(1, 4),
               health_window_s=0.5, prefill_buckets=(1, 2, 4, 8))
 # The module phase: ResNet-50 through Module.fit from phase 6's weights on
@@ -657,6 +673,17 @@ KERNELS = {
     "norm_residual_bf16": ("mxnet_tpu_torch/csrc/norm_residual.cu",
                            "mxnet_tpu/ops/pallas_norm_residual.py:78",
                            "layer_norm_fwd_bf16_kernel"),
+    # the bf16 forms of the flash-attention and LayerNorm backwards
+    # (SPMDTrainer(compute_dtype='bfloat16') on the transformer); the
+    # LayerNorm's symbol holds both of its kernels (rows and sums)
+    "flash_attention_dq_bf16": ("mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "mxnet_tpu/ops/pallas_attention.py:118",
+                                "flash_bwd_dq_bf16_kernel"),
+    "flash_attention_dkv_bf16": ("mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                                 "mxnet_tpu/ops/pallas_attention.py:151",
+                                 "flash_bwd_dkv_bf16_kernel"),
+    "norm_residual_bwd_bf16": ("mxnet_tpu_torch/csrc/norm_residual.cu",
+                               "mxnet_tpu/ops/pallas_norm_residual.py:92", "layer_norm_bwd_bf16"),
     "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
                      "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats"),
     # the mechanism is rtc.py; the kernels it launches here are the strings above
@@ -956,6 +983,7 @@ def check_kernels(peaks):
     check_conv_bf16_train_kernels(randn, peaks, entries, worst)
     check_mba_bf16_kernel(randn, peaks, entries, worst)
     check_lm_bf16_kernels(randn, peaks, entries, worst)
+    check_lm_bf16_train_kernels(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
     check_mma_rate(randn, peaks)
     for name, e in entries.items():
@@ -1622,6 +1650,124 @@ def check_lm_bf16_kernels(randn, peaks, entries, worst):
         log(rec)
 
 
+def check_lm_bf16_train_kernels(randn, peaks, entries, worst):
+    """Phase 2, the bf16 forms of rows 2, 3 and 5 (flash_attention_dq_bf16,
+    flash_attention_dkv_bf16, norm_residual_bwd_bf16) on bf16 operands
+    against their plain versions: dq, dk, dv, dx, dγ and dβ within one bf16
+    ulp (or CONV_TOL's elementwise bound where a sum cancels). Timed at the
+    bf16 training step's shapes (the kernels line's) beside the float32
+    kernel on the same values and the library's bf16 call
+    (``scaled_dot_product_attention``'s backward, dq, dk and dv together;
+    ``F.layer_norm``'s backward); the bound at 2 bytes an element (lse, δ,
+    mean, rstd f32) and the operations at the bf16 tensor-core rate (the
+    products) or the f32 rate (LayerNorm's arithmetic)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops import norm_residual as nr
+
+    b16 = torch.bfloat16
+    H, M = MODEL["num_heads"], MODEL["model_dim"]
+    B, T0, dh = TRAIN["batch"], TRAIN["seq_len"], M // H
+    # (BH, T, S, D, causal, timed): the training step's, ragged tiles, D = 128,
+    # rectangular
+    for BH, T, S, D, causal, timed in [(B * H, T0, T0, dh, True, True),
+                                       (5, 77, 77, 40, True, False),
+                                       (3, 50, 131, 128, True, False),
+                                       (4, 33, 70, 96, False, False)]:
+        q, k, v, do = (randn(BH, n, D).to(b16) for n in (T, S, S, T))
+        o, lse = fa.flash_attention(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        args = (q, k, v, lse, do, delta, causal, 1.0 / math.sqrt(D))
+        dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+        pdq = fa.flash_attention_bwd_dq_plain(*args)
+        pdk, pdv = fa.flash_attention_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        check(dq.dtype == dk.dtype == dv.dtype == b16, ("bf16 backward dtypes", dq.dtype))
+        far = {"flash_attention_dq_bf16": bf16_far(dq, pdq),
+               "flash_attention_dkv_bf16": bf16_far(dk, pdk) + bf16_far(dv, pdv)}
+        err = {"flash_attention_dq_bf16": float((dq.float() - pdq.float()).abs().max()),
+               "flash_attention_dkv_bf16": max(float((dk.float() - pdk.float()).abs().max()),
+                                               float((dv.float() - pdv.float()).abs().max()))}
+        check(not any(far.values()), ("flash backward bf16 vs plain", BH, T, S, D, far, err))
+        for name, e in err.items():
+            worst[name] = max(worst.get(name, 0.0), e)
+        rec = {"phase": "kernel", "name": "flash_attention_bwd_bf16", "shape": [BH, T, S, D],
+               "causal": causal, "far": far, "max_abs_err": err}
+        if timed:
+            pairs = causal_pairs(T, S, causal) * BH
+            reads = 2.0 * (2 * BH * T * D + 2 * BH * S * D) + 4.0 * 2 * BH * T
+            q4, k4, v4 = (t.reshape(BH // H, H, -1, D).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+            do4 = do.reshape(BH // H, H, T, D)
+            lib_ms = device_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                           retain_graph=True))
+            f32 = (q.float(), k.float(), v.float(), lse, do.float(), delta) + args[6:]
+            for name, fn, plain, flops, writes in (
+                    ("flash_attention_dq_bf16", fa.flash_attention_bwd_dq,
+                     fa.flash_attention_bwd_dq_plain, 6.0 * D * pairs, 2.0 * BH * T * D),
+                    ("flash_attention_dkv_bf16", fa.flash_attention_bwd_dkv,
+                     fa.flash_attention_bwd_dkv_plain, 8.0 * D * pairs, 4.0 * BH * S * D)):
+                t_ops = flops / peaks["bf16"] * 1e3
+                t_bytes = (reads + writes) / peaks["bytes"] * 1e3
+                f32_name = name[:-len("_bf16")]
+                fields = dict(
+                    ms=device_ms(lambda: fn(*args), key=KERNELS[name][2]),
+                    event_ms=event_ms(lambda: fn(*args)),
+                    plain_ms=device_ms(lambda: plain(*args)),
+                    f32_kernel_ms=device_ms(lambda: fn(*f32), key=KERNELS[f32_name][2]),
+                    library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops > t_bytes else "bytes")
+                rec[name] = fields
+                entries[name] = entry(
+                    name, library="SDPA backward in bf16 (dq, dk and dv together)",
+                    shape="train q,k,v,dO (%d,%d,%d) causal, bf16" % (BH, T, D), **fields)
+        log(rec)
+
+    # (R, D, timed): the training step's rows (the kernels line's), a decode
+    # batch's, ragged widths
+    for R, D, timed in [(B * T0, M, True), (8, M, False), (37, 300, False), (5, 1000, False)]:
+        x, dy = randn(R, D).to(b16), randn(R, D).to(b16)
+        g, bb = (1.0 + randn(D, scale=0.1)).to(b16), randn(D, scale=0.1).to(b16)
+        _, mean, rstd = nr.layer_norm_affine(x, g, bb)
+        got = nr.layer_norm_affine_bwd(x, g, mean, rstd, dy)
+        want = nr.layer_norm_affine_bwd_plain(x, g, mean, rstd, dy)
+        torch.cuda.synchronize()
+        check(all(t.dtype == b16 for t in got), ("bf16 LayerNorm backward dtypes",
+                                                 [t.dtype for t in got]))
+        far = [bf16_far(a, w) for a, w in zip(got, want)]
+        err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+        check(not any(far), ("norm_residual_bwd_bf16 vs plain (dx, dgamma, dbeta)", R, D, far,
+                             err))
+        worst["norm_residual_bwd_bf16"] = max(worst.get("norm_residual_bwd_bf16", 0.0), err)
+        rec = {"phase": "kernel", "name": "norm_residual_bwd_bf16", "shape": [R, D], "far": far,
+               "max_abs_err": err}
+        if timed:
+            fn = lambda: nr.layer_norm_affine_bwd(x, g, mean, rstd, dy)  # noqa: E731
+            x32, g32, dy32 = x.float(), g.float(), dy.float()
+            xr, gr, br = (t.detach().requires_grad_(True) for t in (x, g, bb))
+            yr = F.layer_norm(xr, (D,), gr, br, 1e-5)
+            # the function's bytes: x and dy read, dx written, gamma read,
+            # dgamma and dbeta written (2 B an element), mean and rstd read (4 B)
+            t_ops = 10.0 * R * D / peaks["f32"] * 1e3
+            t_bytes = (2.0 * (3 * R * D + 3 * D) + 4.0 * 2 * R) / peaks["bytes"] * 1e3
+            fields = dict(
+                ms=device_ms(fn, key=KERNELS["norm_residual_bwd_bf16"][2]),
+                event_ms=event_ms(fn),
+                plain_ms=device_ms(lambda: nr.layer_norm_affine_bwd_plain(x, g, mean, rstd, dy)),
+                f32_kernel_ms=device_ms(lambda: nr.layer_norm_affine_bwd(x32, g32, mean, rstd,
+                                                                         dy32),
+                                        key=KERNELS["norm_residual_bwd"][2]),
+                library_ms=device_ms(lambda: torch.autograd.grad(yr, (xr, gr, br), dy,
+                                                                 retain_graph=True)),
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes
+                else "bytes")
+            rec.update(fields)
+            entries["norm_residual_bwd_bf16"] = entry(
+                "norm_residual_bwd_bf16", library="F.layer_norm backward in bf16",
+                shape="train x, dy (%d,%d), bf16" % (R, D), **fields)
+        log(rec)
+
+
 def check_conv_f64(randn, cb):
     """Stage 4's 3x3 (512 -> 512 at 7 x 7: N·taps = 4608-long dx sums) and
     stage 1's (64 -> 64 at 56 x 56: B·H'W' = 100 352-long dw sums, the
@@ -1933,11 +2079,14 @@ def profile_window(fn, per=1, setup=None, sync=None):
         busy += us
         copy += us if "DtoH" in key else 0.0
         n_kernels += count
-        owner = [name for name, (_, _, sym) in KERNELS.items() if sym in key]
+        # the longest symbol the event's name holds: a bf16 form's symbol
+        # holds its f32 kernel's (layer_norm_bwd_bf16, layer_norm_bwd)
+        owner = max((name for name, (_, _, sym) in KERNELS.items() if sym in key),
+                    key=lambda name: len(KERNELS[name][2]), default=None)
         if owner:
             port += us
-            by_kernel[owner[0]] += us
-            launched[owner[0]] += count
+            by_kernel[owner] += us
+            launched[owner] += count
         top[key[:60]] = top.get(key[:60], 0.0) + us
     return {"wall_ms": wall_ms / per, "device_busy_ms": busy / 1e3 / per,
             "device_idle_share": 1.0 - busy / 1e3 / wall_ms if wall_ms else None,
@@ -6385,7 +6534,7 @@ def run_fused_step(pt, smi, lstm_tokens_per_s):
 # removes. A save's cost: ``save_rounds`` rounds, each a run of
 # ``save_run`` + 1 steps without a save and one that starts with a save, in
 # turns, the writer idle before each run.
-CKPT = dict(period=4, save_rounds=4, save_run=24, mlp_steps=6, mlp_period=2, mlp_batch=40,
+CKPT = dict(period=4, save_rounds=2, save_run=24, mlp_steps=6, mlp_period=2, mlp_batch=40,
             rec_steps=3, tol_rel=1e-6)
 
 
@@ -6783,7 +6932,7 @@ def run_checkpoint(pt, smi):
 # across processes (``fusion._conv_block_sharded``), at phase 9's ResNet-50:
 # its four fixed batches of 32, two epochs, SGD with momentum.
 PLANNER = dict(stages=2, microbatches=4, check_batch=4, check_microbatches=2, mlp_batch=64,
-               mlp_cut="relu1", timed_steps=8, budget_s=60.0)
+               mlp_cut="relu1", timed_steps=4, budget_s=60.0)
 
 
 def nbytes_of(arrays):
@@ -9473,15 +9622,12 @@ def bf16_trainer(pt, net, ctx, B, args, aux, compute_dtype):
 
 
 def bf16_loss(prob, labels):
-    """The cross-entropy of a step's probabilities against the labels the
-    step trained on: the labels cast to bfloat16 with the other inputs (as
-    the JAX package's step casts them; 1000-way labels above 256 round to
-    even ones, and 998 and 999 round to 1000, a row whose one-hot is empty
-    and which is left out)."""
-    lab = labels.to(torch.bfloat16).long()
-    keep = lab < prob.shape[1]
-    p = prob.float()[keep].gather(1, lab[keep].reshape(-1, 1))
-    return float(-torch.log(p.clamp_min(1e-30)).mean())
+    """The cross-entropy of a step's (rows, classes) probabilities against
+    the labels the step trained on, which the bf16 step binds in float32,
+    exact (departure (c): the JAX package's step casts them to bfloat16, and
+    1000-way labels above 256 round there)."""
+    lab = labels.reshape(-1, 1).to(prob.device).long()
+    return float(-torch.log(prob.float().gather(1, lab).clamp_min(1e-30)).mean())
 
 
 def run_train_bf16(pt, smi):
@@ -9654,6 +9800,192 @@ def run_train_bf16(pt, smi):
     out["tuned_site"] = {k: rec.get(k) for k in ("engage", "lowering", "engage_fwd",
                                                  "lowering_fwd", "base_fwd_us", "base_bwd_us",
                                                  "fused_fwd_us", "fused_bwd_us", "measured")}
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return launches
+
+
+# Phase 25: Transformer-base (MODEL) trained in bf16 by the fused step,
+# SPMDTrainer(compute_dtype='bfloat16') at TRAIN's batch of 8 sequences of
+# 256 tokens with SGD-momentum (TRAIN's lr, momentum and wd, rescale_grad =
+# 1/B), from phase 4's random weights on its fixed batch (ids and labels up
+# to 31999), beside the float32 fused step on the same weights and batch:
+# ``warmup_steps`` (the eager step and the capture), then ``steps`` each one
+# graph replay. ``check_batch`` rows take the first step on the card and
+# through the port's CPU path, held to ``noise_factor`` times the CPU's own
+# spread: its step with ``perturb_share`` of the embedding rows the rows read
+# moved by one bf16 ulp (ids are integers and have no ulp to perturb).
+TRAIN_LM_BF16 = dict(warmup_steps=2, steps=10, timed_steps=8, check_batch=2, loss_tol=1e-2,
+                     perturb_share=0.01, noise_factor=2.0)
+
+
+def lm_train_bf16_launches(steps, layers=None):
+    """The bf16 forms' launches in ``steps`` training steps: L flash
+    forwards, dq and dk/dv passes, 2L + 1 LayerNorm forwards and backwards
+    and L ffn1 products a step."""
+    L = layers or MODEL["num_layers"]
+    per = {"flash_attention_bf16": L, "flash_attention_dq_bf16": L,
+           "flash_attention_dkv_bf16": L, "norm_residual_bf16": 2 * L + 1,
+           "norm_residual_bwd_bf16": 2 * L + 1, "matmul_bias_act_bf16": L}
+    return {k: v * steps for k, v in per.items()}
+
+
+def lm_trainer(pt, net, ctx, B, params, compute_dtype):
+    """An SPMDTrainer of the LM on ``ctx`` from ``params`` (SGD with TRAIN's
+    momentum and wd, rescale_grad = 1/B)."""
+    mesh = pt.parallel.make_mesh((1,), ("data",), [ctx])
+    tr = pt.parallel.SPMDTrainer(net, mesh, optimizer="sgd", optimizer_params={
+        "learning_rate": TRAIN["lr"], "momentum": TRAIN["momentum"], "wd": TRAIN["wd"],
+        "rescale_grad": 1.0 / B}, compute_dtype=compute_dtype)
+    tr.set_params(params)
+    return tr
+
+
+def run_train_lm_bf16(pt, smi, params):
+    """Phase 25: the LM trained in bf16 by the fused step (TRAIN_LM_BF16).
+    Returns its launches by kernel."""
+    from mxnet_tpu_torch import ops
+
+    t_phase = time.perf_counter()
+    cfg, B = TRAIN_LM_BF16, TRAIN["batch"]
+    net, batch, _ = train_model(params)
+    dev = torch.device("cuda", 0)
+    x, y = (torch.from_numpy(batch[k]).to(dev) for k in ("data", "softmax_label"))
+    check(float(y.max()) > 256, ("the batch holds ids above bf16's exact integers", float(y.max())))
+    out = {"phase": "train_lm_bf16", "nvidia_smi": smi, "model": MODEL, "batch": B,
+           "seq_len": TRAIN["seq_len"], "cfg": cfg}
+
+    def step(tr):
+        return lambda: tr.step({"data": x}, {"softmax_label": y})
+
+    def peak_mib(base):
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    # --- 1. the bf16 step: one graph replay a step, its launches, the loss
+    peak = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr16 = lm_trainer(pt, net, pt.gpu(0), B, params, "bfloat16")
+    check(tr16._index_inputs == {"data", "softmax_label"},
+          ("the bf16 step binds the ids and labels in float32", sorted(tr16._index_inputs)))
+    losses = [bf16_loss(step(tr16)()[0], y) for _ in range(cfg["warmup_steps"])]
+    ops.reset_launch_counts()
+    step_ms = []
+    for _ in range(cfg["steps"]):
+        t0 = time.perf_counter()
+        prob = step(tr16)()[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(bf16_loss(prob, y))
+    counted = ops.launch_counts()
+    peak["bf16"] = peak_mib(base)
+    [graph] = list(tr16._graphs.values())
+    per_replay = {k: v for k, v in graph.replay_launches[0].items() if v}
+    check(per_replay == lm_train_bf16_launches(1), ("a captured bf16 LM step's launches",
+                                                    per_replay))
+    check(counted == with_zeros(lm_train_bf16_launches(cfg["steps"])),
+          ("bf16 LM steps' launch counts", counted))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          ("the bf16 LM step's loss did not fall", losses))
+    check(all(v.dtype == np.float32 for v in tr16.get_params()[0].values()),
+          "bf16 LM step: master weights stay float32")
+    out.update(losses=losses, captured_launches_per_step=per_replay,
+               steps_launches={k: v for k, v in counted.items() if v},
+               replay_ms_p50=float(np.percentile(step_ms, 50)),
+               replay_ms_p80=float(np.percentile(step_ms, 80)))
+    launches = {k: v for k, v in counted.items() if v}
+
+    # --- 2. against the float32 fused step on the same weights and batch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr32 = lm_trainer(pt, net, pt.gpu(0), B, params, None)
+    for _ in range(2):  # the float32 trainer's eager step and its capture
+        step(tr32)()
+    peak["f32"] = peak_mib(base)
+    steps = {"bf16": step(tr16), "f32": step(tr32)}
+    host = timed_turns(steps, cfg["timed_steps"])
+    card, windows = {}, {}
+    for kind, fn in steps.items():
+        card[kind] = event_ms(fn, 10)
+        for _ in range(4):
+            w = profile_window(fn)
+            if w["device_busy_ms"] > 0:
+                break
+            time.sleep(PROFILER_GAP_S)
+        windows[kind] = {k: w[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                           "port_kernels_ms", "port_kernel_ms",
+                                           "port_kernel_launches", "device_events_per_call",
+                                           "top_device_ms")}
+    traced = windows["bf16"]["port_kernel_launches"]
+    check(all(traced.get(k, 0) > 0 for k in lm_train_bf16_launches(1))
+          and not any(traced.get(k) for k in ("flash_attention", "flash_attention_dq",
+                                              "flash_attention_dkv", "norm_residual",
+                                              "norm_residual_bwd", "matmul_bias_act")),
+          ("the bf16 LM step's kernels in the profiler", traced))
+    out.update(step_ms=host, card_event_ms=card, windows=windows, peak_mib=peak,
+               card_ratio_bf16_over_f32=card["bf16"] / card["f32"],
+               peak_ratio_bf16_over_f32=peak["bf16"] / peak["f32"])
+    del tr16, tr32, steps
+
+    # --- 3. the batch-2 first step, card vs CPU, in bf16, against the CPU's
+    # own spread on weights whose embedding rows (1 % of those the rows read)
+    # moved by one bf16 ulp
+    Bc = cfg["check_batch"]
+    rows = {k: batch[k][:Bc] for k in ("data", "softmax_label")}
+    read = np.unique(rows["data"].astype(np.int64))
+    moved = np.random.RandomState(SEED + 71).choice(
+        read, max(1, int(round(len(read) * cfg["perturb_share"]))), replace=False)
+    emb = torch.from_numpy(params["embed_weight"]).to(torch.bfloat16)
+    idx = torch.from_numpy(moved)
+    emb[idx] = (emb[idx].view(torch.int16) + 1).view(torch.bfloat16)
+    perturbed = dict(params, embed_weight=emb.float().numpy())
+
+    def first_step(ctx, p=params):
+        tr = lm_trainer(pt, net, ctx, Bc, p, "bfloat16")
+        placed = tr._place_batch({"data": rows["data"]}, {"softmax_label": rows["softmax_label"]})
+        tr._build()
+        outs, _ = tr._one_step(placed, tr._lr_tensor(TRAIN["lr"]))
+        loss = bf16_loss(outs[0], placed["softmax_label"])
+        return loss, {k: g.double().cpu().numpy()
+                      for k, g in tr._state.flats["grads_by_name"].items()}
+
+    ops.reset_launch_counts()
+    got = first_step(pt.gpu(0))
+    torch.cuda.synchronize()
+    check(ops.launch_counts() == with_zeros(lm_train_bf16_launches(1)),
+          ("the batch-2 bf16 LM step's launches", ops.launch_counts()))
+    t0 = time.perf_counter()
+    want = first_step(pt.cpu())
+    cpu_step_s = time.perf_counter() - t0
+    noise = first_step(pt.cpu(), perturbed)
+
+    def spread(a):
+        """a step's distances from the CPU's: (loss, gradients' relative L2
+        by array)."""
+        return abs(a[0] - want[0]), {k: float(np.linalg.norm(a[1][k] - want[1][k])
+                                              / (np.linalg.norm(want[1][k]) or 1.0))
+                                     for k in want[1]}
+
+    spreads = {}
+    for name, a in (("card", got), ("cpu_perturbed", noise)):
+        dl, l2 = spread(a)
+        worst_k = max(l2, key=l2.get)
+        spreads[name] = {"loss": a[0], "loss_diff": dl,
+                         "grad_l2_median": float(np.median(list(l2.values()))),
+                         "grad_l2_worst": l2[worst_k], "grad_l2_worst_array": worst_k}
+    card_, floor = spreads["card"], spreads["cpu_perturbed"]
+    out.update(card_vs_cpu={"batch": Bc, "loss_cpu": want[0], "grads": len(want[1]),
+                            "embedding_rows_moved": len(moved), "cpu_step_s": cpu_step_s,
+                            **spreads})
+    check(card_["loss_diff"] <= cfg["loss_tol"] * max(1.0, abs(want[0])),
+          ("bf16 LM batch-2 loss card vs CPU", card_["loss"], want[0]))
+    f = cfg["noise_factor"]
+    check(all(card_[k] <= f * floor[k] for k in ("grad_l2_median", "grad_l2_worst")),
+          ("bf16 LM batch-2 step card vs CPU beyond the CPU's own spread", spreads))
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(out)
@@ -9946,7 +10278,16 @@ def main():
     analysis_launches = timed_phase(run_analysis, pt, smi)
     layouts_launches = timed_phase(run_layouts, pt, smi)
     train_bf16_launches = timed_phase(run_train_bf16, pt, smi)
+    train_lm_bf16_launches = timed_phase(run_train_lm_bf16, pt, smi, params)
     for name_, e in entries.items():
+        if name_ in ("flash_attention_dq_bf16", "flash_attention_dkv_bf16",
+                     "norm_residual_bwd_bf16"):
+            # launches: phase 25's bf16 LM training steps (each a graph replay)
+            e.update(launches=train_lm_bf16_launches[name_])
+            continue
+        if name_ in ("flash_attention_bf16", "norm_residual_bf16", "matmul_bias_act_bf16"):
+            # train_lm_launches: phase 25's bf16 LM training steps
+            e.update(train_lm_launches=train_lm_bf16_launches[name_])
         if name_ in ("flash_attention_bf16", "norm_residual_bf16"):
             # launches: phase 24's bf16 greedy decode at K = MEGASTEP_K (one
             # prefill, 63 steps); paged_launches: its eight paged lanes

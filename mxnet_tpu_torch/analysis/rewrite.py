@@ -22,10 +22,11 @@ Passes (run to fixpoint, ``MXNET_GRAPHREWRITE_ROUNDS`` budget):
   ``ops/infer_meta.py`` ``bf16_slots``. A graph pass only. A planned conv
   then gets bfloat16 x and w with no BN prologue to fold (a Cast stands
   between), and its inference forward runs the stats-free kernel's bf16
-  form, as the JAX package runs its kernel on those operands; a cast that
-  reaches a kernel still float32-only (the training conv kernels,
-  ``matmul_bias_act``, attention, LayerNorm) raises on the card naming
-  ROADMAP.md section 2b's bf16 queue.
+  form, as the JAX package runs its kernel on those operands. The conv+BN,
+  ``matmul_bias_act``, flash-attention and LayerNorm kernels take bfloat16
+  forward and backward (their bf16 forms); a cast that reaches
+  ``matmul_stats``, still float32-only, raises on the card naming ROADMAP.md
+  section 2b's item 2c.
 * ``dce``          — sweeps nodes the other passes orphaned.
 
 Every firing emits a provenance record ``{pass, rule, action, node,

@@ -1,4 +1,4 @@
-// Flash attention backward, f32: dQ, dK and dV of O = softmax(Q·Kᵀ·scale
+// Flash attention backward, f32 and bf16: dQ, dK and dV of O = softmax(Q·Kᵀ·scale
 // [+ causal mask])·V over (B·H, T, D) tensors, from the forward's O and row
 // logsumexp (lse) and the upstream dO, with delta = rowsum(dO∘O) computed by
 // the caller (one torch reduction, as the TPU path computes it in XLA).
@@ -59,6 +59,25 @@
 // rows of the other side it streams (in launch order) is a table the caller
 // builds, ops/flash_attention.py _tiles, so the ranges the kernels run
 // are the ones its tests check.
+//
+// The bf16 forms (mxt_flash_attention_bwd_dq_bf16, _dkv_bf16: the same TPU
+// kernels on bf16 q, k, v and dO, dq in q's dtype, pallas_attention.py :263,
+// dk and dv in k's and v's, :287-288; lse and delta f32) are the same passes
+// over bf16 storage, for the bf16 training step (SPMDTrainer(compute_dtype=
+// 'bfloat16') on the transformer). They take the forward's bf16 path
+// (flash_attention.cu): Q, K, V and dO are widened into the same f32 tiles
+// through registers (flash_tc.cuh's bf16 stage_rows, so the masks, the table
+// of tiles and the recompute of P stay the f32 body's; the loads are
+// synchronous and the ring's cp.async overlap is lost); S = Q·Kᵀ and dP =
+// dO·Vᵀ are one bf16 mma.sync a step with exact products; P and dS stay f32,
+// as the TPU kernels keep them (:136-145, :175-183), and dQ += dS·K, dK +=
+// dSᵀ·Q, dV += Pᵀ·dO take two TF32 products a step (K, Q and dO are exact in
+// TF32); each output is rounded to bf16 once, to nearest even, from the f32
+// accumulator (_dq_kernel :148, _dkv_kernel :186-187). dK is scaled at the
+// end as in the f32 form, where JAX scales Q first (:163): at D = 64 the scale
+// is 2^-3 and both are exact. Bound at the training shape: bytes, ~10.6 MB
+// for dq and ~12.7 MB for dk/dv at 2 B an element (~3.2 and ~3.8 µs at 3.35
+// TB/s).
 #include "flash_tc.cuh"
 
 namespace {
@@ -93,9 +112,11 @@ struct Cfg {
   static_assert(GROUPS == 1 || GROUPS == 2, "one or two groups");
 };
 
+template <typename Elem>
 struct Args {
-  const float *q, *k, *v, *dout, *lse, *delta;
-  float *out0, *out1;  // dq; or dk, dv
+  const Elem *q, *k, *v, *dout;
+  const float *lse, *delta;
+  Elem *out0, *out1;  // dq; or dk, dv
   // by blockIdx.y: the block's first own row, then the first and the end
   // row of the other side's rows it streams
   const int* blocks;
@@ -124,8 +145,13 @@ __device__ __forceinline__ void add_groups(float (&acc)[N][4], float* red) {
   }
 }
 
-template <int GROUPS, int DMAX, bool VEC>
-__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dq_kernel(const Args a) {
+// The dq pass's body. Elem: the storage of q, k, v, dO and dq, float or
+// __nv_bfloat16 (the bf16 form: the operands widened into the same f32 tiles,
+// the score products one bf16 mma.sync a step, dQ += dS·K two TF32 products a
+// step, dq rounded once).
+template <typename Elem, int GROUPS, int DMAX, bool VEC>
+__device__ __forceinline__ void flash_bwd_dq(const Args<Elem>& a) {
+  constexpr bool kBf16 = mxt::IsBf16<Elem>::value;
   using C = Cfg<GROUPS, DMAX, false>;
   constexpr int BQ = C::BM, BK = C::BN, LD = C::LD, NT = C::NT, ND = C::ND;
   extern __shared__ __align__(16) float smem[];
@@ -189,8 +215,13 @@ __global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dq_kernel(c
     const float* vs = ks + BK * LD;
 
     float s[NT][4], dpv[NT][4];
-    score_tile<NT, DMAX, LD>(Qs + (warp % kWarps) * 16 * LD, ks, s);
-    score_tile<NT, DMAX, LD>(dOs + (warp % kWarps) * 16 * LD, vs, dpv);
+    if constexpr (kBf16) {
+      score_tile_bf16<NT, DMAX, LD>(Qs + (warp % kWarps) * 16 * LD, ks, s);
+      score_tile_bf16<NT, DMAX, LD>(dOs + (warp % kWarps) * 16 * LD, vs, dpv);
+    } else {
+      score_tile<NT, DMAX, LD>(Qs + (warp % kWarps) * 16 * LD, ks, s);
+      score_tile<NT, DMAX, LD>(dOs + (warp % kWarps) * 16 * LD, vs, dpv);
+    }
     const bool whole = row0 + 15 < T && k0 + BK <= S && (!causal || k0 + BK - 1 <= row0 + offset);
     masked_exp<NT>(
         s, a.scale * kLog2e, [&](int h, int) { return lse_r[h]; },
@@ -207,7 +238,8 @@ __global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dq_kernel(c
     for (int j = 0; j < NT; ++j) {
       uint32_t a_hi[4], a_lo[4];
       acc_as_a(s[j], a_hi, a_lo);
-      accumulate_step<ND, LD>(a_hi, a_lo, ks + j * 8 * LD, acc);
+      if constexpr (kBf16) accumulate_step_exact_b<ND, LD>(a_hi, a_lo, ks + j * 8 * LD, acc);
+      else accumulate_step<ND, LD>(a_hi, a_lo, ks + j * 8 * LD, acc);
     }
   }
   cp_async_wait<0>();
@@ -219,13 +251,15 @@ __global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dq_kernel(c
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + g + 8 * (e >> 1), col = ni * 8 + 2 * t + (e & 1);
-      if (row < T && col < D) a.out0[qbase + static_cast<size_t>(row) * D + col] =
-          acc[ni][e] * a.scale;
+      if (row < T && col < D)  // the bf16 form rounds dq once, to nearest even
+        mxt::st1(a.out0 + qbase + static_cast<size_t>(row) * D + col, acc[ni][e] * a.scale);
     }
 }
 
-template <int GROUPS, int DMAX, bool VEC>
-__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dkv_kernel(const Args a) {
+// The dk/dv pass's body, over the same storages as flash_bwd_dq.
+template <typename Elem, int GROUPS, int DMAX, bool VEC>
+__device__ __forceinline__ void flash_bwd_dkv(const Args<Elem>& a) {
+  constexpr bool kBf16 = mxt::IsBf16<Elem>::value;
   using C = Cfg<GROUPS, DMAX, true>;
   constexpr int BKR = C::BM, BQ = C::BN, LD = C::LD, NT = C::NT, ND = C::ND;
   extern __shared__ __align__(16) float smem[];
@@ -292,8 +326,13 @@ __global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dkv_kernel(
     const float* delta_s = lse_s + BQ;
 
     float s[NT][4], dps[NT][4];
-    score_tile<NT, DMAX, LD>(Ks + (warp % kWarps) * 16 * LD, qs, s);
-    score_tile<NT, DMAX, LD>(Vs + (warp % kWarps) * 16 * LD, dos, dps);
+    if constexpr (kBf16) {
+      score_tile_bf16<NT, DMAX, LD>(Ks + (warp % kWarps) * 16 * LD, qs, s);
+      score_tile_bf16<NT, DMAX, LD>(Vs + (warp % kWarps) * 16 * LD, dos, dps);
+    } else {
+      score_tile<NT, DMAX, LD>(Ks + (warp % kWarps) * 16 * LD, qs, s);
+      score_tile<NT, DMAX, LD>(Vs + (warp % kWarps) * 16 * LD, dos, dps);
+    }
     const bool whole = key0 + 15 < S && q0 + BQ <= T && (!causal || key0 + 15 <= q0 + offset);
     masked_exp<NT>(
         s, a.scale * kLog2e, [&](int, int c) { return lse_s[c] * kLog2e; },
@@ -315,9 +354,11 @@ __global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dkv_kernel(
     for (int j = 0; j < NT; ++j) {
       uint32_t a_hi[4], a_lo[4];
       acc_as_a(s[j], a_hi, a_lo);
-      accumulate_step<ND, LD>(a_hi, a_lo, dos + j * 8 * LD, acc_v);
+      if constexpr (kBf16) accumulate_step_exact_b<ND, LD>(a_hi, a_lo, dos + j * 8 * LD, acc_v);
+      else accumulate_step<ND, LD>(a_hi, a_lo, dos + j * 8 * LD, acc_v);
       acc_as_a(dps[j], a_hi, a_lo);
-      accumulate_step<ND, LD>(a_hi, a_lo, qs + j * 8 * LD, acc_k);
+      if constexpr (kBf16) accumulate_step_exact_b<ND, LD>(a_hi, a_lo, qs + j * 8 * LD, acc_k);
+      else accumulate_step<ND, LD>(a_hi, a_lo, qs + j * 8 * LD, acc_k);
     }
   }
   cp_async_wait<0>();
@@ -332,49 +373,79 @@ __global__ void __launch_bounds__(kWarps * GROUPS * 32, 1) flash_bwd_dkv_kernel(
       const int key = key0 + g + 8 * (e >> 1), col = ni * 8 + 2 * t + (e & 1);
       if (key < S && col < D) {
         const size_t o = kbase + static_cast<size_t>(key) * D + col;
-        a.out0[o] = acc_k[ni][e] * a.scale;
-        a.out1[o] = acc_v[ni][e];
+        mxt::st1(a.out0 + o, acc_k[ni][e] * a.scale);  // the bf16 form rounds once
+        mxt::st1(a.out1 + o, acc_v[ni][e]);
       }
     }
 }
 
-bool shapes_taken(const Args& a) {
+// The f32 kernels and the bf16 forms, under names of their own (the profiler
+// attributes device time by name).
+template <int GROUPS, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
+flash_bwd_dq_kernel(const Args<float> a) {
+  flash_bwd_dq<float, GROUPS, DMAX, VEC>(a);
+}
+
+template <int GROUPS, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
+flash_bwd_dq_bf16_kernel(const Args<__nv_bfloat16> a) {
+  flash_bwd_dq<__nv_bfloat16, GROUPS, DMAX, VEC>(a);
+}
+
+template <int GROUPS, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
+flash_bwd_dkv_kernel(const Args<float> a) {
+  flash_bwd_dkv<float, GROUPS, DMAX, VEC>(a);
+}
+
+template <int GROUPS, int DMAX, bool VEC>
+__global__ void __launch_bounds__(kWarps * GROUPS * 32, 1)
+flash_bwd_dkv_bf16_kernel(const Args<__nv_bfloat16> a) {
+  flash_bwd_dkv<__nv_bfloat16, GROUPS, DMAX, VEC>(a);
+}
+
+template <bool DKV, typename Elem, int GROUPS, int DMAX, bool VEC>
+auto kernel_of() {
+  if constexpr (mxt::IsBf16<Elem>::value) {
+    if constexpr (DKV) return &flash_bwd_dkv_bf16_kernel<GROUPS, DMAX, VEC>;
+    else return &flash_bwd_dq_bf16_kernel<GROUPS, DMAX, VEC>;
+  } else {
+    if constexpr (DKV) return &flash_bwd_dkv_kernel<GROUPS, DMAX, VEC>;
+    else return &flash_bwd_dq_kernel<GROUPS, DMAX, VEC>;
+  }
+}
+
+template <typename Elem>
+bool shapes_taken(const Args<Elem>& a) {
   return a.BH >= 1 && a.T >= 1 && a.S >= 1 && a.D >= 1 && a.D <= kMaxD &&
          !(a.causal && a.S < a.T);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// 16-byte copies: every row of Q, K, V and dO starts on 16 bytes.
-bool vec_rows(const Args& a) {
-  return a.D % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-         aligned16(a.dout);
+// 16-byte loads: every row of Q, K, V and dO starts on 16 bytes (4 floats
+// or 8 bf16 a load).
+template <typename Elem>
+bool vec_rows(const Args<Elem>& a) {
+  return a.D % (16 / static_cast<int>(sizeof(Elem))) == 0 && aligned16(a.q) &&
+         aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, int smem, bool* raised, int nblocks,
-                   const Args& a, cudaStream_t st) {
-  const cudaError_t e = mxt::raise_smem(kernel, smem, raised);
+template <bool DKV, typename Elem, int GROUPS, int DMAX, bool VEC>
+cudaError_t run(const Args<Elem>& a, int nblocks, cudaStream_t st) {
+  using C = Cfg<GROUPS, DMAX, DKV>;
+  static bool raised = false;
+  const auto kernel = kernel_of<DKV, Elem, GROUPS, DMAX, VEC>();
+  const cudaError_t e = mxt::raise_smem(kernel, C::SMEM, &raised);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(a.BH, nblocks), threads, smem, st>>>(a);
+  kernel<<<dim3(a.BH, nblocks), C::THREADS, C::SMEM, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool DKV, int GROUPS, int DMAX, bool VEC>
-cudaError_t run(const Args& a, int nblocks, cudaStream_t st) {
-  using C = Cfg<GROUPS, DMAX, DKV>;
-  static bool raised = false;
-  if constexpr (DKV)
-    return launch(flash_bwd_dkv_kernel<GROUPS, DMAX, VEC>, C::THREADS, C::SMEM, &raised,
-                  nblocks, a, st);
-  else
-    return launch(flash_bwd_dq_kernel<GROUPS, DMAX, VEC>, C::THREADS, C::SMEM, &raised,
-                  nblocks, a, st);
-}
-
 // nblocks: the table's rows, one a block of kRows own rows.
-template <bool DKV>
-int dispatch(const Args& a, int nblocks, void* stream) {
+template <bool DKV, typename Elem>
+int dispatch(const Args<Elem>& a, int nblocks, void* stream) {
   const int own = DKV ? a.S : a.T;
   if (!shapes_taken(a) || a.blocks == nullptr || nblocks != (own + kRows - 1) / kRows ||
       nblocks > 65535)
@@ -382,10 +453,10 @@ int dispatch(const Args& a, int nblocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = vec_rows(a);
   if (a.D <= 64)
-    return static_cast<int>(vec ? run<DKV, 2, 64, true>(a, nblocks, st)
-                                : run<DKV, 2, 64, false>(a, nblocks, st));
-  return static_cast<int>(vec ? run<DKV, 1, 128, true>(a, nblocks, st)
-                              : run<DKV, 1, 128, false>(a, nblocks, st));
+    return static_cast<int>(vec ? run<DKV, Elem, 2, 64, true>(a, nblocks, st)
+                                : run<DKV, Elem, 2, 64, false>(a, nblocks, st));
+  return static_cast<int>(vec ? run<DKV, Elem, 1, 128, true>(a, nblocks, st)
+                              : run<DKV, Elem, 1, 128, false>(a, nblocks, st));
 }
 
 }  // namespace
@@ -397,7 +468,8 @@ extern "C" int mxt_flash_attention_bwd_dq(const float* q, const float* k, const 
                                           const float* delta, float* dq, const int* blocks,
                                           int nblocks, int BH, int T, int S, int D,
                                           float scale, int causal, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, blocks, BH, T, S, D, scale, causal};
+  const Args<float> a{q, k, v, dout, lse, delta, dq, nullptr, blocks, BH, T, S, D, scale,
+                      causal};
   return dispatch<false>(a, nblocks, stream);
 }
 
@@ -408,6 +480,32 @@ extern "C" int mxt_flash_attention_bwd_dkv(const float* q, const float* k, const
                                            const int* blocks, int nblocks, int BH, int T,
                                            int S, int D, float scale, int causal,
                                            void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dk, dv, blocks, BH, T, S, D, scale, causal};
+  const Args<float> a{q, k, v, dout, lse, delta, dk, dv, blocks, BH, T, S, D, scale, causal};
+  return dispatch<true>(a, nblocks, stream);
+}
+
+// The bf16 forms: q, k, v, dout and dq (dk, dv) bf16; lse and delta f32; the
+// same tables and shapes.
+extern "C" int mxt_flash_attention_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                               const __nv_bfloat16* v,
+                                               const __nv_bfloat16* dout, const float* lse,
+                                               const float* delta, __nv_bfloat16* dq,
+                                               const int* blocks, int nblocks, int BH, int T,
+                                               int S, int D, float scale, int causal,
+                                               void* stream) {
+  const Args<__nv_bfloat16> a{q, k, v, dout, lse, delta, dq, nullptr, blocks, BH, T, S, D,
+                              scale, causal};
+  return dispatch<false>(a, nblocks, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                                const __nv_bfloat16* v,
+                                                const __nv_bfloat16* dout, const float* lse,
+                                                const float* delta, __nv_bfloat16* dk,
+                                                __nv_bfloat16* dv, const int* blocks,
+                                                int nblocks, int BH, int T, int S, int D,
+                                                float scale, int causal, void* stream) {
+  const Args<__nv_bfloat16> a{q, k, v, dout, lse, delta, dk, dv, blocks, BH, T, S, D, scale,
+                              causal};
   return dispatch<true>(a, nblocks, stream);
 }

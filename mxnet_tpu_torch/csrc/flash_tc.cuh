@@ -4,8 +4,8 @@
 // the forward, the logsumexp in the backward), and the reuse of a score
 // tile's accumulator as the A operand of the next product. The forward
 // (flash_attention.cu) and the backward's two passes (flash_attention_bwd.cu)
-// are built from them, and the forward's bf16 form from the bf16 pieces at
-// the end.
+// are built from them, and the bf16 forms of all three from the bf16 pieces
+// at the end.
 //
 // The layout they share: every operand tile lies in shared memory row-major,
 // LD floats a row with LD = 8 mod 32, one row a query or key, its columns the
@@ -146,9 +146,10 @@ __device__ __forceinline__ void accumulate_step(const uint32_t (&a_hi)[4],
   }
 }
 
-// ---- bf16 operands: the forward's bf16 form (flash_attention.cu's
-// mxt_flash_attention_fwd_bf16). Q, K and V are bf16 in device memory and are
-// widened into the f32 shared-memory tiles above, so every layout note holds.
+// ---- bf16 operands: the bf16 forms (flash_attention.cu's
+// mxt_flash_attention_fwd_bf16, flash_attention_bwd.cu's _dq_bf16 and
+// _dkv_bf16). Q, K, V (and dO) are bf16 in device memory and are widened into
+// the f32 shared-memory tiles above, so every layout note holds.
 // A bf16 value is exact in f32 and in TF32, which sets the products' cost:
 // - S = Q·Kᵀ: one bf16 mma.sync a step (bf16_mma.cuh), its products exact
 //   and summed in f32, where the f32 form takes three TF32 products;

@@ -46,6 +46,21 @@
 // column in a fixed order (common.cuh's sum_rows, as the other kernels'
 // partial rows). Nothing is atomic, so the sums, and so the result, are the
 // same run to run.
+//
+// The backward's bf16 form, mxt_layer_norm_bwd_bf16: the same TPU kernel on
+// bf16 x, dy and gamma (SPMDTrainer(compute_dtype='bfloat16')'s 2L + 1
+// LayerNorms a step), mean and rstd f32. layer_norm_bwd_bf16_kernel takes the
+// forward's layout, a lane's 4 adjacent bf16 columns as 8 bytes widened; the
+// arithmetic is f32 and dx is rounded to bf16 once (_bwd_kernel :105). The
+// partial rows stay f32, and layer_norm_bwd_bf16_sums_kernel adds them in the
+// same fixed order and rounds dγ and dβ once to bf16, gamma's dtype (_ln_bwd
+// :189). Whether XLA fuses the TPU kernel's ``rstd * (dxhat - m1 - xhat *
+// m2)`` into an FMA cannot be told on the CPU: the row means' f32 sums,
+// taken in another order, move dx more than the FMA does, jit or op by op,
+// and rounded to bf16 the two differ in about one element in 10^4, by one
+// ulp; the kernel contracts as nvcc does by default. Bound: bytes, x and dy
+// read and dx written at 2 B an element, ~6.3 MB at the training step's
+// (2048, 512) (~1.9 µs at 3.35 TB/s), ~2.0 µs with the partial rows.
 #include <cstdint>
 
 #include "bf16_mma.cuh"
@@ -310,10 +325,180 @@ layer_norm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gam
   }
 }
 
+// The bf16 form of layer_norm_bwd_kernel: x, gamma, dy and dx bf16, mean,
+// rstd and the partial rows f32. A lane holds the 4 adjacent columns 128i +
+// 4l .. 128i + 4l + 3 of each 128-column chunk i (CH chunks, D <= 128·CH),
+// loaded as 8 bytes and widened, as the bf16 forward does (VEC: D % 4 == 0
+// and x, gamma, dy, dx aligned to 8 bytes; else 2-byte loads in the same
+// layout). The arithmetic is layer_norm_bwd_kernel's, in f32, and dx is
+// rounded to bf16 once, to nearest even (_bwd_kernel :105). A block's partial
+// row is that kernel's: its warps' column sums added in a fixed order.
+template <int CH, bool VEC>
+__global__ void __launch_bounds__(kBwdWarps * 32)
+layer_norm_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ gamma,
+                           const float* __restrict__ mean, const float* __restrict__ rstd,
+                           const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* __restrict__ dx,
+                           float* __restrict__ part, int R, int D) {
+  __shared__ float red_g[kBwdWarps * 128 * CH], red_b[kBwdWarps * 128 * CH];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float g[CH][4], dg[CH][4], db[CH][4];
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    load4<VEC>(gamma, 128 * i + 4 * lane, D, true, g[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dg[i][j] = db[i][j] = 0.f;
+  }
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBwdRowsPerBlock;
+  for (int rr = warp; rr < kBwdRowsPerBlock; rr += kBwdWarps) {
+    const long long row = row0 + rr;
+    if (row >= R) break;  // warp-uniform
+    const float mu = mean[row], rs = rstd[row];
+    float xv[CH][4], dv[CH][4];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      load4<VEC>(x + row * D, 128 * i + 4 * lane, D, true, xv[i]);
+      load4<VEC>(dy + row * D, 128 * i + 4 * lane, D, true, dv[i]);
+    }
+    float xh[CH][4], dxh[CH][4];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        xh[i][j] = dxh[i][j] = 0.f;
+        if (128 * i + 4 * lane + j < D) {
+          const float d = dv[i][j];
+          xh[i][j] = (xv[i][j] - mu) * rs;
+          dxh[i][j] = d * g[i][j];
+          dg[i][j] += d * xh[i][j];
+          db[i][j] += d;
+          s1 += dxh[i][j];
+          s2 += dxh[i][j] * xh[i][j];
+        }
+      }
+    const float m1 = mxt::warp_sum(s1) / static_cast<float>(D);
+    const float m2 = mxt::warp_sum(s2) / static_cast<float>(D);
+    __nv_bfloat16* dxr = dx + row * D;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int c = 128 * i + 4 * lane;
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = rs * (dxh[i][j] - m1 - xh[i][j] * m2);
+      if (VEC) {
+        if (c < D) mxt::st4(dxr + c, make_float4(o[0], o[1], o[2], o[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < D) mxt::st1(dxr + c + j, o[j]);
+      }
+    }
+  }
+  // the block's partial row: its warps' sums added in a fixed order
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 128 * i + 4 * lane + j;
+      if (c < D) {
+        red_g[warp * D + c] = dg[i][j];
+        red_b[warp * D + c] = db[i][j];
+      }
+    }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += kBwdWarps * 32) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) {
+      a += red_g[w * D + c];
+      b += red_b[w * D + c];
+    }
+    part[static_cast<size_t>(2 * blockIdx.x) * D + c] = a;
+    part[static_cast<size_t>(2 * blockIdx.x + 1) * D + c] = b;
+  }
+}
+
 // [dgamma | dbeta] = Σ over the P blocks' partial rows of 2·D (sum_rows).
 __global__ void layer_norm_bwd_sums_kernel(const float* __restrict__ part,
                                            float* __restrict__ sums, int P, int C) {
   mxt::sum_rows(part, sums, P, C);
+}
+
+// The bf16 form's: the same f32 sums, rounded once to bf16 (_ln_bwd :189's
+// cast to gamma's dtype).
+__global__ void layer_norm_bwd_bf16_sums_kernel(const float* __restrict__ part,
+                                                __nv_bfloat16* __restrict__ sums, int P, int C) {
+  mxt::sum_rows(part, sums, P, C);
+}
+
+void launch_sums(const float* part, float* sums, int P, int C, dim3 grid, dim3 block,
+                 cudaStream_t st) {
+  layer_norm_bwd_sums_kernel<<<grid, block, 0, st>>>(part, sums, P, C);
+}
+
+void launch_sums(const float* part, __nv_bfloat16* sums, int P, int C, dim3 grid, dim3 block,
+                 cudaStream_t st) {
+  layer_norm_bwd_bf16_sums_kernel<<<grid, block, 0, st>>>(part, sums, P, C);
+}
+
+// The backward's two launches for either storage: the rows' kernel (T =
+// float: layer_norm_bwd_kernel; T = __nv_bfloat16: its bf16 form), then the
+// partial rows' sums into sums (2, D) of T.
+void launch_bwd_rows(const float* x, const float* gamma, const float* mean, const float* rstd,
+                     const float* dy, float* dx, float* part, int R, int D, int nb,
+                     cudaStream_t st) {
+  const dim3 block(kBwdWarps * 32);
+  if (D <= 128) {
+    layer_norm_bwd_kernel<4><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
+  } else if (D <= 256) {
+    layer_norm_bwd_kernel<8><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
+  } else if (D <= 512) {
+    layer_norm_bwd_kernel<16><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
+  } else {
+    layer_norm_bwd_kernel<32><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
+  }
+}
+
+template <int CH>
+void launch_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gamma, const float* mean,
+                     const float* rstd, const __nv_bfloat16* dy, __nv_bfloat16* dx, float* part,
+                     int R, int D, int nb, bool vec, cudaStream_t st) {
+  const dim3 block(kBwdWarps * 32);
+  if (vec)
+    layer_norm_bwd_bf16_kernel<CH, true><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
+                                                              part, R, D);
+  else
+    layer_norm_bwd_bf16_kernel<CH, false><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx,
+                                                               part, R, D);
+}
+
+void launch_bwd_rows(const __nv_bfloat16* x, const __nv_bfloat16* gamma, const float* mean,
+                     const float* rstd, const __nv_bfloat16* dy, __nv_bfloat16* dx, float* part,
+                     int R, int D, int nb, cudaStream_t st) {
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; };
+  const bool vec = D % 4 == 0 && aligned(x) && aligned(gamma) && aligned(dy) && aligned(dx);
+  if (D <= 128) launch_bwd_bf16<1>(x, gamma, mean, rstd, dy, dx, part, R, D, nb, vec, st);
+  else if (D <= 256) launch_bwd_bf16<2>(x, gamma, mean, rstd, dy, dx, part, R, D, nb, vec, st);
+  else if (D <= 512) launch_bwd_bf16<4>(x, gamma, mean, rstd, dy, dx, part, R, D, nb, vec, st);
+  else launch_bwd_bf16<8>(x, gamma, mean, rstd, dy, dx, part, R, D, nb, vec, st);
+}
+
+template <typename T>
+int layer_norm_bwd(const T* x, const T* gamma, const float* mean, const float* rstd,
+                   const T* dy, T* dx, float* part, T* sums, int R, int D, int rows_per_block,
+                   void* stream) {
+  if (R < 1 || D < 1 || D > kMaxD || rows_per_block != kBwdRowsPerBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (R + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  launch_bwd_rows(x, gamma, mean, rstd, dy, dx, part, R, D, nb, st);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 sgrid, sblock;
+  mxt::sum_rows_shape(nb, 2 * D, &sgrid, &sblock);
+  launch_sums(part, sums, nb, 2 * D, sgrid, sblock, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -339,24 +524,15 @@ extern "C" int mxt_layer_norm_bwd(const float* x, const float* gamma, const floa
                                   const float* rstd, const float* dy, float* dx, float* part,
                                   float* sums, int R, int D, int rows_per_block,
                                   void* stream) {
-  if (R < 1 || D < 1 || D > kMaxD || rows_per_block != kBwdRowsPerBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = (R + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock;
-  const dim3 block(kBwdWarps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 128) {
-    layer_norm_bwd_kernel<4><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
-  } else if (D <= 256) {
-    layer_norm_bwd_kernel<8><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
-  } else if (D <= 512) {
-    layer_norm_bwd_kernel<16><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
-  } else {
-    layer_norm_bwd_kernel<32><<<nb, block, 0, st>>>(x, gamma, mean, rstd, dy, dx, part, R, D);
-  }
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 sgrid, sblock;
-  mxt::sum_rows_shape(nb, 2 * D, &sgrid, &sblock);
-  layer_norm_bwd_sums_kernel<<<sgrid, sblock, 0, st>>>(part, sums, nb, 2 * D);
-  return static_cast<int>(cudaGetLastError());
+  return layer_norm_bwd(x, gamma, mean, rstd, dy, dx, part, sums, R, D, rows_per_block, stream);
+}
+
+// The bf16 form: x, gamma, dy, dx and sums bf16 (dgamma and dbeta rounded once
+// from the f32 sums); mean, rstd and part f32.
+extern "C" int mxt_layer_norm_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* gamma,
+                                       const float* mean, const float* rstd,
+                                       const __nv_bfloat16* dy, __nv_bfloat16* dx, float* part,
+                                       __nv_bfloat16* sums, int R, int D, int rows_per_block,
+                                       void* stream) {
+  return layer_norm_bwd(x, gamma, mean, rstd, dy, dx, part, sums, R, D, rows_per_block, stream);
 }

@@ -75,7 +75,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .ops import conv_bn as _cb
 from .ops.attention import ring_takes
 from .ops.fusion_patterns import _dtype_name, _port_name, get_patterns, pattern_names
@@ -891,7 +891,8 @@ def gate_pattern_explain(pat, meta, args, train=True):
         from .ops.fusion_patterns import tuner_build
 
         dev = args[0].device
-        sargs = tuple(torch.from_numpy(a).to(dev) for a in _tune.synth_like(args))
+        sargs = tuple(torch.from_numpy(s).to(device=dev, dtype=torch_dtype(a.dtype))
+                      for s, a in zip(_tune.synth_like(args), args))
         with tuner_build():
             sbase, scands = pat.build(meta, sargs)
         return _tune.measure_candidates(sbase, scands, sargs, train=True)

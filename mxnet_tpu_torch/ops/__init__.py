@@ -25,9 +25,12 @@ KERNELS = {
     "flash_attention_bf16": (flash_attention, "bf16_launches"),
     "flash_attention_dq": (flash_attention, "dq_launches"),
     "flash_attention_dkv": (flash_attention, "dkv_launches"),
+    "flash_attention_dq_bf16": (flash_attention, "bf16_dq_launches"),
+    "flash_attention_dkv_bf16": (flash_attention, "bf16_dkv_launches"),
     "norm_residual": (norm_residual, "launches"),
     "norm_residual_bf16": (norm_residual, "bf16_launches"),
     "norm_residual_bwd": (norm_residual, "bwd_launches"),
+    "norm_residual_bwd_bf16": (norm_residual, "bf16_bwd_launches"),
     "matmul_bias_act": (matmul_bias_act, "launches"),
     "matmul_bias_act_bf16": (matmul_bias_act, "bf16_launches"),
     "conv_bn": (conv_bn, "launches"),

@@ -58,12 +58,17 @@ _SIGNATURES = {
     "mxt_flash_attention_bwd_dq": (_P,) * 8 + (_I,) * 5 + (_F, _I, _P),
     # q, k, v, do, lse, delta, dk, dv, blocks, nblocks, BH, T, S, D, scale, causal, stream
     "mxt_flash_attention_bwd_dkv": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
+    # the two with q, k, v, do, dq (dk, dv) bf16 (lse, delta f32)
+    "mxt_flash_attention_bwd_dq_bf16": (_P,) * 8 + (_I,) * 5 + (_F, _I, _P),
+    "mxt_flash_attention_bwd_dkv_bf16": (_P,) * 9 + (_I,) * 5 + (_F, _I, _P),
     # x, gamma, beta, y, mean, rstd, R, D, rows_per_warp, eps, stream
     "mxt_layer_norm_fwd": (_P,) * 6 + (_I, _I, _I, _F, _P),
     # the same with x, gamma, beta, y bf16 (mean, rstd f32)
     "mxt_layer_norm_fwd_bf16": (_P,) * 6 + (_I, _I, _I, _F, _P),
     # x, gamma, mean, rstd, dy, dx, part, sums (dgamma; dbeta), R, D, rows_per_block, stream
     "mxt_layer_norm_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # the same with x, gamma, dy, dx, sums bf16 (mean, rstd, part f32)
+    "mxt_layer_norm_bwd_bf16": (_P,) * 8 + (_I,) * 3 + (_P,),
     # a, w, bias (or NULL), c, M, N, K, act, schedule, stream
     "mxt_matmul_bias_act_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # the same, all bf16
@@ -161,15 +166,15 @@ def library():
 
 
 #: where a kernel's refusal of a dtype it does not take points
-LATER_DTYPES = ("ROADMAP.md section 2b: bf16 for the transformer's backward kernels, flash "
-                "attention's and LayerNorm's, is item 2b, and matmul_stats' item 2c")
+LATER_DTYPES = "ROADMAP.md section 2b: bf16 for matmul_stats is item 2c"
 
 
 def check_operands(what, *tensors, dtypes=(torch.float32,)):
     """Raise unless every operand is a contiguous tensor of one of ``dtypes``
     (the dtypes the kernel takes: float32, or bfloat16 for the bf16 forms of
-    the conv+BN and matmul_bias_act kernels and of the flash-attention and
-    LayerNorm forwards) on one CUDA device. The dtypes are checked first."""
+    the conv+BN, matmul_bias_act, flash-attention and LayerNorm kernels,
+    forward and backward) on one CUDA device. The dtypes are checked first;
+    a refusal of bfloat16 names matmul_stats' item (``LATER_DTYPES``)."""
     for t in tensors:
         if t.dtype not in dtypes:
             raise MXNetError("%s: the kernel takes %s, got %s (%s)"

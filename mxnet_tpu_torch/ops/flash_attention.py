@@ -19,20 +19,25 @@ sequential grid axis became a loop inside one block. ``_tiles`` lists the rows
 each block owns and streams, and the kernels read that list: the forward and
 dq the blocks that own query rows, dk/dv those that own keys.
 
-The forward has a bf16 form (``mxt_flash_attention_fwd_bf16``), for bf16 q,
-k and v (``KVCacheDecoder(dtype='bfloat16')``'s prefill): what
-``_fwd_kernel`` (:81-114) computes on bf16 operands, the scores and P in
-f32, O = acc / l rounded once to bf16 (:113), lse f32 (:114). The backward
-kernels take f32 only: on bf16 they raise naming ROADMAP.md section 2b's
-item 2b, and the plain versions run only for CPU tensors.
+The kernels have bf16 forms, for bf16 q, k, v (and dO): the forward's
+(``mxt_flash_attention_fwd_bf16``, ``KVCacheDecoder(dtype='bfloat16')``'s
+prefill and the bf16 training step) computes what ``_fwd_kernel`` (:81-114)
+computes on bf16 operands, the scores and P in f32, O = acc / l rounded once
+to bf16 (:113), lse f32 (:114); the backward's
+(``mxt_flash_attention_bwd_dq_bf16``, ``_dkv_bf16``,
+``SPMDTrainer(compute_dtype='bfloat16')``'s step) what ``_dq_kernel`` and
+``_dkv_kernel`` compute on bf16 q, k, v and dO with f32 lse and δ: P and dS
+in f32, each of dq, dk and dv rounded once to bf16 from its f32 sum (:148,
+:186-187). The plain versions widen to f32 and round once at those points.
 
 ``flash_attention``, ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``
 are the dispatchers, and ``flash_attention_bwd`` runs the two backward ones: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
-(the forward's form by q's dtype) or raises. ``FlashAttention`` is the
-autograd Function over them (the JAX package's ``custom_vjp``).
-``launches``, ``bf16_launches``, ``dq_launches`` and ``dkv_launches`` count
-kernel launches (the f32 forward's, the bf16 forward's, the backward's).
+(the form by q's dtype; q, k, v and dO of one dtype, lse and δ f32) or
+raises. ``FlashAttention`` is the autograd Function over them (the JAX
+package's ``custom_vjp``). ``launches``, ``bf16_launches``, ``dq_launches``,
+``dkv_launches``, ``bf16_dq_launches`` and ``bf16_dkv_launches`` count kernel
+launches (the f32 and bf16 forward's, dq's and dk/dv's).
 """
 from __future__ import annotations
 
@@ -57,6 +62,8 @@ launches = 0
 bf16_launches = 0
 dq_launches = 0
 dkv_launches = 0
+bf16_dq_launches = 0
+bf16_dkv_launches = 0
 
 
 def supported(q_shape, k_shape, causal):
@@ -106,13 +113,17 @@ def _recompute(q, k, v, lse, do, delta, causal, scale):
 
 
 def flash_attention_bwd_dq_plain(q, k, v, lse, do, delta, causal, scale):
-    """The dq kernel's function: dQ = scale·dS·K."""
+    """The dq kernel's function: dQ = scale·dS·K, in f32 for bf16 operands
+    (P and dS f32, as ``_dq_kernel`` keeps them) and rounded once to q's
+    dtype (:148)."""
     _, ds = _recompute(q, k, v, lse, do, delta, causal, scale)
     return (torch.matmul(ds, k.to(ds.dtype)) * scale).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, lse, do, delta, causal, scale):
-    """The dk/dv kernel's function: dK = dSᵀ·(Q·scale), dV = Pᵀ·dO."""
+    """The dk/dv kernel's function: dK = dSᵀ·(Q·scale), dV = Pᵀ·dO, in f32
+    for bf16 operands and each rounded once to k's and v's dtypes
+    (``_dkv_kernel`` :186-187)."""
     p, ds = _recompute(q, k, v, lse, do, delta, causal, scale)
     dk = torch.matmul(ds.transpose(1, 2), q.to(ds.dtype) * scale)
     dv = torch.matmul(p.transpose(1, 2), do.to(ds.dtype))
@@ -176,36 +187,59 @@ def flash_attention(q, k, v, causal=False, scale=0.0):
     return o, lse
 
 
+def _check_bwd_operands(what, q, k, v, lse, do, delta):
+    """The backward kernels' dtypes: q, k, v and dO float32, or all
+    bfloat16 (the bf16 forms); lse and δ float32. Returns whether the bf16
+    form runs."""
+    bf16 = q.dtype == torch.bfloat16
+    cuda_build.check_operands(what, q, k, v, do,
+                              dtypes=(torch.bfloat16,) if bf16 else (torch.float32,))
+    cuda_build.check_operands(what, lse, delta)
+    if lse.device != q.device:
+        raise MXNetError("%s: operands must share one CUDA device, got %s and %s"
+                         % (what, q.device, lse.device))
+    return bf16
+
+
 def flash_attention_bwd_dq(q, k, v, lse, do, delta, causal=False, scale=0.0):
     """dQ from the saved lse (BH, T), the upstream dO and δ = rowsum(dO∘O)
-    (BH, T): the dq kernel on CUDA tensors, its plain version on the CPU."""
+    (BH, T): the dq kernel on CUDA tensors (its bf16 form for bf16 q, k, v
+    and dO), its plain version on the CPU."""
     _check_shapes("flash_attention_bwd_dq", q, k, v, causal)
     if scale <= 0:
         scale = 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, lse, do, delta, causal, scale)
-    cuda_build.check_operands("flash_attention_bwd_dq", q, k, v, lse, do, delta)
+    bf16 = _check_bwd_operands("flash_attention_bwd_dq", q, k, v, lse, do, delta)
     dq = torch.empty_like(q)
-    _launch_bwd("mxt_flash_attention_bwd_dq", (dq,), q, k, v, lse, do, delta, causal, scale)
-    global dq_launches
-    dq_launches += 1
+    _launch_bwd("mxt_flash_attention_bwd_dq" + ("_bf16" if bf16 else ""), (dq,), q, k, v, lse,
+                do, delta, causal, scale)
+    global dq_launches, bf16_dq_launches
+    if bf16:
+        bf16_dq_launches += 1
+    else:
+        dq_launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, do, delta, causal=False, scale=0.0):
     """(dK, dV) from the same inputs as ``flash_attention_bwd_dq``: the dk/dv
-    kernel on CUDA tensors, its plain version on the CPU."""
+    kernel on CUDA tensors (its bf16 form for bf16 q, k, v and dO), its plain
+    version on the CPU."""
     _check_shapes("flash_attention_bwd_dkv", q, k, v, causal)
     if scale <= 0:
         scale = 1.0 / math.sqrt(q.shape[2])
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, lse, do, delta, causal, scale)
-    cuda_build.check_operands("flash_attention_bwd_dkv", q, k, v, lse, do, delta)
+    bf16 = _check_bwd_operands("flash_attention_bwd_dkv", q, k, v, lse, do, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("mxt_flash_attention_bwd_dkv", (dk, dv), q, k, v, lse, do, delta, causal,
-                scale)
-    global dkv_launches
-    dkv_launches += 1
+    _launch_bwd("mxt_flash_attention_bwd_dkv" + ("_bf16" if bf16 else ""), (dk, dv), q, k, v,
+                lse, do, delta, causal, scale)
+    global dkv_launches, bf16_dkv_launches
+    if bf16:
+        bf16_dkv_launches += 1
+    else:
+        dkv_launches += 1
     return dk, dv
 
 
@@ -250,7 +284,7 @@ def _launch_bwd(entry, outs, q, k, v, lse, do, delta, causal, scale):
     BH, T, D = q.shape
     S = k.shape[1]
     table = _table(T, S, bool(causal), q.device)
-    blocks = table.kv if entry.endswith("dkv") else table.q
+    blocks = table.kv if "_dkv" in entry else table.q
     with torch.cuda.device(q.device):
         code = getattr(cuda_build.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

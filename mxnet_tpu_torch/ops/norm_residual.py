@@ -17,20 +17,23 @@ chunk) and takes one row a warp, or two where ``_rows_per_warp`` says so.
 The backward's C entry launches a second kernel that adds the per-block
 partial rows in a fixed order, where the TPU path sums them in XLA.
 
-The forward has a bf16 form (``mxt_layer_norm_fwd_bf16``), for bf16 x,
-gamma and beta (``KVCacheDecoder(dtype='bfloat16')``): the rows widened,
-the statistics and the affine in f32, y rounded once to bf16 (``_fwd_kernel``
-:79-87), mean and rstd f32. The affine is one FMA, ``fma(x̂, γ, β)``, as XLA
-compiles the TPU kernel's ``xhat * g + b``; the plain version takes it in
-float64 and rounds it once. The backward takes f32 only: on bf16 it raises
-naming ROADMAP.md section 2b's item 2b.
+Both kernels have bf16 forms, for bf16 x, gamma (and beta, dy): the
+forward's (``mxt_layer_norm_fwd_bf16``, ``KVCacheDecoder(dtype='bfloat16')``
+and the bf16 training step): the rows widened, the statistics and the affine
+in f32, y rounded once to bf16 (``_fwd_kernel`` :79-87), mean and rstd f32.
+The affine is one FMA, ``fma(x̂, γ, β)``, as XLA compiles the TPU kernel's
+``xhat * g + b``; the plain version takes it in float64 and rounds it once.
+The backward's (``mxt_layer_norm_bwd_bf16``,
+``SPMDTrainer(compute_dtype='bfloat16')``'s step): dx in f32, rounded once
+to bf16 (``_bwd_kernel`` :105); the partial dγ, dβ rows f32, summed in f32
+and rounded once to gamma's dtype (``_ln_bwd`` :189).
 
 ``layer_norm_affine`` and ``layer_norm_affine_bwd`` are the dispatchers: a
 CPU tensor takes the plain PyTorch version, a CUDA tensor launches the kernel
-(the forward's form by x's dtype) or raises. ``LayerNormAffine`` is the
-autograd Function over them (the JAX package's ``custom_vjp``).
-``launches``, ``bf16_launches`` and ``bwd_launches`` count kernel launches
-(the f32 forward's, the bf16 forward's, the backward's).
+(the form by x's dtype) or raises. ``LayerNormAffine`` is the autograd
+Function over them (the JAX package's ``custom_vjp``). ``launches``,
+``bf16_launches``, ``bwd_launches`` and ``bf16_bwd_launches`` count kernel
+launches (the f32 and bf16 forward's, the f32 and bf16 backward's).
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ TWO_ROWS_MIN = 2048
 launches = 0
 bf16_launches = 0
 bwd_launches = 0
+bf16_bwd_launches = 0
 
 
 def _rows_per_warp(R, D):
@@ -165,23 +169,32 @@ def layer_norm_affine_bwd(x, gamma, mean, rstd, dy):
                          % (x.shape[1], MAX_DIM))
     if x.device.type == "cpu":
         return layer_norm_affine_bwd_plain(x, gamma, mean, rstd, dy)
-    cuda_build.check_operands("layer_norm_affine_bwd", x, gamma, mean, rstd, dy)
+    bf16 = x.dtype == torch.bfloat16
+    cuda_build.check_operands("layer_norm_affine_bwd", x, gamma, dy,
+                              dtypes=(torch.bfloat16,) if bf16 else (torch.float32,))
+    cuda_build.check_operands("layer_norm_affine_bwd", mean, rstd)  # f32 statistics
+    if mean.device != x.device:
+        raise MXNetError("layer_norm_affine_bwd: operands must share one CUDA device, got %s "
+                         "and %s" % (x.device, mean.device))
     R, D = x.shape
     dx = torch.empty_like(x)
-    sums = torch.empty((2, D), dtype=torch.float32, device=x.device)  # dγ; dβ
+    sums = torch.empty((2, D), dtype=x.dtype, device=x.device)  # dγ; dβ
     if R == 0:
         sums.zero_()
         return dx, sums[0], sums[1]
     nb = (R + BWD_ROWS_PER_BLOCK - 1) // BWD_ROWS_PER_BLOCK
     part = torch.empty((nb, 2, D), dtype=torch.float32, device=x.device)
     lib = cuda_build.library()
-    global bwd_launches
+    fn = lib.mxt_layer_norm_bwd_bf16 if bf16 else lib.mxt_layer_norm_bwd
+    global bwd_launches, bf16_bwd_launches
     with torch.cuda.device(x.device):
-        code = lib.mxt_layer_norm_bwd(
-            x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), sums.data_ptr(), R, D, BWD_ROWS_PER_BLOCK,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        bwd_launches += 1
+        code = fn(x.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+                  dx.data_ptr(), part.data_ptr(), sums.data_ptr(), R, D, BWD_ROWS_PER_BLOCK,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        if bf16:
+            bf16_bwd_launches += 1
+        else:
+            bwd_launches += 1
     cuda_build.check(code, "layer_norm_affine_bwd")
     return dx, sums[0], sums[1]
 
@@ -190,7 +203,8 @@ class LayerNormAffine(torch.autograd.Function):
     """y = layer_norm_affine(x, gamma, beta) with the LayerNorm backward as its
     gradient: saves (x, gamma, mean, rstd), not y, as ``_ln_fwd`` (:181) does.
     Both directions compute in float32; dx comes back in x's dtype, dgamma and
-    dbeta in gamma's, as ``_ln_bwd`` (:186-189) returns them."""
+    dbeta in gamma's (bfloat16 in the bf16 training step, the kernels' bf16
+    forms on the card), as ``_ln_bwd`` (:186-189) returns them."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):

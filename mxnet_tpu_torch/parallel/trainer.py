@@ -37,10 +37,17 @@ over flat buffers:
 ``compute_dtype='bfloat16'`` (JAX :63-64, :224-245) casts every floating
 input and parameter to bfloat16 inside the step, as device ops the graph
 captures: the forward and backward compute in bfloat16 (the conv+BN sites
-on the bf16 forms of their kernels, the ``matmul_bias_act`` sites on its
-bf16 form), the gradients arrive in float32 through the casts, and the
+on the bf16 forms of their kernels; the ``matmul_bias_act``, ``attention``
+and ``norm_residual`` sites on the bf16 forms of theirs, forward and
+backward), the gradients arrive in float32 through the casts, and the
 master weights, gradients and optimizer state stay float32. The aux states
-enter in float32, as JAX's do, and their updates are cast back to it.
+enter in float32, as JAX's do, and their updates are cast back to it. One
+departure (ROADMAP.md section 3, departure (c)): an input that holds
+integers, one whose every use is an ``Embedding``'s ids or a classifier
+head's label, directly or through shape-only ops (``_index_inputs``), stays
+float32. JAX casts it too (:227-233), and bfloat16 holds integers exactly
+only up to 256: above that its step trains on rounded token ids and
+labels.
 
 The anomaly guard (``MXNET_ANOMALY_GUARD``, JAX :283-306, :504-540) checks
 one finite bit a gradient inside the step and where-selects the old
@@ -83,6 +90,39 @@ def _compute_dtype(v):
     return torch.bfloat16 if name == "bfloat16" else None
 #: ops whose apply runs host Python: a graph holding one is not captured
 _HOST_OPS = ("Custom",)
+#: (op, input slot) pairs that read integers: token ids and class labels
+#: (a node holds its op's registered name, never an alias)
+_INDEX_SLOTS = {("Embedding", "data"), ("SoftmaxOutput", "label"), ("SVMOutput", "label"),
+                ("WarpCTC", "label")}
+#: ops that only move or reshape their first input: integers stay integers
+_SHAPE_OPS = {"Reshape", "Flatten", "SwapAxis", "transpose", "expand_dims", "slice_axis",
+              "slice", "_copy", "BlockGrad"}
+
+
+def _index_inputs(prog, names):
+    """The inputs among ``names`` that hold integers under the bf16 step: every
+    use of each is an ``_INDEX_SLOTS`` slot, directly or through the first
+    input of ``_SHAPE_OPS`` ops, and no program output shows it."""
+    from ..ops.registry import get_op
+
+    uses = {}
+    for node in prog.topo:
+        if node.is_variable:
+            continue
+        slots = get_op(node.op).input_names(node.parsed_attrs())
+        for i, (src, _) in enumerate(node.inputs):
+            uses.setdefault(id(src), []).append((node, i, slots[i] if i < len(slots) else None))
+    shown = {id(n) for n, _ in prog.outputs}
+
+    def index_only(node):
+        if id(node) in shown or not uses.get(id(node)):
+            return False
+        return all((user.op, slot) in _INDEX_SLOTS
+                   or (user.op in _SHAPE_OPS and i == 0 and index_only(user))
+                   for user, i, slot in uses[id(node)])
+
+    variables = {node.name: node for node in prog.topo if node.is_variable}
+    return frozenset(n for n in names if n in variables and index_only(variables[n]))
 #: aten products the 'dots' remat policy keeps (JAX's dots_with_no_batch_dims_saveable)
 _DOT_OPS = ("mm", "addmm", "bmm", "baddbmm", "convolution", "_convolution", "linear")
 
@@ -173,6 +213,9 @@ class SPMDTrainer:
         arg_names = self._prog.arg_names
         self.input_names = [n for n in list(data_names) + list(label_names) if n in arg_names]
         self.param_names = [n for n in arg_names if n not in self.input_names]
+        # the inputs the bf16 step binds in float32 (departure (c))
+        self._index_inputs = (_index_inputs(self._prog, self.input_names)
+                              if self._compute_dtype is not None else frozenset())
         self.aux_names = self._prog.aux_names
 
         opt_kwargs = dict(optimizer_params or {})
@@ -383,8 +426,10 @@ class SPMDTrainer:
             else:
                 v = leaves[n] = st.params[n].detach().requires_grad_(True)
             # JAX's assemble (:224-231): floating values compute in bfloat16;
-            # a parameter's gradient flows back through the cast in float32
-            args.append(v.to(cdt) if cdt is not None and v.is_floating_point() else v)
+            # a parameter's gradient flows back through the cast in float32.
+            # Token ids and labels stay float32 (departure (c))
+            cast = cdt is not None and v.is_floating_point() and n not in self._index_inputs
+            args.append(v.to(cdt) if cast else v)
         aux_old = tuple(st.aux[n] for n in self.aux_names)
         sites = self._sites_for(inputs, args, aux_old)
         with torch.enable_grad():

@@ -5,6 +5,7 @@ card host without JAX it runs with the JAX suite's conftest left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
 import math
 
 import numpy as np
@@ -284,6 +285,8 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
                                    "flash_attention_dkv": L, "norm_residual": 2 * L + 1,
                                    "norm_residual_bwd": 2 * L + 1, "matmul_bias_act": L,
                                    "flash_attention_bf16": 0, "norm_residual_bf16": 0,
+                                   "flash_attention_dq_bf16": 0, "flash_attention_dkv_bf16": 0,
+                                   "norm_residual_bwd_bf16": 0,
                                    "matmul_bias_act_bf16": 0, "conv_bn": 0, "conv_bn_infer": 0,
                                    "conv_bn_infer_bf16": 0, "conv_bn_bf16": 0, "conv_bn_bwd": 0,
                                    "conv_bn_bwd_bf16": 0, "matmul_stats": 0, "rtc": 0}
@@ -390,11 +393,12 @@ def test_conv_bn_float32_kernel_keeps_its_bits(dev):
 
 def test_bf16_reaches_only_the_kernels_with_a_bf16_form(dev):
     """bf16 operands: the conv+BN kernels, matmul_bias_act and the flash and
-    LayerNorm forwards take them (their bf16 forms); the flash and LayerNorm
-    backward kernels refuse them naming ROADMAP.md section 2b's item 2b,
-    matmul_stats naming item 2c; a bf16 x beside a float32 w is refused by
-    every conv+BN dispatcher, a bf16 x beside a float32 gamma by the
-    LayerNorm forward, and nothing launches."""
+    LayerNorm kernels, forward and backward, take them (their bf16 forms);
+    matmul_stats refuses them naming ROADMAP.md section 2b's item 2c; a bf16
+    x beside a float32 w is refused by every conv+BN dispatcher, a bf16 x
+    beside a float32 gamma by the LayerNorm forward and backward, and a
+    float32 dO beside bf16 q, k, v by the flash backward, and nothing
+    launches for a refusal."""
     x, w, scale, shift, _, _ = _conv_case(dev, 2, 16, 8, 8, 16, 3, 1, "prologue")
     xb, wb = x.bfloat16(), w.bfloat16()
     assert cb.conv_block_infer(xb, wb, scale, shift, (1, 1), True).dtype == torch.bfloat16
@@ -405,13 +409,16 @@ def test_bf16_reaches_only_the_kernels_with_a_bf16_form(dev):
     o, lse = fa.flash_attention(q, q, q, causal=True)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
     xl, gl = _randn(dev, 4, 16).bfloat16(), _randn(dev, 16).bfloat16()
-    assert nr.layer_norm_affine(xl, gl, gl)[0].dtype == torch.bfloat16
+    y, mean, rstd = nr.layer_norm_affine(xl, gl, gl)
+    assert y.dtype == torch.bfloat16
+    assert all(g.dtype == torch.bfloat16
+               for g in fa.flash_attention_bwd(q, q, q, o, lse, q, causal=True))
+    assert all(g.dtype == torch.bfloat16 for g in nr.layer_norm_affine_bwd(xl, gl, mean, rstd, xl))
     before = pt.ops.launch_counts()
-    with pytest.raises(MXNetError, match="item 2b"):
-        fa.flash_attention_bwd(q, q, q, o, lse, q, causal=True)
-    with pytest.raises(MXNetError, match="item 2b"):
-        nr.layer_norm_affine_bwd(xl, gl, torch.zeros(4, device=dev), torch.ones(4, device=dev),
-                                 xl)
+    with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
+        fa.flash_attention_bwd(q, q, q, o, lse, q.float(), causal=True)
+    with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
+        nr.layer_norm_affine_bwd(xl, _randn(dev, 16), mean, rstd, xl)
     with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
         nr.layer_norm_affine(xl, _randn(dev, 16), _randn(dev, 16))
     with pytest.raises(MXNetError, match="item 2c"):
@@ -607,6 +614,133 @@ def test_layer_norm_bf16_kernel_matches_plain(dev, R, D, offset):
     _bf16_close(y, py, 1e-5)
     torch.testing.assert_close(mean, pmean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rstd, prstd, atol=1e-5, rtol=1e-5)
+
+
+# the training step's (64, 256, 256, 64) causal shape, ragged tiles, head
+# width 128, widths that are no multiple of 8 (36, 13: one bf16 a load),
+# rectangular T < S, and bases one element past 16-byte alignment
+@pytest.mark.parametrize("BH,T,S,D,causal,offset", [
+    (64, 256, 256, 64, True, 0), (2, 1, 1, 8, True, 0), (3, 33, 33, 64, True, 0),
+    (2, 17, 95, 128, True, 0), (2, 40, 9, 72, False, 0), (3, 70, 70, 36, True, 0),
+    (2, 45, 77, 13, True, 0), (3, 75, 75, 56, True, 1), (2, 100, 100, 128, True, 0)])
+def test_flash_attention_bwd_bf16_kernels_match_plain(dev, BH, T, S, D, causal, offset):
+    """The backward's bf16 forms (dq, dk/dv) against their plain versions:
+    each within one bf16 ulp (or 1e-5 of its largest magnitude); only
+    ``flash_attention_dq_bf16`` and ``flash_attention_dkv_bf16`` count."""
+    q, k, v, do = (_shifted(x.bfloat16(), offset) for x in (
+        _randn(dev, BH, T, D), _randn(dev, BH, S, D, seed=1), _randn(dev, BH, S, D, seed=2),
+        _randn(dev, BH, T, D, seed=3)))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    args = (q, k, v, lse, do, delta, causal, 1.0 / math.sqrt(D))
+    before = pt.ops.launch_counts()
+    dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+    after = pt.ops.launch_counts()
+    assert {k_: after[k_] - before[k_] for k_ in after if after[k_] != before[k_]} == {
+        "flash_attention_dq_bf16": 1, "flash_attention_dkv_bf16": 1}
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    _bf16_close(dq, fa.flash_attention_bwd_dq_plain(*args), 1e-5)
+    for got, want in zip((dk, dv), fa.flash_attention_bwd_dkv_plain(*args)):
+        _bf16_close(got, want, 1e-5)
+
+
+# the training step's 2048 rows of 512, a decode batch's 8, widths that are no
+# multiple of 4 (31: one bf16 a load) and up to 1024, and operands one
+# element past 8-byte alignment
+@pytest.mark.parametrize("R,D,offset", [(2048, 512, 0), (8, 512, 0), (3, 31, 0), (37, 300, 0),
+                                        (5, 1000, 0), (64, 512, 1), (2049, 130, 1)])
+def test_layer_norm_bwd_bf16_kernel_matches_plain(dev, R, D, offset):
+    """The backward's bf16 form against its plain version: dx, dgamma and
+    dbeta bf16, each within one bf16 ulp (or 1e-5 of its largest
+    magnitude); only ``norm_residual_bwd_bf16`` counts."""
+    x = _shifted(_randn(dev, R, D).bfloat16(), offset)
+    dy = _shifted(_randn(dev, R, D, seed=3).bfloat16(), offset)
+    g = _shifted((1.0 + _randn(dev, D, scale=0.1, seed=1)).bfloat16(), offset)
+    b = _randn(dev, D, scale=0.1, seed=2).bfloat16()
+    _, mean, rstd = nr.layer_norm_affine_plain(x, g, b)
+    before = pt.ops.launch_counts()
+    got = nr.layer_norm_affine_bwd(x, g, mean, rstd, dy)
+    after = pt.ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "norm_residual_bwd_bf16": 1}
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    for a, w in zip(got, nr.layer_norm_affine_bwd_plain(x, g, mean, rstd, dy)):
+        _bf16_close(a, w, 1e-5)
+
+
+def test_bf16_lm_training_step_runs_in_one_graph_on_the_card(dev):
+    """A small LM's bf16 fused step on the card: one CUDA graph a step
+    through the bf16 forms of rows 1-6 and no float32 form, ids and labels
+    bound in float32, master weights float32, the loss falling; its first
+    step's loss within 1e-2 of the CPU's."""
+    cfg = dict(vocab_size=512, num_layers=2, num_heads=2, model_dim=128, ffn_dim=256)
+    net = ptf.get_symbol(seq_len=64, **cfg)
+    rs = np.random.RandomState(0)
+    tok = rs.randint(0, cfg["vocab_size"], (4, 65)).astype(np.float32)
+    x, y = tok[:, :-1], tok[:, 1:]
+    losses = {}
+    for where, ctx in (("cpu", pt.cpu()), ("card", pt.gpu(0))):
+        tr = pt.parallel.SPMDTrainer(net, pt.parallel.make_mesh((1,), ("data",), [ctx]),
+                                     optimizer="sgd", optimizer_params={
+                                         "learning_rate": 0.002, "momentum": 0.9},
+                                     compute_dtype="bfloat16")
+        tr.init_params({"data": x.shape}, {"softmax_label": y.shape}, seed=3)
+        assert tr._index_inputs == {"data", "softmax_label"}
+        pt.ops.reset_launch_counts()
+        probs = [tr.step({"data": x}, {"softmax_label": y})[0].float().cpu().numpy()
+                 for _ in range(4 if where == "card" else 1)]
+        losses[where] = [
+            float(-np.log(p[np.arange(len(p)), y.reshape(-1).astype(int)]).mean())
+            for p in probs]
+        counts = {k: v for k, v in pt.ops.launch_counts().items() if v}
+    L = cfg["num_layers"]
+    per = {"flash_attention_bf16": L, "flash_attention_dq_bf16": L,
+           "flash_attention_dkv_bf16": L, "norm_residual_bf16": 2 * L + 1,
+           "norm_residual_bwd_bf16": 2 * L + 1, "matmul_bias_act_bf16": L}
+    assert counts == {k: 4 * v for k, v in per.items()}
+    [graph] = list(tr._graphs.values())
+    assert {k: v for k, v in graph.replay_launches[0].items() if v} == per
+    assert all(v.dtype == np.float32 for v in tr.get_params()[0].values())
+    assert losses["card"][-1] < losses["card"][0]
+    assert abs(losses["card"][0] - losses["cpu"][0]) <= 1e-2
+
+
+def test_bf16_tune_measures_the_lm_sites_through_the_bf16_kernels(dev, tmp_path,
+                                                                   monkeypatch):
+    """Under a tune directory on the card a small LM's bf16 step measures
+    its attention, matmul_bias_act and norm_residual sites at bfloat16
+    through the bf16 forms, backward ones included (their counters move
+    beyond the step's own launches), raises nothing, and caches a record
+    for each key, each naming bfloat16."""
+    from mxnet_tpu_torch import fusion_tune
+
+    monkeypatch.delenv("MXNET_FUSED_PATTERNS", raising=False)
+    monkeypatch.setenv("MXNET_FUSION_TUNE_DIR", str(tmp_path))
+    monkeypatch.setenv("MXNET_FUSION_TUNE_ITERS", "2")
+    fusion_tune.reset()
+    cfg = dict(vocab_size=512, num_layers=2, num_heads=2, model_dim=128, ffn_dim=256)
+    tok = np.random.RandomState(0).randint(0, cfg["vocab_size"], (4, 65)).astype(np.float32)
+    try:
+        tr = pt.parallel.SPMDTrainer(ptf.get_symbol(seq_len=64, **cfg),
+                                     pt.parallel.make_mesh((1,), ("data",), [pt.gpu(0)]),
+                                     compute_dtype="bfloat16")
+        tr.init_params({"data": (4, 64)}, {"softmax_label": (4, 64)}, seed=3)
+        pt.ops.reset_launch_counts()
+        with pt.gpu(0):
+            tr.step({"data": tok[:, :-1]}, {"softmax_label": tok[:, 1:]})
+            path = fusion_tune.cache_path()
+        counts = pt.ops.launch_counts()
+    finally:
+        fusion_tune.reset()
+    L = cfg["num_layers"]
+    assert counts["flash_attention_dq_bf16"] > L and counts["flash_attention_dkv_bf16"] > L
+    assert counts["norm_residual_bwd_bf16"] > 2 * L + 1
+    assert not counts["flash_attention_dq"] and not counts["norm_residual_bwd"]
+    with open(path) as f:
+        entries = json.load(f)["entries"]
+    assert sorted(k.split("|")[0] for k in entries) == ["attention", "matmul_bias_act",
+                                                       "norm_residual"]
+    assert all("bfloat16" in k and rec["measured"] for k, rec in entries.items())
 
 
 def test_bf16_decode_runs_single_step_and_megastep_on_the_card(dev):

@@ -273,37 +273,33 @@ def test_graphrewrite_bf16_casts_reach_the_bf16_form(monkeypatch):
 
 
 def test_graphrewrite_bf16_cast_into_a_float32_kernel_is_refused_naming_section_2b():
-    """A cast that reaches a kernel still float32-only (the flash-attention
-    and LayerNorm backward kernels, ROADMAP.md section 2b's item 2b, and
-    matmul_stats, item 2c) is refused before any launch; the conv+BN
-    kernels, ``matmul_bias_act`` and the flash-attention and LayerNorm
-    forwards take bfloat16 (their bf16 forms), so their check goes on to the
-    device. The dispatchers run on ``meta`` tensors, which take the CUDA
-    path's checks and launch nothing."""
+    """A cast that reaches a kernel still float32-only (matmul_stats,
+    ROADMAP.md section 2b's item 2c) is refused before any launch; the
+    conv+BN kernels, ``matmul_bias_act`` and the flash-attention and
+    LayerNorm kernels, forward and backward, take bfloat16 (their bf16
+    forms), so their check goes on to the device. The dispatchers run on
+    ``meta`` tensors, which take the CUDA path's checks and launch nothing."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import matmul_stats as ms
     from mxnet_tpu_torch.ops import norm_residual as nr
 
-    later = ("section 2b: bf16 for the transformer's backward kernels, flash attention's and "
-             "LayerNorm's, is item 2b, and matmul_stats' item 2c")
+    later = "section 2b: bf16 for matmul_stats is item 2c"
     t = torch.zeros(8, 8, dtype=torch.bfloat16)
-    for what in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv", "layer_norm_affine_bwd",
-                 "matmul_with_stats"):
-        with pytest.raises(pt.MXNetError, match=later):
-            cuda_build.check_operands(what, t)
+    with pytest.raises(pt.MXNetError, match=later):
+        cuda_build.check_operands("matmul_with_stats", t)
     meta = dict(dtype=torch.bfloat16, device="meta")
     q, x, g = torch.empty(2, 8, 16, **meta), torch.empty(4, 16, **meta), torch.empty(16, **meta)
     lse, stat = torch.empty(2, 8, device="meta"), torch.empty(4, device="meta")
-    for forward in (lambda: fa.flash_attention(q, q, q, causal=True),
-                    lambda: nr.layer_norm_affine(x, g, g)):
+    for call in (lambda: fa.flash_attention(q, q, q, causal=True),
+                 lambda: nr.layer_norm_affine(x, g, g),
+                 lambda: fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True),
+                 lambda: nr.layer_norm_affine_bwd(x, g, stat, stat, x)):
         with pytest.raises(pt.MXNetError, match="one CUDA device"):
-            forward()
-    for backward in (lambda: fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True),
-                     lambda: nr.layer_norm_affine_bwd(x, g, stat, stat, x),
-                     lambda: ms.matmul_with_stats(x, torch.empty(16, 8, **meta))):
-        with pytest.raises(pt.MXNetError, match=later):
-            backward()
-    for what in ("matmul_bias_act", "conv_block", "conv_block_bwd"):
+            call()
+    with pytest.raises(pt.MXNetError, match=later):
+        ms.matmul_with_stats(x, torch.empty(16, 8, **meta))
+    for what in ("matmul_bias_act", "conv_block", "conv_block_bwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "layer_norm_affine_bwd"):
         with pytest.raises(pt.MXNetError, match="one CUDA device"):
             cuda_build.check_operands(what, t, dtypes=(torch.bfloat16,))
     with pytest.raises(pt.MXNetError, match="one CUDA device"):
@@ -387,8 +383,8 @@ def test_bf16_training_stays_refused_naming_the_bf16_training_step():
     with pytest.raises(pt.MXNetError, match="bf16 training step of ROADMAP.md section 2b"):
         pt.parallel.SPMDTrainer(_small_net(pt), mesh, compute_dtype="float16")
     x = torch.zeros(2, 8, 8, 8, dtype=torch.bfloat16)
-    with pytest.raises(pt.MXNetError, match="section 2b: bf16 for the transformer's backward "
-                                            "kernels"):
+    with pytest.raises(pt.MXNetError, match="takes float32, got torch.bfloat16 .ROADMAP.md "
+                                            "section 2b: bf16 for matmul_stats is item 2c"):
         cuda_build.check_operands("conv_block", x)
     with pytest.raises(pt.MXNetError, match="computes in one dtype"):
         cb.conv_block_infer(x, torch.zeros(8, 8, 1, 1), None, None)
