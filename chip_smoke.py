@@ -23,7 +23,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    call and the float32 kernel; the bf16 forms of the flash-attention and
    LayerNorm forwards (rows 1 and 4) likewise at the LM's serving shapes,
    and of their backwards (rows 2, 3 and 5: dq, dk, dv, dx, dgamma and
-   dbeta) at the LM's training shapes, ragged ones and D = 128.
+   dbeta) at the LM's training shapes, ragged ones and D = 128; the stash
+   forms of rows 8 and 9, float32 and bf16, at the table's five ResNet-50
+   shapes (the forward's xn bitwise the plain prologue and its c, Σc, Σc²
+   bitwise the recompute form's; the backward bitwise the recompute form's
+   on the same inputs), and row 7's bf16 form at ResNet-50's 1x1 shapes and
+   a ragged one (C within one bf16 ulp of its plain version), each timed
+   beside its bound, plain version and library call.
 3. Serving: full-width Transformer-base greedy decode through
    ``KVCacheDecoder`` on the card, with the kernel launch counts of that run
    checked against the path's expected counts (matmul_bias_act's small-M
@@ -69,7 +75,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    symbol's internals taps the input of stage 1's 1x1 shortcut convolution,
    and ``matmul_with_stats`` gives that convolution's output and its
    per-channel statistics from the checkpoint's weight, held against
-   ``F.conv2d``. Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
+   ``F.conv2d``, in float32 and (the activation and the weight cast) in
+   bf16, held there against its plain version and ``F.conv2d`` in bf16.
+   Latencies of ``forward`` + ``get_output`` at batch 32 and 1.
 8. Engine: ``InferenceEngine`` serves ResNet-50 (buckets 1-32) to eight
    client threads, three loads of 128 requests, each in a profiler window
    of its own: each request equals its rows of the batch it rode in and
@@ -353,12 +361,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
    twice the CPU's own spread, its step with 1 % of the embedding rows the
    batch reads moved by one bf16 ulp. Phase 2 checks and times the bf16
    forms of rows 2, 3 and 5.
-26. A ``smoke`` line (the run's seconds from the import of the port), a
+26. The conv+BN stash policy (``MXNET_FUSED_CONV_BN_BWD=stash``), run
+   last: ResNet-50 v2 at full width, batch 32, phase 6's weights and batch,
+   two fused ``SPMDTrainer`` steps in float32 and two in bf16 under stash
+   and under recompute, and one per-device ``forward_backward`` in float32
+   under each (cuDNN deterministic): parameters, moving stats, gradients
+   (and the per-device outputs) bitwise equal between the policies; the
+   stash forms launched at every engaged site with a prologue (the bind's
+   resolved directives: all 49) and the recompute forms not at all; card
+   ms a step by CUDA events and the first step's peak memory of each.
+27. A ``smoke`` line (the run's seconds from the import of the port), a
    ``profiler`` line (how many timing windows were taken again after the
    profiler's gap), a ``{"kernels": [...]}`` line of ten kernels and the
    bf16 forms of rows 2, 3 and 5 (their ``launches`` phase 25's), of rows 1
    and 4 (their ``launches`` phase 24's, with its paged lanes'
-   ``paged_launches`` and phase 25's ``train_lm_launches``) and of rows 6,
+   ``paged_launches`` and phase 25's ``train_lm_launches``), the stash forms
+   of rows 8 and 9 (their ``launches`` phase 26's fused steps, every run's
+   as ``stash_phase_launches``), row 7's bf16 form (its ``launches`` the
+   deploy phase's) and the bf16 forms of rows 6,
    8 and 9 (their
    ``launches`` phase 23's; row 6 with phase 24's ``serve_lm_launches`` and
    ``paged_launches`` and phase 25's ``train_lm_launches``; rows 6, 8
@@ -684,8 +704,22 @@ KERNELS = {
                                  "flash_bwd_dkv_bf16_kernel"),
     "norm_residual_bwd_bf16": ("mxnet_tpu_torch/csrc/norm_residual.cu",
                                "mxnet_tpu/ops/pallas_norm_residual.py:92", "layer_norm_bwd_bf16"),
+    # the stash forms of rows 8 and 9 (MXNET_FUSED_CONV_BN_BWD=stash): the
+    # forward with the TPU kernel's xn output (emit_xn), the backward reading
+    # it (stash), f32 and bf16
+    "conv_bn_stash": ("mxnet_tpu_torch/csrc/conv_bn.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
+                      "conv_bn_stash_fwd"),
+    "conv_bn_bwd_stash": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu",
+                          "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_stash_bwd"),
+    "conv_bn_stash_bf16": ("mxnet_tpu_torch/csrc/conv_bn.cu",
+                           "mxnet_tpu/ops/pallas_conv_bn.py:240", "conv_bn_stash_bf16_fwd"),
+    "conv_bn_bwd_stash_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu",
+                               "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_stash_bf16_bwd"),
     "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
                      "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats"),
+    # row 7 in the dtype the TPU kernel was written for
+    "matmul_stats_bf16": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
+                          "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats_bf16"),
     # the mechanism is rtc.py; the kernels it launches here are the strings above
     "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:65", "rtc_"),
 }
@@ -981,10 +1015,12 @@ def check_kernels(peaks):
     check_conv_kernels(randn, peaks, entries, worst)
     check_conv_bf16_kernels(randn, peaks, entries, worst)
     check_conv_bf16_train_kernels(randn, peaks, entries, worst)
+    check_conv_stash_kernels(randn, peaks, entries, worst)
     check_mba_bf16_kernel(randn, peaks, entries, worst)
     check_lm_bf16_kernels(randn, peaks, entries, worst)
     check_lm_bf16_train_kernels(randn, peaks, entries, worst)
     check_deploy_kernels(randn, peaks, entries, worst)
+    check_matmul_stats_bf16(randn, peaks, entries, worst)
     check_mma_rate(randn, peaks)
     for name, e in entries.items():
         e["max_abs_err"] = worst[name]
@@ -1501,6 +1537,119 @@ def check_conv_bf16_train_kernels(randn, peaks, entries, worst):
          "sweep": sweep})
 
 
+def check_conv_stash_kernels(randn, peaks, entries, worst):
+    """Phase 2, the stash forms of rows 8 and 9 at BF16_TRAIN_TIMED, in
+    float32 and in bf16 (x, w, res, dc bf16; scale and shift float32 as the
+    BatchNorm fold makes them): the forward's xn bitwise the plain prologue
+    of the positions the conv reads, its c, Σc and Σc² bitwise the recompute
+    form's; the backward reading xn bitwise the recompute form's five
+    outputs on the same inputs (and within the plain version's tolerances).
+    Each form timed by the profiler (the whole call) and by CUDA events
+    beside the recompute form and the library call (``F.conv2d`` of xn;
+    ``aten.convolution_backward`` of the folded cotangent and xn), by
+    events, and, at the first shape, the plain version, with its bound: the
+    recompute form's plus the write of xn (forward) and its read
+    (backward), 3xTF32 or the bf16 rate."""
+    from mxnet_tpu_torch.ops import conv_bn as cb
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        suffix, esize = ("_bf16", 2.0) if bf16 else ("", 4.0)
+        fname, bname = "conv_bn_stash" + suffix, "conv_bn_bwd_stash" + suffix
+        for B, K, H, W, N, kernel, stride, res, prefix in BF16_TRAIN_TIMED:
+            x, w, scale, shift, r, (Ho, Wo) = conv_case(randn, B, K, H, W, N, kernel, stride,
+                                                        True, res)
+            x, w, r = x.to(dtype), w.to(dtype), None if r is None else r.to(dtype)
+            dc, ds, dq = randn(B, N, Ho, Wo).to(dtype), randn(N, scale=0.01), randn(N, scale=1e-3)
+            st, pad = (stride, stride), (kernel - 1) // 2
+            fwd = lambda: cb.conv_block(x, w, scale, shift, r, st, True,  # noqa: E731
+                                        emit_xn=True)
+            c, ssum, ssq, xn = fwd()
+            rc = cb.conv_block(x, w, scale, shift, r, st, True)
+            want_xn = cb._stashed_xn(x, w, scale, shift, st, True)
+            args = (x, w, scale, shift, c, dc, ds, dq, st, True, res)
+            bwd = lambda: cb.conv_block_bwd(*args, xn=xn)  # noqa: E731
+            gb, rb = bwd(), cb.conv_block_bwd(*args)
+            plain_f = cb.conv_block_plain(x, w, scale, shift, r, st, True)
+            pb = cb.conv_block_bwd_plain(*args, xn=xn)
+            torch.cuda.synchronize()
+            check(torch.equal(xn, want_xn), ("stash xn vs the plain prologue", dtype, B, K, H))
+            check(all(torch.equal(a, b) for a, b in zip((c, ssum, ssq), rc)),
+                  ("stash forward vs recompute forward", dtype, B, K, H, W, N, kernel))
+            check(all((g is None and q is None) or torch.equal(g, q) for g, q in zip(gb, rb)),
+                  ("stash backward vs recompute backward", dtype, B, K, H, W, N, kernel))
+            errs = {"c": rel_err(c.float(), plain_f[0].float())}
+            for name, g, p_ in zip(("dx", "dw", "dscale", "dshift", "dres"), gb, pb):
+                if g is not None:
+                    errs[name] = rel_err(g.float(), p_.float())
+            if bf16:
+                far = {"c": bf16_far(c, plain_f[0])}
+                far.update({n: bf16_far(g, p_, CONV_TOL["sums" if n == "dw" else "elementwise"])
+                            for n, g, p_ in zip(("dx", "dw", "dres"), (gb[0], gb[1], gb[4]),
+                                                (pb[0], pb[1], pb[4])) if g is not None})
+                check(not any(far.values()) and errs["dscale"] <= CONV_TOL["sums"]
+                      and errs["dshift"] <= CONV_TOL["sums"],
+                      ("bf16 stash forms vs plain", B, K, H, W, N, kernel, far, errs))
+            else:
+                for n, e in errs.items():
+                    tol = CONV_TOL["elementwise" if n in ("c", "dx", "dres") else "sums"]
+                    check(math.isfinite(e) and e <= tol, ("stash forms vs plain", n, e, B, K, H))
+            worst[fname] = max(worst.get(fname, 0.0),
+                               float((c.float() - plain_f[0].float()).abs().max()))
+            worst[bname] = max(worst.get(bname, 0.0),
+                               float((gb[0].float() - pb[0].float()).abs().max()))
+            flops = cb.flops(x.shape, w.shape, st)
+            xr = read_of_x(x, kernel, stride)
+            vec = lambda *ts: 4.0 * sum(t.numel() for t in ts if t is not None)  # noqa: E731
+            big = lambda *ts: esize * sum(t.numel() for t in ts if t is not None)  # noqa: E731
+            # forward: read x, w, res; write c and xn; scale, shift, Σc, Σc²
+            fb = big(xr, w, r, c, xn) + (esize * 2 * K + 8.0 * N)
+            # backward: read x (dscale), xn, w, c, dc; write dx, dw (dres)
+            bb = big(xr, xn, w, c, dc, gb[0], gb[1], gb[4]) + esize * 2 * K + vec(ds, dq) \
+                + 8.0 * K
+            if bf16:
+                fo, bo = flops / peaks["bf16"] * 1e3, 2.0 * flops / peaks["bf16"] * 1e3
+            else:
+                fo, bo = 3.0 * flops / peaks["tf32"] * 1e3, 6.0 * flops / peaks["tf32"] * 1e3
+            ft, bt = fb / peaks["bytes"] * 1e3, bb / peaks["bytes"] * 1e3
+            dce = cb._fold_bf16(c, dc, ds, dq) if bf16 else \
+                dc + ds.reshape(1, -1, 1, 1) + 2.0 * c * dq.reshape(1, -1, 1, 1)
+            # the profiler times the form (the whole call); CUDA events, which
+            # cost no profiler window, time it beside the recompute form and
+            # the library call
+            f = dict(ms=device_ms(fwd), event_ms=event_ms(fwd),
+                     recompute_event_ms=event_ms(lambda: cb.conv_block(x, w, scale, shift, r,
+                                                                       st, True)),
+                     library_ms=event_ms(lambda: F.conv2d(xn, w, stride=st, padding=pad)),
+                     bound_ms=max(fo, ft), bound_by="operations" if fo > ft else "bytes")
+            bk = dict(ms=device_ms(bwd), event_ms=event_ms(bwd),
+                      recompute_event_ms=event_ms(lambda: cb.conv_block_bwd(*args)),
+                      library_ms=event_ms(lambda: torch.ops.aten.convolution_backward(
+                          dce, xn, w, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+                          [True, True, False])),
+                      bound_ms=max(bo, bt), bound_by="operations" if bo > bt else "bytes")
+            if not prefix:
+                f["plain_ms"] = device_ms(lambda: cb.conv_block_plain(x, w, scale, shift, r, st,
+                                                                      True, emit_xn=True))
+                bk["plain_ms"] = device_ms(lambda: cb.conv_block_bwd_plain(*args, xn=xn))
+            label = "x (%d,%d,%d,%d) w (%d,%d,%d,%d) stride %d prologue%s, %s" % (
+                B, K, H, W, N, K, kernel, kernel, stride, " + res" if res else "",
+                "bf16" if bf16 else "f32")
+            for name, fields, library in (
+                    (fname, f, "F.conv2d of the stashed xn (the product alone)"),
+                    (bname, bk, "aten.convolution_backward of the folded cotangent and xn "
+                                "(dgrad + wgrad)")):
+                if not prefix:
+                    entries[name] = entry(name, library=library, shape=label, **fields)
+                else:
+                    entries[name].update({prefix + k: v for k, v in fields.items()
+                                          if k != "bound_by"})
+            log({"phase": "kernel", "name": fname, "shape": [B, K, H, W, N, kernel, stride],
+                 "res": res, "dtype": str(dtype), "bitwise_vs_recompute": True,
+                 "rel_err_vs_plain": errs, "fwd": f, "bwd": bk})
+            del x, w, r, c, xn, rc, gb, rb, pb, plain_f, dce
+
+
 def check_mba_bf16_kernel(randn, peaks, entries, worst):
     """Phase 2, row 6's bf16 form (matmul_bias_act_bf16) on bf16 a, w and b
     against its plain version (within one bf16 ulp, or CONV_TOL's
@@ -1979,6 +2128,76 @@ def check_deploy_kernels(randn, peaks, entries, worst):
     worst["rtc"] = max(worst["rtc"], err_fma, err_split)
     for name, e in (("rtc_fma", err_fma), ("rtc_split", err_split)):
         log({"phase": "kernel", "name": name, "shape": list(a.shape), "max_abs_err": e})
+
+
+def check_matmul_stats_bf16(randn, peaks, entries, worst):
+    """Phase 2, row 7's bf16 form on bfloat16 a and b at MATMUL_STATS_SHAPES:
+    C within one bf16 ulp of the plain version (its float32 product rounded
+    once; where a dot product cancels, within CONV_TOL of the largest), Σc
+    and Σc² at the float32 form's tolerances, against the plain version and
+    float64 of the bf16 values; two runs give the same bits. At the five
+    ResNet-50 shapes timed by the profiler and CUDA events beside the plain
+    version (profiler), the float32 form on the same values and the
+    library's bf16 ``torch.mm`` with the two float32 sums (events), against
+    its bound (2 bytes an element of a, b, C; the bf16 rate)."""
+    from mxnet_tpu_torch.ops import matmul_stats as ms
+
+    b16 = torch.bfloat16
+    for M, K, N, prefix in MATMUL_STATS_SHAPES:
+        a, b = randn(M, K).to(b16), randn(K, N, scale=1.0 / math.sqrt(K)).to(b16)
+        run = lambda: ms.matmul_with_stats(a, b)  # noqa: E731
+        got, again = run(), run()
+        want = ms.matmul_with_stats_plain(a, b)
+        c64 = a.double() @ b.double()
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              ("matmul_stats_bf16: two runs differ", M, K, N))
+        check(got[0].dtype == b16 and got[1].dtype == got[2].dtype == torch.float32,
+              ("matmul_stats_bf16 dtypes", got[0].dtype, got[1].dtype))
+        far = bf16_far(got[0], want[0])
+        errs = {n: rel_err(g, w) for n, g, w in zip(("col_sum", "col_sumsq"), got[1:], want[1:])}
+        errs_f64 = {n: rel_err(g.double(), w) for n, g, w in
+                    zip(("col_sum", "col_sumsq"), got[1:],
+                        (c64.sum(dim=0), (c64 * c64).sum(dim=0)))}
+        del c64
+        check(far == 0 and all(math.isfinite(e) and e <= CONV_TOL["sums"]
+                               for e in list(errs.values()) + list(errs_f64.values())),
+              ("matmul_stats_bf16 vs plain", M, K, N, far, errs, errs_f64))
+        abs_err = float((got[0].float() - want[0].float()).abs().max())
+        worst["matmul_stats_bf16"] = max(worst.get("matmul_stats_bf16", 0.0), abs_err)
+        sched = ms._schedule(M, K, N)
+        rec = {"phase": "kernel", "name": "matmul_stats_bf16", "shape": [M, K, N],
+               "beyond_one_ulp": far, "rel_err": errs, "rel_err_f64": errs_f64,
+               "max_abs_err_c": abs_err, "bitwise_repeatable": True,
+               "schedule": sched._asdict()}
+        if prefix is not None:
+            def library():
+                c = torch.mm(a, b)
+                c32 = c.float()
+                return c, c32.sum(dim=0), (c32 * c32).sum(dim=0)
+
+            a32, b32 = a.float(), b.float()
+            t_ops = 2.0 * M * K * N / peaks["bf16"] * 1e3
+            t_bytes = (2.0 * (M * K + K * N + M * N) + 8.0 * N) / peaks["bytes"] * 1e3
+            times = dict(ms=device_ms(run, key=KERNELS["matmul_stats_bf16"][2]),
+                         event_ms=event_ms(run),
+                         plain_ms=device_ms(lambda: ms.matmul_with_stats_plain(a, b)),
+                         f32_form_event_ms=event_ms(lambda: ms.matmul_with_stats(a32, b32)),
+                         library_ms=event_ms(library), bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops > t_bytes else "bytes",
+                         schedule=sched.layout)
+            times["bf16_work_tflops"] = 2.0 * M * K * N / times["ms"] / 1e9
+            rec.update(times)
+            if not prefix:
+                entries["matmul_stats_bf16"] = entry(
+                    "matmul_stats_bf16", library="torch.mm in bf16 + the two float32 sums",
+                    shape="a (%d,%d) b (%d,%d) bf16" % (M, K, K, N), **times)
+            else:
+                entries["matmul_stats_bf16"].update({prefix + k: v for k, v in times.items()
+                                                     if k != "bound_by"})
+            del a32, b32
+        log(rec)
+        del a, b, got, again, want
 
 
 def check_launch_floor(rows, D):
@@ -3240,9 +3459,14 @@ def run_deploy(pt, net, args, aux):
     a = pt.nd.transpose(feat, axes=(0, 2, 3, 1)).reshape((-1, feat.shape[1]))
     b = w_sc.reshape(w_sc.shape[:2]).T
     c, col_sum, col_sumsq = ms.matmul_with_stats(a._tensor(), b._tensor())
+    # the same tap in bf16: the activation and the checkpoint's weight cast
+    a16 = a._tensor().to(torch.bfloat16).contiguous()
+    b16 = b._tensor().to(torch.bfloat16).contiguous()
+    c16, sum16, sumsq16 = ms.matmul_with_stats(a16, b16)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    expected = {"rtc": 1, "conv_bn_infer": RESNET_SITES, "matmul_stats": 1}
+    expected = {"rtc": 1, "conv_bn_infer": RESNET_SITES, "matmul_stats": 1,
+                "matmul_stats_bf16": 1}
     check(launches == with_zeros(expected), ("deploy launch counts", launches))
 
     # ---- what came out
@@ -3273,6 +3497,26 @@ def run_deploy(pt, net, args, aux):
         check(math.isfinite(e) and e <= CONV_TOL["elementwise" if n == "c" else "sums"],
               ("deploy matmul_with_stats vs conv2d", n, e))
     out.update(matmul_stats_shape=[M, a.shape[1], b.shape[1]], matmul_stats_vs_conv2d=stats_err)
+    # ... and in bf16: against its plain version (C within one bf16 ulp, the
+    # sums at the float32 tolerances) and against F.conv2d in bf16 (C within
+    # one bf16 ulp of the largest |C|; the sums against the float32 sums of
+    # cuDNN's float32 conv of the same bf16 values)
+    p16 = ms.matmul_with_stats_plain(a16, b16)
+    f16, w16 = ft.to(torch.bfloat16), w_sc._tensor().to(torch.bfloat16)
+    conv16 = F.conv2d(f16, w16).permute(0, 2, 3, 1).reshape(M, -1)
+    conv32 = F.conv2d(f16.float(), w16.float())
+    bf16_err = {"c_beyond_one_ulp_vs_plain": bf16_far(c16, p16[0]),
+                "col_sum_vs_plain": rel_err(sum16, p16[1]),
+                "col_sumsq_vs_plain": rel_err(sumsq16, p16[2]),
+                "c_vs_conv2d_bf16": rel_err(c16.float(), conv16.float()),
+                "col_sum_vs_conv2d": rel_err(sum16, conv32.sum(dim=(0, 2, 3))),
+                "col_sumsq_vs_conv2d": rel_err(sumsq16, (conv32 * conv32).sum(dim=(0, 2, 3)))}
+    check(c16.dtype == torch.bfloat16 and bf16_err["c_beyond_one_ulp_vs_plain"] == 0
+          and bf16_err["c_vs_conv2d_bf16"] <= 2.0 ** -7
+          and all(bf16_err[k] <= CONV_TOL["sums"] for k in bf16_err if k.startswith("col_")),
+          ("deploy matmul_with_stats in bf16", bf16_err))
+    out.update(matmul_stats_bf16=bf16_err)
+    del a16, b16, c16, p16, f16, conv16, conv32
 
     # ---- reshape to batch 1 and back
     pred.reshape({"data": shape1})
@@ -8297,7 +8541,10 @@ def expected_launches(rows):
         want[k] = want.get(k, 0) + n
 
     for kind, train, bwd, _, _ in rows:
-        if kind == "conv" and train:
+        if kind == "conv" and train and bwd == "stash":
+            # a tuned stash verdict: only a site with a prologue is measured
+            add("conv_bn_stash"), add("conv_bn_bwd_stash")
+        elif kind == "conv" and train:
             add("conv_bn")
             if bwd == "recompute":
                 add("conv_bn_bwd")
@@ -9806,6 +10053,171 @@ def run_train_bf16(pt, smi):
     return launches
 
 
+# Phase 26: the conv+BN stash policy (MXNET_FUSED_CONV_BN_BWD=stash) on
+# ResNet-50 v2 at full width (RESNET), batch 32, phase 6's seeded weights and
+# fixed batch: ``steps`` fused SPMDTrainer steps (the eager step and its
+# capture) in float32 and in bf16 under each policy, SGD-momentum as phase
+# 23's, and one per-device ``forward_backward`` in float32 under each; cuDNN
+# deterministic for the four unfused convs. Card ms a step over
+# ``timed_steps`` steps: the fused step's graph replays queued behind a
+# sleep between CUDA events (``event_ms``); the per-device step's between
+# CUDA events as it runs (it waits on the host inside) and by the profiler.
+STASH = dict(steps=2, timed_steps=5)
+
+
+def conv_sites(plan):
+    """A resolved plan's conv sites the kernels engage: (their count, those
+    with a prologue, their backward policies)."""
+    convs = [d for d in plan.values() if d["kind"] == "conv" and d["train"][0]]
+    return len(convs), sum(1 for d in convs if d["prologue"]), sorted({d["train"][1]
+                                                                      for d in convs})
+
+
+def run_conv_stash(pt, smi):
+    """Phase 26: ResNet-50 trained under the stash policy against the
+    recompute policy (STASH): parameters, moving stats and gradients
+    bitwise equal between the two in float32 and bf16, fused and per-device;
+    the stash forms launched once a step at every engaged site with a
+    prologue (the bind's resolved directives) and the recompute forms not
+    at all; card ms a step and peak memory of each. Returns the launches by
+    run."""
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    check_tf32_off()
+    net = resnet.get_symbol(**RESNET)
+    args, aux = resnet_values(net)
+    B = RESNET_TRAIN["batch"]
+    images, labels = resnet_batch(B)
+    dev = pt.gpu(0).torch_device
+    x, y = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    out = {"phase": "conv_stash", "nvidia_smi": smi, "model": RESNET, "batch": B, "cfg": STASH}
+    launches, states = {}, {}
+
+    def mib(base):
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    def start():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def expected(policy, suffix, engaged, pro, n):
+        if policy == "recompute":
+            return {"conv_bn" + suffix: engaged * n, "conv_bn_bwd" + suffix: engaged * n}
+        # a site with no prologue has nothing to stash: the recompute forms
+        return {k: v for k, v in (("conv_bn_stash" + suffix, pro * n),
+                                  ("conv_bn_bwd_stash" + suffix, pro * n),
+                                  ("conv_bn" + suffix, (engaged - pro) * n),
+                                  ("conv_bn_bwd" + suffix, (engaged - pro) * n)) if v}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # --- the fused step, float32 and bf16, under each policy
+        for dtype in (None, "bfloat16"):
+            kind, suffix = ("bf16", "_bf16") if dtype else ("f32", "")
+            for policy in ("stash", "recompute"):
+                with env_vars(MXNET_FUSED_CONV_BN_BWD=policy, MXNET_FUSION_TUNE_DIR=None):
+                    base = start()
+                    tr = bf16_trainer(pt, net, pt.gpu(0), B, args, aux, dtype)
+                    ops.reset_launch_counts()
+                    step = lambda: tr.step({"data": x}, {"softmax_label": y})  # noqa: E731
+                    step()
+                    peak_first = mib(base)
+                    for _ in range(STASH["steps"] - 1):
+                        step()
+                    torch.cuda.synchronize()
+                    counted = ops.launch_counts()
+                    [plan] = list(tr._sites.values())
+                    engaged, pro, policies = conv_sites(plan)
+                    check(engaged == RESNET_SITES and policies == [policy],
+                          ("the fused step's resolved sites", kind, policy, engaged, policies))
+                    want = expected(policy, suffix, engaged, pro, STASH["steps"])
+                    check(counted == with_zeros(want),
+                          ("the fused step's launches", kind, policy, counted))
+                    if policy == "stash":
+                        check(pro == engaged, ("sites without a prologue run recompute", pro))
+                    params, new_aux = tr.get_params()
+                    grads = {k: g.clone() for k, g in tr._state.flats["grads_by_name"].items()}
+                    card = event_ms(step, STASH["timed_steps"])
+                    launches["fused_" + kind + "_" + policy] = {k: v for k, v in counted.items()
+                                                                if v}
+                    states[(kind, policy)] = (params, new_aux, grads)
+                    out["fused_" + kind + "_" + policy] = {
+                        "launches": launches["fused_" + kind + "_" + policy],
+                        "sites": engaged, "prologue_sites": pro, "card_event_ms": card,
+                        "peak_first_step_mib": peak_first, "peak_steps_mib": mib(base)}
+                    del tr, step, grads
+            (p1, a1, g1), (p2, a2, g2) = states.pop((kind, "stash")), states.pop((kind,
+                                                                                  "recompute"))
+            same = {"params": all(np.array_equal(p1[k], p2[k]) for k in p2),
+                    "aux": all(np.array_equal(a1[k], a2[k]) for k in a2),
+                    "grads": all(torch.equal(g1[k], g2[k]) for k in g2)}
+            check(set(p1) == set(p2) and set(g1) == set(g2) and all(same.values()),
+                  ("stash and recompute fused steps differ", kind, same))
+            s_, r_ = out["fused_" + kind + "_stash"], out["fused_" + kind + "_recompute"]
+            out["fused_" + kind + "_bitwise"] = same
+            out["fused_" + kind + "_stash_over_recompute"] = {
+                "card_event_ms": s_["card_event_ms"] / r_["card_event_ms"],
+                "peak_first_step_mib": s_["peak_first_step_mib"] - r_["peak_first_step_mib"]}
+            del p1, a1, g1, p2, a2, g2
+
+        # --- the per-device step (simple_bind, forward_backward), float32
+        reqs = {n: "write" for n in args}
+        for policy in ("stash", "recompute"):
+            with env_vars(MXNET_FUSED_CONV_BN_BWD=policy, MXNET_FUSION_TUNE_DIR=None):
+                base = start()
+                exe = resnet_bind(pt, net, pt.gpu(0), B, args, aux, reqs, images, labels)
+                ops.reset_launch_counts()
+                prob = exe.forward_backward()[0]._tensor().clone()
+                torch.cuda.synchronize()
+                counted = ops.launch_counts()
+                peak = mib(base)
+                engaged, pro, policies = conv_sites(resolved_plan(exe._prog))
+                check(engaged == RESNET_SITES and policies == [policy],
+                      ("the per-device bind's resolved sites", policy, engaged, policies))
+                check(counted == with_zeros(expected(policy, "", engaged, pro, 1)),
+                      ("the per-device step's launches", policy, counted))
+                grads = {n: exe.grad_dict[n]._tensor().clone() for n in args}
+                new_aux = {n: a._tensor().clone() for n, a in exe.aux_dict.items()}
+                # the step waits on the host inside (it reads values back),
+                # so its CUDA events span the card's time and those waits
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                exe.forward_backward()
+                torch.cuda.synchronize()
+                ev0.record()
+                for _ in range(STASH["timed_steps"]):
+                    exe.forward_backward()
+                ev1.record()
+                torch.cuda.synchronize()
+                launches["per_device_" + policy] = {k: v for k, v in counted.items() if v}
+                states[policy] = (prob, grads, new_aux)
+                out["per_device_" + policy] = {
+                    "launches": launches["per_device_" + policy], "peak_step_mib": peak,
+                    "event_span_ms": ev0.elapsed_time(ev1) / STASH["timed_steps"],
+                    "card_ms": device_ms(exe.forward_backward, STASH["timed_steps"])}
+                del exe, grads, new_aux
+        (o1, g1, a1), (o2, g2, a2) = states.pop("stash"), states.pop("recompute")
+        same = {"outputs": torch.equal(o1, o2), "grads": all(torch.equal(g1[k], g2[k])
+                                                             for k in g2),
+                "aux": all(torch.equal(a1[k], a2[k]) for k in a2)}
+        check(all(same.values()), ("stash and recompute per-device steps differ", same))
+        out["per_device_bitwise"] = same
+        del o1, g1, a1, o2, g2, a2
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    check_tf32_off()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(out)
+    return launches
+
+
 # Phase 25: Transformer-base (MODEL) trained in bf16 by the fused step,
 # SPMDTrainer(compute_dtype='bfloat16') at TRAIN's batch of 8 sequences of
 # 256 tokens with SGD-momentum (TRAIN's lr, momentum and wd, rescale_grad =
@@ -10279,7 +10691,20 @@ def main():
     layouts_launches = timed_phase(run_layouts, pt, smi)
     train_bf16_launches = timed_phase(run_train_bf16, pt, smi)
     train_lm_bf16_launches = timed_phase(run_train_lm_bf16, pt, smi, params)
+    stash_launches = timed_phase(run_conv_stash, pt, smi)
     for name_, e in entries.items():
+        if name_.startswith("conv_bn") and "stash" in name_:
+            # launches: phase 26's fused stash steps (the bf16 forms' in
+            # bf16); fused_launches and per_device_launches: each run's
+            kind = "bf16" if name_.endswith("_bf16") else "f32"
+            e.update(launches=stash_launches["fused_%s_stash" % kind][name_],
+                     stash_phase_launches={k: v[name_] for k, v in stash_launches.items()
+                                           if v.get(name_)})
+            continue
+        if name_ == "matmul_stats_bf16":
+            # launches: the deploy phase's main path (the tap in bf16)
+            e.update(launches=deploy_launches[name_])
+            continue
         if name_ in ("flash_attention_dq_bf16", "flash_attention_dkv_bf16",
                      "norm_residual_bwd_bf16"):
             # launches: phase 25's bf16 LM training steps (each a graph replay)

@@ -22,11 +22,11 @@ Passes (run to fixpoint, ``MXNET_GRAPHREWRITE_ROUNDS`` budget):
   ``ops/infer_meta.py`` ``bf16_slots``. A graph pass only. A planned conv
   then gets bfloat16 x and w with no BN prologue to fold (a Cast stands
   between), and its inference forward runs the stats-free kernel's bf16
-  form, as the JAX package runs its kernel on those operands. The conv+BN,
-  ``matmul_bias_act``, flash-attention and LayerNorm kernels take bfloat16
-  forward and backward (their bf16 forms); a cast that reaches
-  ``matmul_stats``, still float32-only, raises on the card naming ROADMAP.md
-  section 2b's item 2c.
+  form, as the JAX package runs its kernel on those operands. Every kernel
+  takes bfloat16 (its bf16 form: the conv+BN, ``matmul_bias_act``,
+  flash-attention and LayerNorm kernels forward and backward, and
+  ``matmul_stats``), so a cast reaches a kernel on the card wherever it
+  reaches one in the graph.
 * ``dce``          — sweeps nodes the other passes orphaned.
 
 Every firing emits a provenance record ``{pass, rule, action, node,

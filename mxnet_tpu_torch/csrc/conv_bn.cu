@@ -81,6 +81,18 @@
 // Bound on an H100 (989 TFLOP/s, 2 bytes an element) by bytes and
 // operations about equally at ResNet-50's stage-1 3x3, by operations at its
 // stage-3 3x3, by bytes at its 1x1 sites (PERF.md §6).
+//
+// The stash forms (mxt_conv_bn_fwd_stash, f32, and _stash_bf16: the TPU
+// kernel with emit_xn, pallas_conv_bn.py:270-275, :370-389, the forward of
+// MXNET_FUSED_CONV_BN_BWD=stash) are the two training forwards that also
+// write xn = relu(x·scale + shift), the normalised input, on the output grid
+// (B, K, H', W'), for the backward to read instead of rederiving it
+// (conv_bn_bwd.cu's stash form). tc_mainloop's EMIT writes it from the
+// staged chunks through the prologue the products apply (in bf16 the
+// rounded value they consume), each element once: by the blocks of the
+// first output-channel tile, 3x3 the pixels of their own tile (not the
+// border), 1x1 at stride 2 only the sampled positions. The extra bytes are
+// one write of xn: K/N of c's.
 #include "conv_bn.cuh"
 
 namespace {
@@ -91,13 +103,15 @@ using namespace mxt::convbn;
 // The kernels' body; BF16 computes in bf16: on f32 storage (T = float) the
 // bf16 inference variant (no statistics, no residual), on bf16 storage the
 // bf16 training forward.
-template <int TAPS, bool VEC, bool PRO, bool STATS, bool BF16, typename T = float>
+// EMIT: the stash forms, which also write xn (tc_mainloop).
+template <int TAPS, bool VEC, bool PRO, bool STATS, bool BF16, typename T = float,
+          bool EMIT = false>
 __device__ __forceinline__ void conv_bn_fwd_tc(const T* __restrict__ x, const T* __restrict__ w,
                                                const T* __restrict__ scale,
                                                const T* __restrict__ shift,
                                                const T* __restrict__ res, T* __restrict__ c,
                                                float* __restrict__ part, const Geo& geo,
-                                               bool relu) {
+                                               bool relu, T* __restrict__ xn = nullptr) {
   using C = Cfg<TAPS>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -109,9 +123,9 @@ __device__ __forceinline__ void conv_bn_fwd_tc(const T* __restrict__ x, const T*
   const int pt = blockIdx.x / cblocks, n0 = (blockIdx.x - pt * cblocks) * C::BM;
   const int N = geo.N, HWo = geo.Ho * geo.Wo;
   const TcArgs<T> args{w, x, scale, shift, N, geo.K, geo.K, geo.B,
-                       geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu};
+                       geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu, xn};
   float acc[C::MT][C::NT][4] = {};
-  tc_mainloop<TAPS, VEC, PRO, BF16, T>(args, pt, n0, smem, acc);
+  tc_mainloop<TAPS, VEC, PRO, BF16, T, EMIT>(args, pt, n0, smem, acc);
 
   // ---- epilogue: the thread's columns 2t, 2t + 1 of each n8 tile, each
   // with its own output offset at channel 0 (a 1x1 tile may start the next
@@ -216,6 +230,32 @@ conv_bn_train_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                                                             geo, relu);
 }
 
+// The stash forms, each under a name of its own in a profile: the training
+// forward (f32 3xTF32, or bf16 storage) with the prologue, the statistics
+// and the xn output.
+template <int TAPS, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_stash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ scale, const float* __restrict__ shift,
+                         const float* __restrict__ res, float* __restrict__ c,
+                         float* __restrict__ part, float* __restrict__ xn, Geo geo, bool relu) {
+  conv_bn_fwd_tc<TAPS, VEC, true, true, false, float, true>(x, w, scale, shift, res, c, part,
+                                                            geo, relu, xn);
+}
+
+template <int TAPS, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_stash_bf16_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                              const __nv_bfloat16* __restrict__ w,
+                              const __nv_bfloat16* __restrict__ scale,
+                              const __nv_bfloat16* __restrict__ shift,
+                              const __nv_bfloat16* __restrict__ res,
+                              __nv_bfloat16* __restrict__ c, float* __restrict__ part,
+                              __nv_bfloat16* __restrict__ xn, Geo geo, bool relu) {
+  conv_bn_fwd_tc<TAPS, VEC, true, true, true, __nv_bfloat16, true>(x, w, scale, shift, res, c,
+                                                                   part, geo, relu, xn);
+}
+
 // The statistics' second pass: (ssum, ssq) = Σ over the partial rows.
 __global__ void conv_bn_fwd_stats_sum(const float* __restrict__ part, float* __restrict__ out,
                                       int P, int C) {
@@ -225,6 +265,17 @@ __global__ void conv_bn_fwd_stats_sum(const float* __restrict__ part, float* __r
 // The same pass of the bf16 training forward, named after it.
 __global__ void conv_bn_train_bf16_stats_sum(const float* __restrict__ part,
                                              float* __restrict__ out, int P, int C) {
+  mxt::sum_rows(part, out, P, C);
+}
+
+// ... and of the stash forms.
+__global__ void conv_bn_stash_fwd_stats_sum(const float* __restrict__ part,
+                                            float* __restrict__ out, int P, int C) {
+  mxt::sum_rows(part, out, P, C);
+}
+
+__global__ void conv_bn_stash_bf16_fwd_stats_sum(const float* __restrict__ part,
+                                                 float* __restrict__ out, int P, int C) {
   mxt::sum_rows(part, out, P, C);
 }
 
@@ -302,6 +353,58 @@ cudaError_t launch_bf16_pro(bool pro, dim3 grid, cudaStream_t st, const float* x
                             const Geo& g, bool relu) {
   return pro ? launch_bf16<TAPS, VEC, true>(grid, st, x, w, scale, shift, c, g, relu)
              : launch_bf16<TAPS, VEC, false>(grid, st, x, w, scale, shift, c, g, relu);
+}
+
+template <int TAPS, bool VEC, typename T>
+cudaError_t launch_stash(dim3 grid, cudaStream_t st, const T* x, const T* w, const T* scale,
+                         const T* shift, const T* res, T* c, float* part, T* xn, const Geo& g,
+                         bool relu) {
+  auto kernel = [] {
+    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_fwd_kernel<TAPS, VEC>;
+    else return conv_bn_stash_fwd_kernel<TAPS, VEC>;
+  }();
+  constexpr int smem = Cfg<TAPS>::SMEM;
+  static bool raised = false;
+  cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, res, c, part, xn, g, relu);
+  return cudaGetLastError();
+}
+
+// The stash forms on storage T: the checks of mxt_conv_bn_fwd (f32) or
+// mxt_conv_bn_fwd_bf16, a prologue required, xn (B, K, H', W') aligned as x.
+template <typename T>
+int conv_bn_fwd_stash_run(const T* x, const T* w, const T* scale, const T* shift, const T* res,
+                          T* c, float* part, float* sums, T* xn, int B, int K, int H, int W,
+                          int N, int taps, int stride, int relu, int parts, void* stream) {
+  constexpr int align = IsBf16<T>::value ? 8 : 16;
+  if (!valid_call(B, K, H, W, N, taps, stride) || scale == nullptr || shift == nullptr ||
+      part == nullptr || sums == nullptr || xn == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned(x, align) || misaligned(w, align) || misaligned(c, align) ||
+      misaligned(xn, align) || (res != nullptr && misaligned(res, align)) ||
+      misaligned(scale, align / 2) || misaligned(shift, align / 2))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Geo g = make_geo(B, K, H, W, N, taps, stride);
+  if (parts != tc_parts(g, taps)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(parts * ceil_div(N, kTileM));
+  cudaError_t err;
+  if (taps == 1) {
+    err = stride == 1 && (H * W) % 4 == 0
+              ? launch_stash<1, true>(grid, st, x, w, scale, shift, res, c, part, xn, g, relu)
+              : launch_stash<1, false>(grid, st, x, w, scale, shift, res, c, part, xn, g, relu);
+  } else {
+    err = launch_stash<9, false>(grid, st, x, w, scale, shift, res, c, part, xn, g, relu);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 sgrid, sblock;
+  mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
+  if constexpr (IsBf16<T>::value)
+    conv_bn_stash_bf16_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
+  else
+    conv_bn_stash_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -409,4 +512,26 @@ extern "C" int mxt_conv_bn_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16*
   mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
   conv_bn_train_bf16_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stash forms: mxt_conv_bn_fwd (f32) and mxt_conv_bn_fwd_bf16 with the
+// prologue (scale, shift), the statistics (part, sums) and the xn output,
+// all required. xn: (B, K, H', W') in the storage of x.
+extern "C" int mxt_conv_bn_fwd_stash(const float* x, const float* w, const float* scale,
+                                     const float* shift, const float* res, float* c, float* part,
+                                     float* sums, float* xn, int B, int K, int H, int W, int N,
+                                     int taps, int stride, int relu, int parts, void* stream) {
+  return conv_bn_fwd_stash_run(x, w, scale, shift, res, c, part, sums, xn, B, K, H, W, N, taps,
+                               stride, relu, parts, stream);
+}
+
+extern "C" int mxt_conv_bn_fwd_stash_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                          const __nv_bfloat16* scale,
+                                          const __nv_bfloat16* shift,
+                                          const __nv_bfloat16* res, __nv_bfloat16* c,
+                                          float* part, float* sums, __nv_bfloat16* xn, int B,
+                                          int K, int H, int W, int N, int taps, int stride,
+                                          int relu, int parts, void* stream) {
+  return conv_bn_fwd_stash_run(x, w, scale, shift, res, c, part, sums, xn, B, K, H, W, N, taps,
+                               stride, relu, parts, stream);
 }

@@ -25,6 +25,8 @@
 // to f32 into the stage (cp.async copies whole 4-byte words, and the 3x3
 // halo and the strided 1x1 positions are single 2-byte elements), so every
 // shared-memory read and the bf16 fragments stay those of the f32 staging.
+// With EMIT (the forward's stash policy) the blocks of the first row tile
+// also write xn = prologue(X), each element once, on the output grid.
 #pragma once
 
 #include "bf16_mma.cuh"
@@ -110,6 +112,15 @@ __device__ __forceinline__ float prologue(float v, float sc, float sh, bool relu
   return relu ? fmaxf(v, 0.f) : v;
 }
 
+// The prologue as tc_mainloop applies it to a staged value: in f32, or (BF16)
+// on the bf16 roundings of v, sc and sh with bf16_mma.cuh's two roundings.
+template <bool BF16>
+__device__ __forceinline__ float staged_prologue(float v, float sc, float sh, bool relu) {
+  if (BF16)
+    return bf16::prologue(bf16::round_bf16(v), bf16::round_bf16(sc), bf16::round_bf16(sh), relu);
+  return prologue(v, sc, sh, relu);
+}
+
 // Column col of position tile pt: its image b and output pixel (oy, ox);
 // false past the grid's edge.
 template <int TAPS>
@@ -147,6 +158,7 @@ struct TcArgs {
   int M, KC, C;
   int B, H, W, Ho, Wo, stride;
   bool relu;
+  T* xn;  // EMIT: the prologue's output (B, C, Ho, Wo), else unused
 };
 
 // One stage of tc_mainloop's products in bf16 (BF16): the TF32 path's
@@ -237,13 +249,19 @@ __device__ __forceinline__ void bf16_stage(const TcArgs<T>& g, const float* as, 
 // built, the prologue is bf16_mma.cuh's, and each stage's products go into a
 // fresh f32 accumulator that is added to acc with one rounding to nearest
 // (the tensor cores truncate as they accumulate, tf32x3.cuh's mma3).
-// T = __nv_bfloat16 (bf16 storage) takes BF16.
-template <int TAPS, bool VEC, bool PRO, bool BF16 = false, typename T = float>
+// T = __nv_bfloat16 (bf16 storage) takes BF16. EMIT (with PRO): the blocks
+// with m0 == 0 write g.xn, each thread the elements it staged, once its copy
+// of a chunk landed: the value its warps' fragments take, so the backward
+// that reads xn sees what a recompute from X derives (3x3: the interior of
+// the bordered tile, the 8 x 8 pixels the block owns).
+template <int TAPS, bool VEC, bool PRO, bool BF16 = false, typename T = float, bool EMIT = false>
 __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, float* smem,
                                             float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
   using C = Cfg<TAPS>;
   constexpr bool kB16 = IsBf16<T>::value;
   static_assert(BF16 || !kB16, "bf16 storage computes in bf16");
+  static_assert(PRO || !EMIT, "xn is the prologue's output");
+  const bool emit = EMIT && m0 == 0;
   constexpr int BM = C::BM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, t = lane & 3;
@@ -260,12 +278,14 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
   // 3x3: elements e = tid + i · 256 of the BK x 10 x 10 halo chunk
   constexpr int k3x3 = TAPS == 1 ? 1 : (C::BK * kHalo + kThreads - 1) / kThreads;
   size_t off = 0;         // 1x1: X offset of the position at channel 0
+  size_t xn_off = 0;      // 1x1: xn offset of the position at channel 0
   int pos = 0, kl0 = 0;   // 1x1: B column and first row
   bool valid = false;     // 1x1: the position exists
   size_t src[k3x3];       // 3x3: X offset at the chunk's channel 0
   int dst[k3x3];          // 3x3: shared offset in the B block; -1 past the chunk
   int kls[k3x3];          // 3x3: its channel in the chunk
   bool ok[k3x3];          // 3x3: inside the image (else zero-filled)
+  bool own[k3x3];         // 3x3: inside the image and the block's 8 x 8 tile
   if (TAPS == 1) {
     pos = (tid % kPerRow) * (VEC ? 4 : 1);
     kl0 = tid / kPerRow;
@@ -275,6 +295,7 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
     const int oy = p / g.Wo, ox = p - oy * g.Wo;
     off = static_cast<size_t>(b) * g.C * HW + static_cast<size_t>(oy * g.stride) * g.W +
           ox * g.stride;
+    xn_off = static_cast<size_t>(b) * g.C * HWo + p;
   } else {
     const int tiles_x = ceil_div(g.Wo, kTileHW);
     const int per_img = ceil_div(g.Ho, kTileHW) * tiles_x;
@@ -287,6 +308,7 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
       const int hy = hp / kHaloW, hx = hp - hy * kHaloW;
       const int iy = oy0 - 1 + hy, ix = ox0 - 1 + hx;
       ok[i] = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
+      own[i] = ok[i] && hy >= 1 && hy <= kTileHW && hx >= 1 && hx <= kTileHW;
       src[i] = (static_cast<size_t>(b3) * g.C + kl) * HW +
                (ok[i] ? static_cast<size_t>(iy) * g.W + ix : 0);
       dst[i] = e < C::BK * kHalo ? kl * C::BS + hp : -1;
@@ -388,15 +410,31 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
       for (int i = 0; i < k3x3; ++i) {
         if (dst[i] < 0) continue;
         const int k = k0 + kls[i];
-        if (BF16) {
-          bs[dst[i]] = ok[i] ? bf16::prologue(bf16::round_bf16(bs[dst[i]]),
-                                              bf16::round_bf16(ldg1(g.scale + k)),
-                                              bf16::round_bf16(ldg1(g.shift + k)), g.relu)
-                             : 0.f;
+        bs[dst[i]] = ok[i] ? staged_prologue<BF16>(bs[dst[i]], ldg1(g.scale + k),
+                                                   ldg1(g.shift + k), g.relu)
+                           : 0.f;
+        if (EMIT && emit && own[i] && k < g.C) st1(g.xn + src[i] + static_cast<size_t>(k0) * HW,
+                                                   bs[dst[i]]);
+      }
+    }
+    if (TAPS == 1 && EMIT && emit && valid) {
+      // 1x1: the elements this thread staged, through the prologue its warps'
+      // fragments apply below
+      const float* bs = smem + (kt % kStages) * C::STAGE + BM * C::AS;
+#pragma unroll
+      for (int i = 0; i < k1x1; ++i) {
+        const int k = k0 + kl0 + i * kStepK;
+        if (k >= g.C) continue;
+        const float sc = ldg1(g.scale + k), sh = ldg1(g.shift + k);
+        const float* from = bs + (kl0 + i * kStepK) * C::BS + pos;
+        T* to = g.xn + xn_off + static_cast<size_t>(k) * HWo;
+        if (VEC) {
+          st4(to, make_float4(staged_prologue<BF16>(from[0], sc, sh, g.relu),
+                              staged_prologue<BF16>(from[1], sc, sh, g.relu),
+                              staged_prologue<BF16>(from[2], sc, sh, g.relu),
+                              staged_prologue<BF16>(from[3], sc, sh, g.relu)));
         } else {
-          bs[dst[i]] = ok[i] ? prologue(bs[dst[i]], ldg1(g.scale + k), ldg1(g.shift + k),
-                                        g.relu)
-                             : 0.f;
+          st1(to, staged_prologue<BF16>(from[0], sc, sh, g.relu));
         }
       }
     }

@@ -3,8 +3,11 @@
 // cotangent dc and the statistics' cotangents ds, dq (N,).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_conv_bn.py _bwd_kernel
-// (:511), launched by _conv_block_bwd_impl (:619, pallas_call :692), in its
-// recompute policy: xn = relu(x·scale + shift) is rederived from x.
+// (:511), launched by _conv_block_bwd_impl (:619, pallas_call :692), in both
+// of its policies: recompute (mxt_conv_bn_bwd, _bf16), where xn =
+// relu(x·scale + shift) is rederived from x, and stash (mxt_conv_bn_bwd_stash,
+// _stash_bf16), where the forward wrote xn (conv_bn.cu's stash forms) and
+// the backward reads it (:531, :567-568).
 //
 // Bound on an H100: operations, twice the forward's 2·B·H'W'·N·K·taps FLOP,
 // at f32 accuracy on the TF32 tensor cores (3xTF32, tf32x3.cuh: 3 · FLOP at
@@ -63,6 +66,16 @@
 // on an H100 (989 TFLOP/s, 2 bytes an element) by bytes and operations about
 // equally at ResNet-50's stage-1 3x3, by operations at its stage-3 3x3, by
 // bytes at its 1x1 sites (PERF.md §6).
+//
+// The stash forms run the same five passes, each under a name of its own
+// (conv_bn_stash_bwd_*, conv_bn_stash_bf16_bwd_*), with xn (B, K, H', W')
+// read where the recompute rederives it: the dgrad takes its ReLU mask from
+// xn (relu(pre) > 0 exactly where pre > 0) and still reads x for dscale =
+// Σ da·x (:603); the wgrad takes xn as its operand with the prologue off,
+// the wgrad kernels' bare-input path on xn's own grid (1x1 at stride 2: the
+// sampled grid, read contiguously). xn holds what the forward's products
+// consumed, the value a recompute derives, so the two policies give the
+// same bits.
 #include "conv_bn.cuh"
 
 namespace {
@@ -125,6 +138,25 @@ conv_bn_bf16_bwd_fold_kernel(const __nv_bfloat16* __restrict__ dc,
   fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
 }
 
+// The stash forms' fold, under their names.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+conv_bn_stash_bwd_fold_kernel(const float* __restrict__ dc, const float* __restrict__ c,
+                              const float* __restrict__ ds, const float* __restrict__ dq,
+                              float* __restrict__ dce, int N, int HWo, size_t total) {
+  fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+conv_bn_stash_bf16_bwd_fold_kernel(const __nv_bfloat16* __restrict__ dc,
+                                   const __nv_bfloat16* __restrict__ c,
+                                   const float* __restrict__ ds, const float* __restrict__ dq,
+                                   __nv_bfloat16* __restrict__ dce, int N, int HWo,
+                                   size_t total) {
+  fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
+}
+
 // wt[k][n·TAPS + t] = w[n][k][TAPS − 1 − t] (0 for n ≥ N), through a 32 x 32
 // tile of (n, k) in shared memory so that both sides are read and written
 // along rows. The flip: da[p] takes dce[p − s_t] where c[o] took xn[o + s_t].
@@ -164,18 +196,32 @@ conv_bn_bf16_bwd_wflip_kernel(const __nv_bfloat16* __restrict__ w, __nv_bfloat16
   wflip<TAPS>(w, wt, N, K, np);
 }
 
+template <int TAPS>
+__global__ void __launch_bounds__(kThreads)
+conv_bn_stash_bwd_wflip_kernel(const float* __restrict__ w, float* __restrict__ wt, int N, int K,
+                               int np) {
+  wflip<TAPS>(w, wt, N, K, np);
+}
+
+template <int TAPS>
+__global__ void __launch_bounds__(kThreads)
+conv_bn_stash_bf16_bwd_wflip_kernel(const __nv_bfloat16* __restrict__ w,
+                                    __nv_bfloat16* __restrict__ wt, int N, int K, int np) {
+  wflip<TAPS>(w, wt, N, K, np);
+}
+
 // ---- dgrad: the forward's implicit GEMM over (wt, dce), then the prologue's
 // backward. The input-channel blocks of one position tile run one after
 // another, so the tile's dce is read from device memory once. T: the
 // storage (bf16: the products in bf16, the ReLU mask from the bf16 prologue,
-// dx rounded as it is stored).
-template <int TAPS, bool VEC, bool PRO, typename T>
+// dx rounded as it is stored). STASH: the ReLU mask from xn (B, K, H', W').
+template <int TAPS, bool VEC, bool PRO, typename T, bool STASH = false>
 __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __restrict__ wt,
                                            const T* __restrict__ scale,
                                            const T* __restrict__ shift,
                                            const T* __restrict__ dce, T* __restrict__ dx,
                                            float* __restrict__ part, const Geo& geo, int np,
-                                           bool relu) {
+                                           bool relu, const T* __restrict__ xn = nullptr) {
   using C = Cfg<TAPS>;
   constexpr bool kB16 = IsBf16<T>::value;
   extern __shared__ __align__(16) float smem[];
@@ -191,9 +237,9 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
   tc_mainloop<TAPS, VEC, false, kB16, T>(args, pt, k0, smem, acc);
 
   // ---- epilogue: each of the thread's columns at its x offset (channel 0)
-  const size_t HW = static_cast<size_t>(geo.H) * geo.W;
+  const size_t HW = static_cast<size_t>(geo.H) * geo.W, HWo = static_cast<size_t>(geo.Ho) * geo.Wo;
   const bool s2 = geo.stride == 2;
-  size_t xb[C::NT][2];
+  size_t xb[C::NT][2], nb[C::NT][2];  // x's and xn's offsets at channel 0
   bool in[C::NT][2], right[C::NT][2], down[C::NT][2], vec[C::NT];
 #pragma unroll
   for (int ni = 0; ni < C::NT; ++ni) {
@@ -203,6 +249,7 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
       in[ni][j] = tile_col<TAPS>(geo, pt, wn * C::WN + ni * 8 + 2 * t + j, &b, &oy, &ox);
       const int iy = oy * geo.stride, ix = ox * geo.stride;
       xb[ni][j] = static_cast<size_t>(b) * K * HW + static_cast<size_t>(iy) * geo.W + ix;
+      nb[ni][j] = static_cast<size_t>(b) * K * HWo + static_cast<size_t>(oy) * geo.Wo + ox;
       // stride 2: the unsampled neighbours of (iy, ix) inside the grid
       right[ni][j] = s2 && ix + 1 < geo.W;
       down[ni][j] = s2 && iy + 1 < geo.H;
@@ -223,11 +270,18 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
       const int k = k0 + wm * C::WM + mi * 16 + g + 8 * h;
       if (k >= K) continue;
       const float sc = PRO ? ldg1(scale + k) : 1.f, sf = PRO ? ldg1(shift + k) : 0.f;
-      const size_t koff = static_cast<size_t>(k) * HW;
-      // dx of one position from da and x: the prologue's backward
-      auto grad = [&](float da, float xv) {
+      const size_t koff = static_cast<size_t>(k) * HW, nkoff = static_cast<size_t>(k) * HWo;
+      // STASH: the stashed xn of the thread's column j of n8 tile ni (read
+      // only where the mask needs it)
+      auto stashed = [&](int ni, int j) {
+        return STASH && relu ? ldg1(xn + nb[ni][j] + nkoff) : 0.f;
+      };
+      // dx of one position from da and x (and xn): the prologue's backward
+      auto grad = [&](float da, float xv, float nv) {
         if (!PRO) return da;
-        const float pre = kB16 ? bf16::prologue(xv, sc, sf, false) : prologue(xv, sc, sf, false);
+        const float pre = STASH ? nv
+                                : (kB16 ? bf16::prologue(xv, sc, sf, false)
+                                        : prologue(xv, sc, sf, false));
         if (relu && !(pre > 0.f)) da = 0.f;
         sx[mi][h] = fmaf(da, xv, sx[mi][h]);
         sh[mi][h] += da;
@@ -240,12 +294,12 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
           const size_t o = xb[ni][0] + koff;
           if (s2) {
             const float4 xv = PRO ? ldg4(x + o) : make_float4(0.f, 0.f, 0.f, 0.f);
-            const float d0 = grad(da0, xv.x), d1 = grad(da1, xv.z);
+            const float d0 = grad(da0, xv.x, stashed(ni, 0)), d1 = grad(da1, xv.z, stashed(ni, 1));
             st4(dx + o, make_float4(d0, 0.f, d1, 0.f));
             if (down[ni][0]) st4(dx + o + geo.W, make_float4(0.f, 0.f, 0.f, 0.f));
           } else {
             const float2 xv = PRO ? ldg2(x + o) : make_float2(0.f, 0.f);
-            const float d0 = grad(da0, xv.x), d1 = grad(da1, xv.y);
+            const float d0 = grad(da0, xv.x, stashed(ni, 0)), d1 = grad(da1, xv.y, stashed(ni, 1));
             st2(dx + o, d0, d1);
           }
           continue;
@@ -254,7 +308,7 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
         for (int j = 0; j < 2; ++j) {
           if (!in[ni][j]) continue;
           const size_t o = xb[ni][j] + koff;
-          st1(dx + o, grad(j ? da1 : da0, PRO ? ldg1(x + o) : 0.f));
+          st1(dx + o, grad(j ? da1 : da0, PRO ? ldg1(x + o) : 0.f, stashed(ni, j)));
           if (right[ni][j]) st1(dx + o + 1, 0.f);
           if (down[ni][j]) st1(dx + o + geo.W, 0.f);
           if (right[ni][j] && down[ni][j]) st1(dx + o + geo.W + 1, 0.f);
@@ -291,6 +345,31 @@ conv_bn_bf16_bwd_dgrad_kernel(const __nv_bfloat16* __restrict__ x,
                               __nv_bfloat16* __restrict__ dx, float* __restrict__ part, Geo geo,
                               int np, bool relu) {
   dgrad_body<TAPS, VEC, PRO>(x, wt, scale, shift, dce, dx, part, geo, np, relu);
+}
+
+// The stash forms' dgrad (always with the prologue): the mask from xn.
+template <int TAPS, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_stash_bwd_dgrad_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                               const float* __restrict__ scale, const float* __restrict__ shift,
+                               const float* __restrict__ dce, float* __restrict__ dx,
+                               float* __restrict__ part, Geo geo, int np, bool relu,
+                               const float* __restrict__ xn) {
+  dgrad_body<TAPS, VEC, true, float, true>(x, wt, scale, shift, dce, dx, part, geo, np, relu, xn);
+}
+
+template <int TAPS, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_stash_bf16_bwd_dgrad_kernel(const __nv_bfloat16* __restrict__ x,
+                                    const __nv_bfloat16* __restrict__ wt,
+                                    const __nv_bfloat16* __restrict__ scale,
+                                    const __nv_bfloat16* __restrict__ shift,
+                                    const __nv_bfloat16* __restrict__ dce,
+                                    __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+                                    Geo geo, int np, bool relu,
+                                    const __nv_bfloat16* __restrict__ xn) {
+  dgrad_body<TAPS, VEC, true, __nv_bfloat16, true>(x, wt, scale, shift, dce, dx, part, geo, np,
+                                                   relu, xn);
 }
 
 // ---- wgrad, 1x1: a block owns 128 output (n) by 64 input (k) channels and
@@ -492,6 +571,24 @@ conv_bn_bf16_bwd_wgrad1_kernel(const __nv_bfloat16* __restrict__ x,
                                const __nv_bfloat16* __restrict__ dce, float* __restrict__ dw_part,
                                Geo geo, bool relu, int splits) {
   wgrad1_body<EVEC, XVEC, PRO>(x, scale, shift, dce, dw_part, geo, relu, splits);
+}
+
+// The stash forms' 1x1 wgrad: the bare-input path on xn, geo its grid (H, W
+// = H', W', stride 1), so xn takes dce's copies (EVEC both).
+template <bool EVEC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_stash_bwd_wgrad1_kernel(const float* __restrict__ xn, const float* __restrict__ dce,
+                                float* __restrict__ dw_part, Geo geo, int splits) {
+  wgrad1_body<EVEC, EVEC, false, float>(xn, nullptr, nullptr, dce, dw_part, geo, false, splits);
+}
+
+template <bool EVEC>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_bn_stash_bf16_bwd_wgrad1_kernel(const __nv_bfloat16* __restrict__ xn,
+                                     const __nv_bfloat16* __restrict__ dce,
+                                     float* __restrict__ dw_part, Geo geo, int splits) {
+  wgrad1_body<EVEC, EVEC, false, __nv_bfloat16>(xn, nullptr, nullptr, dce, dw_part, geo, false,
+                                                splits);
 }
 
 // ---- wgrad, 3x3: a block owns 64 output (n) by 32 input (k) channels and
@@ -753,6 +850,24 @@ conv_bn_bf16_bwd_wgrad3_kernel(const __nv_bfloat16* __restrict__ x,
   wgrad3_body<TH, VEC, PRO>(x, scale, shift, dce, dw_part, geo, relu, splits);
 }
 
+// The stash forms' 3x3 wgrad: the bare-input path on xn (x's grid; the
+// zero-filled border is the padding of the normalised input).
+template <int TH, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_bn_stash_bwd_wgrad3_kernel(const float* __restrict__ xn, const float* __restrict__ dce,
+                                float* __restrict__ dw_part, Geo geo, int splits) {
+  wgrad3_body<TH, VEC, false, float>(xn, nullptr, nullptr, dce, dw_part, geo, false, splits);
+}
+
+template <int TH, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_bn_stash_bf16_bwd_wgrad3_kernel(const __nv_bfloat16* __restrict__ xn,
+                                     const __nv_bfloat16* __restrict__ dce,
+                                     float* __restrict__ dw_part, Geo geo, int splits) {
+  wgrad3_body<TH, VEC, false, __nv_bfloat16>(xn, nullptr, nullptr, dce, dw_part, geo, false,
+                                             splits);
+}
+
 // The second pass: dw (splits rows) and (dscale, dshift) (parts rows).
 __global__ void conv_bn_bwd_partials_sum(const float* __restrict__ part,
                                          float* __restrict__ out, int P, int C) {
@@ -765,6 +880,56 @@ __global__ void conv_bn_bf16_bwd_partials_sum(const float* __restrict__ part,
                                               OutT* __restrict__ out, int P, int C) {
   mxt::sum_rows(part, out, P, C);
 }
+
+// The stash forms'.
+template <typename OutT>
+__global__ void conv_bn_stash_bwd_partials_sum(const float* __restrict__ part,
+                                               OutT* __restrict__ out, int P, int C) {
+  mxt::sum_rows(part, out, P, C);
+}
+
+template <typename OutT>
+__global__ void conv_bn_stash_bf16_bwd_partials_sum(const float* __restrict__ part,
+                                                    OutT* __restrict__ out, int P, int C) {
+  mxt::sum_rows(part, out, P, C);
+}
+
+// The fold, wflip and partial-sum kernels of one form: storage T, recompute
+// or STASH, each form's under names of its own.
+template <typename T, bool STASH>
+struct Form {
+  template <bool VEC>
+  static auto fold() {
+    if constexpr (IsBf16<T>::value) {
+      if constexpr (STASH) return conv_bn_stash_bf16_bwd_fold_kernel<VEC>;
+      else return conv_bn_bf16_bwd_fold_kernel<VEC>;
+    } else {
+      if constexpr (STASH) return conv_bn_stash_bwd_fold_kernel<VEC>;
+      else return conv_bn_bwd_fold_kernel<VEC>;
+    }
+  }
+  template <int TAPS>
+  static auto wflip() {
+    if constexpr (IsBf16<T>::value) {
+      if constexpr (STASH) return conv_bn_stash_bf16_bwd_wflip_kernel<TAPS>;
+      else return conv_bn_bf16_bwd_wflip_kernel<TAPS>;
+    } else {
+      if constexpr (STASH) return conv_bn_stash_bwd_wflip_kernel<TAPS>;
+      else return conv_bn_bwd_wflip_kernel<TAPS>;
+    }
+  }
+  // the sums into OutT: dw's storage T, or f32 (dscale, dshift)
+  template <typename OutT>
+  static auto sums() {
+    if constexpr (IsBf16<T>::value) {
+      if constexpr (STASH) return conv_bn_stash_bf16_bwd_partials_sum<OutT>;
+      else return conv_bn_bf16_bwd_partials_sum<OutT>;
+    } else {
+      if constexpr (STASH) return conv_bn_stash_bwd_partials_sum<OutT>;
+      else return conv_bn_bwd_partials_sum;
+    }
+  }
+};
 
 template <int TAPS, bool VEC, bool PRO, typename T>
 cudaError_t dgrad(cudaStream_t st, const Geo& g, int np, const T* x, const T* wt, const T* scale,
@@ -850,22 +1015,105 @@ cudaError_t products(cudaStream_t st, const Geo& g, int np, int splits, const T*
   }
 }
 
+// ---- the stash forms' products: the dgrad with the mask from xn, the
+// wgrad on xn with the prologue off
+template <int TAPS, bool VEC, typename T>
+cudaError_t stash_dgrad(cudaStream_t st, const Geo& g, int np, const T* x, const T* wt,
+                        const T* scale, const T* shift, const T* dce, T* dx, float* part,
+                        bool relu, const T* xn) {
+  auto kernel = [] {
+    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_bwd_dgrad_kernel<TAPS, VEC>;
+    else return conv_bn_stash_bwd_dgrad_kernel<TAPS, VEC>;
+  }();
+  static bool raised = false;
+  cudaError_t err = mxt::raise_smem(kernel, Cfg<TAPS>::SMEM, &raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tc_parts(g, TAPS) * ceil_div(g.K, kTileM));
+  kernel<<<grid, kThreads, Cfg<TAPS>::SMEM, st>>>(x, wt, scale, shift, dce, dx, part, g, np,
+                                                  relu, xn);
+  return cudaGetLastError();
+}
+
+// gx: xn's geometry (1x1: its grid H', W' at stride 1)
+template <typename Kernel, typename T>
+cudaError_t stash_wgrad(Kernel kernel, bool* raised, int smem, dim3 grid, cudaStream_t st,
+                        const Geo& gx, int splits, const T* xn, const T* dce, float* dw_part) {
+  cudaError_t err = mxt::raise_smem(kernel, smem, raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(xn, dce, dw_part, gx, splits);
+  return cudaGetLastError();
+}
+
+template <bool EVEC, typename T>
+cudaError_t stash_wgrad1(cudaStream_t st, const Geo& gx, int splits, const T* xn, const T* dce,
+                         float* dw_part) {
+  static bool raised = false;
+  const dim3 grid(ceil_div(gx.N, kW1N), ceil_div(gx.K, kW1K), splits);
+  auto kernel = [] {
+    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_bwd_wgrad1_kernel<EVEC>;
+    else return conv_bn_stash_bwd_wgrad1_kernel<EVEC>;
+  }();
+  return stash_wgrad(kernel, &raised, kW1Smem, grid, st, gx, splits, xn, dce, dw_part);
+}
+
+template <int TH, bool VEC, typename T>
+cudaError_t stash_wgrad3(cudaStream_t st, const Geo& gx, int splits, const T* xn, const T* dce,
+                         float* dw_part) {
+  static bool raised = false;
+  const dim3 grid(ceil_div(gx.N, kW3N), ceil_div(gx.K, kW3K), splits);
+  auto kernel = [] {
+    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_bwd_wgrad3_kernel<TH, VEC>;
+    else return conv_bn_stash_bwd_wgrad3_kernel<TH, VEC>;
+  }();
+  return stash_wgrad(kernel, &raised, kW3Smem, grid, st, gx, splits, xn, dce, dw_part);
+}
+
+template <int TAPS, typename T>
+cudaError_t stash_products(cudaStream_t st, const Geo& g, int np, int splits, const T* x,
+                           const T* wt, const T* scale, const T* shift, const T* dce, T* dx,
+                           float* dw_part, float* dss_part, bool relu, const T* xn) {
+  const int HWo = g.Ho * g.Wo;
+  cudaError_t err;
+  if constexpr (TAPS == 1) {
+    err = HWo % 4 == 0 ? stash_dgrad<1, true>(st, g, np, x, wt, scale, shift, dce, dx, dss_part,
+                                              relu, xn)
+                       : stash_dgrad<1, false>(st, g, np, x, wt, scale, shift, dce, dx,
+                                               dss_part, relu, xn);
+    if (err != cudaSuccess) return err;
+    const Geo gx = make_geo(g.B, g.K, g.Ho, g.Wo, g.N, 1, 1);
+    return HWo % 4 == 0 ? stash_wgrad1<true>(st, gx, splits, xn, dce, dw_part)
+                        : stash_wgrad1<false>(st, gx, splits, xn, dce, dw_part);
+  } else {
+    err = stash_dgrad<9, false>(st, g, np, x, wt, scale, shift, dce, dx, dss_part, relu, xn);
+    if (err != cudaSuccess) return err;
+    const bool vec = g.Wo % 4 == 0;
+    if (wgrad3_tile_h(g.Ho) == 7)
+      return vec ? stash_wgrad3<7, true>(st, g, splits, xn, dce, dw_part)
+                 : stash_wgrad3<7, false>(st, g, splits, xn, dce, dw_part);
+    return vec ? stash_wgrad3<8, true>(st, g, splits, xn, dce, dw_part)
+               : stash_wgrad3<8, false>(st, g, splits, xn, dce, dw_part);
+  }
+}
+
 // The five passes on storage T; align: the bytes every tensor operand must
-// be aligned to (16 for f32, 8 for bf16).
-template <typename T>
+// be aligned to (16 for f32, 8 for bf16). STASH: xn (B, K, H', W') is read
+// in place of the prologue's recompute, which must be there.
+template <typename T, bool STASH>
 int conv_bn_bwd_run(const T* x, const T* w, const T* scale, const T* shift, const T* c,
-                    const T* dc, const float* ds, const float* dq, T* dx, T* dw, float* dw_part,
-                    float* dss, float* dss_part, T* dce, T* wt, int B, int K, int H, int W, int N,
-                    int taps, int stride, int relu, int parts, int splits, void* stream) {
-  constexpr bool kB16 = IsBf16<T>::value;
-  constexpr int align = kB16 ? 8 : 16;
+                    const T* dc, const float* ds, const float* dq, const T* xn, T* dx, T* dw,
+                    float* dw_part, float* dss, float* dss_part, T* dce, T* wt, int B, int K,
+                    int H, int W, int N, int taps, int stride, int relu, int parts, int splits,
+                    void* stream) {
+  using F = Form<T, STASH>;
+  constexpr int align = IsBf16<T>::value ? 8 : 16;
   const bool pro = scale != nullptr;
   if (!valid_call(B, K, H, W, N, taps, stride) || (shift != nullptr) != pro ||
-      (dss != nullptr) != pro || (dss_part != nullptr) != pro || splits < 1 || splits > 65535)
+      (dss != nullptr) != pro || (dss_part != nullptr) != pro || splits < 1 || splits > 65535 ||
+      (STASH && (!pro || xn == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (misaligned(x, align) || misaligned(w, align) || misaligned(c, align) ||
       misaligned(dc, align) || misaligned(dce, align) || misaligned(dx, align) ||
-      misaligned(wt, align))
+      misaligned(wt, align) || (STASH && misaligned(xn, align)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Geo g = make_geo(B, K, H, W, N, taps, stride);
   if (parts != tc_parts(g, taps)) return static_cast<int>(cudaErrorInvalidValue);
@@ -876,28 +1124,18 @@ int conv_bn_bwd_run(const T* x, const T* w, const T* scale, const T* shift, cons
   const int fold_blocks = static_cast<int>(
       fold_items < 132 * 16 * kThreads ? (fold_items + kThreads - 1) / kThreads : 132 * 16);
   const dim3 fgrid(ceil_div(np, kFlipTile), ceil_div(K, kFlipTile));
-  if constexpr (kB16) {
-    if (HWo % 4 == 0)
-      conv_bn_bf16_bwd_fold_kernel<true><<<fold_blocks, kThreads, 0, st>>>(dc, c, ds, dq, dce, N,
-                                                                          HWo, total);
-    else
-      conv_bn_bf16_bwd_fold_kernel<false><<<fold_blocks, kThreads, 0, st>>>(dc, c, ds, dq, dce,
-                                                                           N, HWo, total);
-    if (taps == 1) conv_bn_bf16_bwd_wflip_kernel<1><<<fgrid, kThreads, 0, st>>>(w, wt, N, K, np);
-    else conv_bn_bf16_bwd_wflip_kernel<9><<<fgrid, kThreads, 0, st>>>(w, wt, N, K, np);
-  } else {
-    if (HWo % 4 == 0)
-      conv_bn_bwd_fold_kernel<true><<<fold_blocks, kThreads, 0, st>>>(dc, c, ds, dq, dce, N,
-                                                                       HWo, total);
-    else
-      conv_bn_bwd_fold_kernel<false><<<fold_blocks, kThreads, 0, st>>>(dc, c, ds, dq, dce, N,
-                                                                        HWo, total);
-    if (taps == 1) conv_bn_bwd_wflip_kernel<1><<<fgrid, kThreads, 0, st>>>(w, wt, N, K, np);
-    else conv_bn_bwd_wflip_kernel<9><<<fgrid, kThreads, 0, st>>>(w, wt, N, K, np);
-  }
+  const auto fold_k = HWo % 4 == 0 ? F::template fold<true>() : F::template fold<false>();
+  fold_k<<<fold_blocks, kThreads, 0, st>>>(dc, c, ds, dq, dce, N, HWo, total);
+  const auto flip_k = taps == 1 ? F::template wflip<1>() : F::template wflip<9>();
+  flip_k<<<fgrid, kThreads, 0, st>>>(w, wt, N, K, np);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (taps == 1) {
+  if constexpr (STASH) {
+    err = taps == 1 ? stash_products<1>(st, g, np, splits, x, wt, scale, shift, dce, dx, dw_part,
+                                        dss_part, relu, xn)
+                    : stash_products<9>(st, g, np, splits, x, wt, scale, shift, dce, dx, dw_part,
+                                        dss_part, relu, xn);
+  } else if (taps == 1) {
     err = pro ? products<1, true>(st, g, np, splits, x, wt, scale, shift, dce, dx, dw_part,
                                   dss_part, relu)
               : products<1, false>(st, g, np, splits, x, wt, scale, shift, dce, dx, dw_part,
@@ -912,13 +1150,12 @@ int conv_bn_bwd_run(const T* x, const T* w, const T* scale, const T* shift, cons
   dim3 grid, block;
   const int C = N * K * taps;
   mxt::sum_rows_shape(splits, C, &grid, &block);
-  if constexpr (kB16) conv_bn_bf16_bwd_partials_sum<<<grid, block, 0, st>>>(dw_part, dw, splits, C);
-  else conv_bn_bwd_partials_sum<<<grid, block, 0, st>>>(dw_part, dw, splits, C);
+  const auto dw_sum = F::template sums<T>();
+  dw_sum<<<grid, block, 0, st>>>(dw_part, dw, splits, C);
   if (pro) {
     mxt::sum_rows_shape(parts, 2 * K, &grid, &block);
-    if constexpr (kB16)
-      conv_bn_bf16_bwd_partials_sum<<<grid, block, 0, st>>>(dss_part, dss, parts, 2 * K);
-    else conv_bn_bwd_partials_sum<<<grid, block, 0, st>>>(dss_part, dss, parts, 2 * K);
+    const auto dss_sum = F::template sums<float>();
+    dss_sum<<<grid, block, 0, st>>>(dss_part, dss, parts, 2 * K);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -941,8 +1178,9 @@ extern "C" int mxt_conv_bn_bwd(const float* x, const float* w, const float* scal
                                float* dw_part, float* dss, float* dss_part, float* dce, float* wt,
                                int B, int K, int H, int W, int N, int taps, int stride, int relu,
                                int parts, int splits, void* stream) {
-  return conv_bn_bwd_run(x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce,
-                         wt, B, K, H, W, N, taps, stride, relu, parts, splits, stream);
+  return conv_bn_bwd_run<float, false>(x, w, scale, shift, c, dc, ds, dq, nullptr, dx, dw,
+                                       dw_part, dss, dss_part, dce, wt, B, K, H, W, N, taps,
+                                       stride, relu, parts, splits, stream);
 }
 
 // The bf16 form: x, w, scale, shift, c, dc, dx, dw, dce (dres) and wt are bf16
@@ -956,6 +1194,38 @@ extern "C" int mxt_conv_bn_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16*
                                     __nv_bfloat16* dce, __nv_bfloat16* wt, int B, int K, int H,
                                     int W, int N, int taps, int stride, int relu, int parts,
                                     int splits, void* stream) {
-  return conv_bn_bwd_run(x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce,
-                         wt, B, K, H, W, N, taps, stride, relu, parts, splits, stream);
+  return conv_bn_bwd_run<__nv_bfloat16, false>(x, w, scale, shift, c, dc, ds, dq, nullptr, dx,
+                                               dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
+                                               N, taps, stride, relu, parts, splits, stream);
+}
+
+// The stash forms: mxt_conv_bn_bwd (f32) and mxt_conv_bn_bwd_bf16 with xn
+// (B, K, H', W'), the forward's stashed prologue output in the storage of x,
+// read in place of its recompute. The prologue (scale, shift, dss,
+// dss_part) is required.
+extern "C" int mxt_conv_bn_bwd_stash(const float* x, const float* w, const float* scale,
+                                     const float* shift, const float* c, const float* dc,
+                                     const float* ds, const float* dq, const float* xn, float* dx,
+                                     float* dw, float* dw_part, float* dss, float* dss_part,
+                                     float* dce, float* wt, int B, int K, int H, int W, int N,
+                                     int taps, int stride, int relu, int parts, int splits,
+                                     void* stream) {
+  return conv_bn_bwd_run<float, true>(x, w, scale, shift, c, dc, ds, dq, xn, dx, dw, dw_part,
+                                      dss, dss_part, dce, wt, B, K, H, W, N, taps, stride, relu,
+                                      parts, splits, stream);
+}
+
+extern "C" int mxt_conv_bn_bwd_stash_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                          const __nv_bfloat16* scale,
+                                          const __nv_bfloat16* shift, const __nv_bfloat16* c,
+                                          const __nv_bfloat16* dc, const float* ds,
+                                          const float* dq, const __nv_bfloat16* xn,
+                                          __nv_bfloat16* dx, __nv_bfloat16* dw, float* dw_part,
+                                          float* dss, float* dss_part, __nv_bfloat16* dce,
+                                          __nv_bfloat16* wt, int B, int K, int H, int W, int N,
+                                          int taps, int stride, int relu, int parts, int splits,
+                                          void* stream) {
+  return conv_bn_bwd_run<__nv_bfloat16, true>(x, w, scale, shift, c, dc, ds, dq, xn, dx, dw,
+                                              dw_part, dss, dss_part, dce, wt, B, K, H, W, N,
+                                              taps, stride, relu, parts, splits, stream);
 }

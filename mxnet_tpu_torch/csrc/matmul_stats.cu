@@ -58,6 +58,21 @@
 // mma_sync_rate's ceiling; 16 warps, other warp tiles, split K and deeper
 // rings measured no faster. wgmma (B's slab stored K-major, A split in
 // registers) is the next step (ROADMAP.md §2b D).
+//
+// The bf16 form (mxt_matmul_stats_fwd_bf16: the TPU kernel in the domain it
+// was written for, pallas_matmul_stats.py:37, :59-61) takes bf16 A and B
+// and writes bf16 C. Its products are one bf16 mma.sync m16n8k8 a step
+// (bf16_mma.cuh), no hi/lo split, into f32: each ring item's steps into a
+// fresh accumulator added to the running sum with one rounding, as the
+// conv kernels' bf16 forms do. C is rounded to bf16 once, as it is stored;
+// Σc and Σc² are taken from the f32 accumulator fragments before that, and
+// the same fixed-order second pass adds the blocks' rows. The schedules,
+// layouts and block counts are the f32 kernel's; the ring holds bf16: A's
+// rows (and B's, long K) of BK + 8 (BN + 8) elements, copied 16 bytes at a
+// time where K (N) is a multiple of 8, else element by element; the
+// short-K slab holds B's k pairs packed as the fragments take them (one
+// 32-bit word for k = 2t, 2t + 1 of a column), rows of BN + 8 words.
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -297,6 +312,229 @@ __global__ void matmul_stats_sum_kernel(const float* __restrict__ part, float* _
   mxt::sum_rows(part, sums, P, C);
 }
 
+// ---- the bf16 form, on a layout L of the f32 kernel: its shared memory in
+// bf16 elements (A and B stages) and 32-bit words (the resident slab)
+template <class L>
+struct Bf16Smem {
+  static constexpr int kARow = L::BK + 8;   // elements: 144 or 80 bytes, 16-byte rows
+  static constexpr int kBRow = L::BN + 8;   // elements (streamed B), words (the slab)
+  static constexpr int kStage = L::BM * kARow + (L::RES ? 0 : L::BK * kBRow);
+  static long long bytes(int KS) {
+    return 2LL * L::kStages * kStage +
+           (L::RES ? 4LL * KS * (L::BK / 2) * kBRow : 0);
+  }
+};
+
+template <class L>
+__global__ void __launch_bounds__(L::kThreads, 1)
+matmul_stats_bf16_kernel(const unsigned short* __restrict__ A,
+                         const unsigned short* __restrict__ B, __nv_bfloat16* __restrict__ C,
+                         float* __restrict__ part, int M, int N, int K) {
+  using S = Bf16Smem<L>;
+  extern __shared__ __align__(16) float smem_words[];
+  unsigned short* smem = reinterpret_cast<unsigned short*>(smem_words);
+  constexpr int BK = L::BK, kARow = S::kARow, kBRow = S::kBRow;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  const int P = gridDim.x, p = blockIdx.x, n0 = blockIdx.y * L::BN;
+  const int tiles = ((M + L::BM - 1) / L::BM - p + P - 1) / P;  // M-tiles p, p + P, ...
+  const int KS = (K + BK - 1) / BK;
+  const int items = tiles * KS;  // ring items: slice i % KS of this block's tile i / KS
+  const bool vec_a = K % 8 == 0, vec_b = N % 8 == 0;
+  uint32_t* bres = reinterpret_cast<uint32_t*>(smem + L::kStages * S::kStage);
+
+  // one ring item: 16-byte copies, or element by element (plain loads and
+  // stores; the barrier before the item is read orders them as cp.async's
+  // wait does)
+  auto issue = [&](int i) {
+    unsigned short* as = smem + (i % L::kStages) * S::kStage;
+    const int m0 = (p + (i / KS) * P) * L::BM, k0 = (i % KS) * BK;
+    if (vec_a) {
+      for (int e = tid; e < L::BM * BK / 8; e += L::kThreads) {
+        const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
+        const bool ok = m0 + r < M && k0 + c < K;
+        cp_async16(as + r * kARow + c, ok ? A + static_cast<size_t>(m0 + r) * K + k0 + c : A,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < L::BM * BK; e += L::kThreads) {
+        const int r = e / BK, c = e % BK;
+        const bool ok = m0 + r < M && k0 + c < K;
+        as[r * kARow + c] = ok ? __ldg(A + static_cast<size_t>(m0 + r) * K + k0 + c) : 0;
+      }
+    }
+    if (!L::RES) {
+      unsigned short* bs = as + L::BM * kARow;
+      if (vec_b) {
+        for (int e = tid; e < BK * L::BN / 8; e += L::kThreads) {
+          const int r = e / (L::BN / 8), c = (e % (L::BN / 8)) * 8;
+          const bool ok = k0 + r < K && n0 + c < N;
+          cp_async16(bs + r * kBRow + c, ok ? B + static_cast<size_t>(k0 + r) * N + n0 + c : B,
+                     ok);
+        }
+      } else {
+        for (int e = tid; e < BK * L::BN; e += L::kThreads) {
+          const int r = e / L::BN, c = e % L::BN;
+          const bool ok = k0 + r < K && n0 + c < N;
+          bs[r * kBRow + c] = ok ? __ldg(B + static_cast<size_t>(k0 + r) * N + n0 + c) : 0;
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < L::kStages - 1; ++s) {
+    if (s < items) issue(s);
+    cp_async_commit();
+  }
+  if (L::RES) {
+    // B's slab, once: word (kp, c) holds rows 2kp (low half) and 2kp + 1 of
+    // column n0 + c, zeros past K and N
+    for (int e = tid; e < KS * (BK / 2) * L::BN; e += L::kThreads) {
+      const int kp = e / L::BN, c = e % L::BN, n = n0 + c, k = 2 * kp;
+      const uint32_t lo = k < K && n < N ? __ldg(B + static_cast<size_t>(k) * N + n) : 0u;
+      const uint32_t hi = k + 1 < K && n < N ? __ldg(B + static_cast<size_t>(k + 1) * N + n) : 0u;
+      bres[kp * kBRow + c] = lo | (hi << 16);
+    }
+  }
+
+  float acc[L::MT][L::NT][4] = {};
+  float csum[L::NT][2] = {}, csq[L::NT][2] = {};  // this thread's columns 2t, 2t + 1
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait<L::kStages - 2>();
+    __syncthreads();  // item i landed (and B's slab); every warp is done with item i - 1
+    if (i + L::kStages - 1 < items) issue(i + L::kStages - 1);
+    cp_async_commit();
+    const int ks = i % KS;
+    const unsigned short* as =
+        smem + (i % L::kStages) * S::kStage + wm * L::MT * 16 * kARow;
+    const unsigned short* bs = smem + (i % L::kStages) * S::kStage + L::BM * kARow;
+    float d[L::MT][L::NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      // k = 2t and 2t + 1 of the step: A's two adjacent elements of a row,
+      // B's rows 2t and 2t + 1 of a column (bf16_mma.cuh)
+      uint32_t b[L::NT];
+#pragma unroll
+      for (int ni = 0; ni < L::NT; ++ni) {
+        const int col = wn * L::NT * 8 + ni * 8 + g;
+        if (L::RES) {
+          b[ni] = bres[((ks * BK + kk) / 2 + t) * kBRow + col];
+        } else {
+          const unsigned short* br = bs + (kk + 2 * t) * kBRow + col;
+          b[ni] = static_cast<uint32_t>(br[0]) | (static_cast<uint32_t>(br[kBRow]) << 16);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < L::MT; ++mi) {
+        const unsigned short* ar = as + (mi * 16 + g) * kARow + kk + 2 * t;
+        const uint32_t a[2] = {*reinterpret_cast<const uint32_t*>(ar),
+                               *reinterpret_cast<const uint32_t*>(ar + 8 * kARow)};
+#pragma unroll
+        for (int ni = 0; ni < L::NT; ++ni) mxt::bf16::mma(d[mi][ni], a, b[ni]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < L::MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < L::NT; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] += d[mi][ni][r];
+    if (ks != KS - 1) continue;
+    // the tile is done: its columns into this thread's sums from the f32
+    // accumulators, its C rounded to bf16 and stored, the accumulators zeroed
+    const int row0 = (p + (i / KS) * P) * L::BM + wm * L::MT * 16 + g;
+#pragma unroll
+    for (int ni = 0; ni < L::NT; ++ni) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int mi = 0; mi < L::MT; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v = acc[mi][ni][2 * h + j];
+            csum[ni][j] += v;
+            csq[ni][j] = fmaf(v, v, csq[ni][j]);
+          }
+      const int col = n0 + wn * L::NT * 8 + ni * 8 + 2 * t;
+      if (col < N) {
+#pragma unroll
+        for (int mi = 0; mi < L::MT; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + mi * 16 + 8 * h;
+            if (row >= M) continue;
+            __nv_bfloat16* out = C + static_cast<size_t>(row) * N + col;
+            if (N % 2 == 0) {  // col even: a 4-byte aligned pair, col + 1 < N
+              mxt::st2(out, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+            } else {
+              mxt::st1(out, acc[mi][ni][2 * h]);
+              if (col + 1 < N) mxt::st1(out + 1, acc[mi][ni][2 * h + 1]);
+            }
+          }
+      }
+#pragma unroll
+      for (int mi = 0; mi < L::MT; ++mi)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+    }
+  }
+  cp_async_wait<0>();
+
+  // the block's partial row, as the f32 kernel's
+  float* red = smem_words;  // [WM][2][BN]
+  __syncthreads();
+#pragma unroll
+  for (int ni = 0; ni < L::NT; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float s = csum[ni][j], q = csq[ni][j];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s += __shfl_xor_sync(mxt::kFullMask, s, o);
+        q += __shfl_xor_sync(mxt::kFullMask, q, o);
+      }
+      if (g == 0) {
+        const int col = wn * L::NT * 8 + ni * 8 + 2 * t + j;
+        red[(wm * 2) * L::BN + col] = s;
+        red[(wm * 2 + 1) * L::BN + col] = q;
+      }
+    }
+  __syncthreads();
+  for (int e = tid; e < 2 * L::BN; e += L::kThreads) {
+    const int which = e / L::BN, col = e % L::BN;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < L::WM; ++w) v += red[(w * 2 + which) * L::BN + col];
+    if (n0 + col < N) part[(static_cast<size_t>(p) * 2 + which) * N + n0 + col] = v;
+  }
+}
+
+// The bf16 form's second pass, named after it.
+__global__ void matmul_stats_bf16_sum_kernel(const float* __restrict__ part,
+                                             float* __restrict__ sums, int P, int C) {
+  mxt::sum_rows(part, sums, P, C);
+}
+
+template <class L>
+cudaError_t launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b, __nv_bfloat16* c,
+                        float* part, int M, int K, int N, int groups, cudaStream_t st) {
+  const int m_tiles = (M + L::BM - 1) / L::BM, n_slabs = (N + L::BN - 1) / L::BN;
+  const long long smem = Bf16Smem<L>::bytes((K + L::BK - 1) / L::BK);
+  if ((L::RES ? groups < 1 || groups > m_tiles : groups != m_tiles) || smem > kSmemMax ||
+      n_slabs > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = matmul_stats_bf16_kernel<L>;
+  static bool raised = false;
+  cudaError_t err = mxt::raise_smem(kernel, kSmemMax, &raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(groups, n_slabs), L::kThreads, static_cast<int>(smem), st>>>(
+      reinterpret_cast<const unsigned short*>(a), reinterpret_cast<const unsigned short*>(b), c,
+      part, M, N, K);
+  return cudaGetLastError();
+}
+
 // groups: the blocks along M (short K: 1 <= P <= the M-tiles, persistent;
 // long K: the M-tiles).
 template <class L>
@@ -339,5 +577,30 @@ extern "C" int mxt_matmul_stats_fwd(const float* a, const float* b, float* c, fl
   dim3 sgrid, sblock;
   mxt::sum_rows_shape(groups, 2 * N, &sgrid, &sblock);
   matmul_stats_sum_kernel<<<sgrid, sblock, 0, st>>>(part, sums, groups, 2 * N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 form: a (M, K), b (K, N) and c (M, N) bf16, a and b 16-byte
+// aligned; part and sums f32. The layouts, groups and checks are
+// mxt_matmul_stats_fwd's.
+extern "C" int mxt_matmul_stats_fwd_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                         __nv_bfloat16* c, float* part, float* sums, int M,
+                                         int K, int N, int layout, int groups, void* stream) {
+  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (layout) {
+    case 0: err = launch_bf16<Short64x128>(a, b, c, part, M, K, N, groups, st); break;
+    case 1: err = launch_bf16<Short128x64>(a, b, c, part, M, K, N, groups, st); break;
+    case 2: err = launch_bf16<Tile64x128>(a, b, c, part, M, K, N, groups, st); break;
+    case 3: err = launch_bf16<Tile256x64>(a, b, c, part, M, K, N, groups, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 sgrid, sblock;
+  mxt::sum_rows_shape(groups, 2 * N, &sgrid, &sblock);
+  matmul_stats_bf16_sum_kernel<<<sgrid, sblock, 0, st>>>(part, sums, groups, 2 * N);
   return static_cast<int>(cudaGetLastError());
 }

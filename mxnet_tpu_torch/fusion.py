@@ -50,9 +50,9 @@ with no tune verdict ``auto`` engages every site its shape gate admits (the
 JAX package engages none off the TPU); a tuned verdict may put a library
 call in a kernel's place only under an explicit ``MXNET_FUSION_TUNE_DIR``;
 a kernel that raises while measured re-raises (``fusion_tune``);
-``conv_schedule`` returns None (the kernels have no stripe override); the
-stash backward resolves to recompute until section 2b's stash kernel
-lands. ``MXNET_SERVE_QUANT=bf16`` resolves the inference gate at bfloat16,
+``conv_schedule`` returns None (the kernels have no stripe override); with
+no VMEM budget to fit, the stash backward runs wherever the recompute
+tiles. ``MXNET_SERVE_QUANT=bf16`` resolves the inference gate at bfloat16,
 as the JAX package gates the cast operands, and runs the stats-free
 kernel's bf16 form where it engages and the library's bfloat16 conv where
 it declines, c back in the activation's dtype; ``int8`` feeds the
@@ -553,12 +553,17 @@ def _conv_bn_key(kernel, stride, x_shape, w_shape, dtype, res):
         tuple(int(d) for d in w_shape))
 
 
+#: the backward policies a conv+BN site's tune measures (``cuda:<policy>``)
+BWD_POLICIES = ("xla", "recompute", "stash")
+
+
 def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
     """One conv+BN site's fwd+bwd measurement: the library (``F.conv2d`` of
     the normalised input, the residual, the two sums, and autograd's
-    backward) against ``ConvBlock`` under each backward policy the port
-    has: ``cuda:xla`` (kernel forward, library backward) and
-    ``cuda:recompute`` (both kernels). At bfloat16, the dtype of the
+    backward) against ``ConvBlock`` under each backward policy, as JAX
+    measures its ``pallas:*`` ones (:576-596): ``cuda:xla`` (kernel
+    forward, library backward), ``cuda:recompute`` (both kernels) and
+    ``cuda:stash`` (both kernels' stash forms). At bfloat16, the dtype of the
     bf16 training step and of the ``MXNET_SERVE_QUANT=bf16`` inference
     gate, ``_conv_bn_measure_bf16``."""
     from .context import current_context
@@ -586,7 +591,7 @@ def _conv_bn_measure(kernel, stride, x_shape, w_shape, dtype, res):
         return _cb.ConvBlock.apply(x, w, scale, shift, r, stride, True, bwd)
 
     cands = [("cuda:" + policy, lambda *a, _p=policy: fused(*a, bwd=_p))
-             for policy in ("xla", "recompute")]
+             for policy in BWD_POLICIES]
     return measure_candidates(baseline, cands, args, train=True)
 
 
@@ -638,7 +643,7 @@ def _conv_bn_measure_bf16(kernel, stride, x_shape, w_shape, res):
         return _cb.ConvBlock.apply(x, w, scale, shift, r, stride, True, bwd)
 
     cands = [("cuda:" + policy, lambda *a, _p=policy: fused_train(*a, bwd=_p))
-             for policy in ("xla", "recompute")]
+             for policy in BWD_POLICIES]
     rec = measure_candidates(train_baseline, cands, train_args, train=True)
     rec["measured"].update(infer["measured"])
     rec["engage_fwd"] = infer["engage_fwd"]
@@ -732,13 +737,13 @@ def infer_default():
 
 
 _warned_bwd_env = False
-_noted_stash = False
 
 
 def bwd_mode(kernel, stride, x_shape, w_shape, dtype, prologue, res=False):
     """The backward policy of an engaged site, counted into
-    ``fusion.bwd_engaged`` / ``fusion.bwd_xla``: ``"recompute"`` (the
-    fused backward kernel) or ``"xla"`` (the library backward)."""
+    ``fusion.bwd_engaged`` / ``fusion.bwd_xla``: ``"recompute"`` or
+    ``"stash"`` (the fused backward kernel's two policies) or ``"xla"``
+    (the library backward)."""
     mode = _bwd_mode_impl(kernel, stride, x_shape, w_shape, dtype, prologue, res=res)
     if _tm.enabled():
         _tm.counter("fusion.bwd_xla" if mode == "xla"
@@ -748,24 +753,17 @@ def bwd_mode(kernel, stride, x_shape, w_shape, dtype, prologue, res=False):
 
 def _bwd_mode_impl(kernel, stride, x_shape, w_shape, dtype, prologue, res=False):
     """``MXNET_FUSED_CONV_BN_BWD`` (JAX :755): ``0|xla`` pins the library
-    backward, ``1``/``recompute`` the kernel; ``stash`` resolves to
-    recompute with a one-time note (ROADMAP.md section 2b's stash backward
-    is not ported). ``auto`` reads a tuned verdict's policy, else takes the
+    backward, ``1``/``recompute`` and ``stash`` the kernel's policy of that
+    name where the shape tiles (``ConvBlock`` runs a site with no prologue
+    to stash under recompute, as JAX's forward demotes it). ``auto`` reads
+    a tuned verdict's policy (``cuda:<policy>``), else takes the recompute
     kernel (the port's default)."""
-    global _noted_stash
     env = os.environ.get("MXNET_FUSED_CONV_BN_BWD", "auto")
     if env in ("0", "xla"):
         return "xla"
-    if env == "stash":
-        if not _noted_stash:
-            _noted_stash = True
-            _LOG.warning("MXNET_FUSED_CONV_BN_BWD=stash: the port's conv backward has "
-                         "the recompute policy only until ROADMAP.md section 2b's stash "
-                         "backward lands; running recompute")
-        env = "recompute"
     if env == "1":
         env = "recompute"
-    elif env not in ("auto", "recompute"):
+    elif env not in ("auto", "recompute", "stash"):
         global _warned_bwd_env
         if not _warned_bwd_env:
             _warned_bwd_env = True
@@ -774,12 +772,14 @@ def _bwd_mode_impl(kernel, stride, x_shape, w_shape, dtype, prologue, res=False)
                          "lowering", env)
         return "xla"
     tiles = _cb.supported(x_shape, w_shape, stride)
-    if env == "recompute" or not prologue:
+    if env in ("recompute", "stash"):
+        return env if tiles else "xla"
+    if not prologue:
         return "recompute" if tiles else "xla"
     rec = _conv_bn_peek(kernel, stride, x_shape, w_shape, dtype, res)
     if rec is not None and rec.get("engage"):
         policy = (rec.get("lowering") or "").partition(":")[2].partition("@")[0]
-        return policy if policy == "recompute" and tiles else "xla"
+        return policy if policy in ("recompute", "stash") and tiles else "xla"
     return "recompute" if tiles else "xla"
 
 
@@ -1008,7 +1008,7 @@ def _resolve_conv(d, x, w, prologue, node):
     keys = [_conv_bn_key(kernel, stride, x.shape, w.shape, dt, r) if prologue else None
             for dt, r in ((x.dtype, res), (idt, False))]
     return dict(d, train=(engaged, bwd), infer=infer, quant=quant, key=keys[0],
-                infer_key=keys[1])
+                infer_key=keys[1], prologue=prologue)
 
 
 def _resolve_pattern(d, args):

@@ -39,7 +39,12 @@ KERNELS = {
     "conv_bn_bf16": (conv_bn, "fwd_bf16_launches"),
     "conv_bn_bwd": (conv_bn, "bwd_launches"),
     "conv_bn_bwd_bf16": (conv_bn, "bwd_bf16_launches"),
+    "conv_bn_stash": (conv_bn, "stash_launches"),
+    "conv_bn_stash_bf16": (conv_bn, "stash_bf16_launches"),
+    "conv_bn_bwd_stash": (conv_bn, "bwd_stash_launches"),
+    "conv_bn_bwd_stash_bf16": (conv_bn, "bwd_stash_bf16_launches"),
     "matmul_stats": (matmul_stats, "launches"),
+    "matmul_stats_bf16": (matmul_stats, "bf16_launches"),
     "rtc": ("mxnet_tpu_torch.rtc", "launches"),
 }
 

@@ -66,19 +66,29 @@ At the tests' small shapes JAX's budget admits every site this gate admits
 (with N a multiple of 8, as JAX's channel stripes need and the zoo's widths
 are), so both packages run the same sites fused.
 
-Only the **recompute** backward is ported: the backward rederives
-``xn = relu(x·scale + shift)`` from x. The **stash** policy (the forward
-writes xn for the backward) is the same math traded for bytes on the TPU,
-and is not ported yet (``ROADMAP.md``).
+Both backward policies of the TPU kernels are ported. **recompute**: the
+backward rederives ``xn = relu(x·scale + shift)`` from x. **stash**
+(``MXNET_FUSED_CONV_BN_BWD=stash``, JAX :482-503): the forward also writes
+xn, on the output grid (``conv_block(..., emit_xn=True)``, the TPU
+kernel's ``emit_xn``, :270-275), and the backward reads it
+(``conv_block_bwd(..., xn=xn)``, :531, :567-568): its ReLU mask and the
+wgrad's operand come from xn, dscale still from x. Both training kernels
+have a stash form in float32 and bfloat16 (``mxt_conv_bn_fwd_stash[_bf16]``,
+``mxt_conv_bn_bwd_stash[_bf16]``): xn holds what the forward's products
+consumed, which is what a recompute derives, so the two policies give the
+same bits; stash trades one write and one read of xn for the recompute.
 
 ``conv_block``, ``conv_block_infer`` and ``conv_block_bwd`` are the
 dispatchers: a CPU tensor takes the plain PyTorch version, a CUDA tensor
 launches the kernel or raises. ``ConvBlock`` is the autograd Function over
 them (the JAX package's ``custom_vjp`` at :435). ``launches``,
-``infer_launches``, ``infer_bf16_launches``, ``bwd_launches`` and the bf16
-training forms' ``fwd_bf16_launches`` and ``bwd_bf16_launches`` count kernel
-launches. A training dispatcher picks the form by x's dtype: float32 (all
-operands float32) or bfloat16 (x, w, res and c, dc bfloat16).
+``infer_launches``, ``infer_bf16_launches``, ``bwd_launches``, the bf16
+training forms' ``fwd_bf16_launches`` and ``bwd_bf16_launches``, and the
+stash forms' ``stash_launches``, ``bwd_stash_launches``,
+``stash_bf16_launches`` and ``bwd_stash_bf16_launches`` count kernel
+launches (a stash launch counts under its own name only). A training
+dispatcher picks the form by x's dtype: float32 (all operands float32) or
+bfloat16 (x, w, res and c, dc, xn bfloat16).
 """
 from __future__ import annotations
 
@@ -111,6 +121,10 @@ infer_bf16_launches = 0
 bwd_launches = 0
 fwd_bf16_launches = 0
 bwd_bf16_launches = 0
+stash_launches = 0
+bwd_stash_launches = 0
+stash_bf16_launches = 0
+bwd_stash_bf16_launches = 0
 
 
 # copied from mxnet_tpu/ops/pallas_conv_bn.py (strided_dims, backend-free)
@@ -260,46 +274,71 @@ def conv_block_infer_plain(x, w, scale, shift, stride=(1, 1), relu=False):
     return _conv_bf16_f32(x, w, scale, shift, stride, relu).to(torch.bfloat16)
 
 
-def conv_block_plain(x, w, scale, shift, res=None, stride=(1, 1), relu=False):
+def _stashed_xn(x, w, scale, shift, stride, relu):
+    """The stash policy's xn as the kernels write it: the prologue of the
+    positions the conv reads, on the output grid (a 1x1 strided conv's
+    sampled positions; JAX's ``emit_xn`` output, :306-307), in x's dtype."""
+    if w.shape[2] == 1 and tuple(stride) != (1, 1):
+        x = x[:, :, ::stride[0], ::stride[1]]
+    if x.dtype == torch.bfloat16:
+        return _prologue_bf16(x, scale, shift, relu)
+    return _prologue(x, scale, shift, relu)
+
+
+def _on_input_grid(xn, x, stride):
+    """A stashed xn on x's grid: itself, or (1x1 at stride 2) the sampled
+    positions with zeros between, which no product of the conv reads."""
+    if xn.shape == x.shape:
+        return xn
+    full = xn.new_zeros(x.shape)
+    full[:, :, ::stride[0], ::stride[1]] = xn
+    return full
+
+
+def conv_block_plain(x, w, scale, shift, res=None, stride=(1, 1), relu=False, emit_xn=False):
     """The forward kernel's function in plain PyTorch (JAX ``_xla_conv``
     :408 plus ``_stats_of`` :430): ``(c, ssum, ssq)``, the sums over (B, H',
-    W') in float32.
+    W') in float32, and with ``emit_xn`` the stash policy's xn
+    (``_stashed_xn``) as a fourth.
 
     On bfloat16 x and w it rounds where the TPU kernel does (``_kernel``
     :256-291): the convolution and the residual added in float32, the sums
     taken from that float32 c, then c rounded to bfloat16."""
+    xn = (_stashed_xn(x, w, scale, shift, stride, relu),) if emit_xn else ()
     if x.dtype == torch.bfloat16:
         c32 = _conv_bf16_f32(x, w, scale, shift, stride, relu)
         if res is not None:
             c32 = c32 + res.float()
         return (c32.to(torch.bfloat16), c32.sum(dim=(0, 2, 3)),
-                (c32 * c32).sum(dim=(0, 2, 3)))
+                (c32 * c32).sum(dim=(0, 2, 3))) + xn
     c = conv_block_infer_plain(x, w, scale, shift, stride, relu)
     if res is not None:
         c = c + res
     c32 = c.to(_acc_dtype(c))
-    return c, c32.sum(dim=(0, 2, 3)), (c32 * c32).sum(dim=(0, 2, 3))
+    return (c, c32.sum(dim=(0, 2, 3)), (c32 * c32).sum(dim=(0, 2, 3))) + xn
 
 
 def conv_block_bwd_plain(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
-                         has_res=False):
+                         has_res=False, xn=None):
     """The backward kernel's function in plain PyTorch (the ``bwd="xla"``
     branch of JAX ``_conv_block_bwd`` :744-785): ``(dx, dw, dscale, dshift,
     dres)``, with dscale, dshift None without a prologue and dres None
     without a residual. For a 1x1 stride-2 conv dx is zero off the sampled
-    positions, and dscale, dshift sum over the sampled ones only.
+    positions, and dscale, dshift sum over the sampled ones only. ``xn``:
+    the stash policy's (``conv_block_plain(..., emit_xn=True)``), used where
+    the recompute would rederive it; the same values, so the same bits.
 
     On bfloat16 operands it rounds where the TPU kernel does
     (``_bwd_kernel`` :511-620, ``_conv_block_bwd_impl`` :715), not where the
     ``bwd="xla"`` branch does: ``_conv_block_bwd_bf16_plain``."""
     if x.dtype == torch.bfloat16:
         return _conv_block_bwd_bf16_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu,
-                                          has_res)
+                                          has_res, xn)
     stride, b = tuple(stride), (1, -1, 1, 1)
     acc = _acc_dtype(c)
     dce = (dc.to(acc) + ds.to(acc).reshape(b) + 2.0 * c.to(acc) * dq.to(acc).reshape(b)
            ).to(c.dtype)
-    xn = _prologue(x, scale, shift, relu)
+    xn = _prologue(x, scale, shift, relu) if xn is None else _on_input_grid(xn, x, stride)
     dxn = torch.nn.grad.conv2d_input(x.shape, w, dce, stride=stride, padding=_pad(w))
     dw = torch.nn.grad.conv2d_weight(xn, w.shape, dce, stride=stride, padding=_pad(w))
     if scale is None:
@@ -326,17 +365,19 @@ def _fold_bf16(c, dc, ds, dq):
     return fused.float().to(torch.bfloat16)
 
 
-def _conv_block_bwd_bf16_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu, has_res):
+def _conv_block_bwd_bf16_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu, has_res,
+                               xn=None):
     """The bf16 backward kernel's function: dce (``_fold_bf16``) rounded to
     bfloat16 once (dres, and the products' operand); xn from the bfloat16
-    prologue, the ReLU mask from it; da and dw the float32 sums of exact
-    products; dx = da·scale rounded to bfloat16; dscale = Σ da·x and dshift =
-    Σ da in float32; dw rounded to bfloat16."""
+    prologue (or the stashed one), the ReLU mask from it; da and dw the
+    float32 sums of exact products; dx = da·scale rounded to bfloat16;
+    dscale = Σ da·x and dshift = Σ da in float32; dw rounded to bfloat16."""
     stride, b, bf16 = tuple(stride), (1, -1, 1, 1), torch.bfloat16
     dce = _fold_bf16(c, dc, ds, dq)
     w32 = w.to(bf16).float()
     da = torch.nn.grad.conv2d_input(x.shape, w32, dce.float(), stride=stride, padding=_pad(w))
-    xn = _prologue_bf16(x, scale, shift, relu)
+    xn = (_prologue_bf16(x, scale, shift, relu) if xn is None
+          else _on_input_grid(xn, x, stride))
     dw = torch.nn.grad.conv2d_weight(xn.float(), w.shape, dce.float(), stride=stride,
                                      padding=_pad(w)).to(bf16)
     res = dce if has_res else None
@@ -377,9 +418,10 @@ def _bf16_vectors(x, scale, shift):
     return scale.to(torch.bfloat16).contiguous(), shift.to(torch.bfloat16).contiguous()
 
 
-def _launch_fwd(what, x, w, scale, shift, res, stride, relu, stats):
+def _launch_fwd(what, x, w, scale, shift, res, stride, relu, stats, emit_xn=False):
     """One forward launch: the float32 kernel (stats or not), or on bfloat16
-    x the bf16 training form (stats)."""
+    x the bf16 training form (stats); ``emit_xn``, their stash forms, which
+    also return xn."""
     B, K, H, W = x.shape
     N, taps = w.shape[0], w.shape[2] * w.shape[3]
     Ho, Wo = _out_dims(x, w, stride)
@@ -393,29 +435,52 @@ def _launch_fwd(what, x, w, scale, shift, res, stride, relu, stats):
     sums = torch.empty((2, N), dtype=torch.float32, device=x.device) if stats else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_build.library()
-    fn = lib.mxt_conv_bn_fwd_bf16 if bf16 else lib.mxt_conv_bn_fwd
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    head = (x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), ptr(res), c.data_ptr(),
+            ptr(part), ptr(sums))
+    tail = (B, K, H, W, N, taps, stride[0], int(bool(relu)), parts, stream)
+    xn = None
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), ptr(res), c.data_ptr(),
-                  ptr(part), ptr(sums), B, K, H, W, N, taps, stride[0], int(bool(relu)), parts,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+        if emit_xn:
+            xn = torch.empty((B, K, Ho, Wo), dtype=x.dtype, device=x.device)
+            fn = lib.mxt_conv_bn_fwd_stash_bf16 if bf16 else lib.mxt_conv_bn_fwd_stash
+            code = fn(*head, xn.data_ptr(), *tail)
+        else:
+            code = (lib.mxt_conv_bn_fwd_bf16 if bf16 else lib.mxt_conv_bn_fwd)(*head, *tail)
     cuda_build.check(code, what)
-    return c, sums
+    return c, sums, xn
 
 
-def conv_block(x, w, scale, shift, res=None, stride=(1, 1), relu=False):
+def conv_block(x, w, scale, shift, res=None, stride=(1, 1), relu=False, emit_xn=False):
     """Fused (prologue-normalised) conv (+ residual) with the statistics
     epilogue: ``(c, ssum, ssq)``, c (B, N, H', W') in x's dtype and the
     per-channel f32 sums over (B, H', W'). x (B, K, H, W), w (N, K, 1|3,
     1|3) OIHW; scale, shift (K,) or None; res (B, N, H', W') or None.
     On bfloat16 x (w and res bfloat16 too; scale and shift of any float
-    dtype, cast to bfloat16) the bf16 training form, ``fwd_bf16_launches``."""
+    dtype, cast to bfloat16) the bf16 training form, ``fwd_bf16_launches``.
+
+    ``emit_xn`` (the stash policy; a prologue required): also returns xn,
+    ``relu(x·scale + shift)`` on the output grid (B, K, H', W') in x's
+    dtype, the stash forms' output (``stash_launches``,
+    ``stash_bf16_launches``)."""
     stride, _ = _geometry("conv_block", x, w, stride)
     _check_vectors("conv_block", x, w, scale, shift, res, stride)
+    if emit_xn and scale is None:
+        raise MXNetError("conv_block: emit_xn stashes the prologue's output; there is no "
+                         "prologue (scale, shift)")
     if x.device.type == "cpu":
-        return conv_block_plain(x, w, scale, shift, res, stride, relu)
-    global launches, fwd_bf16_launches
-    c, sums = _launch_fwd("conv_block", x, w, scale, shift, res, stride, relu, True)
-    if x.dtype == torch.bfloat16:
+        return conv_block_plain(x, w, scale, shift, res, stride, relu, emit_xn)
+    global launches, fwd_bf16_launches, stash_launches, stash_bf16_launches
+    c, sums, xn = _launch_fwd("conv_block", x, w, scale, shift, res, stride, relu, True,
+                              emit_xn)
+    bf16 = x.dtype == torch.bfloat16
+    if emit_xn:
+        if bf16:
+            stash_bf16_launches += 1
+        else:
+            stash_launches += 1
+        return c, sums[0], sums[1], xn
+    if bf16:
         fwd_bf16_launches += 1
     else:
         launches += 1
@@ -452,7 +517,7 @@ def conv_block_infer(x, w, scale, shift, stride=(1, 1), relu=False, compute=None
         return conv_block_infer_plain(x, w, scale, shift, stride, relu)
     if not bf16:
         global infer_launches
-        c, _ = _launch_fwd(what, x, w, scale, shift, None, stride, relu, False)
+        c, _, _ = _launch_fwd(what, x, w, scale, shift, None, stride, relu, False)
         infer_launches += 1
         return c
     operands = [t for t in (x, w, scale, shift) if t is not None]
@@ -476,14 +541,16 @@ def conv_block_infer(x, w, scale, shift, stride=(1, 1), relu=False, compute=None
 
 
 def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
-                   has_res=False):
+                   has_res=False, xn=None):
     """Gradients of ``conv_block``: ``(dx, dw, dscale, dshift, dres)`` from
     the raw input x, the saved output c, its cotangent dc and the
-    statistics cotangents ds, dq (N,) f32 (the recompute policy: xn is
-    rederived from x). dscale, dshift are None without a prologue, dres
-    None without a residual. On bfloat16 x (w, c and dc bfloat16 too) the
-    bf16 form, ``bwd_bf16_launches``: dx, dw and dres bfloat16, dscale and
-    dshift float32."""
+    statistics cotangents ds, dq (N,) f32. With ``xn`` (the stash policy: a
+    prologue's output from ``conv_block(..., emit_xn=True)``) the stash
+    forms read it (``bwd_stash_launches``, ``bwd_stash_bf16_launches``);
+    without, the recompute policy rederives it from x. dscale, dshift are
+    None without a prologue, dres None without a residual. On bfloat16 x
+    (w, c, dc and xn bfloat16 too) the bf16 form, ``bwd_bf16_launches``:
+    dx, dw and dres bfloat16, dscale and dshift float32."""
     stride, geo = _geometry("conv_block_bwd", x, w, stride)
     _check_vectors("conv_block_bwd", x, w, scale, shift, None, stride)
     B, K, N, _, taps = geo
@@ -493,17 +560,22 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
         raise MXNetError("conv_block_bwd: want c, dc %s and ds, dq (%d,), got %s, %s, %s, %s"
                          % ((B, N, Ho, Wo), N, tuple(c.shape), tuple(dc.shape),
                             tuple(ds.shape), tuple(dq.shape)))
+    if xn is not None and (scale is None or xn.shape != (B, K, Ho, Wo)):
+        raise MXNetError("conv_block_bwd: a stashed xn is the prologue's output %s; got %s%s"
+                         % ((B, K, Ho, Wo), tuple(xn.shape),
+                            " without a prologue" if scale is None else ""))
     if x.device.type == "cpu":
-        return conv_block_bwd_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu, has_res)
+        return conv_block_bwd_plain(x, w, scale, shift, c, dc, ds, dq, stride, relu, has_res,
+                                    xn)
     what = "conv_block_bwd"
     bf16 = x.dtype == torch.bfloat16
     scale, shift = _bf16_vectors(x, scale, shift)
     if bf16:
-        cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc)
+        cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc, xn)
                                           if t is not None], dtypes=(torch.bfloat16,))
         cuda_build.check_operands(what, ds, dq)  # the statistics' cotangents: float32
     else:
-        cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc, ds, dq)
+        cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, c, dc, ds, dq, xn)
                                           if t is not None])
     H, W = x.shape[2:]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -522,16 +594,24 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     wt = torch.empty(K * -(-N // 8) * 8 * taps, dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = cuda_build.library()
-    fn = lib.mxt_conv_bn_bwd_bf16 if bf16 else lib.mxt_conv_bn_bwd
+    head = (x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), c.data_ptr(), dc.data_ptr(),
+            ds.data_ptr(), dq.data_ptr())
+    tail = (dx.data_ptr(), dw.data_ptr(), dw_part.data_ptr(), ptr(dss), ptr(dss_part),
+            dce.data_ptr(), wt.data_ptr(), B, K, H, W, N, taps, stride[0], int(bool(relu)),
+            parts, splits, torch.cuda.current_stream(x.device).cuda_stream)
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), w.data_ptr(), ptr(scale), ptr(shift), c.data_ptr(),
-                  dc.data_ptr(), ds.data_ptr(), dq.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                  dw_part.data_ptr(), ptr(dss), ptr(dss_part), dce.data_ptr(), wt.data_ptr(),
-                  B, K, H, W, N, taps, stride[0], int(bool(relu)), parts, splits,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+        if xn is not None:
+            fn = lib.mxt_conv_bn_bwd_stash_bf16 if bf16 else lib.mxt_conv_bn_bwd_stash
+            code = fn(*head, xn.data_ptr(), *tail)
+        else:
+            code = (lib.mxt_conv_bn_bwd_bf16 if bf16 else lib.mxt_conv_bn_bwd)(*head, *tail)
     cuda_build.check(code, what)
-    global bwd_launches, bwd_bf16_launches
-    if bf16:
+    global bwd_launches, bwd_bf16_launches, bwd_stash_launches, bwd_stash_bf16_launches
+    if xn is not None and bf16:
+        bwd_stash_bf16_launches += 1
+    elif xn is not None:
+        bwd_stash_launches += 1
+    elif bf16:
         bwd_bf16_launches += 1
     else:
         bwd_launches += 1
@@ -543,31 +623,41 @@ class ConvBlock(torch.autograd.Function):
     """``(c, ssum, ssq) = conv_block(x, w, scale, shift, res)`` with its
     gradient by ``bwd``: ``"recompute"`` (the default) the fused backward
     kernel, which saves x, w, scale, shift and c, as JAX
-    ``_conv_block_fwd`` :507 does; ``"xla"`` the plain version's backward
-    (library products, JAX's ``bwd="xla"``), which the fusion gate picks
-    where a tuned verdict or ``MXNET_FUSED_CONV_BN_BWD`` asks for it. A
-    cotangent autograd leaves out (an unused statistic) is zero."""
+    ``_conv_block_fwd`` :507 does; ``"stash"`` the stash forms, whose
+    forward also writes xn, saved with them, and whose backward reads it
+    (without a prologue there is nothing to stash, and it runs recompute,
+    as JAX's forward demotes it, :486); ``"xla"`` the plain version's
+    backward (library products, JAX's ``bwd="xla"``), which the fusion gate
+    picks where a tuned verdict or ``MXNET_FUSED_CONV_BN_BWD`` asks for it.
+    A cotangent autograd leaves out (an unused statistic) is zero."""
 
     @staticmethod
     def forward(ctx, x, w, scale, shift, res, stride, relu, bwd="recompute"):
-        if bwd not in ("recompute", "xla"):
-            raise MXNetError("ConvBlock: bwd must be 'recompute' or 'xla', got %r" % (bwd,))
-        c, ssum, ssq = conv_block(x, w, scale, shift, res, stride, relu)
-        ctx.save_for_backward(x, w, scale, shift, c)
+        if bwd not in ("recompute", "stash", "xla"):
+            raise MXNetError("ConvBlock: bwd must be 'recompute', 'stash' or 'xla', got %r"
+                             % (bwd,))
+        if bwd == "stash" and scale is None:
+            bwd = "recompute"
+        xn = None
+        if bwd == "stash":
+            c, ssum, ssq, xn = conv_block(x, w, scale, shift, res, stride, relu, emit_xn=True)
+        else:
+            c, ssum, ssq = conv_block(x, w, scale, shift, res, stride, relu)
+        ctx.save_for_backward(x, w, scale, shift, c, xn)
         ctx.stride, ctx.relu, ctx.has_res = tuple(stride), bool(relu), res is not None
         ctx.bwd = bwd
         return c, ssum, ssq
 
     @staticmethod
     def backward(ctx, dc, ds, dq):
-        x, w, scale, shift, c = ctx.saved_tensors
+        x, w, scale, shift, c, xn = ctx.saved_tensors
         N, acc = w.shape[0], _acc_dtype(c)
         dc = torch.zeros_like(c) if dc is None else dc.contiguous()
         ds = torch.zeros(N, dtype=acc, device=c.device) if ds is None else ds.contiguous()
         dq = torch.zeros(N, dtype=acc, device=c.device) if dq is None else dq.contiguous()
-        run = conv_block_bwd if ctx.bwd == "recompute" else conv_block_bwd_plain
+        run = conv_block_bwd_plain if ctx.bwd == "xla" else conv_block_bwd
         dx, dw, dscale, dshift, dres = run(x, w, scale, shift, c, dc, ds, dq,
-                                           ctx.stride, ctx.relu, ctx.has_res)
+                                           ctx.stride, ctx.relu, ctx.has_res, xn)
         return dx, dw, dscale, dshift, dres, None, None, None
 
 

@@ -78,6 +78,10 @@ _SIGNATURES = {
     "mxt_conv_bn_fwd": (_P,) * 8 + (_I,) * 9 + (_P,),
     # the same with x, w, scale, shift, res, c bf16 (part, sums f32, never NULL)
     "mxt_conv_bn_fwd_bf16": (_P,) * 8 + (_I,) * 9 + (_P,),
+    # the stash forms: x, w, scale, shift, res (or NULL), c, part, sums, xn, B, K, H, W, N,
+    # taps, stride, relu, parts, stream; f32, or with x, w, scale, shift, res, c, xn bf16
+    "mxt_conv_bn_fwd_stash": (_P,) * 9 + (_I,) * 9 + (_P,),
+    "mxt_conv_bn_fwd_stash_bf16": (_P,) * 9 + (_I,) * 9 + (_P,),
     # x, w, scale, shift (or NULL), c, B, K, H, W, N, taps, stride, relu, stream
     "mxt_conv_bn_infer_bf16": (_P,) * 5 + (_I,) * 8 + (_P,),
     # x, w, scale, shift, c, dc, ds, dq, dx, dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
@@ -85,8 +89,13 @@ _SIGNATURES = {
     "mxt_conv_bn_bwd": (_P,) * 15 + (_I,) * 10 + (_P,),
     # the same with ds, dq, dw_part, dss, dss_part f32 and the others bf16
     "mxt_conv_bn_bwd_bf16": (_P,) * 15 + (_I,) * 10 + (_P,),
+    # the stash forms: the two with xn after dq (f32, or bf16 as x)
+    "mxt_conv_bn_bwd_stash": (_P,) * 16 + (_I,) * 10 + (_P,),
+    "mxt_conv_bn_bwd_stash_bf16": (_P,) * 16 + (_I,) * 10 + (_P,),
     # a, b, c, part, sums, M, K, N, layout, groups, stream
     "mxt_matmul_stats_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # the same with a, b, c bf16 (part, sums f32)
+    "mxt_matmul_stats_fwd_bf16": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -165,21 +174,15 @@ def library():
         return _lib
 
 
-#: where a kernel's refusal of a dtype it does not take points
-LATER_DTYPES = "ROADMAP.md section 2b: bf16 for matmul_stats is item 2c"
-
-
 def check_operands(what, *tensors, dtypes=(torch.float32,)):
     """Raise unless every operand is a contiguous tensor of one of ``dtypes``
     (the dtypes the kernel takes: float32, or bfloat16 for the bf16 forms of
-    the conv+BN, matmul_bias_act, flash-attention and LayerNorm kernels,
-    forward and backward) on one CUDA device. The dtypes are checked first;
-    a refusal of bfloat16 names matmul_stats' item (``LATER_DTYPES``)."""
+    every kernel) on one CUDA device. The dtypes are checked first."""
     for t in tensors:
         if t.dtype not in dtypes:
-            raise MXNetError("%s: the kernel takes %s, got %s (%s)"
+            raise MXNetError("%s: the kernel takes %s, got %s"
                              % (what, " or ".join(str(d).replace("torch.", "") for d in dtypes),
-                                t.dtype, LATER_DTYPES))
+                                t.dtype))
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":

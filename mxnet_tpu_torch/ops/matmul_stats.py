@@ -27,9 +27,16 @@ CPU tests see the choice:
   them; one tile's C stores overlap the next tile's loads and products.
 - ``"long_k"``: one tile a block, A and B slices through the ring.
 
+Its bf16 form (``mxt_matmul_stats_fwd_bf16``), on bfloat16 A and B, is the
+TPU kernel in the dtype it was written for (its ``supported`` takes
+``itemsize=2`` by default, :37; C rounded to bf16 from the f32 accumulator,
+the sums taken before, :59-61): one bf16 ``mma.sync`` a step with no hi/lo
+split, into f32, C rounded to bfloat16 once, Σc and Σc² from the f32
+accumulators, the same schedules, blocks and fixed-order second pass.
+
 ``matmul_with_stats`` is the dispatcher: CPU tensors take the plain PyTorch
-version, CUDA tensors launch the kernel or raise. ``launches`` counts
-kernel launches.
+version, CUDA tensors launch the kernel or raise. ``launches`` and
+``bf16_launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -63,15 +70,21 @@ class Schedule(namedtuple("Schedule", "kind layout groups n_slabs")):
     ``n_slabs`` along N."""
 
 
-def smem_bytes(layout, K):
+def smem_bytes(layout, K, dtype=torch.float32):
     """The dynamic shared memory of ``layout`` at depth K (``Layout::smem``):
     the ring's stages of A (and B's, streamed) slices, rows of A padded to
     BK + 8 floats and of B to BN + 4; a resident slab holds K rounded up to
-    the slice as (hi, lo) pairs, rows of 2·BN + 4 words."""
+    the slice as (hi, lo) pairs, rows of 2·BN + 4 words. The bf16 form's
+    (``Bf16Smem``): rows of BK + 8 and BN + 8 bf16 elements, a slab of the
+    k pairs packed in words, rows of BN + 8."""
     _, bm, bn, bk, _, resident = LAYOUTS[layout]
     stages = 4 if resident else 3
+    slices = -(-K // bk)
+    if dtype == torch.bfloat16:
+        stage = bm * (bk + 8) + (0 if resident else bk * (bn + 8))
+        return 2 * stages * stage + (4 * slices * bk // 2 * (bn + 8) if resident else 0)
     stage = bm * (bk + 8) + (0 if resident else bk * (bn + 4))
-    slab = -(-K // bk) * bk * (2 * bn + 4) if resident else 0
+    slab = slices * bk * (2 * bn + 4) if resident else 0
     return 4 * (stages * stage + slab)
 
 
@@ -93,18 +106,21 @@ def _schedule(M, K, N):
 
 
 launches = 0
+bf16_launches = 0
+
+#: the dtypes the kernel takes: its float32 form and its bf16 form
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def supported(m, k, n, dtype=torch.float32):
     """Whether the CUDA kernel takes an (m, k) by (k, n) product of ``dtype``.
 
-    The port's own rule: float32 only (a bfloat16 variant is not written
-    yet), every extent at least 1 and each of m, k, n, m·k, k·n and m·n
-    below 2³¹ (the kernel's extents are C ints). No tiling condition: the TPU
-    kernel's gate demands whole (8, 128)-aligned tiles, this kernel
-    predicates its ragged edges."""
+    The port's own rule: float32 or bfloat16 (its two forms), every extent
+    at least 1 and each of m, k, n, m·k, k·n and m·n below 2³¹ (the kernel's
+    extents are C ints). No tiling condition: the TPU kernel's gate demands
+    whole (8, 128)-aligned tiles, this kernel predicates its ragged edges."""
     limit = 2 ** 31
-    return (dtype == torch.float32 and min(m, k, n) >= 1
+    return (dtype in DTYPES and min(m, k, n) >= 1
             and max(m * k, k * n, m * n) < limit)
 
 
@@ -119,18 +135,19 @@ def matmul_with_stats_plain(a, b):
 def matmul_with_stats(a, b):
     """``(C, col_sum, col_sumsq)`` for ``C = a @ b``, a (M, K), b (K, N).
 
-    C keeps ``a``'s dtype; the statistics are float32 (N,)."""
+    C keeps ``a``'s dtype; the statistics are float32 (N,). On the card,
+    float32 operands take the 3xTF32 form (``launches``) and bfloat16 ones
+    the bf16 form (``bf16_launches``)."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0] or a.dtype != b.dtype:
         raise MXNetError("matmul_with_stats: want a (M, K) and b (K, N) of one dtype, got "
                          "%s %s and %s %s" % (tuple(a.shape), a.dtype, tuple(b.shape), b.dtype))
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_with_stats_plain(a, b)
     (M, K), N = a.shape, b.shape[1]
-    cuda_build.check_operands("matmul_with_stats", a, b)  # a bf16 operand names its item
+    cuda_build.check_operands("matmul_with_stats", a, b, dtypes=DTYPES)
     if not supported(M, K, N, a.dtype):
-        raise MXNetError("matmul_with_stats: the CUDA kernel takes float32 operands with "
-                         "every extent in [1, 2^31), got %s (%d, %d) by (%d, %d)"
-                         % (a.dtype, M, K, K, N))
+        raise MXNetError("matmul_with_stats: the CUDA kernel takes every extent in "
+                         "[1, 2^31), got (%d, %d) by (%d, %d)" % (M, K, K, N))
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise MXNetError("matmul_with_stats: the kernel takes operands aligned to 16 bytes")
     sched = _schedule(M, K, N)
@@ -138,12 +155,16 @@ def matmul_with_stats(a, b):
     part = torch.empty((sched.groups, 2, N), dtype=torch.float32, device=a.device)
     sums = torch.empty((2, N), dtype=torch.float32, device=a.device)
     lib = cuda_build.library()
-    global launches
+    bf16 = a.dtype == torch.bfloat16
+    fn = lib.mxt_matmul_stats_fwd_bf16 if bf16 else lib.mxt_matmul_stats_fwd
     with torch.cuda.device(a.device):
-        code = lib.mxt_matmul_stats_fwd(
-            a.data_ptr(), b.data_ptr(), c.data_ptr(), part.data_ptr(), sums.data_ptr(),
-            M, K, N, LAYOUTS[sched.layout][0], sched.groups,
-            torch.cuda.current_stream(a.device).cuda_stream)
-        launches += 1
+        code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), part.data_ptr(), sums.data_ptr(),
+                  M, K, N, LAYOUTS[sched.layout][0], sched.groups,
+                  torch.cuda.current_stream(a.device).cuda_stream)
     cuda_build.check(code, "matmul_with_stats")
+    global launches, bf16_launches
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return c, sums[0], sums[1]

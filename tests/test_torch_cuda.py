@@ -289,7 +289,10 @@ def test_training_step_on_the_card_launches_every_kernel_and_matches_the_cpu(dev
                                    "norm_residual_bwd_bf16": 0,
                                    "matmul_bias_act_bf16": 0, "conv_bn": 0, "conv_bn_infer": 0,
                                    "conv_bn_infer_bf16": 0, "conv_bn_bf16": 0, "conv_bn_bwd": 0,
-                                   "conv_bn_bwd_bf16": 0, "matmul_stats": 0, "rtc": 0}
+                                   "conv_bn_bwd_bf16": 0, "conv_bn_stash": 0,
+                                   "conv_bn_stash_bf16": 0, "conv_bn_bwd_stash": 0,
+                                   "conv_bn_bwd_stash_bf16": 0, "matmul_stats": 0,
+                                   "matmul_stats_bf16": 0, "rtc": 0}
     exes[1].forward_backward()
     for n in reqs:
         got, want = exes[0].grad_dict[n].asnumpy(), exes[1].grad_dict[n].asnumpy()
@@ -392,10 +395,10 @@ def test_conv_bn_float32_kernel_keeps_its_bits(dev):
 
 
 def test_bf16_reaches_only_the_kernels_with_a_bf16_form(dev):
-    """bf16 operands: the conv+BN kernels, matmul_bias_act and the flash and
-    LayerNorm kernels, forward and backward, take them (their bf16 forms);
-    matmul_stats refuses them naming ROADMAP.md section 2b's item 2c; a bf16
-    x beside a float32 w is refused by every conv+BN dispatcher, a bf16 x
+    """bf16 operands: the conv+BN kernels, matmul_bias_act, the flash and
+    LayerNorm kernels, forward and backward, and matmul_stats take them
+    (their bf16 forms); a bf16 x beside a float32 w is refused by every
+    conv+BN dispatcher, a bf16 x
     beside a float32 gamma by the LayerNorm forward and backward, and a
     float32 dO beside bf16 q, k, v by the flash backward, and nothing
     launches for a refusal."""
@@ -414,15 +417,17 @@ def test_bf16_reaches_only_the_kernels_with_a_bf16_form(dev):
     assert all(g.dtype == torch.bfloat16
                for g in fa.flash_attention_bwd(q, q, q, o, lse, q, causal=True))
     assert all(g.dtype == torch.bfloat16 for g in nr.layer_norm_affine_bwd(xl, gl, mean, rstd, xl))
+    assert ms.matmul_with_stats(_randn(dev, 64, 16).bfloat16(),
+                                _randn(dev, 16, 8).bfloat16())[0].dtype == torch.bfloat16
     before = pt.ops.launch_counts()
+    with pytest.raises(MXNetError, match="takes float32 or bfloat16, got torch.float16"):
+        ms.matmul_with_stats(_randn(dev, 64, 16).half(), _randn(dev, 16, 8).half())
     with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
         fa.flash_attention_bwd(q, q, q, o, lse, q.float(), causal=True)
     with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
         nr.layer_norm_affine_bwd(xl, _randn(dev, 16), mean, rstd, xl)
     with pytest.raises(MXNetError, match="the kernel takes bfloat16, got torch.float32"):
         nr.layer_norm_affine(xl, _randn(dev, 16), _randn(dev, 16))
-    with pytest.raises(MXNetError, match="item 2c"):
-        ms.matmul_with_stats(_randn(dev, 64, 16).bfloat16(), _randn(dev, 16, 8).bfloat16())
     with pytest.raises(MXNetError, match="computes in one dtype"):
         cb.conv_block_infer(xb, w, scale, shift)
     with pytest.raises(MXNetError, match="takes bfloat16, got torch.float32|takes bfloat16"):
@@ -985,12 +990,113 @@ def test_matmul_stats_kernel_is_deterministic_and_refuses_what_it_does_not_take(
     a, b = _randn(dev, 3000, 96), _randn(dev, 96, 200, seed=1)
     for u, v in zip(ms.matmul_with_stats(a, b), ms.matmul_with_stats(a, b)):
         assert torch.equal(u, v)
-    with pytest.raises(MXNetError, match="float32"):
-        ms.matmul_with_stats(a.bfloat16(), b.bfloat16())
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        ms.matmul_with_stats(a.double(), b.double())
     with pytest.raises(MXNetError, match="contiguous"):
         ms.matmul_with_stats(_randn(dev, 96, 3000).t(), b)
     with pytest.raises(MXNetError, match="one CUDA device"):
         ms.matmul_with_stats(a, b.cpu())
+
+
+# (M, K, N): short K (persistent blocks, B's packed slab resident) at the
+# deploy tap and ragged ones (element-wise copies where K or N is no
+# multiple of 8), long K (the ring of A and B slices) at stage 4's 2048 ->
+# 512 and ragged
+MS_BF16_SHAPES = [(100352, 64, 256), (1000, 70, 200), (300, 64, 132), (1, 3, 1),
+                  (1568, 2048, 512), (77, 513, 129), (3000, 512, 64)]
+
+
+@pytest.mark.parametrize("M,K,N", MS_BF16_SHAPES)
+def test_matmul_stats_bf16_kernel_matches_plain(dev, M, K, N):
+    """The bf16 form on bfloat16 a and b: C within one bf16 ulp of the plain
+    version (its float32 product rounded once; the f32 sums in another
+    order) or 1e-5 of the largest; Σc and Σc² (from the f32 accumulators) at
+    the float32 form's tolerances; two runs give the same bits; only
+    ``matmul_stats_bf16`` counts."""
+    a = _randn(dev, M, K).bfloat16()
+    b = _randn(dev, K, N, scale=1 / math.sqrt(K), seed=1).bfloat16()
+    before = pt.ops.launch_counts()
+    got = ms.matmul_with_stats(a, b)
+    again = ms.matmul_with_stats(a, b)
+    after = pt.ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
+        {"matmul_stats_bf16": 2}
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = ms.matmul_with_stats_plain(a, b)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == got[2].dtype == torch.float32
+    _bf16_close(got[0], want[0], 1e-5)
+    for g, w in zip(got[1:], want[1:]):
+        _close(g, w, 1e-4)
+
+
+# (B, K, H, W, N, kernel, stride): a ragged 3x3 (two 8-pixel tiles a side),
+# stride 2 on an odd grid, a 1x1 whose 7 x 7 grid spans images, more output
+# channels than one 64-channel tile (only the first tile's blocks write xn),
+# and two ResNet-50 sites at batch 2
+STASH_SHAPES = [(2, 8, 9, 9, 16, 3, 1), (3, 32, 13, 11, 48, 1, 2), (3, 32, 7, 7, 72, 1, 1),
+                (2, 64, 14, 14, 160, 3, 1), (2, 64, 56, 56, 64, 3, 1),
+                (2, 256, 56, 56, 512, 1, 2)]
+
+
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", STASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("res", [False, True])
+def test_conv_bn_stash_kernels_match_plain_and_recompute(dev, B, K, H, W, N, kernel, stride,
+                                                         dtype, res):
+    """The stash forms: the forward's c, Σc and Σc² bitwise the recompute
+    forward's, its xn bitwise the plain prologue of the positions the conv
+    reads; the backward reading xn bitwise the recompute kernel's five
+    outputs on the same inputs, and within the tolerances of the plain
+    version; each form counted under its own name."""
+    x, w, scale, shift, r, (Ho, Wo) = _conv_case(
+        dev, B, K, H, W, N, kernel, stride, "prologue_res" if res else "prologue")
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    x, w, r = x.to(tdt), w.to(tdt), None if r is None else r.to(tdt)
+    st = (stride, stride)
+    before = pt.ops.launch_counts()
+    c, s, q, xn = cb.conv_block(x, w, scale, shift, r, st, True, emit_xn=True)
+    rc = cb.conv_block(x, w, scale, shift, r, st, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((c, s, q), rc))
+    assert xn.shape == (B, K, Ho, Wo) and xn.dtype == tdt
+    assert torch.equal(xn, cb._stashed_xn(x, w, scale, shift, st, True))
+    dc = _randn(dev, B, N, Ho, Wo, seed=7).to(tdt)
+    ds, dq = _randn(dev, N, seed=8), _randn(dev, N, scale=0.1, seed=9)
+    args = (x, w, scale, shift, c, dc, ds, dq, st, True, res)
+    got = cb.conv_block_bwd(*args, xn=xn)
+    rec = cb.conv_block_bwd(*args)
+    plain = cb.conv_block_bwd_plain(*args, xn=xn)
+    torch.cuda.synchronize()
+    after = pt.ops.launch_counts()
+    suffix = "_bf16" if dtype == "bfloat16" else ""
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "conv_bn_stash" + suffix: 1, "conv_bn" + suffix: 1, "conv_bn_bwd_stash" + suffix: 1,
+        "conv_bn_bwd" + suffix: 1}
+    for i, (g, rr, p) in enumerate(zip(got, rec, plain)):
+        assert (g is None) == (rr is None) == (p is None)
+        if g is None:
+            continue
+        assert torch.equal(g, rr), i
+        if dtype == "float32" or i in (2, 3):
+            _close(g, p, 1e-5)
+        else:
+            _bf16_close(g, p, 1e-5)
+
+
+def test_conv_bn_stash_refuses_what_it_does_not_take(dev):
+    """No prologue, no xn: the forward and the backward refuse a stash, and
+    an xn of another shape; nothing launches."""
+    x, w, scale, shift, _, (Ho, Wo) = _conv_case(dev, 2, 16, 8, 8, 24, 1, 1, "prologue")
+    before = pt.ops.launch_counts()
+    with pytest.raises(MXNetError, match="emit_xn"):
+        cb.conv_block(x, w, None, None, emit_xn=True)
+    c = torch.zeros(2, 24, Ho, Wo, device=dev)
+    z = torch.zeros(24, device=dev)
+    with pytest.raises(MXNetError, match="stashed xn"):
+        cb.conv_block_bwd(x, w, None, None, c, c, z, z, (1, 1), False, xn=x)
+    with pytest.raises(MXNetError, match="stashed xn"):
+        cb.conv_block_bwd(x, w, scale, shift, c, c, z, z, (1, 1), True, xn=x[:, :8])
+    assert pt.ops.launch_counts() == before
 
 
 # the three kernels of tests/test_deploy.py's rtc cases, in CUDA, beside a

@@ -459,7 +459,7 @@ def test_port_gate_family_defaults(monkeypatch):
     assert f.gate_explain(*odd) == (False, "shape (2, 6, 8, 8)x(16, 6, 1, 1) is not taken "
                                            "by the kernels' shape gate (supported() declined)")
     assert f.bwd_mode(*ok, True) == "recompute"
-    for env, want in (("0", "xla"), ("xla", "xla"), ("1", "recompute"), ("stash", "recompute"),
+    for env, want in (("0", "xla"), ("xla", "xla"), ("1", "recompute"), ("stash", "stash"),
                       ("recompute", "recompute"), ("junk", "xla")):
         monkeypatch.setenv("MXNET_FUSED_CONV_BN_BWD", env)
         assert f.bwd_mode(*ok, True) == want, env

@@ -354,8 +354,9 @@ def test_norm_residual_block_candidates(mx):
 
 def test_conv_bn_candidates_and_stripe_override_parity(mx):
     """JAX: every stripe (default first) computes the planner default's
-    numbers. Port: the measured candidates are the two backward policies,
-    which give the same forward and gradients (the CPU runs plain
+    numbers. Port: the measured candidates are the three backward policies;
+    the kernel's two (recompute, stash) give the same bits, and the
+    library's the same forward and gradients (the CPU runs plain
     versions)."""
     rs = np.random.RandomState(0)
     host = [rs.randn(2, 8, 8, 8).astype("f"), rs.randn(16, 8, 1, 1).astype("f") * 0.1,
@@ -386,8 +387,10 @@ def test_conv_bn_candidates_and_stripe_override_parity(mx):
 
     for a, b in zip(run("recompute"), run("xla")):
         assert torch.equal(a, b)
+    for a, b in zip(run("stash"), run("recompute")):
+        assert torch.equal(a, b)
     with pytest.raises(pt.MXNetError, match="bwd must be"):
-        run("stash")
+        run("pallas")
 
 
 def test_conv_schedule_reads_tuned_stripe(mx):

@@ -1,9 +1,10 @@
 """``matmul_with_stats`` of the port: its plain PyTorch version against the
 JAX package's Pallas kernel in interpret mode (the three shapes of
-``tests/test_pallas_matmul_stats.py``) and against numpy at a ragged shape
-the TPU kernel's gate refuses. float32 throughout; the two sum in other
-orders (K-long dot products, M-long column sums): rtol 1e-4, atol 1e-4 for C
-and 1e-3 for the sums, as the JAX package's own test."""
+``tests/test_pallas_matmul_stats.py``, in float32 and in bfloat16) and
+against numpy at a ragged shape the TPU kernel's gate refuses. The two sum
+in other orders (K-long dot products, M-long column sums): in float32 rtol
+1e-4, atol 1e-4 for C and 1e-3 for the sums, as the JAX package's own test;
+in bfloat16 C within one bfloat16 ulp of its largest magnitude."""
 import numpy as np
 import pytest
 import torch
@@ -57,15 +58,23 @@ def _bf16_ulp_of_max(x):
     return 2.0 ** (np.floor(np.log2(np.max(np.abs(x)))) - 7)
 
 
-def test_plain_version_matches_the_pallas_kernel_in_bfloat16():
+@pytest.mark.parametrize("M,K,N,bm,bn", [(512, 64, 256, 512, 256), (256, 64, 128, 64, 128),
+                                         (1024, 32, 256, 512, 256), (512, 128, 128, 128, 128)])
+def test_plain_version_matches_the_pallas_kernel_in_bfloat16(M, K, N, bm, bn):
     """C in bfloat16, the statistics from the float32 accumulator before C
     is rounded, as the Pallas kernel takes them: C within one bfloat16 ulp of
-    its largest magnitude, the sums at the float32 tolerances above."""
-    M, K, N = 512, 64, 256
+    its largest magnitude, the sums at the float32 tolerances above; at the
+    first shape these tests held, then the three of
+    ``tests/test_pallas_matmul_stats.py``, with their blocks. The
+    dispatcher on CPU tensors counts no launch of either form."""
     a, b = _operands(M, K, N)
     want = jms.matmul_with_stats(jnp.asarray(a).astype(jnp.bfloat16),
-                                 jnp.asarray(b).astype(jnp.bfloat16), interpret=True)
+                                 jnp.asarray(b).astype(jnp.bfloat16), block_m=bm, block_n=bn,
+                                 interpret=True)
+    ops.reset_launch_counts()
     c, s, q = ms.matmul_with_stats(torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16())
+    counts = ops.launch_counts()
+    assert counts["matmul_stats"] == counts["matmul_stats_bf16"] == 0
     assert c.dtype == torch.bfloat16 and s.dtype == q.dtype == torch.float32
     wc = np.asarray(want[0].astype(jnp.float32))
     assert np.max(np.abs(c.float().numpy() - wc)) <= _bf16_ulp_of_max(wc)
@@ -74,9 +83,17 @@ def test_plain_version_matches_the_pallas_kernel_in_bfloat16():
 
 
 def test_supported_states_the_ports_own_rule():
+    """float32 and bfloat16 (the kernel's two forms), no other dtype; the
+    extents' limits; the bf16 form's shared memory at most the f32 form's
+    in every layout (the schedule is the same)."""
     assert ms.supported(100352, 64, 256) and ms.supported(1, 1, 1)
-    assert not ms.supported(8, 8, 8, torch.bfloat16)  # the bf16 variant is not written
+    assert ms.supported(8, 8, 8, torch.bfloat16) and ms.supported(100352, 64, 256, torch.bfloat16)
+    assert not ms.supported(8, 8, 8, torch.float16) and not ms.supported(8, 8, 8, torch.float64)
     assert not ms.supported(0, 8, 8) and not ms.supported(2 ** 20, 8, 2 ** 12)
+    assert not ms.supported(2 ** 20, 8, 2 ** 12, torch.bfloat16)
+    for layout in ms.LAYOUTS:
+        for K in (1, 64, 128, 2048):
+            assert 0 < ms.smem_bytes(layout, K, torch.bfloat16) <= ms.smem_bytes(layout, K)
     # the C entry's layout codes, in order (csrc/matmul_stats.cu)
     assert [v[0] for v in ms.LAYOUTS.values()] == list(range(len(ms.LAYOUTS)))
 
@@ -121,7 +138,8 @@ def test_matmul_stats_partial_rows_cover_every_tile_once(M, K, N):
     """The partial rows the wrapper allocates, re-derived by handing every
     M-tile to its block as the kernel does (block p takes the M-tiles p,
     p + P, ... of its slab): every tile once, every block at least one, so
-    one partial row a block along M; and the layout's shared memory fits."""
+    one partial row a block along M; and the layout's shared memory fits,
+    in both forms."""
     sched = ms._schedule(M, K, N)
     _, bm, bn, _, _, resident = ms.LAYOUTS[sched.layout]
     m_tiles = -(-M // bm)
@@ -139,4 +157,5 @@ def test_matmul_stats_partial_rows_cover_every_tile_once(M, K, N):
     else:
         assert sched.groups * sched.n_slabs <= ms.SMS
     assert ms.smem_bytes(sched.layout, K) <= ms.SMEM_MAX
+    assert ms.smem_bytes(sched.layout, K, torch.bfloat16) <= ms.SMEM_MAX
 

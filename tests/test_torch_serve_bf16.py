@@ -273,35 +273,37 @@ def test_graphrewrite_bf16_casts_reach_the_bf16_form(monkeypatch):
 
 
 def test_graphrewrite_bf16_cast_into_a_float32_kernel_is_refused_naming_section_2b():
-    """A cast that reaches a kernel still float32-only (matmul_stats,
-    ROADMAP.md section 2b's item 2c) is refused before any launch; the
-    conv+BN kernels, ``matmul_bias_act`` and the flash-attention and
-    LayerNorm kernels, forward and backward, take bfloat16 (their bf16
-    forms), so their check goes on to the device. The dispatchers run on
-    ``meta`` tensors, which take the CUDA path's checks and launch nothing."""
+    """No kernel is float32-only any more: a cast that reaches any of them
+    (``matmul_stats`` since its bf16 form, the conv+BN kernels,
+    ``matmul_bias_act`` and the flash-attention and LayerNorm kernels,
+    forward and backward) passes the dtype check and goes on to the device
+    check; only a dtype no form takes (float16) is refused, before any
+    launch. The dispatchers run on ``meta`` tensors, which take the CUDA
+    path's checks and launch nothing."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops import matmul_stats as ms
     from mxnet_tpu_torch.ops import norm_residual as nr
 
-    later = "section 2b: bf16 for matmul_stats is item 2c"
-    t = torch.zeros(8, 8, dtype=torch.bfloat16)
-    with pytest.raises(pt.MXNetError, match=later):
-        cuda_build.check_operands("matmul_with_stats", t)
     meta = dict(dtype=torch.bfloat16, device="meta")
     q, x, g = torch.empty(2, 8, 16, **meta), torch.empty(4, 16, **meta), torch.empty(16, **meta)
     lse, stat = torch.empty(2, 8, device="meta"), torch.empty(4, device="meta")
     for call in (lambda: fa.flash_attention(q, q, q, causal=True),
                  lambda: nr.layer_norm_affine(x, g, g),
                  lambda: fa.flash_attention_bwd(q, q, q, q, lse, q, causal=True),
-                 lambda: nr.layer_norm_affine_bwd(x, g, stat, stat, x)):
+                 lambda: nr.layer_norm_affine_bwd(x, g, stat, stat, x),
+                 lambda: ms.matmul_with_stats(x, torch.empty(16, 8, **meta))):
         with pytest.raises(pt.MXNetError, match="one CUDA device"):
             call()
-    with pytest.raises(pt.MXNetError, match=later):
-        ms.matmul_with_stats(x, torch.empty(16, 8, **meta))
+    half = torch.empty(4, 16, dtype=torch.float16, device="meta")
+    with pytest.raises(pt.MXNetError, match="takes float32 or bfloat16, got torch.float16"):
+        ms.matmul_with_stats(half, torch.empty(16, 8, dtype=torch.float16, device="meta"))
+    t = torch.zeros(8, 8, dtype=torch.bfloat16)
     for what in ("matmul_bias_act", "conv_block", "conv_block_bwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "layer_norm_affine_bwd"):
         with pytest.raises(pt.MXNetError, match="one CUDA device"):
             cuda_build.check_operands(what, t, dtypes=(torch.bfloat16,))
+    with pytest.raises(pt.MXNetError, match="one CUDA device"):
+        cuda_build.check_operands("matmul_with_stats", t, dtypes=ms.DTYPES)
     with pytest.raises(pt.MXNetError, match="one CUDA device"):
         cuda_build.check_operands("conv_block_infer", t, dtypes=(torch.float32, torch.bfloat16))
 
@@ -377,14 +379,13 @@ def test_bf16_training_stays_refused_naming_the_bf16_training_step():
     """What stays refused now that the bf16 training step trains
     (``tests/test_torch_train_bf16.py``): a float16 ``compute_dtype``,
     naming the bf16 training step; a bfloat16 operand where a kernel takes
-    float32 (the float32 form's check), naming section 2b's queue; a
-    bfloat16 x beside a float32 w in the inference forward."""
+    float32 (the float32 form's check); a bfloat16 x beside a float32 w in
+    the inference forward."""
     mesh = pt.parallel.make_mesh((1,), ("data",), [pt.cpu()])
     with pytest.raises(pt.MXNetError, match="bf16 training step of ROADMAP.md section 2b"):
         pt.parallel.SPMDTrainer(_small_net(pt), mesh, compute_dtype="float16")
     x = torch.zeros(2, 8, 8, 8, dtype=torch.bfloat16)
-    with pytest.raises(pt.MXNetError, match="takes float32, got torch.bfloat16 .ROADMAP.md "
-                                            "section 2b: bf16 for matmul_stats is item 2c"):
+    with pytest.raises(pt.MXNetError, match="takes float32, got torch.bfloat16"):
         cuda_build.check_operands("conv_block", x)
     with pytest.raises(pt.MXNetError, match="computes in one dtype"):
         cb.conv_block_infer(x, torch.zeros(8, 8, 1, 1), None, None)
@@ -395,7 +396,7 @@ def test_bf16_inference_verdict_is_keyed_by_bfloat16(tmp_path, monkeypatch):
     verdict keyed by the bfloat16 dtype: its forward-only contest between
     the library's bfloat16 conv and the stats-free kernel's bf16 form
     (``cuda:bf16``), beside the bf16 training contest of the same site
-    (``cuda:xla``, ``cuda:recompute``, fwd+bwd) in the one bfloat16 entry;
+    (``cuda:xla``, ``cuda:recompute``, ``cuda:stash``, fwd+bwd) in the one bfloat16 entry;
     the float32 verdict of the same site is its own entry, and a later
     float32 bind reads it and measures nothing."""
     import json
@@ -413,7 +414,8 @@ def test_bf16_inference_verdict_is_keyed_by_bfloat16(tmp_path, monkeypatch):
             path = fusion_tune.cache_path()
         entries = json.load(open(path))["entries"]
         bf16 = entries[site["infer_key"]]
-        assert set(bf16["measured"]) == {"cuda:bf16", "cuda:xla", "cuda:recompute"}
+        assert set(bf16["measured"]) == {"cuda:bf16", "cuda:xla", "cuda:recompute",
+                                         "cuda:stash"}
         assert bf16["train"] and "engage" in bf16 and "engage_fwd" in bf16
         assert "cuda:xla" in entries[site["key"]]["measured"]
         fusion_tune.reset()

@@ -6,10 +6,12 @@
     python3 tools/torch_smoke_phase.py layouts   # phase 22, ring attention and ctx groups
     python3 tools/torch_smoke_phase.py train_bf16  # phase 23, the bf16 training step
     python3 tools/torch_smoke_phase.py serve_lm_bf16  # phase 24, the LM served in bf16
+    python3 tools/torch_smoke_phase.py conv_stash  # phase 26, the conv+BN stash policy
 
 It builds the port's kernel library from the checkout, prints the card's
 name and power limit, then calls ``chip_smoke.run_<phase>(pt, smi)``: the
-phases that take nothing else (``serve_lm_bf16``, ``train_bf16``, ``layouts``, ``analysis``,
+phases that take nothing else (``conv_stash``, ``serve_lm_bf16``, ``train_bf16``, ``layouts``,
+``analysis``,
 ``bind``, ``fleet``, ``checkpoint``, ``planner``, ``native``). The phase prints its JSON lines as in the whole
 smoke; the script exits nonzero where a check fails.
 """
@@ -19,7 +21,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PHASES = ("serve_lm_bf16", "train_bf16", "layouts", "analysis", "bind", "fleet", "checkpoint", "planner",
+PHASES = ("conv_stash", "serve_lm_bf16", "train_bf16", "layouts", "analysis", "bind", "fleet", "checkpoint", "planner",
           "native")
 
 
