@@ -674,15 +674,15 @@ KERNELS = {
                 "conv_bn_fwd"),
     # the stats-free forward on bf16 operands (MXNET_SERVE_QUANT=bf16): the
     # same TPU kernel's bf16 path, called by conv_block_infer (:460)
-    "conv_bn_infer_bf16": ("mxnet_tpu_torch/csrc/conv_bn.cu",
+    "conv_bn_infer_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bf16.cu",
                            "mxnet_tpu/ops/pallas_conv_bn.py:240", "conv_bn_infer_bf16"),
     "conv_bn_bwd": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu", "mxnet_tpu/ops/pallas_conv_bn.py:511",
                     "conv_bn_bwd"),
     # the bf16 training forms (SPMDTrainer(compute_dtype='bfloat16')): the
     # same TPU kernels on bf16 operands, the forward with its statistics
-    "conv_bn_bf16": ("mxnet_tpu_torch/csrc/conv_bn.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
+    "conv_bn_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bf16.cu", "mxnet_tpu/ops/pallas_conv_bn.py:240",
                      "conv_bn_train_bf16"),
-    "conv_bn_bwd_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu",
+    "conv_bn_bwd_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bf16_bwd.cu",
                          "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_bf16_bwd"),
     "matmul_bias_act_bf16": ("mxnet_tpu_torch/csrc/matmul_bias_act.cu",
                              "mxnet_tpu/ops/pallas_matmul_bias_act.py:57", "mba_bf16"),
@@ -711,9 +711,9 @@ KERNELS = {
                       "conv_bn_stash_fwd"),
     "conv_bn_bwd_stash": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu",
                           "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_stash_bwd"),
-    "conv_bn_stash_bf16": ("mxnet_tpu_torch/csrc/conv_bn.cu",
+    "conv_bn_stash_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bf16.cu",
                            "mxnet_tpu/ops/pallas_conv_bn.py:240", "conv_bn_stash_bf16_fwd"),
-    "conv_bn_bwd_stash_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bwd.cu",
+    "conv_bn_bwd_stash_bf16": ("mxnet_tpu_torch/csrc/conv_bn_bf16_bwd.cu",
                                "mxnet_tpu/ops/pallas_conv_bn.py:511", "conv_bn_stash_bf16_bwd"),
     "matmul_stats": ("mxnet_tpu_torch/csrc/matmul_stats.cu",
                      "mxnet_tpu/ops/pallas_matmul_stats.py:47", "matmul_stats"),
@@ -1502,7 +1502,14 @@ def check_conv_bf16_train_kernels(randn, peaks, entries, worst):
                  library_ms=event_ms(lambda: F.conv2d(xn, w, stride=st, padding=pad)),
                  bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes
                  else "bytes")
-        bk = dict(ms=device_ms(bwd, key=KERNELS["conv_bn_bwd_bf16"][2]), event_ms=event_ms(bwd),
+        # the backward's kernels one by one, as the float32 row's
+        per_kernel = device_events(bwd)
+        bwd_ms = sum(v for k, v in per_kernel.items() if KERNELS["conv_bn_bwd_bf16"][2] in k)
+        check(bwd_ms > 0, ("the profiler shows no conv_bn_bf16_bwd kernel", prefix))
+        bk = dict(ms=bwd_ms, event_ms=event_ms(bwd),
+                  bwd_kernels_ms={part: sum(v for k, v in per_kernel.items()
+                                            if "conv_bn_bf16_bwd_" + part in k)
+                                  for part in BWD_PARTS},
                   library_ms=event_ms(lambda: torch.ops.aten.convolution_backward(
                       dce, xn, w, None, list(st), [pad, pad], [1, 1], False, [0, 0], 1,
                       [True, True, False])),
@@ -1622,12 +1629,19 @@ def check_conv_stash_kernels(randn, peaks, entries, worst):
                                                                        st, True)),
                      library_ms=event_ms(lambda: F.conv2d(xn, w, stride=st, padding=pad)),
                      bound_ms=max(fo, ft), bound_by="operations" if fo > ft else "bytes")
-            bk = dict(ms=device_ms(bwd), event_ms=event_ms(bwd),
+            per_kernel = device_events(bwd)
+            check(sum(per_kernel.values()) > 0, ("the profiler shows no kernel of", bname))
+            bk = dict(ms=sum(per_kernel.values()), event_ms=event_ms(bwd),
                       recompute_event_ms=event_ms(lambda: cb.conv_block_bwd(*args)),
                       library_ms=event_ms(lambda: torch.ops.aten.convolution_backward(
                           dce, xn, w, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
                           [True, True, False])),
                       bound_ms=max(bo, bt), bound_by="operations" if bo > bt else "bytes")
+            if bf16:
+                # the bf16 backward's kernels one by one, as the float32 row's
+                bk["bwd_kernels_ms"] = {part: sum(v for k, v in per_kernel.items()
+                                                  if "conv_bn_stash_bf16_bwd_" + part in k)
+                                        for part in BWD_PARTS}
             if not prefix:
                 f["plain_ms"] = device_ms(lambda: cb.conv_block_plain(x, w, scale, shift, r, st,
                                                                       True, emit_xn=True))

@@ -1,26 +1,20 @@
-// bf16 products on the tensor cores, for the bf16 variant of the conv +
-// BatchNorm inference forward (conv_bn.cu's mxt_conv_bn_infer_bf16, through
-// conv_bn.cuh's tc_mainloop), and the loads and stores of bf16 storage for
-// the bf16 training forms (conv_bn.cu's mxt_conv_bn_fwd_bf16, conv_bn_bwd.cu's
-// mxt_conv_bn_bwd_bf16, matmul_bias_act.cu's mxt_matmul_bias_act_fwd_bf16).
+// bf16 products on the tensor cores by mma.sync (the bf16 forms of the
+// flash-attention kernels through flash_tc.cuh, matmul_bias_act.cu's and
+// matmul_stats.cu's), the prologue's bf16 arithmetic, and the loads and
+// stores of bf16 storage (those kernels and the bf16 conv+BN kernels,
+// conv_bn_bf16.cuh, whose products run on wgmma instead: wgmma.cuh).
 //
-// What it computes is the TPU kernel's arithmetic on bf16 operands
-// (mxnet_tpu/ops/pallas_conv_bn.py _kernel :240-290, called by
-// conv_block_infer :460 with emit_stats=False): x and w are bf16; scale and
-// shift are cast to bf16 (:349-350); the prologue x·scale + shift is two bf16
-// operations, each rounded to bf16; the product takes an f32 accumulator
-// (a product of two bf16 values is exact in f32); c is rounded to bf16.
-// The kernel reads f32 operands and rounds them as it builds its fragments
-// (the serving path's activations and weights are f32, and JAX casts both to
-// bf16 before its kernel: the two casts are fused here), and it writes c as
-// the f32 of its bf16 value (JAX's cast back to the activation's dtype).
+// What it computes is the TPU kernels' arithmetic on bf16 operands (for
+// the conv+BN kernel, mxnet_tpu/ops/pallas_conv_bn.py _kernel :240-290):
+// the prologue x·scale + shift is two bf16 operations, each rounded to
+// bf16; a product of two bf16 values is exact in f32 and takes an f32
+// accumulator; a result stored as bf16 is rounded to the nearest.
 //
 // One mma.sync m16n8k8 with bf16 operands takes the place of the 3xTF32
 // path's three m16n8k8 TF32 products and its two splits (tf32x3.cuh): the
 // fragment registers hold the same k positions (thread t: k = 2t, 2t + 1 in
 // one register, which the kernels map to the same shared-memory columns and
-// rows as the TF32 path's k = t, t + 4), so the staging, the ring and every
-// shared-memory read of the f32 kernel stay as they are.
+// rows as the TF32 path's k = t, t + 4).
 #pragma once
 
 #include <cstdint>

@@ -57,61 +57,36 @@
 //   with no atomics, and two runs give the same bits.
 // The inference variant (part == NULL) drops the statistics entirely.
 //
-// The bf16 inference variant (mxt_conv_bn_infer_bf16, the stats-free kernel
-// on bf16 operands: pallas_conv_bn.py conv_block_infer :460 as
-// fusion.py:1313-1336 calls it under MXNET_SERVE_QUANT=bf16) is the same
-// kernel with BF16 set: the same tiles, ring and staging of f32 x and w,
-// the operands rounded to bf16 as the fragments are built, the prologue in
-// bf16 (bf16_mma.cuh), one bf16 m16n8k8 product a step instead of three
-// TF32 ones, and c rounded to bf16 and written as f32. Bound on an H100 at
-// ResNet-50's 3x3 sites by operations, 2·B·H'W'·N·K·9 FLOP at 989 TFLOP/s,
-// a third of the TF32 path's work at twice its rate; at the 1x1 sites by
-// bytes, which are the f32 kernel's (it reads f32 x and writes f32 c).
-//
-// The bf16 training forward (mxt_conv_bn_fwd_bf16: the TPU kernel with its
-// statistics on the bf16 operands of SPMDTrainer(compute_dtype='bfloat16'),
-// pallas_conv_bn.py:240-291) is the same kernel on bf16 storage: x, w,
-// scale, shift and res are read as bf16 and c is written as bf16, 2 bytes an
-// element. The rounding points are the TPU kernel's: the prologue in bf16
-// with two roundings, the products on the bf16 tensor cores into f32, the
-// residual added in f32, and the statistics taken from the f32 c before it
-// is rounded to bf16 (:284-291). The ring holds f32 as in the other forms
-// (conv_bn.cuh: the chunk's bf16 elements are loaded into registers and
-// stored widened), so every shared-memory read is the inference form's.
-// Bound on an H100 (989 TFLOP/s, 2 bytes an element) by bytes and
-// operations about equally at ResNet-50's stage-1 3x3, by operations at its
-// stage-3 3x3, by bytes at its 1x1 sites (PERF.md §6).
-//
-// The stash forms (mxt_conv_bn_fwd_stash, f32, and _stash_bf16: the TPU
-// kernel with emit_xn, pallas_conv_bn.py:270-275, :370-389, the forward of
-// MXNET_FUSED_CONV_BN_BWD=stash) are the two training forwards that also
-// write xn = relu(x·scale + shift), the normalised input, on the output grid
+// The stash form (mxt_conv_bn_fwd_stash: the TPU kernel with emit_xn,
+// pallas_conv_bn.py:270-275, :370-389, the forward of
+// MXNET_FUSED_CONV_BN_BWD=stash) is the training forward that also writes
+// xn = relu(x·scale + shift), the normalised input, on the output grid
 // (B, K, H', W'), for the backward to read instead of rederiving it
 // (conv_bn_bwd.cu's stash form). tc_mainloop's EMIT writes it from the
-// staged chunks through the prologue the products apply (in bf16 the
-// rounded value they consume), each element once: by the blocks of the
-// first output-channel tile, 3x3 the pixels of their own tile (not the
-// border), 1x1 at stride 2 only the sampled positions. The extra bytes are
-// one write of xn: K/N of c's.
+// staged chunks through the prologue the products apply, each element
+// once: by the blocks of the first output-channel tile, 3x3 the pixels of
+// their own tile (not the border), 1x1 at stride 2 only the sampled
+// positions. The extra bytes are one write of xn: K/N of c's.
+//
+// The bf16 forms (serving, training and stash) are conv_bn_bf16.cu's.
 #include "conv_bn.cuh"
 
 namespace {
 
-using namespace mxt;  // the storage loads and stores, bf16::
+using namespace mxt;  // the storage loads and stores
 using namespace mxt::convbn;
 
-// The kernels' body; BF16 computes in bf16: on f32 storage (T = float) the
-// bf16 inference variant (no statistics, no residual), on bf16 storage the
-// bf16 training forward.
-// EMIT: the stash forms, which also write xn (tc_mainloop).
-template <int TAPS, bool VEC, bool PRO, bool STATS, bool BF16, typename T = float,
-          bool EMIT = false>
-__device__ __forceinline__ void conv_bn_fwd_tc(const T* __restrict__ x, const T* __restrict__ w,
-                                               const T* __restrict__ scale,
-                                               const T* __restrict__ shift,
-                                               const T* __restrict__ res, T* __restrict__ c,
-                                               float* __restrict__ part, const Geo& geo,
-                                               bool relu, T* __restrict__ xn = nullptr) {
+// The kernels' body. EMIT: the stash form, which also writes xn
+// (tc_mainloop).
+template <int TAPS, bool VEC, bool PRO, bool STATS, bool EMIT = false>
+__device__ __forceinline__ void conv_bn_fwd_tc(const float* __restrict__ x,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ shift,
+                                               const float* __restrict__ res,
+                                               float* __restrict__ c, float* __restrict__ part,
+                                               const Geo& geo, bool relu,
+                                               float* __restrict__ xn = nullptr) {
   using C = Cfg<TAPS>;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -122,10 +97,10 @@ __device__ __forceinline__ void conv_bn_fwd_tc(const T* __restrict__ x, const T*
   const int cblocks = ceil_div(geo.N, C::BM);
   const int pt = blockIdx.x / cblocks, n0 = (blockIdx.x - pt * cblocks) * C::BM;
   const int N = geo.N, HWo = geo.Ho * geo.Wo;
-  const TcArgs<T> args{w, x, scale, shift, N, geo.K, geo.K, geo.B,
-                       geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu, xn};
+  const TcArgs args{w, x, scale, shift, N, geo.K, geo.K, geo.B,
+                    geo.H, geo.W, geo.Ho, geo.Wo, geo.stride, relu, xn};
   float acc[C::MT][C::NT][4] = {};
-  tc_mainloop<TAPS, VEC, PRO, BF16, T, EMIT>(args, pt, n0, smem, acc);
+  tc_mainloop<TAPS, VEC, PRO, EMIT>(args, pt, n0, smem, acc);
 
   // ---- epilogue: the thread's columns 2t, 2t + 1 of each n8 tile, each
   // with its own output offset at channel 0 (a 1x1 tile may start the next
@@ -156,10 +131,6 @@ __device__ __forceinline__ void conv_bn_fwd_tc(const T* __restrict__ x, const T*
 #pragma unroll
       for (int ni = 0; ni < C::NT; ++ni) {
         float v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
-        // the inference variant writes the f32 of the bf16 c; bf16 storage
-        // rounds as it stores, after the statistics took the f32 c
-        if (BF16 && !IsBf16<T>::value)
-          v[0] = mxt::bf16::round_bf16(v[0]), v[1] = mxt::bf16::round_bf16(v[1]);
         if (pairs && in[ni][1]) {
           const size_t o = ob[ni][0] + nof;
           if (res != nullptr) {
@@ -203,57 +174,18 @@ conv_bn_fwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ scale, const float* __restrict__ shift,
                       const float* __restrict__ res, float* __restrict__ c,
                       float* __restrict__ part, Geo geo, bool relu) {
-  conv_bn_fwd_tc<TAPS, VEC, PRO, STATS, false>(x, w, scale, shift, res, c, part, geo, relu);
+  conv_bn_fwd_tc<TAPS, VEC, PRO, STATS>(x, w, scale, shift, res, c, part, geo, relu);
 }
 
-// The bf16 inference variant, under a name of its own in a profile.
-template <int TAPS, bool VEC, bool PRO>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_infer_bf16_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                          const float* __restrict__ scale, const float* __restrict__ shift,
-                          float* __restrict__ c, Geo geo, bool relu) {
-  conv_bn_fwd_tc<TAPS, VEC, PRO, false, true, float>(x, w, scale, shift, nullptr, c, nullptr,
-                                                     geo, relu);
-}
-
-// The bf16 training forward, under a name of its own in a profile: bf16
-// storage, the statistics from the f32 c.
-template <int TAPS, bool VEC, bool PRO>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_train_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ w,
-                          const __nv_bfloat16* __restrict__ scale,
-                          const __nv_bfloat16* __restrict__ shift,
-                          const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ c,
-                          float* __restrict__ part, Geo geo, bool relu) {
-  conv_bn_fwd_tc<TAPS, VEC, PRO, true, true, __nv_bfloat16>(x, w, scale, shift, res, c, part,
-                                                            geo, relu);
-}
-
-// The stash forms, each under a name of its own in a profile: the training
-// forward (f32 3xTF32, or bf16 storage) with the prologue, the statistics
-// and the xn output.
+// The stash form, under a name of its own in a profile: the training
+// forward with the prologue, the statistics and the xn output.
 template <int TAPS, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_bn_stash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                          const float* __restrict__ scale, const float* __restrict__ shift,
                          const float* __restrict__ res, float* __restrict__ c,
                          float* __restrict__ part, float* __restrict__ xn, Geo geo, bool relu) {
-  conv_bn_fwd_tc<TAPS, VEC, true, true, false, float, true>(x, w, scale, shift, res, c, part,
-                                                            geo, relu, xn);
-}
-
-template <int TAPS, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_stash_bf16_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                              const __nv_bfloat16* __restrict__ w,
-                              const __nv_bfloat16* __restrict__ scale,
-                              const __nv_bfloat16* __restrict__ shift,
-                              const __nv_bfloat16* __restrict__ res,
-                              __nv_bfloat16* __restrict__ c, float* __restrict__ part,
-                              __nv_bfloat16* __restrict__ xn, Geo geo, bool relu) {
-  conv_bn_fwd_tc<TAPS, VEC, true, true, true, __nv_bfloat16, true>(x, w, scale, shift, res, c,
-                                                                   part, geo, relu, xn);
+  conv_bn_fwd_tc<TAPS, VEC, true, true, true>(x, w, scale, shift, res, c, part, geo, relu, xn);
 }
 
 // The statistics' second pass: (ssum, ssq) = Σ over the partial rows.
@@ -262,20 +194,9 @@ __global__ void conv_bn_fwd_stats_sum(const float* __restrict__ part, float* __r
   mxt::sum_rows(part, out, P, C);
 }
 
-// The same pass of the bf16 training forward, named after it.
-__global__ void conv_bn_train_bf16_stats_sum(const float* __restrict__ part,
-                                             float* __restrict__ out, int P, int C) {
-  mxt::sum_rows(part, out, P, C);
-}
-
-// ... and of the stash forms.
+// ... and of the stash form.
 __global__ void conv_bn_stash_fwd_stats_sum(const float* __restrict__ part,
                                             float* __restrict__ out, int P, int C) {
-  mxt::sum_rows(part, out, P, C);
-}
-
-__global__ void conv_bn_stash_bf16_fwd_stats_sum(const float* __restrict__ part,
-                                                 float* __restrict__ out, int P, int C) {
   mxt::sum_rows(part, out, P, C);
 }
 
@@ -309,60 +230,11 @@ cudaError_t launch_pro_stats(bool pro, bool stats, dim3 grid, cudaStream_t st, c
                                                      part, g, relu);
 }
 
-template <int TAPS, bool VEC, bool PRO>
-cudaError_t launch_bf16(dim3 grid, cudaStream_t st, const float* x, const float* w,
-                        const float* scale, const float* shift, float* c, const Geo& g,
-                        bool relu) {
-  auto kernel = conv_bn_infer_bf16_kernel<TAPS, VEC, PRO>;
-  constexpr int smem = Cfg<TAPS>::SMEM;
-  static bool raised = false;
-  cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, c, g, relu);
-  return cudaGetLastError();
-}
-
-template <int TAPS, bool VEC, bool PRO>
-cudaError_t launch_train_bf16(dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
-                              const __nv_bfloat16* w, const __nv_bfloat16* scale,
-                              const __nv_bfloat16* shift, const __nv_bfloat16* res,
-                              __nv_bfloat16* c, float* part, const Geo& g, bool relu) {
-  auto kernel = conv_bn_train_bf16_kernel<TAPS, VEC, PRO>;
-  constexpr int smem = Cfg<TAPS>::SMEM;
-  static bool raised = false;
-  cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(x, w, scale, shift, res, c, part, g, relu);
-  return cudaGetLastError();
-}
-
 template <int TAPS, bool VEC>
-cudaError_t launch_train_bf16_pro(bool pro, dim3 grid, cudaStream_t st, const __nv_bfloat16* x,
-                                  const __nv_bfloat16* w, const __nv_bfloat16* scale,
-                                  const __nv_bfloat16* shift, const __nv_bfloat16* res,
-                                  __nv_bfloat16* c, float* part, const Geo& g, bool relu) {
-  return pro ? launch_train_bf16<TAPS, VEC, true>(grid, st, x, w, scale, shift, res, c, part, g,
-                                                  relu)
-             : launch_train_bf16<TAPS, VEC, false>(grid, st, x, w, scale, shift, res, c, part, g,
-                                                   relu);
-}
-
-template <int TAPS, bool VEC>
-cudaError_t launch_bf16_pro(bool pro, dim3 grid, cudaStream_t st, const float* x,
-                            const float* w, const float* scale, const float* shift, float* c,
-                            const Geo& g, bool relu) {
-  return pro ? launch_bf16<TAPS, VEC, true>(grid, st, x, w, scale, shift, c, g, relu)
-             : launch_bf16<TAPS, VEC, false>(grid, st, x, w, scale, shift, c, g, relu);
-}
-
-template <int TAPS, bool VEC, typename T>
-cudaError_t launch_stash(dim3 grid, cudaStream_t st, const T* x, const T* w, const T* scale,
-                         const T* shift, const T* res, T* c, float* part, T* xn, const Geo& g,
-                         bool relu) {
-  auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_fwd_kernel<TAPS, VEC>;
-    else return conv_bn_stash_fwd_kernel<TAPS, VEC>;
-  }();
+cudaError_t launch_stash(dim3 grid, cudaStream_t st, const float* x, const float* w,
+                         const float* scale, const float* shift, const float* res, float* c,
+                         float* part, float* xn, const Geo& g, bool relu) {
+  auto kernel = conv_bn_stash_fwd_kernel<TAPS, VEC>;
   constexpr int smem = Cfg<TAPS>::SMEM;
   static bool raised = false;
   cudaError_t err = mxt::raise_smem(kernel, smem, &raised);
@@ -371,13 +243,13 @@ cudaError_t launch_stash(dim3 grid, cudaStream_t st, const T* x, const T* w, con
   return cudaGetLastError();
 }
 
-// The stash forms on storage T: the checks of mxt_conv_bn_fwd (f32) or
-// mxt_conv_bn_fwd_bf16, a prologue required, xn (B, K, H', W') aligned as x.
-template <typename T>
-int conv_bn_fwd_stash_run(const T* x, const T* w, const T* scale, const T* shift, const T* res,
-                          T* c, float* part, float* sums, T* xn, int B, int K, int H, int W,
-                          int N, int taps, int stride, int relu, int parts, void* stream) {
-  constexpr int align = IsBf16<T>::value ? 8 : 16;
+// The stash form: the checks of mxt_conv_bn_fwd, a prologue required, xn
+// (B, K, H', W') aligned as x.
+int conv_bn_fwd_stash_run(const float* x, const float* w, const float* scale,
+                          const float* shift, const float* res, float* c, float* part,
+                          float* sums, float* xn, int B, int K, int H, int W, int N, int taps,
+                          int stride, int relu, int parts, void* stream) {
+  constexpr int align = 16;
   if (!valid_call(B, K, H, W, N, taps, stride) || scale == nullptr || shift == nullptr ||
       part == nullptr || sums == nullptr || xn == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -400,10 +272,7 @@ int conv_bn_fwd_stash_run(const T* x, const T* w, const T* scale, const T* shift
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 sgrid, sblock;
   mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
-  if constexpr (IsBf16<T>::value)
-    conv_bn_stash_bf16_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
-  else
-    conv_bn_stash_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
+  conv_bn_stash_fwd_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -448,90 +317,13 @@ extern "C" int mxt_conv_bn_fwd(const float* x, const float* w, const float* scal
   return static_cast<int>(cudaGetLastError());
 }
 
-// The stats-free forward on bf16 operands: x, w, scale, shift are f32 (or the
-// f32 of bf16 values) and are rounded to bf16 as the kernel reads them; c is
-// the f32 of the bf16 result. The geometry and alignment rules are
-// mxt_conv_bn_fwd's.
-extern "C" int mxt_conv_bn_infer_bf16(const float* x, const float* w, const float* scale,
-                                      const float* shift, float* c, int B, int K, int H, int W,
-                                      int N, int taps, int stride, int relu, void* stream) {
-  if (!valid_call(B, K, H, W, N, taps, stride) || (scale == nullptr) != (shift == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (misaligned(x, 16) || misaligned(w, 16) || misaligned(c, 16) ||
-      (scale != nullptr && (misaligned(scale, 8) || misaligned(shift, 8))))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const Geo g = make_geo(B, K, H, W, N, taps, stride);
-  const bool pro = scale != nullptr;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tc_parts(g, taps) * ceil_div(N, kTileM));
-  cudaError_t err;
-  if (taps == 1) {
-    err = stride == 1 && (H * W) % 4 == 0
-              ? launch_bf16_pro<1, true>(pro, grid, st, x, w, scale, shift, c, g, relu)
-              : launch_bf16_pro<1, false>(pro, grid, st, x, w, scale, shift, c, g, relu);
-  } else {
-    err = launch_bf16_pro<9, false>(pro, grid, st, x, w, scale, shift, c, g, relu);
-  }
-  return static_cast<int>(err);
-}
-
-// The bf16 training forward with its statistics: x, w, scale, shift, res and
-// c are bf16 (2 bytes an element); part (parts, 2, N) and sums (2, N) f32.
-// The geometry rules are mxt_conv_bn_fwd's; x, w, c, res must be 8-byte and
-// scale, shift 4-byte aligned, as every tensor PyTorch's allocator makes is.
-extern "C" int mxt_conv_bn_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                    const __nv_bfloat16* scale, const __nv_bfloat16* shift,
-                                    const __nv_bfloat16* res, __nv_bfloat16* c, float* part,
-                                    float* sums, int B, int K, int H, int W, int N, int taps,
-                                    int stride, int relu, int parts, void* stream) {
-  if (!valid_call(B, K, H, W, N, taps, stride) || (scale == nullptr) != (shift == nullptr) ||
-      part == nullptr || sums == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (misaligned(x, 8) || misaligned(w, 8) || misaligned(c, 8) ||
-      (res != nullptr && misaligned(res, 8)) ||
-      (scale != nullptr && (misaligned(scale, 4) || misaligned(shift, 4))))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const Geo g = make_geo(B, K, H, W, N, taps, stride);
-  const bool pro = scale != nullptr;
-  if (parts != tc_parts(g, taps)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(parts * ceil_div(N, kTileM));
-  cudaError_t err;
-  if (taps == 1) {
-    err = stride == 1 && (H * W) % 4 == 0
-              ? launch_train_bf16_pro<1, true>(pro, grid, st, x, w, scale, shift, res, c, part,
-                                               g, relu)
-              : launch_train_bf16_pro<1, false>(pro, grid, st, x, w, scale, shift, res, c, part,
-                                                g, relu);
-  } else {
-    err = launch_train_bf16_pro<9, false>(pro, grid, st, x, w, scale, shift, res, c, part, g,
-                                          relu);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 sgrid, sblock;
-  mxt::sum_rows_shape(parts, 2 * N, &sgrid, &sblock);
-  conv_bn_train_bf16_stats_sum<<<sgrid, sblock, 0, st>>>(part, sums, parts, 2 * N);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The stash forms: mxt_conv_bn_fwd (f32) and mxt_conv_bn_fwd_bf16 with the
-// prologue (scale, shift), the statistics (part, sums) and the xn output,
-// all required. xn: (B, K, H', W') in the storage of x.
+// The stash form: mxt_conv_bn_fwd with the prologue (scale, shift), the
+// statistics (part, sums) and the xn output, all required. xn: (B, K, H',
+// W').
 extern "C" int mxt_conv_bn_fwd_stash(const float* x, const float* w, const float* scale,
                                      const float* shift, const float* res, float* c, float* part,
                                      float* sums, float* xn, int B, int K, int H, int W, int N,
                                      int taps, int stride, int relu, int parts, void* stream) {
-  return conv_bn_fwd_stash_run(x, w, scale, shift, res, c, part, sums, xn, B, K, H, W, N, taps,
-                               stride, relu, parts, stream);
-}
-
-extern "C" int mxt_conv_bn_fwd_stash_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                          const __nv_bfloat16* scale,
-                                          const __nv_bfloat16* shift,
-                                          const __nv_bfloat16* res, __nv_bfloat16* c,
-                                          float* part, float* sums, __nv_bfloat16* xn, int B,
-                                          int K, int H, int W, int N, int taps, int stride,
-                                          int relu, int parts, void* stream) {
   return conv_bn_fwd_stash_run(x, w, scale, shift, res, c, part, sums, xn, B, K, H, W, N, taps,
                                stride, relu, parts, stream);
 }

@@ -1,7 +1,8 @@
 // Shared pieces of the fused conv + BatchNorm kernels (conv_bn.cu forward,
-// conv_bn_bwd.cu backward): the shape gate, the tensor-core implicit GEMM
-// that the forward and the backward's dgrad both run, and the fixed-order
-// sum of per-block partial rows.
+// conv_bn_bwd.cu backward, and their bf16 forms in conv_bn_bf16.cu and
+// conv_bn_bf16_bwd.cu): the shape gate, the f32 tensor-core implicit GEMM
+// that the f32 forward and the f32 backward's dgrad both run, the fixed-order
+// sum of per-block partial rows, and the backward's fold and weight flip.
 //
 // The implicit GEMM (tc_mainloop) computes, for one block's tile,
 //   acc[m, q] = Σ_c Σ_t A[m, c·TAPS + t] · xn[c, q + s_t],
@@ -16,17 +17,10 @@
 // staged chunk and a border pixel outside the image is a 0: the pad-1
 // semantics of the TPU kernel's _shift_masks, pallas_conv_bn.py:216). The
 // contraction streams through a 4-stage cp.async ring in chunks of 32
-// channels (1x1) or 8 channels x 9 taps (3x3). With BF16 (the forward's
-// inference variant, bf16_mma.cuh) the same tiles, ring and shared-memory
-// reads feed one bf16 m16n8k8 product a step instead of three TF32 ones.
-// With bf16 storage (T = __nv_bfloat16: the training forms' forward and
-// dgrad) the ring holds the same f32 values: each thread loads its chunk's
-// bf16 elements into registers, all of them first, and stores them widened
-// to f32 into the stage (cp.async copies whole 4-byte words, and the 3x3
-// halo and the strided 1x1 positions are single 2-byte elements), so every
-// shared-memory read and the bf16 fragments stay those of the f32 staging.
-// With EMIT (the forward's stash policy) the blocks of the first row tile
-// also write xn = prologue(X), each element once, on the output grid.
+// channels (1x1) or 8 channels x 9 taps (3x3). With EMIT (the forward's
+// stash policy) the blocks of the first row tile also write xn =
+// prologue(X), each element once, on the output grid. The bf16 forms run
+// conv_bn_bf16.cuh's mainloop instead.
 #pragma once
 
 #include "bf16_mma.cuh"
@@ -112,15 +106,6 @@ __device__ __forceinline__ float prologue(float v, float sc, float sh, bool relu
   return relu ? fmaxf(v, 0.f) : v;
 }
 
-// The prologue as tc_mainloop applies it to a staged value: in f32, or (BF16)
-// on the bf16 roundings of v, sc and sh with bf16_mma.cuh's two roundings.
-template <bool BF16>
-__device__ __forceinline__ float staged_prologue(float v, float sc, float sh, bool relu) {
-  if (BF16)
-    return bf16::prologue(bf16::round_bf16(v), bf16::round_bf16(sc), bf16::round_bf16(sh), relu);
-  return prologue(v, sc, sh, relu);
-}
-
 // Column col of position tile pt: its image b and output pixel (oy, ox);
 // false past the grid's edge.
 template <int TAPS>
@@ -144,122 +129,33 @@ __device__ __forceinline__ bool tile_col(const Geo& geo, int pt, int col, int* b
   return *oy < geo.Ho && *ox < geo.Wo;
 }
 
-// The operands of one implicit GEMM, stored as T (float or __nv_bfloat16).
-// X has C channels on the grid (H, W) that the output grid (Ho, Wo) samples
-// with stride; A has M rows of a_row = KC·TAPS columns, where KC ≥ C is a
-// multiple of 8 (columns of the channels c ≥ C are zero in A and never read
-// from X: they are zero-filled).
-template <typename T = float>
+// The operands of one implicit GEMM. X has C channels on the grid (H, W)
+// that the output grid (Ho, Wo) samples with stride; A has M rows of a_row
+// = KC·TAPS columns, where KC ≥ C is a multiple of 8 (columns of the
+// channels c ≥ C are zero in A and never read from X: they are
+// zero-filled).
 struct TcArgs {
-  const T* a;
-  const T* x;
-  const T* scale;  // the prologue on X (PRO), else unused
-  const T* shift;
+  const float* a;
+  const float* x;
+  const float* scale;  // the prologue on X (PRO), else unused
+  const float* shift;
   int M, KC, C;
   int B, H, W, Ho, Wo, stride;
   bool relu;
-  T* xn;  // EMIT: the prologue's output (B, C, Ho, Wo), else unused
+  float* xn;  // EMIT: the prologue's output (B, C, Ho, Wo), else unused
 };
-
-// One stage of tc_mainloop's products in bf16 (BF16): the TF32 path's
-// shared-memory reads, each pair of values rounded into one bf16x2 register
-// (A and X as JAX casts them; X through the bf16 prologue where there is
-// one), one m16n8k8 a step, into a fresh accumulator added to acc once.
-// as: A's stage at this warp's row g; bs: X's stage.
-template <int TAPS, bool PRO, typename T>
-__device__ __forceinline__ void bf16_stage(const TcArgs<T>& g, const float* as, const float* bs,
-                                           int k0, int t, int wn, int gq,
-                                           float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
-  using C = Cfg<TAPS>;
-  float d[C::MT][C::NT][4];
-#pragma unroll
-  for (int mi = 0; mi < C::MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < C::NT; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[mi][ni][i] = 0.f;
-  if (TAPS == 1) {
-#pragma unroll
-    for (int kk = 0; kk < C::BK; kk += 8) {
-      if (k0 + kk >= g.KC) break;  // KC % 8 == 0: an 8-deep step is all in or all out
-      // k = 2t and 2t + 1 of the step are channels kk + 2t and kk + 2t + 1:
-      // A's from one 8-byte load, X's from two rows
-      float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
-      if (PRO) {
-        sc = ldg2(g.scale + k0 + kk + 2 * t);
-        sh = ldg2(g.shift + k0 + kk + 2 * t);
-        sc = make_float2(bf16::round_bf16(sc.x), bf16::round_bf16(sc.y));
-        sh = make_float2(bf16::round_bf16(sh.x), bf16::round_bf16(sh.y));
-      }
-      uint32_t b[C::NT];
-#pragma unroll
-      for (int ni = 0; ni < C::NT; ++ni) {
-        const float* br = bs + (kk + 2 * t) * C::BS + wn * C::WN + ni * 8 + gq;
-        float v0 = br[0], v1 = br[C::BS];
-        if (PRO) {
-          v0 = bf16::prologue(bf16::round_bf16(v0), sc.x, sh.x, g.relu);
-          v1 = bf16::prologue(bf16::round_bf16(v1), sc.y, sh.y, g.relu);
-        }
-        b[ni] = bf16::pack(v0, v1);
-      }
-#pragma unroll
-      for (int mi = 0; mi < C::MT; ++mi) {
-        const float* ar = as + mi * 16 * C::AS + kk + 2 * t;
-        const float2 lo = *reinterpret_cast<const float2*>(ar);
-        const float2 hi = *reinterpret_cast<const float2*>(ar + 8 * C::AS);
-        const uint32_t a[2] = {bf16::pack(lo.x, lo.y), bf16::pack(hi.x, hi.y)};
-#pragma unroll
-        for (int ni = 0; ni < C::NT; ++ni) bf16::mma(d[mi][ni], a, b[ni]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      // k = 2t and 2t + 1 are the chunk's channels t and t + 4 (the TF32
-      // path's k = t and t + 4): the tap's halo pixel, normalised (or 0
-      // outside the image) in shared memory already
-      uint32_t b[C::NT];
-#pragma unroll
-      for (int ni = 0; ni < C::NT; ++ni) {
-        const float* br = bs + t * C::BS + (wn * C::NT + ni + dy) * kHaloW + gq + dx;
-        b[ni] = bf16::pack(br[0], br[4 * C::BS]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < C::MT; ++mi) {
-        const float* ar = as + mi * 16 * C::AS + t * 9 + tap;  // channel t + 4: 36 columns on
-        const uint32_t a[2] = {bf16::pack(ar[0], ar[36]),
-                               bf16::pack(ar[8 * C::AS], ar[8 * C::AS + 36])};
-#pragma unroll
-        for (int ni = 0; ni < C::NT; ++ni) bf16::mma(d[mi][ni], a, b[ni]);
-      }
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < C::MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < C::NT; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] += d[mi][ni][i];
-}
 
 // Fills acc with the block's tile (position tile pt, rows m0 .. m0 + 63).
 // smem: Cfg<TAPS>::SMEM bytes of dynamic shared memory, free on return.
-// BF16: A, X, scale and shift are rounded to bf16 as the fragments are
-// built, the prologue is bf16_mma.cuh's, and each stage's products go into a
-// fresh f32 accumulator that is added to acc with one rounding to nearest
-// (the tensor cores truncate as they accumulate, tf32x3.cuh's mma3).
-// T = __nv_bfloat16 (bf16 storage) takes BF16. EMIT (with PRO): the blocks
+// EMIT (with PRO): the blocks
 // with m0 == 0 write g.xn, each thread the elements it staged, once its copy
 // of a chunk landed: the value its warps' fragments take, so the backward
 // that reads xn sees what a recompute from X derives (3x3: the interior of
 // the bordered tile, the 8 x 8 pixels the block owns).
-template <int TAPS, bool VEC, bool PRO, bool BF16 = false, typename T = float, bool EMIT = false>
-__device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, float* smem,
+template <int TAPS, bool VEC, bool PRO, bool EMIT = false>
+__device__ __forceinline__ void tc_mainloop(const TcArgs& g, int pt, int m0, float* smem,
                                             float (&acc)[Cfg<TAPS>::MT][Cfg<TAPS>::NT][4]) {
   using C = Cfg<TAPS>;
-  constexpr bool kB16 = IsBf16<T>::value;
-  static_assert(BF16 || !kB16, "bf16 storage computes in bf16");
   static_assert(PRO || !EMIT, "xn is the prologue's output");
   const bool emit = EMIT && m0 == 0;
   constexpr int BM = C::BM;
@@ -318,77 +214,31 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
 
   // ---- one contraction chunk (channels k0 .. k0 + BK - 1) into stage s
   constexpr int kRowChunks = C::KW / 4;  // 4-element copies along an A row
-  constexpr int kAChunks = (BM * kRowChunks + kThreads - 1) / kThreads;
   auto load = [&](int s, int k0) {
     float* as = smem + s * C::STAGE;
     float* bs = as + BM * C::AS;
-    if constexpr (kB16) {
-      // bf16 storage: every load of the chunk first, then the widened stores
-      float4 av[kAChunks];
+    for (int ch = tid; ch < BM * kRowChunks; ch += kThreads) {
+      const int r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
+      const bool p = m0 + r < g.M && (TAPS != 1 || k0 + col < g.KC);
+      cp_async16(as + r * C::AS + col,
+                 p ? g.a + static_cast<size_t>(m0 + r) * a_row + k0 * TAPS + col : g.a, p);
+    }
+    if (TAPS == 1) {
 #pragma unroll
-      for (int i = 0; i < kAChunks; ++i) {
-        const int ch = tid + i * kThreads, r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
-        const bool p = ch < BM * kRowChunks && m0 + r < g.M && (TAPS != 1 || k0 + col < g.KC);
-        av[i] = p ? ldg4(g.a + static_cast<size_t>(m0 + r) * a_row + k0 * TAPS + col)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      if (TAPS == 1) {
-        float4 xv[k1x1];  // VEC: 4 positions; else one, in .x
-#pragma unroll
-        for (int i = 0; i < k1x1; ++i) {
-          const int kl = kl0 + i * kStepK;
-          const bool p = valid && k0 + kl < g.C;
-          const T* from = g.x + off + static_cast<size_t>(k0 + kl) * HW;
-          xv[i] = !p ? make_float4(0.f, 0.f, 0.f, 0.f)
-                     : (VEC ? ldg4(from) : make_float4(ldg1(from), 0.f, 0.f, 0.f));
-        }
-#pragma unroll
-        for (int i = 0; i < k1x1; ++i) {
-          float* to = bs + (kl0 + i * kStepK) * C::BS + pos;
-          if (VEC) *reinterpret_cast<float4*>(to) = xv[i];
-          else *to = xv[i].x;
-        }
-      } else {
-        const size_t koff = static_cast<size_t>(k0) * HW;
-        float xv[k3x3];
-#pragma unroll
-        for (int i = 0; i < k3x3; ++i) {
-          const bool p = dst[i] >= 0 && ok[i] && k0 + kls[i] < g.C;
-          xv[i] = p ? ldg1(g.x + src[i] + koff) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < k3x3; ++i)
-          if (dst[i] >= 0) bs[dst[i]] = xv[i];
-      }
-#pragma unroll
-      for (int i = 0; i < kAChunks; ++i) {
-        const int ch = tid + i * kThreads, r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
-        if (ch < BM * kRowChunks) *reinterpret_cast<float4*>(as + r * C::AS + col) = av[i];
+      for (int i = 0; i < k1x1; ++i) {
+        const int kl = kl0 + i * kStepK;
+        const bool p = valid && k0 + kl < g.C;
+        const float* from = p ? g.x + off + static_cast<size_t>(k0 + kl) * HW : g.x;
+        if (VEC) cp_async16(bs + kl * C::BS + pos, from, p);
+        else cp_async4(bs + kl * C::BS + pos, from, p);
       }
     } else {
-      for (int ch = tid; ch < BM * kRowChunks; ch += kThreads) {
-        const int r = ch / kRowChunks, col = (ch - r * kRowChunks) * 4;
-        const bool p = m0 + r < g.M && (TAPS != 1 || k0 + col < g.KC);
-        cp_async16(as + r * C::AS + col,
-                   p ? g.a + static_cast<size_t>(m0 + r) * a_row + k0 * TAPS + col : g.a, p);
-      }
-      if (TAPS == 1) {
+      const size_t koff = static_cast<size_t>(k0) * HW;
 #pragma unroll
-        for (int i = 0; i < k1x1; ++i) {
-          const int kl = kl0 + i * kStepK;
-          const bool p = valid && k0 + kl < g.C;
-          const T* from = p ? g.x + off + static_cast<size_t>(k0 + kl) * HW : g.x;
-          if (VEC) cp_async16(bs + kl * C::BS + pos, from, p);
-          else cp_async4(bs + kl * C::BS + pos, from, p);
-        }
-      } else {
-        const size_t koff = static_cast<size_t>(k0) * HW;
-#pragma unroll
-        for (int i = 0; i < k3x3; ++i) {
-          if (dst[i] < 0) continue;
-          const bool p = ok[i] && k0 + kls[i] < g.C;
-          cp_async4(bs + dst[i], p ? g.x + src[i] + koff : g.x, p);
-        }
+      for (int i = 0; i < k3x3; ++i) {
+        if (dst[i] < 0) continue;
+        const bool p = ok[i] && k0 + kls[i] < g.C;
+        cp_async4(bs + dst[i], p ? g.x + src[i] + koff : g.x, p);
       }
     }
   };
@@ -410,8 +260,7 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
       for (int i = 0; i < k3x3; ++i) {
         if (dst[i] < 0) continue;
         const int k = k0 + kls[i];
-        bs[dst[i]] = ok[i] ? staged_prologue<BF16>(bs[dst[i]], ldg1(g.scale + k),
-                                                   ldg1(g.shift + k), g.relu)
+        bs[dst[i]] = ok[i] ? prologue(bs[dst[i]], ldg1(g.scale + k), ldg1(g.shift + k), g.relu)
                            : 0.f;
         if (EMIT && emit && own[i] && k < g.C) st1(g.xn + src[i] + static_cast<size_t>(k0) * HW,
                                                    bs[dst[i]]);
@@ -427,14 +276,14 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
         if (k >= g.C) continue;
         const float sc = ldg1(g.scale + k), sh = ldg1(g.shift + k);
         const float* from = bs + (kl0 + i * kStepK) * C::BS + pos;
-        T* to = g.xn + xn_off + static_cast<size_t>(k) * HWo;
+        float* to = g.xn + xn_off + static_cast<size_t>(k) * HWo;
         if (VEC) {
-          st4(to, make_float4(staged_prologue<BF16>(from[0], sc, sh, g.relu),
-                              staged_prologue<BF16>(from[1], sc, sh, g.relu),
-                              staged_prologue<BF16>(from[2], sc, sh, g.relu),
-                              staged_prologue<BF16>(from[3], sc, sh, g.relu)));
+          st4(to, make_float4(prologue(from[0], sc, sh, g.relu),
+                              prologue(from[1], sc, sh, g.relu),
+                              prologue(from[2], sc, sh, g.relu),
+                              prologue(from[3], sc, sh, g.relu)));
         } else {
-          st1(to, staged_prologue<BF16>(from[0], sc, sh, g.relu));
+          st1(to, prologue(from[0], sc, sh, g.relu));
         }
       }
     }
@@ -444,9 +293,7 @@ __device__ __forceinline__ void tc_mainloop(const TcArgs<T>& g, int pt, int m0, 
     cp_async_commit();
     const float* as = smem + (kt % kStages) * C::STAGE + (wm * C::WM + gq) * C::AS;
     const float* bs = smem + (kt % kStages) * C::STAGE + BM * C::AS;
-    if (BF16) {
-      bf16_stage<TAPS, PRO, T>(g, as, bs, k0, t, wn, gq, acc);
-    } else if (TAPS == 1) {
+    if (TAPS == 1) {
 #pragma unroll
       for (int kk = 0; kk < C::BK; kk += 8) {
         if (k0 + kk >= g.KC) break;  // KC % 8 == 0: an 8-deep step is all in or all out
@@ -552,5 +399,69 @@ __device__ __forceinline__ void tile_row_sums(float (&s)[Cfg<TAPS>::MT][2],
 
 inline bool misaligned(const void* p, int a) { return reinterpret_cast<uintptr_t>(p) % a != 0; }
 
+// ---- the backward's passes around its products (both storages)
+
+// dce = dc + ds + 2·c·dq, rounded as the plain version rounds it: the f32
+// form with the product and the sums each rounded; the bf16 form (FMA) with
+// the product fused into the second add, as the JAX package's compiled fold
+// computes it (ops/conv_bn.py _fold_bf16), so the bf16 rounding of dce
+// matches it element for element.
+template <bool FMA = false>
+__device__ __forceinline__ float dce_of(float dc, float c, float ds, float dq) {
+  if (FMA) return __fmaf_rn(2.f * c, dq, __fadd_rn(dc, ds));
+  return __fadd_rn(__fadd_rn(dc, ds), __fmul_rn(2.f * c, dq));
+}
+
+// VEC: H'W' % 4 == 0, so four consecutive elements share a channel. T: the
+// storage of dc, c and dce (bf16: dce32 rounded once as it is stored).
+template <bool VEC, typename T>
+__device__ __forceinline__ void fold(const T* __restrict__ dc, const T* __restrict__ c,
+                                     const float* __restrict__ ds, const float* __restrict__ dq,
+                                     T* __restrict__ dce, int N, int HWo, size_t total) {
+  constexpr bool kFma = IsBf16<T>::value;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  if (VEC) {
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total / 4;
+         i += step) {
+      const int n = static_cast<int>((4 * i / HWo) % N);
+      const float4 a = ldg4(dc + 4 * i);
+      const float4 b = ldg4(c + 4 * i);
+      const float s = __ldg(ds + n), q = __ldg(dq + n);
+      st4(dce + 4 * i, make_float4(dce_of<kFma>(a.x, b.x, s, q), dce_of<kFma>(a.y, b.y, s, q),
+                                   dce_of<kFma>(a.z, b.z, s, q), dce_of<kFma>(a.w, b.w, s, q)));
+    }
+  } else {
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
+         i += step) {
+      const int n = static_cast<int>((i / HWo) % N);
+      st1(dce + i, dce_of<kFma>(ldg1(dc + i), ldg1(c + i), __ldg(ds + n), __ldg(dq + n)));
+    }
+  }
+}
+
+// wt[k][n·TAPS + t] = w[n][k][TAPS − 1 − t] (0 for n ≥ N), through a 32 x 32
+// tile of (n, k) in shared memory so that both sides are read and written
+// along rows. The flip: da[p] takes dce[p − s_t] where c[o] took xn[o + s_t].
+constexpr int kFlipTile = 32;
+
+template <int TAPS, typename T>
+__device__ __forceinline__ void wflip(const T* __restrict__ w, T* __restrict__ wt, int N, int K,
+                                      int np) {
+  constexpr int RW = kFlipTile * TAPS;
+  __shared__ float s[kFlipTile][RW + 1];
+  const int n0 = blockIdx.x * kFlipTile, k0 = blockIdx.y * kFlipTile;
+  for (int e = threadIdx.x; e < kFlipTile * RW; e += kThreads) {
+    const int r = e / RW, col = e - r * RW;  // row n0 + r, columns (k, t)
+    const int n = n0 + r, k = k0 + col / TAPS;
+    s[r][col] = n < N && k < K ? ldg1(w + (static_cast<size_t>(n) * K + k0) * TAPS + col) : 0.f;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kFlipTile * RW; e += kThreads) {
+    const int r = e / RW, col = e - r * RW;  // row k0 + r, columns (n, t)
+    const int nn = col / TAPS, tp = col - nn * TAPS, k = k0 + r;
+    if (k < K && n0 + nn < np)
+      st1(wt + (static_cast<size_t>(k) * np + n0) * TAPS + col, s[nn][r * TAPS + TAPS - 1 - tp]);
+  }
+}
 }  // namespace convbn
 }  // namespace mxt

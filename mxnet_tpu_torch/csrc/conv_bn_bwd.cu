@@ -4,10 +4,10 @@
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas_conv_bn.py _bwd_kernel
 // (:511), launched by _conv_block_bwd_impl (:619, pallas_call :692), in both
-// of its policies: recompute (mxt_conv_bn_bwd, _bf16), where xn =
-// relu(x·scale + shift) is rederived from x, and stash (mxt_conv_bn_bwd_stash,
-// _stash_bf16), where the forward wrote xn (conv_bn.cu's stash forms) and
-// the backward reads it (:531, :567-568).
+// of its policies: recompute (mxt_conv_bn_bwd), where xn = relu(x·scale +
+// shift) is rederived from x, and stash (mxt_conv_bn_bwd_stash), where the
+// forward wrote xn (conv_bn.cu's stash forms) and the backward reads it
+// (:531, :567-568). The bf16 forms are conv_bn_bf16_bwd.cu's.
 //
 // Bound on an H100: operations, twice the forward's 2·B·H'W'·N·K·taps FLOP,
 // at f32 accuracy on the TF32 tensor cores (3xTF32, tf32x3.cuh: 3 · FLOP at
@@ -49,26 +49,8 @@
 // to the running sum with one rounding to nearest: a wgrad split adds up to
 // thousands of steps (tests/test_torch_tf32x3.py emulates the sums).
 //
-// The bf16 form (mxt_conv_bn_bwd_bf16: the TPU kernel on the bf16 operands
-// of SPMDTrainer(compute_dtype='bfloat16'), pallas_conv_bn.py:511-620) runs
-// the same five kernels on bf16 storage (x, w, scale, shift, c, dc, dce, wt,
-// dx, dw), each under a name of its own (conv_bn_bf16_bwd_*), with the TPU
-// kernel's rounding points: dce = dc + ds + 2·c·dq in f32 (the product fused
-// into the second add, as the JAX package's compiled fold computes it: see
-// dce_of), rounded to bf16 once (dres and the products' operand, :556-564);
-// xn recomputed in bf16
-// from bf16 scale and shift with the forward's two roundings, and the ReLU
-// mask taken from it; the products on the bf16 tensor cores (bf16_mma.cuh)
-// into f32, each stage into a fresh accumulator added with one rounding;
-// dx = da·scale rounded to bf16; dscale = Σ da·x and dshift = Σ da in f32;
-// dw summed in f32 and rounded to bf16 (:715). The rings hold f32: a bf16
-// chunk is loaded into registers and stored widened (conv_bn.cuh). Bound
-// on an H100 (989 TFLOP/s, 2 bytes an element) by bytes and operations about
-// equally at ResNet-50's stage-1 3x3, by operations at its stage-3 3x3, by
-// bytes at its 1x1 sites (PERF.md §6).
-//
-// The stash forms run the same five passes, each under a name of its own
-// (conv_bn_stash_bwd_*, conv_bn_stash_bf16_bwd_*), with xn (B, K, H', W')
+// The stash form runs the same five passes, each under a name of its own
+// (conv_bn_stash_bwd_*), with xn (B, K, H', W')
 // read where the recompute rederives it: the dgrad takes its ReLU mask from
 // xn (relu(pre) > 0 exactly where pre > 0) and still reads x for dscale =
 // Σ da·x (:603); the wgrad takes xn as its operand with the prologue off,
@@ -80,61 +62,14 @@
 
 namespace {
 
-using namespace mxt;  // the storage loads and stores, bf16::
+using namespace mxt;  // the storage loads and stores
 using namespace mxt::convbn;
-
-// dce = dc + ds + 2·c·dq, rounded as the plain version rounds it: the f32
-// form with the product and the sums each rounded; the bf16 form (FMA) with
-// the product fused into the second add, as the JAX package's compiled fold
-// computes it (ops/conv_bn.py _fold_bf16), so the bf16 rounding of dce
-// matches it element for element.
-template <bool FMA = false>
-__device__ __forceinline__ float dce_of(float dc, float c, float ds, float dq) {
-  if (FMA) return __fmaf_rn(2.f * c, dq, __fadd_rn(dc, ds));
-  return __fadd_rn(__fadd_rn(dc, ds), __fmul_rn(2.f * c, dq));
-}
-
-// VEC: H'W' % 4 == 0, so four consecutive elements share a channel. T: the
-// storage of dc, c and dce (bf16: dce32 rounded once as it is stored).
-template <bool VEC, typename T>
-__device__ __forceinline__ void fold(const T* __restrict__ dc, const T* __restrict__ c,
-                                     const float* __restrict__ ds, const float* __restrict__ dq,
-                                     T* __restrict__ dce, int N, int HWo, size_t total) {
-  constexpr bool kFma = IsBf16<T>::value;
-  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
-  if (VEC) {
-    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total / 4;
-         i += step) {
-      const int n = static_cast<int>((4 * i / HWo) % N);
-      const float4 a = ldg4(dc + 4 * i);
-      const float4 b = ldg4(c + 4 * i);
-      const float s = __ldg(ds + n), q = __ldg(dq + n);
-      st4(dce + 4 * i, make_float4(dce_of<kFma>(a.x, b.x, s, q), dce_of<kFma>(a.y, b.y, s, q),
-                                   dce_of<kFma>(a.z, b.z, s, q), dce_of<kFma>(a.w, b.w, s, q)));
-    }
-  } else {
-    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
-         i += step) {
-      const int n = static_cast<int>((i / HWo) % N);
-      st1(dce + i, dce_of<kFma>(ldg1(dc + i), ldg1(c + i), __ldg(ds + n), __ldg(dq + n)));
-    }
-  }
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 conv_bn_bwd_fold_kernel(const float* __restrict__ dc, const float* __restrict__ c,
                         const float* __restrict__ ds, const float* __restrict__ dq,
                         float* __restrict__ dce, int N, int HWo, size_t total) {
-  fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv_bn_bf16_bwd_fold_kernel(const __nv_bfloat16* __restrict__ dc,
-                             const __nv_bfloat16* __restrict__ c, const float* __restrict__ ds,
-                             const float* __restrict__ dq, __nv_bfloat16* __restrict__ dce, int N,
-                             int HWo, size_t total) {
   fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
 }
 
@@ -147,52 +82,10 @@ conv_bn_stash_bwd_fold_kernel(const float* __restrict__ dc, const float* __restr
   fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv_bn_stash_bf16_bwd_fold_kernel(const __nv_bfloat16* __restrict__ dc,
-                                   const __nv_bfloat16* __restrict__ c,
-                                   const float* __restrict__ ds, const float* __restrict__ dq,
-                                   __nv_bfloat16* __restrict__ dce, int N, int HWo,
-                                   size_t total) {
-  fold<VEC>(dc, c, ds, dq, dce, N, HWo, total);
-}
-
-// wt[k][n·TAPS + t] = w[n][k][TAPS − 1 − t] (0 for n ≥ N), through a 32 x 32
-// tile of (n, k) in shared memory so that both sides are read and written
-// along rows. The flip: da[p] takes dce[p − s_t] where c[o] took xn[o + s_t].
-constexpr int kFlipTile = 32;
-
-template <int TAPS, typename T>
-__device__ __forceinline__ void wflip(const T* __restrict__ w, T* __restrict__ wt, int N, int K,
-                                      int np) {
-  constexpr int RW = kFlipTile * TAPS;
-  __shared__ float s[kFlipTile][RW + 1];
-  const int n0 = blockIdx.x * kFlipTile, k0 = blockIdx.y * kFlipTile;
-  for (int e = threadIdx.x; e < kFlipTile * RW; e += kThreads) {
-    const int r = e / RW, col = e - r * RW;  // row n0 + r, columns (k, t)
-    const int n = n0 + r, k = k0 + col / TAPS;
-    s[r][col] = n < N && k < K ? ldg1(w + (static_cast<size_t>(n) * K + k0) * TAPS + col) : 0.f;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kFlipTile * RW; e += kThreads) {
-    const int r = e / RW, col = e - r * RW;  // row k0 + r, columns (n, t)
-    const int nn = col / TAPS, tp = col - nn * TAPS, k = k0 + r;
-    if (k < K && n0 + nn < np)
-      st1(wt + (static_cast<size_t>(k) * np + n0) * TAPS + col, s[nn][r * TAPS + TAPS - 1 - tp]);
-  }
-}
-
 template <int TAPS>
 __global__ void __launch_bounds__(kThreads)
 conv_bn_bwd_wflip_kernel(const float* __restrict__ w, float* __restrict__ wt, int N, int K,
                          int np) {
-  wflip<TAPS>(w, wt, N, K, np);
-}
-
-template <int TAPS>
-__global__ void __launch_bounds__(kThreads)
-conv_bn_bf16_bwd_wflip_kernel(const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ wt,
-                              int N, int K, int np) {
   wflip<TAPS>(w, wt, N, K, np);
 }
 
@@ -203,27 +96,19 @@ conv_bn_stash_bwd_wflip_kernel(const float* __restrict__ w, float* __restrict__ 
   wflip<TAPS>(w, wt, N, K, np);
 }
 
-template <int TAPS>
-__global__ void __launch_bounds__(kThreads)
-conv_bn_stash_bf16_bwd_wflip_kernel(const __nv_bfloat16* __restrict__ w,
-                                    __nv_bfloat16* __restrict__ wt, int N, int K, int np) {
-  wflip<TAPS>(w, wt, N, K, np);
-}
-
 // ---- dgrad: the forward's implicit GEMM over (wt, dce), then the prologue's
 // backward. The input-channel blocks of one position tile run one after
-// another, so the tile's dce is read from device memory once. T: the
-// storage (bf16: the products in bf16, the ReLU mask from the bf16 prologue,
-// dx rounded as it is stored). STASH: the ReLU mask from xn (B, K, H', W').
-template <int TAPS, bool VEC, bool PRO, typename T, bool STASH = false>
-__device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __restrict__ wt,
-                                           const T* __restrict__ scale,
-                                           const T* __restrict__ shift,
-                                           const T* __restrict__ dce, T* __restrict__ dx,
+// another, so the tile's dce is read from device memory once. STASH: the
+// ReLU mask from xn (B, K, H', W').
+template <int TAPS, bool VEC, bool PRO, bool STASH = false>
+__device__ __forceinline__ void dgrad_body(const float* __restrict__ x,
+                                           const float* __restrict__ wt,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ shift,
+                                           const float* __restrict__ dce, float* __restrict__ dx,
                                            float* __restrict__ part, const Geo& geo, int np,
-                                           bool relu, const T* __restrict__ xn = nullptr) {
+                                           bool relu, const float* __restrict__ xn = nullptr) {
   using C = Cfg<TAPS>;
-  constexpr bool kB16 = IsBf16<T>::value;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -231,10 +116,10 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
   const int kblocks = ceil_div(geo.K, C::BM);
   const int pt = blockIdx.x / kblocks, k0 = (blockIdx.x - pt * kblocks) * C::BM;
   const int K = geo.K;
-  const TcArgs<T> args{wt, dce, nullptr, nullptr, K, np, geo.N, geo.B,
-                       geo.Ho, geo.Wo, geo.Ho, geo.Wo, 1, false};
+  const TcArgs args{wt, dce, nullptr, nullptr, K, np, geo.N, geo.B,
+                    geo.Ho, geo.Wo, geo.Ho, geo.Wo, 1, false};
   float acc[C::MT][C::NT][4] = {};
-  tc_mainloop<TAPS, VEC, false, kB16, T>(args, pt, k0, smem, acc);
+  tc_mainloop<TAPS, VEC, false>(args, pt, k0, smem, acc);
 
   // ---- epilogue: each of the thread's columns at its x offset (channel 0)
   const size_t HW = static_cast<size_t>(geo.H) * geo.W, HWo = static_cast<size_t>(geo.Ho) * geo.Wo;
@@ -279,9 +164,7 @@ __device__ __forceinline__ void dgrad_body(const T* __restrict__ x, const T* __r
       // dx of one position from da and x (and xn): the prologue's backward
       auto grad = [&](float da, float xv, float nv) {
         if (!PRO) return da;
-        const float pre = STASH ? nv
-                                : (kB16 ? bf16::prologue(xv, sc, sf, false)
-                                        : prologue(xv, sc, sf, false));
+        const float pre = STASH ? nv : prologue(xv, sc, sf, false);
         if (relu && !(pre > 0.f)) da = 0.f;
         sx[mi][h] = fmaf(da, xv, sx[mi][h]);
         sh[mi][h] += da;
@@ -335,18 +218,6 @@ conv_bn_bwd_dgrad_kernel(const float* __restrict__ x, const float* __restrict__ 
   dgrad_body<TAPS, VEC, PRO>(x, wt, scale, shift, dce, dx, part, geo, np, relu);
 }
 
-template <int TAPS, bool VEC, bool PRO>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_bf16_bwd_dgrad_kernel(const __nv_bfloat16* __restrict__ x,
-                              const __nv_bfloat16* __restrict__ wt,
-                              const __nv_bfloat16* __restrict__ scale,
-                              const __nv_bfloat16* __restrict__ shift,
-                              const __nv_bfloat16* __restrict__ dce,
-                              __nv_bfloat16* __restrict__ dx, float* __restrict__ part, Geo geo,
-                              int np, bool relu) {
-  dgrad_body<TAPS, VEC, PRO>(x, wt, scale, shift, dce, dx, part, geo, np, relu);
-}
-
 // The stash forms' dgrad (always with the prologue): the mask from xn.
 template <int TAPS, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -355,21 +226,7 @@ conv_bn_stash_bwd_dgrad_kernel(const float* __restrict__ x, const float* __restr
                                const float* __restrict__ dce, float* __restrict__ dx,
                                float* __restrict__ part, Geo geo, int np, bool relu,
                                const float* __restrict__ xn) {
-  dgrad_body<TAPS, VEC, true, float, true>(x, wt, scale, shift, dce, dx, part, geo, np, relu, xn);
-}
-
-template <int TAPS, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_stash_bf16_bwd_dgrad_kernel(const __nv_bfloat16* __restrict__ x,
-                                    const __nv_bfloat16* __restrict__ wt,
-                                    const __nv_bfloat16* __restrict__ scale,
-                                    const __nv_bfloat16* __restrict__ shift,
-                                    const __nv_bfloat16* __restrict__ dce,
-                                    __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
-                                    Geo geo, int np, bool relu,
-                                    const __nv_bfloat16* __restrict__ xn) {
-  dgrad_body<TAPS, VEC, true, __nv_bfloat16, true>(x, wt, scale, shift, dce, dx, part, geo, np,
-                                                   relu, xn);
+  dgrad_body<TAPS, VEC, true, true>(x, wt, scale, shift, dce, dx, part, geo, np, relu, xn);
 }
 
 // ---- wgrad, 1x1: a block owns 128 output (n) by 64 input (k) channels and
@@ -389,11 +246,10 @@ constexpr int kW1Smem = kW1Stages * kW1Stage * 4;  // 92 160 bytes: two blocks a
 // positions q0 .. q0 + 31 of the flattened B·H'W' axis, sampled with stride
 // from the grid; 0 past the channels or the positions. VEC: stride 1 and
 // H'W' % 4 == 0, so 4 consecutive positions are one 16-byte copy of one
-// image; otherwise (7 x 7, x at stride 2) 4-byte copies. bf16 storage:
-// every load first (8 bytes for 4 positions, else 2), then the widened stores.
-template <int ROWS, bool VEC, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int c0, int C,
-                                           int H, int W, int stride, int q0, const Geo& g) {
+// image; otherwise (7 x 7, x at stride 2) 4-byte copies.
+template <int ROWS, bool VEC>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int c0,
+                                           int C, int H, int W, int stride, int q0, const Geo& g) {
   constexpr int kPerRow = VEC ? kW1P / 4 : kW1P;
   constexpr int kStep = kThreads / kPerRow;
   const int col = (threadIdx.x % kPerRow) * (VEC ? 4 : 1), r0 = threadIdx.x / kPerRow;
@@ -406,43 +262,25 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src
     const int oy = p / g.Wo, ox = p - oy * g.Wo;
     o = static_cast<size_t>(b) * C * HW + static_cast<size_t>(oy * stride) * W + ox * stride;
   }
-  if constexpr (IsBf16<T>::value) {
-    float4 v[ROWS / kStep];  // VEC: 4 positions; else one, in .x
 #pragma unroll
-    for (int i = 0; i < ROWS / kStep; ++i) {
-      const int r = r0 + i * kStep;
-      const T* from = src + o + static_cast<size_t>(c0 + r) * HW;
-      v[i] = !(valid && c0 + r < C) ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                    : (VEC ? ldg4(from) : make_float4(ldg1(from), 0.f, 0.f, 0.f));
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS / kStep; ++i) {
-      float* to = dst + (r0 + i * kStep) * kW1Row + col;
-      if (VEC) *reinterpret_cast<float4*>(to) = v[i];
-      else *to = v[i].x;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < ROWS / kStep; ++i) {
-      const int r = r0 + i * kStep;
-      const bool pr = valid && c0 + r < C;
-      const T* from = pr ? src + o + static_cast<size_t>(c0 + r) * HW : src;
-      if (VEC) cp_async16(dst + r * kW1Row + col, from, pr);
-      else cp_async4(dst + r * kW1Row + col, from, pr);
-    }
+  for (int i = 0; i < ROWS / kStep; ++i) {
+    const int r = r0 + i * kStep;
+    const bool pr = valid && c0 + r < C;
+    const float* from = pr ? src + o + static_cast<size_t>(c0 + r) * HW : src;
+    if (VEC) cp_async16(dst + r * kW1Row + col, from, pr);
+    else cp_async4(dst + r * kW1Row + col, from, pr);
   }
 }
 
 // EVEC: dce (on the output grid) in 16-byte copies, H'W' % 4 == 0; XVEC: x
-// too (stride 1). T: the storage (bf16: one bf16 product a step into a fresh
-// accumulator a stage, the prologue in bf16).
-template <bool EVEC, bool XVEC, bool PRO, typename T>
-__device__ __forceinline__ void wgrad1_body(const T* __restrict__ x, const T* __restrict__ scale,
-                                            const T* __restrict__ shift,
-                                            const T* __restrict__ dce,
+// too (stride 1).
+template <bool EVEC, bool XVEC, bool PRO>
+__device__ __forceinline__ void wgrad1_body(const float* __restrict__ x,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ shift,
+                                            const float* __restrict__ dce,
                                             float* __restrict__ dw_part, const Geo& geo,
                                             bool relu, int splits) {
-  constexpr bool kB16 = IsBf16<T>::value;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -480,59 +318,27 @@ __device__ __forceinline__ void wgrad1_body(const T* __restrict__ x, const T* __
     cp_async_commit();
     const float* es = smem + (it % kW1Stages) * kW1Stage;
     const float* xs = es + kW1N * kW1Row;
-    if constexpr (kB16) {
-      // positions kk + 2t, kk + 2t + 1 are the step's k = 2t, 2t + 1 (bf16_mma.cuh)
-      float d[2][4][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < kW1P; kk += 8) {
-        uint32_t b[4];
+    for (int kk = 0; kk < kW1P; kk += 8) {
+      // positions kk + 2t, kk + 2t + 1 are the step's k = t, t + 4 (tf32x3.cuh)
+      uint32_t b_hi[4][2], b_lo[4][2];
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              xs + (wn * 32 + ni * 8 + g) * kW1Row + kk + 2 * t);
-          b[ni] = PRO ? bf16::pack(bf16::prologue(v.x, sc[ni], sf[ni], relu),
-                                   bf16::prologue(v.y, sc[ni], sf[ni], relu))
-                      : bf16::pack(v.x, v.y);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float* ar = es + (wm * 32 + mi * 16 + g) * kW1Row + kk + 2 * t;
-          const float2 lo = *reinterpret_cast<const float2*>(ar);
-          const float2 hi = *reinterpret_cast<const float2*>(ar + 8 * kW1Row);
-          const uint32_t a[2] = {bf16::pack(lo.x, lo.y), bf16::pack(hi.x, hi.y)};
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) bf16::mma(d[mi][ni], a, b[ni]);
-        }
+      for (int ni = 0; ni < 4; ++ni) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(xs + (wn * 32 + ni * 8 + g) * kW1Row + kk + 2 * t);
+        const float v0 = PRO ? prologue(v.x, sc[ni], sf[ni], relu) : v.x;
+        const float v1 = PRO ? prologue(v.y, sc[ni], sf[ni], relu) : v.y;
+        split(v0, b_hi[ni][0], b_lo[ni][0]);
+        split(v1, b_hi[ni][1], b_lo[ni][1]);
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* ar = es + (wm * 32 + mi * 16 + g) * kW1Row + kk + 2 * t;
+        uint32_t a_hi[4], a_lo[4];
+        split2(ar, a_hi[0], a_lo[0], a_hi[2], a_lo[2]);
+        split2(ar + 8 * kW1Row, a_hi[1], a_lo[1], a_hi[3], a_lo[3]);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mi][ni][i] += d[mi][ni][i];
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kW1P; kk += 8) {
-        // positions kk + 2t, kk + 2t + 1 are the step's k = t, t + 4 (tf32x3.cuh)
-        uint32_t b_hi[4][2], b_lo[4][2];
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const float2 v =
-              *reinterpret_cast<const float2*>(xs + (wn * 32 + ni * 8 + g) * kW1Row + kk + 2 * t);
-          const float v0 = PRO ? prologue(v.x, sc[ni], sf[ni], relu) : v.x;
-          const float v1 = PRO ? prologue(v.y, sc[ni], sf[ni], relu) : v.y;
-          split(v0, b_hi[ni][0], b_lo[ni][0]);
-          split(v1, b_hi[ni][1], b_lo[ni][1]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float* ar = es + (wm * 32 + mi * 16 + g) * kW1Row + kk + 2 * t;
-          uint32_t a_hi[4], a_lo[4];
-          split2(ar, a_hi[0], a_lo[0], a_hi[2], a_lo[2]);
-          split2(ar + 8 * kW1Row, a_hi[1], a_lo[1], a_hi[3], a_lo[3]);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma3(acc[mi][ni], a_hi, a_lo, b_hi[ni], b_lo[ni]);
-        }
+        for (int ni = 0; ni < 4; ++ni) mma3(acc[mi][ni], a_hi, a_lo, b_hi[ni], b_lo[ni]);
       }
     }
   }
@@ -563,32 +369,13 @@ conv_bn_bwd_wgrad1_kernel(const float* __restrict__ x, const float* __restrict__
   wgrad1_body<EVEC, XVEC, PRO>(x, scale, shift, dce, dw_part, geo, relu, splits);
 }
 
-template <bool EVEC, bool XVEC, bool PRO>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_bf16_bwd_wgrad1_kernel(const __nv_bfloat16* __restrict__ x,
-                               const __nv_bfloat16* __restrict__ scale,
-                               const __nv_bfloat16* __restrict__ shift,
-                               const __nv_bfloat16* __restrict__ dce, float* __restrict__ dw_part,
-                               Geo geo, bool relu, int splits) {
-  wgrad1_body<EVEC, XVEC, PRO>(x, scale, shift, dce, dw_part, geo, relu, splits);
-}
-
 // The stash forms' 1x1 wgrad: the bare-input path on xn, geo its grid (H, W
 // = H', W', stride 1), so xn takes dce's copies (EVEC both).
 template <bool EVEC>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_bn_stash_bwd_wgrad1_kernel(const float* __restrict__ xn, const float* __restrict__ dce,
                                 float* __restrict__ dw_part, Geo geo, int splits) {
-  wgrad1_body<EVEC, EVEC, false, float>(xn, nullptr, nullptr, dce, dw_part, geo, false, splits);
-}
-
-template <bool EVEC>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_bn_stash_bf16_bwd_wgrad1_kernel(const __nv_bfloat16* __restrict__ xn,
-                                     const __nv_bfloat16* __restrict__ dce,
-                                     float* __restrict__ dw_part, Geo geo, int splits) {
-  wgrad1_body<EVEC, EVEC, false, __nv_bfloat16>(xn, nullptr, nullptr, dce, dw_part, geo, false,
-                                                splits);
+  wgrad1_body<EVEC, EVEC, false>(xn, nullptr, nullptr, dce, dw_part, geo, false, splits);
 }
 
 // ---- wgrad, 3x3: a block owns 64 output (n) by 32 input (k) channels and
@@ -614,16 +401,14 @@ inline int wgrad3_tile_h(int Ho) { return Ho % kTileHW != 0 && Ho % 7 == 0 ? 7 :
 // One block an SM, with up to 255 registers a thread: under two blocks'
 // 128 the 72 accumulators spill, and the kernel ran 13-14 % slower at
 // ResNet-50's 3x3 sites on an H100 (PERF.md §6). VEC: W' % 4 == 0, so a
-// pixel row of the tile is two 16-byte copies. T: the storage (bf16: the
-// chunk's loads first, then the widened stores; one bf16 product a tap and
-// step into a fresh accumulator a stage; the prologue in bf16).
-template <int TH, bool VEC, bool PRO, typename T>
-__device__ __forceinline__ void wgrad3_body(const T* __restrict__ x, const T* __restrict__ scale,
-                                            const T* __restrict__ shift,
-                                            const T* __restrict__ dce,
+// pixel row of the tile is two 16-byte copies.
+template <int TH, bool VEC, bool PRO>
+__device__ __forceinline__ void wgrad3_body(const float* __restrict__ x,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ shift,
+                                            const float* __restrict__ dce,
                                             float* __restrict__ dw_part, const Geo& geo,
                                             bool relu, int splits) {
-  constexpr bool kB16 = IsBf16<T>::value;
   constexpr int kHaloN = (TH + 2) * kHaloW;                     // bordered pixels
   constexpr int kCopies = (kW3K * kHaloN + kThreads - 1) / kThreads;  // x copies a thread
   constexpr int kSegs = VEC ? 2 : kTileHW;                      // dce copies a pixel row
@@ -650,48 +435,6 @@ __device__ __forceinline__ void wgrad3_body(const T* __restrict__ x, const T* __
     float* xs = es + kW3N * kW3ERow;
     int b, oy0, ox0;
     corner(ch, &b, &oy0, &ox0);
-    if constexpr (kB16) {
-      constexpr int kE = (kECopies + kThreads - 1) / kThreads;
-      float4 ev[kE];  // VEC: 4 pixels; else one, in .x
-      float xv[kCopies];
-#pragma unroll
-      for (int i = 0; i < kE; ++i) {
-        const int e = tid + i * kThreads;
-        const int r = e / (TH * kSegs), seg = e - r * (TH * kSegs), n = n0 + r;
-        const int py = seg / kSegs, px = (seg - py * kSegs) * (VEC ? 4 : 1);
-        const bool pr = e < kECopies && n < N && oy0 + py < H && ox0 + px < W;
-        const T* from = dce + (static_cast<size_t>(b) * N + n) * HW + (oy0 + py) * W + ox0 + px;
-        ev[i] = !pr ? make_float4(0.f, 0.f, 0.f, 0.f)
-                    : (VEC ? ldg4(from) : make_float4(ldg1(from), 0.f, 0.f, 0.f));
-      }
-#pragma unroll
-      for (int i = 0; i < kCopies; ++i) {
-        const int e = tid + i * kThreads;
-        const int kl = e / kHaloN, hp = e - kl * kHaloN;
-        const int iy = oy0 - 1 + hp / kHaloW, ix = ox0 - 1 + hp % kHaloW;
-        const bool pr = e < kW3K * kHaloN && k0 + kl < K && iy >= 0 && iy < H && ix >= 0 &&
-                        ix < W;
-        xv[i] = pr ? ldg1(x + (static_cast<size_t>(b) * K + k0 + kl) * HW + iy * W + ix) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kE; ++i) {
-        const int e = tid + i * kThreads;
-        if (e >= kECopies) break;
-        const int r = e / (TH * kSegs), seg = e - r * (TH * kSegs);
-        const int py = seg / kSegs, px = (seg - py * kSegs) * (VEC ? 4 : 1);
-        float* to = es + r * kW3ERow + py * kTileHW + px;
-        if (VEC) *reinterpret_cast<float4*>(to) = ev[i];
-        else *to = ev[i].x;
-      }
-#pragma unroll
-      for (int i = 0; i < kCopies; ++i) {
-        const int e = tid + i * kThreads;
-        if (e >= kW3K * kHaloN) break;
-        const int kl = e / kHaloN, hp = e - kl * kHaloN;
-        xs[kl * kW3XRow + hp] = xv[i];
-      }
-      return;
-    }
 #pragma unroll
     for (int i = 0; i < (kECopies + kThreads - 1) / kThreads; ++i) {
       const int e = tid + i * kThreads;
@@ -699,7 +442,7 @@ __device__ __forceinline__ void wgrad3_body(const T* __restrict__ x, const T* __
       const int r = e / (TH * kSegs), seg = e - r * (TH * kSegs), n = n0 + r;
       const int py = seg / kSegs, px = (seg - py * kSegs) * (VEC ? 4 : 1);
       const bool pr = n < N && oy0 + py < H && ox0 + px < W;
-      const T* from =
+      const float* from =
           pr ? dce + (static_cast<size_t>(b) * N + n) * HW + (oy0 + py) * W + ox0 + px : dce;
       float* to = es + r * kW3ERow + py * kTileHW + px;
       if (VEC) cp_async16(to, from, pr);
@@ -712,7 +455,7 @@ __device__ __forceinline__ void wgrad3_body(const T* __restrict__ x, const T* __
       const int kl = e / kHaloN, hp = e - kl * kHaloN;
       const int iy = oy0 - 1 + hp / kHaloW, ix = ox0 - 1 + hp % kHaloW;
       const bool pr = k0 + kl < K && iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const T* from =
+      const float* from =
           pr ? x + (static_cast<size_t>(b) * K + k0 + kl) * HW + iy * W + ix : x;
       cp_async4(xs + kl * kW3XRow + hp, from, pr);
     }
@@ -731,8 +474,7 @@ __device__ __forceinline__ void wgrad3_body(const T* __restrict__ x, const T* __
       const int iy = oy0 - 1 + hp / kHaloW, ix = ox0 - 1 + hp % kHaloW;
       float* v = xs + kl * kW3XRow + hp;
       const bool in = k < K && iy >= 0 && iy < H && ix >= 0 && ix < W;
-      if (kB16) *v = in ? bf16::prologue(*v, ldg1(scale + k), ldg1(shift + k), relu) : 0.f;
-      else *v = in ? prologue(*v, ldg1(scale + k), ldg1(shift + k), relu) : 0.f;
+      *v = in ? prologue(*v, ldg1(scale + k), ldg1(shift + k), relu) : 0.f;
     }
   };
 
@@ -751,68 +493,35 @@ __device__ __forceinline__ void wgrad3_body(const T* __restrict__ x, const T* __
     cp_async_commit();
     const float* es = smem + (it % kW3Stages) * kW3Stage;
     const float* xs = es + kW3N * kW3ERow + (wn * 8 + g) * kW3XRow + 2 * t;
-    if constexpr (kB16) {
-      // a step: pixel columns 2t, 2t + 1 of row r are its k = 2t, 2t + 1
-      float d[9][2][4] = {};
-#pragma unroll 1
-      for (int r = 0; r < TH; ++r) {
-        uint32_t a[2][2];
+    // a step: pixel columns 2t, 2t + 1 of row r are its k = t, t + 4
+    auto step = [&](int r) {
+      uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float* ar = es + (wm * 32 + mi * 16 + g) * kW3ERow + r * kTileHW + 2 * t;
-          const float2 lo = *reinterpret_cast<const float2*>(ar);
-          const float2 hi = *reinterpret_cast<const float2*>(ar + 8 * kW3ERow);
-          a[mi][0] = bf16::pack(lo.x, lo.y);
-          a[mi][1] = bf16::pack(hi.x, hi.y);
-        }
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float* br = xs + (r + dy) * kHaloW + dx;
-            const uint32_t b = bf16::pack(br[0], br[1]);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) bf16::mma(d[dy * 3 + dx][mi], a[mi], b);
-          }
-        }
+      for (int mi = 0; mi < 2; ++mi) {
+        const float* ar = es + (wm * 32 + mi * 16 + g) * kW3ERow + r * kTileHW + 2 * t;
+        split2(ar, a_hi[mi][0], a_lo[mi][0], a_hi[mi][2], a_lo[mi][2]);
+        split2(ar + 8 * kW3ERow, a_hi[mi][1], a_lo[mi][1], a_hi[mi][3], a_lo[mi][3]);
       }
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
+      for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[tap][mi][i] += d[tap][mi][i];
-    } else {
-      // a step: pixel columns 2t, 2t + 1 of row r are its k = t, t + 4
-      auto step = [&](int r) {
-        uint32_t a_hi[2][4], a_lo[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const float* ar = es + (wm * 32 + mi * 16 + g) * kW3ERow + r * kTileHW + 2 * t;
-          split2(ar, a_hi[mi][0], a_lo[mi][0], a_hi[mi][2], a_lo[mi][2]);
-          split2(ar + 8 * kW3ERow, a_hi[mi][1], a_lo[mi][1], a_hi[mi][3], a_lo[mi][3]);
-        }
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float* br = xs + (r + dy) * kHaloW + dx;
-            uint32_t b_hi[2], b_lo[2];
-            if (dx % 2 == 0) {
-              split2(br, b_hi[0], b_lo[0], b_hi[1], b_lo[1]);
-            } else {
-              split(br[0], b_hi[0], b_lo[0]);
-              split(br[1], b_hi[1], b_lo[1]);
-            }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-              mma3(acc[dy * 3 + dx][mi], a_hi[mi], a_lo[mi], b_hi, b_lo);
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* br = xs + (r + dy) * kHaloW + dx;
+          uint32_t b_hi[2], b_lo[2];
+          if (dx % 2 == 0) {
+            split2(br, b_hi[0], b_lo[0], b_hi[1], b_lo[1]);
+          } else {
+            split(br[0], b_hi[0], b_lo[0]);
+            split(br[1], b_hi[1], b_lo[1]);
           }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma3(acc[dy * 3 + dx][mi], a_hi[mi], a_lo[mi], b_hi, b_lo);
         }
-      };
+      }
+    };
 #pragma unroll 1
-      for (int r = 0; r < TH; ++r) step(r);
-    }
+    for (int r = 0; r < TH; ++r) step(r);
   }
   cp_async_wait<0>();
   float* out = dw_part + static_cast<size_t>(blockIdx.z) * N * K * 9;
@@ -840,32 +549,13 @@ conv_bn_bwd_wgrad3_kernel(const float* __restrict__ x, const float* __restrict__
   wgrad3_body<TH, VEC, PRO>(x, scale, shift, dce, dw_part, geo, relu, splits);
 }
 
-template <int TH, bool VEC, bool PRO>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_bn_bf16_bwd_wgrad3_kernel(const __nv_bfloat16* __restrict__ x,
-                               const __nv_bfloat16* __restrict__ scale,
-                               const __nv_bfloat16* __restrict__ shift,
-                               const __nv_bfloat16* __restrict__ dce, float* __restrict__ dw_part,
-                               Geo geo, bool relu, int splits) {
-  wgrad3_body<TH, VEC, PRO>(x, scale, shift, dce, dw_part, geo, relu, splits);
-}
-
 // The stash forms' 3x3 wgrad: the bare-input path on xn (x's grid; the
 // zero-filled border is the padding of the normalised input).
 template <int TH, bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_bn_stash_bwd_wgrad3_kernel(const float* __restrict__ xn, const float* __restrict__ dce,
                                 float* __restrict__ dw_part, Geo geo, int splits) {
-  wgrad3_body<TH, VEC, false, float>(xn, nullptr, nullptr, dce, dw_part, geo, false, splits);
-}
-
-template <int TH, bool VEC>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_bn_stash_bf16_bwd_wgrad3_kernel(const __nv_bfloat16* __restrict__ xn,
-                                     const __nv_bfloat16* __restrict__ dce,
-                                     float* __restrict__ dw_part, Geo geo, int splits) {
-  wgrad3_body<TH, VEC, false, __nv_bfloat16>(xn, nullptr, nullptr, dce, dw_part, geo, false,
-                                             splits);
+  wgrad3_body<TH, VEC, false>(xn, nullptr, nullptr, dce, dw_part, geo, false, splits);
 }
 
 // The second pass: dw (splits rows) and (dscale, dshift) (parts rows).
@@ -874,69 +564,38 @@ __global__ void conv_bn_bwd_partials_sum(const float* __restrict__ part,
   mxt::sum_rows(part, out, P, C);
 }
 
-// The bf16 form's: dw rounded to bf16 (dscale, dshift stay f32).
-template <typename OutT>
-__global__ void conv_bn_bf16_bwd_partials_sum(const float* __restrict__ part,
-                                              OutT* __restrict__ out, int P, int C) {
-  mxt::sum_rows(part, out, P, C);
-}
-
-// The stash forms'.
-template <typename OutT>
+// The stash form's.
 __global__ void conv_bn_stash_bwd_partials_sum(const float* __restrict__ part,
-                                               OutT* __restrict__ out, int P, int C) {
+                                               float* __restrict__ out, int P, int C) {
   mxt::sum_rows(part, out, P, C);
 }
 
-template <typename OutT>
-__global__ void conv_bn_stash_bf16_bwd_partials_sum(const float* __restrict__ part,
-                                                    OutT* __restrict__ out, int P, int C) {
-  mxt::sum_rows(part, out, P, C);
-}
-
-// The fold, wflip and partial-sum kernels of one form: storage T, recompute
-// or STASH, each form's under names of its own.
-template <typename T, bool STASH>
+// The fold, wflip and partial-sum kernels of one form: recompute or STASH,
+// each form's under names of its own.
+template <bool STASH>
 struct Form {
   template <bool VEC>
   static auto fold() {
-    if constexpr (IsBf16<T>::value) {
-      if constexpr (STASH) return conv_bn_stash_bf16_bwd_fold_kernel<VEC>;
-      else return conv_bn_bf16_bwd_fold_kernel<VEC>;
-    } else {
-      if constexpr (STASH) return conv_bn_stash_bwd_fold_kernel<VEC>;
-      else return conv_bn_bwd_fold_kernel<VEC>;
-    }
+    if constexpr (STASH) return conv_bn_stash_bwd_fold_kernel<VEC>;
+    else return conv_bn_bwd_fold_kernel<VEC>;
   }
   template <int TAPS>
   static auto wflip() {
-    if constexpr (IsBf16<T>::value) {
-      if constexpr (STASH) return conv_bn_stash_bf16_bwd_wflip_kernel<TAPS>;
-      else return conv_bn_bf16_bwd_wflip_kernel<TAPS>;
-    } else {
-      if constexpr (STASH) return conv_bn_stash_bwd_wflip_kernel<TAPS>;
-      else return conv_bn_bwd_wflip_kernel<TAPS>;
-    }
+    if constexpr (STASH) return conv_bn_stash_bwd_wflip_kernel<TAPS>;
+    else return conv_bn_bwd_wflip_kernel<TAPS>;
   }
-  // the sums into OutT: dw's storage T, or f32 (dscale, dshift)
-  template <typename OutT>
   static auto sums() {
-    if constexpr (IsBf16<T>::value) {
-      if constexpr (STASH) return conv_bn_stash_bf16_bwd_partials_sum<OutT>;
-      else return conv_bn_bf16_bwd_partials_sum<OutT>;
-    } else {
-      if constexpr (STASH) return conv_bn_stash_bwd_partials_sum<OutT>;
-      else return conv_bn_bwd_partials_sum;
-    }
+    if constexpr (STASH) return conv_bn_stash_bwd_partials_sum;
+    else return conv_bn_bwd_partials_sum;
   }
 };
 
-template <int TAPS, bool VEC, bool PRO, typename T>
-cudaError_t dgrad(cudaStream_t st, const Geo& g, int np, const T* x, const T* wt, const T* scale,
-                  const T* shift, const T* dce, T* dx, float* part, bool relu) {
+template <int TAPS, bool VEC, bool PRO>
+cudaError_t dgrad(cudaStream_t st, const Geo& g, int np, const float* x, const float* wt,
+                  const float* scale, const float* shift, const float* dce, float* dx,
+                  float* part, bool relu) {
   auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_bf16_bwd_dgrad_kernel<TAPS, VEC, PRO>;
-    else return conv_bn_bwd_dgrad_kernel<TAPS, VEC, PRO>;
+    return conv_bn_bwd_dgrad_kernel<TAPS, VEC, PRO>;
   }();
   static bool raised = false;
   cudaError_t err = mxt::raise_smem(kernel, Cfg<TAPS>::SMEM, &raised);
@@ -947,49 +606,47 @@ cudaError_t dgrad(cudaStream_t st, const Geo& g, int np, const T* x, const T* wt
   return cudaGetLastError();
 }
 
-template <typename Kernel, typename T>
+template <typename Kernel>
 cudaError_t wgrad(Kernel kernel, bool* raised, int smem, dim3 grid, cudaStream_t st,
-                  const Geo& g, int splits, const T* x, const T* scale, const T* shift,
-                  const T* dce, float* dw_part, bool relu) {
+                  const Geo& g, int splits, const float* x, const float* scale, const float* shift,
+                  const float* dce, float* dw_part, bool relu) {
   cudaError_t err = mxt::raise_smem(kernel, smem, raised);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, st>>>(x, scale, shift, dce, dw_part, g, relu, splits);
   return cudaGetLastError();
 }
 
-template <bool EVEC, bool XVEC, bool PRO, typename T>
-cudaError_t wgrad1(cudaStream_t st, const Geo& g, int splits, const T* x, const T* scale,
-                   const T* shift, const T* dce, float* dw_part, bool relu) {
+template <bool EVEC, bool XVEC, bool PRO>
+cudaError_t wgrad1(cudaStream_t st, const Geo& g, int splits, const float* x, const float* scale,
+                   const float* shift, const float* dce, float* dw_part, bool relu) {
   static bool raised = false;
   const dim3 grid(ceil_div(g.N, kW1N), ceil_div(g.K, kW1K), splits);
   auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_bf16_bwd_wgrad1_kernel<EVEC, XVEC, PRO>;
-    else return conv_bn_bwd_wgrad1_kernel<EVEC, XVEC, PRO>;
+    return conv_bn_bwd_wgrad1_kernel<EVEC, XVEC, PRO>;
   }();
   return wgrad(kernel, &raised, kW1Smem, grid, st, g, splits, x, scale, shift, dce, dw_part,
                relu);
 }
 
-template <int TH, bool VEC, bool PRO, typename T>
-cudaError_t wgrad3(cudaStream_t st, const Geo& g, int splits, const T* x, const T* scale,
-                   const T* shift, const T* dce, float* dw_part, bool relu) {
+template <int TH, bool VEC, bool PRO>
+cudaError_t wgrad3(cudaStream_t st, const Geo& g, int splits, const float* x, const float* scale,
+                   const float* shift, const float* dce, float* dw_part, bool relu) {
   static bool raised = false;
   const dim3 grid(ceil_div(g.N, kW3N), ceil_div(g.K, kW3K), splits);
   auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_bf16_bwd_wgrad3_kernel<TH, VEC, PRO>;
-    else return conv_bn_bwd_wgrad3_kernel<TH, VEC, PRO>;
+    return conv_bn_bwd_wgrad3_kernel<TH, VEC, PRO>;
   }();
   return wgrad(kernel, &raised, kW3Smem, grid, st, g, splits, x, scale, shift, dce, dw_part,
                relu);
 }
 
-template <int TAPS, bool PRO, typename T>
-cudaError_t products(cudaStream_t st, const Geo& g, int np, int splits, const T* x, const T* wt,
-                     const T* scale, const T* shift, const T* dce, T* dx, float* dw_part,
-                     float* dss_part, bool relu) {
+template <int TAPS, bool PRO>
+cudaError_t products(cudaStream_t st, const Geo& g, int np, int splits, const float* x,
+                     const float* wt, const float* scale, const float* shift, const float* dce,
+                     float* dx, float* dw_part, float* dss_part, bool relu) {
   const int HWo = g.Ho * g.Wo;
   // 16-byte copies of dce where the output grid allows them (the dgrad),
-  // and of x too (the 1x1 wgrad); 8-byte loads of bf16 storage
+  // and of x too (the 1x1 wgrad)
   cudaError_t err;
   if constexpr (TAPS == 1) {
     err = HWo % 4 == 0
@@ -1017,13 +674,12 @@ cudaError_t products(cudaStream_t st, const Geo& g, int np, int splits, const T*
 
 // ---- the stash forms' products: the dgrad with the mask from xn, the
 // wgrad on xn with the prologue off
-template <int TAPS, bool VEC, typename T>
-cudaError_t stash_dgrad(cudaStream_t st, const Geo& g, int np, const T* x, const T* wt,
-                        const T* scale, const T* shift, const T* dce, T* dx, float* part,
-                        bool relu, const T* xn) {
+template <int TAPS, bool VEC>
+cudaError_t stash_dgrad(cudaStream_t st, const Geo& g, int np, const float* x, const float* wt,
+                        const float* scale, const float* shift, const float* dce, float* dx,
+                        float* part, bool relu, const float* xn) {
   auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_bwd_dgrad_kernel<TAPS, VEC>;
-    else return conv_bn_stash_bwd_dgrad_kernel<TAPS, VEC>;
+    return conv_bn_stash_bwd_dgrad_kernel<TAPS, VEC>;
   }();
   static bool raised = false;
   cudaError_t err = mxt::raise_smem(kernel, Cfg<TAPS>::SMEM, &raised);
@@ -1035,43 +691,43 @@ cudaError_t stash_dgrad(cudaStream_t st, const Geo& g, int np, const T* x, const
 }
 
 // gx: xn's geometry (1x1: its grid H', W' at stride 1)
-template <typename Kernel, typename T>
+template <typename Kernel>
 cudaError_t stash_wgrad(Kernel kernel, bool* raised, int smem, dim3 grid, cudaStream_t st,
-                        const Geo& gx, int splits, const T* xn, const T* dce, float* dw_part) {
+                        const Geo& gx, int splits, const float* xn, const float* dce,
+                        float* dw_part) {
   cudaError_t err = mxt::raise_smem(kernel, smem, raised);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, st>>>(xn, dce, dw_part, gx, splits);
   return cudaGetLastError();
 }
 
-template <bool EVEC, typename T>
-cudaError_t stash_wgrad1(cudaStream_t st, const Geo& gx, int splits, const T* xn, const T* dce,
-                         float* dw_part) {
+template <bool EVEC>
+cudaError_t stash_wgrad1(cudaStream_t st, const Geo& gx, int splits, const float* xn,
+                         const float* dce, float* dw_part) {
   static bool raised = false;
   const dim3 grid(ceil_div(gx.N, kW1N), ceil_div(gx.K, kW1K), splits);
   auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_bwd_wgrad1_kernel<EVEC>;
-    else return conv_bn_stash_bwd_wgrad1_kernel<EVEC>;
+    return conv_bn_stash_bwd_wgrad1_kernel<EVEC>;
   }();
   return stash_wgrad(kernel, &raised, kW1Smem, grid, st, gx, splits, xn, dce, dw_part);
 }
 
-template <int TH, bool VEC, typename T>
-cudaError_t stash_wgrad3(cudaStream_t st, const Geo& gx, int splits, const T* xn, const T* dce,
-                         float* dw_part) {
+template <int TH, bool VEC>
+cudaError_t stash_wgrad3(cudaStream_t st, const Geo& gx, int splits, const float* xn,
+                         const float* dce, float* dw_part) {
   static bool raised = false;
   const dim3 grid(ceil_div(gx.N, kW3N), ceil_div(gx.K, kW3K), splits);
   auto kernel = [] {
-    if constexpr (IsBf16<T>::value) return conv_bn_stash_bf16_bwd_wgrad3_kernel<TH, VEC>;
-    else return conv_bn_stash_bwd_wgrad3_kernel<TH, VEC>;
+    return conv_bn_stash_bwd_wgrad3_kernel<TH, VEC>;
   }();
   return stash_wgrad(kernel, &raised, kW3Smem, grid, st, gx, splits, xn, dce, dw_part);
 }
 
-template <int TAPS, typename T>
-cudaError_t stash_products(cudaStream_t st, const Geo& g, int np, int splits, const T* x,
-                           const T* wt, const T* scale, const T* shift, const T* dce, T* dx,
-                           float* dw_part, float* dss_part, bool relu, const T* xn) {
+template <int TAPS>
+cudaError_t stash_products(cudaStream_t st, const Geo& g, int np, int splits, const float* x,
+                           const float* wt, const float* scale, const float* shift,
+                           const float* dce, float* dx,
+                           float* dw_part, float* dss_part, bool relu, const float* xn) {
   const int HWo = g.Ho * g.Wo;
   cudaError_t err;
   if constexpr (TAPS == 1) {
@@ -1095,17 +751,17 @@ cudaError_t stash_products(cudaStream_t st, const Geo& g, int np, int splits, co
   }
 }
 
-// The five passes on storage T; align: the bytes every tensor operand must
-// be aligned to (16 for f32, 8 for bf16). STASH: xn (B, K, H', W') is read
+// The five passes; every tensor operand must be 16-byte aligned. STASH: xn
+// (B, K, H', W') is read
 // in place of the prologue's recompute, which must be there.
-template <typename T, bool STASH>
-int conv_bn_bwd_run(const T* x, const T* w, const T* scale, const T* shift, const T* c,
-                    const T* dc, const float* ds, const float* dq, const T* xn, T* dx, T* dw,
-                    float* dw_part, float* dss, float* dss_part, T* dce, T* wt, int B, int K,
-                    int H, int W, int N, int taps, int stride, int relu, int parts, int splits,
-                    void* stream) {
-  using F = Form<T, STASH>;
-  constexpr int align = IsBf16<T>::value ? 8 : 16;
+template <bool STASH>
+int conv_bn_bwd_run(const float* x, const float* w, const float* scale, const float* shift,
+                    const float* c, const float* dc, const float* ds, const float* dq,
+                    const float* xn, float* dx, float* dw, float* dw_part, float* dss,
+                    float* dss_part, float* dce, float* wt, int B, int K, int H, int W, int N,
+                    int taps, int stride, int relu, int parts, int splits, void* stream) {
+  using F = Form<STASH>;
+  constexpr int align = 16;
   const bool pro = scale != nullptr;
   if (!valid_call(B, K, H, W, N, taps, stride) || (shift != nullptr) != pro ||
       (dss != nullptr) != pro || (dss_part != nullptr) != pro || splits < 1 || splits > 65535 ||
@@ -1150,11 +806,11 @@ int conv_bn_bwd_run(const T* x, const T* w, const T* scale, const T* shift, cons
   dim3 grid, block;
   const int C = N * K * taps;
   mxt::sum_rows_shape(splits, C, &grid, &block);
-  const auto dw_sum = F::template sums<T>();
+  const auto dw_sum = F::sums();
   dw_sum<<<grid, block, 0, st>>>(dw_part, dw, splits, C);
   if (pro) {
     mxt::sum_rows_shape(parts, 2 * K, &grid, &block);
-    const auto dss_sum = F::template sums<float>();
+    const auto dss_sum = F::sums();
     dss_sum<<<grid, block, 0, st>>>(dss_part, dss, parts, 2 * K);
   }
   return static_cast<int>(cudaGetLastError());
@@ -1178,30 +834,13 @@ extern "C" int mxt_conv_bn_bwd(const float* x, const float* w, const float* scal
                                float* dw_part, float* dss, float* dss_part, float* dce, float* wt,
                                int B, int K, int H, int W, int N, int taps, int stride, int relu,
                                int parts, int splits, void* stream) {
-  return conv_bn_bwd_run<float, false>(x, w, scale, shift, c, dc, ds, dq, nullptr, dx, dw,
+  return conv_bn_bwd_run<false>(x, w, scale, shift, c, dc, ds, dq, nullptr, dx, dw,
                                        dw_part, dss, dss_part, dce, wt, B, K, H, W, N, taps,
                                        stride, relu, parts, splits, stream);
 }
 
-// The bf16 form: x, w, scale, shift, c, dc, dx, dw, dce (dres) and wt are bf16
-// (2 bytes an element; wt K · N' · taps of them), 8-byte aligned; ds, dq,
-// dw_part, dss and dss_part f32. Its other rules are mxt_conv_bn_bwd's.
-extern "C" int mxt_conv_bn_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                    const __nv_bfloat16* scale, const __nv_bfloat16* shift,
-                                    const __nv_bfloat16* c, const __nv_bfloat16* dc,
-                                    const float* ds, const float* dq, __nv_bfloat16* dx,
-                                    __nv_bfloat16* dw, float* dw_part, float* dss, float* dss_part,
-                                    __nv_bfloat16* dce, __nv_bfloat16* wt, int B, int K, int H,
-                                    int W, int N, int taps, int stride, int relu, int parts,
-                                    int splits, void* stream) {
-  return conv_bn_bwd_run<__nv_bfloat16, false>(x, w, scale, shift, c, dc, ds, dq, nullptr, dx,
-                                               dw, dw_part, dss, dss_part, dce, wt, B, K, H, W,
-                                               N, taps, stride, relu, parts, splits, stream);
-}
-
-// The stash forms: mxt_conv_bn_bwd (f32) and mxt_conv_bn_bwd_bf16 with xn
-// (B, K, H', W'), the forward's stashed prologue output in the storage of x,
-// read in place of its recompute. The prologue (scale, shift, dss,
+// The stash form: mxt_conv_bn_bwd with xn (B, K, H', W'), the forward's
+// stashed prologue output, read in place of its recompute. The prologue (scale, shift, dss,
 // dss_part) is required.
 extern "C" int mxt_conv_bn_bwd_stash(const float* x, const float* w, const float* scale,
                                      const float* shift, const float* c, const float* dc,
@@ -1210,22 +849,8 @@ extern "C" int mxt_conv_bn_bwd_stash(const float* x, const float* w, const float
                                      float* dce, float* wt, int B, int K, int H, int W, int N,
                                      int taps, int stride, int relu, int parts, int splits,
                                      void* stream) {
-  return conv_bn_bwd_run<float, true>(x, w, scale, shift, c, dc, ds, dq, xn, dx, dw, dw_part,
+  return conv_bn_bwd_run<true>(x, w, scale, shift, c, dc, ds, dq, xn, dx, dw, dw_part,
                                       dss, dss_part, dce, wt, B, K, H, W, N, taps, stride, relu,
                                       parts, splits, stream);
 }
 
-extern "C" int mxt_conv_bn_bwd_stash_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                          const __nv_bfloat16* scale,
-                                          const __nv_bfloat16* shift, const __nv_bfloat16* c,
-                                          const __nv_bfloat16* dc, const float* ds,
-                                          const float* dq, const __nv_bfloat16* xn,
-                                          __nv_bfloat16* dx, __nv_bfloat16* dw, float* dw_part,
-                                          float* dss, float* dss_part, __nv_bfloat16* dce,
-                                          __nv_bfloat16* wt, int B, int K, int H, int W, int N,
-                                          int taps, int stride, int relu, int parts, int splits,
-                                          void* stream) {
-  return conv_bn_bwd_run<__nv_bfloat16, true>(x, w, scale, shift, c, dc, ds, dq, xn, dx, dw,
-                                              dw_part, dss, dss_part, dce, wt, B, K, H, W, N,
-                                              taps, stride, relu, parts, splits, stream);
-}

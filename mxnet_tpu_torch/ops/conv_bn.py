@@ -19,12 +19,11 @@ kernels:
 
   Its stats-free form on bf16 operands (the TPU kernel computes in its
   input's dtype, :321 and :349-350, and ``MXNET_SERVE_QUANT=bf16`` feeds it
-  bf16, JAX ``fusion.py`` :1313-1336) is the same CUDA kernel with its bf16
-  switch (``mxt_conv_bn_infer_bf16``, ``csrc/bf16_mma.cuh``): one bf16
-  ``mma.sync`` a step with an f32 accumulator instead of three TF32 ones,
-  the prologue in bf16, c rounded to bf16. It reads f32 x and w and rounds
-  them as it reads them, and writes c as the f32 of its bf16 value, so the
-  serving path's casts to and from bf16 cost no pass of their own.
+  bf16, JAX ``fusion.py`` :1313-1336) is ``mxt_conv_bn_infer_bf16``
+  (``csrc/conv_bn_bf16.cu``): the prologue in bf16, exact bf16 products
+  summed in f32, c rounded to bf16. It reads f32 x and w and rounds them as
+  it stages them, and writes c as the f32 of its bf16 value, so the serving
+  path's casts to and from bf16 cost no pass of their own.
 - ``_conv_block_bwd_impl`` (:619, call :692) → ``_bwd_kernel`` (:511): the
   fused dgrad + wgrad with the statistics cotangents folded into the output
   cotangent (``dce = dc + ds + 2·c·dq``), the prologue's backward, dscale,
@@ -41,16 +40,24 @@ kernels:
 Both training kernels have a bf16 form, for ``SPMDTrainer(compute_dtype=
 'bfloat16')`` (the TPU kernels compute in their input's dtype, and JAX's
 bf16 step feeds them bf16): ``mxt_conv_bn_fwd_bf16`` and
-``mxt_conv_bn_bwd_bf16``, the same kernels on bf16 storage (x, w, scale,
-shift, res, c and dc, dx, dw, dres 2 bytes an element; the statistics,
-dscale and dshift f32) with one bf16 ``mma.sync`` a step into an f32
-accumulator, at the TPU kernels' rounding points: the prologue in bf16 with
-two roundings, the residual added to the f32 c, Σc and Σc² from the f32 c
+``mxt_conv_bn_bwd_bf16`` (``csrc/conv_bn_bf16.cu``, ``conv_bn_bf16_bwd.cu``)
+on bf16 storage (x, w, scale, shift, res, c and dc, dx, dw, dres 2 bytes an
+element; the statistics, dscale and dshift f32), at the TPU kernels'
+rounding points: the prologue in bf16 with two roundings, the residual
+added to the f32 c, Σc and Σc² from the f32 c
 before it is rounded (:284-291); dce folded in f32 and rounded once (dres
 and the products' operand, :556-564), the ReLU mask from the bf16 prologue,
 dx = da·scale rounded, dscale, dshift and dw summed in f32 and dw rounded
 (:715). scale and shift arrive in f32 from the BatchNorm fold and are cast
 to bf16, as JAX casts them (:349-350, :684-685).
+
+The bf16 forms (serving, training, stash) run their own kernels, designed
+for Hopper (``csrc/conv_bn_bf16.cuh``): bf16 staged as bf16 in shared
+memory, the products on ``wgmma`` (a fresh f32 accumulator a stage), on
+tilings of their own (``BF16_TILE_P`` positions by up to 128 channels for
+1x1, a ``_bf16_tile_h`` x 8 pixel tile that fits ResNet's 56, 28, 14 and 7
+grids for 3x3), so their partial rows and wgrad splits differ from the
+f32 kernels': the helpers below take the dtype.
 
 Each block of the forward and of the dgrad writes one row of per-channel
 partial sums (Σc and Σc², or dscale and dshift) per position tile
@@ -107,6 +114,9 @@ __all__ = ["strided_dims", "supported", "conv_block", "conv_block_plain", "conv_
 # a 1x1 kernel, an 8 x 8 pixel tile of one image for a 3x3 kernel; one
 # partial-statistics row each
 FWD_TILE_P, FWD_TILE_HW = 128, 8
+# the bf16 forms' (csrc/conv_bn_bf16.cuh): 64 flattened positions a block for
+# 1x1, a _bf16_tile_h x 8 pixel tile for 3x3
+BF16_TILE_P, BF16_TILE_W = 64, 8
 # the wgrad's (csrc/conv_bn_bwd.cu): (output, input) channels a block, the
 # positions of a stage (1x1: 32 of the flattened axis; 3x3: one pixel tile,
 # _wgrad_tile_h rows by 8), the blocks an SM holds, and the fewest stages a split takes. The
@@ -114,6 +124,11 @@ FWD_TILE_P, FWD_TILE_HW = 128, 8
 WGRAD_TILE = {1: (128, 64), 9: (64, 32)}
 WGRAD_BLOCKS_PER_SM = {1: 2, 9: 1}
 WGRAD_STEP_P, WGRAD_MIN_STAGES, SMS = 32, 4, 132
+# the bf16 wgrad's (csrc/conv_bn_bf16_bwd.cu): 1x1, 128 output by 128 input
+# channels (64 where K <= 64) and 64 positions a stage; 3x3, 64 by 64 and
+# one _wgrad_tile_h x 8 pixel tile a stage; one block an SM
+WGRAD_TILE_BF16 = {1: (128, 128), 9: (64, 64)}
+WGRAD_STEP_P_BF16 = 64
 
 launches = 0
 infer_launches = 0
@@ -181,40 +196,72 @@ def _geometry(what, x, w, stride):
     return stride, geo
 
 
-def _fwd_parts(B, Ho, Wo, taps):
+def _bf16(dtype):
+    return dtype == torch.bfloat16
+
+
+def _bf16_tile_h(Ho):
+    """The bf16 forms' 3x3 pixel-tile height (``tile_h`` of
+    ``csrc/conv_bn_bf16.cuh``): 14 where the output grid's height is a
+    multiple of 14, 7 where of 7, else 8."""
+    return 14 if Ho % 14 == 0 else (7 if Ho % 7 == 0 else 8)
+
+
+def _fwd_parts(B, Ho, Wo, taps, dtype=torch.float32):
     """The position tiles of the forward and of the dgrad, each writing one
-    row of partial sums (Σc, Σc² or dscale, dshift): the flattened B·H'W'
-    positions in tiles of 128 for 1x1, 8 x 8 pixel tiles of each image for
-    3x3 (``tc_parts`` of ``csrc/conv_bn.cuh``)."""
+    row of partial sums (Σc, Σc² or dscale, dshift). float32: the flattened
+    B·H'W' positions in tiles of 128 for 1x1, 8 x 8 pixel tiles of each
+    image for 3x3 (``tc_parts`` of ``csrc/conv_bn.cuh``); bfloat16: tiles of
+    64 positions, ``_bf16_tile_h`` x 8 pixel tiles (``parts`` of
+    ``csrc/conv_bn_bf16.cuh``)."""
+    if _bf16(dtype):
+        if taps == 1:
+            return -(-B * Ho * Wo // BF16_TILE_P)
+        return B * -(-Ho // _bf16_tile_h(Ho)) * -(-Wo // BF16_TILE_W)
     if taps == 1:
         return -(-B * Ho * Wo // FWD_TILE_P)
     return B * -(-Ho // FWD_TILE_HW) * -(-Wo // FWD_TILE_HW)
 
 
-def _wgrad_tile_h(Ho):
-    """The 3x3 wgrad's pixel-tile height: 8, or 7 where the output grid's
-    height is a multiple of 7 and not of 8 (28, 14 and 7 rows fill whole
-    tiles; ``wgrad3_tile_h`` of ``csrc/conv_bn_bwd.cu``)."""
+def _wgrad_tile_h(Ho, dtype=torch.float32):
+    """The 3x3 wgrad's pixel-tile height. float32: 8, or 7 where the output
+    grid's height is a multiple of 7 and not of 8 (28, 14 and 7 rows fill
+    whole tiles; ``wgrad3_tile_h`` of ``csrc/conv_bn_bwd.cu``); bfloat16: 14
+    where the height is a multiple of 14, else 8 (a product step takes two
+    pixel rows; ``csrc/conv_bn_bf16_bwd.cu``)."""
+    if _bf16(dtype):
+        return 14 if Ho % 14 == 0 else FWD_TILE_HW
     return 7 if Ho % FWD_TILE_HW and Ho % 7 == 0 else FWD_TILE_HW
 
 
-def _wgrad_stages(B, Ho, Wo, taps):
+def _wgrad_stages(B, Ho, Wo, taps, dtype=torch.float32):
     """The wgrad's stages along its B·H'W' reduction: 32 flattened positions
-    each for 1x1, one pixel tile (``_wgrad_tile_h`` x 8) each for 3x3."""
+    each for 1x1 (64 at bfloat16), one pixel tile (``_wgrad_tile_h`` x 8)
+    each for 3x3."""
     if taps == 1:
-        return -(-B * Ho * Wo // WGRAD_STEP_P)
-    return B * -(-Ho // _wgrad_tile_h(Ho)) * -(-Wo // FWD_TILE_HW)
+        return -(-B * Ho * Wo // (WGRAD_STEP_P_BF16 if _bf16(dtype) else WGRAD_STEP_P))
+    return B * -(-Ho // _wgrad_tile_h(Ho, dtype)) * -(-Wo // FWD_TILE_HW)
 
 
-def _wgrad_splits(B, K, N, Ho, Wo, taps):
+def _wgrad_tile(K, taps, dtype=torch.float32):
+    """The (output, input) channels of a wgrad block."""
+    if not _bf16(dtype):
+        return WGRAD_TILE[taps]
+    tn, tk = WGRAD_TILE_BF16[taps]
+    return tn, (tk if taps == 9 or K > 64 else 64)
+
+
+def _wgrad_splits(B, K, N, Ho, Wo, taps, dtype=torch.float32):
     """Blocks the wgrad kernel splits its B·H'W' reduction over, each
     writing a partial dw that a fixed-order second pass sums: as many as fit
     one wave of blocks on the card with the (n, k) tiles, with at least
-    ``WGRAD_MIN_STAGES`` stages a split."""
-    tn, tk = WGRAD_TILE[taps]
+    ``WGRAD_MIN_STAGES`` stages a split (the bf16 kernels hold one block an
+    SM)."""
+    tn, tk = _wgrad_tile(K, taps, dtype)
     tiles = -(-N // tn) * -(-K // tk)
-    stages = _wgrad_stages(B, Ho, Wo, taps)
-    return max(1, min(SMS * WGRAD_BLOCKS_PER_SM[taps] // tiles, stages // WGRAD_MIN_STAGES))
+    stages = _wgrad_stages(B, Ho, Wo, taps, dtype)
+    per_sm = 1 if _bf16(dtype) else WGRAD_BLOCKS_PER_SM[taps]
+    return max(1, min(SMS * per_sm // tiles, stages // WGRAD_MIN_STAGES))
 
 
 def _acc_dtype(t):
@@ -430,7 +477,7 @@ def _launch_fwd(what, x, w, scale, shift, res, stride, relu, stats, emit_xn=Fals
     cuda_build.check_operands(what, *[t for t in (x, w, scale, shift, res) if t is not None],
                               dtypes=(torch.bfloat16,) if bf16 else (torch.float32,))
     c = torch.empty((B, N, Ho, Wo), dtype=x.dtype, device=x.device)
-    parts = _fwd_parts(B, Ho, Wo, taps)
+    parts = _fwd_parts(B, Ho, Wo, taps, x.dtype)
     part = torch.empty((parts, 2, N), dtype=torch.float32, device=x.device) if stats else None
     sums = torch.empty((2, N), dtype=torch.float32, device=x.device) if stats else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -581,8 +628,8 @@ def conv_block_bwd(x, w, scale, shift, c, dc, ds, dq, stride=(1, 1), relu=False,
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)  # at stride 2 the kernel writes the zeros too
     dw = torch.empty_like(w)
-    parts = _fwd_parts(B, Ho, Wo, taps)
-    splits = _wgrad_splits(B, K, N, Ho, Wo, taps)
+    parts = _fwd_parts(B, Ho, Wo, taps, x.dtype)
+    splits = _wgrad_splits(B, K, N, Ho, Wo, taps, x.dtype)
     dw_part = torch.empty((splits, N * K * taps), **f32)
     pro = scale is not None
     dss_part = torch.empty((parts, 2, K), **f32) if pro else None

@@ -346,6 +346,19 @@ def _repo_module(name, rel):
     return mod
 
 
+# the edges of the bf16 kernels' tilings (csrc/conv_bn_bf16.cuh), as (B, K,
+# H, W, N, kernel, stride): K = 8 (half a 16-channel 3x3 stage, an eighth
+# of a 64-channel 1x1 one); N past a 64- and a 128-row tile; 7 x 7 (7-row
+# tiles) and 14 x 14 (14-row tiles) grids; 3x3 rows of odd, even and
+# 4-multiple widths (scalar, 4- and 8-byte loads of a tile's 8 pixels) and
+# a height no tile fits; stride 2 with odd H; 1x1 stride 1 with 16-byte
+# rows and a ragged last tile; B = 1
+BF16_EDGES = [(1, 8, 7, 7, 24, 3, 1), (2, 8, 14, 14, 72, 1, 1), (1, 24, 14, 14, 136, 3, 1),
+              (2, 16, 15, 15, 40, 1, 2), (1, 72, 9, 11, 200, 1, 2), (1, 16, 21, 13, 8, 3, 1),
+              (2, 32, 10, 6, 48, 3, 1), (1, 16, 12, 12, 130, 3, 1), (3, 16, 4, 6, 72, 1, 1),
+              (1, 64, 7, 7, 64, 1, 1), (1, 64, 28, 28, 64, 3, 1)]
+
+
 def test_conv_bn_bf16_kernel_matches_plain_at_every_admitted_shape(dev):
     """The bf16 inference forward (``compute="bfloat16"`` on float32
     operands, and on bfloat16 ones) against its plain version at every conv
@@ -377,7 +390,17 @@ def test_conv_bn_bf16_kernel_matches_plain_at_every_admitted_shape(dev):
             cmp = cb.bf16_compare(got, want, x, w.shape, scale, shift, st, pro)
             assert cmp["beyond"] == cmp["beyond_at_kinks_too"] == 0, (K, H, W, N, kernel, cmp)
             seen += 1
-    assert cb.infer_bf16_launches - before == 2 * seen
+    for i, (B, K, H, W, N, kernel, stride) in enumerate(BF16_EDGES):
+        x, w, scale, shift, _, _ = _conv_case(dev, B, K, H, W, N, kernel, stride, "prologue",
+                                              seed=100 + i)
+        st = (stride, stride)
+        got = cb.conv_block_infer(x, w, scale, shift, st, True, compute="bfloat16")
+        want = cb.conv_block_infer_plain(x.bfloat16(), w.bfloat16(), scale, shift, st,
+                                         True).float()
+        torch.cuda.synchronize()
+        cmp = cb.bf16_compare(got, want, x, w.shape, scale, shift, st, True)
+        assert cmp["beyond"] == cmp["beyond_at_kinks_too"] == 0, (B, K, H, W, N, kernel, cmp)
+    assert cb.infer_bf16_launches - before == 2 * seen + len(BF16_EDGES)
 
 
 #: the float32 conv+BN forward kernel's digests (tools/torch_conv_digest.py)
@@ -511,7 +534,7 @@ BF16_SHAPES = CONV_SHAPES + FWD_SHAPES[:3] + [(2, 64, 56, 56, 64, 3, 1),
                                               (2, 256, 56, 56, 512, 1, 2)]
 
 
-@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", BF16_SHAPES)
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", BF16_SHAPES + BF16_EDGES)
 @pytest.mark.parametrize("variant", ["bare", "prologue", "prologue_res"])
 def test_conv_bn_bf16_training_kernels_match_plain(dev, B, K, H, W, N, kernel, stride, variant):
     """The bf16 forms of the training forward (with the statistics) and of
@@ -1038,7 +1061,7 @@ STASH_SHAPES = [(2, 8, 9, 9, 16, 3, 1), (3, 32, 13, 11, 48, 1, 2), (3, 32, 7, 7,
                 (2, 256, 56, 56, 512, 1, 2)]
 
 
-@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", STASH_SHAPES)
+@pytest.mark.parametrize("B,K,H,W,N,kernel,stride", STASH_SHAPES + BF16_EDGES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("res", [False, True])
 def test_conv_bn_stash_kernels_match_plain_and_recompute(dev, B, K, H, W, N, kernel, stride,
